@@ -76,8 +76,8 @@ def _sweep_lib() -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build(SWEEP_SOURCE)))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.rtt_sweep_topk.argtypes = [p, p, p, p, p, i, i, i, f, f,
-                                           p, p, p, p]
+            lib.rtt_sweep_topk.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                           f, f, f, p, p, p, p, p]
             lib.rtt_sweep_topk.restype = ctypes.c_int
             _loaded["sweep"] = lib
         return lib
@@ -88,17 +88,24 @@ def load_sweep() -> None:
     _sweep_lib()
 
 
-def launch_sweep(pts, ids, nhits, pack, sub, nchunks: int, nblocks: int,
-                 spad: int, r2: float, rc2: float, edge, off, dist) -> None:
-    """One launch of the sweep on PyTorch's current stream. The tensors
-    are checked by the caller (ops.dense_candidates.sweep_topk)."""
+def launch_sweep(pts, ids, nhits, pack, sub, feat, arm: int, nchunks: int,
+                 nblocks: int, spad: int, r2: float, rc2: float,
+                 radius: float, edge, off, dist, gate_log=None) -> None:
+    """One launch of the sweep's arm ``arm`` on PyTorch's current stream.
+    The tensors are checked by the caller (ops.dense_candidates.sweep_topk);
+    ``sub``, ``feat`` and ``gate_log`` may be None where the arm reads none."""
     import torch
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
     lib = _sweep_lib()
     stream = torch.cuda.current_stream(pts.device).cuda_stream
     rc = lib.rtt_sweep_topk(
         pts.data_ptr(), ids.data_ptr(), nhits.data_ptr(), pack.data_ptr(),
-        None if sub is None else sub.data_ptr(), nchunks, nblocks, spad,
-        r2, rc2, edge.data_ptr(), off.data_ptr(), dist.data_ptr(), stream)
+        ptr(sub), ptr(feat), arm, nchunks, nblocks, spad, r2, rc2, radius,
+        edge.data_ptr(), off.data_ptr(), dist.data_ptr(), ptr(gate_log),
+        stream)
     if rc != 0:
-        raise RuntimeError(f"sweep_topk launch failed: cudaError {rc}")
+        raise RuntimeError(f"sweep_topk launch failed (arm {arm}): "
+                           f"cudaError {rc}")

@@ -1,10 +1,14 @@
 // Dense candidate sweep for Hopper (sm_90a): per probe point, the top-K
 // distinct edges within the search radius.
 //
-// Replaces the Pallas TPU kernels of reporter_tpu/ops/dense_candidates.py:
-//   _sweep_kernel      (whole-block arm)  -> SUBCULL = false
-//   _sweep_kernel_sub  (exact two-level arm, lowp="off", mxu=False)
-//                                         -> SUBCULL = true
+// Replaces the Pallas TPU kernels of reporter_tpu/ops/dense_candidates.py
+// (one pl.pallas_call, :755), as five arms of one kernel template:
+//   kBlock   _sweep_kernel :389-430 (whole-block arm)
+//   kSub     _sweep_kernel_sub :433-519 (exact two-level arm, lowp="off")
+//   kSubBf16 _sweep_kernel_sub :567-614 (bf16 VPU coarse filter)
+//   kMxu     _sweep_kernel_sub :521-564 (MXU coarse pass, f32 operands;
+//            here tf32 tensor-core operands)
+//   kMxuBf16 the same with bf16 operands
 // It computes what they compute, not how: the TPU kernel runs a sequential
 // (chunk, block-slot) grid with a [256, K] VMEM scratch merged by K masked
 // reductions; here one 256-thread block owns one 256-point chunk, each
@@ -14,41 +18,78 @@
 //
 // Per hit block the 8 x 512 f32 component rows (ax, ay, bx, by, off, len,
 // edge-bits, spare) are staged in shared memory (16 KB); every thread of a
-// warp reads the same column at once, a broadcast. With SUBCULL each
-// 128-column slice is first tested against its bbox quad: a warp sweeps
-// the slice only if one of its 32 points lies within the dilated cull
-// radius of the quad (a lower bound on every point-to-segment distance in
-// the slice, so no in-radius pair is ever skipped). NaN quads (all-padding
-// slices) are skipped.
+// warp reads the same column at once, a broadcast. In the two-level arms
+// each 128-column slice is first tested against its bbox quad: a warp
+// votes to sweep the slice only if one of its 32 points lies within the
+// dilated cull radius of the quad (a lower bound on every point-to-segment
+// distance in the slice, so no in-radius pair is ever skipped). NaN quads
+// (all-padding slices) are skipped.
 //
-// Bound on this card: the arithmetic of the swept (point, column) pairs,
-// about 20 f32 operations each, on the CUDA cores (no tensor-core form of
-// the exact geometry); the bytes moved (the hit blocks, the points, the
-// [N, K] outputs) are small beside it. The design keeps the top-K merge off
-// the per-pair path: a pair outside the radius costs only its geometry and
-// one compare.
+// The coarse arms put a warp-uniform gate between the vote and the exact
+// pass: the warp sweeps the slice exactly only if the minimum of a cheap
+// lower bound over its 32 points x the slice's 128 columns passes the JAX
+// kernel's threshold. The TPU takes that minimum over the chunk's 256
+// points; the per-warp minimum is tighter and still conservative.
+//  - bf16 filter: point and endpoints recentred on the slice bbox and
+//    clamped into it (dilated by ~radius), then the point-to-segment d^2 in
+//    bf16, every operation rounded once in the JAX kernel's order
+//    (__h*_rn forms are never contracted). The column side (endpoints,
+//    direction, denominator) is computed once per block into shared
+//    memory. Pass: min d2c <= (r + 0.0625 scale + 0.5)^2. It runs on the
+//    CUDA cores, 17 bf16 operations a pair against ~24 f32 ones for the
+//    exact geometry, so it gains only where it skips most voted tiles.
+//  - tensor-core pass: each warp writes its [32, 8] point features
+//    (qx^2, qy^2, qx qy, qx, qy, 1, 0, 0; recentred on the slice centre of
+//    the feat rows, clamped) to shared memory and runs 2 (m16) x 16 (n8)
+//    mma.sync.m16n8k8 products against the slice's [8, 128] feat rows
+//    (staged in shared memory only for slices some warp voted for), in
+//    tf32 (operands by cvt.rna) or bf16, f32 accumulation: every pair's
+//    point-to-line d^2. Pass: min <= r^2 + 0.0625 scale^2 + 0.5. The
+//    margin assumes bf16-grade operands for both types.
+//
+// Bound on this card: the arithmetic of the exactly swept (point, column)
+// pairs, about 20 f32 operations each, on the CUDA cores (no tensor-core
+// form of the exact geometry), plus the coarse pairs of the gated arms on
+// their unit; the bytes moved (the hit blocks, the points, the [N, K]
+// outputs) are small beside it. The design keeps the top-K merge off the
+// per-pair path: a pair outside the radius costs only its geometry and one
+// compare, and the gates skip whole (warp, slice) tiles.
 //
 // Exactness: built with -fmad=false -prec-div=true -prec-sqrt=true, so
 // every operation rounds once, in the reference's order, exactly like the
 // plain PyTorch version (_dense_plain); FMA contraction would move d^2 by
-// an ulp and flip d = 0 junction ties and radius-boundary points.
+// an ulp and flip d = 0 junction ties and radius-boundary points. The
+// gates only skip tiles that provably hold no pair within the radius, so
+// all five arms return the same candidates, bit for bit.
 //
 // Top-K order: (d^2 ascending, edge id ascending). An edge already held
 // keeps its smallest d^2 and, at equal d^2, its smallest projection
 // offset -- the same answer as the reference's repeated _select_topk
 // merge. Empty slots: edge -1, offset 0, dist BIG.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kP = 256;       // points per chunk = threads per block
+constexpr int kWarps = kP / 32;
 constexpr int kSblk = 512;    // segment columns per block
 constexpr int kSub = 128;     // columns per culling slice
 constexpr int kNsub = kSblk / kSub;
 constexpr int kNcomp = 8;
 constexpr int kK = 8;         // top-K width
 constexpr float kBig = 1e30f;
+
+// arm codes (ops/dense_candidates.py SWEEP_ARMS order)
+constexpr int kBlock = 0, kSub2 = 1, kSubBf16 = 2, kMxu = 3, kMxuBf16 = 4;
+
+// seg_feat rows holding the slice centre; staged feat rows are padded so
+// the B-fragment loads of one mma fall in distinct banks
+constexpr int kFcx = 6, kFcy = 7;
+constexpr int kFsPitch = kSblk + 8;
 
 __device__ __forceinline__ bool before(float d1, int e1, float d2, int e2) {
   return d1 < d2 || (d1 == d2 && e1 < e2);
@@ -93,25 +134,145 @@ __device__ __forceinline__ void offer(float d, int e, float o,
   bubble(bd, be, bo);
 }
 
-template <bool SUBCULL>
+__device__ __forceinline__ float clampf(float v, float e) {
+  return fminf(fmaxf(v, -e), e);       // jnp.clip(v, -e, e)
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// two bf16 operands in one register, the lower k index in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return l | (h << 16);
+}
+
+// Column side of the bf16 filter for the block's 512 columns, in the order
+// of :584-597: endpoints recentred and clamped in f32, then bf16.
+struct Bf16Cols {
+  __nv_bfloat16 ax[kSblk], ay[kSblk], abx[kSblk], aby[kSblk], den[kSblk];
+};
+
+// The bf16 gate of one slice for this lane's point: its minimum d2c over
+// the slice's 128 columns (:598-603, one bf16 rounding per operation).
+__device__ float bf16_lane_min(const Bf16Cols& cb, int c0, float px,
+                               float py, float cx, float cy, float ex,
+                               float ey) {
+  const __nv_bfloat16 pxl = __float2bfloat16_rn(clampf(px - cx, ex));
+  const __nv_bfloat16 pyl = __float2bfloat16_rn(clampf(py - cy, ey));
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.f);
+  float mn = __int_as_float(0x7f800000);   // +inf
+  for (int c = c0; c < c0 + kSub; ++c) {
+    const __nv_bfloat16 axl = cb.ax[c], ayl = cb.ay[c];
+    const __nv_bfloat16 abx = cb.abx[c], aby = cb.aby[c];
+    const __nv_bfloat16 num = __hadd_rn(__hmul_rn(__hsub_rn(pxl, axl), abx),
+                                        __hmul_rn(__hsub_rn(pyl, ayl), aby));
+    __nv_bfloat16 t = __hdiv(num, cb.den[c]);
+    t = __hmin(__hmax(t, zero), one);
+    const __nv_bfloat16 dx = __hsub_rn(pxl, __hadd_rn(axl, __hmul_rn(t, abx)));
+    const __nv_bfloat16 dy = __hsub_rn(pyl, __hadd_rn(ayl, __hmul_rn(t, aby)));
+    const __nv_bfloat16 d2 = __hadd_rn(__hmul_rn(dx, dx), __hmul_rn(dy, dy));
+    mn = fminf(mn, __bfloat162float(d2));
+  }
+  return mn;
+}
+
+// The tensor-core coarse pass of one slice for this warp: the minimum of
+// tile[32, 8] x fs[8, c0:c0+128] over all 32 x 128 outputs. Any row
+// order of A and column order of B give the same minimum; only the k
+// index must agree between the A and B fragments (PTX ISA, "Matrix
+// Fragments for mma.m16n8k8": tf32 A a0..a3 at k = t, t, t+4, t+4 and B
+// b0, b1 at k = t, t+4; bf16 A pairs at k = 2t, 2t+1 and B pair at
+// k = 2t, 2t+1, with t = lane % 4 and g = lane / 4 the row / column).
+template <bool BF16>
+__device__ float mma_warp_min(const float* tile, const float (*fs)[kFsPitch],
+                              int c0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float mn = __int_as_float(0x7f800000);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const float* r0 = tile + (mt * 16 + g) * 8;
+    const float* r1 = tile + (mt * 16 + g + 8) * 8;
+    uint32_t a0, a1, a2 = 0u, a3 = 0u;
+    if (BF16) {
+      a0 = bf16x2(r0[2 * t], r0[2 * t + 1]);
+      a1 = bf16x2(r1[2 * t], r1[2 * t + 1]);
+    } else {
+      a0 = tf32(r0[t]);
+      a1 = tf32(r1[t]);
+      a2 = tf32(r0[t + 4]);
+      a3 = tf32(r1[t + 4]);
+    }
+#pragma unroll 4
+    for (int nt = 0; nt < kSub / 8; ++nt) {
+      const int col = c0 + nt * 8 + g;
+      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+      if (BF16) {
+        const uint32_t b = bf16x2(fs[2 * t][col], fs[2 * t + 1][col]);
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+            : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+            : "r"(a0), "r"(a1), "r"(b));
+      } else {
+        const uint32_t b0 = tf32(fs[t][col]);
+        const uint32_t b1 = tf32(fs[t + 4][col]);
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      }
+      mn = fminf(mn, fminf(fminf(d0, d1), fminf(d2, d3)));
+    }
+  }
+  return warp_min(mn);
+}
+
+template <int ARM>
 __global__ void __launch_bounds__(kP)
 sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
                   const int* __restrict__ ids,      // [nchunks, nblocks]
                   const int* __restrict__ nhits,    // [nchunks]
                   const float* __restrict__ pack,   // [8, spad]
                   const float* __restrict__ sub,    // [nblocks, nsub*4]
-                  int nblocks, int spad, float r2, float rc2,
+                  const float* __restrict__ feat,   // [8, spad]
+                  int nblocks, int spad, float r2, float rc2, float radius,
                   int* __restrict__ out_edge,       // [nchunks*P, K]
                   float* __restrict__ out_off,
-                  float* __restrict__ out_dist) {
+                  float* __restrict__ out_dist,
+                  int* __restrict__ gate_log) {     // [nchunks, 8, nblocks]
+  constexpr bool kTwoLevel = ARM != kBlock;
+  constexpr bool kBf16Filter = ARM == kSubBf16;
+  constexpr bool kTensor = ARM == kMxu || ARM == kMxuBf16;
   __shared__ float seg[kNcomp][kSblk];
   __shared__ float quad[kNsub * 4];
+  __shared__ float fs[kTensor ? kNcomp : 1][kFsPitch];
+  __shared__ float tiles[kTensor ? kWarps : 1][32 * 8];
+  __shared__ __align__(16) unsigned char cb_raw[kBf16Filter ? sizeof(Bf16Cols) : 16];
+  __shared__ unsigned slice_mask;
+  Bf16Cols& cb = *reinterpret_cast<Bf16Cols*>(cb_raw);
 
   const int chunk = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const long p = static_cast<long>(chunk) * kP + tid;
   const float px = pts[2 * p];
   const float py = pts[2 * p + 1];
+  const float mx = radius * 1.001f + 0.5f;     // the clamp box's dilation
 
   float bd[kK];
   int be[kK];
@@ -129,15 +290,17 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
       const int col = i - c * kSblk;
       seg[c][col] = src[static_cast<long>(c) * spad + col];
     }
-    if (SUBCULL && tid < kNsub * 4) {
+    if (kTwoLevel && tid < kNsub * 4) {
       quad[tid] = sub[static_cast<long>(blk) * kNsub * 4 + tid];
     }
+    if (tid == 0) slice_mask = 0u;
     __syncthreads();
 
-    for (int s = 0; s < (SUBCULL ? kNsub : 1); ++s) {
-      const int c0 = SUBCULL ? s * kSub : 0;
-      const int c1 = SUBCULL ? c0 + kSub : kSblk;
-      if (SUBCULL) {
+    // the warp's vote per slice (bit s)
+    unsigned vote = kTwoLevel ? 0u : 1u;
+    if (kTwoLevel) {
+#pragma unroll
+      for (int s = 0; s < kNsub; ++s) {
         const float lox = quad[4 * s], loy = quad[4 * s + 1];
         const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
         bool near = false;
@@ -146,8 +309,76 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
           const float dy = fmaxf(fmaxf(loy - py, py - hiy), 0.f);
           near = dx * dx + dy * dy <= rc2;
         }
-        if (!__any_sync(0xffffffffu, near)) continue;   // warp-uniform
+        if (__any_sync(0xffffffffu, near)) vote |= 1u << s;
       }
+    }
+    if constexpr (kBf16Filter) {
+      // column side of the bf16 filter, once per block (two columns a thread)
+      for (int c = tid; c < kSblk; c += kP) {
+        const int s = c / kSub;
+        const float lox = quad[4 * s], loy = quad[4 * s + 1];
+        const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
+        const float cx = (lox + hix) * 0.5f, cy = (loy + hiy) * 0.5f;
+        const float ex = (hix - lox) * 0.5f + mx, ey = (hiy - loy) * 0.5f + mx;
+        const __nv_bfloat16 axl = __float2bfloat16_rn(clampf(seg[0][c] - cx, ex));
+        const __nv_bfloat16 ayl = __float2bfloat16_rn(clampf(seg[1][c] - cy, ey));
+        const __nv_bfloat16 bxl = __float2bfloat16_rn(clampf(seg[2][c] - cx, ex));
+        const __nv_bfloat16 byl = __float2bfloat16_rn(clampf(seg[3][c] - cy, ey));
+        const __nv_bfloat16 abx = __hsub_rn(bxl, axl);
+        const __nv_bfloat16 aby = __hsub_rn(byl, ayl);
+        cb.ax[c] = axl; cb.ay[c] = ayl; cb.abx[c] = abx; cb.aby[c] = aby;
+        cb.den[c] = __hmax(__hadd_rn(__hmul_rn(abx, abx), __hmul_rn(aby, aby)),
+                           __float2bfloat16_rn(1e-12f));
+      }
+      __syncthreads();
+    }
+    if constexpr (kTensor) {
+      // stage the feat rows of the slices some warp voted for
+      if (lane == 0 && vote) atomicOr(&slice_mask, vote);
+      __syncthreads();
+      const unsigned m = slice_mask;
+      const float* fsrc = feat + static_cast<long>(blk) * kSblk;
+      for (int i = tid; i < kNcomp * kSblk; i += kP) {
+        const int c = i / kSblk;
+        const int col = i - c * kSblk;
+        if ((m >> (col / kSub)) & 1u) {
+          fs[c][col] = fsrc[static_cast<long>(c) * spad + col];
+        }
+      }
+      __syncthreads();
+    }
+
+    unsigned gated = 0u;
+    for (int s = 0; s < (kTwoLevel ? kNsub : 1); ++s) {
+      if (!((vote >> s) & 1u)) continue;            // warp-uniform
+      const int c0 = kTwoLevel ? s * kSub : 0;
+      const int c1 = kTwoLevel ? c0 + kSub : kSblk;
+      if constexpr (kBf16Filter || kTensor) {
+        const float lox = quad[4 * s], loy = quad[4 * s + 1];
+        const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
+        const float ex = (hix - lox) * 0.5f + mx, ey = (hiy - loy) * 0.5f + mx;
+        const float scale = fmaxf(ex, ey);
+        bool pass;
+        if constexpr (kBf16Filter) {
+          const float cx = (lox + hix) * 0.5f, cy = (loy + hiy) * 0.5f;
+          const float rl = radius + scale * 0.0625f + 0.5f;
+          const float mn = bf16_lane_min(cb, c0, px, py, cx, cy, ex, ey);
+          pass = __any_sync(0xffffffffu, mn <= rl * rl);
+        } else {
+          const float qx = clampf(px - fs[kFcx][c0], ex);
+          const float qy = clampf(py - fs[kFcy][c0], ey);
+          float* tile = tiles[warp];
+          const float f[8] = {qx * qx, qy * qy, qx * qy, qx, qy, 1.f, 0.f, 0.f};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) tile[lane * 8 + i] = f[i];
+          __syncwarp();
+          const float mn = mma_warp_min<ARM == kMxuBf16>(tile, fs, c0, lane);
+          __syncwarp();                 // the tile is rewritten next slice
+          pass = mn <= r2 + scale * scale * 0.0625f + 0.5f;
+        }
+        if (!pass) continue;
+      }
+      gated |= 1u << s;
       for (int c = c0; c < c1; ++c) {
         const int e = __float_as_int(seg[6][c]);
         const float ax = seg[0][c], ay = seg[1][c];
@@ -164,6 +395,10 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
         }
       }
     }
+    if (gate_log != nullptr && lane == 0) {
+      gate_log[(static_cast<long>(chunk) * kWarps + warp) * nblocks + j] =
+          static_cast<int>(vote | (gated << kNsub));
+    }
   }
 
 #pragma unroll
@@ -175,25 +410,55 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
   }
 }
 
+template <int ARM>
+int launch(const float* pts, const int* ids, const int* nhits,
+           const float* pack, const float* sub, const float* feat,
+           int nchunks, int nblocks, int spad, float r2, float rc2,
+           float radius, int* out_edge, float* out_off, float* out_dist,
+           int* gate_log, cudaStream_t st) {
+  sweep_topk_kernel<ARM><<<nchunks, kP, 0, st>>>(
+      pts, ids, nhits, pack, sub, feat, nblocks, spad, r2, rc2, radius,
+      out_edge, out_off, out_dist, gate_log);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches one arm on `stream`; returns the launch's cudaError_t (0 = ok).
-// sub == nullptr selects the whole-block arm.
+// Launches arm `arm` (0 block, 1 sub, 2 sub_bf16, 3 mxu, 4 mxu_bf16) on
+// `stream`; returns the launch's cudaError_t (0 = ok), or -1 for an
+// unknown arm. sub is read by every arm but the whole-block one, feat by
+// the mxu arms; gate_log (may be null) receives per (chunk, warp, hit
+// slot) the slice votes (bits 0-3) and the slices swept exactly (4-7).
 extern "C" int rtt_sweep_topk(const float* pts, const int* ids,
                               const int* nhits, const float* pack,
-                              const float* sub, int nchunks, int nblocks,
-                              int spad, float r2, float rc2, int* out_edge,
-                              float* out_off, float* out_dist,
+                              const float* sub, const float* feat, int arm,
+                              int nchunks, int nblocks, int spad, float r2,
+                              float rc2, float radius, int* out_edge,
+                              float* out_off, float* out_dist, int* gate_log,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sub != nullptr) {
-    sweep_topk_kernel<true><<<nchunks, kP, 0, st>>>(
-        pts, ids, nhits, pack, sub, nblocks, spad, r2, rc2, out_edge,
-        out_off, out_dist);
-  } else {
-    sweep_topk_kernel<false><<<nchunks, kP, 0, st>>>(
-        pts, ids, nhits, pack, sub, nblocks, spad, r2, rc2, out_edge,
-        out_off, out_dist);
+  switch (arm) {
+    case kBlock:
+      return launch<kBlock>(pts, ids, nhits, pack, sub, feat, nchunks,
+                            nblocks, spad, r2, rc2, radius, out_edge,
+                            out_off, out_dist, gate_log, st);
+    case kSub2:
+      return launch<kSub2>(pts, ids, nhits, pack, sub, feat, nchunks,
+                           nblocks, spad, r2, rc2, radius, out_edge,
+                           out_off, out_dist, gate_log, st);
+    case kSubBf16:
+      return launch<kSubBf16>(pts, ids, nhits, pack, sub, feat, nchunks,
+                              nblocks, spad, r2, rc2, radius, out_edge,
+                              out_off, out_dist, gate_log, st);
+    case kMxu:
+      return launch<kMxu>(pts, ids, nhits, pack, sub, feat, nchunks,
+                          nblocks, spad, r2, rc2, radius, out_edge,
+                          out_off, out_dist, gate_log, st);
+    case kMxuBf16:
+      return launch<kMxuBf16>(pts, ids, nhits, pack, sub, feat, nchunks,
+                              nblocks, spad, r2, rc2, radius, out_edge,
+                              out_off, out_dist, gate_log, st);
+    default:
+      return -1;
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,21 @@ one request; ``match_many(traces)`` is the throughput path:
 3. host harvest: ``unpack_wire`` and the Python edge walk
    (matcher/segments.build_segments) turn the wire into SegmentRecords.
 
-Not ported here: the watchdog and fallback oracle, quality telemetry, the
-autotuner, fleet paging, mesh sharding and the native C prepare and walk.
+Construction applies the RTPU_SWEEP_* overrides to the params and, on the
+card, resolves the sweep's kernel arm for this metro (matcher/autotune.py:
+explicit levers, then the on-disk cache, then a calibration, which
+raises if any arm fails to run). The
+calibration times the candidate stage alone (``batch_candidates`` on the
+decoded ``calibration_batch``, ``CAL_DISPATCHES`` launches between two
+CUDA events, one synchronize), not the whole wire entry as the JAX
+package does: the port's Viterbi is plain torch, launch-bound and some
+200 times the sweep's device time, so whole-entry times would drown the
+arms' sub-millisecond differences in host jitter. Only the sweep differs
+between plans, so the decision is the same one.
+
+Not ported here: the watchdog and fallback oracle, quality telemetry,
+fleet paging (and with it a plan staged in the tables), mesh sharding
+and the native C prepare and walk.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ import torch
 from reporter_tpu_torch.config import MatcherParams
 from reporter_tpu_torch.device import resolve_device
 from reporter_tpu_torch.geometry import lonlat_to_xy
+from reporter_tpu_torch.matcher import autotune
 from reporter_tpu_torch.matcher.segments import (MatchedChain, SegmentRecord,
                                                  build_segments,
                                                  reach_route_fn)
@@ -140,12 +154,14 @@ class SegmentMatcher:
     ``stage_seconds`` accumulates wall time per stage of ``match_many``:
     "prepare" (host), "device" (dispatch through the synchronizing
     harvest of the wire) and "walk" (unpack + edge walk); ``point_counts``
-    the real points decoded and those left unmatched."""
+    the real points decoded and those left unmatched. ``tuned_plan`` is
+    the sweep plan the tuner applied (None where it did not act) and
+    ``tuned_report`` what it did and measured."""
 
     def __init__(self, tileset: TileSet, params: MatcherParams | None = None,
                  device: "str | torch.device | None" = None):
         self.ts = tileset
-        self.params = params or MatcherParams()
+        self.params = (params or MatcherParams()).with_env_overrides()
         self.device = resolve_device(device)
         self.tables = tables_from_numpy(tileset.arrays(), self.device)
         self.wire_spec = match_ops.wire_spec(
@@ -154,6 +170,61 @@ class SegmentMatcher:
         self._route_fn = reach_route_fn(tileset)
         self.stage_seconds = {"prepare": 0.0, "device": 0.0, "walk": 0.0}
         self.point_counts = {"points": 0, "unmatched": 0}
+        self.tuned_plan: "autotune.TunedPlan | None" = None
+        self.tuned_report: dict = {}
+        self._autotune_resolve()
+
+    # ---- per-metro sweep plan ---------------------------------------------
+
+    def _autotune_resolve(self) -> None:
+        """Resolve this metro's sweep plan and apply it to ``params``."""
+        state: dict = {}
+
+        def measure(plan: "autotune.TunedPlan") -> float:
+            if not state:
+                pts_q, origins, lens = autotune.calibration_batch(self.ts)
+                q = torch.from_numpy(pts_q).to(self.device)
+                o = torch.from_numpy(origins).to(self.device)
+                quantum = torch.tensor(_QUANTUM, dtype=torch.float32,
+                                       device=self.device)
+                state["pts"] = o[:, None, :] + q.to(torch.float32) * quantum
+                state["valid"] = match_ops._valid(
+                    torch.from_numpy(lens).to(self.device), q.shape[1])
+            p = self.params.replace(**plan.params_overrides())
+
+            def run():
+                match_ops.batch_candidates(state["pts"], state["valid"],
+                                           self.tables, p)
+
+            run()                       # untimed: builds the kernel library
+            torch.cuda.synchronize(self.device)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(autotune.CAL_DISPATCHES):
+                run()
+            t1.record()
+            t1.synchronize()
+            return t0.elapsed_time(t1) / 1e3 / autotune.CAL_DISPATCHES
+
+        plan, info = autotune.resolve_plan(self.params, self.ts, measure,
+                                           backend=self.device.type)
+        if info.get("errors"):
+            # calibrate skips an arm that raised; serving another arm
+            # would hide a kernel that does not build or launch
+            raise RuntimeError(f"sweep calibration: arms failed on "
+                               f"{info['device']}: {info['errors']}")
+        self.tuned_report = info
+        if plan is None or plan.source == "default":
+            return          # the params already are the static default
+        self.params = self.params.replace(**plan.params_overrides())
+        self.tuned_plan = plan
+
+    def tuned_plan_array(self) -> "np.ndarray | None":
+        """The applied plan as the i32[5] plan vector, or None untuned."""
+        if self.tuned_plan is None:
+            return None
+        return autotune.plan_array(self.tuned_plan)
 
     # ---- single-trace API -------------------------------------------------
 

@@ -8,14 +8,20 @@ smallest edge id, the offset being that edge's smallest tied projection.
 
 - ``build_seg_pack`` Morton-sorts the line segments into 512-column blocks
   of [8, S_pad] f32 component rows (edge ids bit-cast into row 6) with
-  per-block and per-128-column-slice bboxes — byte-equal to the JAX
-  package's pack.
+  per-block and per-128-column-slice bboxes and the per-column feature
+  rows of the tensor-core coarse pass — byte-equal to the JAX package's
+  pack.
 - ``_dense_plain`` is the full sweep without culling (the JAX package's
   ``_dense_jnp``), chunked over 128 points. The CPU path and the tests use
   it; ``chip_smoke.py`` holds the kernel against it on the card.
 - ``find_candidates_dense`` on a CUDA tensor runs the cull pre-pass
   (``_chunk_block_ids``, plain PyTorch) and then ``sweep_topk``, the
-  wrapper of the hand-written kernel in ``kernels/sweep.cu``.
+  wrapper of the hand-written kernel in ``kernels/sweep.cu``, in one of
+  five arms (``SWEEP_ARMS``). All five return the same candidates.
+- ``_coarse_bf16_gate`` and ``_coarse_mxu_gate`` are the plain versions of
+  the two coarse arms' gate: per 32-point warp and hit 128-column slice,
+  whether the exact pass runs. The card holds the kernel's decisions
+  against them; the CPU tests fuzz them for conservativeness.
 """
 
 from __future__ import annotations
@@ -31,18 +37,40 @@ BIG = 1e30
 SP_AX, SP_AY, SP_BX, SP_BY, SP_OFF, SP_LEN, SP_EDGE, SP_SPARE = range(8)
 SP_NCOMP = 8
 
+# seg_feat component rows: per-column coefficients such that, for a point
+# recentred on its column's slice centre (q = p - c),
+#   A·qx² + B·qy² + C·qx·qy + D·qx + E·qy + F
+# is the squared distance from p to the segment's infinite line, a lower
+# bound on the point-to-segment distance. Rows CX/CY carry that centre.
+# Padding columns carry zero coefficients and F = BIG.
+SF_A, SF_B, SF_C, SF_D, SF_E, SF_F, SF_CX, SF_CY = range(8)
+SF_NCOMP = 8
+
+# Margin of the tensor-core coarse test, relative to the squared clamp-box
+# scale, plus an absolute slack (m²): it assumes bf16-grade operand
+# rounding for both operand types (the JAX package's argument, kept).
+_MXU_REL_MARGIN = 0.0625
+_MXU_ABS_MARGIN = 0.5
+
 _P = 256          # points per chunk: one CUDA thread block, one thread a point
+_WARP = 32        # points per warp: the unit of the in-kernel slice gates
 _SBLK = 512       # segment columns per block (the culling unit)
 _SUB = 128        # columns per slice of the kernel's second culling level
 _NSUB = 8         # sub-bboxes per chunk in the pre-pass (32 points each)
 _PLAIN_P = 128    # points per chunk of the plain sweep (bounds its [P, S] temporaries)
+_GATE_ROWS = 2048  # (warp, slice) pairs per step of the plain gates
 SPLIT_LEN = 256.0  # long-segment pre-split span
 SWEEP_K = 8       # the top-K width the kernel is built for
+
+# The kernel's arms, by their launch code: the whole-block arm, the exact
+# two-level arm, the bf16 coarse filter, and the tensor-core coarse pass
+# with tf32 or bf16 operands.
+SWEEP_ARMS = ("block", "sub", "sub_bf16", "mxu", "mxu_bf16")
 
 # Launches of the CUDA sweep on the main path, per arm. sweep_topk adds one
 # per kernel launch and nothing else does; chip_smoke.py resets and reads
 # them around the main-path run.
-SWEEP_LAUNCHES = {"sub": 0, "block": 0}
+SWEEP_LAUNCHES = dict.fromkeys(SWEEP_ARMS, 0)
 
 
 class CandidateSet(NamedTuple):
@@ -61,6 +89,7 @@ class SegPack(NamedTuple):
     bbox: np.ndarray   # f32 [nblocks, 4] per-block (xmin, ymin, xmax, ymax)
     sub: np.ndarray    # f32 [nblocks, (SBLK/SUB)*4] per-slice bbox quads,
     #                    NaN for a slice with no real column
+    feat: np.ndarray   # f32 [8, S_pad] per-column coarse-pass rows (SF_*)
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
@@ -182,8 +211,30 @@ def build_seg_pack(seg_a: np.ndarray, seg_b: np.ndarray, seg_edge: np.ndarray,
                       cxmax.reshape(-1, subw).max(1),
                       cymax.reshape(-1, subw).max(1)], axis=1)
     quads[~real.reshape(-1, subw).any(1)] = np.nan
-    sub = quads.astype(np.float32).reshape(nblocks, nsub * 4)
-    return SegPack(pack=pack, bbox=bbox, sub=sub)
+    quads = quads.astype(np.float32)
+    sub = quads.reshape(nblocks, nsub * 4)
+
+    # coarse-pass rows: coefficients in f64, stored in f32; the slice
+    # centre rides rows CX/CY so the kernel never recomputes it
+    centers = np.stack([(quads[:, 0] + quads[:, 2]) * np.float32(0.5),
+                        (quads[:, 1] + quads[:, 3]) * np.float32(0.5)], axis=1)
+    c64 = np.repeat(centers, subw, axis=0).astype(np.float64)   # [spad, 2]
+    a64 = np.stack([pack[SP_AX], pack[SP_AY]], 1).astype(np.float64)
+    b64 = np.stack([pack[SP_BX], pack[SP_BY]], 1).astype(np.float64)
+    d64 = b64 - a64
+    w = 1.0 / np.maximum((d64 * d64).sum(1), 1e-12)
+    e64 = a64 - c64
+    g = e64[:, 0] * d64[:, 1] - e64[:, 1] * d64[:, 0]           # e × d
+    feat = np.zeros((SF_NCOMP, spad), np.float32)
+    feat[SF_A] = np.where(real, d64[:, 1] ** 2 * w, 0.0)
+    feat[SF_B] = np.where(real, d64[:, 0] ** 2 * w, 0.0)
+    feat[SF_C] = np.where(real, -2.0 * d64[:, 0] * d64[:, 1] * w, 0.0)
+    feat[SF_D] = np.where(real, -2.0 * g * d64[:, 1] * w, 0.0)
+    feat[SF_E] = np.where(real, 2.0 * g * d64[:, 0] * w, 0.0)
+    feat[SF_F] = np.where(real, g * g * w, BIG)
+    feat[SF_CX] = c64[:, 0]
+    feat[SF_CY] = c64[:, 1]
+    return SegPack(pack=pack, bbox=bbox, sub=sub, feat=feat)
 
 
 def cull_radius(radius: float) -> float:
@@ -302,16 +353,193 @@ def _chunk_block_ids(pts, valid, bbox, radius: float, nchunks: int):
     return ids, hit.sum(dim=1, dtype=torch.int32).contiguous()
 
 
+class GateLog(NamedTuple):
+    """Per (chunk, warp, hit slot j, slice) decisions of a coarse arm
+    ([nchunks, P/32, nblocks, nsub]; slot j is block ids[chunk, j], slots
+    past nhits are False)."""
+
+    vote: torch.Tensor     # bool: a warp point lies within the cull radius
+    #                        of the slice's bbox (the two-level arm's test)
+    gate: torch.Tensor     # bool: vote, and the coarse test admits the slice
+    cmin: "torch.Tensor | None" = None   # f32 the warp's coarse minimum
+    thr: "torch.Tensor | None" = None    # f32 the slice's threshold
+
+
+def _slice_votes(pts, ids, nhits, sub, rc2: float):
+    """The kernel's warp vote in plain PyTorch → bool [nc, P/32, nb, nsub]."""
+    nchunks, nblocks = ids.shape
+    hit = torch.arange(nblocks, device=ids.device)[None, :] < nhits[:, None]
+    blk = torch.where(hit, ids, 0).long()
+    quads = sub[blk].reshape(nchunks, 1, 1, nblocks, -1, 4)
+    p = pts.reshape(nchunks, _P // _WARP, _WARP, 1, 1, 2)
+    lo, hi = quads[..., 0:2], quads[..., 2:4]
+    d = torch.clamp_min(torch.maximum(lo - p, p - hi), 0.0)
+    near = ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) <= rc2) \
+        & (lo <= hi).all(-1)
+    return near.any(2) & hit[:, None, :, None]
+
+
+def _coarse_rows(pts, ids, vote, table):
+    """For each voted (chunk, warp, slot, slice): the warp's points
+    [n, 32, 2] and the slice's 128 columns of ``table`` [n, 8, 128]."""
+    c, w, j, s = vote.nonzero(as_tuple=True)
+    start = (c * _P + w * _WARP)[:, None] + torch.arange(
+        _WARP, device=pts.device)
+    col0 = ids[c, j].long() * _SBLK + s * _SUB
+    cols = col0[:, None] + torch.arange(_SUB, device=pts.device)
+    return pts[start], table[:, cols].permute(1, 0, 2), (c, w, j, s)
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _clip_half_box(quad, radius: float):
+    """The recentring box of a slice: (lox, loy, hix, hiy), each [n, 1, 1],
+    and the half extents dilated by ~radius (ex, ey)."""
+    lox, loy, hix, hiy = (quad[:, i, None, None] for i in range(4))
+    mx = _f32(radius, quad) * _f32(1.001, quad) + _f32(0.5, quad)
+    ex = (hix - lox) * 0.5 + mx
+    ey = (hiy - loy) * 0.5 + mx
+    return lox, loy, hix, hiy, ex, ey
+
+
+def _bf16_coarse_d2(p, seg, quad, radius: float):
+    """The bf16 filter's pair distances: p [n, 32, 2] points, seg [n, 8,
+    128] pack columns, quad [n, 4] the slice's bbox → (d²c f32 [n, 32,
+    128], threshold f32 [n]). Every operation after the recentre and clamp
+    is a bf16 operation, rounded once, in the JAX kernel's order."""
+    bf = torch.bfloat16
+    lox, loy, hix, hiy, ex, ey = _clip_half_box(quad, radius)
+    cx = (lox + hix) * 0.5
+    cy = (loy + hiy) * 0.5
+
+    def clip(v, c, e):
+        return torch.clamp(v - c, -e, e).to(bf)
+
+    pxl, pyl = clip(p[..., 0:1], cx, ex), clip(p[..., 1:2], cy, ey)
+    axl = clip(seg[:, SP_AX:SP_AX + 1], cx, ex)
+    ayl = clip(seg[:, SP_AY:SP_AY + 1], cy, ey)
+    bxl = clip(seg[:, SP_BX:SP_BX + 1], cx, ex)
+    byl = clip(seg[:, SP_BY:SP_BY + 1], cy, ey)
+    abx = bxl - axl
+    aby = byl - ayl
+    den = torch.maximum(abx * abx + aby * aby,
+                        torch.tensor(1e-12, dtype=bf, device=p.device))
+    t = torch.clamp(((pxl - axl) * abx + (pyl - ayl) * aby) / den, 0.0, 1.0)
+    dxl = pxl - (axl + t * abx)
+    dyl = pyl - (ayl + t * aby)
+    d2c = (dxl * dxl + dyl * dyl).to(torch.float32)
+    scale = torch.maximum(ex, ey)[:, 0, 0]
+    rl = _f32(radius, p) + scale * _f32(0.0625, p) + _f32(0.5, p)
+    return d2c, rl * rl
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 → tf32 (10 mantissa bits), rounded to nearest with ties away
+    from zero: what the kernel's cvt.rna.tf32.f32 gives."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mxu_coarse_d2(p, feat, quad, radius: float, lowp: str):
+    """The tensor-core coarse pass's pair values: p [n, 32, 2], feat [n, 8,
+    128] coarse rows of the slice, quad [n, 4] → (point-to-line d² f32 [n,
+    32, 128], threshold f32 [n]). Features and coefficients are rounded to
+    the operand type (bf16, or tf32 for lowp="off"); the product
+    accumulates in f32."""
+    _, _, _, _, exm, eym = _clip_half_box(quad, radius)
+    cx = feat[:, SF_CX, 0, None, None]
+    cy = feat[:, SF_CY, 0, None, None]
+    qx = torch.clamp(p[..., 0:1] - cx, -exm, exm)
+    qy = torch.clamp(p[..., 1:2] - cy, -eym, eym)
+    one, zero = torch.ones_like(qx), torch.zeros_like(qx)
+    pf = torch.cat([qx * qx, qy * qy, qx * qy, qx, qy, one, zero, zero], -1)
+    if lowp == "bf16":
+        lhs = pf.to(torch.bfloat16).to(torch.float32)
+        rhs = feat.to(torch.bfloat16).to(torch.float32)
+    else:
+        lhs, rhs = _tf32_rna(pf), _tf32_rna(feat)
+    d2m = torch.bmm(lhs, rhs)
+    scale = torch.maximum(exm, eym)[:, 0, 0]
+    thr = (_f32(radius * radius, p) + scale * scale * _f32(_MXU_REL_MARGIN, p)
+           + _f32(_MXU_ABS_MARGIN, p))
+    return d2m, thr
+
+
+def _coarse_gate(pts, ids, nhits, sub, radius: float, table, pairs):
+    vote = _slice_votes(pts, ids, nhits, sub, cull_radius(radius) ** 2)
+    gp, rows, (c, w, j, s) = _coarse_rows(pts, ids, vote, table)
+    quad = sub[ids[c, j].long()].reshape(-1, sub.shape[1] // 4, 4)[
+        torch.arange(len(s), device=pts.device), s]
+    cmin = torch.full(vote.shape, BIG, dtype=torch.float32, device=pts.device)
+    thr = torch.zeros(vote.shape, dtype=torch.float32, device=pts.device)
+    mins, thrs = [], []
+    for lo in range(0, len(s), _GATE_ROWS):
+        d2, th = pairs(gp[lo:lo + _GATE_ROWS], rows[lo:lo + _GATE_ROWS],
+                       quad[lo:lo + _GATE_ROWS])
+        mins.append(d2.amin(dim=(1, 2)))
+        thrs.append(th)
+    if mins:
+        cmin[c, w, j, s] = torch.cat(mins)
+        thr[c, w, j, s] = torch.cat(thrs)
+    return GateLog(vote=vote, gate=vote & (cmin <= thr), cmin=cmin, thr=thr)
+
+
+def _coarse_bf16_gate(pts, ids, nhits, pack, sub, radius: float) -> GateLog:
+    """Plain version of the bf16 arm's gate: for every hit slice a warp's
+    vote passes, the minimum of the bf16 d²c over its 32 points × the
+    slice's 128 columns, against (r + 0.0625·scale + 0.5)². ``pts`` are
+    the filled [nchunks·256, 2] points the kernel sweeps."""
+    return _coarse_gate(pts, ids, nhits, sub, radius, pack,
+                        lambda p, seg, q: _bf16_coarse_d2(p, seg, q, radius))
+
+
+def _coarse_mxu_gate(pts, ids, nhits, sub, feat, radius: float,
+                     lowp: str) -> GateLog:
+    """Plain version of the tensor-core arm's gate: the minimum point-to-
+    line d² of the warp's 32 points × the slice's 128 columns, against
+    r² + scale²·_MXU_REL_MARGIN + _MXU_ABS_MARGIN."""
+    return _coarse_gate(pts, ids, nhits, sub, radius, feat,
+                        lambda p, f, q: _mxu_coarse_d2(p, f, q, radius, lowp))
+
+
+def decode_gate_log(log: torch.Tensor, nsub: int = _SBLK // _SUB) -> GateLog:
+    """The kernel's debug words (i32 [nchunks, P/32, nblocks]: bit s = the
+    vote on slice s, bit nsub + s = its gate) → GateLog."""
+    bits = torch.arange(nsub, device=log.device)
+    vote = (log[..., None] >> bits) & 1
+    gate = (log[..., None] >> (bits + nsub)) & 1
+    return GateLog(vote=vote.bool(), gate=gate.bool())
+
+
+def sweep_arm(subcull: bool, lowp: str, mxu: bool) -> str:
+    """The kernel arm that serves these levers (a name of SWEEP_ARMS)."""
+    if mxu:
+        return "mxu_bf16" if lowp == "bf16" else "mxu"
+    if not subcull:
+        return "block"
+    return "sub_bf16" if lowp == "bf16" else "sub"
+
+
 def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
                pack: torch.Tensor, sub: "torch.Tensor | None",
-               radius: float, k: int):
+               feat: "torch.Tensor | None", radius: float, k: int,
+               arm: str, gate_log: "torch.Tensor | None" = None):
     """Wrapper of the CUDA sweep (kernels/sweep.cu): one 256-thread block
-    per chunk of ``pts`` walks its own ``nhits`` blocks of ``ids``.
-    ``sub`` given = the two-level arm (per-slice culling), None = the
-    whole-block arm. → (edge i32, offset f32, dist f32), each [npad, k].
-    Raises on anything the kernel does not take, or if the launch fails."""
+    per chunk of ``pts`` walks its own ``nhits`` blocks of ``ids``, in arm
+    ``arm`` of SWEEP_ARMS: "block" reads only ``pack``; the others also
+    ``sub`` (per-slice culling), and the "mxu" arms ``feat``.
+    → (edge i32, offset f32, dist f32), each [npad, k].
+
+    ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]), when given,
+    receives each warp's slice decisions (decode_gate_log) for a check
+    against the plain gates. Raises on anything the kernel does not take,
+    or if the launch fails."""
     from reporter_tpu_torch.kernels.build import launch_sweep
 
+    if arm not in SWEEP_ARMS:
+        raise ValueError(f"unknown sweep arm {arm!r}; one of {SWEEP_ARMS}")
     npad = pts.shape[0]
     nchunks = npad // _P
     if k != SWEEP_K:
@@ -324,38 +552,63 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
               (ids, torch.int32, (nchunks, nblocks)),
               (nhits, torch.int32, (nchunks,)),
               (pack, torch.float32, (SP_NCOMP, spad))]
-    if sub is not None:
+    if arm != "block":
         checks.append((sub, torch.float32, (nblocks, (_SBLK // _SUB) * 4)))
+    if arm.startswith("mxu"):
+        checks.append((feat, torch.float32, (SF_NCOMP, spad)))
+    if gate_log is not None:
+        checks.append((gate_log, torch.int32, (nchunks, _P // _WARP, nblocks)))
     for t, dtype, shape in checks:
-        if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"sweep_topk: expected a contiguous CUDA {dtype} tensor of "
-                f"shape {shape}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if t is None or not t.is_cuda or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            got = "None" if t is None else \
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            raise ValueError(f"sweep_topk ({arm}): expected a contiguous "
+                             f"CUDA {dtype} tensor of shape {shape}, got {got}")
     if spad % _SBLK:
         raise ValueError(f"pack width {spad} is not a multiple of {_SBLK}")
     edge = torch.empty((npad, k), dtype=torch.int32, device=pts.device)
     off = torch.empty((npad, k), dtype=torch.float32, device=pts.device)
     dist = torch.empty((npad, k), dtype=torch.float32, device=pts.device)
     rc = cull_radius(radius)
-    launch_sweep(pts, ids, nhits, pack, sub, nchunks, nblocks, spad,
-                 float(radius) * float(radius), rc * rc, edge, off, dist)
-    SWEEP_LAUNCHES["sub" if sub is not None else "block"] += 1
+    launch_sweep(pts, ids, nhits, pack, sub if arm != "block" else None,
+                 feat if arm.startswith("mxu") else None,
+                 SWEEP_ARMS.index(arm), nchunks, nblocks, spad,
+                 float(radius) * float(radius), rc * rc, float(radius),
+                 edge, off, dist, gate_log)
+    SWEEP_LAUNCHES[arm] += 1
     return edge, off, dist
 
 
 def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
                           max_candidates: int, valid=None,
-                          subcull: bool = True) -> CandidateSet:
+                          subcull: bool = True, lowp: str = "off",
+                          mxu: bool = False) -> CandidateSet:
     """points f32 [N, 2] → CandidateSet with [N, K] fields.
 
-    seg_pack: (pack, bbox, sub) tensors on the points' device. ``valid``
-    (bool [N]) marks real points; the others still get (ignored) rows but
-    take no part in the culling. On a CUDA tensor this launches the sweep
-    kernel (two-level arm with ``subcull``, else the whole-block arm); on
-    a CPU tensor it runs the plain version. Both give the same candidates
-    on every valid point."""
-    pack, bbox, sub = seg_pack[0], seg_pack[1], seg_pack[2]
+    seg_pack: (pack, bbox[, sub[, feat]]) tensors on the points' device;
+    without ``sub`` the whole-block arm runs. ``valid`` (bool [N]) marks
+    real points; the others still get (ignored) rows but take no part in
+    the culling. ``lowp="bf16"`` adds the bf16 coarse filter to the
+    two-level arm; ``mxu`` the tensor-core coarse pass (needs ``feat``),
+    whose operands ``lowp`` then picks. On a CUDA tensor this launches the
+    sweep kernel in that arm; on a CPU tensor it runs the plain version.
+    Every arm gives the same candidates on every valid point; the illegal
+    combinations raise as the JAX package's do."""
+    pack, bbox = seg_pack[0], seg_pack[1]
+    sub = seg_pack[2] if len(seg_pack) > 2 else None
+    feat = seg_pack[3] if len(seg_pack) > 3 else None
+    use_sub = bool(subcull) and sub is not None
+    if lowp not in ("off", "bf16"):
+        raise ValueError(f"unknown lowp {lowp!r}; use 'off' or 'bf16'")
+    if lowp == "bf16" and not use_sub and not mxu:
+        raise ValueError(
+            "lowp='bf16' requires the two-level kernel: subcull=True and "
+            "a seg_pack built with sub quads")
+    if mxu and (not use_sub or feat is None):
+        raise ValueError(
+            "mxu=True requires the two-level kernel (subcull=True) and a "
+            "seg_pack built with feat rows")
     if points.is_cuda:
         n = points.shape[0]
         if valid is None:
@@ -363,9 +616,11 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
         nchunks = max(1, -(-n // _P))
         pts, val = _fill_invalid(points, valid, nchunks)
         ids, nhits = _chunk_block_ids(pts, val, bbox, radius, nchunks)
-        edge, off, dist = sweep_topk(pts, ids, nhits, pack.contiguous(),
-                                     sub.contiguous() if subcull else None,
-                                     radius, max_candidates)
+        edge, off, dist = sweep_topk(
+            pts, ids, nhits, pack.contiguous(),
+            sub.contiguous() if use_sub else None,
+            feat.contiguous() if mxu else None, radius, max_candidates,
+            sweep_arm(use_sub, lowp, mxu))
         edge, off, dist = edge[:n], off[:n], dist[:n]
     elif points.device.type == "cpu":
         edge, off, dist = _dense_plain(points, pack, radius, max_candidates)

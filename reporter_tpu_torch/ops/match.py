@@ -44,13 +44,16 @@ class MatchOutput(NamedTuple):
 def batch_candidates(points, valid_pt, tables, params: MatcherParams
                      ) -> CandidateSet:
     """Candidates for a batch of traces: points f32 [B, T, 2] → [B, T, K],
-    one sweep over the flattened [B*T] point batch."""
+    one sweep over the flattened [B*T] point batch, in the kernel arm the
+    params' sweep levers select."""
     B, T = points.shape[:2]
     flat = find_candidates_dense(
         points.reshape(B * T, 2),
-        (tables["seg_pack"], tables["seg_bbox"], tables["seg_sub"]),
+        (tables["seg_pack"], tables["seg_bbox"], tables["seg_sub"],
+         tables["seg_feat"]),
         params.search_radius, params.max_candidates,
-        valid=valid_pt.reshape(B * T), subcull=params.sweep_subcull)
+        valid=valid_pt.reshape(B * T), subcull=params.sweep_subcull,
+        lowp=params.sweep_lowp, mxu=params.sweep_mxu)
     return CandidateSet(*(x.reshape(B, T, -1) for x in flat))
 
 

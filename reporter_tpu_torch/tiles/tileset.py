@@ -136,6 +136,7 @@ def tables_from_numpy(arrays: "dict[str, np.ndarray]",
         "seg_pack": sp.pack,
         "seg_bbox": sp.bbox,
         "seg_sub": sp.sub,
+        "seg_feat": sp.feat,
     }
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host.items()}

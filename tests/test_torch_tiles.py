@@ -98,7 +98,7 @@ def test_tables_from_numpy_carries_reference_arrays():
     tab = tables_from_numpy(arrays, "cpu")
     host = ref.host_tables("dense")
     for k in ("edge_len", "reach_to", "reach_dist", "seg_pack", "seg_bbox",
-              "seg_sub"):
+              "seg_sub", "seg_feat"):
         assert _same(tab[k].numpy(), host[k]), k
     assert _same(tab["reach_row"].numpy(), host["reach_row"])
     np.testing.assert_array_equal(tab["seg_pack"][6].view(torch.int32).numpy(),
