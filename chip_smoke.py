@@ -6,16 +6,26 @@ Drives the port's main path (reporter_tpu_torch) at full size and holds
 every CUDA kernel of it against its plain PyTorch version, in phases:
 
   1. device   — require CUDA; print the card's name and power limit;
-  2. build    — nvcc-build kernels/sweep.cu (sm_90a) into reporter_tpu_torch/_build/;
+  2. build    — nvcc-build kernels/sweep.cu and kernels/sweep_exact.cu
+                (sm_90a; one nvcc each, started together) into
+                reporter_tpu_torch/_build/; each kernel's ptxas figures and
+                the exact kernel's launch shape (threads, dynamic shared
+                memory, CTAs per SM, SMs);
   3. tiles    — compile the synthetic "sf" metro (~5.3k directed edges);
   4. kernel   — 1024 traces x 120 points padded to the 128 bucket
-                (131,072 points) through all five arms of the sweep kernel
-                and through _dense_plain on the card: edge, offset and dist
-                must be bit-equal; CUDA-event medians of each. For the
-                coarse arms, the kernel's gate decisions (a debug launch)
-                against the plain gates: equal for the bf16 filter; for
-                the tensor-core pass different only within 1e-3 of the
-                threshold; the vote and gate shares of (warp, slice) pairs;
+                (131,072 points) through all five sweep arms (the exact
+                arms in sweep_exact.cu, the coarse ones in sweep.cu) and
+                through _dense_plain on the card: edge, offset and dist
+                must be bit-equal; CUDA-event times of each, as the median
+                of single launches (``ms``, the yardstick of every earlier
+                run) and per launch in a back-to-back run
+                (``ms_back_to_back``). The work spread over chunks and
+                warps. The kernel's slice
+                votes against the plain vote; for the coarse arms, its gate
+                decisions (a debug launch) against the plain gates: equal
+                for the bf16 filter; for the tensor-core pass different
+                only within 1e-3 of the threshold; the vote and gate shares
+                of (warp, slice) pairs;
      gates    — the same checks on parallel streets 500 m apart, where
                 every coarse gate culls: the gate share must be below the
                 vote share, so a gate that admits every slice (a wrong
@@ -44,6 +54,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -88,7 +99,8 @@ def phase(tag: str, card: str, **fields) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timed runs."""
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timed runs,
+    each timed alone (the host's time to issue it included)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -104,6 +116,48 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def launch_ms(fn, runs: int = 20) -> float:
+    """Milliseconds per call of ``fn`` in a back-to-back run of ``runs``
+    calls between two CUDA events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+def ptxas_figures(log: str) -> list:
+    """Per kernel of a ptxas -v log: its template arguments, registers,
+    static shared memory and spill bytes."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            kern = re.search(r"(sweep\w*_kernel)I(.*?)EEv", name)
+            args = re.findall(r"L[ib](\d+)E", kern.group(2)) if kern else []
+            out.append({"kernel": f"{kern.group(1) if kern else name}"
+                                  f"<{','.join(args)}>"})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[-1].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[-1]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def fleet_points(fleet):
     pts = np.zeros((len(fleet), BUCKET, 2), np.float32)
     for i, p in enumerate(fleet):
@@ -112,7 +166,8 @@ def fleet_points(fleet):
     return pts.reshape(-1, 2)
 
 
-def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, radius, k):
+def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, radius, k,
+                 sweep):
     """The kernel's (warp, slice) vote and gate decisions (one debug
     launch) against the plain vote and gates; raises where they disagree
     beyond the stated tolerance. → (kernel decisions, plain gate or None,
@@ -120,7 +175,7 @@ def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, radius, k):
     log = torch.zeros((ids.shape[0], dc._P // 32, ids.shape[1]),
                       dtype=torch.int32, device="cuda")
     dc.sweep_topk(fpts, ids, nhits, pack, sub, feat, radius, k, arm,
-                  gate_log=log)
+                  gate_log=log, sweep=sweep)
     kg = dc.decode_gate_log(log)
     if not torch.equal(kg.vote, dc._slice_votes(
             fpts, ids, nhits, sub, dc.cull_radius(radius) ** 2)):
@@ -146,22 +201,47 @@ def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, radius, k):
                     "gate_tolerance": tol}
 
 
+def spread_phase(card, dc, nhits, kg):
+    """The work spread the exact kernel balances: hit blocks per chunk,
+    and (from the sub arm's votes) voted (warp, slice) tiles per chunk
+    and per (warp, hit block)."""
+    per_chunk = kg.vote.sum(dim=(1, 2, 3)).float()
+    hit = (torch.arange(kg.vote.shape[2], device="cuda")[None, :]
+           < nhits[:, None])                             # [nc, slot]
+    per_wb = kg.vote.sum(3).float()[hit[:, None, :].expand(
+        -1, kg.vote.shape[1], -1)]
+    phase("kernel:spread", card, chunks=int(nhits.numel()),
+          hit_blocks_per_chunk={"max": int(nhits.max()),
+                                "mean": float(nhits.float().mean())},
+          voted_tiles_per_chunk={"max": int(per_chunk.max()),
+                                 "mean": float(per_chunk.mean())},
+          voted_slices_per_warp_block={"max": int(per_wb.max()),
+                                       "mean": float(per_wb.mean()),
+                                       "zero_share": float((per_wb == 0)
+                                                           .float().mean())})
+
+
 def kernel_phase(card, tab, pts, radius, k, dc):
     """Every arm against _dense_plain on the same points, its gate against
-    the plain gate, its time and its bound. → {arm: record}."""
+    the plain gate, its time and its bound; the work spread.
+    → {arm: record}."""
     n = pts.shape[0]
     valid = torch.ones(n, dtype=torch.bool, device="cuda")
     nchunks = n // dc._P
     fpts, fval = dc._fill_invalid(pts, valid, nchunks)
-    ids, nhits = dc._chunk_block_ids(fpts, fval, tab["seg_bbox"], radius,
-                                     nchunks)
+
+    def prepass():
+        return dc._chunk_block_ids(fpts, fval, tab["seg_bbox"], radius,
+                                   nchunks)
+
+    ids, nhits = prepass()
     pack, sub, feat = tab["seg_pack"], tab["seg_sub"], tab["seg_feat"]
+    sweep = tab["seg_sweep"]
     ref = dc._dense_plain(pts, pack, radius, k)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: dc._dense_plain(pts, pack, radius, k), reps=3,
                        warmup=1)
-    prepass_ms = cuda_ms(lambda: dc._chunk_block_ids(
-        fpts, fval, tab["seg_bbox"], radius, nchunks), reps=20)
+    prepass_ms = cuda_ms(prepass, reps=20)
     nblocks = ids.shape[1]
     hit = torch.arange(nblocks, device="cuda")[None, :] < nhits[:, None]
     used = torch.zeros(nblocks, dtype=torch.bool, device="cuda")
@@ -173,7 +253,10 @@ def kernel_phase(card, tab, pts, radius, k, dc):
     tile = 32 * dc._SUB                       # pairs of one (warp, slice)
     arms = {}
     for arm in dc.SWEEP_ARMS:
-        got = dc.sweep_topk(fpts, ids, nhits, pack, sub, feat, radius, k, arm)
+        def run(a=arm):
+            return dc.sweep_topk(fpts, ids, nhits, pack, sub, feat, radius,
+                                 k, a, sweep=sweep)
+        got = run()
         torch.cuda.synchronize()
         mism = {f: int((g != r).sum()) for f, g, r in
                 zip(("edge", "offset", "dist"), got, ref)}
@@ -181,9 +264,8 @@ def kernel_phase(card, tab, pts, radius, k, dc):
                   float((got[2] - ref[2]).abs().max()))
         if any(mism.values()):
             raise SystemExit(f"kernel arm {arm} disagrees with _dense_plain: {mism}")
-        ms = cuda_ms(lambda a=arm: dc.sweep_topk(
-            fpts, ids, nhits, pack, sub, feat, radius, k, a), reps=20)
-        rec = {"mismatches": mism, "max_abs_err": err, "ms": ms,
+        rec = {"mismatches": mism, "max_abs_err": err,
+               "ms": cuda_ms(run, reps=20), "ms_back_to_back": launch_ms(run),
                "plain_ms": plain_ms}
         nbytes = io_bytes + n_used * dc.SP_NCOMP * dc._SBLK * 4
         if arm == "block":
@@ -191,7 +273,9 @@ def kernel_phase(card, tab, pts, radius, k, dc):
             coarse, coarse_rate = 0, None
         else:
             kg, pg, fields = kernel_gates(dc, arm, fpts, ids, nhits, pack,
-                                          sub, feat, radius, k)
+                                          sub, feat, radius, k, sweep)
+            if arm == "sub":
+                spread_phase(card, dc, nhits, kg)
             nbytes += n_used * sub.shape[1] * 4
             exact = int(kg.gate.sum()) * tile
             coarse = int(kg.vote.sum()) * tile if arm != "sub" else 0
@@ -242,7 +326,7 @@ def gates_phase(card, dc, radius, k):
     sp = dc.build_seg_pack(a, b, np.arange(len(a), dtype=np.int32),
                            np.zeros(len(a), np.float32),
                            np.full(len(a), 8.0, np.float32))
-    pack, bbox, sub, feat = (torch.from_numpy(v).cuda() for v in sp)
+    pack, bbox, sub, feat, sweep = (torch.from_numpy(v).cuda() for v in sp)
     rng = np.random.default_rng(4)
     centres = rng.uniform(0.0, 4000.0, (256, 1, 2))
     pts = torch.from_numpy((centres + rng.uniform(-30.0, 30.0, (256, 32, 2)))
@@ -255,7 +339,8 @@ def gates_phase(card, dc, radius, k):
     ref = dc._dense_plain(pts, pack, radius, k)
     out = {}
     for arm in dc.SWEEP_ARMS:
-        got = dc.sweep_topk(fpts, ids, nhits, pack, sub, feat, radius, k, arm)
+        got = dc.sweep_topk(fpts, ids, nhits, pack, sub, feat, radius, k, arm,
+                            sweep=sweep)
         mism = sum(int((g != r).sum()) for g, r in zip(got, ref))
         if mism:
             raise SystemExit(f"parallel streets: arm {arm} differs from "
@@ -263,7 +348,7 @@ def gates_phase(card, dc, radius, k):
         if arm in ("block", "sub"):
             continue
         kg, pg, fields = kernel_gates(dc, arm, fpts, ids, nhits, pack, sub,
-                                      feat, radius, k)
+                                      feat, radius, k, sweep)
         vote, gate, plain = (int(kg.vote.sum()), int(kg.gate.sum()),
                              int(pg.gate.sum()))
         out[arm] = dict(voted=vote, gate_passed=gate, plain_gate_passed=plain,
@@ -453,11 +538,17 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     build.load_sweep()
-    log = build.BUILD_LOG.get("sweep.cu", {})
-    regs = [ln.strip() for ln in log.get("ptxas", "").splitlines()
-            if "registers" in ln or "spill" in ln]
-    phase("build", card, seconds=time.perf_counter() - t0,
-          nvcc_seconds=log.get("seconds"), ptxas=regs)
+    built = {src: {"nvcc_seconds": log["seconds"],
+                   "kernels": ptxas_figures(log["ptxas"])}
+             for src, log in build.BUILD_LOG.items()}
+    phase("build", card, seconds=time.perf_counter() - t0, sources=built)
+    # the persistent grid is min(chunks, CTAs per SM x SMs); the kernel
+    # phase runs 512 chunks
+    shapes = {arm: build.exact_shape(code)
+              for arm, code in dc._EXACT_CODE.items()}
+    for sh in shapes.values():
+        sh["grid_at_512_chunks"] = min(512, sh["ctas_per_sm"] * sh["sms"])
+    phase("build:exact_shape", card, **shapes)
 
     # ---- 3. tiles ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -507,10 +598,12 @@ def main() -> int:
         a = arms[arm]
         kernels.append({
             "name": f"sweep_topk_{arm}", "route": "cuda",
-            "source": "reporter_tpu_torch/kernels/sweep.cu",
+            "source": "reporter_tpu_torch/kernels/" + (
+                "sweep_exact.cu" if arm in dc._EXACT_CODE else "sweep.cu"),
             "replaces": replaces, "launches": sum(launches[arm].values()),
             "launches_by_path": launches[arm],
             "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+            "ms_back_to_back": a["ms_back_to_back"],
             "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)

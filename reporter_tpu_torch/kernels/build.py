@@ -1,11 +1,14 @@
 """Lazy build and ctypes binding of the port's CUDA kernels.
 
-``sweep.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first use into
-``reporter_tpu_torch/_build/`` (a shared library with a plain C
-interface, loaded with ctypes: seconds to build, no PyTorch headers).
-The library is named by a hash of its source and flags, so an edited
-source rebuilds. A missing ``nvcc``, a failed build or a failed launch
-raises; nothing falls back to the plain version.
+Each source (``sweep.cu``: the coarse-filter arms of the sweep;
+``sweep_exact.cu``: its two exact arms) is compiled by ``nvcc`` for
+``sm_90a`` at first use into ``reporter_tpu_torch/_build/``: one shared
+library per source with a plain C interface, loaded with ctypes (seconds
+to build, no PyTorch headers). ``load_sweep`` starts one ``nvcc`` per
+source, all at once. A library is named by a hash of its source, the
+headers beside it and the flags, so an edited source rebuilds. A missing
+``nvcc``, a failed build or a failed launch raises; nothing falls back to
+the plain version.
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 _BUILD_DIR = _HERE.parent / "_build"
 SWEEP_SOURCE = _HERE / "sweep.cu"
+EXACT_SOURCE = _HERE / "sweep_exact.cu"
 
 # exact f32 geometry: no FMA contraction, IEEE division and square root
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,10 +53,12 @@ def _nvcc() -> str:
 
 def build(source: Path) -> Path:
     """Compile ``source`` into the build directory (if not already there)
-    and return the library's path."""
-    flags_key = " ".join(_NVCC_FLAGS).encode()
-    digest = hashlib.sha256(source.read_bytes() + flags_key).hexdigest()[:16]
-    out = _BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    and return the library's path. The name hashes the source, every
+    header of its directory (``*.cuh``) and the flags."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for f in [source, *sorted(source.parent.glob("*.cuh"))]:
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    out = _BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,42 +77,98 @@ def build(source: Path) -> Path:
     return out
 
 
-def _sweep_lib() -> ctypes.CDLL:
+def _bind_sweep(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rtt_sweep_topk.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                   f, f, f, p, p, p, p, p]
+    lib.rtt_sweep_topk.restype = ctypes.c_int
+
+
+def _bind_exact(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rtt_sweep_exact.argtypes = [p, p, p, p, p, p, p, i, i, i, f, f,
+                                    p, p, p, p, p]
+    lib.rtt_sweep_exact.restype = ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.rtt_sweep_exact_shape.argtypes = [i, ip, ip, ip, ip]
+    lib.rtt_sweep_exact_shape.restype = ctypes.c_int
+
+
+_LIBS = {"sweep": (SWEEP_SOURCE, _bind_sweep),
+         "sweep_exact": (EXACT_SOURCE, _bind_exact)}
+
+
+def _lib(name: str) -> ctypes.CDLL:
     with _lock:
-        lib = _loaded.get("sweep")
+        lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(SWEEP_SOURCE)))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.rtt_sweep_topk.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                           f, f, f, p, p, p, p, p]
-            lib.rtt_sweep_topk.restype = ctypes.c_int
-            _loaded["sweep"] = lib
+            source, bind = _LIBS[name]
+            lib = ctypes.CDLL(str(build(source)))
+            bind(lib)
+            _loaded[name] = lib
         return lib
 
 
 def load_sweep() -> None:
-    """Build (if needed) and load the sweep library now."""
-    _sweep_lib()
+    """Build (if needed) and load every kernel library now, one nvcc per
+    source, all started together."""
+    with ThreadPoolExecutor(len(_LIBS)) as pool:
+        list(pool.map(build, [src for src, _ in _LIBS.values()]))
+    for name in _LIBS:
+        _lib(name)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def launch_sweep(pts, ids, nhits, pack, sub, feat, arm: int, nchunks: int,
                  nblocks: int, spad: int, r2: float, rc2: float,
                  radius: float, edge, off, dist, gate_log=None) -> None:
-    """One launch of the sweep's arm ``arm`` on PyTorch's current stream.
-    The tensors are checked by the caller (ops.dense_candidates.sweep_topk);
-    ``sub``, ``feat`` and ``gate_log`` may be None where the arm reads none."""
-    import torch
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    lib = _sweep_lib()
-    stream = torch.cuda.current_stream(pts.device).cuda_stream
-    rc = lib.rtt_sweep_topk(
+    """One launch of the coarse sweep's arm ``arm`` on PyTorch's current
+    stream. The tensors are checked by the caller
+    (ops.dense_candidates.sweep_topk); ``feat`` and ``gate_log`` may be
+    None where the arm reads none."""
+    rc = _lib("sweep").rtt_sweep_topk(
         pts.data_ptr(), ids.data_ptr(), nhits.data_ptr(), pack.data_ptr(),
-        ptr(sub), ptr(feat), arm, nchunks, nblocks, spad, r2, rc2, radius,
-        edge.data_ptr(), off.data_ptr(), dist.data_ptr(), ptr(gate_log),
-        stream)
+        _ptr(sub), _ptr(feat), arm, nchunks, nblocks, spad, r2, rc2, radius,
+        edge.data_ptr(), off.data_ptr(), dist.data_ptr(), _ptr(gate_log),
+        _stream(pts))
     if rc != 0:
         raise RuntimeError(f"sweep_topk launch failed (arm {arm}): "
                            f"cudaError {rc}")
+
+
+def launch_sweep_exact(pts, ids, nhits, order, next_chunk, table, sub,
+                       arm: int, nchunks: int, nblocks: int, r2: float,
+                       rc2: float, edge, off, dist, gate_log=None) -> None:
+    """One launch of the exact sweep (arm 0 block, 1 sub) on PyTorch's
+    current stream; the caller checks the tensors. ``sub`` and
+    ``gate_log`` may be None for the block arm."""
+    rc = _lib("sweep_exact").rtt_sweep_exact(
+        pts.data_ptr(), ids.data_ptr(), nhits.data_ptr(), order.data_ptr(),
+        next_chunk.data_ptr(), table.data_ptr(), _ptr(sub), arm, nchunks,
+        nblocks, r2, rc2, edge.data_ptr(), off.data_ptr(), dist.data_ptr(),
+        _ptr(gate_log), _stream(pts))
+    if rc != 0:
+        raise RuntimeError(f"sweep_exact launch failed (arm {arm}): "
+                           f"error {rc}")
+
+
+def exact_shape(arm: int) -> dict:
+    """The exact sweep's launch shape on the current device: threads per
+    CTA, dynamic shared memory (bytes), resident CTAs per SM, SMs."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = _lib("sweep_exact").rtt_sweep_exact_shape(
+        arm, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"sweep_exact shape query failed (arm {arm}): "
+                           f"error {rc}")
+    return dict(zip(("threads", "smem_bytes", "ctas_per_sm", "sms"),
+                    (v.value for v in vals)))

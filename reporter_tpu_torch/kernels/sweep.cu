@@ -1,14 +1,14 @@
-// Dense candidate sweep for Hopper (sm_90a): per probe point, the top-K
-// distinct edges within the search radius.
+// Dense candidate sweep for Hopper (sm_90a), coarse-filter arms: per probe
+// point, the top-K distinct edges within the search radius.
 //
-// Replaces the Pallas TPU kernels of reporter_tpu/ops/dense_candidates.py
-// (one pl.pallas_call, :755), as five arms of one kernel template:
-//   kBlock   _sweep_kernel :389-430 (whole-block arm)
-//   kSub     _sweep_kernel_sub :433-519 (exact two-level arm, lowp="off")
+// Replaces three arms of the Pallas TPU kernel of
+// reporter_tpu/ops/dense_candidates.py (one pl.pallas_call, :755), as
+// arms of one kernel template:
 //   kSubBf16 _sweep_kernel_sub :567-614 (bf16 VPU coarse filter)
 //   kMxu     _sweep_kernel_sub :521-564 (MXU coarse pass, f32 operands;
 //            here tf32 tensor-core operands)
 //   kMxuBf16 the same with bf16 operands
+// The two exact arms (block, sub) are sweep_exact.cu.
 // It computes what they compute, not how: the TPU kernel runs a sequential
 // (chunk, block-slot) grid with a [256, K] VMEM scratch merged by K masked
 // reductions; here one 256-thread block owns one 256-point chunk, each
@@ -18,8 +18,8 @@
 //
 // Per hit block the 8 x 512 f32 component rows (ax, ay, bx, by, off, len,
 // edge-bits, spare) are staged in shared memory (16 KB); every thread of a
-// warp reads the same column at once, a broadcast. In the two-level arms
-// each 128-column slice is first tested against its bbox quad: a warp
+// warp reads the same column at once, a broadcast. Each 128-column slice
+// is first tested against its bbox quad: a warp
 // votes to sweep the slice only if one of its 32 points lies within the
 // dilated cull radius of the quad (a lower bound on every point-to-segment
 // distance in the slice, so no in-radius pair is ever skipped). NaN quads
@@ -60,19 +60,20 @@
 // plain PyTorch version (_dense_plain); FMA contraction would move d^2 by
 // an ulp and flip d = 0 junction ties and radius-boundary points. The
 // gates only skip tiles that provably hold no pair within the radius, so
-// all five arms return the same candidates, bit for bit.
-//
-// Top-K order: (d^2 ascending, edge id ascending). An edge already held
-// keeps its smallest d^2 and, at equal d^2, its smallest projection
-// offset -- the same answer as the reference's repeated _select_topk
-// merge. Empty slots: edge -1, offset 0, dist BIG.
+// all five arms return the same candidates, bit for bit. The running top-K
+// and its order are topk.cuh's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "topk.cuh"
+
 namespace {
+
+using rtt::kBig;
+using rtt::kK;
 
 constexpr int kP = 256;       // points per chunk = threads per block
 constexpr int kWarps = kP / 32;
@@ -80,59 +81,15 @@ constexpr int kSblk = 512;    // segment columns per block
 constexpr int kSub = 128;     // columns per culling slice
 constexpr int kNsub = kSblk / kSub;
 constexpr int kNcomp = 8;
-constexpr int kK = 8;         // top-K width
-constexpr float kBig = 1e30f;
 
-// arm codes (ops/dense_candidates.py SWEEP_ARMS order)
-constexpr int kBlock = 0, kSub2 = 1, kSubBf16 = 2, kMxu = 3, kMxuBf16 = 4;
+// arm codes (ops/dense_candidates.py SWEEP_ARMS order; 0 and 1, the exact
+// arms, are sweep_exact.cu's)
+constexpr int kSubBf16 = 2, kMxu = 3, kMxuBf16 = 4;
 
 // seg_feat rows holding the slice centre; staged feat rows are padded so
 // the B-fragment loads of one mma fall in distinct banks
 constexpr int kFcx = 6, kFcy = 7;
 constexpr int kFsPitch = kSblk + 8;
-
-__device__ __forceinline__ bool before(float d1, int e1, float d2, int e2) {
-  return d1 < d2 || (d1 == d2 && e1 < e2);
-}
-
-// One pass from the bottom restores the order after the bottom slot was
-// replaced, or after a held slot's d^2 decreased (it can only move up).
-__device__ __forceinline__ void bubble(float (&bd)[kK], int (&be)[kK],
-                                       float (&bo)[kK]) {
-#pragma unroll
-  for (int i = kK - 1; i > 0; --i) {
-    if (before(bd[i], be[i], bd[i - 1], be[i - 1])) {
-      float td = bd[i]; bd[i] = bd[i - 1]; bd[i - 1] = td;
-      int te = be[i]; be[i] = be[i - 1]; be[i - 1] = te;
-      float to = bo[i]; bo[i] = bo[i - 1]; bo[i - 1] = to;
-    }
-  }
-}
-
-__device__ __forceinline__ void offer(float d, int e, float o,
-                                      float (&bd)[kK], int (&be)[kK],
-                                      float (&bo)[kK]) {
-  bool held = false;
-  bool moved = false;
-#pragma unroll
-  for (int i = 0; i < kK; ++i) {
-    if (be[i] == e) {
-      held = true;
-      if (d < bd[i]) {
-        bd[i] = d; bo[i] = o; moved = true;
-      } else if (d == bd[i] && o < bo[i]) {
-        bo[i] = o;
-      }
-    }
-  }
-  if (held) {
-    if (moved) bubble(bd, be, bo);
-    return;
-  }
-  if (!before(d, e, bd[kK - 1], be[kK - 1])) return;
-  bd[kK - 1] = d; be[kK - 1] = e; bo[kK - 1] = o;
-  bubble(bd, be, bo);
-}
 
 __device__ __forceinline__ float clampf(float v, float e) {
   return fminf(fmaxf(v, -e), e);       // jnp.clip(v, -e, e)
@@ -255,7 +212,6 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
                   float* __restrict__ out_off,
                   float* __restrict__ out_dist,
                   int* __restrict__ gate_log) {     // [nchunks, 8, nblocks]
-  constexpr bool kTwoLevel = ARM != kBlock;
   constexpr bool kBf16Filter = ARM == kSubBf16;
   constexpr bool kTensor = ARM == kMxu || ARM == kMxuBf16;
   __shared__ float seg[kNcomp][kSblk];
@@ -277,8 +233,7 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
   float bd[kK];
   int be[kK];
   float bo[kK];
-#pragma unroll
-  for (int i = 0; i < kK; ++i) { bd[i] = kBig; be[i] = -1; bo[i] = 0.f; }
+  rtt::reset(bd, be, bo);
 
   const int nh = nhits[chunk];
   for (int j = 0; j < nh; ++j) {
@@ -290,27 +245,25 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
       const int col = i - c * kSblk;
       seg[c][col] = src[static_cast<long>(c) * spad + col];
     }
-    if (kTwoLevel && tid < kNsub * 4) {
+    if (tid < kNsub * 4) {
       quad[tid] = sub[static_cast<long>(blk) * kNsub * 4 + tid];
     }
     if (tid == 0) slice_mask = 0u;
     __syncthreads();
 
     // the warp's vote per slice (bit s)
-    unsigned vote = kTwoLevel ? 0u : 1u;
-    if (kTwoLevel) {
+    unsigned vote = 0u;
 #pragma unroll
-      for (int s = 0; s < kNsub; ++s) {
-        const float lox = quad[4 * s], loy = quad[4 * s + 1];
-        const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
-        bool near = false;
-        if (lox <= hix && loy <= hiy) {           // false for NaN quads
-          const float dx = fmaxf(fmaxf(lox - px, px - hix), 0.f);
-          const float dy = fmaxf(fmaxf(loy - py, py - hiy), 0.f);
-          near = dx * dx + dy * dy <= rc2;
-        }
-        if (__any_sync(0xffffffffu, near)) vote |= 1u << s;
+    for (int s = 0; s < kNsub; ++s) {
+      const float lox = quad[4 * s], loy = quad[4 * s + 1];
+      const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
+      bool near = false;
+      if (lox <= hix && loy <= hiy) {           // false for NaN quads
+        const float dx = fmaxf(fmaxf(lox - px, px - hix), 0.f);
+        const float dy = fmaxf(fmaxf(loy - py, py - hiy), 0.f);
+        near = dx * dx + dy * dy <= rc2;
       }
+      if (__any_sync(0xffffffffu, near)) vote |= 1u << s;
     }
     if constexpr (kBf16Filter) {
       // column side of the bf16 filter, once per block (two columns a thread)
@@ -349,35 +302,33 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
     }
 
     unsigned gated = 0u;
-    for (int s = 0; s < (kTwoLevel ? kNsub : 1); ++s) {
+    for (int s = 0; s < kNsub; ++s) {
       if (!((vote >> s) & 1u)) continue;            // warp-uniform
-      const int c0 = kTwoLevel ? s * kSub : 0;
-      const int c1 = kTwoLevel ? c0 + kSub : kSblk;
-      if constexpr (kBf16Filter || kTensor) {
-        const float lox = quad[4 * s], loy = quad[4 * s + 1];
-        const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
-        const float ex = (hix - lox) * 0.5f + mx, ey = (hiy - loy) * 0.5f + mx;
-        const float scale = fmaxf(ex, ey);
-        bool pass;
-        if constexpr (kBf16Filter) {
-          const float cx = (lox + hix) * 0.5f, cy = (loy + hiy) * 0.5f;
-          const float rl = radius + scale * 0.0625f + 0.5f;
-          const float mn = bf16_lane_min(cb, c0, px, py, cx, cy, ex, ey);
-          pass = __any_sync(0xffffffffu, mn <= rl * rl);
-        } else {
-          const float qx = clampf(px - fs[kFcx][c0], ex);
-          const float qy = clampf(py - fs[kFcy][c0], ey);
-          float* tile = tiles[warp];
-          const float f[8] = {qx * qx, qy * qy, qx * qy, qx, qy, 1.f, 0.f, 0.f};
+      const int c0 = s * kSub;
+      const int c1 = c0 + kSub;
+      const float lox = quad[4 * s], loy = quad[4 * s + 1];
+      const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
+      const float ex = (hix - lox) * 0.5f + mx, ey = (hiy - loy) * 0.5f + mx;
+      const float scale = fmaxf(ex, ey);
+      bool pass;
+      if constexpr (kBf16Filter) {
+        const float cx = (lox + hix) * 0.5f, cy = (loy + hiy) * 0.5f;
+        const float rl = radius + scale * 0.0625f + 0.5f;
+        const float mn = bf16_lane_min(cb, c0, px, py, cx, cy, ex, ey);
+        pass = __any_sync(0xffffffffu, mn <= rl * rl);
+      } else {
+        const float qx = clampf(px - fs[kFcx][c0], ex);
+        const float qy = clampf(py - fs[kFcy][c0], ey);
+        float* tile = tiles[warp];
+        const float f[8] = {qx * qx, qy * qy, qx * qy, qx, qy, 1.f, 0.f, 0.f};
 #pragma unroll
-          for (int i = 0; i < 8; ++i) tile[lane * 8 + i] = f[i];
-          __syncwarp();
-          const float mn = mma_warp_min<ARM == kMxuBf16>(tile, fs, c0, lane);
-          __syncwarp();                 // the tile is rewritten next slice
-          pass = mn <= r2 + scale * scale * 0.0625f + 0.5f;
-        }
-        if (!pass) continue;
+        for (int i = 0; i < 8; ++i) tile[lane * 8 + i] = f[i];
+        __syncwarp();
+        const float mn = mma_warp_min<ARM == kMxuBf16>(tile, fs, c0, lane);
+        __syncwarp();                 // the tile is rewritten next slice
+        pass = mn <= r2 + scale * scale * 0.0625f + 0.5f;
       }
+      if (!pass) continue;
       gated |= 1u << s;
       for (int c = c0; c < c1; ++c) {
         const int e = __float_as_int(seg[6][c]);
@@ -391,7 +342,7 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
         const float dy = py - (ay + t * aby);
         const float d2 = dx * dx + dy * dy;
         if (e >= 0 && d2 <= r2) {
-          offer(d2, e, seg[4][c] + t * seg[5][c], bd, be, bo);
+          rtt::offer(d2, e, seg[4][c] + t * seg[5][c], bd, be, bo);
         }
       }
     }
@@ -424,9 +375,8 @@ int launch(const float* pts, const int* ids, const int* nhits,
 
 }  // namespace
 
-// Launches arm `arm` (0 block, 1 sub, 2 sub_bf16, 3 mxu, 4 mxu_bf16) on
-// `stream`; returns the launch's cudaError_t (0 = ok), or -1 for an
-// unknown arm. sub is read by every arm but the whole-block one, feat by
+// Launches arm `arm` (2 sub_bf16, 3 mxu, 4 mxu_bf16) on `stream`; returns
+// the launch's cudaError_t (0 = ok), or -1 for another arm. feat is read by
 // the mxu arms; gate_log (may be null) receives per (chunk, warp, hit
 // slot) the slice votes (bits 0-3) and the slices swept exactly (4-7).
 extern "C" int rtt_sweep_topk(const float* pts, const int* ids,
@@ -438,14 +388,6 @@ extern "C" int rtt_sweep_topk(const float* pts, const int* ids,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (arm) {
-    case kBlock:
-      return launch<kBlock>(pts, ids, nhits, pack, sub, feat, nchunks,
-                            nblocks, spad, r2, rc2, radius, out_edge,
-                            out_off, out_dist, gate_log, st);
-    case kSub2:
-      return launch<kSub2>(pts, ids, nhits, pack, sub, feat, nchunks,
-                           nblocks, spad, r2, rc2, radius, out_edge,
-                           out_off, out_dist, gate_log, st);
     case kSubBf16:
       return launch<kSubBf16>(pts, ids, nhits, pack, sub, feat, nchunks,
                               nblocks, spad, r2, rc2, radius, out_edge,

@@ -10,14 +10,17 @@ smallest edge id, the offset being that edge's smallest tied projection.
   of [8, S_pad] f32 component rows (edge ids bit-cast into row 6) with
   per-block and per-128-column-slice bboxes and the per-column feature
   rows of the tensor-core coarse pass — byte-equal to the JAX package's
-  pack.
+  pack — and the port's own ``sweep`` table: the column side of the
+  exact geometry, [S_pad, 8] column by column (SW_*).
 - ``_dense_plain`` is the full sweep without culling (the JAX package's
   ``_dense_jnp``), chunked over 128 points. The CPU path and the tests use
   it; ``chip_smoke.py`` holds the kernel against it on the card.
 - ``find_candidates_dense`` on a CUDA tensor runs the cull pre-pass
   (``_chunk_block_ids``, plain PyTorch) and then ``sweep_topk``, the
-  wrapper of the hand-written kernel in ``kernels/sweep.cu``, in one of
-  five arms (``SWEEP_ARMS``). All five return the same candidates.
+  wrapper of the hand-written kernels, in one of five arms
+  (``SWEEP_ARMS``): the exact arms in ``kernels/sweep_exact.cu``, the
+  coarse-filter arms in ``kernels/sweep.cu``. All five return the same
+  candidates.
 - ``_coarse_bf16_gate`` and ``_coarse_mxu_gate`` are the plain versions of
   the two coarse arms' gate: per 32-point warp and hit 128-column slice,
   whether the exact pass runs. The card holds the kernel's decisions
@@ -46,6 +49,14 @@ SP_NCOMP = 8
 SF_A, SF_B, SF_C, SF_D, SF_E, SF_F, SF_CX, SF_CY = range(8)
 SF_NCOMP = 8
 
+# seg_sweep fields, per column: the column side of _block_geometry (its
+# f32 intermediates) and the edge id's bits, so the exact arms' pairs do
+# only the point side. Column-major: a 512-column block is 16 KB in one
+# piece; what every pair reads (ax..den, edge) comes first, the offset
+# fields that only an in-radius pair reads last.
+SW_AX, SW_AY, SW_ABX, SW_ABY, SW_DEN, SW_EDGE, SW_OFF, SW_LEN = range(8)
+SW_NCOMP = 8
+
 # Margin of the tensor-core coarse test, relative to the squared clamp-box
 # scale, plus an absolute slack (m²): it assumes bf16-grade operand
 # rounding for both operand types (the JAX package's argument, kept).
@@ -62,9 +73,10 @@ _GATE_ROWS = 2048  # (warp, slice) pairs per step of the plain gates
 SPLIT_LEN = 256.0  # long-segment pre-split span
 SWEEP_K = 8       # the top-K width the kernel is built for
 
-# The kernel's arms, by their launch code: the whole-block arm, the exact
-# two-level arm, the bf16 coarse filter, and the tensor-core coarse pass
-# with tf32 or bf16 operands.
+# The sweep's arms: the whole-block arm and the exact two-level arm
+# (kernels/sweep_exact.cu, codes in _EXACT_CODE), the bf16 coarse filter
+# and the tensor-core coarse pass with tf32 or bf16 operands
+# (kernels/sweep.cu, whose launch code is the index here).
 SWEEP_ARMS = ("block", "sub", "sub_bf16", "mxu", "mxu_bf16")
 
 # Launches of the CUDA sweep on the main path, per arm. sweep_topk adds one
@@ -90,6 +102,7 @@ class SegPack(NamedTuple):
     sub: np.ndarray    # f32 [nblocks, (SBLK/SUB)*4] per-slice bbox quads,
     #                    NaN for a slice with no real column
     feat: np.ndarray   # f32 [8, S_pad] per-column coarse-pass rows (SF_*)
+    sweep: np.ndarray  # f32 [S_pad, 8] per-column exact-sweep fields (SW_*)
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
@@ -234,7 +247,21 @@ def build_seg_pack(seg_a: np.ndarray, seg_b: np.ndarray, seg_edge: np.ndarray,
     feat[SF_F] = np.where(real, g * g * w, BIG)
     feat[SF_CX] = c64[:, 0]
     feat[SF_CY] = c64[:, 1]
-    return SegPack(pack=pack, bbox=bbox, sub=sub, feat=feat)
+    return SegPack(pack=pack, bbox=bbox, sub=sub, feat=feat,
+                   sweep=_sweep_table(pack))
+
+
+def _sweep_table(pack: np.ndarray) -> np.ndarray:
+    """seg_sweep [S_pad, 8] from the pack's rows: numpy f32 arithmetic,
+    one rounding per operation in _column_side's order, so every field
+    equals the plain version's intermediate bit for bit."""
+    ax, ay = pack[SP_AX], pack[SP_AY]
+    abx = pack[SP_BX] - ax
+    aby = pack[SP_BY] - ay
+    den = np.maximum(abx * abx + aby * aby, np.float32(1e-12))
+    return np.ascontiguousarray(np.stack(
+        [ax, ay, abx, aby, den, pack[SP_EDGE], pack[SP_OFF], pack[SP_LEN]],
+        axis=1), dtype=np.float32)
 
 
 def cull_radius(radius: float) -> float:
@@ -244,22 +271,26 @@ def cull_radius(radius: float) -> float:
     return float(radius) * 1.0005 + 0.01
 
 
+def _column_side(seg):
+    """The column side of the geometry of a [8, C] segment block, each
+    [1, C], in SW_* order: (ax, ay, abx, aby, denom, edge i32, off0, len)
+    — the fields of seg_sweep, which the exact kernel arms read instead."""
+    ax = seg[SP_AX:SP_AX + 1, :]
+    ay = seg[SP_AY:SP_AY + 1, :]
+    abx = seg[SP_BX:SP_BX + 1, :] - ax
+    aby = seg[SP_BY:SP_BY + 1, :] - ay
+    denom = torch.clamp_min(abx * abx + aby * aby, 1e-12)
+    return (ax, ay, abx, aby, denom,
+            seg[SP_EDGE:SP_EDGE + 1, :].view(torch.int32),
+            seg[SP_OFF:SP_OFF + 1, :], seg[SP_LEN:SP_LEN + 1, :])
+
+
 def _block_geometry(px, py, seg):
     """Distances/offsets of a [P,1] point column against a [8, C] segment
     block → (d2 [P,C], edge [P,C] i32, offabs [P,C]). Every operation is a
     separate rounding in the JAX reference's order (the kernel repeats it
     with contraction off)."""
-    ax = seg[SP_AX:SP_AX + 1, :]
-    ay = seg[SP_AY:SP_AY + 1, :]
-    bx = seg[SP_BX:SP_BX + 1, :]
-    by = seg[SP_BY:SP_BY + 1, :]
-    off0 = seg[SP_OFF:SP_OFF + 1, :]
-    slen = seg[SP_LEN:SP_LEN + 1, :]
-    edge = seg[SP_EDGE:SP_EDGE + 1, :].view(torch.int32)
-
-    abx = bx - ax
-    aby = by - ay
-    denom = torch.clamp_min(abx * abx + aby * aby, 1e-12)
+    ax, ay, abx, aby, denom, edge, off0, slen = _column_side(seg)
     t = torch.clamp(((px - ax) * abx + (py - ay) * aby) / denom, 0.0, 1.0)
     dx = px - (ax + t * abx)
     dy = py - (ay + t * aby)
@@ -351,6 +382,14 @@ def _chunk_block_ids(pts, valid, bbox, radius: float, nchunks: int):
     order = torch.sort(key, dim=1).values
     ids = torch.where(order < nblocks, order, 0).to(torch.int32).contiguous()
     return ids, hit.sum(dim=1, dtype=torch.int32).contiguous()
+
+
+def _chunk_order(nhits: torch.Tensor) -> torch.Tensor:
+    """The order in which the exact kernel's persistent CTAs take chunks:
+    a stable permutation of the chunk indices by descending hit count
+    (heaviest first, ties in index order) → i32 [nchunks]."""
+    return torch.sort(nhits, descending=True, stable=True).indices.to(
+        torch.int32).contiguous()
 
 
 class GateLog(NamedTuple):
@@ -522,21 +561,30 @@ def sweep_arm(subcull: bool, lowp: str, mxu: bool) -> str:
     return "sub_bf16" if lowp == "bf16" else "sub"
 
 
+# the exact kernel's code of each exact arm (sweep_exact.cu)
+_EXACT_CODE = {"block": 0, "sub": 1}
+
+
 def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
                pack: torch.Tensor, sub: "torch.Tensor | None",
                feat: "torch.Tensor | None", radius: float, k: int,
-               arm: str, gate_log: "torch.Tensor | None" = None):
-    """Wrapper of the CUDA sweep (kernels/sweep.cu): one 256-thread block
-    per chunk of ``pts`` walks its own ``nhits`` blocks of ``ids``, in arm
-    ``arm`` of SWEEP_ARMS: "block" reads only ``pack``; the others also
-    ``sub`` (per-slice culling), and the "mxu" arms ``feat``.
+               arm: str, gate_log: "torch.Tensor | None" = None,
+               sweep: "torch.Tensor | None" = None):
+    """Wrapper of the CUDA sweep kernels over the chunks of ``pts`` and
+    their hit lists (``ids``, ``nhits``), in arm ``arm`` of SWEEP_ARMS.
+    The exact arms run kernels/sweep_exact.cu: "block" reads the
+    ``sweep`` table (seg_sweep); "sub" also ``sub`` (per-slice culling).
+    Their persistent CTAs take chunks from a zeroed counter in the order
+    _chunk_order(nhits) gives (heaviest first), computed here. The
+    coarse-filter arms run kernels/sweep.cu, one 256-thread block per
+    chunk, reading ``pack`` and ``sub``, and the "mxu" arms ``feat``.
     → (edge i32, offset f32, dist f32), each [npad, k].
 
-    ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]), when given,
-    receives each warp's slice decisions (decode_gate_log) for a check
-    against the plain gates. Raises on anything the kernel does not take,
-    or if the launch fails."""
-    from reporter_tpu_torch.kernels.build import launch_sweep
+    ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]; not for "block"),
+    when given, receives each warp's slice decisions (decode_gate_log) for
+    a check against the plain vote and gates. Raises on anything the
+    kernel does not take, or if the launch fails."""
+    from reporter_tpu_torch.kernels import build
 
     if arm not in SWEEP_ARMS:
         raise ValueError(f"unknown sweep arm {arm!r}; one of {SWEEP_ARMS}")
@@ -546,6 +594,9 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
         raise ValueError(f"the CUDA sweep is built for K={SWEEP_K}, got {k}")
     if npad % _P or npad == 0:
         raise ValueError(f"points must be whole {_P}-point chunks, got {npad}")
+    if arm == "block" and gate_log is not None:
+        raise ValueError("the block arm sweeps every column: it keeps no "
+                         "gate log")
     spad = pack.shape[1]
     nblocks = spad // _SBLK
     checks = [(pts, torch.float32, (npad, 2)),
@@ -554,6 +605,8 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
               (pack, torch.float32, (SP_NCOMP, spad))]
     if arm != "block":
         checks.append((sub, torch.float32, (nblocks, (_SBLK // _SUB) * 4)))
+    if arm in _EXACT_CODE:
+        checks.append((sweep, torch.float32, (spad, SW_NCOMP)))
     if arm.startswith("mxu"):
         checks.append((feat, torch.float32, (SF_NCOMP, spad)))
     if gate_log is not None:
@@ -570,12 +623,19 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     edge = torch.empty((npad, k), dtype=torch.int32, device=pts.device)
     off = torch.empty((npad, k), dtype=torch.float32, device=pts.device)
     dist = torch.empty((npad, k), dtype=torch.float32, device=pts.device)
+    r2 = float(radius) * float(radius)
     rc = cull_radius(radius)
-    launch_sweep(pts, ids, nhits, pack, sub if arm != "block" else None,
-                 feat if arm.startswith("mxu") else None,
-                 SWEEP_ARMS.index(arm), nchunks, nblocks, spad,
-                 float(radius) * float(radius), rc * rc, float(radius),
-                 edge, off, dist, gate_log)
+    if arm in _EXACT_CODE:
+        counter = torch.zeros(1, dtype=torch.int32, device=pts.device)
+        build.launch_sweep_exact(
+            pts, ids, nhits, _chunk_order(nhits), counter, sweep,
+            sub if arm == "sub" else None, _EXACT_CODE[arm], nchunks,
+            nblocks, r2, rc * rc, edge, off, dist, gate_log)
+    else:
+        build.launch_sweep(pts, ids, nhits, pack, sub,
+                           feat if arm.startswith("mxu") else None,
+                           SWEEP_ARMS.index(arm), nchunks, nblocks, spad, r2,
+                           rc * rc, float(radius), edge, off, dist, gate_log)
     SWEEP_LAUNCHES[arm] += 1
     return edge, off, dist
 
@@ -586,18 +646,21 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
                           mxu: bool = False) -> CandidateSet:
     """points f32 [N, 2] → CandidateSet with [N, K] fields.
 
-    seg_pack: (pack, bbox[, sub[, feat]]) tensors on the points' device;
-    without ``sub`` the whole-block arm runs. ``valid`` (bool [N]) marks
-    real points; the others still get (ignored) rows but take no part in
-    the culling. ``lowp="bf16"`` adds the bf16 coarse filter to the
-    two-level arm; ``mxu`` the tensor-core coarse pass (needs ``feat``),
-    whose operands ``lowp`` then picks. On a CUDA tensor this launches the
-    sweep kernel in that arm; on a CPU tensor it runs the plain version.
+    seg_pack: (pack, bbox[, sub[, feat[, sweep]]]) tensors on the points'
+    device (a SegPack's fields, in order); without ``sub`` the whole-block
+    arm runs, and on a CUDA tensor the exact arms need ``sweep``.
+    ``valid`` (bool [N]) marks real points; the others still get (ignored)
+    rows but take no part in the culling. ``lowp="bf16"`` adds the bf16
+    coarse filter to the two-level arm; ``mxu`` the tensor-core coarse
+    pass (needs ``feat``), whose operands ``lowp`` then picks. On a CUDA
+    tensor this launches the sweep kernel in that arm; on a CPU tensor it
+    runs the plain version.
     Every arm gives the same candidates on every valid point; the illegal
     combinations raise as the JAX package's do."""
     pack, bbox = seg_pack[0], seg_pack[1]
     sub = seg_pack[2] if len(seg_pack) > 2 else None
     feat = seg_pack[3] if len(seg_pack) > 3 else None
+    sweep = seg_pack[4] if len(seg_pack) > 4 else None
     use_sub = bool(subcull) and sub is not None
     if lowp not in ("off", "bf16"):
         raise ValueError(f"unknown lowp {lowp!r}; use 'off' or 'bf16'")
@@ -616,11 +679,13 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
         nchunks = max(1, -(-n // _P))
         pts, val = _fill_invalid(points, valid, nchunks)
         ids, nhits = _chunk_block_ids(pts, val, bbox, radius, nchunks)
+        arm = sweep_arm(use_sub, lowp, mxu)
         edge, off, dist = sweep_topk(
             pts, ids, nhits, pack.contiguous(),
             sub.contiguous() if use_sub else None,
-            feat.contiguous() if mxu else None, radius, max_candidates,
-            sweep_arm(use_sub, lowp, mxu))
+            feat.contiguous() if mxu else None, radius, max_candidates, arm,
+            sweep=sweep.contiguous() if arm in _EXACT_CODE
+            and sweep is not None else None)
         edge, off, dist = edge[:n], off[:n], dist[:n]
     elif points.device.type == "cpu":
         edge, off, dist = _dense_plain(points, pack, radius, max_candidates)

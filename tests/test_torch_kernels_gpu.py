@@ -1,5 +1,6 @@
-"""The CUDA sweep kernel (reporter_tpu_torch/kernels/sweep.cu) against its
-plain PyTorch versions, on the card. Candidates, every arm: tolerance 0
+"""The CUDA sweep kernels (reporter_tpu_torch/kernels/sweep_exact.cu for
+the exact arms, sweep.cu for the coarse-filter arms) against their plain
+PyTorch versions, on the card. Candidates, every arm: tolerance 0
 (the same f32 arithmetic, one rounding per operation). The bf16 filter's
 gate decisions: tolerance 0 (every bf16 operation is correctly rounded on
 both sides). The tensor-core gate: a decision may differ from the plain
@@ -36,11 +37,16 @@ def cuda():
 
 
 @pytest.fixture(scope="module")
-def sf(cuda):
+def sf_tile(cuda):
+    ts = compile_network(generate_city("sf"))
+    return ts, tables_from_numpy(ts.arrays(), cuda)
+
+
+@pytest.fixture(scope="module")
+def sf(sf_tile, cuda):
     """The sf tile's tables and a point set: fleet traces, every node (d =
     0 ties) and uniform points past the tile's edge; 10% invalid."""
-    ts = compile_network(generate_city("sf"))
-    tab = tables_from_numpy(ts.arrays(), cuda)
+    ts, tab = sf_tile
     rng = np.random.default_rng(0)
     fleet = np.concatenate([p.xy for p in synthesize_fleet(ts, 64, seed=3)])
     pts = np.concatenate([
@@ -60,7 +66,8 @@ def test_sweep_kernel_equals_plain(sf, arm):
     before = dc.SWEEP_LAUNCHES[arm]
     got = dc.find_candidates_dense(
         pts, (tab["seg_pack"], tab["seg_bbox"], tab["seg_sub"],
-              tab["seg_feat"]), 50.0, 8, valid=valid, **levers)
+              tab["seg_feat"], tab["seg_sweep"]), 50.0, 8, valid=valid,
+        **levers)
     ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
     torch.cuda.synchronize()
     assert dc.SWEEP_LAUNCHES[arm] == before + 1
@@ -106,7 +113,8 @@ def rows(cuda):
     sp = dc.build_seg_pack(a, b, np.arange(n, dtype=np.int32),
                            np.zeros(n, np.float32), np.full(n, 8.0, np.float32))
     tab = {k: torch.from_numpy(v).to(cuda) for k, v in
-           zip(("seg_pack", "seg_bbox", "seg_sub", "seg_feat"), sp)}
+           zip(("seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep"),
+               sp)}
     rng = np.random.default_rng(4)
     centres = rng.uniform(0.0, 4000.0, (256, 1, 2))
     pts = (centres + rng.uniform(-30.0, 30.0, (256, 32, 2))).reshape(-1, 2)
@@ -135,10 +143,101 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
     ids = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     nhits = torch.zeros(1, dtype=torch.int32, device=cuda)
     pack = torch.zeros((8, 512), device=cuda)
+    sub = torch.zeros((1, 16), device=cuda)
+    sweep = torch.zeros((512, 8), device=cuda)
+    log = torch.zeros((1, 8, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        dc.sweep_topk(pts.cpu(), ids, nhits, pack, None, None, 50.0, 8, "block")
+        dc.sweep_topk(pts.cpu(), ids, nhits, pack, None, None, 50.0, 8,
+                      "block", sweep=sweep)
     with pytest.raises(ValueError):
-        dc.sweep_topk(pts, ids, nhits, pack, None, None, 50.0, 4, "block")
+        dc.sweep_topk(pts, ids, nhits, pack, None, None, 50.0, 4, "block",
+                      sweep=sweep)
     with pytest.raises(ValueError):      # the mxu arm without feat rows
-        dc.sweep_topk(pts, ids, nhits, pack, torch.zeros((1, 16), device=cuda),
-                      None, 50.0, 8, "mxu")
+        dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "mxu")
+    with pytest.raises(ValueError):      # an exact arm without seg_sweep
+        dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "sub")
+    with pytest.raises(ValueError):      # seg_sweep laid out row by row
+        dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "sub",
+                      sweep=sweep.reshape(8, 512))
+    with pytest.raises(ValueError):      # the block arm keeps no gate log
+        dc.sweep_topk(pts, ids, nhits, pack, None, None, 50.0, 8, "block",
+                      gate_log=log, sweep=sweep)
+
+
+def _exact_points(ts, case):
+    """Points for the exact arms' cases on the sf tile (f32 [n, 2]):
+    ring — every chunk spread over the whole tile, so its hit list is
+      longer than the kernel's ring of staged blocks;
+    uneven — one chunk over the whole tile, every other one a 40 m patch;
+    single — one partial chunk of a request's 120 fleet points;
+    partial — 1000 fleet points, the last chunk partial;
+    ties — every node (d = 0 junction ties) and points 48-52 m from
+      segment midpoints (radius-boundary pairs)."""
+    from reporter_tpu_torch.netgen.traces import synthesize_fleet
+
+    rng = np.random.default_rng(11)
+    lo, hi = ts.node_xy.min(0), ts.node_xy.max(0)
+    if case == "ring":
+        pts = rng.uniform(lo, hi, (1024, 2))
+    elif case == "uneven":
+        patches = rng.uniform(lo + 200, hi - 200, (15, 1, 2))
+        pts = np.concatenate([
+            rng.uniform(lo, hi, (256, 2)),
+            (patches + rng.uniform(-20, 20, (15, 256, 2))).reshape(-1, 2)])
+    elif case == "single":
+        pts = synthesize_fleet(ts, 1, num_points=120, seed=4)[0].xy
+    elif case == "partial":
+        fleet = synthesize_fleet(ts, 10, num_points=100, seed=6)
+        pts = np.concatenate([p.xy for p in fleet])
+    else:
+        mid = ((ts.seg_a + ts.seg_b) * 0.5)[::7]
+        ang = rng.uniform(0, 2 * np.pi, len(mid))
+        r = rng.uniform(48.0, 52.0, len(mid))[:, None]
+        pts = np.concatenate([
+            ts.node_xy, mid + np.stack([np.cos(ang), np.sin(ang)], 1) * r])
+    return np.asarray(pts, np.float32)
+
+
+@pytest.mark.parametrize("case", ["ring", "uneven", "single", "partial",
+                                  "ties"])
+@pytest.mark.parametrize("arm", ["block", "sub"])
+def test_exact_arm_cases(sf_tile, arm, case):
+    """The redesigned exact arms, bit-equal to _dense_plain where their
+    design could go wrong: hit lists longer than the ring, chunks of very
+    different weight, one chunk, a partial last chunk, d = 0 ties and
+    radius-boundary points. For sub, the kernel's votes equal the plain
+    vote."""
+    ts, tab = sf_tile
+    pts = torch.from_numpy(_exact_points(ts, case)).cuda()
+    n = len(pts)
+    nchunks = -(-n // dc._P)
+    fpts, fval = dc._fill_invalid(
+        pts, torch.ones(n, dtype=torch.bool, device=pts.device), nchunks)
+    ids, nhits = dc._chunk_block_ids(fpts, fval, tab["seg_bbox"], 50.0,
+                                     nchunks)
+    nblocks = ids.shape[1]
+    if case == "ring":
+        assert int(nhits.min()) == nblocks > 4
+    elif case == "uneven":
+        assert int(nhits[0]) == nblocks and 2 * int(nhits[1:].max()) <= nblocks
+    elif case == "single":
+        assert nchunks == 1
+    log = None if arm == "block" else torch.zeros(
+        (nchunks, dc._P // 32, nblocks), dtype=torch.int32, device=pts.device)
+    before = dc.SWEEP_LAUNCHES[arm]
+    got = dc.sweep_topk(fpts, ids, nhits, tab["seg_pack"], tab["seg_sub"],
+                        None, 50.0, 8, arm, gate_log=log,
+                        sweep=tab["seg_sweep"])
+    ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
+    torch.cuda.synchronize()
+    assert dc.SWEEP_LAUNCHES[arm] == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g[:n], r)
+    if case == "ties":
+        assert 2 * int((ref[2][:, 0] == 0).sum()) > len(ts.node_xy)
+    if log is not None:
+        kg = dc.decode_gate_log(log)
+        want = dc._slice_votes(fpts, ids, nhits, tab["seg_sub"],
+                               dc.cull_radius(50.0) ** 2)
+        assert torch.equal(kg.vote, want)
+        assert torch.equal(kg.gate, want)

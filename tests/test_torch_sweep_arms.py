@@ -258,7 +258,7 @@ def test_plain_gates_admit_every_warp_with_a_pair(kind):
     centres = rng.uniform(0, 4000.0, (64, 1, 2))
     pts = (centres + rng.uniform(-40.0, 40.0, (64, 32, 2))).reshape(-1, 2)
     pts = torch.from_numpy(pts.astype(np.float32))
-    pack, bbox, sub, feat = (torch.from_numpy(x) for x in sp)
+    pack, bbox, sub, feat = (torch.from_numpy(x) for x in sp[:4])
     nchunks = len(pts) // dc._P
     ids, nhits = dc._chunk_block_ids(pts, torch.ones(len(pts), dtype=bool),
                                      bbox, RADIUS, nchunks)
