@@ -6,26 +6,31 @@ Drives the port's main path (reporter_tpu_torch) at full size and holds
 every CUDA kernel of it against its plain PyTorch version, in phases:
 
   1. device   — require CUDA; print the card's name and power limit;
-  2. build    — nvcc-build kernels/sweep.cu and kernels/sweep_exact.cu
-                (sm_90a; one nvcc each, started together) into
-                reporter_tpu_torch/_build/; each kernel's ptxas figures and
-                the exact kernel's launch shape (threads, dynamic shared
-                memory, CTAs per SM, SMs);
+  2. build    — nvcc-build kernels/sweep.cu (the bf16 filter arm) and
+                kernels/sweep_exact.cu (the other four arms) (sm_90a; one
+                nvcc each, started together) into
+                reporter_tpu_torch/_build/; the ptxas figures of every
+                kernel instance and each ring-fed arm's launch shape
+                (threads, ring depth, dynamic shared memory, CTAs per SM,
+                SMs, grid);
   3. tiles    — compile the synthetic "sf" metro (~5.3k directed edges);
   4. kernel   — 1024 traces x 120 points padded to the 128 bucket
-                (131,072 points) through all five sweep arms (the exact
-                arms in sweep_exact.cu, the coarse ones in sweep.cu) and
+                (131,072 points) through all five sweep arms (block, sub,
+                mxu, mxu_bf16 in sweep_exact.cu, sub_bf16 in sweep.cu) and
                 through _dense_plain on the card: edge, offset and dist
                 must be bit-equal; CUDA-event times of each, as the median
                 of single launches (``ms``, the yardstick of every earlier
                 run) and per launch in a back-to-back run
-                (``ms_back_to_back``). The work spread over chunks and
-                warps. The kernel's slice
+                (``ms_back_to_back``). The ring-fed arms' chunk order
+                kernel against _chunk_order. The work spread over chunks
+                and warps. The kernel's slice
                 votes against the plain vote; for the coarse arms, its gate
                 decisions (a debug launch) against the plain gates: equal
                 for the bf16 filter; for the tensor-core pass different
                 only within 1e-3 of the threshold; the vote and gate shares
-                of (warp, slice) pairs;
+                of (warp, slice) pairs, and for the tensor-core arms the
+                share of voted tiles whose gate passed in its first group
+                of n-tiles;
      gates    — the same checks on parallel streets 500 m apart, where
                 every coarse gate culls: the gate share must be below the
                 vote share, so a gate that admits every slice (a wrong
@@ -131,18 +136,34 @@ def launch_ms(fn, runs: int = 20) -> float:
     return a.elapsed_time(b) / runs
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name: the
+    innermost length-prefixed identifier that ends in "_kernel" (a hash's
+    digits may run into its length), then its ILi..E arguments (e.g.
+    sweep_exact_kernel<3>)."""
+    found = None
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            ident = mangled[m.end():m.end() + int(m.group()[i:])]
+            if ident.endswith("_kernel") and ident[:1].isalpha() \
+                    and (found is None or len(ident) < len(found)):
+                found = ident
+    if found is None:
+        return mangled
+    rest = mangled[mangled.rindex(found) + len(found):]
+    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) \
+        if rest.startswith("I") else []
+    return found + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_figures(log: str) -> list:
-    """Per kernel of a ptxas -v log: its template arguments, registers,
-    static shared memory and spill bytes."""
+    """Per kernel of a ptxas -v log: its name and template arguments,
+    registers, static shared memory and spill bytes."""
     out = []
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1)
-            kern = re.search(r"(sweep\w*_kernel)I(.*?)EEv", name)
-            args = re.findall(r"L[ib](\d+)E", kern.group(2)) if kern else []
-            out.append({"kernel": f"{kern.group(1) if kern else name}"
-                                  f"<{','.join(args)}>"})
+            out.append({"kernel": kernel_name(m.group(1))})
             continue
         if not out:
             continue
@@ -166,15 +187,15 @@ def fleet_points(fleet):
     return pts.reshape(-1, 2)
 
 
-def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, radius, k,
-                 sweep):
+def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, coarse, radius,
+                 k, sweep):
     """The kernel's (warp, slice) vote and gate decisions (one debug
     launch) against the plain vote and gates; raises where they disagree
     beyond the stated tolerance. → (kernel decisions, plain gate or None,
     fields to print)."""
     log = torch.zeros((ids.shape[0], dc._P // 32, ids.shape[1]),
                       dtype=torch.int32, device="cuda")
-    dc.sweep_topk(fpts, ids, nhits, pack, sub, feat, radius, k, arm,
+    dc.sweep_topk(fpts, ids, nhits, pack, sub, coarse, radius, k, arm,
                   gate_log=log, sweep=sweep)
     kg = dc.decode_gate_log(log)
     if not torch.equal(kg.vote, dc._slice_votes(
@@ -196,9 +217,40 @@ def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, radius, k,
     if off.any():
         raise SystemExit(f"{arm} gate: {int(off.sum())} decisions differ "
                          f"from the plain gate beyond the tolerance {tol}")
-    return kg, pg, {"gate_mismatches": int(differ.sum()),
-                    "gate_mismatches_off_threshold": int(off.sum()),
-                    "gate_tolerance": tol}
+    fields = {"gate_mismatches": int(differ.sum()),
+              "gate_mismatches_off_threshold": int(off.sum()),
+              "gate_tolerance": tol}
+    if arm.startswith("mxu"):
+        # bit 8 + s: slice s's gate passed in its first group of n-tiles
+        first = dc.decode_gate_log(log >> 8).vote
+        if (first & ~kg.gate).any():
+            raise SystemExit(f"{arm}: a gate passed early but was not swept")
+        fields["gate_first_group_share_of_voted"] = \
+            int(first.sum()) / max(int(kg.vote.sum()), 1)
+    return kg, pg, fields
+
+
+def order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k):
+    """The ring-fed call's chunk order kernel against its plain version,
+    _chunk_order (tolerance 0), and the counter it zeroes: after the sweep
+    it must hold nchunks + grid (each CTA fails one take)."""
+    nchunks, nblocks = ids.shape
+    order = torch.full((nchunks + 1,), -7, dtype=torch.int32, device="cuda")
+    out = [torch.empty((nchunks * dc._P, k), dtype=dt, device="cuda")
+           for dt in (torch.int32, torch.float32, torch.float32)]
+    rc = dc.cull_radius(radius)
+    build.launch_sweep_exact(fpts, ids, nhits, order, sweep, sub, None,
+                             dc._EXACT_CODE["sub"], nchunks, nblocks,
+                             radius * radius, rc * rc, radius, *out)
+    sh = build.exact_shape(dc._EXACT_CODE["sub"])
+    grid = min(nchunks, sh["ctas_per_sm"] * sh["sms"])
+    equal = torch.equal(order[:nchunks], dc._chunk_order(nhits))
+    counter = int(order[nchunks])
+    phase("kernel:order", card, chunks=nchunks, equal_to_plain=equal,
+          counter=counter, grid=grid)
+    if not equal or counter != nchunks + grid:
+        raise SystemExit("the chunk order kernel differs from _chunk_order "
+                         f"(equal {equal}) or its counter ended at {counter}")
 
 
 def spread_phase(card, dc, nhits, kg):
@@ -221,7 +273,7 @@ def spread_phase(card, dc, nhits, kg):
                                                            .float().mean())})
 
 
-def kernel_phase(card, tab, pts, radius, k, dc):
+def kernel_phase(card, tab, pts, radius, k, dc, build):
     """Every arm against _dense_plain on the same points, its gate against
     the plain gate, its time and its bound; the work spread.
     → {arm: record}."""
@@ -236,7 +288,8 @@ def kernel_phase(card, tab, pts, radius, k, dc):
 
     ids, nhits = prepass()
     pack, sub, feat = tab["seg_pack"], tab["seg_sub"], tab["seg_feat"]
-    sweep = tab["seg_sweep"]
+    sweep, co_tab = tab["seg_sweep"], tab["seg_coarse"]
+    order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k)
     ref = dc._dense_plain(pts, pack, radius, k)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: dc._dense_plain(pts, pack, radius, k), reps=3,
@@ -254,8 +307,8 @@ def kernel_phase(card, tab, pts, radius, k, dc):
     arms = {}
     for arm in dc.SWEEP_ARMS:
         def run(a=arm):
-            return dc.sweep_topk(fpts, ids, nhits, pack, sub, feat, radius,
-                                 k, a, sweep=sweep)
+            return dc.sweep_topk(fpts, ids, nhits, pack, sub, co_tab,
+                                 radius, k, a, sweep=sweep)
         got = run()
         torch.cuda.synchronize()
         mism = {f: int((g != r).sum()) for f, g, r in
@@ -273,7 +326,7 @@ def kernel_phase(card, tab, pts, radius, k, dc):
             coarse, coarse_rate = 0, None
         else:
             kg, pg, fields = kernel_gates(dc, arm, fpts, ids, nhits, pack,
-                                          sub, feat, radius, k, sweep)
+                                          sub, feat, co_tab, radius, k, sweep)
             if arm == "sub":
                 spread_phase(card, dc, nhits, kg)
             nbytes += n_used * sub.shape[1] * 4
@@ -326,7 +379,8 @@ def gates_phase(card, dc, radius, k):
     sp = dc.build_seg_pack(a, b, np.arange(len(a), dtype=np.int32),
                            np.zeros(len(a), np.float32),
                            np.full(len(a), 8.0, np.float32))
-    pack, bbox, sub, feat, sweep = (torch.from_numpy(v).cuda() for v in sp)
+    pack, bbox, sub, feat, sweep, coarse = (torch.from_numpy(v).cuda()
+                                            for v in sp)
     rng = np.random.default_rng(4)
     centres = rng.uniform(0.0, 4000.0, (256, 1, 2))
     pts = torch.from_numpy((centres + rng.uniform(-30.0, 30.0, (256, 32, 2)))
@@ -339,8 +393,8 @@ def gates_phase(card, dc, radius, k):
     ref = dc._dense_plain(pts, pack, radius, k)
     out = {}
     for arm in dc.SWEEP_ARMS:
-        got = dc.sweep_topk(fpts, ids, nhits, pack, sub, feat, radius, k, arm,
-                            sweep=sweep)
+        got = dc.sweep_topk(fpts, ids, nhits, pack, sub, coarse, radius, k,
+                            arm, sweep=sweep)
         mism = sum(int((g != r).sum()) for g, r in zip(got, ref))
         if mism:
             raise SystemExit(f"parallel streets: arm {arm} differs from "
@@ -348,7 +402,7 @@ def gates_phase(card, dc, radius, k):
         if arm in ("block", "sub"):
             continue
         kg, pg, fields = kernel_gates(dc, arm, fpts, ids, nhits, pack, sub,
-                                      feat, radius, k, sweep)
+                                      feat, coarse, radius, k, sweep)
         vote, gate, plain = (int(kg.vote.sum()), int(kg.gate.sum()),
                              int(pg.gate.sum()))
         out[arm] = dict(voted=vote, gate_passed=gate, plain_gate_passed=plain,
@@ -542,8 +596,8 @@ def main() -> int:
                    "kernels": ptxas_figures(log["ptxas"])}
              for src, log in build.BUILD_LOG.items()}
     phase("build", card, seconds=time.perf_counter() - t0, sources=built)
-    # the persistent grid is min(chunks, CTAs per SM x SMs); the kernel
-    # phase runs 512 chunks
+    # the ring-fed arms' persistent grid is min(chunks, CTAs per SM x
+    # SMs); the kernel phase runs 512 chunks
     shapes = {arm: build.exact_shape(code)
               for arm, code in dc._EXACT_CODE.items()}
     for sh in shapes.values():
@@ -563,7 +617,7 @@ def main() -> int:
     fleet = synthesize_fleet(ts, N_TRACES, num_points=N_POINTS, seed=0)
     pts = torch.from_numpy(fleet_points(fleet)).cuda()      # [131072, 2]
     radius, k = MatcherParams().search_radius, MatcherParams().max_candidates
-    arms = kernel_phase(card, tab, pts, radius, k, dc)
+    arms = kernel_phase(card, tab, pts, radius, k, dc, build)
     gates_phase(card, dc, radius, k)
 
     # ---- 5. main path (calibration included), breakdown, reference -------

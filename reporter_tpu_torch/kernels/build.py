@@ -1,7 +1,9 @@
 """Lazy build and ctypes binding of the port's CUDA kernels.
 
-Each source (``sweep.cu``: the coarse-filter arms of the sweep;
-``sweep_exact.cu``: its two exact arms) is compiled by ``nvcc`` for
+Each source (``sweep.cu``: the sweep's bf16 filter arm;
+``sweep_exact.cu``: its four ring-fed arms, the exact ``block`` and
+``sub`` and the tensor-core ``mxu`` and ``mxu_bf16``) is compiled by
+``nvcc`` for
 ``sm_90a`` at first use into ``reporter_tpu_torch/_build/``: one shared
 library per source with a plain C interface, loaded with ctypes (seconds
 to build, no PyTorch headers). ``load_sweep`` starts one ``nvcc`` per
@@ -79,18 +81,18 @@ def build(source: Path) -> Path:
 
 def _bind_sweep(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtt_sweep_topk.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                   f, f, f, p, p, p, p, p]
-    lib.rtt_sweep_topk.restype = ctypes.c_int
+    lib.rtt_sweep_bf16.argtypes = [p, p, p, p, p, i, i, i, f, f, f,
+                                   p, p, p, p, p]
+    lib.rtt_sweep_bf16.restype = ctypes.c_int
 
 
 def _bind_exact(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtt_sweep_exact.argtypes = [p, p, p, p, p, p, p, i, i, i, f, f,
+    lib.rtt_sweep_exact.argtypes = [p, p, p, p, p, p, p, i, i, i, f, f, f,
                                     p, p, p, p, p]
     lib.rtt_sweep_exact.restype = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rtt_sweep_exact_shape.argtypes = [i, ip, ip, ip, ip]
+    lib.rtt_sweep_exact_shape.argtypes = [i, ip, ip, ip, ip, ip]
     lib.rtt_sweep_exact_shape.restype = ctypes.c_int
 
 
@@ -128,33 +130,35 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch_sweep(pts, ids, nhits, pack, sub, feat, arm: int, nchunks: int,
-                 nblocks: int, spad: int, r2: float, rc2: float,
-                 radius: float, edge, off, dist, gate_log=None) -> None:
-    """One launch of the coarse sweep's arm ``arm`` on PyTorch's current
-    stream. The tensors are checked by the caller
-    (ops.dense_candidates.sweep_topk); ``feat`` and ``gate_log`` may be
-    None where the arm reads none."""
-    rc = _lib("sweep").rtt_sweep_topk(
+def launch_sweep_bf16(pts, ids, nhits, pack, sub, nchunks: int,
+                      nblocks: int, spad: int, r2: float, rc2: float,
+                      radius: float, edge, off, dist, gate_log=None) -> None:
+    """One launch of the bf16 filter arm on PyTorch's current stream. The
+    tensors are checked by the caller (ops.dense_candidates.sweep_topk);
+    ``gate_log`` may be None."""
+    rc = _lib("sweep").rtt_sweep_bf16(
         pts.data_ptr(), ids.data_ptr(), nhits.data_ptr(), pack.data_ptr(),
-        _ptr(sub), _ptr(feat), arm, nchunks, nblocks, spad, r2, rc2, radius,
+        sub.data_ptr(), nchunks, nblocks, spad, r2, rc2, radius,
         edge.data_ptr(), off.data_ptr(), dist.data_ptr(), _ptr(gate_log),
         _stream(pts))
     if rc != 0:
-        raise RuntimeError(f"sweep_topk launch failed (arm {arm}): "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"sweep_bf16 launch failed: cudaError {rc}")
 
 
-def launch_sweep_exact(pts, ids, nhits, order, next_chunk, table, sub,
+def launch_sweep_exact(pts, ids, nhits, order, table, sub, coarse,
                        arm: int, nchunks: int, nblocks: int, r2: float,
-                       rc2: float, edge, off, dist, gate_log=None) -> None:
-    """One launch of the exact sweep (arm 0 block, 1 sub) on PyTorch's
-    current stream; the caller checks the tensors. ``sub`` and
-    ``gate_log`` may be None for the block arm."""
+                       rc2: float, radius: float, edge, off, dist,
+                       gate_log=None) -> None:
+    """One call of the ring-fed sweep (arm 0 block, 1 sub, 3 mxu, 4
+    mxu_bf16) on PyTorch's current stream: the chunk order kernel writes
+    ``order`` (i32 scratch [nchunks + 1]: the chunks heaviest first, then
+    the CTAs' chunk counter), then the sweep runs. The caller checks the
+    tensors. ``sub`` and ``gate_log`` may be None for the block arm,
+    ``coarse`` for every arm but the mxu ones."""
     rc = _lib("sweep_exact").rtt_sweep_exact(
         pts.data_ptr(), ids.data_ptr(), nhits.data_ptr(), order.data_ptr(),
-        next_chunk.data_ptr(), table.data_ptr(), _ptr(sub), arm, nchunks,
-        nblocks, r2, rc2, edge.data_ptr(), off.data_ptr(), dist.data_ptr(),
+        table.data_ptr(), _ptr(sub), _ptr(coarse), arm, nchunks, nblocks,
+        r2, rc2, radius, edge.data_ptr(), off.data_ptr(), dist.data_ptr(),
         _ptr(gate_log), _stream(pts))
     if rc != 0:
         raise RuntimeError(f"sweep_exact launch failed (arm {arm}): "
@@ -162,13 +166,14 @@ def launch_sweep_exact(pts, ids, nhits, order, next_chunk, table, sub,
 
 
 def exact_shape(arm: int) -> dict:
-    """The exact sweep's launch shape on the current device: threads per
-    CTA, dynamic shared memory (bytes), resident CTAs per SM, SMs."""
-    vals = [ctypes.c_int(0) for _ in range(4)]
+    """The ring-fed sweep's launch shape on the current device: threads
+    per CTA, dynamic shared memory (bytes), resident CTAs per SM, SMs and
+    the ring's depth (stages)."""
+    vals = [ctypes.c_int(0) for _ in range(5)]
     rc = _lib("sweep_exact").rtt_sweep_exact_shape(
         arm, *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise RuntimeError(f"sweep_exact shape query failed (arm {arm}): "
                            f"error {rc}")
-    return dict(zip(("threads", "smem_bytes", "ctas_per_sm", "sms"),
+    return dict(zip(("threads", "smem_bytes", "ctas_per_sm", "sms", "depth"),
                     (v.value for v in vals)))

@@ -1,67 +1,57 @@
-// Dense candidate sweep for Hopper (sm_90a), coarse-filter arms: per probe
-// point, the top-K distinct edges within the search radius.
+// Dense candidate sweep for Hopper (sm_90a), the bf16 coarse-filter arm:
+// per probe point, the top-K distinct edges within the search radius.
 //
-// Replaces three arms of the Pallas TPU kernel of
-// reporter_tpu/ops/dense_candidates.py (one pl.pallas_call, :755), as
-// arms of one kernel template:
-//   kSubBf16 _sweep_kernel_sub :567-614 (bf16 VPU coarse filter)
-//   kMxu     _sweep_kernel_sub :521-564 (MXU coarse pass, f32 operands;
-//            here tf32 tensor-core operands)
-//   kMxuBf16 the same with bf16 operands
-// The two exact arms (block, sub) are sweep_exact.cu.
-// It computes what they compute, not how: the TPU kernel runs a sequential
-// (chunk, block-slot) grid with a [256, K] VMEM scratch merged by K masked
-// reductions; here one 256-thread block owns one 256-point chunk, each
-// thread owns one point and keeps its running top-K in registers, and the
-// block walks only its own compacted hit list (ids[chunk, 0:nhits[chunk]])
-// from the PyTorch cull pre-pass, so culled slots cost nothing.
+// Replaces one arm of the Pallas TPU kernel of
+// reporter_tpu/ops/dense_candidates.py (one pl.pallas_call, :755):
+//   sub_bf16  _sweep_kernel_sub :567-614 (bf16 VPU coarse filter)
+// The other four arms (block, sub and the tensor-core arms mxu, mxu_bf16)
+// are sweep_exact.cu's.
+// It computes what the TPU kernel computes, not how: the TPU kernel runs a
+// sequential (chunk, block-slot) grid with a [256, K] VMEM scratch merged
+// by K masked reductions; here one 256-thread block owns one 256-point
+// chunk, each thread owns one point and keeps its running top-K in
+// registers, and the block walks only its own compacted hit list
+// (ids[chunk, 0:nhits[chunk]]) from the PyTorch cull pre-pass, so culled
+// slots cost nothing.
 //
 // Per hit block the 8 x 512 f32 component rows (ax, ay, bx, by, off, len,
 // edge-bits, spare) are staged in shared memory (16 KB); every thread of a
 // warp reads the same column at once, a broadcast. Each 128-column slice
-// is first tested against its bbox quad: a warp
-// votes to sweep the slice only if one of its 32 points lies within the
-// dilated cull radius of the quad (a lower bound on every point-to-segment
-// distance in the slice, so no in-radius pair is ever skipped). NaN quads
-// (all-padding slices) are skipped.
+// is first tested against its bbox quad: a warp votes to sweep the slice
+// only if one of its 32 points lies within the dilated cull radius of the
+// quad (a lower bound on every point-to-segment distance in the slice, so
+// no in-radius pair is ever skipped). NaN quads (all-padding slices) are
+// skipped.
 //
-// The coarse arms put a warp-uniform gate between the vote and the exact
-// pass: the warp sweeps the slice exactly only if the minimum of a cheap
-// lower bound over its 32 points x the slice's 128 columns passes the JAX
-// kernel's threshold. The TPU takes that minimum over the chunk's 256
-// points; the per-warp minimum is tighter and still conservative.
-//  - bf16 filter: point and endpoints recentred on the slice bbox and
-//    clamped into it (dilated by ~radius), then the point-to-segment d^2 in
-//    bf16, every operation rounded once in the JAX kernel's order
-//    (__h*_rn forms are never contracted). The column side (endpoints,
-//    direction, denominator) is computed once per block into shared
-//    memory. Pass: min d2c <= (r + 0.0625 scale + 0.5)^2. It runs on the
-//    CUDA cores, 17 bf16 operations a pair against ~24 f32 ones for the
-//    exact geometry, so it gains only where it skips most voted tiles.
-//  - tensor-core pass: each warp writes its [32, 8] point features
-//    (qx^2, qy^2, qx qy, qx, qy, 1, 0, 0; recentred on the slice centre of
-//    the feat rows, clamped) to shared memory and runs 2 (m16) x 16 (n8)
-//    mma.sync.m16n8k8 products against the slice's [8, 128] feat rows
-//    (staged in shared memory only for slices some warp voted for), in
-//    tf32 (operands by cvt.rna) or bf16, f32 accumulation: every pair's
-//    point-to-line d^2. Pass: min <= r^2 + 0.0625 scale^2 + 0.5. The
-//    margin assumes bf16-grade operands for both types.
+// Between the vote and the exact pass sits a warp-uniform gate: the warp
+// sweeps the slice exactly only if the minimum of a cheap lower bound over
+// its 32 points x the slice's 128 columns passes the JAX kernel's
+// threshold. The TPU takes that minimum over the chunk's 256 points; the
+// per-warp minimum is tighter and still conservative. The bound: point and
+// endpoints recentred on the slice bbox and clamped into it (dilated by
+// ~radius), then the point-to-segment d^2 in bf16, every operation rounded
+// once in the JAX kernel's order (__h*_rn forms are never contracted). The
+// column side (endpoints, direction, denominator) is computed once per
+// block into shared memory. Pass: min d2c <= (r + 0.0625 scale + 0.5)^2.
+// It runs on the CUDA cores, 17 bf16 operations a pair against ~24 f32
+// ones for the exact geometry, so it gains only where it skips most voted
+// tiles.
 //
 // Bound on this card: the arithmetic of the exactly swept (point, column)
-// pairs, about 20 f32 operations each, on the CUDA cores (no tensor-core
-// form of the exact geometry), plus the coarse pairs of the gated arms on
-// their unit; the bytes moved (the hit blocks, the points, the [N, K]
-// outputs) are small beside it. The design keeps the top-K merge off the
-// per-pair path: a pair outside the radius costs only its geometry and one
-// compare, and the gates skip whole (warp, slice) tiles.
+// pairs, about 20 f32 operations each, on the CUDA cores, plus the bf16
+// filter's pairs on the same cores; the bytes moved (the hit blocks, the
+// points, the [N, K] outputs) are small beside it. The design keeps the
+// top-K merge off the per-pair path: a pair outside the radius costs only
+// its geometry and one compare, and the gate skips whole (warp, slice)
+// tiles.
 //
 // Exactness: built with -fmad=false -prec-div=true -prec-sqrt=true, so
 // every operation rounds once, in the reference's order, exactly like the
 // plain PyTorch version (_dense_plain); FMA contraction would move d^2 by
-// an ulp and flip d = 0 junction ties and radius-boundary points. The
-// gates only skip tiles that provably hold no pair within the radius, so
-// all five arms return the same candidates, bit for bit. The running top-K
-// and its order are topk.cuh's.
+// an ulp and flip d = 0 junction ties and radius-boundary points. The gate
+// only skips tiles that provably hold no pair within the radius, so the
+// arm returns the same candidates as every other, bit for bit. The running
+// top-K and its order are topk.cuh's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,38 +72,8 @@ constexpr int kSub = 128;     // columns per culling slice
 constexpr int kNsub = kSblk / kSub;
 constexpr int kNcomp = 8;
 
-// arm codes (ops/dense_candidates.py SWEEP_ARMS order; 0 and 1, the exact
-// arms, are sweep_exact.cu's)
-constexpr int kSubBf16 = 2, kMxu = 3, kMxuBf16 = 4;
-
-// seg_feat rows holding the slice centre; staged feat rows are padded so
-// the B-fragment loads of one mma fall in distinct banks
-constexpr int kFcx = 6, kFcy = 7;
-constexpr int kFsPitch = kSblk + 8;
-
 __device__ __forceinline__ float clampf(float v, float e) {
   return fminf(fmaxf(v, -e), e);       // jnp.clip(v, -e, e)
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  }
-  return v;
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// two bf16 operands in one register, the lower k index in the low half
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
 }
 
 // Column side of the bf16 filter for the block's 512 columns, in the order
@@ -147,79 +107,20 @@ __device__ float bf16_lane_min(const Bf16Cols& cb, int c0, float px,
   return mn;
 }
 
-// The tensor-core coarse pass of one slice for this warp: the minimum of
-// tile[32, 8] x fs[8, c0:c0+128] over all 32 x 128 outputs. Any row
-// order of A and column order of B give the same minimum; only the k
-// index must agree between the A and B fragments (PTX ISA, "Matrix
-// Fragments for mma.m16n8k8": tf32 A a0..a3 at k = t, t, t+4, t+4 and B
-// b0, b1 at k = t, t+4; bf16 A pairs at k = 2t, 2t+1 and B pair at
-// k = 2t, 2t+1, with t = lane % 4 and g = lane / 4 the row / column).
-template <bool BF16>
-__device__ float mma_warp_min(const float* tile, const float (*fs)[kFsPitch],
-                              int c0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float mn = __int_as_float(0x7f800000);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const float* r0 = tile + (mt * 16 + g) * 8;
-    const float* r1 = tile + (mt * 16 + g + 8) * 8;
-    uint32_t a0, a1, a2 = 0u, a3 = 0u;
-    if (BF16) {
-      a0 = bf16x2(r0[2 * t], r0[2 * t + 1]);
-      a1 = bf16x2(r1[2 * t], r1[2 * t + 1]);
-    } else {
-      a0 = tf32(r0[t]);
-      a1 = tf32(r1[t]);
-      a2 = tf32(r0[t + 4]);
-      a3 = tf32(r1[t + 4]);
-    }
-#pragma unroll 4
-    for (int nt = 0; nt < kSub / 8; ++nt) {
-      const int col = c0 + nt * 8 + g;
-      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
-      if (BF16) {
-        const uint32_t b = bf16x2(fs[2 * t][col], fs[2 * t + 1][col]);
-        asm volatile(
-            "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-            : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-            : "r"(a0), "r"(a1), "r"(b));
-      } else {
-        const uint32_t b0 = tf32(fs[t][col]);
-        const uint32_t b1 = tf32(fs[t + 4][col]);
-        asm volatile(
-            "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-      }
-      mn = fminf(mn, fminf(fminf(d0, d1), fminf(d2, d3)));
-    }
-  }
-  return warp_min(mn);
-}
-
-template <int ARM>
 __global__ void __launch_bounds__(kP)
-sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
+sweep_bf16_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
                   const int* __restrict__ ids,      // [nchunks, nblocks]
                   const int* __restrict__ nhits,    // [nchunks]
                   const float* __restrict__ pack,   // [8, spad]
                   const float* __restrict__ sub,    // [nblocks, nsub*4]
-                  const float* __restrict__ feat,   // [8, spad]
                   int nblocks, int spad, float r2, float rc2, float radius,
                   int* __restrict__ out_edge,       // [nchunks*P, K]
                   float* __restrict__ out_off,
                   float* __restrict__ out_dist,
                   int* __restrict__ gate_log) {     // [nchunks, 8, nblocks]
-  constexpr bool kBf16Filter = ARM == kSubBf16;
-  constexpr bool kTensor = ARM == kMxu || ARM == kMxuBf16;
   __shared__ float seg[kNcomp][kSblk];
   __shared__ float quad[kNsub * 4];
-  __shared__ float fs[kTensor ? kNcomp : 1][kFsPitch];
-  __shared__ float tiles[kTensor ? kWarps : 1][32 * 8];
-  __shared__ __align__(16) unsigned char cb_raw[kBf16Filter ? sizeof(Bf16Cols) : 16];
-  __shared__ unsigned slice_mask;
+  __shared__ __align__(16) unsigned char cb_raw[sizeof(Bf16Cols)];
   Bf16Cols& cb = *reinterpret_cast<Bf16Cols*>(cb_raw);
 
   const int chunk = blockIdx.x;
@@ -248,7 +149,6 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
     if (tid < kNsub * 4) {
       quad[tid] = sub[static_cast<long>(blk) * kNsub * 4 + tid];
     }
-    if (tid == 0) slice_mask = 0u;
     __syncthreads();
 
     // the warp's vote per slice (bit s)
@@ -265,41 +165,24 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
       }
       if (__any_sync(0xffffffffu, near)) vote |= 1u << s;
     }
-    if constexpr (kBf16Filter) {
-      // column side of the bf16 filter, once per block (two columns a thread)
-      for (int c = tid; c < kSblk; c += kP) {
-        const int s = c / kSub;
-        const float lox = quad[4 * s], loy = quad[4 * s + 1];
-        const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
-        const float cx = (lox + hix) * 0.5f, cy = (loy + hiy) * 0.5f;
-        const float ex = (hix - lox) * 0.5f + mx, ey = (hiy - loy) * 0.5f + mx;
-        const __nv_bfloat16 axl = __float2bfloat16_rn(clampf(seg[0][c] - cx, ex));
-        const __nv_bfloat16 ayl = __float2bfloat16_rn(clampf(seg[1][c] - cy, ey));
-        const __nv_bfloat16 bxl = __float2bfloat16_rn(clampf(seg[2][c] - cx, ex));
-        const __nv_bfloat16 byl = __float2bfloat16_rn(clampf(seg[3][c] - cy, ey));
-        const __nv_bfloat16 abx = __hsub_rn(bxl, axl);
-        const __nv_bfloat16 aby = __hsub_rn(byl, ayl);
-        cb.ax[c] = axl; cb.ay[c] = ayl; cb.abx[c] = abx; cb.aby[c] = aby;
-        cb.den[c] = __hmax(__hadd_rn(__hmul_rn(abx, abx), __hmul_rn(aby, aby)),
-                           __float2bfloat16_rn(1e-12f));
-      }
-      __syncthreads();
+    // column side of the bf16 filter, once per block (two columns a thread)
+    for (int c = tid; c < kSblk; c += kP) {
+      const int s = c / kSub;
+      const float lox = quad[4 * s], loy = quad[4 * s + 1];
+      const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
+      const float cx = (lox + hix) * 0.5f, cy = (loy + hiy) * 0.5f;
+      const float ex = (hix - lox) * 0.5f + mx, ey = (hiy - loy) * 0.5f + mx;
+      const __nv_bfloat16 axl = __float2bfloat16_rn(clampf(seg[0][c] - cx, ex));
+      const __nv_bfloat16 ayl = __float2bfloat16_rn(clampf(seg[1][c] - cy, ey));
+      const __nv_bfloat16 bxl = __float2bfloat16_rn(clampf(seg[2][c] - cx, ex));
+      const __nv_bfloat16 byl = __float2bfloat16_rn(clampf(seg[3][c] - cy, ey));
+      const __nv_bfloat16 abx = __hsub_rn(bxl, axl);
+      const __nv_bfloat16 aby = __hsub_rn(byl, ayl);
+      cb.ax[c] = axl; cb.ay[c] = ayl; cb.abx[c] = abx; cb.aby[c] = aby;
+      cb.den[c] = __hmax(__hadd_rn(__hmul_rn(abx, abx), __hmul_rn(aby, aby)),
+                         __float2bfloat16_rn(1e-12f));
     }
-    if constexpr (kTensor) {
-      // stage the feat rows of the slices some warp voted for
-      if (lane == 0 && vote) atomicOr(&slice_mask, vote);
-      __syncthreads();
-      const unsigned m = slice_mask;
-      const float* fsrc = feat + static_cast<long>(blk) * kSblk;
-      for (int i = tid; i < kNcomp * kSblk; i += kP) {
-        const int c = i / kSblk;
-        const int col = i - c * kSblk;
-        if ((m >> (col / kSub)) & 1u) {
-          fs[c][col] = fsrc[static_cast<long>(c) * spad + col];
-        }
-      }
-      __syncthreads();
-    }
+    __syncthreads();
 
     unsigned gated = 0u;
     for (int s = 0; s < kNsub; ++s) {
@@ -310,25 +193,10 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
       const float hix = quad[4 * s + 2], hiy = quad[4 * s + 3];
       const float ex = (hix - lox) * 0.5f + mx, ey = (hiy - loy) * 0.5f + mx;
       const float scale = fmaxf(ex, ey);
-      bool pass;
-      if constexpr (kBf16Filter) {
-        const float cx = (lox + hix) * 0.5f, cy = (loy + hiy) * 0.5f;
-        const float rl = radius + scale * 0.0625f + 0.5f;
-        const float mn = bf16_lane_min(cb, c0, px, py, cx, cy, ex, ey);
-        pass = __any_sync(0xffffffffu, mn <= rl * rl);
-      } else {
-        const float qx = clampf(px - fs[kFcx][c0], ex);
-        const float qy = clampf(py - fs[kFcy][c0], ey);
-        float* tile = tiles[warp];
-        const float f[8] = {qx * qx, qy * qy, qx * qy, qx, qy, 1.f, 0.f, 0.f};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) tile[lane * 8 + i] = f[i];
-        __syncwarp();
-        const float mn = mma_warp_min<ARM == kMxuBf16>(tile, fs, c0, lane);
-        __syncwarp();                 // the tile is rewritten next slice
-        pass = mn <= r2 + scale * scale * 0.0625f + 0.5f;
-      }
-      if (!pass) continue;
+      const float cx = (lox + hix) * 0.5f, cy = (loy + hiy) * 0.5f;
+      const float rl = radius + scale * 0.0625f + 0.5f;
+      const float mn = bf16_lane_min(cb, c0, px, py, cx, cy, ex, ey);
+      if (!__any_sync(0xffffffffu, mn <= rl * rl)) continue;
       gated |= 1u << s;
       for (int c = c0; c < c1; ++c) {
         const int e = __float_as_int(seg[6][c]);
@@ -361,46 +229,20 @@ sweep_topk_kernel(const float* __restrict__ pts,    // [nchunks*P, 2]
   }
 }
 
-template <int ARM>
-int launch(const float* pts, const int* ids, const int* nhits,
-           const float* pack, const float* sub, const float* feat,
-           int nchunks, int nblocks, int spad, float r2, float rc2,
-           float radius, int* out_edge, float* out_off, float* out_dist,
-           int* gate_log, cudaStream_t st) {
-  sweep_topk_kernel<ARM><<<nchunks, kP, 0, st>>>(
-      pts, ids, nhits, pack, sub, feat, nblocks, spad, r2, rc2, radius,
-      out_edge, out_off, out_dist, gate_log);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Launches arm `arm` (2 sub_bf16, 3 mxu, 4 mxu_bf16) on `stream`; returns
-// the launch's cudaError_t (0 = ok), or -1 for another arm. feat is read by
-// the mxu arms; gate_log (may be null) receives per (chunk, warp, hit
-// slot) the slice votes (bits 0-3) and the slices swept exactly (4-7).
-extern "C" int rtt_sweep_topk(const float* pts, const int* ids,
+// Launches the bf16 filter arm (sub_bf16) over `nchunks` chunks on
+// `stream`; returns the launch's cudaError_t (0 = ok). gate_log (may be
+// null) receives per (chunk, warp, hit slot) the slice votes (bits 0-3)
+// and the slices swept exactly (4-7).
+extern "C" int rtt_sweep_bf16(const float* pts, const int* ids,
                               const int* nhits, const float* pack,
-                              const float* sub, const float* feat, int arm,
-                              int nchunks, int nblocks, int spad, float r2,
-                              float rc2, float radius, int* out_edge,
-                              float* out_off, float* out_dist, int* gate_log,
-                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (arm) {
-    case kSubBf16:
-      return launch<kSubBf16>(pts, ids, nhits, pack, sub, feat, nchunks,
-                              nblocks, spad, r2, rc2, radius, out_edge,
-                              out_off, out_dist, gate_log, st);
-    case kMxu:
-      return launch<kMxu>(pts, ids, nhits, pack, sub, feat, nchunks,
-                          nblocks, spad, r2, rc2, radius, out_edge,
-                          out_off, out_dist, gate_log, st);
-    case kMxuBf16:
-      return launch<kMxuBf16>(pts, ids, nhits, pack, sub, feat, nchunks,
-                              nblocks, spad, r2, rc2, radius, out_edge,
-                              out_off, out_dist, gate_log, st);
-    default:
-      return -1;
-  }
+                              const float* sub, int nchunks, int nblocks,
+                              int spad, float r2, float rc2, float radius,
+                              int* out_edge, float* out_off, float* out_dist,
+                              int* gate_log, void* stream) {
+  sweep_bf16_kernel<<<nchunks, kP, 0, static_cast<cudaStream_t>(stream)>>>(
+      pts, ids, nhits, pack, sub, nblocks, spad, r2, rc2, radius, out_edge,
+      out_off, out_dist, gate_log);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,20 +1,28 @@
-// Exact sweep arms for Hopper (sm_90a): per probe point, the top-K distinct
-// edges within the search radius.
+// Ring-fed sweep arms for Hopper (sm_90a): per probe point, the top-K
+// distinct edges within the search radius.
 //
-// Replaces two arms of the Pallas TPU kernel of
+// Replaces four arms of the Pallas TPU kernel of
 // reporter_tpu/ops/dense_candidates.py (one pl.pallas_call, :755):
-//   block  _sweep_kernel :389-430: every column of every hit block;
-//   sub    _sweep_kernel_sub :433-519 with lowp="off" and mxu off: only the
-//          128-column slices whose bbox lies within the cull radius of one
-//          of a warp's 32 points (the vote; NaN quads never pass).
-// The coarse-filter arms are sweep.cu's. The running top-K is topk.cuh's.
+//   block     _sweep_kernel :389-430: every column of every hit block;
+//   sub       _sweep_kernel_sub :433-519 with lowp="off" and mxu off: only
+//             the 128-column slices whose bbox lies within the cull radius
+//             of one of a warp's 32 points (the vote; NaN quads never pass);
+//   mxu       _sweep_kernel_sub's MXU coarse pass :521-564 (f32 operands;
+//             here tf32 tensor-core operands): between the vote and the
+//             exact pass of a slice, a gate on the tensor cores;
+//   mxu_bf16  the same with bf16 operands (:549-551).
+// The bf16 filter arm is sweep.cu's. The running top-K is topk.cuh's.
 //
-// Bound on this card: the arithmetic of the swept (point, column) pairs on
-// the CUDA cores; the bytes (hit blocks from L2, points, [N, K] outputs)
-// are small beside it. The design answers what held the first port of
-// these arms back (one CTA per chunk staging each hit block synchronously
-// behind two CTA barriers, the column side recomputed per pair, one
-// dependent chain per thread):
+// Bound on this card: the arithmetic of the exactly swept (point, column)
+// pairs on the CUDA cores; the bytes (hit blocks from L2, points, [N, K]
+// outputs) are small beside it, and so are the gate's products on the
+// tensor cores (72.6 M pairs x 16 operations at sf's full size, ~2 us at
+// the tf32 rate). The design answers what held the first port of these
+// arms back (one CTA per chunk staging each hit block synchronously behind
+// CTA barriers, the column side recomputed per pair, one dependent chain
+// per thread; for the gated arms two more barriers per block, a shared
+// round-trip and operand conversions in the gate, and the gate's whole
+// 32 x 128 minimum taken even where its first products pass):
 //
 // 1. The column side once per column. seg_sweep (build_seg_pack, numpy
 //    f32, one rounding per operation in _block_geometry's order) holds per
@@ -23,17 +31,19 @@
 //    as broadcast loads and does only the point-side chain.
 // 2. Asynchronous staging in a ring, no CTA barrier in the loop. One lane
 //    of a producer warp walks the CTA's chunks and their hit lists and
-//    fills a ring of 4 stages with cp.async.bulk, each stage tracked by a
-//    full mbarrier (the copy's bytes) and an empty one (one arrival per
-//    consumer warp). Each consumer warp waits only on the stage it needs
-//    and releases it when done -- at once if it voted for no slice -- so a
-//    warp runs up to 4 blocks ahead of the slowest one and the copies
-//    overlap the sweep. The ring runs on across chunks, so the mbarrier
-//    parity is that of the CTA's item count.
+//    fills a ring of kDepth stages with cp.async.bulk, each stage tracked
+//    by a full mbarrier (the copies' bytes) and an empty one (one arrival
+//    per consumer warp). Each consumer warp waits only on the stage it
+//    needs and releases it when done -- at once if it voted for no slice
+//    -- so a warp runs up to kDepth blocks ahead of the slowest one and
+//    the copies overlap the sweep. The ring runs on across chunks, so the
+//    mbarrier parity is that of the CTA's item count.
 // 3. Chunks balanced across SMs. A persistent grid (the occupancy times
-//    the SM count) takes chunks from an atomic counter, in the order the
-//    wrapper gives: descending hit count, heaviest first. A chunk's output
-//    rows are its own, so the order changes no result.
+//    the SM count) takes chunks from an atomic counter, heaviest first: in
+//    _chunk_order's order (a stable sort by descending hit count), which
+//    chunk_order_kernel computes on the card just before, in the same
+//    call, with the counter's zero. A chunk's output rows are its own, so
+//    the order changes no result.
 // 4. Cheaper pairs, and several in flight. The division is skipped where
 //    t clamps anyway: t = clamp(num / denom, 0, 1) with denom >= 1e-12 > 0.
 //    If num <= 0 the exact quotient is <= 0 and so is its correctly
@@ -45,6 +55,48 @@
 //    and divides, as before. A warp sweeps kBatch = 4 columns per step as
 //    straight-line code (4 independent chains for the scheduler), leaving
 //    it only for a division or an in-radius offer, both rare.
+// 5. The gate's operands fed from registers and rounded once. seg_coarse
+//    (build_seg_pack, numpy) holds seg_feat's eight coefficient rows per
+//    column already rounded to each arm's operand type (tf32 by cvt.rna's
+//    round-to-nearest-ties-away, bf16 to nearest even) and laid out so a
+//    lane's B fragment of an m16n8k8 is one 8-byte (tf32: k = t, t+4) or
+//    4-byte (bf16: k = 2t, 2t+1) shared load, and the slices' centres (the
+//    rows SF_CX/SF_CY at each slice's first column, which the JAX kernel
+//    reads and never recomputes) beside them; an arm's piece of a block is
+//    one contiguous copy into the stage. The A fragments need no shared
+//    tile: a lane takes the recentred, clamped (qx, qy) of its fragment
+//    rows' points (rows mt*16 + g and + 8) by __shfl_sync and computes
+//    their features (qx^2, qy^2, qx qy, qx, qy, 1, 0, 0) with the same f32
+//    operations, so the same values, converted once per slice. The n-tile
+//    loop is outside the m-tile loop, so each B fragment is loaded once
+//    and feeds both m-tiles. Warp-level mma.sync, not wgmma: the gate is a
+//    decision per warp (32 points), and a warpgroup product would tie four
+//    warps together again, undoing 2; the products are microseconds of the
+//    tensor cores' time in any case.
+// 6. The gate stops at the first admitting n-tile group. It asks whether
+//    min over the 32 x 128 products d2m <= thr, which holds exactly when
+//    some product is <= thr: the least element of a finite set of reals is
+//    <= thr iff one of them is. A NaN product compares false in both forms
+//    (fminf drops it from the minimum; the test of it fails), so it admits
+//    neither. After every kGroup n-tiles the warp asks __any_sync whether a
+//    lane holds a product <= thr and stops at the first yes: the same
+//    predicate over the same products, so the same decision (the gate log
+//    is unchanged; bits 8-11 record the slices whose gate passed in the
+//    first group). The loop is warp-uniform (a voted slice is), so every
+//    lane reaches every __any_sync. kGroup = 4 (32 columns, 8 mma): on sf
+//    nearly every voted gate passes in its first group, and groups of 1, 2
+//    or 8 n-tiles ran no faster in a development run on the card.
+//
+// Ring depth and occupancy per arm: a stage holds the block's seg_sweep
+// columns (16,384 B) and slice quads (64 B), plus for mxu the tf32 rows and
+// centres (16,416 B) and for mxu_bf16 the centres and bf16 rows (8,224 B).
+// kDepth is 4 for block, sub and mxu_bf16 and 3 for mxu: about 99 KB for
+// the gated arms, so two CTAs fit on an SM by shared memory (four tf32
+// stages would be ~131 KB, one CTA). In a development run on the card
+// these depths beat 2 and 4 stages for mxu and 3 and 5 for mxu_bf16: a
+// depth that leaves one CTA per SM was clearly slower, and two tf32
+// stages starved the warps. chip_smoke.py prints each arm's depth, shared
+// memory, CTAs per SM and grid.
 //
 // Measured on the card against two alternatives (PERF.md), both slower
 // and so not kept: two points per thread in the block arm (two chains per
@@ -56,8 +108,15 @@
 //
 // Exactness: built with -fmad=false -prec-div=true -prec-sqrt=true, so
 // every operation rounds once, in the plain version's order
-// (_dense_plain); the candidates equal it bit for bit.
+// (_dense_plain); the candidates equal it bit for bit in every arm. The
+// gates only skip slices where no product of the point-to-line bound, a
+// lower bound on every point-to-segment distance, comes within the
+// conservative margin (the JAX package's _MXU_REL_MARGIN argument, kept);
+// their decisions differ from the plain f32 product (_coarse_mxu_gate)
+// only where the tensor cores' summation order moves the minimum across
+// the threshold.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -77,27 +136,51 @@ constexpr int kMaxDevices = 16;
 constexpr unsigned kAll = 0xffffffffu;
 
 constexpr int kBatch = 4;          // columns per step of a warp's sweep
+constexpr int kGroup = 4;          // n-tiles (8 columns each) per gate test
 constexpr int kCons = kP / 32;     // consumer warps, one point per thread
 constexpr int kThreads = 32 * (kCons + 1);  // and the producer warp
+constexpr int kOrderThreads = 256;
 
-// arm codes (ops/dense_candidates.py SWEEP_ARMS order)
-constexpr int kBlock = 0, kSubArm = 1;
+// arm codes (ops/dense_candidates.py SWEEP_ARMS order; 2, the bf16
+// filter, is sweep.cu's)
+constexpr int kBlock = 0, kSubArm = 1, kMxu = 3, kMxuBf16 = 4;
 
-// one hit block: per column (ax, ay, abx, aby), (denom, edge bits), (off0,
-// len); then the block's 4 slice quads (xmin, ymin, xmax, ymax)
-struct __align__(16) Stage {
-  float4 col[2 * kSblk];
-  float4 quad[kNsub];
-};
+template <int ARM>
+constexpr bool kGated = ARM == kMxu || ARM == kMxuBf16;
+
+// seg_coarse, one row of kCoWords i32 words per block (CO_* in
+// ops/dense_candidates.py): column c's tf32 rows at words 8c..8c+7 in k
+// order 0,4,1,5,2,6,3,7; the 4 slices' centres (cx, cy) at kCoCtr; column
+// c's bf16 rows at kCoBf16 + 4c..+3, word t holding k = 2t (low half) and
+// 2t + 1. The mxu arm stages words [0, kCoBf16), mxu_bf16 [kCoCtr,
+// kCoWords): each one contiguous piece.
+constexpr int kCoCtr = 8 * kSblk;
+constexpr int kCoBf16 = kCoCtr + 2 * kNsub;
+constexpr int kCoWords = kCoBf16 + 4 * kSblk;
+
+// one hit block in a stage: per column (ax, ay, abx, aby), (denom, edge
+// bits), (off0, len); then the block's 4 slice quads (xmin, ymin, xmax,
+// ymax); then, for a gated arm, its piece of the block's seg_coarse row
 constexpr unsigned kColBytes = sizeof(float4) * 2 * kSblk;
 constexpr unsigned kQuadBytes = sizeof(float4) * kNsub;
 
-// dynamic shared memory: the stages, one item word (chunk, slot, block,
-// nhits) per stage, the full and the empty mbarriers
-constexpr int kDepth = 4;
-constexpr int kItemOff = kDepth * int(sizeof(Stage));
-constexpr int kBarOff = kItemOff + kDepth * int(sizeof(int4));
-constexpr int kSmemBytes = kBarOff + 2 * kDepth * int(sizeof(uint64_t));
+template <int ARM>
+struct Ring {
+  static constexpr int kCoFirst = ARM == kMxu ? 0 : kCoCtr;  // table word
+  static constexpr unsigned kCoBytes =
+      ARM == kMxu ? 4u * kCoBf16
+                  : ARM == kMxuBf16 ? 4u * (kCoWords - kCoCtr) : 0u;
+  static constexpr unsigned kStage = kColBytes + kQuadBytes + kCoBytes;
+  static constexpr int kDepth = ARM == kMxu ? 3 : 4;
+  // dynamic shared memory: the stages, one item word (chunk, slot, block,
+  // nhits) per stage, the full and the empty mbarriers
+  static constexpr int kItemOff = kDepth * int(kStage);
+  static constexpr int kBarOff = kItemOff + kDepth * int(sizeof(int4));
+  static constexpr int kSmem = kBarOff + 2 * kDepth * int(sizeof(uint64_t));
+  static_assert(kStage % 16 == 0 && kCoBytes % 16 == 0 &&
+                (4 * kCoFirst) % 16 == 0 && (4 * kCoWords) % 16 == 0,
+                "bulk copies need 16-byte sizes and addresses");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -200,14 +283,151 @@ __device__ __forceinline__ void sweep_cols(
   }
 }
 
+__device__ __forceinline__ float clampf(float v, float e) {
+  return fminf(fmaxf(v, -e), e);       // jnp.clip(v, -e, e)
+}
+
+// The point features of (x, y) in SF_* order, x^2, y^2, x y, x, y, 1, 0,
+// 0, that lane t's A fragment holds: tf32 k = t and t + 4 (lo, hi), bf16
+// k = 2t and 2t + 1. One product each, the same f32 operation as the
+// plain version's (a product commutes bit for bit).
+template <bool BF16>
+__device__ __forceinline__ float2 features(int t, float x, float y) {
+  if constexpr (BF16) {
+    const float lo = t == 0 ? x * x : t == 1 ? x * y : t == 2 ? y : 0.f;
+    const float hi = t == 0 ? y * y : t == 1 ? x : t == 2 ? 1.f : 0.f;
+    return make_float2(lo, hi);
+  } else {
+    const float u = t == 1 ? y : x, v = t == 0 ? x : y;
+    return make_float2(t == 3 ? x : u * v,
+                       t == 0 ? y : t == 1 ? 1.f : 0.f);
+  }
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// two bf16 operands in one register, the lower k index in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return l | (h << 16);
+}
+
+// The tensor-core gate of voted slice `sl` for this warp (the JAX kernel's
+// :534-562): the points recentred on the slice centre and clamped into the
+// slice box dilated by ~radius, features [32, 8] x the slice's coarse rows
+// [8, 128] as 2 (m16) x 16 (n8) mma.sync.m16n8k8 products, f32
+// accumulation; every product is a pair's point-to-line d^2. Fragment
+// layouts (PTX ISA, "Matrix Fragments for mma.m16n8k8", g = lane / 4 the
+// row / column, t = lane % 4): tf32 A a0..a3 at (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4) and B b0, b1 at k = t, t+4; bf16 A a0, a1 at rows
+// g, g+8 holding k = 2t, 2t+1 and B at k = 2t, 2t+1; C c0..c3 at rows g,
+// g, g+8, g+8. Returns the n-tile group after which some product was
+// <= thr = r^2 + scale^2 / 16 + 0.5 (the slice passes), or -1 (culled).
+template <int ARM>
+__device__ __forceinline__ int mma_gate(const uint32_t* co, float4 qd,
+                                        int sl, float px, float py,
+                                        float r2, float mx, int lane) {
+  constexpr bool kBf16 = ARM == kMxuBf16;
+  constexpr int kFirst = Ring<ARM>::kCoFirst;
+  const int g = lane >> 2, t = lane & 3;
+  const float2 ctr =
+      reinterpret_cast<const float2*>(co + (kCoCtr - kFirst))[sl];
+  const float ex = (qd.z - qd.x) * 0.5f + mx;
+  const float ey = (qd.w - qd.y) * 0.5f + mx;
+  const float scale = fmaxf(ex, ey);
+  const float thr = r2 + scale * scale * 0.0625f + 0.5f;
+  const float qx = clampf(px - ctr.x, ex);
+  const float qy = clampf(py - ctr.y, ey);
+  uint32_t a[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {            // rows mt*16 + g, + 8
+      const int src = mt * 16 + h * 8 + g;
+      const float2 f = features<kBf16>(t, __shfl_sync(kAll, qx, src),
+                                       __shfl_sync(kAll, qy, src));
+      if constexpr (kBf16) {
+        a[mt][h] = bf16x2(f.x, f.y);
+      } else {
+        a[mt][h] = tf32(f.x);
+        a[mt][h + 2] = tf32(f.y);
+      }
+    }
+  }
+  for (int n0 = 0; n0 < kSub / 8; n0 += kGroup) {
+    bool hit = false;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int c = sl * kSub + (n0 + j) * 8 + g;    // B fragment's column
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float d0, d1, d2, d3;
+        if constexpr (kBf16) {
+          const uint32_t b = co[kCoBf16 - kFirst + 4 * c + t];
+          asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+              "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%7,%7,%7,%7};\n"
+              : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
+              : "r"(a[mt][0]), "r"(a[mt][1]), "r"(b), "f"(0.f));
+        } else {
+          const uint2 b = *reinterpret_cast<const uint2*>(co + 8 * c + 2 * t);
+          asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+              : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
+              : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
+                "r"(b.x), "r"(b.y), "f"(0.f));
+        }
+        hit |= d0 <= thr || d1 <= thr || d2 <= thr || d3 <= thr;
+      }
+    }
+    if (__any_sync(kAll, hit)) return n0 / kGroup;
+  }
+  return -1;
+}
+
+// The order in which the persistent CTAs take chunks, _chunk_order's: a
+// stable sort of the chunks by descending hit count, as ranks. Chunk i
+// goes to position #{j : nhits[j] > nhits[i]} + #{j < i : nhits[j] ==
+// nhits[i]}, the number of keys (-nhits[j], j) below its own, so distinct
+// keys make the ranks a permutation. Also zeroes the chunk counter,
+// order[n]. n^2 comparisons: microseconds at the main path's 512 chunks,
+// where torch's sort, its cast and the counter's zeros cost the wrapper
+// ~0.1 ms of host time per call.
+__global__ void __launch_bounds__(kOrderThreads)
+chunk_order_kernel(const int* __restrict__ nhits, int n,
+                   int* __restrict__ order) {
+  __shared__ int tile[kOrderThreads];
+  const int i = blockIdx.x * kOrderThreads + threadIdx.x;
+  const int mine = i < n ? nhits[i] : 0;
+  int rank = 0;
+  for (int j0 = 0; j0 < n; j0 += kOrderThreads) {
+    __syncthreads();
+    if (j0 + threadIdx.x < n) tile[threadIdx.x] = nhits[j0 + threadIdx.x];
+    __syncthreads();
+    const int m = min(kOrderThreads, n - j0);
+    for (int jj = 0; jj < m; ++jj) {
+      const int v = tile[jj];
+      rank += v > mine || (v == mine && j0 + jj < i);
+    }
+  }
+  if (i < n) order[rank] = i;
+  if (i == 0) order[n] = 0;
+}
+
 template <int ARM>
 __device__ void produce(const int* __restrict__ ids,
                         const int* __restrict__ nhits,
                         const int* __restrict__ order, int* next_chunk,
                         const float4* __restrict__ table,
-                        const float4* __restrict__ quads, int nchunks,
-                        int nblocks, Stage* stage, int4* item,
+                        const float4* __restrict__ quads,
+                        const int* __restrict__ coarse, int nchunks,
+                        int nblocks, unsigned char* stages, int4* item,
                         uint64_t* full, uint64_t* empty, int lane) {
+  using R = Ring<ARM>;
   uint32_t it = 0;
   for (;;) {
     int chunk = -1, nh = 0;
@@ -230,17 +450,23 @@ __device__ void produce(const int* __restrict__ ids,
       for (int jj = 0; jj < m; ++jj, ++it) {
         const int blk = __shfl_sync(kAll, mine, jj);
         if (lane != 0) continue;
-        const int s = it % kDepth;
-        mbar_wait(empty + s, ((it / kDepth) & 1u) ^ 1u);
+        const int s = it % R::kDepth;
+        mbar_wait(empty + s, ((it / R::kDepth) & 1u) ^ 1u);
         item[s] = make_int4(chunk, j0 + jj, blk, nh);
         if (blk >= 0) {
-          mbar_arrive_tx(full + s,
-                         kColBytes + (ARM == kSubArm ? kQuadBytes : 0u));
-          bulk_load(stage[s].col, table + static_cast<long>(blk) * 2 * kSblk,
+          unsigned char* st = stages + s * R::kStage;
+          mbar_arrive_tx(full + s, kColBytes +
+                         (ARM != kBlock ? kQuadBytes : 0u) + R::kCoBytes);
+          bulk_load(st, table + static_cast<long>(blk) * 2 * kSblk,
                     kColBytes, full + s);
-          if (ARM == kSubArm) {
-            bulk_load(stage[s].quad, quads + static_cast<long>(blk) * kNsub,
+          if (ARM != kBlock) {
+            bulk_load(st + kColBytes, quads + static_cast<long>(blk) * kNsub,
                       kQuadBytes, full + s);
+          }
+          if (kGated<ARM>) {
+            bulk_load(st + kColBytes + kQuadBytes,
+                      coarse + static_cast<long>(blk) * kCoWords + R::kCoFirst,
+                      R::kCoBytes, full + s);
           }
         } else {
           mbar_arrive(full + s);
@@ -260,20 +486,22 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
                    int* next_chunk,                  // [1], zeroed
                    const float4* __restrict__ table, // [spad, 2]
                    const float4* __restrict__ quads, // [nblocks, nsub]
+                   const int* __restrict__ coarse,   // [nblocks, kCoWords]
                    int nchunks, int nblocks, float r2, float rc2,
+                   float radius,
                    int* __restrict__ out_edge,       // [nchunks*P, K]
                    float* __restrict__ out_off,
                    float* __restrict__ out_dist,
                    int* __restrict__ gate_log) {     // [nchunks, 8, nblocks]
+  using R = Ring<ARM>;
   extern __shared__ __align__(128) unsigned char smem[];
-  Stage* stage = reinterpret_cast<Stage*>(smem);
-  int4* item = reinterpret_cast<int4*>(smem + kItemOff);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOff);
-  uint64_t* empty = full + kDepth;
+  int4* item = reinterpret_cast<int4*>(smem + R::kItemOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::kBarOff);
+  uint64_t* empty = full + R::kDepth;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kDepth; ++s) {
+    for (int s = 0; s < R::kDepth; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, kCons);
     }
@@ -281,18 +509,19 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
   }
   __syncthreads();
   if (warp == kCons) {
-    produce<ARM>(ids, nhits, order, next_chunk, table, quads, nchunks,
-                 nblocks, stage, item, full, empty, lane);
+    produce<ARM>(ids, nhits, order, next_chunk, table, quads, coarse,
+                 nchunks, nblocks, smem, item, full, empty, lane);
     return;
   }
 
+  const float mx = radius * 1.001f + 0.5f;   // the clamp box's dilation
   float px = 0.f, py = 0.f;
   float bd[kK];
   int be[kK];
   float bo[kK];
   for (uint32_t it = 0;; ++it) {
-    const int s = it % kDepth;
-    mbar_wait(full + s, (it / kDepth) & 1u);
+    const int s = it % R::kDepth;
+    mbar_wait(full + s, (it / R::kDepth) & 1u);
     const int4 h = item[s];                 // (chunk, slot, block, nhits)
     if (h.x < 0) break;
     const long p = static_cast<long>(h.x) * kP + warp * 32 + lane;
@@ -303,14 +532,16 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
       rtt::reset(bd, be, bo);
     }
     if (h.z >= 0) {
-      const float4* col = stage[s].col;
+      const unsigned char* st = smem + s * R::kStage;
+      const float4* col = reinterpret_cast<const float4*>(st);
       if constexpr (ARM == kBlock) {
         sweep_cols(col, 0, kSblk, px, py, r2, bd, be, bo);
       } else {
+        const float4* quad = reinterpret_cast<const float4*>(st + kColBytes);
         unsigned vote = 0u;
 #pragma unroll
         for (int sl = 0; sl < kNsub; ++sl) {
-          const float4 qd = stage[s].quad[sl];
+          const float4 qd = quad[sl];
           bool near = false;
           if (qd.x <= qd.z && qd.y <= qd.w) {      // false for NaN quads
             const float dx = fmaxf(fmaxf(qd.x - px, px - qd.z), 0.f);
@@ -319,15 +550,24 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
           }
           if (__any_sync(kAll, near)) vote |= 1u << sl;
         }
+        unsigned gated = 0u, first = 0u;
         for (int sl = 0; sl < kNsub; ++sl) {
-          if ((vote >> sl) & 1u) {                 // warp-uniform
-            sweep_cols(col, sl * kSub, sl * kSub + kSub, px, py, r2, bd, be,
-                       bo);
+          if (!((vote >> sl) & 1u)) continue;      // warp-uniform
+          if constexpr (kGated<ARM>) {
+            const int grp = mma_gate<ARM>(
+                reinterpret_cast<const uint32_t*>(st + kColBytes + kQuadBytes),
+                quad[sl], sl, px, py, r2, mx, lane);
+            if (grp < 0) continue;
+            if (grp == 0) first |= 1u << sl;
           }
+          gated |= 1u << sl;
+          sweep_cols(col, sl * kSub, sl * kSub + kSub, px, py, r2, bd, be,
+                     bo);
         }
         if (gate_log != nullptr && lane == 0) {
           gate_log[(static_cast<long>(h.x) * kCons + warp) * nblocks + h.y] =
-              static_cast<int>(vote | (vote << kNsub));
+              static_cast<int>(vote | (gated << kNsub) |
+                               (first << (2 * kNsub)));
         }
       }
     }
@@ -353,11 +593,12 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
 }
 
 // Launch shape of one arm on the current device: threads per CTA,
-// dynamic shared memory, resident CTAs per SM and the SM count. The
-// shared-memory attribute is set (once per device) before the occupancy
-// query and the first launch. Returns a cudaError_t, or -2 / -3.
+// dynamic shared memory, resident CTAs per SM, the SM count and the ring
+// depth. The shared-memory attribute is set (once per device) before the
+// occupancy query and the first launch. Returns a cudaError_t, or -2 / -3.
 template <int ARM>
-int shape(int* threads, int* smem, int* per_sm, int* sms) {
+int shape(int* threads, int* smem, int* per_sm, int* sms, int* depth) {
+  using R = Ring<ARM>;
   static int cached_per_sm[kMaxDevices] = {};
   static int cached_sms[kMaxDevices] = {};
   int dev = 0;
@@ -367,11 +608,11 @@ int shape(int* threads, int* smem, int* per_sm, int* sms) {
   if (cached_per_sm[dev] == 0) {
     auto kern = sweep_exact_kernel<ARM>;
     err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     int n = 0, m = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads,
-                                                        kSmemBytes);
+                                                        R::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -380,72 +621,80 @@ int shape(int* threads, int* smem, int* per_sm, int* sms) {
     cached_per_sm[dev] = n;
   }
   *threads = kThreads;
-  *smem = kSmemBytes;
+  *smem = R::kSmem;
   *per_sm = cached_per_sm[dev];
   *sms = cached_sms[dev];
+  *depth = R::kDepth;
   return 0;
 }
 
 template <int ARM>
-int launch(const float* pts, const int* ids, const int* nhits,
-           const int* order, int* next_chunk, const float* table,
-           const float* sub, int nchunks, int nblocks, float r2, float rc2,
+int launch(const float* pts, const int* ids, const int* nhits, int* order,
+           const float* table, const float* sub, const int* coarse,
+           int nchunks, int nblocks, float r2, float rc2, float radius,
            int* out_edge, float* out_off, float* out_dist, int* gate_log,
            cudaStream_t st) {
-  int threads, smem, per_sm, sms;
-  const int rc = shape<ARM>(&threads, &smem, &per_sm, &sms);
+  int threads, smem, per_sm, sms, depth;
+  const int rc = shape<ARM>(&threads, &smem, &per_sm, &sms, &depth);
   if (rc != 0) return rc;
+  chunk_order_kernel<<<(nchunks + kOrderThreads - 1) / kOrderThreads,
+                       kOrderThreads, 0, st>>>(nhits, nchunks, order);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = nchunks < per_sm * sms ? nchunks : per_sm * sms;
   sweep_exact_kernel<ARM><<<grid, threads, smem, st>>>(
-      reinterpret_cast<const float2*>(pts), ids, nhits, order, next_chunk,
+      reinterpret_cast<const float2*>(pts), ids, nhits, order,
+      order + nchunks,
       reinterpret_cast<const float4*>(table),
-      reinterpret_cast<const float4*>(sub), nchunks, nblocks, r2, rc2,
-      out_edge, out_off, out_dist, gate_log);
+      reinterpret_cast<const float4*>(sub), coarse, nchunks, nblocks, r2,
+      rc2, radius, out_edge, out_off, out_dist, gate_log);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the exact sweep in arm `arm` (0 block, 1 sub) on `stream`.
-// `order` lists the chunks heaviest first and `next_chunk` is a zeroed
-// counter the CTAs take chunks from; `table` is seg_sweep [spad, 8];
-// `sub` (the slice quads, [nblocks, 16]) is read by the sub arm; gate_log
-// (may be null, sub arm) receives per (chunk, warp, hit slot) the slice
-// votes (bits 0-3, repeated in 4-7: every voted slice is swept). Returns
-// the launch's cudaError_t (0 = ok), -1 for an unknown arm, -2 / -3 for a
-// device index or an occupancy out of range.
+// Launches the ring-fed sweep in arm `arm` (0 block, 1 sub, 3 mxu, 4
+// mxu_bf16) on `stream`: chunk_order_kernel writes into `order` ([nchunks
+// + 1] i32 scratch) the chunks heaviest first and a zeroed counter, which
+// the sweep's CTAs then take chunks from (the counter ends at nchunks +
+// the grid: one failed take per CTA); `table` is
+// seg_sweep [spad, 8]; `sub` (the slice quads, [nblocks, 16]) is read by
+// every arm but block, `coarse` (seg_coarse [nblocks, kCoWords]) and
+// `radius` by the mxu arms; gate_log (may be null; not block) receives per
+// (chunk, warp, hit slot) the slice votes (bits 0-3), the slices swept
+// exactly (4-7) and those whose gate passed in its first n-tile group
+// (8-11). Returns the launch's cudaError_t (0 = ok), -1 for an unknown
+// arm, -2 / -3 for a device index or an occupancy out of range.
 extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
-                               const int* nhits, const int* order,
-                               int* next_chunk, const float* table,
-                               const float* sub, int arm, int nchunks,
-                               int nblocks, float r2, float rc2,
-                               int* out_edge, float* out_off,
+                               const int* nhits, int* order,
+                               const float* table, const float* sub,
+                               const int* coarse, int arm,
+                               int nchunks, int nblocks, float r2, float rc2,
+                               float radius, int* out_edge, float* out_off,
                                float* out_dist, int* gate_log, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RTT_LAUNCH(A)                                                       \
+  launch<A>(pts, ids, nhits, order, table, sub, coarse, nchunks, nblocks,  \
+            r2, rc2, radius, out_edge, out_off, out_dist, gate_log, st)
   switch (arm) {
-    case kBlock:
-      return launch<kBlock>(pts, ids, nhits, order, next_chunk, table, sub,
-                            nchunks, nblocks, r2, rc2, out_edge, out_off,
-                            out_dist, gate_log, st);
-    case kSubArm:
-      return launch<kSubArm>(pts, ids, nhits, order, next_chunk, table, sub,
-                             nchunks, nblocks, r2, rc2, out_edge, out_off,
-                             out_dist, gate_log, st);
-    default:
-      return -1;
+    case kBlock: return RTT_LAUNCH(kBlock);
+    case kSubArm: return RTT_LAUNCH(kSubArm);
+    case kMxu: return RTT_LAUNCH(kMxu);
+    case kMxuBf16: return RTT_LAUNCH(kMxuBf16);
+    default: return -1;
   }
+#undef RTT_LAUNCH
 }
 
 // The launch shape of arm `arm` on the current device (see shape()): the
 // grid of a launch is min(nchunks, per_sm * sms).
 extern "C" int rtt_sweep_exact_shape(int arm, int* threads, int* smem,
-                                     int* per_sm, int* sms) {
+                                     int* per_sm, int* sms, int* depth) {
   switch (arm) {
-    case kBlock:
-      return shape<kBlock>(threads, smem, per_sm, sms);
-    case kSubArm:
-      return shape<kSubArm>(threads, smem, per_sm, sms);
-    default:
-      return -1;
+    case kBlock: return shape<kBlock>(threads, smem, per_sm, sms, depth);
+    case kSubArm: return shape<kSubArm>(threads, smem, per_sm, sms, depth);
+    case kMxu: return shape<kMxu>(threads, smem, per_sm, sms, depth);
+    case kMxuBf16: return shape<kMxuBf16>(threads, smem, per_sm, sms, depth);
+    default: return -1;
   }
 }

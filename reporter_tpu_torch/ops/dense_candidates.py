@@ -10,17 +10,19 @@ smallest edge id, the offset being that edge's smallest tied projection.
   of [8, S_pad] f32 component rows (edge ids bit-cast into row 6) with
   per-block and per-128-column-slice bboxes and the per-column feature
   rows of the tensor-core coarse pass — byte-equal to the JAX package's
-  pack — and the port's own ``sweep`` table: the column side of the
-  exact geometry, [S_pad, 8] column by column (SW_*).
+  pack — and the port's own tables: ``sweep``, the column side of the
+  exact geometry, [S_pad, 8] column by column (SW_*), and ``coarse``,
+  the feature rows rounded once to the tensor-core gate's operand types
+  and laid out as its fragments (CO_*).
 - ``_dense_plain`` is the full sweep without culling (the JAX package's
   ``_dense_jnp``), chunked over 128 points. The CPU path and the tests use
   it; ``chip_smoke.py`` holds the kernel against it on the card.
 - ``find_candidates_dense`` on a CUDA tensor runs the cull pre-pass
   (``_chunk_block_ids``, plain PyTorch) and then ``sweep_topk``, the
   wrapper of the hand-written kernels, in one of five arms
-  (``SWEEP_ARMS``): the exact arms in ``kernels/sweep_exact.cu``, the
-  coarse-filter arms in ``kernels/sweep.cu``. All five return the same
-  candidates.
+  (``SWEEP_ARMS``): the exact arms and the tensor-core arms in
+  ``kernels/sweep_exact.cu``, the bf16 filter arm in ``kernels/sweep.cu``.
+  All five return the same candidates.
 - ``_coarse_bf16_gate`` and ``_coarse_mxu_gate`` are the plain versions of
   the two coarse arms' gate: per 32-point warp and hit 128-column slice,
   whether the exact pass runs. The card holds the kernel's decisions
@@ -73,10 +75,31 @@ _GATE_ROWS = 2048  # (warp, slice) pairs per step of the plain gates
 SPLIT_LEN = 256.0  # long-segment pre-split span
 SWEEP_K = 8       # the top-K width the kernel is built for
 
-# The sweep's arms: the whole-block arm and the exact two-level arm
-# (kernels/sweep_exact.cu, codes in _EXACT_CODE), the bf16 coarse filter
-# and the tensor-core coarse pass with tf32 or bf16 operands
-# (kernels/sweep.cu, whose launch code is the index here).
+# seg_coarse: the tensor-core gate's B operands, one row of CO_WORDS i32
+# words per 512-column block: seg_feat's eight rows per column, rounded
+# once on the host to each arm's operand type, laid out so a lane's B
+# fragment of an m16n8k8 is one shared load, and the slice centres.
+#   [CO_TF32, CO_CTR)  tf32 (f32 bits rounded as cvt.rna.tf32 does: to
+#                      nearest, ties away from zero), column c at words
+#                      8c..8c+7 in k order _CO_TF32_K: lane t reads k = t,
+#                      t + 4 as one 8-byte pair;
+#   [CO_CTR, CO_BF16)  per slice (cx, cy) f32: rows SF_CX/SF_CY at the
+#                      slice's first column;
+#   [CO_BF16, CO_WORDS) bf16 (round to nearest even), column c at words
+#                      CO_BF16 + 4c + t, each k = 2t in the low half and
+#                      2t + 1 in the high half.
+# The mxu arm stages words [CO_TF32, CO_BF16), mxu_bf16 [CO_CTR,
+# CO_WORDS): one contiguous copy each (kernels/sweep_exact.cu).
+CO_TF32 = 0
+CO_CTR = CO_TF32 + SF_NCOMP * _SBLK
+CO_BF16 = CO_CTR + 2 * (_SBLK // _SUB)
+CO_WORDS = CO_BF16 + SF_NCOMP // 2 * _SBLK
+_CO_TF32_K = (0, 4, 1, 5, 2, 6, 3, 7)
+
+# The sweep's arms: the whole-block arm, the exact two-level arm, the bf16
+# coarse filter (kernels/sweep.cu) and the tensor-core coarse pass with
+# tf32 or bf16 operands. Every arm but the bf16 filter is an instance of
+# kernels/sweep_exact.cu, whose launch code is the index here.
 SWEEP_ARMS = ("block", "sub", "sub_bf16", "mxu", "mxu_bf16")
 
 # Launches of the CUDA sweep on the main path, per arm. sweep_topk adds one
@@ -103,6 +126,7 @@ class SegPack(NamedTuple):
     #                    NaN for a slice with no real column
     feat: np.ndarray   # f32 [8, S_pad] per-column coarse-pass rows (SF_*)
     sweep: np.ndarray  # f32 [S_pad, 8] per-column exact-sweep fields (SW_*)
+    coarse: np.ndarray  # i32 [nblocks, CO_WORDS] the gate's operands (CO_*)
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
@@ -248,7 +272,8 @@ def build_seg_pack(seg_a: np.ndarray, seg_b: np.ndarray, seg_edge: np.ndarray,
     feat[SF_CX] = c64[:, 0]
     feat[SF_CY] = c64[:, 1]
     return SegPack(pack=pack, bbox=bbox, sub=sub, feat=feat,
-                   sweep=_sweep_table(pack))
+                   sweep=_sweep_table(pack),
+                   coarse=_coarse_table(feat, centers, nblocks))
 
 
 def _sweep_table(pack: np.ndarray) -> np.ndarray:
@@ -262,6 +287,30 @@ def _sweep_table(pack: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.stack(
         [ax, ay, abx, aby, den, pack[SP_EDGE], pack[SP_OFF], pack[SP_LEN]],
         axis=1), dtype=np.float32)
+
+
+def _coarse_table(feat: np.ndarray, centers: np.ndarray,
+                  nblocks: int) -> np.ndarray:
+    """seg_coarse [nblocks, words] i32 (CO_* at 512-column blocks) from the
+    feat rows and the slice centres ([nslices, 2] f32): the tf32 words
+    equal _tf32_rna(feat) and the bf16 halves feat.to(torch.bfloat16), bit
+    for bit (a NaN, in the centre rows of an all-padding slice, becomes
+    the canonical 0x7fc0)."""
+    bits = np.ascontiguousarray(feat).view(np.int32)             # [8, S]
+    tf32 = (bits + np.int32(0x1000)) & np.int32(-0x2000)
+    u = bits.view(np.uint32)
+    bf16 = ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))
+            >> np.uint32(16)).astype(np.uint16)
+    bf16[np.isnan(feat)] = 0x7FC0
+
+    def cols(rows):                      # [k, S] → per block, column-major
+        return np.ascontiguousarray(rows.T).reshape(nblocks, -1)
+
+    return np.ascontiguousarray(np.concatenate(
+        [cols(tf32[list(_CO_TF32_K)]),
+         np.ascontiguousarray(centers, np.float32).reshape(nblocks, -1)
+         .view(np.int32),
+         cols(bf16).view(np.int32)], axis=1))
 
 
 def cull_radius(radius: float) -> float:
@@ -385,9 +434,10 @@ def _chunk_block_ids(pts, valid, bbox, radius: float, nchunks: int):
 
 
 def _chunk_order(nhits: torch.Tensor) -> torch.Tensor:
-    """The order in which the exact kernel's persistent CTAs take chunks:
-    a stable permutation of the chunk indices by descending hit count
-    (heaviest first, ties in index order) → i32 [nchunks]."""
+    """The order in which the ring-fed kernel's persistent CTAs take
+    chunks: a stable permutation of the chunk indices by descending hit
+    count (heaviest first, ties in index order) → i32 [nchunks]. The plain
+    version of kernels/sweep_exact.cu's chunk_order_kernel."""
     return torch.sort(nhits, descending=True, stable=True).indices.to(
         torch.int32).contiguous()
 
@@ -561,29 +611,35 @@ def sweep_arm(subcull: bool, lowp: str, mxu: bool) -> str:
     return "sub_bf16" if lowp == "bf16" else "sub"
 
 
-# the exact kernel's code of each exact arm (sweep_exact.cu)
-_EXACT_CODE = {"block": 0, "sub": 1}
+# the launch code of each arm of kernels/sweep_exact.cu (every arm but the
+# bf16 filter)
+_EXACT_CODE = {a: SWEEP_ARMS.index(a) for a in ("block", "sub", "mxu",
+                                                 "mxu_bf16")}
 
 
 def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
                pack: torch.Tensor, sub: "torch.Tensor | None",
-               feat: "torch.Tensor | None", radius: float, k: int,
+               coarse: "torch.Tensor | None", radius: float, k: int,
                arm: str, gate_log: "torch.Tensor | None" = None,
                sweep: "torch.Tensor | None" = None):
     """Wrapper of the CUDA sweep kernels over the chunks of ``pts`` and
     their hit lists (``ids``, ``nhits``), in arm ``arm`` of SWEEP_ARMS.
-    The exact arms run kernels/sweep_exact.cu: "block" reads the
-    ``sweep`` table (seg_sweep); "sub" also ``sub`` (per-slice culling).
-    Their persistent CTAs take chunks from a zeroed counter in the order
-    _chunk_order(nhits) gives (heaviest first), computed here. The
-    coarse-filter arms run kernels/sweep.cu, one 256-thread block per
-    chunk, reading ``pack`` and ``sub``, and the "mxu" arms ``feat``.
+    Every arm but "sub_bf16" runs kernels/sweep_exact.cu and reads the
+    ``sweep`` table (seg_sweep): "block" alone, "sub" also ``sub``
+    (per-slice culling), the "mxu" arms also ``coarse`` (seg_coarse, the
+    tensor-core gate's operands). Its persistent CTAs take chunks from a
+    counter in the order _chunk_order(nhits) gives (heaviest first), which
+    a kernel of the same call computes on the card. "sub_bf16" runs
+    kernels/sweep.cu, one 256-thread block per chunk, reading ``pack`` and
+    ``sub``.
     → (edge i32, offset f32, dist f32), each [npad, k].
 
     ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]; not for "block"),
     when given, receives each warp's slice decisions (decode_gate_log) for
-    a check against the plain vote and gates. Raises on anything the
-    kernel does not take, or if the launch fails."""
+    a check against the plain vote and gates; the "mxu" arms also set bit
+    8 + s where slice s's gate passed in its first group of n-tiles.
+    Raises on anything the kernel does not take, or if the launch
+    fails."""
     from reporter_tpu_torch.kernels import build
 
     if arm not in SWEEP_ARMS:
@@ -608,7 +664,7 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     if arm in _EXACT_CODE:
         checks.append((sweep, torch.float32, (spad, SW_NCOMP)))
     if arm.startswith("mxu"):
-        checks.append((feat, torch.float32, (SF_NCOMP, spad)))
+        checks.append((coarse, torch.int32, (nblocks, CO_WORDS)))
     if gate_log is not None:
         checks.append((gate_log, torch.int32, (nchunks, _P // _WARP, nblocks)))
     for t, dtype, shape in checks:
@@ -626,16 +682,16 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     r2 = float(radius) * float(radius)
     rc = cull_radius(radius)
     if arm in _EXACT_CODE:
-        counter = torch.zeros(1, dtype=torch.int32, device=pts.device)
+        order = torch.empty(nchunks + 1, dtype=torch.int32, device=pts.device)
         build.launch_sweep_exact(
-            pts, ids, nhits, _chunk_order(nhits), counter, sweep,
-            sub if arm == "sub" else None, _EXACT_CODE[arm], nchunks,
-            nblocks, r2, rc * rc, edge, off, dist, gate_log)
+            pts, ids, nhits, order, sweep, sub if arm != "block" else None,
+            coarse if arm.startswith("mxu") else None, _EXACT_CODE[arm],
+            nchunks, nblocks, r2, rc * rc, float(radius), edge, off, dist,
+            gate_log)
     else:
-        build.launch_sweep(pts, ids, nhits, pack, sub,
-                           feat if arm.startswith("mxu") else None,
-                           SWEEP_ARMS.index(arm), nchunks, nblocks, spad, r2,
-                           rc * rc, float(radius), edge, off, dist, gate_log)
+        build.launch_sweep_bf16(pts, ids, nhits, pack, sub, nchunks, nblocks,
+                                spad, r2, rc * rc, float(radius), edge, off,
+                                dist, gate_log)
     SWEEP_LAUNCHES[arm] += 1
     return edge, off, dist
 
@@ -646,9 +702,10 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
                           mxu: bool = False) -> CandidateSet:
     """points f32 [N, 2] → CandidateSet with [N, K] fields.
 
-    seg_pack: (pack, bbox[, sub[, feat[, sweep]]]) tensors on the points'
-    device (a SegPack's fields, in order); without ``sub`` the whole-block
-    arm runs, and on a CUDA tensor the exact arms need ``sweep``.
+    seg_pack: (pack, bbox[, sub[, feat[, sweep[, coarse]]]]) tensors on
+    the points' device (a SegPack's fields, in order); without ``sub`` the
+    whole-block arm runs, and on a CUDA tensor every arm but the bf16
+    filter needs ``sweep`` and the tensor-core arms ``coarse``.
     ``valid`` (bool [N]) marks real points; the others still get (ignored)
     rows but take no part in the culling. ``lowp="bf16"`` adds the bf16
     coarse filter to the two-level arm; ``mxu`` the tensor-core coarse
@@ -661,6 +718,7 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
     sub = seg_pack[2] if len(seg_pack) > 2 else None
     feat = seg_pack[3] if len(seg_pack) > 3 else None
     sweep = seg_pack[4] if len(seg_pack) > 4 else None
+    coarse = seg_pack[5] if len(seg_pack) > 5 else None
     use_sub = bool(subcull) and sub is not None
     if lowp not in ("off", "bf16"):
         raise ValueError(f"unknown lowp {lowp!r}; use 'off' or 'bf16'")
@@ -683,7 +741,8 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
         edge, off, dist = sweep_topk(
             pts, ids, nhits, pack.contiguous(),
             sub.contiguous() if use_sub else None,
-            feat.contiguous() if mxu else None, radius, max_candidates, arm,
+            coarse.contiguous() if mxu and coarse is not None else None,
+            radius, max_candidates, arm,
             sweep=sweep.contiguous() if arm in _EXACT_CODE
             and sweep is not None else None)
         edge, off, dist = edge[:n], off[:n], dist[:n]

@@ -50,7 +50,7 @@ def batch_candidates(points, valid_pt, tables, params: MatcherParams
     flat = find_candidates_dense(
         points.reshape(B * T, 2),
         (tables["seg_pack"], tables["seg_bbox"], tables["seg_sub"],
-         tables["seg_feat"], tables["seg_sweep"]),
+         tables["seg_feat"], tables["seg_sweep"], tables["seg_coarse"]),
         params.search_radius, params.max_candidates,
         valid=valid_pt.reshape(B * T), subcull=params.sweep_subcull,
         lowp=params.sweep_lowp, mxu=params.sweep_mxu)

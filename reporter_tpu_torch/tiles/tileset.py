@@ -121,9 +121,9 @@ def tables_from_numpy(arrays: "dict[str, np.ndarray]",
     ``arrays`` holds a tile's numpy arrays by their TileSet names (this
     port's ``TileSet.arrays()``, or the same fields of a reporter_tpu
     TileSet). The segment pack is built here with this port's
-    build_seg_pack, with the port's seg_sweep table beside the JAX
-    package's four; every array keeps its dtype and bytes (the pack's edge
-    row stays the int32 bit pattern inside an f32 row)."""
+    build_seg_pack, with the port's seg_sweep and seg_coarse tables beside
+    the JAX package's four; every array keeps its dtype and bytes (the
+    pack's edge row stays the int32 bit pattern inside an f32 row)."""
     from reporter_tpu_torch.ops.dense_candidates import build_seg_pack
 
     _refuse_restricted(arrays)
@@ -139,6 +139,7 @@ def tables_from_numpy(arrays: "dict[str, np.ndarray]",
         "seg_sub": sp.sub,
         "seg_feat": sp.feat,
         "seg_sweep": sp.sweep,
+        "seg_coarse": sp.coarse,
     }
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host.items()}

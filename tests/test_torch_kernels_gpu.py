@@ -1,6 +1,6 @@
 """The CUDA sweep kernels (reporter_tpu_torch/kernels/sweep_exact.cu for
-the exact arms, sweep.cu for the coarse-filter arms) against their plain
-PyTorch versions, on the card. Candidates, every arm: tolerance 0
+the exact and the tensor-core arms, sweep.cu for the bf16 filter arm)
+against their plain PyTorch versions, on the card. Candidates, every arm: tolerance 0
 (the same f32 arithmetic, one rounding per operation). The bf16 filter's
 gate decisions: tolerance 0 (every bf16 operation is correctly rounded on
 both sides). The tensor-core gate: a decision may differ from the plain
@@ -66,7 +66,8 @@ def test_sweep_kernel_equals_plain(sf, arm):
     before = dc.SWEEP_LAUNCHES[arm]
     got = dc.find_candidates_dense(
         pts, (tab["seg_pack"], tab["seg_bbox"], tab["seg_sub"],
-              tab["seg_feat"], tab["seg_sweep"]), 50.0, 8, valid=valid,
+              tab["seg_feat"], tab["seg_sweep"], tab["seg_coarse"]), 50.0, 8,
+        valid=valid,
         **levers)
     ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
     torch.cuda.synchronize()
@@ -84,7 +85,8 @@ def _kernel_gate(tab, pts, valid, arm):
     log = torch.zeros((nchunks, dc._P // 32, ids.shape[1]), dtype=torch.int32,
                       device=pts.device)
     dc.sweep_topk(fpts, ids, nhits, tab["seg_pack"], tab["seg_sub"],
-                  tab["seg_feat"], 50.0, 8, arm, gate_log=log)
+                  tab["seg_coarse"], 50.0, 8, arm, gate_log=log,
+                  sweep=tab["seg_sweep"])
     torch.cuda.synchronize()
     return fpts, ids, nhits, dc.decode_gate_log(log)
 
@@ -113,8 +115,8 @@ def rows(cuda):
     sp = dc.build_seg_pack(a, b, np.arange(n, dtype=np.int32),
                            np.zeros(n, np.float32), np.full(n, 8.0, np.float32))
     tab = {k: torch.from_numpy(v).to(cuda) for k, v in
-           zip(("seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep"),
-               sp)}
+           zip(("seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
+                "seg_coarse"), sp)}
     rng = np.random.default_rng(4)
     centres = rng.uniform(0.0, 4000.0, (256, 1, 2))
     pts = (centres + rng.uniform(-30.0, 30.0, (256, 32, 2))).reshape(-1, 2)
@@ -145,6 +147,7 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
     pack = torch.zeros((8, 512), device=cuda)
     sub = torch.zeros((1, 16), device=cuda)
     sweep = torch.zeros((512, 8), device=cuda)
+    coarse = torch.zeros((1, dc.CO_WORDS), dtype=torch.int32, device=cuda)
     log = torch.zeros((1, 8, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         dc.sweep_topk(pts.cpu(), ids, nhits, pack, None, None, 50.0, 8,
@@ -152,8 +155,14 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         dc.sweep_topk(pts, ids, nhits, pack, None, None, 50.0, 4, "block",
                       sweep=sweep)
-    with pytest.raises(ValueError):      # the mxu arm without feat rows
-        dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "mxu")
+    with pytest.raises(ValueError):      # the mxu arm without seg_coarse
+        dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "mxu",
+                      sweep=sweep)
+    with pytest.raises(ValueError):      # seg_coarse as f32 words
+        dc.sweep_topk(pts, ids, nhits, pack, sub, coarse.float(), 50.0, 8,
+                      "mxu_bf16", sweep=sweep)
+    with pytest.raises(ValueError):      # the mxu arm without seg_sweep
+        dc.sweep_topk(pts, ids, nhits, pack, sub, coarse, 50.0, 8, "mxu")
     with pytest.raises(ValueError):      # an exact arm without seg_sweep
         dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "sub")
     with pytest.raises(ValueError):      # seg_sweep laid out row by row
@@ -162,6 +171,32 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
     with pytest.raises(ValueError):      # the block arm keeps no gate log
         dc.sweep_topk(pts, ids, nhits, pack, None, None, 50.0, 8, "block",
                       gate_log=log, sweep=sweep)
+
+
+@pytest.mark.parametrize("n", [1, 300, 2049])
+def test_chunk_order_kernel_equals_plain(sf_tile, n):
+    """The ring-fed call's chunk order kernel writes _chunk_order(nhits)
+    (tolerance 0) over hit counts with many ties, and the counter it
+    zeroes ends at nchunks + the grid (each CTA fails one take)."""
+    from reporter_tpu_torch.kernels import build
+
+    _, tab = sf_tile
+    nblocks = tab["seg_bbox"].shape[0]
+    gen = torch.Generator().manual_seed(n)
+    nhits = torch.randint(0, nblocks + 1, (n,), generator=gen,
+                          dtype=torch.int32).cuda()
+    ids = torch.arange(nblocks, dtype=torch.int32).repeat(n, 1).cuda()
+    pts = torch.zeros((n * dc._P, 2), device="cuda")
+    order = torch.full((n + 1,), -7, dtype=torch.int32, device="cuda")
+    out = [torch.empty((n * dc._P, 8), dtype=dt, device="cuda")
+           for dt in (torch.int32, torch.float32, torch.float32)]
+    build.launch_sweep_exact(pts, ids, nhits, order, tab["seg_sweep"], None,
+                             None, dc._EXACT_CODE["block"], n, nblocks,
+                             2500.0, 2500.0, 50.0, *out)
+    torch.cuda.synchronize()
+    assert torch.equal(order[:n], dc._chunk_order(nhits))
+    sh = build.exact_shape(dc._EXACT_CODE["block"])
+    assert int(order[n]) == n + min(n, sh["ctas_per_sm"] * sh["sms"])
 
 
 def _exact_points(ts, case):
@@ -200,13 +235,15 @@ def _exact_points(ts, case):
 
 @pytest.mark.parametrize("case", ["ring", "uneven", "single", "partial",
                                   "ties"])
-@pytest.mark.parametrize("arm", ["block", "sub"])
+@pytest.mark.parametrize("arm", ["block", "sub", "mxu", "mxu_bf16"])
 def test_exact_arm_cases(sf_tile, arm, case):
-    """The redesigned exact arms, bit-equal to _dense_plain where their
-    design could go wrong: hit lists longer than the ring, chunks of very
-    different weight, one chunk, a partial last chunk, d = 0 ties and
-    radius-boundary points. For sub, the kernel's votes equal the plain
-    vote."""
+    """The ring-fed arms of sweep_exact.cu, bit-equal to _dense_plain where
+    their design could go wrong: hit lists longer than the ring, chunks of
+    very different weight, one chunk, a partial last chunk, d = 0 ties and
+    radius-boundary points. For the others than block, the kernel's votes
+    equal the plain vote; sub's gate is its vote, the tensor-core arms'
+    differs from _coarse_mxu_gate only within GATE_REL_TOL of the
+    threshold."""
     ts, tab = sf_tile
     pts = torch.from_numpy(_exact_points(ts, case)).cuda()
     n = len(pts)
@@ -226,7 +263,7 @@ def test_exact_arm_cases(sf_tile, arm, case):
         (nchunks, dc._P // 32, nblocks), dtype=torch.int32, device=pts.device)
     before = dc.SWEEP_LAUNCHES[arm]
     got = dc.sweep_topk(fpts, ids, nhits, tab["seg_pack"], tab["seg_sub"],
-                        None, 50.0, 8, arm, gate_log=log,
+                        tab["seg_coarse"], 50.0, 8, arm, gate_log=log,
                         sweep=tab["seg_sweep"])
     ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
     torch.cuda.synchronize()
@@ -240,4 +277,11 @@ def test_exact_arm_cases(sf_tile, arm, case):
         want = dc._slice_votes(fpts, ids, nhits, tab["seg_sub"],
                                dc.cull_radius(50.0) ** 2)
         assert torch.equal(kg.vote, want)
-        assert torch.equal(kg.gate, want)
+        if arm == "sub":
+            assert torch.equal(kg.gate, want)
+        else:
+            pg = dc._coarse_mxu_gate(fpts, ids, nhits, tab["seg_sub"],
+                                     tab["seg_feat"], 50.0,
+                                     "bf16" if arm == "mxu_bf16" else "off")
+            near = (pg.cmin - pg.thr).abs() <= GATE_REL_TOL * pg.thr
+            assert not ((kg.gate != pg.gate) & ~near).any()

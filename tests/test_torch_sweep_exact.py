@@ -1,6 +1,7 @@
 """The host side of the exact sweep kernel (kernels/sweep_exact.cu), on the
-CPU: its seg_sweep table, its chunk order, and a torch model of its
-per-pair chain with the division shortcut. Tolerance 0 throughout: the
+CPU: its seg_sweep table, its chunk order (and a model of the rank kernel
+that computes it on the card), and a torch model of its per-pair chain
+with the division shortcut. Tolerance 0 throughout: the
 kernel is held to the plain version bit for bit, so what it reads and
 what it skips must change no bit of a kept (d², edge, offset).
 """
@@ -109,6 +110,24 @@ def test_chunk_order_is_stable_heaviest_first(n):
                                   np.argsort(-nhits, kind="stable"))
     assert sorted(got.tolist()) == list(range(n))
     assert (np.diff(nhits[got.numpy()]) <= 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 7, 300, 4096])
+def test_chunk_order_ranks_equal_plain(n):
+    """chunk_order_kernel's rule: chunk i goes to position #{j : nhits[j] >
+    nhits[i]} + #{j < i : nhits[j] == nhits[i]}. Over hit counts with many
+    ties, those positions are a permutation and place each chunk where
+    _chunk_order does."""
+    rng = np.random.default_rng(n + 1)
+    nhits = rng.integers(0, 6, n).astype(np.int32)
+    v, idx = nhits[:, None], np.arange(n)
+    rank = ((nhits[None, :] > v) | ((nhits[None, :] == v)
+                                    & (idx[None, :] < idx[:, None]))).sum(1)
+    order = np.full(n, -1, np.int64)
+    order[rank] = idx
+    assert sorted(rank.tolist()) == list(range(n))
+    np.testing.assert_array_equal(
+        order, dc._chunk_order(torch.from_numpy(nhits)).numpy())
 
 
 def _kernel_pairs(px, py, sw):
