@@ -6,17 +6,16 @@ Drives the port's main path (reporter_tpu_torch) at full size and holds
 every CUDA kernel of it against its plain PyTorch version, in phases:
 
   1. device   — require CUDA; print the card's name and power limit;
-  2. build    — nvcc-build kernels/sweep.cu (the bf16 filter arm) and
-                kernels/sweep_exact.cu (the other four arms) (sm_90a; one
-                nvcc each, started together) into
-                reporter_tpu_torch/_build/; the ptxas figures of every
-                kernel instance and each ring-fed arm's launch shape
-                (threads, ring depth, dynamic shared memory, CTAs per SM,
-                SMs, grid);
+  2. build    — nvcc-build kernels/sweep_exact.cu (all five arms, one
+                source, sm_90a) into reporter_tpu_torch/_build/; the
+                ptxas figures of every kernel instance and each arm's
+                launch shape (threads, ring depth, dynamic shared memory,
+                CTAs per SM, SMs, grid);
   3. tiles    — compile the synthetic "sf" metro (~5.3k directed edges);
   4. kernel   — 1024 traces x 120 points padded to the 128 bucket
                 (131,072 points) through all five sweep arms (block, sub,
-                mxu, mxu_bf16 in sweep_exact.cu, sub_bf16 in sweep.cu) and
+                sub_bf16, mxu, mxu_bf16, each an instance of
+                sweep_exact.cu's kernel) and
                 through _dense_plain on the card: edge, offset and dist
                 must be bit-equal; CUDA-event times of each, as the median
                 of single launches (``ms``, the yardstick of every earlier
@@ -28,9 +27,9 @@ every CUDA kernel of it against its plain PyTorch version, in phases:
                 decisions (a debug launch) against the plain gates: equal
                 for the bf16 filter; for the tensor-core pass different
                 only within 1e-3 of the threshold; the vote and gate shares
-                of (warp, slice) pairs, and for the tensor-core arms the
-                share of voted tiles whose gate passed in its first group
-                of n-tiles;
+                of (warp, slice) pairs, and for each gated arm the share
+                of voted tiles whose gate passed in its first group of
+                columns (which must all have been swept);
      gates    — the same checks on parallel streets 500 m apart, where
                 every coarse gate culls: the gate share must be below the
                 vote share, so a gate that admits every slice (a wrong
@@ -195,15 +194,15 @@ def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, coarse, radius,
     fields to print)."""
     log = torch.zeros((ids.shape[0], dc._P // 32, ids.shape[1]),
                       dtype=torch.int32, device="cuda")
-    dc.sweep_topk(fpts, ids, nhits, pack, sub, coarse, radius, k, arm,
-                  gate_log=log, sweep=sweep)
+    dc.sweep_topk(fpts, ids, nhits, sweep, sub, coarse, radius, k, arm,
+                  gate_log=log)
     kg = dc.decode_gate_log(log)
     if not torch.equal(kg.vote, dc._slice_votes(
             fpts, ids, nhits, sub, dc.cull_radius(radius) ** 2)):
         raise SystemExit(f"arm {arm}: the kernel's slice votes differ from "
                          "the plain vote")
     if arm == "sub":
-        return kg, None, {}
+        return kg, None, {}, None
     if arm == "sub_bf16":
         pg = dc._coarse_bf16_gate(fpts, ids, nhits, pack, sub, radius)
         differ = pg.gate != kg.gate
@@ -217,17 +216,16 @@ def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, coarse, radius,
     if off.any():
         raise SystemExit(f"{arm} gate: {int(off.sum())} decisions differ "
                          f"from the plain gate beyond the tolerance {tol}")
+    # bit 8 + s: slice s's gate passed in its first group of columns
+    first = dc.decode_gate_log(log >> 8).vote
+    if (first & ~kg.gate).any():
+        raise SystemExit(f"{arm}: a gate passed early but was not swept")
     fields = {"gate_mismatches": int(differ.sum()),
               "gate_mismatches_off_threshold": int(off.sum()),
-              "gate_tolerance": tol}
-    if arm.startswith("mxu"):
-        # bit 8 + s: slice s's gate passed in its first group of n-tiles
-        first = dc.decode_gate_log(log >> 8).vote
-        if (first & ~kg.gate).any():
-            raise SystemExit(f"{arm}: a gate passed early but was not swept")
-        fields["gate_first_group_share_of_voted"] = \
-            int(first.sum()) / max(int(kg.vote.sum()), 1)
-    return kg, pg, fields
+              "gate_tolerance": tol,
+              "gate_first_group_share_of_voted":
+                  int(first.sum()) / max(int(kg.vote.sum()), 1)}
+    return kg, pg, fields, first
 
 
 def order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k):
@@ -240,9 +238,9 @@ def order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k):
            for dt in (torch.int32, torch.float32, torch.float32)]
     rc = dc.cull_radius(radius)
     build.launch_sweep_exact(fpts, ids, nhits, order, sweep, sub, None,
-                             dc._EXACT_CODE["sub"], nchunks, nblocks,
+                             dc.SWEEP_ARMS.index("sub"), nchunks, nblocks,
                              radius * radius, rc * rc, radius, *out)
-    sh = build.exact_shape(dc._EXACT_CODE["sub"])
+    sh = build.exact_shape(dc.SWEEP_ARMS.index("sub"))
     grid = min(nchunks, sh["ctas_per_sm"] * sh["sms"])
     equal = torch.equal(order[:nchunks], dc._chunk_order(nhits))
     counter = int(order[nchunks])
@@ -307,8 +305,8 @@ def kernel_phase(card, tab, pts, radius, k, dc, build):
     arms = {}
     for arm in dc.SWEEP_ARMS:
         def run(a=arm):
-            return dc.sweep_topk(fpts, ids, nhits, pack, sub, co_tab,
-                                 radius, k, a, sweep=sweep)
+            return dc.sweep_topk(fpts, ids, nhits, sweep, sub, co_tab,
+                                 radius, k, a)
         got = run()
         torch.cuda.synchronize()
         mism = {f: int((g != r).sum()) for f, g, r in
@@ -325,28 +323,41 @@ def kernel_phase(card, tab, pts, radius, k, dc, build):
             exact = int(nhits.sum()) * dc._SBLK * dc._P
             coarse, coarse_rate = 0, None
         else:
-            kg, pg, fields = kernel_gates(dc, arm, fpts, ids, nhits, pack,
-                                          sub, feat, co_tab, radius, k, sweep)
+            kg, pg, fields, first = kernel_gates(
+                dc, arm, fpts, ids, nhits, pack, sub, feat, co_tab, radius,
+                k, sweep)
             if arm == "sub":
                 spread_phase(card, dc, nhits, kg)
             nbytes += n_used * sub.shape[1] * 4
             exact = int(kg.gate.sum()) * tile
-            coarse = int(kg.vote.sum()) * tile if arm != "sub" else 0
-            coarse_rate = {"sub": None, "sub_bf16": H100_BF16_FLOPS,
-                           "mxu": H100_TF32_TC_FLOPS,
-                           "mxu_bf16": H100_BF16_TC_FLOPS}[arm]
+            coarse, coarse_rate = 0, None
             rec.update(vote_share=int(kg.vote.sum()) / slices,
                        gate_share=int(kg.gate.sum()) / slices, **fields)
             if pg is not None:
                 rec["plain_gate_share"] = int(pg.gate.sum()) / slices
-            if arm.startswith("mxu"):
-                # the feat columns of every slice some warp voted for
+            if arm != "sub":
+                # the pairs the gate's early exit leaves to test: a group
+                # where it passed in its first, at least two where it
+                # passed later, all 128 columns where it culled
+                later = int((kg.gate & ~first).sum())
+                culled = int((kg.vote & ~kg.gate).sum())
+                group = build.exact_shape(
+                    dc.SWEEP_ARMS.index(arm))["gate_group"]
+                coarse = 32 * (int(first.sum()) * group + later * 2 * group
+                               + culled * dc._SUB)
+                coarse_rate = {"sub_bf16": H100_BF16_FLOPS,
+                               "mxu": H100_TF32_TC_FLOPS,
+                               "mxu_bf16": H100_BF16_TC_FLOPS}[arm]
+                # the gate's table columns of every slice some warp voted
+                # for: the feat rows, or the filter's five bf16 fields
                 bs = torch.zeros((nblocks, dc._SBLK // dc._SUB),
                                  dtype=torch.bool, device="cuda")
                 v = kg.vote.any(1)                         # [nc, slot, nsub]
                 c, j, s = v.nonzero(as_tuple=True)
                 bs[ids[c, j].long(), s] = True
-                nbytes += int(bs.sum()) * dc.SF_NCOMP * dc._SUB * 4
+                per_col = dc.SF_NCOMP * 4 if arm.startswith("mxu") \
+                    else dc.FL_NCOMP * 2
+                nbytes += int(bs.sum()) * dc._SUB * per_col
         t_exact = exact * SWEEP_OPS_PER_PAIR / H100_F32_FLOPS * 1e3
         t_coarse = (coarse * (BF16_OPS_PER_PAIR if arm == "sub_bf16"
                               else MMA_OPS_PER_PAIR) / coarse_rate * 1e3
@@ -393,16 +404,16 @@ def gates_phase(card, dc, radius, k):
     ref = dc._dense_plain(pts, pack, radius, k)
     out = {}
     for arm in dc.SWEEP_ARMS:
-        got = dc.sweep_topk(fpts, ids, nhits, pack, sub, coarse, radius, k,
-                            arm, sweep=sweep)
+        got = dc.sweep_topk(fpts, ids, nhits, sweep, sub, coarse, radius, k,
+                            arm)
         mism = sum(int((g != r).sum()) for g, r in zip(got, ref))
         if mism:
             raise SystemExit(f"parallel streets: arm {arm} differs from "
                              f"_dense_plain in {mism} values")
         if arm in ("block", "sub"):
             continue
-        kg, pg, fields = kernel_gates(dc, arm, fpts, ids, nhits, pack, sub,
-                                      feat, coarse, radius, k, sweep)
+        kg, pg, fields, _ = kernel_gates(dc, arm, fpts, ids, nhits, pack,
+                                         sub, feat, coarse, radius, k, sweep)
         vote, gate, plain = (int(kg.vote.sum()), int(kg.gate.sum()),
                              int(pg.gate.sum()))
         out[arm] = dict(voted=vote, gate_passed=gate, plain_gate_passed=plain,
@@ -596,10 +607,10 @@ def main() -> int:
                    "kernels": ptxas_figures(log["ptxas"])}
              for src, log in build.BUILD_LOG.items()}
     phase("build", card, seconds=time.perf_counter() - t0, sources=built)
-    # the ring-fed arms' persistent grid is min(chunks, CTAs per SM x
-    # SMs); the kernel phase runs 512 chunks
+    # the persistent grid is min(chunks, CTAs per SM x SMs); the kernel
+    # phase runs 512 chunks
     shapes = {arm: build.exact_shape(code)
-              for arm, code in dc._EXACT_CODE.items()}
+              for code, arm in enumerate(dc.SWEEP_ARMS)}
     for sh in shapes.values():
         sh["grid_at_512_chunks"] = min(512, sh["ctas_per_sm"] * sh["sms"])
     phase("build:exact_shape", card, **shapes)
@@ -652,8 +663,7 @@ def main() -> int:
         a = arms[arm]
         kernels.append({
             "name": f"sweep_topk_{arm}", "route": "cuda",
-            "source": "reporter_tpu_torch/kernels/" + (
-                "sweep_exact.cu" if arm in dc._EXACT_CODE else "sweep.cu"),
+            "source": "reporter_tpu_torch/kernels/sweep_exact.cu",
             "replaces": replaces, "launches": sum(launches[arm].values()),
             "launches_by_path": launches[arm],
             "max_abs_err": a["max_abs_err"], "ms": a["ms"],

@@ -1,28 +1,34 @@
 // Ring-fed sweep arms for Hopper (sm_90a): per probe point, the top-K
 // distinct edges within the search radius.
 //
-// Replaces four arms of the Pallas TPU kernel of
+// Replaces the five arms of the Pallas TPU kernel of
 // reporter_tpu/ops/dense_candidates.py (one pl.pallas_call, :755):
 //   block     _sweep_kernel :389-430: every column of every hit block;
 //   sub       _sweep_kernel_sub :433-519 with lowp="off" and mxu off: only
 //             the 128-column slices whose bbox lies within the cull radius
 //             of one of a warp's 32 points (the vote; NaN quads never pass);
+//   sub_bf16  _sweep_kernel_sub's bf16 VPU filter :567-614: between the
+//             vote and the exact pass of a slice, a gate on a bf16
+//             point-to-segment lower bound;
 //   mxu       _sweep_kernel_sub's MXU coarse pass :521-564 (f32 operands;
-//             here tf32 tensor-core operands): between the vote and the
-//             exact pass of a slice, a gate on the tensor cores;
+//             here tf32 tensor-core operands): the same place, a gate on
+//             the tensor cores;
 //   mxu_bf16  the same with bf16 operands (:549-551).
-// The bf16 filter arm is sweep.cu's. The running top-K is topk.cuh's.
+// Each arm is an instance of sweep_exact_kernel<ARM>, ARM its index in
+// ops/dense_candidates.py's SWEEP_ARMS; one nvcc builds them all. The
+// running top-K is topk.cuh's.
 //
 // Bound on this card: the arithmetic of the exactly swept (point, column)
-// pairs on the CUDA cores; the bytes (hit blocks from L2, points, [N, K]
-// outputs) are small beside it, and so are the gate's products on the
-// tensor cores (72.6 M pairs x 16 operations at sf's full size, ~2 us at
-// the tf32 rate). The design answers what held the first port of these
-// arms back (one CTA per chunk staging each hit block synchronously behind
-// CTA barriers, the column side recomputed per pair, one dependent chain
-// per thread; for the gated arms two more barriers per block, a shared
-// round-trip and operand conversions in the gate, and the gate's whole
-// 32 x 128 minimum taken even where its first products pass):
+// pairs on the CUDA cores, plus for sub_bf16 its gate's bf16 pairs on the
+// same cores; the bytes (hit blocks from L2, points, [N, K] outputs) are
+// small beside it, and so are the tensor-core gate's products (72.6 M
+// pairs x 16 operations at sf's full size, ~2 us at the tf32 rate). The
+// design answers what held the first port of these arms back (one CTA
+// per chunk staging each hit block synchronously behind CTA barriers, the
+// column side recomputed per pair, one dependent chain per thread; for
+// the gated arms more barriers per block, the gate's column side or
+// operands converted per block in every CTA, and the gate's whole
+// 32 x 128 minimum taken even where its first pairs pass):
 //
 // 1. The column side once per column. seg_sweep (build_seg_pack, numpy
 //    f32, one rounding per operation in _block_geometry's order) holds per
@@ -73,30 +79,64 @@
 //    decision per warp (32 points), and a warpgroup product would tie four
 //    warps together again, undoing 2; the products are microseconds of the
 //    tensor cores' time in any case.
-// 6. The gate stops at the first admitting n-tile group. It asks whether
-//    min over the 32 x 128 products d2m <= thr, which holds exactly when
-//    some product is <= thr: the least element of a finite set of reals is
-//    <= thr iff one of them is. A NaN product compares false in both forms
-//    (fminf drops it from the minimum; the test of it fails), so it admits
-//    neither. After every kGroup n-tiles the warp asks __any_sync whether a
-//    lane holds a product <= thr and stops at the first yes: the same
-//    predicate over the same products, so the same decision (the gate log
-//    is unchanged; bits 8-11 record the slices whose gate passed in the
-//    first group). The loop is warp-uniform (a voted slice is), so every
-//    lane reaches every __any_sync. kGroup = 4 (32 columns, 8 mma): on sf
-//    nearly every voted gate passes in its first group, and groups of 1, 2
-//    or 8 n-tiles ran no faster in a development run on the card.
+// 6. The gate stops at the first admitting group. It asks whether min
+//    over the 32 x 128 pair values (products d2m, or the bf16 filter's
+//    d2c) <= thr, which holds exactly when some value is <= thr: the least
+//    element of a finite set of reals is <= thr iff one of them is. A NaN
+//    compares false in both forms (fminf drops it from the minimum; the
+//    test of it fails), so it admits neither. After every group of
+//    columns (kGroup n-tiles, or kBf16Group columns) the warp asks
+//    __any_sync whether a lane holds a value <= thr and stops at the
+//    first yes: the same predicate over the same values, so the same
+//    decision (bits 8-11 of the gate log record the slices whose gate
+//    passed in the first group). The loop is warp-uniform (a voted slice
+//    is), so every lane reaches every __any_sync. kGroup = 4 (32 columns,
+//    8 mma): on sf nearly every voted gate passes in its first group, and
+//    groups of 1, 2 or 8 n-tiles ran no faster in a development run on
+//    the card.
+// 7. The bf16 filter's column side rounded once, its pairs two at a time.
+//    seg_coarse's CO_FLT words (build_seg_pack, numpy) hold per column
+//    the endpoint recentred on the slice centre (axl, ayl), the
+//    differences abx, aby and den = max(abx^2 + aby^2, bf16(1e-12)), each
+//    rounded once to bf16, columns 2p and 2p + 1 in the halves of one
+//    word per field, so four words (8 columns) of a field are one
+//    broadcast 16-byte load. The JAX kernel first clamps the endpoints
+//    into the slice box dilated by ~radius; a real column's endpoints lie
+//    in that box (the host checks it at radius 0), so its table entry
+//    holds at every radius. A padding column's zero endpoints do clamp,
+//    to a point of the radius: the table counts each slice's real
+//    columns, and from there on the kernel puts in the clamp of (0, 0),
+//    computed once per slice (a padding column still enters the minimum,
+//    as in the plain gate). The point side is the f32 recentre and clamp
+//    of the JAX kernel, converted once per slice. The pair chain runs on
+//    __nv_bfloat162, two columns per instruction, with the _rn forms (one
+//    rounding each, never contracted) in the plain version's order. t
+//    takes 4.'s shortcut, which holds in bf16 as well (den > 0, rounding
+//    is monotone, and __hdiv is f32 division rounded to bf16, a correctly
+//    rounded quotient): __hgt2(num, 0) is t wherever num <= 0 or num >=
+//    den. Where some pair of a lane's 8-column step has neither (or a
+//    NaN num), the lane divides both halves of each word with __hdiv and
+//    clamps, the first port's operations, and a mask keeps each quotient
+//    only where its pair needs it: straight-line code, where a branch
+//    per column diverged. (An approximate reciprocal instead of __hdiv
+//    is not exact: a development run on the card found bf16 pairs where
+//    it differs.) A lane keeps the running minimum of its d2c (__hmin2,
+//    which drops a NaN as fminf does) and tests it once a group, the
+//    predicate of 6.
 //
 // Ring depth and occupancy per arm: a stage holds the block's seg_sweep
 // columns (16,384 B) and slice quads (64 B), plus for mxu the tf32 rows and
-// centres (16,416 B) and for mxu_bf16 the centres and bf16 rows (8,224 B).
-// kDepth is 4 for block, sub and mxu_bf16 and 3 for mxu: about 99 KB for
-// the gated arms, so two CTAs fit on an SM by shared memory (four tf32
-// stages would be ~131 KB, one CTA). In a development run on the card
-// these depths beat 2 and 4 stages for mxu and 3 and 5 for mxu_bf16: a
-// depth that leaves one CTA per SM was clearly slower, and two tf32
-// stages starved the warps. chip_smoke.py prints each arm's depth, shared
-// memory, CTAs per SM and grid.
+// centres (16,416 B), for mxu_bf16 the centres and bf16 rows (8,224 B) and
+// for sub_bf16 the filter's column side (5,136 B). kDepth is 4 for block,
+// sub, mxu_bf16 and sub_bf16 and 3 for mxu: at most about 99 KB for the
+// gated arms, so two CTAs fit on an SM by shared memory (four tf32 stages
+// would be ~131 KB, one CTA). In a development run on the card these
+// depths beat 2 and 4 stages for mxu and 3 and 5 for mxu_bf16: a depth
+// that leaves one CTA per SM was clearly slower, and two tf32 stages
+// starved the warps. For sub_bf16 a development run on the card measured
+// depths 3-5 and gate groups of 8-64 columns (PERF.md): 4 stages and
+// groups of 8 were kept. chip_smoke.py prints each arm's depth, gate
+// group, shared memory, CTAs per SM and grid.
 //
 // Measured on the card against two alternatives (PERF.md), both slower
 // and so not kept: two points per thread in the block arm (two chains per
@@ -109,12 +149,12 @@
 // Exactness: built with -fmad=false -prec-div=true -prec-sqrt=true, so
 // every operation rounds once, in the plain version's order
 // (_dense_plain); the candidates equal it bit for bit in every arm. The
-// gates only skip slices where no product of the point-to-line bound, a
-// lower bound on every point-to-segment distance, comes within the
-// conservative margin (the JAX package's _MXU_REL_MARGIN argument, kept);
-// their decisions differ from the plain f32 product (_coarse_mxu_gate)
-// only where the tensor cores' summation order moves the minimum across
-// the threshold.
+// gates only skip slices where no value of their lower bound on every
+// point-to-segment distance comes within the JAX kernel's conservative
+// margin. The bf16 filter's decisions equal the plain gate's
+// (_coarse_bf16_gate) exactly; the tensor-core gates' differ from the
+// plain f32 product (_coarse_mxu_gate) only where the tensor cores'
+// summation order moves the minimum across the threshold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,26 +177,40 @@ constexpr unsigned kAll = 0xffffffffu;
 
 constexpr int kBatch = 4;          // columns per step of a warp's sweep
 constexpr int kGroup = 4;          // n-tiles (8 columns each) per gate test
+constexpr int kBf16Group = 8;      // columns per gate test of the bf16 filter
 constexpr int kCons = kP / 32;     // consumer warps, one point per thread
 constexpr int kThreads = 32 * (kCons + 1);  // and the producer warp
 constexpr int kOrderThreads = 256;
+static_assert(kBf16Group % 8 == 0 && kSub % kBf16Group == 0,
+              "the filter tests whole 8-column steps of a slice");
 
-// arm codes (ops/dense_candidates.py SWEEP_ARMS order; 2, the bf16
-// filter, is sweep.cu's)
-constexpr int kBlock = 0, kSubArm = 1, kMxu = 3, kMxuBf16 = 4;
+// arm codes (ops/dense_candidates.py SWEEP_ARMS order)
+constexpr int kBlock = 0, kSubArm = 1, kSubBf16 = 2, kMxu = 3, kMxuBf16 = 4;
 
 template <int ARM>
-constexpr bool kGated = ARM == kMxu || ARM == kMxuBf16;
+constexpr bool kGated = ARM >= kSubBf16;
+
+// columns per early-exit test of an arm's gate (0: no gate); rtt_sweep_
+// exact_shape reports it, so that chip_smoke.py counts the gate's pairs
+template <int ARM>
+constexpr int kGateCols =
+    ARM == kSubBf16 ? kBf16Group : kGated<ARM> ? 8 * kGroup : 0;
 
 // seg_coarse, one row of kCoWords i32 words per block (CO_* in
 // ops/dense_candidates.py): column c's tf32 rows at words 8c..8c+7 in k
 // order 0,4,1,5,2,6,3,7; the 4 slices' centres (cx, cy) at kCoCtr; column
 // c's bf16 rows at kCoBf16 + 4c..+3, word t holding k = 2t (low half) and
-// 2t + 1. The mxu arm stages words [0, kCoBf16), mxu_bf16 [kCoCtr,
-// kCoWords): each one contiguous piece.
+// 2t + 1; at kCoFlt the 4 slices' real column counts, then the bf16
+// filter's fields (ax, ay, abx, aby, den), field f of columns 2p, 2p + 1
+// (low, high half) at kCoFlt + kFlCols + f * kFlPairs + p. The mxu arm
+// stages words [0, kCoBf16), mxu_bf16 [kCoCtr, kCoFlt), sub_bf16
+// [kCoFlt, kCoWords): each one contiguous piece.
 constexpr int kCoCtr = 8 * kSblk;
 constexpr int kCoBf16 = kCoCtr + 2 * kNsub;
-constexpr int kCoWords = kCoBf16 + 4 * kSblk;
+constexpr int kCoFlt = kCoBf16 + 4 * kSblk;
+constexpr int kFlCols = kNsub;
+constexpr int kFlPairs = kSblk / 2;
+constexpr int kCoWords = kCoFlt + kFlCols + 5 * kFlPairs;
 
 // one hit block in a stage: per column (ax, ay, abx, aby), (denom, edge
 // bits), (off0, len); then the block's 4 slice quads (xmin, ymin, xmax,
@@ -166,12 +220,15 @@ constexpr unsigned kQuadBytes = sizeof(float4) * kNsub;
 
 template <int ARM>
 struct Ring {
-  static constexpr int kCoFirst = ARM == kMxu ? 0 : kCoCtr;  // table word
+  static constexpr int kCoFirst =                  // table words staged
+      ARM == kMxu ? 0 : ARM == kSubBf16 ? kCoFlt : kCoCtr;
+  static constexpr int kCoEnd =
+      ARM == kMxu ? kCoBf16 : ARM == kMxuBf16 ? kCoFlt : kCoWords;
   static constexpr unsigned kCoBytes =
-      ARM == kMxu ? 4u * kCoBf16
-                  : ARM == kMxuBf16 ? 4u * (kCoWords - kCoCtr) : 0u;
+      kGated<ARM> ? 4u * (kCoEnd - kCoFirst) : 0u;
   static constexpr unsigned kStage = kColBytes + kQuadBytes + kCoBytes;
-  static constexpr int kDepth = ARM == kMxu ? 3 : 4;
+  static constexpr int kDepth =
+      ARM == kMxu ? 3 : 4;
   // dynamic shared memory: the stages, one item word (chunk, slot, block,
   // nhits) per stage, the full and the empty mbarriers
   static constexpr int kItemOff = kDepth * int(kStage);
@@ -389,6 +446,120 @@ __device__ __forceinline__ int mma_gate(const uint32_t* co, float4 qd,
   return -1;
 }
 
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t w) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&w);
+}
+
+__device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the bf16 rounding of x in both halves of a word
+__device__ __forceinline__ uint32_t bf16_both(float x) {
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  return h | (h << 16);
+}
+
+// The bf16 filter's gate of voted slice `sl` for this warp (the JAX
+// kernel's :579-612, the plain _bf16_coarse_d2): the point recentred on
+// the slice centre and clamped into the slice box dilated by ~radius (f32,
+// then bf16), against the slice's staged column side `fl` (the CO_FLT
+// words, note 7), a pair's d2c = |p - a - t ab|^2 with t = clamp(num /
+// den, 0, 1), every operation one bf16 rounding; pass: some d2c <= thr =
+// (r + 0.0625 scale + 0.5)^2. Four words (8 columns) a step; a lane keeps
+// the running minimum of its d2c (__hmin2 drops a NaN, as fminf does) and
+// tests it once a group. Returns the group of kBf16Group columns after
+// which some d2c <= thr (the slice passes), or -1 (culled).
+__device__ __forceinline__ int bf16_gate(const uint32_t* fl, float4 qd,
+                                         int sl, float px, float py,
+                                         float radius, float mx) {
+  constexpr int U = 4;                        // words (column pairs) a step
+  constexpr int kWords = kBf16Group / 2;      // words a group
+  const float cx = (qd.x + qd.z) * 0.5f;
+  const float cy = (qd.y + qd.w) * 0.5f;
+  const float ex = (qd.z - qd.x) * 0.5f + mx;
+  const float ey = (qd.w - qd.y) * 0.5f + mx;
+  const float scale = fmaxf(ex, ey);
+  const float rl = radius + scale * 0.0625f + 0.5f;
+  const float thr = rl * rl;
+  const __nv_bfloat162 p2 = bf2(bf16_both(clampf(px - cx, ex)));
+  const __nv_bfloat162 q2 = bf2(bf16_both(clampf(py - cy, ey)));
+  const __nv_bfloat162 zero2 = bf2(0u), one2 = bf2(0x3f803f80u);
+  // from column nreal of the slice on, padding: zero endpoints, clamped
+  const int nreal = static_cast<int>(fl[sl]);
+  const uint32_t pad_x = bf16_both(clampf(0.f - cx, ex));
+  const uint32_t pad_y = bf16_both(clampf(0.f - cy, ey));
+  const uint32_t* col = fl + kFlCols + sl * (kSub / 2);
+  __nv_bfloat162 low = bf2(0x7f807f80u);     // +inf
+  for (int w0 = 0; w0 < kSub / 2; w0 += kWords) {
+#pragma unroll
+    for (int w = w0; w < w0 + kWords; w += U) {
+      uint32_t f[5][U];                       // ax ay abx aby den
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(col + i * kFlPairs + w);
+        f[i][0] = v.x;
+        f[i][1] = v.y;
+        f[i][2] = v.z;
+        f[i][3] = v.w;
+      }
+      uint32_t* ax = f[0];
+      uint32_t* ay = f[1];
+      if (2 * (w + U) > nreal) {              // warp-uniform, one slice only
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int c = 2 * (w + u);
+          const uint32_t m = (c >= nreal ? 0x0000ffffu : 0u) |
+                             (c + 1 >= nreal ? 0xffff0000u : 0u);
+          ax[u] = (ax[u] & ~m) | (pad_x & m);
+          ay[u] = (ay[u] & ~m) | (pad_y & m);
+        }
+      }
+      const uint32_t* abx = f[2];
+      const uint32_t* aby = f[3];
+      const uint32_t* den = f[4];
+      __nv_bfloat162 num[U], t[U];
+      uint32_t need[U];
+      bool divide = false;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        num[u] = __hadd2_rn(
+            __hmul2_rn(__hsub2_rn(p2, bf2(ax[u])), bf2(abx[u])),
+            __hmul2_rn(__hsub2_rn(q2, bf2(ay[u])), bf2(aby[u])));
+        t[u] = __hgt2(num[u], zero2);        // 1 if num > 0, else 0
+        // per half: not num <= 0 and not num >= den (NaN included)
+        need[u] = __hgtu2_mask(num[u], zero2) &
+                  __hltu2_mask(num[u], bf2(den[u]));
+        divide |= need[u] != 0u;
+      }
+      if (divide) {          // both halves divide; the mask keeps the needed
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const __nv_bfloat162 d = bf2(den[u]);
+          const __nv_bfloat162 q = __hmin2(__hmax2(__halves2bfloat162(
+              __hdiv(__low2bfloat16(num[u]), __low2bfloat16(d)),
+              __hdiv(__high2bfloat16(num[u]), __high2bfloat16(d))), zero2),
+              one2);
+          t[u] = bf2((bits2(t[u]) & ~need[u]) | (bits2(q) & need[u]));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const __nv_bfloat162 dx = __hsub2_rn(
+            p2, __hadd2_rn(bf2(ax[u]), __hmul2_rn(t[u], bf2(abx[u]))));
+        const __nv_bfloat162 dy = __hsub2_rn(
+            q2, __hadd2_rn(bf2(ay[u]), __hmul2_rn(t[u], bf2(aby[u]))));
+        low = __hmin2(low, __hadd2_rn(__hmul2_rn(dx, dx),
+                                      __hmul2_rn(dy, dy)));
+      }
+    }
+    const bool hit = __low2float(low) <= thr || __high2float(low) <= thr;
+    if (__any_sync(kAll, hit)) return w0 / kWords;
+  }
+  return -1;
+}
+
 // The order in which the persistent CTAs take chunks, _chunk_order's: a
 // stable sort of the chunks by descending hit count, as ranks. Chunk i
 // goes to position #{j : nhits[j] > nhits[i]} + #{j < i : nhits[j] ==
@@ -554,9 +725,14 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
         for (int sl = 0; sl < kNsub; ++sl) {
           if (!((vote >> sl) & 1u)) continue;      // warp-uniform
           if constexpr (kGated<ARM>) {
-            const int grp = mma_gate<ARM>(
-                reinterpret_cast<const uint32_t*>(st + kColBytes + kQuadBytes),
-                quad[sl], sl, px, py, r2, mx, lane);
+            const uint32_t* co =
+                reinterpret_cast<const uint32_t*>(st + kColBytes + kQuadBytes);
+            int grp;
+            if constexpr (ARM == kSubBf16) {
+              grp = bf16_gate(co, quad[sl], sl, px, py, radius, mx);
+            } else {
+              grp = mma_gate<ARM>(co, quad[sl], sl, px, py, r2, mx, lane);
+            }
             if (grp < 0) continue;
             if (grp == 0) first |= 1u << sl;
           }
@@ -653,18 +829,19 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
 
 }  // namespace
 
-// Launches the ring-fed sweep in arm `arm` (0 block, 1 sub, 3 mxu, 4
-// mxu_bf16) on `stream`: chunk_order_kernel writes into `order` ([nchunks
-// + 1] i32 scratch) the chunks heaviest first and a zeroed counter, which
-// the sweep's CTAs then take chunks from (the counter ends at nchunks +
-// the grid: one failed take per CTA); `table` is
-// seg_sweep [spad, 8]; `sub` (the slice quads, [nblocks, 16]) is read by
-// every arm but block, `coarse` (seg_coarse [nblocks, kCoWords]) and
-// `radius` by the mxu arms; gate_log (may be null; not block) receives per
-// (chunk, warp, hit slot) the slice votes (bits 0-3), the slices swept
-// exactly (4-7) and those whose gate passed in its first n-tile group
-// (8-11). Returns the launch's cudaError_t (0 = ok), -1 for an unknown
-// arm, -2 / -3 for a device index or an occupancy out of range.
+// Launches the ring-fed sweep in arm `arm` (0 block, 1 sub, 2 sub_bf16,
+// 3 mxu, 4 mxu_bf16) on `stream`: chunk_order_kernel writes into `order`
+// ([nchunks + 1] i32 scratch) the chunks heaviest first and a zeroed
+// counter, which the sweep's CTAs then take chunks from (the counter ends
+// at nchunks + the grid: one failed take per CTA); `table` is seg_sweep
+// [spad, 8]; `sub` (the slice quads, [nblocks, 16]) is read by every arm
+// but block, `coarse` (seg_coarse [nblocks, kCoWords]) and `radius` by the
+// gated arms (sub_bf16, mxu, mxu_bf16); gate_log (may be null; not block)
+// receives per (chunk, warp, hit slot) the slice votes (bits 0-3), the
+// slices swept exactly (4-7) and those whose gate passed in its first
+// group of columns (8-11). Returns the launch's cudaError_t (0 = ok), -1
+// for an unknown arm, -2 / -3 for a device index or an occupancy out of
+// range.
 extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
                                const int* nhits, int* order,
                                const float* table, const float* sub,
@@ -679,6 +856,7 @@ extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
   switch (arm) {
     case kBlock: return RTT_LAUNCH(kBlock);
     case kSubArm: return RTT_LAUNCH(kSubArm);
+    case kSubBf16: return RTT_LAUNCH(kSubBf16);
     case kMxu: return RTT_LAUNCH(kMxu);
     case kMxuBf16: return RTT_LAUNCH(kMxuBf16);
     default: return -1;
@@ -687,14 +865,20 @@ extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
 }
 
 // The launch shape of arm `arm` on the current device (see shape()): the
-// grid of a launch is min(nchunks, per_sm * sms).
+// grid of a launch is min(nchunks, per_sm * sms). `group`: the columns per
+// early-exit test of its gate (kGateCols).
 extern "C" int rtt_sweep_exact_shape(int arm, int* threads, int* smem,
-                                     int* per_sm, int* sms, int* depth) {
+                                     int* per_sm, int* sms, int* depth,
+                                     int* group) {
+#define RTT_SHAPE(A) \
+  (*group = kGateCols<A>, shape<A>(threads, smem, per_sm, sms, depth))
   switch (arm) {
-    case kBlock: return shape<kBlock>(threads, smem, per_sm, sms, depth);
-    case kSubArm: return shape<kSubArm>(threads, smem, per_sm, sms, depth);
-    case kMxu: return shape<kMxu>(threads, smem, per_sm, sms, depth);
-    case kMxuBf16: return shape<kMxuBf16>(threads, smem, per_sm, sms, depth);
+    case kBlock: return RTT_SHAPE(kBlock);
+    case kSubArm: return RTT_SHAPE(kSubArm);
+    case kSubBf16: return RTT_SHAPE(kSubBf16);
+    case kMxu: return RTT_SHAPE(kMxu);
+    case kMxuBf16: return RTT_SHAPE(kMxuBf16);
     default: return -1;
   }
+#undef RTT_SHAPE
 }

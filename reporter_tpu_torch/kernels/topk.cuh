@@ -1,5 +1,5 @@
 // The running top-K of one probe point, held in registers, shared by the
-// sweep kernels (sweep.cu, sweep_exact.cu).
+// five arms of the sweep kernel (sweep_exact.cu).
 //
 // Order: (d^2 ascending, edge id ascending). An edge already held keeps its
 // smallest d^2 and, at equal d^2, its smallest projection offset -- the

@@ -11,18 +11,18 @@ smallest edge id, the offset being that edge's smallest tied projection.
   per-block and per-128-column-slice bboxes and the per-column feature
   rows of the tensor-core coarse pass — byte-equal to the JAX package's
   pack — and the port's own tables: ``sweep``, the column side of the
-  exact geometry, [S_pad, 8] column by column (SW_*), and ``coarse``,
-  the feature rows rounded once to the tensor-core gate's operand types
-  and laid out as its fragments (CO_*).
+  exact geometry, [S_pad, 8] column by column (SW_*), and ``coarse``, the
+  gates' operands rounded once: the feature rows in the tensor-core
+  gate's operand types, laid out as its fragments, and the bf16 filter's
+  column side (CO_*).
 - ``_dense_plain`` is the full sweep without culling (the JAX package's
   ``_dense_jnp``), chunked over 128 points. The CPU path and the tests use
   it; ``chip_smoke.py`` holds the kernel against it on the card.
 - ``find_candidates_dense`` on a CUDA tensor runs the cull pre-pass
   (``_chunk_block_ids``, plain PyTorch) and then ``sweep_topk``, the
-  wrapper of the hand-written kernels, in one of five arms
-  (``SWEEP_ARMS``): the exact arms and the tensor-core arms in
-  ``kernels/sweep_exact.cu``, the bf16 filter arm in ``kernels/sweep.cu``.
-  All five return the same candidates.
+  wrapper of the hand-written kernel ``kernels/sweep_exact.cu``, in one
+  of its five arms (``SWEEP_ARMS``), each an instance of one ring-fed
+  kernel template. All five return the same candidates.
 - ``_coarse_bf16_gate`` and ``_coarse_mxu_gate`` are the plain versions of
   the two coarse arms' gate: per 32-point warp and hit 128-column slice,
   whether the exact pass runs. The card holds the kernel's decisions
@@ -75,31 +75,41 @@ _GATE_ROWS = 2048  # (warp, slice) pairs per step of the plain gates
 SPLIT_LEN = 256.0  # long-segment pre-split span
 SWEEP_K = 8       # the top-K width the kernel is built for
 
-# seg_coarse: the tensor-core gate's B operands, one row of CO_WORDS i32
-# words per 512-column block: seg_feat's eight rows per column, rounded
-# once on the host to each arm's operand type, laid out so a lane's B
-# fragment of an m16n8k8 is one shared load, and the slice centres.
+# seg_coarse: the gates' operands, one row of CO_WORDS i32 words per
+# 512-column block, rounded once on the host. For the tensor-core gate,
+# seg_feat's eight rows per column in each arm's operand type, laid out
+# so a lane's B fragment of an m16n8k8 is one shared load, and the slice
+# centres; for the bf16 filter, its column side.
 #   [CO_TF32, CO_CTR)  tf32 (f32 bits rounded as cvt.rna.tf32 does: to
 #                      nearest, ties away from zero), column c at words
 #                      8c..8c+7 in k order _CO_TF32_K: lane t reads k = t,
 #                      t + 4 as one 8-byte pair;
 #   [CO_CTR, CO_BF16)  per slice (cx, cy) f32: rows SF_CX/SF_CY at the
 #                      slice's first column;
-#   [CO_BF16, CO_WORDS) bf16 (round to nearest even), column c at words
+#   [CO_BF16, CO_FLT)  bf16 (round to nearest even), column c at words
 #                      CO_BF16 + 4c + t, each k = 2t in the low half and
-#                      2t + 1 in the high half.
-# The mxu arm stages words [CO_TF32, CO_BF16), mxu_bf16 [CO_CTR,
-# CO_WORDS): one contiguous copy each (kernels/sweep_exact.cu).
+#                      2t + 1 in the high half;
+#   [CO_FLT, CO_FLT_COLS) per slice its number of real columns (i32);
+#   [CO_FLT_COLS, CO_WORDS) the bf16 filter's column side (FL_* fields,
+#                      _filter_table): field f of columns 2p, 2p + 1 (low,
+#                      high half) at word CO_FLT_COLS + f * 256 + p.
+# The mxu arm stages words [CO_TF32, CO_BF16), mxu_bf16 [CO_CTR, CO_FLT),
+# sub_bf16 [CO_FLT, CO_WORDS): one contiguous copy each
+# (kernels/sweep_exact.cu).
 CO_TF32 = 0
 CO_CTR = CO_TF32 + SF_NCOMP * _SBLK
 CO_BF16 = CO_CTR + 2 * (_SBLK // _SUB)
-CO_WORDS = CO_BF16 + SF_NCOMP // 2 * _SBLK
+CO_FLT = CO_BF16 + SF_NCOMP // 2 * _SBLK
+CO_FLT_COLS = CO_FLT + _SBLK // _SUB
+FL_AX, FL_AY, FL_ABX, FL_ABY, FL_DEN = range(5)
+FL_NCOMP = 5
+CO_WORDS = CO_FLT_COLS + FL_NCOMP * _SBLK // 2
 _CO_TF32_K = (0, 4, 1, 5, 2, 6, 3, 7)
 
 # The sweep's arms: the whole-block arm, the exact two-level arm, the bf16
-# coarse filter (kernels/sweep.cu) and the tensor-core coarse pass with
-# tf32 or bf16 operands. Every arm but the bf16 filter is an instance of
-# kernels/sweep_exact.cu, whose launch code is the index here.
+# coarse filter and the tensor-core coarse pass with tf32 or bf16
+# operands, each an instance of kernels/sweep_exact.cu whose launch code
+# is its index here.
 SWEEP_ARMS = ("block", "sub", "sub_bf16", "mxu", "mxu_bf16")
 
 # Launches of the CUDA sweep on the main path, per arm. sweep_topk adds one
@@ -273,7 +283,9 @@ def build_seg_pack(seg_a: np.ndarray, seg_b: np.ndarray, seg_edge: np.ndarray,
     feat[SF_CY] = c64[:, 1]
     return SegPack(pack=pack, bbox=bbox, sub=sub, feat=feat,
                    sweep=_sweep_table(pack),
-                   coarse=_coarse_table(feat, centers, nblocks))
+                   coarse=np.ascontiguousarray(np.concatenate(
+                       [_coarse_table(feat, centers, nblocks),
+                        _filter_table(pack, quads, s, nblocks)], axis=1)))
 
 
 def _sweep_table(pack: np.ndarray) -> np.ndarray:
@@ -289,18 +301,29 @@ def _sweep_table(pack: np.ndarray) -> np.ndarray:
         axis=1), dtype=np.float32)
 
 
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 → the bits (u16) of its bf16 rounding to nearest even, as
+    __float2bfloat16_rn and torch's cast give for every non-NaN value."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))
+            >> np.uint32(16)).astype(np.uint16)
+
+
+def _bf16_value(bits: np.ndarray) -> np.ndarray:
+    """bf16 bits (u16) → their value as f32 (exact)."""
+    return (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
 def _coarse_table(feat: np.ndarray, centers: np.ndarray,
                   nblocks: int) -> np.ndarray:
-    """seg_coarse [nblocks, words] i32 (CO_* at 512-column blocks) from the
-    feat rows and the slice centres ([nslices, 2] f32): the tf32 words
-    equal _tf32_rna(feat) and the bf16 halves feat.to(torch.bfloat16), bit
-    for bit (a NaN, in the centre rows of an all-padding slice, becomes
-    the canonical 0x7fc0)."""
+    """seg_coarse's words [CO_TF32, CO_FLT) per block ([nblocks, words]
+    i32) from the feat rows and the slice centres ([nslices, 2] f32): the
+    tf32 words equal _tf32_rna(feat) and the bf16 halves
+    feat.to(torch.bfloat16), bit for bit (a NaN, in the centre rows of an
+    all-padding slice, becomes the canonical 0x7fc0)."""
     bits = np.ascontiguousarray(feat).view(np.int32)             # [8, S]
     tf32 = (bits + np.int32(0x1000)) & np.int32(-0x2000)
-    u = bits.view(np.uint32)
-    bf16 = ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))
-            >> np.uint32(16)).astype(np.uint16)
+    bf16 = _bf16_bits(feat)
     bf16[np.isnan(feat)] = 0x7FC0
 
     def cols(rows):                      # [k, S] → per block, column-major
@@ -311,6 +334,61 @@ def _coarse_table(feat: np.ndarray, centers: np.ndarray,
          np.ascontiguousarray(centers, np.float32).reshape(nblocks, -1)
          .view(np.int32),
          cols(bf16).view(np.int32)], axis=1))
+
+
+def _filter_table(pack: np.ndarray, quads: np.ndarray, s: int,
+                  nblocks: int) -> np.ndarray:
+    """seg_coarse's words [CO_FLT, CO_WORDS) per block ([nblocks, words]
+    i32): the bf16 filter's column side, which the plain version
+    (_bf16_coarse_d2) computes per slice and the JAX kernel per grid step
+    (:584-597), rounded once here. Per column (FL_*): its endpoints
+    recentred on the slice centre, then bf16 (axl, ayl); the bf16
+    differences to the far endpoint (abx, aby); den = max(abx² + aby²,
+    bf16(1e-12)). Each bf16 operation is done in f32 and rounded to bf16,
+    which equals the bf16 operation (f32's 24 significand bits are at
+    least 2 * 8 + 2).
+
+    The plain version first clamps every endpoint into the slice's box
+    dilated by ~radius. A real column's endpoints lie in the box, so the
+    clamp leaves them alone at every radius: checked here at the smallest
+    dilation (radius 0, 0.5 m), from which the box only grows. Padding
+    columns (zero endpoints) do clamp, to a point that depends on the
+    radius: they hold (0, 0, 0, 0, bf16(1e-12)) here, and the kernel puts
+    its own clamp of (0, 0) in for the endpoint from column nreal of the
+    slice on (the CO_FLT words; abx, aby and den need nothing, since the
+    clamped endpoints coincide)."""
+    spad = pack.shape[1]
+    subw = spad // len(quads)
+    real = np.arange(spad) < s
+    q = np.repeat(quads, subw, axis=0)                           # [S, 4]
+    half = np.float32(0.5)
+    with np.errstate(invalid="ignore"):     # NaN quads: all-padding slices
+        c = np.stack([(q[:, 0] + q[:, 2]) * half, (q[:, 1] + q[:, 3]) * half])
+        e = np.stack([(q[:, 2] - q[:, 0]) * half + half,
+                      (q[:, 3] - q[:, 1]) * half + half])
+
+        def recentred(rows):                  # [2, S] f32 → bf16 bits
+            d = np.where(real, rows - c, np.float32(0.0))
+            if (np.abs(d) > e)[:, real].any():
+                raise ValueError("a segment endpoint lies outside its "
+                                 "slice's box: the bf16 filter's table "
+                                 "needs the clamp to leave it alone")
+            return _bf16_bits(d)
+
+        a = recentred(pack[[SP_AX, SP_AY]])
+        b = recentred(pack[[SP_BX, SP_BY]])
+    ab = _bf16_value(_bf16_bits(_bf16_value(b) - _bf16_value(a)))
+    sq = _bf16_value(_bf16_bits(ab * ab))
+    den = np.maximum(_bf16_value(_bf16_bits(sq[0] + sq[1])),
+                     _bf16_value(_bf16_bits(np.float32(1e-12))))
+    fields = np.concatenate([a, _bf16_bits(ab), _bf16_bits(den)[None]])
+    pairs = (fields[:, 0::2].astype(np.uint32)
+             | (fields[:, 1::2].astype(np.uint32) << np.uint32(16)))
+    pairs = pairs.reshape(FL_NCOMP, nblocks, -1).transpose(1, 0, 2)
+    nreal = np.clip(s - np.arange(len(quads)) * subw, 0, subw)
+    return np.ascontiguousarray(np.concatenate(
+        [nreal.reshape(nblocks, -1).astype(np.int32),
+         pairs.reshape(nblocks, -1).view(np.int32)], axis=1))
 
 
 def cull_radius(radius: float) -> float:
@@ -611,33 +689,24 @@ def sweep_arm(subcull: bool, lowp: str, mxu: bool) -> str:
     return "sub_bf16" if lowp == "bf16" else "sub"
 
 
-# the launch code of each arm of kernels/sweep_exact.cu (every arm but the
-# bf16 filter)
-_EXACT_CODE = {a: SWEEP_ARMS.index(a) for a in ("block", "sub", "mxu",
-                                                 "mxu_bf16")}
-
-
 def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
-               pack: torch.Tensor, sub: "torch.Tensor | None",
+               sweep: torch.Tensor, sub: "torch.Tensor | None",
                coarse: "torch.Tensor | None", radius: float, k: int,
-               arm: str, gate_log: "torch.Tensor | None" = None,
-               sweep: "torch.Tensor | None" = None):
-    """Wrapper of the CUDA sweep kernels over the chunks of ``pts`` and
-    their hit lists (``ids``, ``nhits``), in arm ``arm`` of SWEEP_ARMS.
-    Every arm but "sub_bf16" runs kernels/sweep_exact.cu and reads the
-    ``sweep`` table (seg_sweep): "block" alone, "sub" also ``sub``
-    (per-slice culling), the "mxu" arms also ``coarse`` (seg_coarse, the
-    tensor-core gate's operands). Its persistent CTAs take chunks from a
-    counter in the order _chunk_order(nhits) gives (heaviest first), which
-    a kernel of the same call computes on the card. "sub_bf16" runs
-    kernels/sweep.cu, one 256-thread block per chunk, reading ``pack`` and
-    ``sub``.
+               arm: str, gate_log: "torch.Tensor | None" = None):
+    """Wrapper of the CUDA sweep kernel (kernels/sweep_exact.cu) over the
+    chunks of ``pts`` and their hit lists (``ids``, ``nhits``), in arm
+    ``arm`` of SWEEP_ARMS. Every arm reads the ``sweep`` table (seg_sweep):
+    "block" alone, "sub" also ``sub`` (per-slice culling), the gated arms
+    ("sub_bf16", "mxu", "mxu_bf16") also ``coarse`` (seg_coarse, their
+    gates' operands). Its persistent CTAs take chunks from a counter in
+    the order _chunk_order(nhits) gives (heaviest first), which a kernel
+    of the same call computes on the card.
     → (edge i32, offset f32, dist f32), each [npad, k].
 
     ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]; not for "block"),
     when given, receives each warp's slice decisions (decode_gate_log) for
-    a check against the plain vote and gates; the "mxu" arms also set bit
-    8 + s where slice s's gate passed in its first group of n-tiles.
+    a check against the plain vote and gates; the gated arms also set bit
+    8 + s where slice s's gate passed in its first group of columns.
     Raises on anything the kernel does not take, or if the launch
     fails."""
     from reporter_tpu_torch.kernels import build
@@ -653,17 +722,15 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     if arm == "block" and gate_log is not None:
         raise ValueError("the block arm sweeps every column: it keeps no "
                          "gate log")
-    spad = pack.shape[1]
+    spad = -1 if sweep is None else sweep.shape[0]
     nblocks = spad // _SBLK
-    checks = [(pts, torch.float32, (npad, 2)),
+    checks = [(sweep, torch.float32, (spad, SW_NCOMP)),
+              (pts, torch.float32, (npad, 2)),
               (ids, torch.int32, (nchunks, nblocks)),
-              (nhits, torch.int32, (nchunks,)),
-              (pack, torch.float32, (SP_NCOMP, spad))]
+              (nhits, torch.int32, (nchunks,))]
     if arm != "block":
         checks.append((sub, torch.float32, (nblocks, (_SBLK // _SUB) * 4)))
-    if arm in _EXACT_CODE:
-        checks.append((sweep, torch.float32, (spad, SW_NCOMP)))
-    if arm.startswith("mxu"):
+    if arm not in ("block", "sub"):
         checks.append((coarse, torch.int32, (nblocks, CO_WORDS)))
     if gate_log is not None:
         checks.append((gate_log, torch.int32, (nchunks, _P // _WARP, nblocks)))
@@ -675,23 +742,19 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
             raise ValueError(f"sweep_topk ({arm}): expected a contiguous "
                              f"CUDA {dtype} tensor of shape {shape}, got {got}")
     if spad % _SBLK:
-        raise ValueError(f"pack width {spad} is not a multiple of {_SBLK}")
+        raise ValueError(f"seg_sweep's {spad} columns are not whole "
+                         f"{_SBLK}-column blocks")
     edge = torch.empty((npad, k), dtype=torch.int32, device=pts.device)
     off = torch.empty((npad, k), dtype=torch.float32, device=pts.device)
     dist = torch.empty((npad, k), dtype=torch.float32, device=pts.device)
     r2 = float(radius) * float(radius)
     rc = cull_radius(radius)
-    if arm in _EXACT_CODE:
-        order = torch.empty(nchunks + 1, dtype=torch.int32, device=pts.device)
-        build.launch_sweep_exact(
-            pts, ids, nhits, order, sweep, sub if arm != "block" else None,
-            coarse if arm.startswith("mxu") else None, _EXACT_CODE[arm],
-            nchunks, nblocks, r2, rc * rc, float(radius), edge, off, dist,
-            gate_log)
-    else:
-        build.launch_sweep_bf16(pts, ids, nhits, pack, sub, nchunks, nblocks,
-                                spad, r2, rc * rc, float(radius), edge, off,
-                                dist, gate_log)
+    order = torch.empty(nchunks + 1, dtype=torch.int32, device=pts.device)
+    build.launch_sweep_exact(
+        pts, ids, nhits, order, sweep, sub if arm != "block" else None,
+        coarse if arm not in ("block", "sub") else None,
+        SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc, float(radius),
+        edge, off, dist, gate_log)
     SWEEP_LAUNCHES[arm] += 1
     return edge, off, dist
 
@@ -704,8 +767,8 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
 
     seg_pack: (pack, bbox[, sub[, feat[, sweep[, coarse]]]]) tensors on
     the points' device (a SegPack's fields, in order); without ``sub`` the
-    whole-block arm runs, and on a CUDA tensor every arm but the bf16
-    filter needs ``sweep`` and the tensor-core arms ``coarse``.
+    whole-block arm runs, and on a CUDA tensor every arm needs ``sweep``
+    and the gated arms (the bf16 filter, the tensor-core pass) ``coarse``.
     ``valid`` (bool [N]) marks real points; the others still get (ignored)
     rows but take no part in the culling. ``lowp="bf16"`` adds the bf16
     coarse filter to the two-level arm; ``mxu`` the tensor-core coarse
@@ -739,12 +802,10 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
         ids, nhits = _chunk_block_ids(pts, val, bbox, radius, nchunks)
         arm = sweep_arm(use_sub, lowp, mxu)
         edge, off, dist = sweep_topk(
-            pts, ids, nhits, pack.contiguous(),
+            pts, ids, nhits, None if sweep is None else sweep.contiguous(),
             sub.contiguous() if use_sub else None,
-            coarse.contiguous() if mxu and coarse is not None else None,
-            radius, max_candidates, arm,
-            sweep=sweep.contiguous() if arm in _EXACT_CODE
-            and sweep is not None else None)
+            None if coarse is None else coarse.contiguous(),
+            radius, max_candidates, arm)
         edge, off, dist = edge[:n], off[:n], dist[:n]
     elif points.device.type == "cpu":
         edge, off, dist = _dense_plain(points, pack, radius, max_candidates)

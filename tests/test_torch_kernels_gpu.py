@@ -1,6 +1,6 @@
-"""The CUDA sweep kernels (reporter_tpu_torch/kernels/sweep_exact.cu for
-the exact and the tensor-core arms, sweep.cu for the bf16 filter arm)
-against their plain PyTorch versions, on the card. Candidates, every arm: tolerance 0
+"""The CUDA sweep kernel (reporter_tpu_torch/kernels/sweep_exact.cu, its
+five arms) against its plain PyTorch versions, on the card. Candidates,
+every arm: tolerance 0
 (the same f32 arithmetic, one rounding per operation). The bf16 filter's
 gate decisions: tolerance 0 (every bf16 operation is correctly rounded on
 both sides). The tensor-core gate: a decision may differ from the plain
@@ -84,16 +84,15 @@ def _kernel_gate(tab, pts, valid, arm):
                                      nchunks)
     log = torch.zeros((nchunks, dc._P // 32, ids.shape[1]), dtype=torch.int32,
                       device=pts.device)
-    dc.sweep_topk(fpts, ids, nhits, tab["seg_pack"], tab["seg_sub"],
-                  tab["seg_coarse"], 50.0, 8, arm, gate_log=log,
-                  sweep=tab["seg_sweep"])
+    dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                  tab["seg_coarse"], 50.0, 8, arm, gate_log=log)
     torch.cuda.synchronize()
-    return fpts, ids, nhits, dc.decode_gate_log(log)
+    return fpts, ids, nhits, dc.decode_gate_log(log), log
 
 
 def test_bf16_gate_equals_plain(sf):
     tab, pts, valid = sf
-    fpts, ids, nhits, got = _kernel_gate(tab, pts, valid, "sub_bf16")
+    fpts, ids, nhits, got, _ = _kernel_gate(tab, pts, valid, "sub_bf16")
     want = dc._coarse_bf16_gate(fpts, ids, nhits, tab["seg_pack"],
                                 tab["seg_sub"], 50.0)
     assert torch.equal(got.vote, want.vote)
@@ -128,7 +127,7 @@ def rows(cuda):
 @pytest.mark.parametrize("arm", ["mxu", "mxu_bf16"])
 def test_tensor_core_gate_agrees_with_plain(request, tile, arm):
     tab, pts, valid = request.getfixturevalue(tile)
-    fpts, ids, nhits, got = _kernel_gate(tab, pts, valid, arm)
+    fpts, ids, nhits, got, _ = _kernel_gate(tab, pts, valid, arm)
     want = dc._coarse_mxu_gate(fpts, ids, nhits, tab["seg_sub"],
                                tab["seg_feat"], 50.0,
                                "bf16" if arm == "mxu_bf16" else "off")
@@ -140,37 +139,89 @@ def test_tensor_core_gate_agrees_with_plain(request, tile, arm):
         assert int(want.gate.sum()) < int(want.vote.sum())
 
 
+@pytest.fixture(scope="module")
+def padded(cuda):
+    """The parallel streets cut to 3150 segments, so one slice holds 78
+    real columns and 50 padding ones, and 512 points over that slice's
+    box and 45 m around it: the bf16 filter's gate of the slice takes in
+    the padding columns' clamped zero endpoints, as the plain gate does."""
+    x = np.arange(0.0, 4000.0, 10.0)
+    y = np.arange(0.0, 4000.0, 500.0)
+    a = np.stack(np.meshgrid(x, y), -1).reshape(-1, 2).astype(np.float32)
+    a = a[:3150]
+    b = (a + np.float32([8.0, 0.0])).astype(np.float32)
+    n = len(a)
+    sp = dc.build_seg_pack(a, b, np.arange(n, dtype=np.int32),
+                           np.zeros(n, np.float32), np.full(n, 8.0, np.float32))
+    tab = {k: torch.from_numpy(v).to(cuda) for k, v in
+           zip(("seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
+                "seg_coarse"), sp)}
+    quad = sp.sub.reshape(-1, 4)[n // dc._SUB]
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(quad[:2] - 45.0, quad[2:] + 45.0, (512, 2))
+    pts = torch.from_numpy(pts.astype(np.float32)).to(cuda)
+    return tab, pts, torch.ones(len(pts), dtype=torch.bool, device=cuda)
+
+
+@pytest.mark.parametrize("tile", ["rows", "padded"])
+def test_bf16_gate_culls_and_equals_plain(request, tile):
+    """The bf16 filter's votes and gates equal the plain ones (tolerance
+    0) where it culls (parallel streets) and on a slice of padding
+    columns; its first-group passes are among its gates; its candidates
+    equal _dense_plain."""
+    tab, pts, valid = request.getfixturevalue(tile)
+    fpts, ids, nhits, got, log = _kernel_gate(tab, pts, valid, "sub_bf16")
+    want = dc._coarse_bf16_gate(fpts, ids, nhits, tab["seg_pack"],
+                                tab["seg_sub"], 50.0)
+    assert torch.equal(got.vote, want.vote)
+    assert torch.equal(got.gate, want.gate)
+    first = dc.decode_gate_log(log >> 8).vote
+    assert not (first & ~got.gate).any()
+    if tile == "rows":
+        assert int(want.gate.sum()) < int(want.vote.sum())
+    cand = dc.find_candidates_dense(
+        pts, tuple(tab[k] for k in ("seg_pack", "seg_bbox", "seg_sub",
+                                    "seg_feat", "seg_sweep", "seg_coarse")),
+        50.0, 8, lowp="bf16")
+    ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
+    for g, r in zip((cand.edge, cand.offset, cand.dist), ref):
+        assert torch.equal(g, r)
+
+
 def test_sweep_wrapper_rejects_bad_input(cuda):
     pts = torch.zeros((256, 2), device=cuda)
     ids = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     nhits = torch.zeros(1, dtype=torch.int32, device=cuda)
-    pack = torch.zeros((8, 512), device=cuda)
     sub = torch.zeros((1, 16), device=cuda)
     sweep = torch.zeros((512, 8), device=cuda)
     coarse = torch.zeros((1, dc.CO_WORDS), dtype=torch.int32, device=cuda)
     log = torch.zeros((1, 8, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        dc.sweep_topk(pts.cpu(), ids, nhits, pack, None, None, 50.0, 8,
-                      "block", sweep=sweep)
+        dc.sweep_topk(pts.cpu(), ids, nhits, sweep, None, None, 50.0, 8,
+                      "block")
     with pytest.raises(ValueError):
-        dc.sweep_topk(pts, ids, nhits, pack, None, None, 50.0, 4, "block",
-                      sweep=sweep)
+        dc.sweep_topk(pts, ids, nhits, sweep, None, None, 50.0, 4, "block")
     with pytest.raises(ValueError):      # the mxu arm without seg_coarse
-        dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "mxu",
-                      sweep=sweep)
+        dc.sweep_topk(pts, ids, nhits, sweep, sub, None, 50.0, 8, "mxu")
+    with pytest.raises(ValueError):      # the bf16 filter without seg_coarse
+        dc.sweep_topk(pts, ids, nhits, sweep, sub, None, 50.0, 8,
+                      "sub_bf16")
     with pytest.raises(ValueError):      # seg_coarse as f32 words
-        dc.sweep_topk(pts, ids, nhits, pack, sub, coarse.float(), 50.0, 8,
-                      "mxu_bf16", sweep=sweep)
+        dc.sweep_topk(pts, ids, nhits, sweep, sub, coarse.float(), 50.0, 8,
+                      "mxu_bf16")
+    with pytest.raises(ValueError):      # seg_coarse of the old width
+        dc.sweep_topk(pts, ids, nhits, sweep, sub, coarse[:, :dc.CO_FLT],
+                      50.0, 8, "sub_bf16")
     with pytest.raises(ValueError):      # the mxu arm without seg_sweep
-        dc.sweep_topk(pts, ids, nhits, pack, sub, coarse, 50.0, 8, "mxu")
+        dc.sweep_topk(pts, ids, nhits, None, sub, coarse, 50.0, 8, "mxu")
     with pytest.raises(ValueError):      # an exact arm without seg_sweep
-        dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "sub")
+        dc.sweep_topk(pts, ids, nhits, None, sub, None, 50.0, 8, "sub")
     with pytest.raises(ValueError):      # seg_sweep laid out row by row
-        dc.sweep_topk(pts, ids, nhits, pack, sub, None, 50.0, 8, "sub",
-                      sweep=sweep.reshape(8, 512))
+        dc.sweep_topk(pts, ids, nhits, sweep.reshape(8, 512), sub, None,
+                      50.0, 8, "sub")
     with pytest.raises(ValueError):      # the block arm keeps no gate log
-        dc.sweep_topk(pts, ids, nhits, pack, None, None, 50.0, 8, "block",
-                      gate_log=log, sweep=sweep)
+        dc.sweep_topk(pts, ids, nhits, sweep, None, None, 50.0, 8, "block",
+                      gate_log=log)
 
 
 @pytest.mark.parametrize("n", [1, 300, 2049])
@@ -191,11 +242,11 @@ def test_chunk_order_kernel_equals_plain(sf_tile, n):
     out = [torch.empty((n * dc._P, 8), dtype=dt, device="cuda")
            for dt in (torch.int32, torch.float32, torch.float32)]
     build.launch_sweep_exact(pts, ids, nhits, order, tab["seg_sweep"], None,
-                             None, dc._EXACT_CODE["block"], n, nblocks,
+                             None, dc.SWEEP_ARMS.index("block"), n, nblocks,
                              2500.0, 2500.0, 50.0, *out)
     torch.cuda.synchronize()
     assert torch.equal(order[:n], dc._chunk_order(nhits))
-    sh = build.exact_shape(dc._EXACT_CODE["block"])
+    sh = build.exact_shape(dc.SWEEP_ARMS.index("block"))
     assert int(order[n]) == n + min(n, sh["ctas_per_sm"] * sh["sms"])
 
 
@@ -235,15 +286,17 @@ def _exact_points(ts, case):
 
 @pytest.mark.parametrize("case", ["ring", "uneven", "single", "partial",
                                   "ties"])
-@pytest.mark.parametrize("arm", ["block", "sub", "mxu", "mxu_bf16"])
+@pytest.mark.parametrize("arm", ["block", "sub", "sub_bf16", "mxu",
+                                 "mxu_bf16"])
 def test_exact_arm_cases(sf_tile, arm, case):
     """The ring-fed arms of sweep_exact.cu, bit-equal to _dense_plain where
     their design could go wrong: hit lists longer than the ring, chunks of
     very different weight, one chunk, a partial last chunk, d = 0 ties and
     radius-boundary points. For the others than block, the kernel's votes
-    equal the plain vote; sub's gate is its vote, the tensor-core arms'
-    differs from _coarse_mxu_gate only within GATE_REL_TOL of the
-    threshold."""
+    equal the plain vote; sub's gate is its vote, the bf16 filter's equals
+    _coarse_bf16_gate, the tensor-core arms' differs from _coarse_mxu_gate
+    only within GATE_REL_TOL of the threshold; a gated arm's first-group
+    passes are among its gates."""
     ts, tab = sf_tile
     pts = torch.from_numpy(_exact_points(ts, case)).cuda()
     n = len(pts)
@@ -262,9 +315,8 @@ def test_exact_arm_cases(sf_tile, arm, case):
     log = None if arm == "block" else torch.zeros(
         (nchunks, dc._P // 32, nblocks), dtype=torch.int32, device=pts.device)
     before = dc.SWEEP_LAUNCHES[arm]
-    got = dc.sweep_topk(fpts, ids, nhits, tab["seg_pack"], tab["seg_sub"],
-                        tab["seg_coarse"], 50.0, 8, arm, gate_log=log,
-                        sweep=tab["seg_sweep"])
+    got = dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                        tab["seg_coarse"], 50.0, 8, arm, gate_log=log)
     ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
     torch.cuda.synchronize()
     assert dc.SWEEP_LAUNCHES[arm] == before + 1
@@ -279,9 +331,16 @@ def test_exact_arm_cases(sf_tile, arm, case):
         assert torch.equal(kg.vote, want)
         if arm == "sub":
             assert torch.equal(kg.gate, want)
+        elif arm == "sub_bf16":
+            pg = dc._coarse_bf16_gate(fpts, ids, nhits, tab["seg_pack"],
+                                      tab["seg_sub"], 50.0)
+            assert torch.equal(kg.gate, pg.gate)
         else:
             pg = dc._coarse_mxu_gate(fpts, ids, nhits, tab["seg_sub"],
                                      tab["seg_feat"], 50.0,
                                      "bf16" if arm == "mxu_bf16" else "off")
             near = (pg.cmin - pg.thr).abs() <= GATE_REL_TOL * pg.thr
             assert not ((kg.gate != pg.gate) & ~near).any()
+        if arm != "sub":
+            first = dc.decode_gate_log(log >> 8).vote
+            assert not (first & ~kg.gate).any()

@@ -79,7 +79,7 @@ def test_coarse_table_equals_rounded_feat(request, tile):
     np.testing.assert_array_equal(    # word w of a column holds k = K[w]
         got[:, :, np.argsort(dc._CO_TF32_K)].reshape(-1, 8).T, tf)
     want = feat.to(torch.bfloat16)
-    got = np.ascontiguousarray(sp.coarse[:, dc.CO_BF16:]).view(
+    got = np.ascontiguousarray(sp.coarse[:, dc.CO_BF16:dc.CO_FLT]).view(
         np.uint16).reshape(-1, 8).T                              # [8, S]
     got_f = torch.from_numpy(got.astype(np.int32) << 16).view(
         torch.float32).numpy()
