@@ -2,53 +2,80 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (reporter_tpu_torch) at full size and holds
-every CUDA kernel of it against its plain PyTorch version, in phases:
+Drives the port's main path (reporter_tpu_torch) at full size on two
+metros, the synthetic grid city "sf" and the irregular "organic" metro,
+and holds every CUDA kernel of it against its plain PyTorch version, and
+the native host half against its Python forms, in phases:
 
   1. device   — require CUDA; print the card's name and power limit;
-  2. build    — nvcc-build kernels/sweep_exact.cu (all five arms, one
-                source, sm_90a) into reporter_tpu_torch/_build/; the
-                ptxas figures of every kernel instance and each arm's
-                launch shape (threads, ring depth, dynamic shared memory,
-                CTAs per SM, SMs, grid);
-  3. tiles    — compile the synthetic "sf" metro (~5.3k directed edges);
-  4. kernel   — 1024 traces x 120 points padded to the 128 bucket
-                (131,072 points) through all five sweep arms (block, sub,
-                sub_bf16, mxu, mxu_bf16, each an instance of
-                sweep_exact.cu's kernel) and
-                through _dense_plain on the card: edge, offset and dist
-                must be bit-equal; CUDA-event times of each, as the median
-                of single launches (``ms``, the yardstick of every earlier
-                run) and per launch in a back-to-back run
-                (``ms_back_to_back``). The ring-fed arms' chunk order
-                kernel against _chunk_order. The work spread over chunks
-                and warps. The kernel's slice
-                votes against the plain vote; for the coarse arms, its gate
-                decisions (a debug launch) against the plain gates: equal
-                for the bf16 filter; for the tensor-core pass different
-                only within 1e-3 of the threshold; the vote and gate shares
-                of (warp, slice) pairs, and for each gated arm the share
-                of voted tiles whose gate passed in its first group of
-                columns (which must all have been swept);
-     gates    — the same checks on parallel streets 500 m apart, where
-                every coarse gate culls: the gate share must be below the
-                vote share, so a gate that admits every slice (a wrong
-                mma fragment layout) fails here;
+  2. build    — nvcc-build kernels/sweep_exact.cu once per top-K width of
+                SWEEP_KS (the five arms at that K, sm_90a; the five nvcc
+                started together) and g++-build the host library
+                (native/prepare.cc, walker.cc) into reporter_tpu_torch/
+                _build/, with the build times side by side; the ptxas
+                figures of every kernel instance and each arm's launch
+                shape at each K (threads, ring depth, dynamic shared
+                memory, CTAs per SM, SMs, grid);
+  3. tiles    — compile "sf" (~5.3k directed edges);
+  4. kernel   — on sf, 1024 traces x 120 points padded to the 128 bucket
+                (131,072 points) through all five sweep arms at K = 8
+                (block, sub, sub_bf16, mxu, mxu_bf16) and through
+                _dense_plain on the card: edge, offset and dist must be
+                bit-equal; CUDA-event times of each, as the median of
+                single launches (``ms``) and per launch in a back-to-back
+                run (``ms_back_to_back``); bound, vote and gate shares.
+                The chunk order kernel against _chunk_order; the work
+                spread; each coarse gate's decisions (a debug launch)
+                against its plain gate, equal for the bf16 filter, for the
+                tensor-core pass different only within 1e-3 of the
+                threshold, with the share of voted tiles whose gate passed
+                in its first group of columns;
+     kernel:k — every arm at every K of SWEEP_KS on the same 131,072
+                points (512 chunks, more than the persistent grid at every
+                K, so CTAs take second chunks), every arm equal to the
+                others on all of them and bit-equal to _dense_plain at that
+                K on 64 chunks: the first 32 and the last 32 the CTAs take
+                (heaviest first, so these are taken after a CTA's first
+                chunk); the same times and bounds;
+     gates    — parallel streets 500 m apart, where every coarse gate
+                culls: the gate share must be below the vote share;
   5. main     — with a fresh autotune cache, SegmentMatcher(ts) calibrates
                 every arm and serves the fastest (no calibration error
-                allowed); match_many on the 1024 traces with it and with a
-                matcher pinned to each arm (records all equal); one
+                allowed); match_many on the 1024 traces, BATCH_RUNS times
+                after a warm-up (median, min-max spread and stage
+                medians: prepare, dispatch, device, walk), then once with
+                a matcher pinned to each arm (records all equal); one
                 match(request). Each of these runs is its own launch
                 window (counts set to 0 just before, read just after): the
                 calibration must launch every arm, each served run only
-                the arm it serves;
-     breakdown — one slice's sweep per arm, Viterbi and pack timed alone
-                beside the calibration's per-arm times, and the device busy
-                share of one wire entry (torch.profiler);
+                the kernel instance it serves;
+     walk     — on the tuned batch, the C walk through match_many, the
+                Python walk (build_segments) and NativeWalker.walk of the
+                same decoded arrays must give equal records (to_json(),
+                tolerance 0), each walk timed; the C prepare against the
+                numpy form (bytes equal, timed); and, in 256-trace slices,
+                whether the harvest's walk overlaps the wait in .cpu();
+     main:k   — at each other K, a tuned matcher (calibration launches
+                every arm at that K) serves the 1024 traces (512 chunks of
+                the sweep), whose first 16 records equal the CPU matcher's
+                at that K;
+     breakdown — one slice's sweep per arm, Viterbi and pack timed alone,
+                and the device busy share of one wire entry
+                (torch.profiler);
      reference — golden fixture ids on the card, and card-vs-CPU records
                 on a small batch;
-  6. summary  — the kernels JSON line, the card line, and the final
-                {"ok": true, "device": {...}} line.
+  6. organic  — generate_city("organic") (seed 11, 62,757 directed edges),
+                compiled by the port (timed); its kernel phase (131,072
+                fleet points, every arm equal to the others, bit-equal to
+                _dense_plain on 64 chunks as in kernel:k, gate checks,
+                shares), gates line, main phase (tuned matcher, BATCH_RUNS
+                batches, records equal across it and five pinned
+                matchers), walk phase (the three walks and the prepares,
+                as on sf) and card-vs-CPU records on 32 traces, each line
+                tagged metro=organic;
+  7. summary  — the kernels JSON line (every arm at every K, the sources,
+                the host library among them), the card line, and the
+                final {"ok": true, "device": {...}} line.
 
 Any failed phase raises and the script exits non-zero without the final
 line. Every time printed carries the card name and power limit.
@@ -64,6 +91,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -79,6 +107,17 @@ SWEEP_OPS_PER_PAIR = 24       # f32 operations per exactly swept (point, column)
 BF16_OPS_PER_PAIR = 18        # the bf16 filter per pair: 17 bf16 operations + a min
 MMA_OPS_PER_PAIR = 16         # the tensor-core pass per pair: 8 multiply-adds
 N_TRACES, N_POINTS, BUCKET = 1024, 120, 128
+CHECK_CHUNKS = 64             # chunks held against _dense_plain where not
+#                               all are (the plain sweep is slow): 16,384 points
+BATCH_RUNS = 5                # timed match_many batches after the warm-up
+MAIN_K_CPU_TRACES = 16        # traces of the main path at the other K also
+#                               matched on the CPU
+REFERENCE_TRACES = 32         # traces matched on both the card and the CPU
+OVERLAP_SLICE = 256           # traces per slice of the overlap check
+SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
+           "reporter_tpu_torch/kernels/topk.cuh",
+           "reporter_tpu_torch/native/prepare.cc",
+           "reporter_tpu_torch/native/walker.cc")
 GATE_REL_TOL = 1e-3           # tensor-core vs plain gate: decisions may differ
 #                               only where the plain minimum is this close
 #                               (relative) to the threshold (summation order)
@@ -191,7 +230,7 @@ def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, coarse, radius,
     """The kernel's (warp, slice) vote and gate decisions (one debug
     launch) against the plain vote and gates; raises where they disagree
     beyond the stated tolerance. → (kernel decisions, plain gate or None,
-    fields to print)."""
+    fields to print, first-group passes or None)."""
     log = torch.zeros((ids.shape[0], dc._P // 32, ids.shape[1]),
                       dtype=torch.int32, device="cuda")
     dc.sweep_topk(fpts, ids, nhits, sweep, sub, coarse, radius, k, arm,
@@ -228,7 +267,8 @@ def kernel_gates(dc, arm, fpts, ids, nhits, pack, sub, feat, coarse, radius,
     return kg, pg, fields, first
 
 
-def order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k):
+def order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k,
+                metro):
     """The ring-fed call's chunk order kernel against its plain version,
     _chunk_order (tolerance 0), and the counter it zeroes: after the sweep
     it must hold nchunks + grid (each CTA fails one take)."""
@@ -240,18 +280,18 @@ def order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k):
     build.launch_sweep_exact(fpts, ids, nhits, order, sweep, sub, None,
                              dc.SWEEP_ARMS.index("sub"), nchunks, nblocks,
                              radius * radius, rc * rc, radius, *out)
-    sh = build.exact_shape(dc.SWEEP_ARMS.index("sub"))
+    sh = build.exact_shape(dc.SWEEP_ARMS.index("sub"), k)
     grid = min(nchunks, sh["ctas_per_sm"] * sh["sms"])
     equal = torch.equal(order[:nchunks], dc._chunk_order(nhits))
     counter = int(order[nchunks])
-    phase("kernel:order", card, chunks=nchunks, equal_to_plain=equal,
-          counter=counter, grid=grid)
+    phase("kernel:order", card, metro=metro, chunks=nchunks,
+          equal_to_plain=equal, counter=counter, grid=grid)
     if not equal or counter != nchunks + grid:
         raise SystemExit("the chunk order kernel differs from _chunk_order "
                          f"(equal {equal}) or its counter ended at {counter}")
 
 
-def spread_phase(card, dc, nhits, kg):
+def spread_phase(card, dc, nhits, kg, metro):
     """The work spread the exact kernel balances: hit blocks per chunk,
     and (from the sub arm's votes) voted (warp, slice) tiles per chunk
     and per (warp, hit block)."""
@@ -260,7 +300,7 @@ def spread_phase(card, dc, nhits, kg):
            < nhits[:, None])                             # [nc, slot]
     per_wb = kg.vote.sum(3).float()[hit[:, None, :].expand(
         -1, kg.vote.shape[1], -1)]
-    phase("kernel:spread", card, chunks=int(nhits.numel()),
+    phase("kernel:spread", card, metro=metro, chunks=int(nhits.numel()),
           hit_blocks_per_chunk={"max": int(nhits.max()),
                                 "mean": float(nhits.float().mean())},
           voted_tiles_per_chunk={"max": int(per_chunk.max()),
@@ -271,10 +311,27 @@ def spread_phase(card, dc, nhits, kg):
                                                            .float().mean())})
 
 
-def kernel_phase(card, tab, pts, radius, k, dc, build):
-    """Every arm against _dense_plain on the same points, its gate against
-    the plain gate, its time and its bound; the work spread.
-    → {arm: record}."""
+def check_rows(dc, nhits, n_chunks):
+    """Point rows of ``n_chunks`` chunks: the first half in point order and
+    the last half in the order the persistent CTAs take them
+    (_chunk_order, heaviest first): with more chunks than the grid, those
+    are taken by a CTA after its first. → (rows i64, chunk ids i64)."""
+    order = dc._chunk_order(nhits).long()
+    half = n_chunks // 2
+    chunks = torch.unique(torch.cat([
+        torch.arange(half, device="cuda"), order[-(n_chunks - half):]]))
+    rows = (chunks[:, None] * dc._P
+            + torch.arange(dc._P, device="cuda")[None, :]).reshape(-1)
+    return rows, chunks
+
+
+def kernel_phase(card, tab, pts, radius, k, dc, build, metro, tag="kernel",
+                 check_chunks=None, plain_reps=3):
+    """Every arm on the same points at top-K width k: equal to the first
+    arm on all of them and bit-equal to _dense_plain on all of them, or
+    on ``check_chunks`` chunks (check_rows); its gate against the plain
+    gate, its time and its bound; the chunk order and the work spread
+    (tag "kernel"). → {arm: record}."""
     n = pts.shape[0]
     valid = torch.ones(n, dtype=torch.bool, device="cuda")
     nchunks = n // dc._P
@@ -287,11 +344,19 @@ def kernel_phase(card, tab, pts, radius, k, dc, build):
     ids, nhits = prepass()
     pack, sub, feat = tab["seg_pack"], tab["seg_sub"], tab["seg_feat"]
     sweep, co_tab = tab["seg_sweep"], tab["seg_coarse"]
-    order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k)
-    ref = dc._dense_plain(pts, pack, radius, k)
+    if tag == "kernel":
+        order_phase(card, dc, build, fpts, ids, nhits, sweep, sub, radius, k,
+                    metro)
+    if check_chunks is None:
+        rows, chunks = torch.arange(n, device="cuda"), None
+    else:
+        rows, chunks = check_rows(dc, nhits, check_chunks)
+    check_n = int(rows.numel())
+    cpts = pts[rows]
+    ref = dc._dense_plain(cpts, pack, radius, k)
     torch.cuda.synchronize()
-    plain_ms = cuda_ms(lambda: dc._dense_plain(pts, pack, radius, k), reps=3,
-                       warmup=1)
+    plain_ms = cuda_ms(lambda: dc._dense_plain(cpts, pack, radius, k),
+                       reps=plain_reps, warmup=1 if plain_reps > 1 else 0)
     prepass_ms = cuda_ms(prepass, reps=20)
     nblocks = ids.shape[1]
     hit = torch.arange(nblocks, device="cuda")[None, :] < nhits[:, None]
@@ -302,22 +367,42 @@ def kernel_phase(card, tab, pts, radius, k, dc, build):
                 + n * k * 12)
     slices = int(nhits.sum()) * (dc._P // 32) * (dc._SBLK // dc._SUB)
     tile = 32 * dc._SUB                       # pairs of one (warp, slice)
-    arms = {}
+    arms, first_out = {}, None
     for arm in dc.SWEEP_ARMS:
         def run(a=arm):
             return dc.sweep_topk(fpts, ids, nhits, sweep, sub, co_tab,
                                  radius, k, a)
         got = run()
         torch.cuda.synchronize()
-        mism = {f: int((g != r).sum()) for f, g, r in
+        mism = {f: int((g[rows] != r).sum()) for f, g, r in
                 zip(("edge", "offset", "dist"), got, ref)}
-        err = max(float((got[1] - ref[1]).abs().max()),
-                  float((got[2] - ref[2]).abs().max()))
+        err = max(float((got[1][rows] - ref[1]).abs().max()),
+                  float((got[2][rows] - ref[2]).abs().max()))
         if any(mism.values()):
-            raise SystemExit(f"kernel arm {arm} disagrees with _dense_plain: {mism}")
+            raise SystemExit(f"{metro} K={k}: kernel arm {arm} disagrees "
+                             f"with _dense_plain: {mism}")
+        if first_out is None:
+            first_out = got
+        elif not all(torch.equal(g, f) for g, f in zip(got, first_out)):
+            raise SystemExit(f"{metro} K={k}: kernel arm {arm} differs from "
+                             f"arm {dc.SWEEP_ARMS[0]} on {n} points")
+        sh = build.exact_shape(dc.SWEEP_ARMS.index(arm), k)
+        grid = min(nchunks, sh["ctas_per_sm"] * sh["sms"])
         rec = {"mismatches": mism, "max_abs_err": err,
                "ms": cuda_ms(run, reps=20), "ms_back_to_back": launch_ms(run),
-               "plain_ms": plain_ms}
+               "plain_ms": plain_ms, "plain_points": check_n,
+               "chunks": nchunks, "grid": grid}
+        if chunks is not None:
+            # checked chunks a CTA takes after its first (order position
+            # at or past the grid)
+            pos = torch.empty(nchunks, dtype=torch.long, device="cuda")
+            pos[dc._chunk_order(nhits).long()] = torch.arange(
+                nchunks, device="cuda")
+            rec["checked_chunks_taken_later"] = int(
+                (pos[chunks] >= grid).sum())
+            if nchunks > grid and not rec["checked_chunks_taken_later"]:
+                raise SystemExit(f"{metro} K={k} {arm}: no checked chunk is "
+                                 "taken after a CTA's first")
         nbytes = io_bytes + n_used * dc.SP_NCOMP * dc._SBLK * 4
         if arm == "block":
             exact = int(nhits.sum()) * dc._SBLK * dc._P
@@ -326,8 +411,8 @@ def kernel_phase(card, tab, pts, radius, k, dc, build):
             kg, pg, fields, first = kernel_gates(
                 dc, arm, fpts, ids, nhits, pack, sub, feat, co_tab, radius,
                 k, sweep)
-            if arm == "sub":
-                spread_phase(card, dc, nhits, kg)
+            if arm == "sub" and tag == "kernel":
+                spread_phase(card, dc, nhits, kg, metro)
             nbytes += n_used * sub.shape[1] * 4
             exact = int(kg.gate.sum()) * tile
             coarse, coarse_rate = 0, None
@@ -342,7 +427,7 @@ def kernel_phase(card, tab, pts, radius, k, dc, build):
                 later = int((kg.gate & ~first).sum())
                 culled = int((kg.vote & ~kg.gate).sum())
                 group = build.exact_shape(
-                    dc.SWEEP_ARMS.index(arm))["gate_group"]
+                    dc.SWEEP_ARMS.index(arm), k)["gate_group"]
                 coarse = 32 * (int(first.sum()) * group + later * 2 * group
                                + culled * dc._SUB)
                 coarse_rate = {"sub_bf16": H100_BF16_FLOPS,
@@ -372,7 +457,8 @@ def kernel_phase(card, tab, pts, radius, k, dc, build):
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         arms[arm] = rec
-        phase(f"kernel:{arm}", card, points=n, prepass_ms=prepass_ms,
+        phase(tag if tag != "kernel" else f"kernel:{arm}", card, metro=metro,
+              arm=arm, k=k, points=n, prepass_ms=prepass_ms,
               mean_hit_blocks=float(nhits.float().mean()), **rec)
     return arms
 
@@ -425,92 +511,241 @@ def gates_phase(card, dc, radius, k):
           segments=len(a), arms=out)
 
 
-def main_phase(card, ts, fleet, dc, MatcherParams, SegmentMatcher, Trace):
-    """Construction (calibration), the tuned batch, one pinned matcher's
-    batch per arm and one request, each its own launch window.
-    → (tuned matcher, traces, records, launches by path, tuner report)."""
+class Windows:
+    """Launch windows of the main path: ``run(path, fn)`` sets every
+    instance's launch count to 0 just before fn() and reads them just
+    after; the counts are kept per path."""
+
+    def __init__(self, dc):
+        self.dc = dc
+        self.by_path: dict = {}
+
+    def run(self, path, fn):
+        for key in self.dc.SWEEP_LAUNCHES:
+            self.dc.SWEEP_LAUNCHES[key] = 0
+        out = fn()
+        counts = dict(self.dc.SWEEP_LAUNCHES)
+        self.by_path[path] = counts
+        return out, counts
+
+
+def only(counts, inst, what):
+    """The run launched instance ``inst`` (arm, K) and no other."""
+    if counts[inst] < 1 or any(n for i, n in counts.items() if i != inst):
+        raise SystemExit(f"{what} should launch {inst} and no other "
+                         f"instance: { {i: n for i, n in counts.items() if n} }")
+
+
+def json_records(recs):
+    return [[r.to_json() for r in x] for x in recs]
+
+
+def timed_batches(m, traces):
+    """A warm-up match_many, then BATCH_RUNS timed ones. → (the last
+    run's records, fields: the batch's median, min-max spread and stage
+    medians, in ms)."""
+    m.match_many(traces)
+    m.point_counts = dict.fromkeys(m.point_counts, 0)
+    walls, stages, first = [], {k: [] for k in m.stage_seconds}, None
+    for _ in range(BATCH_RUNS):
+        m.stage_seconds = dict.fromkeys(m.stage_seconds, 0.0)
+        t0 = time.perf_counter()
+        recs = m.match_many(traces)
+        walls.append(time.perf_counter() - t0)
+        for key, v in m.stage_seconds.items():
+            stages[key].append(v)
+        if first is None:
+            first = json_records(recs)
+    if json_records(recs) != first:
+        raise SystemExit("match_many gave different records on two runs")
+    med = statistics.median(walls)
+    probes = sum(len(t.xy) for t in traces)
+    pc = m.point_counts
+    return recs, {
+        "batches": BATCH_RUNS, "batch_ms_median": med * 1e3,
+        "batch_ms_min": min(walls) * 1e3, "batch_ms_max": max(walls) * 1e3,
+        "spread_pct_of_median": (max(walls) - min(walls)) / med * 100,
+        "probes_per_s": probes / med,
+        **{f"{key}_ms": statistics.median(v) * 1e3
+           for key, v in stages.items()},
+        "unmatched_share": pc["unmatched"] / max(pc["points"], 1)}
+
+
+def main_phase(card, ts, fleet, dc, win, metro, MatcherParams,
+               SegmentMatcher, Trace, request=True):
+    """Construction (calibration), the tuned batch timed BATCH_RUNS times,
+    one pinned matcher's batch per arm and one request, each its own
+    launch window. → (tuned matcher, traces, records, batch fields, tuner
+    report's per-arm ms)."""
     from reporter_tpu_torch.matcher.autotune import CAL_DISPATCHES
 
     traces = [Trace(uuid=p.uuid, xy=p.xy.astype(np.float32), times=p.times)
               for p in fleet]
-
-    def window(fn):
-        """fn() with every launch count set to 0 just before it and read
-        just after. → (fn's result, the counts)."""
-        for key in dc.SWEEP_LAUNCHES:
-            dc.SWEEP_LAUNCHES[key] = 0
-        out = fn()
-        return out, dict(dc.SWEEP_LAUNCHES)
-
-    def only(counts, arm, what):
-        if counts[arm] < 1 or any(n for a, n in counts.items() if a != arm):
-            raise SystemExit(f"{what} should launch {arm} and no other arm: "
-                             f"{counts}")
-
     t0 = time.perf_counter()
-    m, cal = window(lambda: SegmentMatcher(ts))
+    m, cal = win.run(f"{metro}:calibration", lambda: SegmentMatcher(ts))
     build_s = time.perf_counter() - t0
     rep = m.tuned_report
     cand_ms = {lab: c["device_ms_per_dispatch"]
                for lab, c in rep.get("candidates", {}).items()}
-    phase("autotune", card, plan=m.tuned_plan and m.tuned_plan.label,
+    phase("autotune", card, metro=metro,
+          plan=m.tuned_plan and m.tuned_plan.label,
           source=rep.get("source"), construct_s=build_s,
           calibration_seconds=rep.get("calibration_seconds"),
           calibration_dispatches=rep.get("calibration_dispatches"),
           candidate_ms=cand_ms, errors=rep.get("errors"),
-          calibration_launches=cal)
+          calibration_launches={a: n for (a, k), n in cal.items() if n})
     if rep.get("errors") or rep.get("source") != "measured" \
             or m.tuned_plan is None or len(cand_ms) != len(dc.SWEEP_ARMS):
         raise SystemExit(f"calibration did not measure every arm: {rep}")
-    # one warm-up and CAL_DISPATCHES timed launches of every arm
-    if any(n != CAL_DISPATCHES + 1 for n in cal.values()):
+    # one warm-up and CAL_DISPATCHES timed launches of every arm at K = 8
+    if any(n != (CAL_DISPATCHES + 1 if k == 8 else 0)
+           for (a, k), n in cal.items()):
         raise SystemExit(f"calibration launches: {cal}")
     tuned = PLAN_ARMS[m.tuned_plan.label.split("@")[0]]
     m.match_many(traces[:64])                     # warm the allocator
-    m.stage_seconds = dict.fromkeys(m.stage_seconds, 0.0)
-    m.point_counts = dict.fromkeys(m.point_counts, 0)
-    t0 = time.perf_counter()
-    recs, served = window(lambda: m.match_many(traces))
-    batch_s = time.perf_counter() - t0
-    only(served, tuned, "the tuned matcher's batch")
-    st, pc = dict(m.stage_seconds), dict(m.point_counts)
-    want = [[r.to_json() for r in x] for x in recs]
-    pinned_s, pinned = {}, {}
+    (recs, fields), served = win.run(f"{metro}:tuned_batch",
+                                     lambda: timed_batches(m, traces))
+    only(served, (tuned, 8), f"{metro}: the tuned matcher's batches")
+    want = json_records(recs)
+    pinned_ms = {}
     for arm, (levers, _) in ARMS.items():
-        pm, built = window(lambda lv=levers: SegmentMatcher(
-            ts, MatcherParams(sweep_autotune=False, **lv)))
+        pm, built = win.run(f"{metro}:pinned_build",
+                            lambda lv=levers: SegmentMatcher(
+                                ts, MatcherParams(sweep_autotune=False,
+                                                  **lv)))
         if any(built.values()) or pm.tuned_plan is not None:
             raise SystemExit(f"the matcher pinned to {arm} tuned: {built}")
         t0 = time.perf_counter()
-        got, pinned[arm] = window(lambda pm=pm: pm.match_many(traces))
-        pinned_s[arm] = time.perf_counter() - t0
-        only(pinned[arm], arm, f"the matcher pinned to {arm}")
-        if [[r.to_json() for r in x] for x in got] != want:
-            raise SystemExit(f"the matcher pinned to {arm} differs from the "
-                             "tuned matcher")
-    answer, req = window(lambda: m.match(fleet[0].to_report_json()))
-    only(req, tuned, "the request")
-    by_path = {a: {"calibration": cal[a], "tuned_batch": served[a],
-                   "pinned_batch": pinned[a][a], "request": req[a]}
-               for a in dc.SWEEP_ARMS}
-    n_rec = sum(len(r) for r in recs)
-    phase("main", card, traces=len(traces), probes=N_TRACES * N_POINTS,
-          tuned_arm=tuned,
-          probes_per_s=N_TRACES * N_POINTS / batch_s, batch_ms=batch_s * 1e3,
-          prepare_ms=st["prepare"] * 1e3, device_ms=st["device"] * 1e3,
-          walk_ms=st["walk"] * 1e3, records=n_rec,
-          unmatched_share=pc["unmatched"] / max(pc["points"], 1),
-          pinned_batch_ms={a: s * 1e3 for a, s in pinned_s.items()},
-          request_segments=len(answer["segments"]),
-          launches_by_path=by_path)
-    if not n_rec or not answer["segments"]:
+        got, counts = win.run(f"{metro}:pinned_batch:{arm}",
+                              lambda pm=pm: pm.match_many(traces))
+        pinned_ms[arm] = (time.perf_counter() - t0) * 1e3
+        only(counts, (arm, 8), f"{metro}: the matcher pinned to {arm}")
+        if json_records(got) != want:
+            raise SystemExit(f"{metro}: the matcher pinned to {arm} differs "
+                             "from the tuned matcher")
+    n_req = None
+    if request:
+        answer, req = win.run(f"{metro}:request",
+                              lambda: m.match(fleet[0].to_report_json()))
+        only(req, (tuned, 8), "the request")
+        n_req = len(answer["segments"])
+        if not n_req:
+            raise SystemExit("the request matched no segment")
+    n_rec = recs.n_records
+    phase("main", card, metro=metro, traces=len(traces),
+          probes=sum(len(t.xy) for t in traces), tuned_arm=tuned,
+          records=n_rec, pinned_batch_ms=pinned_ms,
+          request_segments=n_req, result=type(recs).__name__, **fields)
+    if not n_rec:
         raise SystemExit("main path produced no records")
-    for rs in recs:
-        for r in rs:
-            if not (np.isfinite(r.length) and np.isfinite(r.start_time)
-                    and np.isfinite(r.end_time)):
-                raise SystemExit(f"non-finite record {r}")
-    return m, traces, recs, by_path, cand_ms
+    c = recs.columns
+    if not (np.isfinite(c.length).all() and np.isfinite(c.start_time).all()
+            and np.isfinite(c.end_time).all()):
+        raise SystemExit(f"{metro}: non-finite record fields")
+    return m, traces, recs, fields, cand_ms
+
+
+def walk_phase(card, m, ts, traces, recs, fields, MatcherParams,
+               SegmentMatcher, metro):
+    """The three walks of the tuned batch (the C walk through match_many,
+    the Python walk, NativeWalker.walk of the same decoded arrays), equal
+    record for record; the C prepare against the numpy form; whether the
+    harvest's walk overlaps the main thread's wait in .cpu() in
+    OVERLAP_SLICE-trace slices."""
+    from reporter_tpu_torch.matcher import native_prepare
+    from reporter_tpu_torch.matcher.api import walk_python
+
+    decoded = m._decode_many(traces)
+    t0 = time.perf_counter()
+    py = walk_python(ts, traces, decoded, m._route_fn,
+                     m.params.backward_slack)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    direct = m._walk_decoded(traces, decoded)
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    want = json_records(recs)
+    equal = {"python_walk": json_records(py) == want,
+             "native_walker_walk": json_records(direct) == want}
+    work, sliced = m.plan_submit(traces)
+    xys = [work[w][2] for w in sliced[0][1]]
+    c_prep = native_prepare.prepare_slice(xys, sliced[0][0])
+    np_prep = native_prepare.prepare_slice_python(xys, sliced[0][0])
+    prep_equal = c_prep[0] == np_prep[0] and all(
+        a.tobytes() == b.tobytes() for a, b in zip(c_prep[1:], np_prep[1:])
+        if a is not None)
+    prep_ms = {name: 1e3 * statistics.median(
+        _seconds(lambda f=f: f(xys, sliced[0][0])) for _ in range(5))
+        for name, f in (("c", native_prepare.prepare_slice),
+                        ("numpy", native_prepare.prepare_slice_python))}
+    # the overlap: slices of OVERLAP_SLICE traces, so the worker walks
+    # slice k while the main thread waits on slice k + 1
+    om = SegmentMatcher(ts, m.params.replace(max_device_batch=OVERLAP_SLICE,
+                                             sweep_autotune=False))
+    om.match_many(traces)
+    om.stage_seconds = dict.fromkeys(om.stage_seconds, 0.0)
+    orecs = om.match_many(traces)
+    st = {k: v * 1e3 for k, v in om.stage_seconds.items()}
+    serial = st["prepare"] + st["dispatch"] + st["device"] + st["walk"]
+    phase("walk", card, metro=metro, records_equal=equal,
+          walk_ms={"c_match_many_median": fields["walk_ms"],
+                   "python": py_ms, "native_walker_walk": direct_ms},
+          prepare_ms={"c": prep_ms["c"], "numpy": prep_ms["numpy"],
+                      "bytes_equal": prep_equal, "mode": int(c_prep[0]),
+                      "slice_traces": len(xys)},
+          overlap={"slices": -(-len(traces) // OVERLAP_SLICE),
+                   "stage_ms": st, "serial_sum_ms": serial,
+                   "overlapped_ms": serial - st["wall"],
+                   "records_equal": json_records(orecs) == want})
+    if not (all(equal.values()) and prep_equal
+            and json_records(orecs) == want):
+        raise SystemExit(f"{metro}: the walks or the prepares differ")
+
+
+def _seconds(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
+                 cache):
+    """The main path at every other K of SWEEP_KS: a tuned matcher (its
+    calibration launches every arm at that K) serves the batch of
+    ``traces`` (at 1024 traces, 512 sweep chunks: more than the grid);
+    its first MAIN_K_CPU_TRACES records equal the CPU matcher's. The
+    tuner's cache is keyed by tile and card, not K, so each K gets a
+    fresh cache directory under ``cache`` (or it would reuse K = 8's
+    plan and calibrate nothing)."""
+    from reporter_tpu_torch.matcher.autotune import CAL_DISPATCHES
+
+    for k in dc.SWEEP_KS:
+        if k == 8:
+            continue
+        os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, f"k{k}")
+        p = MatcherParams(max_candidates=k)
+        m, cal = win.run(f"sf:k{k}:calibration",
+                         lambda p=p: SegmentMatcher(ts, p))
+        if m.tuned_plan is None or any(
+                n != (CAL_DISPATCHES + 1 if kk == k else 0)
+                for (a, kk), n in cal.items()):
+            raise SystemExit(f"K={k}: calibration launches {cal}")
+        tuned = PLAN_ARMS[m.tuned_plan.label.split("@")[0]]
+        batch = traces
+        t0 = time.perf_counter()
+        recs, served = win.run(f"sf:k{k}:tuned_batch",
+                               lambda m=m, b=batch: m.match_many(b))
+        ms = (time.perf_counter() - t0) * 1e3
+        only(served, (tuned, k), f"the tuned matcher at K={k}")
+        small = batch[:MAIN_K_CPU_TRACES]
+        cpu = SegmentMatcher(ts, p, device="cpu").match_many(small)
+        equal = json_records(cpu) == json_records(recs[:MAIN_K_CPU_TRACES])
+        phase("main:k", card, metro="sf", k=k, tuned_arm=tuned,
+              traces=len(batch), batch_ms=ms, records=recs.n_records,
+              card_vs_cpu_records_equal=equal, traces_checked=len(small))
+        if not equal or not recs.n_records:
+            raise SystemExit(f"K={k}: the card's records differ from the "
+                             "CPU's, or there are none")
+    os.environ["RTPU_AUTOTUNE_CACHE"] = cache
 
 
 def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
@@ -576,6 +811,52 @@ def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
                          for e in top[:5]})
 
 
+def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
+                  generate_city, compile_network, tables_from_numpy,
+                  synthesize_fleet, radius):
+    """The irregular metro at full width: compile, kernel phase, gates
+    line, main phase, walk phase and card-vs-CPU records, tagged
+    metro=organic. → {arm: kernel record}."""
+    t0 = time.perf_counter()
+    net = generate_city("organic")
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts = compile_network(net)
+    compile_s = time.perf_counter() - t0
+    tab = tables_from_numpy(ts.arrays(), "cuda")
+    phase("tiles", card, metro="organic", generate_s=gen_s,
+          compile_s=compile_s, edges=ts.num_edges, nodes=net.num_nodes,
+          line_segments=int(len(ts.seg_edge)),
+          seg_pack_columns=int(tab["seg_pack"].shape[1]),
+          blocks=int(tab["seg_bbox"].shape[0]),
+          reach_truncated_nodes=ts.stats["reach_truncated_nodes"])
+    fleet = synthesize_fleet(ts, N_TRACES, num_points=N_POINTS, seed=0)
+    pts = torch.from_numpy(fleet_points(fleet)).cuda()
+    arms = kernel_phase(card, tab, pts, radius, 8, dc, build, "organic",
+                        check_chunks=CHECK_CHUNKS, plain_reps=1)
+    phase("gates", card, metro="organic", arms={
+        a: {key: r.get(key) for key in (
+            "vote_share", "gate_share", "plain_gate_share",
+            "gate_mismatches", "gate_mismatches_off_threshold",
+            "gate_tolerance", "gate_first_group_share_of_voted")}
+        for a, r in arms.items() if a not in ("block", "sub")},
+        fastest_back_to_back=min(arms, key=lambda a:
+                                 arms[a]["ms_back_to_back"]))
+    m, traces, recs, fields, _ = main_phase(
+        card, ts, fleet, dc, win, "organic", MatcherParams, SegmentMatcher,
+        Trace, request=False)
+    walk_phase(card, m, ts, traces, recs, fields, MatcherParams,
+               SegmentMatcher, "organic")
+    small = traces[:REFERENCE_TRACES]
+    cpu_recs = SegmentMatcher(ts, device="cpu").match_many(small)
+    cpu_ok = json_records(cpu_recs) == json_records(recs[:REFERENCE_TRACES])
+    phase("reference", card, metro="organic", card_vs_cpu_records_equal=cpu_ok,
+          traces_checked=len(small))
+    if not cpu_ok:
+        raise SystemExit("organic: the card's records differ from the CPU's")
+    return arms
+
+
 def main() -> int:
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -585,6 +866,7 @@ def main() -> int:
     from reporter_tpu_torch.config import CompilerParams, MatcherParams
     from reporter_tpu_torch.kernels import build
     from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
+    from reporter_tpu_torch.native import build as native_build
     from reporter_tpu_torch.netgen.synthetic import generate_city
     from reporter_tpu_torch.netgen.traces import synthesize_fleet
     from reporter_tpu_torch.ops import dense_candidates as dc
@@ -600,42 +882,61 @@ def main() -> int:
     phase("device", card, torch=torch.__version__, cuda=torch.version.cuda,
           name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    # ---- 2. build ---------------------------------------------------------
+    # ---- 2. build: every K's nvcc and the host library's g++ at once ------
     t0 = time.perf_counter()
-    build.load_sweep()
-    built = {src: {"nvcc_seconds": log["seconds"],
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        cuda_job = pool.submit(build.build_all)
+        host_job = pool.submit(native_build.load)
+        cuda_job.result()
+        host_job.result()
+    built = {lib: {"nvcc_seconds": log["seconds"],
                    "kernels": ptxas_figures(log["ptxas"])}
-             for src, log in build.BUILD_LOG.items()}
-    phase("build", card, seconds=time.perf_counter() - t0, sources=built)
+             for lib, log in build.BUILD_LOG.items()}
+    # a library already built from the same sources (by an earlier run in
+    # this checkout) is loaded, not rebuilt, and shows no build time
+    phase("build", card, seconds=time.perf_counter() - t0, sources=built,
+          host_library={"sources": list(SOURCES[2:]),
+                        "gxx_seconds": native_build.BUILD_LOG.get("seconds")})
     # the persistent grid is min(chunks, CTAs per SM x SMs); the kernel
     # phase runs 512 chunks
-    shapes = {arm: build.exact_shape(code)
-              for code, arm in enumerate(dc.SWEEP_ARMS)}
-    for sh in shapes.values():
-        sh["grid_at_512_chunks"] = min(512, sh["ctas_per_sm"] * sh["sms"])
+    shapes = {}
+    for k in dc.SWEEP_KS:
+        for code, arm in enumerate(dc.SWEEP_ARMS):
+            sh = build.exact_shape(code, k)
+            sh["grid_at_512_chunks"] = min(512, sh["ctas_per_sm"] * sh["sms"])
+            shapes[f"{arm}@k{k}"] = sh
     phase("build:exact_shape", card, **shapes)
 
     # ---- 3. tiles ---------------------------------------------------------
     t0 = time.perf_counter()
     ts = compile_network(generate_city("sf"))
     tab = tables_from_numpy(ts.arrays(), "cuda")
-    phase("tiles", card, seconds=time.perf_counter() - t0,
+    phase("tiles", card, metro="sf", seconds=time.perf_counter() - t0,
           edges=ts.num_edges, line_segments=int(len(ts.seg_edge)),
           seg_pack_columns=int(tab["seg_pack"].shape[1]),
           blocks=int(tab["seg_bbox"].shape[0]))
 
-    # ---- 4. kernel vs plain ----------------------------------------------
+    # ---- 4. kernel vs plain, at K = 8 and at every K -----------------------
     fleet = synthesize_fleet(ts, N_TRACES, num_points=N_POINTS, seed=0)
     pts = torch.from_numpy(fleet_points(fleet)).cuda()      # [131072, 2]
-    radius, k = MatcherParams().search_radius, MatcherParams().max_candidates
-    arms = kernel_phase(card, tab, pts, radius, k, dc, build)
-    gates_phase(card, dc, radius, k)
+    radius = MatcherParams().search_radius
+    arms = kernel_phase(card, tab, pts, radius, 8, dc, build, "sf")
+    by_k = {k: kernel_phase(card, tab, pts, radius, k, dc, build, "sf",
+                            tag="kernel:k", check_chunks=CHECK_CHUNKS)
+            for k in dc.SWEEP_KS}
+    gates_phase(card, dc, radius, 8)
 
-    # ---- 5. main path (calibration included), breakdown, reference -------
+    # ---- 5. main path (calibration included), walk, breakdown, reference -
+    win = Windows(dc)
     with tempfile.TemporaryDirectory(prefix="rtt_autotune_") as cache:
         os.environ["RTPU_AUTOTUNE_CACHE"] = cache     # every run calibrates
-        m, traces, recs, launches, cand_ms = main_phase(
-            card, ts, fleet, dc, MatcherParams, SegmentMatcher, Trace)
+        m, traces, recs, fields, cand_ms = main_phase(
+            card, ts, fleet, dc, win, "sf", MatcherParams, SegmentMatcher,
+            Trace)
+        walk_phase(card, m, ts, traces, recs, fields, MatcherParams,
+                   SegmentMatcher, "sf")
+        main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
+                     cache)
         breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams)
 
         here = os.path.dirname(os.path.abspath(__file__))
@@ -647,30 +948,53 @@ def main() -> int:
         gm = SegmentMatcher(gts)
         golden_ok = all([s["segment_id"] for s in gm.match(g["request"])["segments"]]
                         == g["expected_segment_ids"] for g in golden)
-        small = traces[:32]
+        small = traces[:REFERENCE_TRACES]
         cpu_recs = SegmentMatcher(ts, device="cpu").match_many(small)
-        cpu_ok = ([[r.to_json() for r in x] for x in cpu_recs]
-                  == [[r.to_json() for r in x] for x in recs[:32]])
+        cpu_ok = json_records(cpu_recs) == json_records(
+            recs[:REFERENCE_TRACES])
         phase("reference", card, golden_fixture_ok=golden_ok,
               golden_plan=gm.tuned_plan and gm.tuned_plan.label,
               card_vs_cpu_records_equal=cpu_ok, traces_checked=len(small))
         if not (golden_ok and cpu_ok):
             raise SystemExit("reference check failed")
 
-    # ---- 6. summary -------------------------------------------------------
+        # ---- 6. the organic metro -----------------------------------------
+        organic = organic_phase(card, dc, build, win, MatcherParams,
+                                SegmentMatcher, Trace, generate_city,
+                                compile_network, tables_from_numpy,
+                                synthesize_fleet, radius)
+
+    # ---- 7. summary -------------------------------------------------------
     kernels = []
     for arm, (_, replaces) in ARMS.items():
-        a = arms[arm]
-        kernels.append({
-            "name": f"sweep_topk_{arm}", "route": "cuda",
-            "source": "reporter_tpu_torch/kernels/sweep_exact.cu",
-            "replaces": replaces, "launches": sum(launches[arm].values()),
-            "launches_by_path": launches[arm],
-            "max_abs_err": a["max_abs_err"], "ms": a["ms"],
-            "ms_back_to_back": a["ms_back_to_back"],
-            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-            "bound_by": a["bound_by"], "library_ms": None})
-    print(json.dumps({"kernels": kernels}), flush=True)
+        for k in dc.SWEEP_KS:
+            a = arms[arm] if k == 8 else by_k[k][arm]
+            paths = {path: c[arm, k] for path, c in win.by_path.items()
+                     if c[arm, k]}
+            entry = {
+                "name": f"sweep_topk_{arm}_k{k}", "route": "cuda",
+                "source": SOURCES[0], "replaces": replaces,
+                "launches": sum(paths.values()), "launches_by_path": paths,
+                "points": len(pts), "plain_points": a["plain_points"],
+                "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+                "ms_back_to_back": a["ms_back_to_back"],
+                "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"], "library_ms": None}
+            if k == 8:
+                o = organic[arm]
+                entry["organic"] = {key: o[key] for key in (
+                    "ms", "ms_back_to_back", "bound_ms", "bound_by",
+                    "plain_ms", "plain_points", "max_abs_err")}
+            if entry["launches"] < 1:
+                raise SystemExit(f"{arm} at K={k} was never launched on the "
+                                 "main path")
+            kernels.append(entry)
+    print(json.dumps({"kernels": kernels, "sources": list(SOURCES),
+                      "host_library": {
+                          "sources": list(SOURCES[2:]), "route": "g++",
+                          "seconds": native_build.BUILD_LOG.get("seconds")}}),
+          flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

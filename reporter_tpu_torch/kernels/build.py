@@ -2,13 +2,15 @@
 
 ``sweep_exact.cu`` holds the sweep's five arms (the exact ``block`` and
 ``sub``, the bf16 filter ``sub_bf16`` and the tensor-core ``mxu`` and
-``mxu_bf16``), each an instance of one kernel template. ``nvcc`` compiles
-it for ``sm_90a`` at first use into ``reporter_tpu_torch/_build/``: one
-shared library with a plain C interface, loaded with ctypes (seconds to
-build, no PyTorch headers). A library is named by a hash of its source,
-the headers beside it and the flags, so an edited source rebuilds. A
-missing ``nvcc``, a failed build or a failed launch raises; nothing falls
-back to the plain version.
+``mxu_bf16``), each an instance of one kernel template over the arm and
+the top-K width K. ``nvcc`` compiles it for ``sm_90a`` once per K of
+``SWEEP_KS`` (``-DRTT_SWEEP_K=K``: the five arms at that K), at the first
+use of that K, into ``reporter_tpu_torch/_build/``: one shared library per
+K with a plain C interface, loaded with ctypes (seconds to build, no
+PyTorch headers). ``build_all`` starts every K's ``nvcc`` at once. A
+library is named by its K and a hash of its source, the headers beside it
+and the flags, so an edited source rebuilds. A missing ``nvcc``, a failed
+build or a failed launch raises; nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -21,7 +23,12 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+# the top-K widths the sweep is built for: sweep_exact.cu is compiled once
+# per K here, each library holding the five arms at that K
+SWEEP_KS = (4, 6, 8, 12, 16)
 
 _HERE = Path(__file__).resolve().parent
 _BUILD_DIR = _HERE.parent / "_build"
@@ -33,8 +40,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_loaded: "ctypes.CDLL | None" = None
-BUILD_LOG: "dict[str, dict]" = {}   # source name → {"seconds", "ptxas"}
+_loaded: "dict[int, ctypes.CDLL]" = {}
+BUILD_LOG: "dict[str, dict]" = {}   # library name → {"seconds", "ptxas"}
 
 
 def _nvcc() -> str:
@@ -49,51 +56,56 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def build(source: Path) -> Path:
-    """Compile ``source`` into the build directory, if not already there,
-    and return the library's path. The name hashes the source, every header
-    of its directory (``*.cuh``) and the flags."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+def build(source: Path, k: int) -> Path:
+    """Compile ``source`` at top-K width ``k`` into the build directory, if
+    not already there, and return the library's path. The name holds k and
+    a hash of the source, every header of its directory (``*.cuh``) and the
+    flags."""
+    flags = (*_NVCC_FLAGS, f"-DRTT_SWEEP_K={int(k)}")
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in [source, *sorted(source.parent.glob("*.cuh"))]:
         h.update(f.name.encode() + b"\0" + f.read_bytes())
-    out = _BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+    name = f"lib{source.stem}_k{k}_{h.hexdigest()[:16]}.so"
+    out = _BUILD_DIR / name
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(source)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source.name} "
+        raise RuntimeError(f"nvcc failed on {source.name} at K={k} "
                            f"(rc {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    BUILD_LOG[source.name] = {
+    BUILD_LOG[f"{source.name} K={k}"] = {
         "seconds": time.perf_counter() - t0, "ptxas": proc.stderr.strip()}
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    global _loaded
+def build_all() -> None:
+    """Build every K's library now, one ``nvcc`` each, all started
+    together."""
+    with ThreadPoolExecutor(max_workers=len(SWEEP_KS)) as pool:
+        list(pool.map(lambda k: build(EXACT_SOURCE, k), SWEEP_KS))
+
+
+def _lib(k: int) -> ctypes.CDLL:
     with _lock:
-        if _loaded is None:
-            lib = ctypes.CDLL(str(build(EXACT_SOURCE)))
+        if k not in _loaded:
+            lib = ctypes.CDLL(str(build(EXACT_SOURCE, k)))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.rtt_sweep_exact.argtypes = [p, p, p, p, p, p, p, i, i, i,
+            lib.rtt_sweep_exact.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                             f, f, f, p, p, p, p, p]
             lib.rtt_sweep_exact.restype = ctypes.c_int
             ip = ctypes.POINTER(ctypes.c_int)
-            lib.rtt_sweep_exact_shape.argtypes = [i, ip, ip, ip, ip, ip, ip]
+            lib.rtt_sweep_exact_shape.argtypes = [i, i, ip, ip, ip, ip, ip,
+                                                  ip]
             lib.rtt_sweep_exact_shape.restype = ctypes.c_int
-            _loaded = lib
-        return _loaded
-
-
-def load_sweep() -> None:
-    """Build (if needed) and load the kernel library now."""
-    _lib()
+            _loaded[k] = lib
+        return _loaded[k]
 
 
 def _ptr(t):
@@ -111,32 +123,34 @@ def launch_sweep_exact(pts, ids, nhits, order, table, sub, coarse,
                        rc2: float, radius: float, edge, off, dist,
                        gate_log=None) -> None:
     """One call of the ring-fed sweep (arm 0 block, 1 sub, 2 sub_bf16, 3
-    mxu, 4 mxu_bf16) on PyTorch's current stream: the chunk order kernel
+    mxu, 4 mxu_bf16) on PyTorch's current stream, at the top-K width of
+    the outputs (``edge``'s [nchunks * 256, K]): the chunk order kernel
     writes ``order`` (i32 scratch [nchunks + 1]: the chunks heaviest
     first, then the CTAs' chunk counter), then the sweep runs. The caller
     checks the tensors. ``sub`` and ``gate_log`` may be None for the block
     arm, ``coarse`` for block and sub."""
-    rc = _lib().rtt_sweep_exact(
+    k = int(edge.shape[1])
+    rc = _lib(k).rtt_sweep_exact(
         pts.data_ptr(), ids.data_ptr(), nhits.data_ptr(), order.data_ptr(),
-        table.data_ptr(), _ptr(sub), _ptr(coarse), arm, nchunks, nblocks,
+        table.data_ptr(), _ptr(sub), _ptr(coarse), arm, k, nchunks, nblocks,
         r2, rc2, radius, edge.data_ptr(), off.data_ptr(), dist.data_ptr(),
         _ptr(gate_log), _stream(pts))
     if rc != 0:
-        raise RuntimeError(f"sweep_exact launch failed (arm {arm}): "
+        raise RuntimeError(f"sweep_exact launch failed (arm {arm}, K={k}): "
                            f"error {rc}")
 
 
-def exact_shape(arm: int) -> dict:
-    """The ring-fed sweep's launch shape on the current device: threads
-    per CTA, dynamic shared memory (bytes), resident CTAs per SM, SMs, the
-    ring's depth (stages) and the columns per early-exit test of the arm's
-    gate (0 for block and sub)."""
+def exact_shape(arm: int, k: int) -> dict:
+    """The ring-fed sweep's launch shape at top-K width k on the current
+    device: threads per CTA, dynamic shared memory (bytes), resident CTAs
+    per SM, SMs, the ring's depth (stages) and the columns per early-exit
+    test of the arm's gate (0 for block and sub)."""
     vals = [ctypes.c_int(0) for _ in range(6)]
-    rc = _lib().rtt_sweep_exact_shape(
-        arm, *(ctypes.byref(v) for v in vals))
+    rc = _lib(k).rtt_sweep_exact_shape(
+        arm, k, *(ctypes.byref(v) for v in vals))
     if rc != 0:
-        raise RuntimeError(f"sweep_exact shape query failed (arm {arm}): "
-                           f"error {rc}")
+        raise RuntimeError(f"sweep_exact shape query failed (arm {arm}, "
+                           f"K={k}): error {rc}")
     return dict(zip(("threads", "smem_bytes", "ctas_per_sm", "sms", "depth",
                      "gate_group"),
                     (v.value for v in vals)))

@@ -14,9 +14,11 @@
 //             here tf32 tensor-core operands): the same place, a gate on
 //             the tensor cores;
 //   mxu_bf16  the same with bf16 operands (:549-551).
-// Each arm is an instance of sweep_exact_kernel<ARM>, ARM its index in
-// ops/dense_candidates.py's SWEEP_ARMS; one nvcc builds them all. The
-// running top-K is topk.cuh's.
+// Each arm is an instance of sweep_exact_kernel<ARM, K>, ARM its index in
+// ops/dense_candidates.py's SWEEP_ARMS and K the top-K width. One nvcc of
+// this file with -DRTT_SWEEP_K=K builds the five arms at that K into one
+// library; kernels/build.py builds one library per K of SWEEP_KS, all
+// started together. The running top-K is topk.cuh's.
 //
 // Bound on this card: the arithmetic of the exactly swept (point, column)
 // pairs on the CUDA cores, plus for sub_bf16 its gate's bf16 pairs on the
@@ -138,6 +140,14 @@
 // groups of 8 were kept. chip_smoke.py prints each arm's depth, gate
 // group, shared memory, CTAs per SM and grid.
 //
+// The top-K width K sizes each consumer thread's running list (3 K
+// registers) and its output store (16-byte stores where K is a multiple of
+// 4, else 8-byte ones). Registers grow with K: at K = 16 every arm takes
+// 108-122 and one CTA fits an SM; at K = 4 and 6 the exact arms take 66-72
+// and three fit. ptxas reports small spills (16-40 bytes) in some arms at
+// K = 4, 6 and 12 and none at K = 8 or 16; chip_smoke.py prints the
+// figures and PERF.md keeps them.
+//
 // Measured on the card against two alternatives (PERF.md), both slower
 // and so not kept: two points per thread in the block arm (two chains per
 // column load, half the warps; +37%) and reading the columns straight
@@ -163,10 +173,16 @@
 
 #include "topk.cuh"
 
+#ifndef RTT_SWEEP_K
+#error "build with -DRTT_SWEEP_K=<top-K width> (kernels/build.py does)"
+#endif
+
 namespace {
 
 using rtt::kBig;
-using rtt::kK;
+
+constexpr int kK = RTT_SWEEP_K;    // the top-K width of this library
+static_assert(kK >= 1 && kK <= 16, "the running list lives in registers");
 
 constexpr int kP = 256;            // points per chunk (the pre-pass's unit)
 constexpr int kSblk = 512;         // columns per block
@@ -290,9 +306,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // branches per U columns leave it, both rare: the division where
 // 0 < num < denom (or num is NaN), and the offers of pairs within the
 // radius, which load (off0, len) only then.
+template <int K>
 __device__ __forceinline__ void sweep_cols(
     const float4* col, int c0, int c1, float px, float py, float r2,
-    float (&bd)[kK], int (&be)[kK], float (&bo)[kK]) {
+    float (&bd)[K], int (&be)[K], float (&bo)[K]) {
   constexpr int U = kBatch;
   const float2* col2 = reinterpret_cast<const float2*>(col);
   for (int c = c0; c < c1; c += U) {
@@ -333,10 +350,39 @@ __device__ __forceinline__ void sweep_cols(
         const int e = __float_as_int(h[u].y);
         if (e >= 0 && d2[u] <= r2) {
           const float2 ol = col2[4 * (c + u) + 3];     // off0 len
-          rtt::offer(d2[u], e, ol.x + t[u] * ol.y, bd, be, bo);
+          rtt::offer<K>(d2[u], e, ol.x + t[u] * ol.y, bd, be, bo);
         }
       }
     }
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ uint32_t bits(int x) {
+  return static_cast<uint32_t>(x);
+}
+
+// One point's K output values at `out` (row p of an [n, K] array): 16-byte
+// stores where K is a multiple of 4 (the row then starts 16-byte aligned),
+// 8-byte stores where K is even, else one value at a time.
+template <int K, typename T>
+__device__ __forceinline__ void store_row(T* out, const T (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+    uint4* o = reinterpret_cast<uint4*>(out);
+#pragma unroll
+    for (int i = 0; i < K / 4; ++i) {
+      o[i] = make_uint4(bits(v[4 * i]), bits(v[4 * i + 1]),
+                        bits(v[4 * i + 2]), bits(v[4 * i + 3]));
+    }
+  } else if constexpr (K % 2 == 0) {
+    uint2* o = reinterpret_cast<uint2*>(out);
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) {
+      o[i] = make_uint2(bits(v[2 * i]), bits(v[2 * i + 1]));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) out[i] = v[i];
   }
 }
 
@@ -648,7 +694,7 @@ __device__ void produce(const int* __restrict__ ids,
   }
 }
 
-template <int ARM>
+template <int ARM, int K>
 __global__ void __launch_bounds__(kThreads)
 sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
                    const int* __restrict__ ids,      // [nchunks, nblocks]
@@ -687,9 +733,9 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
 
   const float mx = radius * 1.001f + 0.5f;   // the clamp box's dilation
   float px = 0.f, py = 0.f;
-  float bd[kK];
-  int be[kK];
-  float bo[kK];
+  float bd[K];
+  int be[K];
+  float bo[K];
   for (uint32_t it = 0;; ++it) {
     const int s = it % R::kDepth;
     mbar_wait(full + s, (it / R::kDepth) & 1u);
@@ -700,13 +746,13 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
       const float2 pt = pts[p];
       px = pt.x;
       py = pt.y;
-      rtt::reset(bd, be, bo);
+      rtt::reset<K>(bd, be, bo);
     }
     if (h.z >= 0) {
       const unsigned char* st = smem + s * R::kStage;
       const float4* col = reinterpret_cast<const float4*>(st);
       if constexpr (ARM == kBlock) {
-        sweep_cols(col, 0, kSblk, px, py, r2, bd, be, bo);
+        sweep_cols<K>(col, 0, kSblk, px, py, r2, bd, be, bo);
       } else {
         const float4* quad = reinterpret_cast<const float4*>(st + kColBytes);
         unsigned vote = 0u;
@@ -737,8 +783,8 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
             if (grp == 0) first |= 1u << sl;
           }
           gated |= 1u << sl;
-          sweep_cols(col, sl * kSub, sl * kSub + kSub, px, py, r2, bd, be,
-                     bo);
+          sweep_cols<K>(col, sl * kSub, sl * kSub + kSub, px, py, r2, bd, be,
+                        bo);
         }
         if (gate_log != nullptr && lane == 0) {
           gate_log[(static_cast<long>(h.x) * kCons + warp) * nblocks + h.y] =
@@ -751,20 +797,14 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
     if (lane == 0) mbar_arrive(empty + s);  // the stage is free again
     if (h.y + 1 < max(h.w, 1)) continue;
     // the chunk's last item: its rows
-    float d[kK];
+    float d[K];
 #pragma unroll
-    for (int i = 0; i < kK; ++i) {
+    for (int i = 0; i < K; ++i) {
       d[i] = bd[i] < kBig ? sqrtf(fmaxf(bd[i], 0.f)) : kBig;
     }
-    int4* oe = reinterpret_cast<int4*>(out_edge + p * kK);
-    float4* oo = reinterpret_cast<float4*>(out_off + p * kK);
-    float4* od = reinterpret_cast<float4*>(out_dist + p * kK);
-    oe[0] = make_int4(be[0], be[1], be[2], be[3]);
-    oe[1] = make_int4(be[4], be[5], be[6], be[7]);
-    oo[0] = make_float4(bo[0], bo[1], bo[2], bo[3]);
-    oo[1] = make_float4(bo[4], bo[5], bo[6], bo[7]);
-    od[0] = make_float4(d[0], d[1], d[2], d[3]);
-    od[1] = make_float4(d[4], d[5], d[6], d[7]);
+    store_row<K>(out_edge + p * K, be);
+    store_row<K>(out_off + p * K, bo);
+    store_row<K>(out_dist + p * K, d);
   }
 }
 
@@ -772,7 +812,7 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
 // dynamic shared memory, resident CTAs per SM, the SM count and the ring
 // depth. The shared-memory attribute is set (once per device) before the
 // occupancy query and the first launch. Returns a cudaError_t, or -2 / -3.
-template <int ARM>
+template <int ARM, int K>
 int shape(int* threads, int* smem, int* per_sm, int* sms, int* depth) {
   using R = Ring<ARM>;
   static int cached_per_sm[kMaxDevices] = {};
@@ -782,7 +822,7 @@ int shape(int* threads, int* smem, int* per_sm, int* sms, int* depth) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices) return -2;
   if (cached_per_sm[dev] == 0) {
-    auto kern = sweep_exact_kernel<ARM>;
+    auto kern = sweep_exact_kernel<ARM, K>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -804,21 +844,21 @@ int shape(int* threads, int* smem, int* per_sm, int* sms, int* depth) {
   return 0;
 }
 
-template <int ARM>
+template <int ARM, int K>
 int launch(const float* pts, const int* ids, const int* nhits, int* order,
            const float* table, const float* sub, const int* coarse,
            int nchunks, int nblocks, float r2, float rc2, float radius,
            int* out_edge, float* out_off, float* out_dist, int* gate_log,
            cudaStream_t st) {
   int threads, smem, per_sm, sms, depth;
-  const int rc = shape<ARM>(&threads, &smem, &per_sm, &sms, &depth);
+  const int rc = shape<ARM, K>(&threads, &smem, &per_sm, &sms, &depth);
   if (rc != 0) return rc;
   chunk_order_kernel<<<(nchunks + kOrderThreads - 1) / kOrderThreads,
                        kOrderThreads, 0, st>>>(nhits, nchunks, order);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = nchunks < per_sm * sms ? nchunks : per_sm * sms;
-  sweep_exact_kernel<ARM><<<grid, threads, smem, st>>>(
+  sweep_exact_kernel<ARM, K><<<grid, threads, smem, st>>>(
       reinterpret_cast<const float2*>(pts), ids, nhits, order,
       order + nchunks,
       reinterpret_cast<const float4*>(table),
@@ -830,7 +870,8 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
 }  // namespace
 
 // Launches the ring-fed sweep in arm `arm` (0 block, 1 sub, 2 sub_bf16,
-// 3 mxu, 4 mxu_bf16) on `stream`: chunk_order_kernel writes into `order`
+// 3 mxu, 4 mxu_bf16) at top-K width `k` (this library's RTT_SWEEP_K; the
+// outputs are [nchunks * 256, k]) on `stream`: chunk_order_kernel writes into `order`
 // ([nchunks + 1] i32 scratch) the chunks heaviest first and a zeroed
 // counter, which the sweep's CTAs then take chunks from (the counter ends
 // at nchunks + the grid: one failed take per CTA); `table` is seg_sweep
@@ -841,17 +882,18 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
 // slices swept exactly (4-7) and those whose gate passed in its first
 // group of columns (8-11). Returns the launch's cudaError_t (0 = ok), -1
 // for an unknown arm, -2 / -3 for a device index or an occupancy out of
-// range.
+// range, -4 for a k that this library was not built for.
 extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
                                const int* nhits, int* order,
                                const float* table, const float* sub,
-                               const int* coarse, int arm,
+                               const int* coarse, int arm, int k,
                                int nchunks, int nblocks, float r2, float rc2,
                                float radius, int* out_edge, float* out_off,
                                float* out_dist, int* gate_log, void* stream) {
+  if (k != kK) return -4;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RTT_LAUNCH(A)                                                       \
-  launch<A>(pts, ids, nhits, order, table, sub, coarse, nchunks, nblocks,  \
+  launch<A, kK>(pts, ids, nhits, order, table, sub, coarse, nchunks, nblocks,  \
             r2, rc2, radius, out_edge, out_off, out_dist, gate_log, st)
   switch (arm) {
     case kBlock: return RTT_LAUNCH(kBlock);
@@ -864,14 +906,16 @@ extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
 #undef RTT_LAUNCH
 }
 
-// The launch shape of arm `arm` on the current device (see shape()): the
-// grid of a launch is min(nchunks, per_sm * sms). `group`: the columns per
-// early-exit test of its gate (kGateCols).
-extern "C" int rtt_sweep_exact_shape(int arm, int* threads, int* smem,
+// The launch shape of arm `arm` at top-K width `k` on the current device
+// (see shape()): the grid of a launch is min(nchunks, per_sm * sms).
+// `group`: the columns per early-exit test of its gate (kGateCols). -4 for
+// a k that this library was not built for.
+extern "C" int rtt_sweep_exact_shape(int arm, int k, int* threads, int* smem,
                                      int* per_sm, int* sms, int* depth,
                                      int* group) {
+  if (k != kK) return -4;
 #define RTT_SHAPE(A) \
-  (*group = kGateCols<A>, shape<A>(threads, smem, per_sm, sms, depth))
+  (*group = kGateCols<A>, shape<A, kK>(threads, smem, per_sm, sms, depth))
   switch (arm) {
     case kBlock: return RTT_SHAPE(kBlock);
     case kSubArm: return RTT_SHAPE(kSubArm);

@@ -1,8 +1,9 @@
 """RoadNetwork — the representation between a data source and the tile
 compiler.
 
-Counterpart: reporter_tpu/netgen/network.py. Sources (here the synthetic
-generator) produce a RoadNetwork; tiles.compiler lowers it to flat arrays.
+Counterpart: reporter_tpu/netgen/network.py. Sources (the synthetic and
+organic generators, the OSM XML parser) produce a RoadNetwork;
+tiles.compiler lowers it to flat arrays.
 """
 
 from __future__ import annotations
@@ -35,14 +36,32 @@ class Way:
 
 
 @dataclass
+class TurnRestriction:
+    """An OSM turn restriction with a via node (via-way restrictions are
+    dropped by the parser). ``kind`` keeps the OSM vocabulary: ``no_*``
+    bans that one turn, ``only_*`` bans every other turn from from_way at
+    the via node."""
+
+    from_way: int                        # OSM way id the vehicle arrives on
+    via_node: int                        # node index into node_lonlat
+    to_way: int                          # OSM way id of the (dis)allowed exit
+    kind: str = "no_turn"                # "no_*" or "only_*"
+
+    @property
+    def mandatory(self) -> bool:
+        return self.kind.startswith("only_")
+
+
+@dataclass
 class RoadNetwork:
     """Graph-agnostic road network: nodes in lon/lat + ways. Turn
-    restrictions are not compiled by this port (tiles/compiler raises)."""
+    restrictions are parsed but not compiled by this port (tiles/compiler
+    raises)."""
 
     node_lonlat: np.ndarray              # [N, 2] float64 (lon, lat) degrees
     ways: list[Way]
     name: str = "net"
-    restrictions: list = field(default_factory=list)
+    restrictions: "list[TurnRestriction]" = field(default_factory=list)
 
     @property
     def num_nodes(self) -> int:

@@ -1,8 +1,9 @@
 """Synthetic metro generator.
 
-Counterpart: reporter_tpu/netgen/synthetic.py (the grid cities). The same
-name and seed give the same RoadNetwork bit for bit: the random draws are
-made in the same order from the same numpy generator.
+Counterpart: reporter_tpu/netgen/synthetic.py (the grid cities, and the
+names "organic" and "organic-xl" of netgen/organic.py's irregular metros).
+The same name and seed give the same RoadNetwork bit for bit: the random
+draws are made in the same order from the same numpy generator.
 """
 
 from __future__ import annotations
@@ -47,7 +48,29 @@ def generate_city(
 ) -> RoadNetwork:
     """A deterministic synthetic city: a jittered street grid with
     ``spacing`` meters between intersections, some removed block legs,
-    some one-way ways, some curved legs, and two diagonal boulevards."""
+    some one-way ways, some curved legs, and two diagonal boulevards.
+
+    "organic" (seed 11) and "organic-xl" (seed 12, ~2.5x the radius) are
+    the irregular radial metros of netgen/organic.py; ``seed`` applies to
+    them, the grid parameters and ``center`` do not (they raise)."""
+    if name in ("organic", "organic-xl"):
+        if center is not None:
+            raise ValueError("center does not apply to the organic "
+                             "generator; its centers are fixed")
+        if (nx, ny) != (None, None) or (spacing, jitter) != (120.0, 12.0) \
+                or (p_missing_block, p_oneway, p_curved) != (0.06, 0.25,
+                                                             0.25):
+            raise ValueError(
+                "grid parameters don't apply to the organic generator; "
+                "call netgen.organic.generate_organic_city directly")
+        from reporter_tpu_torch.netgen.organic import generate_organic_city
+
+        if name == "organic-xl":
+            return generate_organic_city(
+                name, seed=seed if seed is not None else 12,
+                radius=16000.0, core_scale=2800.0, n_candidates=420000)
+        return generate_organic_city(name, seed=seed if seed is not None
+                                     else 11)
     preset = CITY_PRESETS.get(name)
     if preset is not None:
         pseed, pnx, pny = preset

@@ -36,6 +36,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from reporter_tpu_torch.kernels import build
+from reporter_tpu_torch.kernels.build import SWEEP_KS
+
 BIG = 1e30
 
 # seg_pack component rows
@@ -73,7 +76,8 @@ _NSUB = 8         # sub-bboxes per chunk in the pre-pass (32 points each)
 _PLAIN_P = 128    # points per chunk of the plain sweep (bounds its [P, S] temporaries)
 _GATE_ROWS = 2048  # (warp, slice) pairs per step of the plain gates
 SPLIT_LEN = 256.0  # long-segment pre-split span
-SWEEP_K = 8       # the top-K width the kernel is built for
+# SWEEP_KS (kernels/build.py): the top-K widths the CUDA sweep is built
+# for, each arm instantiated at each; the plain path takes any K
 
 # seg_coarse: the gates' operands, one row of CO_WORDS i32 words per
 # 512-column block, rounded once on the host. For the tensor-core gate,
@@ -112,10 +116,10 @@ _CO_TF32_K = (0, 4, 1, 5, 2, 6, 3, 7)
 # is its index here.
 SWEEP_ARMS = ("block", "sub", "sub_bf16", "mxu", "mxu_bf16")
 
-# Launches of the CUDA sweep on the main path, per arm. sweep_topk adds one
-# per kernel launch and nothing else does; chip_smoke.py resets and reads
-# them around the main-path run.
-SWEEP_LAUNCHES = dict.fromkeys(SWEEP_ARMS, 0)
+# Launches of the CUDA sweep, per kernel instance (arm, K). sweep_topk adds
+# one per kernel launch and nothing else does; chip_smoke.py resets and
+# reads them around each main-path run.
+SWEEP_LAUNCHES = {(arm, k): 0 for arm in SWEEP_ARMS for k in SWEEP_KS}
 
 
 class CandidateSet(NamedTuple):
@@ -700,7 +704,8 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     ("sub_bf16", "mxu", "mxu_bf16") also ``coarse`` (seg_coarse, their
     gates' operands). Its persistent CTAs take chunks from a counter in
     the order _chunk_order(nhits) gives (heaviest first), which a kernel
-    of the same call computes on the card.
+    of the same call computes on the card. ``k``, the top-K width, is one
+    of SWEEP_KS (any other raises).
     → (edge i32, offset f32, dist f32), each [npad, k].
 
     ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]; not for "block"),
@@ -709,14 +714,13 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     8 + s where slice s's gate passed in its first group of columns.
     Raises on anything the kernel does not take, or if the launch
     fails."""
-    from reporter_tpu_torch.kernels import build
-
     if arm not in SWEEP_ARMS:
         raise ValueError(f"unknown sweep arm {arm!r}; one of {SWEEP_ARMS}")
     npad = pts.shape[0]
     nchunks = npad // _P
-    if k != SWEEP_K:
-        raise ValueError(f"the CUDA sweep is built for K={SWEEP_K}, got {k}")
+    if k not in SWEEP_KS:
+        raise ValueError(f"the CUDA sweep is built for K in {SWEEP_KS}, "
+                         f"got {k}")
     if npad % _P or npad == 0:
         raise ValueError(f"points must be whole {_P}-point chunks, got {npad}")
     if arm == "block" and gate_log is not None:
@@ -755,7 +759,7 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
         coarse if arm not in ("block", "sub") else None,
         SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc, float(radius),
         edge, off, dist, gate_log)
-    SWEEP_LAUNCHES[arm] += 1
+    SWEEP_LAUNCHES[arm, k] += 1
     return edge, off, dist
 
 

@@ -1,6 +1,7 @@
 """The CUDA sweep kernel (reporter_tpu_torch/kernels/sweep_exact.cu, its
-five arms) against its plain PyTorch versions, on the card. Candidates,
-every arm: tolerance 0
+five arms at each top-K width of SWEEP_KS) against its plain PyTorch
+versions, on the card, and the native host half of match_many there.
+Candidates, every arm and K: tolerance 0
 (the same f32 arithmetic, one rounding per operation). The bf16 filter's
 gate decisions: tolerance 0 (every bf16 operation is correctly rounded on
 both sides). The tensor-core gate: a decision may differ from the plain
@@ -63,7 +64,7 @@ def test_sweep_kernel_equals_plain(sf, arm):
     levers = {"block": dict(subcull=False), "sub": {},
               "sub_bf16": dict(lowp="bf16"), "mxu": dict(mxu=True),
               "mxu_bf16": dict(mxu=True, lowp="bf16")}[arm]
-    before = dc.SWEEP_LAUNCHES[arm]
+    before = dc.SWEEP_LAUNCHES[arm, 8]
     got = dc.find_candidates_dense(
         pts, (tab["seg_pack"], tab["seg_bbox"], tab["seg_sub"],
               tab["seg_feat"], tab["seg_sweep"], tab["seg_coarse"]), 50.0, 8,
@@ -71,9 +72,100 @@ def test_sweep_kernel_equals_plain(sf, arm):
         **levers)
     ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
     torch.cuda.synchronize()
-    assert dc.SWEEP_LAUNCHES[arm] == before + 1
+    assert dc.SWEEP_LAUNCHES[arm, 8] == before + 1
     for g, r in zip((got.edge, got.offset, got.dist), ref):
         assert torch.equal(g[valid], r[valid])
+
+
+@pytest.mark.parametrize("k", dc.SWEEP_KS)
+@pytest.mark.parametrize("arm", dc.SWEEP_ARMS)
+def test_sweep_kernel_equals_plain_at_every_k(sf, arm, k):
+    """Each arm at each top-K width of SWEEP_KS, bit-equal to _dense_plain
+    at that K on the valid points."""
+    tab, pts, valid = sf
+    n = len(pts)
+    nchunks = -(-n // dc._P)
+    fpts, fval = dc._fill_invalid(pts, valid, nchunks)
+    ids, nhits = dc._chunk_block_ids(fpts, fval, tab["seg_bbox"], 50.0,
+                                     nchunks)
+    got = dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                        tab["seg_coarse"], 50.0, k, arm)
+    ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, k)
+    for g, r in zip(got, ref):
+        assert g.shape == (nchunks * dc._P, k)
+        assert torch.equal(g[:n][valid], r[valid])
+
+
+@pytest.fixture(scope="module")
+def sf_fleet(sf_tile, cuda):
+    """1024 fleet traces of 120 points, each padded to 128 with its first
+    point: 131,072 points in 512 chunks, more than the persistent grid of
+    every arm at every K."""
+    ts, _ = sf_tile
+    fleet = synthesize_fleet(ts, 1024, num_points=120, seed=5)
+    pts = np.zeros((len(fleet), 128, 2), np.float32)
+    for i, p in enumerate(fleet):
+        pts[i, :len(p.xy)] = p.xy
+        pts[i, len(p.xy):] = p.xy[0]
+    return torch.from_numpy(pts.reshape(-1, 2)).to(cuda)
+
+
+@pytest.mark.parametrize("k", dc.SWEEP_KS)
+def test_sweep_past_the_grid_at_every_k(sf_tile, sf_fleet, k):
+    """At each K, more chunks than the persistent grid, so CTAs take a
+    second chunk and more (the chunk counter, the top-K list's reset
+    between chunks, the ring's phase across chunks): each arm bit-equal to
+    _dense_plain on every point."""
+    from reporter_tpu_torch.kernels import build
+
+    _, tab = sf_tile
+    pts = sf_fleet
+    nchunks = len(pts) // dc._P
+    ids, nhits = dc._chunk_block_ids(
+        pts, torch.ones(len(pts), dtype=torch.bool, device=pts.device),
+        tab["seg_bbox"], 50.0, nchunks)
+    ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, k)
+    for arm in dc.SWEEP_ARMS:
+        sh = build.exact_shape(dc.SWEEP_ARMS.index(arm), k)
+        assert nchunks > sh["ctas_per_sm"] * sh["sms"]
+        got = dc.sweep_topk(pts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                            tab["seg_coarse"], 50.0, k, arm)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), arm
+
+
+def test_sweep_rejects_k_outside_the_set(sf):
+    tab, pts, _ = sf
+    fpts = pts[:dc._P].contiguous()
+    ids, nhits = dc._chunk_block_ids(
+        fpts, torch.ones(dc._P, dtype=torch.bool, device=pts.device),
+        tab["seg_bbox"], 50.0, 1)
+    for k in (1, 5, 7, 9, 32):
+        with pytest.raises(ValueError, match="K in"):
+            dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                          tab["seg_coarse"], 50.0, k, "sub")
+
+
+def test_native_match_many_on_the_card_equals_python_walk(sf_tile, cuda):
+    """The tuned path's host half on the card: match_many (C prepare,
+    overlapped harvest, C column walk) against the Python walk of the same
+    decoded traces, record for record."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.matcher.api import (MatchBatch, SegmentMatcher,
+                                                Trace, walk_python)
+
+    ts, _ = sf_tile
+    m = SegmentMatcher(ts, MatcherParams(sweep_autotune=False,
+                                         max_device_batch=48))
+    traces = [Trace(p.uuid, p.xy.astype(np.float32), p.times)
+              for p in synthesize_fleet(ts, 128, seed=9)]
+    got = m.match_many(traces)
+    assert isinstance(got, MatchBatch)
+    want = walk_python(ts, traces, m._decode_many(traces), m._route_fn,
+                       m.params.backward_slack)
+    assert [[r.to_json() for r in x] for x in got] == \
+        [[r.to_json() for r in x] for x in want]
+    assert got.n_records > 3 * len(traces)
 
 
 def _kernel_gate(tab, pts, valid, arm):
@@ -199,8 +291,8 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         dc.sweep_topk(pts.cpu(), ids, nhits, sweep, None, None, 50.0, 8,
                       "block")
-    with pytest.raises(ValueError):
-        dc.sweep_topk(pts, ids, nhits, sweep, None, None, 50.0, 4, "block")
+    with pytest.raises(ValueError, match=r"K in \(4, 6, 8, 12, 16\)"):
+        dc.sweep_topk(pts, ids, nhits, sweep, None, None, 50.0, 5, "block")
     with pytest.raises(ValueError):      # the mxu arm without seg_coarse
         dc.sweep_topk(pts, ids, nhits, sweep, sub, None, 50.0, 8, "mxu")
     with pytest.raises(ValueError):      # the bf16 filter without seg_coarse
@@ -246,7 +338,7 @@ def test_chunk_order_kernel_equals_plain(sf_tile, n):
                              2500.0, 2500.0, 50.0, *out)
     torch.cuda.synchronize()
     assert torch.equal(order[:n], dc._chunk_order(nhits))
-    sh = build.exact_shape(dc.SWEEP_ARMS.index("block"))
+    sh = build.exact_shape(dc.SWEEP_ARMS.index("block"), 8)
     assert int(order[n]) == n + min(n, sh["ctas_per_sm"] * sh["sms"])
 
 
@@ -314,12 +406,12 @@ def test_exact_arm_cases(sf_tile, arm, case):
         assert nchunks == 1
     log = None if arm == "block" else torch.zeros(
         (nchunks, dc._P // 32, nblocks), dtype=torch.int32, device=pts.device)
-    before = dc.SWEEP_LAUNCHES[arm]
+    before = dc.SWEEP_LAUNCHES[arm, 8]
     got = dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
                         tab["seg_coarse"], 50.0, 8, arm, gate_log=log)
     ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
     torch.cuda.synchronize()
-    assert dc.SWEEP_LAUNCHES[arm] == before + 1
+    assert dc.SWEEP_LAUNCHES[arm, 8] == before + 1
     for g, r in zip(got, ref):
         assert torch.equal(g[:n], r)
     if case == "ties":

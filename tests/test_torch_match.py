@@ -25,7 +25,7 @@ from reporter_tpu.ops import match as jm
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
 from reporter_tpu_torch.config import MatcherParams
-from reporter_tpu_torch.matcher.api import prepare_slice
+from reporter_tpu_torch.matcher.native_prepare import prepare_slice
 from reporter_tpu_torch.ops import match as pm
 from reporter_tpu_torch.tiles.tileset import tables_from_numpy
 from _torch_support import few_torch_threads  # noqa: F401

@@ -4,10 +4,10 @@ tolerance 0), on the golden fixtures and on a synthesized fleet.
 
 The JAX matcher runs ``candidate_backend="dense"``: on a CPU backend
 "auto" would resolve to the grid backend, and dense reaches _dense_jnp,
-the plain reference of the Pallas sweep. Its tables go to the port as
-numpy arrays (``TileSet.from_arrays`` / ``tables_from_numpy``), so the
-irregular tile — parsed from OSM XML, which this port does not read — is
-matched by both packages on the same tables.
+the plain reference of the Pallas sweep. On the golden tile its tables
+go to the port as numpy arrays (``TileSet.from_arrays`` /
+``tables_from_numpy``); the irregular tile each package parses from the
+OSM XML fixture and compiles itself.
 """
 
 import json
@@ -59,11 +59,22 @@ def golden():
 
 @pytest.fixture(scope="module")
 def irregular():
+    """(JAX matcher, port matcher), each on its own parse and compile of
+    the fixture."""
     from reporter_tpu.netgen.osm_xml import parse_osm_xml
+    from reporter_tpu_torch.config import CompilerParams as PCompilerParams
+    from reporter_tpu_torch.netgen.osm_xml import (
+        parse_osm_xml as p_parse_osm_xml)
+    from reporter_tpu_torch.tiles.compiler import (
+        compile_network as p_compile_network)
 
-    fx = _load("golden_irregular.json")
-    net = parse_osm_xml(os.path.join(_FIX, "irregular.osm"), name="irregular")
-    return _pair(compile_network(net, CompilerParams(**fx[0]["compiler"])))
+    kw = _load("golden_irregular.json")[0]["compiler"]
+    osm = os.path.join(_FIX, "irregular.osm")
+    jm, _ = _pair(compile_network(parse_osm_xml(osm, name="irregular"),
+                                  CompilerParams(**kw)))
+    ts = p_compile_network(p_parse_osm_xml(osm, name="irregular"),
+                           PCompilerParams(**kw))
+    return jm, SegmentMatcher(ts, device="cpu")
 
 
 @pytest.mark.parametrize("fx", _load("golden_traces.json"),
