@@ -62,8 +62,9 @@ the native host half against its Python forms, in phases:
      breakdown — one slice's sweep per arm, Viterbi and pack timed alone,
                 and the device busy share of one wire entry
                 (torch.profiler);
-     reference — golden fixture ids on the card, and card-vs-CPU records
-                on a small batch;
+     reference — golden fixture ids on the card, through the matcher and
+                through make_app's /report, and card-vs-CPU records on a
+                small batch;
   6. organic  — generate_city("organic") (seed 11, 62,757 directed edges),
                 compiled by the port (timed); its kernel phase (131,072
                 fleet points, every arm equal to the others, bit-equal to
@@ -73,7 +74,26 @@ the native host half against its Python forms, in phases:
                 matchers), walk phase (the three walks and the prepares,
                 as on sf) and card-vs-CPU records on 32 traces, each line
                 tagged metro=organic;
-  7. summary  — the kernels JSON line (every arm at every K, the sources,
+  7. serve    — on sf, the report service in-process (make_app on the
+                card, a fresh tuner cache, behind serve()'s threaded WSGI
+                server on an ephemeral port; the datastore a local HTTP
+                server reached through the publisher's urllib transport):
+                three lone requests, then 64 client threads each posting
+                its 16 uuids' 120-point traces as three in-order /report
+                requests of 40 points (3,072 requests), then one
+                /report_many of 256 traces. Every response 200; the first
+                32 uuids' responses equal a CPU app's fed the same
+                per-uuid order, and the datastore's reports for them the
+                CPU app's (sorted); the served window launched only the
+                tuned (arm, 8) instance; /stats counts the real traces
+                (padding excluded). Latency p50 / p99, traces/s, batches,
+                occupancy, padding, deferrals, overlap, stage split;
+     server   — python -m reporter_tpu_torch.service.server as a
+                subprocess (it compiles sf and calibrates with a fresh
+                tuner cache): /health within SERVER_START_S, 8 /report
+                answers equal [serve]'s for the same payloads, SIGINT
+                drains to exit code 0; the start-up time;
+  8. summary  — the kernels JSON line (every arm at every K, the sources,
                 the host library among them), the card line, and the
                 final {"ok": true, "device": {...}} line.
 
@@ -86,12 +106,18 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -114,6 +140,12 @@ MAIN_K_CPU_TRACES = 16        # traces of the main path at the other K also
 #                               matched on the CPU
 REFERENCE_TRACES = 32         # traces matched on both the card and the CPU
 OVERLAP_SLICE = 256           # traces per slice of the overlap check
+SERVE_CLIENTS, SERVE_UUIDS, SERVE_PARTS = 64, 16, 3   # [serve]: clients,
+#                               uuids per client, in-order requests per uuid
+SERVE_MANY = 256              # traces of [serve]'s one /report_many
+SERVE_CPU_UUIDS = 32          # uuids also served by the CPU app
+SERVER_START_S = 300          # [server]: /health must answer within this
+SERVER_REQUESTS = 8           # [server]: requests checked against [serve]
 SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
            "reporter_tpu_torch/kernels/topk.cuh",
            "reporter_tpu_torch/native/prepare.cc",
@@ -857,6 +889,286 @@ def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
     return arms
 
 
+def wsgi_post(app, path, payload):
+    """One POST through the WSGI callable itself. → (status, JSON)."""
+    import io
+
+    body = json.dumps(payload).encode()
+    got = {}
+
+    def start_response(status, headers):
+        got["status"] = int(status.split()[0])
+
+    data = b"".join(app({"REQUEST_METHOD": "POST", "PATH_INFO": path,
+                         "CONTENT_LENGTH": str(len(body)),
+                         "wsgi.input": io.BytesIO(body)}, start_response))
+    return got["status"], json.loads(data)
+
+
+def http_json(url, payload=None, timeout=120.0):
+    """GET (payload None) or POST JSON over HTTP. → (status, JSON)."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"null")
+
+
+class _Datastore(BaseHTTPRequestHandler):
+    """The datastore: keeps every POSTed body."""
+
+    def do_POST(self):
+        body = self.rfile.read(int(self.headers["Content-Length"]))
+        with self.server.lock:
+            self.server.bodies.append(json.loads(body))
+        self.send_response(200)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+    def log_message(self, *args):
+        pass
+
+
+def _sorted_reports(reports):
+    return sorted(json.dumps(r, sort_keys=True) for r in reports)
+
+
+def _pct(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(q * (len(v) - 1) + 0.5))]
+
+
+def serve_phase(card, ts, fleet, dc, win, cache):
+    """The report service in-process on the card, behind serve()'s threaded
+    WSGI server, with a local datastore; the checks of the module
+    docstring. → what [server] compares with: {"payloads": [...],
+    "responses": [...]} of the first requests of SERVER_REQUESTS uuids."""
+    from reporter_tpu_torch.config import Config, ServiceConfig
+    from reporter_tpu_torch.service.app import make_app
+    from reporter_tpu_torch.service.server import serve
+
+    sink = ThreadingHTTPServer(("127.0.0.1", 0), _Datastore)
+    sink.bodies, sink.lock = [], threading.Lock()
+    threading.Thread(target=sink.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{sink.server_address[1]}/store"
+    cfg = Config(service=ServiceConfig(datastore_url=url))
+    os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "serve")
+    t0 = time.perf_counter()
+    app, cal = win.run("sf:serve:calibration",
+                       lambda: make_app(ts, cfg, device="cuda"))
+    build_s = time.perf_counter() - t0
+    p = app.matcher.params
+    tuned = (dc.sweep_arm(p.sweep_subcull, p.sweep_lowp, p.sweep_mxu),
+             p.max_candidates)
+    server = serve(app, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    n_uuid = SERVE_CLIENTS * SERVE_UUIDS
+    part = N_POINTS // SERVE_PARTS
+    # requests[u][k]: uuid u's k-th request, its points in time order
+    requests = [[{"uuid": f"veh-{u}", "trace": fleet[u].to_report_json()[
+        "trace"][k * part:(k + 1) * part]} for k in range(SERVE_PARTS)]
+        for u in range(n_uuid)]
+    responses = [[None] * SERVE_PARTS for _ in range(n_uuid)]
+    lat, statuses = [], []
+    lock = threading.Lock()
+    try:
+        def lone():
+            out, bodies = [], []
+            for i in range(3):        # warm-up and the lone-request latency
+                t = time.perf_counter()
+                st, body = http_json(base + "/report", dict(
+                    fleet[-1 - i].to_report_json(), uuid=f"lone-{i}"))
+                out.append((time.perf_counter() - t) * 1e3)
+                statuses.append(st)
+                bodies.append(body)
+            return out, bodies
+
+        def client(c):
+            for j in range(SERVE_UUIDS):
+                u = c * SERVE_UUIDS + j
+                for k in range(SERVE_PARTS):
+                    t = time.perf_counter()
+                    st, body = http_json(base + "/report", requests[u][k])
+                    dt = time.perf_counter() - t
+                    with lock:
+                        lat.append(dt)
+                        statuses.append(st)
+                    responses[u][k] = body
+
+        def traffic():
+            t = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+                list(pool.map(client, range(SERVE_CLIENTS)))
+            clients_s = time.perf_counter() - t
+            many = [dict(f.to_report_json(), uuid=f"many-{i}")
+                    for i, f in enumerate(fleet[:SERVE_MANY])]
+            t = time.perf_counter()
+            st, body = http_json(base + "/report_many", {"traces": many})
+            many_ms = (time.perf_counter() - t) * 1e3
+            statuses.append(st)
+            return clients_s, many, body, many_ms
+
+        (lone_ms, lone_bodies), _ = win.run("sf:serve:lone", lone)
+        stages0 = dict(app.matcher.stage_seconds)
+        t = time.perf_counter()
+        (clients_s, many, many_body, many_ms), counts = win.run(
+            "sf:serve", traffic)
+        wall_s = time.perf_counter() - t
+        _, stats = http_json(base + "/stats")
+        _, health = http_json(base + "/health")
+    finally:
+        server.shutdown()
+        server.server_close()
+        app.close()
+    sched = health["scheduler"]
+    stage_ms = {k: (v - stages0[k]) * 1e3
+                for k, v in app.matcher.stage_seconds.items()}
+    n_real = n_uuid * SERVE_PARTS + SERVE_MANY + 3
+    probes = n_uuid * N_POINTS + SERVE_MANY * N_POINTS + 3 * N_POINTS
+    occ = (stats["sched_batch_occupancy_total"]
+           / stats["sched_batch_occupancy_count"])
+    phase("serve", card, metro="sf", tuned_instance=list(tuned),
+          construct_s=build_s,
+          calibration_launches={f"{a}@k{k}": n for (a, k), n in cal.items()
+                                if n},
+          lone_request_ms=lone_ms,
+          requests=len(lat), clients=SERVE_CLIENTS,
+          latency_ms_p50=_pct(lat, 0.50) * 1e3,
+          latency_ms_p99=_pct(lat, 0.99) * 1e3,
+          latency_ms_max=max(lat) * 1e3,
+          clients_s=clients_s, report_many_traces=SERVE_MANY,
+          report_many_ms=many_ms, traffic_s=wall_s,
+          traces_per_s=(n_uuid * SERVE_PARTS + SERVE_MANY) / wall_s,
+          probes_per_s=(n_uuid * N_POINTS + SERVE_MANY * N_POINTS) / wall_s,
+          batches=sched["batches"], submissions=sched["submissions"],
+          mean_occupancy=occ, padded_traces=sched["padded_traces"],
+          padding_by_bucket=sched["padding_by_bucket"],
+          deferred=sched["deferred"],
+          max_inflight_seen=sched["max_inflight_seen"],
+          inflight_hist=sched["inflight_hist"],
+          stats_traces=stats["traces"], stats_probes=stats["probes"],
+          points_sent=probes, match_s_total=stats["match_seconds_total"],
+          match_s_over_traffic_s=stats["match_seconds_total"] / wall_s,
+          queue_age_ms_p50=stats["sched_queue_age_seconds_p50"] * 1e3,
+          stage_ms=stage_ms,
+          launches={f"{a}@k{k}": n for (a, k), n in counts.items() if n})
+    # ---- the checks ----
+    if any(st != 200 for st in statuses):
+        raise SystemExit(f"[serve] non-200 responses: "
+                         f"{sorted(set(statuses))}")
+    # probes count the merged traces (the cache's tails matched again),
+    # so only the trace count must equal what was sent
+    if stats["traces"] != n_real:
+        raise SystemExit(f"[serve] /stats counts {stats['traces']} traces; "
+                         f"{n_real} were sent")
+    only(counts, tuned, "[serve]: the served window")
+    served = _sorted_reports(
+        [r for row in responses for body in row for r in body["reports"]]
+        + [r for body in many_body["results"] for r in body["reports"]]
+        + [r for body in lone_bodies for r in body["reports"]])
+    sunk = _sorted_reports(r for b in sink.bodies for r in b["reports"])
+    sink.shutdown()
+    sink.server_close()
+    # the CPU app, fed the first uuids in the same per-uuid order
+    cpu_bodies = []
+    cpu = make_app(ts, Config(service=ServiceConfig(datastore_url=url)),
+                   transport=lambda u, b: cpu_bodies.append(json.loads(b))
+                   or 200, device="cpu")
+    cpu_resp = [cpu.report_many([requests[u][k]
+                                 for u in range(SERVE_CPU_UUIDS)])
+                for k in range(SERVE_PARTS)]
+    cpu.close()
+    card_first = [responses[u][k] for k in range(SERVE_PARTS)
+                  for u in range(SERVE_CPU_UUIDS)]
+    same_resp = [r for batch in cpu_resp for r in batch] == card_first
+    cpu_reports = _sorted_reports(r for b in cpu_bodies for r in b["reports"])
+    card_reports = _sorted_reports(r for body in card_first
+                                   for r in body["reports"])
+    # the datastore got exactly the reports the responses hold, so the
+    # first uuids' reports there are card_reports
+    phase("serve:check", card, metro="sf", cpu_uuids=SERVE_CPU_UUIDS,
+          cpu_requests=SERVE_CPU_UUIDS * SERVE_PARTS,
+          card_vs_cpu_responses_equal=same_resp,
+          card_vs_cpu_datastore_reports_equal=cpu_reports == card_reports,
+          datastore_equals_responses=sunk == served,
+          reports_served=len(served), reports_at_datastore=len(sunk),
+          first_uuids_reports=len(card_reports))
+    if not (same_resp and cpu_reports == card_reports and sunk == served
+            and card_reports):
+        raise SystemExit("[serve] the card's responses or datastore reports "
+                         "differ from the CPU app's, or the datastore's from "
+                         "the responses")
+    return {"payloads": [requests[u][0] for u in range(SERVER_REQUESTS)],
+            "responses": [responses[u][0] for u in range(SERVER_REQUESTS)]}
+
+
+def server_phase(card, served, cache):
+    """python -m reporter_tpu_torch.service.server as a subprocess on a
+    free port: /health within SERVER_START_S, SERVER_REQUESTS answers
+    equal [serve]'s, SIGINT drains to exit code 0."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RTPU_AUTOTUNE_CACHE=os.path.join(cache, "server"),
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    log_path = os.path.join(cache, "server.log")
+    base = f"http://127.0.0.1:{port}"
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "reporter_tpu_torch.service.server",
+             "--host", "127.0.0.1", "--port", str(port)],
+            stdout=log, stderr=subprocess.STDOUT, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            health = None
+            while time.perf_counter() - t0 < SERVER_START_S:
+                if proc.poll() is not None:
+                    break
+                try:
+                    st, health = http_json(base + "/health", timeout=5.0)
+                    if st == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            start_s = time.perf_counter() - t0
+            if health is None:
+                raise SystemExit(f"[server] /health did not answer within "
+                                 f"{SERVER_START_S} s (exit "
+                                 f"{proc.poll()}):\n" + _tail(log_path))
+            got = [http_json(base + "/report", p)
+                   for p in served["payloads"]]
+            equal = [st == 200 and body == want for (st, body), want
+                     in zip(got, served["responses"])]
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ready = re.search(r"ready in ([0-9.]+) s", open(log_path).read())
+    phase("server", card, start_to_health_s=start_s,
+          server_ready_s=float(ready.group(1)) if ready else None,
+          device=health.get("device"), backend=health.get("backend"),
+          tile_hbm_bytes=health.get("tile_hbm_bytes"),
+          requests=len(got), responses_equal_serve=all(equal),
+          sigint_exit_code=rc,
+          drained="draining scheduler" in open(log_path).read())
+    if not all(equal) or rc != 0:
+        raise SystemExit(f"[server] responses equal {equal}, exit code "
+                         f"{rc}:\n" + _tail(log_path))
+
+
+def _tail(path, n=30):
+    with open(path) as f:
+        return "".join(f.readlines()[-n:])
+
+
 def main() -> int:
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -870,6 +1182,7 @@ def main() -> int:
     from reporter_tpu_torch.netgen.synthetic import generate_city
     from reporter_tpu_torch.netgen.traces import synthesize_fleet
     from reporter_tpu_torch.ops import dense_candidates as dc
+    from reporter_tpu_torch.service.app import make_app
     from reporter_tpu_torch.tiles.compiler import compile_network
     from reporter_tpu_torch.tiles.tileset import tables_from_numpy
 
@@ -948,14 +1261,22 @@ def main() -> int:
         gm = SegmentMatcher(gts)
         golden_ok = all([s["segment_id"] for s in gm.match(g["request"])["segments"]]
                         == g["expected_segment_ids"] for g in golden)
+        gapp = make_app(gts, device="cuda")
+        golden_app = [wsgi_post(gapp, "/report", g["request"]) for g in golden]
+        gapp.close()
+        golden_app_ok = all(
+            st == 200 and [s["segment_id"] for s in body["segments"]]
+            == g["expected_segment_ids"]
+            for (st, body), g in zip(golden_app, golden))
         small = traces[:REFERENCE_TRACES]
         cpu_recs = SegmentMatcher(ts, device="cpu").match_many(small)
         cpu_ok = json_records(cpu_recs) == json_records(
             recs[:REFERENCE_TRACES])
         phase("reference", card, golden_fixture_ok=golden_ok,
+              golden_app_report_ok=golden_app_ok,
               golden_plan=gm.tuned_plan and gm.tuned_plan.label,
               card_vs_cpu_records_equal=cpu_ok, traces_checked=len(small))
-        if not (golden_ok and cpu_ok):
+        if not (golden_ok and golden_app_ok and cpu_ok):
             raise SystemExit("reference check failed")
 
         # ---- 6. the organic metro -----------------------------------------
@@ -964,7 +1285,11 @@ def main() -> int:
                                 compile_network, tables_from_numpy,
                                 synthesize_fleet, radius)
 
-    # ---- 7. summary -------------------------------------------------------
+        # ---- 7. the report service, in-process and as the entry point ---
+        served = serve_phase(card, ts, fleet, dc, win, cache)
+        server_phase(card, served, cache)
+
+    # ---- 8. summary -------------------------------------------------------
     kernels = []
     for arm, (_, replaces) in ARMS.items():
         for k in dc.SWEEP_KS:

@@ -1,31 +1,39 @@
-"""Matcher and tile-compiler parameters.
+"""Configuration: matcher, compiler and service parameters.
 
-Counterpart: reporter_tpu/config.py (MatcherParams, CompilerParams). Only
-the fields this port reads are kept; their names and defaults are the
-JAX package's, so one parameter set means the same thing in both.
+Counterpart: reporter_tpu/config.py (MatcherParams, CompilerParams,
+ServiceConfig, Config). Field names, defaults and environment variables
+are the JAX package's, so one parameter set means the same thing in
+both, and ``Config.load`` / ``from_json`` read a JSON config the JAX
+package wrote. A field whose feature the port does not have yet raises
+NotImplementedError naming its ROADMAP item when set away from its
+default; it is never ignored:
+
+  MatcherParams.candidate_backend="grid"       queue 1 item 5
+  MatcherParams.dispatch_timeout_s > 0,
+  MatcherParams.dispatch_fallback="reference_cpu",
+  Config.matcher_backend="reference_cpu"       queue 1 item 1c
+  CompilerParams cell_size / cell_capacity /
+  index_radius (the spatial grid)              queue 1 item 5
+  ServiceConfig.mode other than "auto"         queue 1 item 4 (Config.validate)
+
+The streaming section of a JAX config is kept as it was read, for the
+streaming slice; the port reads none of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
-def env_flag(value: "str | None", strict: bool = False) -> bool:
-    """The boolean parse of the RTPU_* switches (the JAX package's
-    utils/tracing.env_flag). Unset, blank and 0/false/off/no are False.
-    ``strict=True`` raises ValueError on a token outside the recognized
-    true/false sets instead of reading it as True: a mistyped kernel
-    lever must fail loudly, or an A/B run measures an arm against itself."""
-    if not value:
-        return False
-    tok = value.strip().lower()
-    if strict and tok not in ("", "0", "false", "off", "no",
-                              "1", "true", "on", "yes"):
-        raise ValueError(f"unrecognized boolean env value {value!r}; "
-                         "use 0/1 (or true/false, on/off, yes/no)")
-    return tok not in ("", "0", "false", "off", "no")
+from reporter_tpu_torch.utils.tracing import env_flag
+
+__all__ = ["MatcherParams", "CompilerParams", "ServiceConfig", "Config",
+           "env_flag"]
+
+_MODES = ("auto", "bicycle", "foot")
 
 
 def _env_bool(e, name: str) -> bool:
@@ -43,6 +51,9 @@ class MatcherParams:
     beta: float = 3.0              # transition scale (m)
     search_radius: float = 50.0    # candidate search radius (m)
     max_candidates: int = 8        # top-K candidates per point
+    candidate_backend: str = "auto"  # "auto" and "dense" run the dense
+    #                                sweep (this port's only candidate
+    #                                backend); "grid" raises
     sweep_subcull: bool = True     # dense sweep: per-slice bbox culling
     #                                inside each segment block (the
     #                                two-level kernel arms); False = the
@@ -68,6 +79,40 @@ class MatcherParams:
     interpolation_distance: float = 10.0    # closer points are interpolated
     backward_slack: float = 10.0   # same-edge backward jitter counted as zero (m)
     max_device_batch: int = 4096   # traces per device dispatch
+    sweep_nj_cap: int = 128        # the JAX sweep's launch-width rung; the
+    #                                CUDA sweep has none, so only the
+    #                                default is taken
+    dispatch_timeout_s: float = 0.0   # the dispatch watchdog: 0 = off;
+    #                                   > 0 raises (not ported)
+    dispatch_fallback: str = "retry"  # what a timed-out dispatch degrades
+    #                                   to; "reference_cpu" raises
+
+    def __post_init__(self):
+        if self.candidate_backend not in ("auto", "dense", "grid"):
+            raise ValueError(f"unknown candidate_backend "
+                             f"{self.candidate_backend!r}; use 'auto', "
+                             "'dense' or 'grid'")
+        if self.candidate_backend == "grid":
+            raise NotImplementedError(
+                "candidate_backend='grid' (the cell-row gather over the "
+                "spatial grid) is not ported: ROADMAP queue 1 item 5")
+        if self.sweep_nj_cap != 128:
+            raise ValueError(
+                f"sweep_nj_cap={self.sweep_nj_cap}: the CUDA sweep has no "
+                "launch-width rung (it walks each chunk's compacted hit "
+                "list); leave it at 128")
+        if self.dispatch_fallback not in ("retry", "reference_cpu"):
+            raise ValueError(f"unknown dispatch_fallback "
+                             f"{self.dispatch_fallback!r}; use 'retry' or "
+                             "'reference_cpu'")
+        if self.dispatch_timeout_s < 0:
+            raise ValueError("dispatch_timeout_s must be >= 0")
+        if self.dispatch_timeout_s > 0 or \
+                self.dispatch_fallback == "reference_cpu":
+            raise NotImplementedError(
+                "the dispatch watchdog (dispatch_timeout_s > 0) and its "
+                "reference_cpu fallback oracle are not ported: ROADMAP "
+                "queue 1 item 1c")
 
     def replace(self, **kw: Any) -> "MatcherParams":
         return dataclasses.replace(self, **kw)
@@ -76,7 +121,10 @@ class MatcherParams:
                            ) -> "MatcherParams":
         """The sweep levers from the environment; only set variables apply.
         RTPU_SWEEP_SUBCULL=0|1, RTPU_SWEEP_LOWP=off|bf16, RTPU_SWEEP_MXU=0|1,
-        RTPU_SWEEP_AUTOTUNE=0|1. A bad value or an illegal combination
+        RTPU_SWEEP_AUTOTUNE=0|1; RTPU_DISPATCH_TIMEOUT_S and
+        RTPU_DISPATCH_FALLBACK are read as the JAX package reads them and
+        raise NotImplementedError where they ask for the watchdog. A bad
+        value or an illegal combination
         raises ValueError, as the JAX package's does; so does a sweep_lowp
         outside off/bf16 given as a field (its Config.validate checks).
         RTPU_NJ_CAP, the JAX sweep's launch-width rung, raises too: the
@@ -101,6 +149,10 @@ class MatcherParams:
                 "list); unset it")
         if "RTPU_SWEEP_AUTOTUNE" in e:
             kw["sweep_autotune"] = _env_bool(e, "RTPU_SWEEP_AUTOTUNE")
+        if "RTPU_DISPATCH_TIMEOUT_S" in e:
+            kw["dispatch_timeout_s"] = float(e["RTPU_DISPATCH_TIMEOUT_S"])
+        if "RTPU_DISPATCH_FALLBACK" in e:
+            kw["dispatch_fallback"] = e["RTPU_DISPATCH_FALLBACK"] or "retry"
         out = dataclasses.replace(self, **kw) if kw else self
         if out.sweep_lowp not in ("off", "bf16"):
             raise ValueError(f"unknown sweep_lowp {out.sweep_lowp!r}; "
@@ -116,10 +168,274 @@ class MatcherParams:
         return out
 
 
+    @classmethod
+    def preset(cls, mode: str) -> "MatcherParams":
+        """Mode-keyed matcher preset (the JAX package's values): slower
+        modes narrow the radius and tighten chain breakage and route
+        deviation. Serving a mode other than "auto" also needs tiles
+        compiled for it, which the port cannot build yet
+        (Config.validate raises)."""
+        if mode == "auto":
+            return cls()
+        if mode == "bicycle":
+            return cls(search_radius=40.0, breakage_distance=1200.0,
+                       max_route_distance_factor=4.0)
+        if mode == "foot":
+            return cls(search_radius=30.0, breakage_distance=400.0,
+                       max_route_distance_factor=3.0,
+                       interpolation_distance=5.0)
+        raise ValueError(f"unknown mode {mode!r}; one of {list(_MODES)}")
+
+
+# the compiler's spatial-grid fields and their defaults: the dense layout
+# builds no grid, so only the defaults are taken
+_GRID_DEFAULTS = {"cell_size": 64.0, "cell_capacity": 64,
+                  "index_radius": 50.0}
+
+
 @dataclass(frozen=True)
 class CompilerParams:
-    """Offline tile-compiler parameters (the dense layout needs no grid)."""
+    """Offline tile-compiler parameters (the dense layout needs no grid).
 
+    ``cell_size``, ``cell_capacity`` and ``index_radius`` size the JAX
+    package's spatial grid; they are kept so one JSON config reads in
+    both packages, and a value away from the default raises (the grid
+    backend, ROADMAP queue 1 item 5). ``use_native`` picks the JAX
+    package's C++ reach builder "when available"; this port's builder is
+    Python either way, with the same tables."""
+
+    cell_size: float = 64.0
+    cell_capacity: int = 64
+    index_radius: float = 50.0
     reach_radius: float = 600.0    # reachability precompute radius (m)
     reach_max: int = 128           # max reachable targets kept per node row
     osmlr_max_length: float = 1000.0  # OSMLR chaining target length (m)
+    use_native: bool = True
+
+    def __post_init__(self):
+        for name, default in _GRID_DEFAULTS.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"CompilerParams.{name}={getattr(self, name)!r}: the "
+                    "spatial grid (grid candidate backend) is not ported: "
+                    "ROADMAP queue 1 item 5")
+
+
+@dataclass(frozen=True)
+class ServiceConfig:
+    """Service wiring: every field, default and environment variable of the
+    JAX package's ServiceConfig."""
+
+    datastore_url: str = ""        # empty ⇒ publishing disabled (logged only)
+    port: int = 8002
+    threads: int = 4
+    cache_ttl: float = 60.0        # per-uuid partial-trace cache TTL (s)
+    cache_max_uuids: int = 100_000
+    min_segment_length: float = 0.0
+    mode: str = "auto"             # report transport mode tag
+    # Request batching (service/scheduler.py). "scheduler" = continuous
+    # in-flight batching: deadline batch close, trace-count padding, up
+    # to max_inflight_batches batches in flight. "combine" = the
+    # queue-and-combine leader (one batch in flight), kept for A/B runs.
+    batching: str = "scheduler"
+    batch_close_ms: float = 5.0    # a partial batch closes this many ms
+    #                                after its oldest request was admitted
+    #                                (the SLO deadline: a lone request is
+    #                                never stuck waiting for peers)
+    max_batch_traces: int = 256    # close-by-size threshold (traces)
+    max_inflight_batches: int = 2  # device batches allowed in flight —
+    #                                one worker thread each
+    admission_queue_limit: int = 8192  # queued traces admitted before the
+    #                                    service sheds with 503 (bounded
+    #                                    memory; counted rejections)
+    # Prepare-ahead: the scheduler runs a closed batch's pure host prepare
+    # (cache merge, Trace build, padding, the matcher's prepare_many) on a
+    # read-ahead thread while earlier batches occupy the card. Stateful
+    # steps (cache retain, publish) stay in batch order, so reports are
+    # the serial loop's. False = the serial loop (the A/B arm).
+    pipeline_prepare: bool = True
+    # Publisher resilience (service/datastore.py). Defaults: one attempt,
+    # failures counted and dropped; retries and the dead-letter spool are
+    # deployment policy.
+    publish_retries: int = 0       # extra POST attempts per batch after
+    #                                the first fails (bounded exponential
+    #                                backoff with deterministic jitter —
+    #                                faults.backoff_schedule)
+    publish_backoff_ms: float = 50.0    # backoff base (doubles per retry)
+    publish_backoff_cap_ms: float = 2000.0  # backoff ceiling
+    publish_backoff_jitter: float = 0.1     # +[0, jitter)x seeded jitter
+    # Span tracing / flight recorder (utils/tracing.py). The recorder is
+    # process-global; these knobs only ever turn it ON: an env-enabled
+    # recorder (RTPU_TRACE=1) is never disabled by a component
+    # constructed with the defaults.
+    trace: bool = False            # record host-side spans (batch, match,
+    #                                publish). Off = one attribute read
+    #                                per call site
+    trace_ring: int = 4096         # flight-recorder span capacity
+    trace_dir: str = ""            # non-empty ⇒ post-mortem Chrome-trace
+    #                                dumps are written here automatically
+    #                                on dead-letter, admission-shed and
+    #                                quality-drift events (and on demand
+    #                                via tracing.tracer().dump())
+    dead_letter_dir: str = ""      # non-empty ⇒ batches that exhaust their
+    #                                retries are SPOOLED to disk and
+    #                                replayed automatically after the next
+    #                                successful POST — an outage sheds to
+    #                                disk, not to /dev/null. ONE DIR PER
+    #                                PROCESS: the spool file carries no
+    #                                inter-process locking
+
+    def with_env_overrides(self, env: dict[str, str] | None = None) -> "ServiceConfig":
+        """Apply env vars on top of this config; only set variables override."""
+        e = os.environ if env is None else env
+        kw: dict[str, Any] = {}
+        if "DATASTORE_URL" in e:
+            kw["datastore_url"] = e["DATASTORE_URL"]
+        if "REPORTER_PORT" in e:
+            kw["port"] = int(e["REPORTER_PORT"])
+        if "THREAD_POOL_COUNT" in e:
+            kw["threads"] = int(e["THREAD_POOL_COUNT"])
+        if "PARTIAL_TRACE_TTL" in e:
+            kw["cache_ttl"] = float(e["PARTIAL_TRACE_TTL"])
+        if "REPORTER_MODE" in e:
+            kw["mode"] = e["REPORTER_MODE"]
+        if "REPORTER_BATCHING" in e:
+            kw["batching"] = e["REPORTER_BATCHING"]
+        if "REPORTER_BATCH_CLOSE_MS" in e:
+            kw["batch_close_ms"] = float(e["REPORTER_BATCH_CLOSE_MS"])
+        if "REPORTER_MAX_INFLIGHT" in e:
+            kw["max_inflight_batches"] = int(e["REPORTER_MAX_INFLIGHT"])
+        if "DATASTORE_RETRIES" in e:
+            kw["publish_retries"] = int(e["DATASTORE_RETRIES"])
+        if "DATASTORE_BACKOFF_MS" in e:
+            kw["publish_backoff_ms"] = float(e["DATASTORE_BACKOFF_MS"])
+        if "DATASTORE_DEAD_LETTER_DIR" in e:
+            kw["dead_letter_dir"] = e["DATASTORE_DEAD_LETTER_DIR"]
+        if "RTPU_PIPELINE_PREPARE" in e:
+            try:
+                kw["pipeline_prepare"] = env_flag(
+                    e["RTPU_PIPELINE_PREPARE"], strict=True)
+            except ValueError:
+                raise ValueError(
+                    f"RTPU_PIPELINE_PREPARE={e['RTPU_PIPELINE_PREPARE']!r}: "
+                    "expected a boolean (1/0/true/false/yes/no/on/off)")
+        if "RTPU_TRACE" in e:
+            kw["trace"] = env_flag(e["RTPU_TRACE"])
+        if "RTPU_TRACE_RING" in e:
+            kw["trace_ring"] = int(e["RTPU_TRACE_RING"])
+        if "RTPU_TRACE_DIR" in e:
+            kw["trace_dir"] = e["RTPU_TRACE_DIR"]
+        return dataclasses.replace(self, **kw) if kw else self
+
+    @classmethod
+    def from_env(cls, env: dict[str, str] | None = None) -> "ServiceConfig":
+        return cls().with_env_overrides(env)
+
+
+@dataclass(frozen=True)
+class Config:
+    """Top-level structured config (the JAX package's Config, minus the
+    streaming section's fields: ``streaming`` holds a JAX config's
+    streaming section as it was read)."""
+
+    matcher: MatcherParams = field(default_factory=MatcherParams)
+    compiler: CompilerParams = field(default_factory=CompilerParams)
+    service: ServiceConfig = field(default_factory=ServiceConfig)
+    streaming: dict = field(default_factory=dict)
+    matcher_backend: str = "torch"  # the port's one backend; "jax" (the
+    #                                JAX package's device backend) reads
+    #                                as "torch", "reference_cpu" raises
+
+    def __post_init__(self):
+        if self.matcher_backend == "jax":
+            object.__setattr__(self, "matcher_backend", "torch")
+
+    @classmethod
+    def for_mode(cls, mode: str, **kw: Any) -> "Config":
+        """Config serving one transport mode: the mode's MatcherParams
+        preset and the service mode tag (see MatcherParams.preset)."""
+        p = MatcherParams.preset(mode)
+        svc = dataclasses.replace(kw.pop("service", ServiceConfig()),
+                                  mode=mode)
+        return cls(matcher=p, service=svc, **kw)
+
+    def validate(self) -> "Config":
+        """Cross-section invariants, as the JAX package's; the features the
+        port does not have raise NotImplementedError."""
+        m = self.matcher
+        if m.sweep_lowp not in ("off", "bf16"):
+            raise ValueError(f"unknown matcher.sweep_lowp {m.sweep_lowp!r}; "
+                             "use 'off' or 'bf16'")
+        if m.sweep_lowp == "bf16" and not m.sweep_subcull:
+            raise ValueError(
+                "matcher.sweep_lowp='bf16' requires sweep_subcull=True — "
+                "the whole-block kernel has no low-precision pass")
+        if m.sweep_mxu and not m.sweep_subcull:
+            raise ValueError(
+                "matcher.sweep_mxu=True requires sweep_subcull=True — "
+                "the whole-block kernel has no matmul coarse pass")
+        if self.matcher_backend == "reference_cpu":
+            raise NotImplementedError(
+                "matcher_backend='reference_cpu' (the exact-Dijkstra "
+                "oracle) is not ported: ROADMAP queue 1 item 1c")
+        if self.matcher_backend != "torch":
+            raise ValueError(
+                f"unknown matcher_backend {self.matcher_backend!r}")
+        svc = self.service
+        if svc.mode not in _MODES:
+            raise ValueError(f"unknown service.mode {svc.mode!r}; one of "
+                             f"{list(_MODES)}")
+        if svc.mode != "auto":
+            raise NotImplementedError(
+                f"service.mode={svc.mode!r}: per-mode serving needs tiles "
+                "compiled for the mode (RoadNetwork.for_mode), which are "
+                "not ported: ROADMAP queue 1 item 4")
+        if svc.batching not in ("scheduler", "combine"):
+            raise ValueError(f"unknown service.batching {svc.batching!r}; "
+                             "use 'scheduler' or 'combine'")
+        if svc.batch_close_ms <= 0:
+            raise ValueError("service.batch_close_ms must be > 0")
+        if svc.max_batch_traces < 1 or svc.max_inflight_batches < 1:
+            raise ValueError("service.max_batch_traces and "
+                             "service.max_inflight_batches must be >= 1")
+        if svc.admission_queue_limit < 1:
+            raise ValueError("service.admission_queue_limit must be >= 1")
+        if svc.publish_retries < 0:
+            raise ValueError("service.publish_retries must be >= 0")
+        if svc.publish_backoff_ms <= 0 or svc.publish_backoff_cap_ms <= 0:
+            raise ValueError("service.publish_backoff_ms and "
+                             "publish_backoff_cap_ms must be > 0")
+        if svc.publish_backoff_jitter < 0:
+            raise ValueError("service.publish_backoff_jitter must be >= 0")
+        if svc.trace_ring < 1:
+            raise ValueError("service.trace_ring must be >= 1")
+        return self
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        raw = json.loads(text)
+        return cls(
+            matcher=MatcherParams(**raw.get("matcher", {})),
+            compiler=CompilerParams(**raw.get("compiler", {})),
+            service=ServiceConfig(**raw.get("service", {})),
+            streaming=dict(raw.get("streaming", {})),
+            matcher_backend=raw.get("matcher_backend", "torch"),
+        )
+
+    @classmethod
+    def load(cls, path: "str | None" = None) -> "Config":
+        """Load from a JSON file if given and present; environment
+        variables that are set override the file's service and matcher
+        sections (the JAX package's precedence)."""
+        if path and os.path.exists(path):
+            with open(path) as f:
+                cfg = cls.from_json(f.read())
+        else:
+            cfg = cls()
+        cfg = dataclasses.replace(cfg,
+                                  service=cfg.service.with_env_overrides(),
+                                  matcher=cfg.matcher.with_env_overrides())
+        return cfg.validate()

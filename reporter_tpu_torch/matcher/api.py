@@ -37,12 +37,25 @@ package does: the port's Viterbi is plain torch, launch-bound and some
 arms' sub-millisecond differences in host jitter. Only the sweep differs
 between plans, so the decision is the same one.
 
-Not ported here: the watchdog and fallback oracle, quality telemetry,
-fleet paging (and with it a plan staged in the tables) and mesh sharding.
+The surface the report service reads is the JAX package's: ``config``
+(a Config; a bare MatcherParams still works), ``metrics`` (the "match"
+stage timer and the "traces", "probes" and "unmatched_points" counts per
+``match_many``), ``quality`` (the per-batch quality signals and drift
+sentinel), ``backend`` ("torch", with ``device`` beside it),
+``supports_prepared``, ``matched_points`` and ``DispatchTimeout``.
+``match_many`` may run on several threads at once (the service's batch
+scheduler does): the shared counters (``stage_seconds``,
+``point_counts``, the registry, ``ops.dense_candidates.SWEEP_LAUNCHES``)
+update under a lock each.
+
+Not ported here: the dispatch watchdog and its fallback oracle (so
+``DispatchTimeout`` is never raised), the quality audit, fleet paging
+(and with it a plan staged in the tables) and mesh sharding.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections.abc import Sequence as _SequenceABC
 from concurrent.futures import ThreadPoolExecutor
@@ -52,7 +65,7 @@ from typing import Any, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from reporter_tpu_torch.config import MatcherParams
+from reporter_tpu_torch.config import Config, MatcherParams
 from reporter_tpu_torch.device import resolve_device
 from reporter_tpu_torch.geometry import lonlat_to_xy
 from reporter_tpu_torch.matcher import autotune, native_prepare
@@ -66,13 +79,24 @@ from reporter_tpu_torch.matcher.segments import (MatchedChain, RouteFn,
                                                  build_segments,
                                                  reach_route_fn)
 from reporter_tpu_torch.ops import match as match_ops
+from reporter_tpu_torch.quality import signals as quality_signals
+from reporter_tpu_torch.quality.monitor import QualityMonitor
 from reporter_tpu_torch.tiles.tileset import TileSet, tables_from_numpy
+from reporter_tpu_torch.utils import locks, tracing
+from reporter_tpu_torch.utils.metrics import MetricsRegistry
 
 # padded point-length buckets: one set of device shapes per bucket
 _BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
 # the keys of SegmentMatcher.stage_seconds
 STAGES = ("prepare", "dispatch", "device", "walk", "wall")
 _QUANTUM = match_ops.OFFSET_QUANTUM
+
+
+class DispatchTimeout(RuntimeError):
+    """A device dispatch exceeded ``matcher.dispatch_timeout_s`` (the JAX
+    package's watchdog error, which the service answers with 503). Never
+    raised here: the watchdog is not ported (ROADMAP queue 1 item 1c), and
+    MatcherParams refuses a timeout."""
 
 
 @dataclass
@@ -99,6 +123,15 @@ class Trace:
                            np.float32)
         return cls(uuid=str(payload.get("uuid", "")), xy=xy.astype(np.float32),
                    times=times, accuracy=acc)
+
+
+@dataclass
+class MatchedPoint:
+    """Per-point match output (diagnostics / tests)."""
+
+    edge: int
+    offset: float
+    chain_start: bool
 
 
 class PreparedSlice(NamedTuple):
@@ -173,7 +206,9 @@ def _accuracy_scale(accuracy: "np.ndarray | None", sigma_z: float,
 
 class SegmentMatcher:
     """Map matcher over one TileSet, its tables staged on ``device``
-    (``cuda`` unless the caller passes ``device="cpu"``).
+    (``cuda`` unless the caller passes ``device="cpu"``). ``config`` is a
+    Config or a bare MatcherParams; ``metrics`` a MetricsRegistry to
+    write (a fresh one by default).
 
     ``stage_seconds`` accumulates, per ``match_many``: "prepare", the host
     prepare (plan and slices); "dispatch", the main thread's time queueing
@@ -186,10 +221,25 @@ class SegmentMatcher:
     applied (None where it did not act) and ``tuned_report`` what it did
     and measured."""
 
-    def __init__(self, tileset: TileSet, params: MatcherParams | None = None,
+    # prepare_many is safe on a read-ahead thread (the scheduler probes
+    # this before preparing ahead)
+    supports_prepared = True
+    backend = "torch"
+
+    def __init__(self, tileset: TileSet,
+                 config: "Config | MatcherParams | None" = None,
+                 metrics: "MetricsRegistry | None" = None,
                  device: "str | torch.device | None" = None):
         self.ts = tileset
-        self.params = (params or MatcherParams()).with_env_overrides()
+        cfg = (config if isinstance(config, Config)
+               else Config(matcher=config or MatcherParams())).validate()
+        # the RTPU_SWEEP_* overrides apply here, mirrored into config
+        self.params = cfg.matcher.with_env_overrides()
+        if self.params is not cfg.matcher:
+            cfg = dataclasses.replace(cfg, matcher=self.params)
+        self.config = cfg
+        self.metrics = metrics or MetricsRegistry()
+        self.quality = QualityMonitor(tileset.name, self.metrics)
         self.device = resolve_device(device)
         self.tables = tables_from_numpy(tileset.arrays(), self.device)
         self.wire_spec = match_ops.wire_spec(
@@ -197,6 +247,8 @@ class SegmentMatcher:
             float(tileset.edge_len.max()) if tileset.num_edges else 0.0)
         self._route_fn = reach_route_fn(tileset)
         self._native_walker = NativeWalker(tileset)
+        # concurrent match_many calls add to these under one lock
+        self._count_lock = locks.named_lock("matcher.counters")
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
         self.point_counts = {"points": 0, "unmatched": 0}
         self.tuned_plan: "autotune.TunedPlan | None" = None
@@ -249,6 +301,16 @@ class SegmentMatcher:
         self.params = self.params.replace(**plan.params_overrides())
         self.tuned_plan = plan
 
+    @property
+    def table_bytes(self) -> int:
+        """Bytes of the tables staged on the device."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in self.tables.values()))
+
+    def _add_stage(self, key: str, seconds: float) -> None:
+        with self._count_lock:
+            self.stage_seconds[key] += seconds
+
     def tuned_plan_array(self) -> "np.ndarray | None":
         """The applied plan as the i32[5] plan vector, or None untuned."""
         if self.tuned_plan is None:
@@ -261,7 +323,8 @@ class SegmentMatcher:
         """Request in (uuid + trace of {lat, lon, time}), segments out."""
         trace = Trace.from_json(trace_json, self.ts)
         records = self.match_trace(trace)
-        return {"mode": "auto", "segments": [r.to_json() for r in records]}
+        return {"mode": self.config.service.mode,
+                "segments": [r.to_json() for r in records]}
 
     def match_trace(self, trace: Trace) -> list[SegmentRecord]:
         return self.match_many([trace])[0]
@@ -274,29 +337,63 @@ class SegmentMatcher:
         """Per-trace record lists, in input order: a MatchBatch when the
         harvest interleaves (more than one trace, each within the largest
         bucket), else a list. ``prepared`` is prepare_many's result for
-        these traces."""
+        these traces. Counts the traces, probes and unmatched points of
+        the call, times it as the "match" stage and records its quality
+        signals."""
         t0 = time.perf_counter()
+        unmatched = [0]
         try:
-            if not self._interleaves(traces):
-                decoded = self._decode_many(traces)
-                t1 = time.perf_counter()
-                out = self._walk_decoded(traces, decoded)
-                self.stage_seconds["walk"] += time.perf_counter() - t1
-                return out
-            if prepared is not None:
-                work = prepared.work
-                inflight = [self._dispatch(ps) for ps in prepared.slices]
-            else:
-                work, inflight = self._submit_many(traces)
-            slice_cols: list = [None] * len(inflight)
-
-            def walk_slice(k, ws, arr):
-                slice_cols[k] = self.walk_wire_columns(traces, work, ws, arr)
-
-            self._harvest_overlapped(inflight, walk_slice)
-            return MatchBatch(_merge_columns(slice_cols), len(traces))
+            with self.metrics.stage("match"), \
+                    tracing.tracer().span("match_many", traces=len(traces)):
+                out = self._match_many(traces, prepared, unmatched)
         finally:
-            self.stage_seconds["wall"] += time.perf_counter() - t0
+            self._add_stage("wall", time.perf_counter() - t0)
+        probes = sum(len(t.xy) for t in traces)
+        with self._count_lock:
+            self.point_counts["points"] += probes
+            self.point_counts["unmatched"] += unmatched[0]
+        self.metrics.count("traces", len(traces))
+        self.metrics.count("probes", probes)
+        self.metrics.count("unmatched_points", unmatched[0])
+        if self.quality.enabled and len(traces):
+            nonempty = np.fromiter((len(t.xy) > 0 for t in traces), bool,
+                                   len(traces))
+            self.quality.record(quality_signals.extract(
+                out, len(traces), probes, nonempty,
+                max_speed=self.quality.max_speed_mps,
+                unmatched=unmatched[0]))
+        return out
+
+    def _match_many(self, traces: Sequence[Trace],
+                    prepared: "PreparedBatch | None", unmatched: list):
+        """match_many's body; adds the call's unmatched points to
+        ``unmatched[0]``."""
+        if not self._interleaves(traces):
+            decoded = self._decode_many(traces)
+            unmatched[0] += sum(int((e < 0).sum()) for e, _, _ in decoded)
+            t1 = time.perf_counter()
+            out = self._walk_decoded(traces, decoded)
+            self._add_stage("walk", time.perf_counter() - t1)
+            return out
+        if prepared is not None:
+            work = prepared.work
+            inflight = [self._dispatch(ps) for ps in prepared.slices]
+        else:
+            work, inflight = self._submit_many(traces)
+        slice_cols: list = [None] * len(inflight)
+
+        def walk_slice(k, ws, arr):
+            slice_cols[k], un = self.walk_wire_columns(traces, work, ws, arr)
+            unmatched[0] += un       # one worker thread: no race
+
+        self._harvest_overlapped(inflight, walk_slice)
+        return MatchBatch(_merge_columns(slice_cols), len(traces))
+
+    def matched_points(self, trace: Trace) -> "list[MatchedPoint]":
+        """Per-point decode (no segment association): a diagnostic."""
+        trip = self._decode_many([trace])[0]
+        return [MatchedPoint(int(e), float(o), bool(st))
+                for e, o, st in zip(*trip)]
 
     @staticmethod
     def _interleaves(traces: Sequence[Trace]) -> bool:
@@ -386,12 +483,12 @@ class SegmentMatcher:
         order."""
         t0 = time.perf_counter()
         work, sliced = self.plan_submit(traces)
-        self.stage_seconds["prepare"] += time.perf_counter() - t0
+        self._add_stage("prepare", time.perf_counter() - t0)
         inflight = []
         for b, ws in sliced:
             t0 = time.perf_counter()
             ps = self.prepare_submit_slice(traces, work, b, ws)
-            self.stage_seconds["prepare"] += time.perf_counter() - t0
+            self._add_stage("prepare", time.perf_counter() - t0)
             inflight.append(self._dispatch(ps))
         return work, inflight
 
@@ -399,7 +496,7 @@ class SegmentMatcher:
         """submit_prepared, timed as "dispatch". → (ws, wire)."""
         t0 = time.perf_counter()
         wire = self.submit_prepared(ps)
-        self.stage_seconds["dispatch"] += time.perf_counter() - t0
+        self._add_stage("dispatch", time.perf_counter() - t0)
         return ps.ws, wire
 
     def _harvest_overlapped(self, inflight, per_slice) -> None:
@@ -411,23 +508,24 @@ class SegmentMatcher:
         def timed(k, ws, arr):
             t0 = time.perf_counter()
             per_slice(k, ws, arr)
-            self.stage_seconds["walk"] += time.perf_counter() - t0
+            self._add_stage("walk", time.perf_counter() - t0)
 
         with ThreadPoolExecutor(max_workers=1) as pool:
             futs = []
             for k, (ws, wire) in enumerate(inflight):
                 t0 = time.perf_counter()
                 arr = wire.cpu().numpy()
-                self.stage_seconds["device"] += time.perf_counter() - t0
+                self._add_stage("device", time.perf_counter() - t0)
                 futs.append(pool.submit(timed, k, ws, arr))
             for f in futs:
                 f.result()
 
     def walk_wire_columns(self, traces: Sequence[Trace], work,
-                          ws: "list[int]", arr: np.ndarray) -> RecordColumns:
-        """Unpack + C column walk of one harvested slice's wire → record
+                          ws: "list[int]", arr: np.ndarray,
+                          ) -> "tuple[RecordColumns, int]":
+        """Unpack + C column walk of one harvested slice's wire → (record
         columns with global trace indices (rows Morton-ordered; sorted by
-        _merge_columns)."""
+        _merge_columns), the slice's unmatched real points)."""
         edges, offs, starts = match_ops.unpack_wire(arr[:len(ws)],
                                                     self.wire_spec)
         B, T = edges.shape
@@ -437,12 +535,11 @@ class SegmentMatcher:
             i, lo, xy = work[w]
             times[r, :len(xy)] = traces[i].times[lo:lo + len(xy)]
             pad += T - len(xy)          # the padded tail decodes unmatched
-        self.point_counts["points"] += B * T - pad
-        self.point_counts["unmatched"] += int((edges < 0).sum()) - pad
         cols = self._native_walker.walk_columns(
             edges, offs, starts, times, self.params.backward_slack)
         row_to_trace = np.asarray([work[w][0] for w in ws], np.int32)
-        return cols._replace(trace=row_to_trace[cols.trace])
+        return (cols._replace(trace=row_to_trace[cols.trace]),
+                int((edges < 0).sum()) - pad)
 
     def _decode_many(self, traces: Sequence[Trace]):
         """Per-trace (edges, offsets, chain_starts) numpy triples (a trace
@@ -458,15 +555,13 @@ class SegmentMatcher:
                 T = len(xy)
                 per_trace[i].append(
                     (lo, (edges[r, :T], offs[r, :T], starts[r, :T])))
-                self.point_counts["points"] += T
-                self.point_counts["unmatched"] += int((edges[r, :T] < 0).sum())
 
         # one request or long traces: no second slice to overlap, so the
         # harvest is a plain loop
         for k, (ws, wire) in enumerate(inflight):
             t0 = time.perf_counter()
             arr = wire.cpu().numpy()
-            self.stage_seconds["device"] += time.perf_counter() - t0
+            self._add_stage("device", time.perf_counter() - t0)
             split_slice(k, ws, arr)
         out: list[Any] = []
         for chunks in per_trace:

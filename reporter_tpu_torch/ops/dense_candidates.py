@@ -31,6 +31,7 @@ smallest edge id, the offset being that edge's smallest tied projection.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -117,9 +118,11 @@ _CO_TF32_K = (0, 4, 1, 5, 2, 6, 3, 7)
 SWEEP_ARMS = ("block", "sub", "sub_bf16", "mxu", "mxu_bf16")
 
 # Launches of the CUDA sweep, per kernel instance (arm, K). sweep_topk adds
-# one per kernel launch and nothing else does; chip_smoke.py resets and
-# reads them around each main-path run.
+# one per kernel launch, under _LAUNCH_LOCK (match_many runs on several
+# threads under the service's scheduler), and nothing else does;
+# chip_smoke.py resets and reads them around each main-path run.
 SWEEP_LAUNCHES = {(arm, k): 0 for arm in SWEEP_ARMS for k in SWEEP_KS}
+_LAUNCH_LOCK = threading.Lock()
 
 
 class CandidateSet(NamedTuple):
@@ -759,7 +762,8 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
         coarse if arm not in ("block", "sub") else None,
         SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc, float(radius),
         edge, off, dist, gate_log)
-    SWEEP_LAUNCHES[arm, k] += 1
+    with _LAUNCH_LOCK:
+        SWEEP_LAUNCHES[arm, k] += 1
     return edge, off, dist
 
 

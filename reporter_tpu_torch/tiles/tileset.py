@@ -26,7 +26,10 @@ S line segments, G OSMLR segments, M reach-table width):
 
 The device side stages only what the dense path reads
 (``tables_from_numpy``). The JAX package's spatial grid is not kept: the
-grid candidate backend is not part of this port.
+grid candidate backend is not part of this port. ``save`` / ``load`` use
+the JAX package's ``.npz`` layout and schema check, so the two packages
+read each other's files: the port writes an empty grid (and no banned
+turns), and drops the grid it reads.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ ARRAY_FIELDS = (
     "seg_a", "seg_b", "seg_edge", "seg_off", "seg_len",
     "reach_to", "reach_dist", "reach_next", "edge_reach_row",
 )
+
+
+# the JAX package's tile file schema (reach rows ascending by target id)
+_SCHEMA = 4
 
 
 class TileMeta(NamedTuple):
@@ -90,6 +97,56 @@ class TileSet:
 
     def arrays(self) -> dict[str, np.ndarray]:
         return {f: getattr(self, f) for f in ARRAY_FIELDS}
+
+    # ---- persistence (the JAX package's .npz layout) ----------------------
+
+    def save(self, path: str) -> str:
+        """Write the tile as the JAX package's schema-4 ``.npz`` (``.npz``
+        appended where missing) → the path written. The grid fields are
+        empty: this port builds no spatial grid."""
+        import json
+
+        if not path.endswith(".npz"):
+            path += ".npz"
+        payload = {f: getattr(self, f) for f in ARRAY_FIELDS}
+        payload["grid"] = np.full((0, 1), -1, np.int32)
+        payload["ban_from"] = np.zeros(0, np.int32)
+        payload["ban_to"] = np.zeros(0, np.int32)
+        # TileMeta of the JAX package: grid origin, cell size, grid dims,
+        # origin (lon, lat), index radius
+        meta = [[0.0, 0.0], 0.0, [0, 0], list(self.meta.origin_lonlat), 0.0]
+        payload["_meta"] = np.frombuffer(
+            json.dumps({"name": self.name, "meta": meta,
+                        "stats": self.stats, "schema": _SCHEMA}).encode(),
+            dtype=np.uint8)
+        np.savez_compressed(path, **payload)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "TileSet":
+        """Read a schema-4 ``.npz`` written by either package (``python -m
+        reporter_tpu.tiles build``, or ``save``). Another schema raises
+        ValueError, as in the JAX package; a turn-restricted tile raises
+        NotImplementedError (``from_arrays``)."""
+        import json
+
+        if not path.endswith(".npz"):
+            path += ".npz"
+        with np.load(path) as z:
+            raw = json.loads(bytes(z["_meta"]).decode())
+            if raw.get("schema", 1) != _SCHEMA:
+                raise ValueError(
+                    f"{path}: tileset schema {raw.get('schema', 1)} predates "
+                    "the id-sorted reach rows (binary-searched by the "
+                    "native walker); recompile the network")
+            if len(raw["meta"]) != 5:
+                raise ValueError(
+                    f"{path}: tileset metadata has {len(raw['meta'])} "
+                    "fields, expected 5; recompile the network")
+            arrays = {f: z[f] for f in (*ARRAY_FIELDS, "ban_from")}
+        out = cls.from_arrays(raw["name"], tuple(raw["meta"][3]), arrays)
+        out.stats = raw.get("stats", {})
+        return out
 
     @classmethod
     def from_arrays(cls, name: str, origin_lonlat: "tuple[float, float]",
