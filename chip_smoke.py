@@ -93,7 +93,47 @@ the native host half against its Python forms, in phases:
                 tuner cache): /health within SERVER_START_S, 8 /report
                 answers equal [serve]'s for the same payloads, SIGINT
                 drains to exit code 0; the start-up time;
-  8. summary  — the kernels JSON line (every arm at every K, the sources,
+  8. stream   — on sf, the streaming worker at full width: the 1024 x 120
+                fleet as one firehose of 122,880 {uuid, lat, lon, time}
+                records in STREAM_ROUNDS rounds of STREAM_ROUND_POINTS
+                points per vehicle (round-robin, as the JAX tests'
+                _records), default StreamingConfig (4 partitions, flush at
+                16 points: every vehicle flushes every second round), the
+                datastore a local HTTP server. Each step must consume its
+                whole round; after the drain lag 0, committed at the end
+                offsets, malformed 0. [stream]: StreamPipeline on the card
+                over IngestQueue (checkpointed after round
+                STREAM_CHECKPOINT_ROUND; records/s, flush ms, the
+                matcher's stage split, reports, histogram rows); the first
+                STREAM_CPU_UUIDS uuids streamed alone on the CPU and on
+                the card give equal reports, all held in the full run; the
+                stream window launched only the tuned (arm, 8) instance.
+                [stream:columnar]: ColumnarStreamPipeline over
+                ColumnarIngestQueue, the rounds as ProbeColumns, at
+                pipeline depth 1 (each round waits for the in-flight wave
+                before its step, so every uuid flushes at the dict
+                pipeline's points) and 0: reports, hist and qhist equal
+                [stream]'s, and the same launches; waves in flight and the
+                per-wave prepare / match / report build / publish split
+                (flight-recorder spans). [stream:recover]: the columnar
+                pipeline checkpointed after round STREAM_CHECKPOINT_ROUND,
+                one more round, dropped; a fresh one restored on the same
+                queue finishes the feed: the reports before the checkpoint
+                and after the restore cover the uninterrupted run's; the
+                dict pipeline's checkpoint restored into a columnar
+                pipeline has the columnar checkpoint's histograms and
+                finishes with the uninterrupted ones. [stream:worker]:
+                python -m reporter_tpu_torch.streaming --exit-on-drain as
+                a subprocess over a pre-staged durable broker (the saved
+                sf tile): the dict worker and --columnar at pipeline depth
+                0 (--config), each with exit 0, lag 0, committed at the
+                end offsets and the reports at the datastore equal to an
+                in-process pipeline's of its kind over a copy of the
+                directory; then --columnar at its default depth 1 (flush
+                points that depend on the match thread's speed): exit 0,
+                lag 0, every report published; the start-up, step-loop
+                and drain times;
+  9. summary  — the kernels JSON line (every arm at every K, the sources,
                 the host library among them), the card line, and the
                 final {"ok": true, "device": {...}} line.
 
@@ -146,6 +186,11 @@ SERVE_MANY = 256              # traces of [serve]'s one /report_many
 SERVE_CPU_UUIDS = 32          # uuids also served by the CPU app
 SERVER_START_S = 300          # [server]: /health must answer within this
 SERVER_REQUESTS = 8           # [server]: requests checked against [serve]
+STREAM_ROUNDS, STREAM_ROUND_POINTS = 10, 12   # the streaming feed: rounds
+#                               of points per vehicle (10 x 12 = N_POINTS)
+STREAM_CHECKPOINT_ROUND = 4   # [stream:recover]: checkpoint after this round
+STREAM_CPU_UUIDS = 32         # [stream]: uuids also streamed on the CPU
+STREAM_WORKER_TIMEOUT_S = 600  # [stream:worker]: a worker subprocess's limit
 SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
            "reporter_tpu_torch/kernels/topk.cuh",
            "reporter_tpu_torch/native/prepare.cc",
@@ -1164,6 +1209,567 @@ def server_phase(card, served, cache):
                          f"{rc}:\n" + _tail(log_path))
 
 
+# ---- streaming: the feed, the datastore, the checks ------------------------
+
+
+def stream_rounds(fleet):
+    """The fleet as one firehose in STREAM_ROUNDS rounds: round k holds
+    points k*STREAM_ROUND_POINTS .. (k+1)*STREAM_ROUND_POINTS - 1 of every
+    vehicle as {uuid, lat, lon, time} records, round-robin over the
+    vehicles (point-major, as the JAX tests' _records interleaves)."""
+    rounds = []
+    for k in range(STREAM_ROUNDS):
+        recs = []
+        for t in range(k * STREAM_ROUND_POINTS, (k + 1) * STREAM_ROUND_POINTS):
+            for p in fleet:
+                recs.append({"uuid": p.uuid, "lat": float(p.lonlat[t, 1]),
+                             "lon": float(p.lonlat[t, 0]),
+                             "time": float(p.times[t])})
+        rounds.append(recs)
+    return rounds
+
+
+def _sink():
+    """A local datastore (HTTP) on a free port. → (server, its URL)."""
+    sink = ThreadingHTTPServer(("127.0.0.1", 0), _Datastore)
+    sink.bodies, sink.lock = [], threading.Lock()
+    threading.Thread(target=sink.serve_forever, daemon=True).start()
+    return sink, f"http://127.0.0.1:{sink.server_address[1]}/store"
+
+
+def _close_sink(sink):
+    sink.shutdown()
+    sink.server_close()
+
+
+def _report_rows(bodies):
+    """The report rows of datastore bodies (histogram flushes excluded)."""
+    return [r for b in bodies for r in b.get("reports", ())]
+
+
+def _capture(bodies):
+    """A publisher transport that keeps each POSTed body."""
+    return lambda url, body: bodies.append(json.loads(body)) or 200
+
+
+def _covers(have, want):
+    """The multiset ``have`` holds every element of ``want``."""
+    from collections import Counter
+
+    return not (Counter(want) - Counter(have))
+
+
+def _ends(q):
+    return [q.end_offset(p) for p in range(q.num_partitions)]
+
+
+def _settle(pipe):
+    """Wait for the columnar pipeline's in-flight waves to finish their
+    match (the next step harvests them): a round then meets the same
+    flush points as the sequential pipelines, whatever the card's speed."""
+    for w in list(getattr(pipe, "_inflight", ())):
+        w.future.result()
+
+
+def _wave_buckets(pipe, new_points):
+    """{bucket: traces} of the wave a columnar pipeline's next step
+    flushes in this feed, where every vehicle gets ``new_points`` per
+    round: each ripe vehicle's merged trace is its buffered points, the
+    round's and its cached tail; match_many runs one wire entry per
+    bucket."""
+    from reporter_tpu_torch.matcher.api import _bucket_len
+
+    out = {}
+    for c in np.nonzero(pipe._count + new_points >= pipe._wave_points)[0]:
+        e = pipe.cache._entries.get(pipe._uuid_of[c])
+        n = int(pipe._count[c]) + new_points + (0 if e is None
+                                                 else len(e.time))
+        out[_bucket_len(n)] = out.get(_bucket_len(n), 0) + 1
+    return dict(sorted(out.items()))
+
+
+def stream_feed(pipe, rounds, append, tag, settle=False, on_round=None,
+                buckets=False):
+    """Append each round to the pipeline's queue and step once; the step
+    must consume the whole round. Then drain. → fields: per-step and
+    drain walls (ms), the steps whose flush completed, the worker's
+    seconds (steps + drain) and the producer's (appends)."""
+    q = pipe.queue
+    batches = (lambda: pipe.app.stats["batches"]) if hasattr(pipe, "app") \
+        else (lambda: pipe.stats_counters["batches"])
+    step_ms, settle_ms, flush_steps, inflight, waves = [], [], [], [], []
+    append_s = 0.0
+    for k, recs in enumerate(rounds):
+        if buckets:
+            waves.append(_wave_buckets(pipe, STREAM_ROUND_POINTS))
+        t = time.perf_counter()
+        append(q, recs)
+        append_s += time.perf_counter() - t
+        if settle:
+            t = time.perf_counter()
+            _settle(pipe)
+            settle_ms.append((time.perf_counter() - t) * 1e3)
+        before = batches()
+        t = time.perf_counter()
+        pipe.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if pipe._consumed != _ends(q):
+            raise SystemExit(f"[{tag}] round {k}: the step consumed "
+                             f"{pipe._consumed}, the queue ends at {_ends(q)}")
+        if batches() > before:
+            flush_steps.append(k)
+        elif buckets:
+            waves.pop()                  # no wave this round
+        inflight.append(len(getattr(pipe, "_inflight", ())))
+        if on_round is not None:
+            on_round(k)
+    t = time.perf_counter()
+    pipe.drain()
+    drain_ms = (time.perf_counter() - t) * 1e3
+    # the worker's time: its steps, the waits for its own in-flight waves
+    # and the drain; the producer's appends are apart
+    return {"step_ms": step_ms, "settle_ms": settle_ms, "drain_ms": drain_ms,
+            "flush_steps": flush_steps, "inflight_after_step": inflight,
+            "wave_buckets": waves,
+            "worker_s": (sum(step_ms) + sum(settle_ms) + drain_ms) / 1e3,
+            "append_s": append_s}
+
+
+def _stream_fields(pipe, feed, n_records, bodies):
+    st = pipe.stats()
+    flush_ms = [feed["step_ms"][k] for k in feed["flush_steps"]]
+    return {"steps": st["steps"], "flushes": len(feed["flush_steps"]),
+            "records": n_records,
+            "records_per_s": n_records / feed["worker_s"],
+            "worker_s": feed["worker_s"], "producer_append_s":
+            feed["append_s"], "step_ms": feed["step_ms"],
+            "settle_ms": feed["settle_ms"],
+            "flush_step_ms_p50": (statistics.median(flush_ms)
+                                  if flush_ms else None),
+            "flush_step_ms_max": max(flush_ms) if flush_ms else None,
+            "drain_ms": feed["drain_ms"],
+            "reports_published": len(_report_rows(bodies)),
+            "hist_rows": st["hist_rows"], "qhist_rows": st["qhist_rows"],
+            "lag": st["lag"], "malformed": st["malformed"]}
+
+
+def _check_drained(pipe, tag):
+    st = pipe.stats()
+    if st["lag"] != 0 or pipe.committed != _ends(pipe.queue) \
+            or st["malformed"] != 0:
+        raise SystemExit(f"[{tag}] lag {st['lag']}, committed "
+                         f"{pipe.committed} against ends {_ends(pipe.queue)}, "
+                         f"malformed {st['malformed']}")
+
+
+def _launches(counts):
+    return {f"{a}@k{k}": n for (a, k), n in counts.items() if n}
+
+
+def stream_phase(card, ts, fleet, dc, win, cache, device="cuda"):
+    """[stream]: the dict StreamPipeline on the card over IngestQueue, fed
+    the rounds, checkpointed after round STREAM_CHECKPOINT_ROUND; its
+    first STREAM_CPU_UUIDS uuids' reports against a CPU pipeline's. → what
+    the later phases compare with."""
+    from reporter_tpu_torch.config import Config, ServiceConfig
+    from reporter_tpu_torch.streaming import StreamPipeline
+
+    rounds = stream_rounds(fleet)
+    n_records = sum(len(r) for r in rounds)
+    os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "stream")
+    sink, url = _sink()
+    cfg = Config(service=ServiceConfig(datastore_url=url))
+    t0 = time.perf_counter()
+    pipe, cal = win.run("sf:stream:calibration",
+                        lambda: StreamPipeline(ts, cfg, device=device))
+    construct_s = time.perf_counter() - t0
+    m = pipe.app.matcher
+    p = m.params
+    tuned = (dc.sweep_arm(p.sweep_subcull, p.sweep_lowp, p.sweep_mxu),
+             p.max_candidates)
+    ck_dict = os.path.join(cache, "stream_dict_ckpt.npz")
+
+    def on_round(k):
+        if k == STREAM_CHECKPOINT_ROUND - 1:
+            pipe.checkpoint(ck_dict)
+
+    stages0 = dict(m.stage_seconds)
+    feed, counts = win.run("sf:stream", lambda: stream_feed(
+        pipe, rounds, lambda q, recs: q.append_many(recs), "stream",
+        on_round=on_round))
+    stage_ms = {k: (v - stages0[k]) * 1e3 for k, v in m.stage_seconds.items()}
+    _check_drained(pipe, "stream")
+    with sink.lock:
+        bodies = list(sink.bodies)
+    _close_sink(sink)
+    reports = _sorted_reports(_report_rows(bodies))
+    hist, qhist = pipe.hist.snapshot(), pipe.qhist.snapshot()
+    phase("stream", card, metro="sf", device=device,
+          tuned_instance=list(tuned), construct_s=construct_s,
+          calibration_launches=_launches(cal),
+          **_stream_fields(pipe, feed, n_records, bodies),
+          matcher_stage_ms=stage_ms, launches=_launches(counts))
+    only(counts, tuned, "[stream]: the stream window")
+
+    # the first uuids through a CPU pipeline and a card pipeline of their
+    # own: a uuid flushes at the same points whatever else is in the
+    # stream, and decodes alone, so the three agree
+    first = {f.uuid for f in fleet[:STREAM_CPU_UUIDS]}
+    small = [[r for r in recs if r["uuid"] in first] for recs in rounds]
+    got = {}
+    for dev in ("cpu", device):
+        cap = []
+        sp = StreamPipeline(ts, Config(service=ServiceConfig(
+            datastore_url="http://datastore.local/")),
+            transport=_capture(cap), device=dev)
+        (_, small_counts) = win.run(
+            f"sf:stream:first_{dev}", lambda: stream_feed(
+                sp, small, lambda q, recs: q.append_many(recs),
+                f"stream:{dev}"))
+        _check_drained(sp, f"stream:{dev}")
+        got[dev] = _sorted_reports(_report_rows(cap))
+    same = got["cpu"] == got[device]
+    covered = _covers(reports, got["cpu"])
+    phase("stream:check", card, cpu_uuids=STREAM_CPU_UUIDS,
+          first_uuids_reports=len(got["cpu"]),
+          card_vs_cpu_reports_equal=same,
+          full_run_holds_first_uuids_reports=covered,
+          first_uuids_launches=_launches(small_counts))
+    if not (same and covered and got["cpu"]):
+        raise SystemExit("[stream] the first uuids' reports differ between "
+                         "the card and the CPU, or the full run lacks them")
+    return {"rounds": rounds, "reports": reports, "hist": hist,
+            "qhist": qhist, "ck_dict": ck_dict, "tuned": tuned,
+            "launches": dict(counts)}
+
+
+def _wave_split(tracing, wave_ids):
+    """Per-wave ms of the columnar pipeline's stage spans."""
+    out = {name: [] for name in ("prepare", "device_match", "report_build",
+                                 "publish")}
+    for s in tracing.tracer().snapshot():
+        if s.name in out and s.wave in wave_ids:
+            out[s.name].append((s.t1 - s.t0) * 1e3)
+    return out
+
+
+def stream_columnar_phase(card, ts, dc, win, ref, device="cuda"):
+    """[stream:columnar]: ColumnarStreamPipeline on the card over
+    ColumnarIngestQueue, the same rounds as ProbeColumns, at pipeline
+    depth 1 and 0; reports and both histograms equal [stream]'s."""
+    from reporter_tpu_torch.config import (Config, ServiceConfig,
+                                           StreamingConfig)
+    from reporter_tpu_torch.streaming import (ColumnarStreamPipeline,
+                                              pack_records)
+    from reporter_tpu_torch.utils import tracing
+
+    cols = [pack_records(recs) for recs in ref["rounds"]]
+    n_records = sum(c.n for c in cols)
+    ok = True
+    launches = {}
+    for depth in (1, 0):
+        sink, url = _sink()
+        # trace=True: the flight recorder keeps each wave's stage spans
+        cfg = Config(service=ServiceConfig(datastore_url=url, trace=True),
+                     streaming=StreamingConfig(pipeline_depth=depth))
+        pipe = ColumnarStreamPipeline(ts, cfg, device=device)
+        tracing.tracer().clear()
+        m = pipe.matcher
+        stages0 = dict(m.stage_seconds)
+        feed, counts = win.run(f"sf:stream:columnar:d{depth}", lambda: (
+            stream_feed(pipe, cols, lambda q, c: q.append_columns(c),
+                        f"stream:columnar:d{depth}", settle=depth > 0,
+                        buckets=depth == 0)))
+        stage_ms = {k: (v - stages0[k]) * 1e3
+                    for k, v in m.stage_seconds.items()}
+        _check_drained(pipe, f"stream:columnar:d{depth}")
+        split = _wave_split(tracing, set(range(1, pipe._wave_serial + 1)))
+        pipe.close()
+        with sink.lock:
+            bodies = list(sink.bodies)
+        _close_sink(sink)
+        reports = _sorted_reports(_report_rows(bodies))
+        same = reports == ref["reports"]
+        hist_eq = np.array_equal(pipe.hist.snapshot(), ref["hist"])
+        qhist_eq = np.array_equal(pipe.qhist.snapshot(), ref["qhist"])
+        wave_ms = [a + b + c for a, b, c in zip(
+            split["prepare"], split["device_match"], split["report_build"])]
+        fields = _stream_fields(pipe, feed, n_records, bodies)
+        fields.update(
+            flush_wave_ms_p50=statistics.median(wave_ms) if wave_ms else None,
+            flush_wave_ms_max=max(wave_ms) if wave_ms else None)
+        launches[depth] = dict(counts)
+        phase("stream:columnar", card, metro="sf", device=device,
+              pipeline_depth=depth, **fields,
+              waves=pipe.waves_completed,
+              max_inflight_waves=max(feed["inflight_after_step"]),
+              wave_buckets=feed["wave_buckets"] or None,
+              wave_split_ms=split, matcher_stage_ms=stage_ms,
+              reports_equal_stream=same, hist_equal_stream=hist_eq,
+              qhist_equal_stream=qhist_eq, launches=_launches(counts))
+        only(counts, ref["tuned"], f"[stream:columnar] depth {depth}")
+        ok = ok and same and hist_eq and qhist_eq
+    # the same waves launch the same sweeps, whichever thread matched them:
+    # the launch counter is exact under the pipelined flush
+    same_launches = launches[1] == launches[0] == ref["launches"]
+    phase("stream:columnar:check", card, launches_equal_stream=same_launches)
+    if not (ok and same_launches):
+        raise SystemExit("[stream:columnar] reports, histograms or launch "
+                         "counts differ from [stream]'s")
+    return cols
+
+
+def stream_recover_phase(card, ts, win, ref, cols, cache, device="cuda"):
+    """[stream:recover]: checkpoint the columnar pipeline after round
+    STREAM_CHECKPOINT_ROUND, run one more round, drop it, restore a fresh
+    one on the same queue and finish; then the dict pipeline's checkpoint
+    of that round restored into a columnar pipeline."""
+    from reporter_tpu_torch.config import Config, ServiceConfig
+    from reporter_tpu_torch.streaming import (ColumnarIngestQueue,
+                                              ColumnarStreamPipeline)
+
+    k_ck = STREAM_CHECKPOINT_ROUND
+    app = lambda q, c: q.append_columns(c)     # noqa: E731
+    sink, url = _sink()
+    cfg = Config(service=ServiceConfig(datastore_url=url))
+    ck = os.path.join(cache, "stream_col_ckpt.npz")
+
+    def run():
+        pipe = ColumnarStreamPipeline(ts, cfg, device=device)
+        for k in range(k_ck):
+            app(pipe.queue, cols[k])
+            _settle(pipe)
+            pipe.step()
+        pipe.checkpoint(ck)
+        with sink.lock:
+            n_before = len(sink.bodies)
+        at_ck = (pipe.hist.snapshot(), pipe.qhist.snapshot(),
+                 list(pipe.committed))
+        app(pipe.queue, cols[k_ck])      # one more round, then the "crash"
+        _settle(pipe)
+        pipe.step()
+        pipe.close()                     # no drain: its tail is lost
+        fresh = ColumnarStreamPipeline(ts, cfg, queue=pipe.queue,
+                                       device=device)
+        fresh.restore(ck)
+        fresh.step()                     # replays the round after the cut
+        if fresh._consumed != _ends(fresh.queue):
+            raise SystemExit("[stream:recover] the restored pipeline did "
+                             "not replay the round after the checkpoint")
+        stream_feed(fresh, cols[k_ck + 1:], app, "stream:recover",
+                    settle=True)
+        _check_drained(fresh, "stream:recover")
+        fresh.close()
+        # the dict pipeline's checkpoint, into a columnar pipeline
+        caps = []
+        q3 = ColumnarIngestQueue()
+        for k in range(k_ck + 1):
+            app(q3, cols[k])
+        cross = ColumnarStreamPipeline(
+            ts, Config(service=ServiceConfig(
+                datastore_url="http://datastore.local/")),
+            queue=q3, transport=_capture(caps), device=device)
+        cross.restore(ref["ck_dict"])
+        restored = (cross.hist.snapshot(), cross.qhist.snapshot(),
+                    list(cross.committed))
+        cross.step()
+        stream_feed(cross, cols[k_ck + 1:], app, "stream:recover:cross",
+                    settle=True)
+        _check_drained(cross, "stream:recover:cross")
+        cross.close()
+        return (n_before, at_ck, fresh, restored, cross, caps)
+
+    (n_before, at_ck, fresh, restored, cross, caps), counts = win.run(
+        "sf:stream:recover", run)
+    only(counts, ref["tuned"], "[stream:recover]")
+    with sink.lock:
+        bodies = list(sink.bodies)
+    _close_sink(sink)
+    before = _report_rows(bodies[:n_before])
+    after = _report_rows(bodies[n_before:])
+    got = _sorted_reports(before + after)
+    covers = _covers(got, ref["reports"])
+    cross_at_ck = all(np.array_equal(a, b) for a, b in
+                      zip(restored[:2], at_ck[:2])) \
+        and restored[2] == at_ck[2]
+    cross_final = (np.array_equal(cross.hist.snapshot(), ref["hist"])
+                   and np.array_equal(cross.qhist.snapshot(), ref["qhist"]))
+    cross_after = _sorted_reports(_report_rows(caps)) == \
+        _sorted_reports(after)
+    phase("stream:recover", card, metro="sf", device=device,
+          checkpoint_round=k_ck, reports_before=len(before),
+          reports_after=len(after), uninterrupted_reports=len(ref["reports"]),
+          cover_uninterrupted=covers,
+          equal_uninterrupted=got == ref["reports"],
+          restored_hist_equal_uninterrupted=(
+              np.array_equal(fresh.hist.snapshot(), ref["hist"])
+              and np.array_equal(fresh.qhist.snapshot(), ref["qhist"])),
+          cross_restore_hist_equal_at_checkpoint=cross_at_ck,
+          cross_restore_final_hist_equal=cross_final,
+          cross_restore_reports_equal_after=cross_after,
+          launches=_launches(counts))
+    if not (covers and cross_at_ck and cross_final):
+        raise SystemExit("[stream:recover] the recovered run misses reports "
+                         "of the uninterrupted one, or the cross-restored "
+                         "histograms differ")
+
+
+def _worker(cmd, env, cwd):
+    """Run a worker subprocess to its end (killed past
+    STREAM_WORKER_TIMEOUT_S); the time from the spawn to its "ready" log
+    line is ``ready_s``, the whole run ``wall_s``."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=cwd)
+    out, err, ready = [], [], []
+
+    def read_err():
+        for ln in proc.stderr:
+            err.append(ln)
+            if not ready and "ready in" in ln:
+                ready.append(time.perf_counter() - t0)
+
+    readers = [threading.Thread(target=read_err),
+               threading.Thread(target=lambda: out.append(proc.stdout.read()))]
+    for th in readers:
+        th.start()
+    try:
+        proc.wait(timeout=STREAM_WORKER_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for th in readers:
+            th.join()
+    proc.wall_s = time.perf_counter() - t0
+    proc.ready_s = ready[0] if ready else None
+    proc.stdout, proc.stderr = "".join(out), "".join(err)
+    return proc
+
+
+def stream_worker_phase(card, ts, win, ref, cols, cache, device="cuda"):
+    """[stream:worker]: python -m reporter_tpu_torch.streaming as a
+    subprocess over a pre-staged durable broker: the dict worker and the
+    columnar one at pipeline depth 0, each held to an in-process pipeline
+    of its kind over a copy of the same directory; then the columnar
+    worker at its default depth 1, held to exit 0, lag 0 and every report
+    published (its flush points depend on the match thread's speed, so no
+    second run can be held to its reports)."""
+    import shutil
+
+    from reporter_tpu_torch.config import (Config, ServiceConfig,
+                                           StreamingConfig)
+    from reporter_tpu_torch.streaming import (ColumnarStreamPipeline,
+                                              DurableColumnarIngestQueue,
+                                              DurableIngestQueue,
+                                              StreamPipeline)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tiles = ts.save(os.path.join(cache, "sf_stream.npz"))
+    brokers = {}
+    for fmt in ("dict", "columnar"):
+        path = os.path.join(cache, f"broker_{fmt}")
+        t = time.perf_counter()
+        if fmt == "dict":
+            q = DurableIngestQueue(path)
+            for recs in ref["rounds"]:
+                q.append_many(recs)
+        else:
+            q = DurableColumnarIngestQueue(path)
+            for c in cols:
+                q.append_columns(c)
+        brokers[fmt] = (path, _ends(q), time.perf_counter() - t)
+        q.close()
+        shutil.copytree(path, path + "_copy")
+    depth0 = StreamingConfig(pipeline_depth=0)
+    cfg_path = os.path.join(cache, "worker_depth0.json")
+    with open(cfg_path, "w") as f:
+        f.write(Config(streaming=depth0).to_json())
+    ok, reports = True, {}
+    for kind in ("dict", "columnar", "columnar:d1"):
+        broker, ends, stage_s = brokers[kind.split(":")[0]]
+        sink, url = _sink()
+        cmd = [sys.executable, "-m", "reporter_tpu_torch.streaming",
+               "--tiles", tiles, "--broker-dir", broker, "--checkpoint",
+               os.path.join(cache, f"worker_{kind.replace(':', '_')}.ckpt"),
+               "--exit-on-drain", "--device", device]
+        if kind != "dict":
+            cmd.append("--columnar")
+        if kind in ("dict", "columnar"):
+            cmd += ["--config", cfg_path]
+        proc = _worker(cmd, dict(os.environ, DATASTORE_URL=url,
+                                 PYTHONPATH=here), here)
+        with sink.lock:
+            bodies = list(sink.bodies)
+        _close_sink(sink)
+        lines = proc.stdout.strip().splitlines()
+        try:
+            exit_json = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            exit_json = None
+        consumed = re.search(r"stepped ([0-9]+) times in ([0-9.]+) s",
+                             proc.stderr)
+        drained = re.search(r"drained in ([0-9.]+) s", proc.stderr)
+        got = reports[kind] = _sorted_reports(_report_rows(bodies))
+        good = (proc.returncode == 0 and exit_json is not None
+                and exit_json.get("lag") == 0
+                and exit_json.get("committed") == ends and bool(got)
+                and exit_json.get("published") == len(got))
+        fields = {}
+        if kind == "columnar:d1":
+            fields["reports_equal_depth0_worker"] = got == reports["columnar"]
+        else:
+            # the same kind of pipeline in-process over the copy: stepped
+            # until it has consumed the log and flushes no more, drained
+            cap = []
+            pcfg = Config(service=ServiceConfig(
+                datastore_url="http://datastore.local/"), streaming=depth0)
+            if kind == "dict":
+                qc = DurableIngestQueue(broker + "_copy")
+                pipe = StreamPipeline(ts, pcfg, queue=qc,
+                                      transport=_capture(cap), device=device)
+            else:
+                qc = DurableColumnarIngestQueue(broker + "_copy")
+                pipe = ColumnarStreamPipeline(ts, pcfg, queue=qc,
+                                              transport=_capture(cap),
+                                              device=device)
+
+            def pump():
+                while True:
+                    n = pipe.step()
+                    if pipe._consumed == _ends(qc) and n == 0:
+                        break
+                pipe.drain()
+
+            _, counts = win.run(f"sf:stream:worker:{kind}", pump)
+            _check_drained(pipe, f"stream:worker:{kind}")
+            close = getattr(pipe, "close", None)
+            if close is not None:
+                close()
+            qc.close()
+            want = _sorted_reports(_report_rows(cap))
+            good = good and got == want
+            fields.update(in_process_reports=len(want),
+                          reports_equal_in_process=got == want,
+                          in_process_launches=_launches(counts))
+        phase("stream:worker", card, metro="sf", kind=kind, device=device,
+              broker_stage_s=stage_s, exit_code=proc.returncode,
+              wall_s=proc.wall_s, start_to_ready_s=proc.ready_s,
+              step_loop_s=float(consumed.group(2)) if consumed else None,
+              drain_s=float(drained.group(1)) if drained else None,
+              exit=exit_json, end_offsets=ends,
+              reports_at_datastore=len(got),
+              hist_bodies=sum(1 for b in bodies if "histograms" in b),
+              **fields)
+        if not good:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            ok = False
+    if not ok:
+        raise SystemExit("[stream:worker] a worker failed, did not drain, or "
+                         "its reports differ from the in-process pipeline's")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -1289,7 +1895,13 @@ def main() -> int:
         served = serve_phase(card, ts, fleet, dc, win, cache)
         server_phase(card, served, cache)
 
-    # ---- 8. summary -------------------------------------------------------
+        # ---- 8. the streaming worker: dict, columnar, recovery, entry ----
+        ref = stream_phase(card, ts, fleet, dc, win, cache)
+        cols = stream_columnar_phase(card, ts, dc, win, ref)
+        stream_recover_phase(card, ts, win, ref, cols, cache)
+        stream_worker_phase(card, ts, win, ref, cols, cache)
+
+    # ---- 9. summary -------------------------------------------------------
     kernels = []
     for arm, (_, replaces) in ARMS.items():
         for k in dc.SWEEP_KS:

@@ -16,8 +16,8 @@ default; it is never ignored:
   index_radius (the spatial grid)              queue 1 item 5
   ServiceConfig.mode other than "auto"         queue 1 item 4 (Config.validate)
 
-The streaming section of a JAX config is kept as it was read, for the
-streaming slice; the port reads none of it.
+``StreamingConfig`` is the JAX package's, field for field; it has no
+environment variables there either.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ from typing import Any
 
 from reporter_tpu_torch.utils.tracing import env_flag
 
-__all__ = ["MatcherParams", "CompilerParams", "ServiceConfig", "Config",
-           "env_flag"]
+__all__ = ["MatcherParams", "CompilerParams", "ServiceConfig",
+           "StreamingConfig", "Config", "env_flag"]
 
 _MODES = ("auto", "bicycle", "foot")
 
@@ -333,15 +333,44 @@ class ServiceConfig:
 
 
 @dataclass(frozen=True)
+class StreamingConfig:
+    """Streaming-ingest wiring (streaming/): partition count and the
+    matcher worker's flush policy ("when enough points or time have
+    gathered, match the buffered trace")."""
+
+    num_partitions: int = 4        # uuid-hash partitions of the broker
+    poll_max_records: int = 4096   # records consumed per partition per step
+    flush_min_points: int = 16     # buffered points per uuid that trigger a match
+    flush_max_age: float = 30.0    # seconds a buffer may age before forced flush
+    speed_bins: tuple[float, ...] = (0., 2.5, 5., 7.5, 10., 12.5, 15., 17.5,
+                                     20., 25., 30., 40.)  # m/s histogram edges
+    queue_bins: tuple[float, ...] = (0., 10., 25., 50., 100., 200.,
+                                     400.)  # meters-of-queue histogram edges
+    hist_flush_interval: float = 60.0  # seconds between per-segment
+    #                                    histogram flushes to the datastore
+    #                                    (0 = manual flush only)
+    # Pipelined flush (columnar worker): flush waves in flight on the
+    # device while the main loop keeps consuming and the publisher thread
+    # POSTs completed waves. 0 = the sequential consume, match, publish
+    # loop (the dict worker's only shape); 1 = double buffering.
+    pipeline_depth: int = 1
+    # Adaptive wave sizing (columnar worker, opt-in): the effective
+    # flush_min_points grows while broker lag rises and decays toward
+    # wave_target_latency once caught up; flush_min_points is the start.
+    wave_autotune: bool = False
+    wave_min_points: int = 16          # controller floor (points/vehicle)
+    wave_max_points: int = 960         # controller ceiling
+    wave_target_latency: float = 2.0   # p50 probe-to-report target (s)
+
+
+@dataclass(frozen=True)
 class Config:
-    """Top-level structured config (the JAX package's Config, minus the
-    streaming section's fields: ``streaming`` holds a JAX config's
-    streaming section as it was read)."""
+    """Top-level structured config (the JAX package's Config)."""
 
     matcher: MatcherParams = field(default_factory=MatcherParams)
     compiler: CompilerParams = field(default_factory=CompilerParams)
     service: ServiceConfig = field(default_factory=ServiceConfig)
-    streaming: dict = field(default_factory=dict)
+    streaming: StreamingConfig = field(default_factory=StreamingConfig)
     matcher_backend: str = "torch"  # the port's one backend; "jax" (the
     #                                JAX package's device backend) reads
     #                                as "torch", "reference_cpu" raises
@@ -409,6 +438,27 @@ class Config:
             raise ValueError("service.publish_backoff_jitter must be >= 0")
         if svc.trace_ring < 1:
             raise ValueError("service.trace_ring must be >= 1")
+        s = self.streaming
+        if s.num_partitions < 1 or s.poll_max_records < 1 \
+                or s.flush_min_points < 1:
+            raise ValueError(
+                "streaming num_partitions / poll_max_records / "
+                "flush_min_points must all be >= 1")
+        if s.flush_max_age <= 0:
+            raise ValueError("streaming.flush_max_age must be > 0")
+        if s.pipeline_depth < 0:
+            raise ValueError("streaming.pipeline_depth must be >= 0")
+        if not (1 <= s.wave_min_points <= s.wave_max_points):
+            raise ValueError(
+                "streaming wave bounds need 1 <= wave_min_points "
+                "<= wave_max_points")
+        if s.wave_target_latency <= 0:
+            raise ValueError("streaming.wave_target_latency must be > 0")
+        for bins in ("speed_bins", "queue_bins"):
+            edges = getattr(s, bins)
+            if len(edges) < 1 or list(edges) != sorted(set(edges)):
+                raise ValueError(f"streaming.{bins} must be strictly "
+                                 "ascending")
         return self
 
     def to_json(self) -> str:
@@ -417,11 +467,15 @@ class Config:
     @classmethod
     def from_json(cls, text: str) -> "Config":
         raw = json.loads(text)
+        streaming = dict(raw.get("streaming", {}))
+        for bins in ("speed_bins", "queue_bins"):
+            if bins in streaming:
+                streaming[bins] = tuple(streaming[bins])
         return cls(
             matcher=MatcherParams(**raw.get("matcher", {})),
             compiler=CompilerParams(**raw.get("compiler", {})),
             service=ServiceConfig(**raw.get("service", {})),
-            streaming=dict(raw.get("streaming", {})),
+            streaming=StreamingConfig(**streaming),
             matcher_backend=raw.get("matcher_backend", "torch"),
         )
 

@@ -13,6 +13,12 @@ Injection sites of this package:
               fault raises ``InjectedFault`` (an OSError), so the
               publisher's retry, backoff and dead-letter spool handle it
               exactly like a network outage
+  checkpoint  streaming/state.save_checkpoint: fires after the tmp file
+              is written and before the atomic rename, the simulated
+              mid-checkpoint death the atomic write must survive
+  broker      durable broker batch append (streaming/durable_columnar.py):
+              ``torn`` writes half the frame and then dies, ``crash`` and
+              ``fail`` die before the write; both raise InjectedCrash
   quality     drift-sentinel evaluation (quality/monitor.py): a rule
               covering the evaluation's call index forces the window to
               read DRIFTED
@@ -25,6 +31,8 @@ grammar (';'-separated):
 
     publish:fail@10-40          calls 10..39 raise InjectedFault
     publish:fail@0-~0.25        every call fails w.p. 0.25 (seeded)
+    checkpoint:crash@1          the 2nd checkpoint dies before rename
+    broker:torn@3               the 4th batch append tears mid-frame
     quality:fail@3              the 4th evaluation reads drifted
 
 ``hi`` omitted ⇒ ``lo+1``; ``hi`` empty (``@5-``) ⇒ open-ended. Parsing
@@ -43,10 +51,10 @@ from dataclasses import dataclass, field
 
 from reporter_tpu_torch.utils import locks
 
-# the injection sites this package has; the JAX package's checkpoint,
-# broker, dispatch, fleet_promote and backfill sites arrive with their
-# front-ends (ROADMAP queue 1), and a plan naming one raises at parse
-SITES = ("publish", "quality")
+# the injection sites this package has; the JAX package's dispatch,
+# fleet_promote and backfill sites arrive with their front-ends (ROADMAP
+# queue 1), and a plan naming one raises at parse
+SITES = ("publish", "checkpoint", "broker", "quality")
 KINDS = ("fail", "crash", "hang", "torn")
 
 

@@ -1,12 +1,16 @@
-"""The host prepare of ``match_many``, in C and in numpy.
+"""The host prepare of ``match_many`` and the stream pipelines' report
+build, in C and in numpy.
 
 Counterpart: reporter_tpu/matcher/native_prepare.py (``prepare_slice``,
-``prepare_slice_python``, ``morton_keys``, ``morton_keys_python``). Each
-function has a C form (native/prepare.cc, one pass over a flat buffer) and
-a ``_python`` form with byte-identical outputs: the numpy form is the
-specification the C entry implements and what the tests hold it against.
-``SegmentMatcher`` serves the C form on both devices (this is host code);
-a library that does not build raises (native/build.py).
+``prepare_slice_python``, ``morton_keys``, ``morton_keys_python``,
+``build_reports``, ``tail_cuts``, ``tail_cuts_python``). Each function has
+a C form (native/prepare.cc, one pass over a flat buffer) and a plain
+numpy form with byte-identical outputs: the numpy form is the
+specification the C entry implements and what the tests hold it against
+(``build_reports``'s is ``streaming/columnar.build_report_columns``).
+``SegmentMatcher`` and the columnar stream pipeline serve the C forms on
+both devices (this is host code); a library that does not build raises
+(native/build.py), where the JAX package's bindings return None.
 """
 
 from __future__ import annotations
@@ -112,3 +116,83 @@ def morton_keys(first: np.ndarray) -> np.ndarray:
                              len(first),
                              native_build.ptr(keys, ctypes.c_uint64))
     return keys
+
+
+# ---------------------------------------------------------------------------
+# The streaming half: the columnar report build and the tail cuts
+
+
+def build_reports(cols, n_traces: "int | None", min_length: float):
+    """streaming/columnar.build_report_columns in one C pass: the same
+    return tuple (seg, nxt, t0, t1, length, queue, per_trace), per_trace
+    None when ``n_traces`` is None."""
+    lib = native_build.load()
+    n = cols.n_records
+    if not n:
+        z = np.empty(0, np.int64)
+        zf = np.empty(0)
+        return z, z, zf, zf, zf, zf, (
+            None if n_traces is None else np.zeros(n_traces, np.int64))
+    ptr = native_build.ptr
+    trace = np.ascontiguousarray(cols.trace, np.int32)
+    seg = np.ascontiguousarray(cols.segment_id, np.int64)
+    t0 = np.ascontiguousarray(cols.start_time, np.float64)
+    t1 = np.ascontiguousarray(cols.end_time, np.float64)
+    length = np.ascontiguousarray(cols.length, np.float64)
+    queue = np.ascontiguousarray(cols.queue_length, np.float64)
+    internal = np.ascontiguousarray(cols.internal, np.bool_).view(np.uint8)
+    out_seg = np.empty(n, np.int64)
+    out_nxt = np.empty(n, np.int64)
+    out_t0 = np.empty(n, np.float64)
+    out_t1 = np.empty(n, np.float64)
+    out_len = np.empty(n, np.float64)
+    out_queue = np.empty(n, np.float64)
+    # np.bincount(minlength=n_traces) grows past minlength when trace ids
+    # exceed it: size the C buffer the same way
+    nt = -1 if n_traces is None else max(int(n_traces),
+                                         int(trace.max()) + 1)
+    per_trace = np.empty(max(nt, 1), np.int64)
+    R = int(lib.reporter_build_reports(
+        ptr(trace, ctypes.c_int32), ptr(seg, ctypes.c_int64),
+        ptr(t0, ctypes.c_double), ptr(t1, ctypes.c_double),
+        ptr(length, ctypes.c_double), ptr(queue, ctypes.c_double),
+        ptr(internal, ctypes.c_uint8), n, float(min_length), nt,
+        ptr(out_seg, ctypes.c_int64), ptr(out_nxt, ctypes.c_int64),
+        ptr(out_t0, ctypes.c_double), ptr(out_t1, ctypes.c_double),
+        ptr(out_len, ctypes.c_double), ptr(out_queue, ctypes.c_double),
+        ptr(per_trace, ctypes.c_int64)))
+    return (out_seg[:R], out_nxt[:R], out_t0[:R], out_t1[:R],
+            out_len[:R], out_queue[:R],
+            None if n_traces is None else per_trace[:nt])
+
+
+def tail_cuts_python(time_flat: np.ndarray, bounds: np.ndarray,
+                     from_time: np.ndarray, max_points: int) -> np.ndarray:
+    """Per vehicle v (times sorted ascending): lo = max(max(0,
+    first_at_or_after(from_time) - 1), n - max_points); lo >= n means
+    retain nothing (ColumnarTraceCache.retain's cut)."""
+    V = len(bounds) - 1
+    lo = np.empty(V, np.int64)
+    for v in range(V):
+        t = time_flat[bounds[v]:bounds[v + 1]]
+        at = np.nonzero(t >= from_time[v])[0]
+        cut = max(0, int(at[0]) - 1) if len(at) else max(0, len(t) - 1)
+        lo[v] = max(cut, len(t) - max_points)
+    return lo
+
+
+def tail_cuts(time_flat: np.ndarray, bounds: np.ndarray,
+              from_time: np.ndarray, max_points: int) -> np.ndarray:
+    """tail_cuts_python in C: one lower bound per vehicle."""
+    lib = native_build.load()
+    ptr = native_build.ptr
+    time_flat = np.ascontiguousarray(time_flat, np.float64)
+    bounds = np.ascontiguousarray(bounds, np.int64)
+    from_time = np.ascontiguousarray(from_time, np.float64)
+    V = len(bounds) - 1
+    lo = np.empty(max(V, 1), np.int64)
+    lib.reporter_tail_cuts(
+        ptr(time_flat, ctypes.c_double), ptr(bounds, ctypes.c_int64), V,
+        ptr(from_time, ctypes.c_double), int(max_points),
+        ptr(lo, ctypes.c_int64))
+    return lo[:V]

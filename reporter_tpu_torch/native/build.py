@@ -1,8 +1,10 @@
 """Lazy build and ctypes binding of the port's host library.
 
 ``prepare.cc`` (the host prepare: ``reporter_prepare_slice``,
-``reporter_morton_keys``) and ``walker.cc`` (the edge walk:
-``reporter_walk_segments``) are the host half of ``match_many``. ``g++``
+``reporter_morton_keys``; the streaming half: ``reporter_build_reports``,
+``reporter_tail_cuts``) and ``walker.cc`` (the edge walk:
+``reporter_walk_segments``) are the host half of ``match_many`` and of
+the stream pipelines' report build. ``g++``
 compiles them at first use into ``reporter_tpu_torch/_build/``: one shared
 library with a plain C interface, loaded with ``ctypes.CDLL`` (not
 ``PyDLL``), so a call releases the GIL and a walk can run beside the main
@@ -97,6 +99,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.reporter_morton_keys.restype = None
     lib.reporter_morton_keys.argtypes = [f64p, i64, u64p]
+    lib.reporter_build_reports.restype = i64
+    lib.reporter_build_reports.argtypes = [
+        i32p, i64p, f64p, f64p,                  # trace, seg, t0, t1
+        f64p, f64p, u8p,                         # length, queue, internal
+        i64, f64, i64,                           # n, min_length, n_traces
+        i64p, i64p, f64p, f64p, f64p, f64p,      # out seg, nxt, t0, t1,
+        #                                          length, queue
+        i64p,                                    # per_trace
+    ]
+    lib.reporter_tail_cuts.restype = None
+    lib.reporter_tail_cuts.argtypes = [f64p, i64p, i64, f64p, i64, i64p]
     lib.reporter_walk_segments.restype = i64
     lib.reporter_walk_segments.argtypes = [
         i32p, f32p, u8p, f64p,                   # edges, offs, starts, times

@@ -1,10 +1,13 @@
 // Native host prepare of match_many: probe traces -> the wire's input
-// buffers, and the Morton keys that order traces within a bucket.
+// buffers, and the Morton keys that order traces within a bucket; and the
+// streaming half: the columnar report build and the cache-tail cuts.
 //
 // Counterpart: reporter_tpu/native/prepare.cc (reporter_prepare_slice,
-// reporter_morton_keys). matcher/native_prepare.py binds these entries with
-// ctypes; its numpy forms (prepare_slice_python, morton_keys_python) are the
-// specification, and the tests hold the two byte for byte:
+// reporter_morton_keys, reporter_build_reports, reporter_tail_cuts).
+// matcher/native_prepare.py binds these entries with ctypes; the numpy
+// forms (prepare_slice_python, morton_keys_python, tail_cuts_python,
+// streaming/columnar.build_report_columns) are the specification, and the
+// tests hold the two byte for byte:
 //   - pad at the trace's first point (keeps the quantized form in i16
 //     range); empty traces stay all-zero with len 0
 //   - quantization is f32: round((x - origin_x) * 4.0f) with
@@ -16,6 +19,10 @@
 //   - Morton keys floor(first/64)+0x8000, 16-bit masked, bit-spread --
 //     the same curve as ops/dense_candidates._morton; non-finite firsts
 //     cast like numpy's cvttsd2si (INT64_MIN)
+//   - report build: NaN t0 / t1 fail the >= 0 gates, as numpy's
+//     comparisons do
+//   - tail cuts: a lower bound on each vehicle's sorted times; a NaN
+//     from_time matches no time, as numpy's t >= NaN matches none
 //
 // Build: native/build.py (g++ -O3 -Wall -Wextra -Werror -shared -fPIC).
 
@@ -158,6 +165,82 @@ void reporter_morton_keys(const double* first, int64_t W, uint64_t* keys) {
                       cast_i64(std::floor(first[w * 2 + 1] / 64.0)) + 0x8000) &
                   0xFFFF;
     keys[w] = spread16(qx) | (spread16(qy) << 1);
+  }
+}
+
+// streaming/columnar.build_report_columns as one pass: a chain boundary
+// between consecutive records survives iff same trace, time-adjacent
+// (|t0[r] - t1[r-1]| < 1e-3) and both records carry (reportable, or a
+// complete internal connector). Reportable records within one group
+// chain through next_segment_id. Returns the reportable count R; the out
+// arrays hold n rows. per_trace (n_traces long) is bincounted when
+// n_traces >= 0 (-1 skips it, as the flush does).
+int64_t reporter_build_reports(const int32_t* trace, const int64_t* seg,
+                               const double* t0, const double* t1,
+                               const double* len, const double* queue,
+                               const uint8_t* internal, int64_t n,
+                               double min_length, int64_t n_traces,
+                               int64_t* out_seg, int64_t* out_nxt,
+                               double* out_t0, double* out_t1,
+                               double* out_len, double* out_queue,
+                               int64_t* per_trace) {
+  if (n_traces >= 0)
+    std::memset(per_trace, 0, size_t(n_traces) * sizeof(int64_t));
+  int64_t R = 0;
+  int64_t group = 0, last_rep = -1, last_rep_group = -1;
+  bool prev_carry = false;
+  for (int64_t r = 0; r < n; ++r) {
+    // NaN t0 / t1 fail the >= 0 gates exactly like numpy's comparisons
+    bool complete = (t0[r] >= 0.0) && (t1[r] >= 0.0);
+    bool reportable = complete && !internal[r] && (len[r] >= min_length);
+    bool carry = reportable || (internal[r] && complete);
+    if (r > 0) {
+      bool link = (trace[r] == trace[r - 1]) &&
+                  (std::fabs(t0[r] - t1[r - 1]) < 1e-3) && carry &&
+                  prev_carry;
+      if (!link) ++group;
+    }
+    if (reportable) {
+      if (last_rep >= 0 && last_rep_group == group)
+        out_nxt[last_rep] = seg[r];
+      out_seg[R] = seg[r];
+      out_nxt[R] = -1;
+      out_t0[R] = t0[r];
+      out_t1[R] = t1[r];
+      out_len[R] = len[r];
+      out_queue[R] = queue[r];
+      if (n_traces >= 0) ++per_trace[trace[r]];
+      last_rep = R;
+      last_rep_group = group;
+      ++R;
+    }
+    prev_carry = carry;
+  }
+  return R;
+}
+
+// ColumnarTraceCache.retain's cut, batched over a wave's merged traces:
+// per vehicle v with times time_flat[bounds[v]:bounds[v+1]] (sorted
+// ascending), lo = max(max(0, first_at_or_after(from_time) - 1),
+// n - max_points); lo >= n means "retain nothing" (the caller drops the
+// entry).
+void reporter_tail_cuts(const double* time_flat, const int64_t* bounds,
+                        int64_t V, const double* from_time,
+                        int64_t max_points, int64_t* lo_out) {
+  for (int64_t v = 0; v < V; ++v) {
+    const double* ts = time_flat + bounds[v];
+    int64_t n = bounds[v + 1] - bounds[v];
+    const double f = from_time[v];
+    // a NaN from_time: no time is >= it (numpy's comparison), so the
+    // search finds none; std::lower_bound alone would stop at the start
+    const double* at =
+        std::isnan(f) ? ts + n : std::lower_bound(ts, ts + n, f);
+    int64_t cut;
+    if (at == ts + n)
+      cut = std::max<int64_t>(0, n - 1);
+    else
+      cut = std::max<int64_t>(0, (at - ts) - 1);
+    lo_out[v] = std::max(cut, n - max_points);
   }
 }
 

@@ -264,3 +264,10 @@ class QualityMonitor:
             **{k: (None if agg[k] is None else round(agg[k], 4))
                for k in RATE_NAMES},
         }
+
+    def snapshot(self) -> dict:
+        """stats()-shaped view (health + the baseline in force): the
+        stream pipelines' stats carry it."""
+        return {**self.health(),
+                "baseline": dict(self.baseline),
+                "drift_tol": self.drift_tol}

@@ -1,12 +1,11 @@
 """Datastore publisher.
 
 Counterpart: reporter_tpu/service/datastore.py (``DatastorePublisher``,
-``publisher_kwargs``, ``publish``, ``publish_json``, retry with bounded
-exponential backoff and seeded jitter, the dead-letter spool). Report
-batches are POSTed as ``{"mode", "reports": [...]}`` to ``DATASTORE_URL``
-on urllib; the transport is injectable so tests capture payloads without
-a network. The columnar publish and the asynchronous publisher wait for
-the streaming front-end (ROADMAP queue 1 item 1a).
+``AsyncDatastorePublisher``, ``publisher_kwargs``, ``publish``,
+``publish_columns``, ``publish_json``, retry with bounded exponential
+backoff and seeded jitter, the dead-letter spool). Report batches are
+POSTed as ``{"mode", "reports": [...]}`` to ``DATASTORE_URL`` on urllib;
+the transport is injectable so tests capture payloads without a network.
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ from __future__ import annotations
 import json
 import logging
 import os
+import queue as _queue
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -27,6 +28,18 @@ log = logging.getLogger("reporter_tpu_torch.datastore")
 
 # transport(url, payload_bytes) → HTTP status code
 Transport = Callable[[str, bytes], int]
+
+
+def _report_rows(seg, nxt, t0, t1, length, queue) -> list[dict]:
+    """Report columns → wire rows: the columnar row shape, shared by the
+    sync and async publishers so the payload format cannot fork. ``nxt``
+    uses -1 for "exit to unknown" (serialized as null, like
+    Report.to_json)."""
+    return [{"id": s, "next_id": (None if x < 0 else x),
+             "t0": a, "t1": b, "length": ln, "queue_length": q}
+            for s, x, a, b, ln, q in zip(
+                seg.tolist(), nxt.tolist(), t0.tolist(), t1.tolist(),
+                length.tolist(), queue.tolist())]
 
 
 def publisher_kwargs(svc, metrics=None) -> dict:
@@ -87,7 +100,9 @@ class DatastorePublisher:
                          float(backoff_cap_ms) / 1e3,
                          float(backoff_jitter), int(backoff_seed))
         self._metrics = metrics
-        # counter guard: the scheduler's batch threads publish at once
+        # counter guard: the scheduler's batch threads publish at once, and
+        # the async subclass POSTs from its worker thread while histogram
+        # flushes POST from the pipeline thread
         self._count_lock = locks.named_lock("publisher.counters")
         self.published = 0          # reports successfully POSTed
         self.dropped = 0            # reports lost to transport errors
@@ -280,8 +295,18 @@ class DatastorePublisher:
                     return True
         return False
 
-    def publish(self, reports: list[Report]) -> bool:
-        """POST one batch. True on success (or no-op); False on failure."""
+    def publish(self, reports: list[Report], on_done=None) -> bool:
+        """POST one batch. True on success (or no-op); False on failure.
+        ``on_done(ok)``, if given, runs after the attempt completes
+        (synchronously here, on the worker thread in the async subclass),
+        so callers sequence commit-floor releases alike against either
+        publisher."""
+        ok = self._publish_sync(reports)
+        if on_done is not None:
+            on_done(ok)
+        return ok
+
+    def _publish_sync(self, reports: list[Report]) -> bool:
         if not reports:
             return True
         if not self.url:
@@ -289,6 +314,25 @@ class DatastorePublisher:
                       len(reports))
             return True
         return self._post([r.to_json() for r in reports])
+
+    def publish_columns(self, seg, nxt, t0, t1, length, queue,
+                        on_done=None) -> bool:
+        """Columnar publish: the same ``{"mode", "reports": [...]}``
+        payload as publish(), built straight from report columns
+        (streaming/columnar.py), no Report objects."""
+        ok = self._publish_columns_sync(seg, nxt, t0, t1, length, queue)
+        if on_done is not None:
+            on_done(ok)
+        return ok
+
+    def _publish_columns_sync(self, seg, nxt, t0, t1, length, queue) -> bool:
+        if not len(seg):
+            return True
+        if not self.url:
+            log.debug("datastore disabled; dropping %d reports on the floor",
+                      len(seg))
+            return True
+        return self._post(_report_rows(seg, nxt, t0, t1, length, queue))
 
     def _post(self, report_rows: list[dict]) -> bool:
         doc = {"mode": self.mode, "reports": report_rows}
@@ -328,5 +372,142 @@ class DatastorePublisher:
             self.json_failures += 1
         return False
 
+    # The async surface: no-ops here, so callers treat either publisher
+    # alike; AsyncDatastorePublisher overrides the publish side.
+
+    @property
+    def pending(self) -> int:
+        """Publishes accepted but not yet POSTed (0: sync publisher)."""
+        return 0
+
+    def drain(self, timeout: "float | None" = None) -> bool:
+        return True
+
     def close(self) -> None:
         """Nothing to flush: every publish POSTs before it returns."""
+
+
+class AsyncDatastorePublisher(DatastorePublisher):
+    """DatastorePublisher whose report POSTs run on a background thread.
+
+    The streaming flush loop must not serialize with datastore round
+    trips: ``publish`` / ``publish_columns`` enqueue onto a bounded queue
+    served by one worker and return at once; the worker's socket wait
+    releases the GIL, so the POST of wave N-1 overlaps the match of wave
+    N and the consume of wave N+1. A full queue blocks the caller
+    (backpressure, never a silent drop). ``on_done(ok)`` callbacks, which
+    the pipeline uses to release commit floors, run on the worker thread
+    after the POST attempt completes, success or not.
+
+    Histogram flushes (``publish_json``) stay synchronous on the caller:
+    they are rare, and the delta-flush retry contract needs the result.
+    """
+
+    def __init__(self, url: str = "", mode: str = "auto",
+                 transport: Transport | None = None,
+                 max_pending: int = 64, **kw):
+        super().__init__(url, mode, transport, **kw)
+        self._jobs: "_queue.Queue" = _queue.Queue(maxsize=int(max_pending))
+        self._thread: "threading.Thread | None" = None
+        self._closed = False
+
+    @property
+    def pending(self) -> int:
+        return self._jobs.qsize()
+
+    def _ensure_worker(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._run, daemon=True, name="datastore-publisher")
+            self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            job = self._jobs.get()
+            try:
+                if job is None:
+                    return
+                fn, on_done, n_rows = job
+                ok = False
+                try:
+                    with tracing.tracer().span("publish_post",
+                                               rows=n_rows):
+                        ok = fn()
+                except Exception:
+                    # _post catches only transport-shaped errors; anything
+                    # else (a bad URL scheme, a garbled response, a
+                    # transport bug) counts as a failed attempt instead of
+                    # killing the worker: a dead worker never fires
+                    # on_done, which would wedge every pending wave's
+                    # commit floor and hang drain() / close()
+                    log.exception("datastore publish job raised "
+                                  "(%d reports dropped)", n_rows)
+                    with self._count_lock:
+                        self.dropped += n_rows
+                finally:
+                    if on_done is not None:
+                        try:
+                            on_done(ok)
+                        except Exception:   # a callback bug must not kill
+                            log.exception("publish on_done callback failed")
+            finally:
+                self._jobs.task_done()
+
+    def _submit(self, fn, on_done, n_rows: int) -> bool:
+        if self._closed:
+            raise RuntimeError("publisher is closed")
+        self._ensure_worker()
+        self._jobs.put((fn, on_done, n_rows))
+        return True
+
+    def publish(self, reports: list[Report], on_done=None) -> bool:
+        """Enqueue one report-batch POST; True = accepted (the outcome is
+        counted on the worker and delivered to ``on_done``)."""
+        if not reports or not self.url:
+            if reports:
+                log.debug("datastore disabled; dropping %d reports on the "
+                          "floor", len(reports))
+            if on_done is not None:
+                on_done(True)
+            return True
+        rows = [r.to_json() for r in reports]
+        return self._submit(lambda: self._post(rows), on_done, len(rows))
+
+    def publish_columns(self, seg, nxt, t0, t1, length, queue,
+                        on_done=None) -> bool:
+        """Columnar twin of publish(): the rows are built here, on the
+        caller's thread, so the numpy columns are free at return."""
+        if not len(seg) or not self.url:
+            if len(seg):
+                log.debug("datastore disabled; dropping %d reports on the "
+                          "floor", len(seg))
+            if on_done is not None:
+                on_done(True)
+            return True
+        rows = _report_rows(seg, nxt, t0, t1, length, queue)
+        return self._submit(lambda: self._post(rows), on_done, len(rows))
+
+    def drain(self, timeout: "float | None" = None) -> bool:
+        """Block until every accepted publish has completed its POST
+        attempt. ``timeout`` bounds the wait; True = fully drained."""
+        if self._thread is None:
+            return True
+        if timeout is None:
+            self._jobs.join()
+            return True
+        deadline = time.monotonic() + timeout
+        while self._jobs.unfinished_tasks:
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.002)
+        return True
+
+    def close(self) -> None:
+        """Drain, then stop the worker (idempotent)."""
+        if self._closed:
+            return
+        self.drain()
+        self._closed = True
+        if self._thread is not None and self._thread.is_alive():
+            self._jobs.put(None)
+            self._thread.join(timeout=5.0)

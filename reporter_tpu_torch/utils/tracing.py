@@ -2,7 +2,7 @@
 
 Counterpart: reporter_tpu/utils/tracing.py (``FlightRecorder``,
 ``tracer``, ``span``, ``configure``, ``configure_from_service``,
-``post_mortem``, ``env_flag``). One PROCESS-GLOBAL recorder: a bounded
+``post_mortem``, ``env_flag``, ``trace_id_of``). One PROCESS-GLOBAL recorder: a bounded
 ring of host-side spans, off by default (a disabled recorder costs one
 attribute read per call site), that dumps a Chrome-trace-event JSON on
 demand and, at the fault sites (the publisher's dead letter, the
@@ -31,7 +31,35 @@ from typing import Any
 from reporter_tpu_torch.utils import locks
 
 __all__ = ["FlightRecorder", "Span", "tracer", "configure", "span",
-           "post_mortem", "NOOP", "env_flag", "configure_from_service"]
+           "post_mortem", "NOOP", "env_flag", "configure_from_service",
+           "TRACE_KEY", "stamp_record", "trace_id_of"]
+
+# Broker-propagated trace context. A producer may stamp a probe record
+# with ``record[TRACE_KEY] = {"id": ..., "ts": wall}`` before appending it
+# to a record broker, which stores dicts verbatim; consumers that know
+# the key tag their spans with the inherited id (streaming/pipeline.py),
+# consumers that do not ignore an extra key. The columnar broker does not
+# carry it.
+
+TRACE_KEY = "_trace"
+
+
+def stamp_record(record: dict, trace_id, ts: "float | None" = None) -> dict:
+    """Attach producer-side trace context to one broker record (in place;
+    returned for chaining). ``ts`` is wall time (``time.time()``)."""
+    record[TRACE_KEY] = {"id": str(trace_id),
+                         "ts": time.time() if ts is None else float(ts)}
+    return record
+
+
+def trace_id_of(record) -> "str | None":
+    """The inherited trace id of a broker record, or None when the record
+    is untraced (absent or malformed metadata reads as untraced, never as
+    an error: a poisoned producer must not wedge consumption)."""
+    meta = record.get(TRACE_KEY) if isinstance(record, dict) else None
+    if isinstance(meta, dict) and meta.get("id") is not None:
+        return str(meta["id"])
+    return None
 
 class Span:
     """One completed host-side interval. ``wave`` carries the

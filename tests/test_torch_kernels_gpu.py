@@ -436,3 +436,34 @@ def test_exact_arm_cases(sf_tile, arm, case):
         if arm != "sub":
             first = dc.decode_gate_log(log >> 8).vote
             assert not (first & ~kg.gate).any()
+
+
+def test_speed_histogram_on_the_card_equals_numpy(cuda):
+    """SpeedHistogram's i32 state lives on the card and every update is
+    one index_add_; over several updates of random rows, with rows out of
+    range and speeds below the first edge (they add nothing), the counts
+    equal a numpy np.add.at of the same rows, and the state never left
+    the card between updates."""
+    from reporter_tpu_torch.streaming.histogram import SpeedHistogram
+
+    rng = np.random.default_rng(5)
+    edges = (0.0, 2.5, 5.0, 7.5, 10.0, 15.0, 20.0, 30.0, 40.0)
+    rows_n = 5000
+    h = SpeedHistogram(rows_n, edges, device=cuda)
+    assert h._hist.device.type == "cuda" and h._hist.dtype == torch.int32
+    want = np.zeros((rows_n, len(edges)), np.int64)
+    for n in (1, 4096, 4097, 100_000, 37):
+        rows = rng.integers(-50, rows_n + 50, n).astype(np.int32)
+        speeds = rng.uniform(-5.0, 60.0, n)
+        h.update(rows, speeds)
+        bins = np.searchsorted(edges, speeds, side="right") - 1
+        ok = (rows >= 0) & (rows < rows_n) & (bins >= 0)
+        np.add.at(want, (rows[ok], bins[ok]), 1)
+        assert h._hist.device.type == "cuda"
+    np.testing.assert_array_equal(h.snapshot(), want)
+    np.testing.assert_array_equal(h.nonzero_rows(),
+                                  np.nonzero(want.sum(axis=1))[0])
+    h.load(want.astype(np.int32))
+    h.update(np.array([0], np.int32), np.array([1.0]))
+    want[0, 0] += 1
+    np.testing.assert_array_equal(h.snapshot(), want)
