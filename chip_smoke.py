@@ -86,8 +86,9 @@ the native host half against its Python forms, in phases:
                 per-uuid order, and the datastore's reports for them the
                 CPU app's (sorted); the served window launched only the
                 tuned (arm, 8) instance; /stats counts the real traces
-                (padding excluded). Latency p50 / p99, traces/s, batches,
-                occupancy, padding, deferrals, overlap, stage split;
+                (padding excluded); GET /slo answers 200 and /health
+                carries the slo block. Latency p50 / p99, traces/s,
+                batches, occupancy, padding, deferrals, overlap, stages;
      server   — python -m reporter_tpu_torch.service.server as a
                 subprocess (it compiles sf and calibrates with a fresh
                 tuner cache): /health within SERVER_START_S, 8 /report
@@ -133,9 +134,44 @@ the native host half against its Python forms, in phases:
                 points that depend on the match thread's speed): exit 0,
                 lag 0, every report published; the start-up, step-loop
                 and drain times;
-  9. summary  — the kernels JSON line (every arm at every K, the sources,
-                the host library among them), the card line, and the
-                final {"ok": true, "device": {...}} line.
+  9. topo     — on sf, the supervised topology (reporter_tpu_torch.
+                distributed): N worker subprocesses of the entry point
+                sharing the card, over the same feed pre-staged in a
+                durable records broker under _chip_scratch/topo (every
+                TOPO_STAMP_EVERY-th record stamped with a trace id by a
+                producer with its own flight recorder), with [stream]'s
+                tuner cache. [topo:stage] the uninterrupted reports, per
+                partition, from an in-process pipeline owning only it.
+                [topo]: a Supervisor with two dict workers on {0, 1} and
+                {2, 3}, polls of TOPO_POLL records, the port's ReportSink,
+                snapshot spool, SLO plane at TOPO_SLO_SCALE and tracing;
+                worker-0 SIGKILLed once the sink has rows: the supervisor
+                records the death and one post-mortem, restarts it from
+                its checkpoint, the topology drains to lag 0, the sink
+                covers the uninterrupted reports (duplicates counted), the
+                merged registry is the per-leaf sum of the snapshots;
+                detect, recovery and restart-to-ready seconds.
+                [topo:trace]: the producer's and workers' rings stitched
+                into one Chrome trace (a process row each, flows,
+                broker_dwell spans). [topo:slo]: per spec, the bad and
+                total events over the merged exports equal the members'
+                sums; the alerts that fired. [topo:scale]: records/s of
+                1, 2 and 4 dict workers (default StreamingConfig) and of
+                4 columnar workers at depth 0 started cold (a copy of the
+                package without _build/, an empty tuner cache: every
+                worker builds and calibrates at once), from the last
+                "ready" to the last exit; start-up apart; the card's busy
+                share and used memory (nvidia-smi beside the run); every
+                run's reports and merged histograms equal the 1-worker
+                run's; each worker launched only the instance it serves.
+                [topo:lease]: two leased workers, a third joining, lease-b
+                SIGKILLed: floors at the end offsets, no commit at a stale
+                epoch, the zombie's commit refused, stable partitions'
+                reports covered; join and adoption latencies;
+ 10. summary  — the kernels JSON line (every arm at every K, the sources,
+                the host library among them; the topology's workers'
+                launches by member), the card line, and the final
+                {"ok": true, "device": {...}} line.
 
 Any failed phase raises and the script exits non-zero without the final
 line. Every time printed carries the card name and power limit.
@@ -191,6 +227,21 @@ STREAM_ROUNDS, STREAM_ROUND_POINTS = 10, 12   # the streaming feed: rounds
 STREAM_CHECKPOINT_ROUND = 4   # [stream:recover]: checkpoint after this round
 STREAM_CPU_UUIDS = 32         # [stream]: uuids also streamed on the CPU
 STREAM_WORKER_TIMEOUT_S = 600  # [stream:worker]: a worker subprocess's limit
+TOPO_POLL, TOPO_FLUSH = 1024, 4  # [topo], [topo:lease]: records per partition
+#                               a poll (4 points of each of a partition's 256
+#                               vehicles) and points a flush: every step
+#                               flushes every vehicle it read, so buffers
+#                               are empty between steps and a replay from a
+#                               checkpoint or a lease floor polls at the same
+#                               boundaries as the uninterrupted run
+TOPO_STAMP_EVERY = 4          # [topo:trace]: the producer stamps every 4th record
+TOPO_SLO_SCALE = "0.01"       # [topo:slo]: RTPU_SLO_SCALE of the topology
+TOPO_LEASE_TTL_S = 2.4        # [topo:lease]: the lease time-to-live
+TOPO_TIMEOUT_S = 300          # the bound of each wait of a topology run
+TOPO_SAMPLE_S = 0.2           # _CardSampler's period
+TOPO_SCALE_RUNS = (("dict", 1), ("dict", 2), ("dict", 4), ("columnar", 4))
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "_chip_scratch")
 SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
            "reporter_tpu_torch/kernels/topk.cuh",
            "reporter_tpu_torch/native/prepare.cc",
@@ -1065,6 +1116,7 @@ def serve_phase(card, ts, fleet, dc, win, cache):
         wall_s = time.perf_counter() - t
         _, stats = http_json(base + "/stats")
         _, health = http_json(base + "/health")
+        slo_status, slo_body = http_json(base + "/slo")
     finally:
         server.shutdown()
         server.server_close()
@@ -1100,8 +1152,13 @@ def serve_phase(card, ts, fleet, dc, win, cache):
           match_s_over_traffic_s=stats["match_seconds_total"] / wall_s,
           queue_age_ms_p50=stats["sched_queue_age_seconds_p50"] * 1e3,
           stage_ms=stage_ms,
-          launches={f"{a}@k{k}": n for (a, k), n in counts.items() if n})
+          launches={f"{a}@k{k}": n for (a, k), n in counts.items() if n},
+          slo_status=slo_status, slo_active=slo_body.get("active"),
+          slo_ticks=slo_body.get("ticks"), health_slo=health.get("slo"))
     # ---- the checks ----
+    if slo_status != 200 or "slos" not in slo_body or "slo" not in health:
+        raise SystemExit("[serve] GET /slo did not answer 200 with the SLO "
+                         "status, or /health lacks its slo block")
     if any(st != 200 for st in statuses):
         raise SystemExit(f"[serve] non-200 responses: "
                          f"{sorted(set(statuses))}")
@@ -1770,6 +1827,707 @@ def stream_worker_phase(card, ts, win, ref, cols, cache, device="cuda"):
                          "its reports differ from the in-process pipeline's")
 
 
+# ---- the supervised topology: several workers on one card -----------------
+
+
+def _sink_key(r):
+    """The report key of the topology's datastore sinks (ReportSink's)."""
+    return (r.get("id"), r.get("next_id"), round(float(r.get("t0", 0.0)), 2),
+            round(float(r.get("t1", 0.0)), 2))
+
+
+def _sink_keys(bodies):
+    from collections import Counter
+
+    return Counter(_sink_key(r) for b in bodies for r in b.get("reports", ()))
+
+
+def _merged_hists(bodies):
+    """Histogram deltas POSTed by any number of workers, summed per
+    segment: (speed, queue), each {segment_id: counts}."""
+    out = ({}, {})
+    for b in bodies:
+        for side, key in zip(out, ("histograms", "queue_histograms")):
+            for h in b.get(key, ()):
+                prev = side.get(h["segment_id"])
+                side[h["segment_id"]] = (list(h["counts"]) if prev is None
+                                         else [x + y for x, y in
+                                               zip(prev, h["counts"])])
+    return out
+
+
+def _wait_for(pred, timeout, what):
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise SystemExit(what)
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _instances(counts):
+    """An exit JSON's {"arm@kK": n} as {(arm, K): n} over every instance."""
+    from reporter_tpu_torch.kernels.build import SWEEP_KS
+
+    out = {(a, k): 0 for a in ARMS for k in SWEEP_KS}
+    for key, n in (counts or {}).items():
+        arm, k = key.rsplit("@k", 1)
+        out[arm, int(k)] = n
+    return out
+
+
+def launched_only(rep, inst):
+    """A worker's exit JSON shows launches of the kernel instance ``inst``
+    (arm, K) since it was ready, and of no other."""
+    return set(rep.get("launches") or ()) == {f"{inst[0]}@k{inst[1]}"}
+
+
+def _plan_instance(label):
+    """A plan label (``mxu+bf16@128``) → its kernel instance at K = 8."""
+    return PLAN_ARMS[label.split("@")[0]], 8
+
+
+class _CardSampler:
+    """nvidia-smi polled beside a run (every TOPO_SAMPLE_S): the card's
+    utilization (the share of the sample period in which a kernel ran)
+    and its used memory, each stamped with the host's wall clock."""
+
+    def __init__(self):
+        self.samples, self._stop = [], threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=utilization.gpu,memory.used",
+                 "--format=csv,noheader,nounits", "-i", "0"],
+                capture_output=True, text=True, timeout=30).stdout
+            util, mem = (float(x) for x in out.strip().split(","))
+            self.samples.append((time.time(), util, mem))
+            self._stop.wait(TOPO_SAMPLE_S)
+
+    def __enter__(self):
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join(60)
+
+    def window(self, t0, t1):
+        s = [x for x in self.samples if t0 <= x[0] <= t1]
+        return {"samples": len(s),
+                "busy_share": (statistics.mean(x[1] for x in s) / 100.0
+                               if s else None),
+                "memory_used_mib_max": max((x[2] for x in s), default=None)}
+
+
+def _topo_env(**extra):
+    env = {"RTPU_TOPO_SNAPSHOT_INTERVAL_S": "0.3"}
+    env.update(extra)
+    return env
+
+
+def _write_config(path, **streaming):
+    from reporter_tpu_torch.config import Config, StreamingConfig
+
+    with open(path, "w") as f:
+        f.write(Config(streaming=StreamingConfig(**streaming)).to_json())
+    return path
+
+
+def topo_stage(card, ts, ref, cache, win, device="cuda"):
+    """The topology's feed: [stream]'s rounds in a durable records broker
+    under _chip_scratch/topo, every TOPO_STAMP_EVERY-th record stamped
+    with a trace id under a ``produce`` span of the producer's own flight
+    recorder (its ring dumped for [topo:trace]); the sf tile saved for
+    the workers; and the uninterrupted reports (topo_reference over every
+    partition). → the shared state of the [topo*] phases."""
+    import shutil
+
+    from reporter_tpu_torch.streaming import DurableIngestQueue
+    from reporter_tpu_torch.utils import tracing
+
+    root = os.path.join(SCRATCH, "topo")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "traces"))
+    tiles = ts.save(os.path.join(root, "sf.npz"))
+    broker = os.path.join(root, "broker")
+    rec = tracing.FlightRecorder(capacity=65536).configure(enabled=True)
+    t = time.perf_counter()
+    q = DurableIngestQueue(broker)
+    n = stamped = 0
+    for recs in ref["rounds"]:
+        for r in recs:
+            if n % TOPO_STAMP_EVERY == 0:
+                r = tracing.stamp_record(dict(r), f"{r['uuid']}@{n}")
+                with rec.span("produce", trace_id=r[tracing.TRACE_KEY]["id"]):
+                    q.append(r)
+                stamped += 1
+            else:
+                q.append(r)
+            n += 1
+    ends = _ends(q)
+    q.close()
+    stage_s = time.perf_counter() - t
+    producer_dump = os.path.join(root, "traces", "ring_producer.json")
+    rec.dump(path=producer_dump, reason="producer_done")
+    cfg = dict(poll_max_records=TOPO_POLL, flush_min_points=TOPO_FLUSH,
+               hist_flush_interval=0.0, flush_max_age=1e6)
+    cfg_path = _write_config(os.path.join(root, "topo.json"), **cfg)
+    shutil.copytree(broker, broker + "_ref")
+    st = {"root": root, "tiles": tiles, "broker": broker, "ends": ends,
+          "records": n, "cfg": cfg, "cfg_path": cfg_path,
+          "producer_dump": producer_dump,
+          "warm_cache": os.path.join(cache, "stream"),
+          "tuned": ref["tuned"], "device": device, "win": win, "ts": ts}
+    st["uninterrupted"], ref_s = topo_reference(st, range(len(ends)))
+    phase("topo:stage", card, metro="sf", records=n, stamped=stamped,
+          end_offsets=ends, broker_stage_s=stage_s, config=cfg,
+          reference_reports=sum(st["uninterrupted"].values()),
+          reference_s=ref_s,
+          reference_launches=_launches(win.by_path["sf:topo:reference"]))
+    return st
+
+
+def topo_reference(st, partitions):
+    """The uninterrupted reports of ``partitions``: one in-process
+    StreamPipeline owning them, over a copy of the broker, with the
+    [topo] config, stepped until it has consumed them and flushes no
+    more, then drained; its own launch window, only the tuned instance.
+    → (report keys, seconds)."""
+    from reporter_tpu_torch.config import (Config, ServiceConfig,
+                                           StreamingConfig)
+    from reporter_tpu_torch.streaming import (DurableIngestQueue,
+                                              StreamPipeline)
+
+    parts = sorted(partitions)
+    os.environ["RTPU_AUTOTUNE_CACHE"] = st["warm_cache"]
+    q = DurableIngestQueue(st["broker"] + "_ref")
+    cap = []
+    pipe = StreamPipeline(st["ts"], Config(
+        service=ServiceConfig(datastore_url="http://datastore.local/"),
+        streaming=StreamingConfig(**st["cfg"])), queue=q,
+        transport=_capture(cap), partitions=parts, device=st["device"])
+
+    def pump():
+        while True:
+            got = pipe.step()
+            if [pipe._consumed[p] for p in parts] == \
+                    [st["ends"][p] for p in parts] and got == 0:
+                break
+        pipe.drain()
+
+    tag = "sf:topo:reference" + ("" if len(parts) == len(st["ends"]) else
+                                 ":" + "".join(map(str, parts)))
+    t = time.perf_counter()
+    _, counts = st["win"].run(tag, pump)
+    seconds = time.perf_counter() - t
+    q.close()
+    if [pipe.committed[p] for p in parts] != [st["ends"][p] for p in parts]:
+        raise SystemExit(f"[topo] the reference over {parts} did not drain")
+    only(counts, st["tuned"], f"[topo] the reference over {parts}")
+    return _sink_keys(cap), seconds
+
+
+def topo_phase(card, st):
+    """[topo]: a Supervisor with two dict workers on partitions {0, 1} and
+    {2, 3} (restart, max_restarts 2, snapshot spool, SLO plane at
+    TOPO_SLO_SCALE, tracing on), its WSGI face and the port's ReportSink;
+    worker-0 SIGKILLed once the sink has rows. The supervisor must see
+    the death, restart worker-0 from its checkpoint, and the topology
+    drain to lag 0; the sink's reports cover the uninterrupted ones; the
+    merged registry is the per-leaf sum of the members' snapshots. Then
+    [topo:trace] (the stitched trace) and [topo:slo] (the topology's burn
+    against the members')."""
+    from collections import Counter
+
+    from reporter_tpu_torch.distributed import (Supervisor, aggregate,
+                                                stitch, worker_member)
+    from reporter_tpu_torch.obs import slo as slo_mod
+    from reporter_tpu_torch.utils import tracing
+
+    workdir = os.path.join(st["root"], "main")
+    traces = os.path.join(st["root"], "traces")
+    dumps = os.path.join(workdir, "dumps")
+    members = [worker_member(f"worker-{i}", st["tiles"], st["broker"],
+                             workdir, partitions=parts,
+                             config=st["cfg_path"],
+                             extra_args=["--device", st["device"]])
+               for i, parts in enumerate(([0, 1], [2, 3]))]
+    tr = tracing.tracer()
+    saved = (tr.enabled, tr.dump_dir, tr.dumps_written,
+             os.environ.get("RTPU_SLO_SCALE"))
+    tr.configure(enabled=True, dump_dir=dumps)
+    tr.dumps_written = 0
+    os.environ["RTPU_SLO_SCALE"] = TOPO_SLO_SCALE   # the supervisor's own
+    try:
+        sup = Supervisor(members, workdir, restart=True, max_restarts=2,
+                         poll_s=0.05, base_env=_topo_env(
+                             RTPU_SLO_SCALE=TOPO_SLO_SCALE, RTPU_TRACE="1",
+                             RTPU_TRACE_DIR=traces,
+                             RTPU_AUTOTUNE_CACHE=st["warm_cache"]))
+    finally:
+        if saved[3] is None:
+            del os.environ["RTPU_SLO_SCALE"]
+        else:
+            os.environ["RTPU_SLO_SCALE"] = saved[3]
+    try:
+        t_start = time.time()
+        sup.start()
+        port = sup.serve_http().server_address[1]
+        ckpt = os.path.join(workdir, "worker-0.ckpt.npz")
+        _wait_for(lambda: sup.sink.stats()["rows"] > 0
+                  and os.path.exists(ckpt), TOPO_TIMEOUT_S,
+                  "[topo] no report reached the sink, or worker-0 never "
+                  "checkpointed")
+        snap0 = sup.snapshots().get("worker-0") or {}
+        t_kill = time.time()
+        killed = sup.kill_member("worker-0")
+        if killed is None:
+            raise SystemExit("[topo] worker-0 had exited before the kill")
+        rows_at_kill = sup.sink.stats()["rows"]
+        with np.load(ckpt) as z:
+            ck_committed = json.loads(bytes(z["state"]).decode())["committed"]
+
+        def deaths():
+            return [e for e in sup.events() if e["event"] == "member_death"
+                    and e["member"] == "worker-0"]
+
+        _wait_for(lambda: deaths(), 60, "[topo] the supervisor never saw "
+                  "worker-0's death")
+        detect_s = deaths()[0]["t"] - t_kill
+        _wait_for(lambda: (sup.snapshots().get("worker-0") or {}).get("pid")
+                  not in (None, killed), TOPO_TIMEOUT_S,
+                  "[topo] the restarted worker-0 never spooled")
+        recovery_s = time.time() - t_kill
+        _wait_for(sup.drained, TOPO_TIMEOUT_S, "[topo] did not drain")
+        time.sleep(2 * sup.poll_s)
+        sup.poll_once()
+        drained_at = time.time()
+        health = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/health", timeout=30).read())
+        exposition = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=30).read().decode()
+        slo_http = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/slo", timeout=30).read())
+        reports = sup.exit_reports()
+        events = sup.events()
+        snaps = sup.snapshots()
+        have = Counter(sup.sink.reports)
+        sink_stats = sup.sink.stats()
+        sup_export = sup.metrics.export()
+        sup_slo = sup.slo.status() if sup.slo is not None else None
+    finally:
+        sup.stop()
+        tr.configure(enabled=saved[0])
+        tr.dump_dir = saved[1]
+        tr.dumps_written = saved[2]
+    ends = st["ends"]
+    want = st["uninterrupted"]
+    missing = want - have
+    duplicates = sum((have - want).values())
+    # the merged registry is the per-leaf sum of the members' snapshots
+    merged = aggregate.merge_registry(snaps)
+    want_c, want_h = Counter(), {}
+    for doc in snaps.values():
+        want_c.update({k: float(v) for k, v in
+                       doc["metrics"]["counters"].items()})
+        for k, b in doc["metrics"]["hist"].items():
+            want_h[k] = [x + y for x, y in zip(want_h.get(k, [0] * len(b)),
+                                                 b)]
+    fidelity = (merged._counters == dict(want_c) and merged._hist == want_h)
+    spawns = [e for e in events if e["event"] == "member_spawn"
+              and e["member"] == "worker-0"]
+    w0 = reports.get("worker-0") or {}
+    post_mortems = sorted(n for n in os.listdir(dumps)
+                          if "worker_death" in n) if os.path.isdir(dumps) \
+        else []
+    tuned = st["tuned"]
+    for name, rep in reports.items():
+        st["win"].by_path[f"sf:topo:{name}"] = _instances(rep.get("launches"))
+    good = {
+        "death_seen": sum(e["event"] == "member_death" for e in events) == 1,
+        "restarted": [e["reason"] for e in spawns] == ["start", "restart"],
+        "from_checkpoint": sum(ck_committed) > 0,
+        "drained": all(rep is not None and rep["lag"] == 0
+                       for rep in reports.values())
+        and w0.get("committed", [])[:2] == ends[:2]
+        and (reports.get("worker-1") or {}).get("committed", [])[2:]
+        == ends[2:],
+        "covers_uninterrupted": not missing and sum(want.values()) > 0,
+        "merged_is_sum_of_snapshots": fidelity,
+        "one_post_mortem_per_death": len(post_mortems) == 1,
+        "slo_blocks": all(set(rep.get("slo") or ()) == {
+            "active", "alerts_total", "ticks", "budget_remaining"}
+            for rep in reports.values()),
+        "only_tuned_instance": all(launched_only(rep, tuned)
+                                   for rep in reports.values()),
+        "exposition": "rtpu_topo_deaths" in exposition
+        and "rtpu_probes" in exposition,
+    }
+    phase("topo", card, metro="sf", device=st["device"], workers=2,
+          spawn_to_kill_s=t_kill - t_start, rows_at_kill=rows_at_kill,
+          lag_at_kill=(snap0.get("stats") or {}).get("lag"),
+          checkpoint_committed_at_kill=ck_committed,
+          detect_s=detect_s, recovery_s=recovery_s,
+          restart_to_ready_s=(w0.get("ready_unix_s", 0.0) - spawns[-1]["t"]
+                              if len(spawns) > 1 else None),
+          kill_to_drained_s=drained_at - t_kill,
+          post_mortems=post_mortems, deaths=health["deaths_total"],
+          restarts=health["restarts_total"],
+          sink_rows=sink_stats["rows"], sink_posts=sink_stats["posts"],
+          uninterrupted_reports=sum(want.values()),
+          reports_missing=sum(missing.values()),
+          duplicate_reports=duplicates,
+          merged_counters=len(want_c),
+          merged_buckets=sum(len(b) for b in want_h.values()),
+          exits={n: {k: (r or {}).get(k) for k in (
+              "steps", "reports", "committed", "lag", "plan", "launches")}
+              for n, r in reports.items()}, checks=good)
+    if not all(good.values()):
+        raise SystemExit(f"[topo] a check failed: "
+                         f"{[k for k, v in good.items() if not v]}")
+
+    # [topo:trace]: the producer's ring and each worker's exit ring
+    doc = stitch.stitch(
+        {"producer": st["producer_dump"],
+         **{f"worker-{i}": os.path.join(traces, f"ring_worker-{i}.json")
+            for i in range(2)}},
+        out_path=os.path.join(st["root"], "topology_trace.json"))
+    s = doc["stitched"]
+    rows = [e["args"]["name"] for e in doc["traceEvents"]
+            if e.get("name") == "process_name"]
+    dwell = [e for e in doc["traceEvents"] if e.get("name") == "broker_dwell"]
+    flows = [e for e in doc["traceEvents"] if e.get("name") == "probe_path"]
+    phase("topo:trace", card, processes=s["processes"],
+          unsynced=s["unsynced_processes"], events=s["events"],
+          traced_ids=s["traced_ids"], cross_pid_tracks=s["cross_pid_tracks"],
+          process_rows=sorted(rows), flow_events=len(flows),
+          broker_dwell_spans=len(dwell),
+          broker_dwell_ms_p50=(statistics.median(e["dur"] for e in dwell)
+                               / 1e3 if dwell else None))
+    if not (s["processes"] == 3 and s["unsynced_processes"] == 0
+            and {"producer", "worker-0", "worker-1"} <= set(rows)
+            and flows and dwell):
+        raise SystemExit("[topo:trace] the stitched trace lacks a process "
+                         "row, a flow or a broker_dwell span")
+
+    # [topo:slo]: per spec, the events over the merged exports are the sum
+    # of the members' (the supervisor's own registry is a member too)
+    from reporter_tpu_torch.utils import metrics as metrics_mod
+    from reporter_tpu_torch.utils.eventlog import read_events
+
+    exports = {m: d["metrics"] for m, d in snaps.items()}
+    exports["supervisor"] = sup_export
+    merged_exp = metrics_mod.merge_exports(exports).export()
+    identity = {}
+    for spec in slo_mod.DEFAULT_SLOS:
+        bad, total = slo_mod._bad_total(spec, merged_exp)
+        parts = [slo_mod._bad_total(spec, e) for e in exports.values()]
+        identity[spec.name] = {
+            "bad": bad, "total": total,
+            "equal": (bad == sum(p[0] for p in parts)
+                      and total == sum(p[1] for p in parts))}
+    ledger = os.path.join(workdir, "alerts.jsonl")
+    fired = [e for e in read_events(ledger) if e["event"] == "fire"]
+    worker_alerts = {}
+    for name in reports:
+        worker_alerts[name] = [
+            e["slo"] for e in read_events(os.path.join(
+                workdir, "snapshots", f"alerts_{name}.jsonl"))
+            if e["event"] == "fire"]
+    phase("topo:slo", card, scale=float(TOPO_SLO_SCALE), identity=identity,
+          supervisor_ticks=(sup_slo or {}).get("ticks"),
+          supervisor_active=(sup_slo or {}).get("active"),
+          supervisor_fired=[e["slo"] for e in fired],
+          slo_endpoint_active=slo_http.get("active"),
+          health_slo=health.get("slo"), worker_fired=worker_alerts,
+          worker_blocks={n: (r or {}).get("slo") for n, r in reports.items()})
+    if sup_slo is None or not all(v["equal"] for v in identity.values()) \
+            or "slos" not in slo_http or "slo" not in health:
+        raise SystemExit("[topo:slo] the merged burn is not the members' "
+                         "sum, or the supervisor serves no SLO status")
+
+
+def topo_scale_phase(card, st):
+    """[topo:scale]: the feed through 1, 2 and 4 dict workers on static
+    partitions (default StreamingConfig, as [stream:worker]) and 4
+    columnar workers at pipeline depth 0, each run a Supervisor (no
+    restarts) with a local datastore. The 4 columnar workers start cold:
+    a copy of the package without _build/ (each worker builds the
+    kernels and the host library at once) and an empty tuner cache (each
+    calibrates at once). records/s over the workers' time: the last
+    member's "ready" to the last exit at drain (the exit JSON's wall
+    stamps); start-up apart; the card's busy share and used memory from
+    nvidia-smi polled beside the run (_CardSampler). Every run's reports
+    and merged histograms equal the 1-worker run's."""
+    import shutil
+
+    from reporter_tpu_torch.distributed import Supervisor, worker_member
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    depth0 = _write_config(os.path.join(st["root"], "depth0.json"),
+                           pipeline_depth=0)
+    cold = os.path.join(st["root"], "cold")
+    shutil.copytree(os.path.join(here, "reporter_tpu_torch"),
+                    os.path.join(cold, "reporter_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    cold_cache = os.path.join(st["root"], "cold_autotune")
+    splits = {1: [[0, 1, 2, 3]], 2: [[0, 1], [2, 3]],
+              4: [[0], [1], [2], [3]]}
+    base, out = None, {}
+    for kind, n in TOPO_SCALE_RUNS:
+        workdir = os.path.join(st["root"], f"scale_{kind}{n}")
+        sink, url = _sink()
+        columnar = kind == "columnar"
+        env = _topo_env(DATASTORE_URL=url,
+                        RTPU_AUTOTUNE_CACHE=(cold_cache if columnar
+                                             else st["warm_cache"]))
+        if columnar:
+            env["PYTHONPATH"] = cold
+        members = [worker_member(f"{kind}{n}-{i}", st["tiles"], st["broker"],
+                                 workdir, partitions=parts,
+                                 columnar=columnar,
+                                 config=depth0 if columnar else None,
+                                 extra_args=["--device", st["device"]])
+                   for i, parts in enumerate(splits[n])]
+        sup = Supervisor(members, workdir, restart=False, max_restarts=0,
+                         start_sink=False, base_env=env)
+        cwd = os.getcwd()
+        if columnar:
+            os.chdir(cold)       # `python -m` puts the cwd first on the path
+        try:
+            with _CardSampler() as sampler:
+                t_start = time.time()
+                sup.start()
+                _wait_for(sup.drained, TOPO_TIMEOUT_S,
+                          f"[topo:scale] {kind} x{n} did not drain")
+                sup.poll_once()
+                time.sleep(TOPO_SAMPLE_S)
+        finally:
+            os.chdir(cwd)
+            sup.stop()
+        reports, events = sup.exit_reports(), sup.events()
+        with sink.lock:
+            bodies = list(sink.bodies)
+        _close_sink(sink)
+        reps = [reports[m.name] or {} for m in members]
+        reports = {m.name: r for m, r in zip(members, reps)}
+        t_ready = max(r.get("ready_unix_s", 0.0) for r in reps)
+        t_exit = max(r.get("exit_unix_s", 0.0) for r in reps)
+        spawned = {e["member"]: e["t"] for e in events
+                   if e["event"] == "member_spawn"}
+        keys, hists = _sink_keys(bodies), _merged_hists(bodies)
+        plans = {m.name: reports[m.name].get("plan") for m in members}
+        for m in members:
+            st["win"].by_path[f"sf:topo:scale:{m.name}"] = _instances(
+                reports[m.name].get("launches"))
+            if columnar:
+                st["win"].by_path[f"sf:topo:scale:{m.name}:calibration"] = \
+                    _instances(reports[m.name].get("calibration_launches"))
+        if base is None:
+            base = (keys, hists)
+        checks = {
+            "drained": all(r.get("lag") == 0 for r in reps) and all(
+                [r["committed"][p] for p in parts]
+                == [st["ends"][p] for p in parts]
+                for r, parts in zip(reps, splits[n])),
+            "reports_equal_1_worker": keys == base[0] and bool(keys),
+            "hists_equal_1_worker": hists == base[1],
+            "slo_blocks": all(r.get("slo") for r in reps),
+            "only_served_instance": all(
+                launched_only(r, _plan_instance(r["plan"])) for r in reps),
+        }
+        fields = {}
+        if columnar:
+            build = os.path.join(cold, "reporter_tpu_torch", "_build")
+            built = sorted(os.listdir(build))
+            cached = (sorted(os.listdir(cold_cache))
+                      if os.path.isdir(cold_cache) else [])
+            # one library of each kind, no temp file: the host library,
+            # and on the card the sweep at K = 8
+            kinds = ["librtt_native_"] + (["libsweep_exact_k8_"]
+                                          if st["device"] == "cuda" else [])
+            checks["one_build_per_library"] = sorted(
+                next((k for k in kinds if f.startswith(k) and
+                      f.endswith(".so")), f) for f in built) == sorted(kinds)
+            # the card's workers each calibrated and stored a plan: one
+            # whole plan file and no temp file (a CPU matcher never tunes)
+            checks["one_whole_plan"] = (
+                [f.endswith(".json") for f in cached]
+                == ([True] if st["device"] == "cuda" else []))
+            fields.update(cold_build=built, cold_cache=cached,
+                          calibration_launches={
+                              m.name: reports[m.name].get(
+                                  "calibration_launches") for m in members})
+        card_use = sampler.window(t_ready, t_exit)
+        out[kind, n] = rps = st["records"] / (t_exit - t_ready)
+        phase("topo:scale", card, metro="sf", kind=kind, workers=n,
+              device=st["device"], records=st["records"],
+              records_per_s=rps, window_s=t_exit - t_ready,
+              start_up_s={m.name: reports[m.name].get("ready_unix_s", 0.0)
+                          - spawned[m.name] for m in members},
+              spawn_to_last_ready_s=t_ready - t_start,
+              sampler="nvidia-smi utilization.gpu, memory.used every "
+                      f"{TOPO_SAMPLE_S} s", **card_use,
+              this_process_reserved_mib=torch.cuda.memory_reserved() / 2**20,
+              plans=plans, reports=sum(keys.values()),
+              hist_segments=len(hists[0]),
+              exits={m.name: {k: reports[m.name].get(k) for k in (
+                  "steps", "reports", "lag", "launches")} for m in members},
+              checks=checks, **fields)
+        if not all(checks.values()):
+            raise SystemExit(f"[topo:scale] {kind} x{n}: a check failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    phase("topo:scale:summary", card, records_per_s={
+        f"{k}{n}": v for (k, n), v in out.items()},
+        speedup_vs_1={f"{k}{n}": v / out["dict", 1]
+                      for (k, n), v in out.items()})
+
+
+def topo_lease_phase(card, st):
+    """[topo:lease]: two leased dict workers (ttl TOPO_LEASE_TTL_S, no
+    restarts) bootstrap from a fresh lease table; once the table shows an
+    acquire a third joins (add_member), and lease-b is SIGKILLed while it
+    owns a partition. The table's floors must reach the end offsets; every
+    commit event must carry the epoch of the partition's latest acquire
+    and chain its floors (no commit at a stale epoch moves a floor, none
+    overlaps); the killed member's stale-epoch commit is refused. The
+    sink must cover the uninterrupted reports of every partition that
+    never changed owner; a moved partition's reports are counted, not
+    held (the per-uuid cache does not move with a lease, in either
+    package). Printed: the join's rebalance latency and the orphan's
+    adoption after the kill."""
+    from collections import Counter
+
+    from reporter_tpu_torch.distributed import Supervisor, worker_member
+    from reporter_tpu_torch.distributed.lease import (LeaseTable,
+                                                      StaleLeaseError)
+
+    workdir = os.path.join(st["root"], "lease")
+    lease_dir = os.path.join(workdir, "leases")
+    table = LeaseTable(lease_dir, num_partitions=4, ttl_s=TOPO_LEASE_TTL_S)
+
+    def member(name):
+        return worker_member(name, st["tiles"], st["broker"], workdir,
+                             config=st["cfg_path"], lease_dir=lease_dir,
+                             lease_ttl_s=TOPO_LEASE_TTL_S,
+                             extra_args=["--device", st["device"]])
+
+    sup = Supervisor([member("lease-a"), member("lease-b")], workdir,
+                     restart=False, max_restarts=0, poll_s=0.05,
+                     lease_dir=lease_dir, base_env=_topo_env(
+                         RTPU_AUTOTUNE_CACHE=st["warm_cache"]))
+
+    def acquires(who=None, part=None):
+        return [e for e in table.events() if e["event"] == "acquire"
+                and (who is None or e["member"] == who)
+                and (part is None or e["partition"] == part)]
+
+    def owned_by(who):
+        return sorted((int(p), int(e["epoch"])) for p, e in
+                      table.state()["partitions"].items()
+                      if e["owner"] == who)
+
+    try:
+        t_start = time.time()
+        sup.start()
+        _wait_for(lambda: acquires(), TOPO_TIMEOUT_S,
+                  "[topo:lease] no lease was ever acquired")
+        t_join = time.time()
+        sup.add_member(member("lease-c"))
+        _wait_for(lambda: owned_by("lease-b"), TOPO_TIMEOUT_S,
+                  "[topo:lease] lease-b never owned a partition")
+        p_vic, epoch_vic = owned_by("lease-b")[0]
+        t_kill = time.time()
+        if sup.kill_member("lease-b") is None:
+            raise SystemExit("[topo:lease] lease-b exited before the kill")
+
+        def reacquired():
+            e = table.state()["partitions"][str(p_vic)]
+            return e["owner"] not in (None, "lease-b") \
+                and int(e["epoch"]) > epoch_vic
+
+        _wait_for(reacquired, TOPO_TIMEOUT_S,
+                  "[topo:lease] the killed member's partition was never "
+                  "adopted")
+        adopt = [e for e in acquires(part=p_vic) if e["t"] >= t_kill]
+        adoption_s = adopt[0]["t"] - t_kill
+        floor = table.committed(p_vic)
+        try:
+            table.commit("lease-b", p_vic, epoch_vic, floor + 1)
+            fenced = False
+        except StaleLeaseError:
+            fenced = table.committed(p_vic) == floor
+        _wait_for(lambda: acquires("lease-c"), TOPO_TIMEOUT_S,
+                  "[topo:lease] the joiner never acquired a partition")
+        join_s = acquires("lease-c")[0]["t"] - t_join
+        _wait_for(lambda: sup.drained() and table.floors() == st["ends"],
+                  TOPO_TIMEOUT_S, "[topo:lease] did not drain")
+        sup.poll_once()
+        reports = sup.exit_reports()
+        have = Counter(sup.sink.reports)
+        events = table.events()
+        sup_events = sup.events()
+    finally:
+        sup.stop()
+    # fencing: each commit at the epoch of the partition's latest acquire,
+    # floors chained (floor_from == the last floor_to)
+    epoch_of, floor_of, stale_moves, overlaps = {}, {}, 0, 0
+    moved = set()
+    counts = Counter(e["event"] for e in events)
+    for e in events:
+        p = e.get("partition")
+        if e["event"] == "acquire":
+            if p in epoch_of:
+                moved.add(p)
+            epoch_of[p] = e["epoch"]
+        elif e["event"] == "commit":
+            stale_moves += e["epoch"] != epoch_of.get(p)
+            overlaps += e["floor_from"] != floor_of.get(p, 0)
+            floor_of[p] = e["floor_to"]
+    stable = sorted(set(range(4)) - moved)
+    # the uninterrupted reports of the stable partitions must all be at
+    # the sink; of the moved ones, those missing are counted
+    kept, kept_s = (topo_reference(st, stable) if stable
+                    else (Counter(), 0.0))
+    lost = sum((st["uninterrupted"] - kept - have).values())
+    for name, rep in reports.items():
+        if rep is not None:
+            st["win"].by_path[f"sf:topo:lease:{name}"] = _instances(
+                rep.get("launches"))
+    checks = {"floors_at_ends": table.floors() == st["ends"],
+              "no_stale_commit_moved_a_floor": stale_moves == 0,
+              "floors_chained": overlaps == 0,
+              "zombie_commit_refused": fenced,
+              "stable_partitions_covered": not (kept - have),
+              "slo_blocks": all((r or {}).get("slo") for n, r in
+                                reports.items() if n != "lease-b"),
+              "only_tuned_instance": all(
+                  launched_only(r, st["tuned"]) for n, r in reports.items()
+                  if n != "lease-b")}
+    phase("topo:lease", card, metro="sf", ttl_s=TOPO_LEASE_TTL_S,
+          spawn_to_join_s=t_join - t_start,
+          join_to_first_acquire_s=join_s,
+          joiner_ready_to_first_acquire_s=(
+              acquires("lease-c")[0]["t"]
+              - (reports.get("lease-c") or {}).get("ready_unix_s", 0.0)),
+          killed_partition=p_vic, kill_to_adoption_s=adoption_s,
+          lease_events=dict(counts),
+          rebalances=sum(1 for e in sup_events if e["event"] == "rebalance"),
+          moved_partitions=sorted(moved), stable_partitions=stable,
+          stable_reports=sum(kept.values()), stable_reference_s=kept_s,
+          stable_reports_missing=sum((kept - have).values()),
+          moved_reports_not_published=lost,
+          reports_at_sink=sum(have.values()),
+          exits={n: (r or {}).get("lease") for n, r in reports.items()},
+          checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"[topo:lease] a check failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -1901,7 +2659,13 @@ def main() -> int:
         stream_recover_phase(card, ts, win, ref, cols, cache)
         stream_worker_phase(card, ts, win, ref, cols, cache)
 
-    # ---- 9. summary -------------------------------------------------------
+        # ---- 9. the supervised topology: N workers on one card ----------
+        st = topo_stage(card, ts, ref, cache, win)
+        topo_phase(card, st)
+        topo_scale_phase(card, st)
+        topo_lease_phase(card, st)
+
+    # ---- 10. summary -------------------------------------------------------
     kernels = []
     for arm, (_, replaces) in ARMS.items():
         for k in dc.SWEEP_KS:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import tempfile
 from dataclasses import dataclass
 from typing import Callable
 
@@ -237,7 +238,11 @@ def load_cached_plan(fingerprint: str, devkey: str,
 def store_cached_plan(plan: TunedPlan, report: dict, fingerprint: str,
                       devkey: str, directory: "str | None" = None) -> None:
     """Persist a measured plan (atomic replace; a read-only cache
-    directory is not an error)."""
+    directory is not an error). Each writer takes its own temp file in
+    the cache directory: the workers of a topology start at once and,
+    with a cold cache, each calibrates and stores; a shared temp name
+    would let one write truncate another's and a torn document be
+    renamed into the cache."""
     directory = directory or cache_dir()
     path = _cache_path(directory, fingerprint, devkey)
     doc = {"plan_version": PLAN_VERSION, "device": devkey,
@@ -246,12 +251,19 @@ def store_cached_plan(plan: TunedPlan, report: dict, fingerprint: str,
            "errors": report.get("errors", {})}
     try:
         os.makedirs(directory, exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
+        fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".",
+                                   suffix=".tmp", dir=directory)
+    except OSError:
+        return
+    try:
+        with os.fdopen(fd, "w") as f:
             json.dump(doc, f, indent=1)
         os.replace(tmp, path)
     except OSError:
-        pass
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
 
 
 def resolve_plan(params: MatcherParams, ts,

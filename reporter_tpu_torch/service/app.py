@@ -11,10 +11,10 @@ over the port's SegmentMatcher:
     └─ POST to DATASTORE_URL (when configured)
 
 ``POST /report_many {"traces": [<report payload>…]}`` matches a fleet in
-one batch. ``GET /health``, ``/stats`` and ``/metrics`` (Prometheus text)
-are the JAX app's. Not ported yet: ``/slo`` (the SLO plane, ROADMAP
-queue 1 item 1e), ``/aggregates`` (backfill, item 1b) and the link-health
-block of ``/health`` (item 1f). The app is a bare WSGI callable, servable
+one batch. ``GET /health``, ``/stats``, ``/metrics`` (Prometheus text) and
+``/slo`` (the SLO plane's burn status, obs/slo.py) are the JAX app's.
+Not ported yet: ``/aggregates`` (backfill, ROADMAP queue 1 item 1b) and
+the link-health block of ``/health`` (item 1f). The app is a bare WSGI callable, servable
 by any WSGI server and by the stdlib runner in service/server.py.
 """
 
@@ -32,6 +32,7 @@ import torch
 from reporter_tpu_torch.config import Config
 from reporter_tpu_torch.matcher.api import (DispatchTimeout, SegmentMatcher,
                                             Trace)
+from reporter_tpu_torch.obs import slo as obs_slo
 from reporter_tpu_torch.service.cache import PartialTraceCache
 from reporter_tpu_torch.service.datastore import (DatastorePublisher,
                                                   Transport,
@@ -147,6 +148,13 @@ class ReporterApp:
                       "batches": 0, "batched_submissions": 0}
         self.scheduler: "BatchScheduler | None" = (
             BatchScheduler(self) if svc.batching == "scheduler" else None)
+        # SLO plane: burn-rate evaluation over this app's own registry.
+        # Ticks ride the request path (self-throttled) and GET /slo; no
+        # ledger here: durable alert ledgers belong to the worker CLI
+        # (snapshot spool) and the supervisor (workdir)
+        self.slo: "obs_slo.SloEvaluator | None" = (
+            obs_slo.SloEvaluator(self.matcher.metrics)
+            if obs_slo.enabled() else None)
 
     # ---- core pipeline ---------------------------------------------------
 
@@ -342,8 +350,7 @@ class ReporterApp:
 
     def health(self) -> dict:
         """The JAX package's /health keys, without ``link`` (link health,
-        ROADMAP queue 1 item 1f) and ``slo`` (the SLO plane, item 1e);
-        ``device`` beside ``backend``, and ``tile_hbm_bytes`` the bytes of
+        ROADMAP queue 1 item 1f); ``device beside ``backend``, and ``tile_hbm_bytes`` the bytes of
         the tables staged on that device."""
         with self._stats_lock:
             stats = dict(self.stats)
@@ -368,6 +375,10 @@ class ReporterApp:
             out["scheduler"] = self.scheduler.snapshot()
         # match quality: the per-metro window and drift sentinel state
         out["quality"] = self.matcher.quality.health()
+        # SLO roll-up: alerting objectives and budget remaining at the
+        # liveness face; the full burn detail at /slo
+        if self.slo is not None:
+            out["slo"] = self.slo.health()
         return out
 
     def close(self) -> None:
@@ -390,6 +401,10 @@ class ReporterApp:
             finally:
                 self.matcher.metrics.observe(
                     "request_seconds", time.perf_counter() - t0)
+                if self.slo is not None:
+                    # self-throttled burn evaluation rides the request
+                    # path, so a serving app alerts without a poller
+                    self.slo.tick()
         return self._dispatch(environ, start_response, method, path)
 
     def _dispatch(self, environ: dict, start_response: Callable,
@@ -409,6 +424,14 @@ class ReporterApp:
                 return _respond_text(
                     start_response, 200,
                     self.matcher.metrics.render_prometheus())
+            if path == "/slo" and method == "GET":
+                # error-budget status: burn rates per window pair, budget
+                # remaining, alert states
+                if self.slo is None:
+                    return _respond(start_response, 200,
+                                    {"enabled": False})
+                self.slo.tick()
+                return _respond(start_response, 200, self.slo.status())
             if path == "/report" and method == "POST":
                 body = _read_json(environ)
                 self._bump("requests")

@@ -2,14 +2,15 @@
 
 Counterpart: reporter_tpu/utils/metrics.py (``labeled``,
 ``MetricsRegistry``: ``count``, ``gauge``, ``observe``, ``stage``,
-``value``, ``snapshot``, ``render_prometheus``), with the same series
-names and the same ``rtpu_`` exposition prefix, so a dashboard reads
-either package's ``/stats`` and ``/metrics``. A registry of named
-counters, gauges and observation series with bounded reservoir
-percentiles and fixed-bucket histograms; every write is O(1) and
-lock-guarded (the service's handler and batch threads all write it).
-The cross-worker ``export`` / merge forms wait for the streaming and
-topology front-ends.
+``value``, ``snapshot``, ``export``, ``render_prometheus``;
+``with_labels``, ``delta_exports``, ``delta_since``, ``SnapshotRing``,
+``merge_exports``), with the same series names, the same ``rtpu_``
+exposition prefix and the same export documents, so a dashboard reads
+either package's ``/stats`` and ``/metrics``, and a supervisor merges
+either package's exports. A registry of named counters, gauges and
+observation series with bounded reservoir percentiles and fixed-bucket
+histograms; every write is O(1) and lock-guarded (the service's handler
+and batch threads all write it).
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ HISTOGRAM_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
 
 _PROM_NAME = re.compile(r"[^a-zA-Z0-9_:]")
 _LABEL_VALUE = re.compile(r"[\"\\\n]")
+
+# version tag on MetricsRegistry.export() documents (the snapshot files
+# the topology supervisor tails): bumped when the merge semantics change
+EXPORT_SCHEMA = 1
+
 
 def labeled(name: str, **labels) -> str:
     """Canonical label-suffixed series key: ``labeled("fleet_hits",
@@ -66,6 +72,23 @@ def _with_suffix(key: str, suffix: str) -> str:
     rather than a name with trailing braces in the middle."""
     base, lab = _split_labels(key)
     return base + suffix + lab
+
+
+_LABEL_PAIR = re.compile(r'(\w+)="([^"]*)"')
+
+
+def with_labels(key: str, **extra) -> str:
+    """Add labels to a series key that may ALREADY carry a label block:
+    ``with_labels('stream_lag{metro="sf"}', worker="w0")`` →
+    ``stream_lag{metro="sf",worker="w0"}``. Existing labels win on a
+    name clash (a member's own label is its identity; an aggregator
+    must never overwrite it). Routed through ``labeled()`` so the
+    sorted-label canonical spelling holds here too."""
+    base, lab = _split_labels(key)
+    labels = dict(_LABEL_PAIR.findall(lab))
+    for k, v in extra.items():
+        labels.setdefault(k, v)
+    return labeled(base, **labels)
 
 
 class _Reservoir:
@@ -152,7 +175,12 @@ class MetricsRegistry:
             r = self._series.get(name)
             if r is None:
                 r = self._series[name] = _Reservoir()
-                self._hist[name] = [0] * (len(HISTOGRAM_BUCKETS) + 1)
+                # setdefault, not assignment: a merged registry
+                # (merge_exports) carries histograms with no reservoir
+                # behind them; a later observe() into the same name
+                # extends those bucket counts, never zeroes them
+                self._hist.setdefault(
+                    name, [0] * (len(HISTOGRAM_BUCKETS) + 1))
             r.add(value)
             self._hist[name][bisect.bisect_left(HISTOGRAM_BUCKETS,
                                                 value)] += 1
@@ -202,6 +230,22 @@ class MetricsRegistry:
             out["probes_per_sec_busy"] = probes / busy
         out["uptime_seconds"] = time.time() - self._born
         return out
+
+    def export(self) -> dict:
+        """The MERGE-ABLE wire form of the whole registry (cross-worker
+        aggregation, the reason ``HISTOGRAM_BUCKETS`` is fixed): counters and gauges verbatim plus
+        every observation series' fixed-bucket counts. Reservoir SAMPLES
+        are deliberately absent — percentiles are a process-local
+        affordance (/stats), the aggregable artifact is the histogram,
+        so merged expositions DROP ``_p50/_p99`` rather than publish a
+        quantile no math can justify (test-pinned)."""
+        with self._lock:
+            return {
+                "schema": EXPORT_SCHEMA,
+                "counters": dict(self._counters),
+                "gauges": dict(self._gauges),
+                "hist": {k: list(v) for k, v in self._hist.items()},
+            }
 
     def render_prometheus(self) -> str:
         """Prometheus text exposition (format 0.0.4) of the whole
@@ -267,3 +311,124 @@ class MetricsRegistry:
                 lines.append(f"{n}_sum{lab} {float(total)}")
                 lines.append(f"{n}_count{lab} {count}")
         return "\n".join(lines) + "\n"
+
+
+def delta_exports(newer: dict, older: dict) -> dict:
+    """Element-wise ``newer − older`` over two ``export()`` documents —
+    the windowed-rate primitive the SLO plane (obs/slo.py) burns on.
+
+    Counters and histogram buckets diff (clamped at 0: a restarted
+    worker's reset must read as "no progress", never as negative burn);
+    gauges carry ``newer``'s values verbatim (a level has no meaningful
+    difference over a window — the SLO engine samples gauges into
+    synthetic counters instead). The result carries the ``schema`` tag
+    so it IS a valid export: ``merge_exports`` accepts delta documents,
+    which is what makes topology-wide burn well-defined — on counters
+    and buckets the diff is linear, so delta-of-merged-exports equals
+    merge-of-per-worker-deltas exactly (property-tested,
+    tests/test_slo.py and tests/test_torch_slo.py)."""
+    old_counters = older.get("counters") or {}
+    counters = {
+        k: max(0.0, float(v) - float(old_counters.get(k, 0.0)))
+        for k, v in (newer.get("counters") or {}).items()}
+    old_hist = older.get("hist") or {}
+    hist = {}
+    for k, buckets in (newer.get("hist") or {}).items():
+        prev = list(old_hist.get(k) or ())
+        prev += [0] * (len(buckets) - len(prev))
+        hist[k] = [max(0, int(b) - int(p))
+                   for b, p in zip(buckets, prev)]
+    return {"schema": EXPORT_SCHEMA, "counters": counters,
+            "gauges": dict(newer.get("gauges") or {}), "hist": hist}
+
+
+def delta_since(snapshots, window_s: float, now: "float | None" = None):
+    """Windowed diff over a chronological ``[(monotonic_t, export), …]``
+    sequence: returns ``(delta_exports(newest, baseline), span_s)``
+    where the baseline is the LATEST snapshot at or before
+    ``now − window_s`` (fallback: the oldest held — a young ring yields
+    a shorter, honestly-reported span rather than a fabricated one).
+    With fewer than two snapshots the delta is all-zero and the span 0.0
+    — a first tick can never alert."""
+    if not snapshots:
+        return None, 0.0
+    t_new, newest = snapshots[-1]
+    if now is None:
+        now = t_new
+    cutoff = now - window_s
+    base_t, base = snapshots[0]
+    for t, exp in snapshots:
+        if t <= cutoff:
+            base_t, base = t, exp
+        else:
+            break
+    return delta_exports(newest, base), max(0.0, t_new - base_t)
+
+
+class SnapshotRing:
+    """Bounded chronological ring of (monotonic_t, export) snapshots —
+    the state behind ``delta_since``. Unlocked by design: the one
+    writer/reader is the SLO evaluator's tick, which holds its own named
+    lock."""
+
+    __slots__ = ("_snaps", "_cap")
+
+    def __init__(self, cap: int = 512):
+        self._snaps: list = []
+        self._cap = cap
+
+    def push(self, t: float, export: dict) -> None:
+        self._snaps.append((float(t), export))
+        if len(self._snaps) > self._cap:
+            del self._snaps[0]
+
+    def __len__(self) -> int:
+        return len(self._snaps)
+
+    def delta_since(self, window_s: float, now: "float | None" = None):
+        return delta_since(self._snaps, window_s, now)
+
+
+def merge_exports(exports: "dict[str, dict]") -> MetricsRegistry:
+    """K member ``export()`` documents → ONE fleet-wide registry (the
+    supervisor's merged view): keyed by member name so gauges
+    stay attributable.
+
+      counters    sum — labeled series union per full ``{metro=…}`` key
+                  (identical keys from two members are the same logical
+                  series and add; the ``_total``/``_count`` shadows ride
+                  along, keeping histogram ``_sum``/``_count`` exact);
+      gauges      carry a ``worker`` label — two members' backlog depths
+                  are different facts; last-write-wins across processes
+                  would fabricate a fleet-wide level nobody measured;
+      histograms  sum BUCKET-WISE over the shared fixed ``le`` grid
+                  (legal precisely because the grid is pinned);
+      reservoirs  dropped — the merged exposition publishes no
+                  ``_p50/_p99`` (see ``export()``).
+
+    The result is a plain MetricsRegistry: ``render_prometheus()`` is
+    the fleet exposition, ``snapshot()``/``value()`` serve /health math.
+    Property-tested (tests/test_distributed.py, and against the JAX
+    package's merge in tests/test_torch_distributed.py): merging K exports
+    equals one registry observing the union of all K observation
+    streams, exactly, on every counter and every bucket."""
+    out = MetricsRegistry()
+    with out._lock:
+        for member in sorted(exports):
+            exp = exports[member] or {}
+            if exp.get("schema") != EXPORT_SCHEMA:
+                # the tag exists to be CHECKED: an export from a
+                # version-skewed process is skipped, never mis-merged
+                # (empty dicts — a member with no metrics yet — carry
+                # no tag and contribute nothing either way)
+                continue
+            for k, v in (exp.get("counters") or {}).items():
+                out._counters[k] = out._counters.get(k, 0.0) + float(v)
+            for k, v in (exp.get("gauges") or {}).items():
+                out._gauges[with_labels(k, worker=member)] = float(v)
+            for k, buckets in (exp.get("hist") or {}).items():
+                h = out._hist.setdefault(
+                    k, [0] * (len(HISTOGRAM_BUCKETS) + 1))
+                for i, c in enumerate(buckets[:len(h)]):
+                    h[i] += int(c)
+    return out

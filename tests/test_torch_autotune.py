@@ -212,6 +212,64 @@ def test_cache_round_trip_and_corruption_misses(tmp_path, tiles):
         assert autotune.load_cached_plan(fp, "cuda:x", d) is None
 
 
+_STORE_LOOP = """
+import sys
+from reporter_tpu_torch.matcher import autotune
+arm, lowp = sys.argv[2], sys.argv[3]
+report = {"candidates": {f"c{i}": {"ms": float(i)} for i in range(300)}}
+for _ in range(150):
+    autotune.store_cached_plan(autotune.TunedPlan(arm=arm, lowp=lowp,
+                                                  source="measured"),
+                               report, "fp", "cuda:0", sys.argv[1])
+"""
+
+
+def test_cache_store_is_whole_under_concurrent_writers(tmp_path):
+    """The workers of a topology start at once and, with a cold cache,
+    each calibrates and stores its plan: several threads and two
+    processes storing plans together leave one whole, readable plan and
+    no temp file."""
+    import subprocess
+    import sys
+    import threading
+
+    d = str(tmp_path / "cache")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _STORE_LOOP, d, arm, lowp],
+        env=dict(os.environ, PYTHONPATH=root))
+        for arm, lowp in (("mxu", "bf16"), ("block", "off"))]
+    report = {"candidates": {f"c{i}": {"ms": float(i)} for i in range(300)}}
+    arms = [a for a in CANDIDATE_ARMS]
+    torn = []
+
+    def store(i):
+        arm, lowp = arms[i % len(arms)]
+        for _ in range(150):
+            autotune.store_cached_plan(TunedPlan(arm=arm, lowp=lowp,
+                                                 source="measured"),
+                                       report, "fp", "cuda:0", d)
+            if os.path.exists(autotune._cache_path(d, "fp", "cuda:0")) \
+                    and autotune.load_cached_plan("fp", "cuda:0", d) is None:
+                torn.append(i)
+
+    threads = [threading.Thread(target=store, args=(i,)) for i in range(6)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+        assert not th.is_alive()
+    for proc in procs:
+        assert proc.wait(timeout=120) == 0
+    assert not torn                       # every read saw a whole plan
+    got = autotune.load_cached_plan("fp", "cuda:0", d)
+    assert got is not None and (got.arm, got.lowp) in CANDIDATE_ARMS
+    with open(autotune._cache_path(d, "fp", "cuda:0")) as f:
+        assert json.load(f)["candidates"] == report["candidates"]
+    assert os.listdir(d) == [os.path.basename(
+        autotune._cache_path(d, "fp", "cuda:0"))]
+
+
 def test_cache_dir_honours_the_environment(monkeypatch, tmp_path):
     monkeypatch.setenv("RTPU_AUTOTUNE_CACHE", str(tmp_path))
     assert autotune.cache_dir() == str(tmp_path)

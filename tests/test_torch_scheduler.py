@@ -549,7 +549,9 @@ class TestHealthSurface:
         assert s["admission_depth"] == 0
         assert "inflight_hist" in s and "padding_by_bucket" in s
         assert body["backend"] == "torch" and body["device"] == "cpu"
-        assert "link" not in body and "slo" not in body
+        assert "link" not in body
+        assert set(body["slo"]) == {"enabled", "alerting", "alerts_total",
+                                    "budget_remaining"}
         app.close()
 
     def test_combine_mode_has_no_scheduler_block(self, tiles):

@@ -9,8 +9,11 @@ same directory; the columnar worker fed by ``--stdin-format csv`` into a
 fresh (columnar) broker; and the dict worker fed ``--stdin-format json``.
 In-process (``main``): the checkpoint restart, partition subsets, the
 columnar worker over a record broker, the broker format read from the
-directory, the exit JSON's keys, and the unported flags raising
-NotImplementedError that names their ROADMAP item.
+directory, the exit JSON's keys; the topology's flags: ``--lease-dir``
+draining a broker through the lease table, ``--snapshot-dir`` writing a
+snapshot the JAX package reads, the default SLO block with the JAX
+worker's keys, ``RTPU_SLO=bogus`` raising as the JAX gate does, and the
+JAX parser's two lease-mode refusals.
 """
 
 import io
@@ -120,7 +123,9 @@ def test_worker_subprocess_drains_broker_like_in_process(worker_env,
     out = _last_json(proc.stdout)
     assert out["lag"] == 0 and out["committed"] == ends
     assert out["reports"] > 0 and out["published"] == out["reports"]
-    assert out["lease"] is None and out["slo"] is None
+    assert out["lease"] is None
+    assert set(out["slo"]) == {"active", "alerts_total", "ticks",
+                               "budget_remaining"}
     assert os.path.exists(ckpt + ".npz")
     assert "ready" in proc.stderr and "drained in" in proc.stderr
     # the same pipeline in-process over a copy of the directory
@@ -286,23 +291,102 @@ def test_columnar_pipeline_over_durable_columnar_copy(worker_env, tmp_path):
     assert rows[0] == rows[1] and rows[0]
 
 
-@pytest.mark.parametrize("flag,match", [
-    ("--lease-dir", "distributed/"), ("--snapshot-dir", "distributed/")])
-def test_unported_flags_raise(worker_env, tmp_path, flag, match):
-    with pytest.raises(NotImplementedError, match=match):
-        main(["--tiles", worker_env["tiles"], "--broker-dir",
-              str(tmp_path / "b"), flag, str(tmp_path / "x"),
-              "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "b")       # refused before work
+# ---------------------------------------------------------------------------
+# the topology's flags: leases, the snapshot spool, the SLO plane
 
 
-def test_slo_plane_enabled_raises(worker_env, tmp_path, monkeypatch):
-    monkeypatch.setenv("RTPU_SLO", "1")
-    with pytest.raises(NotImplementedError, match="item 1e"):
-        main(["--tiles", worker_env["tiles"], "--broker-dir",
-              str(tmp_path / "b"), "--device", "cpu"])
-    monkeypatch.setenv("RTPU_SLO", "0")          # disabled: runs
-    broker = str(tmp_path / "b2")
+def test_lease_dir_drains_the_broker(worker_env, tmp_path, capsys):
+    """One leased worker takes every orphaned partition from a fresh
+    table, drains the broker globally, and hands everything back at
+    exit with the table's floors at the end offsets."""
+    from reporter_tpu_torch.distributed.lease import LeaseTable
+
+    broker, leases = str(tmp_path / "b"), str(tmp_path / "leases")
+    ends = _stage(broker, worker_env["fleet"])
+    out = _main(["--tiles", worker_env["tiles"], "--broker-dir", broker,
+                 "--lease-dir", leases, "--lease-ttl", "30",
+                 "--member", "w-lease", "--exit-on-drain"], capsys)
+    assert out["lease"] == {"acquired": 4, "lost": 0, "revoked": 4,
+                            "stale_commits": 0, "discarded_points": 0}
+    assert out["lag"] == 0 and out["committed"] == ends
+    assert out["reports"] > 0
+    table = LeaseTable(leases)
+    assert table.floors() == ends
+    st = table.state()
+    assert all(ent["owner"] is None for ent in st["partitions"].values())
+    assert "w-lease" in st["members"]
+
+
+def test_snapshot_dir_is_read_by_the_jax_package(worker_env, tmp_path,
+                                                 capsys, monkeypatch):
+    from reporter_tpu.distributed import aggregate as jaggregate
+
+    monkeypatch.setenv("RTPU_SLO_SCALE", "0.01")
+    broker, snaps = str(tmp_path / "b"), str(tmp_path / "snaps")
+    _stage(broker, worker_env["fleet"])
+    out = _main(["--tiles", worker_env["tiles"], "--broker-dir", broker,
+                 "--snapshot-dir", snaps, "--snapshot-interval", "0",
+                 "--member", "w-snap", "--exit-on-drain"], capsys)
+    doc = jaggregate.read_snapshot(jaggregate.snapshot_path(snaps, "w-snap"))
+    assert doc is not None and doc["member"] == "w-snap"
+    assert doc["seq"] >= 2 and doc["stats"]["lag"] == 0
+    assert doc["stats"]["published"] == out["published"]
+    assert doc["metrics"]["counters"]["probes"] > 0
+    assert set(jaggregate.load_dir(snaps)) == {"w-snap"}
+    merged = jaggregate.merge_registry(jaggregate.load_dir(snaps))
+    assert merged.value("traces") == doc["metrics"]["counters"]["traces"]
+    assert out["slo"]["ticks"] >= 1
+
+
+def test_default_exit_slo_block_has_the_jax_keys(worker_env, tmp_path,
+                                                 capsys, monkeypatch):
+    from reporter_tpu.obs.slo import SloEvaluator as JSloEvaluator
+    from reporter_tpu.utils.metrics import MetricsRegistry as JRegistry
+
+    monkeypatch.delenv("RTPU_SLO", raising=False)
+    broker = str(tmp_path / "b")
+    _stage(broker, worker_env["fleet"][:2])
+    out = _main(["--tiles", worker_env["tiles"], "--broker-dir", broker,
+                 "--exit-on-drain"], capsys)
+    want = JSloEvaluator(JRegistry(), enabled_override=True)
+    want.tick(force=True)
+    assert set(out["slo"]) == set(want.exit_block())
+    assert set(out["slo"]["budget_remaining"]) == \
+        set(want.exit_block()["budget_remaining"])
+    assert out["slo"]["ticks"] >= 1 and out["lease"] is None
+    # the sweep's launches: a CPU matcher launches no kernel
+    assert out["launches"] == {} and out["plan"] is None
+    assert out["ready_unix_s"] <= out["exit_unix_s"]
+
+
+def test_slo_gate_typo_raises_like_jax(worker_env, tmp_path, monkeypatch):
+    monkeypatch.setenv("RTPU_SLO", "bogus")
+    broker = str(tmp_path / "b")
     _stage(broker, worker_env["fleet"][:1])
+    with pytest.raises(ValueError):
+        main(["--tiles", worker_env["tiles"], "--broker-dir", broker,
+              "--max-steps", "1", "--device", "cpu"])
+    monkeypatch.setenv("RTPU_SLO", "0")          # disabled: runs, no block
     assert main(["--tiles", worker_env["tiles"], "--broker-dir", broker,
                  "--max-steps", "1", "--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("extra", [["--partitions", "0"], ["--columnar"]])
+def test_lease_dir_refusals_are_the_jax_parser_errors(worker_env, tmp_path,
+                                                      capsys, extra):
+    """--lease-dir with --partitions, and with --columnar (lease mode is
+    dict-only): the JAX parser's usage error, exit status 2, before any
+    work."""
+    from reporter_tpu.streaming.__main__ import main as jmain
+
+    args = ["--tiles", worker_env["tiles"], "--broker-dir",
+            str(tmp_path / "b"), "--lease-dir", str(tmp_path / "l"), *extra]
+    errs = []
+    for fn in (main, jmain):
+        with pytest.raises(SystemExit) as ei:
+            fn(args)
+        assert ei.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[0].split(": ", 1)[1] == errs[1].split(": ", 1)[1]
+    assert "--lease-dir" in errs[0]
+    assert not os.path.exists(tmp_path / "b")       # refused before work
