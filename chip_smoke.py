@@ -65,6 +65,12 @@ the native host half against its Python forms, in phases:
      reference — golden fixture ids on the card, through the matcher and
                 through make_app's /report, and card-vs-CPU records on a
                 small batch;
+     oracle   — the first ORACLE_TRACES["sf"] traces through the
+                exact-Dijkstra oracle (matcher_backend="reference_cpu",
+                numpy on the host): length-weighted agreement of the
+                card's records with it at AGREEMENT_GATE or better, their
+                equality with the CPU port's, the oracle's probes/s beside
+                the host CPU's model;
   6. organic  — generate_city("organic") (seed 11, 62,757 directed edges),
                 compiled by the port (timed); its kernel phase (131,072
                 fleet points, every arm equal to the others, bit-equal to
@@ -72,15 +78,18 @@ the native host half against its Python forms, in phases:
                 shares), gates line, main phase (tuned matcher, BATCH_RUNS
                 batches, records equal across it and five pinned
                 matchers), walk phase (the three walks and the prepares,
-                as on sf) and card-vs-CPU records on 32 traces, each line
-                tagged metro=organic;
+                as on sf), card-vs-CPU records on 32 traces and [oracle]
+                on ORACLE_TRACES["organic"] traces, each line tagged
+                metro=organic;
   7. serve    — on sf, the report service in-process (make_app on the
                 card, a fresh tuner cache, behind serve()'s threaded WSGI
                 server on an ephemeral port; the datastore a local HTTP
                 server reached through the publisher's urllib transport):
                 three lone requests, then 64 client threads each posting
-                its 16 uuids' 120-point traces as three in-order /report
-                requests of 40 points (3,072 requests), then one
+                its 8 uuids' 120-point traces as three in-order /report
+                requests of 40 points (1,536 requests; 16 uuids and 3,072
+                requests before the oracle, watchdog, audit and backfill
+                phases joined the run), then one
                 /report_many of 256 traces. Every response 200; the first
                 32 uuids' responses equal a CPU app's fed the same
                 per-uuid order, and the datastore's reports for them the
@@ -168,7 +177,32 @@ the native host half against its Python forms, in phases:
                 SIGKILLed: floors at the end offsets, no commit at a stale
                 epoch, the zombie's commit refused, stable partitions'
                 reports covered; join and adoption latencies;
- 10. summary  — the kernels JSON line (every arm at every K, the sources,
+ 10. watchdog — on sf, the dispatch watchdog: [watchdog] the columnar
+                pipeline (depth 0) over WATCHDOG_VEHICLES vehicles with
+                dispatch_timeout_s = WATCHDOG_TIMEOUT_S (checked to be over
+                5x a warm batch), uninterrupted and with the second
+                dispatch hanging WATCHDOG_HANG_S: exactly one timeout, the
+                released wave retried on the same rows, reports equal;
+                [watchdog:fallback] dispatch_fallback="reference_cpu"
+                under a hang of every dispatch: every wave served by the
+                oracle and counted, none released, no kernel launched;
+                [watchdog:503] a hung /report answers 503, its retry 200;
+     audit    — AUDIT_BATCHES batches of AUDIT_BATCH traces through the
+                tuned matcher with the shadow auditor at rate 1, interval
+                0 and duty cap 100: audited batches and traces, mean
+                disagreement against the oracle, audit seconds and duty;
+     backfill — on sf, the fleet's 122,880 records spooled into a
+                4-partition durable columnar broker and a records broker
+                (_chip_scratch/backfill); BackfillEngine with the tuned
+                matcher and the default BackfillConfig, its grids held
+                against the host twin (agg_identical), records/s, stage
+                seconds; the records spool (same document); a closed-loop
+                columnar drain of a copy of the spool (depth 0): vs_soak_x;
+                slice_traces=1024 (same grids); backfill:crash@1 and a
+                resume from its checkpoint (same grids, the replay tax);
+                GET /aggregates of an app holding the store (the
+                document, one segment, 404 for an unknown one);
+ 11. summary  — the kernels JSON line (every arm at every K, the sources,
                 the host library among them; the topology's workers'
                 launches by member), the card line, and the final
                 {"ok": true, "device": {...}} line.
@@ -216,8 +250,10 @@ MAIN_K_CPU_TRACES = 16        # traces of the main path at the other K also
 #                               matched on the CPU
 REFERENCE_TRACES = 32         # traces matched on both the card and the CPU
 OVERLAP_SLICE = 256           # traces per slice of the overlap check
-SERVE_CLIENTS, SERVE_UUIDS, SERVE_PARTS = 64, 16, 3   # [serve]: clients,
+SERVE_CLIENTS, SERVE_UUIDS, SERVE_PARTS = 64, 8, 3   # [serve]: clients,
 #                               uuids per client, in-order requests per uuid
+#                               (8 uuids since the watchdog, audit and
+#                               backfill phases joined the run: 16 before)
 SERVE_MANY = 256              # traces of [serve]'s one /report_many
 SERVE_CPU_UUIDS = 32          # uuids also served by the CPU app
 SERVER_START_S = 300          # [server]: /health must answer within this
@@ -240,6 +276,22 @@ TOPO_LEASE_TTL_S = 2.4        # [topo:lease]: the lease time-to-live
 TOPO_TIMEOUT_S = 300          # the bound of each wait of a topology run
 TOPO_SAMPLE_S = 0.2           # _CardSampler's period
 TOPO_SCALE_RUNS = (("dict", 1), ("dict", 2), ("dict", 4), ("columnar", 4))
+ORACLE_TRACES = {"sf": 32, "organic": 6}   # [oracle]: traces through the
+#                               numpy oracle (exact Dijkstra per transition on
+#                               the host: ~160 probes/s on sf and ~20 on
+#                               organic on the H100 machine's host), under a
+#                               minute on each
+AGREEMENT_GATE = 0.95         # the length-weighted agreement the JAX package
+#                               holds its matcher to against the oracle
+WATCHDOG_VEHICLES = 256       # [watchdog]: vehicles fed through the pipeline
+WATCHDOG_TIMEOUT_S = 2.5      # dispatch_timeout_s: over 5x a warm batch of
+#                               the subset (checked), so only the hang trips it
+WATCHDOG_HANG_S = 7.5         # the injected hang: 3x the timeout
+FALLBACK_VEHICLES = 8         # [watchdog:fallback]: vehicles the oracle serves
+FALLBACK_TIMEOUT_S = 0.5      # under a hang of every dispatch
+FALLBACK_HANG_S = 30.0
+AUDIT_BATCHES, AUDIT_BATCH = 6, 64   # [audit]: served batches, traces each
+BACKFILL_PARTITIONS = 4       # [backfill]: the spool's partitions
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "_chip_scratch")
 SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
@@ -982,6 +1034,7 @@ def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
           traces_checked=len(small))
     if not cpu_ok:
         raise SystemExit("organic: the card's records differ from the CPU's")
+    oracle_phase(card, ts, traces, recs, cpu_recs, "organic")
     return arms
 
 
@@ -2528,6 +2581,432 @@ def topo_lease_phase(card, st):
                          f"{[k for k, v in checks.items() if not v]}")
 
 
+def host_cpu():
+    """The host CPU and its core count (the oracle's rate is a host
+    figure): /proc/cpuinfo's model name, else its vendor, family and
+    model numbers (a virtual machine may hide the name), else the
+    architecture."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, sep, val = line.partition(":")
+                if not sep:
+                    if info:
+                        break           # the first processor's block
+                    continue
+                info.setdefault(key.strip().lower(), val.strip())
+    except OSError:
+        pass
+    name = info.get("model name", "")
+    if not name or name == "unknown":
+        name = " ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family",
+                                                   "model") if k in info)
+    return f"{name or platform.machine()} x{os.cpu_count()}"
+
+
+def oracle_phase(card, ts, traces, recs, cpu_recs, metro):
+    """[oracle]: the first ORACLE_TRACES[metro] traces through the
+    exact-Dijkstra oracle (matcher_backend="reference_cpu", numpy on the
+    host): the card's records must agree with it, length-weighted, at
+    AGREEMENT_GATE or better, and equal the CPU port's records."""
+    from reporter_tpu_torch.config import Config
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+    from reporter_tpu_torch.matcher.fidelity import (
+        length_weighted_agreement, mean_disagreement)
+
+    n = ORACLE_TRACES[metro]
+    small, card_recs = traces[:n], recs[:n]
+    oracle = SegmentMatcher(ts, Config(matcher_backend="reference_cpu"))
+    t0 = time.perf_counter()
+    ref = oracle.match_many(small)
+    oracle_s = time.perf_counter() - t0
+    agree, total = length_weighted_agreement(card_recs, ref)
+    cpu_ok = json_records(cpu_recs[:n]) == json_records(card_recs)
+    probes = sum(len(t.xy) for t in small)
+    phase("oracle", card, metro=metro, traces=n, probes=probes,
+          agreement=agree / total, gate=AGREEMENT_GATE, agree_m=agree,
+          total_m=total, mean_disagreement=mean_disagreement(card_recs, ref),
+          oracle_records=sum(len(r) for r in ref),
+          card_records=sum(len(r) for r in card_recs),
+          oracle_s=oracle_s, oracle_probes_per_s=probes / oracle_s,
+          dijkstra_searches=oracle._dij_cache.searches,
+          dijkstra_hits=oracle._dij_cache.hits, host_cpu=host_cpu(),
+          card_vs_cpu_records_equal=cpu_ok)
+    if agree / total < AGREEMENT_GATE or not cpu_ok:
+        raise SystemExit(f"[oracle] {metro}: agreement {agree / total:.4f} "
+                         f"(gate {AGREEMENT_GATE}) or card != CPU records")
+
+
+def _tuned(m, dc):
+    p = m.params
+    return dc.sweep_arm(p.sweep_subcull, p.sweep_lowp, p.sweep_mxu), \
+        p.max_candidates
+
+
+def _drive_columnar(pipe, cols):
+    """Feed round by round at pipeline depth 0; a round whose wave timed
+    out steps again on the same rows (no new records), so the retried
+    wave flushes at the uninterrupted run's points. Then drain."""
+    q = pipe.queue
+    for c in cols:
+        q.append_columns(c)
+        before = pipe.dispatch_timeouts
+        pipe.step()
+        while pipe.dispatch_timeouts > before:
+            before = pipe.dispatch_timeouts
+            pipe.step()
+    pipe.drain()
+
+
+def watchdog_phase(card, ts, fleet, m, dc, win, device="cuda"):
+    """[watchdog]: the dispatch watchdog on the card. (1) The columnar
+    pipeline (depth 0) over WATCHDOG_VEHICLES vehicles with
+    dispatch_timeout_s = WATCHDOG_TIMEOUT_S, once uninterrupted and once
+    with the second dispatch hanging WATCHDOG_HANG_S: one timeout, the
+    same reports. (2) dispatch_fallback="reference_cpu" under a hang of
+    every dispatch, FALLBACK_VEHICLES vehicles: every wave from the
+    oracle, reports present, fallbacks counted, no wave released. (3) A
+    /report under a hang answers 503; its retry answers 200."""
+    from reporter_tpu_torch import faults
+    from reporter_tpu_torch.config import (Config, MatcherParams,
+                                           ServiceConfig, StreamingConfig)
+    from reporter_tpu_torch.service.app import make_app
+    from reporter_tpu_torch.streaming import (ColumnarStreamPipeline,
+                                              pack_records)
+
+    from reporter_tpu_torch.matcher.api import Trace
+
+    sub = fleet[:WATCHDOG_VEHICLES]
+    # warm batches of the subset, with the tuned matcher
+    probe = [Trace(p.uuid, p.xy.astype(np.float32), p.times) for p in sub]
+    entry_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m.match_many(probe)
+        entry_s.append(time.perf_counter() - t0)
+    if WATCHDOG_TIMEOUT_S < 5 * max(entry_s):
+        raise SystemExit(f"[watchdog] timeout {WATCHDOG_TIMEOUT_S} s is not "
+                         f"well above a warm batch {max(entry_s):.3f} s")
+    cols = [pack_records(r) for r in stream_rounds(sub)]
+
+    def run(plan, timeout, fallback="retry", rounds=cols, tag="run"):
+        bodies = []
+        cfg = Config(matcher=MatcherParams(dispatch_timeout_s=timeout,
+                                           dispatch_fallback=fallback),
+                     service=ServiceConfig(
+                         datastore_url="http://datastore.local/"),
+                     streaming=StreamingConfig(pipeline_depth=0))
+        pipe = ColumnarStreamPipeline(ts, cfg, transport=_capture(bodies),
+                                      device=device)
+        tuned = _tuned(pipe.matcher, dc)
+        t0 = time.perf_counter()
+        with faults.use(faults.FaultPlan.parse(plan) if plan else None):
+            _, counts = win.run(f"sf:watchdog:{tag}",
+                                lambda: _drive_columnar(pipe, rounds))
+        seconds = time.perf_counter() - t0
+        _check_drained(pipe, f"watchdog:{tag}")
+        reg = pipe.matcher.metrics
+        out = {"reports": _sorted_reports(_report_rows(bodies)),
+               "seconds": seconds, "tuned": tuned, "counts": counts,
+               "released": pipe.dispatch_timeouts,
+               "timeouts": int(reg.value("dispatch_timeout")),
+               "fallbacks": int(reg.value("dispatch_fallback")),
+               "breaker": int(reg.value("dispatch_breaker_open")),
+               "waves": pipe.waves_completed}
+        pipe.close()
+        return out
+
+    clean = run(None, WATCHDOG_TIMEOUT_S, tag="clean")
+    hung = run(f"dispatch:hang({WATCHDOG_HANG_S:g})@1", WATCHDOG_TIMEOUT_S,
+               tag="hang")
+    same = hung["reports"] == clean["reports"]
+    phase("watchdog", card, metro="sf", vehicles=len(sub),
+          records=sum(c.n for c in cols),
+          warm_batch_ms=[s * 1e3 for s in entry_s],
+          dispatch_timeout_s=WATCHDOG_TIMEOUT_S,
+          injected_hang_s=WATCHDOG_HANG_S,
+          clean_s=clean["seconds"], hang_s=hung["seconds"],
+          clean_waves=clean["waves"], hang_waves=hung["waves"],
+          clean_timeouts=clean["timeouts"], timeouts=hung["timeouts"],
+          waves_released=hung["released"], reports=len(clean["reports"]),
+          reports_equal_uninterrupted=same,
+          launches=_launches(hung["counts"]))
+    only(clean["counts"], clean["tuned"], "[watchdog] uninterrupted")
+    only(hung["counts"], hung["tuned"], "[watchdog] with the hang")
+    if not (same and clean["reports"] and clean["timeouts"] == 0
+            and hung["timeouts"] == hung["released"] == 1):
+        raise SystemExit("[watchdog] the hang did not give exactly one "
+                         "timeout, or the reports differ")
+
+    few = [pack_records(r) for r in stream_rounds(fleet[:FALLBACK_VEHICLES])]
+    fb = run(f"dispatch:hang({FALLBACK_HANG_S:g})@0-", FALLBACK_TIMEOUT_S,
+             fallback="reference_cpu", rounds=few, tag="fallback")
+    phase("watchdog:fallback", card, metro="sf", vehicles=FALLBACK_VEHICLES,
+          dispatch_timeout_s=FALLBACK_TIMEOUT_S,
+          injected_hang_s=FALLBACK_HANG_S, seconds=fb["seconds"],
+          waves=fb["waves"], dispatch_fallback=fb["fallbacks"],
+          dispatch_timeout=fb["timeouts"],
+          dispatch_breaker_open=fb["breaker"],
+          waves_released=fb["released"], reports=len(fb["reports"]),
+          launches=_launches(fb["counts"]))
+    if not (fb["reports"] and fb["fallbacks"] == fb["waves"] > 0
+            and fb["released"] == 0 and not any(fb["counts"].values())):
+        raise SystemExit("[watchdog:fallback] the oracle did not serve "
+                         "every wave")
+
+    app = make_app(ts, Config(
+        matcher=MatcherParams(dispatch_timeout_s=WATCHDOG_TIMEOUT_S),
+        service=ServiceConfig(batching="combine")), device=device)
+    body = fleet[0].to_report_json()
+    with faults.use(faults.FaultPlan.parse(
+            f"dispatch:hang({WATCHDOG_HANG_S:g})@0")):
+        t0 = time.perf_counter()
+        hung_answer = wsgi_post(app, "/report", body)
+        hung_s = time.perf_counter() - t0
+        retry = wsgi_post(app, "/report", body)
+    app.close()
+    ok = (hung_answer[0] == 503
+          and "device dispatch exceeded" in hung_answer[1].get("error", "")
+          and retry[0] == 200 and len(retry[1].get("segments", ())) > 0)
+    phase("watchdog:503", card, metro="sf", status=hung_answer[0],
+          body=hung_answer[1], answer_s=hung_s, retry_status=retry[0],
+          retry_segments=len(retry[1].get("segments", ())))
+    if not ok:
+        raise SystemExit("[watchdog:503] a hung /report did not answer 503, "
+                         "or its retry failed")
+
+
+def audit_phase(card, m, traces, dc, win):
+    """[audit]: AUDIT_BATCHES served batches of AUDIT_BATCH traces through
+    the tuned card matcher with the process auditor at rate 1, interval 0
+    and duty cap 100: the sampled batches are audited against the oracle
+    on the auditor's thread."""
+    from reporter_tpu_torch.quality import audit
+
+    def serve():
+        for k in range(AUDIT_BATCHES):
+            m.match_many(traces[k * AUDIT_BATCH:(k + 1) * AUDIT_BATCH])
+
+    prev = audit._global
+    # the same batches with the auditor off, then at rate 1: what the
+    # oracle on the auditor's thread costs the serving thread
+    off = audit.ShadowAuditor(rate=0.0)
+    a = audit.ShadowAuditor(rate=1.0, min_interval_s=0.0,
+                            duty_pct_cap=100.0, timeout_s=300.0)
+    try:
+        audit.configure(off)
+        t0 = time.perf_counter()
+        serve()
+        off_s = time.perf_counter() - t0
+        audit.configure(a)
+        t0 = time.perf_counter()
+        _, counts = win.run("sf:audit", serve)
+        serve_s = time.perf_counter() - t0
+        drained = a.drain(600.0)
+        st = a.stats()
+    finally:
+        audit.configure(prev)
+        a.stop()
+        off.stop()
+    phase("audit", card, metro="sf", batches=AUDIT_BATCHES,
+          batch_traces=AUDIT_BATCH, serve_s_auditor_off=off_s,
+          serve_s=serve_s, drained=drained, **st, host_cpu=host_cpu(),
+          launches=_launches(counts))
+    only(counts, _tuned(m, dc), "[audit] the served batches")
+    if not (drained and st["audited_batches"] >= 1
+            and st["audit_timeouts"] == 0 and st["audit_calls"]
+            == AUDIT_BATCHES):
+        raise SystemExit(f"[audit] {st}")
+
+
+def wsgi_get(app, path, query=""):
+    """One GET through the WSGI callable. → (status, JSON)."""
+    import io
+
+    status = []
+    env = {"REQUEST_METHOD": "GET", "PATH_INFO": path,
+           "QUERY_STRING": query, "wsgi.input": io.BytesIO(b"")}
+    data = b"".join(app(env, lambda s, h: status.append(s)))
+    return int(status[0].split()[0]), json.loads(data)
+
+
+def backfill_phase(card, ts, fleet, m, dc, win, device="cuda"):
+    """[backfill]: the fleet's 122,880 records spooled into a 4-partition
+    durable columnar broker and a records broker under _chip_scratch/
+    backfill; BackfillEngine with the tuned sf matcher and the default
+    BackfillConfig (shadow on: the card's grids must equal the host
+    twin), the records spool (the same document), a closed-loop columnar
+    drain of the same spool (pipeline depth 0, default StreamingConfig),
+    slice_traces=1024 (the same grids), backfill:crash@1 and a resume
+    from its checkpoint (the same grids, the replay tax), and GET
+    /aggregates of an app holding the store."""
+    import dataclasses
+    import shutil
+
+    from reporter_tpu_torch import faults
+    from reporter_tpu_torch.backfill import BackfillConfig, BackfillEngine
+    from reporter_tpu_torch.config import (Config, ServiceConfig,
+                                           StreamingConfig)
+    from reporter_tpu_torch.service.app import make_app
+    from reporter_tpu_torch.streaming import (ColumnarStreamPipeline,
+                                              DurableColumnarIngestQueue,
+                                              DurableIngestQueue,
+                                              pack_records)
+
+    root = os.path.join(SCRATCH, "backfill")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rounds = stream_rounds(fleet)
+    n_records = sum(len(r) for r in rounds)
+    col_dir, rec_dir = os.path.join(root, "col"), os.path.join(root, "rec")
+    t0 = time.perf_counter()
+    q = DurableColumnarIngestQueue(col_dir, BACKFILL_PARTITIONS)
+    for r in rounds:
+        q.append_columns(pack_records(r))
+    q.close()
+    col_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q = DurableIngestQueue(rec_dir, BACKFILL_PARTITIONS)
+    for r in rounds:
+        q.append_many(r)
+    q.close()
+    rec_s = time.perf_counter() - t0
+    tuned = _tuned(m, dc)
+
+    def run(tag, broker, shadow=False, **kw):
+        """One engine run in its launch window, the card sampled beside
+        it. → (engine, stats or None where InjectedCrash stopped it,
+        launches, the card's busy share)."""
+        eng = BackfillEngine(ts, matcher=m, bf=BackfillConfig(**kw))
+        if shadow:
+            eng.enable_shadow_reference()
+
+        def go():
+            try:
+                return eng.run(broker)
+            except faults.InjectedCrash:
+                return None
+
+        with _CardSampler() as sampler:
+            t0 = time.time()
+            stats, counts = win.run(f"sf:backfill:{tag}", go)
+            t1 = time.time()
+        only(counts, tuned, f"[backfill] {tag}")
+        return eng, stats, counts, sampler.window(t0, t1)["busy_share"]
+
+    def grids(eng):
+        return eng.hist.snapshot(), eng.qhist.snapshot()
+
+    def same_grids(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(grids(a), grids(b)))
+
+    def doc_of(eng):
+        return json.dumps(eng.store.snapshot(), sort_keys=True)
+
+    base, st, counts, busy = run("default", col_dir, shadow=True)
+    identical = base.shadow_identical()
+    phase("backfill", card, metro="sf", arm="default",
+          spool_seconds={"columnar": col_s, "records": rec_s},
+          config=dataclasses.asdict(BackfillConfig()),
+          **st, records_per_s=st["records"] / st["seconds"],
+          stage_s=base.stage_seconds, card_busy_share=busy,
+          agg_identical=identical, launches=_launches(counts))
+    rec_eng, rst, _, _ = run("records", rec_dir)
+    rec_same = doc_of(rec_eng) == doc_of(base) and same_grids(rec_eng, base)
+
+    # the closed loop over a copy of the same spool (the pipeline's
+    # commits may truncate its broker)
+    loop_dir = os.path.join(root, "loop")
+    shutil.copytree(col_dir, loop_dir)
+    bodies = []
+    pipe = ColumnarStreamPipeline(
+        ts, Config(service=ServiceConfig(
+            datastore_url="http://datastore.local/"),
+            streaming=StreamingConfig(pipeline_depth=0)),
+        queue=DurableColumnarIngestQueue(loop_dir, BACKFILL_PARTITIONS),
+        transport=_capture(bodies), device=device)
+    loop_tuned = _tuned(pipe.matcher, dc)
+
+    def drain_loop():
+        steps = 0
+        while pipe._consumed != _ends(pipe.queue):
+            pipe.step()
+            steps += 1
+        pipe.drain()
+        return steps
+
+    with _CardSampler() as sampler:
+        t_wall = time.time()
+        t0 = time.perf_counter()
+        steps, loop_counts = win.run("sf:backfill:closed_loop", drain_loop)
+        loop_s = time.perf_counter() - t0
+        loop_busy = sampler.window(t_wall, time.time())["busy_share"]
+    _check_drained(pipe, "backfill:closed_loop")
+    pipe.close()
+    only(loop_counts, loop_tuned, "[backfill] the closed loop")
+    loop_rps = n_records / loop_s
+    open_rps = st["records"] / st["seconds"]
+
+    wide, wst, wcounts, wide_busy = run("slice_1024", col_dir,
+                                        slice_traces=1024)
+    wide_same = same_grids(wide, base) and doc_of(wide) == doc_of(base)
+
+    ck = os.path.join(root, "ckpt")
+    with faults.use(faults.FaultPlan.parse("backfill:crash@1")):
+        _, crash_st, crash_counts, _ = run("crash", col_dir,
+                                           checkpoint_path=ck,
+                                           checkpoint_every_waves=1)
+    crashed = crash_st is None
+    resumed, cst, resume_counts, _ = run("resume", col_dir,
+                                         checkpoint_path=ck,
+                                         checkpoint_every_waves=1)
+    resume_same = same_grids(resumed, base) and doc_of(resumed) == \
+        doc_of(base)
+
+    app = make_app(ts, device=device, aggregates=base.store)
+    doc = base.store.snapshot()
+    seg = next(iter(doc["segments"]), None)
+    full = wsgi_get(app, "/aggregates")
+    one = wsgi_get(app, "/aggregates", f"segment={seg}")
+    unknown = wsgi_get(app, "/aggregates", "segment=0")
+    app.close()
+    want = json.loads(json.dumps(doc))
+    agg_ok = (full == (200, want) and one == (200, json.loads(json.dumps(
+        base.store.snapshot(seg)))) and unknown[0] == 404)
+
+    phase("backfill:check", card, metro="sf",
+          records_spool={k: rst[k] for k in ("records", "reports",
+                                             "seconds", "krows_per_s")},
+          records_spool_doc_equal=rec_same,
+          closed_loop={"records_per_s": loop_rps, "seconds": loop_s,
+                       "steps": steps, "waves": pipe.waves_completed,
+                       "reports": len(_report_rows(bodies)),
+                       "card_busy_share": loop_busy,
+                       "launches": _launches(loop_counts)},
+          open_loop_records_per_s=open_rps, vs_soak_x=open_rps / loop_rps,
+          slice_1024={"records_per_s": wst["records"] / wst["seconds"],
+                      "seconds": wst["seconds"], "chunks": wst["chunks"],
+                      "stage_s": wide.stage_seconds,
+                      "card_busy_share": wide_busy,
+                      "launches": _launches(wcounts)},
+          slice_1024_x=(wst["records"] / wst["seconds"]) / open_rps,
+          slice_1024_grids_equal=wide_same, crashed_at_wave_1=crashed,
+          crash_launches=_launches(crash_counts),
+          resume={k: cst[k] for k in ("records", "records_total",
+                                      "replay_tax_records", "waves",
+                                      "seconds")},
+          resume_launches=_launches(resume_counts),
+          resume_grids_equal=resume_same, aggregates_endpoint_equal=agg_ok,
+          segments_kept=len(doc["segments"]),
+          kanon_dropped=doc["kanon_dropped"])
+    if not (identical and rec_same and wide_same and crashed and resume_same
+            and agg_ok and st["records"] == n_records and st["reports"]):
+        raise SystemExit("[backfill] a check failed")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -2642,6 +3121,7 @@ def main() -> int:
               card_vs_cpu_records_equal=cpu_ok, traces_checked=len(small))
         if not (golden_ok and golden_app_ok and cpu_ok):
             raise SystemExit("reference check failed")
+        oracle_phase(card, ts, traces, recs, cpu_recs, "sf")
 
         # ---- 6. the organic metro -----------------------------------------
         organic = organic_phase(card, dc, build, win, MatcherParams,
@@ -2665,7 +3145,12 @@ def main() -> int:
         topo_scale_phase(card, st)
         topo_lease_phase(card, st)
 
-    # ---- 10. summary -------------------------------------------------------
+        # ---- 10. the watchdog, the shadow audit and backfill (sf) -------
+        watchdog_phase(card, ts, fleet, m, dc, win)
+        audit_phase(card, m, traces, dc, win)
+        backfill_phase(card, ts, fleet, m, dc, win)
+
+    # ---- 11. summary -------------------------------------------------------
     kernels = []
     for arm, (_, replaces) in ARMS.items():
         for k in dc.SWEEP_KS:

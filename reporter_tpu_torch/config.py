@@ -9,9 +9,6 @@ NotImplementedError naming its ROADMAP item when set away from its
 default; it is never ignored:
 
   MatcherParams.candidate_backend="grid"       queue 1 item 5
-  MatcherParams.dispatch_timeout_s > 0,
-  MatcherParams.dispatch_fallback="reference_cpu",
-  Config.matcher_backend="reference_cpu"       queue 1 item 1c
   CompilerParams cell_size / cell_capacity /
   index_radius (the spatial grid)              queue 1 item 5
   ServiceConfig.mode other than "auto"         queue 1 item 4 (Config.validate)
@@ -82,10 +79,13 @@ class MatcherParams:
     sweep_nj_cap: int = 128        # the JAX sweep's launch-width rung; the
     #                                CUDA sweep has none, so only the
     #                                default is taken
-    dispatch_timeout_s: float = 0.0   # the dispatch watchdog: 0 = off;
-    #                                   > 0 raises (not ported)
+    dispatch_timeout_s: float = 0.0   # the dispatch watchdog: 0 = off,
+    #                                   else a dispatch past this many
+    #                                   seconds is abandoned
     dispatch_fallback: str = "retry"  # what a timed-out dispatch degrades
-    #                                   to; "reference_cpu" raises
+    #                                   to: "retry" raises DispatchTimeout,
+    #                                   "reference_cpu" serves the batch
+    #                                   from the exact-Dijkstra oracle
 
     def __post_init__(self):
         if self.candidate_backend not in ("auto", "dense", "grid"):
@@ -107,12 +107,6 @@ class MatcherParams:
                              "'reference_cpu'")
         if self.dispatch_timeout_s < 0:
             raise ValueError("dispatch_timeout_s must be >= 0")
-        if self.dispatch_timeout_s > 0 or \
-                self.dispatch_fallback == "reference_cpu":
-            raise NotImplementedError(
-                "the dispatch watchdog (dispatch_timeout_s > 0) and its "
-                "reference_cpu fallback oracle are not ported: ROADMAP "
-                "queue 1 item 1c")
 
     def replace(self, **kw: Any) -> "MatcherParams":
         return dataclasses.replace(self, **kw)
@@ -121,9 +115,8 @@ class MatcherParams:
                            ) -> "MatcherParams":
         """The sweep levers from the environment; only set variables apply.
         RTPU_SWEEP_SUBCULL=0|1, RTPU_SWEEP_LOWP=off|bf16, RTPU_SWEEP_MXU=0|1,
-        RTPU_SWEEP_AUTOTUNE=0|1; RTPU_DISPATCH_TIMEOUT_S and
-        RTPU_DISPATCH_FALLBACK are read as the JAX package reads them and
-        raise NotImplementedError where they ask for the watchdog. A bad
+        RTPU_SWEEP_AUTOTUNE=0|1, RTPU_DISPATCH_TIMEOUT_S (seconds) and
+        RTPU_DISPATCH_FALLBACK=retry|reference_cpu. A bad
         value or an illegal combination
         raises ValueError, as the JAX package's does; so does a sweep_lowp
         outside off/bf16 given as a field (its Config.validate checks).
@@ -371,9 +364,10 @@ class Config:
     compiler: CompilerParams = field(default_factory=CompilerParams)
     service: ServiceConfig = field(default_factory=ServiceConfig)
     streaming: StreamingConfig = field(default_factory=StreamingConfig)
-    matcher_backend: str = "torch"  # the port's one backend; "jax" (the
-    #                                JAX package's device backend) reads
-    #                                as "torch", "reference_cpu" raises
+    matcher_backend: str = "torch"  # "torch" (the device path; the JAX
+    #                                package's "jax" reads as "torch") or
+    #                                "reference_cpu" (the exact-Dijkstra
+    #                                oracle, host only)
 
     def __post_init__(self):
         if self.matcher_backend == "jax":
@@ -403,11 +397,7 @@ class Config:
             raise ValueError(
                 "matcher.sweep_mxu=True requires sweep_subcull=True — "
                 "the whole-block kernel has no matmul coarse pass")
-        if self.matcher_backend == "reference_cpu":
-            raise NotImplementedError(
-                "matcher_backend='reference_cpu' (the exact-Dijkstra "
-                "oracle) is not ported: ROADMAP queue 1 item 1c")
-        if self.matcher_backend != "torch":
+        if self.matcher_backend not in ("torch", "reference_cpu"):
             raise ValueError(
                 f"unknown matcher_backend {self.matcher_backend!r}")
         svc = self.service

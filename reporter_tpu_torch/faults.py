@@ -19,9 +19,16 @@ Injection sites of this package:
   broker      durable broker batch append (streaming/durable_columnar.py):
               ``torn`` writes half the frame and then dies, ``crash`` and
               ``fail`` die before the write; both raise InjectedCrash
+  dispatch    device dispatch (matcher/api.py): fires inside the
+              watchdog's guarded body, so ``hang`` stalls exactly where a
+              wedged dispatch would, which is what the dispatch watchdog
+              exists to bound
   quality     drift-sentinel evaluation (quality/monitor.py): a rule
               covering the evaluation's call index forces the window to
               read DRIFTED
+  backfill    open-loop wave completion (backfill/engine.py): fires once
+              per aggregated wave, so ``backfill:crash@N`` kills a spool
+              replay between a harvest and its checkpoint
 
 Rules are windows over a per-site CALL COUNTER (0-based); the optional
 ``p`` is drawn from a per-site ``random.Random(seed)`` stream. Spec
@@ -34,6 +41,8 @@ grammar (';'-separated):
     checkpoint:crash@1          the 2nd checkpoint dies before rename
     broker:torn@3               the 4th batch append tears mid-frame
     quality:fail@3              the 4th evaluation reads drifted
+    dispatch:hang(1.5)@1        the 2nd dispatch stalls 1.5 s
+    backfill:crash@2            the 3rd completed wave dies
 
 ``hi`` omitted ⇒ ``lo+1``; ``hi`` empty (``@5-``) ⇒ open-ended. Parsing
 is strict: a malformed spec, an unknown site, an empty window, a zero
@@ -51,10 +60,11 @@ from dataclasses import dataclass, field
 
 from reporter_tpu_torch.utils import locks
 
-# the injection sites this package has; the JAX package's dispatch,
-# fleet_promote and backfill sites arrive with their front-ends (ROADMAP
-# queue 1), and a plan naming one raises at parse
-SITES = ("publish", "checkpoint", "broker", "quality")
+# the injection sites this package has; the JAX package's fleet_promote
+# site arrives with fleet residency (ROADMAP queue 1 item 6), and a plan
+# naming it raises at parse
+SITES = ("publish", "checkpoint", "broker", "dispatch", "quality",
+         "backfill")
 KINDS = ("fail", "crash", "hang", "torn")
 
 

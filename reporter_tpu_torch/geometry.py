@@ -1,7 +1,8 @@
 """Host-side (NumPy) projections between (lon, lat) and tile-local meters.
 
 Counterpart: reporter_tpu/geometry.py. Equirectangular with cos(lat0)
-scaling around the tile origin — invertible and adequate at metro scale.
+scaling around the tile origin — invertible and adequate at metro scale —
+and the point-to-segment projection the oracle's candidate search uses.
 """
 
 from __future__ import annotations
@@ -29,3 +30,18 @@ def xy_to_lonlat(xy: np.ndarray, origin: np.ndarray) -> np.ndarray:
     lon = xy[..., 0] / (k * np.cos(np.deg2rad(origin[1]))) + origin[0]
     lat = xy[..., 1] / k + origin[1]
     return np.stack([lon, lat], axis=-1)
+
+
+def point_segment_project(p: np.ndarray, a: np.ndarray, b: np.ndarray):
+    """Project points onto line segments, in f64. p, a, b: [..., 2],
+    broadcastable. → (dist [...] to the closest point of [a, b], t [...]
+    the clamped parameter in [0, 1], proj [..., 2] the closest point)."""
+    p = np.asarray(p, dtype=np.float64)
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    ab = b - a
+    denom = np.maximum((ab * ab).sum(axis=-1), 1e-12)
+    t = np.clip(((p - a) * ab).sum(axis=-1) / denom, 0.0, 1.0)
+    proj = a + t[..., None] * ab
+    dist = np.linalg.norm(p - proj, axis=-1)
+    return dist, t, proj

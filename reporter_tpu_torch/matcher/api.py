@@ -41,16 +41,32 @@ The surface the report service reads is the JAX package's: ``config``
 (a Config; a bare MatcherParams still works), ``metrics`` (the "match"
 stage timer and the "traces", "probes" and "unmatched_points" counts per
 ``match_many``), ``quality`` (the per-batch quality signals and drift
-sentinel), ``backend`` ("torch", with ``device`` beside it),
+sentinel; a sampled batch goes to the shadow audit, quality/audit.py),
+``backend`` ("torch", with ``device`` beside it, or "reference_cpu"),
 ``supports_prepared``, ``matched_points`` and ``DispatchTimeout``.
 ``match_many`` may run on several threads at once (the service's batch
 scheduler does): the shared counters (``stage_seconds``,
 ``point_counts``, the registry, ``ops.dense_candidates.SWEEP_LAUNCHES``)
 update under a lock each.
 
-Not ported here: the dispatch watchdog and its fallback oracle (so
-``DispatchTimeout`` is never raised), the quality audit, fleet paging
-(and with it a plan staged in the tables) and mesh sharding.
+``Config(matcher_backend="reference_cpu")`` makes the matcher the
+exact-Dijkstra oracle (matcher/cpu_reference.py): host work only, no
+tables staged, no device, each trace matched alone and walked by the
+Python walk with Dijkstra routing.
+
+The dispatch watchdog (``MatcherParams.dispatch_timeout_s`` > 0) runs
+each device batch on a daemon thread (utils/watchdog.py) and bounds the
+wait; the ``dispatch`` fault site fires inside that body. The body
+launches on the thread's default CUDA stream, as the scheduler's threads
+do. A timed-out batch raises ``DispatchTimeout`` (the callers' retry:
+the streaming wave release, the app's 503) or, under
+``dispatch_fallback="reference_cpu"``, is served by the oracle, counted
+in ``dispatch_fallback``. An exception of the body, a CUDA build or
+launch error among them, is re-raised, never degraded. Past four
+abandoned bodies still stuck, the breaker degrades at once.
+
+Not ported here: fleet paging (and with it a plan staged in the tables)
+and mesh sharding.
 """
 
 from __future__ import annotations
@@ -65,10 +81,12 @@ from typing import Any, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from reporter_tpu_torch import faults
 from reporter_tpu_torch.config import Config, MatcherParams
 from reporter_tpu_torch.device import resolve_device
 from reporter_tpu_torch.geometry import lonlat_to_xy
-from reporter_tpu_torch.matcher import autotune, native_prepare
+from reporter_tpu_torch.matcher import (autotune, cpu_reference,
+                                        native_prepare)
 from reporter_tpu_torch.matcher.native_walk import (NativeWalker,
                                                     RecordColumns,
                                                     empty_columns,
@@ -79,11 +97,14 @@ from reporter_tpu_torch.matcher.segments import (MatchedChain, RouteFn,
                                                  build_segments,
                                                  reach_route_fn)
 from reporter_tpu_torch.ops import match as match_ops
+from reporter_tpu_torch.quality import audit as quality_audit
 from reporter_tpu_torch.quality import signals as quality_signals
 from reporter_tpu_torch.quality.monitor import QualityMonitor
 from reporter_tpu_torch.tiles.tileset import TileSet, tables_from_numpy
 from reporter_tpu_torch.utils import locks, tracing
 from reporter_tpu_torch.utils.metrics import MetricsRegistry
+from reporter_tpu_torch.utils.watchdog import (TIMED_OUT,
+                                               AbandonedThreadWatchdog)
 
 # padded point-length buckets: one set of device shapes per bucket
 _BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
@@ -93,10 +114,10 @@ _QUANTUM = match_ops.OFFSET_QUANTUM
 
 
 class DispatchTimeout(RuntimeError):
-    """A device dispatch exceeded ``matcher.dispatch_timeout_s`` (the JAX
-    package's watchdog error, which the service answers with 503). Never
-    raised here: the watchdog is not ported (ROADMAP queue 1 item 1c), and
-    MatcherParams refuses a timeout."""
+    """A device dispatch exceeded ``matcher.dispatch_timeout_s``. Callers
+    treat it as retryable: the streaming pipeline releases the wave's
+    held rows for a later flush, the scheduler retries per submission,
+    and the WSGI face answers 503."""
 
 
 @dataclass
@@ -191,6 +212,21 @@ class MatchBatch(_SequenceABC):
         return self.columns.n_records
 
 
+def _dijkstra_route_fn(ts: TileSet, bound: float,
+                       cache: cpu_reference.DijkstraCache) -> RouteFn:
+    """The oracle's segment-build routing: intermediate edges from the
+    shared Dijkstra memo (None where ``e2`` is out of reach)."""
+    def route(e1: int, e2: int):
+        if e1 == e2:
+            return []
+        reached = cache.reached(ts, e1, bound)
+        if e2 not in reached:
+            return None
+        return cpu_reference.walk_prev(reached, e2)
+
+    return route
+
+
 def _accuracy_scale(accuracy: "np.ndarray | None", sigma_z: float,
                     n: int) -> np.ndarray:
     """[n] f32 emission distance scale: sigma_z / max(sigma_z, accuracy),
@@ -224,7 +260,6 @@ class SegmentMatcher:
     # prepare_many is safe on a read-ahead thread (the scheduler probes
     # this before preparing ahead)
     supports_prepared = True
-    backend = "torch"
 
     def __init__(self, tileset: TileSet,
                  config: "Config | MatcherParams | None" = None,
@@ -238,8 +273,36 @@ class SegmentMatcher:
         if self.params is not cfg.matcher:
             cfg = dataclasses.replace(cfg, matcher=self.params)
         self.config = cfg
+        self.backend = cfg.matcher_backend
         self.metrics = metrics or MetricsRegistry()
         self.quality = QualityMonitor(tileset.name, self.metrics)
+        # concurrent match_many calls add to these under one lock
+        self._count_lock = locks.named_lock("matcher.counters")
+        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self.point_counts = {"points": 0, "unmatched": 0}
+        self.tuned_plan: "autotune.TunedPlan | None" = None
+        self.tuned_report: dict = {}
+        # the dispatch watchdog's degradation target, built on the first
+        # timeout that asks for it. Two locks on purpose: _fallback_lock
+        # serializes the oracle (its DijkstraCache is not thread-safe) for
+        # a whole slow match, the watchdog's own lock only its ledger
+        self._fallback: "SegmentMatcher | None" = None
+        self._fallback_lock = locks.named_lock("matcher.fallback")
+        self._watchdog = AbandonedThreadWatchdog(
+            cap=4, thread_name="dispatch-watchdog")
+        if self.backend == "reference_cpu":
+            # the oracle is host work: no device, no tables. One Dijkstra
+            # memo serves the Viterbi pass and the segment routing, whose
+            # bound covers every transition the pass can accept
+            self.device = torch.device("cpu")
+            self.tables = None
+            self._native_walker = None
+            self._dij_cache = cpu_reference.DijkstraCache()
+            self._route_fn = _dijkstra_route_fn(
+                tileset, cpu_reference.viterbi_bound(
+                    self.params.breakage_distance, self.params),
+                self._dij_cache)
+            return
         self.device = resolve_device(device)
         self.tables = tables_from_numpy(tileset.arrays(), self.device)
         self.wire_spec = match_ops.wire_spec(
@@ -247,12 +310,6 @@ class SegmentMatcher:
             float(tileset.edge_len.max()) if tileset.num_edges else 0.0)
         self._route_fn = reach_route_fn(tileset)
         self._native_walker = NativeWalker(tileset)
-        # concurrent match_many calls add to these under one lock
-        self._count_lock = locks.named_lock("matcher.counters")
-        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
-        self.point_counts = {"points": 0, "unmatched": 0}
-        self.tuned_plan: "autotune.TunedPlan | None" = None
-        self.tuned_report: dict = {}
         self._autotune_resolve()
 
     # ---- per-metro sweep plan ---------------------------------------------
@@ -337,40 +394,121 @@ class SegmentMatcher:
         """Per-trace record lists, in input order: a MatchBatch when the
         harvest interleaves (more than one trace, each within the largest
         bucket), else a list. ``prepared`` is prepare_many's result for
-        these traces. Counts the traces, probes and unmatched points of
-        the call, times it as the "match" stage and records its quality
-        signals."""
+        these traces. Counts the traces and probes of the call (and the
+        unmatched points of a device harvest), times it as the "match"
+        stage, records its quality signals and offers a device harvest
+        to the shadow audit."""
         t0 = time.perf_counter()
-        unmatched = [0]
+        hold = None
         try:
             with self.metrics.stage("match"), \
                     tracing.tracer().span("match_many", traces=len(traces)):
-                out = self._match_many(traces, prepared, unmatched)
+                if self.backend == "reference_cpu":
+                    out = [self._match_cpu(t) for t in traces]
+                else:
+                    out, hold = self._guarded_many(traces, prepared)
         finally:
             self._add_stage("wall", time.perf_counter() - t0)
         probes = sum(len(t.xy) for t in traces)
+        # a degraded or oracle batch has no device harvest: its unmatched
+        # count is unknown (an abandoned body's count is never taken)
+        unmatched = None if hold is None else hold["unmatched"]
         with self._count_lock:
             self.point_counts["points"] += probes
-            self.point_counts["unmatched"] += unmatched[0]
+            self.point_counts["unmatched"] += unmatched or 0
         self.metrics.count("traces", len(traces))
         self.metrics.count("probes", probes)
-        self.metrics.count("unmatched_points", unmatched[0])
+        if unmatched is not None:
+            self.metrics.count("unmatched_points", unmatched)
         if self.quality.enabled and len(traces):
             nonempty = np.fromiter((len(t.xy) > 0 for t in traces), bool,
                                    len(traces))
             self.quality.record(quality_signals.extract(
                 out, len(traces), probes, nonempty,
-                max_speed=self.quality.max_speed_mps,
-                unmatched=unmatched[0]))
+                max_speed=self.quality.max_speed_mps, unmatched=unmatched))
+            if hold is not None:
+                # only real device harvests: auditing the oracle (or a
+                # batch the oracle served) against itself is vacuous
+                quality_audit.maybe_audit(self, traces, out)
         return out
 
+    def _guarded_many(self, traces: Sequence[Trace],
+                      prepared: "PreparedBatch | None"):
+        """The device batch, under the watchdog when dispatch_timeout_s >
+        0. → (records, hold): hold["unmatched"] is the harvest's
+        unmatched points, hold None where the batch degraded."""
+        hold = {"unmatched": 0}
+        timeout = float(self.params.dispatch_timeout_s)
+        if timeout <= 0:
+            faults.fire("dispatch")
+            return self._match_many(traces, prepared, hold), hold
+        if self._watchdog.tripped:
+            # the breaker is open: enough abandoned dispatches are still
+            # stuck, so degrade at once instead of pinning another thread
+            # and batch; counted as a timeout too, so dispatch_timeout
+            # keeps moving while the breaker stays open
+            self.metrics.count("dispatch_breaker_open")
+            self.metrics.count("dispatch_timeout")
+            tracing.post_mortem("breaker_open", failing="device_dispatch",
+                                traces=len(traces),
+                                abandoned=self._watchdog.abandoned)
+            return self._degrade(traces, timeout), None
+        # recorded before the guarded body: a dispatch that never returns
+        # still shows in the post-mortem as the last thing started
+        tracing.tracer().instant("device_dispatch", traces=len(traces))
+        out = self._watchdog.run(
+            lambda: self._match_many(traces, prepared, hold), timeout,
+            fault_site="dispatch")
+        if out is not TIMED_OUT:
+            return out, hold
+        self.metrics.count("dispatch_timeout")
+        tracing.post_mortem("dispatch_timeout", failing="device_dispatch",
+                            traces=len(traces), timeout_s=timeout)
+        # the JAX package also notes the stall in its link-health record,
+        # which waits for link health (ROADMAP queue 1 item 1f)
+        return self._degrade(traces, timeout), None
+
+    def _degrade(self, traces: Sequence[Trace], timeout: float):
+        """A bounded dispatch's outcome: the oracle's records under
+        dispatch_fallback="reference_cpu", else DispatchTimeout."""
+        if self.params.dispatch_fallback == "reference_cpu":
+            self.metrics.count("dispatch_fallback")
+            fb = self._fallback_matcher()
+            with self._fallback_lock:   # the DijkstraCache: one user
+                return fb.match_many(traces)
+        raise DispatchTimeout(
+            f"device dispatch exceeded {timeout:.3f}s "
+            f"({len(traces)} traces); wave released for retry")
+
+    def _fallback_matcher(self) -> "SegmentMatcher":
+        """The exact-Dijkstra oracle over the same tile and params, built
+        on first use, with its own registry (the outer call counts the
+        batch) and its quality telemetry off (the outer matcher records
+        the batch's signals)."""
+        with self._fallback_lock:
+            if self._fallback is None:
+                self._fallback = SegmentMatcher(
+                    self.ts, dataclasses.replace(
+                        self.config, matcher_backend="reference_cpu"))
+                self._fallback.quality.enabled = False
+        return self._fallback
+
+    def _match_cpu(self, trace: Trace) -> list[SegmentRecord]:
+        """One trace through the oracle, walked with Dijkstra routing."""
+        pts = cpu_reference.match_trace_cpu(
+            self.ts, trace.xy.astype(np.float64), self.params,
+            self._dij_cache, accuracy=trace.accuracy)
+        return build_segments(self.ts, _to_chains(pts, trace.times),
+                              self._route_fn, self.params.backward_slack)
+
     def _match_many(self, traces: Sequence[Trace],
-                    prepared: "PreparedBatch | None", unmatched: list):
-        """match_many's body; adds the call's unmatched points to
-        ``unmatched[0]``."""
+                    prepared: "PreparedBatch | None", hold: dict):
+        """The device batch; adds its unmatched points to
+        ``hold["unmatched"]``."""
         if not self._interleaves(traces):
             decoded = self._decode_many(traces)
-            unmatched[0] += sum(int((e < 0).sum()) for e, _, _ in decoded)
+            hold["unmatched"] += sum(int((e < 0).sum())
+                                     for e, _, _ in decoded)
             t1 = time.perf_counter()
             out = self._walk_decoded(traces, decoded)
             self._add_stage("walk", time.perf_counter() - t1)
@@ -384,13 +522,18 @@ class SegmentMatcher:
 
         def walk_slice(k, ws, arr):
             slice_cols[k], un = self.walk_wire_columns(traces, work, ws, arr)
-            unmatched[0] += un       # one worker thread: no race
+            hold["unmatched"] += un     # one worker thread: no race
 
         self._harvest_overlapped(inflight, walk_slice)
         return MatchBatch(_merge_columns(slice_cols), len(traces))
 
     def matched_points(self, trace: Trace) -> "list[MatchedPoint]":
-        """Per-point decode (no segment association): a diagnostic."""
+        """Per-point decode (no segment association): a diagnostic of the
+        device path."""
+        if self.backend != "torch":
+            raise NotImplementedError(
+                "matched_points decodes through the device path; "
+                "construct the matcher with matcher_backend='torch'")
         trip = self._decode_many([trace])[0]
         return [MatchedPoint(int(e), float(o), bool(st))
                 for e, o, st in zip(*trip)]
@@ -407,8 +550,8 @@ class SegmentMatcher:
         """The host prepare of a whole batch ahead of dispatch (safe on a
         read-ahead thread: no device work, no shared state written, so its
         time is not in ``stage_seconds``). None where match_many would not
-        take it (the batch does not interleave)."""
-        if not self._interleaves(traces):
+        take it (the oracle, or a batch that does not interleave)."""
+        if self.backend != "torch" or not self._interleaves(traces):
             return None
         work, sliced = self.plan_submit(traces)
         return PreparedBatch(work, [self.prepare_submit_slice(traces, work,

@@ -17,9 +17,9 @@ the columnar ``MatchBatch`` (flat ``RecordColumns``) or per-trace
   rejection_rate         records the fully-traversed report filter drops
   unmatched_point_rate   decoder points with no edge assignment
 
-They are proxies, not ground truth: the sampled shadow-oracle audit of
-the JAX package (quality/audit.py) needs the reference_cpu oracle, which
-the port does not have yet (ROADMAP queue 1 item 1c).
+They are proxies, not ground truth: the sampled shadow-oracle audit
+(quality/audit.py) measures disagreement against the reference_cpu
+oracle on a few batches.
 """
 
 from __future__ import annotations

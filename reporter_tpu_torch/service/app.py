@@ -11,11 +11,14 @@ over the port's SegmentMatcher:
     └─ POST to DATASTORE_URL (when configured)
 
 ``POST /report_many {"traces": [<report payload>…]}`` matches a fleet in
-one batch. ``GET /health``, ``/stats``, ``/metrics`` (Prometheus text) and
-``/slo`` (the SLO plane's burn status, obs/slo.py) are the JAX app's.
-Not ported yet: ``/aggregates`` (backfill, ROADMAP queue 1 item 1b) and
-the link-health block of ``/health`` (item 1f). The app is a bare WSGI callable, servable
-by any WSGI server and by the stdlib runner in service/server.py.
+one batch. ``GET /health``, ``/stats``, ``/metrics`` (Prometheus text),
+``/slo`` (the SLO plane's burn status, obs/slo.py) and
+``/aggregates[?segment=<id>]`` (a backfill run's harvested, k-anonymized
+document from the ``aggregates`` store, backfill/aggregate.py) are the
+JAX app's. A dispatch past the matcher's watchdog answers 503. Not
+ported yet: the link-health block of ``/health`` (ROADMAP queue 1 item
+1f). The app is a bare WSGI callable, servable by any WSGI server and by
+the stdlib runner in service/server.py.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import math
 import threading
 import time
 from typing import Any, Callable, Iterable
+from urllib.parse import parse_qs
 
 import torch
 
@@ -127,7 +131,8 @@ class ReporterApp:
 
     def __init__(self, tileset: TileSet, config: Config | None = None,
                  transport: Transport | None = None,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None,
+                 aggregates=None):
         self.config = (config or Config()).validate()
         svc = self.config.service
         tracing.configure_from_service(svc)   # span recorder (global)
@@ -138,6 +143,9 @@ class ReporterApp:
             transport=transport,
             **publisher_kwargs(svc, metrics=self.matcher.metrics))
         self.min_segment_length = svc.min_segment_length
+        # an AggregateStore a backfill run installs its harvested document
+        # into; GET /aggregates reads it (None: 404)
+        self.aggregates = aggregates
         self._lock = locks.named_lock("app.combine")  # combine mode: one batch in flight
         self._pending: list[_Submission] = []
         self._pending_lock = locks.named_lock("app.pending")
@@ -432,6 +440,20 @@ class ReporterApp:
                                     {"enabled": False})
                 self.slo.tick()
                 return _respond(start_response, 200, self.slo.status())
+            if path == "/aggregates" and method == "GET":
+                # backfill's document, k-anonymized at harvest: read only
+                if self.aggregates is None:
+                    return _respond(start_response, 404,
+                                    {"error": "no aggregates wired"})
+                qs = parse_qs(environ.get("QUERY_STRING", ""))
+                segment = (qs.get("segment") or [None])[0]
+                doc = self.aggregates.snapshot(segment)
+                if doc is None:
+                    return _respond(
+                        start_response, 404,
+                        {"error": ("unknown segment" if segment
+                                   else "no backfill harvest installed")})
+                return _respond(start_response, 200, doc)
             if path == "/report" and method == "POST":
                 body = _read_json(environ)
                 self._bump("requests")
@@ -457,8 +479,7 @@ class ReporterApp:
             self._bump("errors")
             return _respond(start_response, 503, {"error": str(exc)})
         except DispatchTimeout as exc:
-            # a dispatch past the watchdog (never raised until the
-            # watchdog is ported): retryable, not a client error
+            # a dispatch past the watchdog: retryable, not a client error
             self._bump("errors")
             return _respond(start_response, 503, {"error": str(exc)})
         except Exception:                                 # pragma: no cover
@@ -504,7 +525,10 @@ def _respond(start_response: Callable, status: int, payload: dict):
 
 def make_app(tileset: TileSet, config: Config | None = None,
              transport: Transport | None = None,
-             device: "str | torch.device | None" = None) -> ReporterApp:
+             device: "str | torch.device | None" = None,
+             aggregates=None) -> ReporterApp:
     """Construct the WSGI app: the matcher's tables staged on ``device``
-    (``cuda`` unless the caller passes ``device="cpu"``)."""
-    return ReporterApp(tileset, config, transport, device=device)
+    (``cuda`` unless the caller passes ``device="cpu"``); ``aggregates``
+    the AggregateStore GET /aggregates serves."""
+    return ReporterApp(tileset, config, transport, device=device,
+                       aggregates=aggregates)

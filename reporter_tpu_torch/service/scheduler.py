@@ -398,8 +398,7 @@ class BatchScheduler:
                 "inflight_hist": dict(self.inflight_hist),
                 "padding_by_bucket": dict(self.padding_by_bucket),
                 "draining": closed,
-                # the JAX package's watchdog counts (0 until the watchdog
-                # is ported, ROADMAP queue 1 item 1c)
+                # the matcher's dispatch watchdog counts
                 "dispatch_timeouts": int(
                     self.metrics.value("dispatch_timeout")),
                 "dispatch_fallbacks": int(

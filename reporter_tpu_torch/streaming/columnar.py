@@ -1381,8 +1381,7 @@ class ColumnarStreamPipeline:
                 n += self._complete_wave(wave, result, match_dt)
             except DispatchTimeout:
                 # graceful degradation, not death: the watchdog bounded a
-                # wedged device dispatch (the watchdog is not ported yet,
-                # ROADMAP queue 1 item 1c, so nothing raises this today).
+                # wedged device dispatch (matcher dispatch_timeout_s).
                 # Release the wave's held rows — the next step
                 # re-selects and re-flushes them (the held-row contract;
                 # bit-identical on a recovered link) — count it, and keep

@@ -213,7 +213,8 @@ def compile_network(net: RoadNetwork,
 
     Networks with turn restrictions or with non-drivable ways raise
     NotImplementedError: their ban-aware reach rows and per-mode subgraphs
-    are not ported yet."""
+    are not ported yet, nor the oracle's edge-space Dijkstra that honours
+    banned turns (ROADMAP queue 1 item 4)."""
     params = params or CompilerParams()
     if net.restrictions:
         raise NotImplementedError(

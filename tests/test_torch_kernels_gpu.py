@@ -467,3 +467,31 @@ def test_speed_histogram_on_the_card_equals_numpy(cuda):
     h.update(np.array([0], np.int32), np.array([1.0]))
     want[0, 0] += 1
     np.testing.assert_array_equal(h.snapshot(), want)
+
+
+def test_fixed_grid_counts_on_the_card_equal_reference(cuda):
+    """Backfill's FixedGridCounts keeps its i32 grid on the card, one
+    index_add_ per update; over updates of every length around the JAX
+    package's 4096-index update shape, with indices below 0 and past the
+    end (they add nothing), the snapshot equals reference_counts of the
+    whole stream (tolerance 0), and a load round trip keeps it."""
+    from reporter_tpu_torch.ops.aggregate import (FixedGridCounts,
+                                                  reference_counts)
+
+    rng = np.random.default_rng(9)
+    size = 24 * 12 * 700              # a speed x time-of-day grid
+    g = FixedGridCounts(size, device=cuda)
+    assert g._grid.device.type == "cuda" and g._grid.dtype == torch.int32
+    stream = []
+    for n in (0, 1, 4095, 4096, 4097, 3 * 4096 + 17, 250_000):
+        idx = rng.integers(-7, size + 7, n)
+        assert g.add(idx) == int(((idx >= 0) & (idx < size)).sum())
+        stream.append(idx)
+        assert g._grid.device.type == "cuda"
+    want = reference_counts(size, np.concatenate(stream))
+    np.testing.assert_array_equal(g.snapshot(), want)
+    g2 = FixedGridCounts(size, device=cuda)
+    g2.load(want)
+    g2.add(np.array([5, 5]))
+    want[5] += 2
+    np.testing.assert_array_equal(g2.snapshot(), want)

@@ -289,7 +289,7 @@ class TestEndpoints:
             {"lat": 1, "lon": 1, "accuracy": -3.0}]}, 400),   # negative
         ("GET", "/report", None, 405),
         ("POST", "/nope", {"x": 1}, 404),
-        ("GET", "/aggregates", None, 404),                    # not ported
+        ("GET", "/aggregates", None, 404),                    # none wired
     ])
     def test_bad_requests(self, app, method, path, payload, want):
         status, _ = wsgi_call(app, method, path, payload)
@@ -446,19 +446,31 @@ def test_config_json_written_by_jax_reads_in_the_port():
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: MatcherParams(dispatch_timeout_s=2.0), "item 1c"),
-    (lambda: MatcherParams(dispatch_fallback="reference_cpu"), "item 1c"),
+    (lambda: MatcherParams(dispatch_timeout_s=2.0),
+     lambda p: p.dispatch_timeout_s == 2.0),
+    (lambda: MatcherParams(dispatch_fallback="reference_cpu"),
+     lambda p: p.dispatch_fallback == "reference_cpu"),
     (lambda: MatcherParams(candidate_backend="grid"), "item 5"),
     (lambda: CompilerParams(cell_size=32.0), "item 5"),
-    (lambda: Config(matcher_backend="reference_cpu").validate(), "item 1c"),
+    (lambda: Config(matcher_backend="reference_cpu").validate(),
+     lambda c: c.matcher_backend == "reference_cpu"),
     (lambda: Config.for_mode("foot").validate(), "item 4"),
     (lambda: MatcherParams().with_env_overrides(
-        {"RTPU_DISPATCH_TIMEOUT_S": "5"}), "item 1c"),
+        {"RTPU_DISPATCH_TIMEOUT_S": "5"}),
+     lambda p: p.dispatch_timeout_s == 5.0),
     (lambda: Config.from_json(JConfig(matcher=JMatcherParams(
-        dispatch_timeout_s=1.0)).to_json()), "item 1c"),
+        dispatch_timeout_s=1.0)).to_json()),
+     lambda c: c.matcher.dispatch_timeout_s == 1.0),
 ], ids=["timeout", "fallback", "grid", "grid_compiler", "oracle", "mode",
         "timeout_env", "timeout_json"])
 def test_unported_fields_raise_naming_the_roadmap_item(make, item):
+    """A field whose feature is not ported raises naming its ROADMAP
+    item. The dispatch watchdog, its fallback and the oracle have been
+    ported since: their cases (``item`` a check) now hold the field as
+    given."""
+    if callable(item):
+        assert item(make())
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         make()
 
