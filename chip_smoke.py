@@ -37,6 +37,12 @@ the native host half against its Python forms, in phases:
                 K on 64 chunks: the first 32 and the last 32 the CTAs take
                 (heaviest first, so these are taken after a CTA's first
                 chunk); the same times and bounds;
+                Then K = 5, 7 and 10 (KERNEL_BETWEEN_KS, between the
+                built widths) on every arm: the next built instance K'
+                runs and its first K columns are returned, bit-equal to
+                _dense_plain at K on the 64 chunks and to the K'
+                instance's first K columns on every point, the launch
+                counted under (arm, K') (on organic too);
      gates    — parallel streets 500 m apart, where every coarse gate
                 culls: the gate share must be below the vote share;
   5. main     — with a fresh autotune cache, SegmentMatcher(ts) calibrates
@@ -55,10 +61,11 @@ the native host half against its Python forms, in phases:
                 tolerance 0), each walk timed; the C prepare against the
                 numpy form (bytes equal, timed); and, in 256-trace slices,
                 whether the harvest's walk overlaps the wait in .cpu();
-     main:k   — at each other K, a tuned matcher (calibration launches
-                every arm at that K) serves the 1024 traces (512 chunks of
-                the sweep), whose first 16 records equal the CPU matcher's
-                at that K;
+     main:k   — at each other K of SWEEP_KS and at K = 5, 7 and 10, a
+                tuned matcher (calibration launches every arm at the
+                instance K' serving K) serves the 1024 traces (512 chunks
+                of the sweep), whose first 16 records equal the CPU
+                matcher's at that K;
      breakdown — one slice's sweep per arm, Viterbi and pack timed alone,
                 and the device busy share of one wire entry
                 (torch.profiler);
@@ -86,23 +93,46 @@ the native host half against its Python forms, in phases:
                 server on an ephemeral port; the datastore a local HTTP
                 server reached through the publisher's urllib transport):
                 three lone requests, then 64 client threads each posting
-                its 8 uuids' 120-point traces as three in-order /report
-                requests of 40 points (1,536 requests; 16 uuids and 3,072
+                its 4 uuids' 120-point traces as three in-order /report
+                requests of 40 points (768 requests; 16 uuids and 3,072
                 requests before the oracle, watchdog, audit and backfill
-                phases joined the run), then one
+                phases joined the run, 8 and 1,536 before the router's
+                traffic did), then one
                 /report_many of 256 traces. Every response 200; the first
                 32 uuids' responses equal a CPU app's fed the same
                 per-uuid order, and the datastore's reports for them the
                 CPU app's (sorted); the served window launched only the
                 tuned (arm, 8) instance; /stats counts the real traces
                 (padding excluded); GET /slo answers 200 and /health
-                carries the slo block. Latency p50 / p99, traces/s,
+                carries the slo block and the link block (mood, round
+                trip, MB/s and duty of the process sampler's probe of the
+                card, none null). Latency p50 / p99, traces/s,
                 batches, occupancy, padding, deferrals, overlap, stages;
      server   — python -m reporter_tpu_torch.service.server as a
                 subprocess (it compiles sf and calibrates with a fresh
                 tuner cache): /health within SERVER_START_S, 8 /report
                 answers equal [serve]'s for the same payloads, SIGINT
                 drains to exit code 0; the start-up time;
+     router   — BASELINE config 4's trio: sf, nyc and la at their
+                generator sizes, compiled and saved under
+                _chip_scratch/router, behind make_router on the card
+                (three calibrations, a fresh tuner cache) and serve():
+                ROUTER_CLIENTS clients round-robin over the metros, each
+                posting its ROUTER_UUIDS uuids as SERVE_PARTS in-order
+                40-point /report requests, every ROUTER_EXPLICIT_EVERY-th
+                client naming its "metro" (the rest routed by location);
+                one /report_many of ROUTER_MANY traces mixing the metros;
+                a trace outside every metro (404, known_metros,
+                router_unroutable 1 in /metrics and /health) and an
+                unknown metro (400). Every routed response equals a
+                dedicated single-metro app's on the card fed the same
+                per-metro requests; each metro's wire entries launch only
+                its own plan's instance (a count per metro, summing to
+                the window's launches); /health's metros and link blocks;
+                p50 / p99, traces/s. [router:server]: the entry point over
+                the three files as a subprocess (its own calibrations):
+                start-up, tile bytes per metro, answers equal, 404,
+                SIGINT to exit 0;
   8. stream   — on sf, the streaming worker at full width: the 1024 x 120
                 fleet as one firehose of 122,880 {uuid, lat, lon, time}
                 records in STREAM_ROUNDS rounds of STREAM_ROUND_POINTS
@@ -142,7 +172,11 @@ the native host half against its Python forms, in phases:
                 directory; then --columnar at its default depth 1 (flush
                 points that depend on the match thread's speed): exit 0,
                 lag 0, every report published; the start-up, step-loop
-                and drain times;
+                and drain times. [kafka]: the same rounds through
+                KafkaProbeConsumer over an in-process fake kafka-python
+                client, and through a durable broker, each into a dict
+                pipeline on the card: reports, hist and qhist equal each
+                other and [stream]'s; records/s beside [stream]'s;
   9. topo     — on sf, the supervised topology (reporter_tpu_torch.
                 distributed): N worker subprocesses of the entry point
                 sharing the card, over the same feed pre-staged in a
@@ -187,6 +221,17 @@ the native host half against its Python forms, in phases:
                 under a hang of every dispatch: every wave served by the
                 oracle and counted, none released, no kernel launched;
                 [watchdog:503] a hung /report answers 503, its retry 200;
+     link     — a link-health sampler on the card probes LINK_SAMPLES
+                times (round trip, host-to-card MB/s, mood: none null);
+                the process sampler's device, probes and duty; the
+                watchdog's timeouts above noted in its record (mood dead
+                in the window since);
+     autotune:guard — a matcher whose first calibration measurement
+                stalls GUARD_HANG_S under CAL_TIMEOUT_S = GUARD_TIMEOUT_S:
+                construction within the timeout plus GUARD_MARGIN_S,
+                source "timeout", nothing cached, the abandoned
+                measurement's later launches and landing, records equal to
+                an untuned default-plan matcher's;
      audit    — AUDIT_BATCHES batches of AUDIT_BATCH traces through the
                 tuned matcher with the shadow auditor at rate 1, interval
                 0 and duty cap 100: audited batches and traces, mean
@@ -208,7 +253,8 @@ the native host half against its Python forms, in phases:
                 {"ok": true, "device": {...}} line.
 
 Any failed phase raises and the script exits non-zero without the final
-line. Every time printed carries the card name and power limit.
+line. Every time printed carries the card name and power limit, and each
+phase line its seconds since the run's start (``at_s``).
 """
 
 from __future__ import annotations
@@ -250,10 +296,11 @@ MAIN_K_CPU_TRACES = 16        # traces of the main path at the other K also
 #                               matched on the CPU
 REFERENCE_TRACES = 32         # traces matched on both the card and the CPU
 OVERLAP_SLICE = 256           # traces per slice of the overlap check
-SERVE_CLIENTS, SERVE_UUIDS, SERVE_PARTS = 64, 8, 3   # [serve]: clients,
+SERVE_CLIENTS, SERVE_UUIDS, SERVE_PARTS = 64, 4, 3   # [serve]: clients,
 #                               uuids per client, in-order requests per uuid
-#                               (8 uuids since the watchdog, audit and
-#                               backfill phases joined the run: 16 before)
+#                               (16 uuids before the watchdog, audit and
+#                               backfill phases joined the run, 8 before the
+#                               router's traffic did: 4 since)
 SERVE_MANY = 256              # traces of [serve]'s one /report_many
 SERVE_CPU_UUIDS = 32          # uuids also served by the CPU app
 SERVER_START_S = 300          # [server]: /health must answer within this
@@ -292,6 +339,22 @@ FALLBACK_TIMEOUT_S = 0.5      # under a hang of every dispatch
 FALLBACK_HANG_S = 30.0
 AUDIT_BATCHES, AUDIT_BATCH = 6, 64   # [audit]: served batches, traces each
 BACKFILL_PARTITIONS = 4       # [backfill]: the spool's partitions
+KERNEL_BETWEEN_KS = (5, 7, 10)  # [kernel:k], [main:k]: widths between the
+#                               built ones (each runs the next built K')
+ROUTER_METROS = ("sf", "nyc", "la")   # [router]: BASELINE config 4's trio
+ROUTER_CLIENTS, ROUTER_UUIDS = 64, 8  # [router]: clients (round-robin over
+#                               the metros) and uuids each, SERVE_PARTS
+#                               in-order requests per uuid
+ROUTER_EXPLICIT_EVERY = 4     # every 4th client names its "metro"
+ROUTER_MANY = 48              # traces of the mixed /report_many (16 a metro)
+ROUTER_START_S = 600          # [router:server]: /health within this
+KAFKA_FETCH = 500             # [kafka]: records a fake-client fetch returns
+#                               (kafka-python's default max_poll_records)
+LINK_SAMPLES = 5              # [link]: probes of the card's host path
+GUARD_TIMEOUT_S = 2.0         # [autotune:guard]: CAL_TIMEOUT_S of the run
+GUARD_HANG_S = 6.0            # the first measurement's host-side stall
+GUARD_MARGIN_S = 5.0          # construction within timeout + this margin
+GUARD_TRACES = 256            # traces served by the guarded matcher
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "_chip_scratch")
 SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
@@ -317,7 +380,11 @@ PLAN_ARMS = {"block": "block", "subcull": "sub", "subcull+bf16": "sub_bf16",
              "mxu": "mxu", "mxu+bf16": "mxu_bf16"}
 
 
+T0 = time.perf_counter()      # the run's start: each phase line's at_s
+
+
 def phase(tag: str, card: str, **fields) -> None:
+    fields["at_s"] = round(time.perf_counter() - T0, 3)
     print(f"[{tag}] [{card}] " + json.dumps(fields), flush=True)
 
 
@@ -889,8 +956,9 @@ def _seconds(fn):
 
 def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
                  cache):
-    """The main path at every other K of SWEEP_KS: a tuned matcher (its
-    calibration launches every arm at that K) serves the batch of
+    """The main path at every other K of SWEEP_KS and at each K of
+    KERNEL_BETWEEN_KS: a tuned matcher (its calibration launches every
+    arm at the instance K' that serves K) serves the batch of
     ``traces`` (at 1024 traces, 512 sweep chunks: more than the grid);
     its first MAIN_K_CPU_TRACES records equal the CPU matcher's. The
     tuner's cache is keyed by tile and card, not K, so each K gets a
@@ -898,16 +966,17 @@ def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
     plan and calibrate nothing)."""
     from reporter_tpu_torch.matcher.autotune import CAL_DISPATCHES
 
-    for k in dc.SWEEP_KS:
+    for k in sorted(set(dc.SWEEP_KS) | set(KERNEL_BETWEEN_KS)):
         if k == 8:
             continue
+        kk = dc.sweep_instance_k(k)
         os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, f"k{k}")
         p = MatcherParams(max_candidates=k)
         m, cal = win.run(f"sf:k{k}:calibration",
                          lambda p=p: SegmentMatcher(ts, p))
         if m.tuned_plan is None or any(
-                n != (CAL_DISPATCHES + 1 if kk == k else 0)
-                for (a, kk), n in cal.items()):
+                n != (CAL_DISPATCHES + 1 if kx == kk else 0)
+                for (a, kx), n in cal.items()):
             raise SystemExit(f"K={k}: calibration launches {cal}")
         tuned = PLAN_ARMS[m.tuned_plan.label.split("@")[0]]
         batch = traces
@@ -915,11 +984,12 @@ def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
         recs, served = win.run(f"sf:k{k}:tuned_batch",
                                lambda m=m, b=batch: m.match_many(b))
         ms = (time.perf_counter() - t0) * 1e3
-        only(served, (tuned, k), f"the tuned matcher at K={k}")
+        only(served, (tuned, kk), f"the tuned matcher at K={k}")
         small = batch[:MAIN_K_CPU_TRACES]
         cpu = SegmentMatcher(ts, p, device="cpu").match_many(small)
         equal = json_records(cpu) == json_records(recs[:MAIN_K_CPU_TRACES])
-        phase("main:k", card, metro="sf", k=k, tuned_arm=tuned,
+        phase("main:k", card, metro="sf", k=k, instance_k=kk,
+              tuned_arm=tuned,
               traces=len(batch), batch_ms=ms, records=recs.n_records,
               card_vs_cpu_records_equal=equal, traces_checked=len(small))
         if not equal or not recs.n_records:
@@ -1014,6 +1084,7 @@ def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
     pts = torch.from_numpy(fleet_points(fleet)).cuda()
     arms = kernel_phase(card, tab, pts, radius, 8, dc, build, "organic",
                         check_chunks=CHECK_CHUNKS, plain_reps=1)
+    kernel_between_phase(card, tab, pts, radius, dc, "organic")
     phase("gates", card, metro="organic", arms={
         a: {key: r.get(key) for key in (
             "vote_share", "gate_share", "plain_gate_share",
@@ -1207,11 +1278,17 @@ def serve_phase(card, ts, fleet, dc, win, cache):
           stage_ms=stage_ms,
           launches={f"{a}@k{k}": n for (a, k), n in counts.items() if n},
           slo_status=slo_status, slo_active=slo_body.get("active"),
-          slo_ticks=slo_body.get("ticks"), health_slo=health.get("slo"))
+          slo_ticks=slo_body.get("ticks"), health_slo=health.get("slo"),
+          health_link=health.get("link"))
     # ---- the checks ----
     if slo_status != 200 or "slos" not in slo_body or "slo" not in health:
         raise SystemExit("[serve] GET /slo did not answer 200 with the SLO "
                          "status, or /health lacks its slo block")
+    link = health.get("link") or {}
+    if link.get("mood") not in ("healthy", "degraded") \
+            or link.get("rtt_ms") is None or link.get("mbps") is None \
+            or link.get("probe_duty_pct") is None:
+        raise SystemExit(f"[serve] /health's link block {link}")
     if any(st != 200 for st in statuses):
         raise SystemExit(f"[serve] non-200 responses: "
                          f"{sorted(set(statuses))}")
@@ -1550,7 +1627,8 @@ def stream_phase(card, ts, fleet, dc, win, cache, device="cuda"):
                          "the card and the CPU, or the full run lacks them")
     return {"rounds": rounds, "reports": reports, "hist": hist,
             "qhist": qhist, "ck_dict": ck_dict, "tuned": tuned,
-            "launches": dict(counts)}
+            "launches": dict(counts),
+            "records_per_s": n_records / feed["worker_s"]}
 
 
 def _wave_split(tracing, wave_ids):
@@ -3007,6 +3085,609 @@ def backfill_phase(card, ts, fleet, m, dc, win, device="cuda"):
         raise SystemExit("[backfill] a check failed")
 
 
+# ---- the metro router, the Kafka feed, link health, the tuner's guard ------
+
+
+def kernel_between_phase(card, tab, pts, radius, dc, metro):
+    """[kernel:k] at each K of KERNEL_BETWEEN_KS (between the built
+    widths): every arm runs the next built instance K' and keeps its first
+    K columns, bit-equal to _dense_plain at K on CHECK_CHUNKS chunks and
+    to the K' instance's first K columns on every point; the launch is
+    counted under (arm, K'). Comparison launches: no launch window."""
+    n = pts.shape[0]
+    nchunks = n // dc._P
+    fpts, fval = dc._fill_invalid(
+        pts, torch.ones(n, dtype=torch.bool, device="cuda"), nchunks)
+    ids, nhits = dc._chunk_block_ids(fpts, fval, tab["seg_bbox"], radius,
+                                     nchunks)
+    rows, _ = check_rows(dc, nhits, CHECK_CHUNKS)
+    cpts = pts[rows]
+    tables = (tab["seg_sweep"], tab["seg_sub"], tab["seg_coarse"])
+    for k in KERNEL_BETWEEN_KS:
+        kk = dc.sweep_instance_k(k)
+        ref = dc._dense_plain(cpts, tab["seg_pack"], radius, k)
+        out, bad = {}, []
+        for arm in dc.SWEEP_ARMS:
+            def run(kx=k, a=arm):
+                return dc.sweep_topk(fpts, ids, nhits, *tables, radius, kx, a)
+
+            before = dict(dc.SWEEP_LAUNCHES)
+            got = run()
+            torch.cuda.synchronize()
+            ran = {f"{a}@k{kx}": v - before[a, kx]
+                   for (a, kx), v in dc.SWEEP_LAUNCHES.items()
+                   if v != before[a, kx]}
+            wide = run(kk)
+            mism = {f: int((g[rows] != r).sum()) for f, g, r in
+                    zip(("edge", "offset", "dist"), got, ref)}
+            prefix = all(torch.equal(g, w[:, :k]) for g, w in zip(got, wide))
+            out[arm] = {"instance_launched": ran, "mismatches": mism,
+                        "equal_to_wide_prefix_on_all_points": prefix,
+                        "max_abs_err": max(
+                            float((got[1][rows] - ref[1]).abs().max()),
+                            float((got[2][rows] - ref[2]).abs().max())),
+                        "ms": cuda_ms(run, reps=10),
+                        "ms_at_instance_k": cuda_ms(lambda: run(kk), reps=10)}
+            if any(mism.values()) or not prefix \
+                    or ran != {f"{arm}@k{kk}": 1}:
+                bad.append(arm)
+        phase("kernel:k", card, metro=metro, k=k, instance_k=kk, points=n,
+              plain_points=int(rows.numel()), arms=out)
+        if bad:
+            raise SystemExit(f"[kernel:k] {metro} K={k}: arms {bad} differ "
+                             f"from _dense_plain or from the K={kk} "
+                             "instance, or launched another instance")
+
+
+def http_text(url, timeout=60.0):
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _no_metro(body):
+    return {k: v for k, v in body.items() if k != "metro"}
+
+
+def router_phase(card, dc, win, cache):
+    """[router]: BASELINE config 4's trio (sf, nyc, la at their generator
+    sizes, compiled by the port and saved as .npz) behind one endpoint.
+    In-process (make_router on the card behind serve(), so the launches
+    can be read): ROUTER_CLIENTS clients, round-robin over the metros,
+    each posting its ROUTER_UUIDS uuids' 120-point traces as SERVE_PARTS
+    in-order /report requests of 40 points, every ROUTER_EXPLICIT_EVERY-th
+    client naming its "metro" (the rest routed by location); one mixed
+    /report_many; a trace outside every metro (404, known_metros,
+    router_unroutable in /metrics); an unknown metro (400). Every routed
+    response equals a dedicated single-metro app's on the card fed the
+    same per-metro request sequence (as report_many rounds); each metro's
+    wire entries launch only its own plan's instance. Then [router:server]:
+    the entry point as a subprocess over the three files (three
+    calibrations): start-up, /health per metro, answers equal, 404,
+    SIGINT."""
+    from reporter_tpu_torch.config import Config
+    from reporter_tpu_torch.netgen.synthetic import generate_city
+    from reporter_tpu_torch.netgen.traces import synthesize_fleet
+    from reporter_tpu_torch.service.app import make_app
+    from reporter_tpu_torch.service.router import make_router
+    from reporter_tpu_torch.service.server import serve
+    from reporter_tpu_torch.tiles.compiler import compile_network
+
+    root = os.path.join(SCRATCH, "router")
+    os.makedirs(root, exist_ok=True)
+    tilesets, paths, compile_s = [], [], {}
+    for name in ROUTER_METROS:
+        t = time.perf_counter()
+        tsm = compile_network(generate_city(name))
+        compile_s[name] = time.perf_counter() - t
+        tilesets.append(tsm)
+        paths.append(tsm.save(os.path.join(root, name)))
+    names = [t.name for t in tilesets]
+    clients = {n: [c for c in range(ROUTER_CLIENTS) if c % len(names) == i]
+               for i, n in enumerate(names)}
+    n_many = ROUTER_MANY // len(names)
+    part = N_POINTS // SERVE_PARTS
+    requests, fleets = {}, {}
+    for i, (n, tsm) in enumerate(zip(names, tilesets)):
+        n_uuid = len(clients[n]) * ROUTER_UUIDS
+        fleets[n] = synthesize_fleet(tsm, n_uuid + n_many,
+                                     num_points=N_POINTS, seed=i + 1)
+        requests[n] = [[{"uuid": f"{n}-veh-{u}", "trace":
+                         fleets[n][u].to_report_json()["trace"][
+                             k * part:(k + 1) * part]}
+                        for k in range(SERVE_PARTS)] for u in range(n_uuid)]
+        for j, c in enumerate(clients[n]):
+            if c % ROUTER_EXPLICIT_EVERY == 0:
+                for u in range(j * ROUTER_UUIDS, (j + 1) * ROUTER_UUIDS):
+                    for r in requests[n][u]:
+                        r["metro"] = n
+    os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "router")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    router, cal = win.run("router:calibration", lambda: make_router(
+        tilesets, Config(), device="cuda"))
+    construct_s = time.perf_counter() - t0
+    mem_router = torch.cuda.memory_allocated() - mem0
+    tuned = {n: _tuned(a.matcher, dc) for n, a in router.apps.items()}
+    inst = {n: (arm, dc.sweep_instance_k(k)) for n, (arm, k) in tuned.items()}
+    # each metro's wire entries, by the instance they launch: a counting
+    # shim over its matcher's submit_prepared (one sweep launch each)
+    entries, elock = {n: {} for n in names}, threading.Lock()
+    for n, app in router.apps.items():
+        real = app.matcher.submit_prepared
+
+        def counted(ps, n=n, real=real):
+            with elock:
+                entries[n][inst[n]] = entries[n].get(inst[n], 0) + 1
+            return real(ps)
+        app.matcher.submit_prepared = counted
+    server = serve(router, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    responses = {n: [[None] * SERVE_PARTS for _ in requests[n]]
+                 for n in names}
+    lat, statuses, lock = [], [], threading.Lock()
+    many = [dict(fleets[n][-1 - i].to_report_json(), uuid=f"many-{n}-{i}")
+            for i in range(n_many) for n in names]
+    try:
+        def client(c):
+            n = names[c % len(names)]
+            j = clients[n].index(c)
+            for u in range(j * ROUTER_UUIDS, (j + 1) * ROUTER_UUIDS):
+                for k in range(SERVE_PARTS):
+                    t = time.perf_counter()
+                    st, body = http_json(base + "/report", requests[n][u][k])
+                    dt = time.perf_counter() - t
+                    with lock:
+                        lat.append(dt)
+                        statuses.append(st)
+                    responses[n][u][k] = body
+
+        def traffic():
+            t = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=ROUTER_CLIENTS) as pool:
+                list(pool.map(client, range(ROUTER_CLIENTS)))
+            clients_s = time.perf_counter() - t
+            t = time.perf_counter()
+            st, body = http_json(base + "/report_many", {"traces": many})
+            statuses.append(st)
+            return clients_s, body, (time.perf_counter() - t) * 1e3
+
+        stages0 = {n: dict(a.matcher.stage_seconds)
+                   for n, a in router.apps.items()}
+        with _CardSampler() as sampler:
+            t, t_wall = time.perf_counter(), time.time()
+            (clients_s, many_body, many_ms), counts = win.run("router",
+                                                              traffic)
+            wall_s = time.perf_counter() - t
+            busy = sampler.window(t_wall, time.time())
+        far = {"uuid": "far", "trace": [{"lat": -45.0, "lon": 100.0,
+                                         "time": 0.0}]}
+        far_status, far_body = http_json(base + "/report", far)
+        unknown_status, unknown_body = http_json(
+            base + "/report", dict(requests[names[0]][0][0],
+                                   metro="atlantis"))
+        _, prom = http_text(base + "/metrics")
+        _, health = http_json(base + "/health")
+        _, stats = http_json(base + "/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+        router.close()
+    unroutable = re.search(r"^rtpu_router_unroutable(?:_total)? ([0-9.]+)$",
+                           prom, re.M)
+    sent = {n: len(requests[n]) * SERVE_PARTS + n_many for n in names}
+    n_req = sum(len(requests[n]) for n in names) * SERVE_PARTS
+    summed = {}
+    for n in names:
+        for key, v in entries[n].items():
+            summed[key] = summed.get(key, 0) + v
+    window = {key: v for key, v in counts.items() if v}
+    phase("router", card, metros=names,
+          edges={t.name: t.num_edges for t in tilesets},
+          compile_s=compile_s, construct_s=construct_s,
+          calibration_launches=_launches(cal),
+          tuned_instance={n: list(v) for n, v in inst.items()},
+          table_bytes={n: a.matcher.table_bytes
+                       for n, a in router.apps.items()},
+          cuda_allocated_bytes_after_construct=mem_router,
+          clients=ROUTER_CLIENTS,
+          clients_by_metro={n: len(c) for n, c in clients.items()},
+          explicit_metro_clients=len(range(0, ROUTER_CLIENTS,
+                                           ROUTER_EXPLICIT_EVERY)),
+          requests=len(lat), latency_ms_p50=_pct(lat, 0.50) * 1e3,
+          latency_ms_p99=_pct(lat, 0.99) * 1e3,
+          latency_ms_max=max(lat) * 1e3, clients_s=clients_s,
+          report_many_traces=len(many), report_many_ms=many_ms,
+          traffic_s=wall_s,
+          traces_per_s=(n_req + len(many)) / wall_s,
+          card_busy_share=busy["busy_share"], busy_samples=busy["samples"],
+          stage_s_by_metro={n: {key: v - stages0[n][key] for key, v in
+                                a.matcher.stage_seconds.items()}
+                            for n, a in router.apps.items()},
+          scheduler_by_metro={n: {key: h["scheduler"].get(key) for key in (
+              "batches", "submissions", "padded_traces",
+              "max_inflight_seen")} for n, h in health["metros"].items()},
+          far_status=far_status, far_known_metros=far_body.get(
+              "known_metros"), unknown_metro_status=unknown_status,
+          unknown_metro_error=unknown_body.get("error"),
+          metrics_router_unroutable=(float(unroutable.group(1))
+                                     if unroutable else None),
+          stats_traces={n: stats[n]["traces"] for n in names},
+          launches=_launches(window),
+          launches_by_metro={n: _launches(e) for n, e in entries.items()},
+          health_unroutable=health.get("unroutable"),
+          health_metros={n: {key: h.get(key) for key in (
+              "tileset", "edges", "tile_hbm_bytes", "device", "published",
+              "traces", "link")} for n, h in health["metros"].items()})
+    # ---- the checks ----
+    problems = []
+    if any(st != 200 for st in statuses):
+        problems.append(f"non-200 responses {sorted(set(statuses))}")
+    if [r.get("metro") for r in many_body.get("results", ())] != \
+            [p["uuid"].split("-")[1] for p in many]:
+        problems.append("the mixed /report_many routed a trace elsewhere")
+    if any(responses[n][u][k].get("metro") != n for n in names
+           for u in range(len(requests[n])) for k in range(SERVE_PARTS)):
+        problems.append("a /report was routed to another metro")
+    if far_status != 404 or far_body.get("known_metros") != sorted(names):
+        problems.append(f"the far trace answered {far_status} {far_body}")
+    if unknown_status != 400:
+        problems.append(f"the unknown metro answered {unknown_status}")
+    if unroutable is None or float(unroutable.group(1)) != 1.0 \
+            or health.get("unroutable") != 1:
+        problems.append("router_unroutable is not 1 in /metrics and /health")
+    if any(stats[n]["traces"] != sent[n] for n in names):
+        problems.append(f"/stats traces {[stats[n]['traces'] for n in names]}"
+                        f" against {sent}")
+    for n in names:
+        if set(entries[n]) != {inst[n]} or not entries[n][inst[n]]:
+            problems.append(f"{n} launched {entries[n]}, not only "
+                            f"{inst[n]}")
+    if window != summed:
+        problems.append(f"the window's launches {window} are not the "
+                        f"metros' sum {summed}")
+    for n, h in health["metros"].items():
+        link = h.get("link") or {}
+        if link.get("mood") not in ("healthy", "degraded") \
+                or link.get("rtt_ms") is None or link.get("mbps") is None:
+            problems.append(f"{n}'s /health link block {link}")
+    # dedicated single-metro apps on the card, the same per-metro order
+    equal = {}
+    for n, tsm in zip(names, tilesets):
+        app = make_app(tsm, Config(), device="cuda")   # the cached plan
+        same_plan = _tuned(app.matcher, dc) == tuned[n]
+        uu = range(len(requests[n]))
+        got = [r for k in range(SERVE_PARTS) for r in app.report_many(
+            [_no_metro(requests[n][u][k]) for u in uu])]
+        want = [_no_metro(responses[n][u][k]) for k in range(SERVE_PARTS)
+                for u in uu]
+        mine = [p for p in many if p["uuid"].startswith(f"many-{n}-")]
+        got_many = app.report_many(mine)
+        want_many = [_no_metro(r) for p, r in zip(many,
+                                                  many_body["results"])
+                     if p["uuid"].startswith(f"many-{n}-")]
+        app.close()
+        equal[n] = {"same_plan": same_plan, "responses": got == want,
+                    "report_many": got_many == want_many,
+                    "segments": sum(len(r["segments"]) for r in want),
+                    "reports": sum(len(r["reports"]) for r in want)}
+        if not (same_plan and got == want and got_many == want_many
+                and equal[n]["segments"]):
+            problems.append(f"{n}: routed responses differ from a "
+                            f"dedicated app's: {equal[n]}")
+    if not sum(e["reports"] for e in equal.values()):
+        problems.append("no routed response holds a report")
+    phase("router:check", card, dedicated_app_equal=equal)
+    if problems:
+        raise SystemExit("[router] " + "; ".join(problems))
+
+    # ---- the entry point over the three files ----
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here,
+               RTPU_AUTOTUNE_CACHE=os.path.join(cache, "router_server"))
+    log_path = os.path.join(root, "server.log")
+    base = f"http://127.0.0.1:{port}"
+    firsts = [(n, requests[n][0][0], responses[n][0][0]) for n in names]
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "reporter_tpu_torch.service.server",
+             "--tiles", *paths, "--host", "127.0.0.1", "--port", str(port)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here)
+        try:
+            health = None
+            while time.perf_counter() - t0 < ROUTER_START_S:
+                if proc.poll() is not None:
+                    break
+                try:
+                    st, health = http_json(base + "/health", timeout=5.0)
+                    if st == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            start_s = time.perf_counter() - t0
+            if health is None:
+                raise SystemExit(f"[router:server] /health did not answer "
+                                 f"within {ROUTER_START_S} s (exit "
+                                 f"{proc.poll()}):\n" + _tail(log_path))
+            got = [http_json(base + "/report", p) for _, p, _ in firsts]
+            far_status, far_body = http_json(base + "/report", far)
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = open(log_path).read()
+    ready = re.search(r"ready in ([0-9.]+) s", text)
+    same = [st == 200 and body == want
+            for (st, body), (_, _, want) in zip(got, firsts)]
+    phase("router:server", card, start_to_health_s=start_s,
+          server_ready_s=float(ready.group(1)) if ready else None,
+          logged_router=f"router[{', '.join(names)}]" in text,
+          tile_hbm_bytes={n: h.get("tile_hbm_bytes")
+                          for n, h in health["metros"].items()},
+          device={n: h.get("device") for n, h in health["metros"].items()},
+          answers_equal_in_process=same, far_status=far_status,
+          sigint_exit_code=rc, drained="draining scheduler" in text)
+    if not (all(same) and rc == 0 and far_status == 404
+            and sorted(health["metros"]) == sorted(names)
+            and f"router[{', '.join(names)}]" in text):
+        raise SystemExit("[router:server] the entry point's answers, 404, "
+                         "metros or exit differ:\n" + _tail(log_path))
+
+
+class _KafkaRecord:
+    __slots__ = ("offset", "value")
+
+    def __init__(self, offset, value):
+        self.offset, self.value = offset, value
+
+
+class _FakeKafka:
+    """An in-process kafka-python KafkaConsumer shape over per-partition
+    logs of JSON bytes (a keyed producer's: partition by uuid): assign,
+    seek, pause, resume, a cursor-based poll fetching at most KAFKA_FETCH
+    records a call, end_offsets."""
+
+    def __init__(self, topic, num_partitions):
+        from reporter_tpu_torch.streaming.queue import partition_of
+
+        self.topic, self._part_of = topic, partition_of
+        self.logs = [[] for _ in range(num_partitions)]
+        self._cursor, self._paused, self._assigned = {}, set(), []
+
+    def produce_many(self, records):
+        for r in records:
+            self.logs[self._part_of(str(r["uuid"]), len(self.logs))].append(
+                json.dumps(r).encode())
+
+    def partitions_for_topic(self, topic):
+        return set(range(len(self.logs))) if topic == self.topic else None
+
+    def assign(self, tps):
+        self._assigned = list(tps)
+        for tp in tps:
+            self._cursor.setdefault(tp, 0)
+
+    def seek(self, tp, offset):
+        self._cursor[tp] = int(offset)
+
+    def pause(self, *tps):
+        self._paused.update(tps)
+
+    def resume(self, *tps):
+        self._paused.difference_update(tps)
+
+    def poll(self, timeout_ms=0, max_records=500):
+        out, budget = {}, max_records
+        for tp in self._assigned:
+            if tp in self._paused or budget <= 0:
+                continue
+            cur = self._cursor[tp]
+            take = self.logs[tp.partition][cur:cur + min(budget, KAFKA_FETCH)]
+            if take:
+                out[tp] = [_KafkaRecord(cur + i, v) for i, v in
+                           enumerate(take)]
+                self._cursor[tp] = cur + len(take)
+                budget -= len(take)
+        return out
+
+    def end_offsets(self, tps):
+        return {tp: len(self.logs[tp.partition]) for tp in tps}
+
+
+def kafka_phase(card, ts, dc, win, ref, cache, device="cuda"):
+    """[kafka]: the [stream] feed (the rounds) through KafkaProbeConsumer
+    over an in-process fake kafka-python client (JSON bytes, fetches of
+    KAFKA_FETCH), consumed by the dict StreamPipeline on the card; beside
+    it the same feed through a durable broker (DurableIngestQueue) in
+    another dict pipeline. Reports, hist and qhist of the two equal each
+    other and [stream]'s; records/s of each beside [stream]'s."""
+    from reporter_tpu_torch.config import Config, ServiceConfig
+    from reporter_tpu_torch.streaming import (DurableIngestQueue,
+                                              KafkaProbeConsumer,
+                                              StreamPipeline)
+
+    rounds = ref["rounds"]
+    n_records = sum(len(r) for r in rounds)
+    os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "stream")
+    out, fields = {}, {}
+    for kind in ("kafka", "durable"):
+        sink, url = _sink()
+        cfg = Config(service=ServiceConfig(datastore_url=url))
+        parts = cfg.streaming.num_partitions
+        if kind == "kafka":
+            client = _FakeKafka("probes", parts)
+            queue = KafkaProbeConsumer(client, "probes")
+
+            def append(q, recs, client=client):
+                client.produce_many(recs)
+        else:
+            queue = DurableIngestQueue(os.path.join(cache, "kafka_durable"),
+                                       num_partitions=parts)
+
+            def append(q, recs):
+                q.append_many(recs)
+        pipe = StreamPipeline(ts, cfg, queue=queue, device=device)
+        tuned = _tuned(pipe.app.matcher, dc)
+        feed, counts = win.run(f"sf:kafka:{kind}", lambda: stream_feed(
+            pipe, rounds, append, f"kafka:{kind}"))
+        _check_drained(pipe, f"kafka:{kind}")
+        with sink.lock:
+            bodies = list(sink.bodies)
+        _close_sink(sink)
+        pipe.app.close()
+        if kind == "durable":
+            queue.close()
+        out[kind] = {"reports": _sorted_reports(_report_rows(bodies)),
+                     "hist": pipe.hist.snapshot(),
+                     "qhist": pipe.qhist.snapshot()}
+        fields[kind] = dict(_stream_fields(pipe, feed, n_records, bodies),
+                            launches=_launches(counts))
+        only(counts, tuned, f"[kafka] the {kind} window")
+    k, d = out["kafka"], out["durable"]
+    eq = {"reports_kafka_eq_durable": k["reports"] == d["reports"],
+          "hist_kafka_eq_durable": bool(np.array_equal(k["hist"], d["hist"])
+                                        and np.array_equal(k["qhist"],
+                                                           d["qhist"])),
+          "reports_eq_stream": k["reports"] == ref["reports"],
+          "hist_eq_stream": bool(np.array_equal(k["hist"], ref["hist"])
+                                 and np.array_equal(k["qhist"],
+                                                    ref["qhist"]))}
+    phase("kafka", card, metro="sf", records=n_records,
+          fetch_records=KAFKA_FETCH,
+          records_per_s={"kafka": fields["kafka"]["records_per_s"],
+                         "durable": fields["durable"]["records_per_s"],
+                         "stream": ref["records_per_s"]},
+          kafka=fields["kafka"], durable=fields["durable"],
+          reports=len(k["reports"]), **eq)
+    if not (all(eq.values()) and k["reports"]):
+        raise SystemExit(f"[kafka] the Kafka-fed run differs: {eq}")
+
+
+def link_phase(card, since):
+    """[link]: a link-health sampler on the card probes LINK_SAMPLES times
+    (round trip, host-to-card MB/s, mood: none null); the process
+    sampler (started by the first app) with its duty; the dispatch
+    watchdog's timeouts of [watchdog] (since ``since``) in its record."""
+    from reporter_tpu_torch.utils import linkhealth
+
+    probe = linkhealth.LinkHealthSampler(device="cuda")
+    samples = [probe.sample_once().to_json() for _ in range(LINK_SAMPLES)]
+    s = linkhealth.sampler()
+    notes = [x.to_json() for x in s.samples()
+             if x.source == "dispatch_timeout" and x.t >= since]
+    since_wd = s.window(since)
+    latest = s.latest()
+    phase("link", card, probe_bytes=probe.probe_bytes,
+          degraded_rtt_ms=probe.degraded_rtt_s * 1e3,
+          degraded_mbps=probe.degraded_mbps, samples=samples,
+          window=probe.window(),
+          process_sampler={
+              "device": str(s.device), "running": s.running,
+              "period_s": s.period_s, "probes": s.probes_total,
+              "dead_probes": s.dead_probes_total,
+              "probe_duty_pct": s.probe_duty_pct(),
+              "latest": None if latest is None else latest.to_json()},
+          dispatch_timeout_notes=len(notes),
+          first_note=notes[0] if notes else None,
+          window_since_watchdog=since_wd)
+    if not (all(x["rtt_ms"] is not None and x["mbps"] is not None
+                and x["mood"] in ("healthy", "degraded") for x in samples)
+            and notes and since_wd["mood"] == "dead"
+            and str(s.device).startswith("cuda")
+            and s.probe_duty_pct() is not None):
+        raise SystemExit("[link] a probe read null or dead, the process "
+                         "sampler is not on the card, or the watchdog's "
+                         "timeouts did not reach the link record")
+
+
+def guard_phase(card, ts, traces, dc, win, cache):
+    """[autotune:guard]: a matcher whose first calibration measurement
+    hangs GUARD_HANG_S (host side, before its first launch) under
+    autotune.CAL_TIMEOUT_S = GUARD_TIMEOUT_S: construction returns within
+    the timeout plus GUARD_MARGIN_S, source "timeout", the default plan
+    unapplied and uncached; the abandoned measurement lands later (its
+    launches counted apart); the matcher's records on GUARD_TRACES traces
+    equal an untuned default-plan matcher's, and it launches only the
+    default instance."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.matcher import autotune
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+    from reporter_tpu_torch.ops import match as match_ops
+
+    d = os.path.join(cache, "guard")
+    os.environ["RTPU_AUTOTUNE_CACHE"] = d
+    t0 = time.perf_counter()
+    pinned = SegmentMatcher(ts, MatcherParams(sweep_autotune=False))
+    pinned_s = time.perf_counter() - t0
+    real, saved = match_ops.batch_candidates, autotune.CAL_TIMEOUT_S
+    hung = {}
+
+    def hanging(*args, **kw):
+        if not hung:
+            hung["thread"] = threading.current_thread().name
+            time.sleep(GUARD_HANG_S)
+            hung["resumed"] = time.perf_counter()
+        return real(*args, **kw)
+
+    match_ops.batch_candidates = hanging
+    autotune.CAL_TIMEOUT_S = GUARD_TIMEOUT_S
+    try:
+        t0 = time.perf_counter()
+        m, cal = win.run("sf:guard:calibration", lambda: SegmentMatcher(ts))
+        returned = time.perf_counter()
+        construct_s = returned - t0
+        abandoned = m._watchdog.abandoned
+    finally:
+        autotune.CAL_TIMEOUT_S = saved
+        match_ops.batch_candidates = real
+    # the abandoned measurement runs on (a CUDA call cannot be cancelled):
+    # wait for it to land, its launches apart from any window
+    before = dict(dc.SWEEP_LAUNCHES)
+    deadline = time.perf_counter() + GUARD_HANG_S + 120.0
+    while m._watchdog.abandoned and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    landed_s = time.perf_counter() - returned
+    torch.cuda.synchronize()
+    late = {f"{a}@k{k}": v - before[a, k]
+            for (a, k), v in dc.SWEEP_LAUNCHES.items() if v != before[a, k]}
+    batch = traces[:GUARD_TRACES]
+    recs, served = win.run("sf:guard:served", lambda: m.match_many(batch))
+    want = pinned.match_many(batch)
+    equal = json_records(recs) == json_records(want)
+    cached = os.listdir(d) if os.path.isdir(d) else []
+    default = _tuned(pinned, dc)
+    rep = m.tuned_report
+    phase("autotune:guard", card, metro="sf", timeout_s=GUARD_TIMEOUT_S,
+          hang_s=GUARD_HANG_S, margin_s=GUARD_MARGIN_S,
+          construct_s=construct_s, untuned_construct_s=pinned_s,
+          source=rep.get("source"), note=rep.get("note"),
+          tuned_plan=m.tuned_plan and m.tuned_plan.label,
+          abandoned_at_return=abandoned, hung_thread=hung.get("thread"),
+          abandoned_landed_after_s=landed_s,
+          abandoned_count_after=m._watchdog.abandoned,
+          abandoned_thread_launches=late,
+          calibration_launches=_launches(cal), cache_files=cached,
+          traces=len(batch), records_equal_untuned_default=equal,
+          served_launches=_launches(served))
+    only(served, default, "[autotune:guard] the guarded matcher")
+    if not (construct_s <= GUARD_TIMEOUT_S + GUARD_MARGIN_S
+            and rep.get("source") == "timeout" and m.tuned_plan is None
+            and abandoned == 1 and m._watchdog.abandoned == 0
+            and not cached and equal and recs.n_records
+            and not any(cal.values())):
+        raise SystemExit("[autotune:guard] construction did not degrade to "
+                         "the default plan within its bound, or its records "
+                         "differ")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -3028,6 +3709,7 @@ def main() -> int:
     from reporter_tpu_torch.service.app import make_app
     from reporter_tpu_torch.tiles.compiler import compile_network
     from reporter_tpu_torch.tiles.tileset import tables_from_numpy
+    from reporter_tpu_torch.utils import linkhealth
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3080,6 +3762,7 @@ def main() -> int:
     by_k = {k: kernel_phase(card, tab, pts, radius, k, dc, build, "sf",
                             tag="kernel:k", check_chunks=CHECK_CHUNKS)
             for k in dc.SWEEP_KS}
+    kernel_between_phase(card, tab, pts, radius, dc, "sf")
     gates_phase(card, dc, radius, 8)
 
     # ---- 5. main path (calibration included), walk, breakdown, reference -
@@ -3132,12 +3815,14 @@ def main() -> int:
         # ---- 7. the report service, in-process and as the entry point ---
         served = serve_phase(card, ts, fleet, dc, win, cache)
         server_phase(card, served, cache)
+        router_phase(card, dc, win, cache)
 
         # ---- 8. the streaming worker: dict, columnar, recovery, entry ----
         ref = stream_phase(card, ts, fleet, dc, win, cache)
         cols = stream_columnar_phase(card, ts, dc, win, ref)
         stream_recover_phase(card, ts, win, ref, cols, cache)
         stream_worker_phase(card, ts, win, ref, cols, cache)
+        kafka_phase(card, ts, dc, win, ref, cache)
 
         # ---- 9. the supervised topology: N workers on one card ----------
         st = topo_stage(card, ts, ref, cache, win)
@@ -3146,7 +3831,10 @@ def main() -> int:
         topo_lease_phase(card, st)
 
         # ---- 10. the watchdog, the shadow audit and backfill (sf) -------
+        since = linkhealth.sampler().clock()
         watchdog_phase(card, ts, fleet, m, dc, win)
+        link_phase(card, since)
+        guard_phase(card, ts, traces, dc, win, cache)
         audit_phase(card, m, traces, dc, win)
         backfill_phase(card, ts, fleet, m, dc, win)
 

@@ -28,7 +28,9 @@ C walk against. The native library is built with g++ at first use
 Construction applies the RTPU_SWEEP_* overrides to the params and, on the
 card, resolves the sweep's kernel arm for this metro (matcher/autotune.py:
 explicit levers, then the on-disk cache, then a calibration, which
-raises if any arm fails to run). The
+raises if any arm fails to run; each candidate's measurement runs under
+the dispatch watchdog, bounded by ``autotune.CAL_TIMEOUT_S``, and a hung
+one leaves the static default serving, with source "timeout"). The
 calibration times the candidate stage alone (``batch_candidates`` on the
 decoded ``calibration_batch``, ``CAL_DISPATCHES`` launches between two
 CUDA events, one synchronize), not the whole wire entry as the JAX
@@ -58,8 +60,9 @@ The dispatch watchdog (``MatcherParams.dispatch_timeout_s`` > 0) runs
 each device batch on a daemon thread (utils/watchdog.py) and bounds the
 wait; the ``dispatch`` fault site fires inside that body. The body
 launches on the thread's default CUDA stream, as the scheduler's threads
-do. A timed-out batch raises ``DispatchTimeout`` (the callers' retry:
-the streaming wave release, the app's 503) or, under
+do. A timeout is noted in the link-health record
+(utils/linkhealth.py). A timed-out batch raises ``DispatchTimeout`` (the
+callers' retry: the streaming wave release, the app's 503) or, under
 ``dispatch_fallback="reference_cpu"``, is served by the oracle, counted
 in ``dispatch_fallback``. An exception of the body, a CUDA build or
 launch error among them, is re-raised, never degraded. Past four
@@ -101,7 +104,7 @@ from reporter_tpu_torch.quality import audit as quality_audit
 from reporter_tpu_torch.quality import signals as quality_signals
 from reporter_tpu_torch.quality.monitor import QualityMonitor
 from reporter_tpu_torch.tiles.tileset import TileSet, tables_from_numpy
-from reporter_tpu_torch.utils import locks, tracing
+from reporter_tpu_torch.utils import linkhealth, locks, tracing
 from reporter_tpu_torch.utils.metrics import MetricsRegistry
 from reporter_tpu_torch.utils.watchdog import (TIMED_OUT,
                                                AbandonedThreadWatchdog)
@@ -345,7 +348,12 @@ class SegmentMatcher:
             t1.synchronize()
             return t0.elapsed_time(t1) / 1e3 / autotune.CAL_DISPATCHES
 
+        # each candidate under the dispatch watchdog: a hung measurement
+        # degrades to the static default (source "timeout") instead of
+        # hanging construction; the bound is read at call time
         plan, info = autotune.resolve_plan(self.params, self.ts, measure,
+                                           watchdog=self._watchdog,
+                                           timeout_s=autotune.CAL_TIMEOUT_S,
                                            backend=self.device.type)
         if info.get("errors"):
             # calibrate skips an arm that raised; serving another arm
@@ -353,7 +361,7 @@ class SegmentMatcher:
             raise RuntimeError(f"sweep calibration: arms failed on "
                                f"{info['device']}: {info['errors']}")
         self.tuned_report = info
-        if plan is None or plan.source == "default":
+        if plan is None or plan.source in ("default", "timeout"):
             return          # the params already are the static default
         self.params = self.params.replace(**plan.params_overrides())
         self.tuned_plan = plan
@@ -464,8 +472,10 @@ class SegmentMatcher:
         self.metrics.count("dispatch_timeout")
         tracing.post_mortem("dispatch_timeout", failing="device_dispatch",
                             traces=len(traces), timeout_s=timeout)
-        # the JAX package also notes the stall in its link-health record,
-        # which waits for link health (ROADMAP queue 1 item 1f)
+        # the dead-link signal into the link-health record: the watchdog
+        # saw the stall long before the low-duty probe would; the
+        # post-mortem above is this event's one dump
+        linkhealth.note_dispatch_timeout("dispatch_timeout")
         return self._degrade(traces, timeout), None
 
     def _degrade(self, traces: Sequence[Trace], timeout: float):

@@ -20,6 +20,21 @@ calibration of ``CAL_DISPATCHES`` timed dispatches per candidate.
 selection logic runs under injected timings on the CPU. (The JAX
 package also reads a plan staged in the device tables by its fleet
 pager; the port has no fleet pager yet.)
+
+The guard: given a ``watchdog`` (the matcher passes its dispatch
+watchdog, utils/watchdog.py), each candidate's measurement runs on the
+watchdog's thread, bounded by ``timeout_s`` (``CAL_TIMEOUT_S``). A
+timeout, or a breaker already open, aborts the whole calibration
+(``CalibrationAborted``): the static default plan serves, with source
+"timeout", and is neither cached nor applied, so a hung measurement
+degrades matcher construction instead of hanging it. The watchdog
+cannot cancel a CUDA call: an abandoned measurement runs on, its result
+discarded. The JAX tuner names a fault site "autotune" to the watchdog,
+which its ``faults.SITES`` does not hold: no plan can name it (parse
+rejects it in both packages), and under any active plan the JAX body
+raises at the unknown site, which its calibration records as a failed
+candidate. The port passes no fault site; a hang comes from the
+measurement itself.
 """
 
 from __future__ import annotations
@@ -61,8 +76,18 @@ CANDIDATE_ARMS = (
 # them: on the card it builds the kernel library at first use)
 CAL_DISPATCHES = 4
 
+# the guard's bound on one candidate's measurement (s): above the first
+# use's kernel build, which the watchdog cannot tell from a hang
+CAL_TIMEOUT_S = 120.0
+
 # calibration batch [B, T]: a scheduler trace rung × a matcher bucket
 CAL_BATCH_SHAPE = (128, 64)
+
+
+class CalibrationAborted(RuntimeError):
+    """A calibration measurement was abandoned (a watchdog timeout or an
+    open breaker): the whole calibration aborts and the static default
+    plan serves."""
 
 
 @dataclass(frozen=True)
@@ -148,13 +173,17 @@ def calibrate(measure: Callable[[TunedPlan], "float | None"],
 
     ``measure(plan) -> seconds`` (lower is better); None or an exception
     skips that candidate, and an exception is recorded under
-    ``report["errors"]`` (the matcher on the card raises on any). Ties
-    break toward the earlier candidate."""
+    ``report["errors"]`` (the matcher on the card raises on any);
+    ``CalibrationAborted`` aborts the whole calibration to the static
+    default with source "timeout". Ties break toward the earlier
+    candidate."""
     report: dict = {"candidates": {}, "errors": {}, "measured": 0}
 
     def timed(plan: TunedPlan) -> "float | None":
         try:
             dt = measure(plan)
+        except CalibrationAborted:
+            raise
         except Exception as exc:  # noqa: BLE001 — recorded, not raised
             report["errors"][plan.label] = repr(exc)[:200]
             return None
@@ -166,11 +195,15 @@ def calibrate(measure: Callable[[TunedPlan], "float | None"],
         return dt
 
     best: "tuple[float, TunedPlan] | None" = None
-    for arm, lowp in CANDIDATE_ARMS:
-        plan = TunedPlan(arm=arm, lowp=lowp, source="measured")
-        dt = timed(plan)
-        if dt is not None and (best is None or dt < best[0]):
-            best = (dt, plan)
+    try:
+        for arm, lowp in CANDIDATE_ARMS:
+            plan = TunedPlan(arm=arm, lowp=lowp, source="measured")
+            dt = timed(plan)
+            if dt is not None and (best is None or dt < best[0]):
+                best = (dt, plan)
+    except CalibrationAborted as exc:
+        report["note"] = f"calibration aborted ({exc}) — static default"
+        return default_plan(source="timeout"), report
     if best is None:
         report["note"] = "every candidate failed — static default"
         return default_plan(), report
@@ -268,14 +301,18 @@ def store_cached_plan(plan: TunedPlan, report: dict, fingerprint: str,
 
 def resolve_plan(params: MatcherParams, ts,
                  measure: Callable[[TunedPlan], "float | None"],
+                 watchdog=None, timeout_s: float = CAL_TIMEOUT_S,
                  directory: "str | None" = None,
                  backend: "str | None" = None,
                  devkey: "str | None" = None,
                  ) -> "tuple[TunedPlan | None, dict]":
     """(plan to apply | None, info). None means the tuner does not act
     (off, explicit levers, a CPU matcher) and the params serve as they
-    are; ``info["source"]`` says why. ``backend`` is the matcher's device
-    type ("cuda" or "cpu"; None = cuda when a card is present)."""
+    are; ``info["source"]`` says why. ``watchdog`` (an
+    AbandonedThreadWatchdog) bounds each candidate's measurement by
+    ``timeout_s``; a timeout or an open breaker gives the default plan
+    with source "timeout", not cached. ``backend`` is the matcher's
+    device type ("cuda" or "cpu"; None = cuda when a card is present)."""
     import time
 
     if not params.sweep_autotune:
@@ -296,8 +333,21 @@ def resolve_plan(params: MatcherParams, ts,
     if cached is not None:
         return cached, {"source": "cache", "device": devkey}
 
+    def guarded(plan: TunedPlan) -> "float | None":
+        if watchdog is None:
+            return measure(plan)
+        from reporter_tpu_torch.utils.watchdog import TIMED_OUT
+
+        if watchdog.tripped:
+            raise CalibrationAborted("watchdog breaker open")
+        out = watchdog.run(lambda: measure(plan), timeout_s)
+        if out is TIMED_OUT:
+            raise CalibrationAborted(
+                f"candidate {plan.label} exceeded {timeout_s:.0f}s")
+        return out
+
     t0 = time.perf_counter()
-    plan, report = calibrate(measure)
+    plan, report = calibrate(guarded)
     info = {"source": plan.source, "device": devkey,
             "calibration_seconds": round(time.perf_counter() - t0, 2),
             "calibration_dispatches":

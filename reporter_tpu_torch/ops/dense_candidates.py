@@ -78,7 +78,9 @@ _PLAIN_P = 128    # points per chunk of the plain sweep (bounds its [P, S] tempo
 _GATE_ROWS = 2048  # (warp, slice) pairs per step of the plain gates
 SPLIT_LEN = 256.0  # long-segment pre-split span
 # SWEEP_KS (kernels/build.py): the top-K widths the CUDA sweep is built
-# for, each arm instantiated at each; the plain path takes any K
+# for, each arm instantiated at each; sweep_topk serves any other K up to
+# the largest through the next built one (sweep_instance_k), and the
+# plain path takes any K
 
 # seg_coarse: the gates' operands, one row of CO_WORDS i32 words per
 # 512-column block, rounded once on the host. For the tensor-core gate,
@@ -696,6 +698,20 @@ def sweep_arm(subcull: bool, lowp: str, mxu: bool) -> str:
     return "sub_bf16" if lowp == "bf16" else "sub"
 
 
+def sweep_instance_k(k: int) -> int:
+    """The built top-K width that serves a sweep of width ``k``: the
+    smallest K' of SWEEP_KS with K' >= k. The kernel keeps its list in
+    (d², edge id) order over distinct edges, so the first k columns of
+    an exact top-K' are the exact top-k, ties and empty slots included.
+    Raises for k < 1 or k past the largest built width."""
+    k = int(k)
+    for built in SWEEP_KS:
+        if k >= 1 and built >= k:
+            return built
+    raise ValueError(f"the CUDA sweep is built for K in {SWEEP_KS} and "
+                     f"serves 1 <= K <= {SWEEP_KS[-1]}, got {k}")
+
+
 def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
                sweep: torch.Tensor, sub: "torch.Tensor | None",
                coarse: "torch.Tensor | None", radius: float, k: int,
@@ -707,8 +723,10 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     ("sub_bf16", "mxu", "mxu_bf16") also ``coarse`` (seg_coarse, their
     gates' operands). Its persistent CTAs take chunks from a counter in
     the order _chunk_order(nhits) gives (heaviest first), which a kernel
-    of the same call computes on the card. ``k``, the top-K width, is one
-    of SWEEP_KS (any other raises).
+    of the same call computes on the card. ``k``, the top-K width, runs
+    the instance ``sweep_instance_k(k)`` (k itself where it is one of
+    SWEEP_KS), whose first k columns are returned, and the launch is
+    counted under that instance; k past the largest built width raises.
     → (edge i32, offset f32, dist f32), each [npad, k].
 
     ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]; not for "block"),
@@ -721,9 +739,7 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
         raise ValueError(f"unknown sweep arm {arm!r}; one of {SWEEP_ARMS}")
     npad = pts.shape[0]
     nchunks = npad // _P
-    if k not in SWEEP_KS:
-        raise ValueError(f"the CUDA sweep is built for K in {SWEEP_KS}, "
-                         f"got {k}")
+    k_run = sweep_instance_k(k)
     if npad % _P or npad == 0:
         raise ValueError(f"points must be whole {_P}-point chunks, got {npad}")
     if arm == "block" and gate_log is not None:
@@ -751,9 +767,9 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     if spad % _SBLK:
         raise ValueError(f"seg_sweep's {spad} columns are not whole "
                          f"{_SBLK}-column blocks")
-    edge = torch.empty((npad, k), dtype=torch.int32, device=pts.device)
-    off = torch.empty((npad, k), dtype=torch.float32, device=pts.device)
-    dist = torch.empty((npad, k), dtype=torch.float32, device=pts.device)
+    edge = torch.empty((npad, k_run), dtype=torch.int32, device=pts.device)
+    off = torch.empty((npad, k_run), dtype=torch.float32, device=pts.device)
+    dist = torch.empty((npad, k_run), dtype=torch.float32, device=pts.device)
     r2 = float(radius) * float(radius)
     rc = cull_radius(radius)
     order = torch.empty(nchunks + 1, dtype=torch.int32, device=pts.device)
@@ -763,7 +779,10 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
         SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc, float(radius),
         edge, off, dist, gate_log)
     with _LAUNCH_LOCK:
-        SWEEP_LAUNCHES[arm, k] += 1
+        SWEEP_LAUNCHES[arm, k_run] += 1
+    if k_run != k:
+        return (edge[:, :k].contiguous(), off[:, :k].contiguous(),
+                dist[:, :k].contiguous())
     return edge, off, dist
 
 

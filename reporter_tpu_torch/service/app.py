@@ -15,10 +15,11 @@ one batch. ``GET /health``, ``/stats``, ``/metrics`` (Prometheus text),
 ``/slo`` (the SLO plane's burn status, obs/slo.py) and
 ``/aggregates[?segment=<id>]`` (a backfill run's harvested, k-anonymized
 document from the ``aggregates`` store, backfill/aggregate.py) are the
-JAX app's. A dispatch past the matcher's watchdog answers 503. Not
-ported yet: the link-health block of ``/health`` (ROADMAP queue 1 item
-1f). The app is a bare WSGI callable, servable by any WSGI server and by
-the stdlib runner in service/server.py.
+JAX app's; ``/health`` carries the link-health block (the process
+sampler's latest probe of the host–card path, utils/linkhealth.py) and
+``/metrics`` its ``rtpu_link_*`` gauges. A dispatch past the matcher's
+watchdog answers 503. The app is a bare WSGI callable, servable by any
+WSGI server and by the stdlib runner in service/server.py.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from reporter_tpu_torch.service.reports import (Report, build_reports,
 from reporter_tpu_torch.service.scheduler import (BatchScheduler,
                                                   ServiceOverloaded)
 from reporter_tpu_torch.tiles.tileset import TileSet
-from reporter_tpu_torch.utils import locks, tracing
+from reporter_tpu_torch.utils import linkhealth, locks, tracing
 
 log = logging.getLogger("reporter_tpu_torch.service")
 
@@ -137,6 +138,10 @@ class ReporterApp:
         svc = self.config.service
         tracing.configure_from_service(svc)   # span recorder (global)
         self.matcher = SegmentMatcher(tileset, self.config, device=device)
+        # link-health gauges: the process sampler probes the host–card
+        # path at low duty and publishes rtpu_link_* into this app's
+        # registry (RTPU_LINK_PROBE=0 disables; utils/linkhealth.py)
+        linkhealth.ensure_serving(self.matcher.metrics, self.matcher.device)
         self.cache = PartialTraceCache(ttl=svc.cache_ttl,
                                        max_uuids=svc.cache_max_uuids)
         self.publisher = DatastorePublisher(
@@ -357,9 +362,9 @@ class ReporterApp:
         return out
 
     def health(self) -> dict:
-        """The JAX package's /health keys, without ``link`` (link health,
-        ROADMAP queue 1 item 1f); ``device beside ``backend``, and ``tile_hbm_bytes`` the bytes of
-        the tables staged on that device."""
+        """The JAX package's /health keys; ``device`` beside ``backend``,
+        and ``tile_hbm_bytes`` the bytes of the tables staged on that
+        device."""
         with self._stats_lock:
             stats = dict(self.stats)
         out = {
@@ -387,6 +392,20 @@ class ReporterApp:
         # liveness face; the full burn detail at /slo
         if self.slo is not None:
             out["slo"] = self.slo.health()
+        # link mood: the latest probe and the measured duty, so a
+        # degraded or dead path shows at the liveness face before it
+        # shows as dispatch timeouts
+        s = linkhealth.sampler() if linkhealth.enabled() else None
+        last = s.latest() if s is not None else None
+        out["link"] = {
+            "mood": (None if last is None else last.mood),
+            "rtt_ms": (None if last is None or last.rtt_s is None
+                       else round(last.rtt_s * 1e3, 2)),
+            "mbps": (None if last is None or last.mbps is None
+                     else round(last.mbps, 2)),
+            "probe_duty_pct": (None if s is None
+                               else s.probe_duty_pct()),
+        }
         return out
 
     def close(self) -> None:

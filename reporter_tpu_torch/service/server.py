@@ -6,14 +6,17 @@ or loads the tiles, builds the app once (tables staged on the device,
 the sweep arm calibrated), and serves threaded until SIGINT, which
 drains the scheduler and the publisher before exiting 0.
 
-Run:  python -m reporter_tpu_torch.service.server [--tiles tiles.npz]
-      [--config cfg.json] [--host H] [--port P] [--device cuda|cpu]
+Run:  python -m reporter_tpu_torch.service.server [--tiles a.npz [b.npz
+      ...]] [--config cfg.json] [--host H] [--port P] [--device cuda|cpu]
 
-``--tiles`` takes one ``.npz`` in the JAX package's layout (``python -m
-reporter_tpu.tiles build`` or ``TileSet.save``); without it the synthetic
-``sf`` is compiled. Several ``--tiles`` (the metro router, ROADMAP queue
-1 item 1d) and ``--mode bicycle|foot`` (per-mode tiles, item 4) raise
-NotImplementedError.
+``--tiles`` takes ``.npz`` files in the JAX package's layout (``python
+-m reporter_tpu.tiles build`` or ``TileSet.save``); without it the
+synthetic ``sf`` is compiled. One tile serves a ReporterApp; several
+start the metro router (service/router.py): every metro's tables staged
+on the device and its arm calibrated, one endpoint routing each request
+by its ``"metro"`` field or its first point, and SIGINT draining every
+metro. ``--mode bicycle|foot`` (per-mode tiles, ROADMAP queue 1 item 4)
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,12 +47,16 @@ class _QuietHandler(WSGIRequestHandler):
 
 
 def serve(app, host: str = "0.0.0.0", port: "int | None" = None):
-    """A threaded WSGI server for ``app`` (not started: call
-    ``serve_forever``, and ``shutdown`` / ``server_close`` after).
-    ``port`` None takes the app's ``service.port``; 0 binds a free one
+    """A threaded WSGI server for ``app``, a ReporterApp or a MetroRouter
+    (not started: call ``serve_forever``, and ``shutdown`` /
+    ``server_close`` after). ``port`` None takes the app's
+    ``service.port`` (a router's: any member app's); 0 binds a free one
     (``server.server_address[1]``)."""
     if port is None:
-        port = app.config.service.port
+        cfg = getattr(app, "config", None)
+        if cfg is None:          # a MetroRouter: any member app's config
+            cfg = next(iter(app.apps.values())).config
+        port = cfg.service.port
     return make_server(host, port, app, server_class=ThreadedWSGIServer,
                        handler_class=_QuietHandler)
 
@@ -58,8 +65,8 @@ def main(argv: "list[str] | None" = None) -> None:
     ap = argparse.ArgumentParser(
         description="reporter_tpu_torch report service")
     ap.add_argument("--tiles", nargs="*", default=None,
-                    help="a compiled TileSet .npz (default: synthetic 'sf'); "
-                         "several (the metro router) are not ported")
+                    help="compiled TileSet .npz path(s); several start the "
+                         "multi-metro router (default: synthetic 'sf')")
     ap.add_argument("--config", help="JSON config path")
     ap.add_argument("--mode", choices=("auto", "bicycle", "foot"),
                     help="transport mode served; only 'auto' is ported")
@@ -70,10 +77,6 @@ def main(argv: "list[str] | None" = None) -> None:
                          "or cpu")
     args = ap.parse_args(argv)
 
-    if args.tiles is not None and len(args.tiles) > 1:
-        raise NotImplementedError(
-            "several --tiles start the metro router (service/router.py), "
-            "which is not ported: ROADMAP queue 1 item 1d")
     if args.mode not in (None, "auto"):
         raise NotImplementedError(
             f"--mode {args.mode}: per-mode serving needs tiles compiled for "
@@ -84,26 +87,36 @@ def main(argv: "list[str] | None" = None) -> None:
     t0 = time.perf_counter()
     config = Config.load(args.config)
     if args.tiles:
-        ts = TileSet.load(args.tiles[0])
+        tilesets = [TileSet.load(p) for p in args.tiles]
     else:
         from reporter_tpu_torch.netgen.synthetic import generate_city
         from reporter_tpu_torch.tiles.compiler import compile_network
 
         log.info("no --tiles given; compiling synthetic 'sf'")
-        ts = compile_network(generate_city("sf"), config.compiler)
-    app = make_app(ts, config, device=args.device)
+        tilesets = [compile_network(generate_city("sf"), config.compiler)]
+    if len(tilesets) == 1:
+        ts = tilesets[0]
+        app = make_app(ts, config, device=args.device)
+        desc = f"{ts.name} ({ts.num_edges} edges)"
+        device = app.matcher.device
+    else:
+        from reporter_tpu_torch.service.router import make_router
+
+        app = make_router(tilesets, config, device=args.device)
+        desc = "router[" + ", ".join(ts.name for ts in tilesets) + "]"
+        device = next(iter(app.apps.values())).matcher.device
     server = serve(app, args.host, args.port)
-    log.info("serving %s (%d edges) on %s:%d, device %s, ready in %.2f s "
-             "(tiles, staging and calibration)", ts.name, ts.num_edges,
-             args.host, server.server_address[1], app.matcher.device,
-             time.perf_counter() - t0)
+    log.info("serving %s on %s:%d, device %s, ready in %.2f s "
+             "(tiles, staging and calibration)", desc, args.host,
+             server.server_address[1], device, time.perf_counter() - t0)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         # graceful drain: admitted batches finish (their clients get
-        # responses), new admissions get 503, then the publisher closes
+        # responses), new admissions get 503, then the publisher closes;
+        # a router drains every metro's
         log.info("shutting down: draining scheduler + publisher")
         app.close()
         server.server_close()

@@ -38,8 +38,8 @@ dict-only, as in the JAX worker. The SLO plane (obs/slo.py) runs unless
 One difference in the loop: while a wave or a POST is in flight and the
 lag has not moved, it pauses ``_BUSY_WAIT_S`` per step instead of
 spinning (the JAX worker spins, which starves the match thread here).
-The exit JSON's ``link`` is the JAX worker's disabled form (link health
-is not ported); beside the JAX worker's keys it carries the sweep
+The exit JSON's ``link`` is the process link-health sampler's window
+(utils/linkhealth.py); beside the JAX worker's keys it carries the sweep
 kernel's launches since the worker was ready (``launches``, by
 ``arm@kK``), those of the tuner's calibration (``calibration_launches``),
 the plan served (``plan``) and the wall-clock times at which the worker
@@ -391,10 +391,18 @@ def main(argv: "list[str] | None" = None) -> int:
             except OSError as exc:
                 log.warning("exit trace dump failed: %s", exc)
     st = pipe.stats()
-    # link health is not ported (ROADMAP queue 1 item 1f): the JAX
-    # worker's disabled form
-    link = {"rtt_ms": None, "mbps": None, "mood": None,
-            "samples": 0, "probes": 0, "dead_probes": 0}
+    # link-health counters: the process sampler ran in-process all along
+    # (started by the dict pipeline's app); the exit report is where a
+    # supervisor reads them after the worker is gone
+    from reporter_tpu_torch.utils import linkhealth
+
+    if linkhealth.enabled():
+        s = linkhealth.sampler()
+        link = {**s.window(), "probes": int(s.probes_total),
+                "dead_probes": int(s.dead_probes_total)}
+    else:
+        link = {"rtt_ms": None, "mbps": None, "mood": None,
+                "samples": 0, "probes": 0, "dead_probes": 0}
     qh = matcher.quality.health()
     quality = {k: qh.get(k) for k in
                ("enabled", "window_waves", "drifted", "drift_events",

@@ -10,6 +10,7 @@ its plans carry the JAX default rung, 128, and it rejects the variable.
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -369,18 +370,20 @@ def test_matcher_raises_when_an_arm_fails_calibration(golden_pair,
     ts, _, _ = golden_pair
     real = autotune.resolve_plan
 
-    def on_a_card(params, ts, measure, backend=None):
+    def on_a_card(params, ts, measure, backend=None, **guard):
         return real(params, ts, _timer({"subcull@128": 0.5}, fail_mxu=True),
-                    directory=str(tmp_path), backend="cuda", devkey="cuda:t")
+                    directory=str(tmp_path), backend="cuda", devkey="cuda:t",
+                    **guard)
 
     monkeypatch.setattr(autotune, "resolve_plan", on_a_card)
     with pytest.raises(RuntimeError, match="mxu@128.*mxu launch failed"):
         SegmentMatcher(ts, device="cpu")
     # with every arm measured the same call serves the winner
-    monkeypatch.setattr(autotune, "resolve_plan", lambda p, t, m, backend=None:
+    monkeypatch.setattr(autotune, "resolve_plan",
+                        lambda p, t, m, backend=None, **guard:
                         real(p, t, _timer({"block@128": 0.1}),
                              directory=str(tmp_path / "ok"), backend="cuda",
-                             devkey="cuda:t"))
+                             devkey="cuda:t", **guard))
     m = SegmentMatcher(ts, device="cpu")
     assert m.tuned_plan.label == "block@128" and not m.params.sweep_subcull
 
@@ -394,3 +397,151 @@ def test_default_cpu_matcher_does_not_tune(golden_pair, monkeypatch):
     m = SegmentMatcher(ts, device="cpu")
     assert m.params.sweep_lowp == "bf16"
     assert m.tuned_report == {"source": "explicit"}
+
+
+# ---------------------------------------------------------------------------
+# the guard: each candidate's measurement under the watchdog
+
+
+def _stalling(calls, seconds=0.5):
+    def measure(plan):
+        calls["n"] += 1
+        time.sleep(seconds)
+        return 0.001
+    return measure
+
+
+def test_watchdog_timeout_degrades_to_static_default(tiles, tmp_path):
+    """A measurement that stalls past the per-candidate bound aborts the
+    whole calibration to the default plan, source "timeout", not cached:
+    construction degrades, never hangs (tests/test_autotune.py)."""
+    from reporter_tpu.utils.watchdog import (
+        AbandonedThreadWatchdog as JWatchdog)
+    from reporter_tpu_torch.utils.watchdog import AbandonedThreadWatchdog
+
+    jts, ts = tiles
+    out = {}
+    for name, wd in (("jax", JWatchdog(cap=4, thread_name="t-jax")),
+                     ("port", AbandonedThreadWatchdog(cap=4,
+                                                      thread_name="t-port"))):
+        calls = {"n": 0}
+        d = tmp_path / name
+        t0 = time.perf_counter()
+        if name == "jax":
+            plan, info = jautotune.resolve_plan(
+                JMatcherParams(candidate_backend="dense"), jts, {},
+                _stalling(calls), watchdog=wd, timeout_s=0.05,
+                directory=str(d), backend="tpu", devkey="t")
+            pj = jautotune.plan_json(plan)
+        else:
+            plan, info = autotune.resolve_plan(
+                MatcherParams(), ts, _stalling(calls), watchdog=wd,
+                timeout_s=0.05, directory=str(d), backend="cuda",
+                devkey="t")
+            pj = autotune.plan_json(plan)
+        elapsed = time.perf_counter() - t0
+        assert elapsed < 0.45, name          # not the 0.5 s stall
+        assert calls["n"] == 1, name         # aborted at the first stall
+        assert wd.abandoned == 1, name
+        assert not d.exists() or not os.listdir(d), name   # nothing cached
+        out[name] = (pj, info)
+    (jpj, jinfo), (ppj, pinfo) = out["jax"], out["port"]
+    assert ppj["source"] == jpj["source"] == "timeout"
+    assert (ppj["arm"], ppj["lowp"]) == (jpj["arm"], jpj["lowp"])
+    assert pinfo["source"] == jinfo["source"] == "timeout"
+    assert pinfo["note"] == jinfo["note"]
+    assert "aborted" in pinfo["note"]
+    for key in ("candidates", "errors", "measured",
+                "calibration_dispatches"):
+        assert pinfo[key] == jinfo[key], key
+
+
+def test_watchdog_open_breaker_skips_measuring(tiles, tmp_path):
+    from reporter_tpu.utils.watchdog import (
+        AbandonedThreadWatchdog as JWatchdog)
+    from reporter_tpu_torch.utils.watchdog import AbandonedThreadWatchdog
+
+    jts, ts = tiles
+
+    def never(plan):
+        raise AssertionError("measured through an open breaker")
+
+    jplan, jinfo = jautotune.resolve_plan(
+        JMatcherParams(candidate_backend="dense"), jts, {}, never,
+        watchdog=JWatchdog(cap=0), directory=str(tmp_path / "j"),
+        backend="tpu", devkey="t")
+    plan, info = autotune.resolve_plan(
+        MatcherParams(), ts, never, watchdog=AbandonedThreadWatchdog(cap=0),
+        directory=str(tmp_path / "p"), backend="cuda", devkey="t")
+    assert plan.source == jplan.source == "timeout"
+    assert info["note"] == jinfo["note"] == \
+        "calibration aborted (watchdog breaker open) — static default"
+    assert info["measured"] == jinfo["measured"] == 0
+
+
+def test_guard_passes_a_result_and_an_error_through(tiles, tmp_path):
+    """Under the watchdog a measurement that lands in time is the same
+    calibration as without it; an arm's error is recorded, not a
+    timeout."""
+    from reporter_tpu_torch.utils.watchdog import AbandonedThreadWatchdog
+
+    _, ts = tiles
+    costs = {"mxu+bf16@128": 0.1, "subcull+bf16@128": 0.2,
+             "subcull@128": 0.5}
+    guarded = autotune.resolve_plan(
+        MatcherParams(), ts, _timer(costs, fail_mxu=True),
+        watchdog=AbandonedThreadWatchdog(), timeout_s=30.0,
+        directory=str(tmp_path / "g"), backend="cuda", devkey="t")
+    bare = autotune.resolve_plan(
+        MatcherParams(), ts, _timer(costs, fail_mxu=True),
+        directory=str(tmp_path / "b"), backend="cuda", devkey="t")
+    assert guarded[0] == bare[0] and guarded[0].label == "subcull+bf16@128"
+    for key in ("candidates", "errors", "measured", "winner"):
+        assert guarded[1][key] == bare[1][key], key
+    assert "mxu@128" in guarded[1]["errors"]
+
+
+def test_matcher_passes_its_watchdog_and_serves_the_default(
+        golden_pair, monkeypatch, tmp_path):
+    """A matcher whose calibration hangs returns within the bound, with
+    source "timeout", the default params, nothing cached, its records
+    those of an untuned matcher; the abandoned measurement counts on the
+    matcher's own watchdog until it lands."""
+    ts, traces, want = golden_pair
+    real = autotune.resolve_plan
+    seen = {}
+
+    def on_a_card(params, ts_, measure, backend=None, **guard):
+        seen.update(guard)
+        return real(params, ts_, _stalling({"n": 0}, 1.0),
+                    directory=str(tmp_path), backend="cuda",
+                    devkey="cuda:t", **guard)
+
+    monkeypatch.setattr(autotune, "resolve_plan", on_a_card)
+    monkeypatch.setattr(autotune, "CAL_TIMEOUT_S", 0.1)
+    t0 = time.perf_counter()
+    m = SegmentMatcher(ts, device="cpu")
+    assert time.perf_counter() - t0 < 0.9
+    assert seen["watchdog"] is m._watchdog and seen["timeout_s"] == 0.1
+    assert m._watchdog.abandoned == 1
+    assert m.tuned_plan is None and m.tuned_report["source"] == "timeout"
+    assert dataclasses.asdict(m.params) == dataclasses.asdict(MatcherParams())
+    assert not os.listdir(tmp_path)
+    got = m.match_many([Trace(t.uuid, t.xy, t.times) for t in traces])
+    assert [[r.to_json() for r in x] for x in got] == want
+    deadline = time.perf_counter() + 10.0
+    while m._watchdog.abandoned and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    assert m._watchdog.abandoned == 0       # it landed and un-counted
+
+
+def test_no_fault_plan_names_the_autotune_site():
+    """The JAX tuner hands the watchdog a site "autotune" that its
+    faults.SITES lacks; neither package's plan can name it."""
+    from reporter_tpu import faults as jfaults
+    from reporter_tpu_torch import faults
+
+    for mod in (jfaults, faults):
+        assert "autotune" not in mod.SITES
+        with pytest.raises(ValueError, match="unknown fault site"):
+            mod.FaultPlan.parse("autotune:hang(1)@0")

@@ -214,3 +214,52 @@ def test_long_segment_split():
     for i in range(len(pts)):
         assert (set(got[0][i][got[0][i] >= 0].tolist())
                 == set(unsplit[0][i][unsplit[0][i] >= 0].tolist())), i
+
+
+# ---------------------------------------------------------------------------
+# The top-K width a CUDA sweep runs at (sweep_instance_k)
+
+
+def test_sweep_instance_k_picks_the_next_built_width():
+    """K in SWEEP_KS runs itself; any other K up to the largest runs the
+    smallest built K' >= K; K < 1 or past the largest raises naming the
+    set."""
+    from reporter_tpu_torch.ops.dense_candidates import (SWEEP_KS,
+                                                         sweep_instance_k)
+
+    for k in range(1, SWEEP_KS[-1] + 1):
+        kk = sweep_instance_k(k)
+        assert kk in SWEEP_KS and kk >= k
+        assert kk == min(x for x in SWEEP_KS if x >= k), k
+    for k in SWEEP_KS:
+        assert sweep_instance_k(k) == k
+    assert [sweep_instance_k(k) for k in (5, 7, 10)] == [6, 8, 12]
+    for k in (0, -1, SWEEP_KS[-1] + 1, 32):
+        with pytest.raises(ValueError, match=r"K in \(4, 6, 8, 12, 16\)"):
+            sweep_instance_k(k)
+
+
+def test_first_k_columns_of_a_wider_sweep_are_the_sweep_at_k(ts):
+    """What makes the mapping exact: the list is kept in (d², edge id)
+    order over distinct edges, so the first k columns of the sweep at K'
+    equal the sweep at k, ties (every node: d = 0) and empty slots
+    included. Held on the plain version, whose order the kernel's is
+    bit-equal to on the card (tests/test_torch_kernels_gpu.py)."""
+    from reporter_tpu_torch.ops.dense_candidates import (_dense_plain,
+                                                         sweep_instance_k)
+
+    rng = np.random.default_rng(5)
+    pts = np.concatenate([
+        ts.node_xy, _boundary_points(ts, rng),
+        rng.uniform(ts.node_xy.min(0) - 60, ts.node_xy.max(0) + 60,
+                    (400, 2))]).astype(np.float32)
+    sp = build_seg_pack(ts.seg_a, ts.seg_b, ts.seg_edge, ts.seg_off,
+                        ts.seg_len)
+    pack = torch.from_numpy(sp.pack)
+    p = torch.from_numpy(pts)
+    wide = {kk: _dense_plain(p, pack, RADIUS, kk) for kk in (4, 6, 8, 12, 16)}
+    for k in range(1, 17):
+        want = _dense_plain(p, pack, RADIUS, k)
+        got = wide[sweep_instance_k(k)]
+        for g, w in zip(got, want):
+            assert torch.equal(g[:, :k], w), k

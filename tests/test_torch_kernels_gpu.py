@@ -135,15 +135,42 @@ def test_sweep_past_the_grid_at_every_k(sf_tile, sf_fleet, k):
 
 
 def test_sweep_rejects_k_outside_the_set(sf):
+    """The set the sweep serves is 1 <= K <= max(SWEEP_KS): past it (and
+    below 1) sweep_topk raises naming the built widths."""
     tab, pts, _ = sf
     fpts = pts[:dc._P].contiguous()
     ids, nhits = dc._chunk_block_ids(
         fpts, torch.ones(dc._P, dtype=torch.bool, device=pts.device),
         tab["seg_bbox"], 50.0, 1)
-    for k in (1, 5, 7, 9, 32):
+    for k in (0, dc.SWEEP_KS[-1] + 1, 32):
         with pytest.raises(ValueError, match="K in"):
             dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
                           tab["seg_coarse"], 50.0, k, "sub")
+
+
+@pytest.mark.parametrize("k", (5, 7, 10))
+@pytest.mark.parametrize("arm", dc.SWEEP_ARMS)
+def test_sweep_between_the_built_widths(sf, arm, k):
+    """A K between the built widths runs the next built instance K' and
+    keeps its first K columns: bit-equal to _dense_plain at K, the
+    launch counted under (arm, K')."""
+    tab, pts, valid = sf
+    n = len(pts)
+    nchunks = -(-n // dc._P)
+    fpts, fval = dc._fill_invalid(pts, valid, nchunks)
+    ids, nhits = dc._chunk_block_ids(fpts, fval, tab["seg_bbox"], 50.0,
+                                     nchunks)
+    kk = dc.sweep_instance_k(k)
+    before = dict(dc.SWEEP_LAUNCHES)
+    got = dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                        tab["seg_coarse"], 50.0, k, arm)
+    ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, k)
+    torch.cuda.synchronize()
+    assert {key: v - before[key] for key, v in dc.SWEEP_LAUNCHES.items()
+            if v != before[key]} == {(arm, kk): 1}
+    for g, r in zip(got, ref):
+        assert g.shape == (nchunks * dc._P, k) and g.is_contiguous()
+        assert torch.equal(g[:n][valid], r[valid])
 
 
 def test_native_match_many_on_the_card_equals_python_walk(sf_tile, cuda):
@@ -292,7 +319,7 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
         dc.sweep_topk(pts.cpu(), ids, nhits, sweep, None, None, 50.0, 8,
                       "block")
     with pytest.raises(ValueError, match=r"K in \(4, 6, 8, 12, 16\)"):
-        dc.sweep_topk(pts, ids, nhits, sweep, None, None, 50.0, 5, "block")
+        dc.sweep_topk(pts, ids, nhits, sweep, None, None, 50.0, 17, "block")
     with pytest.raises(ValueError):      # the mxu arm without seg_coarse
         dc.sweep_topk(pts, ids, nhits, sweep, sub, None, 50.0, 8, "mxu")
     with pytest.raises(ValueError):      # the bf16 filter without seg_coarse

@@ -549,7 +549,12 @@ class TestHealthSurface:
         assert s["admission_depth"] == 0
         assert "inflight_hist" in s and "padding_by_bucket" in s
         assert body["backend"] == "torch" and body["device"] == "cpu"
-        assert "link" not in body
+        # the JAX app's link-health block (utils/linkhealth.py): on a CPU
+        # app no host-card path, so no reading
+        assert set(body["link"]) == {"mood", "rtt_ms", "mbps",
+                                     "probe_duty_pct"}
+        assert body["link"]["mood"] in (None, "cpu")
+        assert body["link"]["rtt_ms"] is None and body["link"]["mbps"] is None
         assert set(body["slo"]) == {"enabled", "alerting", "alerts_total",
                                     "budget_remaining"}
         app.close()
@@ -667,9 +672,43 @@ def test_server_entry_point_serves_and_drains_on_sigint(tiles, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "bicycle"], "item 4"),
-    (["--tiles", "a.npz", "b.npz"], "item 1d")], ids=["mode", "tiles"])
-def test_server_flags_not_ported_raise(flags, item):
+    (["--tiles", "a.npz", "b.npz"], None)], ids=["mode", "tiles"])
+def test_server_flags_not_ported_raise(flags, item, tiles, tmp_path,
+                                       monkeypatch):
+    """--mode bicycle raises naming its ROADMAP item; several --tiles
+    (no longer a refusal) start the metro router over every tile."""
     from reporter_tpu_torch.service import server
+    from reporter_tpu_torch.service.router import MetroRouter
+    from reporter_tpu_torch.tiles.tileset import TileSet
 
-    with pytest.raises(NotImplementedError, match=item):
-        server.main(flags)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            server.main(flags)
+        return
+    names = []
+    for i, f in enumerate(flags[1:]):
+        ts = TileSet.from_arrays(f"metro{i}", tiles.meta.origin_lonlat,
+                                 tiles.arrays())
+        names.append(ts.name)
+        ts.save(str(tmp_path / f))
+    served = {}
+
+    class _Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            served["closed"] = True
+
+    def fake_serve(app, host, port):
+        served["app"] = app
+        return _Server()
+
+    monkeypatch.setattr(server, "serve", fake_serve)
+    monkeypatch.setenv("RTPU_LINK_PROBE", "0")
+    server.main(["--tiles", *(str(tmp_path / f) for f in flags[1:]),
+                 "--device", "cpu"])
+    assert isinstance(served["app"], MetroRouter)
+    assert sorted(served["app"].apps) == names and served["closed"]

@@ -244,12 +244,21 @@ def test_worker_columnar_broker_autodetect(worker_env, capsys, monkeypatch):
     assert out2["lag"] == 0
 
 
-def test_worker_exit_json_keys(worker_env, capsys):
+def test_worker_exit_json_keys(worker_env, capsys, monkeypatch):
     broker = str(worker_env["dir"] / "broker_exitjson")
     _stage(broker, worker_env["fleet"])
     out = _main(["--tiles", worker_env["tiles"], "--broker-dir", broker,
                  "--max-steps", "2", "--member", "w-test"], capsys)
-    assert out["link"] == {"rtt_ms": None, "mbps": None, "mood": None,
+    # the process link-health sampler's window (the JAX worker's keys):
+    # a CPU worker has no host-card path, so no reading
+    assert set(out["link"]) == {"rtt_ms", "mbps", "mood", "samples",
+                                "probes", "dead_probes"}
+    assert out["link"]["rtt_ms"] is None and out["link"]["mbps"] is None
+    assert out["link"]["mood"] in (None, "cpu")
+    monkeypatch.setenv("RTPU_LINK_PROBE", "0")
+    off = _main(["--tiles", worker_env["tiles"], "--broker-dir", broker,
+                 "--max-steps", "1", "--member", "w-test"], capsys)
+    assert off["link"] == {"rtt_ms": None, "mbps": None, "mood": None,
                            "samples": 0, "probes": 0, "dead_probes": 0}
     for key in ("enabled", "window_waves", "drifted", "drift_events",
                 "empty_match_rate", "violation_rate"):
