@@ -16,7 +16,10 @@ the native host half against its Python forms, in phases:
                 figures of every kernel instance and each arm's launch
                 shape at each K (threads, ring depth, dynamic shared
                 memory, CTAs per SM, SMs, grid);
-  3. tiles    — compile "sf" (~5.3k directed edges);
+  3. tiles    — compile "sf" (~5.3k directed edges); [tiles:native]: its
+                node-space reach rows by the C++ builder (native/reach.cc,
+                the compiler's default) and by the Python one, byte for
+                byte equal, both timed (organic's too, in phase 6);
   4. kernel   — on sf, 1024 traces x 120 points padded to the 128 bucket
                 (131,072 points) through all five sweep arms at K = 8
                 (block, sub, sub_bf16, mxu, mxu_bf16) and through
@@ -78,10 +81,41 @@ the native host half against its Python forms, in phases:
                 card's records with it at AGREEMENT_GATE or better, their
                 equality with the CPU port's, the oracle's probes/s beside
                 the host CPU's model;
+     restrict — sf with add_random_restrictions at its defaults (122
+                restrictions, 329 banned pairs): [restrict:tiles] the
+                compile (C++ node rows, the ban-affected node rows and one
+                private row per from-edge in edge space: R = N + F), table
+                bytes, a legal fleet of 1024 x 120 (seed 0); the main phase
+                (tuned matcher, BATCH_RUNS batches, pinned matchers) and the
+                walk phase on it (metro=sf+r); [restrict] the first
+                REFERENCE_TRACES traces' records equal the CPU port's, and
+                every transition inside an HMM chain, rebuilt through the
+                reach rows' next hops, takes no banned turn; [oracle] the
+                banned-turn oracle (edge space) on ORACLE_TRACES["sf+r"];
+                [restrict:ab] sf and sf+r batches through matchers pinned
+                to sub at K = 8, in turns, AB_ROUNDS rounds: the medians;
+     modes    — sf with assign_mode_access at its defaults, compiled for
+                auto, bicycle and foot from the full network: the edges
+                per mode, a road's OSMLR id the same in every mode tile;
+                for bicycle and foot a 1024 x 120 fleet on that mode's tile
+                through a tuned matcher with the mode's preset (only the
+                tuned instance launched; the first MODES_CPU_TRACES records
+                equal the CPU port's), make_app(Config.for_mode(mode)) on
+                the card answering /report tagged with the mode, 400 for a
+                request naming another; [modes:server] python -m
+                reporter_tpu_torch.service.server --mode bicycle --tiles
+                <the bicycle tile, saved> as a subprocess: answers equal
+                the in-process app's, 400, SIGINT to exit 0;
+     pbf      — (host) tests/fixtures/irregular.osm and the adversarial
+                extract (tests/fixtures/adversarial_osm.py) written with
+                write_osm_pbf, parsed back and compiled: every array equal
+                to the XML form's compile (segment coordinates within the
+                reader's decode bound, PBF_DECODE_M plus one f32 rounding);
   6. organic  — generate_city("organic") (seed 11, 62,757 directed edges),
-                compiled by the port (timed); its kernel phase (131,072
-                fleet points, every arm equal to the others, bit-equal to
-                _dense_plain on 64 chunks as in kernel:k, gate checks,
+                compiled by the port (timed), [tiles:native]; its kernel
+                phase (131,072 fleet points, every arm equal to the
+                others, bit-equal to _dense_plain on 64 chunks as in
+                kernel:k, gate checks,
                 shares), gates line, main phase (tuned matcher, BATCH_RUNS
                 batches, records equal across it and five pinned
                 matchers), walk phase (the three walks and the prepares,
@@ -323,11 +357,13 @@ TOPO_LEASE_TTL_S = 2.4        # [topo:lease]: the lease time-to-live
 TOPO_TIMEOUT_S = 300          # the bound of each wait of a topology run
 TOPO_SAMPLE_S = 0.2           # _CardSampler's period
 TOPO_SCALE_RUNS = (("dict", 1), ("dict", 2), ("dict", 4), ("columnar", 4))
-ORACLE_TRACES = {"sf": 32, "organic": 6}   # [oracle]: traces through the
-#                               numpy oracle (exact Dijkstra per transition on
-#                               the host: ~160 probes/s on sf and ~20 on
-#                               organic on the H100 machine's host), under a
-#                               minute on each
+ORACLE_TRACES = {"sf": 32, "sf+r": 32, "organic": 6}   # [oracle]: traces
+#                               through the numpy oracle (exact Dijkstra per
+#                               transition on the host: ~160 probes/s on sf
+#                               and ~20 on organic on the H100 machine's host;
+#                               the restricted sf searches edge space, about
+#                               3.4x sf's time on this host), about a minute
+#                               at most on each
 AGREEMENT_GATE = 0.95         # the length-weighted agreement the JAX package
 #                               holds its matcher to against the oracle
 WATCHDOG_VEHICLES = 256       # [watchdog]: vehicles fed through the pipeline
@@ -342,9 +378,11 @@ BACKFILL_PARTITIONS = 4       # [backfill]: the spool's partitions
 KERNEL_BETWEEN_KS = (5, 7, 10)  # [kernel:k], [main:k]: widths between the
 #                               built ones (each runs the next built K')
 ROUTER_METROS = ("sf", "nyc", "la")   # [router]: BASELINE config 4's trio
-ROUTER_CLIENTS, ROUTER_UUIDS = 64, 8  # [router]: clients (round-robin over
+ROUTER_CLIENTS, ROUTER_UUIDS = 64, 4  # [router]: clients (round-robin over
 #                               the metros) and uuids each, SERVE_PARTS
-#                               in-order requests per uuid
+#                               in-order requests per uuid (768 requests; 8
+#                               uuids and 1,536 before the restricted and
+#                               per-mode phases joined the run)
 ROUTER_EXPLICIT_EVERY = 4     # every 4th client names its "metro"
 ROUTER_MANY = 48              # traces of the mixed /report_many (16 a metro)
 ROUTER_START_S = 600          # [router:server]: /health within this
@@ -355,12 +393,20 @@ GUARD_TIMEOUT_S = 2.0         # [autotune:guard]: CAL_TIMEOUT_S of the run
 GUARD_HANG_S = 6.0            # the first measurement's host-side stall
 GUARD_MARGIN_S = 5.0          # construction within timeout + this margin
 GUARD_TRACES = 256            # traces served by the guarded matcher
+AB_ROUNDS = 3                 # [restrict:ab]: rounds of sf, sf+r, sf+r, sf
+MODES = ("auto", "bicycle", "foot")   # [modes]: the compiled modes
+MODES_SERVED = ("bicycle", "foot")   # [modes]: the modes served on the card
+MODES_CPU_TRACES = 16         # [modes]: traces also matched on the CPU
+MODES_SERVER_REQUESTS = 8     # [modes:server]: requests checked
+PBF_DECODE_M = 1.2e-7         # [pbf]: 1e-12 degrees (the decode's bound in
+#                               tests/test_pbf.py) in meters, with margin
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "_chip_scratch")
 SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
            "reporter_tpu_torch/kernels/topk.cuh",
            "reporter_tpu_torch/native/prepare.cc",
-           "reporter_tpu_torch/native/walker.cc")
+           "reporter_tpu_torch/native/walker.cc",
+           "reporter_tpu_torch/native/reach.cc")
 GATE_REL_TOL = 1e-3           # tensor-core vs plain gate: decisions may differ
 #                               only where the plain minimum is this close
 #                               (relative) to the threshold (summation order)
@@ -1080,6 +1126,7 @@ def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
           seg_pack_columns=int(tab["seg_pack"].shape[1]),
           blocks=int(tab["seg_bbox"].shape[0]),
           reach_truncated_nodes=ts.stats["reach_truncated_nodes"])
+    tiles_native_phase(card, ts, "organic")
     fleet = synthesize_fleet(ts, N_TRACES, num_points=N_POINTS, seed=0)
     pts = torch.from_numpy(fleet_points(fleet)).cuda()
     arms = kernel_phase(card, tab, pts, radius, 8, dc, build, "organic",
@@ -1350,29 +1397,14 @@ def server_phase(card, served, cache):
     log_path = os.path.join(cache, "server.log")
     base = f"http://127.0.0.1:{port}"
     with open(log_path, "w") as log:
-        t0 = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "reporter_tpu_torch.service.server",
              "--host", "127.0.0.1", "--port", str(port)],
             stdout=log, stderr=subprocess.STDOUT, env=env,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         try:
-            health = None
-            while time.perf_counter() - t0 < SERVER_START_S:
-                if proc.poll() is not None:
-                    break
-                try:
-                    st, health = http_json(base + "/health", timeout=5.0)
-                    if st == 200:
-                        break
-                except OSError:
-                    pass
-                time.sleep(0.5)
-            start_s = time.perf_counter() - t0
-            if health is None:
-                raise SystemExit(f"[server] /health did not answer within "
-                                 f"{SERVER_START_S} s (exit "
-                                 f"{proc.poll()}):\n" + _tail(log_path))
+            health, start_s = _await_health(proc, base, SERVER_START_S,
+                                            log_path, "server")
             got = [http_json(base + "/report", p)
                    for p in served["payloads"]]
             equal = [st == 200 and body == want for (st, body), want
@@ -3393,28 +3425,13 @@ def router_phase(card, dc, win, cache):
     base = f"http://127.0.0.1:{port}"
     firsts = [(n, requests[n][0][0], responses[n][0][0]) for n in names]
     with open(log_path, "w") as log:
-        t0 = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "reporter_tpu_torch.service.server",
              "--tiles", *paths, "--host", "127.0.0.1", "--port", str(port)],
             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here)
         try:
-            health = None
-            while time.perf_counter() - t0 < ROUTER_START_S:
-                if proc.poll() is not None:
-                    break
-                try:
-                    st, health = http_json(base + "/health", timeout=5.0)
-                    if st == 200:
-                        break
-                except OSError:
-                    pass
-                time.sleep(0.5)
-            start_s = time.perf_counter() - t0
-            if health is None:
-                raise SystemExit(f"[router:server] /health did not answer "
-                                 f"within {ROUTER_START_S} s (exit "
-                                 f"{proc.poll()}):\n" + _tail(log_path))
+            health, start_s = _await_health(proc, base, ROUTER_START_S,
+                                            log_path, "router:server")
             got = [http_json(base + "/report", p) for _, p, _ in firsts]
             far_status, far_body = http_json(base + "/report", far)
             proc.send_signal(signal.SIGINT)
@@ -3688,6 +3705,406 @@ def guard_phase(card, ts, traces, dc, win, cache):
                          "differ")
 
 
+# ---- restricted and per-mode metros, the C++ reach builder, PBF ----------
+
+
+def tiles_native_phase(card, ts, metro):
+    """[tiles:native]: the compiler's node-space reach rows of ``ts`` built
+    by the C++ builder (tiles/native.py) and by the Python one
+    (tiles/reach.py), byte for byte equal, each timed."""
+    from reporter_tpu_torch.config import CompilerParams
+    from reporter_tpu_torch.tiles.native import build_reach_native
+    from reporter_tpu_torch.tiles.reach import build_reach_tables
+
+    args = (ts.node_out, ts.edge_src, ts.edge_dst, ts.edge_len)
+    cp = CompilerParams()
+    t0 = time.perf_counter()
+    c = build_reach_native(*args, cp.reach_radius, cp.reach_max)
+    c_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = build_reach_tables(*args, cp.reach_radius, cp.reach_max)
+    py_s = time.perf_counter() - t0
+    equal = all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                for a, b in zip(c[:3], py[:3])) and c[3] == py[3]
+    # the compile used the C++ rows (no bans here: the tile's rows are them)
+    same_as_tile = all(a.tobytes() == getattr(ts, f).tobytes() for a, f in
+                       zip(c[:3], ("reach_to", "reach_dist", "reach_next")))
+    phase("tiles:native", card, metro=metro, nodes=ts.num_nodes,
+          edges=ts.num_edges, reach_max=cp.reach_max,
+          truncated_nodes=c[3], c_seconds=c_s, python_seconds=py_s,
+          speedup=py_s / c_s, threads=os.cpu_count(),
+          bytes_equal=equal, equal_to_the_compiled_tile=same_as_tile,
+          compile_seconds=ts.stats.get("compile_seconds"))
+    if not (equal and same_as_tile):
+        raise SystemExit(f"[tiles:native] {metro}: the C++ and Python reach "
+                         "rows differ")
+
+
+def chain_transitions(ts, traces, decoded):
+    """Every transition inside an HMM chain of the decoded paths (two
+    consecutive matched points on different edges), rebuilt through the
+    reach rows' next hops as the walk rebuilds it: how many, how many
+    take a banned turn of ``ts.ban_set``, how many pass a from-edge (a
+    private row) and how many cannot be rebuilt (the walk splits there)."""
+    from reporter_tpu_torch.matcher.api import _to_chains
+    from reporter_tpu_torch.matcher.segments import reach_route_fn
+
+    route, ban = reach_route_fn(ts), ts.ban_set
+    from_edges = {a for a, _ in ban}
+    out = {"transitions": 0, "banned": 0, "via_private_rows": 0,
+           "unrouted": 0}
+    for (edges, offs, starts), tr in zip(decoded, traces):
+        pts = list(zip(edges.tolist(), offs.tolist(), starts.tolist()))
+        for chain in _to_chains(pts, tr.times):
+            for e1, e2 in zip(chain.edges, chain.edges[1:]):
+                if e1 == e2:
+                    continue
+                out["transitions"] += 1
+                mid = route(e1, e2)
+                if mid is None:
+                    out["unrouted"] += 1
+                    continue
+                path = [e1, *mid, e2]
+                out["via_private_rows"] += sum(e in from_edges
+                                               for e in path[:-1])
+                out["banned"] += sum(pair in ban
+                                     for pair in zip(path, path[1:]))
+    return out
+
+
+def restrict_phase(card, dc, win, cache, base_ts, base_traces):
+    """[restrict]: sf with add_random_restrictions at its defaults, compiled
+    by the port (C++ node rows, the ban-affected rows and the private
+    from-edge rows in edge space); its legal fleet (seed 0) through the
+    main phase (a tuned matcher, BATCH_RUNS batches, pinned matchers) and
+    the walk phase; the first REFERENCE_TRACES traces' records equal the
+    CPU port's; no transition inside a chain takes a banned turn; the
+    banned-turn oracle's agreement on ORACLE_TRACES["sf+r"] traces.
+    [restrict:ab]: the batch of sf (``base_ts``, ``base_traces``) and of
+    sf+r through matchers pinned to one arm (sub, K = 8), in turns (sf,
+    sf+r, sf+r, sf) AB_ROUNDS times: their medians side by side."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
+    from reporter_tpu_torch.netgen.synthetic import (add_random_restrictions,
+                                                     generate_city)
+    from reporter_tpu_torch.netgen.traces import synthesize_fleet
+    from reporter_tpu_torch.tiles.compiler import compile_network
+    from reporter_tpu_torch.tiles.tileset import tables_from_numpy
+
+    net = add_random_restrictions(generate_city("sf"))
+    t0 = time.perf_counter()
+    ts = compile_network(net)
+    compile_s = time.perf_counter() - t0
+    tab = tables_from_numpy(ts.arrays(), "cuda")
+    rows = len(ts.reach_to)
+    table_bytes = sum(int(t.numel() * t.element_size()) for t in tab.values())
+    t0 = time.perf_counter()
+    fleet = synthesize_fleet(ts, N_TRACES, num_points=N_POINTS, seed=0)
+    fleet_s = time.perf_counter() - t0
+    illegal = sum(pair in ts.ban_set for p in fleet
+                  for pair in zip(p.path_edges.tolist(),
+                                  p.path_edges[1:].tolist()))
+    phase("restrict:tiles", card, metro=ts.name,
+          restrictions=ts.stats["restrictions"],
+          banned_turn_pairs=ts.stats["banned_turn_pairs"],
+          from_edges=rows - ts.num_nodes, nodes=ts.num_nodes, rows=rows,
+          edges=ts.num_edges, device_table_bytes=table_bytes,
+          reach_truncated_nodes=ts.stats["reach_truncated_nodes"],
+          compile_s=compile_s, fleet_s=fleet_s,
+          fleet_banned_turns=illegal)
+    if not (rows > ts.num_nodes and ts.ban_set) or illegal:
+        raise SystemExit("[restrict] no private rows, or the fleet took a "
+                         "banned turn")
+    del tab
+    os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "restrict")
+    m, traces, recs, fields, _ = main_phase(
+        card, ts, fleet, dc, win, ts.name, MatcherParams, SegmentMatcher,
+        Trace, request=False)
+    walk_phase(card, m, ts, traces, recs, fields, MatcherParams,
+               SegmentMatcher, ts.name)
+    small = traces[:REFERENCE_TRACES]
+    cpu_recs = SegmentMatcher(ts, device="cpu").match_many(small)
+    cpu_ok = json_records(cpu_recs) == json_records(recs[:REFERENCE_TRACES])
+    t0 = time.perf_counter()
+    moves = chain_transitions(ts, traces, m._decode_many(traces))
+    phase("restrict", card, metro=ts.name, card_vs_cpu_records_equal=cpu_ok,
+          traces_checked=len(small), check_s=time.perf_counter() - t0,
+          **moves)
+    if not cpu_ok or moves["banned"] or not moves["via_private_rows"]:
+        raise SystemExit(f"[restrict] card != CPU records, or a banned turn "
+                         f"inside a chain: {moves}")
+    oracle_phase(card, ts, traces, recs, cpu_recs, ts.name)
+    os.environ["RTPU_AUTOTUNE_CACHE"] = cache
+    pinned = {name: (SegmentMatcher(t, MatcherParams(sweep_autotune=False)),
+                     tr) for name, t, tr in (("sf", base_ts, base_traces),
+                                             (ts.name, ts, traces))}
+    for pm, tr in pinned.values():
+        pm.match_many(tr)                         # warm
+    walls = {name: [] for name in pinned}
+    for r in range(AB_ROUNDS):
+        for i, name in enumerate(("sf", ts.name, ts.name, "sf")):
+            pm, tr = pinned[name]
+            t0 = time.perf_counter()
+            _, counts = win.run(f"{ts.name}:ab:{name}:{r}{i}",
+                                lambda pm=pm, tr=tr: pm.match_many(tr))
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            only(counts, ("sub", 8), f"[restrict:ab] {name}")
+    med = {name: statistics.median(v) for name, v in walls.items()}
+    phase("restrict:ab", card, arm="sub", k=8, rounds=AB_ROUNDS,
+          order="sf, sf+r, sf+r, sf", batch_ms=walls, median_ms=med,
+          ratio=med[ts.name] / med["sf"])
+
+
+def osmlr_by_road(ts):
+    """{(way id, src xy, dst xy): OSMLR id or -1} of every directed edge:
+    a key that holds across mode tiles (node ids are compacted per mode,
+    positions are in the full network's frame)."""
+    out = {}
+    for e in range(ts.num_edges):
+        r = int(ts.edge_osmlr[e])
+        key = (int(ts.edge_way[e]), *ts.node_xy[ts.edge_src[e]].tolist(),
+               *ts.node_xy[ts.edge_dst[e]].tolist())
+        out[key] = int(ts.osmlr_id[r]) if r >= 0 else -1
+    return out
+
+
+def modes_phase(card, dc, win, cache):
+    """[modes]: sf with assign_mode_access at its defaults, compiled for
+    each of MODES from the full network (edges per mode); a road's OSMLR
+    id is the same in every mode tile. For each of MODES_SERVED: a fleet
+    synthesized on that mode's tile through a tuned matcher with
+    MatcherParams.preset(mode), launching only its tuned instance, whose
+    first MODES_CPU_TRACES records equal the CPU port's; make_app with
+    Config.for_mode(mode) on the card answers /report with that mode and
+    a request naming another mode with 400. → what [modes:server] checks:
+    the bicycle tile and MODES_SERVER_REQUESTS payloads with the app's
+    answers."""
+    from reporter_tpu_torch.config import Config, MatcherParams
+    from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
+    from reporter_tpu_torch.netgen.synthetic import (assign_mode_access,
+                                                     generate_city)
+    from reporter_tpu_torch.netgen.traces import synthesize_fleet
+    from reporter_tpu_torch.service.app import make_app
+    from reporter_tpu_torch.tiles.compiler import compile_network
+
+    net = assign_mode_access(generate_city("sf"))
+    tiles, compile_s = {}, {}
+    for mode in MODES:
+        t0 = time.perf_counter()
+        tiles[mode] = compile_network(net, mode=mode)
+        compile_s[mode] = time.perf_counter() - t0
+    ids = {mode: osmlr_by_road(ts) for mode, ts in tiles.items()}
+    shared = mismatched = 0
+    for key, want in ids["auto"].items():
+        for mode in MODES[1:]:
+            if key in ids[mode]:
+                shared += 1
+                mismatched += ids[mode][key] != want
+    for key, want in ids["bicycle"].items():
+        if key in ids["foot"] and key not in ids["auto"]:
+            shared += 1
+            mismatched += ids["foot"][key] != want
+    same_tables = all(
+        tiles[m].osmlr_id.tobytes() == tiles["auto"].osmlr_id.tobytes()
+        for m in MODES)
+    phase("modes:tiles", card, metro=net.name,
+          edges={m: t.num_edges for m, t in tiles.items()},
+          nodes={m: t.num_nodes for m, t in tiles.items()},
+          ways={m: len(set(t.edge_way.tolist())) for m, t in tiles.items()},
+          compile_s=compile_s, shared_road_edges=shared,
+          osmlr_id_mismatches=mismatched, osmlr_tables_equal=same_tables)
+    if mismatched or not shared or not same_tables:
+        raise SystemExit("[modes] a road's OSMLR id differs across modes")
+    out = None
+    for mode in MODES_SERVED:
+        ts = tiles[mode]
+        params = MatcherParams.preset(mode)
+        os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, f"mode_{mode}")
+        t0 = time.perf_counter()
+        fleet = synthesize_fleet(ts, N_TRACES, num_points=N_POINTS, seed=0)
+        fleet_s = time.perf_counter() - t0
+        traces = [Trace(uuid=p.uuid, xy=p.xy.astype(np.float32),
+                        times=p.times) for p in fleet]
+        m, cal = win.run(f"{ts.name}:calibration",
+                         lambda ts=ts, p=params: SegmentMatcher(ts, p))
+        if m.tuned_plan is None or m.tuned_report.get("errors"):
+            raise SystemExit(f"[modes] {mode}: calibration {m.tuned_report}")
+        inst = _plan_instance(m.tuned_plan.label)
+        m.match_many(traces[:64])                 # warm the allocator
+        t0 = time.perf_counter()
+        recs, served = win.run(f"{ts.name}:tuned_batch",
+                               lambda m=m: m.match_many(traces))
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        only(served, inst, f"[modes] {mode}: the tuned matcher's batch")
+        small = traces[:MODES_CPU_TRACES]
+        cpu = SegmentMatcher(ts, params, device="cpu").match_many(small)
+        cpu_ok = json_records(cpu) == json_records(recs[:MODES_CPU_TRACES])
+        app, app_cal = win.run(f"{ts.name}:app:calibration",
+                               lambda ts=ts, mode=mode: make_app(
+                                   ts, Config.for_mode(mode), device="cuda"))
+        payloads = [{**fleet[i].to_report_json(), "uuid": f"{mode}-{i}"}
+                    for i in range(MODES_SERVER_REQUESTS)]
+        try:
+            answers, app_served = win.run(
+                f"{ts.name}:app", lambda: [wsgi_post(app, "/report", p)
+                                           for p in payloads])
+            wrong = wsgi_post(app, "/report", {**payloads[0], "uuid": "x",
+                                               "mode": "auto"})
+            app_inst = _plan_instance(app.matcher.tuned_plan.label)
+        finally:
+            app.close()
+        tagged = all(st == 200 and body.get("mode") == mode
+                     for st, body in answers)
+        only(app_served, app_inst, f"[modes] {mode}: the app's requests")
+        phase("modes", card, metro=ts.name, mode=mode,
+              search_radius=params.search_radius, edges=ts.num_edges,
+              fleet_s=fleet_s, plan=m.tuned_plan.label, batch_ms=batch_ms,
+              records=recs.n_records, card_vs_cpu_records_equal=cpu_ok,
+              traces_checked=len(small), app_plan=app.matcher.tuned_plan.label,
+              app_answers_tagged=tagged, wrong_mode_status=wrong[0],
+              calibration_launches={f"{a}@k{k}": n
+                                    for (a, k), n in cal.items() if n})
+        if not (cpu_ok and tagged and wrong[0] == 400 and recs.n_records):
+            raise SystemExit(f"[modes] {mode}: card != CPU records, an "
+                             "untagged answer, or no 400 for another mode")
+        if mode == "bicycle":
+            out = {"tile": ts, "payloads": payloads,
+                   "answers": [body for _, body in answers]}
+    os.environ["RTPU_AUTOTUNE_CACHE"] = cache
+    return out
+
+
+def _await_health(proc, base, limit, log_path, tag):
+    """Poll GET /health of a starting entry point until it answers 200.
+    → (its JSON, seconds); a process that exits or stays silent past
+    ``limit`` seconds fails the phase ``tag``."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit:
+        if proc.poll() is not None:
+            break
+        try:
+            st, health = http_json(base + "/health", timeout=5.0)
+            if st == 200:
+                return health, time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.5)
+    raise SystemExit(f"[{tag}] /health did not answer within {limit} s "
+                     f"(exit {proc.poll()}):\n" + _tail(log_path))
+
+
+def modes_server_phase(card, bike, cache):
+    """[modes:server]: python -m reporter_tpu_torch.service.server --mode
+    bicycle --tiles <the bicycle tile, saved> as a subprocess on the card
+    (its own calibration): /report answers equal the in-process [modes]
+    app's, another mode gets 400, SIGINT to exit 0."""
+    root = os.path.join(SCRATCH, "modes")
+    os.makedirs(root, exist_ok=True)
+    path = bike["tile"].save(os.path.join(root, "bicycle"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here,
+               RTPU_AUTOTUNE_CACHE=os.path.join(cache, "modes_server"))
+    log_path = os.path.join(root, "server.log")
+    base = f"http://127.0.0.1:{port}"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "reporter_tpu_torch.service.server",
+             "--mode", "bicycle", "--tiles", path, "--host", "127.0.0.1",
+             "--port", str(port)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here)
+        try:
+            health, start_s = _await_health(proc, base, SERVER_START_S,
+                                            log_path, "modes:server")
+            got = [http_json(base + "/report", p) for p in bike["payloads"]]
+            wrong = http_json(base + "/report",
+                              {**bike["payloads"][0], "uuid": "x",
+                               "mode": "auto"})
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    equal = [st == 200 and body == want
+             for (st, body), want in zip(got, bike["answers"])]
+    phase("modes:server", card, tile_bytes=os.path.getsize(path),
+          start_to_health_s=start_s, device=health.get("device"),
+          requests=len(got), answers_equal_in_process=all(equal),
+          wrong_mode_status=wrong[0], sigint_exit_code=rc)
+    if not all(equal) or wrong[0] != 400 or rc != 0:
+        raise SystemExit(f"[modes:server] answers equal {equal}, another "
+                         f"mode {wrong[0]}, exit {rc}:\n" + _tail(log_path))
+
+
+def pbf_phase(card):
+    """[pbf] (host): the element sets of tests/fixtures/irregular.osm and
+    of tests/fixtures/adversarial_osm.py (restriction relations,
+    non-drivable ways) written with write_osm_pbf, parsed back and
+    compiled (the adversarial one for each of MODES): every TileSet array
+    equals the compile of the XML form, except where the reader's decode
+    1e-9 * (offset + granularity * raw), the JAX package's, lands a few
+    doubles off the XML's decimal parse of a 7-decimal coordinate: a
+    line-segment coordinate may then move by PBF_DECODE_M plus one f32
+    rounding (held to that, and counted)."""
+    import importlib.util
+    import warnings
+
+    from reporter_tpu_torch.config import CompilerParams
+    from reporter_tpu_torch.netgen.osm_xml import parse_osm_xml, xml_elements
+    from reporter_tpu_torch.netgen.pbf import parse_osm_pbf, write_osm_pbf
+    from reporter_tpu_torch.tiles.compiler import compile_network
+    from reporter_tpu_torch.tiles.tileset import ARRAY_FIELDS
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fix = os.path.join(here, "tests", "fixtures")
+    spec = importlib.util.spec_from_file_location(
+        "adversarial_osm", os.path.join(fix, "adversarial_osm.py"))
+    adv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(adv)
+    with open(os.path.join(fix, "golden_irregular.json")) as f:
+        kw = json.load(f)[0]["compiler"]
+    osm = os.path.join(fix, "irregular.osm")
+    cases = [("irregular", xml_elements(osm), osm, (None,)),
+             ("adversarial", adv.build_elements(), adv.as_xml(), MODES)]
+    root = os.path.join(SCRATCH, "pbf")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    report, bad = {}, []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # the extracts' own warnings
+        for name, elements, xml, modes in cases:
+            path = os.path.join(root, f"{name}.osm.pbf")
+            write_osm_pbf(path, *elements)
+            from_pbf, from_xml = parse_osm_pbf(path, name), parse_osm_xml(
+                xml, name)
+            for mode in modes:
+                a = compile_network(from_pbf, CompilerParams(**kw), mode=mode)
+                b = compile_network(from_xml, CompilerParams(**kw), mode=mode)
+                near = {}
+                for f in ARRAY_FIELDS:
+                    x, y = getattr(a, f), getattr(b, f)
+                    if x.dtype == y.dtype and x.tobytes() == y.tobytes():
+                        continue
+                    if (f in ("seg_a", "seg_b", "node_xy")
+                            and x.shape == y.shape and np.all(
+                                np.abs(x - y) <= PBF_DECODE_M
+                                + np.spacing(np.abs(y)))):
+                        near[f] = int((x != y).sum())
+                    else:
+                        bad.append(f"{name}/{mode}/{f}")
+                report[f"{name}/{mode or 'as-is'}"] = {
+                    "edges": a.num_edges, "banned_turn_pairs": len(a.ban_set),
+                    "bytes": os.path.getsize(path),
+                    "elements_within_decode_bound": near}
+    phase("pbf", card, cases=report, seconds=time.perf_counter() - t0,
+          arrays_held=not bad)
+    if bad:
+        raise SystemExit(f"[pbf] PBF and XML compiles differ: {bad}")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -3753,6 +4170,7 @@ def main() -> int:
           edges=ts.num_edges, line_segments=int(len(ts.seg_edge)),
           seg_pack_columns=int(tab["seg_pack"].shape[1]),
           blocks=int(tab["seg_bbox"].shape[0]))
+    tiles_native_phase(card, ts, "sf")
 
     # ---- 4. kernel vs plain, at K = 8 and at every K -----------------------
     fleet = synthesize_fleet(ts, N_TRACES, num_points=N_POINTS, seed=0)
@@ -3805,6 +4223,12 @@ def main() -> int:
         if not (golden_ok and golden_app_ok and cpu_ok):
             raise SystemExit("reference check failed")
         oracle_phase(card, ts, traces, recs, cpu_recs, "sf")
+
+        # ---- restricted and per-mode sf, PBF input ----------------------
+        restrict_phase(card, dc, win, cache, ts, traces)
+        bike = modes_phase(card, dc, win, cache)
+        modes_server_phase(card, bike, cache)
+        pbf_phase(card)
 
         # ---- 6. the organic metro -----------------------------------------
         organic = organic_phase(card, dc, build, win, MatcherParams,

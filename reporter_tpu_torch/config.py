@@ -11,7 +11,6 @@ default; it is never ignored:
   MatcherParams.candidate_backend="grid"       queue 1 item 5
   CompilerParams cell_size / cell_capacity /
   index_radius (the spatial grid)              queue 1 item 5
-  ServiceConfig.mode other than "auto"         queue 1 item 4 (Config.validate)
 
 ``StreamingConfig`` is the JAX package's, field for field; it has no
 environment variables there either.
@@ -165,9 +164,8 @@ class MatcherParams:
     def preset(cls, mode: str) -> "MatcherParams":
         """Mode-keyed matcher preset (the JAX package's values): slower
         modes narrow the radius and tighten chain breakage and route
-        deviation. Serving a mode other than "auto" also needs tiles
-        compiled for it, which the port cannot build yet
-        (Config.validate raises)."""
+        deviation. Serve a mode with tiles compiled for it
+        (compile_network(net, mode=...))."""
         if mode == "auto":
             return cls()
         if mode == "bicycle":
@@ -193,9 +191,10 @@ class CompilerParams:
     ``cell_size``, ``cell_capacity`` and ``index_radius`` size the JAX
     package's spatial grid; they are kept so one JSON config reads in
     both packages, and a value away from the default raises (the grid
-    backend, ROADMAP queue 1 item 5). ``use_native`` picks the JAX
-    package's C++ reach builder "when available"; this port's builder is
-    Python either way, with the same tables."""
+    backend, ROADMAP queue 1 item 5). ``use_native`` builds the node-space
+    reach rows with the C++ builder of the host library (built by g++ at
+    first use; a failed build raises); False picks the Python builder.
+    The tables are the same either way."""
 
     cell_size: float = 64.0
     cell_capacity: int = 64
@@ -404,11 +403,6 @@ class Config:
         if svc.mode not in _MODES:
             raise ValueError(f"unknown service.mode {svc.mode!r}; one of "
                              f"{list(_MODES)}")
-        if svc.mode != "auto":
-            raise NotImplementedError(
-                f"service.mode={svc.mode!r}: per-mode serving needs tiles "
-                "compiled for the mode (RoadNetwork.for_mode), which are "
-                "not ported: ROADMAP queue 1 item 4")
         if svc.batching not in ("scheduler", "combine"):
             raise ValueError(f"unknown service.batching {svc.batching!r}; "
                              "use 'scheduler' or 'combine'")

@@ -7,12 +7,10 @@ the road graph instead of the precomputed reach tables. Segment-ID
 disagreement between this oracle and the device path is the BASELINE
 "<5% against Meili" proxy (matcher/fidelity.py). Deliberately simple and
 slow; it serves ``matcher_backend="reference_cpu"``, the dispatch
-watchdog's fallback and the quality audit, all host work.
-
-The port's tiles carry no turn restrictions (TileSet.from_arrays refuses
-them), so every search runs in node space; the JAX package's edge-space
-search for banned turns waits for restricted tiles (ROADMAP queue 1
-item 4).
+watchdog's fallback and the quality audit, all host work. On a
+turn-restricted tile every search runs in edge space through the reach
+builder's own ``edge_space_targets``, so the oracle and the tables agree
+on what a ban means.
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ import numpy as np
 
 from reporter_tpu_torch.config import MatcherParams
 from reporter_tpu_torch.geometry import point_segment_project
+from reporter_tpu_torch.tiles.reach import edge_space_targets
 from reporter_tpu_torch.tiles.tileset import TileSet
 
 
@@ -54,7 +53,11 @@ def edge_dijkstra(ts: TileSet, e_from: int, bound: float,
                   ) -> dict[int, tuple[float, int]]:
     """Bounded Dijkstra: the distance from the END of ``e_from`` to the
     START of every edge within ``bound`` meters. → {edge: (dist,
-    prev_edge)}, prev_edge -1 for a direct successor."""
+    prev_edge)}, prev_edge -1 for a direct successor. A restricted tile
+    searches edge space, honouring the bans of ``e_from`` and of every
+    edge on the way; an unrestricted one searches nodes."""
+    if ts.ban_set:
+        return _edge_dijkstra_banned(ts, e_from, bound, ts.ban_set)
     out: dict[int, tuple[float, int]] = {}
     u0 = int(ts.edge_dst[e_from])
     dist: dict[int, float] = {u0: 0.0}
@@ -76,6 +79,18 @@ def edge_dijkstra(ts: TileSet, e_from: int, bound: float,
                 prev_edge[w] = e
                 heapq.heappush(pq, (nd, w))
     return out
+
+
+def _edge_dijkstra_banned(ts: TileSet, e_from: int, bound: float,
+                          banned: "set[tuple[int, int]]",
+                          ) -> dict[int, tuple[float, int]]:
+    """edge_dijkstra on a restricted tile: the reach builder's edge-space
+    search, seeded with the exits ``e_from`` may take."""
+    seeds = [int(e) for e in ts.node_out[int(ts.edge_dst[e_from])]
+             if e >= 0 and (e_from, int(e)) not in banned]
+    targets = edge_space_targets(seeds, ts.node_out, ts.edge_dst,
+                                 ts.edge_len, bound, banned)
+    return {e: (d, prev) for e, (d, _first, prev) in targets.items()}
 
 
 def walk_prev(reached: dict[int, tuple[float, int]], e2: int) -> list[int]:

@@ -4,7 +4,9 @@
 ``reporter_morton_keys``; the streaming half: ``reporter_build_reports``,
 ``reporter_tail_cuts``) and ``walker.cc`` (the edge walk:
 ``reporter_walk_segments``) are the host half of ``match_many`` and of
-the stream pipelines' report build. ``g++``
+the stream pipelines' report build; ``reach.cc`` (the tile compiler's
+node-space reach tables: ``reporter_build_reach``) is the compiler's
+default builder (tiles/native.py). ``g++``
 compiles them at first use into ``reporter_tpu_torch/_build/``: one shared
 library with a plain C interface, loaded with ``ctypes.CDLL`` (not
 ``PyDLL``), so a call releases the GIL and a walk can run beside the main
@@ -28,7 +30,7 @@ from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 _BUILD_DIR = _HERE.parent / "_build"
-SOURCES = (_HERE / "prepare.cc", _HERE / "walker.cc")
+SOURCES = (_HERE / "prepare.cc", _HERE / "walker.cc", _HERE / "reach.cc")
 FLAGS = ("-O3", "-Wall", "-Wextra", "-Werror", "-std=c++17", "-shared",
          "-fPIC")
 
@@ -41,8 +43,8 @@ def _compiler() -> str:
     found = shutil.which("g++")
     if found is None:
         raise RuntimeError("g++ not found on PATH; the port's host library "
-                           "(native/prepare.cc, walker.cc) is built from "
-                           "source at first use")
+                           "(native/prepare.cc, walker.cc, reach.cc) is "
+                           "built from source at first use")
     return found
 
 
@@ -123,6 +125,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64,                                     # rec_cap
         i32p, i64p, i64,                         # way_off, way_ids, way_cap
         i64p,                                    # n_ways_out
+    ]
+    lib.reporter_build_reach.restype = i64
+    lib.reporter_build_reach.argtypes = [
+        i32p, i64, i64,                          # node_out, N, D
+        i32p, f32p,                              # edge_dst, edge_len
+        f64, i32, i32,                           # radius, M, n_threads
+        i32p, f32p, i32p,                        # reach_{to,dist,next}
     ]
 
 

@@ -17,6 +17,8 @@ ACCESS_AUTO = 1
 ACCESS_BICYCLE = 2
 ACCESS_FOOT = 4
 ACCESS_ALL = ACCESS_AUTO | ACCESS_BICYCLE | ACCESS_FOOT
+MODE_BITS = {"auto": ACCESS_AUTO, "bicycle": ACCESS_BICYCLE,
+             "foot": ACCESS_FOOT}
 
 
 @dataclass
@@ -54,14 +56,15 @@ class TurnRestriction:
 
 @dataclass
 class RoadNetwork:
-    """Graph-agnostic road network: nodes in lon/lat + ways. Turn
-    restrictions are parsed but not compiled by this port (tiles/compiler
-    raises)."""
+    """Graph-agnostic road network: nodes in lon/lat + ways."""
 
     node_lonlat: np.ndarray              # [N, 2] float64 (lon, lat) degrees
     ways: list[Way]
     name: str = "net"
     restrictions: "list[TurnRestriction]" = field(default_factory=list)
+    # set by for_mode: marks this network as one mode's subgraph, so
+    # compile_network knows an unqualified compile of it is deliberate
+    mode: "str | None" = None
 
     @property
     def num_nodes(self) -> int:
@@ -75,3 +78,65 @@ class RoadNetwork:
     def origin(self) -> np.ndarray:
         lo, hi = self.bbox()
         return (lo + hi) / 2.0
+
+    def fingerprint(self) -> int:
+        """Content crc of the graph (node positions, way topology and
+        attributes, per-leg geometry, restrictions): the key of the
+        compiler's full-graph OSMLR memo. Anything the compiler reads
+        changes it."""
+        import zlib
+
+        crc = zlib.crc32(np.ascontiguousarray(self.node_lonlat).tobytes())
+        words: list[int] = []
+        for w in self.ways:
+            words.extend((w.way_id, len(w.nodes), int(w.oneway),
+                          w.access_mask, int(w.speed_mps * 100)))
+            words.extend(w.nodes)
+            for leg in sorted(w.geometry):
+                words.append(leg)
+                crc = zlib.crc32(np.ascontiguousarray(
+                    w.geometry[leg], np.float64).tobytes(), crc)
+        for r in self.restrictions:
+            words.extend((r.from_way, r.via_node, r.to_way,
+                          zlib.crc32(r.kind.encode())))
+        return zlib.crc32(np.asarray(words, np.int64).tobytes(), crc)
+
+    def for_mode(self, mode: str) -> "RoadNetwork":
+        """The mode's legal subgraph: ways whose access_mask includes
+        ``mode``, restrictions filtered to surviving ways, nodes compacted
+        to those the kept ways use (in first-use order). Pedestrians
+        ignore oneway and turn restrictions: the foot view clears both."""
+        import dataclasses
+
+        bit = MODE_BITS.get(mode)
+        if bit is None:
+            raise ValueError(f"unknown mode {mode!r}; "
+                             f"one of {sorted(MODE_BITS)}")
+        ways = [w for w in self.ways if w.access_mask & bit]
+        if mode == "foot":
+            ways = [w if not w.oneway
+                    else dataclasses.replace(w, oneway=False) for w in ways]
+            restrictions = []
+        else:
+            keep = {w.way_id for w in ways}
+            restrictions = [r for r in self.restrictions
+                            if r.from_way in keep and r.to_way in keep]
+        # reach tables hold one row per node: orphans of other modes'
+        # ways would cost table memory
+        used: dict[int, int] = {}
+        for w in ways:
+            for nd in w.nodes:
+                if nd not in used:
+                    used[nd] = len(used)
+        if len(used) != self.num_nodes:
+            node_lonlat = self.node_lonlat[list(used)]
+            ways = [dataclasses.replace(
+                w, nodes=[used[nd] for nd in w.nodes]) for w in ways]
+            restrictions = [dataclasses.replace(r, via_node=used[r.via_node])
+                            for r in restrictions if r.via_node in used]
+        else:
+            node_lonlat = self.node_lonlat
+        suffix = "" if mode == "auto" else f"-{mode}"
+        return RoadNetwork(node_lonlat=node_lonlat, ways=ways,
+                           name=f"{self.name}{suffix}",
+                           restrictions=restrictions, mode=mode)

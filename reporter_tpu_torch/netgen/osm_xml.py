@@ -5,9 +5,10 @@ Counterpart: reporter_tpu/netgen/osm_xml.py (``xml_elements``,
 ``_speed_mps``). Supports the subset needed to build a drivable graph:
 <node> elements and <way> elements tagged ``highway=*`` from a drivable
 whitelist, with ``oneway`` and ``maxspeed`` handling, plus
-``type=restriction`` relations, which become ``RoadNetwork.restrictions``
-(the port's compiler raises on a network that has them). The same document
-gives the same RoadNetwork as the JAX package's parser.
+``type=restriction`` relations, which become ``RoadNetwork.restrictions``.
+``build_network`` is the format-independent half that netgen/pbf.py
+shares. The same document gives the same RoadNetwork as the JAX
+package's parser.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ DRIVABLE_HIGHWAY = {
 }
 
 # highway classes that only exist for non-auto modes (kept in the
-# RoadNetwork with the matching access bits; this port's compiler refuses
-# a network that holds them, since per-mode subgraphs are not ported)
+# RoadNetwork with the matching access bits; the auto compile filters
+# them out through RoadNetwork.for_mode)
 _MODE_ONLY_HIGHWAY = {
     "cycleway": ACCESS_BICYCLE | ACCESS_FOOT,
     "footway": ACCESS_FOOT,

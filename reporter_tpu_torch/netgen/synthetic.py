@@ -1,7 +1,9 @@
 """Synthetic metro generator.
 
-Counterpart: reporter_tpu/netgen/synthetic.py (the grid cities, and the
-names "organic" and "organic-xl" of netgen/organic.py's irregular metros).
+Counterpart: reporter_tpu/netgen/synthetic.py (the grid cities, the
+names "organic" and "organic-xl" of netgen/organic.py's irregular metros,
+and the two variants: ``assign_mode_access`` and
+``add_random_restrictions``).
 The same name and seed give the same RoadNetwork bit for bit: the random
 draws are made in the same order from the same numpy generator.
 """
@@ -11,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 
 from reporter_tpu_torch.geometry import xy_to_lonlat
-from reporter_tpu_torch.netgen.network import RoadNetwork, Way
+from reporter_tpu_torch.netgen.network import (ACCESS_BICYCLE, ACCESS_FOOT,
+                                               RoadNetwork, TurnRestriction,
+                                               Way)
 
 # name → (seed, nx, ny)
 CITY_PRESETS: dict[str, tuple[int, int, int]] = {
@@ -149,3 +153,67 @@ def generate_city(
               "diag_se", 17.9)
 
     return RoadNetwork(node_lonlat=node_lonlat, ways=ways, name=name)
+
+
+def assign_mode_access(net: RoadNetwork, seed: int = 21,
+                       p_bike_only: float = 0.08,
+                       p_foot_only: float = 0.05) -> RoadNetwork:
+    """Give an all-access city a mode mix: a fraction of ways become
+    bike-and-foot cycleways (5.6 m/s) and foot-only paths (1.4 m/s), the
+    rest stay all-access. Mutates and returns ``net``; the name gains
+    ``+m``. The fixture of per-mode compiles (compile_network(net,
+    mode=...))."""
+    rng = np.random.default_rng(seed)
+    for w in net.ways:
+        u = rng.random()
+        if u < p_bike_only:
+            w.access_mask = ACCESS_BICYCLE | ACCESS_FOOT
+            w.speed_mps = 5.6
+        elif u < p_bike_only + p_foot_only:
+            w.access_mask = ACCESS_FOOT
+            w.speed_mps = 1.4
+    if not net.name.endswith("+m"):
+        net.name = f"{net.name}+m"
+    return net
+
+
+def add_random_restrictions(net: RoadNetwork, fraction: float = 0.08,
+                            seed: int = 99) -> RoadNetwork:
+    """Add ``no_turn`` restrictions at about ``fraction`` of the junctions
+    (nodes where a way arrives and at least two distinct ways leave). The
+    banned exit must leave the arriving vehicle another way out, so a
+    restriction forces a detour, never a dead end. Mutates and returns
+    ``net``; the name gains ``+r`` when any restriction was added."""
+    rng = np.random.default_rng(seed)
+    # node → ways that can arrive at it / leave it (oneway-aware)
+    arrive: dict[int, list] = {}
+    leave: dict[int, list] = {}
+    for w in net.ways:
+        for i, nd in enumerate(w.nodes):
+            if i > 0 or not w.oneway:
+                arrive.setdefault(nd, []).append(w)
+            if i < len(w.nodes) - 1 or not w.oneway:
+                leave.setdefault(nd, []).append(w)
+    junctions = [nd for nd in arrive
+                 if len({w.way_id for w in leave.get(nd, [])}) >= 2]
+    junctions.sort()
+    n_pick = int(round(len(junctions) * fraction))
+    for nd in rng.permutation(np.asarray(junctions))[:n_pick]:
+        nd = int(nd)
+        dst_ids = sorted({w.way_id for w in leave[nd]})
+        # the banned exit must leave the arriving vehicle another way out
+        src = [w for w in arrive[nd]
+               if w.way_id in dst_ids and len(dst_ids) >= 2]
+        if not src:
+            continue
+        fw = src[rng.integers(len(src))]
+        to_choices = [d for d in dst_ids if d != fw.way_id]
+        if not to_choices:
+            continue
+        tw = to_choices[rng.integers(len(to_choices))]
+        net.restrictions.append(TurnRestriction(
+            from_way=fw.way_id, via_node=nd, to_way=int(tw),
+            kind="no_turn"))
+    if net.restrictions and not net.name.endswith("+r"):
+        net.name = f"{net.name}+r"
+    return net

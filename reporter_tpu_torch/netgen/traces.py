@@ -1,8 +1,9 @@
 """GPS probe-trace synthesis with ground truth.
 
 Counterpart: reporter_tpu/netgen/traces.py. A random drive on the compiled
-graph, sampled at fixed dt with Gaussian GPS noise; the same tile and seed
-give the same probes as the JAX package.
+graph, sampled at fixed dt with Gaussian GPS noise, that never takes a
+banned turn of a restricted tile; the same tile and seed give the same
+probes as the JAX package.
 """
 
 from __future__ import annotations
@@ -61,16 +62,21 @@ class _EdgeShapeCache:
         return ts.seg_a[s] + t * (ts.seg_b[s] - ts.seg_a[s])
 
 
-def random_walk_edges(ts: TileSet, rng: np.random.Generator,
-                      target_length: float) -> list[int]:
-    """A plausible drive: follow graph connectivity and avoid immediate
-    U-turns when an alternative exists."""
+def random_walk_edges(
+    ts: TileSet, rng: np.random.Generator, target_length: float,
+    ban: "set[tuple[int, int]] | None" = None,
+) -> list[int]:
+    """A plausible drive: follow graph connectivity, avoid immediate
+    U-turns when an alternative exists, and never take a banned turn
+    (``ban``: the tile's (from_edge, to_edge) set)."""
     e = int(rng.integers(ts.num_edges))
     path = [e]
     total = float(ts.edge_len[e])
     while total < target_length:
         u = int(ts.edge_dst[e])
         outs = [int(x) for x in ts.node_out[u] if x >= 0]
+        if ban:
+            outs = [x for x in outs if (e, x) not in ban]
         if not outs:
             break
         non_uturn = [x for x in outs if x != int(ts.edge_opp[e])]
@@ -91,12 +97,13 @@ def synthesize_probe(
     gps_sigma: float = 5.0,
     uuid: str | None = None,
     shape_cache: "_EdgeShapeCache | None" = None,
+    ban: "set[tuple[int, int]] | None" = None,
 ) -> Probe:
     """Drive a random path and sample noisy GPS points along it."""
     rng = np.random.default_rng(seed)
     speed = float(speed_mps if speed_mps is not None else rng.uniform(7.0, 16.0))
     need = speed * dt * (num_points + 2)
-    path = random_walk_edges(ts, rng, need)
+    path = random_walk_edges(ts, rng, need, ban=ban)
     cache = shape_cache if shape_cache is not None else _EdgeShapeCache(ts)
 
     cum = np.concatenate([[0.0], np.cumsum(ts.edge_len[path].astype(np.float64))])
@@ -127,9 +134,10 @@ def synthesize_probe(
 def synthesize_fleet(ts: TileSet, n: int, *, num_points: int = 120,
                      seed: int = 0, gps_sigma: float = 5.0) -> list[Probe]:
     cache = _EdgeShapeCache(ts)  # segment sort is per-TileSet, share it
+    ban = ts.ban_set or None     # restricted tiles get legal drivers
     return [
         synthesize_probe(ts, seed=seed * 1_000_003 + i, num_points=num_points,
                          gps_sigma=gps_sigma, uuid=f"veh-{seed}-{i}",
-                         shape_cache=cache)
+                         shape_cache=cache, ban=ban)
         for i in range(n)
     ]

@@ -7,27 +7,31 @@ the sweep arm calibrated), and serves threaded until SIGINT, which
 drains the scheduler and the publisher before exiting 0.
 
 Run:  python -m reporter_tpu_torch.service.server [--tiles a.npz [b.npz
-      ...]] [--config cfg.json] [--host H] [--port P] [--device cuda|cpu]
+      ...]] [--config cfg.json] [--mode auto|bicycle|foot] [--host H]
+      [--port P] [--device cuda|cpu]
 
-``--tiles`` takes ``.npz`` files in the JAX package's layout (``python
--m reporter_tpu.tiles build`` or ``TileSet.save``); without it the
-synthetic ``sf`` is compiled. One tile serves a ReporterApp; several
-start the metro router (service/router.py): every metro's tables staged
-on the device and its arm calibrated, one endpoint routing each request
-by its ``"metro"`` field or its first point, and SIGINT draining every
-metro. ``--mode bicycle|foot`` (per-mode tiles, ROADMAP queue 1 item 4)
-raises NotImplementedError.
+``--tiles`` takes ``.npz`` files in the layout ``TileSet.save`` writes in
+either package: a tile compiled with ``compile_network(net, mode=...)``
+for a mode, with turn restrictions or not. Without it the synthetic
+``sf`` is compiled. One tile serves a ReporterApp; several start the
+metro router (service/router.py): every metro's tables staged on the
+device and its arm calibrated, one endpoint routing each request by its
+``"metro"`` field or its first point, and SIGINT draining every metro.
+``--mode`` tags the service with its transport mode (a request naming
+another mode gets 400); without ``--config`` it also applies the mode's
+``MatcherParams.preset``, and with one the file's matcher parameters win.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import time
 from socketserver import ThreadingMixIn
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
 
-from reporter_tpu_torch.config import Config
+from reporter_tpu_torch.config import Config, MatcherParams
 from reporter_tpu_torch.service.app import make_app
 from reporter_tpu_torch.tiles.tileset import TileSet
 
@@ -69,7 +73,10 @@ def main(argv: "list[str] | None" = None) -> None:
                          "multi-metro router (default: synthetic 'sf')")
     ap.add_argument("--config", help="JSON config path")
     ap.add_argument("--mode", choices=("auto", "bicycle", "foot"),
-                    help="transport mode served; only 'auto' is ported")
+                    help="transport mode served: tags and checks requests, "
+                         "and applies the mode's matcher preset unless "
+                         "--config is given (pair with tiles compiled for "
+                         "the mode)")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int)
     ap.add_argument("--device", default="cuda",
@@ -77,15 +84,21 @@ def main(argv: "list[str] | None" = None) -> None:
                          "or cpu")
     args = ap.parse_args(argv)
 
-    if args.mode not in (None, "auto"):
-        raise NotImplementedError(
-            f"--mode {args.mode}: per-mode serving needs tiles compiled for "
-            "the mode (RoadNetwork.for_mode), which are not ported: "
-            "ROADMAP queue 1 item 4")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     t0 = time.perf_counter()
     config = Config.load(args.config)
+    if args.mode:
+        # a mounted --config keeps its tuned matcher parameters; --mode
+        # then only tags the service
+        matcher = (config.matcher if args.config
+                   else MatcherParams.preset(args.mode))
+        if args.config:
+            log.info("--mode %s: matcher params come from --config; "
+                     "preset not applied", args.mode)
+        config = dataclasses.replace(
+            config, matcher=matcher,
+            service=dataclasses.replace(config.service, mode=args.mode))
     if args.tiles:
         tilesets = [TileSet.load(p) for p in args.tiles]
     else:

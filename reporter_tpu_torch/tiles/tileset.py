@@ -23,18 +23,24 @@ S line segments, G OSMLR segments, M reach-table width):
   reach_dist     f32 [R,M]   network distance row-source → start-of-target (m)
   reach_next     i32 [R,M]   first edge of that path (next-hop, for host walk)
   edge_reach_row i32 [E]     reach row governing transitions out of edge e
+  ban_from/ban_to i32 [B]    banned turn pairs (from edge → to edge)
+
+Reach rows are node-keyed: R = N, edge_reach_row[e] == edge_dst[e]. Turn
+restrictions add a private ban-aware row per restriction from-edge (R =
+N + F) and repoint edge_reach_row there (tiles/reach.py); the device
+tables stage all R rows as they are.
 
 The device side stages only what the dense path reads
 (``tables_from_numpy``). The JAX package's spatial grid is not kept: the
 grid candidate backend is not part of this port. ``save`` / ``load`` use
 the JAX package's ``.npz`` layout and schema check, so the two packages
-read each other's files: the port writes an empty grid (and no banned
-turns), and drops the grid it reads.
+read each other's files: the port writes an empty grid and drops the
+grid it reads.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -47,6 +53,7 @@ ARRAY_FIELDS = (
     "osmlr_id", "osmlr_len",
     "seg_a", "seg_b", "seg_edge", "seg_off", "seg_len",
     "reach_to", "reach_dist", "reach_next", "edge_reach_row",
+    "ban_from", "ban_to",
 )
 
 
@@ -85,7 +92,21 @@ class TileSet:
     reach_dist: np.ndarray
     reach_next: np.ndarray
     edge_reach_row: np.ndarray
+    ban_from: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.int32))
+    ban_to: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.int32))
     stats: dict[str, Any] = field(default_factory=dict)
+    _ban_set: "set[tuple[int, int]] | None" = field(
+        default=None, init=False, repr=False, compare=False)
+
+    @property
+    def ban_set(self) -> "set[tuple[int, int]]":
+        """The banned (from_edge, to_edge) pairs as a set (built once)."""
+        if self._ban_set is None:
+            self._ban_set = {(int(a), int(b))
+                             for a, b in zip(self.ban_from, self.ban_to)}
+        return self._ban_set
 
     @property
     def num_edges(self) -> int:
@@ -110,8 +131,6 @@ class TileSet:
             path += ".npz"
         payload = {f: getattr(self, f) for f in ARRAY_FIELDS}
         payload["grid"] = np.full((0, 1), -1, np.int32)
-        payload["ban_from"] = np.zeros(0, np.int32)
-        payload["ban_to"] = np.zeros(0, np.int32)
         # TileMeta of the JAX package: grid origin, cell size, grid dims,
         # origin (lon, lat), index radius
         meta = [[0.0, 0.0], 0.0, [0, 0], list(self.meta.origin_lonlat), 0.0]
@@ -125,9 +144,8 @@ class TileSet:
     @classmethod
     def load(cls, path: str) -> "TileSet":
         """Read a schema-4 ``.npz`` written by either package (``python -m
-        reporter_tpu.tiles build``, or ``save``). Another schema raises
-        ValueError, as in the JAX package; a turn-restricted tile raises
-        NotImplementedError (``from_arrays``)."""
+        reporter_tpu.tiles build``, or ``save``), turn-restricted or not.
+        Another schema raises ValueError, as in the JAX package."""
         import json
 
         if not path.endswith(".npz"):
@@ -143,7 +161,7 @@ class TileSet:
                 raise ValueError(
                     f"{path}: tileset metadata has {len(raw['meta'])} "
                     "fields, expected 5; recompile the network")
-            arrays = {f: z[f] for f in (*ARRAY_FIELDS, "ban_from")}
+            arrays = {f: z[f] for f in ARRAY_FIELDS}
         out = cls.from_arrays(raw["name"], tuple(raw["meta"][3]), arrays)
         out.stats = raw.get("stats", {})
         return out
@@ -153,22 +171,11 @@ class TileSet:
                     arrays: "dict[str, np.ndarray]") -> "TileSet":
         """A TileSet over arrays compiled elsewhere (for example by the JAX
         package's compiler): the named fields are taken as they are, other
-        keys are ignored. A tile with turn restrictions (non-empty
-        ``ban_from``) is refused: its reach rows depend on the arriving
-        edge, which this port's tables do not model."""
-        _refuse_restricted(arrays)
-        known = {f.name for f in fields(cls)}
+        keys are ignored; a tile without ``ban_from`` / ``ban_to`` has no
+        banned turns."""
         return cls(name=name, meta=TileMeta(tuple(origin_lonlat)),
                    **{k: np.asarray(v) for k, v in arrays.items()
-                      if k in known and k in ARRAY_FIELDS})
-
-
-def _refuse_restricted(arrays: "dict[str, np.ndarray]") -> None:
-    ban = arrays.get("ban_from")
-    if ban is not None and len(ban):
-        raise NotImplementedError(
-            "turn-restricted tiles (private ban-aware reach rows) are not "
-            "ported yet")
+                      if k in ARRAY_FIELDS})
 
 
 def tables_from_numpy(arrays: "dict[str, np.ndarray]",
@@ -180,10 +187,10 @@ def tables_from_numpy(arrays: "dict[str, np.ndarray]",
     TileSet). The segment pack is built here with this port's
     build_seg_pack, with the port's seg_sweep and seg_coarse tables beside
     the JAX package's four; every array keeps its dtype and bytes (the
-    pack's edge row stays the int32 bit pattern inside an f32 row)."""
+    pack's edge row stays the int32 bit pattern inside an f32 row). A
+    restricted tile's R = N + F reach rows are staged as they are."""
     from reporter_tpu_torch.ops.dense_candidates import build_seg_pack
 
-    _refuse_restricted(arrays)
     sp = build_seg_pack(arrays["seg_a"], arrays["seg_b"], arrays["seg_edge"],
                         arrays["seg_off"], arrays["seg_len"])
     host = {

@@ -345,3 +345,94 @@ def test_native_build_raises_without_a_compiler(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="g.. failed"):
         native_build.build()
     assert not list(tmp_path.glob("*.so"))
+
+
+# ---- the compiler's C++ reach builder ------------------------------------
+
+@pytest.fixture(scope="module")
+def reach_tile():
+    """A tile whose node-space rows both builders rebuild: tiny (seed 11)
+    compiled by the port's Python builders."""
+    from reporter_tpu_torch.config import CompilerParams as PCompilerParams
+    from reporter_tpu_torch.netgen.synthetic import (
+        generate_city as p_generate_city)
+    from reporter_tpu_torch.tiles.compiler import (
+        compile_network as p_compile_network)
+
+    return p_compile_network(p_generate_city("tiny", seed=11),
+                             PCompilerParams(reach_radius=500.0,
+                                             use_native=False))
+
+
+@pytest.mark.parametrize("radius,max_targets", [(300.0, 16), (500.0, 32),
+                                                (800.0, 8), (600.0, 128)])
+def test_build_reach_native_equals_python_and_reference(reach_tile, radius,
+                                                        max_targets):
+    """build_reach_native against the port's Python builder and the JAX
+    package's C++ builder: every table byte for byte, the truncated count
+    too (rows cut at 8, 16 and 32 targets)."""
+    from reporter_tpu.tiles.native import (
+        build_reach_native as j_build_reach_native)
+    from reporter_tpu_torch.tiles.native import build_reach_native
+    from reporter_tpu_torch.tiles.reach import build_reach_tables
+
+    ts = reach_tile
+    args = (ts.node_out, ts.edge_src, ts.edge_dst, ts.edge_len, radius,
+            max_targets)
+    got = build_reach_native(*args)
+    want = build_reach_tables(*args)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert got[3] == want[3]
+    ref = j_build_reach_native(*args)
+    if ref is None:
+        pytest.skip("the JAX package's native library is unavailable")
+    for a, b in zip(got[:3], ref[:3]):
+        assert a.tobytes() == b.tobytes()
+    assert got[3] == ref[3]
+
+
+def test_build_reach_native_one_thread_deterministic(reach_tile,
+                                                     monkeypatch):
+    """Every hardware thread and one thread (REPORTER_TPU_NATIVE_THREADS,
+    the JAX package's variable) give the same tables."""
+    from reporter_tpu_torch.tiles.native import build_reach_native
+
+    ts = reach_tile
+    args = (ts.node_out, ts.edge_src, ts.edge_dst, ts.edge_len, 500.0, 32)
+    monkeypatch.delenv("REPORTER_TPU_NATIVE_THREADS", raising=False)
+    many = build_reach_native(*args)
+    monkeypatch.setenv("REPORTER_TPU_NATIVE_THREADS", "1")
+    one = build_reach_native(*args)
+    for a, b in zip(many[:3], one[:3]):
+        assert a.tobytes() == b.tobytes()
+    assert many[3] == one[3]
+
+
+def test_compiler_honours_use_native(reach_tile, monkeypatch):
+    """use_native (the default) calls the C++ builder, False the Python
+    one, with the same tile; a failed build raises rather than fall back."""
+    from reporter_tpu_torch.config import CompilerParams as PCompilerParams
+    from reporter_tpu_torch.netgen.synthetic import (
+        generate_city as p_generate_city)
+    from reporter_tpu_torch.tiles import compiler, native
+
+    calls = []
+    real = native.build_reach_native
+    monkeypatch.setattr(native, "build_reach_native",
+                        lambda *a: calls.append(1) or real(*a))
+    net = p_generate_city("tiny", seed=11)
+    c = compiler.compile_network(net, PCompilerParams(reach_radius=500.0))
+    assert calls == [1]
+    for f in ("reach_to", "reach_dist", "reach_next", "edge_reach_row"):
+        assert getattr(c, f).tobytes() == getattr(reach_tile, f).tobytes()
+
+    def broken():
+        raise RuntimeError("g++ failed on the host library")
+
+    monkeypatch.setattr(native, "load", broken)
+    monkeypatch.setattr(native, "build_reach_native", real)
+    with pytest.raises(RuntimeError, match="g.. failed"):
+        compiler.compile_network(net, PCompilerParams(reach_radius=500.0))
+    compiler.compile_network(net, PCompilerParams(reach_radius=500.0,
+                                                  use_native=False))

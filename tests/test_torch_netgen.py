@@ -116,7 +116,8 @@ def test_small_organic_tile_equals_reference(small_organic):
 def test_irregular_osm_equals_reference():
     """parse_osm_xml of the fixture: the network and its compiled tile
     equal the JAX package's; a restriction relation parses to a
-    TurnRestriction, and the compiler refuses it."""
+    TurnRestriction, and the restricted tile (banned pairs, private reach
+    rows) equals the JAX package's too."""
     import json
 
     with open(os.path.join(_FIX, "golden_irregular.json")) as f:
@@ -128,7 +129,7 @@ def test_irregular_osm_equals_reference():
                                  JCompilerParams(use_native=False, **kw)))
     with open(_OSM) as f:
         doc = f.read()
-    w = net.ways[0]
+    w = next(w for w in net.ways if not w.oneway)   # a U-turn to ban
     rel = (f'<relation id="9"><member type="way" ref="{w.way_id}" '
            f'role="from"/><member type="node" ref="{_via_ref(doc, w)}" '
            f'role="via"/><member type="way" ref="{w.way_id}" role="to"/>'
@@ -140,8 +141,11 @@ def test_irregular_osm_equals_reference():
     assert len(rnet.restrictions) == 1
     r = rnet.restrictions[0]
     assert isinstance(r, TurnRestriction) and not r.mandatory
-    with pytest.raises(NotImplementedError):
-        compile_network(rnet)
+    rts = compile_network(rnet, CompilerParams(**kw))
+    _same_tile(rts, j_compile_network(j_parse_osm_xml(doc, name="restricted"),
+                                      JCompilerParams(use_native=False, **kw)))
+    assert rts.stats["banned_turn_pairs"] >= 1
+    assert len(rts.reach_to) > rts.num_nodes
 
 
 def _via_ref(doc: str, way) -> int:

@@ -26,6 +26,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -626,19 +627,16 @@ def test_threaded_server_takes_64_clients_at_once(tiles):
         th.join(WAIT)
 
 
-def test_server_entry_point_serves_and_drains_on_sigint(tiles, tmp_path):
-    """python -m reporter_tpu_torch.service.server --device cpu on a saved
-    tile: it answers /report like an in-process app, and SIGINT drains it
-    to exit code 0."""
-    import signal
-
-    path = tiles.save(str(tmp_path / "tiny"))
+def _server(tmp_path, path, *flags):
+    """python -m reporter_tpu_torch.service.server --device cpu over the
+    tile at ``path`` as a subprocess, started with ``flags``. → (the
+    process, its port, the reader thread, its stderr lines)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.Popen(
         [sys.executable, "-m", "reporter_tpu_torch.service.server",
          "--tiles", path, "--device", "cpu", "--host", "127.0.0.1",
-         "--port", "0"], cwd=str(tmp_path), env=env,
+         "--port", "0", *flags], cwd=str(tmp_path), env=env,
         stderr=subprocess.PIPE, text=True)
     ready, lines = threading.Event(), []
 
@@ -650,40 +648,78 @@ def test_server_entry_point_serves_and_drains_on_sigint(tiles, tmp_path):
 
     reader = threading.Thread(target=read, daemon=True)
     reader.start()
+    if not ready.wait(60.0):
+        proc.kill()
+        proc.wait(WAIT)
+        raise AssertionError("".join(lines))
+    port = int(next(ln for ln in lines if " serving " in ln)
+               .split(" on 127.0.0.1:")[1].split(",")[0])
+    return proc, port, reader, lines
+
+
+def _drain(proc, reader, lines):
+    """SIGINT drains the server to exit code 0."""
+    import signal
+
+    proc.send_signal(signal.SIGINT)
+    assert proc.wait(WAIT) == 0
+    reader.join(WAIT)
+    assert any("draining scheduler" in ln for ln in lines)
+
+
+def test_server_entry_point_serves_and_drains_on_sigint(tiles, tmp_path):
+    """python -m reporter_tpu_torch.service.server --device cpu on a saved
+    tile: it answers /report like an in-process app, and SIGINT drains it
+    to exit code 0."""
+    path = tiles.save(str(tmp_path / "tiny"))
+    proc, port, reader, lines = _server(tmp_path, path)
     try:
-        assert ready.wait(60.0), "".join(lines)
-        port = int(next(ln for ln in lines if " serving " in ln)
-                   .split(" on 127.0.0.1:")[1].split(",")[0])
         p = synthesize_probe(tiles, seed=72, num_points=50,
                              gps_sigma=3.0).to_report_json()
         status, body = _post(f"http://127.0.0.1:{port}/report", p)
         ref = make_app(tiles, Config(), device="cpu")
         assert status == 200 and body == ref.report_one(p)
         ref.close()
-        proc.send_signal(signal.SIGINT)
-        assert proc.wait(WAIT) == 0
-        reader.join(WAIT)
-        assert any("draining scheduler" in ln for ln in lines)
+        _drain(proc, reader, lines)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(WAIT)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mode", "bicycle"], "item 4"),
-    (["--tiles", "a.npz", "b.npz"], None)], ids=["mode", "tiles"])
-def test_server_flags_not_ported_raise(flags, item, tiles, tmp_path,
-                                       monkeypatch):
-    """--mode bicycle raises naming its ROADMAP item; several --tiles
-    (no longer a refusal) start the metro router over every tile."""
+@pytest.mark.parametrize("flags", [
+    ["--mode", "bicycle"], ["--tiles", "a.npz", "b.npz"]],
+    ids=["mode", "tiles"])
+def test_server_flags_not_ported_raise(flags, tiles, tmp_path, monkeypatch):
+    """Flags that were once refusals. --mode bicycle starts the server
+    tagged "bicycle" with the bicycle preset: its answers equal an
+    in-process ``Config.for_mode("bicycle")`` app's, carry mode "bicycle",
+    and a request naming another mode gets 400. Several --tiles start the
+    metro router over every tile."""
     from reporter_tpu_torch.service import server
     from reporter_tpu_torch.service.router import MetroRouter
     from reporter_tpu_torch.tiles.tileset import TileSet
 
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            server.main(flags)
+    if flags[0] == "--mode":
+        path = tiles.save(str(tmp_path / "tiny"))
+        proc, port, reader, lines = _server(tmp_path, path, *flags)
+        try:
+            p = synthesize_probe(tiles, seed=73, num_points=50,
+                                 gps_sigma=3.0).to_report_json()
+            url = f"http://127.0.0.1:{port}/report"
+            status, body = _post(url, p)
+            ref = make_app(tiles, Config.for_mode("bicycle"), device="cpu")
+            assert status == 200 and body["mode"] == "bicycle"
+            assert body == ref.report_one(p)
+            ref.close()
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _post(url, dict(p, mode="auto"))
+            assert err.value.code == 400
+            _drain(proc, reader, lines)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(WAIT)
         return
     names = []
     for i, f in enumerate(flags[1:]):

@@ -454,7 +454,9 @@ def test_config_json_written_by_jax_reads_in_the_port():
     (lambda: CompilerParams(cell_size=32.0), "item 5"),
     (lambda: Config(matcher_backend="reference_cpu").validate(),
      lambda c: c.matcher_backend == "reference_cpu"),
-    (lambda: Config.for_mode("foot").validate(), "item 4"),
+    (lambda: Config.for_mode("foot").validate(),
+     lambda c: c.service.mode == "foot"
+     and c.matcher == MatcherParams.preset("foot")),
     (lambda: MatcherParams().with_env_overrides(
         {"RTPU_DISPATCH_TIMEOUT_S": "5"}),
      lambda p: p.dispatch_timeout_s == 5.0),
@@ -465,9 +467,9 @@ def test_config_json_written_by_jax_reads_in_the_port():
         "timeout_env", "timeout_json"])
 def test_unported_fields_raise_naming_the_roadmap_item(make, item):
     """A field whose feature is not ported raises naming its ROADMAP
-    item. The dispatch watchdog, its fallback and the oracle have been
-    ported since: their cases (``item`` a check) now hold the field as
-    given."""
+    item. The dispatch watchdog, its fallback, the oracle and per-mode
+    serving have been ported since: their cases (``item`` a check) now
+    hold the field as given."""
     if callable(item):
         assert item(make())
         return
@@ -502,6 +504,9 @@ def test_tile_file_saved_by_jax_loads_in_the_port(svc_tiles, tmp_path):
 
 
 def test_tile_file_schema_and_restrictions_raise(svc_tiles, tmp_path):
+    """An old schema still raises. A turn-restricted tile the JAX package
+    saved no longer does: it loads with its banned pairs and private rows,
+    and the port's app answers as the JAX app does."""
     path = str(tmp_path / "t.npz")
     svc_tiles.save(path)
     with np.load(path) as z:
@@ -512,11 +517,27 @@ def test_tile_file_schema_and_restrictions_raise(svc_tiles, tmp_path):
     np.savez(str(tmp_path / "old.npz"), **bad)
     with pytest.raises(ValueError, match="schema 3"):
         TileSet.load(str(tmp_path / "old.npz"))
-    banned = dict(arrays, ban_from=np.array([0], np.int32),
-                  ban_to=np.array([1], np.int32))
-    np.savez(str(tmp_path / "ban.npz"), **banned)
-    with pytest.raises(NotImplementedError, match="turn-restricted"):
-        TileSet.load(str(tmp_path / "ban.npz"))
+    from reporter_tpu.netgen.synthetic import add_random_restrictions
+
+    jts = compile_network(add_random_restrictions(generate_city("tiny")),
+                          JCompilerParams(reach_radius=500.0,
+                                          osmlr_max_length=200.0))
+    jts.save(str(tmp_path / "ban.npz"))
+    ts = TileSet.load(str(tmp_path / "ban.npz"))
+    assert ts.ban_set == jts.ban_set and len(ts.ban_set)
+    assert len(ts.reach_to) > ts.num_nodes
+    for f, a in ts.arrays().items():
+        assert np.array_equal(a, getattr(jts, f)), f
+    japp = jmake_app(jts, JConfig())
+    app = make_app(ts, Config(), device="cpu")
+    try:
+        for seed in (3, 4):
+            p = synthesize_probe(jts, seed=seed, num_points=60,
+                                 gps_sigma=3.0).to_report_json()
+            assert app.report_one(p) == japp.report_one(p)
+    finally:
+        japp.close()
+        app.close()
 
 
 class _Sink(BaseHTTPRequestHandler):

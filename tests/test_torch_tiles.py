@@ -108,17 +108,27 @@ def test_tables_from_numpy_carries_reference_arrays():
 
 
 def test_restricted_tiles_are_refused():
-    ref = j_compile_network(j_generate_city("tiny"), JCompilerParams())
+    """No longer refused: a turn-restricted tile of the JAX package stages
+    its R = N + F reach rows unchanged and keeps its banned pairs, and the
+    port compiles the same restricted network to the same arrays."""
+    from reporter_tpu.netgen.synthetic import (
+        add_random_restrictions as j_add_random_restrictions)
+    from reporter_tpu_torch.netgen.synthetic import add_random_restrictions
+
+    ref = j_compile_network(j_add_random_restrictions(j_generate_city("tiny")),
+                            JCompilerParams(reach_radius=500.0))
+    assert len(ref.ban_from) and len(ref.reach_to) > ref.num_nodes
     arrays = {f: getattr(ref, f) for f in ARRAY_FIELDS}
-    arrays["ban_from"] = np.array([0], np.int32)
-    with pytest.raises(NotImplementedError):
-        tables_from_numpy(arrays, "cpu")
-    with pytest.raises(NotImplementedError):
-        TileSet.from_arrays("r", (0.0, 0.0), arrays)
-    net = generate_city("tiny")
-    net.restrictions.append(object())
-    with pytest.raises(NotImplementedError):
-        compile_network(net)
+    tab = tables_from_numpy(arrays, "cpu")
+    assert _same(tab["reach_to"].numpy(), ref.reach_to)
+    assert _same(tab["reach_row"].numpy(), ref.edge_reach_row)
+    ts = TileSet.from_arrays("r", (0.0, 0.0), arrays)
+    assert ts.ban_set == ref.ban_set
+    got = compile_network(add_random_restrictions(generate_city("tiny")),
+                          CompilerParams(reach_radius=500.0))
+    bad = [f for f in ARRAY_FIELDS if not _same(getattr(got, f),
+                                                getattr(ref, f))]
+    assert not bad, bad
 
 
 def test_synthesize_fleet_matches_reference():
