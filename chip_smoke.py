@@ -16,7 +16,8 @@ the native host half against its Python forms, in phases:
                 figures of every kernel instance and each arm's launch
                 shape at each K (threads, ring depth, dynamic shared
                 memory, CTAs per SM, SMs, grid);
-  3. tiles    — compile "sf" (~5.3k directed edges); [tiles:native]: its
+  3. tiles    — compile "sf" (~5.3k directed edges, its spatial grid
+                included); [tiles:native]: its
                 node-space reach rows by the C++ builder (native/reach.cc,
                 the compiler's default) and by the Python one, byte for
                 byte equal, both timed (organic's too, in phase 6);
@@ -81,6 +82,21 @@ the native host half against its Python forms, in phases:
                 card's records with it at AGREEMENT_GATE or better, their
                 equality with the CPU port's, the oracle's probes/s beside
                 the host CPU's model;
+     grid     — [grid:native] sf's spatial grid by the C++ fill and the
+                Python one at the compiler's capacity, byte-equal and
+                equal to the compiled tile's; a matcher with
+                candidate_backend="grid": GRID_BATCH_RUNS timed batches,
+                its candidate stage beside the tuned sweep's, its batch
+                and the tuned dense matcher's in turns (AB_ROUNDS rounds),
+                edge sets and distances equal to the sweep's on every
+                point, the first REFERENCE_TRACES records equal the CPU
+                port's, the traces whose records differ from the dense
+                matcher's counted, no sweep instance launched;
+     topk     — match_topk on the tuned matcher (terminal and exact) on
+                TOPK_TRACES traces and one TOPK_LONG_POINTS-point trace:
+                paths equal the CPU port's, scores ascending, rank 0 one
+                path in both forms, exact dominating terminal, a longer
+                trace refused, only the tuned instance launched;
      restrict — sf with add_random_restrictions at its defaults (122
                 restrictions, 329 banned pairs): [restrict:tiles] the
                 compile (C++ node rows, the ban-affected node rows and one
@@ -121,7 +137,18 @@ the native host half against its Python forms, in phases:
                 matchers), walk phase (the three walks and the prepares,
                 as on sf), card-vs-CPU records on 32 traces and [oracle]
                 on ORACLE_TRACES["organic"] traces, each line tagged
-                metro=organic;
+                metro=organic; [grid:native] on organic;
+     tools    — [capacity] plan_staging on sf, sf+r and organic: the
+                formula equal to the staged table_bytes, and the rise of
+                torch.cuda.memory_allocated() around staging at least it
+                and within CAPACITY_SLACK; the card's memory beside
+                DEFAULT_HBM_BUDGET; [tiles:cli] (host) python -m
+                reporter_tpu_torch.tiles convert, build --mode bicycle,
+                synth, info, osmlr and osmlr --binary as subprocesses:
+                files equal to the in-process compile, info's hbm_bytes
+                equal to [capacity]'s sf figure, the binary tile read back
+                to the GeoJSON's segments; [reach_audit] (host) audit_reach
+                on sf and sf+r over REACH_AUDIT_TRACES fleet traces;
   7. serve    — on sf, the report service in-process (make_app on the
                 card, a fresh tuner cache, behind serve()'s threaded WSGI
                 server on an ephemeral port; the datastore a local HTTP
@@ -283,7 +310,8 @@ the native host half against its Python forms, in phases:
                 document, one segment, 404 for an unknown one);
  11. summary  — the kernels JSON line (every arm at every K, the sources,
                 the host library among them; the topology's workers'
-                launches by member), the card line, and the final
+                launches by member; the sf:topk and sf:grid windows in
+                every entry's launches_by_path), the card line, and the final
                 {"ok": true, "device": {...}} line.
 
 Any failed phase raises and the script exits non-zero without the final
@@ -393,11 +421,18 @@ GUARD_TIMEOUT_S = 2.0         # [autotune:guard]: CAL_TIMEOUT_S of the run
 GUARD_HANG_S = 6.0            # the first measurement's host-side stall
 GUARD_MARGIN_S = 5.0          # construction within timeout + this margin
 GUARD_TRACES = 256            # traces served by the guarded matcher
-AB_ROUNDS = 3                 # [restrict:ab]: rounds of sf, sf+r, sf+r, sf
+AB_ROUNDS = 3                 # [restrict:ab], [grid]: rounds of A, B, B, A
 MODES = ("auto", "bicycle", "foot")   # [modes]: the compiled modes
 MODES_SERVED = ("bicycle", "foot")   # [modes]: the modes served on the card
 MODES_CPU_TRACES = 16         # [modes]: traces also matched on the CPU
 MODES_SERVER_REQUESTS = 8     # [modes:server]: requests checked
+GRID_BATCH_RUNS = 3           # [grid]: timed batches of the grid matcher
+TOPK_TRACES = 16              # [topk]: fleet traces ranked at T = 120
+TOPK_LONG_POINTS = 1024       # [topk]: the one long trace (the largest bucket)
+TOPK_SCORE_RTOL = 2e-6        # [topk]: card vs CPU scores (tests/test_torch_topk.py)
+CAPACITY_SLACK = 2 * 1024**2  # [capacity]: memory_allocated over the formula
+REACH_AUDIT_TRACES = 8        # [reach_audit]: fleet traces audited per tile
+#                               (cut from 16 to keep the script's time)
 PBF_DECODE_M = 1.2e-7         # [pbf]: 1e-12 degrees (the decode's bound in
 #                               tests/test_pbf.py) in meters, with margin
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -833,14 +868,14 @@ def json_records(recs):
     return [[r.to_json() for r in x] for x in recs]
 
 
-def timed_batches(m, traces):
-    """A warm-up match_many, then BATCH_RUNS timed ones. → (the last
-    run's records, fields: the batch's median, min-max spread and stage
+def timed_batches(m, traces, runs=BATCH_RUNS):
+    """A warm-up match_many, then ``runs`` timed ones. → (the last run's
+    records, fields: the batch's median, min-max spread and stage
     medians, in ms)."""
     m.match_many(traces)
     m.point_counts = dict.fromkeys(m.point_counts, 0)
     walls, stages, first = [], {k: [] for k in m.stage_seconds}, None
-    for _ in range(BATCH_RUNS):
+    for _ in range(runs):
         m.stage_seconds = dict.fromkeys(m.stage_seconds, 0.0)
         t0 = time.perf_counter()
         recs = m.match_many(traces)
@@ -855,7 +890,7 @@ def timed_batches(m, traces):
     probes = sum(len(t.xy) for t in traces)
     pc = m.point_counts
     return recs, {
-        "batches": BATCH_RUNS, "batch_ms_median": med * 1e3,
+        "batches": runs, "batch_ms_median": med * 1e3,
         "batch_ms_min": min(walls) * 1e3, "batch_ms_max": max(walls) * 1e3,
         "spread_pct_of_median": (max(walls) - min(walls)) / med * 100,
         "probes_per_s": probes / med,
@@ -1044,12 +1079,10 @@ def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
     os.environ["RTPU_AUTOTUNE_CACHE"] = cache
 
 
-def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
-    """Where the device time of one slice goes: the sweep (pre-pass +
-    kernel) per arm, the Viterbi and the wire pack, each timed alone."""
+def first_slice(m, traces):
+    """The first bucket slice of ``traces`` as the wire entries decode it
+    on the card: (prepared slice, points f32 [B, T, 2], valid [B, T])."""
     from reporter_tpu_torch.ops import match as match_ops
-    from reporter_tpu_torch.ops.hmm import viterbi_decode_batched
-    from torch.profiler import ProfilerActivity, profile
 
     work, sliced = m.plan_submit(traces)
     ps = m.prepare_submit_slice(traces, work, *sliced[0])
@@ -1062,7 +1095,17 @@ def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
         bpts = (torch.from_numpy(ps.origins).cuda()[:, None, :]
                 + q.to(torch.float32) * match_ops.OFFSET_QUANTUM)
     lens = torch.from_numpy(ps.lens).cuda()
-    bval = match_ops._valid(lens, bpts.shape[1])
+    return ps, bpts, match_ops._valid(lens, bpts.shape[1])
+
+
+def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
+    """Where the device time of one slice goes: the sweep (pre-pass +
+    kernel) per arm, the Viterbi and the wire pack, each timed alone."""
+    from reporter_tpu_torch.ops import match as match_ops
+    from reporter_tpu_torch.ops.hmm import viterbi_decode_batched
+    from torch.profiler import ProfilerActivity, profile
+
+    ps, bpts, bval = first_slice(m, traces)
     p = m.params
     cands = match_ops.batch_candidates(bpts, bval, m.tables, p)
     vit_args = (p.sigma_z, p.beta, p.max_route_distance_factor,
@@ -1112,7 +1155,7 @@ def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
                   synthesize_fleet, radius):
     """The irregular metro at full width: compile, kernel phase, gates
     line, main phase, walk phase and card-vs-CPU records, tagged
-    metro=organic. → {arm: kernel record}."""
+    metro=organic. → ({arm: kernel record}, the tile)."""
     t0 = time.perf_counter()
     net = generate_city("organic")
     gen_s = time.perf_counter() - t0
@@ -1127,6 +1170,7 @@ def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
           blocks=int(tab["seg_bbox"].shape[0]),
           reach_truncated_nodes=ts.stats["reach_truncated_nodes"])
     tiles_native_phase(card, ts, "organic")
+    grid_native_phase(card, ts, "organic")
     fleet = synthesize_fleet(ts, N_TRACES, num_points=N_POINTS, seed=0)
     pts = torch.from_numpy(fleet_points(fleet)).cuda()
     arms = kernel_phase(card, tab, pts, radius, 8, dc, build, "organic",
@@ -1153,7 +1197,7 @@ def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
     if not cpu_ok:
         raise SystemExit("organic: the card's records differ from the CPU's")
     oracle_phase(card, ts, traces, recs, cpu_recs, "organic")
-    return arms
+    return arms, ts
 
 
 def wsgi_post(app, path, payload):
@@ -3853,6 +3897,7 @@ def restrict_phase(card, dc, win, cache, base_ts, base_traces):
     phase("restrict:ab", card, arm="sub", k=8, rounds=AB_ROUNDS,
           order="sf, sf+r, sf+r, sf", batch_ms=walls, median_ms=med,
           ratio=med[ts.name] / med["sf"])
+    return ts
 
 
 def osmlr_by_road(ts):
@@ -4105,6 +4150,339 @@ def pbf_phase(card):
         raise SystemExit(f"[pbf] PBF and XML compiles differ: {bad}")
 
 
+def grid_native_phase(card, ts, metro):
+    """[grid:native]: the spatial grid of ``ts`` filled by the C++ builder
+    (tiles/native.py) and by the Python loop (tiles/compiler.py), each
+    with the compiler's capacity doubling, byte for byte equal (grid,
+    dims, origin, dropped registrations, capacity) and equal to the
+    compiled tile's; both timed."""
+    from reporter_tpu_torch.config import CompilerParams
+    from reporter_tpu_torch.tiles.compiler import _build_sized_grid
+
+    cp = CompilerParams()
+    out = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        g = _build_sized_grid(ts.seg_a, ts.seg_b, cp, use_native=native)
+        out[native] = (g, time.perf_counter() - t0)
+    (gc, c_s), (gp, py_s) = out[True], out[False]
+    equal = (gc[0].shape == gp[0].shape
+             and gc[0].tobytes() == gp[0].tobytes() and gc[1] == gp[1]
+             and gc[2].tobytes() == gp[2].tobytes() and gc[3:] == gp[3:])
+    same_as_tile = gc[0].tobytes() == ts.grid.tobytes()
+    phase("grid:native", card, metro=metro, cells=int(gc[0].shape[0]),
+          dims=list(gc[1]), capacity=gc[4],
+          capacity_start=cp.cell_capacity, overflow=int(gc[3]),
+          c_seconds=c_s, python_seconds=py_s, speedup=py_s / c_s,
+          bytes_equal=equal, equal_to_the_compiled_tile=same_as_tile)
+    if not (equal and same_as_tile):
+        raise SystemExit(f"[grid:native] {metro}: the C++ and Python grids "
+                         "differ")
+
+
+def _sorted_sets(cands):
+    """Per point, the candidate edges and their distances sorted (empty
+    slots last): comparable across backends whatever the slot order."""
+    big = torch.iinfo(torch.int32).max
+    e = torch.where(cands.valid, cands.edge, big)
+    d = torch.where(cands.valid, cands.dist, torch.zeros_like(cands.dist))
+    return torch.sort(e, dim=1).values, torch.sort(d, dim=1).values
+
+
+def grid_phase(card, ts, pts, m, traces, recs, dc, win):
+    """[grid]: sf's grid (C++ against Python), then a matcher with
+    candidate_backend="grid" on the card: GRID_BATCH_RUNS timed batches
+    of the 1024 x 120 fleet (median, stages), the grid candidate stage of
+    one slice beside the tuned sweep's, the tuned dense matcher's batch
+    and the grid matcher's in turns (dense, grid, grid, dense) AB_ROUNDS
+    times, candidate edge sets equal to the
+    sweep's on every point of ``pts`` (distance multisets within rtol
+    1e-5, atol 1e-3), the first REFERENCE_TRACES traces' records equal
+    the CPU port's grid matcher's, the traces whose records differ from
+    the tuned dense matcher's counted (a reported figure), and no sweep
+    instance launched in the grid matcher's window."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+    from reporter_tpu_torch.ops import match as match_ops
+    from reporter_tpu_torch.ops.candidates import find_candidates
+
+    grid_native_phase(card, ts, "sf")
+    p = MatcherParams(candidate_backend="grid")
+    t0 = time.perf_counter()
+    gm, built = win.run("sf:grid_build", lambda: SegmentMatcher(ts, p))
+    build_s = time.perf_counter() - t0
+    if any(built.values()) or gm.tuned_plan is not None:
+        raise SystemExit(f"[grid] the grid matcher tuned or launched: {built}")
+    gm.match_many(traces[:64])                    # warm the allocator
+    (grecs, fields), served = win.run(
+        "sf:grid", lambda: timed_batches(gm, traces, GRID_BATCH_RUNS))
+    _, bpts, bval = first_slice(m, traces)
+    stage_ms = {
+        "grid": cuda_ms(lambda: match_ops.batch_candidates(
+            bpts, bval, gm.tables, gm.params, ts.meta), reps=10),
+        "sweep_tuned": cuda_ms(lambda: match_ops.batch_candidates(
+            bpts, bval, m.tables, m.params), reps=10)}
+    walls = {"dense": [], "grid": []}
+    for r in range(AB_ROUNDS):
+        for i, name in enumerate(("dense", "grid", "grid", "dense")):
+            mm = m if name == "dense" else gm
+            t0 = time.perf_counter()
+            _, counts = win.run(f"sf:grid:ab:{name}:{r}{i}",
+                                lambda mm=mm: mm.match_many(traces))
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "dense":
+                only(counts, _tuned(m, dc), "[grid:ab] dense")
+            elif any(counts.values()):
+                raise SystemExit(f"[grid:ab] the grid matcher launched "
+                                 f"a sweep instance: {counts}")
+    ab_med = {name: statistics.median(v) for name, v in walls.items()}
+    radius, k = m.params.search_radius, m.params.max_candidates
+    grid = find_candidates(pts, gm.tables, ts.meta, radius, k)
+    dense = dc.find_candidates_dense(
+        pts, tuple(m.tables[key] for key in (
+            "seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
+            "seg_coarse")), radius, k)
+    (ge, gd), (de, dd) = _sorted_sets(grid), _sorted_sets(dense)
+    set_bad = int((ge != de).any(dim=1).sum())
+    dist_bad = int((~torch.isclose(gd, dd, rtol=1e-5, atol=1e-3)).any(
+        dim=1).sum())
+    want, got = json_records(recs), json_records(grecs)
+    cpu = SegmentMatcher(ts, p, device="cpu").match_many(
+        traces[:REFERENCE_TRACES])
+    cpu_ok = json_records(cpu) == got[:REFERENCE_TRACES]
+    phase("grid", card, metro="sf", build_s=build_s,
+          cells=int(ts.grid.shape[0]), capacity=int(ts.grid.shape[1]),
+          cell_pack_bytes=int(gm.tables["cell_pack"].numel() * 4),
+          table_bytes=gm.table_bytes, dense_table_bytes=m.table_bytes,
+          candidates_ms=stage_ms, slice_shape=list(bpts.shape[:2]),
+          grid_over_sweep=stage_ms["grid"] / stage_ms["sweep_tuned"],
+          ab_order="dense, grid, grid, dense", ab_rounds=AB_ROUNDS,
+          ab_batch_ms=walls, ab_median_ms=ab_med,
+          ab_grid_over_dense=ab_med["grid"] / ab_med["dense"],
+          points=int(pts.shape[0]), edge_set_mismatches=set_bad,
+          distance_mismatches=dist_bad,
+          candidates=int(grid.valid.sum()),
+          card_vs_cpu_records_equal=cpu_ok, traces_checked=REFERENCE_TRACES,
+          traces_differing_from_dense=sum(a != b
+                                          for a, b in zip(got, want)),
+          launches={f"{a}@k{kk}": n for (a, kk), n in served.items() if n},
+          **fields)
+    if set_bad or dist_bad or not cpu_ok or any(served.values()):
+        raise SystemExit("[grid] edge sets or distances differ from the "
+                         "sweep's, the card's records from the CPU's, or a "
+                         "sweep instance launched")
+
+
+def topk_phase(card, ts, m, traces, dc, win):
+    """[topk]: the tuned sf matcher's match_topk on the card, terminal
+    completions and the exact list Viterbi, on TOPK_TRACES fleet traces
+    of 120 points and one TOPK_LONG_POINTS-point trace: ranked paths
+    equal the CPU port's (edges and offsets; scores within
+    TOPK_SCORE_RTOL), scores ascend, rank 0 is one path in both forms,
+    the exact scores dominate the terminal ones, a longer trace raises,
+    and the window launched only the tuned instance. ms per call."""
+    from reporter_tpu_torch.matcher.api import _BUCKETS, SegmentMatcher, Trace
+    from reporter_tpu_torch.netgen.traces import synthesize_probe
+
+    pr = synthesize_probe(ts, seed=7, num_points=TOPK_LONG_POINTS)
+    long = Trace(uuid="long", xy=pr.xy.astype(np.float32), times=pr.times)
+    sets = {"t120": traces[:TOPK_TRACES], f"t{TOPK_LONG_POINTS}": [long]}
+
+    def run():
+        out = {}
+        for name, trs in sets.items():
+            for exact in (False, True):
+                res, ms = [], []
+                for tr in trs:
+                    t0 = time.perf_counter()
+                    res.append(m.match_topk(tr, exact=exact))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                out[name, exact] = (res, statistics.median(ms))
+        return out
+
+    card_out, counts = win.run("sf:topk", run)
+    only(counts, _tuned(m, dc), "[topk]")
+    cpu = SegmentMatcher(ts, device="cpu")
+    bad = []
+
+    def paths(ranked):
+        return [[(q.edge, q.offset) for q in pts] for _, pts in ranked]
+
+    for (name, exact), (res, _) in card_out.items():
+        for i, (tr, got) in enumerate(zip(sets[name], res)):
+            want = cpu.match_topk(tr, exact=exact)
+            s = [x for x, _ in got]
+            if (paths(got) != paths(want) or not s or s != sorted(s)
+                    or not np.allclose(s, [x for x, _ in want],
+                                       rtol=TOPK_SCORE_RTOL, atol=0)):
+                bad.append(f"{name}/{'exact' if exact else 'terminal'}/{i}")
+    for name in sets:
+        for i, (ex, tc) in enumerate(zip(card_out[name, True][0],
+                                         card_out[name, False][0])):
+            if (paths(ex)[:1] != paths(tc)[:1]
+                    or any(a > b + 1e-3 for (a, _), (b, _) in zip(ex, tc))):
+                bad.append(f"{name}/forms/{i}")
+    too_long = _BUCKETS[-1] + 1
+    try:
+        m.match_topk(Trace(uuid="x", xy=np.zeros((too_long, 2), np.float32),
+                           times=np.arange(float(too_long))))
+        refused = False
+    except ValueError:
+        refused = True
+    phase("topk", card, metro="sf", traces=TOPK_TRACES,
+          long_points=TOPK_LONG_POINTS,
+          ms_per_call={f"{name}_{'exact' if exact else 'terminal'}": ms
+                       for (name, exact), (_, ms) in card_out.items()},
+          paths={f"{name}_{'exact' if exact else 'terminal'}":
+                 sum(len(r) for r in res)
+                 for (name, exact), (res, _) in card_out.items()},
+          launches={f"{a}@k{kk}": n for (a, kk), n in counts.items() if n},
+          card_vs_cpu_equal=not bad, mismatches=bad[:8],
+          refused_points=too_long, refused=refused)
+    if bad or not refused:
+        raise SystemExit(f"[topk] checks failed: {bad[:8]}, refused "
+                         f"{refused}")
+
+
+def capacity_phase(card, tiles):
+    """[capacity]: plan_staging on each (name, tile); the formula
+    (dense_staged_bytes) equals the staged matcher's table_bytes, and
+    the rise of torch.cuda.memory_allocated() around staging is at least
+    the formula and within CAPACITY_SLACK of it. The card's memory
+    beside the budget."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+    from reporter_tpu_torch.tiles.capacity import (DEFAULT_HBM_BUDGET,
+                                                   plan_staging)
+
+    out, ok = {}, True
+    for name, ts in tiles:
+        t0 = time.perf_counter()
+        plan = plan_staging(ts)
+        plan_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        pm = SegmentMatcher(ts, MatcherParams(sweep_autotune=False))
+        torch.cuda.synchronize()
+        rise = torch.cuda.memory_allocated() - before
+        good = (plan.table_bytes == pm.table_bytes
+                and plan.table_bytes <= rise
+                <= plan.table_bytes + CAPACITY_SLACK)
+        ok &= good
+        out[name] = {**plan.to_json(), "table_bytes_staged": pm.table_bytes,
+                     "memory_allocated_rise": rise, "plan_s": plan_s,
+                     "held": good}
+        del pm
+    total = torch.cuda.get_device_properties(0).total_memory
+    phase("capacity", card, total_memory=total,
+          default_budget=DEFAULT_HBM_BUDGET,
+          budget_share=DEFAULT_HBM_BUDGET / total, slack=CAPACITY_SLACK,
+          tiles=out)
+    if not ok:
+        raise SystemExit("[capacity] the formula differs from the staged "
+                         "bytes or from memory_allocated")
+    return {name: o["table_bytes"] for name, o in out.items()}
+
+
+def tiles_cli_phase(card, sf_ts, sf_bytes):
+    """[tiles:cli] (host): python -m reporter_tpu_torch.tiles as
+    subprocesses, in two waves of concurrent ones (each start imports
+    torch): convert tests/fixtures/irregular.osm to PBF and synth --city
+    sf --seed 1 (sf's preset seed); then build the PBF --mode bicycle,
+    info, osmlr and osmlr --binary of the sf file. Each built file's arrays equal the
+    in-process compile's; info carries the JAX keys, with hbm_bytes equal
+    to [capacity]'s sf figure; the binary tile reads back to the
+    GeoJSON's segments."""
+    from reporter_tpu_torch.netgen.pbf import parse_osm_pbf
+    from reporter_tpu_torch.tiles.compiler import compile_network
+    from reporter_tpu_torch.tiles.osmlr_tiles import read_osmlr_tile
+    from reporter_tpu_torch.tiles.tileset import ARRAY_FIELDS, TileSet
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(SCRATCH, "tiles_cli")
+    os.makedirs(root, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=here)
+    secs = {}
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "reporter_tpu_torch.tiles", *args],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        secs[args[0] + ("_binary" if "--binary" in args else "")] = \
+            time.perf_counter() - t0
+        if proc.returncode:
+            raise SystemExit(f"[tiles:cli] {args[0]} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return json.loads(proc.stdout)
+
+    def same(path, ts):
+        got = TileSet.load(path)
+        return all(getattr(got, f).tobytes() == getattr(ts, f).tobytes()
+                   and getattr(got, f).dtype == getattr(ts, f).dtype
+                   for f in ARRAY_FIELDS) and tuple(got.meta) == tuple(ts.meta)
+
+    osm = os.path.join(here, "tests", "fixtures", "irregular.osm")
+    pbf, bike = os.path.join(root, "irregular.osm.pbf"), \
+        os.path.join(root, "bike.npz")
+    sf, geo, bin_ = (os.path.join(root, n) for n in (
+        "sf.npz", "sf.geojson", "sf.osmlr"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        conv, _ = pool.map(lambda a: cli(*a), [
+            ("convert", osm, pbf),
+            ("synth", "--city", "sf", "--seed", "1", "-o", sf)])
+        built, info, geo_line, bin_line = pool.map(lambda a: cli(*a), [
+            ("build", "--osm", pbf, "--mode", "bicycle", "-o", bike),
+            ("info", sf), ("osmlr", sf, "-o", geo),
+            ("osmlr", sf, "--binary", "-o", bin_)])
+    wall_s = time.perf_counter() - t0
+    bike_ok = same(bike, compile_network(parse_osm_pbf(pbf, "irregular"),
+                                         mode="bicycle"))
+    sf_ok = same(sf, sf_ts)
+    keys = ["name", "nodes", "edges", "line_segments", "osmlr_segments",
+            "grid_cells", "hbm_bytes", "meta", "stats"]
+    info_ok = (list(info) == keys and info["hbm_bytes"] == sf_bytes
+               and info["grid_cells"] == int(sf_ts.grid.shape[0])
+               and info["edges"] == sf_ts.num_edges)
+    n_geo, n_bin = geo_line["segments"], bin_line["segments"]
+    with open(geo) as f:
+        feats = json.load(f)["features"]
+    segs = read_osmlr_tile(bin_)["segments"]
+    osmlr_ok = n_geo == n_bin == len(feats) == len(segs) > 0 and all(
+        s["id"] == g["id"] and s["way_ids"] == g["properties"]["way_ids"]
+        and abs(s["length_m"] - g["properties"]["length_m"]) <= 0.005
+        and np.allclose(s["coordinates"], g["geometry"]["coordinates"],
+                        atol=1.5e-7, rtol=0)
+        for s, g in zip(segs, feats))
+    phase("tiles:cli", card, seconds=secs, wall_s=wall_s, converted=conv,
+          bicycle_edges=built["stats"]["edges"], bicycle_equal=bike_ok,
+          synth_equal=sf_ok, info_ok=info_ok, hbm_bytes=info["hbm_bytes"],
+          osmlr_segments=n_geo, osmlr_binary_bytes=os.path.getsize(bin_),
+          osmlr_geojson_bytes=os.path.getsize(geo), osmlr_equal=osmlr_ok)
+    if not (bike_ok and sf_ok and info_ok and osmlr_ok):
+        raise SystemExit("[tiles:cli] a subcommand's output differs")
+
+
+def reach_audit_phase(card, tiles):
+    """[reach_audit] (host): audit_reach on each (name, tile) over
+    REACH_AUDIT_TRACES fleet traces of N_POINTS points: the summary and
+    the seconds."""
+    from reporter_tpu_torch.netgen.traces import synthesize_fleet
+    from reporter_tpu_torch.tiles.reach_audit import audit_reach
+
+    for name, ts in tiles:
+        fleet = synthesize_fleet(ts, REACH_AUDIT_TRACES, num_points=N_POINTS,
+                                 seed=0)
+        t0 = time.perf_counter()
+        audit = audit_reach(ts, [p.xy for p in fleet])
+        phase("reach_audit", card, metro=name, traces=REACH_AUDIT_TRACES,
+              seconds=time.perf_counter() - t0, host_cpu=host_cpu(),
+              **audit.summary())
+        if not audit.pairs_accepted_exact:
+            raise SystemExit(f"[reach_audit] {name}: nothing audited")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -4224,17 +4602,28 @@ def main() -> int:
             raise SystemExit("reference check failed")
         oracle_phase(card, ts, traces, recs, cpu_recs, "sf")
 
+        # ---- the grid candidate backend and ranked paths (sf) -----------
+        grid_phase(card, ts, pts, m, traces, recs, dc, win)
+        topk_phase(card, ts, m, traces, dc, win)
+
         # ---- restricted and per-mode sf, PBF input ----------------------
-        restrict_phase(card, dc, win, cache, ts, traces)
+        ts_r = restrict_phase(card, dc, win, cache, ts, traces)
         bike = modes_phase(card, dc, win, cache)
         modes_server_phase(card, bike, cache)
         pbf_phase(card)
 
         # ---- 6. the organic metro -----------------------------------------
-        organic = organic_phase(card, dc, build, win, MatcherParams,
-                                SegmentMatcher, Trace, generate_city,
-                                compile_network, tables_from_numpy,
-                                synthesize_fleet, radius)
+        organic, ts_o = organic_phase(card, dc, build, win, MatcherParams,
+                                      SegmentMatcher, Trace, generate_city,
+                                      compile_network, tables_from_numpy,
+                                      synthesize_fleet, radius)
+
+        # ---- the tile tools: capacity, the command line, the audit -------
+        staged = capacity_phase(card, [("sf", ts), (ts_r.name, ts_r),
+                                       ("organic", ts_o)])
+        tiles_cli_phase(card, ts, staged["sf"])
+        reach_audit_phase(card, [("sf", ts), (ts_r.name, ts_r)])
+        del ts_o
 
         # ---- 7. the report service, in-process and as the entry point ---
         served = serve_phase(card, ts, fleet, dc, win, cache)
@@ -4268,7 +4657,7 @@ def main() -> int:
         for k in dc.SWEEP_KS:
             a = arms[arm] if k == 8 else by_k[k][arm]
             paths = {path: c[arm, k] for path, c in win.by_path.items()
-                     if c[arm, k]}
+                     if c[arm, k] or path in ("sf:topk", "sf:grid")}
             entry = {
                 "name": f"sweep_topk_{arm}_k{k}", "route": "cuda",
                 "source": SOURCES[0], "replaces": replaces,

@@ -4,13 +4,9 @@ Counterpart: reporter_tpu/config.py (MatcherParams, CompilerParams,
 ServiceConfig, Config). Field names, defaults and environment variables
 are the JAX package's, so one parameter set means the same thing in
 both, and ``Config.load`` / ``from_json`` read a JSON config the JAX
-package wrote. A field whose feature the port does not have yet raises
-NotImplementedError naming its ROADMAP item when set away from its
-default; it is never ignored:
-
-  MatcherParams.candidate_backend="grid"       queue 1 item 5
-  CompilerParams cell_size / cell_capacity /
-  index_radius (the spatial grid)              queue 1 item 5
+package wrote. Every field takes effect: ``candidate_backend="grid"``
+gathers candidates from the spatial grid the compiler builds with
+``cell_size``, ``cell_capacity`` and ``index_radius``.
 
 ``StreamingConfig`` is the JAX package's, field for field; it has no
 environment variables there either.
@@ -47,9 +43,10 @@ class MatcherParams:
     beta: float = 3.0              # transition scale (m)
     search_radius: float = 50.0    # candidate search radius (m)
     max_candidates: int = 8        # top-K candidates per point
-    candidate_backend: str = "auto"  # "auto" and "dense" run the dense
-    #                                sweep (this port's only candidate
-    #                                backend); "grid" raises
+    candidate_backend: str = "auto"  # "dense" (and "auto", on either
+    #                                device) runs the dense sweep; "grid"
+    #                                gathers each point's cell row of the
+    #                                spatial grid (ops/candidates.py)
     sweep_subcull: bool = True     # dense sweep: per-slice bbox culling
     #                                inside each segment block (the
     #                                two-level kernel arms); False = the
@@ -91,10 +88,6 @@ class MatcherParams:
             raise ValueError(f"unknown candidate_backend "
                              f"{self.candidate_backend!r}; use 'auto', "
                              "'dense' or 'grid'")
-        if self.candidate_backend == "grid":
-            raise NotImplementedError(
-                "candidate_backend='grid' (the cell-row gather over the "
-                "spatial grid) is not ported: ROADMAP queue 1 item 5")
         if self.sweep_nj_cap != 128:
             raise ValueError(
                 f"sweep_nj_cap={self.sweep_nj_cap}: the CUDA sweep has no "
@@ -178,39 +171,28 @@ class MatcherParams:
         raise ValueError(f"unknown mode {mode!r}; one of {list(_MODES)}")
 
 
-# the compiler's spatial-grid fields and their defaults: the dense layout
-# builds no grid, so only the defaults are taken
-_GRID_DEFAULTS = {"cell_size": 64.0, "cell_capacity": 64,
-                  "index_radius": 50.0}
-
-
 @dataclass(frozen=True)
 class CompilerParams:
-    """Offline tile-compiler parameters (the dense layout needs no grid).
+    """Offline tile-compiler parameters.
 
-    ``cell_size``, ``cell_capacity`` and ``index_radius`` size the JAX
-    package's spatial grid; they are kept so one JSON config reads in
-    both packages, and a value away from the default raises (the grid
-    backend, ROADMAP queue 1 item 5). ``use_native`` builds the node-space
-    reach rows with the C++ builder of the host library (built by g++ at
-    first use; a failed build raises); False picks the Python builder.
-    The tables are the same either way."""
+    ``cell_size``, ``cell_capacity`` and ``index_radius`` size the spatial
+    grid of the grid candidate backend: every line segment is registered
+    in each cell within ``index_radius`` of its bbox, so one cell row
+    holds every segment within a search radius up to ``index_radius``;
+    the compiler doubles the capacity while a cell overflows.
+    ``use_native`` builds the grid and the node-space reach rows with the
+    C++ builders of the host library (built by g++ at first use; a failed
+    build raises); False picks the Python builders. The tables are the
+    same either way."""
 
-    cell_size: float = 64.0
-    cell_capacity: int = 64
-    index_radius: float = 50.0
+    cell_size: float = 64.0        # spatial-grid cell edge (m)
+    cell_capacity: int = 64        # segments per cell row (-1 padded);
+    #                                doubled on overflow, up to 1024
+    index_radius: float = 50.0     # grid registration dilation (m)
     reach_radius: float = 600.0    # reachability precompute radius (m)
     reach_max: int = 128           # max reachable targets kept per node row
     osmlr_max_length: float = 1000.0  # OSMLR chaining target length (m)
     use_native: bool = True
-
-    def __post_init__(self):
-        for name, default in _GRID_DEFAULTS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"CompilerParams.{name}={getattr(self, name)!r}: the "
-                    "spatial grid (grid candidate backend) is not ported: "
-                    "ROADMAP queue 1 item 5")
 
 
 @dataclass(frozen=True)
@@ -382,8 +364,11 @@ class Config:
         return cls(matcher=p, service=svc, **kw)
 
     def validate(self) -> "Config":
-        """Cross-section invariants, as the JAX package's; the features the
-        port does not have raise NotImplementedError."""
+        """Cross-section invariants, as the JAX package's. An explicitly
+        grid matcher needs the compiler's ``index_radius`` to cover its
+        search radius (the single-cell gather sees no farther); the
+        authoritative check, against the tile's own index radius, runs at
+        every grid dispatch (ops/match.py)."""
         m = self.matcher
         if m.sweep_lowp not in ("off", "bf16"):
             raise ValueError(f"unknown matcher.sweep_lowp {m.sweep_lowp!r}; "
@@ -396,6 +381,12 @@ class Config:
             raise ValueError(
                 "matcher.sweep_mxu=True requires sweep_subcull=True — "
                 "the whole-block kernel has no matmul coarse pass")
+        if (m.candidate_backend == "grid"
+                and self.compiler.index_radius < m.search_radius):
+            raise ValueError(
+                f"compiler.index_radius ({self.compiler.index_radius}) must "
+                f"be >= matcher.search_radius ({m.search_radius}) for the "
+                "single-cell grid gather to cover the search radius")
         if self.matcher_backend not in ("torch", "reference_cpu"):
             raise ValueError(
                 f"unknown matcher_backend {self.matcher_backend!r}")

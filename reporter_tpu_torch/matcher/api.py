@@ -11,8 +11,8 @@ path:
    quanta where every step fits, else i16 quanta, else f32 points — by
    the C prepare (matcher/native_prepare.py);
 2. device: one ``ops.match.wire_from_*`` call per bucket slice (dense
-   sweep kernel → Viterbi → wire pack), each dispatched as soon as its
-   slice is prepared;
+   sweep kernel, or the grid backend's cell-row gather, → Viterbi → wire
+   pack), each dispatched as soon as its slice is prepared;
 3. host harvest: ``unpack_wire`` and the C edge walk
    (matcher/native_walk.py) turn the wire into record columns. A worker
    thread walks slice k while the main thread waits on slice k + 1's
@@ -67,6 +67,15 @@ callers' retry: the streaming wave release, the app's 503) or, under
 in ``dispatch_fallback``. An exception of the body, a CUDA build or
 launch error among them, is re-raised, never degraded. Past four
 abandoned bodies still stuck, the breaker degrades at once.
+
+``candidate_backend="grid"`` stages the grid's ``cell_pack`` instead of
+the segment pack and gathers candidates from each point's cell row
+(ops/candidates.py); the tuner does not act on it (it has no kernel arms,
+as in the JAX package), and no sweep instance launches. ``"auto"`` is
+dense on both devices (the JAX package takes the grid on a CPU backend).
+``match_topk`` ranks a trace's path interpretations (terminal
+completions, or with ``exact=True`` the list Viterbi's exact K best) on
+the matcher's own candidates.
 
 Not ported here: fleet paging (and with it a plan staged in the tables)
 and mesh sharding.
@@ -307,7 +316,8 @@ class SegmentMatcher:
                 self._dij_cache)
             return
         self.device = resolve_device(device)
-        self.tables = tables_from_numpy(tileset.arrays(), self.device)
+        self.tables = tables_from_numpy(tileset.arrays(), self.device,
+                                        self.params.candidate_backend)
         self.wire_spec = match_ops.wire_spec(
             tileset.num_edges,
             float(tileset.edge_len.max()) if tileset.num_edges else 0.0)
@@ -335,7 +345,7 @@ class SegmentMatcher:
 
             def run():
                 match_ops.batch_candidates(state["pts"], state["valid"],
-                                           self.tables, p)
+                                           self.tables, p, self.ts.meta)
 
             run()                       # untimed: builds the kernel library
             torch.cuda.synchronize(self.device)
@@ -548,6 +558,70 @@ class SegmentMatcher:
         return [MatchedPoint(int(e), float(o), bool(st))
                 for e, o, st in zip(*trip)]
 
+    def match_topk(self, trace: Trace, exact: bool = False,
+                   ) -> "list[tuple[float, list[MatchedPoint]]]":
+        """Ranked path interpretations of one trace, best first, as (score,
+        per-point MatchedPoint list) pairs (chain_start False). The best
+        path is the global optimum. ``exact=False``: each alternate is the
+        optimal path ending at one of the final chain's terminal
+        candidates (ops/hmm.viterbi_topk_paths); ``exact=True``: the final
+        chain's ``max_candidates`` globally best paths (the list Viterbi,
+        viterbi_kbest_paths). Candidates come from the matcher's own
+        ``batch_candidates`` (the tuned sweep instance, or the grid
+        gather) with the accuracy down-weighting ``match`` applies.
+        Defined over at most one largest bucket (1024 points): ranked
+        alternates do not compose across chunks, so a longer trace raises
+        ValueError. The reference_cpu backend raises
+        NotImplementedError."""
+        if self.backend != "torch":
+            raise NotImplementedError(
+                "match_topk requires the torch backend")
+        if len(trace.xy) > _BUCKETS[-1]:
+            raise ValueError(
+                f"match_topk is defined over ≤{_BUCKETS[-1]} points "
+                f"(got {len(trace.xy)}); ranked alternates do not compose "
+                "across chunks — split or decimate the trace, or use "
+                "match_many for the best-path decode")
+        from reporter_tpu_torch.ops.hmm import (viterbi_kbest_paths,
+                                                viterbi_topk_paths)
+
+        xy = trace.xy
+        n = len(xy)
+        pts = np.zeros((1, _bucket_len(max(n, 1)), 2), np.float32)
+        pts[0, :n] = xy
+        valid = np.zeros((1, pts.shape[1]), bool)
+        valid[0, :n] = True
+        pj = torch.from_numpy(pts).to(self.device)
+        vj = torch.from_numpy(valid).to(self.device)
+        cands = match_ops.batch_candidates(pj, vj, self.tables, self.params,
+                                           self.ts.meta)
+        tc = match_ops.CandidateSet(*(x[0] for x in cands))
+        p = self.params
+        if trace.accuracy is not None:
+            scale = _accuracy_scale(trace.accuracy[:n], p.sigma_z,
+                                    pts.shape[1])
+            tc = tc._replace(dist=tc.dist * torch.from_numpy(scale).to(
+                self.device)[:, None])
+        args = (tc, pj[0], vj[0], self.tables, p.sigma_z, p.beta,
+                p.max_route_distance_factor, p.breakage_distance,
+                p.backward_slack, p.interpolation_distance)
+        if exact:
+            choices, scores, ok = viterbi_kbest_paths(
+                *args, num_paths=p.max_candidates)
+        else:
+            choices, scores, ok = viterbi_topk_paths(*args)
+        ce, co = tc.edge.cpu().numpy(), tc.offset.cpu().numpy()
+        choices, scores, ok = (x.cpu().numpy() for x in (choices, scores, ok))
+        out = []
+        for r in range(choices.shape[0]):
+            if not ok[r]:
+                continue
+            out.append((float(scores[r]), [
+                MatchedPoint(int(ce[t, c]) if c >= 0 else -1,
+                             float(co[t, c]) if c >= 0 else 0.0, False)
+                for t, c in enumerate(choices[r][:n])]))
+        return out
+
     @staticmethod
     def _interleaves(traces: Sequence[Trace]) -> bool:
         """The overlapped columnar harvest serves this batch: more than
@@ -618,16 +692,17 @@ class SegmentMatcher:
             return None if x is None else torch.from_numpy(x).to(self.device)
 
         lens, origins, acc = dev(ps.lens), dev(ps.origins), dev(ps.scale)
+        meta = self.ts.meta
         if ps.mode == 2:
             return match_ops.wire_from_q8(dev(ps.payload), origins, lens,
                                           self.tables, self.params, acc,
-                                          self.wire_spec)
+                                          self.wire_spec, meta)
         if ps.mode == 1:
             return match_ops.wire_from_q16(dev(ps.payload), origins, lens,
                                            self.tables, self.params, acc,
-                                           self.wire_spec)
+                                           self.wire_spec, meta)
         return match_ops.wire_from_f32(dev(ps.pts), lens, self.tables,
-                                       self.params, acc, self.wire_spec)
+                                       self.params, acc, self.wire_spec, meta)
 
     def _submit_many(self, traces: Sequence[Trace]):
         """Prepare each slice and dispatch it at once, so the card starts

@@ -13,7 +13,8 @@ list and has no such rung, so a port plan carries the constant
 ``PLAN_NJ_CAP`` in that slot of its label and vector.
 
 Resolution (``resolve_plan``): explicit sweep levers always win, and a
-matcher on the CPU does not tune (its plain path has no arms); else the
+matcher on the CPU, or on the grid candidate backend, does not tune (no
+kernel arms to choose among); else the
 on-disk cache keyed on tile fingerprint × device name, then a short
 calibration of ``CAL_DISPATCHES`` timed dispatches per candidate.
 ``calibrate`` and ``resolve_plan`` take the measure callable, so the
@@ -307,7 +308,7 @@ def resolve_plan(params: MatcherParams, ts,
                  devkey: "str | None" = None,
                  ) -> "tuple[TunedPlan | None, dict]":
     """(plan to apply | None, info). None means the tuner does not act
-    (off, explicit levers, a CPU matcher) and the params serve as they
+    (off, explicit levers, a CPU or grid matcher) and the params serve as they
     are; ``info["source"]`` says why. ``watchdog`` (an
     AbandonedThreadWatchdog) bounds each candidate's measurement by
     ``timeout_s``; a timeout or an open breaker gives the default plan
@@ -323,7 +324,9 @@ def resolve_plan(params: MatcherParams, ts,
         import torch
 
         backend = "cuda" if torch.cuda.is_available() else "cpu"
-    if backend == "cpu":
+    if backend == "cpu" or params.candidate_backend == "grid":
+        # the JAX package's short-circuit: the grid gather has no kernel
+        # arms to tune (it reports the same source)
         return None, {"source": "cpu"}
 
     fingerprint = tile_fingerprint(ts)

@@ -5,8 +5,9 @@
 ``reporter_tail_cuts``) and ``walker.cc`` (the edge walk:
 ``reporter_walk_segments``) are the host half of ``match_many`` and of
 the stream pipelines' report build; ``reach.cc`` (the tile compiler's
-node-space reach tables: ``reporter_build_reach``) is the compiler's
-default builder (tiles/native.py). ``g++``
+node-space reach tables, ``reporter_build_reach``, and the spatial
+grid's fill, ``reporter_build_grid``) holds the compiler's default
+builders (tiles/native.py). ``g++``
 compiles them at first use into ``reporter_tpu_torch/_build/``: one shared
 library with a plain C interface, loaded with ``ctypes.CDLL`` (not
 ``PyDLL``), so a call releases the GIL and a walk can run beside the main
@@ -132,6 +133,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32p, f32p,                              # edge_dst, edge_len
         f64, i32, i32,                           # radius, M, n_threads
         i32p, f32p, i32p,                        # reach_{to,dist,next}
+    ]
+    f32 = ctypes.c_float
+    lib.reporter_build_grid.restype = i64
+    lib.reporter_build_grid.argtypes = [
+        f32p, f32p, f32p, f32p, i64,             # x0, y0, x1, y1, S
+        f32, f32, f32,                           # origin x, y; cell size
+        i32, i32, i32,                           # gw, gh, capacity
+        i32p, i32p,                              # grid, counts
     ]
 
 

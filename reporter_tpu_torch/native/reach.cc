@@ -11,9 +11,15 @@
 //     walk binary-searches rows).
 // A restricted tile's ban-aware rows are built in Python on top of these
 // (tiles/reach.py::build_reach_tables_restricted).
+//
+// Also the spatial grid's fill (reporter_build_grid), the counterpart of
+// the JAX package's: byte for byte the loop of tiles/compiler.py's
+// _build_grid, whose cell indices numpy computes in f32 (f32 corners,
+// origin and cell size), so this fill computes them in float too.
 
 #include <algorithm>
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <limits>
 #include <queue>
@@ -145,6 +151,39 @@ int64_t reporter_build_reach(const int32_t* node_out, int64_t num_nodes,
   for (int32_t t = 0; t < n_threads; ++t) pool.emplace_back(worker);
   for (auto& th : pool) th.join();
   return truncated.load();
+}
+
+// The spatial grid's fill: register segment s in every cell of its
+// dilated box [x0, x1] x [y0, y1]; grid is i32 [gw*gh, cap] pre-filled
+// with -1, counts i32 [gw*gh] zeroed. Cells fill in segment order.
+// Returns the registrations dropped by full cells.
+int64_t reporter_build_grid(const float* x0, const float* y0,
+                            const float* x1, const float* y1,
+                            int64_t num_segs, float lox, float loy,
+                            float cell, int32_t gw, int32_t gh, int32_t cap,
+                            int32_t* grid, int32_t* counts) {
+  auto index = [cell](float v, float lo, int32_t n) {
+    // numpy: floor(f32(v - lo) / f32 cell), then clip to [0, n - 1]
+    const float q = std::floor((v - lo) / cell);
+    return std::clamp(int64_t(q), int64_t(0), int64_t(n - 1));
+  };
+  int64_t overflow = 0;
+  for (int64_t s = 0; s < num_segs; ++s) {
+    const int64_t cx0 = index(x0[s], lox, gw), cx1 = index(x1[s], lox, gw);
+    const int64_t cy0 = index(y0[s], loy, gh), cy1 = index(y1[s], loy, gh);
+    for (int64_t cx = cx0; cx <= cx1; ++cx) {
+      for (int64_t cy = cy0; cy <= cy1; ++cy) {
+        const int64_t c = cx * gh + cy;
+        if (counts[c] < cap) {
+          grid[c * cap + counts[c]] = int32_t(s);
+          counts[c] += 1;
+        } else {
+          ++overflow;
+        }
+      }
+    }
+  }
+  return overflow;
 }
 
 }  // extern "C"

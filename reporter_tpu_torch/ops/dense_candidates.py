@@ -210,6 +210,19 @@ def _split_long_segments(seg_a, seg_b, seg_edge, seg_off, seg_len,
                             * (f1 - f0)[:, 0]]).astype(np.float32))
 
 
+def packed_columns(seg_len: np.ndarray, block: int = _SBLK,
+                   split_len: float = SPLIT_LEN) -> int:
+    """build_seg_pack's padded column count after the long-segment split,
+    from the segment lengths alone (tiles/capacity.py's shape math): the
+    piece count of _split_long_segments, rounded up to whole blocks."""
+    s = len(seg_len)
+    if split_len and s:
+        long = seg_len > split_len
+        s = int(s - long.sum()
+                + np.ceil(seg_len[long] / split_len).sum())
+    return max(block, -(-s // block) * block)
+
+
 def build_seg_pack(seg_a: np.ndarray, seg_b: np.ndarray, seg_edge: np.ndarray,
                    seg_off: np.ndarray, seg_len: np.ndarray,
                    block: int = _SBLK, split_len: float = SPLIT_LEN) -> SegPack:

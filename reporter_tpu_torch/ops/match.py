@@ -1,8 +1,8 @@
 """The per-batch device program: candidates → Viterbi → result wire.
 
-Counterpart: reporter_tpu/ops/match.py. ``match_traces`` runs the dense
-candidate sweep over the flattened [B*T] point batch and the batched
-Viterbi; the ``wire_from_*`` entries decode the three infeed forms (f32
+Counterpart: reporter_tpu/ops/match.py. ``match_traces`` runs the
+candidate search (the dense sweep over the flattened [B*T] point batch,
+or the grid backend's cell-row gather) and the batched Viterbi; the ``wire_from_*`` entries decode the three infeed forms (f32
 points, i16 0.25 m quanta, i8 per-step deltas of those quanta) and pack
 the result into ONE array, so it crosses to the host as one transfer.
 ``unpack_wire`` (numpy) is the host side.
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from reporter_tpu_torch.config import MatcherParams
+from reporter_tpu_torch.ops.candidates import find_candidates
 from reporter_tpu_torch.ops.dense_candidates import (CandidateSet,
                                                      find_candidates_dense)
 from reporter_tpu_torch.ops.hmm import viterbi_decode_batched
@@ -41,12 +42,37 @@ class MatchOutput(NamedTuple):
     matched: torch.Tensor      # bool
 
 
-def batch_candidates(points, valid_pt, tables, params: MatcherParams
-                     ) -> CandidateSet:
-    """Candidates for a batch of traces: points f32 [B, T, 2] → [B, T, K],
-    one sweep over the flattened [B*T] point batch, in the kernel arm the
-    params' sweep levers select."""
+def _check_grid_coverage(params: MatcherParams, meta) -> None:
+    """The single-cell gather covers the registration dilation only: a
+    search radius past the tile's index_radius would drop roads."""
+    if meta is None:
+        raise ValueError("candidate_backend='grid' needs the tile's grid "
+                         "metadata (meta=TileSet.meta)")
+    if params.search_radius > meta.index_radius:
+        raise ValueError(
+            f"search_radius ({params.search_radius}) exceeds tile "
+            f"index_radius ({meta.index_radius}); recompile tiles with "
+            "index_radius >= radius")
+
+
+def batch_candidates(points, valid_pt, tables, params: MatcherParams,
+                     meta=None) -> CandidateSet:
+    """Candidates for a batch of traces: points f32 [B, T, 2] → [B, T, K].
+
+    ``params.candidate_backend``: "dense" (and "auto") runs one sweep over
+    the flattened [B*T] point batch, in the kernel arm the params' sweep
+    levers select; "grid" gathers each point's cell row of
+    ``tables["cell_pack"]`` (every point, padding included, as the JAX
+    package's does), with ``meta`` the tile's TileMeta (or GridMeta)."""
     B, T = points.shape[:2]
+    backend = params.candidate_backend
+    if backend == "grid":
+        _check_grid_coverage(params, meta)
+        return find_candidates(points, tables, meta, params.search_radius,
+                               params.max_candidates)
+    if backend not in ("auto", "dense"):
+        raise ValueError(f"unknown candidate_backend {backend!r}; use "
+                         "'auto', 'dense' or 'grid'")
     flat = find_candidates_dense(
         points.reshape(B * T, 2),
         (tables["seg_pack"], tables["seg_bbox"], tables["seg_sub"],
@@ -58,11 +84,12 @@ def batch_candidates(points, valid_pt, tables, params: MatcherParams
 
 
 def match_traces(points, valid_pt, tables, params: MatcherParams,
-                 acc_scale=None) -> MatchOutput:
+                 acc_scale=None, meta=None) -> MatchOutput:
     """Match a batch: points f32 [B, T, 2], valid_pt bool [B, T].
     acc_scale f32 [B, T] (optional) scales candidate distances by
-    sigma_z / max(sigma_z, accuracy): a per-point emission sigma."""
-    cands = batch_candidates(points, valid_pt, tables, params)
+    sigma_z / max(sigma_z, accuracy): a per-point emission sigma. ``meta``
+    is the tile's grid metadata (the grid backend's)."""
+    cands = batch_candidates(points, valid_pt, tables, params, meta)
     if acc_scale is not None:
         cands = cands._replace(dist=cands.dist * acc_scale[..., None])
     vit = viterbi_decode_batched(
@@ -80,28 +107,28 @@ def _valid(lengths, T: int):
 
 
 def wire_from_f32(points, lengths, tables, params: MatcherParams,
-                  acc_scale=None, spec=None):
+                  acc_scale=None, spec=None, meta=None):
     """points f32 [B, T, 2], lengths i32 [B] (valid prefix per trace) →
     wire array; unpack with unpack_wire()."""
     out = match_traces(points, _valid(lengths, points.shape[1]), tables,
-                       params, acc_scale)
+                       params, acc_scale, meta)
     return _pack_wire(out, tables["edge_len"].shape[0], spec)
 
 
 def wire_from_q16(points_q, origins, lengths, tables, params: MatcherParams,
-                  acc_scale=None, spec=None):
+                  acc_scale=None, spec=None, meta=None):
     """points_q i16 [B, T, 2]: 0.25 m fixed-point offsets from per-trace
     origins f32 [B, 2]."""
     quantum = torch.tensor(OFFSET_QUANTUM, dtype=torch.float32,
                            device=points_q.device)
     points = origins[:, None, :] + points_q.to(torch.float32) * quantum
     out = match_traces(points, _valid(lengths, points_q.shape[1]), tables,
-                       params, acc_scale)
+                       params, acc_scale, meta)
     return _pack_wire(out, tables["edge_len"].shape[0], spec)
 
 
 def wire_from_q8(deltas_q, origins, lengths, tables, params: MatcherParams,
-                 acc_scale=None, spec=None):
+                 acc_scale=None, spec=None, meta=None):
     """deltas_q i8 [B, T, 2]: per-step differences of the i16 quanta (first
     step 0). An integer cumsum rebuilds the i16 absolutes exactly, so this
     entry equals wire_from_q16 on every valid point."""
@@ -110,7 +137,7 @@ def wire_from_q8(deltas_q, origins, lengths, tables, params: MatcherParams,
                            device=deltas_q.device)
     points = origins[:, None, :] + q.to(torch.float32) * quantum
     out = match_traces(points, _valid(lengths, deltas_q.shape[1]), tables,
-                       params, acc_scale)
+                       params, acc_scale, meta)
     return _pack_wire(out, tables["edge_len"].shape[0], spec)
 
 

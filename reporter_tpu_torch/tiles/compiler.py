@@ -4,13 +4,14 @@ Counterpart: reporter_tpu/tiles/compiler.py. One offline pass: a mode's
 subgraph (``mode=``), directed edges and their polylines, OSMLR chaining
 (on the full network for a mode compile, so a road's segment id is the
 same in every mode), decomposition into line segments, turn restrictions
-lowered to banned edge pairs, and the reach tables: node rows from the
-C++ builder (tiles/native.py) unless ``CompilerParams(use_native=False)``
-picks the Python one, then, on a restricted tile, the ban-affected node
-rows and the private from-edge rows in edge space (tiles/reach.py). The
-JAX package's spatial grid (the grid candidate backend) is not part of
-this port; every array the port builds equals the JAX package's compile
-bit for bit.
+lowered to banned edge pairs, the spatial grid of the grid candidate
+backend (its capacity doubled while a cell overflows), and the reach
+tables: node rows from the C++ builder (tiles/native.py) unless
+``CompilerParams(use_native=False)`` picks the Python one, then, on a
+restricted tile, the ban-affected node rows and the private from-edge
+rows in edge space (tiles/reach.py). The grid's cells are filled by the
+C++ builder under the same switch. Every array the port builds equals
+the JAX package's compile bit for bit.
 """
 
 from __future__ import annotations
@@ -244,6 +245,64 @@ def _decompose_segments(shapes: list[np.ndarray]):
             np.asarray(seg_off, np.float32), seg_len, edge_len)
 
 
+def _build_grid(seg_a: np.ndarray, seg_b: np.ndarray, cell_size: float,
+                capacity: int, index_radius: float, use_native: bool = False):
+    """Padded uniform grid over line segments, dilated by ``index_radius``:
+    a segment is registered in every cell within ``index_radius`` of its
+    bbox, so a point reads its own cell's row alone and still sees every
+    segment within a search radius up to ``index_radius``. → (grid i32
+    [gw*gh, capacity] -1 padded, (gw, gh), origin f64 [2], registrations
+    dropped by full cells). Cells are filled in segment order, so a row
+    lists its segments (and edges) ascending. ``use_native`` fills them
+    with the C++ builder (tiles/native.py), byte for byte this loop."""
+    smin = np.minimum(seg_a, seg_b) - index_radius
+    smax = np.maximum(seg_a, seg_b) + index_radius
+    lo = smin.min(axis=0) - 1.0
+    hi = smax.max(axis=0) + 1.0
+    gw = max(1, int(np.ceil((hi[0] - lo[0]) / cell_size)))
+    gh = max(1, int(np.ceil((hi[1] - lo[1]) / cell_size)))
+    if use_native:
+        from reporter_tpu_torch.tiles.native import build_grid_native
+
+        grid, overflow = build_grid_native(smin, smax, lo, cell_size, gw, gh,
+                                           capacity)
+        return grid, (gw, gh), lo.astype(np.float64), overflow
+    grid = np.full((gw * gh, capacity), -1, dtype=np.int32)
+    counts = np.zeros(gw * gh, dtype=np.int32)
+    overflow = 0
+    c0 = np.floor((smin - lo) / cell_size).astype(np.int64)
+    c1 = np.floor((smax - lo) / cell_size).astype(np.int64)
+    c0 = np.clip(c0, 0, [gw - 1, gh - 1])
+    c1 = np.clip(c1, 0, [gw - 1, gh - 1])
+    for s in range(len(seg_a)):
+        for cx in range(c0[s, 0], c1[s, 0] + 1):
+            for cy in range(c0[s, 1], c1[s, 1] + 1):
+                cell = cx * gh + cy
+                if counts[cell] < capacity:
+                    grid[cell, counts[cell]] = s
+                    counts[cell] += 1
+                else:
+                    overflow += 1
+    return grid, (gw, gh), lo.astype(np.float64), overflow
+
+
+def _build_sized_grid(seg_a: np.ndarray, seg_b: np.ndarray,
+                      params: CompilerParams, use_native: bool):
+    """``_build_grid`` at the compiler's capacity: it starts at
+    ``params.cell_capacity`` and doubles while a cell overflows (an
+    overflowed cell hides candidates from the grid backend), up to 1024;
+    it costs offline time and a table only a grid matcher stages. →
+    (grid, (gw, gh), origin, registrations dropped, capacity)."""
+    capacity = params.cell_capacity
+    while True:
+        grid, dims, origin, overflow = _build_grid(
+            seg_a, seg_b, params.cell_size, capacity, params.index_radius,
+            use_native=use_native)
+        if not overflow or capacity >= 1024:
+            return grid, dims, origin, overflow, capacity
+        capacity *= 2
+
+
 def _build_node_out(num_nodes: int, edge_src: np.ndarray):
     order = np.argsort(edge_src, kind="stable")
     degree = np.bincount(edge_src, minlength=num_nodes)
@@ -307,6 +366,9 @@ def compile_network(net: RoadNetwork, params: "CompilerParams | None" = None,
             net, edge_len, edge_src, edge_dst, edge_opp, fwd_of_leg,
             rev_of_leg, params.osmlr_max_length)
 
+    grid, grid_dims, grid_origin, overflow, capacity = _build_sized_grid(
+        seg_a, seg_b, params, params.use_native)
+
     node_out = _build_node_out(net.num_nodes, edge_src)
     banned_pairs = _resolve_restrictions(net, edge_src, edge_dst, edge_way,
                                          node_out)
@@ -314,16 +376,30 @@ def compile_network(net: RoadNetwork, params: "CompilerParams | None" = None,
      edge_reach_row) = _build_reach(
         node_out, edge_src, edge_dst, edge_len, node_xy, banned_pairs, params)
 
+    if overflow:
+        import warnings
+
+        warnings.warn(
+            f"{net.name}: spatial grid dropped {overflow} segment "
+            f"registrations even at the auto-sizing ceiling "
+            f"(cell_capacity={capacity}, started at {params.cell_capacity});"
+            " candidate search may miss roads in dense cells — shrink "
+            "cell_size or thin the network", stacklevel=2)
+
     return TileSet(
         name=net.name,
-        meta=TileMeta(origin_lonlat=(float(origin[0]), float(origin[1]))),
+        meta=TileMeta(
+            grid_origin=(float(grid_origin[0]), float(grid_origin[1])),
+            cell_size=float(params.cell_size), grid_dims=grid_dims,
+            origin_lonlat=(float(origin[0]), float(origin[1])),
+            index_radius=float(params.index_radius)),
         node_xy=node_xy, node_out=node_out,
         edge_src=edge_src, edge_dst=edge_dst, edge_len=edge_len,
         edge_way=edge_way, edge_speed=edge_speed, edge_opp=edge_opp,
         edge_osmlr=edge_osmlr, edge_osmlr_off=edge_osmlr_off,
         osmlr_id=osmlr_id, osmlr_len=osmlr_len,
         seg_a=seg_a, seg_b=seg_b, seg_edge=seg_edge, seg_off=seg_off,
-        seg_len=seg_len,
+        seg_len=seg_len, grid=grid,
         reach_to=reach_to, reach_dist=reach_dist, reach_next=reach_next,
         edge_reach_row=edge_reach_row,
         ban_from=banned_pairs[:, 0].copy(),
@@ -332,6 +408,8 @@ def compile_network(net: RoadNetwork, params: "CompilerParams | None" = None,
             "nodes": int(net.num_nodes), "edges": int(len(edge_len)),
             "line_segments": int(len(seg_a)),
             "osmlr_segments": int(len(osmlr_id)),
+            "grid_cells": int(grid_dims[0] * grid_dims[1]),
+            "grid_overflow": int(overflow),
             "reach_truncated_nodes": int(truncated),
             "restrictions": len(net.restrictions),
             "banned_turn_pairs": int(len(banned_pairs)),

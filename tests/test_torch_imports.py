@@ -60,3 +60,29 @@ def test_no_jax_and_no_reporter_tpu_import(path):
     ("from . import locks", False)])
 def test_the_guard_sees_each_form(src, bad):
     assert any(_forbidden(m) for _, m in imported_modules(src)) is bad
+
+
+_SLICE_13 = ("reporter_tpu_torch.ops.candidates",
+             "reporter_tpu_torch.tiles.__main__",
+             "reporter_tpu_torch.tiles.capacity",
+             "reporter_tpu_torch.tiles.osmlr_export",
+             "reporter_tpu_torch.tiles.osmlr_tiles",
+             "reporter_tpu_torch.tiles.reach_audit")
+
+
+@pytest.mark.parametrize("module", _SLICE_13)
+def test_new_modules_import_without_jax(module):
+    """The grid backend and the tile tools import in a fresh interpreter
+    with neither jax nor reporter_tpu loaded afterwards (the walk above
+    checks their source too)."""
+    import subprocess
+    import sys
+
+    code = (f"import importlib, sys; importlib.import_module({module!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'reporter_tpu')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stderr

@@ -522,3 +522,66 @@ def test_fixed_grid_counts_on_the_card_equal_reference(cuda):
     g2.add(np.array([5, 5]))
     want[5] += 2
     np.testing.assert_array_equal(g2.snapshot(), want)
+
+
+@pytest.fixture(scope="module")
+def tiny_pair(cuda):
+    """The tiny tile (the ranked-path tests' parameters) as a grid and a
+    dense matcher on the card and on the CPU."""
+    from reporter_tpu_torch.config import CompilerParams, MatcherParams
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+
+    ts = compile_network(generate_city("tiny"),
+                         CompilerParams(reach_radius=500.0,
+                                        osmlr_max_length=250.0))
+    out = {}
+    for backend in ("grid", "dense"):
+        p = MatcherParams(candidate_backend=backend, sweep_autotune=False)
+        out[backend] = (SegmentMatcher(ts, p, device=cuda),
+                        SegmentMatcher(ts, p, device="cpu"))
+    return ts, out
+
+
+def test_grid_gather_on_the_card_equals_cpu(tiny_pair, cuda):
+    """The grid candidate backend's gather (plain torch, no kernel) on
+    the card against the CPU port: tolerance 0, and no sweep launch."""
+    from reporter_tpu_torch.ops.candidates import find_candidates
+
+    ts, pair = tiny_pair
+    card, cpu = pair["grid"]
+    rng = np.random.default_rng(2)
+    pts = np.concatenate([
+        np.concatenate([p.xy for p in synthesize_fleet(ts, 16, seed=3)]),
+        ts.node_xy, rng.uniform(ts.node_xy.min(0) - 80,
+                                ts.node_xy.max(0) + 80, (2000, 2))])
+    pts = torch.from_numpy(pts.astype(np.float32))
+    before = dict(dc.SWEEP_LAUNCHES)
+    got = find_candidates(pts.to(cuda), card.tables, ts.meta, 50.0, 8)
+    want = find_candidates(pts, cpu.tables, ts.meta, 50.0, 8)
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+    assert dict(dc.SWEEP_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("backend", ["dense", "grid"])
+def test_match_topk_on_the_card_equals_cpu(tiny_pair, backend):
+    """match_topk on the card (the sweep instance or the grid gather, then
+    the lattice in plain torch) against the CPU port, both forms: the
+    same ranked paths and scores (tolerance 0)."""
+    from reporter_tpu_torch.matcher.api import Trace
+    from reporter_tpu_torch.netgen.traces import synthesize_probe
+
+    ts, pair = tiny_pair
+    card, cpu = pair[backend]
+    for seed in (5, 13):
+        pr = synthesize_probe(ts, seed=seed, num_points=30, speed_mps=12.0,
+                              gps_sigma=3.0)
+        tr = Trace(uuid="u", xy=pr.xy.astype(np.float32), times=pr.times)
+        for exact in (False, True):
+            got = card.match_topk(tr, exact=exact)
+            want = cpu.match_topk(tr, exact=exact)
+            assert len(got) == len(want) >= 2
+            for (gs, gp), (ws, wp) in zip(got, want):
+                assert gs == ws
+                assert [(p.edge, p.offset) for p in gp] == \
+                    [(p.edge, p.offset) for p in wp]

@@ -450,8 +450,12 @@ def test_config_json_written_by_jax_reads_in_the_port():
      lambda p: p.dispatch_timeout_s == 2.0),
     (lambda: MatcherParams(dispatch_fallback="reference_cpu"),
      lambda p: p.dispatch_fallback == "reference_cpu"),
-    (lambda: MatcherParams(candidate_backend="grid"), "item 5"),
-    (lambda: CompilerParams(cell_size=32.0), "item 5"),
+    (lambda: MatcherParams(candidate_backend="grid"),
+     lambda p: p.candidate_backend == "grid"),
+    (lambda: CompilerParams(cell_size=32.0, cell_capacity=16,
+                            index_radius=40.0),
+     lambda c: (c.cell_size, c.cell_capacity, c.index_radius)
+     == (32.0, 16, 40.0)),
     (lambda: Config(matcher_backend="reference_cpu").validate(),
      lambda c: c.matcher_backend == "reference_cpu"),
     (lambda: Config.for_mode("foot").validate(),
@@ -467,9 +471,10 @@ def test_config_json_written_by_jax_reads_in_the_port():
         "timeout_env", "timeout_json"])
 def test_unported_fields_raise_naming_the_roadmap_item(make, item):
     """A field whose feature is not ported raises naming its ROADMAP
-    item. The dispatch watchdog, its fallback, the oracle and per-mode
-    serving have been ported since: their cases (``item`` a check) now
-    hold the field as given."""
+    item. The dispatch watchdog, its fallback, the oracle, per-mode
+    serving and the grid candidate backend with its compiler fields have
+    been ported since: their cases (``item`` a check) now hold the field
+    as given."""
     if callable(item):
         assert item(make())
         return

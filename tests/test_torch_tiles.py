@@ -147,3 +147,27 @@ def test_synthesize_fleet_matches_reference():
                   "path_edges"):
             assert _same(getattr(a, f), getattr(b, f)), f
         assert a.to_report_json() == b.to_report_json()
+
+
+def test_save_load_keeps_the_grid(tmp_path):
+    """The port's save writes the grid and its metadata, and load keeps
+    them: every array of the port's file (grid included) and the metadata
+    equal the JAX package's compile of the same network, read by either
+    package; a JAX-written file loads with its grid."""
+    from reporter_tpu.tiles.tileset import TileSet as JTileSet
+
+    ts = compile_network(generate_city("tiny"), CompilerParams())
+    ref = j_compile_network(j_generate_city("tiny"), JCompilerParams())
+    path = ts.save(str(tmp_path / "port"))
+    jpath = str(tmp_path / "jax.npz")
+    ref.save(jpath)
+    for got in (TileSet.load(path), JTileSet.load(path), TileSet.load(jpath)):
+        assert got.grid.shape[0] == ref.stats["grid_cells"] > 0
+        assert tuple(got.meta) == tuple(ref.meta)
+        for f in ARRAY_FIELDS:
+            assert _same(getattr(got, f), getattr(ref, f)), f
+    with np.load(path) as a, np.load(jpath) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for f in a.files:
+            if f != "_meta":
+                assert _same(a[f], b[f]), f
