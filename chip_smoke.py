@@ -154,11 +154,11 @@ the native host half against its Python forms, in phases:
                 server on an ephemeral port; the datastore a local HTTP
                 server reached through the publisher's urllib transport):
                 three lone requests, then 64 client threads each posting
-                its 4 uuids' 120-point traces as three in-order /report
-                requests of 40 points (768 requests; 16 uuids and 3,072
+                its 2 uuids' 120-point traces as three in-order /report
+                requests of 40 points (384 requests; 16 uuids and 3,072
                 requests before the oracle, watchdog, audit and backfill
                 phases joined the run, 8 and 1,536 before the router's
-                traffic did), then one
+                traffic did, 4 and 768 before the fleet's), then one
                 /report_many of 256 traces. Every response 200; the first
                 32 uuids' responses equal a CPU app's fed the same
                 per-uuid order, and the datastore's reports for them the
@@ -194,6 +194,30 @@ the native host half against its Python forms, in phases:
                 the three files as a subprocess (its own calibrations):
                 start-up, tile bytes per metro, answers equal, 404,
                 SIGINT to exit 0;
+     fleet    — twelve metros in one FleetResidency on the card:
+                sf, nyc and la of [router], organic, and the JAX bench's
+                eight generated metros (fleet00..07); [fleet] every metro
+                promoted (pinned cold tier, its own calibration), its
+                pre-paging wire harvested, memory_allocated against the
+                ledger; FLEET_ROUNDS rounds of every metro's traffic from
+                FLEET_THREADS threads under leases (probes/s, per-metro
+                kprobes/s, staged bytes, launches only the tuned
+                instances). [fleet:storm] the budget at half the staged
+                total, cyclic touches (every one a miss): promote ms p50 /
+                p99 apart from the dispatch, MB/s beside a pinned probe
+                copy, promotions, demotions, evictions, memory_allocated's
+                rise and drop per promotion and demotion within the
+                allocator's bound. [fleet:fidelity] every metro's wire
+                through its lease equal to a dedicated matcher's (a plan
+                cache hit) and to its pre-paging harvest, one instance
+                launched. [fleet:router] make_fleet_router over sf, nyc
+                and la (sf pinned, sf plus 1.5 of the larger other metro
+                as the budget): 96 in-order /report requests from 16
+                clients equal a dedicated MetroRouter's, /health's fleet
+                block adds up, p50 / p99. [fleet:guard] a hung page-in
+                (fleet_promote:hang) under promote_timeout_s 1 s sheds as
+                ServiceOverloaded, rolls the ledger back and promotes once
+                the plan is cleared;
   8. stream   — on sf, the streaming worker at full width: the 1024 x 120
                 fleet as one firehose of 122,880 {uuid, lat, lon, time}
                 records in STREAM_ROUNDS rounds of STREAM_ROUND_POINTS
@@ -310,8 +334,8 @@ the native host half against its Python forms, in phases:
                 document, one segment, 404 for an unknown one);
  11. summary  — the kernels JSON line (every arm at every K, the sources,
                 the host library among them; the topology's workers'
-                launches by member; the sf:topk and sf:grid windows in
-                every entry's launches_by_path), the card line, and the final
+                launches by member; the sf:topk, sf:grid and fleet windows
+                in every entry's launches_by_path), the card line, and the final
                 {"ok": true, "device": {...}} line.
 
 Any failed phase raises and the script exits non-zero without the final
@@ -358,11 +382,11 @@ MAIN_K_CPU_TRACES = 16        # traces of the main path at the other K also
 #                               matched on the CPU
 REFERENCE_TRACES = 32         # traces matched on both the card and the CPU
 OVERLAP_SLICE = 256           # traces per slice of the overlap check
-SERVE_CLIENTS, SERVE_UUIDS, SERVE_PARTS = 64, 4, 3   # [serve]: clients,
+SERVE_CLIENTS, SERVE_UUIDS, SERVE_PARTS = 64, 2, 3   # [serve]: clients,
 #                               uuids per client, in-order requests per uuid
 #                               (16 uuids before the watchdog, audit and
 #                               backfill phases joined the run, 8 before the
-#                               router's traffic did: 4 since)
+#                               router's traffic did, 4 before the fleet's)
 SERVE_MANY = 256              # traces of [serve]'s one /report_many
 SERVE_CPU_UUIDS = 32          # uuids also served by the CPU app
 SERVER_START_S = 300          # [server]: /health must answer within this
@@ -385,13 +409,14 @@ TOPO_LEASE_TTL_S = 2.4        # [topo:lease]: the lease time-to-live
 TOPO_TIMEOUT_S = 300          # the bound of each wait of a topology run
 TOPO_SAMPLE_S = 0.2           # _CardSampler's period
 TOPO_SCALE_RUNS = (("dict", 1), ("dict", 2), ("dict", 4), ("columnar", 4))
-ORACLE_TRACES = {"sf": 32, "sf+r": 32, "organic": 6}   # [oracle]: traces
+ORACLE_TRACES = {"sf": 16, "sf+r": 16, "organic": 4}   # [oracle]: traces
 #                               through the numpy oracle (exact Dijkstra per
 #                               transition on the host: ~160 probes/s on sf
 #                               and ~20 on organic on the H100 machine's host;
 #                               the restricted sf searches edge space, about
 #                               3.4x sf's time on this host), about a minute
-#                               at most on each
+#                               at most on each (32, 32 and 6 before the
+#                               fleet phases joined the run)
 AGREEMENT_GATE = 0.95         # the length-weighted agreement the JAX package
 #                               holds its matcher to against the oracle
 WATCHDOG_VEHICLES = 256       # [watchdog]: vehicles fed through the pipeline
@@ -406,11 +431,12 @@ BACKFILL_PARTITIONS = 4       # [backfill]: the spool's partitions
 KERNEL_BETWEEN_KS = (5, 7, 10)  # [kernel:k], [main:k]: widths between the
 #                               built ones (each runs the next built K')
 ROUTER_METROS = ("sf", "nyc", "la")   # [router]: BASELINE config 4's trio
-ROUTER_CLIENTS, ROUTER_UUIDS = 64, 4  # [router]: clients (round-robin over
+ROUTER_CLIENTS, ROUTER_UUIDS = 64, 2  # [router]: clients (round-robin over
 #                               the metros) and uuids each, SERVE_PARTS
-#                               in-order requests per uuid (768 requests; 8
+#                               in-order requests per uuid (384 requests; 8
 #                               uuids and 1,536 before the restricted and
-#                               per-mode phases joined the run)
+#                               per-mode phases joined the run, 4 and 768
+#                               before the fleet phases did)
 ROUTER_EXPLICIT_EVERY = 4     # every 4th client names its "metro"
 ROUTER_MANY = 48              # traces of the mixed /report_many (16 a metro)
 ROUTER_START_S = 600          # [router:server]: /health within this
@@ -431,6 +457,17 @@ TOPK_TRACES = 16              # [topk]: fleet traces ranked at T = 120
 TOPK_LONG_POINTS = 1024       # [topk]: the one long trace (the largest bucket)
 TOPK_SCORE_RTOL = 2e-6        # [topk]: card vs CPU scores (tests/test_torch_topk.py)
 CAPACITY_SLACK = 2 * 1024**2  # [capacity]: memory_allocated over the formula
+FLEET_GEN = 8                 # [fleet]: the JAX bench's generated metros
+FLEET_GEN_TRACES, FLEET_GEN_POINTS = 24, 60   # each one's traffic
+FLEET_CITY_TRACES = 64        # [fleet]: traces of each city metro (N_POINTS)
+FLEET_THREADS, FLEET_ROUNDS = 4, 3   # submitter threads, rounds of traffic
+FLEET_STORM_FRAC = 0.5        # [fleet:storm]: budget over the staged total
+FLEET_STORM_CYCLES = 2        # cycles of cyclic touches (every one a miss)
+FLEET_STORM_TRACES = 8        # traces dispatched at each touch
+FLEET_ROUTER_CLIENTS, FLEET_ROUTER_REQUESTS = 16, 96   # [fleet:router]
+FLEET_ROUTER_WAIT_S = 300.0   # promote_wait_s there: a metro waits out
+#                               the other's leases rather than shed
+FLEET_GUARD_TIMEOUT_S, FLEET_GUARD_HANG_S = 1.0, 3.0   # [fleet:guard]
 REACH_AUDIT_TRACES = 8        # [reach_audit]: fleet traces audited per tile
 #                               (cut from 16 to keep the script's time)
 PBF_DECODE_M = 1.2e-7         # [pbf]: 1e-12 degrees (the decode's bound in
@@ -3292,10 +3329,10 @@ def router_phase(card, dc, win, cache):
     for n, app in router.apps.items():
         real = app.matcher.submit_prepared
 
-        def counted(ps, n=n, real=real):
+        def counted(ps, tables=None, n=n, real=real):
             with elock:
                 entries[n][inst[n]] = entries[n].get(inst[n], 0) + 1
-            return real(ps)
+            return real(ps, tables)
         app.matcher.submit_prepared = counted
     server = serve(router, "127.0.0.1", 0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -3501,6 +3538,7 @@ def router_phase(card, dc, win, cache):
             and f"router[{', '.join(names)}]" in text):
         raise SystemExit("[router:server] the entry point's answers, 404, "
                          "metros or exit differ:\n" + _tail(log_path))
+    return tilesets
 
 
 class _KafkaRecord:
@@ -4483,6 +4521,534 @@ def reach_audit_phase(card, tiles):
             raise SystemExit(f"[reach_audit] {name}: nothing audited")
 
 
+def _wire(m, traces) -> bytes:
+    """The wire tensors of these traces, harvested in submission order:
+    the bytes the fleet's fidelity checks compare."""
+    _, inflight = m._submit_many(traces)
+    return b"".join(w.cpu().numpy().tobytes() for _, w in inflight)
+
+
+def _alloc_bound(nbytes):
+    """The most bytes the caching allocator counts for one tensor of
+    ``nbytes``: whole 512-byte blocks, and past 1 MiB (the large pool)
+    up to 1 MiB more, since a cached block is not split when its
+    remainder would be 1 MiB or less."""
+    nbytes = int(nbytes)
+    return -(-nbytes // 512) * 512 + (1 << 20 if nbytes > 1 << 20 else 0)
+
+
+def _tables_bound(tables):
+    return sum(_alloc_bound(t.numel() * t.element_size())
+               for t in tables.values())
+
+
+def fleet_metros(city_tiles):
+    """The [fleet] metros: the city tiles of the earlier phases (name,
+    tile) with FLEET_CITY_TRACES x N_POINTS traces of their own fleets
+    (seed 0), and the JAX bench's FLEET_GEN generated metros
+    (bench.py:2955-3010: tiny at nx = ny = 8, seed 60 + i, centre
+    (-125 + 0.7 i, 38), reach radius 500 m, named fleet00..07) with
+    FLEET_GEN_TRACES x FLEET_GEN_POINTS traces (seed 9 + i). → ([tile],
+    {name: [Trace]})."""
+    from reporter_tpu_torch.config import CompilerParams
+    from reporter_tpu_torch.matcher.api import Trace
+    from reporter_tpu_torch.netgen.synthetic import generate_city
+    from reporter_tpu_torch.netgen.traces import synthesize_fleet
+    from reporter_tpu_torch.tiles.compiler import compile_network
+
+    tiles, traffic = [], {}
+    for ts in city_tiles:
+        tiles.append(ts)
+        probes = synthesize_fleet(ts, FLEET_CITY_TRACES,
+                                  num_points=N_POINTS, seed=0)
+        traffic[ts.name] = [Trace(uuid=f"{ts.name}-{j}", xy=p.xy,
+                                  times=p.times)
+                            for j, p in enumerate(probes)]
+    for i in range(FLEET_GEN):
+        net = generate_city("tiny", nx=8, ny=8, seed=60 + i,
+                            center=(-125.0 + 0.7 * i, 38.0))
+        net.name = f"fleet{i:02d}"
+        ts = compile_network(net, CompilerParams(reach_radius=500.0))
+        tiles.append(ts)
+        probes = synthesize_fleet(ts, FLEET_GEN_TRACES,
+                                  num_points=FLEET_GEN_POINTS, seed=9 + i)
+        traffic[ts.name] = [Trace(uuid=f"f{i}-{j}", xy=p.xy, times=p.times)
+                            for j, p in enumerate(probes)]
+    return tiles, traffic
+
+
+def fleet_phase(card, dc, win, cache, city_tiles):
+    """[fleet]: the 12 metros in one FleetResidency on the card, the
+    budget unbounded. Every metro promoted once (its first touch stages
+    the pinned cold tier and tunes its matcher, a fresh tuner cache) and
+    its pre-paging wire harvested; memory_allocated's rise against the
+    ledger (at least the staged total, at most the allocator's bound:
+    512-byte blocks per table, an unsplit 1 MiB past the large pool's
+    threshold).
+    Then FLEET_ROUNDS rounds of every metro's traffic from FLEET_THREADS
+    submitter threads, each dispatch a match_many under a lease: probes/s,
+    per-metro kprobes/s on its own busy time, the window's launches only
+    the metros' tuned instances, one wire entry per dispatch. → the
+    state the later fleet phases read."""
+    from reporter_tpu_torch.config import Config
+    from reporter_tpu_torch.fleet import FleetResidency
+
+    t0 = time.perf_counter()
+    tiles, traffic = fleet_metros(city_tiles)
+    build_s = time.perf_counter() - t0
+    names = [t.name for t in tiles]
+    os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "fleet")
+    fr = FleetResidency(tiles, Config(), device="cuda")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    first_ms, pre = {}, {}
+
+    def warm():
+        for n in names:
+            t = time.perf_counter()
+            fr.promote(n)           # staging, the copy and the tuner
+            first_ms[n] = (time.perf_counter() - t) * 1e3
+            with fr.lease(n) as m:
+                pre[n] = _wire(m, traffic[n])
+
+    _, cal = win.run("fleet:warm", warm)
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - mem0
+    occ = fr.occupancy()
+    staged = {n: occ["metros"][n]["staged_bytes"] for n in names}
+    matchers = {n: fr.matcher(n) for n in names}
+    blocks = sum(_tables_bound(m.tables) for m in matchers.values())
+    inst = {n: (arm, dc.sweep_instance_k(k))
+            for n, (arm, k) in ((n, _tuned(m, dc))
+                                for n, m in matchers.items())}
+    # dispatches per metro: one wire entry each (every trace fits one
+    # bucket), counted through a shim on submit_prepared
+    entries, elock = {n: 0 for n in names}, threading.Lock()
+    for n, m in matchers.items():
+        real = m.submit_prepared
+
+        def counted(ps, tables=None, n=n, real=real):
+            with elock:
+                entries[n] += 1
+            return real(ps, tables)
+        m.submit_prepared = counted
+    jobs = [n for _ in range(FLEET_ROUNDS) for n in names]
+    cursor, lock = {"i": 0}, threading.Lock()
+    busy = dict.fromkeys(names, 0.0)
+    probes = {n: sum(len(t.xy) for t in traffic[n]) for n in names}
+    errors = []
+
+    def submitter():
+        while True:
+            with lock:
+                if cursor["i"] >= len(jobs):
+                    return
+                n = jobs[cursor["i"]]
+                cursor["i"] += 1
+            try:
+                t = time.perf_counter()
+                with fr.lease(n) as m:
+                    m.match_many(traffic[n])
+                dt = time.perf_counter() - t
+                with lock:
+                    busy[n] += dt
+            except Exception as exc:        # reported below
+                with lock:
+                    errors.append(repr(exc))
+
+    def traffic_run():
+        threads = [threading.Thread(target=submitter)
+                   for _ in range(FLEET_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    for n in entries:
+        entries[n] = 0
+    t = time.perf_counter()
+    _, counts = win.run("fleet", traffic_run)
+    wall_s = time.perf_counter() - t
+    in_window = dict(entries)   # the window's wire entries
+    # one more round from one thread, apart: what a dispatch costs
+    # without the other submitters
+    one_ms = {}
+    for n in names:
+        t = time.perf_counter()
+        with fr.lease(n) as m:
+            m.match_many(traffic[n])
+        one_ms[n] = (time.perf_counter() - t) * 1e3
+    window = {key: v for key, v in counts.items() if v}
+    want = {}
+    for n in names:
+        want[inst[n]] = want.get(inst[n], 0) + in_window[n]
+    total = sum(staged.values())
+    phase("fleet", card, metros=names, build_s=build_s,
+          edges={t.name: t.num_edges for t in tiles},
+          traces={n: len(traffic[n]) for n in names},
+          first_promote_ms=first_ms,
+          calibration_launches=_launches(cal),
+          plans={n: m.tuned_plan and m.tuned_plan.label
+                 for n, m in matchers.items()},
+          tuned_instance={n: list(v) for n, v in inst.items()},
+          staged_bytes=staged, staged_total=total,
+          ledger_resident_bytes=occ["resident_bytes"],
+          memory_allocated_rise=rise, allocator_bound=blocks,
+          rounds=FLEET_ROUNDS, threads=FLEET_THREADS, dispatches=len(jobs),
+          wall_s=wall_s,
+          probes_per_s=sum(probes[n] * FLEET_ROUNDS for n in names) / wall_s,
+          kprobes_per_s_own_busy={
+              n: probes[n] * FLEET_ROUNDS / busy[n] / 1e3 for n in names},
+          busy_s=busy, one_thread_dispatch_ms=one_ms,
+          one_thread_probes_per_s=sum(probes.values())
+          / sum(one_ms.values()) * 1e3,
+          wire_entries=in_window, launches=_launches(window),
+          errors=errors[:4])
+    problems = []
+    if errors:
+        problems.append(f"{len(errors)} dispatches failed: {errors[:2]}")
+    if occ["resident_bytes"] != total or occ["resident_metros"] != len(names):
+        problems.append(f"the ledger {occ['resident_bytes']} B of "
+                        f"{occ['resident_metros']} metros")
+    if any(staged[n] != matchers[n].table_bytes for n in names):
+        problems.append("a metro's staged bytes differ from table_bytes")
+    if not total <= rise <= blocks:
+        problems.append(f"memory_allocated rose {rise} B for a ledger of "
+                        f"{total} B (the allocator's bound {blocks} B)")
+    if window != want:
+        problems.append(f"the window launched {window}, the metros' tuned "
+                        f"instances one per wire entry are {want}")
+    if problems:
+        raise SystemExit("[fleet] " + "; ".join(problems))
+    for m in matchers.values():
+        del m.submit_prepared       # the shim off: the class's method
+    return {"fr": fr, "tiles": tiles, "traffic": traffic, "pre": pre,
+            "inst": inst, "staged": staged}
+
+
+def fleet_storm_phase(card, st):
+    """[fleet:storm]: the budget set to FLEET_STORM_FRAC of the staged
+    total (raised to the largest metro's bytes, so each can page in),
+    then FLEET_STORM_CYCLES cycles of cyclic touches (every touch a
+    miss): each touch a promote, timed apart from the dispatch of
+    FLEET_STORM_TRACES of the metro's traces under a lease. The copy's
+    ms (the pinned transfer and its event wait) and MB/s beside a
+    pinned copy of [link]'s probe; promotions, demotions, evictions; the
+    memory_allocated rise of each transfer and drop of each demotion
+    against the metro's staged bytes (within the allocator's bound)."""
+    from reporter_tpu_torch.utils import linkhealth
+
+    fr, tiles, traffic = st["fr"], st["tiles"], st["traffic"]
+    names = [t.name for t in tiles]
+    staged = st["staged"]
+    bound = {n: _tables_bound(fr.matcher(n).tables) for n in names}
+    copies, drops, rises = [], [], []
+    real_transfer, real_demote = fr._transfer, fr._demote_locked
+
+    def transfer(host):
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = real_transfer(host)
+        dt = time.perf_counter() - t
+        tensors = {k: v for k, v in out.items()
+                   if isinstance(v, torch.Tensor)}
+        nbytes = sum(v.numel() * v.element_size() for v in tensors.values())
+        copies.append((dt, nbytes))
+        rises.append((nbytes, torch.cuda.memory_allocated() - before,
+                      _tables_bound(tensors)))
+        return out
+
+    def demote(m):
+        before = torch.cuda.memory_allocated()
+        real_demote(m)
+        drops.append((m.name, before - torch.cuda.memory_allocated()))
+
+    fr._transfer, fr._demote_locked = transfer, demote
+    occ0 = fr.occupancy()
+    ev0 = {n: fr.metrics.value(f'fleet_evictions{{metro="{n}"}}')
+           for n in names}
+    # organic alone is 70% of the staged total: the budget is raised to
+    # the largest metro, so that every metro can page in
+    cap = max(int(sum(staged.values()) * FLEET_STORM_FRAC),
+              max(staged.values()))
+    touch_ms, dispatch_ms = [], []
+    try:
+        fr.set_capacity(cap)
+        t0 = time.perf_counter()
+        for _ in range(FLEET_STORM_CYCLES):
+            for n in names:
+                t = time.perf_counter()
+                fr.promote(n)
+                t1 = time.perf_counter()
+                with fr.lease(n) as m:
+                    m.match_many(traffic[n][:FLEET_STORM_TRACES])
+                touch_ms.append((t1 - t) * 1e3)
+                dispatch_ms.append((time.perf_counter() - t1) * 1e3)
+        storm_s = time.perf_counter() - t0
+    finally:
+        fr._transfer, fr._demote_locked = real_transfer, real_demote
+    occ = fr.occupancy()
+    evictions = {n: int(fr.metrics.value(f'fleet_evictions{{metro="{n}"}}')
+                        - ev0[n]) for n in names}
+    _, mbps = linkhealth._device_probe(256 * 1024, "cuda")
+    copy_ms = [dt * 1e3 for dt, _ in copies]
+    nbytes = [b for _, b in copies]
+    by_size = sorted(copies, key=lambda c: c[1])
+    bad_drop = [(n, d, staged[n]) for n, d in drops
+                if not staged[n] <= d <= bound[n]]
+    bad_rise = [(b, r) for b, r, hi in rises if not b <= r <= hi]
+    phase("fleet:storm", card, capacity_bytes=cap,
+          staged_total=sum(staged.values()), cycles=FLEET_STORM_CYCLES,
+          touches=len(touch_ms), storm_s=storm_s,
+          promote_ms_p50=_pct(copy_ms, 0.50), promote_ms_p99=_pct(copy_ms, 0.99),
+          touch_ms_p50=_pct(touch_ms, 0.50), touch_ms_p99=_pct(touch_ms, 0.99),
+          dispatch_ms_p50=_pct(dispatch_ms, 0.50),
+          copy_bytes_min=min(nbytes), copy_bytes_max=max(nbytes),
+          copy_mb_per_s_p50=_pct([b / dt / 1e6 for dt, b in copies], 0.50),
+          largest_copy={"bytes": by_size[-1][1],
+                        "ms": by_size[-1][0] * 1e3,
+                        "mb_per_s": by_size[-1][1] / by_size[-1][0] / 1e6},
+          link_pinned_copy_mb_per_s=mbps,
+          promotions=occ["promotions"] - occ0["promotions"],
+          demotions=occ["demotions"] - occ0["demotions"],
+          evictions=evictions, resident_after=fr.resident_names,
+          memory_drops=len(drops),
+          memory_drop_over_staged_max=max(d - staged[n] for n, d in drops)
+          if drops else None,
+          memory_rise_over_copy_max=max(r - b for b, r, _ in rises)
+          if rises else None,
+          memory_drop_mismatches=bad_drop, memory_rise_mismatches=bad_rise)
+    problems = []
+    if occ["promotions"] - occ0["promotions"] != len(touch_ms):
+        problems.append("a touch was not a miss")
+    if not drops or bad_drop or bad_rise:
+        problems.append(f"memory_allocated does not track the ledger: "
+                        f"drops {bad_drop[:3]}, rises {bad_rise[:3]}")
+    if occ["resident_bytes"] > cap:
+        problems.append(f"{occ['resident_bytes']} B resident over {cap} B")
+    if problems:
+        raise SystemExit("[fleet:storm] " + "; ".join(problems))
+
+
+def fleet_fidelity_phase(card, dc, win, st):
+    """[fleet:fidelity]: after the storm, each metro's wire harvested
+    through its lease (a promotion where it is cold) equals a dedicated
+    SegmentMatcher's (its plan a cache hit: no calibration) and its own
+    harvest before paging, and its window launched only its tuned
+    instance."""
+    from reporter_tpu_torch.config import Config
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+
+    fr, tiles, traffic = st["fr"], st["tiles"], st["traffic"]
+    out, problems = {}, []
+    t0 = time.perf_counter()
+    for ts in tiles:
+        n = ts.name
+        ded, cal = win.run(f"fleet:dedicated:{n}",
+                           lambda: SegmentMatcher(ts, Config()))
+        want = _wire(ded, traffic[n])
+
+        def leased():
+            with fr.lease(n) as m:
+                return _wire(m, traffic[n]), m
+
+        (got, m), counts = win.run(f"fleet:{n}", leased)
+        occ = fr.occupancy()["metros"][n]
+        out[n] = {"equal_dedicated": got == want,
+                  "equal_pre_paging": got == st["pre"][n],
+                  "dedicated_plan_source": ded.tuned_report.get("source"),
+                  "same_plan": _tuned(ded, dc) == _tuned(m, dc),
+                  "launches": _launches({k: v for k, v in counts.items()
+                                         if v}),
+                  "promotions": occ["promotions"],
+                  "demotions": occ["demotions"], "plan": occ["tuned_plan"]}
+        if not (got == want == st["pre"][n] and out[n]["same_plan"]
+                and out[n]["dedicated_plan_source"] == "cache"
+                and not any(cal.values())):
+            problems.append(f"{n}: {out[n]}")
+        try:
+            only(counts, st["inst"][n], f"[fleet:fidelity] {n}")
+        except SystemExit as exc:
+            problems.append(str(exc))
+        del ded
+    phase("fleet:fidelity", card, seconds=time.perf_counter() - t0,
+          metros=out, paged_metros=sum(1 for o in out.values()
+                                       if o["demotions"]))
+    if problems:
+        raise SystemExit("[fleet:fidelity] " + "; ".join(problems))
+
+
+def fleet_router_phase(card, cache, router_tiles):
+    """[fleet:router]: make_fleet_router over sf, nyc and la, sf pinned
+    through MetroSLO(pinned=True), the budget sf's staged bytes plus one
+    and a half of the larger other metro's (so nyc and la page in turns
+    beside the pinned sf); FLEET_ROUTER_CLIENTS clients round-robin over
+    the metros post FLEET_ROUTER_REQUESTS in-order 40-point /report
+    requests (SERVE_PARTS per uuid) behind serve(). Every response equals
+    a dedicated MetroRouter's fed the same per-metro order; /health's
+    fleet block adds up; p50 / p99 and the promotions."""
+    from reporter_tpu_torch.config import Config
+    from reporter_tpu_torch.fleet import FleetConfig, MetroSLO, \
+        make_fleet_router
+    from reporter_tpu_torch.netgen.traces import synthesize_fleet
+    from reporter_tpu_torch.service.router import make_router
+    from reporter_tpu_torch.service.server import serve
+    from reporter_tpu_torch.tiles.tileset import staged_nbytes
+
+    names = [t.name for t in router_tiles]
+    size = {t.name: staged_nbytes(t.host_tables("dense"))
+            for t in router_tiles}
+    others = [n for n in names if n != "sf"]
+    cap = size["sf"] + int(1.5 * max(size[n] for n in others))
+    clients = {n: [c for c in range(FLEET_ROUTER_CLIENTS)
+                   if c % len(names) == i] for i, n in enumerate(names)}
+    per_client = FLEET_ROUTER_REQUESTS // FLEET_ROUTER_CLIENTS
+    uuids_per_client = per_client // SERVE_PARTS
+    part = N_POINTS // SERVE_PARTS
+    requests = {}
+    for i, t in enumerate(router_tiles):
+        n = t.name
+        n_uuid = len(clients[n]) * uuids_per_client
+        fleet = synthesize_fleet(t, n_uuid, num_points=N_POINTS, seed=20 + i)
+        requests[n] = [[{"uuid": f"fr-{n}-{u}", "trace":
+                         fleet[u].to_report_json()["trace"][
+                             k * part:(k + 1) * part]}
+                        for k in range(SERVE_PARTS)] for u in range(n_uuid)]
+    os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "fleet")
+    router = make_fleet_router(
+        router_tiles, Config(),
+        fleet=FleetConfig(max_resident_bytes=cap,
+                          promote_wait_s=FLEET_ROUTER_WAIT_S),
+        slos={"sf": MetroSLO(pinned=True)}, device="cuda")
+    server = serve(router, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    responses = {n: [[None] * SERVE_PARTS for _ in requests[n]]
+                 for n in names}
+    lat, statuses, lock = [], [], threading.Lock()
+    try:
+        def client(c):
+            n = names[c % len(names)]
+            j = clients[n].index(c)
+            for u in range(j * uuids_per_client, (j + 1) * uuids_per_client):
+                for k in range(SERVE_PARTS):
+                    t = time.perf_counter()
+                    st_, body = http_json(base + "/report", requests[n][u][k])
+                    with lock:
+                        lat.append(time.perf_counter() - t)
+                        statuses.append(st_)
+                    responses[n][u][k] = body
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=FLEET_ROUTER_CLIENTS) as pool:
+            list(pool.map(client, range(FLEET_ROUTER_CLIENTS)))
+        traffic_s = time.perf_counter() - t0
+        _, health = http_json(base + "/health")
+        _, prom = http_text(base + "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        router.close()
+    fl = health.get("fleet", {})
+    metros = fl.get("metros", {})
+    adds_up = (
+        fl.get("resident_bytes") == sum(v["staged_bytes"]
+                                        for v in metros.values()
+                                        if v["resident"])
+        and fl.get("resident_metros") == sum(v["resident"]
+                                             for v in metros.values())
+        and fl.get("promotions") == sum(v["promotions"]
+                                        for v in metros.values())
+        and fl.get("demotions") == sum(v["demotions"]
+                                       for v in metros.values())
+        and fl.get("resident_bytes", cap + 1) <= cap
+        and metros.get("sf", {}).get("resident")
+        and metros.get("sf", {}).get("pinned"))
+    # the dedicated router: every metro staged, the same per-metro order
+    ded = make_router(router_tiles, Config(), device="cuda")
+    try:
+        equal = {}
+        for n in names:
+            uu = range(len(requests[n]))
+            got = [r for k in range(SERVE_PARTS) for r in ded.report_many(
+                [requests[n][u][k] for u in uu])]
+            want = [responses[n][u][k] for k in range(SERVE_PARTS)
+                    for u in uu]
+            equal[n] = {"equal": got == want,
+                        "segments": sum(len(r.get("segments", ()))
+                                        for r in want)}
+    finally:
+        ded.close()
+    phase("fleet:router", card, metros=names, staged_bytes=size,
+          capacity_bytes=cap, pinned="sf", clients=FLEET_ROUTER_CLIENTS,
+          requests=len(lat), traffic_s=traffic_s,
+          latency_ms_p50=_pct(lat, 0.50) * 1e3,
+          latency_ms_p99=_pct(lat, 0.99) * 1e3,
+          latency_ms_max=max(lat) * 1e3,
+          promotions=fl.get("promotions"), demotions=fl.get("demotions"),
+          resident_after=[n for n, v in metros.items() if v["resident"]],
+          fleet_block_adds_up=bool(adds_up), dedicated_router_equal=equal,
+          metrics_fleet_series=sorted({
+              line.split()[0].split("{")[0] for line in prom.splitlines()
+              if line.startswith("rtpu_fleet_")}))
+    problems = []
+    if any(s != 200 for s in statuses):
+        problems.append(f"non-200 responses {sorted(set(statuses))}")
+    if not all(e["equal"] and e["segments"] for e in equal.values()):
+        problems.append(f"responses differ from a dedicated router's: "
+                        f"{equal}")
+    if not adds_up or not fl.get("demotions"):
+        problems.append(f"the fleet block does not add up or never paged: "
+                        f"{fl}")
+    if problems:
+        raise SystemExit("[fleet:router] " + "; ".join(problems))
+
+
+def fleet_guard_phase(card, cache, ts):
+    """[fleet:guard]: a one-metro fleet with promote_timeout_s =
+    FLEET_GUARD_TIMEOUT_S under fleet_promote:hang(FLEET_GUARD_HANG_S)@0:
+    the promotion sheds as ServiceOverloaded within the timeout's
+    margin, the ledger rolled back (nothing resident, no bytes, a
+    timeout counted); with the plan cleared the next touch promotes and
+    serves."""
+    from reporter_tpu_torch import faults
+    from reporter_tpu_torch.config import Config
+    from reporter_tpu_torch.fleet import FleetConfig, FleetResidency
+    from reporter_tpu_torch.service.scheduler import ServiceOverloaded
+
+    os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "fleet")
+    fr = FleetResidency([ts], Config(), FleetConfig(
+        promote_timeout_s=FLEET_GUARD_TIMEOUT_S), device="cuda")
+    plan = faults.FaultPlan.parse(
+        f"fleet_promote:hang({FLEET_GUARD_HANG_S})@0")
+    shed, err = None, None
+    with faults.use(plan):
+        t = time.perf_counter()
+        try:
+            fr.promote(ts.name)
+        except ServiceOverloaded as exc:
+            shed, err = time.perf_counter() - t, str(exc)
+        rolled_back = (fr.resident_bytes == 0 and fr.resident_names == []
+                       and fr.occupancy()["metros"][ts.name]["promotions"]
+                       == 0)
+    timeouts = fr.metrics.value(f'fleet_promote_timeouts{{metro="{ts.name}"}}')
+    t = time.perf_counter()
+    with fr.lease(ts.name) as m:
+        staged = m.tables_staged
+    recover_s = time.perf_counter() - t
+    phase("fleet:guard", card, timeout_s=FLEET_GUARD_TIMEOUT_S,
+          hang_s=FLEET_GUARD_HANG_S, shed_s=shed, error=err,
+          rolled_back=rolled_back, timeouts=timeouts,
+          recovered=staged and fr.resident_names == [ts.name],
+          recover_s=recover_s)
+    if not (shed is not None
+            and FLEET_GUARD_TIMEOUT_S <= shed < FLEET_GUARD_TIMEOUT_S + 2.0
+            and rolled_back and timeouts == 1 and staged
+            and fr.resident_names == [ts.name]):
+        raise SystemExit("[fleet:guard] the hung promotion did not shed, "
+                         "roll back and recover")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -4623,12 +5189,20 @@ def main() -> int:
                                        ("organic", ts_o)])
         tiles_cli_phase(card, ts, staged["sf"])
         reach_audit_phase(card, [("sf", ts), (ts_r.name, ts_r)])
-        del ts_o
 
         # ---- 7. the report service, in-process and as the entry point ---
         served = serve_phase(card, ts, fleet, dc, win, cache)
         server_phase(card, served, cache)
-        router_phase(card, dc, win, cache)
+        router_tiles = router_phase(card, dc, win, cache)
+
+        # ---- the fleet: 12 metros paged on one card ---------------------
+        fleet_st = fleet_phase(card, dc, win, cache, [*router_tiles, ts_o])
+        fleet_storm_phase(card, fleet_st)
+        fleet_fidelity_phase(card, dc, win, fleet_st)
+        guard_ts = fleet_st["tiles"][len(router_tiles) + 1]
+        del fleet_st, ts_o
+        fleet_router_phase(card, cache, router_tiles)
+        fleet_guard_phase(card, cache, guard_ts)
 
         # ---- 8. the streaming worker: dict, columnar, recovery, entry ----
         ref = stream_phase(card, ts, fleet, dc, win, cache)
@@ -4657,7 +5231,7 @@ def main() -> int:
         for k in dc.SWEEP_KS:
             a = arms[arm] if k == 8 else by_k[k][arm]
             paths = {path: c[arm, k] for path, c in win.by_path.items()
-                     if c[arm, k] or path in ("sf:topk", "sf:grid")}
+                     if c[arm, k] or path in ("sf:topk", "sf:grid", "fleet")}
             entry = {
                 "name": f"sweep_topk_{arm}_k{k}", "route": "cuda",
                 "source": SOURCES[0], "replaces": replaces,

@@ -60,11 +60,10 @@ from dataclasses import dataclass, field
 
 from reporter_tpu_torch.utils import locks
 
-# the injection sites this package has; the JAX package's fleet_promote
-# site arrives with fleet residency (ROADMAP queue 1 item 6), and a plan
-# naming it raises at parse
-SITES = ("publish", "checkpoint", "broker", "dispatch", "quality",
-         "backfill")
+# the injection sites, in the JAX package's order (fleet_promote fires on
+# the fleet's transfer thread, fleet/residency.py)
+SITES = ("publish", "checkpoint", "broker", "dispatch", "fleet_promote",
+         "quality", "backfill")
 KINDS = ("fail", "crash", "hang", "torn")
 
 

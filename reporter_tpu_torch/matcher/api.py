@@ -77,8 +77,18 @@ dense on both devices (the JAX package takes the grid on a CPU backend).
 completions, or with ``exact=True`` the list Viterbi's exact K best) on
 the matcher's own candidates.
 
-Not ported here: fleet paging (and with it a plan staged in the tables)
-and mesh sharding.
+Fleet paging (fleet/residency.py): ``staged_tables=`` hands the
+matcher a staged dict already placed on its device (``place_tables`` of
+``TileSet.host_tables``, checked by ``check_staged_layout``; its host
+``tuned_plan`` vector resolves the sweep plan without a measurement);
+``unstage_tables`` drops the device tables and ``restage_tables`` takes
+a freshly placed dict. The matcher keeps its walker, route tables and
+tuned plan through any number of cycles and never re-tunes. Every device
+entry (``match``, ``match_many``, ``submit_prepared``, ``match_topk``,
+``matched_points``, the calibration) reads the tables once per call,
+through ``_staged``, which raises ``TablesUnstaged`` while they are
+paged out, so a restage between the stages of one batch cannot mix two
+placements. Not ported here: mesh sharding.
 """
 
 from __future__ import annotations
@@ -112,7 +122,8 @@ from reporter_tpu_torch.ops import match as match_ops
 from reporter_tpu_torch.quality import audit as quality_audit
 from reporter_tpu_torch.quality import signals as quality_signals
 from reporter_tpu_torch.quality.monitor import QualityMonitor
-from reporter_tpu_torch.tiles.tileset import TileSet, tables_from_numpy
+from reporter_tpu_torch.tiles.tileset import (TileSet, check_staged_layout,
+                                              device_members, place_tables)
 from reporter_tpu_torch.utils import linkhealth, locks, tracing
 from reporter_tpu_torch.utils.metrics import MetricsRegistry
 from reporter_tpu_torch.utils.watchdog import (TIMED_OUT,
@@ -130,6 +141,12 @@ class DispatchTimeout(RuntimeError):
     treat it as retryable: the streaming pipeline releases the wave's
     held rows for a later flush, the scheduler retries per submission,
     and the WSGI face answers 503."""
+
+
+class TablesUnstaged(RuntimeError):
+    """A device entry of a matcher whose tables are paged out (the fleet's
+    cold tier): restage them first, through ``restage_tables`` or the
+    fleet's lease."""
 
 
 @dataclass
@@ -276,7 +293,8 @@ class SegmentMatcher:
     def __init__(self, tileset: TileSet,
                  config: "Config | MatcherParams | None" = None,
                  metrics: "MetricsRegistry | None" = None,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None,
+                 staged_tables: "dict | None" = None):
         self.ts = tileset
         cfg = (config if isinstance(config, Config)
                else Config(matcher=config or MatcherParams())).validate()
@@ -303,6 +321,9 @@ class SegmentMatcher:
         self._watchdog = AbandonedThreadWatchdog(
             cap=4, thread_name="dispatch-watchdog")
         if self.backend == "reference_cpu":
+            if staged_tables is not None:
+                raise ValueError(
+                    "staged_tables requires matcher_backend='torch'")
             # the oracle is host work: no device, no tables. One Dijkstra
             # memo serves the Viterbi pass and the segment routing, whose
             # bound covers every transition the pass can accept
@@ -316,23 +337,34 @@ class SegmentMatcher:
                 self._dij_cache)
             return
         self.device = resolve_device(device)
-        self.tables = tables_from_numpy(tileset.arrays(), self.device,
-                                        self.params.candidate_backend)
+        if staged_tables is None:
+            staged_tables = place_tables(
+                tileset.host_tables(self.params.candidate_backend),
+                self.device)
+        else:
+            # a dict pinned before a layout change fails here, not as a
+            # kernel's garbage
+            check_staged_layout(staged_tables)
+        self.tables: "dict[str, torch.Tensor] | None" = device_members(
+            staged_tables)
         self.wire_spec = match_ops.wire_spec(
             tileset.num_edges,
             float(tileset.edge_len.max()) if tileset.num_edges else 0.0)
         self._route_fn = reach_route_fn(tileset)
         self._native_walker = NativeWalker(tileset)
-        self._autotune_resolve()
+        self._autotune_resolve(staged_tables)
 
     # ---- per-metro sweep plan ---------------------------------------------
 
-    def _autotune_resolve(self) -> None:
-        """Resolve this metro's sweep plan and apply it to ``params``."""
+    def _autotune_resolve(self, staged: dict) -> None:
+        """Resolve this metro's sweep plan and apply it to ``params``;
+        ``staged`` is the staged dict whose host plan vector the tuner
+        reads first and writes back."""
         state: dict = {}
 
         def measure(plan: "autotune.TunedPlan") -> float:
             if not state:
+                state["tables"] = self._staged()
                 pts_q, origins, lens = autotune.calibration_batch(self.ts)
                 q = torch.from_numpy(pts_q).to(self.device)
                 o = torch.from_numpy(origins).to(self.device)
@@ -345,7 +377,7 @@ class SegmentMatcher:
 
             def run():
                 match_ops.batch_candidates(state["pts"], state["valid"],
-                                           self.tables, p, self.ts.meta)
+                                           state["tables"], p, self.ts.meta)
 
             run()                       # untimed: builds the kernel library
             torch.cuda.synchronize(self.device)
@@ -364,7 +396,8 @@ class SegmentMatcher:
         plan, info = autotune.resolve_plan(self.params, self.ts, measure,
                                            watchdog=self._watchdog,
                                            timeout_s=autotune.CAL_TIMEOUT_S,
-                                           backend=self.device.type)
+                                           backend=self.device.type,
+                                           tables=staged)
         if info.get("errors"):
             # calibrate skips an arm that raised; serving another arm
             # would hide a kernel that does not build or launch
@@ -378,9 +411,52 @@ class SegmentMatcher:
 
     @property
     def table_bytes(self) -> int:
-        """Bytes of the tables staged on the device."""
+        """Bytes of the tables staged on the device: 0 while they are
+        paged out, and on the reference_cpu backend."""
+        tables = self.tables
+        if tables is None:
+            return 0
         return int(sum(t.numel() * t.element_size()
-                       for t in self.tables.values()))
+                       for t in tables.values()))
+
+    # ---- fleet paging -----------------------------------------------------
+
+    @property
+    def tables_staged(self) -> bool:
+        """False while the device tables are paged out (the fleet's cold
+        tier); always False on the reference_cpu backend."""
+        return self.tables is not None
+
+    def _paging(self) -> None:
+        if self.backend != "torch":
+            raise ValueError("table paging requires matcher_backend='torch'")
+
+    def _staged(self) -> "dict[str, torch.Tensor]":
+        """The device tables, read once by each device entry."""
+        tables = self.tables
+        if tables is None:
+            raise TablesUnstaged(
+                f"metro {self.ts.name!r}: device tables are unstaged (paged "
+                "out); restage them before dispatching")
+        return tables
+
+    def unstage_tables(self) -> None:
+        """Drop the device tables (the fleet's demotion). Their memory
+        returns to the caching allocator once nothing refers to them;
+        kernels already queued on the stream read them first, by stream
+        order. The walker, route tables and tuned plan stay."""
+        self._paging()
+        self.tables = None
+
+    def restage_tables(self, tables: dict) -> None:
+        """Serve from ``tables``, a staged dict placed on this matcher's
+        device (the fleet's promotion: the same host values placed
+        again, so records are unchanged by any number of cycles). Checked
+        by ``check_staged_layout``; a refused dict leaves the matcher
+        unstaged. Does not re-tune."""
+        self._paging()
+        check_staged_layout(tables)
+        self.tables = device_members(tables)
 
     def _add_stage(self, key: str, seconds: float) -> None:
         with self._count_lock:
@@ -424,7 +500,8 @@ class SegmentMatcher:
                 if self.backend == "reference_cpu":
                     out = [self._match_cpu(t) for t in traces]
                 else:
-                    out, hold = self._guarded_many(traces, prepared)
+                    out, hold = self._guarded_many(traces, prepared,
+                                                   self._staged())
         finally:
             self._add_stage("wall", time.perf_counter() - t0)
         probes = sum(len(t.xy) for t in traces)
@@ -451,15 +528,16 @@ class SegmentMatcher:
         return out
 
     def _guarded_many(self, traces: Sequence[Trace],
-                      prepared: "PreparedBatch | None"):
-        """The device batch, under the watchdog when dispatch_timeout_s >
-        0. → (records, hold): hold["unmatched"] is the harvest's
-        unmatched points, hold None where the batch degraded."""
+                      prepared: "PreparedBatch | None", tables: dict):
+        """The device batch on ``tables``, under the watchdog when
+        dispatch_timeout_s > 0. → (records, hold): hold["unmatched"] is
+        the harvest's unmatched points, hold None where the batch
+        degraded."""
         hold = {"unmatched": 0}
         timeout = float(self.params.dispatch_timeout_s)
         if timeout <= 0:
             faults.fire("dispatch")
-            return self._match_many(traces, prepared, hold), hold
+            return self._match_many(traces, prepared, hold, tables), hold
         if self._watchdog.tripped:
             # the breaker is open: enough abandoned dispatches are still
             # stuck, so degrade at once instead of pinning another thread
@@ -475,7 +553,7 @@ class SegmentMatcher:
         # still shows in the post-mortem as the last thing started
         tracing.tracer().instant("device_dispatch", traces=len(traces))
         out = self._watchdog.run(
-            lambda: self._match_many(traces, prepared, hold), timeout,
+            lambda: self._match_many(traces, prepared, hold, tables), timeout,
             fault_site="dispatch")
         if out is not TIMED_OUT:
             return out, hold
@@ -522,11 +600,12 @@ class SegmentMatcher:
                               self._route_fn, self.params.backward_slack)
 
     def _match_many(self, traces: Sequence[Trace],
-                    prepared: "PreparedBatch | None", hold: dict):
-        """The device batch; adds its unmatched points to
+                    prepared: "PreparedBatch | None", hold: dict,
+                    tables: dict):
+        """The device batch on ``tables``; adds its unmatched points to
         ``hold["unmatched"]``."""
         if not self._interleaves(traces):
-            decoded = self._decode_many(traces)
+            decoded = self._decode_many(traces, tables)
             hold["unmatched"] += sum(int((e < 0).sum())
                                      for e, _, _ in decoded)
             t1 = time.perf_counter()
@@ -535,9 +614,10 @@ class SegmentMatcher:
             return out
         if prepared is not None:
             work = prepared.work
-            inflight = [self._dispatch(ps) for ps in prepared.slices]
+            inflight = [self._dispatch(ps, tables)
+                        for ps in prepared.slices]
         else:
-            work, inflight = self._submit_many(traces)
+            work, inflight = self._submit_many(traces, tables)
         slice_cols: list = [None] * len(inflight)
 
         def walk_slice(k, ws, arr):
@@ -554,7 +634,7 @@ class SegmentMatcher:
             raise NotImplementedError(
                 "matched_points decodes through the device path; "
                 "construct the matcher with matcher_backend='torch'")
-        trip = self._decode_many([trace])[0]
+        trip = self._decode_many([trace], self._staged())[0]
         return [MatchedPoint(int(e), float(o), bool(st))
                 for e, o, st in zip(*trip)]
 
@@ -585,6 +665,7 @@ class SegmentMatcher:
         from reporter_tpu_torch.ops.hmm import (viterbi_kbest_paths,
                                                 viterbi_topk_paths)
 
+        tables = self._staged()
         xy = trace.xy
         n = len(xy)
         pts = np.zeros((1, _bucket_len(max(n, 1)), 2), np.float32)
@@ -593,7 +674,7 @@ class SegmentMatcher:
         valid[0, :n] = True
         pj = torch.from_numpy(pts).to(self.device)
         vj = torch.from_numpy(valid).to(self.device)
-        cands = match_ops.batch_candidates(pj, vj, self.tables, self.params,
+        cands = match_ops.batch_candidates(pj, vj, tables, self.params,
                                            self.ts.meta)
         tc = match_ops.CandidateSet(*(x[0] for x in cands))
         p = self.params
@@ -602,7 +683,7 @@ class SegmentMatcher:
                                     pts.shape[1])
             tc = tc._replace(dist=tc.dist * torch.from_numpy(scale).to(
                 self.device)[:, None])
-        args = (tc, pj[0], vj[0], self.tables, p.sigma_z, p.beta,
+        args = (tc, pj[0], vj[0], tables, p.sigma_z, p.beta,
                 p.max_route_distance_factor, p.breakage_distance,
                 p.backward_slack, p.interpolation_distance)
         if exact:
@@ -685,9 +766,14 @@ class SegmentMatcher:
         return PreparedSlice(b, list(ws), mode, pts, lens, origins,
                              payload, scale)
 
-    def submit_prepared(self, ps: PreparedSlice) -> torch.Tensor:
-        """Dispatch one prepared slice; returns the wire tensor (on CUDA
+    def submit_prepared(self, ps: PreparedSlice,
+                        tables: "dict | None" = None) -> torch.Tensor:
+        """Dispatch one prepared slice on ``tables`` (the batch's capture;
+        None reads the matcher's own); returns the wire tensor (on CUDA
         the call returns once the work is queued)."""
+        if tables is None:
+            tables = self._staged()
+
         def dev(x):
             return None if x is None else torch.from_numpy(x).to(self.device)
 
@@ -695,20 +781,23 @@ class SegmentMatcher:
         meta = self.ts.meta
         if ps.mode == 2:
             return match_ops.wire_from_q8(dev(ps.payload), origins, lens,
-                                          self.tables, self.params, acc,
+                                          tables, self.params, acc,
                                           self.wire_spec, meta)
         if ps.mode == 1:
             return match_ops.wire_from_q16(dev(ps.payload), origins, lens,
-                                           self.tables, self.params, acc,
+                                           tables, self.params, acc,
                                            self.wire_spec, meta)
-        return match_ops.wire_from_f32(dev(ps.pts), lens, self.tables,
+        return match_ops.wire_from_f32(dev(ps.pts), lens, tables,
                                        self.params, acc, self.wire_spec, meta)
 
-    def _submit_many(self, traces: Sequence[Trace]):
-        """Prepare each slice and dispatch it at once, so the card starts
-        on slice 0 while later slices are prepared. → (work, inflight):
-        inflight = [(slice work indices, wire tensor)] in submission
-        order."""
+    def _submit_many(self, traces: Sequence[Trace],
+                     tables: "dict | None" = None):
+        """Prepare each slice and dispatch it on ``tables`` (None: the
+        matcher's own, read once) at once, so the card starts on slice 0
+        while later slices are prepared. → (work, inflight): inflight =
+        [(slice work indices, wire tensor)] in submission order."""
+        if tables is None:
+            tables = self._staged()
         t0 = time.perf_counter()
         work, sliced = self.plan_submit(traces)
         self._add_stage("prepare", time.perf_counter() - t0)
@@ -717,13 +806,13 @@ class SegmentMatcher:
             t0 = time.perf_counter()
             ps = self.prepare_submit_slice(traces, work, b, ws)
             self._add_stage("prepare", time.perf_counter() - t0)
-            inflight.append(self._dispatch(ps))
+            inflight.append(self._dispatch(ps, tables))
         return work, inflight
 
-    def _dispatch(self, ps: PreparedSlice):
+    def _dispatch(self, ps: PreparedSlice, tables: dict):
         """submit_prepared, timed as "dispatch". → (ws, wire)."""
         t0 = time.perf_counter()
-        wire = self.submit_prepared(ps)
+        wire = self.submit_prepared(ps, tables)
         self._add_stage("dispatch", time.perf_counter() - t0)
         return ps.ws, wire
 
@@ -769,10 +858,12 @@ class SegmentMatcher:
         return (cols._replace(trace=row_to_trace[cols.trace]),
                 int((edges < 0).sum()) - pad)
 
-    def _decode_many(self, traces: Sequence[Trace]):
+    def _decode_many(self, traces: Sequence[Trace],
+                     tables: "dict | None" = None):
         """Per-trace (edges, offsets, chain_starts) numpy triples (a trace
-        past the largest bucket reassembled from its chunks)."""
-        work, inflight = self._submit_many(traces)
+        past the largest bucket reassembled from its chunks), decoded on
+        ``tables`` (None: the matcher's own)."""
+        work, inflight = self._submit_many(traces, tables)
         per_trace: list[list[tuple[int, Any]]] = [[] for _ in traces]
 
         def split_slice(_k, ws, arr):

@@ -14,13 +14,15 @@ list and has no such rung, so a port plan carries the constant
 
 Resolution (``resolve_plan``): explicit sweep levers always win, and a
 matcher on the CPU, or on the grid candidate backend, does not tune (no
-kernel arms to choose among); else the
-on-disk cache keyed on tile fingerprint × device name, then a short
-calibration of ``CAL_DISPATCHES`` timed dispatches per candidate.
+kernel arms to choose among); else a plan already riding the staged
+dict (its host ``tuned_plan`` vector, source measured, cache or staged:
+the fleet's cold tier keeps a promoted metro's plan there, so a restaged
+or rebuilt matcher never measures again), then the on-disk cache keyed
+on tile fingerprint × device name, then a short calibration of
+``CAL_DISPATCHES`` timed dispatches per candidate. A plan from the cache
+or the calibration is stamped into the staged dict's host vector.
 ``calibrate`` and ``resolve_plan`` take the measure callable, so the
-selection logic runs under injected timings on the CPU. (The JAX
-package also reads a plan staged in the device tables by its fleet
-pager; the port has no fleet pager yet.)
+selection logic runs under injected timings on the CPU.
 
 The guard: given a ``watchdog`` (the matcher passes its dispatch
 watchdog, utils/watchdog.py), each candidate's measurement runs on the
@@ -125,6 +127,13 @@ def plan_array(plan: TunedPlan) -> np.ndarray:
     return np.asarray([PLAN_VERSION, _ARM_NAMES.index(plan.arm),
                        _LOWP_NAMES.index(plan.lowp), PLAN_NJ_CAP,
                        _SOURCE_NAMES.index(plan.source)], np.int32)
+
+
+def default_plan_array() -> np.ndarray:
+    """What ``TileSet.host_tables`` stamps into the dense layout: the
+    static default plan, overwritten by the tuner or a cache hit at
+    staging time."""
+    return plan_array(default_plan())
 
 
 def plan_from_array(arr) -> "TunedPlan | None":
@@ -300,12 +309,31 @@ def store_cached_plan(plan: TunedPlan, report: dict, fingerprint: str,
             pass
 
 
+def stamp_cached_plan(ts, host_tables: dict, params: MatcherParams,
+                      directory: "str | None" = None) -> "TunedPlan | None":
+    """Stamp the cached plan of (this tile, this card), if there is one,
+    into a host staged dict, so that a matcher later built on the dict
+    resolves it as staged and never measures. For code that fills a
+    cold tier or a table cache ahead of serving; the fleet's promotion does
+    not call it (its first matcher resolves the plan and the fleet
+    copies it back). No-op where the tuner would not act (autotune off,
+    explicit levers, a grid dict)."""
+    if not params.sweep_autotune or explicit_knobs(params) \
+            or "tuned_plan" not in host_tables:
+        return None
+    plan = load_cached_plan(tile_fingerprint(ts), device_key(), directory)
+    if plan is not None:
+        host_tables["tuned_plan"] = plan_array(plan)
+    return plan
+
+
 def resolve_plan(params: MatcherParams, ts,
                  measure: Callable[[TunedPlan], "float | None"],
                  watchdog=None, timeout_s: float = CAL_TIMEOUT_S,
                  directory: "str | None" = None,
                  backend: "str | None" = None,
                  devkey: "str | None" = None,
+                 tables: "dict | None" = None,
                  ) -> "tuple[TunedPlan | None, dict]":
     """(plan to apply | None, info). None means the tuner does not act
     (off, explicit levers, a CPU or grid matcher) and the params serve as they
@@ -313,7 +341,11 @@ def resolve_plan(params: MatcherParams, ts,
     AbandonedThreadWatchdog) bounds each candidate's measurement by
     ``timeout_s``; a timeout or an open breaker gives the default plan
     with source "timeout", not cached. ``backend`` is the matcher's
-    device type ("cuda" or "cpu"; None = cuda when a card is present)."""
+    device type ("cuda" or "cpu"; None = cuda when a card is present).
+    ``tables``, a staged dict: its host ``tuned_plan`` vector, when it
+    holds a measured, cached or staged plan, resolves before the disk
+    cache as source "staged"; a plan from the cache or a calibration is
+    written back into that vector."""
     import time
 
     if not params.sweep_autotune:
@@ -329,11 +361,24 @@ def resolve_plan(params: MatcherParams, ts,
         # arms to tune (it reports the same source)
         return None, {"source": "cpu"}
 
+    staged = plan_from_array(tables.get("tuned_plan")
+                             if tables is not None else None)
+    if staged is not None and staged.source in ("measured", "cache",
+                                                "staged"):
+        return (TunedPlan(arm=staged.arm, lowp=staged.lowp,
+                          source="staged"), {"source": "staged"})
+
+    def stamp(plan: TunedPlan) -> None:
+        if tables is not None and isinstance(tables.get("tuned_plan"),
+                                             np.ndarray):
+            tables["tuned_plan"] = plan_array(plan)
+
     fingerprint = tile_fingerprint(ts)
     if devkey is None:
         devkey = device_key()
     cached = load_cached_plan(fingerprint, devkey, directory)
     if cached is not None:
+        stamp(cached)
         return cached, {"source": "cache", "device": devkey}
 
     def guarded(plan: TunedPlan) -> "float | None":
@@ -357,6 +402,7 @@ def resolve_plan(params: MatcherParams, ts,
                 report["measured"] * (CAL_DISPATCHES + 1),
             **report}
     if plan.source == "measured":
+        stamp(plan)
         store_cached_plan(plan, report, fingerprint, devkey, directory)
     return plan, info
 

@@ -121,7 +121,9 @@ def _validate_payload(payload: Any,
 
 class ReporterApp:
     """Request pipeline around the port's SegmentMatcher, its tables on
-    ``device`` (``cuda`` unless the caller passes ``device="cpu"``).
+    ``device`` (``cuda`` unless the caller passes ``device="cpu"``), or
+    around an injected ``matcher`` over the same tileset (the fleet's,
+    whose tables it pages).
 
     Concurrency (``service.batching``): the default ``"scheduler"`` runs
     requests through the continuous in-flight batcher
@@ -133,11 +135,18 @@ class ReporterApp:
     def __init__(self, tileset: TileSet, config: Config | None = None,
                  transport: Transport | None = None,
                  device: "str | torch.device | None" = None,
-                 aggregates=None):
+                 aggregates=None,
+                 matcher: "SegmentMatcher | None" = None):
         self.config = (config or Config()).validate()
         svc = self.config.service
         tracing.configure_from_service(svc)   # span recorder (global)
-        self.matcher = SegmentMatcher(tileset, self.config, device=device)
+        if matcher is not None and matcher.ts is not tileset:
+            # injection is for the fleet, which pages the tables of its
+            # own matchers; another tile's matcher would serve the wrong
+            # metro's map
+            raise ValueError("injected matcher must wrap the same tileset")
+        self.matcher = (matcher if matcher is not None else
+                        SegmentMatcher(tileset, self.config, device=device))
         # link-health gauges: the process sampler probes the host–card
         # path at low duty and publishes rtpu_link_* into this app's
         # registry (RTPU_LINK_PROBE=0 disables; utils/linkhealth.py)

@@ -13,7 +13,11 @@ Routes: ``POST /report``, ``/report_many`` (each result gains
 ``"metro"``), ``GET /health`` (a ``metros`` block, one app's /health
 each), ``/stats`` (each metro's registry) and ``/metrics`` (the router's
 own series: ``router_unroutable``). A trace outside every metro answers
-404 with ``known_metros``; an unknown explicit metro 400.
+404 with ``known_metros``; an unknown explicit metro 400. Every request
+reaches its metro's app through ``app()`` and dispatches inside
+``_serving()``, the two seams the fleet router (fleet/router.py)
+overrides: apps built at first traffic, each dispatch under a residency
+lease.
 
 ``meshes=`` (a metro's matcher across several cards) raises
 NotImplementedError: multi-GPU is ROADMAP queue 1 item 7.
@@ -21,6 +25,7 @@ NotImplementedError: multi-GPU is ROADMAP queue 1 item 7.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Callable, Sequence
 
@@ -74,8 +79,7 @@ class MetroRouter:
     def _init_routing(self, tilesets: Sequence[TileSet]) -> "list[str]":
         """The routing state (the box table and the router's registry),
         apart from the apps, so that a router building its apps another
-        way (the JAX package's fleet residency, ROADMAP queue 1 item 6)
-        can reuse it."""
+        way (the fleet router, fleet/router.py) can reuse it."""
         if not tilesets:
             raise ValueError("need at least one tileset")
         names = [ts.name for ts in tilesets]
@@ -93,6 +97,19 @@ class MetroRouter:
 
     def known_metros(self) -> "list[str]":
         return sorted(self._bounds)
+
+    def app(self, name: str) -> ReporterApp:
+        """The metro's app: the access point a subclass overrides (the
+        fleet router builds it at first traffic)."""
+        return self.apps[name]
+
+    @contextlib.contextmanager
+    def _serving(self, metro: str):
+        """The dispatch context of one metro's batch, entered after
+        ``app()``: nothing here (every table stays staged); the fleet
+        router holds a residency lease, so the tables cannot page out
+        under a dispatch."""
+        yield
 
     @staticmethod
     def _lonlat_bounds(ts: TileSet):
@@ -135,7 +152,9 @@ class MetroRouter:
 
     def report_one(self, payload: dict) -> dict:
         metro = self.route(payload)
-        out = self.apps[metro].report_one(payload)
+        app = self.app(metro)
+        with self._serving(metro):
+            out = app.report_one(payload)
         out["metro"] = metro
         return out
 
@@ -149,7 +168,9 @@ class MetroRouter:
             by_metro.setdefault(m, []).append(i)
         results: list = [None] * len(payloads)
         for m, idxs in by_metro.items():
-            outs = self.apps[m].report_many([payloads[i] for i in idxs])
+            app = self.app(m)
+            with self._serving(m):
+                outs = app.report_many([payloads[i] for i in idxs])
             for i, out in zip(idxs, outs):
                 out["metro"] = m
                 results[i] = out

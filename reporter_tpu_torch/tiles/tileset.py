@@ -36,13 +36,19 @@ The grid registers every line segment in each cell within
 ``index_radius`` of its bbox (tiles/compiler.py), so one cell row holds
 every segment a point of that cell can have within that radius.
 
-``tables_from_numpy`` stages what the matcher's candidate backend reads:
-the dense sweep's segment pack, or the grid backend's ``cell_pack``
-(``build_cell_pack``: one f32 [8*C] row per cell with every registered
-segment's geometry inline, so a point's candidates are one contiguous
-row gather). ``save`` / ``load`` use the JAX package's ``.npz`` layout
-and schema check, grid and grid metadata included, so the two packages
-read each other's files.
+``host_tables`` builds what the matcher's candidate backend reads, as
+host numpy arrays: the dense sweep's segment pack, or the grid backend's
+``cell_pack`` (``build_cell_pack``: one f32 [8*C] row per cell with every
+registered segment's geometry inline, so a point's candidates are one
+contiguous row gather), beside a ``staged_layout`` version tag and, on
+the dense layout, the ``tuned_plan`` vector. ``place_tables`` puts the
+arrays on a device; the tag and the plan stay host values (the port's
+wire entries do not take them). ``tables_from_numpy`` is the two in a
+row, the tensors alone: the matcher and the fleet's cold tier
+(fleet/residency.py) share this one staging path. ``check_staged_layout``
+guards every seam that takes a dict built elsewhere. ``save`` / ``load``
+use the JAX package's ``.npz`` layout and schema check, grid and grid
+metadata included, so the two packages read each other's files.
 """
 
 from __future__ import annotations
@@ -72,6 +78,26 @@ ARRAY_FIELDS = (
 
 # the JAX package's tile file schema (reach rows ascending by target id)
 _SCHEMA = 4
+
+# Version of the staged table layout (the member set host_tables builds),
+# the port's own: bumped whenever a staged table is added or changed, so
+# a dict built before the change (the fleet keeps its cold tier for the
+# process's life) fails at the staging seam instead of in a kernel. The
+# number follows the JAX package's layout v3 (the plan vector rides the
+# dense layout); the port's dense member set differs from the JAX one
+# (seg_sweep and seg_coarse, no edge_osmlr), so a JAX-built dict fails
+# the member check.
+STAGED_LAYOUT_VERSION = 3
+
+# every member the dense layout must stage: check_staged_layout checks
+# the set as well as the tag, so a hand-built dict with a current tag
+# and a stale member set fails too
+_DENSE_LAYOUT_KEYS = ("seg_pack", "seg_bbox", "seg_sub", "seg_feat",
+                      "seg_sweep", "seg_coarse")
+
+# members that stay host values: place_tables passes them through as
+# they are, and the matcher's device tables do not hold them
+HOST_KEYS = ("staged_layout", "tuned_plan")
 
 
 class TileMeta(NamedTuple):
@@ -170,6 +196,12 @@ class TileSet:
     def arrays(self) -> dict[str, np.ndarray]:
         return {f: getattr(self, f) for f in ARRAY_FIELDS}
 
+    def host_tables(self, candidate_backend: str = "dense",
+                    ) -> "dict[str, np.ndarray]":
+        """The staged layout of ``candidate_backend`` as host numpy
+        arrays (module ``host_tables``)."""
+        return host_tables(self.arrays(), candidate_backend)
+
     # ---- persistence (the JAX package's .npz layout) ----------------------
 
     def save(self, path: str) -> str:
@@ -233,28 +265,61 @@ class TileSet:
                       if k in ARRAY_FIELDS})
 
 
-def tables_from_numpy(arrays: "dict[str, np.ndarray]",
-                      device: "str | torch.device",
-                      candidate_backend: str = "dense",
-                      ) -> "dict[str, torch.Tensor]":
-    """The device tables of the matcher, as torch tensors on ``device``.
+def check_staged_layout(tables) -> None:
+    """Raise ValueError unless ``tables`` is a staged dict of this code's
+    layout: a ``staged_layout`` tag (its value checked where it is a host
+    number, as host_tables makes it), and on the dense layout every
+    member of ``_DENSE_LAYOUT_KEYS`` and ``tuned_plan``. Called at every
+    seam that takes a dict built elsewhere: ``SegmentMatcher(...,
+    staged_tables=)`` and ``restage_tables`` (the fleet's promotion)."""
+    v = tables.get("staged_layout") if hasattr(tables, "get") else None
+    if v is None:
+        raise ValueError(
+            "staged tables carry no staged_layout version tag; rebuild "
+            "the dict with TileSet.host_tables()")
+    if isinstance(v, (int, np.integer, np.ndarray)) \
+            and int(v) != STAGED_LAYOUT_VERSION:
+        raise ValueError(
+            f"staged tables are layout v{int(v)}, this code stages "
+            f"v{STAGED_LAYOUT_VERSION}; rebuild the dict with "
+            "TileSet.host_tables()")
+    if "seg_pack" in tables:
+        missing = [k for k in (*_DENSE_LAYOUT_KEYS, "tuned_plan")
+                   if k not in tables]
+        if missing:
+            raise ValueError(
+                f"staged dense layout is missing {missing} despite a "
+                "current version tag (a JAX-built dict lacks the port's "
+                "seg_sweep and seg_coarse); rebuild with "
+                "TileSet.host_tables()")
+
+
+def host_tables(arrays: "dict[str, np.ndarray]",
+                candidate_backend: str = "dense",
+                ) -> "dict[str, np.ndarray]":
+    """The matcher's staged layout as host numpy arrays.
 
     ``arrays`` holds a tile's numpy arrays by their TileSet names (this
     port's ``TileSet.arrays()``, or the same fields of a reporter_tpu
-    TileSet). ``candidate_backend`` picks the candidate layout staged, as
-    the JAX package's ``host_tables`` does: "dense" (and "auto") the
-    segment pack, built here with this port's build_seg_pack, with the
-    port's seg_sweep and seg_coarse tables beside the JAX package's four;
-    "grid" the ``cell_pack`` of the grid. Every array keeps
-    its dtype and bytes (the packs' edge rows stay the int32 bit pattern
-    inside f32 rows). A restricted tile's R = N + F reach rows are staged
-    as they are."""
+    TileSet). ``candidate_backend`` picks the candidate layout, as the
+    JAX package's ``host_tables`` does: "dense" (and "auto") the segment
+    pack, built here with this port's build_seg_pack, with the port's
+    seg_sweep and seg_coarse tables beside the JAX package's four, and
+    the static default ``tuned_plan`` vector (the tuner or the plan cache
+    overwrites it at staging time); "grid" the ``cell_pack`` of the grid.
+    Every array keeps its dtype and bytes (the packs' edge rows stay the
+    int32 bit pattern inside f32 rows). A restricted tile's R = N + F
+    reach rows are staged as they are. The per-edge and reach members
+    and the four shared pack members equal the JAX package's byte for
+    byte; ``edge_osmlr``, which the JAX layout stages, is read on the
+    host here and is not staged."""
     from reporter_tpu_torch.ops.dense_candidates import build_seg_pack
 
     if candidate_backend not in ("auto", "dense", "grid"):
         raise ValueError(f"unknown candidate_backend {candidate_backend!r}; "
                          "use 'auto', 'dense' or 'grid'")
     host = {
+        "staged_layout": np.int32(STAGED_LAYOUT_VERSION),
         "edge_len": arrays["edge_len"],
         "reach_row": arrays["edge_reach_row"],
         "reach_to": arrays["reach_to"],
@@ -265,11 +330,54 @@ def tables_from_numpy(arrays: "dict[str, np.ndarray]",
             arrays["grid"], arrays["seg_a"], arrays["seg_b"],
             arrays["seg_edge"], arrays["seg_off"], arrays["seg_len"])
     else:
+        from reporter_tpu_torch.matcher.autotune import default_plan_array
+
         sp = build_seg_pack(arrays["seg_a"], arrays["seg_b"],
                             arrays["seg_edge"], arrays["seg_off"],
                             arrays["seg_len"])
         host.update(seg_pack=sp.pack, seg_bbox=sp.bbox, seg_sub=sp.sub,
                     seg_feat=sp.feat, seg_sweep=sp.sweep,
-                    seg_coarse=sp.coarse)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                    seg_coarse=sp.coarse, tuned_plan=default_plan_array())
+    return {k: v if k in HOST_KEYS else np.ascontiguousarray(v)
             for k, v in host.items()}
+
+
+def staged_nbytes(tables: dict) -> int:
+    """Bytes of a staged dict's device members (host or placed), the
+    host tag and plan excluded: what ``place_tables`` puts on the device
+    and ``SegmentMatcher.table_bytes`` counts."""
+    return int(sum(v.nbytes for k, v in tables.items()
+                   if k not in HOST_KEYS))
+
+
+def place_tables(host: dict, device: "str | torch.device",
+                 ) -> "dict[str, Any]":
+    """A staged dict with its device members on ``device``: a numpy
+    array through ``torch.from_numpy``, a tensor (a pinned one, in the
+    fleet's cold tier) by ``.to(device)``. The members of ``HOST_KEYS``
+    pass through as host values."""
+    out: "dict[str, Any]" = {}
+    for k, v in host.items():
+        if k in HOST_KEYS:
+            out[k] = v
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.to(device)
+        else:
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return out
+
+
+def device_members(tables: dict) -> "dict[str, torch.Tensor]":
+    """A placed staged dict's tensors alone (the matcher's tables)."""
+    return {k: v for k, v in tables.items() if k not in HOST_KEYS}
+
+
+def tables_from_numpy(arrays: "dict[str, np.ndarray]",
+                      device: "str | torch.device",
+                      candidate_backend: str = "dense",
+                      ) -> "dict[str, torch.Tensor]":
+    """The device tables of the matcher, as torch tensors on ``device``:
+    ``host_tables`` then ``place_tables``, the host tag and plan left
+    out."""
+    return device_members(place_tables(
+        host_tables(arrays, candidate_backend), device))

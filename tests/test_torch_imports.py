@@ -68,13 +68,15 @@ _SLICE_13 = ("reporter_tpu_torch.ops.candidates",
              "reporter_tpu_torch.tiles.osmlr_export",
              "reporter_tpu_torch.tiles.osmlr_tiles",
              "reporter_tpu_torch.tiles.reach_audit")
+_SLICE_14 = ("reporter_tpu_torch.fleet", "reporter_tpu_torch.fleet.residency",
+             "reporter_tpu_torch.fleet.router")
 
 
-@pytest.mark.parametrize("module", _SLICE_13)
+@pytest.mark.parametrize("module", _SLICE_13 + _SLICE_14)
 def test_new_modules_import_without_jax(module):
-    """The grid backend and the tile tools import in a fresh interpreter
-    with neither jax nor reporter_tpu loaded afterwards (the walk above
-    checks their source too)."""
+    """The grid backend, the tile tools and the fleet import in a fresh
+    interpreter with neither jax nor reporter_tpu loaded afterwards (the
+    walk above checks their source too)."""
     import subprocess
     import sys
 

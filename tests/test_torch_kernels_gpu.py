@@ -585,3 +585,79 @@ def test_match_topk_on_the_card_equals_cpu(tiny_pair, backend):
                 assert gs == ws
                 assert [(p.edge, p.offset) for p in gp] == \
                     [(p.edge, p.offset) for p in wp]
+
+
+def _fleet_metros(n=3):
+    from reporter_tpu_torch.config import CompilerParams
+
+    out = []
+    for i in range(n):
+        net = generate_city("tiny", nx=8, ny=8, seed=60 + i,
+                            center=(-125.0 + 0.7 * i, 38.0))
+        net.name = f"fleet{i:02d}"
+        out.append(compile_network(net, CompilerParams(reach_radius=500.0)))
+    return out
+
+
+def test_fleet_promotion_is_a_pinned_copy(cuda):
+    """A promotion on the card places the cold tier's pinned tensors:
+    every cold-tier table is page-locked, every placed table lies on the
+    card with the cold tier's bytes, and the records through evict →
+    promote equal a dedicated matcher's on the card."""
+    from reporter_tpu_torch.config import Config, MatcherParams
+    from reporter_tpu_torch.fleet import FleetConfig, FleetResidency
+    from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
+    from reporter_tpu_torch.netgen.traces import synthesize_probe
+    from reporter_tpu_torch.tiles.tileset import HOST_KEYS, staged_nbytes
+
+    metros = _fleet_metros()
+    cfg = Config(matcher=MatcherParams(sweep_autotune=False))
+    sizes = [staged_nbytes(t.host_tables("dense")) for t in metros]
+    fr = FleetResidency(metros, cfg, FleetConfig(
+        max_resident_bytes=sizes[0] + sizes[1] // 2, evict_watermark=1.0))
+    ts = metros[0]
+    traces = [Trace.from_json(synthesize_probe(
+        ts, seed=s, num_points=60, gps_sigma=3.0).to_report_json(), ts)
+        for s in (5, 6, 7)]
+    want = [[r.to_json() for r in x] for x in SegmentMatcher(
+        ts, cfg, device="cuda").match_many(traces)]
+    for _ in range(2):                  # promote, evict, promote again
+        with fr.lease(ts.name) as m:
+            got = [[r.to_json() for r in x] for x in m.match_many(traces)]
+            assert got == want
+            host = fr._metros[ts.name].host
+            for k, v in m.tables.items():
+                assert v.is_cuda and host[k].is_pinned(), k
+                assert v.cpu().numpy().tobytes() == \
+                    host[k].numpy().tobytes(), k
+            assert set(host) - set(m.tables) == set(HOST_KEYS)
+            assert m.table_bytes == sizes[0]
+        fr.promote(metros[1].name)      # evicts it
+        assert not m.tables_staged
+    assert fr.occupancy()["metros"][ts.name]["promotions"] == 2
+
+
+def test_fleet_demotion_frees_its_staged_bytes(cuda):
+    """Demotion returns the metro's blocks to the caching allocator:
+    memory_allocated falls by its staged bytes rounded up to 512-byte
+    blocks, one per table; promotion raises it by as much."""
+    from reporter_tpu_torch.config import Config, MatcherParams
+    from reporter_tpu_torch.fleet import FleetResidency
+
+    metros = _fleet_metros(2)
+    fr = FleetResidency(metros, Config(
+        matcher=MatcherParams(sweep_autotune=False)))
+    fr.promote(metros[1].name)
+    for name in (metros[0].name, metros[0].name):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fr.promote(name)
+        torch.cuda.synchronize()
+        up = torch.cuda.memory_allocated() - before
+        m = fr.matcher(name)
+        staged, n = m.table_bytes, len(m.tables)
+        fr.demote(name)
+        torch.cuda.synchronize()
+        down = up + before - torch.cuda.memory_allocated()
+        assert staged <= up < staged + 512 * n, (up, staged)
+        assert down == up

@@ -858,7 +858,7 @@ def test_fault_plan_sites(spec):
 
 @pytest.mark.parametrize("spec,match", [
     ("checkpoint:torn@0", "broker-site kind"),
-    ("fleet_promote:hang(1)@0", "unknown fault site")])
+    ("autotune:hang(1)@0", "unknown fault site")])
 def test_fault_plan_rejects(spec, match):
     with pytest.raises(ValueError, match=match):
         faults.FaultPlan.parse(spec)

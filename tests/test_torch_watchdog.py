@@ -136,8 +136,11 @@ def test_bad_specs_reject_as_in_the_jax_package(spec, match):
 
 
 def test_fleet_promote_raises_naming_the_site():
-    """Fleet residency is not ported: a plan naming its site fails at
-    parse, naming it (the JAX package accepts it)."""
-    assert jfaults.FaultPlan.parse("fleet_promote:hang(1)@0").rules
-    with pytest.raises(ValueError, match="unknown fault site 'fleet_promote'"):
-        faults.FaultPlan.parse("fleet_promote:hang(1)@0")
+    """The fleet's page-in site (fleet/residency.py): both packages parse
+    a plan naming it to the same rules, and list it in the same place."""
+    spec = "fleet_promote:hang(1)@0"
+    got, want = ({site: [(r.kind, r.lo, r.hi, r.seconds, r.p) for r in rs]
+                  for site, rs in mod.FaultPlan.parse(spec).rules.items()}
+                 for mod in (faults, jfaults))
+    assert got == want == {"fleet_promote": [("hang", 0, 1, 1.0, 1.0)]}
+    assert faults.SITES == jfaults.SITES
