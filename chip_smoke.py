@@ -332,11 +332,36 @@ the native host half against its Python forms, in phases:
                 resume from its checkpoint (same grids, the replay tax);
                 GET /aggregates of an app holding the store (the
                 document, one segment, 404 for an unknown one);
- 11. summary  — the kernels JSON line (every arm at every K, the sources,
+ 11. mesh     — multi-GPU (reporter_tpu_torch/parallel/), each phase its
+                own launch window, the five timed together ([mesh]):
+                [mesh:dp] a SegmentMatcher over make_mesh(dp=MESH_DP,
+                devices=["cuda:0"] * MESH_DP), and over make_mesh() when
+                more than one card is visible: MESH_BATCH_RUNS timed
+                batches of the 1024 x 120 fleet (median, stages, launches
+                per (arm, K)), records equal to the tuned single-device
+                matcher's (to_json(), tolerance 0), the wire bytes of
+                MESH_WIRE_TRACES traces (rows padded to a multiple of the
+                devices) equal; [mesh:sharded] sf's segment table over
+                tile=MESH_SHARDS, dp=1: edge, offset and dist of all
+                131,072 points bit-equal to the unsharded sweep's, the
+                MatchOutput equal to match_traces', each shard's sweep ms
+                and the merge ms; [mesh:metro] [router]'s sf, nyc and la
+                stacked on tile=3, dp=MESH_METRO_DP, MESH_METRO_TRACES x
+                120 traces each: every metro's outputs equal its own
+                single-device match, the histogram the bincount of the
+                matched OSMLR rows (zero past each metro's real G);
+                [mesh:backfill] partition 0 of [backfill]'s spool through
+                BackfillConfig(mesh_devices=MESH_DP) (with fewer cards:
+                the refusal checked, then over MESH_DP x cuda:0): grids
+                and document equal to the tuned single-device engine's,
+                records/s of both; [mesh:group] a 1-process nccl group
+                through initialize_multihost in a subprocess: all_reduce,
+                shutdown twice;
+ 12. summary  — the kernels JSON line (every arm at every K, the sources,
                 the host library among them; the topology's workers'
-                launches by member; the sf:topk, sf:grid and fleet windows
-                in every entry's launches_by_path), the card line, and the final
-                {"ok": true, "device": {...}} line.
+                launches by member; the sf:topk, sf:grid, fleet and mesh:*
+                windows in every entry's launches_by_path), the card line,
+                and the final {"ok": true, "device": {...}} line.
 
 Any failed phase raises and the script exits non-zero without the final
 line. Every time printed carries the card name and power limit, and each
@@ -428,6 +453,15 @@ FALLBACK_TIMEOUT_S = 0.5      # under a hang of every dispatch
 FALLBACK_HANG_S = 30.0
 AUDIT_BATCHES, AUDIT_BATCH = 6, 64   # [audit]: served batches, traces each
 BACKFILL_PARTITIONS = 4       # [backfill]: the spool's partitions
+MESH_DP = 4                   # [mesh:dp], [mesh:backfill]: shards of the
+#                               data axis on one card (["cuda:0"] * 4)
+MESH_WIRE_TRACES = 1021       # [mesh:dp]: the wire check's traces (not a
+#                               multiple of MESH_DP: rows are padded)
+MESH_BATCH_RUNS = 3           # [mesh:dp]: timed batches
+MESH_SHARDS = 4               # [mesh:sharded]: segment shards (tile axis)
+MESH_METRO_TRACES = 64        # [mesh:metro]: traces per metro (N_POINTS)
+MESH_METRO_DP = 2             # [mesh:metro]: tile = 3 metros x dp = 2
+MESH_GROUP_TIMEOUT_S = 120    # [mesh:group]: the subprocess's limit
 KERNEL_BETWEEN_KS = (5, 7, 10)  # [kernel:k], [main:k]: widths between the
 #                               built ones (each runs the next built K')
 ROUTER_METROS = ("sf", "nyc", "la")   # [router]: BASELINE config 4's trio
@@ -2832,7 +2866,11 @@ def oracle_phase(card, ts, traces, recs, cpu_recs, metro):
 
 
 def _tuned(m, dc):
-    p = m.params
+    return _params_instance(m.params, dc)
+
+
+def _params_instance(p, dc):
+    """The kernel instance (arm, K) a MatcherParams' levers select."""
     return dc.sweep_arm(p.sweep_subcull, p.sweep_lowp, p.sweep_mxu), \
         p.max_candidates
 
@@ -5049,6 +5087,340 @@ def fleet_guard_phase(card, cache, ts):
                          "roll back and recover")
 
 
+# ---- multi-GPU: the mesh's programs on the card ----------------------------
+
+
+def _mesh_wire(m, traces) -> bytes:
+    """The wire of these traces, harvested in submission order with the
+    padded rows dropped (a mesh pads each slice to a multiple of its
+    devices)."""
+    _, inflight = m._submit_many(traces)
+    return b"".join(w.cpu().numpy()[:len(ws)].tobytes()
+                    for ws, w in inflight)
+
+
+def mesh_dp_phase(card, ts, traces, recs, m, fields, dc, win):
+    """[mesh:dp]: a SegmentMatcher over make_mesh(dp=MESH_DP,
+    devices=["cuda:0"] * MESH_DP), and over make_mesh() of every visible
+    card when there are more than one: MESH_BATCH_RUNS timed batches of
+    the 1024 x 120 fleet (median, stages, launches per (arm, K)), records
+    equal to the tuned single-device matcher's (to_json(), tolerance 0),
+    the wire bytes of MESH_WIRE_TRACES traces equal to its wire's; then
+    MESH_BATCH_RUNS batches of each in turns (medians and their
+    ratio)."""
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+    from reporter_tpu_torch.parallel import make_mesh
+
+    meshes = {"one_card": make_mesh(dp=MESH_DP,
+                                    devices=["cuda:0"] * MESH_DP)}
+    if torch.cuda.device_count() > 1:
+        meshes["every_card"] = make_mesh()
+    want = json_records(recs)
+    want_wire = _mesh_wire(m, traces[:MESH_WIRE_TRACES])
+    out = {}
+    for tag, mesh in meshes.items():
+        mm = SegmentMatcher(ts, mesh=mesh)
+        inst = _tuned(mm, dc)
+        (got, f), counts = win.run(
+            "mesh:dp", lambda mm=mm: timed_batches(mm, traces,
+                                                   runs=MESH_BATCH_RUNS))
+        only(counts, inst, f"[mesh:dp] {tag}")
+        wire_eq = _mesh_wire(mm, traces[:MESH_WIRE_TRACES]) == want_wire
+        rec_eq = json_records(got) == want
+        # the tuned single-device matcher and the mesh in turns (A B, B A,
+        # ...): the host's launch rate drifts within a run
+        walls = {"single": [], "mesh": []}
+        for r in range(MESH_BATCH_RUNS):
+            for who in (("single", "mesh") if r % 2 == 0
+                        else ("mesh", "single")):
+                t = time.perf_counter()
+                (m if who == "single" else mm).match_many(traces)
+                walls[who].append((time.perf_counter() - t) * 1e3)
+        turns = {k: statistics.median(v) for k, v in walls.items()}
+        out[tag] = {
+            "mesh": dict(mesh.shape),
+            "devices": [str(d) for d in mesh.flat_devices],
+            "arm": f"{inst[0]}@k{inst[1]}", "records_equal": rec_eq,
+            "wire_equal": wire_eq, "launches": _launches(counts),
+            "launches_per_batch": counts[inst] / (MESH_BATCH_RUNS + 1),
+            "in_turns_ms": turns,
+            "x_single_in_turns": turns["mesh"] / turns["single"],
+            **{k: f[k] for k in ("batch_ms_median", "batch_ms_min",
+                                 "batch_ms_max", "prepare_ms",
+                                 "dispatch_ms", "device_ms", "walk_ms",
+                                 "probes_per_s")}}
+        if not (rec_eq and wire_eq):
+            phase("mesh:dp", card, **out)
+            raise SystemExit(f"[mesh:dp] {tag}: records or wire differ from "
+                             "the single-device matcher's")
+    tuned_slices = m.plan_submit(traces)[1]
+    phase("mesh:dp", card, metro="sf", traces=len(traces),
+          wire_traces=MESH_WIRE_TRACES, single_batch_ms=fields[
+              "batch_ms_median"], single_slices=len(tuned_slices), **out)
+
+
+def mesh_sharded_phase(card, ts, fleet, dc, win):
+    """[mesh:sharded]: sf's segment table over tile=MESH_SHARDS, dp=1 on
+    one card: each shard's tables built from its own columns; edge,
+    offset and dist of all 131,072 fleet points bit-equal to the
+    unsharded sweep's; make_sharded_matcher's MatchOutput equal to the
+    single-device match_traces; each shard's squared output (the merge's
+    input) bit-equal to _dense_plain(squared=True) of its pack on
+    CHECK_CHUNKS chunks; each shard's sweep ms and the merge ms (CUDA
+    events)."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.ops.match import match_traces
+    from reporter_tpu_torch.parallel import make_mesh, make_sharded_matcher
+    from reporter_tpu_torch.parallel.sharded_candidates import (
+        SEG_KEYS, _merge_topk, sharded_candidates)
+    from reporter_tpu_torch.tiles.tileset import tables_from_numpy
+
+    params = MatcherParams(sweep_autotune=False)
+    inst = _params_instance(params, dc)
+    mesh = make_mesh(tile=MESH_SHARDS, dp=1,
+                     devices=["cuda:0"] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    step = make_sharded_matcher(mesh, ts, params)
+    build_s = time.perf_counter() - t0
+    tables = step.tables
+    tab = tables_from_numpy(ts.arrays(), "cuda")
+    pts3 = fleet_points(fleet).reshape(len(fleet), BUCKET, 2)
+    valid3 = np.zeros(pts3.shape[:2], bool)
+    for i, p in enumerate(fleet):
+        valid3[i, :len(p.xy)] = True
+    pts = torch.from_numpy(pts3.reshape(-1, 2)).cuda()
+    valid = torch.from_numpy(valid3.reshape(-1)).cuda()
+    (me, md, mo), counts = win.run(
+        "mesh:sharded", lambda: sharded_candidates(tables, pts, valid,
+                                                   params))
+    only(counts, inst, "[mesh:sharded] candidates")
+    seg = tuple(tab[k] for k in SEG_KEYS)
+    whole = dc.find_candidates_dense(pts, seg, params.search_radius,
+                                     params.max_candidates, valid=valid)
+    cand_eq = (torch.equal(me, whole.edge) and torch.equal(mo, whole.offset)
+               and torch.equal(md, whole.dist))
+    out, step_counts = win.run("mesh:sharded",
+                               lambda: step(pts3, valid3))
+    ref = match_traces(torch.from_numpy(pts3).cuda(),
+                       torch.from_numpy(valid3).cuda(), tab, params, None,
+                       ts.meta)
+    out_eq = all(torch.equal(getattr(out, f), getattr(ref, f))
+                 for f in out._fields)
+    only(step_counts, inst, "[mesh:sharded] make_sharded_matcher")
+    win.by_path["mesh:sharded"] = {
+        key: counts[key] + step_counts[key] for key in counts}
+    shard_ms, lists, plain_eq = [], [], []
+    for i in range(MESH_SHARDS):
+        tb = tables.segments[i, mesh.devices[i, 0]]
+        args = tuple(tb[k] for k in SEG_KEYS)
+
+        def one(args=args):
+            return dc.find_candidates_dense(
+                pts, args, params.search_radius, params.max_candidates,
+                valid=valid, squared=True)
+        shard_ms.append(cuda_ms(one, 5))
+        lists.append(one())
+        # the squared output against the plain sweep of the shard's pack
+        head = CHECK_CHUNKS * dc._P
+        plain = dc._dense_plain(pts[:head], tb["seg_pack"],
+                                params.search_radius, params.max_candidates,
+                                squared=True)
+        plain_eq.append(all(
+            torch.equal(g[:head][valid[:head]], r[valid[:head]])
+            for g, r in zip((lists[-1].edge, lists[-1].offset,
+                             lists[-1].dist), plain)))
+    stacked = [torch.stack([getattr(f, fld) for f in lists])
+               for fld in ("edge", "dist", "offset")]
+    merge_ms = cuda_ms(lambda: _merge_topk(*stacked, params.max_candidates),
+                       5)
+    whole_ms = cuda_ms(lambda: dc.find_candidates_dense(
+        pts, seg, params.search_radius, params.max_candidates, valid=valid),
+        5)
+    phase("mesh:sharded", card, metro="sf", shards=MESH_SHARDS,
+          points=int(pts.shape[0]), arm=f"{inst[0]}@k{inst[1]}",
+          blocks_per_shard=[int(h["seg_bbox"].shape[0])
+                            for h in tables.host],
+          real_blocks=int(tab["seg_bbox"].shape[0]),
+          build_s=build_s, candidates_bit_equal=cand_eq,
+          match_output_equal=out_eq, plain_points=CHECK_CHUNKS * dc._P,
+          shard_squared_equal_plain=plain_eq, shard_candidates_ms=shard_ms,
+          merge_ms=merge_ms, unsharded_candidates_ms=whole_ms,
+          launches=_launches(win.by_path["mesh:sharded"]))
+    if not (cand_eq and out_eq and all(plain_eq)):
+        raise SystemExit("[mesh:sharded] the sharded sweep or match differs "
+                         "from the unsharded one or a shard from its plain "
+                         "sweep")
+
+
+def mesh_metro_phase(card, metros, dc, win):
+    """[mesh:metro]: sf, nyc and la stacked on tile=3, dp=MESH_METRO_DP
+    (one card), MESH_METRO_TRACES x 120 traces each: every metro's
+    outputs equal its own single-device match_traces; the histogram
+    equals the bincount of the matched OSMLR rows, zero past each
+    metro's real G."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.netgen.traces import synthesize_fleet
+    from reporter_tpu_torch.ops.match import match_traces
+    from reporter_tpu_torch.parallel import (make_mesh,
+                                             make_multimetro_matcher,
+                                             stack_tilesets)
+    from reporter_tpu_torch.tiles.tileset import tables_from_numpy
+
+    params = MatcherParams(sweep_autotune=False)
+    inst = _params_instance(params, dc)
+    n = len(metros)
+    mesh = make_mesh(tile=n, dp=MESH_METRO_DP,
+                     devices=["cuda:0"] * (n * MESH_METRO_DP))
+    t0 = time.perf_counter()
+    stacked = stack_tilesets(metros)
+    step = make_multimetro_matcher(mesh, stacked, params)
+    build_s = time.perf_counter() - t0
+    points = np.zeros((n, MESH_METRO_TRACES, N_POINTS, 2), np.float32)
+    for i, tsm in enumerate(metros):
+        points[i] = np.stack([p.xy for p in synthesize_fleet(
+            tsm, MESH_METRO_TRACES, num_points=N_POINTS, seed=0)])
+    valid = np.ones(points.shape[:3], bool)
+    (out, hist), counts = win.run("mesh:metro", lambda: step(points, valid))
+    only(counts, inst, "[mesh:metro]")
+    ms = cuda_ms(lambda: step(points, valid), 3, warmup=0)
+    per, hist_ok = {}, []
+    for i, tsm in enumerate(metros):
+        ref = match_traces(torch.from_numpy(points[i]).cuda(),
+                           torch.from_numpy(valid[i]).cuda(),
+                           tables_from_numpy(tsm.arrays(), "cuda"), params,
+                           None, tsm.meta)
+        eq = all(torch.equal(getattr(out, f)[i], getattr(ref, f))
+                 for f in out._fields)
+        edges = out.edge[i].cpu().numpy()
+        matched = out.matched[i].cpu().numpy()
+        rows = tsm.edge_osmlr[np.maximum(edges, 0)][matched & (edges >= 0)]
+        want = np.bincount(rows[rows >= 0], minlength=stacked.osmlr_pad)
+        h = hist[i].cpu().numpy()
+        ok = (np.array_equal(h, want)
+              and not h[stacked.num_osmlr[i]:].any())
+        hist_ok.append(ok)
+        per[tsm.name] = {"output_equal": eq, "histogram_equal": ok,
+                         "matched_share": float(matched.mean()),
+                         "osmlr_rows": stacked.num_osmlr[i],
+                         "observations": int(h.sum())}
+    phase("mesh:metro", card, metros=list(stacked.names),
+          mesh=dict(mesh.shape), traces_per_metro=MESH_METRO_TRACES,
+          arm=f"{inst[0]}@k{inst[1]}", osmlr_pad=stacked.osmlr_pad,
+          build_s=build_s, step_ms=ms, launches=_launches(counts),
+          **per)
+    if not all(p["output_equal"] for p in per.values()) or not all(hist_ok):
+        raise SystemExit("[mesh:metro] a metro's outputs or histogram "
+                         "differ from its single-device match")
+
+
+def mesh_backfill_phase(card, ts, rounds, m, dc, win):
+    """[mesh:backfill]: partition 0 of the backfill spool's 4-way split
+    (its records in a 1-partition durable columnar broker) through
+    BackfillEngine with BackfillConfig(mesh_devices=MESH_DP): over the
+    first MESH_DP cards where there are that many, else (make_mesh
+    raises for want of cards, checked) over make_mesh(dp=MESH_DP,
+    devices=["cuda:0"] * MESH_DP). Grids and document equal to the
+    single-device engine's (the tuned matcher) on the same spool;
+    records/s of both."""
+    import shutil
+
+    from reporter_tpu_torch.backfill import BackfillConfig, BackfillEngine
+    from reporter_tpu_torch.parallel import make_mesh
+    from reporter_tpu_torch.streaming import (DurableColumnarIngestQueue,
+                                              pack_records)
+    from reporter_tpu_torch.streaming.queue import partition_of
+
+    root = os.path.join(SCRATCH, "mesh_backfill")
+    shutil.rmtree(root, ignore_errors=True)
+    q = DurableColumnarIngestQueue(root, 1)
+    n_records = 0
+    for r in rounds:
+        part = [x for x in r
+                if partition_of(x["uuid"], BACKFILL_PARTITIONS) == 0]
+        n_records += len(part)
+        q.append_columns(pack_records(part))
+    q.close()
+    bf = BackfillConfig(mesh_devices=MESH_DP)
+    refused = None
+    if torch.cuda.device_count() >= MESH_DP:
+        eng = BackfillEngine(ts, bf=bf)
+    else:
+        try:
+            BackfillEngine(ts, bf=bf)
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            raise SystemExit("[mesh:backfill] mesh_devices past the card "
+                             "count built a mesh")
+        eng = BackfillEngine(ts, bf=bf, mesh=make_mesh(
+            dp=MESH_DP, devices=["cuda:0"] * MESH_DP))
+    inst = _tuned(eng.matcher, dc)
+    stats, counts = win.run("mesh:backfill", lambda: eng.run(root))
+    only(counts, inst, "[mesh:backfill]")
+    one = BackfillEngine(ts, matcher=m, bf=BackfillConfig())
+    one_stats = one.run(root)
+    same = (np.array_equal(eng.hist.snapshot(), one.hist.snapshot())
+            and np.array_equal(eng.qhist.snapshot(), one.qhist.snapshot())
+            and json.dumps(eng.store.snapshot(), sort_keys=True)
+            == json.dumps(one.store.snapshot(), sort_keys=True))
+    phase("mesh:backfill", card, metro="sf", partition=0,
+          records=n_records, mesh=dict(eng.mesh.shape),
+          devices=[str(d) for d in eng.mesh.flat_devices],
+          mesh_devices_refused=refused, arm=f"{inst[0]}@k{inst[1]}",
+          records_per_s=stats["records"] / stats["seconds"],
+          single_records_per_s=one_stats["records"] / one_stats["seconds"],
+          seconds=stats["seconds"], waves=stats["waves"],
+          chunks=stats["chunks"], reports=stats["reports"],
+          stage_s=eng.stage_seconds, grids_and_document_equal=same,
+          launches=_launches(counts))
+    if not (same and stats["records"] == n_records and stats["reports"]):
+        raise SystemExit("[mesh:backfill] the mesh engine's grids differ "
+                         "from the single-device engine's")
+
+
+_GROUP_CODE = """
+import sys
+import torch
+import torch.distributed as dist
+from reporter_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                   shutdown_multihost)
+assert initialize_multihost(sys.argv[1], 1, 0) is True
+x = torch.arange(8, dtype=torch.float32, device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+ok = bool(torch.equal(x.cpu(), torch.arange(8, dtype=torch.float32)))
+backend = dist.get_backend()
+shutdown_multihost()
+shutdown_multihost()
+print("GROUP", backend, ok, dist.is_initialized(), flush=True)
+"""
+
+
+def mesh_group_phase(card):
+    """[mesh:group]: a 1-process nccl group through initialize_multihost
+    in a subprocess: an all_reduce on the card, then shutdown (twice:
+    idempotent)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("REPORTER_TPU_")}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _GROUP_CODE,
+                           f"localhost:{port}"], capture_output=True,
+                          text=True, env=env, timeout=MESH_GROUP_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("GROUP ")), "")
+    ok = proc.returncode == 0 and line == "GROUP nccl True False"
+    phase("mesh:group", card, returncode=proc.returncode, answer=line,
+          seconds=seconds, ok=ok)
+    if not ok:
+        raise SystemExit("[mesh:group] the nccl group failed:\n"
+                         + proc.stderr[-3000:])
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -5225,13 +5597,23 @@ def main() -> int:
         audit_phase(card, m, traces, dc, win)
         backfill_phase(card, ts, fleet, m, dc, win)
 
-    # ---- 11. summary -------------------------------------------------------
+        # ---- 11. multi-GPU: the mesh's programs (sf; sf, nyc, la) ---
+        t_mesh = time.perf_counter()
+        mesh_dp_phase(card, ts, traces, recs, m, fields, dc, win)
+        mesh_sharded_phase(card, ts, fleet, dc, win)
+        mesh_metro_phase(card, router_tiles, dc, win)
+        mesh_backfill_phase(card, ts, stream_rounds(fleet), m, dc, win)
+        mesh_group_phase(card)
+        phase("mesh", card, seconds=time.perf_counter() - t_mesh)
+
+    # ---- 12. summary -------------------------------------------------------
     kernels = []
     for arm, (_, replaces) in ARMS.items():
         for k in dc.SWEEP_KS:
             a = arms[arm] if k == 8 else by_k[k][arm]
             paths = {path: c[arm, k] for path, c in win.by_path.items()
-                     if c[arm, k] or path in ("sf:topk", "sf:grid", "fleet")}
+                     if c[arm, k] or path in ("sf:topk", "sf:grid", "fleet")
+                     or path.startswith("mesh:")}
             entry = {
                 "name": f"sweep_topk_{arm}_k{k}", "route": "cuda",
                 "source": SOURCES[0], "replaces": replaces,

@@ -3,8 +3,9 @@ next-segment turn counts, on the device.
 
 Counterpart: reporter_tpu/backfill/aggregate.py (``SpeedTodHistogram``,
 ``TurnCounts``, ``harvest_aggregates``, ``AggregateStore``). Both grids
-are FixedGridCounts (ops/aggregate.py); this module owns the host-side
-binning that turns an observation into a flat cell index. The binning
+are FixedGridCounts (ops/aggregate.py), per-device partials on a
+``mesh``; this module owns the host-side binning that turns an
+observation into a flat cell index. The binning
 has one spelling per grid (``flat_cells``), shared by the device scatter
 and the numpy reference, so a device-against-reference check isolates
 the scatter.

@@ -37,8 +37,12 @@ wire entries), "device" (the wait in ``.cpu()``), "walk" (unpack and C
 walk), "aggregate" (report build, binning and scatter); the read-ahead
 thread's prepare is "prepare" (overlapped).
 
-The mesh arm (``mesh=``, ``mesh_devices``, ``RTPU_BACKFILL_MESH``) waits
-for the multi-GPU port (ROADMAP queue 1 item 7) and raises.
+The mesh arm: ``mesh=`` (a parallel.mesh.Mesh), or ``mesh_devices`` /
+``RTPU_BACKFILL_MESH`` = N, which builds ``make_mesh(dp=N)`` over the
+first N visible cards, for a matcher the engine builds itself. A
+provided matcher's ``wire_mesh`` is authoritative: the grids' partials
+live on the mesh its wire dispatches shard over, and a different
+``mesh=`` raises. Each group's wire entries then run once per shard.
 """
 
 from __future__ import annotations
@@ -76,10 +80,6 @@ from reporter_tpu_torch.streaming.durable_queue import (DurableIngestQueue,
 # they match nothing and add no records
 _PAD_XY = 1.0e7
 
-_NO_MESH = ("the backfill mesh arm needs the multi-GPU port: ROADMAP "
-            "queue 1 item 7")
-
-
 @dataclass(frozen=True)
 class BackfillConfig:
     """Open-loop engine knobs (environment: RTPU_BACKFILL_*)."""
@@ -96,7 +96,9 @@ class BackfillConfig:
     turn_slots: int = DEFAULT_TURN_SLOTS
     checkpoint_path: "str | None" = None
     checkpoint_every_waves: int = 8
-    mesh_devices: int = 0          # 0 = one device; > 0 raises (item 7)
+    mesh_devices: int = 0          # 0 = one device; N >= 1 builds a
+    #   data-parallel mesh over the first N cards (make_mesh(dp=N)) when
+    #   the engine builds its own matcher; a provided matcher or mesh wins
 
     def validate(self) -> "BackfillConfig":
         if self.slice_traces not in _TRACE_RUNGS:
@@ -110,9 +112,6 @@ class BackfillConfig:
                       ("checkpoint_every_waves", 1), ("mesh_devices", 0)):
             if getattr(self, f) < lo:
                 raise ValueError(f"backfill.{f} must be >= {lo}")
-        if self.mesh_devices:
-            raise NotImplementedError(
-                f"backfill.mesh_devices={self.mesh_devices}: {_NO_MESH}")
         return self
 
     def with_env_overrides(self, env=None) -> "BackfillConfig":
@@ -158,20 +157,33 @@ STAGES = ("prepare", "dispatch", "device", "walk", "aggregate")
 
 class BackfillEngine:
     """One tileset, one matcher (built on ``device``, ``cuda`` unless the
-    caller passes ``device="cpu"``, or the ``matcher`` given, whose
-    device the grids share)."""
+    caller passes ``device="cpu"``, or over ``mesh``; or the ``matcher``
+    given, whose device or mesh the grids share)."""
 
     def __init__(self, tileset, config: "Config | None" = None,
                  bf: "BackfillConfig | None" = None,
                  matcher: "SegmentMatcher | None" = None,
                  store: "AggregateStore | None" = None, mesh=None,
                  device: "str | torch.device | None" = None):
-        if mesh is not None:
-            raise NotImplementedError(f"BackfillEngine(mesh=...): {_NO_MESH}")
         self.ts = tileset
         self.bf = (bf or BackfillConfig()).with_env_overrides().validate()
-        self.matcher = (matcher if matcher is not None
-                        else SegmentMatcher(tileset, config, device=device))
+        if matcher is not None:
+            if mesh is not None and matcher.wire_mesh is not mesh:
+                raise ValueError(
+                    "backfill mesh= must be the provided matcher's "
+                    "wire_mesh (the aggregate partials shard over the mesh "
+                    "the wire dispatches on): pass one or the other")
+            mesh = matcher.wire_mesh
+            self.matcher = matcher
+        else:
+            if mesh is None and self.bf.mesh_devices:
+                from reporter_tpu_torch.parallel.mesh import make_mesh
+
+                mesh = make_mesh(dp=self.bf.mesh_devices)
+            self.matcher = (SegmentMatcher(tileset, config, mesh=mesh)
+                            if mesh is not None else
+                            SegmentMatcher(tileset, config, device=device))
+        self.mesh = mesh
         if self.matcher.backend != "torch":
             raise ValueError("backfill dispatches through the device wire "
                              "entries: it needs matcher_backend='torch'")
@@ -186,8 +198,9 @@ class BackfillEngine:
         # streaming/state.py's checkpoint reads hist, qhist and the flush
         # baselines (which stay empty: backfill publishes once, at harvest)
         self.hist = SpeedTodHistogram(rows, self.config.streaming.speed_bins,
-                                      self.bf.tod_bins, device=dev)
-        self.qhist = TurnCounts(rows, self.bf.turn_slots, device=dev)
+                                      self.bf.tod_bins, mesh=mesh, device=dev)
+        self.qhist = TurnCounts(rows, self.bf.turn_slots, mesh=mesh,
+                                device=dev)
         self._hist_flushed = np.zeros(0, np.int32)
         self._qhist_flushed = np.zeros(0, np.int32)
         self._records_prior = 0     # records of earlier (crashed) runs

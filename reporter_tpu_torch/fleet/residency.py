@@ -514,7 +514,7 @@ class FleetResidency:
         dev, stream = self.device, self._copy_stream
         if stream is None:
             return place_tables(host, dev)
-        with torch.cuda.stream(stream):
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
             placed = {k: v if k in HOST_KEYS
                       else v.to(dev, non_blocking=True)
                       for k, v in host.items()}

@@ -98,7 +98,7 @@ def _lib(k: int) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(EXACT_SOURCE, k)))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.rtt_sweep_exact.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                            f, f, f, p, p, p, p, p]
+                                            f, f, f, p, p, p, p, i, p]
             lib.rtt_sweep_exact.restype = ctypes.c_int
             ip = ctypes.POINTER(ctypes.c_int)
             lib.rtt_sweep_exact_shape.argtypes = [i, i, ip, ip, ip, ip, ip,
@@ -118,36 +118,54 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on_device(device):
+    """The CUDA device guard of ``device`` (a tensor's): the library reads
+    ``cudaGetDevice`` for its launch shape and its ``<<<>>>`` launches go
+    to the current device, so every call into it runs with the device of
+    its tensors current, whatever the calling thread's current device."""
+    import torch
+
+    return torch.cuda.device(device)
+
+
 def launch_sweep_exact(pts, ids, nhits, order, table, sub, coarse,
                        arm: int, nchunks: int, nblocks: int, r2: float,
                        rc2: float, radius: float, edge, off, dist,
-                       gate_log=None) -> None:
+                       gate_log=None, squared: bool = False) -> None:
     """One call of the ring-fed sweep (arm 0 block, 1 sub, 2 sub_bf16, 3
-    mxu, 4 mxu_bf16) on PyTorch's current stream, at the top-K width of
+    mxu, 4 mxu_bf16) on the current stream of the tensors' device, with
+    that device current (``_on_device``), at the top-K width of
     the outputs (``edge``'s [nchunks * 256, K]): the chunk order kernel
     writes ``order`` (i32 scratch [nchunks + 1]: the chunks heaviest
     first, then the CTAs' chunk counter), then the sweep runs. The caller
     checks the tensors. ``sub`` and ``gate_log`` may be None for the block
-    arm, ``coarse`` for block and sub."""
+    arm, ``coarse`` for block and sub. ``squared``: ``dist`` receives the
+    squared distances."""
     k = int(edge.shape[1])
-    rc = _lib(k).rtt_sweep_exact(
-        pts.data_ptr(), ids.data_ptr(), nhits.data_ptr(), order.data_ptr(),
-        table.data_ptr(), _ptr(sub), _ptr(coarse), arm, k, nchunks, nblocks,
-        r2, rc2, radius, edge.data_ptr(), off.data_ptr(), dist.data_ptr(),
-        _ptr(gate_log), _stream(pts))
+    lib = _lib(k)
+    with _on_device(pts.device):
+        rc = lib.rtt_sweep_exact(
+            pts.data_ptr(), ids.data_ptr(), nhits.data_ptr(),
+            order.data_ptr(), table.data_ptr(), _ptr(sub), _ptr(coarse), arm,
+            k, nchunks, nblocks, r2, rc2, radius, edge.data_ptr(),
+            off.data_ptr(), dist.data_ptr(), _ptr(gate_log), int(squared),
+            _stream(pts))
     if rc != 0:
         raise RuntimeError(f"sweep_exact launch failed (arm {arm}, K={k}): "
                            f"error {rc}")
 
 
-def exact_shape(arm: int, k: int) -> dict:
-    """The ring-fed sweep's launch shape at top-K width k on the current
-    device: threads per CTA, dynamic shared memory (bytes), resident CTAs
-    per SM, SMs, the ring's depth (stages) and the columns per early-exit
-    test of the arm's gate (0 for block and sub)."""
+def exact_shape(arm: int, k: int, device="cuda") -> dict:
+    """The ring-fed sweep's launch shape at top-K width k on ``device``
+    (``cuda``: the current one): threads per CTA, dynamic shared memory
+    (bytes), resident CTAs per SM, SMs, the ring's depth (stages) and the
+    columns per early-exit test of the arm's gate (0 for block and
+    sub)."""
     vals = [ctypes.c_int(0) for _ in range(6)]
-    rc = _lib(k).rtt_sweep_exact_shape(
-        arm, k, *(ctypes.byref(v) for v in vals))
+    lib = _lib(k)
+    with _on_device(device):
+        rc = lib.rtt_sweep_exact_shape(
+            arm, k, *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise RuntimeError(f"sweep_exact shape query failed (arm {arm}, "
                            f"K={k}): error {rc}")

@@ -709,7 +709,8 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
                    int* __restrict__ out_edge,       // [nchunks*P, K]
                    float* __restrict__ out_off,
                    float* __restrict__ out_dist,
-                   int* __restrict__ gate_log) {     // [nchunks, 8, nblocks]
+                   int* __restrict__ gate_log,       // [nchunks, 8, nblocks]
+                   int squared) {                    // out_dist holds d²
   using R = Ring<ARM>;
   extern __shared__ __align__(128) unsigned char smem[];
   int4* item = reinterpret_cast<int4*>(smem + R::kItemOff);
@@ -800,7 +801,8 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
     float d[K];
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      d[i] = bd[i] < kBig ? sqrtf(fmaxf(bd[i], 0.f)) : kBig;
+      d[i] = bd[i] < kBig ? (squared ? bd[i] : sqrtf(fmaxf(bd[i], 0.f)))
+                          : kBig;
     }
     store_row<K>(out_edge + p * K, be);
     store_row<K>(out_off + p * K, bo);
@@ -849,7 +851,7 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
            const float* table, const float* sub, const int* coarse,
            int nchunks, int nblocks, float r2, float rc2, float radius,
            int* out_edge, float* out_off, float* out_dist, int* gate_log,
-           cudaStream_t st) {
+           int squared, cudaStream_t st) {
   int threads, smem, per_sm, sms, depth;
   const int rc = shape<ARM, K>(&threads, &smem, &per_sm, &sms, &depth);
   if (rc != 0) return rc;
@@ -863,7 +865,7 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
       order + nchunks,
       reinterpret_cast<const float4*>(table),
       reinterpret_cast<const float4*>(sub), coarse, nchunks, nblocks, r2,
-      rc2, radius, out_edge, out_off, out_dist, gate_log);
+      rc2, radius, out_edge, out_off, out_dist, gate_log, squared);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -880,7 +882,10 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
 // gated arms (sub_bf16, mxu, mxu_bf16); gate_log (may be null; not block)
 // receives per (chunk, warp, hit slot) the slice votes (bits 0-3), the
 // slices swept exactly (4-7) and those whose gate passed in its first
-// group of columns (8-11). Returns the launch's cudaError_t (0 = ok), -1
+// group of columns (8-11). `squared` != 0 stores each candidate's squared
+// distance in out_dist instead of its square root (kBig still marks an
+// empty slot): the segment-sharded search merges shards on it, so its
+// order is the sweep's own. Returns the launch's cudaError_t (0 = ok), -1
 // for an unknown arm, -2 / -3 for a device index or an occupancy out of
 // range, -4 for a k that this library was not built for.
 extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
@@ -889,12 +894,14 @@ extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
                                const int* coarse, int arm, int k,
                                int nchunks, int nblocks, float r2, float rc2,
                                float radius, int* out_edge, float* out_off,
-                               float* out_dist, int* gate_log, void* stream) {
+                               float* out_dist, int* gate_log, int squared,
+                               void* stream) {
   if (k != kK) return -4;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RTT_LAUNCH(A)                                                       \
   launch<A, kK>(pts, ids, nhits, order, table, sub, coarse, nchunks, nblocks,  \
-            r2, rc2, radius, out_edge, out_off, out_dist, gate_log, st)
+            r2, rc2, radius, out_edge, out_off, out_dist, gate_log, squared, \
+            st)
   switch (arm) {
     case kBlock: return RTT_LAUNCH(kBlock);
     case kSubArm: return RTT_LAUNCH(kSubArm);

@@ -88,7 +88,18 @@ entry (``match``, ``match_many``, ``submit_prepared``, ``match_topk``,
 ``matched_points``, the calibration) reads the tables once per call,
 through ``_staged``, which raises ``TablesUnstaged`` while they are
 paged out, so a restage between the stages of one batch cannot mix two
-placements. Not ported here: mesh sharding.
+placements.
+
+Mesh sharding (parallel/): ``SegmentMatcher(ts, mesh=mesh)`` makes this
+matcher, and every front end built on it, the multi-device product
+path: each wire entry's rows are split over the mesh's devices, one
+``ops.match.wire_from_*`` call per shard on its own device
+(parallel/dp_e2e.DpWireMatcher), and the harvest reads the shards back
+in row order and drops the padded rows; the host pipeline around it is
+unchanged, so the records equal the single-device matcher's. As in the
+JAX package, a mesh matcher is not tuned (its params select the arm),
+takes no ``staged_tables`` and pages no tables; ``wire_mesh`` is the
+mesh, ``device`` its first device (where ``match_topk`` runs).
 """
 
 from __future__ import annotations
@@ -294,7 +305,7 @@ class SegmentMatcher:
                  config: "Config | MatcherParams | None" = None,
                  metrics: "MetricsRegistry | None" = None,
                  device: "str | torch.device | None" = None,
-                 staged_tables: "dict | None" = None):
+                 staged_tables: "dict | None" = None, mesh=None):
         self.ts = tileset
         cfg = (config if isinstance(config, Config)
                else Config(matcher=config or MatcherParams())).validate()
@@ -320,6 +331,18 @@ class SegmentMatcher:
         self._fallback_lock = locks.named_lock("matcher.fallback")
         self._watchdog = AbandonedThreadWatchdog(
             cap=4, thread_name="dispatch-watchdog")
+        self._wire = None           # a mesh's DpWireMatcher
+        if mesh is not None:
+            if self.backend != "torch":
+                raise ValueError(
+                    "mesh sharding requires matcher_backend='torch'")
+            if staged_tables is not None:
+                raise ValueError(
+                    "staged_tables injection is single-device only; the "
+                    "mesh path places its own tables")
+            if device is not None:
+                raise ValueError("pass mesh= or device=, not both: the "
+                                 "mesh names the devices")
         if self.backend == "reference_cpu":
             if staged_tables is not None:
                 raise ValueError(
@@ -336,23 +359,40 @@ class SegmentMatcher:
                     self.params.breakage_distance, self.params),
                 self._dij_cache)
             return
-        self.device = resolve_device(device)
-        if staged_tables is None:
-            staged_tables = place_tables(
-                tileset.host_tables(self.params.candidate_backend),
-                self.device)
-        else:
-            # a dict pinned before a layout change fails here, not as a
-            # kernel's garbage
-            check_staged_layout(staged_tables)
-        self.tables: "dict[str, torch.Tensor] | None" = device_members(
-            staged_tables)
         self.wire_spec = match_ops.wire_spec(
             tileset.num_edges,
             float(tileset.edge_len.max()) if tileset.num_edges else 0.0)
+        if mesh is not None:
+            from reporter_tpu_torch.parallel.dp_e2e import DpWireMatcher
+
+            self._wire = DpWireMatcher(mesh, tileset, self.params,
+                                       self.wire_spec)
+            self.device = mesh.flat_devices[0]
+            self.tables = self._wire.tables[self.device]
+        else:
+            self.device = resolve_device(device)
+            if staged_tables is None:
+                staged_tables = place_tables(
+                    tileset.host_tables(self.params.candidate_backend),
+                    self.device)
+            else:
+                # a dict pinned before a layout change fails here, not
+                # as a kernel's garbage
+                check_staged_layout(staged_tables)
+            self.tables: "dict[str, torch.Tensor] | None" = device_members(
+                staged_tables)
         self._route_fn = reach_route_fn(tileset)
         self._native_walker = NativeWalker(tileset)
-        self._autotune_resolve(staged_tables)
+        if mesh is None:
+            # as in the JAX package, only a single-device matcher tunes
+            self._autotune_resolve(staged_tables)
+
+    @property
+    def wire_mesh(self):
+        """The mesh this matcher's wire dispatches shard over, or None:
+        the seam for layers that must co-shard with the matcher (the
+        backfill engine's aggregate partials)."""
+        return None if self._wire is None else self._wire.mesh
 
     # ---- per-metro sweep plan ---------------------------------------------
 
@@ -379,15 +419,18 @@ class SegmentMatcher:
                 match_ops.batch_candidates(state["pts"], state["valid"],
                                            state["tables"], p, self.ts.meta)
 
-            run()                       # untimed: builds the kernel library
-            torch.cuda.synchronize(self.device)
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(autotune.CAL_DISPATCHES):
-                run()
-            t1.record()
-            t1.synchronize()
+            # the events record on the matcher's card, whatever the
+            # measuring thread's current device
+            with torch.cuda.device(self.device):
+                run()                   # untimed: builds the kernel library
+                torch.cuda.synchronize(self.device)
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(autotune.CAL_DISPATCHES):
+                    run()
+                t1.record()
+                t1.synchronize()
             return t0.elapsed_time(t1) / 1e3 / autotune.CAL_DISPATCHES
 
         # each candidate under the dispatch watchdog: a hung measurement
@@ -397,6 +440,7 @@ class SegmentMatcher:
                                            watchdog=self._watchdog,
                                            timeout_s=autotune.CAL_TIMEOUT_S,
                                            backend=self.device.type,
+                                           device=self.device,
                                            tables=staged)
         if info.get("errors"):
             # calibrate skips an arm that raised; serving another arm
@@ -430,6 +474,9 @@ class SegmentMatcher:
     def _paging(self) -> None:
         if self.backend != "torch":
             raise ValueError("table paging requires matcher_backend='torch'")
+        if self._wire is not None:
+            raise ValueError("table paging is single-device only; a mesh "
+                             "matcher keeps its replicated tables")
 
     def _staged(self) -> "dict[str, torch.Tensor]":
         """The device tables, read once by each device entry."""
@@ -770,9 +817,17 @@ class SegmentMatcher:
                         tables: "dict | None" = None) -> torch.Tensor:
         """Dispatch one prepared slice on ``tables`` (the batch's capture;
         None reads the matcher's own); returns the wire tensor (on CUDA
-        the call returns once the work is queued)."""
+        the call returns once the work is queued), or on a mesh a
+        ShardedWire, whose ``cpu()`` is the harvest too."""
         if tables is None:
             tables = self._staged()
+        wire = self._wire
+        if wire is not None:            # the mesh: its own tables per shard
+            if ps.mode == 2:
+                return wire.q8(ps.payload, ps.origins, ps.lens, ps.scale)
+            if ps.mode == 1:
+                return wire.q16(ps.payload, ps.origins, ps.lens, ps.scale)
+            return wire.f32(ps.pts, ps.lens, ps.scale)
 
         def dev(x):
             return None if x is None else torch.from_numpy(x).to(self.device)

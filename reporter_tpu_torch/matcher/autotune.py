@@ -234,12 +234,15 @@ def tile_fingerprint(ts) -> str:
     return h.hexdigest()[:24]
 
 
-def device_key() -> str:
-    """What makes a measured plan portable: the card's name, or cpu."""
+def device_key(device=None) -> str:
+    """What makes a measured plan portable: the name of the card
+    ``device`` (None: the current one), or cpu."""
     import torch
 
+    if device is not None and torch.device(device).type == "cpu":
+        return "cpu"
     if torch.cuda.is_available():
-        return f"cuda:{torch.cuda.get_device_name()}"
+        return f"cuda:{torch.cuda.get_device_name(device)}"
     return "cpu"
 
 
@@ -334,6 +337,7 @@ def resolve_plan(params: MatcherParams, ts,
                  backend: "str | None" = None,
                  devkey: "str | None" = None,
                  tables: "dict | None" = None,
+                 device=None,
                  ) -> "tuple[TunedPlan | None, dict]":
     """(plan to apply | None, info). None means the tuner does not act
     (off, explicit levers, a CPU or grid matcher) and the params serve as they
@@ -341,7 +345,9 @@ def resolve_plan(params: MatcherParams, ts,
     AbandonedThreadWatchdog) bounds each candidate's measurement by
     ``timeout_s``; a timeout or an open breaker gives the default plan
     with source "timeout", not cached. ``backend`` is the matcher's
-    device type ("cuda" or "cpu"; None = cuda when a card is present).
+    device type ("cuda" or "cpu"; None = cuda when a card is present),
+    ``device`` the card whose name keys the plan cache (None: the
+    current one), unless ``devkey`` gives the key.
     ``tables``, a staged dict: its host ``tuned_plan`` vector, when it
     holds a measured, cached or staged plan, resolves before the disk
     cache as source "staged"; a plan from the cache or a calibration is
@@ -375,7 +381,7 @@ def resolve_plan(params: MatcherParams, ts,
 
     fingerprint = tile_fingerprint(ts)
     if devkey is None:
-        devkey = device_key()
+        devkey = device_key(device)
     cached = load_cached_plan(fingerprint, devkey, directory)
     if cached is not None:
         stamp(cached)

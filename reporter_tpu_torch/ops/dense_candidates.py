@@ -471,9 +471,10 @@ def _select_topk(d2, edge, offabs, k: int):
 
 
 def _dense_plain(points: torch.Tensor, pack: torch.Tensor, radius: float,
-                 k: int):
+                 k: int, squared: bool = False):
     """The plain version: full sweep, no culling, blocked over 128-point
-    chunks → (edge i32 [N,K], offset f32 [N,K], dist f32 [N,K])."""
+    chunks → (edge i32 [N,K], offset f32 [N,K], dist f32 [N,K]; with
+    ``squared`` the squared distances, BIG where empty)."""
     n = points.shape[0]
     nchunks = max(1, -(-n // _PLAIN_P))
     npad = nchunks * _PLAIN_P
@@ -490,8 +491,16 @@ def _dense_plain(points: torch.Tensor, pack: torch.Tensor, radius: float,
         es.append(e)
         os_.append(o)
     d2c = torch.cat(ds)[:n]
-    dist = torch.where(d2c < BIG, sqrt_f32(torch.clamp_min(d2c, 0.0)), big)
-    return torch.cat(es)[:n], torch.cat(os_)[:n], dist
+    if squared:
+        return torch.cat(es)[:n], torch.cat(os_)[:n], d2c
+    return torch.cat(es)[:n], torch.cat(os_)[:n], root_dist(d2c)
+
+
+def root_dist(d2: torch.Tensor) -> torch.Tensor:
+    """Squared candidate distances → distances, BIG staying BIG: the
+    kernel's final step (a correctly rounded square root)."""
+    big = torch.tensor(BIG, dtype=torch.float32, device=d2.device)
+    return torch.where(d2 < BIG, sqrt_f32(torch.clamp_min(d2, 0.0)), big)
 
 
 def _fill_invalid(points: torch.Tensor, valid: torch.Tensor, nchunks: int):
@@ -728,7 +737,8 @@ def sweep_instance_k(k: int) -> int:
 def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
                sweep: torch.Tensor, sub: "torch.Tensor | None",
                coarse: "torch.Tensor | None", radius: float, k: int,
-               arm: str, gate_log: "torch.Tensor | None" = None):
+               arm: str, gate_log: "torch.Tensor | None" = None,
+               squared: bool = False):
     """Wrapper of the CUDA sweep kernel (kernels/sweep_exact.cu) over the
     chunks of ``pts`` and their hit lists (``ids``, ``nhits``), in arm
     ``arm`` of SWEEP_ARMS. Every arm reads the ``sweep`` table (seg_sweep):
@@ -746,6 +756,7 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     when given, receives each warp's slice decisions (decode_gate_log) for
     a check against the plain vote and gates; the gated arms also set bit
     8 + s where slice s's gate passed in its first group of columns.
+    ``squared``: dist holds the squared distances (BIG where empty).
     Raises on anything the kernel does not take, or if the launch
     fails."""
     if arm not in SWEEP_ARMS:
@@ -771,12 +782,14 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     if gate_log is not None:
         checks.append((gate_log, torch.int32, (nchunks, _P // _WARP, nblocks)))
     for t, dtype, shape in checks:
-        if t is None or not t.is_cuda or t.dtype != dtype \
-                or tuple(t.shape) != shape or not t.is_contiguous():
+        if t is None or not t.is_cuda or t.device != pts.device \
+                or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
             got = "None" if t is None else \
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             raise ValueError(f"sweep_topk ({arm}): expected a contiguous "
-                             f"CUDA {dtype} tensor of shape {shape}, got {got}")
+                             f"{dtype} tensor of shape {shape} on the "
+                             f"points' {pts.device}, got {got}")
     if spad % _SBLK:
         raise ValueError(f"seg_sweep's {spad} columns are not whole "
                          f"{_SBLK}-column blocks")
@@ -790,7 +803,7 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
         pts, ids, nhits, order, sweep, sub if arm != "block" else None,
         coarse if arm not in ("block", "sub") else None,
         SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc, float(radius),
-        edge, off, dist, gate_log)
+        edge, off, dist, gate_log, squared)
     with _LAUNCH_LOCK:
         SWEEP_LAUNCHES[arm, k_run] += 1
     if k_run != k:
@@ -802,7 +815,8 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
 def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
                           max_candidates: int, valid=None,
                           subcull: bool = True, lowp: str = "off",
-                          mxu: bool = False) -> CandidateSet:
+                          mxu: bool = False,
+                          squared: bool = False) -> CandidateSet:
     """points f32 [N, 2] → CandidateSet with [N, K] fields.
 
     seg_pack: (pack, bbox[, sub[, feat[, sweep[, coarse]]]]) tensors on
@@ -814,7 +828,8 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
     coarse filter to the two-level arm; ``mxu`` the tensor-core coarse
     pass (needs ``feat``), whose operands ``lowp`` then picks. On a CUDA
     tensor this launches the sweep kernel in that arm; on a CPU tensor it
-    runs the plain version.
+    runs the plain version. ``squared``: ``dist`` holds the squared
+    distances (BIG where empty), as the segment-sharded merge takes them.
     Every arm gives the same candidates on every valid point; the illegal
     combinations raise as the JAX package's do."""
     pack, bbox = seg_pack[0], seg_pack[1]
@@ -845,10 +860,11 @@ def find_candidates_dense(points: torch.Tensor, seg_pack, radius: float,
             pts, ids, nhits, None if sweep is None else sweep.contiguous(),
             sub.contiguous() if use_sub else None,
             None if coarse is None else coarse.contiguous(),
-            radius, max_candidates, arm)
+            radius, max_candidates, arm, squared=squared)
         edge, off, dist = edge[:n], off[:n], dist[:n]
     elif points.device.type == "cpu":
-        edge, off, dist = _dense_plain(points, pack, radius, max_candidates)
+        edge, off, dist = _dense_plain(points, pack, radius, max_candidates,
+                                       squared)
     else:
         raise ValueError(f"unsupported device {points.device}")
     return CandidateSet(edge=edge, offset=off, dist=dist, valid=edge >= 0)

@@ -122,6 +122,9 @@ def _validate_payload(payload: Any,
 class ReporterApp:
     """Request pipeline around the port's SegmentMatcher, its tables on
     ``device`` (``cuda`` unless the caller passes ``device="cpu"``), or
+    across the devices of ``mesh`` (a parallel.mesh.Mesh: dp-sharded
+    dispatches, parallel/dp_e2e; the request pipeline, cache and report
+    build are unchanged and the results equal a single device's), or
     around an injected ``matcher`` over the same tileset (the fleet's,
     whose tables it pages).
 
@@ -136,17 +139,20 @@ class ReporterApp:
                  transport: Transport | None = None,
                  device: "str | torch.device | None" = None,
                  aggregates=None,
-                 matcher: "SegmentMatcher | None" = None):
+                 matcher: "SegmentMatcher | None" = None, mesh=None):
         self.config = (config or Config()).validate()
         svc = self.config.service
         tracing.configure_from_service(svc)   # span recorder (global)
-        if matcher is not None and matcher.ts is not tileset:
+        if matcher is not None and (matcher.ts is not tileset
+                                    or mesh is not None):
             # injection is for the fleet, which pages the tables of its
             # own matchers; another tile's matcher would serve the wrong
             # metro's map
-            raise ValueError("injected matcher must wrap the same tileset")
+            raise ValueError("injected matcher must wrap the same tileset, "
+                             "without a mesh")
         self.matcher = (matcher if matcher is not None else
-                        SegmentMatcher(tileset, self.config, device=device))
+                        SegmentMatcher(tileset, self.config, device=device,
+                                       mesh=mesh))
         # link-health gauges: the process sampler probes the host–card
         # path at low duty and publishes rtpu_link_* into this app's
         # registry (RTPU_LINK_PROBE=0 disables; utils/linkhealth.py)
@@ -554,9 +560,10 @@ def _respond(start_response: Callable, status: int, payload: dict):
 def make_app(tileset: TileSet, config: Config | None = None,
              transport: Transport | None = None,
              device: "str | torch.device | None" = None,
-             aggregates=None) -> ReporterApp:
+             aggregates=None, mesh=None) -> ReporterApp:
     """Construct the WSGI app: the matcher's tables staged on ``device``
-    (``cuda`` unless the caller passes ``device="cpu"``); ``aggregates``
-    the AggregateStore GET /aggregates serves."""
+    (``cuda`` unless the caller passes ``device="cpu"``) or across
+    ``mesh``; ``aggregates`` the AggregateStore GET /aggregates
+    serves."""
     return ReporterApp(tileset, config, transport, device=device,
-                       aggregates=aggregates)
+                       aggregates=aggregates, mesh=mesh)

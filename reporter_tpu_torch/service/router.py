@@ -19,8 +19,11 @@ reaches its metro's app through ``app()`` and dispatches inside
 overrides: apps built at first traffic, each dispatch under a residency
 lease.
 
-``meshes=`` (a metro's matcher across several cards) raises
-NotImplementedError: multi-GPU is ROADMAP queue 1 item 7.
+``meshes=`` ({metro name: parallel.mesh.Mesh}) deploys each listed
+metro's matcher across its own devices (BASELINE config 4's product
+shape: metros routed on the host, data parallelism within each metro's
+mesh); metros without an entry stay on ``device``. A mesh for an
+unknown metro raises ValueError.
 """
 
 from __future__ import annotations
@@ -60,21 +63,22 @@ class UnroutableTrace(BadRequest):
 class MetroRouter:
     """WSGI app dispatching to per-metro ReporterApps, each with its
     tables on ``device`` (``cuda`` unless the caller passes
-    ``device="cpu"``)."""
+    ``device="cpu"``) or across its mesh of ``meshes``."""
 
     def __init__(self, tilesets: Sequence[TileSet],
                  config: "Config | None" = None,
                  transport: "Transport | None" = None,
                  meshes: "dict | None" = None,
                  device: "str | torch.device | None" = None):
-        if meshes:
-            raise NotImplementedError(
-                "meshes: a metro's matcher over several cards is "
-                "multi-GPU, ROADMAP queue 1 item 7")
-        self._init_routing(tilesets)
-        self.apps = {ts.name: ReporterApp(ts, config, transport=transport,
-                                          device=device)
-                     for ts in tilesets}
+        names = self._init_routing(tilesets)
+        meshes = meshes or {}
+        unknown = set(meshes) - set(names)
+        if unknown:
+            raise ValueError(f"meshes for unknown metros: {sorted(unknown)}")
+        self.apps = {ts.name: ReporterApp(
+            ts, config, transport=transport,
+            device=None if ts.name in meshes else device,
+            mesh=meshes.get(ts.name)) for ts in tilesets}
 
     def _init_routing(self, tilesets: Sequence[TileSet]) -> "list[str]":
         """The routing state (the box table and the router's registry),
@@ -244,6 +248,7 @@ def make_router(tilesets: Sequence[TileSet], config: "Config | None" = None,
                 meshes: "dict | None" = None,
                 device: "str | torch.device | None" = None) -> MetroRouter:
     """A MetroRouter over ``tilesets``, every metro's tables on ``device``
-    (``cuda`` unless the caller passes ``device="cpu"``)."""
+    (``cuda`` unless the caller passes ``device="cpu"``) or across its
+    mesh of ``meshes``."""
     return MetroRouter(tilesets, config, transport, meshes=meshes,
                        device=device)

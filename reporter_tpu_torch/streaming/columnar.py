@@ -746,9 +746,9 @@ class ColumnarStreamPipeline:
 
     Public surface mirrors StreamPipeline: step/drain/flush_histograms/
     stats/checkpoint/restore, committed offsets, injectable clock and
-    partition ownership; the matcher and histograms on ``device``.
-    ``mesh`` (the JAX package's device mesh) is not ported: anything but
-    None raises. The broker should offer ``poll_batch`` (e.g.
+    partition ownership; the matcher and histograms on ``device``, or
+    the matcher over ``mesh`` (parallel/dp_e2e) and the histograms on its
+    first device. The broker should offer ``poll_batch`` (e.g.
     ColumnarIngestQueue); a per-record ProbeConsumer also works through a
     packing shim, at per-record cost on the poll leg only.
 
@@ -795,10 +795,6 @@ class ColumnarStreamPipeline:
                  partitions: "Sequence[int] | None" = None,
                  mesh=None,
                  device: "str | torch.device | None" = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ColumnarStreamPipeline(mesh=...): the multi-GPU matcher "
-                "is not ported: ROADMAP queue 1 item 7")
         self.config = (config or Config()).validate()
         sc = self.config.streaming
         svc = self.config.service
@@ -811,7 +807,8 @@ class ColumnarStreamPipeline:
             raise ValueError(
                 f"partitions {self.partitions} out of range "
                 f"0..{sc.num_partitions - 1}")
-        self.matcher = SegmentMatcher(tileset, self.config, device=device)
+        self.matcher = SegmentMatcher(tileset, self.config, device=device,
+                                      mesh=mesh)
         self.cache = ColumnarTraceCache(ttl=svc.cache_ttl,
                                         max_uuids=svc.cache_max_uuids)
         self._depth = int(sc.pipeline_depth)

@@ -55,8 +55,9 @@ class _Buffer:
 class StreamPipeline:
     """Single-worker streaming matcher over an IngestQueue, its matcher
     and histograms on ``device`` (``cuda`` unless the caller passes
-    ``device="cpu"``). ``mesh`` (the JAX package's device mesh) is not
-    ported: anything but None raises."""
+    ``device="cpu"``), or over ``mesh`` (a parallel.mesh.Mesh: the
+    matcher's dispatches shard over it, the histograms live on its first
+    device)."""
 
     def __init__(self, tileset: TileSet, config: Config | None = None,
                  queue: ProbeConsumer | None = None,
@@ -65,10 +66,6 @@ class StreamPipeline:
                  partitions: "Sequence[int] | None" = None,
                  mesh=None,
                  device: "str | torch.device | None" = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamPipeline(mesh=...): the multi-GPU matcher is not "
-                "ported: ROADMAP queue 1 item 7")
         self.config = (config or Config()).validate()
         sc = self.config.streaming
         # Any ProbeConsumer works here (streaming/broker.py): the in-proc
@@ -98,7 +95,7 @@ class StreamPipeline:
             self.config, service=dataclasses.replace(self.config.service,
                                                      batching="combine"))
         self.app = ReporterApp(tileset, app_cfg, transport=transport,
-                               device=device)
+                               device=device, mesh=mesh)
         self.clock = clock
         self.committed = [0] * sc.num_partitions
         self._consumed = [0] * sc.num_partitions   # read position (ahead of committed)

@@ -17,14 +17,12 @@ counts ``edge_osmlr``, which its layout stages and the port's does not
 ``DEFAULT_HBM_BUDGET`` is 60 GiB: three quarters of an H100's 80 GB,
 leaving the rest to the allocator's workspace, the batch's temporaries
 (the Viterbi's and the sweep's) and the wire arrays; the JAX package
-keeps the same share of its chip. A plan that needs sharding is still
-returned, because it is arithmetic, with a warning: the port cannot
-execute one yet (multi-GPU, ROADMAP queue 1 item 7).
+keeps the same share of its chip. A segment-sharded plan runs through
+``parallel.sharded_candidates.shard_tables`` over ``shards`` cards.
 """
 
 from __future__ import annotations
 
-import warnings
 from typing import NamedTuple
 
 from reporter_tpu_torch.tiles.tileset import TileSet
@@ -76,8 +74,8 @@ def plan_staging(ts: TileSet, budget_bytes: int = DEFAULT_HBM_BUDGET,
                  ) -> StagingPlan:
     """Staging plan for one card (or one shard axis). Raises ValueError
     when even a fully sharded layout cannot fit: the fixed share alone
-    over budget (then shard by metro, or narrow reach_max). A
-    segment-sharded plan warns that the port cannot execute it yet."""
+    over budget (then shard by metro, parallel/multimetro, or narrow
+    reach_max)."""
     shardable, fixed = dense_staged_bytes(ts)
     total = shardable + fixed
     per_edge = total / max(ts.num_edges, 1)
@@ -92,9 +90,5 @@ def plan_staging(ts: TileSet, budget_bytes: int = DEFAULT_HBM_BUDGET,
             f"exceeds the {budget_bytes} B budget — segment sharding "
             "cannot help; shard by metro or narrow reach_max")
     shards = -(-shardable // headroom)          # ceil division
-    warnings.warn(
-        f"tileset {ts.name!r} needs a segment-sharded plan over {shards} "
-        "cards; executing it waits for multi-GPU staging (ROADMAP queue 1 "
-        "item 7)", stacklevel=2)
     return StagingPlan("segment-sharded", int(shards), total, shardable,
                        fixed, int(budget_bytes), per_edge, capacity)

@@ -144,7 +144,8 @@ def _device_probe(nbytes: int, device) -> "tuple[float | None, float | None]":
         if buf is None:
             buf = _buffers[key] = _ProbeBuffers(torch.device("cuda", key[0]),
                                                 nbytes)
-    with torch.cuda.stream(buf.stream):
+    # the probe's card current: its events and copies are that card's
+    with torch.cuda.device(key[0]), torch.cuda.stream(buf.stream):
         if not buf.warmed:      # the first round trip and copy, untimed
             buf.tiny_host.copy_(buf.tiny + 1, non_blocking=True)
             buf.dev.copy_(buf.host, non_blocking=True)

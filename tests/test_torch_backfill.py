@@ -186,8 +186,27 @@ def test_grid_load_roundtrip_and_owned_copies():
 
 
 def test_grid_mesh_raises_naming_the_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        FixedGridCounts(8, mesh=object(), device="cpu")
+    """The mesh arm this test once found refused (ROADMAP item 7, now
+    ported): per-device partials over a three-device host mesh take the
+    index stream in _CAP blocks in turn, as the JAX package's [ndev,
+    _CAP] dispatch does, and sum to reference_counts (tolerance 0); the
+    one refusal left is a device that is not the mesh's first."""
+    from reporter_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=3, devices=["cpu"] * 3)
+    rng = np.random.default_rng(3)
+    idx = rng.integers(-3, 53, 3 * _CAP + 17)
+    g = FixedGridCounts(50, mesh=mesh)
+    assert g.add(idx) == int(((idx >= 0) & (idx < 50)).sum())
+    parts = g.partials()
+    assert parts.shape == (3, 50)
+    for d in range(3):
+        sel = np.arange(len(idx)) // _CAP % 3 == d
+        np.testing.assert_array_equal(parts[d],
+                                      reference_counts(50, idx[sel]))
+    np.testing.assert_array_equal(g.snapshot(), reference_counts(50, idx))
+    with pytest.raises(ValueError, match="first device"):
+        FixedGridCounts(8, mesh=mesh, device="cuda:0")
 
 
 # ---------------------------------------------------------------------------
@@ -374,14 +393,21 @@ def test_config_validation_and_env_overrides():
         assert mod().with_env_overrides(
             {"RTPU_BACKFILL_MESH": "8"}).mesh_devices == 8
     assert BackfillConfig() == BackfillConfig().validate()
-    # the mesh arm is not ported: it raises naming the item
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        BackfillConfig(mesh_devices=2).validate()
+    # the mesh arm (ported: it raised naming ROADMAP item 7 before) takes
+    # any device count, as the JAX config does
+    for mod in (BackfillConfig, JBackfillConfig):
+        assert mod(mesh_devices=2).validate().mesh_devices == 2
 
 
 def test_engine_refuses_the_mesh_and_the_oracle(tiles, matcher):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        BackfillEngine(tiles, matcher=matcher, mesh=object())
+    """A mesh beside a matcher dispatching elsewhere (the mesh arm itself
+    is ported: the provided matcher's wire_mesh is authoritative, as in
+    the JAX engine), and the oracle backend."""
+    from reporter_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="wire_mesh"):
+        BackfillEngine(tiles, matcher=matcher,
+                       mesh=make_mesh(dp=2, devices=["cpu"] * 2))
     oracle = SegmentMatcher(tiles, Config(matcher_backend="reference_cpu"))
     with pytest.raises(ValueError, match="matcher_backend='torch'"):
         BackfillEngine(tiles, matcher=oracle)

@@ -88,3 +88,14 @@ def test_new_modules_import_without_jax(module):
                           capture_output=True, text=True, timeout=120,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_parallel_package_is_checked():
+    """The mesh modules (parallel/) are among the files held to the
+    rule: each must keep its own copy of what it needs from the JAX
+    package's parallel/, never import it."""
+    names = {os.path.relpath(p, ROOT) for p in _files()}
+    for mod in ("__init__", "mesh", "dp", "dp_e2e", "sharded_candidates",
+                "multimetro", "multihost"):
+        assert os.path.join("reporter_tpu_torch", "parallel",
+                            f"{mod}.py") in names

@@ -77,6 +77,27 @@ def test_sweep_kernel_equals_plain(sf, arm):
         assert torch.equal(g[valid], r[valid])
 
 
+@pytest.mark.parametrize("arm", dc.SWEEP_ARMS)
+def test_sweep_squared_output_equals_plain(sf, arm):
+    """squared=True (the segment-sharded merge's input): the kernel's
+    dist holds d², equal to the plain version's (tolerance 0), and its
+    square root (root_dist) the normal output."""
+    tab, pts, valid = sf
+    levers = {"block": dict(subcull=False), "sub": {},
+              "sub_bf16": dict(lowp="bf16"), "mxu": dict(mxu=True),
+              "mxu_bf16": dict(mxu=True, lowp="bf16")}[arm]
+    seg = (tab["seg_pack"], tab["seg_bbox"], tab["seg_sub"],
+           tab["seg_feat"], tab["seg_sweep"], tab["seg_coarse"])
+    got = dc.find_candidates_dense(pts, seg, 50.0, 8, valid=valid,
+                                   squared=True, **levers)
+    ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8, squared=True)
+    for g, r in zip((got.edge, got.offset, got.dist), ref):
+        assert torch.equal(g[valid], r[valid])
+    normal = dc.find_candidates_dense(pts, seg, 50.0, 8, valid=valid,
+                                      **levers)
+    assert torch.equal(dc.root_dist(got.dist), normal.dist)
+
+
 @pytest.mark.parametrize("k", dc.SWEEP_KS)
 @pytest.mark.parametrize("arm", dc.SWEEP_ARMS)
 def test_sweep_kernel_equals_plain_at_every_k(sf, arm, k):
@@ -508,13 +529,14 @@ def test_fixed_grid_counts_on_the_card_equal_reference(cuda):
     rng = np.random.default_rng(9)
     size = 24 * 12 * 700              # a speed x time-of-day grid
     g = FixedGridCounts(size, device=cuda)
-    assert g._grid.device.type == "cuda" and g._grid.dtype == torch.int32
+    assert g._parts[0].device.type == "cuda" \
+        and g._parts[0].dtype == torch.int32
     stream = []
     for n in (0, 1, 4095, 4096, 4097, 3 * 4096 + 17, 250_000):
         idx = rng.integers(-7, size + 7, n)
         assert g.add(idx) == int(((idx >= 0) & (idx < size)).sum())
         stream.append(idx)
-        assert g._grid.device.type == "cuda"
+        assert g._parts[0].device.type == "cuda"
     want = reference_counts(size, np.concatenate(stream))
     np.testing.assert_array_equal(g.snapshot(), want)
     g2 = FixedGridCounts(size, device=cuda)
@@ -661,3 +683,74 @@ def test_fleet_demotion_frees_its_staged_bytes(cuda):
         down = up + before - torch.cuda.memory_allocated()
         assert staged <= up < staged + 512 * n, (up, staged)
         assert down == up
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU: every CUDA call on the device of its tensors, the mesh's wire
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_sweep_on_each_card_with_another_card_current(sf_tile, cuda, i):
+    """The sweep on cuda:i, bit-equal to _dense_plain there; where there
+    is more than one card, with a different card current (the launch and
+    its shape query run under the tensors' device guard, so the library
+    reads cuda:i's occupancy and launches there)."""
+    n = torch.cuda.device_count()
+    if i >= n:
+        pytest.skip(f"this host has {n} card(s)")
+    ts, _ = sf_tile
+    dev = torch.device("cuda", i)
+    tab = tables_from_numpy(ts.arrays(), dev)
+    fleet = np.concatenate([p.xy for p in synthesize_fleet(ts, 16, seed=5)])
+    pts = torch.from_numpy(fleet.astype(np.float32)).to(dev)
+    other = (i + 1) % n
+    from reporter_tpu_torch.kernels import build
+
+    with torch.cuda.device(i):
+        shape_here = build.exact_shape(1, 8)
+    with torch.cuda.device(other):
+        assert build.exact_shape(1, 8, dev) == shape_here
+        got = dc.find_candidates_dense(
+            pts, tuple(tab[k] for k in ("seg_pack", "seg_bbox", "seg_sub",
+                                        "seg_feat", "seg_sweep",
+                                        "seg_coarse")), 50.0, 8)
+        assert torch.cuda.current_device() == other
+    ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, 8)
+    torch.cuda.synchronize(dev)
+    assert got.edge.device == dev
+    for g, r in zip((got.edge, got.offset, got.dist), ref):
+        assert torch.equal(g, r)
+
+
+def test_dp_wire_matcher_over_one_card_equals_the_single_wire(sf_tile, cuda):
+    """A DpWireMatcher over ["cuda:0"] * 4: every shard launches the
+    sweep, and the harvested wire (a row count not a multiple of 4) is
+    byte-equal to the single-device wire entry's."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.matcher.native_prepare import prepare_slice
+    from reporter_tpu_torch.ops import match as match_ops
+    from reporter_tpu_torch.parallel import DpWireMatcher, make_mesh
+
+    ts, tab = sf_tile
+    fleet = synthesize_fleet(ts, 37, num_points=100, seed=8)
+    mode, p32, lens, origins, payload = prepare_slice(
+        [p.xy.astype(np.float32) for p in fleet], 128)
+    params = MatcherParams(sweep_autotune=False)
+    spec = match_ops.wire_spec(ts.num_edges, float(ts.edge_len.max()))
+    w = DpWireMatcher(make_mesh(dp=4, devices=["cuda:0"] * 4), ts, params,
+                      spec)
+    before = dc.SWEEP_LAUNCHES["sub", 8]
+    if mode == 2:
+        got = w.q8(payload, origins, lens, None)
+        want = match_ops.wire_from_q8(
+            *(torch.from_numpy(x).to(cuda) for x in (payload, origins,
+                                                     lens)),
+            tab, params, None, spec, ts.meta)
+    else:
+        got = w.q16(payload, origins, lens, None)
+        want = match_ops.wire_from_q16(
+            *(torch.from_numpy(x).to(cuda) for x in (payload, origins,
+                                                     lens)),
+            tab, params, None, spec, ts.meta)
+    assert dc.SWEEP_LAUNCHES["sub", 8] == before + 5
+    assert got.cpu().numpy()[:37].tobytes() == want.cpu().numpy().tobytes()

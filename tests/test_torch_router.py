@@ -276,8 +276,13 @@ def test_construction_errors(metros):
         MetroRouter([], device="cpu")
     with pytest.raises(ValueError, match="duplicate"):
         MetroRouter([a, a], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MetroRouter([a], meshes={a.name: object()}, device="cpu")
+    # meshes are ported (they raised naming ROADMAP item 7 before): one
+    # for an unknown metro raises, as the JAX router's does
+    from reporter_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="unknown metros"):
+        MetroRouter([a], meshes={"nope": make_mesh(
+            dp=2, devices=["cpu"] * 2)}, device="cpu")
 
 
 def _post(url, payload):

@@ -538,8 +538,28 @@ def test_concurrent_match_many_sums_sweep_launches_on_card(tiles,
     assert sum(launches.values()) == launches[("sub", 8)]
 
 
+@pytest.fixture
+def fresh_link_sampler():
+    """A process link-health sampler of this test's own: the sampler is
+    process-global, and a dispatch timeout another test of the same
+    worker process noted leaves its recorded mood dead."""
+    from reporter_tpu_torch.utils import linkhealth
+
+    with linkhealth._global_lock:
+        prev = linkhealth._global
+    linkhealth.configure(None)
+    try:
+        yield
+    finally:
+        with linkhealth._global_lock:
+            mine = linkhealth._global
+        if mine is not None:
+            mine.stop()
+        linkhealth.configure(prev)
+
+
 class TestHealthSurface:
-    def test_health_exposes_scheduler_state(self, tiles):
+    def test_health_exposes_scheduler_state(self, tiles, fresh_link_sampler):
         app, fake = _mk_app(tiles)
         app.report_one(_payload("h"))
         status, body = wsgi_call(app, "GET", "/health")

@@ -535,9 +535,18 @@ class TestPipeline:
         assert tracing.trace_id_of({"_trace": "junk"}) is None
 
     def test_mesh_raises(self, stream_tiles):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            StreamPipeline(stream_tiles, Config(), mesh=object(),
-                           device="cpu")
+        """The mesh arm (once refused naming ROADMAP item 7) builds the
+        app's matcher over the mesh, the histograms on its first device;
+        a mesh beside a device raises (tests/test_torch_parallel.py
+        holds the mesh pipeline's bodies to the JAX package's)."""
+        from reporter_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(dp=2, devices=["cpu"] * 2)
+        pipe = StreamPipeline(stream_tiles, Config(), mesh=mesh)
+        assert pipe.app.matcher.wire_mesh is mesh
+        assert pipe.hist.device == mesh.flat_devices[0]
+        with pytest.raises(ValueError, match="not both"):
+            StreamPipeline(stream_tiles, Config(), mesh=mesh, device="cpu")
 
 
 class TestConsumerGroup:

@@ -236,8 +236,15 @@ def test_durable_columnar_broker_between_packages(tmp_path):
 
 
 def test_mesh_raises(tiles):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ColumnarStreamPipeline(tiles, Config(), mesh=object(), device="cpu")
+    """The mesh arm (once refused naming ROADMAP item 7): the matcher
+    over the mesh; a mesh beside a device raises."""
+    from reporter_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=2, devices=["cpu"] * 2)
+    pipe = ColumnarStreamPipeline(tiles, Config(), mesh=mesh)
+    assert pipe.matcher.wire_mesh is mesh
+    with pytest.raises(ValueError, match="not both"):
+        ColumnarStreamPipeline(tiles, Config(), mesh=mesh, device="cpu")
 
 
 # ---------------------------------------------------------------------------
