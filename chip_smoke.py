@@ -357,7 +357,30 @@ the native host half against its Python forms, in phases:
                 records/s of both; [mesh:group] a 1-process nccl group
                 through initialize_multihost in a subprocess: all_reduce,
                 shutdown twice;
- 12. summary  — the kernels JSON line (every arm at every K, the sources,
+ 12. gates    — the port's own gates on the card, together under 60 s:
+                [lockdep] a child process armed by RTPU_LOCKDEP=1 before
+                any import (this process's timed phases stay unarmed)
+                serves LOCKDEP_CLIENTS x LOCKDEP_PER_CLIENT /reports from
+                LOCKDEP_CLIENTS threads, one fleet round of sf and tiny
+                from LOCKDEP_SUBMITTERS threads under leases and one
+                columnar stream round: its observed order edges, its
+                violations and the edges outside the port's contract
+                (analysis/concurrency_contract.py), none allowed;
+                [analysis:device] a child runs the device contract
+                (analysis/device_contract.py) on the card: every wire entry
+                x the five arms at K = 8 x three wire layouts x {single,
+                mesh} and the scatters, each under set_sync_debug_mode(
+                "error") and the aten recorder: cases, aten ops, findings,
+                none unwaived; [analysis:manifest] the built instances'
+                ptxas figures and launch shapes against the golden block of
+                analysis/compile_manifest.py; [profile] (run after sf's
+                [walk], the process's first profiler session) one sf batch
+                of the tuned matcher with REPORTER_TPU_TRACE_DIR set (the
+                matcher's own device_trace hook, a torch.profiler Chrome
+                trace under _chip_scratch/profile): the trace's size, the
+                CUDA launches and kernels in the window, its
+                sweep_exact_kernel kernel events and host-side spans;
+ 13. summary  — the kernels JSON line (every arm at every K, the sources,
                 the host library among them; the topology's workers'
                 launches by member; the sf:topk, sf:grid, fleet and mesh:*
                 windows in every entry's launches_by_path), the card line,
@@ -571,49 +594,6 @@ def launch_ms(fn, runs: int = 20) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / runs
-
-
-def kernel_name(mangled: str) -> str:
-    """A kernel's name and template arguments from its mangled name: the
-    innermost length-prefixed identifier that ends in "_kernel" (a hash's
-    digits may run into its length), then its ILi..E arguments (e.g.
-    sweep_exact_kernel<3>)."""
-    found = None
-    for m in re.finditer(r"\d+", mangled):
-        for i in range(len(m.group())):
-            ident = mangled[m.end():m.end() + int(m.group()[i:])]
-            if ident.endswith("_kernel") and ident[:1].isalpha() \
-                    and (found is None or len(ident) < len(found)):
-                found = ident
-    if found is None:
-        return mangled
-    rest = mangled[mangled.rindex(found) + len(found):]
-    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) \
-        if rest.startswith("I") else []
-    return found + (f"<{','.join(args)}>" if args else "")
-
-
-def ptxas_figures(log: str) -> list:
-    """Per kernel of a ptxas -v log: its name and template arguments,
-    registers, static shared memory and spill bytes."""
-    out = []
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            out.append({"kernel": kernel_name(m.group(1))})
-            continue
-        if not out:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m:
-            out[-1].update(spill_stores=int(m.group(1)),
-                           spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out[-1]["registers"] = int(m.group(1))
-            sm = re.search(r"(\d+) bytes smem", ln)
-            out[-1]["static_smem"] = int(sm.group(1)) if sm else 0
-    return out
 
 
 def fleet_points(fleet):
@@ -2627,9 +2607,14 @@ def topo_scale_phase(card, st):
             # and on the card the sweep at K = 8
             kinds = ["librtt_native_"] + (["libsweep_exact_k8_"]
                                           if st["device"] == "cuda" else [])
+            # (a sweep library's ptxas report sits beside it: the
+            # compile manifest reads it)
+            libs = [f for f in built if not f.endswith(".ptxas.txt")]
             checks["one_build_per_library"] = sorted(
                 next((k for k in kinds if f.startswith(k) and
-                      f.endswith(".so")), f) for f in built) == sorted(kinds)
+                      f.endswith(".so")), f) for f in libs) == sorted(kinds) \
+                and all(f[:-len(".ptxas.txt")] in libs for f in built
+                        if f.endswith(".ptxas.txt"))
             # the card's workers each calibrated and stored a plan: one
             # whole plan file and no temp file (a CPU matcher never tunes)
             checks["one_whole_plan"] = (
@@ -5421,6 +5406,199 @@ def mesh_group_phase(card):
                          + proc.stderr[-3000:])
 
 
+# [lockdep]: a child armed by RTPU_LOCKDEP=1 before any import (the timed
+# phases of this process stay unarmed) drives a short threaded load on the
+# card: /reports from LOCKDEP_CLIENTS threads through the scheduler, one
+# fleet round from LOCKDEP_SUBMITTERS threads under leases, one columnar
+# stream round; it prints its ledger as one JSON line
+_LOCKDEP_CODE = """
+import json, sys, threading, time
+t0 = time.perf_counter()
+from reporter_tpu_torch.utils import locks
+assert locks.armed(), "RTPU_LOCKDEP=1 did not arm the port's lockdep"
+from reporter_tpu_torch.analysis import concurrency_contract as contract
+from reporter_tpu_torch.config import Config, MatcherParams, StreamingConfig
+from reporter_tpu_torch.fleet import FleetResidency
+from reporter_tpu_torch.matcher.api import Trace
+from reporter_tpu_torch.netgen.synthetic import generate_city
+from reporter_tpu_torch.netgen.traces import synthesize_fleet
+from reporter_tpu_torch.service.app import make_app
+from reporter_tpu_torch.streaming import ColumnarStreamPipeline, pack_records
+from reporter_tpu_torch.tiles.compiler import compile_network
+clients, per_client, submitters = (int(a) for a in sys.argv[1:4])
+ts = compile_network(generate_city("sf"))
+small = compile_network(generate_city("tiny"))
+fleet = synthesize_fleet(ts, clients * per_client, num_points=40, seed=5)
+app = make_app(ts, device="cuda")
+errors = []
+def client(i):
+    try:
+        for p in fleet[i::clients]:
+            out = app.report_one(p.to_report_json())
+            assert "segments" in out, out
+    except Exception as e:
+        errors.append(repr(e))
+th = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+[t.start() for t in th]
+[t.join() for t in th]
+app.close()
+pinned = Config(matcher=MatcherParams(sweep_autotune=False))
+fr = FleetResidency([ts, small], pinned, device="cuda")
+names = [ts.name, small.name]
+mtr = {t.name: [Trace.from_json(p.to_report_json(), t) for p in
+                synthesize_fleet(t, 16, num_points=40, seed=6)]
+       for t in (ts, small)}
+def submit(i):
+    try:
+        with fr.lease(names[i % 2]) as m:
+            m.match_many(mtr[names[i % 2]])
+    except Exception as e:
+        errors.append(repr(e))
+th = [threading.Thread(target=submit, args=(i,)) for i in range(submitters)]
+[t.start() for t in th]
+[t.join() for t in th]
+pipe = ColumnarStreamPipeline(ts, Config(streaming=StreamingConfig(
+    pipeline_depth=1)), device="cuda")
+recs = [{"uuid": p.uuid, "lat": float(p.lonlat[t, 1]),
+         "lon": float(p.lonlat[t, 0]), "time": float(p.times[t])}
+        for t in range(40) for p in fleet]
+pipe.queue.append_columns(pack_records(recs))
+pipe.step()
+pipe.drain()
+pipe.close()
+snap = locks.global_dep().snapshot()
+edges = sorted(map(list, snap["edges"]))
+print(json.dumps({
+    "seconds": time.perf_counter() - t0, "errors": errors,
+    "edges": edges, "violations": [str(v) for v in snap["violations"]],
+    "unknown_edges": [e for e in edges
+                      if tuple(e) not in contract.LOCK_ORDER_EDGES]}))
+"""
+LOCKDEP_CLIENTS, LOCKDEP_PER_CLIENT, LOCKDEP_SUBMITTERS = 16, 3, 4
+AUDIT_TIMEOUT_S = 300         # [lockdep], [analysis:*]: each child's limit
+
+# [analysis:device] and [analysis:manifest]: the port's --device gate on
+# the card, in a process of its own (sync-debug "error" is process-wide):
+# the device contract, then the compile manifest against its golden block
+ANALYSIS_ARGV = ("-m", "reporter_tpu_torch.analysis", "--device", "--on",
+                 "cuda", "--json")
+
+
+def _child(argv, env=None):
+    """Start ``python *argv`` from the checkout's root."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, *map(str, argv)],
+                            cwd=here, env={**os.environ, **(env or {})},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _child_json(proc, tag, n):
+    """The ``n`` JSON lines a child printed and its exit code; raises on a
+    child that ran past its limit or printed another count of lines."""
+    try:
+        out, err = proc.communicate(timeout=AUDIT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SystemExit(f"[{tag}] the child ran past {AUDIT_TIMEOUT_S} s")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if len(lines) != n:
+        raise SystemExit(f"[{tag}] the child exited {proc.returncode} with "
+                         f"{len(lines)} of {n} result lines:\n{err[-3000:]}")
+    return lines, proc.returncode
+
+
+def lockdep_start(cache):
+    """[lockdep]'s child, started (runs beside [analysis:*]'s)."""
+    return _child(("-c", _LOCKDEP_CODE, LOCKDEP_CLIENTS, LOCKDEP_PER_CLIENT,
+                   LOCKDEP_SUBMITTERS),
+                  env={"RTPU_LOCKDEP": "1", "RTPU_AUTOTUNE_CACHE": cache})
+
+
+def lockdep_phase(card, proc, t0):
+    """[lockdep]: the armed child's ledger; fails on any violation, error
+    or edge outside the port's contract."""
+    (res,), rc = _child_json(proc, "lockdep", 1)
+    phase("lockdep", card, seconds=time.perf_counter() - t0,
+          child_seconds=res["seconds"], clients=LOCKDEP_CLIENTS,
+          reports=LOCKDEP_CLIENTS * LOCKDEP_PER_CLIENT,
+          fleet_submitters=LOCKDEP_SUBMITTERS, edges=res["edges"],
+          violations=res["violations"], unknown_edges=res["unknown_edges"],
+          errors=res["errors"])
+    if res["violations"] or res["unknown_edges"] or res["errors"] or rc:
+        raise SystemExit(f"[lockdep] violations, unknown edges or errors "
+                         f"(the child exited {rc})")
+
+
+def analysis_phase(card, proc, t0):
+    """[analysis:device] and [analysis:manifest] from the --device gate's
+    child (its exit code is 1 on an unwaived finding or a drift)."""
+    (dev, man), rc = _child_json(proc, "analysis", 2)
+    phase("analysis:device", card, seconds=dev["seconds"],
+          device=dev["device"], cases=dev["cases"], aten_ops=dev["aten_ops"],
+          findings=len(dev["findings"]), unwaived=dev["unwaived"],
+          sync_debug="error")
+    if dev["unwaived"] or not dev["device"].startswith("cuda"):
+        raise SystemExit("[analysis:device] unwaived findings, or not on "
+                         "the card")
+    m = man["manifest"]
+    phase("analysis:manifest", card, seconds=man["seconds"],
+          wall_seconds=time.perf_counter() - t0, problems=man["problems"],
+          ptxas=m["ptxas"], launch=m["launch"])
+    if man["problems"] or rc:
+        raise SystemExit(f"[analysis:manifest] drift from the golden block "
+                         f"(the child exited {rc})")
+
+
+def profile_phase(card, m, traces):
+    """[profile]: one sf batch of the tuned matcher under the matcher's
+    own device_trace hook (REPORTER_TPU_TRACE_DIR set for the call): the
+    Chrome trace's size, its sweep kernel events and the CUDA kernels in
+    the window."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()          # the window starts on an idle card
+    out_dir = os.path.join(SCRATCH, "profile")
+    if os.path.isdir(out_dir):
+        for fn in os.listdir(out_dir):
+            os.unlink(os.path.join(out_dir, fn))
+    os.environ["REPORTER_TPU_TRACE_DIR"] = out_dir
+    try:
+        t1 = time.perf_counter()
+        m.match_many(traces)
+        batch_s = time.perf_counter() - t1
+    finally:
+        del os.environ["REPORTER_TPU_TRACE_DIR"]
+    files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    if len(files) != 1:
+        raise SystemExit(f"[profile] expected one trace file, got {files}")
+    path = os.path.join(out_dir, files[0])
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    sweep = [e for e in kernels if "sweep_exact_kernel" in e.get("name", "")]
+    # the host-side span round each sweep launch (ops.dense_candidates
+    # sweep_topk)
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == "sweep_exact_kernel"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "")]
+    phase("profile", card, seconds=time.perf_counter() - t0,
+          traced_batch_s=batch_s, traces=len(traces), trace_file=files[0],
+          trace_bytes=os.path.getsize(path), events=len(events),
+          cuda_launch_calls=len(launches), cuda_kernels=len(kernels),
+          sweep_exact_kernels=len(sweep), sweep_exact_spans=len(spans))
+    # the window is whole: the sweep's kernel record is there, and every
+    # launch has its kernel (a later profiler session of a process has
+    # lost its window's first kernel records)
+    if not (spans and sweep and launches
+            and len(kernels) == len(launches)):
+        raise SystemExit(f"[profile] the trace holds {len(spans)} sweep "
+                         f"launch spans, {len(sweep)} sweep kernels, "
+                         f"{len(launches)} CUDA launches and {len(kernels)} "
+                         "kernels")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -5432,6 +5610,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port's modules: a copy of this script without the repo stops here
+    from reporter_tpu_torch.analysis import compile_manifest
     from reporter_tpu_torch.config import CompilerParams, MatcherParams
     from reporter_tpu_torch.kernels import build
     from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
@@ -5461,7 +5640,7 @@ def main() -> int:
         cuda_job.result()
         host_job.result()
     built = {lib: {"nvcc_seconds": log["seconds"],
-                   "kernels": ptxas_figures(log["ptxas"])}
+                   "kernels": compile_manifest.ptxas_figures(log["ptxas"])}
              for lib, log in build.BUILD_LOG.items()}
     # a library already built from the same sources (by an earlier run in
     # this checkout) is loaded, not rebuilt, and shows no build time
@@ -5508,6 +5687,9 @@ def main() -> int:
             Trace)
         walk_phase(card, m, ts, traces, recs, fields, MatcherParams,
                    SegmentMatcher, "sf")
+        # the process's first profiler session (a later one can lose the
+        # first kernel records of its window)
+        profile_phase(card, m, traces)
         main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
                      cache)
         breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams)
@@ -5605,6 +5787,15 @@ def main() -> int:
         mesh_backfill_phase(card, ts, stream_rounds(fleet), m, dc, win)
         mesh_group_phase(card)
         phase("mesh", card, seconds=time.perf_counter() - t_mesh)
+
+        # ---- the port's gates on the card: lockdep, the device contract
+        #      and the compile manifest, in children side by side --------
+        t_gates = time.perf_counter()
+        lockdep_proc = lockdep_start(cache)
+        analysis_proc = _child(ANALYSIS_ARGV)
+        lockdep_phase(card, lockdep_proc, t_gates)
+        analysis_phase(card, analysis_proc, t_gates)
+        phase("gates", card, seconds=time.perf_counter() - t_gates)
 
     # ---- 12. summary -------------------------------------------------------
     kernels = []

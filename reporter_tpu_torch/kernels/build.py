@@ -9,7 +9,8 @@ use of that K, into ``reporter_tpu_torch/_build/``: one shared library per
 K with a plain C interface, loaded with ctypes (seconds to build, no
 PyTorch headers). ``build_all`` starts every K's ``nvcc`` at once. A
 library is named by its K and a hash of its source, the headers beside it
-and the flags, so an edited source rebuilds. A missing ``nvcc``, a failed
+and the flags, so an edited source rebuilds; its ``ptxas -v`` report is
+kept beside it (``ptxas_log``). A missing ``nvcc``, a failed
 build or a failed launch raises; nothing falls back to the plain version.
 """
 
@@ -67,7 +68,9 @@ def build(source: Path, k: int) -> Path:
         h.update(f.name.encode() + b"\0" + f.read_bytes())
     name = f"lib{source.stem}_k{k}_{h.hexdigest()[:16]}.so"
     out = _BUILD_DIR / name
-    if out.exists():
+    # a library without its ptxas report (built before the report was
+    # kept) is not built: the manifest reads the report of every library
+    if out.exists() and _ptxas_path(out).exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -79,10 +82,27 @@ def build(source: Path, k: int) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on {source.name} at K={k} "
                            f"(rc {proc.returncode}):\n{proc.stderr}")
+    # the ptxas report beside the library, in place first: a library that
+    # exists has its report (analysis/compile_manifest reads it on a warm
+    # build too); both land whole (a replace), whoever builds at once
+    fd, rep = tempfile.mkstemp(suffix=".txt", dir=_BUILD_DIR)
+    with os.fdopen(fd, "w") as f:
+        f.write(proc.stderr.strip() + "\n")
+    os.replace(rep, _ptxas_path(out))
     os.replace(tmp, out)
     BUILD_LOG[f"{source.name} K={k}"] = {
         "seconds": time.perf_counter() - t0, "ptxas": proc.stderr.strip()}
     return out
+
+
+def _ptxas_path(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
+def ptxas_log(k: int) -> str:
+    """The ``ptxas -v`` report of the K library (built now if it is not
+    yet), kept beside it in the build directory."""
+    return _ptxas_path(build(EXACT_SOURCE, k)).read_text()
 
 
 def build_all() -> None:

@@ -49,7 +49,10 @@ sentinel; a sampled batch goes to the shadow audit, quality/audit.py),
 ``match_many`` may run on several threads at once (the service's batch
 scheduler does): the shared counters (``stage_seconds``,
 ``point_counts``, the registry, ``ops.dense_candidates.SWEEP_LAUNCHES``)
-update under a lock each.
+update under a lock each. With ``REPORTER_TPU_TRACE_DIR`` set, each
+``match_many`` batch runs under utils/profiling.device_trace (a
+torch.profiler capture, as the JAX matcher's batch is under
+jax.profiler).
 
 ``Config(matcher_backend="reference_cpu")`` makes the matcher the
 exact-Dijkstra oracle (matcher/cpu_reference.py): host work only, no
@@ -135,7 +138,7 @@ from reporter_tpu_torch.quality import signals as quality_signals
 from reporter_tpu_torch.quality.monitor import QualityMonitor
 from reporter_tpu_torch.tiles.tileset import (TileSet, check_staged_layout,
                                               device_members, place_tables)
-from reporter_tpu_torch.utils import linkhealth, locks, tracing
+from reporter_tpu_torch.utils import linkhealth, locks, profiling, tracing
 from reporter_tpu_torch.utils.metrics import MetricsRegistry
 from reporter_tpu_torch.utils.watchdog import (TIMED_OUT,
                                                AbandonedThreadWatchdog)
@@ -408,8 +411,8 @@ class SegmentMatcher:
                 pts_q, origins, lens = autotune.calibration_batch(self.ts)
                 q = torch.from_numpy(pts_q).to(self.device)
                 o = torch.from_numpy(origins).to(self.device)
-                quantum = torch.tensor(_QUANTUM, dtype=torch.float32,
-                                       device=self.device)
+                quantum = torch.full((), _QUANTUM, dtype=torch.float32,
+                                         device=self.device)
                 state["pts"] = o[:, None, :] + q.to(torch.float32) * quantum
                 state["valid"] = match_ops._valid(
                     torch.from_numpy(lens).to(self.device), q.shape[1])
@@ -542,7 +545,7 @@ class SegmentMatcher:
         t0 = time.perf_counter()
         hold = None
         try:
-            with self.metrics.stage("match"), \
+            with self.metrics.stage("match"), profiling.device_trace(), \
                     tracing.tracer().span("match_many", traces=len(traces)):
                 if self.backend == "reference_cpu":
                     out = [self._match_cpu(t) for t in traces]

@@ -37,6 +37,15 @@ from reporter_tpu_torch.device import resolve_device
 _CAP = 4096
 
 
+def _scatter_add(part: torch.Tensor, idx: torch.Tensor,
+                 upd: torch.Tensor) -> None:
+    """The device half of an add: one ``index_add_`` of the 0/1 weights
+    ``upd`` at the flat indices ``idx`` into the i32 partial ``part``
+    (all on one device). The port's twin of the JAX package's jitted
+    ``_scatter_add``, audited by analysis/device_contract.py."""
+    part.index_add_(0, idx, upd)
+
+
 class FixedGridCounts:
     """i32 [size] counts on ``device`` (``cuda`` unless the caller passes
     ``device="cpu"``), or on a ``mesh`` as per-device partials (module
@@ -83,9 +92,8 @@ class FixedGridCounts:
 
     def _scatter(self, d: int, flat: np.ndarray, ok: np.ndarray) -> None:
         dev = self.devices[d]
-        self._parts[d].index_add_(
-            0, torch.from_numpy(flat).to(dev),
-            torch.from_numpy(ok.astype(np.int32)).to(dev))
+        _scatter_add(self._parts[d], torch.from_numpy(flat).to(dev),
+                     torch.from_numpy(ok.astype(np.int32)).to(dev))
 
     def partials(self) -> np.ndarray:
         """Host copy [ndev, size] (i32) of the per-device partials."""

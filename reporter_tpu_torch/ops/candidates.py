@@ -63,7 +63,7 @@ def as_grid_meta(meta: "TileMeta | GridMeta") -> GridMeta:
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _point_segment_dist(px, py, ax, ay, bx, by):

@@ -39,6 +39,7 @@ import torch
 
 from reporter_tpu_torch.kernels import build
 from reporter_tpu_torch.kernels.build import SWEEP_KS
+from reporter_tpu_torch.utils import profiling
 
 BIG = 1e30
 
@@ -150,10 +151,14 @@ class SegPack(NamedTuple):
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root on every device, as CUDA's sqrtf
-    and the kernel's are. PyTorch's vectorized CPU sqrt is not (a fraction
-    of a percent of f32 inputs come out one ulp off, in f64 too), so a
-    first guess y is moved to a neighbour when x falls outside the squares
-    of the midpoints around y — those squares are exact in f64."""
+    and the kernel's are. On a card that is torch.sqrt itself (f32, IEEE
+    rounding: no float64 in the wire path). PyTorch's vectorized CPU sqrt
+    is not (a fraction of a percent of f32 inputs come out one ulp off, in
+    f64 too), so on the CPU a first guess y is moved to a neighbour when x
+    falls outside the squares of the midpoints around y — those squares
+    are exact in f64."""
+    if x.is_cuda:
+        return torch.sqrt(x)
     y = torch.sqrt(x.to(torch.float64)).to(torch.float32)
     lo = torch.nextafter(y, torch.zeros_like(y))
     hi = torch.nextafter(y, torch.full_like(y, float("inf")))
@@ -452,8 +457,8 @@ def _select_topk(d2, edge, offabs, k: int):
     """K passes of (global min, smallest tied edge, that edge's smallest
     tied offset, kill that edge's columns): d2 [P, C] (BIG = invalid) →
     (d2 [P, K], edge [P, K], offabs [P, K])."""
-    big_e = torch.tensor(2 ** 31 - 1, dtype=torch.int32, device=d2.device)
-    big = torch.tensor(BIG, dtype=d2.dtype, device=d2.device)
+    big_e = torch.full((), 2 ** 31 - 1, dtype=torch.int32, device=d2.device)
+    big = torch.full((), BIG, dtype=d2.dtype, device=d2.device)
     outs_d, outs_e, outs_o = [], [], []
     for _ in range(k):
         m = d2.amin(dim=1, keepdim=True)                           # [P,1]
@@ -480,7 +485,7 @@ def _dense_plain(points: torch.Tensor, pack: torch.Tensor, radius: float,
     npad = nchunks * _PLAIN_P
     pts = torch.nn.functional.pad(points, (0, 0, 0, npad - n))
     r2 = float(radius) * float(radius)
-    big = torch.tensor(BIG, dtype=torch.float32, device=points.device)
+    big = torch.full((), BIG, dtype=torch.float32, device=points.device)
     es, os_, ds = [], [], []
     for c in range(nchunks):
         p = pts[c * _PLAIN_P:(c + 1) * _PLAIN_P]
@@ -499,7 +504,7 @@ def _dense_plain(points: torch.Tensor, pack: torch.Tensor, radius: float,
 def root_dist(d2: torch.Tensor) -> torch.Tensor:
     """Squared candidate distances → distances, BIG staying BIG: the
     kernel's final step (a correctly rounded square root)."""
-    big = torch.tensor(BIG, dtype=torch.float32, device=d2.device)
+    big = torch.full((), BIG, dtype=torch.float32, device=d2.device)
     return torch.where(d2 < BIG, sqrt_f32(torch.clamp_min(d2, 0.0)), big)
 
 
@@ -589,7 +594,7 @@ def _coarse_rows(pts, ids, vote, table):
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _clip_half_box(quad, radius: float):
@@ -623,7 +628,7 @@ def _bf16_coarse_d2(p, seg, quad, radius: float):
     abx = bxl - axl
     aby = byl - ayl
     den = torch.maximum(abx * abx + aby * aby,
-                        torch.tensor(1e-12, dtype=bf, device=p.device))
+                        torch.full((), 1e-12, dtype=bf, device=p.device))
     t = torch.clamp(((pxl - axl) * abx + (pyl - ayl) * aby) / den, 0.0, 1.0)
     dxl = pxl - (axl + t * abx)
     dyl = pyl - (ayl + t * aby)
@@ -799,11 +804,14 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     r2 = float(radius) * float(radius)
     rc = cull_radius(radius)
     order = torch.empty(nchunks + 1, dtype=torch.int32, device=pts.device)
-    build.launch_sweep_exact(
-        pts, ids, nhits, order, sweep, sub if arm != "block" else None,
-        coarse if arm not in ("block", "sub") else None,
-        SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc, float(radius),
-        edge, off, dist, gate_log, squared)
+    # a span of a device_trace capture (a no-op outside one): names the
+    # launch on the host side, whatever the profiler's kernel records hold
+    with profiling.annotate("sweep_exact_kernel"):
+        build.launch_sweep_exact(
+            pts, ids, nhits, order, sweep, sub if arm != "block" else None,
+            coarse if arm not in ("block", "sub") else None,
+            SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc,
+            float(radius), edge, off, dist, gate_log, squared)
     with _LAUNCH_LOCK:
         SWEEP_LAUNCHES[arm, k_run] += 1
     if k_run != k:

@@ -45,8 +45,8 @@ def _keep_mask_batched(pts, vp, interp_distance: float):
     for points within ``interp_distance`` of the last kept point."""
     if interp_distance <= 0.0:
         return vp
-    d2_min = torch.tensor(interp_distance, dtype=torch.float32,
-                          device=pts.device) ** 2
+    d2_min = torch.full((), interp_distance, dtype=torch.float32,
+                            device=pts.device) ** 2
     last_pt = pts[0]
     any_kept = torch.zeros_like(vp[0])
     keeps = []
@@ -187,7 +187,7 @@ def _consts(like: torch.Tensor, beta: float = 1.0,
             max_route_factor: float = 1.0, backward_slack: float = 10.0,
             breakage_distance: float = 0.0) -> _Consts:
     def f32(x):
-        return torch.tensor(x, dtype=torch.float32, device=like.device)
+        return torch.full((), x, dtype=torch.float32, device=like.device)
 
     return _Consts(f32(BIG), f32(beta), f32(max_route_factor), f32(10.0),
                    f32(backward_slack), f32(breakage_distance))
@@ -248,11 +248,11 @@ def transition_costs(cands_t: CandidateSet, cands_u: CandidateSet, gc,
 
 def emission_costs(cands: CandidateSet, sigma_z: float):
     """[..., K] emission cost; BIG for invalid candidates."""
-    c = cands.dist ** 2 / torch.tensor(2.0 * sigma_z ** 2,
-                                       dtype=torch.float32,
-                                       device=cands.dist.device)
-    return torch.where(cands.valid, c, torch.tensor(
-        BIG, dtype=torch.float32, device=c.device))
+    c = cands.dist ** 2 / torch.full((), 2.0 * sigma_z ** 2,
+                                         dtype=torch.float32,
+                                         device=cands.dist.device)
+    return torch.where(cands.valid, c, torch.full(
+        (), BIG, dtype=torch.float32, device=c.device))
 
 
 def interpolation_keep_mask(points, valid_pt, interp_distance: float):

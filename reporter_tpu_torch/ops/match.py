@@ -119,8 +119,8 @@ def wire_from_q16(points_q, origins, lengths, tables, params: MatcherParams,
                   acc_scale=None, spec=None, meta=None):
     """points_q i16 [B, T, 2]: 0.25 m fixed-point offsets from per-trace
     origins f32 [B, 2]."""
-    quantum = torch.tensor(OFFSET_QUANTUM, dtype=torch.float32,
-                           device=points_q.device)
+    quantum = torch.full((), OFFSET_QUANTUM, dtype=torch.float32,
+                             device=points_q.device)
     points = origins[:, None, :] + points_q.to(torch.float32) * quantum
     out = match_traces(points, _valid(lengths, points_q.shape[1]), tables,
                        params, acc_scale, meta)
@@ -133,8 +133,8 @@ def wire_from_q8(deltas_q, origins, lengths, tables, params: MatcherParams,
     step 0). An integer cumsum rebuilds the i16 absolutes exactly, so this
     entry equals wire_from_q16 on every valid point."""
     q = torch.cumsum(deltas_q.to(torch.int32), dim=1, dtype=torch.int32)
-    quantum = torch.tensor(OFFSET_QUANTUM, dtype=torch.float32,
-                           device=deltas_q.device)
+    quantum = torch.full((), OFFSET_QUANTUM, dtype=torch.float32,
+                             device=deltas_q.device)
     points = origins[:, None, :] + q.to(torch.float32) * quantum
     out = match_traces(points, _valid(lengths, deltas_q.shape[1]), tables,
                        params, acc_scale, meta)
@@ -164,12 +164,12 @@ def _pack_wire(out: MatchOutput, num_edges: int, spec: "tuple | None" = None):
     matched = out.matched.to(torch.int64)
     if spec is not None and num_edges > _COMPACT_WIRE_EDGES:
         ob, q = spec
-        qt = torch.tensor(q, dtype=torch.float32, device=dev)
+        qt = torch.full((), q, dtype=torch.float32, device=dev)
         off_q = torch.clamp(torch.round(out.offset / qt), 0,
                             (1 << ob) - 1).to(torch.int64)
         w = off_q | (edge << ob) | (start << 30) | (matched << 31)
         return w[:, None, :].to(torch.uint32)
-    qt = torch.tensor(OFFSET_QUANTUM, dtype=torch.float32, device=dev)
+    qt = torch.full((), OFFSET_QUANTUM, dtype=torch.float32, device=dev)
     w0 = torch.clamp(torch.round(out.offset / qt), 0, 65535).to(torch.int64)
     if num_edges <= _COMPACT_WIRE_EDGES:
         w1 = (edge & 0x3FFF) | (start << 14) | (matched << 15)

@@ -103,6 +103,12 @@ class DpWireMatcher:
     # ---- internals --------------------------------------------------------
 
     def _dispatch(self, kind: str, arrays, acc) -> ShardedWire:
+        return self.run(kind, self.stage(arrays, acc))
+
+    def stage(self, arrays, acc) -> list:
+        """The host half of a dispatch: rows padded to a multiple of the
+        devices, split in data-axis order and copied to each shard's
+        device → [(device, args, acc)] per shard."""
         B = arrays[0].shape[0]
         pad = (-B) % self.ndev
         if pad:
@@ -112,14 +118,21 @@ class DpWireMatcher:
             if acc is not None:
                 acc = np.concatenate(
                     [acc, np.ones((pad,) + acc.shape[1:], acc.dtype)])
-        impl = _IMPLS[kind]
-        shards = []
+        staged = []
         for dev, rows in zip(self.devices,
                              _row_blocks(B + pad, self.ndev)):
             args = [torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
                     for a in arrays]
             a = (None if acc is None else
                  torch.from_numpy(np.ascontiguousarray(acc[rows])).to(dev))
-            shards.append(impl(*args, self.tables[dev], self.params, a,
-                               self.spec, self.meta))
-        return ShardedWire(shards)
+            staged.append((dev, args, a))
+        return staged
+
+    def run(self, kind: str, staged: list) -> ShardedWire:
+        """The device half: one ``ops.match.wire_from_<kind>`` per shard
+        on its staged rows (the mesh's wire program, audited by
+        analysis/device_contract.py)."""
+        impl = _IMPLS[kind]
+        return ShardedWire([impl(*args, self.tables[dev], self.params, a,
+                                 self.spec, self.meta)
+                            for dev, args, a in staged])

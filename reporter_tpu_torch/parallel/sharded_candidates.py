@@ -150,8 +150,8 @@ def _merge_topk(edge, d2, off, k: int):
     e = edge.permute(1, 0, 2).reshape(n, s * kk)
     d = d2.permute(1, 0, 2).reshape(n, s * kk)
     o = off.permute(1, 0, 2).reshape(n, s * kk)
-    d = torch.where(e >= 0, d, torch.tensor(BIG, dtype=d.dtype,
-                                            device=d.device))
+    d = torch.where(e >= 0, d, torch.full((), BIG, dtype=d.dtype,
+                                              device=d.device))
     md, me, mo = _select_topk(d, e, o, k)
     return me, md, mo
 

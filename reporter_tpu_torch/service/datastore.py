@@ -224,9 +224,12 @@ class DatastorePublisher:
                     with open(tmp, "wb") as f:
                         f.write(b"".join(ln + b"\n" for ln in keep))
                         f.flush()
-                        # the prefix rewrite must exclude concurrent
-                        # appends or a just-spooled batch is lost in the
-                        # replace; the POSTs already run outside this lock
+                        # lint: allow[lock-blocking] 2026-10-17 the prefix
+                        # rewrite must exclude concurrent appends or a
+                        # just-spooled batch is lost in the replace; the
+                        # POSTs already run outside this lock
+                        # (concurrency_contract BLOCKING_ALLOW
+                        # publisher.spool, os.fsync)
                         os.fsync(f.fileno())
                     os.replace(tmp, self._spool_path)
                     self._spool_pending = max(

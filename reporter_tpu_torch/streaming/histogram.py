@@ -19,6 +19,16 @@ import torch
 from reporter_tpu_torch.device import resolve_device
 
 
+def _accumulate(hist: torch.Tensor, idx: torch.Tensor,
+                upd: torch.Tensor) -> None:
+    """The device half of an update: one ``index_add_`` of the 0/1
+    weights ``upd`` at the flat indices ``idx`` (both on the histogram's
+    device) into the i32 [rows, bins] ``hist``. The port's twin of the
+    JAX package's jitted ``_accumulate``, audited by
+    analysis/device_contract.py."""
+    hist.view(-1).index_add_(0, idx, upd)
+
+
 class SpeedHistogram:
     """i32 [num_rows, num_bins] observation counts on ``device`` (``cuda``
     unless the caller passes ``device="cpu"``); bin = speed (m/s) bucket,
@@ -54,7 +64,7 @@ class SpeedHistogram:
         # before it returns)
         idx = torch.from_numpy(flat).to(self.device)
         upd = torch.from_numpy(ok.astype(np.int32)).to(self.device)
-        self._hist.view(-1).index_add_(0, idx, upd)
+        _accumulate(self._hist, idx, upd)
 
     def snapshot(self) -> np.ndarray:
         """Host copy [num_rows, num_bins] (i32): owned, never a view of the

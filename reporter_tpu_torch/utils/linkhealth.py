@@ -141,9 +141,12 @@ def _device_probe(nbytes: int, device) -> "tuple[float | None, float | None]":
            else torch.cuda.current_device(), nbytes)
     with _buffers_lock:
         buf = _buffers.get(key)
-        if buf is None:
-            buf = _buffers[key] = _ProbeBuffers(torch.device("cuda", key[0]),
-                                                nbytes)
+    if buf is None:
+        # the allocation waits for the card: outside the lock (a leaf
+        # guarding the dict); a racing probe's buffers lose the insert
+        fresh = _ProbeBuffers(torch.device("cuda", key[0]), nbytes)
+        with _buffers_lock:
+            buf = _buffers.setdefault(key, fresh)
     # the probe's card current: its events and copies are that card's
     with torch.cuda.device(key[0]), torch.cuda.stream(buf.stream):
         if not buf.warmed:      # the first round trip and copy, untimed

@@ -17,6 +17,8 @@ from reporter_tpu.matcher.api import Trace as JTrace
 from reporter_tpu.netgen.osm_xml import parse_osm_xml as j_parse_osm_xml
 from reporter_tpu.netgen.pbf import parse_osm_pbf as j_parse_osm_pbf
 from reporter_tpu.tiles.compiler import compile_network as j_compile
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import CompilerParams, Config
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
 from reporter_tpu_torch.netgen.osm_xml import parse_osm_xml
@@ -24,7 +26,6 @@ from reporter_tpu_torch.netgen.pbf import parse_osm_pbf, write_osm_pbf
 from reporter_tpu_torch.netgen.traces import synthesize_fleet
 from reporter_tpu_torch.tiles.compiler import compile_network
 from reporter_tpu_torch.tiles.tileset import ARRAY_FIELDS
-from _torch_support import few_torch_threads  # noqa: F401
 
 from fixtures import adversarial_osm
 

@@ -26,6 +26,9 @@ from reporter_tpu.netgen.traces import synthesize_fleet
 from reporter_tpu.quality import audit as jaudit
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads,
+    fresh_link_sampler)
 from reporter_tpu_torch import faults
 from reporter_tpu_torch.config import Config, MatcherParams
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
@@ -34,7 +37,6 @@ from reporter_tpu_torch.netgen.traces import (
 from reporter_tpu_torch.quality import audit
 from reporter_tpu_torch.tiles.tileset import TileSet
 from reporter_tpu_torch.utils.metrics import MetricsRegistry, labeled
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
@@ -234,7 +236,8 @@ def test_oracle_instances_keep_quality_telemetry_off(tiles):
         a.stop()
 
 
-def test_degraded_batches_are_not_audited(jtiles, tiles):
+def test_degraded_batches_are_not_audited(jtiles, tiles,
+                                         fresh_link_sampler):
     """A batch the oracle served (watchdog fallback) is not offered to
     the audit; the next healthy device batch is. As in the JAX matcher.
     The timeout leaves the healthy batch (tens of ms) a wide margin, so

@@ -25,12 +25,13 @@ from reporter_tpu.netgen.traces import synthesize_fleet
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
 from reporter_tpu.config import SWEEP_NJ_CAP_RUNGS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import MatcherParams
 from reporter_tpu_torch.matcher import autotune
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
 from reporter_tpu_torch.matcher.autotune import CANDIDATE_ARMS, TunedPlan
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -50,6 +50,8 @@ from reporter_tpu.streaming.durable_queue import (
     DurableIngestQueue as JDurableIngestQueue)
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch import faults
 from reporter_tpu_torch.backfill import (AggregateStore, BackfillConfig,
                                          BackfillEngine, SpeedTodHistogram,
@@ -59,7 +61,6 @@ from reporter_tpu_torch.matcher.api import SegmentMatcher
 from reporter_tpu_torch.ops.aggregate import FixedGridCounts, reference_counts
 from reporter_tpu_torch.service.app import make_app
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -19,6 +19,8 @@ from reporter_tpu.config import CompilerParams as JCompilerParams
 from reporter_tpu.netgen.synthetic import generate_city as j_generate_city
 from reporter_tpu.tiles.compiler import compile_network as j_compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS as J_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import CompilerParams
 from reporter_tpu_torch.geometry import xy_to_lonlat
 from reporter_tpu_torch.matcher.api import SegmentMatcher
@@ -29,7 +31,6 @@ from reporter_tpu_torch.netgen.synthetic import (add_random_restrictions,
 from reporter_tpu_torch.tiles import capacity
 from reporter_tpu_torch.tiles.compiler import compile_network
 from reporter_tpu_torch.tiles.tileset import TileSet, tables_from_numpy
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

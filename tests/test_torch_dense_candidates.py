@@ -30,9 +30,10 @@ from reporter_tpu.netgen.traces import synthesize_fleet
 from reporter_tpu.ops.dense_candidates import (
     find_candidates_dense as j_find_candidates_dense)
 from reporter_tpu.tiles.compiler import compile_network
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.ops.dense_candidates import (BIG, build_seg_pack,
                                                      find_candidates_dense)
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

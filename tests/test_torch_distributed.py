@@ -40,6 +40,8 @@ from reporter_tpu.distributed import aggregate as jaggregate
 from reporter_tpu.distributed import stitch as jstitch
 from reporter_tpu.utils import metrics as jmetrics
 from reporter_tpu.utils import tracing as jtracing
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import (CompilerParams, Config, ServiceConfig,
                                        StreamingConfig)
 from reporter_tpu_torch.distributed import (MemberSpec, Supervisor,
@@ -50,7 +52,6 @@ from reporter_tpu_torch.netgen.traces import synthesize_fleet
 from reporter_tpu_torch.streaming import DurableIngestQueue, StreamPipeline
 from reporter_tpu_torch.tiles.compiler import compile_network
 from reporter_tpu_torch.utils import metrics, tracing
-from _torch_support import few_torch_threads  # noqa: F401
 
 WALL = 1_700_000_000.5      # pinned wall clock: uptime gauges alike
 

@@ -38,6 +38,8 @@ from reporter_tpu.netgen.synthetic import generate_city
 from reporter_tpu.netgen.traces import synthesize_probe
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS as J_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch import faults
 from reporter_tpu_torch.config import Config, MatcherParams
 from reporter_tpu_torch.fleet import (FleetCapacityError, FleetConfig,
@@ -50,7 +52,6 @@ from reporter_tpu_torch.service.scheduler import ServiceOverloaded
 from reporter_tpu_torch.tiles.tileset import (STAGED_LAYOUT_VERSION,
                                               TileSet, check_staged_layout,
                                               place_tables, staged_nbytes)
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

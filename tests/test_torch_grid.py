@@ -28,6 +28,8 @@ from reporter_tpu.tiles.compiler import _build_grid as j_build_grid
 from reporter_tpu.tiles.compiler import compile_network as j_compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS as J_FIELDS
 from reporter_tpu.tiles.tileset import build_cell_pack as j_build_cell_pack
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import (CompilerParams, Config,
                                        MatcherParams)
 from reporter_tpu_torch.matcher import autotune
@@ -42,7 +44,6 @@ from reporter_tpu_torch.tiles.compiler import _build_grid, compile_network
 from reporter_tpu_torch.tiles.tileset import (ARRAY_FIELDS, TileSet,
                                               build_cell_pack,
                                               tables_from_numpy)
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -23,8 +23,9 @@ import time
 import numpy as np
 import pytest
 import torch
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 
-from _torch_support import few_torch_threads  # noqa: F401
 
 
 def compare(city: str = "sf", n_traces: int = 1024, n_points: int = 120,

@@ -1,6 +1,6 @@
 """The port's import rule: no module of reporter_tpu_torch, and not
-chip_smoke.py (which runs on the machine with the card, where there is no
-JAX), imports ``jax`` (or ``jaxlib``, ``jax.*``) or anything of the JAX
+chip_smoke.py or scripts/ (which run on the machine with the card, where
+there is no JAX), imports ``jax`` (or ``jaxlib``, ``jax.*``) or anything of the JAX
 package ``reporter_tpu``. Each file is parsed (``ast``), not imported, so
 an import inside a function counts too."""
 
@@ -8,12 +8,17 @@ import ast
 import os
 
 import pytest
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    scripts = os.path.join(ROOT, "scripts")
+    out += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
+            if n.endswith(".py")]
     for d, _, names in os.walk(os.path.join(ROOT, "reporter_tpu_torch")):
         out += [os.path.join(d, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(out)
@@ -99,3 +104,69 @@ def test_the_parallel_package_is_checked():
                 "multimetro", "multihost"):
         assert os.path.join("reporter_tpu_torch", "parallel",
                             f"{mod}.py") in names
+
+
+def _torch_tests():
+    d = os.path.join(ROOT, "tests")
+    return sorted(os.path.join(d, n) for n in os.listdir(d)
+                  if n.startswith("test_torch_") and n.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", _torch_tests(),
+                         ids=lambda p: os.path.basename(p))
+def test_the_gate_is_imported_before_the_port(path):
+    """Every port test file imports the gate (tests/_torch_support.py,
+    which arms the port's lockdep) at module level, above its first
+    reporter_tpu_torch import: arming is creation-time, and port modules
+    create locks at import, which under ``--dist loadfile`` happens at
+    collection, in file order."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    support = port = None
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.module == "_torch_support":
+            names = {a.name for a in node.names}
+            assert {"_torch_gate", "_torch_module_gate"} <= names, names
+            support = support or node.lineno
+        mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                else [])
+        if port is None and any(m.split(".")[0] == "reporter_tpu_torch"
+                                for m in mods):
+            port = node.lineno
+    assert support is not None, "no module-level import of the gate"
+    assert port is None or support < port, (support, port)
+
+
+@pytest.mark.parametrize("src,ok", [
+    ("from _torch_support import _torch_gate, _torch_module_gate\n"
+     "from reporter_tpu_torch import faults\n", True),
+    ("from reporter_tpu_torch import faults\n"
+     "from _torch_support import _torch_gate, _torch_module_gate\n", False),
+    ("import reporter_tpu_torch.ops\n", False),
+    ("from _torch_support import few_torch_threads\n", False)])
+def test_the_order_check_sees_each_form(tmp_path, src, ok):
+    p = tmp_path / "test_torch_synthetic.py"
+    p.write_text(src)
+    if ok:
+        test_the_gate_is_imported_before_the_port(str(p))
+    else:
+        with pytest.raises(AssertionError):
+            test_the_gate_is_imported_before_the_port(str(p))
+
+
+@pytest.mark.parametrize("module", ("reporter_tpu_torch.analysis",
+                                    "reporter_tpu_torch.utils.profiling"))
+def test_the_analysis_package_and_profiling_are_checked(module):
+    """The analysis package and the profiling hook are among the files
+    held to the rule (the walk above), and import without JAX."""
+    rel = module.replace(".", os.sep)
+    names = {os.path.relpath(p, ROOT) for p in _files()}
+    assert (rel + ".py") in names or os.path.join(rel, "__init__.py") \
+        in names
+    if module.endswith("analysis"):
+        for mod in ("lint_rules", "concurrency_contract", "global_state",
+                    "slo_contract", "device_contract", "compile_manifest",
+                    "__main__"):
+            assert os.path.join(rel, f"{mod}.py") in names
+    test_new_modules_import_without_jax(module)

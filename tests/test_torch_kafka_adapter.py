@@ -29,6 +29,8 @@ from reporter_tpu.streaming.kafka_adapter import (
     KafkaProbeConsumer as JKafkaProbeConsumer)
 from reporter_tpu.streaming.kafka_adapter import (
     TopicPartition as JTopicPartition)
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import Config, ServiceConfig, StreamingConfig
 from reporter_tpu_torch.streaming import (ColumnarStreamPipeline,
                                           IngestQueue, KafkaProbeConsumer,
@@ -40,7 +42,6 @@ from tests.test_kafka_adapter import FakeKafkaClient
 from tests.test_torch_streaming import (URL, FakeClock, _capture, _stream,
                                         jtiles, stream_tiles)  # noqa: F401
 from tests.test_torch_streaming import check_probe_consumer as port_contract
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate)
 from reporter_tpu_torch.netgen.synthetic import generate_city
 from reporter_tpu_torch.netgen.traces import synthesize_fleet
 from reporter_tpu_torch.ops import dense_candidates as dc
@@ -754,3 +756,23 @@ def test_dp_wire_matcher_over_one_card_equals_the_single_wire(sf_tile, cuda):
             tab, params, None, spec, ts.meta)
     assert dc.SWEEP_LAUNCHES["sub", 8] == before + 5
     assert got.cpu().numpy()[:37].tobytes() == want.cpu().numpy().tobytes()
+
+
+def test_device_contract_under_sync_debug_on_the_card(cuda):
+    """The device contract's matrix on the card, each case under
+    set_sync_debug_mode("error"): no unwaived finding (the CPU-only
+    waiver of the plain square root does not apply here); a seeded
+    .item() is caught there both by the recorder and by sync debug."""
+    from reporter_tpu_torch.analysis import device_contract as dcon
+
+    stats = {}
+    found = dcon.run_device_contract(cuda, stats=stats)
+    assert stats["cases"] == len(dcon.audit_cases()) + 3
+    assert not [f for f in found if not f.waived], \
+        "\n".join(str(f) for f in found if not f.waived)
+    x = torch.ones(8, device=cuda)
+    _, seeded, _ = dcon.audit(lambda: x.sum().item(), "seed", cuda,
+                              ("tests/synthetic.py", 1))
+    assert {f.rule for f in seeded} == {"device-sync"}
+    assert any("raised" in f.message for f in seeded)
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -36,6 +36,8 @@ from reporter_tpu.streaming.durable_queue import (
     DurableIngestQueue as JDurableIngestQueue)
 from reporter_tpu.tiles.compiler import compile_network as jcompile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import Config, ServiceConfig, StreamingConfig
 from reporter_tpu_torch.distributed import lease
 from reporter_tpu_torch.distributed.lease import (LeaseError, LeaseRunner,
@@ -45,7 +47,6 @@ from reporter_tpu_torch.distributed.lease import (LeaseError, LeaseRunner,
 from reporter_tpu_torch.streaming import DurableIngestQueue, StreamPipeline
 from reporter_tpu_torch.tiles.tileset import TileSet
 from reporter_tpu_torch.utils.metrics import MetricsRegistry
-from _torch_support import few_torch_threads  # noqa: F401
 
 MEMBERS = ("a", "b", "c")
 N_PART = 6

@@ -26,10 +26,11 @@ import pytest
 from reporter_tpu.utils import linkhealth as jlh
 from reporter_tpu.utils import tracing as jtracing
 from reporter_tpu.utils.metrics import MetricsRegistry as JMetricsRegistry
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.utils import linkhealth as plh
 from reporter_tpu_torch.utils import tracing as ptracing
 from reporter_tpu_torch.utils.metrics import MetricsRegistry
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -24,10 +24,11 @@ from reporter_tpu.netgen.synthetic import generate_city
 from reporter_tpu.netgen.traces import synthesize_fleet
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.device import resolve_device
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -15,11 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.netgen.synthetic import generate_city
 from reporter_tpu_torch.netgen.traces import synthesize_fleet
 from reporter_tpu_torch.ops import dense_candidates as dc
 from reporter_tpu_torch.tiles.compiler import compile_network
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -21,6 +21,8 @@ from reporter_tpu.netgen import network as jnet
 from reporter_tpu.netgen import synthetic as jsyn
 from reporter_tpu.service.app import make_app as j_make_app
 from reporter_tpu.tiles.compiler import compile_network as j_compile
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import CompilerParams, Config, MatcherParams
 from reporter_tpu_torch.geometry import xy_to_lonlat
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
@@ -30,7 +32,6 @@ from reporter_tpu_torch.netgen.traces import synthesize_fleet
 from reporter_tpu_torch.service.app import BadRequest, make_app
 from reporter_tpu_torch.tiles.compiler import compile_network
 from reporter_tpu_torch.tiles.tileset import ARRAY_FIELDS
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -21,6 +21,8 @@ from reporter_tpu.netgen.synthetic import generate_city
 from reporter_tpu.netgen.traces import synthesize_fleet
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.matcher import native_prepare as npp
 from reporter_tpu_torch.matcher import segments
 from reporter_tpu_torch.matcher.api import (MatchBatch, SegmentMatcher,
@@ -32,7 +34,6 @@ from reporter_tpu_torch.matcher.native_walk import (NativeWalker,
                                                     record_bounds)
 from reporter_tpu_torch.native import build as native_build
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

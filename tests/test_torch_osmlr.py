@@ -23,6 +23,8 @@ from reporter_tpu.tiles.osmlr_tiles import read_osmlr_tile as j_read_osmlr_tile
 from reporter_tpu.tiles.osmlr_tiles import \
     write_osmlr_tile as j_write_osmlr_tile
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS as J_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate)
 from reporter_tpu_torch.tiles.osmlr_export import (export_osmlr_geojson,
                                                    osmlr_features)
 from reporter_tpu_torch.tiles.osmlr_tiles import (_COORD_SCALE,

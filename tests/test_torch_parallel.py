@@ -57,6 +57,8 @@ from reporter_tpu.streaming.durable_columnar import (
     DurableColumnarIngestQueue as JDurableColumnarIngestQueue)
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.backfill import BackfillConfig, BackfillEngine
 from reporter_tpu_torch.config import (Config, MatcherParams, ServiceConfig,
                                        StreamingConfig)
@@ -79,7 +81,6 @@ from reporter_tpu_torch.service.router import make_router
 from reporter_tpu_torch.streaming import StreamPipeline
 from reporter_tpu_torch.streaming.columnar import ColumnarStreamPipeline
 from reporter_tpu_torch.tiles.tileset import TileSet, tables_from_numpy
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

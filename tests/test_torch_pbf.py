@@ -17,6 +17,8 @@ import pytest
 
 from reporter_tpu.netgen import pbf as jpbf
 from reporter_tpu.netgen.osm_xml import xml_elements
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate)
 from reporter_tpu_torch.config import CompilerParams
 from reporter_tpu_torch.netgen import pbf
 from reporter_tpu_torch.tiles.compiler import compile_network

@@ -23,6 +23,8 @@ from reporter_tpu.tiles.reach_audit import audit_reach as j_audit_reach
 from reporter_tpu.tiles.reach_audit import \
     node_coverage_radii as j_node_coverage_radii
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS as J_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate)
 from reporter_tpu_torch.tiles.reach_audit import (audit_reach,
                                                   node_coverage_radii)
 from reporter_tpu_torch.tiles.tileset import TileSet

@@ -42,6 +42,9 @@ from reporter_tpu.streaming.columnar import (
     ColumnarStreamPipeline as JColumnarStreamPipeline)
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads,
+    fresh_link_sampler)
 from reporter_tpu_torch import faults
 from reporter_tpu_torch.config import (Config, MatcherParams, ServiceConfig,
                                        StreamingConfig)
@@ -51,9 +54,11 @@ from reporter_tpu_torch.service.app import make_app
 from reporter_tpu_torch.streaming.columnar import (ColumnarIngestQueue,
                                                    ColumnarStreamPipeline)
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("few_torch_threads")
+# a dispatch timeout notes "dead" on the process link sampler: each test
+# scopes its own (the port gate holds the sampler's mood)
+pytestmark = pytest.mark.usefixtures("few_torch_threads",
+                                     "fresh_link_sampler")
 
 
 @pytest.fixture(scope="module")

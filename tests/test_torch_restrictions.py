@@ -25,6 +25,9 @@ from reporter_tpu.netgen import synthetic as jsyn
 from reporter_tpu.netgen.traces import synthesize_fleet as j_fleet
 from reporter_tpu.tiles import reach as jreach
 from reporter_tpu.tiles.compiler import compile_network as j_compile
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads,
+    fresh_link_sampler)
 from reporter_tpu_torch.config import CompilerParams, Config
 from reporter_tpu_torch.matcher import cpu_reference as ref
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace, walk_python
@@ -35,7 +38,6 @@ from reporter_tpu_torch.netgen.traces import synthesize_fleet
 from reporter_tpu_torch.tiles import reach
 from reporter_tpu_torch.tiles.compiler import compile_network
 from reporter_tpu_torch.tiles.tileset import ARRAY_FIELDS
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
@@ -304,7 +306,7 @@ def test_c_walk_equals_python_walk_on_private_rows(tiles):
     assert private > 0
 
 
-def test_watchdog_fallback_and_audit_honour_bans():
+def test_watchdog_fallback_and_audit_honour_bans(fresh_link_sampler):
     """The dispatch watchdog's reference_cpu fallback and the shadow audit
     reach the oracle through edge_dijkstra, so on a restricted tile they
     search edge space with no change of their own: the fallback's records

@@ -38,12 +38,13 @@ from reporter_tpu.netgen.traces import synthesize_probe
 from reporter_tpu.service.router import make_router as jmake_router
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import Config, ServiceConfig
 from reporter_tpu_torch.service.app import BadRequest
 from reporter_tpu_torch.service.router import (MetroRouter, UnroutableTrace,
                                                make_router)
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -33,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, fresh_link_sampler)
 from reporter_tpu_torch.config import CompilerParams, Config, ServiceConfig
 from reporter_tpu_torch.matcher import api as matcher_api
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
@@ -536,26 +538,6 @@ def test_concurrent_match_many_sums_sweep_launches_on_card(tiles,
     assert launches[("sub", 8)] == 5 * len(m.plan_submit(
         _fleet_traces(tiles))[1])
     assert sum(launches.values()) == launches[("sub", 8)]
-
-
-@pytest.fixture
-def fresh_link_sampler():
-    """A process link-health sampler of this test's own: the sampler is
-    process-global, and a dispatch timeout another test of the same
-    worker process noted leaves its recorded mood dead."""
-    from reporter_tpu_torch.utils import linkhealth
-
-    with linkhealth._global_lock:
-        prev = linkhealth._global
-    linkhealth.configure(None)
-    try:
-        yield
-    finally:
-        with linkhealth._global_lock:
-            mine = linkhealth._global
-        if mine is not None:
-            mine.stop()
-        linkhealth.configure(prev)
 
 
 class TestHealthSurface:

@@ -35,6 +35,8 @@ from reporter_tpu.service.app import make_app as jmake_app
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
 from reporter_tpu.tiles.tileset import TileSet as JTileSet
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import (CompilerParams, Config, MatcherParams,
                                        ServiceConfig)
 from reporter_tpu_torch.matcher.api import SegmentMatcher
@@ -44,7 +46,6 @@ from reporter_tpu_torch.service.cache import PartialTraceCache
 from reporter_tpu_torch.service.datastore import DatastorePublisher
 from reporter_tpu_torch.service.reports import build_reports
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -31,12 +31,13 @@ from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
 from reporter_tpu.utils import eventlog as jeventlog
 from reporter_tpu.utils import metrics as jmetrics
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import Config, ServiceConfig
 from reporter_tpu_torch.obs import slo
 from reporter_tpu_torch.service.app import make_app
 from reporter_tpu_torch.tiles.tileset import TileSet
 from reporter_tpu_torch.utils import eventlog, metrics
-from _torch_support import few_torch_threads  # noqa: F401
 
 WALL = 1_700_000_000.25     # the ledger's wall clock, pinned
 

@@ -39,6 +39,8 @@ from reporter_tpu.streaming.durable_queue import (
     DurableIngestQueue as JDurableIngestQueue)
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch import faults
 from reporter_tpu_torch.config import (Config, ServiceConfig,
                                        StreamingConfig)
@@ -55,7 +57,6 @@ from reporter_tpu_torch.streaming.queue import partition_of
 from reporter_tpu_torch.streaming.state import save_checkpoint
 from reporter_tpu_torch.tiles.tileset import TileSet
 from reporter_tpu_torch.utils import tracing
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

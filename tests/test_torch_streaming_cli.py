@@ -27,6 +27,8 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import pytest
 
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import CompilerParams, Config, ServiceConfig
 from reporter_tpu_torch.netgen.synthetic import generate_city
 from reporter_tpu_torch.netgen.traces import synthesize_fleet
@@ -34,7 +36,6 @@ from reporter_tpu_torch.streaming import (ColumnarStreamPipeline,
                                           DurableIngestQueue, StreamPipeline)
 from reporter_tpu_torch.streaming.__main__ import main
 from reporter_tpu_torch.tiles.compiler import compile_network
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -41,6 +41,8 @@ from reporter_tpu.streaming import (
 from reporter_tpu.streaming import pack_records as jpack_records
 from reporter_tpu.tiles.compiler import compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch import faults
 from reporter_tpu_torch.config import (Config, ServiceConfig,
                                        StreamingConfig)
@@ -61,7 +63,6 @@ from reporter_tpu_torch.streaming.columnar import (ProbeColumns,
                                                    _WaveController,
                                                    build_report_columns)
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

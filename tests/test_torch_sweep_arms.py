@@ -23,9 +23,10 @@ from reporter_tpu.ops import dense_candidates as jdc
 from reporter_tpu.netgen.network import RoadNetwork, Way
 from reporter_tpu.netgen.synthetic import generate_city
 from reporter_tpu.tiles.compiler import compile_network
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.geometry import xy_to_lonlat
 from reporter_tpu_torch.ops import dense_candidates as dc
-from _torch_support import few_torch_threads  # noqa: F401
 from test_torch_dense_candidates import _assert_close, _boundary_points
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")

@@ -19,11 +19,12 @@ import pytest
 
 from reporter_tpu.tiles.__main__ import main as j_main
 from reporter_tpu.tiles.tileset import TileSet as JTileSet
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.tiles.__main__ import main
 from reporter_tpu_torch.tiles.capacity import dense_staged_bytes
 from reporter_tpu_torch.tiles.osmlr_tiles import read_osmlr_tile
 from reporter_tpu_torch.tiles.tileset import ARRAY_FIELDS, TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -9,6 +9,8 @@ from reporter_tpu.config import CompilerParams as JCompilerParams
 from reporter_tpu.netgen.synthetic import generate_city as j_generate_city
 from reporter_tpu.ops.dense_candidates import build_seg_pack as j_build_seg_pack
 from reporter_tpu.tiles.compiler import compile_network as j_compile_network
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import CompilerParams
 from reporter_tpu_torch.netgen.network import RoadNetwork, Way
 from reporter_tpu_torch.netgen.synthetic import generate_city
@@ -16,7 +18,6 @@ from reporter_tpu_torch.ops.dense_candidates import build_seg_pack
 from reporter_tpu_torch.tiles.compiler import compile_network
 from reporter_tpu_torch.tiles.tileset import (ARRAY_FIELDS, TileSet,
                                               tables_from_numpy)
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

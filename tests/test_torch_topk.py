@@ -28,13 +28,14 @@ from reporter_tpu.ops.candidates import CandidateSet as JCandidateSet
 from reporter_tpu.ops.match import batch_candidates as j_batch_candidates
 from reporter_tpu.tiles.compiler import compile_network as j_compile_network
 from reporter_tpu.tiles.tileset import _ARRAY_FIELDS as J_FIELDS
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
 from reporter_tpu_torch.config import Config, MatcherParams
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace, _bucket_len
 from reporter_tpu_torch.ops import hmm
 from reporter_tpu_torch.ops.dense_candidates import BIG, CandidateSet
 from reporter_tpu_torch.ops.match import batch_candidates
 from reporter_tpu_torch.tiles.tileset import TileSet
-from _torch_support import few_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 

@@ -11,6 +11,8 @@ import pytest
 
 from reporter_tpu import faults as jfaults
 from reporter_tpu.utils import watchdog as jwatchdog
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate)
 from reporter_tpu_torch import faults
 from reporter_tpu_torch.utils import watchdog
 
