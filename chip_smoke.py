@@ -380,7 +380,18 @@ the native host half against its Python forms, in phases:
                 trace under _chip_scratch/profile): the trace's size, the
                 CUDA launches and kernels in the window, its
                 sweep_exact_kernel kernel events and host-side spans;
- 13. summary  — the kernels JSON line (every arm at every K, the sources,
+ 13. tooling  — [api] (after [device]): every name of the port's
+                top-level API (reporter_tpu_torch._LAZY, the JAX
+                package's 17 and FleetResidency) resolves to an object of
+                that name; [examples] examples/torch_quickstart.py on the
+                card as a child (started beside the gates' children): its
+                markers and seconds; [bench_delta] (last) this run's own
+                phase lines through analysis/bench_delta.py: every numeric
+                field classifies or is neutral (none skipped in silence,
+                the two **fields lines [mesh:dp] and [build:exact_shape]
+                included), and the run compared with itself finds no
+                regression;
+ 14. summary  — the kernels JSON line (every arm at every K, the sources,
                 the host library among them; the topology's workers'
                 launches by member; the sf:topk, sf:grid, fleet and mesh:*
                 windows in every entry's launches_by_path), the card line,
@@ -556,11 +567,14 @@ PLAN_ARMS = {"block": "block", "subcull": "sub", "subcull+bf16": "sub_bf16",
 
 
 T0 = time.perf_counter()      # the run's start: each phase line's at_s
+LINES: "list[str]" = []       # every phase line printed ([bench_delta])
 
 
 def phase(tag: str, card: str, **fields) -> None:
     fields["at_s"] = round(time.perf_counter() - T0, 3)
-    print(f"[{tag}] [{card}] " + json.dumps(fields), flush=True)
+    line = f"[{tag}] [{card}] " + json.dumps(fields)
+    LINES.append(line)
+    print(line, flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -836,6 +850,9 @@ def kernel_phase(card, tab, pts, radius, k, dc, build, metro, tag="kernel",
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         arms[arm] = rec
+        # lint: allow[bench-coverage] 2026-10-18 the kernel record's keys
+        # (rec, with kernel_gates' fields); [bench_delta] reads the printed
+        # line
         phase(tag if tag != "kernel" else f"kernel:{arm}", card, metro=metro,
               arm=arm, k=k, points=n, prepass_ms=prepass_ms,
               mean_hit_blocks=float(nhits.float().mean()), **rec)
@@ -1011,6 +1028,9 @@ def main_phase(card, ts, fleet, dc, win, metro, MatcherParams,
         if not n_req:
             raise SystemExit("the request matched no segment")
     n_rec = recs.n_records
+    # lint: allow[bench-coverage] 2026-10-18 timed_batches' fields
+    # (batch_ms_*, stage medians, probes_per_s); [bench_delta] reads the
+    # printed line
     phase("main", card, metro=metro, traces=len(traces),
           probes=sum(len(t.xy) for t in traces), tuned_arm=tuned,
           records=n_rec, pinned_batch_ms=pinned_ms,
@@ -1189,6 +1209,8 @@ def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
                    if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels_run)
     top = sorted(kernels_run, key=lambda e: -e.self_device_time_total)
+    # lint: allow[bench-coverage] 2026-10-18 one <stage>_ms field per timed
+    # stage; [bench_delta] reads the printed line
     phase("breakdown", card, slice_traces=len(ps.ws), bucket=ps.b,
           mode=ps.mode, candidates_ms_by_arm=cand_arm_ms,
           calibration_ms_by_arm_128x64={PLAN_ARMS[lab.split("@")[0]]: v
@@ -1718,6 +1740,8 @@ def stream_phase(card, ts, fleet, dc, win, cache, device="cuda"):
     _close_sink(sink)
     reports = _sorted_reports(_report_rows(bodies))
     hist, qhist = pipe.hist.snapshot(), pipe.qhist.snapshot()
+    # lint: allow[bench-coverage] 2026-10-18 _stream_fields' keys;
+    # [bench_delta] reads the printed line
     phase("stream", card, metro="sf", device=device,
           tuned_instance=list(tuned), construct_s=construct_s,
           calibration_launches=_launches(cal),
@@ -1814,6 +1838,8 @@ def stream_columnar_phase(card, ts, dc, win, ref, device="cuda"):
             flush_wave_ms_p50=statistics.median(wave_ms) if wave_ms else None,
             flush_wave_ms_max=max(wave_ms) if wave_ms else None)
         launches[depth] = dict(counts)
+        # lint: allow[bench-coverage] 2026-10-18 _stream_fields' keys;
+        # [bench_delta] reads the printed line
         phase("stream:columnar", card, metro="sf", device=device,
               pipeline_depth=depth, **fields,
               waves=pipe.waves_completed,
@@ -2626,6 +2652,8 @@ def topo_scale_phase(card, st):
                                   "calibration_launches") for m in members})
         card_use = sampler.window(t_ready, t_exit)
         out[kind, n] = rps = st["records"] / (t_exit - t_ready)
+        # lint: allow[bench-coverage] 2026-10-18 the card sampler's window
+        # (busy and memory); [bench_delta] reads the printed line
         phase("topo:scale", card, metro="sf", kind=kind, workers=n,
               device=st["device"], records=st["records"],
               records_per_s=rps, window_s=t_exit - t_ready,
@@ -3025,6 +3053,8 @@ def audit_phase(card, m, traces, dc, win):
         audit.configure(prev)
         a.stop()
         off.stop()
+    # lint: allow[bench-coverage] 2026-10-18 the auditor's stats;
+    # [bench_delta] reads the printed line
     phase("audit", card, metro="sf", batches=AUDIT_BATCHES,
           batch_traces=AUDIT_BATCH, serve_s_auditor_off=off_s,
           serve_s=serve_s, drained=drained, **st, host_cpu=host_cpu(),
@@ -3122,6 +3152,8 @@ def backfill_phase(card, ts, fleet, m, dc, win, device="cuda"):
 
     base, st, counts, busy = run("default", col_dir, shadow=True)
     identical = base.shadow_identical()
+    # lint: allow[bench-coverage] 2026-10-18 the engine's stats;
+    # [bench_delta] reads the printed line
     phase("backfill", card, metro="sf", arm="default",
           spool_seconds={"columnar": col_s, "records": rec_s},
           config=dataclasses.asdict(BackfillConfig()),
@@ -3932,6 +3964,8 @@ def restrict_phase(card, dc, win, cache, base_ts, base_traces):
     cpu_ok = json_records(cpu_recs) == json_records(recs[:REFERENCE_TRACES])
     t0 = time.perf_counter()
     moves = chain_transitions(ts, traces, m._decode_many(traces))
+    # lint: allow[bench-coverage] 2026-10-18 chain_transitions' tallies;
+    # [bench_delta] reads the printed line
     phase("restrict", card, metro=ts.name, card_vs_cpu_records_equal=cpu_ok,
           traces_checked=len(small), check_s=time.perf_counter() - t0,
           **moves)
@@ -4311,6 +4345,8 @@ def grid_phase(card, ts, pts, m, traces, recs, dc, win):
     cpu = SegmentMatcher(ts, p, device="cpu").match_many(
         traces[:REFERENCE_TRACES])
     cpu_ok = json_records(cpu) == got[:REFERENCE_TRACES]
+    # lint: allow[bench-coverage] 2026-10-18 timed_batches' fields;
+    # [bench_delta] reads the printed line
     phase("grid", card, metro="sf", build_s=build_s,
           cells=int(ts.grid.shape[0]), capacity=int(ts.grid.shape[1]),
           cell_pack_bytes=int(gm.tables["cell_pack"].numel() * 4),
@@ -4537,6 +4573,8 @@ def reach_audit_phase(card, tiles):
                                  seed=0)
         t0 = time.perf_counter()
         audit = audit_reach(ts, [p.xy for p in fleet])
+        # lint: allow[bench-coverage] 2026-10-18 ReachAudit.summary()'s keys;
+        # [bench_delta] reads the printed line
         phase("reach_audit", card, metro=name, traces=REACH_AUDIT_TRACES,
               seconds=time.perf_counter() - t0, host_cpu=host_cpu(),
               **audit.summary())
@@ -5135,10 +5173,14 @@ def mesh_dp_phase(card, ts, traces, recs, m, fields, dc, win):
                                  "dispatch_ms", "device_ms", "walk_ms",
                                  "probes_per_s")}}
         if not (rec_eq and wire_eq):
+            # lint: allow[bench-coverage] 2026-10-18 one record per mesh,
+            # keyed by its name; [bench_delta] reads the printed line
             phase("mesh:dp", card, **out)
             raise SystemExit(f"[mesh:dp] {tag}: records or wire differ from "
                              "the single-device matcher's")
     tuned_slices = m.plan_submit(traces)[1]
+    # lint: allow[bench-coverage] 2026-10-18 one record per mesh, keyed by
+    # its name; [bench_delta] reads the printed line
     phase("mesh:dp", card, metro="sf", traces=len(traces),
           wire_traces=MESH_WIRE_TRACES, single_batch_ms=fields[
               "batch_ms_median"], single_slices=len(tuned_slices), **out)
@@ -5288,6 +5330,8 @@ def mesh_metro_phase(card, metros, dc, win):
                          "matched_share": float(matched.mean()),
                          "osmlr_rows": stacked.num_osmlr[i],
                          "observations": int(h.sum())}
+    # lint: allow[bench-coverage] 2026-10-18 one record per metro, keyed by
+    # its name; [bench_delta] reads the printed line
     phase("mesh:metro", card, metros=list(stacked.names),
           mesh=dict(mesh.shape), traces_per_metro=MESH_METRO_TRACES,
           arm=f"{inst[0]}@k{inst[1]}", osmlr_pad=stacked.osmlr_pad,
@@ -5599,6 +5643,102 @@ def profile_phase(card, m, traces):
                          "kernels")
 
 
+def api_phase(card):
+    """[api]: every name of the port's top-level API resolves, to an
+    object of that name from the port's own modules."""
+    import reporter_tpu_torch
+
+    t0 = time.perf_counter()
+    bad = {}
+    for name in sorted(reporter_tpu_torch._LAZY):
+        obj = getattr(reporter_tpu_torch, name)
+        mod = getattr(obj, "__module__", "") or ""
+        if obj.__name__ != name or not mod.startswith("reporter_tpu_torch."):
+            bad[name] = f"{mod}.{obj.__name__}"
+    jaxish = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "reporter_tpu"))
+    phase("api", card, names=len(reporter_tpu_torch._LAZY), wrong=bad,
+          jax_modules=jaxish, seconds=time.perf_counter() - t0)
+    if bad or jaxish or len(reporter_tpu_torch._LAZY) != API_NAMES:
+        raise SystemExit(f"[api] names that do not resolve to the port's "
+                         f"counterpart: {bad}; jax modules: {jaxish}")
+
+
+API_NAMES = 18                # the JAX package's 17 and FleetResidency
+EXAMPLE = os.path.join("examples", "torch_quickstart.py")
+EXAMPLE_MARKERS = ("POST /report", "GET /stats", "segments",
+                   "matcher on cuda")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def examples_start():
+    """[examples]' child, the port's quickstart on the card, and a thread
+    that waits for it (its exit time is the child's own seconds)."""
+    t0 = time.perf_counter()
+    proc = _child((EXAMPLE, "--device", "cuda"))
+    done = {}
+
+    def wait():
+        try:
+            done["out"] = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        done["seconds"] = time.perf_counter() - t0
+
+    waiter = threading.Thread(target=wait, name="examples-wait",
+                              daemon=True)
+    waiter.start()
+    return proc, waiter, done
+
+
+def examples_phase(card, child):
+    """[examples]: the quickstart exited 0 with its markers."""
+    proc, waiter, done = child
+    waiter.join(EXAMPLE_TIMEOUT_S + 30)
+    if "out" not in done:
+        raise SystemExit(f"[examples] {EXAMPLE} ran past "
+                         f"{EXAMPLE_TIMEOUT_S} s")
+    out, err = done["out"]
+    missing = [m for m in EXAMPLE_MARKERS if m not in out]
+    phase("examples", card, example=EXAMPLE, device="cuda",
+          returncode=proc.returncode, missing_markers=missing,
+          stdout_lines=len(out.splitlines()), seconds=done["seconds"])
+    if proc.returncode or missing:
+        raise SystemExit(f"[examples] {EXAMPLE} exited {proc.returncode}, "
+                         f"markers missing {missing}:\n{err[-3000:]}")
+
+
+# the two lines whose fields come from a dict built at run time
+STAR_PHASES = ("mesh:dp", "build:exact_shape")
+
+
+def bench_delta_phase(card):
+    """[bench_delta]: this run's phase lines through the port's
+    regression sentinel. Every numeric field must classify or be neutral
+    (the runtime twin of the lint's bench-coverage rule), the two
+    **fields lines among them, and the run compared with itself must
+    find no regression and no drift."""
+    from reporter_tpu_torch.analysis import bench_delta
+
+    t0 = time.perf_counter()
+    log = bench_delta.parse_log("\n".join(LINES))
+    missing = bench_delta.unclassified_fields(log)
+    self_diff = bench_delta.compare(log, log)
+    star = {tag: sum(1 for t in log["tags"].values() if t == tag)
+            for tag in STAR_PHASES}
+    phase("bench_delta", card, lines=log["lines"], keys=len(log["phases"]),
+          compared=self_diff["compared"], unclassified=missing,
+          star_phase_lines=star, link=self_diff["link"]["new"],
+          seconds=time.perf_counter() - t0)
+    if missing or not all(star.values()) or self_diff["regressions"] \
+            or self_diff["link_attributable"] or self_diff["card_drift"] \
+            or self_diff["only_old_keys"] or self_diff["only_new_keys"] \
+            or not self_diff["compared"]:
+        raise SystemExit(f"[bench_delta] numeric fields neither classified "
+                         f"nor neutral: {missing}; **fields lines {star}")
+
+
 def _tail(path, n=30):
     with open(path) as f:
         return "".join(f.readlines()[-n:])
@@ -5631,6 +5771,7 @@ def main() -> int:
     print(card, flush=True)
     phase("device", card, torch=torch.__version__, cuda=torch.version.cuda,
           name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    api_phase(card)
 
     # ---- 2. build: every K's nvcc and the host library's g++ at once ------
     t0 = time.perf_counter()
@@ -5655,6 +5796,8 @@ def main() -> int:
             sh = build.exact_shape(code, k)
             sh["grid_at_512_chunks"] = min(512, sh["ctas_per_sm"] * sh["sms"])
             shapes[f"{arm}@k{k}"] = sh
+    # lint: allow[bench-coverage] 2026-10-18 one launch shape per arm and K
+    # (kernels/build.exact_shape); [bench_delta] reads the printed line
     phase("build:exact_shape", card, **shapes)
 
     # ---- 3. tiles ---------------------------------------------------------
@@ -5793,9 +5936,12 @@ def main() -> int:
         t_gates = time.perf_counter()
         lockdep_proc = lockdep_start(cache)
         analysis_proc = _child(ANALYSIS_ARGV)
+        examples = examples_start()
         lockdep_phase(card, lockdep_proc, t_gates)
         analysis_phase(card, analysis_proc, t_gates)
+        examples_phase(card, examples)
         phase("gates", card, seconds=time.perf_counter() - t_gates)
+    bench_delta_phase(card)
 
     # ---- 12. summary -------------------------------------------------------
     kernels = []

@@ -18,6 +18,10 @@ Counterpart: reporter_tpu/analysis/ (imports nothing of it):
                          layout x path, and the scatters.
   compile_manifest       the CUDA sweep's instances, launch shapes and
                          ptxas budgets, and the HBM bound.
+  bench_delta            the regression sentinel over two chip_smoke.py
+                         logs (``python -m reporter_tpu_torch.analysis.
+                         bench_delta old.log new.log``) and the lint's
+                         bench-coverage rule.
 
 ``python -m reporter_tpu_torch.analysis`` runs them (``--help``).
 """

@@ -44,6 +44,14 @@ findings, and every waiver to carry a justification: an empty
   dead-private    private module-level functions, classes and constants
                   referenced nowhere (word occurrence across the targets
                   and tests/, outside the definition's own lines).
+  bench-coverage  every field chip_smoke.py's ``phase(...)`` calls print
+                  that may be a number classifies for analysis/
+                  bench_delta.py or is on its neutral list, and every
+                  neutral entry names a field still written (drift both
+                  ways); a ``**`` argument whose keys the AST cannot read
+                  is a finding (the runtime twin: chip_smoke.py's
+                  ``[bench_delta]``). The JAX rule reads the committed
+                  BENCH_DETAIL captures; the port commits none.
 
 Not ported, with the reason:
 
@@ -51,8 +59,6 @@ Not ported, with the reason:
                   ``jax.jit`` (each new shape is a fresh trace). The port
                   has no jit: a new shape costs PyTorch nothing, and the
                   CUDA sweep has no launch-width rung. No torch meaning.
-  bench-coverage  classifies BENCH_DETAIL leaves for bench_delta.py; the
-                  port has no bench_delta yet (ROADMAP item 8c).
 
 The device-side twin, the aten-level audit of every wire entry, is
 analysis/device_contract.py (``python -m reporter_tpu_torch.analysis
@@ -77,8 +83,6 @@ ABSENT_RULES = {
     "jit-shape-len": "no jax.jit in the port: a new tensor shape is not a "
                      "new trace, and the CUDA sweep has no launch-width "
                      "rung",
-    "bench-coverage": "depends on analysis/bench_delta.py, not ported yet "
-                      "(ROADMAP item 8c)",
 }
 
 _ENV_NAME = re.compile(r"^(RTPU|REPORTER)_[A-Z0-9_]+$")
@@ -653,6 +657,15 @@ def _rule_env_table(mods: "list[_Module]",
     return out
 
 
+def _rule_bench_coverage(root: str) -> "list[Finding]":
+    # imported here: the package imports this module, and ``python -m
+    # reporter_tpu_torch.analysis.bench_delta`` must find bench_delta not
+    # yet loaded
+    from reporter_tpu_torch.analysis.bench_delta import coverage_findings
+
+    return coverage_findings(root)
+
+
 # ---------------------------------------------------------------------------
 # runner
 
@@ -664,7 +677,8 @@ RULES = {
     "dead-import": _rule_dead_import,
 }
 # the cross-file rules, run by run_lint over the whole target set
-CROSS_RULES = ("dead-private", "metric-inventory", "env-table")
+CROSS_RULES = ("dead-private", "metric-inventory", "env-table",
+               "bench-coverage")
 
 
 def iter_targets(root: str = REPO_ROOT) -> "list[str]":
@@ -739,6 +753,7 @@ def run_lint(root: str = REPO_ROOT,
                                                    _usage_sources(root)),
         "metric-inventory": lambda: _rule_metric_inventory(mods, readme),
         "env-table": lambda: _rule_env_table(mods, readme),
+        "bench-coverage": lambda: _rule_bench_coverage(root),
     }
     for rid in CROSS_RULES:
         if rules is not None and rid not in rules:

@@ -15,6 +15,15 @@ thread's wait on the card. The library is named by a hash of its sources
 and the flags, so an edited source rebuilds. The build is warning-clean
 (``-Wall -Wextra -Werror``). A missing ``g++`` or a failed build raises;
 nothing falls back to the Python forms.
+
+Two instrumented flavors, as the JAX package has
+(reporter_tpu/native/build.py): ``"asan"`` (AddressSanitizer and
+UndefinedBehaviorSanitizer) and ``"tsan"`` (ThreadSanitizer), each built
+under its own content-hashed name (``librtt_sanitized_<flavor>_*.so``).
+An instrumented library loads only into a process started with its
+runtime preloaded (``LD_PRELOAD``), so ``load(flavor)`` is for such a
+child (tests/test_torch_native_sanitizers.py); ``load()`` caches the
+default flavor alone.
 """
 
 from __future__ import annotations
@@ -34,6 +43,16 @@ _BUILD_DIR = _HERE.parent / "_build"
 SOURCES = (_HERE / "prepare.cc", _HERE / "walker.cc", _HERE / "reach.cc")
 FLAGS = ("-O3", "-Wall", "-Wextra", "-Werror", "-std=c++17", "-shared",
          "-fPIC")
+# the sanitizer flavors: the JAX package's flags (no -Werror there, so
+# toolchain notes are not mistaken for races) plus the library's own
+_COMMON = ("-std=c++17", "-shared", "-fPIC")
+FLAVOR_FLAGS = {
+    None: FLAGS,
+    "asan": ("-fsanitize=address,undefined", "-fno-omit-frame-pointer",
+             "-g", "-O1", *_COMMON),
+    "tsan": ("-fsanitize=thread", "-fno-omit-frame-pointer", "-g", "-O1",
+             *_COMMON),
+}
 
 _lock = threading.Lock()
 _loaded: "ctypes.CDLL | None" = None
@@ -49,13 +68,20 @@ def _compiler() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the sources into the build directory, if not already there,
-    and return the library's path."""
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def build(flavor: "str | None" = None) -> Path:
+    """Compile the sources with ``flavor``'s flags (None: the default
+    library) into the build directory, if not already there, and return
+    the library's path."""
+    if flavor not in FLAVOR_FLAGS:
+        raise ValueError(f"unknown flavor {flavor!r}: one of "
+                         f"{sorted(k for k in FLAVOR_FLAGS if k)} or None")
+    flags = FLAVOR_FLAGS[flavor]
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in SOURCES:
         h.update(f.name.encode() + b"\0" + f.read_bytes())
-    out = _BUILD_DIR / f"librtt_native_{h.hexdigest()[:16]}.so"
+    stem = ("librtt_native" if flavor is None
+            else f"librtt_sanitized_{flavor}")
+    out = _BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     cxx = _compiler()
@@ -64,20 +90,28 @@ def build() -> Path:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [cxx, *FLAGS, "-o", tmp, *map(str, SOURCES), "-lpthread"],
+        [cxx, *flags, "-o", tmp, *map(str, SOURCES), "-lpthread"],
         capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"g++ failed on the host library "
-                           f"(rc {proc.returncode}):\n{proc.stderr}")
+                           f"({flavor or 'default'} flavor, rc "
+                           f"{proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    BUILD_LOG["seconds"] = time.perf_counter() - t0
+    if flavor is None:
+        BUILD_LOG["seconds"] = time.perf_counter() - t0
     return out
 
 
-def load() -> ctypes.CDLL:
-    """Build (if needed), load and declare the library; cached."""
+def load(flavor: "str | None" = None) -> ctypes.CDLL:
+    """Build (if needed), load and declare the library. The default
+    flavor is cached; an instrumented one is loaded anew on each call and
+    needs its sanitizer runtime preloaded in this process."""
     global _loaded
+    if flavor is not None:
+        lib = ctypes.CDLL(str(build(flavor)))
+        _declare(lib)
+        return lib
     with _lock:
         if _loaded is None:
             lib = ctypes.CDLL(str(build()))

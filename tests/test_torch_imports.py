@@ -1,6 +1,7 @@
 """The port's import rule: no module of reporter_tpu_torch, and not
-chip_smoke.py or scripts/ (which run on the machine with the card, where
-there is no JAX), imports ``jax`` (or ``jaxlib``, ``jax.*``) or anything of the JAX
+chip_smoke.py, scripts/ or the port's examples (examples/torch_*.py),
+which run on the machine with the card, where there is no JAX, imports
+``jax`` (or ``jaxlib``, ``jax.*``) or anything of the JAX
 package ``reporter_tpu``. Each file is parsed (``ast``), not imported, so
 an import inside a function counts too."""
 
@@ -19,6 +20,9 @@ def _files():
     scripts = os.path.join(ROOT, "scripts")
     out += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
             if n.endswith(".py")]
+    examples = os.path.join(ROOT, "examples")
+    out += [os.path.join(examples, n) for n in sorted(os.listdir(examples))
+            if n.startswith("torch_") and n.endswith(".py")]
     for d, _, names in os.walk(os.path.join(ROOT, "reporter_tpu_torch")):
         out += [os.path.join(d, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(out)
@@ -167,6 +171,14 @@ def test_the_analysis_package_and_profiling_are_checked(module):
     if module.endswith("analysis"):
         for mod in ("lint_rules", "concurrency_contract", "global_state",
                     "slo_contract", "device_contract", "compile_manifest",
-                    "__main__"):
+                    "bench_delta", "__main__"):
             assert os.path.join(rel, f"{mod}.py") in names
     test_new_modules_import_without_jax(module)
+
+
+def test_the_examples_are_checked():
+    """The port's four examples are among the files held to the rule."""
+    names = {os.path.relpath(p, ROOT) for p in _files()}
+    for stem in ("quickstart", "streaming_demo", "fleet", "multichip"):
+        assert os.path.join("examples", f"torch_{stem}.py") in names
+    assert os.path.join("examples", "quickstart.py") not in names

@@ -10,6 +10,7 @@ detector and its lock contract, both directions:
 from __future__ import annotations
 
 import ast
+import os
 import re
 
 import pytest
@@ -62,8 +63,7 @@ def test_the_contract_validates():
 
 
 def test_the_absent_rules_are_listed_not_faked():
-    assert set(lint_rules.ABSENT_RULES) == {"jit-shape-len",
-                                            "bench-coverage"}
+    assert set(lint_rules.ABSENT_RULES) == {"jit-shape-len"}
     assert not set(lint_rules.ABSENT_RULES) & (
         set(lint_rules.RULES) | set(lint_rules.CROSS_RULES))
 
@@ -250,6 +250,90 @@ def test_metric_inventory_passes_documented_registrations(tmp_path):
 def test_the_readme_blocks_are_clean(rule):
     bad = [f for f in _repo_findings() if f.rule == rule and not f.waived]
     assert not bad, "\n".join(map(str, bad))
+
+
+# ---------------------------------------------------------------------------
+# bench-coverage: chip_smoke.py's printed fields against bench_delta.py
+
+def _coverage(tmp_path, script: str):
+    from reporter_tpu_torch.analysis.bench_delta import coverage_findings
+
+    (tmp_path / "chip_smoke.py").write_text(script)
+    return coverage_findings(root=str(tmp_path))
+
+
+def _forward(found):
+    return [f for f in found if "dead row" not in f.message]
+
+
+_SMOKE = ("def phase(tag, card, **fields):\n    pass\n\n"
+          "def run(card, n, m):\n")
+
+
+def test_bench_coverage_catches_an_unclassified_field(tmp_path):
+    found = _forward(_coverage(
+        tmp_path, _SMOKE + "    phase('x', card, mystery_metric_xyz=n, "
+                           "traces=4)\n"))
+    assert [f.rule for f in found] == ["bench-coverage"]
+    assert "'mystery_metric_xyz'" in found[0].message
+    assert found[0].path == "chip_smoke.py" and found[0].line == 5
+
+
+def test_bench_coverage_passes_classified_neutral_and_non_numeric(tmp_path):
+    found = _forward(_coverage(tmp_path, _SMOKE + (
+        "    ok = n == m\n"
+        "    phase('x', card, batch_ms=n, records_per_s=m, traces=4,\n"
+        "          records_equal=ok, arm=f'{n}', stage_ms={'walk': n},\n"
+        "          checks={'anything': n}, flag=not n, label='sf')\n")))
+    assert found == []
+
+
+def test_bench_coverage_follows_a_local_dict_and_flags_an_opaque_one(
+        tmp_path):
+    clean = _SMOKE + ("    d = {'batch_ms': n}\n    d['traces'] = 4\n"
+                      "    d.update(walk_ms=m)\n    phase('x', card, **d)\n")
+    assert _forward(_coverage(tmp_path, clean)) == []
+    hidden = _SMOKE + ("    d = {'batch_ms': n}\n    d['mystery_xyz'] = m\n"
+                       "    phase('x', card, **d)\n")
+    assert "'mystery_xyz'" in _forward(_coverage(tmp_path, hidden))[0].message
+    for bad in ("    phase('x', card, **m)\n",
+                "    d = {}\n    d[str(n)] = m\n    phase('x', card, **d)\n",
+                "    phase('x', card, **{k: n for k in m})\n"):
+        found = _forward(_coverage(tmp_path, _SMOKE + bad))
+        assert len(found) == 1 and "AST cannot name" in found[0].message, bad
+
+
+def test_bench_coverage_reverse_finds_a_dead_neutral_entry(tmp_path):
+    from reporter_tpu_torch.analysis.bench_delta import NEUTRAL_KEYS
+
+    assert "touches" in NEUTRAL_KEYS
+    dead = {f.message.split("'")[1] for f in _coverage(
+        tmp_path, _SMOKE + "    phase('x', card, clients=n)\n")
+        if "dead row" in f.message}
+    assert "touches" in dead and "clients" not in dead
+    alive = {f.message.split("'")[1] for f in _coverage(
+        tmp_path, _SMOKE + "    phase('x', card, clients=n, touches=m)\n")
+        if "dead row" in f.message}
+    assert "touches" not in alive
+
+
+def test_bench_coverage_missing_script_is_loud(tmp_path):
+    from reporter_tpu_torch.analysis.bench_delta import coverage_findings
+
+    found = coverage_findings(root=str(tmp_path))
+    assert len(found) == 1 and "failed to load" in found[0].message
+
+
+def test_bench_coverage_on_the_repo_reports_every_opaque_call_waived():
+    cov = [f for f in _repo_findings() if f.rule == "bench-coverage"]
+    assert cov and all(f.waived for f in cov)
+    assert all("AST cannot name" in f.message for f in cov)
+    # the two **fields calls of [mesh:dp] and [build:exact_shape] among them
+    with open(os.path.join(lint_rules.REPO_ROOT, "chip_smoke.py")) as f:
+        src = f.read().splitlines()
+    lines = {src[f.line - 1].strip() for f in cov}
+    assert any(ln.startswith('phase("mesh:dp"') for ln in lines)
+    assert any(ln.startswith('phase("build:exact_shape"') for ln in lines)
 
 
 # ---------------------------------------------------------------------------
