@@ -9,8 +9,10 @@ the native host half against its Python forms, in phases:
 
   1. device   — require CUDA; print the card's name and power limit;
   2. build    — nvcc-build kernels/sweep_exact.cu once per top-K width of
-                SWEEP_KS (the five arms at that K, sm_90a; the five nvcc
-                started together) and g++-build the host library
+                SWEEP_KS (the five arms at that K, sm_90a) and once as the
+                wide library (the five arms at a run-time K, which serve
+                every K past 16; the six nvcc started together) and
+                g++-build the host library
                 (native/prepare.cc, walker.cc) into reporter_tpu_torch/
                 _build/, with the build times side by side; the ptxas
                 figures of every kernel instance and each arm's launch
@@ -47,6 +49,12 @@ the native host half against its Python forms, in phases:
                 _dense_plain at K on the 64 chunks and to the K'
                 instance's first K columns on every point, the launch
                 counted under (arm, K') (on organic too);
+                Then, at WIDE_RADIUS (150 m, where most sf points have more
+                than 16 edges within reach), every arm through the wide
+                instance at each K of WIDE_KS (20, 24, 32) and through the
+                register K = 16 beside it: equal across arms on all
+                points, bit-equal to _dense_plain on the 64 chunks, times
+                and bounds; [kernel:wide] their seconds;
      gates    — parallel streets 500 m apart, where every coarse gate
                 culls: the gate share must be below the vote share;
   5. main     — with a fresh autotune cache, SegmentMatcher(ts) calibrates
@@ -65,11 +73,12 @@ the native host half against its Python forms, in phases:
                 tolerance 0), each walk timed; the C prepare against the
                 numpy form (bytes equal, timed); and, in 256-trace slices,
                 whether the harvest's walk overlaps the wait in .cpu();
-     main:k   — at each other K of SWEEP_KS and at K = 5, 7 and 10, a
-                tuned matcher (calibration launches every arm at the
-                instance K' serving K) serves the 1024 traces (512 chunks
-                of the sweep), whose first 16 records equal the CPU
-                matcher's at that K;
+     main:k   — at each other K of SWEEP_KS and at K = 5, 7 and 10, and
+                at MAIN_WIDE_K = 32 with a WIDE_RADIUS search radius (the
+                wide instance), a tuned matcher (calibration launches every
+                arm at the instance K' serving K) serves the 1024 traces
+                (512 chunks of the sweep), whose first 16 records equal the
+                CPU matcher's at that K;
      breakdown — one slice's sweep per arm, Viterbi and pack timed alone,
                 and the device busy share of one wire entry
                 (torch.profiler);
@@ -369,12 +378,17 @@ the native host half against its Python forms, in phases:
                 [analysis:device] a child runs the device contract
                 (analysis/device_contract.py) on the card: every wire entry
                 x the five arms at K = 8 x three wire layouts x {single,
-                mesh} and the scatters, each under set_sync_debug_mode(
-                "error") and the aten recorder: cases, aten ops, findings,
-                none unwaived; [analysis:manifest] the built instances'
-                ptxas figures and launch shapes against the golden block of
-                analysis/compile_manifest.py; [profile] (run after sf's
-                [walk], the process's first profiler session) one sf batch
+                mesh}, the scatters and five staging cases (windows that
+                start from host arrays: the matcher's prepare and dispatch,
+                the mesh's stage and run, the histogram's update, the
+                backfill grid's add, single and over a mesh), each under
+                set_sync_debug_mode("error") and the aten recorder: cases,
+                staging cases, aten ops, findings, none unwaived;
+                [analysis:manifest] the built instances' (the wide
+                library's among them) ptxas figures and launch shapes
+                against the golden block of analysis/compile_manifest.py;
+                [profile] (run after sf's [walk], the process's first
+                profiler session) one sf batch
                 of the tuned matcher with REPORTER_TPU_TRACE_DIR set (the
                 matcher's own device_trace hook, a torch.profiler Chrome
                 trace under _chip_scratch/profile): the trace's size, the
@@ -391,7 +405,9 @@ the native host half against its Python forms, in phases:
                 the two **fields lines [mesh:dp] and [build:exact_shape]
                 included), and the run compared with itself finds no
                 regression;
- 14. summary  — the kernels JSON line (every arm at every K, the sources,
+ 14. summary  — the kernels JSON line (every arm at every K and its wide
+                instance at MAIN_WIDE_K, with its ms at each K of
+                WIDE_KS; the sources,
                 the host library among them; the topology's workers'
                 launches by member; the sf:topk, sf:grid, fleet and mesh:*
                 windows in every entry's launches_by_path), the card line,
@@ -498,6 +514,12 @@ MESH_METRO_DP = 2             # [mesh:metro]: tile = 3 metros x dp = 2
 MESH_GROUP_TIMEOUT_S = 120    # [mesh:group]: the subprocess's limit
 KERNEL_BETWEEN_KS = (5, 7, 10)  # [kernel:k], [main:k]: widths between the
 #                               built ones (each runs the next built K')
+WIDE_RADIUS = 150.0           # [kernel:k], [main:k] past the register widths:
+#                               on sf at 50 m no point has more than 16 edges
+#                               within reach (a wide list would never evict)
+WIDE_KS = (20, 24, 32)        # [kernel:k]: the wide instance's widths (and
+#                               the register K = 16 beside them, at 150 m)
+MAIN_WIDE_K = 32              # [main:k]: the wide instance on the main path
 ROUTER_METROS = ("sf", "nyc", "la")   # [router]: BASELINE config 4's trio
 ROUTER_CLIENTS, ROUTER_UUIDS = 64, 2  # [router]: clients (round-robin over
 #                               the metros) and uuids each, SERVE_PARTS
@@ -784,7 +806,8 @@ def kernel_phase(card, tab, pts, radius, k, dc, build, metro, tag="kernel",
         rec = {"mismatches": mism, "max_abs_err": err,
                "ms": cuda_ms(run, reps=20), "ms_back_to_back": launch_ms(run),
                "plain_ms": plain_ms, "plain_points": check_n,
-               "chunks": nchunks, "grid": grid}
+               "chunks": nchunks, "grid": grid,
+               "instance": "wide" if dc.is_wide(k) else "register"}
         if chunks is not None:
             # checked chunks a CTA takes after its first (order position
             # at or past the grid)
@@ -854,7 +877,8 @@ def kernel_phase(card, tab, pts, radius, k, dc, build, metro, tag="kernel",
         # (rec, with kernel_gates' fields); [bench_delta] reads the printed
         # line
         phase(tag if tag != "kernel" else f"kernel:{arm}", card, metro=metro,
-              arm=arm, k=k, points=n, prepass_ms=prepass_ms,
+              arm=arm, k=k, points=n, search_radius=radius,
+              prepass_ms=prepass_ms,
               mean_hit_blocks=float(nhits.float().mean()), **rec)
     return arms
 
@@ -927,7 +951,8 @@ class Windows:
 
 def only(counts, inst, what):
     """The run launched instance ``inst`` (arm, K) and no other."""
-    if counts[inst] < 1 or any(n for i, n in counts.items() if i != inst):
+    if counts.get(inst, 0) < 1 \
+            or any(n for i, n in counts.items() if i != inst):
         raise SystemExit(f"{what} should launch {inst} and no other "
                          f"instance: { {i: n for i, n in counts.items() if n} }")
 
@@ -1109,8 +1134,9 @@ def _seconds(fn):
 def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
                  cache):
     """The main path at every other K of SWEEP_KS and at each K of
-    KERNEL_BETWEEN_KS: a tuned matcher (its calibration launches every
-    arm at the instance K' that serves K) serves the batch of
+    KERNEL_BETWEEN_KS, and at MAIN_WIDE_K (the wide instance) with a
+    WIDE_RADIUS search radius: a tuned matcher (its calibration launches
+    every arm at the instance K' that serves K) serves the batch of
     ``traces`` (at 1024 traces, 512 sweep chunks: more than the grid);
     its first MAIN_K_CPU_TRACES records equal the CPU matcher's. The
     tuner's cache is keyed by tile and card, not K, so each K gets a
@@ -1118,17 +1144,20 @@ def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
     plan and calibrate nothing)."""
     from reporter_tpu_torch.matcher.autotune import CAL_DISPATCHES
 
-    for k in sorted(set(dc.SWEEP_KS) | set(KERNEL_BETWEEN_KS)):
-        if k == 8:
-            continue
+    register = sorted(set(dc.SWEEP_KS) | set(KERNEL_BETWEEN_KS))
+    cases = [(k, {}) for k in register if k != 8] + [
+        (MAIN_WIDE_K, {"search_radius": WIDE_RADIUS})]
+    for k, levers in cases:
+        t_k = time.perf_counter()
         kk = dc.sweep_instance_k(k)
         os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, f"k{k}")
-        p = MatcherParams(max_candidates=k)
+        p = MatcherParams(max_candidates=k, **levers)
         m, cal = win.run(f"sf:k{k}:calibration",
                          lambda p=p: SegmentMatcher(ts, p))
-        if m.tuned_plan is None or any(
-                n != (CAL_DISPATCHES + 1 if kx == kk else 0)
-                for (a, kx), n in cal.items()):
+        # every arm at the serving instance, nothing else (a wide
+        # instance's key exists only once launched)
+        if m.tuned_plan is None or {key: n for key, n in cal.items() if n} \
+                != {(a, kk): CAL_DISPATCHES + 1 for a in dc.SWEEP_ARMS}:
             raise SystemExit(f"K={k}: calibration launches {cal}")
         tuned = PLAN_ARMS[m.tuned_plan.label.split("@")[0]]
         batch = traces
@@ -1141,9 +1170,11 @@ def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
         cpu = SegmentMatcher(ts, p, device="cpu").match_many(small)
         equal = json_records(cpu) == json_records(recs[:MAIN_K_CPU_TRACES])
         phase("main:k", card, metro="sf", k=k, instance_k=kk,
-              tuned_arm=tuned,
+              instance="wide" if dc.is_wide(kk) else "register",
+              search_radius=p.search_radius, tuned_arm=tuned,
               traces=len(batch), batch_ms=ms, records=recs.n_records,
-              card_vs_cpu_records_equal=equal, traces_checked=len(small))
+              card_vs_cpu_records_equal=equal, traces_checked=len(small),
+              seconds=time.perf_counter() - t_k)
         if not equal or not recs.n_records:
             raise SystemExit(f"K={k}: the card's records differ from the "
                              "CPU's, or there are none")
@@ -3282,9 +3313,9 @@ def kernel_between_phase(card, tab, pts, radius, dc, metro):
             before = dict(dc.SWEEP_LAUNCHES)
             got = run()
             torch.cuda.synchronize()
-            ran = {f"{a}@k{kx}": v - before[a, kx]
+            ran = {f"{a}@k{kx}": v - before.get((a, kx), 0)
                    for (a, kx), v in dc.SWEEP_LAUNCHES.items()
-                   if v != before[a, kx]}
+                   if v != before.get((a, kx), 0)}
             wide = run(kk)
             mism = {f: int((g[rows] != r).sum()) for f, g, r in
                     zip(("edge", "offset", "dist"), got, ref)}
@@ -3810,8 +3841,9 @@ def guard_phase(card, ts, traces, dc, win, cache):
         time.sleep(0.05)
     landed_s = time.perf_counter() - returned
     torch.cuda.synchronize()
-    late = {f"{a}@k{k}": v - before[a, k]
-            for (a, k), v in dc.SWEEP_LAUNCHES.items() if v != before[a, k]}
+    late = {f"{a}@k{k}": v - before.get((a, k), 0)
+            for (a, k), v in dc.SWEEP_LAUNCHES.items()
+            if v != before.get((a, k), 0)}
     batch = traces[:GUARD_TRACES]
     recs, served = win.run("sf:guard:served", lambda: m.match_many(batch))
     want = pinned.match_many(batch)
@@ -5165,7 +5197,7 @@ def mesh_dp_phase(card, ts, traces, recs, m, fields, dc, win):
             "devices": [str(d) for d in mesh.flat_devices],
             "arm": f"{inst[0]}@k{inst[1]}", "records_equal": rec_eq,
             "wire_equal": wire_eq, "launches": _launches(counts),
-            "launches_per_batch": counts[inst] / (MESH_BATCH_RUNS + 1),
+            "launches_per_batch": counts.get(inst, 0) / (MESH_BATCH_RUNS + 1),
             "in_turns_ms": turns,
             "x_single_in_turns": turns["mesh"] / turns["single"],
             **{k: f[k] for k in ("batch_ms_median", "batch_ms_min",
@@ -5235,7 +5267,8 @@ def mesh_sharded_phase(card, ts, fleet, dc, win):
                  for f in out._fields)
     only(step_counts, inst, "[mesh:sharded] make_sharded_matcher")
     win.by_path["mesh:sharded"] = {
-        key: counts[key] + step_counts[key] for key in counts}
+        key: counts.get(key, 0) + step_counts.get(key, 0)
+        for key in counts.keys() | step_counts.keys()}
     shard_ms, lists, plain_eq = [], [], []
     for i in range(MESH_SHARDS):
         tb = tables.segments[i, mesh.devices[i, 0]]
@@ -5580,7 +5613,8 @@ def analysis_phase(card, proc, t0):
     child (its exit code is 1 on an unwaived finding or a drift)."""
     (dev, man), rc = _child_json(proc, "analysis", 2)
     phase("analysis:device", card, seconds=dev["seconds"],
-          device=dev["device"], cases=dev["cases"], aten_ops=dev["aten_ops"],
+          device=dev["device"], cases=dev["cases"],
+          staging_cases=dev["staging_cases"], aten_ops=dev["aten_ops"],
           findings=len(dev["findings"]), unwaived=dev["unwaived"],
           sync_debug="error")
     if dev["unwaived"] or not dev["device"].startswith("cuda"):
@@ -5791,13 +5825,14 @@ def main() -> int:
     # the persistent grid is min(chunks, CTAs per SM x SMs); the kernel
     # phase runs 512 chunks
     shapes = {}
-    for k in dc.SWEEP_KS:
+    for k in build.LIBRARIES:
         for code, arm in enumerate(dc.SWEEP_ARMS):
             sh = build.exact_shape(code, k)
             sh["grid_at_512_chunks"] = min(512, sh["ctas_per_sm"] * sh["sms"])
-            shapes[f"{arm}@k{k}"] = sh
+            shapes[f"{arm}@k{build.library_tag(k)}"] = sh
     # lint: allow[bench-coverage] 2026-10-18 one launch shape per arm and K
-    # (kernels/build.exact_shape); [bench_delta] reads the printed line
+    # or the wide library (kernels/build.exact_shape); [bench_delta] reads
+    # the printed line
     phase("build:exact_shape", card, **shapes)
 
     # ---- 3. tiles ---------------------------------------------------------
@@ -5819,6 +5854,14 @@ def main() -> int:
                             tag="kernel:k", check_chunks=CHECK_CHUNKS)
             for k in dc.SWEEP_KS}
     kernel_between_phase(card, tab, pts, radius, dc, "sf")
+    # past the register widths: the wide instance at each K of WIDE_KS,
+    # and the register K = 16 beside it, at a radius where lists evict
+    t_wide = time.perf_counter()
+    wide = {k: kernel_phase(card, tab, pts, WIDE_RADIUS, k, dc, build, "sf",
+                            tag="kernel:k", check_chunks=CHECK_CHUNKS)
+            for k in (dc.SWEEP_KS[-1], *WIDE_KS)}
+    phase("kernel:wide", card, seconds=time.perf_counter() - t_wide,
+          search_radius=WIDE_RADIUS)
     gates_phase(card, dc, radius, 8)
 
     # ---- 5. main path (calibration included), walk, breakdown, reference -
@@ -5948,8 +5991,10 @@ def main() -> int:
     for arm, (_, replaces) in ARMS.items():
         for k in dc.SWEEP_KS:
             a = arms[arm] if k == 8 else by_k[k][arm]
-            paths = {path: c[arm, k] for path, c in win.by_path.items()
-                     if c[arm, k] or path in ("sf:topk", "sf:grid", "fleet")
+            paths = {path: c.get((arm, k), 0)
+                     for path, c in win.by_path.items()
+                     if c.get((arm, k), 0)
+                     or path in ("sf:topk", "sf:grid", "fleet")
                      or path.startswith("mesh:")}
             entry = {
                 "name": f"sweep_topk_{arm}_k{k}", "route": "cuda",
@@ -5969,6 +6014,26 @@ def main() -> int:
                 raise SystemExit(f"{arm} at K={k} was never launched on the "
                                  "main path")
             kernels.append(entry)
+        # the wide instance, served at MAIN_WIDE_K on the main path
+        a = wide[MAIN_WIDE_K][arm]
+        paths = {path: c.get((arm, MAIN_WIDE_K), 0)
+                 for path, c in win.by_path.items()
+                 if c.get((arm, MAIN_WIDE_K), 0)}
+        entry = {
+            "name": f"sweep_topk_{arm}_wide", "route": "cuda",
+            "source": SOURCES[0], "replaces": replaces,
+            "k": MAIN_WIDE_K, "search_radius": WIDE_RADIUS,
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "points": len(pts), "plain_points": a["plain_points"],
+            "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+            "ms_back_to_back": a["ms_back_to_back"],
+            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"], "library_ms": None,
+            "ms_by_k": {k: wide[k][arm]["ms"] for k in WIDE_KS}}
+        if entry["launches"] < 1:
+            raise SystemExit(f"{arm}'s wide instance at K={MAIN_WIDE_K} was "
+                             "never launched on the main path")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels, "sources": list(SOURCES),
                       "host_library": {
                           "sources": list(SOURCES[2:]), "route": "g++",

@@ -196,6 +196,7 @@ NEUTRAL_KEYS = {
     "refused_points", "converted", "dispatches", "wire_entries",
     "touches", "promotions", "demotions", "evictions", "paged_metros",
     "rolled_back", "recovered", "single_slices", "aten_ops", "problems",
+    "staging_cases",
     "sweep_exact_kernels", "sweep_exact_spans", "running",
     "full_run_holds_first_uuids_reports", "drained", "tile", "dp",
     # stream, backfill, audit, reach-audit and kernel-gate bookkeeping

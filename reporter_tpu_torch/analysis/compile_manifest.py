@@ -3,9 +3,10 @@ launch shapes and ptxas budgets, and the static HBM bound.
 
 Counterpart: reporter_tpu/analysis/compile_manifest.py, which pins the
 JAX package's jit shapes and its Pallas kernel's SMEM. The port compiles
-``kernels/sweep_exact.cu`` once per K of ``kernels/build.SWEEP_KS``, the
-five arms of ``ops.dense_candidates.SWEEP_ARMS`` in each library, and
-this module pins, per instance (arm, K):
+``kernels/sweep_exact.cu`` once per K of ``kernels/build.SWEEP_KS`` and
+once as the wide library (``build.WIDE``, named ``wide``: its K a run-time
+argument), the five arms of ``ops.dense_candidates.SWEEP_ARMS`` in each
+library, and this module pins, per instance (arm, K or ``wide``):
 
 - the launch shape ``build.exact_shape`` reports (threads, dynamic
   shared memory, CTAs per SM, ring depth, gate group; the SM count is the
@@ -54,7 +55,8 @@ H100_HBM_BYTES = 80 * 10**9
 CARD_SECTIONS = ("launch", "ptxas")
 
 # (kernel, K) → dated reason: the instances whose ptxas report has spill
-# bytes, pinned here at the golden block's figures (any change is drift)
+# bytes, pinned here at the golden block's figures (any change is drift);
+# K is the library's key (build.WIDE, 0, for the wide library)
 _SPILL_WHY = ("2026-10-17 ptxas caps this instance at 72 or 96 registers "
               "for its occupancy (3 or 2 CTAs of 288 threads per SM) and "
               "spills a few bytes; the served K = 8 instances do not. "
@@ -67,6 +69,11 @@ SPILL_WAIVERS = {
     ("sweep_exact_kernel<4,6>", 6): _SPILL_WHY,
     ("sweep_exact_kernel<2,12>", 12): _SPILL_WHY,
     ("sweep_exact_kernel<3,12>", 12): _SPILL_WHY,
+    ("sweep_exact_kernel<3,0>", 0): (
+        "2026-10-18 the wide instance's mxu arm: ptxas caps it at 72 "
+        "registers for 2 CTAs of 288 threads per SM and spills 24 / 32 "
+        "bytes; its running list is in global memory already, and the "
+        "wide list's speed is queued in ROADMAP queue 2"),
 }
 
 
@@ -115,7 +122,10 @@ def ptxas_figures(log: str) -> list:
 
 def _ptxas_section(logs: "dict[int, str]") -> dict:
     """{"k<K>": {kernel: {registers, static_smem, spill_stores,
-    spill_loads}}} from each K library's ptxas report."""
+    spill_loads}}} from each library's ptxas report (keyed by K of
+    SWEEP_KS, or WIDE: "kwide")."""
+    from reporter_tpu_torch.kernels.build import library_tag
+
     out = {}
     for k, log in sorted(logs.items()):
         per = {}
@@ -123,7 +133,7 @@ def _ptxas_section(logs: "dict[int, str]") -> dict:
             name = fig.pop("kernel")
             per[name] = {key: fig.get(key, 0) for key in (
                 "registers", "static_smem", "spill_stores", "spill_loads")}
-        out[f"k{k}"] = per
+        out[f"k{library_tag(k)}"] = per
     return out
 
 
@@ -140,8 +150,8 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
         "manifest_version": 1,
         "sweep_ks": list(build.SWEEP_KS),
         "arms": list(SWEEP_ARMS),
-        "instances": [f"{a}@k{k}" for k in build.SWEEP_KS
-                      for a in SWEEP_ARMS],
+        "instances": [f"{a}@k{build.library_tag(k)}"
+                      for k in build.LIBRARIES for a in SWEEP_ARMS],
         "nvcc_flags": list(build._NVCC_FLAGS),
         "staged_tables": {
             "layout_version": tileset.STAGED_LAYOUT_VERSION,
@@ -155,13 +165,13 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
         return out
     build.build_all()
     out["ptxas"] = _ptxas_section({k: build.ptxas_log(k)
-                                   for k in build.SWEEP_KS})
+                                   for k in build.LIBRARIES})
     launch = {}
-    for k in build.SWEEP_KS:
+    for k in build.LIBRARIES:
         for code, arm in enumerate(SWEEP_ARMS):
             sh = build.exact_shape(code, k, device)
             sh.pop("sms")
-            launch[f"{arm}@k{k}"] = sh
+            launch[f"{arm}@k{build.library_tag(k)}"] = sh
     out["launch"] = launch
     return out
 
@@ -198,7 +208,12 @@ GOLDEN: "dict[str, Any]" = \
                'sub@k16',
                'sub_bf16@k16',
                'mxu@k16',
-               'mxu_bf16@k16'],
+               'mxu_bf16@k16',
+               'block@kwide',
+               'sub@kwide',
+               'sub_bf16@kwide',
+               'mxu@kwide',
+               'mxu_bf16@kwide'],
  'launch': {'block@k12': {'ctas_per_sm': 2,
                           'depth': 4,
                           'gate_group': 0,
@@ -224,6 +239,11 @@ GOLDEN: "dict[str, Any]" = \
                          'gate_group': 0,
                          'smem_bytes': 65920,
                          'threads': 288},
+            'block@kwide': {'ctas_per_sm': 3,
+                            'depth': 4,
+                            'gate_group': 0,
+                            'smem_bytes': 65920,
+                            'threads': 288},
             'mxu@k12': {'ctas_per_sm': 2,
                         'depth': 3,
                         'gate_group': 32,
@@ -249,6 +269,11 @@ GOLDEN: "dict[str, Any]" = \
                        'gate_group': 32,
                        'smem_bytes': 98688,
                        'threads': 288},
+            'mxu@kwide': {'ctas_per_sm': 2,
+                          'depth': 3,
+                          'gate_group': 32,
+                          'smem_bytes': 98688,
+                          'threads': 288},
             'mxu_bf16@k12': {'ctas_per_sm': 2,
                              'depth': 4,
                              'gate_group': 32,
@@ -274,6 +299,11 @@ GOLDEN: "dict[str, Any]" = \
                             'gate_group': 32,
                             'smem_bytes': 98816,
                             'threads': 288},
+            'mxu_bf16@kwide': {'ctas_per_sm': 2,
+                               'depth': 4,
+                               'gate_group': 32,
+                               'smem_bytes': 98816,
+                               'threads': 288},
             'sub@k12': {'ctas_per_sm': 2,
                         'depth': 4,
                         'gate_group': 0,
@@ -299,6 +329,11 @@ GOLDEN: "dict[str, Any]" = \
                        'gate_group': 0,
                        'smem_bytes': 65920,
                        'threads': 288},
+            'sub@kwide': {'ctas_per_sm': 3,
+                          'depth': 4,
+                          'gate_group': 0,
+                          'smem_bytes': 65920,
+                          'threads': 288},
             'sub_bf16@k12': {'ctas_per_sm': 2,
                              'depth': 4,
                              'gate_group': 8,
@@ -323,7 +358,12 @@ GOLDEN: "dict[str, Any]" = \
                             'depth': 4,
                             'gate_group': 8,
                             'smem_bytes': 86464,
-                            'threads': 288}},
+                            'threads': 288},
+            'sub_bf16@kwide': {'ctas_per_sm': 2,
+                               'depth': 4,
+                               'gate_group': 8,
+                               'smem_bytes': 86464,
+                               'threads': 288}},
  'manifest_version': 1,
  'nvcc_flags': ['-gencode',
                 'arch=compute_90a,code=sm_90a',
@@ -456,7 +496,31 @@ GOLDEN: "dict[str, Any]" = \
                   'sweep_exact_kernel<4,8>': {'registers': 87,
                                               'spill_loads': 0,
                                               'spill_stores': 0,
-                                              'static_smem': 0}}},
+                                              'static_smem': 0}},
+           'kwide': {'chunk_order_kernel': {'registers': 16,
+                                            'spill_loads': 0,
+                                            'spill_stores': 0,
+                                            'static_smem': 1024},
+                     'sweep_exact_kernel<0,0>': {'registers': 64,
+                                                 'spill_loads': 0,
+                                                 'spill_stores': 0,
+                                                 'static_smem': 0},
+                     'sweep_exact_kernel<1,0>': {'registers': 72,
+                                                 'spill_loads': 0,
+                                                 'spill_stores': 0,
+                                                 'static_smem': 0},
+                     'sweep_exact_kernel<2,0>': {'registers': 72,
+                                                 'spill_loads': 0,
+                                                 'spill_stores': 0,
+                                                 'static_smem': 0},
+                     'sweep_exact_kernel<3,0>': {'registers': 72,
+                                                 'spill_loads': 32,
+                                                 'spill_stores': 24,
+                                                 'static_smem': 0},
+                     'sweep_exact_kernel<4,0>': {'registers': 72,
+                                                 'spill_loads': 0,
+                                                 'spill_stores': 0,
+                                                 'static_smem': 0}}},
  'staged_tables': {'card_hbm_bytes': 80000000000,
                    'dense_layout_keys': ['seg_pack',
                                          'seg_bbox',
@@ -494,8 +558,11 @@ def diff(golden: "dict | Any", computed: "dict | Any",
 
 def golden_findings(golden: "dict | None" = None) -> "list[str]":
     """The golden block's self-consistency: every instance has a launch
-    shape, every K library its ptxas figures with the sweep kernel at
-    each arm, and no kernel spills outside SPILL_WAIVERS."""
+    shape, every K library and the wide one its ptxas figures with the
+    sweep kernel at each arm, and no kernel spills outside SPILL_WAIVERS
+    (keyed by K, or build.WIDE)."""
+    from reporter_tpu_torch.kernels.build import WIDE, library_tag
+
     g = GOLDEN if golden is None else golden
     out: "list[str]" = []
     for sec in CARD_SECTIONS:
@@ -506,21 +573,21 @@ def golden_findings(golden: "dict | None" = None) -> "list[str]":
             out.append(f"golden: instance {inst} has no launch shape")
     if sorted(g["launch"]) != sorted(g.get("instances", ())):
         out.append("golden: launch shapes and instances differ")
-    for k in g.get("sweep_ks", ()):
-        per = g["ptxas"].get(f"k{k}")
+    for k in (*g.get("sweep_ks", ()), WIDE):
+        per = g["ptxas"].get(f"k{library_tag(k)}")
         if not per:
-            out.append(f"golden: no ptxas figures for K={k}")
+            out.append(f"golden: no ptxas figures for K={library_tag(k)}")
             continue
         for code in range(len(g.get("arms", ()))):
             if not any(name.startswith("sweep_exact_kernel<")
                        and name.split("<")[1].split(",")[0].rstrip(">")
                        == str(code) for name in per):
-                out.append(f"golden: K={k} has no sweep_exact_kernel of "
-                           f"arm {code}")
+                out.append(f"golden: K={library_tag(k)} has no "
+                           f"sweep_exact_kernel of arm {code}")
         for name, fig in per.items():
             if (fig.get("spill_stores") or fig.get("spill_loads")) \
                     and (name, k) not in SPILL_WAIVERS:
-                out.append(f"golden: {name} at K={k} spills "
+                out.append(f"golden: {name} at K={library_tag(k)} spills "
                            f"{fig['spill_stores']} / {fig['spill_loads']} "
                            "bytes")
     return out

@@ -16,7 +16,13 @@ histogram's and backfill's scatters (``streaming/histogram._accumulate``,
 ``ops/aggregate._scatter_add``, single and per mesh partial). Inputs are
 staged on the device before each case's window: the window holds the
 device program, as the JAX audit traces the jitted body and not its
-``device_put``. Rules:
+``device_put``. The staging cases then hold the host-to-card copies
+themselves (``device.host_to_device``: pinned, ``non_blocking``, as
+``device_put`` does not block): each window runs from host arrays, the
+matcher's prepare and dispatch of a batch (``SegmentMatcher.
+_submit_many``, up to the queued wire), the mesh's ``DpWireMatcher.stage``
+with its run, ``SpeedHistogram.update`` and ``FixedGridCounts.add``
+(single and over a mesh). Rules:
 
   device-f64         a float64 tensor in or out of any op of the case.
                      The port builds wire bits and gather indices in
@@ -409,6 +415,54 @@ def _scatter_cases(device) -> "list[tuple[str, object, tuple]]":
     ]
 
 
+def _staging_cases(device, ts, host) -> "list[tuple[str, object, tuple]]":
+    """(label, program, anchor) of the cases whose window starts from host
+    arrays: every staging site of the main path, through its own entry.
+    (``match_topk`` stages through the same helper, but its window would
+    end in its harvest's copy to the host.)"""
+    import numpy as np
+
+    from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
+    from reporter_tpu_torch.ops import aggregate as agg
+    from reporter_tpu_torch.parallel.dp_e2e import DpWireMatcher
+    from reporter_tpu_torch.parallel.mesh import make_mesh
+    from reporter_tpu_torch.streaming import histogram as hg
+
+    pts, _ = host["f32"]
+    # one trace with per-point accuracy: its scale is staged too
+    acc = np.linspace(3.0, 12.0, pts.shape[1]).astype(np.float32)
+    traces = [Trace(uuid=f"t{i}", xy=p, times=np.arange(len(p), dtype=float),
+                    accuracy=acc if i == 0 else None)
+              for i, p in enumerate(pts)]
+    matcher = SegmentMatcher(ts, _arm_params("sub"), device=device)
+    matcher._staged()
+    dpm = DpWireMatcher(make_mesh(dp=_MESH_SHARDS,
+                                  devices=[device] * _MESH_SHARDS),
+                        ts, _arm_params("sub"), None)
+    rng = np.random.default_rng(1)
+    hist = hg.SpeedHistogram(64, (0.0, 5.0, 10.0, 20.0), device=device)
+    rows = rng.integers(0, 64, 512).astype(np.int32)
+    speeds = rng.uniform(0.0, 30.0, 512)
+    size = 4096
+    grid = agg.FixedGridCounts(size, device=device)
+    mesh_grid = agg.FixedGridCounts(
+        size, mesh=make_mesh(dp=_MESH_SHARDS,
+                             devices=[device] * _MESH_SHARDS))
+    idx = rng.integers(0, size, 3 * agg._CAP)
+    return [
+        ("staging/matcher", lambda: matcher._submit_many(traces)[1],
+         ("reporter_tpu_torch/matcher/api.py", 1)),
+        ("staging/mesh", lambda: dpm.run("f32", dpm.stage(host["f32"], None)),
+         ("reporter_tpu_torch/parallel/dp_e2e.py", 1)),
+        ("staging/histogram", lambda: hist.update(rows, speeds),
+         ("reporter_tpu_torch/streaming/histogram.py", 1)),
+        ("staging/backfill", lambda: grid.add(idx),
+         ("reporter_tpu_torch/ops/aggregate.py", 1)),
+        ("staging/backfill-mesh", lambda: mesh_grid.add(idx),
+         ("reporter_tpu_torch/ops/aggregate.py", 1)),
+    ]
+
+
 def _merge_across_cases(findings: "list[Finding]") -> "list[Finding]":
     """One finding per (rule, path, line): shared code is hit by most
     cells; the first case's message survives with a count of the rest."""
@@ -452,7 +506,8 @@ def run_device_contract(device="cuda", cases=None,
     """Audit the matrix (``cases``: audit_cases() by default) and the
     scatters on ``device`` (``cuda`` unless the caller asks for the CPU;
     raises without a card) → waiver-applied findings. ``stats`` (a dict)
-    receives the counts of cases and of aten ops recorded."""
+    receives the counts of cases (the staging cases among them) and of
+    aten ops recorded."""
     import torch
 
     from reporter_tpu_torch.device import resolve_device
@@ -483,7 +538,8 @@ def run_device_contract(device="cuda", cases=None,
         findings.extend(found)
         if out is not None:
             findings.extend(check_wire(out, case.layout, case.label, site))
-    for label, fn, anchor in _scatter_cases(device):
+    staging = _staging_cases(device, ts, host)
+    for label, fn, anchor in (*_scatter_cases(device), *staging):
         _, found, ops = audit(fn, label, device, anchor)
         n_cases += 1
         n_ops += ops
@@ -500,7 +556,8 @@ def run_device_contract(device="cuda", cases=None,
     if device.type == "cpu":
         _apply_cpu_waivers(findings)
     if stats is not None:
-        stats.update(cases=n_cases, aten_ops=n_ops)
+        stats.update(cases=n_cases, aten_ops=n_ops,
+                     staging_cases=len(staging))
     return findings
 
 

@@ -29,3 +29,19 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def host_to_device(x, device) -> torch.Tensor:
+    """A host numpy array as a tensor on ``device``, without making the
+    host wait. On ``cuda`` the array is copied into pinned host memory and
+    from there to the card with ``non_blocking=True``, queued on the
+    device's current stream: PyTorch's caching host allocator keeps the
+    pinned block until that copy's event has passed, so the caller may
+    reuse its array at once (a pageable ``.to(device)`` synchronizes the
+    stream instead). On ``cpu`` it is ``torch.from_numpy(x).to(device)``,
+    the array's own memory."""
+    t = torch.from_numpy(x)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -17,8 +17,11 @@
 // Each arm is an instance of sweep_exact_kernel<ARM, K>, ARM its index in
 // ops/dense_candidates.py's SWEEP_ARMS and K the top-K width. One nvcc of
 // this file with -DRTT_SWEEP_K=K builds the five arms at that K into one
-// library; kernels/build.py builds one library per K of SWEEP_KS, all
-// started together. The running top-K is topk.cuh's.
+// library; kernels/build.py builds one library per K of SWEEP_KS and the
+// wide library (-DRTT_SWEEP_K=0: sweep_exact_kernel<ARM, 0>, the top-K
+// width a run-time argument), all started together. The running top-K is
+// topk.cuh's: a RegList<K> in registers, or in the wide instance a
+// WideList in a slot-major global scratch.
 //
 // Bound on this card: the arithmetic of the exactly swept (point, column)
 // pairs on the CUDA cores, plus for sub_bf16 its gate's bf16 pairs on the
@@ -148,6 +151,18 @@
 // K = 4, 6 and 12 and none at K = 8 or 16; chip_smoke.py prints the
 // figures and PERF.md keeps them.
 //
+// The wide instance (K = 0 here) serves every K past the largest register
+// width, where the list does not fit the registers: its list lives in a
+// scratch [3][K][npad] that the wrapper allocates (topk.cuh's WideList),
+// with the K-th slot's (d^2, edge) in registers as the admission bound, so
+// an in-radius pair that cannot enter costs no memory access; a pair that
+// can scans the point's filled slots (coalesced across the warp) and moves
+// its entry up. The chunk's rows are written from the scratch at its last
+// item, one value at a time (any K). Everything else -- the ring, the
+// producer, the votes, the gates, sweep_cols -- is the register
+// instances'. Its cost is the scratch's traffic, which the bound does not
+// count; a list in shared memory is queued in ROADMAP queue 2.
+//
 // Measured on the card against two alternatives (PERF.md), both slower
 // and so not kept: two points per thread in the block arm (two chains per
 // column load, half the warps; +37%) and reading the columns straight
@@ -182,7 +197,10 @@ namespace {
 using rtt::kBig;
 
 constexpr int kK = RTT_SWEEP_K;    // the top-K width of this library
-static_assert(kK >= 1 && kK <= 16, "the running list lives in registers");
+constexpr int kWide = 0;           // K of the wide instance (K at run time)
+static_assert(kK == kWide || (kK >= 1 && kK <= 16),
+              "a register list holds 1-16 slots; past that the wide "
+              "instance (RTT_SWEEP_K=0) serves");
 
 constexpr int kP = 256;            // points per chunk (the pre-pass's unit)
 constexpr int kSblk = 512;         // columns per block
@@ -306,10 +324,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // branches per U columns leave it, both rare: the division where
 // 0 < num < denom (or num is NaN), and the offers of pairs within the
 // radius, which load (off0, len) only then.
-template <int K>
+template <class List>
 __device__ __forceinline__ void sweep_cols(
     const float4* col, int c0, int c1, float px, float py, float r2,
-    float (&bd)[K], int (&be)[K], float (&bo)[K]) {
+    List& list) {
   constexpr int U = kBatch;
   const float2* col2 = reinterpret_cast<const float2*>(col);
   for (int c = c0; c < c1; c += U) {
@@ -350,7 +368,7 @@ __device__ __forceinline__ void sweep_cols(
         const int e = __float_as_int(h[u].y);
         if (e >= 0 && d2[u] <= r2) {
           const float2 ol = col2[4 * (c + u) + 3];     // off0 len
-          rtt::offer<K>(d2[u], e, ol.x + t[u] * ol.y, bd, be, bo);
+          list.offer(d2[u], e, ol.x + t[u] * ol.y);
         }
       }
     }
@@ -385,6 +403,46 @@ __device__ __forceinline__ void store_row(T* out, const T (&v)[K]) {
     for (int i = 0; i < K; ++i) out[i] = v[i];
   }
 }
+
+// The chunk's last item: point p's row of the outputs from its list.
+template <int K>
+__device__ __forceinline__ void store_list(const rtt::RegList<K>& l, long p,
+                                           int* out_edge, float* out_off,
+                                           float* out_dist, int squared) {
+  float d[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    d[i] = l.bd[i] < kBig ? (squared ? l.bd[i] : sqrtf(fmaxf(l.bd[i], 0.f)))
+                          : kBig;
+  }
+  store_row<K>(out_edge + p * K, l.be);
+  store_row<K>(out_off + p * K, l.bo);
+  store_row<K>(out_dist + p * K, d);
+}
+
+__device__ __forceinline__ void store_list(const rtt::WideList& l, long p,
+                                           int* out_edge, float* out_off,
+                                           float* out_dist, int squared) {
+  const long row = p * l.k;
+  for (int i = 0; i < l.k; ++i) {
+    float d = kBig, o = 0.f;
+    int e = -1;
+    if (i < l.n) {
+      d = l.d[i * l.s];
+      e = l.e[i * l.s];
+      o = l.o[i * l.s];
+    }
+    out_edge[row + i] = e;
+    out_off[row + i] = o;
+    out_dist[row + i] =
+        d < kBig ? (squared ? d : sqrtf(fmaxf(d, 0.f))) : kBig;
+  }
+}
+
+template <int K>
+struct ListOf { using type = rtt::RegList<K>; };
+template <>
+struct ListOf<kWide> { using type = rtt::WideList; };
 
 __device__ __forceinline__ float clampf(float v, float e) {
   return fminf(fmaxf(v, -e), e);       // jnp.clip(v, -e, e)
@@ -710,7 +768,9 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
                    float* __restrict__ out_off,
                    float* __restrict__ out_dist,
                    int* __restrict__ gate_log,       // [nchunks, 8, nblocks]
-                   int squared) {                    // out_dist holds d²
+                   int squared,                      // out_dist holds d²
+                   float* __restrict__ scratch,      // wide: [3, k, nchunks*P]
+                   int k) {                          // wide: the top-K width
   using R = Ring<ARM>;
   extern __shared__ __align__(128) unsigned char smem[];
   int4* item = reinterpret_cast<int4*>(smem + R::kItemOff);
@@ -734,9 +794,7 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
 
   const float mx = radius * 1.001f + 0.5f;   // the clamp box's dilation
   float px = 0.f, py = 0.f;
-  float bd[K];
-  int be[K];
-  float bo[K];
+  typename ListOf<K>::type list(scratch, static_cast<long>(nchunks) * kP, k);
   for (uint32_t it = 0;; ++it) {
     const int s = it % R::kDepth;
     mbar_wait(full + s, (it / R::kDepth) & 1u);
@@ -747,13 +805,13 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
       const float2 pt = pts[p];
       px = pt.x;
       py = pt.y;
-      rtt::reset<K>(bd, be, bo);
+      list.reset(p);
     }
     if (h.z >= 0) {
       const unsigned char* st = smem + s * R::kStage;
       const float4* col = reinterpret_cast<const float4*>(st);
       if constexpr (ARM == kBlock) {
-        sweep_cols<K>(col, 0, kSblk, px, py, r2, bd, be, bo);
+        sweep_cols(col, 0, kSblk, px, py, r2, list);
       } else {
         const float4* quad = reinterpret_cast<const float4*>(st + kColBytes);
         unsigned vote = 0u;
@@ -784,8 +842,7 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
             if (grp == 0) first |= 1u << sl;
           }
           gated |= 1u << sl;
-          sweep_cols<K>(col, sl * kSub, sl * kSub + kSub, px, py, r2, bd, be,
-                        bo);
+          sweep_cols(col, sl * kSub, sl * kSub + kSub, px, py, r2, list);
         }
         if (gate_log != nullptr && lane == 0) {
           gate_log[(static_cast<long>(h.x) * kCons + warp) * nblocks + h.y] =
@@ -797,16 +854,7 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + s);  // the stage is free again
     if (h.y + 1 < max(h.w, 1)) continue;
-    // the chunk's last item: its rows
-    float d[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      d[i] = bd[i] < kBig ? (squared ? bd[i] : sqrtf(fmaxf(bd[i], 0.f)))
-                          : kBig;
-    }
-    store_row<K>(out_edge + p * K, be);
-    store_row<K>(out_off + p * K, bo);
-    store_row<K>(out_dist + p * K, d);
+    store_list(list, p, out_edge, out_off, out_dist, squared);
   }
 }
 
@@ -851,7 +899,7 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
            const float* table, const float* sub, const int* coarse,
            int nchunks, int nblocks, float r2, float rc2, float radius,
            int* out_edge, float* out_off, float* out_dist, int* gate_log,
-           int squared, cudaStream_t st) {
+           int squared, float* scratch, int k, cudaStream_t st) {
   int threads, smem, per_sm, sms, depth;
   const int rc = shape<ARM, K>(&threads, &smem, &per_sm, &sms, &depth);
   if (rc != 0) return rc;
@@ -865,15 +913,17 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
       order + nchunks,
       reinterpret_cast<const float4*>(table),
       reinterpret_cast<const float4*>(sub), coarse, nchunks, nblocks, r2,
-      rc2, radius, out_edge, out_off, out_dist, gate_log, squared);
+      rc2, radius, out_edge, out_off, out_dist, gate_log, squared, scratch,
+      k);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the ring-fed sweep in arm `arm` (0 block, 1 sub, 2 sub_bf16,
-// 3 mxu, 4 mxu_bf16) at top-K width `k` (this library's RTT_SWEEP_K; the
-// outputs are [nchunks * 256, k]) on `stream`: chunk_order_kernel writes into `order`
+// 3 mxu, 4 mxu_bf16) at top-K width `k` (this library's RTT_SWEEP_K, or in
+// the wide library any k >= 1; the outputs are [nchunks * 256, k]) on
+// `stream`: chunk_order_kernel writes into `order`
 // ([nchunks + 1] i32 scratch) the chunks heaviest first and a zeroed
 // counter, which the sweep's CTAs then take chunks from (the counter ends
 // at nchunks + the grid: one failed take per CTA); `table` is seg_sweep
@@ -885,9 +935,12 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
 // group of columns (8-11). `squared` != 0 stores each candidate's squared
 // distance in out_dist instead of its square root (kBig still marks an
 // empty slot): the segment-sharded search merges shards on it, so its
-// order is the sweep's own. Returns the launch's cudaError_t (0 = ok), -1
-// for an unknown arm, -2 / -3 for a device index or an occupancy out of
-// range, -4 for a k that this library was not built for.
+// order is the sweep's own. `scratch` (the wide library's list, f32
+// [3, k, nchunks * 256]) is read by the wide instance only; the register
+// libraries take null. Returns the launch's cudaError_t (0 = ok), -1 for
+// an unknown arm, -2 / -3 for a device index or an occupancy out of
+// range, -4 for a k that this library was not built for, -5 for the wide
+// library without its scratch.
 extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
                                const int* nhits, int* order,
                                const float* table, const float* sub,
@@ -895,13 +948,14 @@ extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
                                int nchunks, int nblocks, float r2, float rc2,
                                float radius, int* out_edge, float* out_off,
                                float* out_dist, int* gate_log, int squared,
-                               void* stream) {
-  if (k != kK) return -4;
+                               float* scratch, void* stream) {
+  if (kK == kWide ? k < 1 : k != kK) return -4;
+  if (kK == kWide && scratch == nullptr) return -5;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RTT_LAUNCH(A)                                                       \
   launch<A, kK>(pts, ids, nhits, order, table, sub, coarse, nchunks, nblocks,  \
             r2, rc2, radius, out_edge, out_off, out_dist, gate_log, squared, \
-            st)
+            scratch, k, st)
   switch (arm) {
     case kBlock: return RTT_LAUNCH(kBlock);
     case kSubArm: return RTT_LAUNCH(kSubArm);
@@ -916,11 +970,12 @@ extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
 // The launch shape of arm `arm` at top-K width `k` on the current device
 // (see shape()): the grid of a launch is min(nchunks, per_sm * sms).
 // `group`: the columns per early-exit test of its gate (kGateCols). -4 for
-// a k that this library was not built for.
+// a k that this library was not built for (the wide library's shape is
+// the same at every k >= 0).
 extern "C" int rtt_sweep_exact_shape(int arm, int k, int* threads, int* smem,
                                      int* per_sm, int* sms, int* depth,
                                      int* group) {
-  if (k != kK) return -4;
+  if (kK == kWide ? k < 0 : k != kK) return -4;
 #define RTT_SHAPE(A) \
   (*group = kGateCols<A>, shape<A, kK>(threads, smem, per_sm, sms, depth))
   switch (arm) {

@@ -119,7 +119,7 @@ import torch
 
 from reporter_tpu_torch import faults
 from reporter_tpu_torch.config import Config, MatcherParams
-from reporter_tpu_torch.device import resolve_device
+from reporter_tpu_torch.device import host_to_device, resolve_device
 from reporter_tpu_torch.geometry import lonlat_to_xy
 from reporter_tpu_torch.matcher import (autotune, cpu_reference,
                                         native_prepare)
@@ -408,6 +408,7 @@ class SegmentMatcher:
         def measure(plan: "autotune.TunedPlan") -> float:
             if not state:
                 state["tables"] = self._staged()
+                # a one-off batch before any timing: blocking copies
                 pts_q, origins, lens = autotune.calibration_batch(self.ts)
                 q = torch.from_numpy(pts_q).to(self.device)
                 o = torch.from_numpy(origins).to(self.device)
@@ -722,8 +723,8 @@ class SegmentMatcher:
         pts[0, :n] = xy
         valid = np.zeros((1, pts.shape[1]), bool)
         valid[0, :n] = True
-        pj = torch.from_numpy(pts).to(self.device)
-        vj = torch.from_numpy(valid).to(self.device)
+        pj = host_to_device(pts, self.device)
+        vj = host_to_device(valid, self.device)
         cands = match_ops.batch_candidates(pj, vj, tables, self.params,
                                            self.ts.meta)
         tc = match_ops.CandidateSet(*(x[0] for x in cands))
@@ -731,8 +732,8 @@ class SegmentMatcher:
         if trace.accuracy is not None:
             scale = _accuracy_scale(trace.accuracy[:n], p.sigma_z,
                                     pts.shape[1])
-            tc = tc._replace(dist=tc.dist * torch.from_numpy(scale).to(
-                self.device)[:, None])
+            tc = tc._replace(dist=tc.dist * host_to_device(
+                scale, self.device)[:, None])
         args = (tc, pj[0], vj[0], tables, p.sigma_z, p.beta,
                 p.max_route_distance_factor, p.breakage_distance,
                 p.backward_slack, p.interpolation_distance)
@@ -833,7 +834,7 @@ class SegmentMatcher:
             return wire.f32(ps.pts, ps.lens, ps.scale)
 
         def dev(x):
-            return None if x is None else torch.from_numpy(x).to(self.device)
+            return None if x is None else host_to_device(x, self.device)
 
         lens, origins, acc = dev(ps.lens), dev(ps.origins), dev(ps.scale)
         meta = self.ts.meta

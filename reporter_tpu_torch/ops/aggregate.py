@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from reporter_tpu_torch.device import resolve_device
+from reporter_tpu_torch.device import host_to_device, resolve_device
 
 # indices a shard takes at a time on a mesh: the JAX package's per-shard
 # update block, so each partial receives the indices its JAX twin does
@@ -92,8 +92,8 @@ class FixedGridCounts:
 
     def _scatter(self, d: int, flat: np.ndarray, ok: np.ndarray) -> None:
         dev = self.devices[d]
-        _scatter_add(self._parts[d], torch.from_numpy(flat).to(dev),
-                     torch.from_numpy(ok.astype(np.int32)).to(dev))
+        _scatter_add(self._parts[d], host_to_device(flat, dev),
+                     host_to_device(ok.astype(np.int32), dev))
 
     def partials(self) -> np.ndarray:
         """Host copy [ndev, size] (i32) of the per-device partials."""
@@ -111,6 +111,7 @@ class FixedGridCounts:
         """Take a whole (merged) grid: on a mesh into partial row 0, the
         other partials zeroed."""
         grid = np.asarray(grid).reshape(-1)
+        # a one-off restore: a blocking copy
         if grid.shape != (self.size,):
             raise ValueError(f"grid of {grid.shape} cells, expected "
                              f"({self.size},)")

@@ -22,7 +22,9 @@ smallest edge id, the offset being that edge's smallest tied projection.
   (``_chunk_block_ids``, plain PyTorch) and then ``sweep_topk``, the
   wrapper of the hand-written kernel ``kernels/sweep_exact.cu``, in one
   of its five arms (``SWEEP_ARMS``), each an instance of one ring-fed
-  kernel template. All five return the same candidates.
+  kernel template, at any top-K width: a register instance up to the
+  largest of ``SWEEP_KS``, the wide instance past it. All five return the
+  same candidates.
 - ``_coarse_bf16_gate`` and ``_coarse_mxu_gate`` are the plain versions of
   the two coarse arms' gate: per 32-point warp and hit 128-column slice,
   whether the exact pass runs. The card holds the kernel's decisions
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from reporter_tpu_torch.kernels import build
-from reporter_tpu_torch.kernels.build import SWEEP_KS
+from reporter_tpu_torch.kernels.build import SWEEP_KS, WIDE
 from reporter_tpu_torch.utils import profiling
 
 BIG = 1e30
@@ -79,9 +81,10 @@ _PLAIN_P = 128    # points per chunk of the plain sweep (bounds its [P, S] tempo
 _GATE_ROWS = 2048  # (warp, slice) pairs per step of the plain gates
 SPLIT_LEN = 256.0  # long-segment pre-split span
 # SWEEP_KS (kernels/build.py): the top-K widths the CUDA sweep is built
-# for, each arm instantiated at each; sweep_topk serves any other K up to
-# the largest through the next built one (sweep_instance_k), and the
-# plain path takes any K
+# for with its list in registers, each arm instantiated at each; sweep_topk
+# serves any other K up to the largest through the next built one, and
+# every K past it through the wide instance at K itself
+# (sweep_instance_k); the plain path takes any K
 
 # seg_coarse: the gates' operands, one row of CO_WORDS i32 words per
 # 512-column block, rounded once on the host. For the tensor-core gate,
@@ -120,10 +123,13 @@ _CO_TF32_K = (0, 4, 1, 5, 2, 6, 3, 7)
 # is its index here.
 SWEEP_ARMS = ("block", "sub", "sub_bf16", "mxu", "mxu_bf16")
 
-# Launches of the CUDA sweep, per kernel instance (arm, K). sweep_topk adds
-# one per kernel launch, under _LAUNCH_LOCK (match_many runs on several
-# threads under the service's scheduler), and nothing else does;
-# chip_smoke.py resets and reads them around each main-path run.
+# Launches of the CUDA sweep, per kernel instance (arm, K): the register
+# instances' keys are there from the start, the wide instance's (arm, K)
+# for a K past SWEEP_KS at its first launch (readers take a missing key
+# as 0). sweep_topk adds one per kernel launch, under _LAUNCH_LOCK
+# (match_many runs on several threads under the service's scheduler), and
+# nothing else does; chip_smoke.py resets and reads them around each
+# main-path run.
 SWEEP_LAUNCHES = {(arm, k): 0 for arm in SWEEP_ARMS for k in SWEEP_KS}
 _LAUNCH_LOCK = threading.Lock()
 
@@ -726,17 +732,24 @@ def sweep_arm(subcull: bool, lowp: str, mxu: bool) -> str:
 
 
 def sweep_instance_k(k: int) -> int:
-    """The built top-K width that serves a sweep of width ``k``: the
-    smallest K' of SWEEP_KS with K' >= k. The kernel keeps its list in
-    (d², edge id) order over distinct edges, so the first k columns of
-    an exact top-K' are the exact top-k, ties and empty slots included.
-    Raises for k < 1 or k past the largest built width."""
+    """The top-K width of the instance that serves a sweep of width ``k``:
+    up to the largest of SWEEP_KS the smallest K' of SWEEP_KS with K' >=
+    k (a register instance), past it k itself (the wide instance). The
+    kernel keeps its list in (d², edge id) order over distinct edges, so
+    the first k columns of an exact top-K' are the exact top-k, ties and
+    empty slots included. Raises for k < 1."""
     k = int(k)
-    for built in SWEEP_KS:
-        if k >= 1 and built >= k:
-            return built
-    raise ValueError(f"the CUDA sweep is built for K in {SWEEP_KS} and "
-                     f"serves 1 <= K <= {SWEEP_KS[-1]}, got {k}")
+    if k < 1:
+        raise ValueError(f"the CUDA sweep serves every top-K width K >= 1 "
+                         f"(K in {SWEEP_KS} in registers, the wide instance "
+                         f"past {SWEEP_KS[-1]}), got {k}")
+    return next((built for built in SWEEP_KS if built >= k), k)
+
+
+def is_wide(k: int) -> bool:
+    """Whether an instance of top-K width ``k`` (sweep_instance_k's) is
+    the wide one."""
+    return build.library_key(k) == WIDE
 
 
 def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
@@ -752,9 +765,11 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     gates' operands). Its persistent CTAs take chunks from a counter in
     the order _chunk_order(nhits) gives (heaviest first), which a kernel
     of the same call computes on the card. ``k``, the top-K width, runs
-    the instance ``sweep_instance_k(k)`` (k itself where it is one of
-    SWEEP_KS), whose first k columns are returned, and the launch is
-    counted under that instance; k past the largest built width raises.
+    the instance ``sweep_instance_k(k)``: up to the largest of SWEEP_KS
+    the register instance at the next built width (k itself where it is
+    one of them), whose first k columns are returned; past it the wide
+    instance at k, with its lists in a scratch allocated here (f32 [3, k,
+    npad]). The launch is counted under (arm, that width); k < 1 raises.
     → (edge i32, offset f32, dist f32), each [npad, k].
 
     ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]; not for "block"),
@@ -804,6 +819,8 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     r2 = float(radius) * float(radius)
     rc = cull_radius(radius)
     order = torch.empty(nchunks + 1, dtype=torch.int32, device=pts.device)
+    scratch = (torch.empty((3, k_run, npad), dtype=torch.float32,
+                           device=pts.device) if is_wide(k_run) else None)
     # a span of a device_trace capture (a no-op outside one): names the
     # launch on the host side, whatever the profiler's kernel records hold
     with profiling.annotate("sweep_exact_kernel"):
@@ -811,9 +828,9 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
             pts, ids, nhits, order, sweep, sub if arm != "block" else None,
             coarse if arm not in ("block", "sub") else None,
             SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc,
-            float(radius), edge, off, dist, gate_log, squared)
+            float(radius), edge, off, dist, gate_log, squared, scratch)
     with _LAUNCH_LOCK:
-        SWEEP_LAUNCHES[arm, k_run] += 1
+        SWEEP_LAUNCHES[arm, k_run] = SWEEP_LAUNCHES.get((arm, k_run), 0) + 1
     if k_run != k:
         return (edge[:, :k].contiguous(), off[:, :k].contiguous(),
                 dist[:, :k].contiguous())

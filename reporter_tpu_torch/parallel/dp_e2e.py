@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from reporter_tpu_torch.config import MatcherParams
+from reporter_tpu_torch.device import host_to_device
 from reporter_tpu_torch.ops import match as match_ops
 from reporter_tpu_torch.parallel.mesh import Mesh
 from reporter_tpu_torch.tiles.tileset import device_members, place_tables
@@ -121,10 +122,10 @@ class DpWireMatcher:
         staged = []
         for dev, rows in zip(self.devices,
                              _row_blocks(B + pad, self.ndev)):
-            args = [torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+            args = [host_to_device(np.ascontiguousarray(a[rows]), dev)
                     for a in arrays]
             a = (None if acc is None else
-                 torch.from_numpy(np.ascontiguousarray(acc[rows])).to(dev))
+                 host_to_device(np.ascontiguousarray(acc[rows]), dev))
             staged.append((dev, args, a))
         return staged
 

@@ -423,9 +423,10 @@ def main(argv: "list[str] | None" = None) -> int:
     if slo_eval is not None:
         slo_eval.tick(force=True)
         slo_block = slo_eval.exit_block()
-    launches = {f"{a}@k{k}": n - calibrated[a, k]
+    # a wide instance's key (a K past SWEEP_KS) appears at its first launch
+    launches = {f"{a}@k{k}": n - calibrated.get((a, k), 0)
                 for (a, k), n in dc.SWEEP_LAUNCHES.items()
-                if n > calibrated[a, k]}
+                if n > calibrated.get((a, k), 0)}
     print(json.dumps({"steps": steps, "reports": reports,
                       "committed": list(pipe.committed),
                       "member": member,

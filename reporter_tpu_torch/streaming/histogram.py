@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from reporter_tpu_torch.device import resolve_device
+from reporter_tpu_torch.device import host_to_device, resolve_device
 
 
 def _accumulate(hist: torch.Tensor, idx: torch.Tensor,
@@ -60,10 +60,10 @@ class SpeedHistogram:
         flat = r * self.num_bins + np.maximum(bins, 0)
         # one host-to-device copy each of the index and the 0/1 weights,
         # queued with the scatter on the calling thread's current stream,
-        # in order (pageable sources: each copy has read its host buffer
-        # before it returns)
-        idx = torch.from_numpy(flat).to(self.device)
-        upd = torch.from_numpy(ok.astype(np.int32)).to(self.device)
+        # in order, without a wait (host_to_device: each has been copied
+        # into pinned memory before it returns)
+        idx = host_to_device(flat, self.device)
+        upd = host_to_device(ok.astype(np.int32), self.device)
         _accumulate(self._hist, idx, upd)
 
     def snapshot(self) -> np.ndarray:
@@ -75,6 +75,7 @@ class SpeedHistogram:
     def load(self, hist: np.ndarray) -> None:
         assert hist.shape == (self.num_rows, self.num_bins)
         # an owned copy: the live tensor must not alias the caller's array
+        # (a one-off restore: a blocking copy)
         self._hist = torch.from_numpy(
             np.array(hist, np.int32, copy=True)).to(self.device)
 

@@ -15,7 +15,7 @@ import pytest
 from _torch_support import (  # noqa: F401  (the port's gate: first)
     _torch_gate, _torch_module_gate)
 from reporter_tpu_torch.analysis import compile_manifest as cm
-from reporter_tpu_torch.kernels.build import SWEEP_KS
+from reporter_tpu_torch.kernels.build import LIBRARIES, SWEEP_KS, library_tag
 from reporter_tpu_torch.ops.dense_candidates import SWEEP_ARMS
 
 _MANGLED = ("_ZN47_GLOBAL__N__7083e19d_14_sweep_exact_cu_fd8671dd18sweep_"
@@ -53,7 +53,7 @@ def _card_manifest(golden=None):
     g = cm.GOLDEN if golden is None else golden
     man = cm.compute_manifest("cpu")
     man["ptxas"] = cm._ptxas_section(
-        {k: _log(g["ptxas"][f"k{k}"], k) for k in SWEEP_KS})
+        {k: _log(g["ptxas"][f"k{library_tag(k)}"], k) for k in LIBRARIES})
     man["launch"] = copy.deepcopy(g["launch"])
     return man
 
@@ -63,9 +63,10 @@ def test_the_golden_block_is_whole_and_self_consistent():
     assert cm.GOLDEN["sweep_ks"] == list(SWEEP_KS)
     assert cm.GOLDEN["arms"] == list(SWEEP_ARMS)
     assert sorted(cm.GOLDEN["launch"]) == sorted(cm.GOLDEN["instances"])
-    assert len(cm.GOLDEN["instances"]) == len(SWEEP_KS) * len(SWEEP_ARMS)
-    for k in SWEEP_KS:
-        names = set(cm.GOLDEN["ptxas"][f"k{k}"])
+    # every K of SWEEP_KS and the wide library (K = 0 in its names)
+    assert len(cm.GOLDEN["instances"]) == len(LIBRARIES) * len(SWEEP_ARMS)
+    for k in LIBRARIES:
+        names = set(cm.GOLDEN["ptxas"][f"k{library_tag(k)}"])
         assert {f"sweep_exact_kernel<{a},{k}>"
                 for a in range(len(SWEEP_ARMS))} <= names
 
@@ -77,7 +78,7 @@ def test_the_host_half_is_pinned_on_the_cpu():
 def test_spill_waivers_are_dated_and_name_golden_spills():
     for (name, k), why in cm.SPILL_WAIVERS.items():
         assert re.search(r"20\d\d-\d\d-\d\d", why)
-        fig = cm.GOLDEN["ptxas"][f"k{k}"][name]
+        fig = cm.GOLDEN["ptxas"][f"k{library_tag(k)}"][name]
         assert fig["spill_stores"] or fig["spill_loads"], (name, k)
     for k in (8,):                    # the served width spills nothing
         assert not any(f["spill_stores"] or f["spill_loads"]

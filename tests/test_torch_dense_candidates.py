@@ -223,9 +223,9 @@ def test_long_segment_split():
 
 def test_sweep_instance_k_picks_the_next_built_width():
     """K in SWEEP_KS runs itself; any other K up to the largest runs the
-    smallest built K' >= K; K < 1 or past the largest raises naming the
-    set."""
-    from reporter_tpu_torch.ops.dense_candidates import (SWEEP_KS,
+    smallest built K' >= K; past the largest the wide instance runs at K
+    itself; K < 1 raises naming the set."""
+    from reporter_tpu_torch.ops.dense_candidates import (SWEEP_KS, is_wide,
                                                          sweep_instance_k)
 
     for k in range(1, SWEEP_KS[-1] + 1):
@@ -235,7 +235,10 @@ def test_sweep_instance_k_picks_the_next_built_width():
     for k in SWEEP_KS:
         assert sweep_instance_k(k) == k
     assert [sweep_instance_k(k) for k in (5, 7, 10)] == [6, 8, 12]
-    for k in (0, -1, SWEEP_KS[-1] + 1, 32):
+    assert not any(is_wide(k) for k in SWEEP_KS)
+    for k in (SWEEP_KS[-1] + 1, 32):
+        assert sweep_instance_k(k) == k and is_wide(k)
+    for k in (0, -1):
         with pytest.raises(ValueError, match=r"K in \(4, 6, 8, 12, 16\)"):
             sweep_instance_k(k)
 
@@ -245,7 +248,10 @@ def test_first_k_columns_of_a_wider_sweep_are_the_sweep_at_k(ts):
     order over distinct edges, so the first k columns of the sweep at K'
     equal the sweep at k, ties (every node: d = 0) and empty slots
     included. Held on the plain version, whose order the kernel's is
-    bit-equal to on the card (tests/test_torch_kernels_gpu.py)."""
+    bit-equal to on the card (tests/test_torch_kernels_gpu.py), for k up
+    to 48: at the next built K' (k itself past SWEEP_KS, the wide
+    instance) and at 48, at the 50 m radius and at 150 m, where the tiny
+    city puts more than 16 distinct edges near some points."""
     from reporter_tpu_torch.ops.dense_candidates import (_dense_plain,
                                                          sweep_instance_k)
 
@@ -258,9 +264,13 @@ def test_first_k_columns_of_a_wider_sweep_are_the_sweep_at_k(ts):
                         ts.seg_len)
     pack = torch.from_numpy(sp.pack)
     p = torch.from_numpy(pts)
-    wide = {kk: _dense_plain(p, pack, RADIUS, kk) for kk in (4, 6, 8, 12, 16)}
-    for k in range(1, 17):
-        want = _dense_plain(p, pack, RADIUS, k)
-        got = wide[sweep_instance_k(k)]
-        for g, w in zip(got, want):
-            assert torch.equal(g[:, :k], w), k
+    for radius in (RADIUS, 150.0):
+        wide = {kk: _dense_plain(p, pack, radius, kk)
+                for kk in (4, 6, 8, 12, 16, 48)}
+        if radius > RADIUS:
+            assert int((wide[48][0] >= 0).sum(1).max()) > 16
+        for k in range(1, 49):
+            want = wide[k] if k in wide else _dense_plain(p, pack, radius, k)
+            for kk in {sweep_instance_k(k), 48} - {k}:
+                for g, w in zip(wide[kk], want):
+                    assert torch.equal(g[:, :k], w), (radius, k, kk)

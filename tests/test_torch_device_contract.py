@@ -1,7 +1,8 @@
 """The port's device contract (reporter_tpu_torch/analysis/
 device_contract.py): every rule fires on a seeded violation and passes
 its clean twin, and the whole CPU matrix (3 wire entries x 5 arms x 3
-layouts x {single, mesh}, and the scatters) has no unwaived finding. On
+layouts x {single, mesh}, the scatters and the staging cases) has no
+unwaived finding. On
 the card the same audit runs under sync-debug "error" (the gpu case in
 tests/test_torch_kernels_gpu.py, chip_smoke.py's [analysis:device])."""
 
@@ -48,7 +49,8 @@ def test_the_matrix_is_whole():
     assert {"f32/block/compact/single", "q8/mxu_bf16/packed/mesh",
             "q16/sub_bf16/full/mesh"} <= labels
     _matrix()
-    assert _STATS["cases"] == len(cases) + 3      # and the three scatters
+    # and the three scatters, and the five staging cases
+    assert _STATS["cases"] == len(cases) + 3 + 5
     assert _STATS["aten_ops"] > 0
 
 

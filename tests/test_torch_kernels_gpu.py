@@ -1,6 +1,8 @@
 """The CUDA sweep kernel (reporter_tpu_torch/kernels/sweep_exact.cu, its
-five arms at each top-K width of SWEEP_KS) against its plain PyTorch
-versions, on the card, and the native host half of match_many there.
+five arms at each top-K width of SWEEP_KS and in the wide instance past
+them) against its plain PyTorch versions, on the card, the host-to-card
+staging (device.host_to_device), and the native host half of match_many
+there.
 Candidates, every arm and K: tolerance 0
 (the same f32 arithmetic, one rounding per operation). The bf16 filter's
 gate decisions: tolerance 0 (every bf16 operation is correctly rounded on
@@ -158,17 +160,22 @@ def test_sweep_past_the_grid_at_every_k(sf_tile, sf_fleet, k):
 
 
 def test_sweep_rejects_k_outside_the_set(sf):
-    """The set the sweep serves is 1 <= K <= max(SWEEP_KS): past it (and
-    below 1) sweep_topk raises naming the built widths."""
+    """The set the sweep serves is K >= 1: below it sweep_topk raises
+    naming the built widths; past max(SWEEP_KS) the wide instance runs at
+    K itself."""
     tab, pts, _ = sf
     fpts = pts[:dc._P].contiguous()
     ids, nhits = dc._chunk_block_ids(
         fpts, torch.ones(dc._P, dtype=torch.bool, device=pts.device),
         tab["seg_bbox"], 50.0, 1)
-    for k in (0, dc.SWEEP_KS[-1] + 1, 32):
+    for k in (0, -1):
         with pytest.raises(ValueError, match="K in"):
             dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
                           tab["seg_coarse"], 50.0, k, "sub")
+    for k in (dc.SWEEP_KS[-1] + 1, 32):
+        got = dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"],
+                            tab["seg_sub"], tab["seg_coarse"], 50.0, k, "sub")
+        assert all(g.shape == (dc._P, k) for g in got)
 
 
 @pytest.mark.parametrize("k", (5, 7, 10))
@@ -189,11 +196,94 @@ def test_sweep_between_the_built_widths(sf, arm, k):
                         tab["seg_coarse"], 50.0, k, arm)
     ref = dc._dense_plain(pts, tab["seg_pack"], 50.0, k)
     torch.cuda.synchronize()
-    assert {key: v - before[key] for key, v in dc.SWEEP_LAUNCHES.items()
-            if v != before[key]} == {(arm, kk): 1}
+    assert {key: v - before.get(key, 0)
+            for key, v in dc.SWEEP_LAUNCHES.items()
+            if v != before.get(key, 0)} == {(arm, kk): 1}
     for g, r in zip(got, ref):
         assert g.shape == (nchunks * dc._P, k) and g.is_contiguous()
         assert torch.equal(g[:n][valid], r[valid])
+
+
+WIDE_RADIUS = 150.0     # sf: most points have more than 16 edges within it
+_WIDE_REF: dict = {}
+
+
+def _wide_ref(pts, pack, k):
+    if k not in _WIDE_REF:
+        _WIDE_REF[k] = dc._dense_plain(pts, pack, WIDE_RADIUS, k)
+    return _WIDE_REF[k]
+
+
+@pytest.mark.parametrize("k", (17, 48))
+@pytest.mark.parametrize("arm", dc.SWEEP_ARMS)
+def test_wide_instance_equals_plain(sf, arm, k):
+    """K past SWEEP_KS runs the wide instance at K itself (its list in a
+    global scratch): bit-equal to _dense_plain at 150 m on the valid
+    points, where lists past 16 fill and evict, the launch counted under
+    (arm, K)."""
+    tab, pts, valid = sf
+    n = len(pts)
+    nchunks = -(-n // dc._P)
+    fpts, fval = dc._fill_invalid(pts, valid, nchunks)
+    ids, nhits = dc._chunk_block_ids(fpts, fval, tab["seg_bbox"],
+                                     WIDE_RADIUS, nchunks)
+    before = dict(dc.SWEEP_LAUNCHES)
+    got = dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                        tab["seg_coarse"], WIDE_RADIUS, k, arm)
+    torch.cuda.synchronize()
+    assert {key: v - before.get(key, 0)
+            for key, v in dc.SWEEP_LAUNCHES.items()
+            if v != before.get(key, 0)} == {(arm, k): 1}
+    ref = _wide_ref(pts, tab["seg_pack"], k)
+    assert int((ref[0][valid] >= 0).sum(1).max()) > dc.SWEEP_KS[-1]
+    for g, r in zip(got, ref):
+        assert g.shape == (nchunks * dc._P, k)
+        assert torch.equal(g[:n][valid], r[valid])
+
+
+def test_wide_instance_past_the_grid(sf_tile, sf_fleet):
+    """The wide instance at K = 32 on 512 chunks, more than its persistent
+    grid (CTAs take second chunks: the list's reset at a new point), every
+    arm bit-equal to _dense_plain on every point; squared=True too."""
+    from reporter_tpu_torch.kernels import build
+
+    _, tab = sf_tile
+    pts, k = sf_fleet, 32
+    nchunks = len(pts) // dc._P
+    ids, nhits = dc._chunk_block_ids(
+        pts, torch.ones(len(pts), dtype=torch.bool, device=pts.device),
+        tab["seg_bbox"], WIDE_RADIUS, nchunks)
+    ref = dc._dense_plain(pts, tab["seg_pack"], WIDE_RADIUS, k)
+    for arm in dc.SWEEP_ARMS:
+        sh = build.exact_shape(dc.SWEEP_ARMS.index(arm), k)
+        assert nchunks > sh["ctas_per_sm"] * sh["sms"]
+        got = dc.sweep_topk(pts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                            tab["seg_coarse"], WIDE_RADIUS, k, arm)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), arm
+    sq = dc.sweep_topk(pts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                       tab["seg_coarse"], WIDE_RADIUS, k, "sub", squared=True)
+    assert torch.equal(dc.root_dist(sq[2]), ref[2])
+
+
+def test_host_to_device_is_pinned_and_does_not_block(cuda):
+    """The staging helper under sync-debug "error": no synchronizing call
+    (a pageable copy makes one, which is why the port stages through
+    pinned memory), and the caller may overwrite its array at once."""
+    from reporter_tpu_torch.device import host_to_device
+
+    x = np.arange(1 << 20, dtype=np.int64)
+    want = x.copy()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = host_to_device(x, cuda)
+        x[:] = -1
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.from_numpy(x).to(cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert t.device.type == "cuda" and t.dtype == torch.int64
+    assert np.array_equal(t.cpu().numpy(), want)
 
 
 def test_native_match_many_on_the_card_equals_python_walk(sf_tile, cuda):
@@ -342,7 +432,7 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
         dc.sweep_topk(pts.cpu(), ids, nhits, sweep, None, None, 50.0, 8,
                       "block")
     with pytest.raises(ValueError, match=r"K in \(4, 6, 8, 12, 16\)"):
-        dc.sweep_topk(pts, ids, nhits, sweep, None, None, 50.0, 17, "block")
+        dc.sweep_topk(pts, ids, nhits, sweep, None, None, 50.0, 0, "block")
     with pytest.raises(ValueError):      # the mxu arm without seg_coarse
         dc.sweep_topk(pts, ids, nhits, sweep, sub, None, 50.0, 8, "mxu")
     with pytest.raises(ValueError):      # the bf16 filter without seg_coarse
@@ -767,7 +857,8 @@ def test_device_contract_under_sync_debug_on_the_card(cuda):
 
     stats = {}
     found = dcon.run_device_contract(cuda, stats=stats)
-    assert stats["cases"] == len(dcon.audit_cases()) + 3
+    assert stats["cases"] == len(dcon.audit_cases()) + 3 + 5
+    assert stats["staging_cases"] == 5
     assert not [f for f in found if not f.waived], \
         "\n".join(str(f) for f in found if not f.waived)
     x = torch.ones(8, device=cuda)
