@@ -11,13 +11,16 @@ the native host half against its Python forms, in phases:
   2. build    — nvcc-build kernels/sweep_exact.cu once per top-K width of
                 SWEEP_KS (the five arms at that K, sm_90a) and once as the
                 wide library (the five arms at a run-time K, which serve
-                every K past 16; the six nvcc started together) and
+                every K past 16, each with its lists in shared memory and
+                past the arm's shared_max_k in a global scratch; the six
+                nvcc started together) and
                 g++-build the host library
                 (native/prepare.cc, walker.cc) into reporter_tpu_torch/
                 _build/, with the build times side by side; the ptxas
                 figures of every kernel instance and each arm's launch
-                shape at each K (threads, ring depth, dynamic shared
-                memory, CTAs per SM, SMs, grid);
+                shape at each K of SWEEP_KS and WIDE_KS (threads, ring
+                depth, dynamic shared memory, CTAs per SM, SMs, grid,
+                where the lists are: dc.list_plan);
   3. tiles    — compile "sf" (~5.3k directed edges, its spatial grid
                 included); [tiles:native]: its
                 node-space reach rows by the C++ builder (native/reach.cc,
@@ -51,10 +54,14 @@ the native host half against its Python forms, in phases:
                 counted under (arm, K') (on organic too);
                 Then, at WIDE_RADIUS (150 m, where most sf points have more
                 than 16 edges within reach), every arm through the wide
-                instance at each K of WIDE_KS (20, 24, 32) and through the
-                register K = 16 beside it: equal across arms on all
-                points, bit-equal to _dense_plain on the 64 chunks, times
-                and bounds; [kernel:wide] their seconds;
+                instances at each K of WIDE_KS (20, 24, 32, 48, 64: the
+                lists in shared memory, and at 48 for the gated arms and
+                64 for every arm in the scratch) and through the register
+                K = 16 beside them: equal across arms on all points,
+                bit-equal to _dense_plain on the 64 chunks, times and
+                bounds, each wide line with its lists, shared memory, CTAs
+                per SM, ring depth and its times' ratio to that K = 16;
+                [kernel:wide] their seconds;
      gates    — parallel streets 500 m apart, where every coarse gate
                 culls: the gate share must be below the vote share;
   5. main     — with a fresh autotune cache, SegmentMatcher(ts) calibrates
@@ -517,8 +524,11 @@ KERNEL_BETWEEN_KS = (5, 7, 10)  # [kernel:k], [main:k]: widths between the
 WIDE_RADIUS = 150.0           # [kernel:k], [main:k] past the register widths:
 #                               on sf at 50 m no point has more than 16 edges
 #                               within reach (a wide list would never evict)
-WIDE_KS = (20, 24, 32)        # [kernel:k]: the wide instance's widths (and
-#                               the register K = 16 beside them, at 150 m)
+WIDE_KS = (20, 24, 32, 48, 64)  # [kernel:k]: the wide instances' widths
+#                               (and the register K = 16 beside them, at
+#                               150 m): the lists in shared memory, and at
+#                               48 (the gated arms) and 64 (every arm) past
+#                               the arm's shared-memory K, in the scratch
 MAIN_WIDE_K = 32              # [main:k]: the wide instance on the main path
 ROUTER_METROS = ("sf", "nyc", "la")   # [router]: BASELINE config 4's trio
 ROUTER_CLIENTS, ROUTER_UUIDS = 64, 2  # [router]: clients (round-robin over
@@ -741,12 +751,14 @@ def check_rows(dc, nhits, n_chunks):
 
 
 def kernel_phase(card, tab, pts, radius, k, dc, build, metro, tag="kernel",
-                 check_chunks=None, plain_reps=3):
+                 check_chunks=None, plain_reps=3, versus=None):
     """Every arm on the same points at top-K width k: equal to the first
     arm on all of them and bit-equal to _dense_plain on all of them, or
     on ``check_chunks`` chunks (check_rows); its gate against the plain
-    gate, its time and its bound; the chunk order and the work spread
-    (tag "kernel"). → {arm: record}."""
+    gate, its time and its bound; its instance's launch shape and where
+    it keeps its lists (dc.list_plan); the chunk order and the work
+    spread (tag "kernel"). ``versus`` ({arm: record} of another K in this
+    call) adds each arm's ratio of times to it. → {arm: record}."""
     n = pts.shape[0]
     valid = torch.ones(n, dtype=torch.bool, device="cuda")
     nchunks = n // dc._P
@@ -807,7 +819,16 @@ def kernel_phase(card, tab, pts, radius, k, dc, build, metro, tag="kernel",
                "ms": cuda_ms(run, reps=20), "ms_back_to_back": launch_ms(run),
                "plain_ms": plain_ms, "plain_points": check_n,
                "chunks": nchunks, "grid": grid,
-               "instance": "wide" if dc.is_wide(k) else "register"}
+               "instance": "wide" if dc.is_wide(k) else "register",
+               "lists": dc.list_plan(arm, k)[0],
+               "smem_bytes": sh["smem_bytes"],
+               "ctas_per_sm": sh["ctas_per_sm"], "depth": sh["depth"],
+               "equal_across_arms": True}
+        if versus is not None:
+            rec["ratio"] = {
+                "single": rec["ms"] / versus[arm]["ms"],
+                "back_to_back": (rec["ms_back_to_back"]
+                                 / versus[arm]["ms_back_to_back"])}
         if chunks is not None:
             # checked chunks a CTA takes after its first (order position
             # at or past the grid)
@@ -5824,15 +5845,17 @@ def main() -> int:
                         "gxx_seconds": native_build.BUILD_LOG.get("seconds")})
     # the persistent grid is min(chunks, CTAs per SM x SMs); the kernel
     # phase runs 512 chunks
+    # the wide library's shape follows K (its lists in shared memory, or
+    # past the arm's shared_max_k in the scratch): one per K of WIDE_KS
     shapes = {}
-    for k in build.LIBRARIES:
+    for k in (*dc.SWEEP_KS, *WIDE_KS):
         for code, arm in enumerate(dc.SWEEP_ARMS):
             sh = build.exact_shape(code, k)
             sh["grid_at_512_chunks"] = min(512, sh["ctas_per_sm"] * sh["sms"])
-            shapes[f"{arm}@k{build.library_tag(k)}"] = sh
+            sh["lists"] = dc.list_plan(arm, k)[0]
+            shapes[f"{arm}@k{k}"] = sh
     # lint: allow[bench-coverage] 2026-10-18 one launch shape per arm and K
-    # or the wide library (kernels/build.exact_shape); [bench_delta] reads
-    # the printed line
+    # (kernels/build.exact_shape); [bench_delta] reads the printed line
     phase("build:exact_shape", card, **shapes)
 
     # ---- 3. tiles ---------------------------------------------------------
@@ -5854,12 +5877,18 @@ def main() -> int:
                             tag="kernel:k", check_chunks=CHECK_CHUNKS)
             for k in dc.SWEEP_KS}
     kernel_between_phase(card, tab, pts, radius, dc, "sf")
-    # past the register widths: the wide instance at each K of WIDE_KS,
-    # and the register K = 16 beside it, at a radius where lists evict
+    # past the register widths: the wide instances at each K of WIDE_KS,
+    # and the register K = 16 beside them, at a radius where lists evict;
+    # each wide line with its ratio to that K = 16
     t_wide = time.perf_counter()
-    wide = {k: kernel_phase(card, tab, pts, WIDE_RADIUS, k, dc, build, "sf",
-                            tag="kernel:k", check_chunks=CHECK_CHUNKS)
-            for k in (dc.SWEEP_KS[-1], *WIDE_KS)}
+    k16 = dc.SWEEP_KS[-1]
+    wide = {k16: kernel_phase(card, tab, pts, WIDE_RADIUS, k16, dc, build,
+                              "sf", tag="kernel:k",
+                              check_chunks=CHECK_CHUNKS)}
+    for k in WIDE_KS:
+        wide[k] = kernel_phase(card, tab, pts, WIDE_RADIUS, k, dc, build,
+                               "sf", tag="kernel:k",
+                               check_chunks=CHECK_CHUNKS, versus=wide[k16])
     phase("kernel:wide", card, seconds=time.perf_counter() - t_wide,
           search_radius=WIDE_RADIUS)
     gates_phase(card, dc, radius, 8)

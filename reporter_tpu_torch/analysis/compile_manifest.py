@@ -10,7 +10,8 @@ library, and this module pins, per instance (arm, K or ``wide``):
 
 - the launch shape ``build.exact_shape`` reports (threads, dynamic
   shared memory, CTAs per SM, ring depth, gate group; the SM count is the
-  card's and is left out);
+  card's and is left out), the wide library's at ``WIDE_PIN_K``, since
+  its shared memory follows K;
 - from the ``ptxas -v`` report kept beside each library
   (``build.ptxas_log``): each kernel's registers and static shared
   memory, and 0 spill bytes (``SPILL_WAIVERS``: the dated exceptions);
@@ -51,6 +52,9 @@ ENVELOPE = {
     "reach_max": 128,
 }
 H100_HBM_BYTES = 80 * 10**9
+# the wide library's launch shape follows K (its shared-memory lists): its
+# rows are pinned at the K that chip_smoke.py's main path runs it at
+WIDE_PIN_K = 32
 # sections only a card can compute (nvcc's report, the launch shape query)
 CARD_SECTIONS = ("launch", "ptxas")
 
@@ -70,10 +74,11 @@ SPILL_WAIVERS = {
     ("sweep_exact_kernel<2,12>", 12): _SPILL_WHY,
     ("sweep_exact_kernel<3,12>", 12): _SPILL_WHY,
     ("sweep_exact_kernel<3,0>", 0): (
-        "2026-10-18 the wide instance's mxu arm: ptxas caps it at 72 "
-        "registers for 2 CTAs of 288 threads per SM and spills 24 / 32 "
-        "bytes; its running list is in global memory already, and the "
-        "wide list's speed is queued in ROADMAP queue 2"),
+        "2026-10-18 the wide shared-memory instance's mxu arm: ptxas "
+        "holds it to 72 registers (room for 3 CTAs of 288 threads per SM, "
+        "though its shared memory admits 1) and spills 16 / 20 bytes, "
+        "down from PR 19's global-list instance's 24 / 32; its cost is "
+        "not measured (ROADMAP queue 3, the sweep's spills)"),
 }
 
 
@@ -81,7 +86,7 @@ def kernel_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name: the
     innermost length-prefixed identifier that ends in "_kernel" (a hash's
     digits may run into its length), then its ILi..E arguments (e.g.
-    sweep_exact_kernel<3>)."""
+    sweep_exact_kernel<3,8>, or sweep_exact_kernel<3,-1> for Lin1E)."""
     found = None
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):
@@ -92,8 +97,10 @@ def kernel_name(mangled: str) -> str:
     if found is None:
         return mangled
     rest = mangled[mangled.rindex(found) + len(found):]
-    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) \
+    args = re.findall(r"L[ib](n?\d+)E", rest.split("EEv")[0]) \
         if rest.startswith("I") else []
+    # a negative literal mangles with an "n" (the scratch instance, K = -1)
+    args = [a.replace("n", "-") for a in args]
     return found + (f"<{','.join(args)}>" if args else "")
 
 
@@ -169,7 +176,8 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
     launch = {}
     for k in build.LIBRARIES:
         for code, arm in enumerate(SWEEP_ARMS):
-            sh = build.exact_shape(code, k, device)
+            sh = build.exact_shape(code, WIDE_PIN_K if k == build.WIDE else k,
+                                   device)
             sh.pop("sms")
             launch[f"{arm}@k{build.library_tag(k)}"] = sh
     out["launch"] = launch
@@ -239,10 +247,10 @@ GOLDEN: "dict[str, Any]" = \
                          'gate_group': 0,
                          'smem_bytes': 65920,
                          'threads': 288},
-            'block@kwide': {'ctas_per_sm': 3,
+            'block@kwide': {'ctas_per_sm': 1,
                             'depth': 4,
                             'gate_group': 0,
-                            'smem_bytes': 65920,
+                            'smem_bytes': 164224,
                             'threads': 288},
             'mxu@k12': {'ctas_per_sm': 2,
                         'depth': 3,
@@ -269,10 +277,10 @@ GOLDEN: "dict[str, Any]" = \
                        'gate_group': 32,
                        'smem_bytes': 98688,
                        'threads': 288},
-            'mxu@kwide': {'ctas_per_sm': 2,
+            'mxu@kwide': {'ctas_per_sm': 1,
                           'depth': 3,
                           'gate_group': 32,
-                          'smem_bytes': 98688,
+                          'smem_bytes': 196992,
                           'threads': 288},
             'mxu_bf16@k12': {'ctas_per_sm': 2,
                              'depth': 4,
@@ -299,10 +307,10 @@ GOLDEN: "dict[str, Any]" = \
                             'gate_group': 32,
                             'smem_bytes': 98816,
                             'threads': 288},
-            'mxu_bf16@kwide': {'ctas_per_sm': 2,
+            'mxu_bf16@kwide': {'ctas_per_sm': 1,
                                'depth': 4,
                                'gate_group': 32,
-                               'smem_bytes': 98816,
+                               'smem_bytes': 197120,
                                'threads': 288},
             'sub@k12': {'ctas_per_sm': 2,
                         'depth': 4,
@@ -329,10 +337,10 @@ GOLDEN: "dict[str, Any]" = \
                        'gate_group': 0,
                        'smem_bytes': 65920,
                        'threads': 288},
-            'sub@kwide': {'ctas_per_sm': 3,
+            'sub@kwide': {'ctas_per_sm': 1,
                           'depth': 4,
                           'gate_group': 0,
-                          'smem_bytes': 65920,
+                          'smem_bytes': 164224,
                           'threads': 288},
             'sub_bf16@k12': {'ctas_per_sm': 2,
                              'depth': 4,
@@ -359,10 +367,10 @@ GOLDEN: "dict[str, Any]" = \
                             'gate_group': 8,
                             'smem_bytes': 86464,
                             'threads': 288},
-            'sub_bf16@kwide': {'ctas_per_sm': 2,
+            'sub_bf16@kwide': {'ctas_per_sm': 1,
                                'depth': 4,
                                'gate_group': 8,
-                               'smem_bytes': 86464,
+                               'smem_bytes': 184768,
                                'threads': 288}},
  'manifest_version': 1,
  'nvcc_flags': ['-gencode',
@@ -501,22 +509,42 @@ GOLDEN: "dict[str, Any]" = \
                                             'spill_loads': 0,
                                             'spill_stores': 0,
                                             'static_smem': 1024},
-                     'sweep_exact_kernel<0,0>': {'registers': 64,
+                     'sweep_exact_kernel<0,-1>': {'registers': 72,
+                                                  'spill_loads': 0,
+                                                  'spill_stores': 0,
+                                                  'static_smem': 0},
+                     'sweep_exact_kernel<0,0>': {'registers': 65,
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
                                                  'static_smem': 0},
-                     'sweep_exact_kernel<1,0>': {'registers': 72,
+                     'sweep_exact_kernel<1,-1>': {'registers': 86,
+                                                  'spill_loads': 0,
+                                                  'spill_stores': 0,
+                                                  'static_smem': 0},
+                     'sweep_exact_kernel<1,0>': {'registers': 69,
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
                                                  'static_smem': 0},
+                     'sweep_exact_kernel<2,-1>': {'registers': 90,
+                                                  'spill_loads': 0,
+                                                  'spill_stores': 0,
+                                                  'static_smem': 0},
                      'sweep_exact_kernel<2,0>': {'registers': 72,
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
                                                  'static_smem': 0},
-                     'sweep_exact_kernel<3,0>': {'registers': 72,
-                                                 'spill_loads': 32,
-                                                 'spill_stores': 24,
+                     'sweep_exact_kernel<3,-1>': {'registers': 94,
+                                                  'spill_loads': 0,
+                                                  'spill_stores': 0,
+                                                  'static_smem': 0},
+                     'sweep_exact_kernel<3,0>': {'registers': 71,
+                                                 'spill_loads': 20,
+                                                 'spill_stores': 16,
                                                  'static_smem': 0},
+                     'sweep_exact_kernel<4,-1>': {'registers': 90,
+                                                  'spill_loads': 0,
+                                                  'spill_stores': 0,
+                                                  'static_smem': 0},
                      'sweep_exact_kernel<4,0>': {'registers': 72,
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,

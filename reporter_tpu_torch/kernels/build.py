@@ -6,8 +6,10 @@
 the top-K width K. ``nvcc`` compiles it for ``sm_90a`` once per K of
 ``SWEEP_KS`` (``-DRTT_SWEEP_K=K``: the five arms at that K, their running
 list in registers) and once as the wide library (``-DRTT_SWEEP_K=0``,
-library key ``WIDE``: the five arms with the list in a global scratch and
-K given at run time, which serves every K past ``SWEEP_KS[-1]``), each at
+library key ``WIDE``: the five arms with K given at run time, which serve
+every K past ``SWEEP_KS[-1]``, each arm's lists in shared memory beside
+its ring up to the K whose lists fit there and in a global scratch past
+it: ``ops/dense_candidates.list_plan``), each at
 its first use, into ``reporter_tpu_torch/_build/``: one shared library
 per K and ``libsweep_exact_kwide_<hash>.so``, with a plain C interface,
 loaded with ctypes (seconds to build, no PyTorch headers). ``build_all``
@@ -35,7 +37,8 @@ from pathlib import Path
 # per K here, each library holding the five arms at that K
 SWEEP_KS = (4, 6, 8, 12, 16)
 # the key of the wide library (-DRTT_SWEEP_K=0): the five arms at a top-K
-# width given at run time, their list in a scratch the caller allocates
+# width given at run time, their lists in shared memory or, past the K that
+# fits there, in a scratch the caller allocates
 WIDE = 0
 
 _HERE = Path(__file__).resolve().parent
@@ -186,8 +189,9 @@ def launch_sweep_exact(pts, ids, nhits, order, table, sub, coarse,
     checks the tensors. ``sub`` and ``gate_log`` may be None for the block
     arm, ``coarse`` for block and sub. ``squared``: ``dist`` receives the
     squared distances. ``scratch`` (f32 [3, K, nchunks * 256]) holds the
-    wide library's running lists and is required there; the register
-    libraries take None."""
+    running lists of the wide library's scratch instance (past the arm's
+    shared-memory K, ``dense_candidates.list_plan``) and is required
+    there; every other instance takes None."""
     k = int(edge.shape[1])
     lib = _lib(library_key(k))
     with _on_device(pts.device):
@@ -203,12 +207,13 @@ def launch_sweep_exact(pts, ids, nhits, order, table, sub, coarse,
 
 
 def exact_shape(arm: int, k: int, device="cuda") -> dict:
-    """The ring-fed sweep's launch shape at top-K width k (WIDE or any k
-    past SWEEP_KS: the wide instance's, the same at every such k) on
-    ``device`` (``cuda``: the current one): threads per CTA, dynamic
-    shared memory (bytes), resident CTAs per SM, SMs, the ring's depth
-    (stages) and the columns per early-exit test of the arm's gate (0 for
-    block and sub)."""
+    """The ring-fed sweep's launch shape at top-K width k (a K of
+    SWEEP_KS, or any k past them: the shape of the wide instance that
+    serves k, whose shared memory and CTAs per SM follow k) on ``device``
+    (``cuda``: the current one): threads per CTA, dynamic shared memory
+    (bytes), resident CTAs per SM, SMs, the ring's depth (stages) and the
+    columns per early-exit test of the arm's gate (0 for block and
+    sub)."""
     vals = [ctypes.c_int(0) for _ in range(6)]
     lib = _lib(library_key(k))
     with _on_device(device):

@@ -18,10 +18,11 @@
 // ops/dense_candidates.py's SWEEP_ARMS and K the top-K width. One nvcc of
 // this file with -DRTT_SWEEP_K=K builds the five arms at that K into one
 // library; kernels/build.py builds one library per K of SWEEP_KS and the
-// wide library (-DRTT_SWEEP_K=0: sweep_exact_kernel<ARM, 0>, the top-K
-// width a run-time argument), all started together. The running top-K is
-// topk.cuh's: a RegList<K> in registers, or in the wide instance a
-// WideList in a slot-major global scratch.
+// wide library (-DRTT_SWEEP_K=0: the top-K width a run-time argument), all
+// started together. The running top-K is topk.cuh's: a RegList<K> in
+// registers, or in the wide library a WideList in the CTA's shared memory
+// (sweep_exact_kernel<ARM, 0>) or, past the K whose lists fit there, in a
+// global scratch (sweep_exact_kernel<ARM, -1>).
 //
 // Bound on this card: the arithmetic of the exactly swept (point, column)
 // pairs on the CUDA cores, plus for sub_bf16 its gate's bf16 pairs on the
@@ -151,17 +152,28 @@
 // K = 4, 6 and 12 and none at K = 8 or 16; chip_smoke.py prints the
 // figures and PERF.md keeps them.
 //
-// The wide instance (K = 0 here) serves every K past the largest register
-// width, where the list does not fit the registers: its list lives in a
-// scratch [3][K][npad] that the wrapper allocates (topk.cuh's WideList),
-// with the K-th slot's (d^2, edge) in registers as the admission bound, so
-// an in-radius pair that cannot enter costs no memory access; a pair that
-// can scans the point's filled slots (coalesced across the warp) and moves
-// its entry up. The chunk's rows are written from the scratch at its last
-// item, one value at a time (any K). Everything else -- the ring, the
-// producer, the votes, the gates, sweep_cols -- is the register
-// instances'. Its cost is the scratch's traffic, which the bound does not
-// count; a list in shared memory is queued in ROADMAP queue 2.
+// The wide instances serve every K past the largest register width,
+// where the list does not fit the registers; the kernel is the register
+// instances' but for the list -- the ring, the producer, the votes, the
+// gates, sweep_cols -- and the chunk's rows are written from the list at
+// its last item, one value at a time (any K). Their list is topk.cuh's
+// WideList, in one of two places, chosen by (arm, K) alone before the
+// launch (rtt_sweep_exact; ops/dense_candidates.list_plan mirrors it):
+// - sweep_exact_kernel<ARM, 0> keeps it in dynamic shared memory after
+//   the ring: per field [K][256] words, slot i of consumer thread t at
+//   i * 256 + t, 12 * 256 * K bytes a CTA beside the ring, while that fits
+//   the card's 232,448 bytes a CTA (kSmemPerCta) beside the full ring: K
+//   <= 54 for block and sub, 47 for sub_bf16, 43 for mxu and mxu_bf16.
+//   Its ring runs as deep as two CTAs per SM allow, up to the arm's depth
+//   (Ring::wide_depth): block and sub 3 stages to K = 21 and 2 to K = 26,
+//   sub_bf16 and mxu_bf16 2 to K = 23 and 21; past that, and for mxu at
+//   every K, the full ring at one CTA per SM. So its shared memory, depth
+//   and CTAs per SM follow K, and the launch shape is queried per K;
+// - sweep_exact_kernel<ARM, -1>, past that K, keeps it in a [3][K][npad]
+//   f32 scratch that the wrapper allocates, the points' slots slot-major
+//   (the same WideList, its stride the run-time npad).
+// The scan and the insertion are topk.cuh's: a Bloom mask in registers
+// spares the scan for most new edges, and both read several slots a step.
 //
 // Measured on the card against two alternatives (PERF.md), both slower
 // and so not kept: two points per thread in the block arm (two chains per
@@ -197,16 +209,21 @@ namespace {
 using rtt::kBig;
 
 constexpr int kK = RTT_SWEEP_K;    // the top-K width of this library
-constexpr int kWide = 0;           // K of the wide instance (K at run time)
+constexpr int kWide = 0;           // the wide library (K at run time), and
+//                                    its shared-memory list's instance
+constexpr int kWideScratch = -1;   // its global-scratch list's instance
 static_assert(kK == kWide || (kK >= 1 && kK <= 16),
               "a register list holds 1-16 slots; past that the wide "
-              "instance (RTT_SWEEP_K=0) serves");
+              "library (RTT_SWEEP_K=0) serves");
 
 constexpr int kP = 256;            // points per chunk (the pre-pass's unit)
 constexpr int kSblk = 512;         // columns per block
 constexpr int kSub = 128;          // columns per culling slice
 constexpr int kNsub = kSblk / kSub;
 constexpr int kMaxDevices = 16;
+constexpr int kSmemPerCta = 232448;  // the card's dynamic shared memory a CTA
+constexpr int kSmemPerSm = 233472;   // and an SM's, of which each CTA
+constexpr int kCtaReserve = 1024;    // takes this much besides its own
 constexpr unsigned kAll = 0xffffffffu;
 
 constexpr int kBatch = 4;          // columns per step of a warp's sweep
@@ -263,14 +280,79 @@ struct Ring {
   static constexpr unsigned kStage = kColBytes + kQuadBytes + kCoBytes;
   static constexpr int kDepth =
       ARM == kMxu ? 3 : 4;
-  // dynamic shared memory: the stages, one item word (chunk, slot, block,
-  // nhits) per stage, the full and the empty mbarriers
-  static constexpr int kItemOff = kDepth * int(kStage);
-  static constexpr int kBarOff = kItemOff + kDepth * int(sizeof(int4));
-  static constexpr int kSmem = kBarOff + 2 * kDepth * int(sizeof(uint64_t));
+  // dynamic shared memory of a ring of d stages: the stages, one item word
+  // (chunk, slot, block, nhits) per stage, the full and the empty
+  // mbarriers; kDepth stages but in the wide shared instance (wide_depth)
+  static __host__ __device__ constexpr int item_off(int d) {
+    return d * int(kStage);
+  }
+  static __host__ __device__ constexpr int bar_off(int d) {
+    return item_off(d) + d * int(sizeof(int4));
+  }
+  static __host__ __device__ constexpr int ring_smem(int d) {
+    return bar_off(d) + 2 * d * int(sizeof(uint64_t));
+  }
+  static constexpr int kSmem =                     // ring_smem(kDepth)
+      kDepth * (int(kStage) + int(sizeof(int4)) + 2 * int(sizeof(uint64_t)));
   static_assert(kStage % 16 == 0 && kCoBytes % 16 == 0 &&
                 (4 * kCoFirst) % 16 == 0 && (4 * kCoWords) % 16 == 0,
                 "bulk copies need 16-byte sizes and addresses");
+  static_assert(kSmem % 16 == 0, "the shared-memory lists follow the ring");
+  // the wide library's lists in shared memory after the ring: 3 fields of
+  // kP words per slot; the largest K whose CTA fits kSmemPerCta
+  static constexpr int kListSlotBytes = 3 * 4 * kP;
+  static constexpr int kSharedMaxK = (kSmemPerCta - kSmem) / kListSlotBytes;
+  // the ring's depth in <ARM, 0> at width k: the deepest, up to kDepth, at
+  // which two of its CTAs fit an SM, else kDepth (one CTA). A development
+  // run on the card (PERF.md) found two CTAs on a shallower ring faster
+  // than one on the full ring, and one CTA on a shallower ring slower.
+  static __host__ __device__ constexpr int wide_depth(int k) {
+    for (int d = kDepth; d >= 2; --d) {
+      if (2 * (ring_smem(d) + kListSlotBytes * k + kCtaReserve) <=
+          kSmemPerSm) {
+        return d;
+      }
+    }
+    return kDepth;
+  }
+  static __host__ __device__ constexpr int wide_smem(int k) {
+    return ring_smem(wide_depth(k)) + kListSlotBytes * k;
+  }
+};
+
+// The stage of a ring's item `it` and the parity of its round: it % DEPTH
+// for a depth known at compile time; for one given at run time (DEPTH 0:
+// the wide shared instance's) a counter that next() moves on once per
+// item, with no division.
+template <int DEPTH>
+struct RingCursor {
+  int depth;
+  int s = 0;
+  uint32_t round = 0;
+
+  __device__ __forceinline__ explicit RingCursor(int d) : depth(d) {}
+  __device__ __forceinline__ int stage(uint32_t it) const {
+    if constexpr (DEPTH != 0) {
+      return static_cast<int>(it % DEPTH);
+    } else {
+      return s;
+    }
+  }
+  __device__ __forceinline__ uint32_t parity(uint32_t it) const {
+    if constexpr (DEPTH != 0) {
+      return (it / DEPTH) & 1u;
+    } else {
+      return round;
+    }
+  }
+  __device__ __forceinline__ void next() {
+    if constexpr (DEPTH == 0) {
+      if (++s == depth) {
+        s = 0;
+        round ^= 1u;
+      }
+    }
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -420,7 +502,9 @@ __device__ __forceinline__ void store_list(const rtt::RegList<K>& l, long p,
   store_row<K>(out_dist + p * K, d);
 }
 
-__device__ __forceinline__ void store_list(const rtt::WideList& l, long p,
+template <int STRIDE>
+__device__ __forceinline__ void store_list(const rtt::WideList<STRIDE>& l,
+                                           long p,
                                            int* out_edge, float* out_off,
                                            float* out_dist, int squared) {
   const long row = p * l.k;
@@ -428,9 +512,9 @@ __device__ __forceinline__ void store_list(const rtt::WideList& l, long p,
     float d = kBig, o = 0.f;
     int e = -1;
     if (i < l.n) {
-      d = l.d[i * l.s];
-      e = l.e[i * l.s];
-      o = l.o[i * l.s];
+      d = l.d(i);
+      e = l.e(i);
+      o = l.o(i);
     }
     out_edge[row + i] = e;
     out_off[row + i] = o;
@@ -442,7 +526,9 @@ __device__ __forceinline__ void store_list(const rtt::WideList& l, long p,
 template <int K>
 struct ListOf { using type = rtt::RegList<K>; };
 template <>
-struct ListOf<kWide> { using type = rtt::WideList; };
+struct ListOf<kWide> { using type = rtt::WideList<kP>; };
+template <>
+struct ListOf<kWideScratch> { using type = rtt::WideList<0>; };
 
 __device__ __forceinline__ float clampf(float v, float e) {
   return fminf(fmaxf(v, -e), e);       // jnp.clip(v, -e, e)
@@ -693,7 +779,8 @@ chunk_order_kernel(const int* __restrict__ nhits, int n,
   if (i == 0) order[n] = 0;
 }
 
-template <int ARM>
+// DEPTH: the ring's stages, or 0 for a depth given at run time (depth_rt)
+template <int ARM, int DEPTH>
 __device__ void produce(const int* __restrict__ ids,
                         const int* __restrict__ nhits,
                         const int* __restrict__ order, int* next_chunk,
@@ -701,8 +788,10 @@ __device__ void produce(const int* __restrict__ ids,
                         const float4* __restrict__ quads,
                         const int* __restrict__ coarse, int nchunks,
                         int nblocks, unsigned char* stages, int4* item,
-                        uint64_t* full, uint64_t* empty, int lane) {
+                        uint64_t* full, uint64_t* empty, int lane,
+                        int depth_rt) {
   using R = Ring<ARM>;
+  RingCursor<DEPTH> cur(depth_rt);
   uint32_t it = 0;
   for (;;) {
     int chunk = -1, nh = 0;
@@ -725,8 +814,9 @@ __device__ void produce(const int* __restrict__ ids,
       for (int jj = 0; jj < m; ++jj, ++it) {
         const int blk = __shfl_sync(kAll, mine, jj);
         if (lane != 0) continue;
-        const int s = it % R::kDepth;
-        mbar_wait(empty + s, ((it / R::kDepth) & 1u) ^ 1u);
+        const int s = cur.stage(it);
+        mbar_wait(empty + s, cur.parity(it) ^ 1u);
+        cur.next();
         item[s] = make_int4(chunk, j0 + jj, blk, nh);
         if (blk >= 0) {
           unsigned char* st = stages + s * R::kStage;
@@ -769,17 +859,20 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
                    float* __restrict__ out_dist,
                    int* __restrict__ gate_log,       // [nchunks, 8, nblocks]
                    int squared,                      // out_dist holds d²
-                   float* __restrict__ scratch,      // wide: [3, k, nchunks*P]
+                   float* __restrict__ scratch,      // <ARM, -1>: [3, k, npad]
                    int k) {                          // wide: the top-K width
   using R = Ring<ARM>;
   extern __shared__ __align__(128) unsigned char smem[];
-  int4* item = reinterpret_cast<int4*>(smem + R::kItemOff);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::kBarOff);
-  uint64_t* empty = full + R::kDepth;
+  // the ring's depth: the arm's, but in <ARM, 0> the one its k takes
+  constexpr int kFixedDepth = K == kWide ? 0 : R::kDepth;
+  const int depth = kFixedDepth ? kFixedDepth : R::wide_depth(k);
+  int4* item = reinterpret_cast<int4*>(smem + R::item_off(depth));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::bar_off(depth));
+  uint64_t* empty = full + depth;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < R::kDepth; ++s) {
+    for (int s = 0; s < depth; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, kCons);
     }
@@ -787,17 +880,25 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
   }
   __syncthreads();
   if (warp == kCons) {
-    produce<ARM>(ids, nhits, order, next_chunk, table, quads, coarse,
-                 nchunks, nblocks, smem, item, full, empty, lane);
+    produce<ARM, kFixedDepth>(ids, nhits, order, next_chunk, table, quads,
+                              coarse, nchunks, nblocks, smem, item, full,
+                              empty, lane, depth);
     return;
   }
 
   const float mx = radius * 1.001f + 0.5f;   // the clamp box's dilation
   float px = 0.f, py = 0.f;
-  typename ListOf<K>::type list(scratch, static_cast<long>(nchunks) * kP, k);
+  // the wide lists: in shared memory after the ring, one row per consumer
+  // thread (<ARM, 0>), or in the scratch, one row per point (<ARM, -1>)
+  typename ListOf<K>::type list(
+      K == kWide ? reinterpret_cast<float*>(smem + R::ring_smem(depth))
+                 : scratch,
+      static_cast<long>(nchunks) * kP, k);
+  RingCursor<kFixedDepth> cur(depth);
   for (uint32_t it = 0;; ++it) {
-    const int s = it % R::kDepth;
-    mbar_wait(full + s, (it / R::kDepth) & 1u);
+    const int s = cur.stage(it);
+    mbar_wait(full + s, cur.parity(it));
+    cur.next();
     const int4 h = item[s];                 // (chunk, slot, block, nhits)
     if (h.x < 0) break;
     const long p = static_cast<long>(h.x) * kP + warp * 32 + lane;
@@ -805,7 +906,7 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
       const float2 pt = pts[p];
       px = pt.x;
       py = pt.y;
-      list.reset(p);
+      list.reset(K == kWide ? warp * 32 + lane : p);
     }
     if (h.z >= 0) {
       const unsigned char* st = smem + s * R::kStage;
@@ -858,39 +959,55 @@ sweep_exact_kernel(const float2* __restrict__ pts,   // [nchunks*P]
   }
 }
 
-// Launch shape of one arm on the current device: threads per CTA,
-// dynamic shared memory, resident CTAs per SM, the SM count and the ring
-// depth. The shared-memory attribute is set (once per device) before the
-// occupancy query and the first launch. Returns a cudaError_t, or -2 / -3.
+// Launch shape of one instance on the current device at top-K width k:
+// threads per CTA, dynamic shared memory (the ring's, plus <ARM, 0>'s
+// lists at k and its ring at wide_depth(k)), resident CTAs per SM, the SM
+// count and the ring depth.
+// The shared-memory attribute is set once per device, to the most the
+// instance ever launches with (so at least every launch's bytes, whichever
+// thread launches), before the occupancy query and the first launch; the
+// occupancy is cached per device and bytes (per k for <ARM, 0>, whose
+// bytes follow k; once for the others). Returns a cudaError_t, or -2 /
+// -3.
 template <int ARM, int K>
-int shape(int* threads, int* smem, int* per_sm, int* sms, int* depth) {
+int shape(int k, int* threads, int* smem, int* per_sm, int* sms,
+          int* depth) {
   using R = Ring<ARM>;
-  static int cached_per_sm[kMaxDevices] = {};
+  constexpr int kSlots = K == kWide ? R::kSharedMaxK + 1 : 1;
+  static bool attr_set[kMaxDevices] = {};
+  static int cached_per_sm[kMaxDevices][kSlots] = {};
   static int cached_sms[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices) return -2;
-  if (cached_per_sm[dev] == 0) {
-    auto kern = sweep_exact_kernel<ARM, K>;
+  const int slot = K == kWide ? k : 0;
+  if (slot < 0 || slot >= kSlots) return -2;
+  const int bytes = K == kWide ? R::wide_smem(k) : R::kSmem;
+  auto kern = sweep_exact_kernel<ARM, K>;
+  if (!attr_set[dev]) {
+    const int most = K == kWide ? R::wide_smem(R::kSharedMaxK) : R::kSmem;
     err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set[dev] = true;
+  }
+  if (cached_per_sm[dev][slot] == 0) {
     int n = 0, m = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads,
-                                                        R::kSmem);
+                                                        bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n < 1) return -3;
     cached_sms[dev] = m;
-    cached_per_sm[dev] = n;
+    cached_per_sm[dev][slot] = n;
   }
   *threads = kThreads;
-  *smem = R::kSmem;
-  *per_sm = cached_per_sm[dev];
+  *smem = bytes;
+  *per_sm = cached_per_sm[dev][slot];
   *sms = cached_sms[dev];
-  *depth = R::kDepth;
+  *depth = K == kWide ? R::wide_depth(k) : R::kDepth;
   return 0;
 }
 
@@ -901,7 +1018,7 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
            int* out_edge, float* out_off, float* out_dist, int* gate_log,
            int squared, float* scratch, int k, cudaStream_t st) {
   int threads, smem, per_sm, sms, depth;
-  const int rc = shape<ARM, K>(&threads, &smem, &per_sm, &sms, &depth);
+  const int rc = shape<ARM, K>(k, &threads, &smem, &per_sm, &sms, &depth);
   if (rc != 0) return rc;
   chunk_order_kernel<<<(nchunks + kOrderThreads - 1) / kOrderThreads,
                        kOrderThreads, 0, st>>>(nhits, nchunks, order);
@@ -916,6 +1033,42 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
       rc2, radius, out_edge, out_off, out_dist, gate_log, squared, scratch,
       k);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of this library that serves arm ARM at top-K width k: the
+// register one, or in the wide library <ARM, 0> while its lists fit shared
+// memory, else <ARM, -1> (which needs the scratch: -5 without it).
+template <int ARM>
+int launch_arm(const float* pts, const int* ids, const int* nhits,
+               int* order, const float* table, const float* sub,
+               const int* coarse, int nchunks, int nblocks, float r2,
+               float rc2, float radius, int* out_edge, float* out_off,
+               float* out_dist, int* gate_log, int squared, float* scratch,
+               int k, cudaStream_t st) {
+#define RTT_ARGS                                                           \
+  pts, ids, nhits, order, table, sub, coarse, nchunks, nblocks, r2, rc2,   \
+      radius, out_edge, out_off, out_dist, gate_log, squared, scratch, k, st
+  if constexpr (kK == kWide) {
+    if (k <= Ring<ARM>::kSharedMaxK) return launch<ARM, kWide>(RTT_ARGS);
+    if (scratch == nullptr) return -5;
+    return launch<ARM, kWideScratch>(RTT_ARGS);
+  } else {
+    return launch<ARM, kK>(RTT_ARGS);
+  }
+#undef RTT_ARGS
+}
+
+template <int ARM>
+int shape_arm(int k, int* threads, int* smem, int* per_sm, int* sms,
+              int* depth) {
+  if constexpr (kK == kWide) {
+    if (k <= Ring<ARM>::kSharedMaxK) {
+      return shape<ARM, kWide>(k, threads, smem, per_sm, sms, depth);
+    }
+    return shape<ARM, kWideScratch>(k, threads, smem, per_sm, sms, depth);
+  } else {
+    return shape<ARM, kK>(k, threads, smem, per_sm, sms, depth);
+  }
 }
 
 }  // namespace
@@ -935,12 +1088,13 @@ int launch(const float* pts, const int* ids, const int* nhits, int* order,
 // group of columns (8-11). `squared` != 0 stores each candidate's squared
 // distance in out_dist instead of its square root (kBig still marks an
 // empty slot): the segment-sharded search merges shards on it, so its
-// order is the sweep's own. `scratch` (the wide library's list, f32
-// [3, k, nchunks * 256]) is read by the wide instance only; the register
-// libraries take null. Returns the launch's cudaError_t (0 = ok), -1 for
-// an unknown arm, -2 / -3 for a device index or an occupancy out of
-// range, -4 for a k that this library was not built for, -5 for the wide
-// library without its scratch.
+// order is the sweep's own. In the wide library the instance follows
+// (arm, k): the lists in shared memory up to the arm's kSharedMaxK, past
+// it in `scratch` (f32 [3, k, nchunks * 256]), which only that instance
+// reads; the others take null. Returns the launch's cudaError_t (0 = ok),
+// -1 for an unknown arm, -2 / -3 for a device index or an occupancy out of
+// range, -4 for a k that this library was not built for, -5 for the
+// scratch instance without its scratch.
 extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
                                const int* nhits, int* order,
                                const float* table, const float* sub,
@@ -950,12 +1104,11 @@ extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
                                float* out_dist, int* gate_log, int squared,
                                float* scratch, void* stream) {
   if (kK == kWide ? k < 1 : k != kK) return -4;
-  if (kK == kWide && scratch == nullptr) return -5;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RTT_LAUNCH(A)                                                       \
-  launch<A, kK>(pts, ids, nhits, order, table, sub, coarse, nchunks, nblocks,  \
-            r2, rc2, radius, out_edge, out_off, out_dist, gate_log, squared, \
-            scratch, k, st)
+  launch_arm<A>(pts, ids, nhits, order, table, sub, coarse, nchunks,        \
+                nblocks, r2, rc2, radius, out_edge, out_off, out_dist,      \
+                gate_log, squared, scratch, k, st)
   switch (arm) {
     case kBlock: return RTT_LAUNCH(kBlock);
     case kSubArm: return RTT_LAUNCH(kSubArm);
@@ -970,14 +1123,15 @@ extern "C" int rtt_sweep_exact(const float* pts, const int* ids,
 // The launch shape of arm `arm` at top-K width `k` on the current device
 // (see shape()): the grid of a launch is min(nchunks, per_sm * sms).
 // `group`: the columns per early-exit test of its gate (kGateCols). -4 for
-// a k that this library was not built for (the wide library's shape is
-// the same at every k >= 0).
+// a k that this library was not built for (in the wide library any k >= 1:
+// the shape of the instance that serves k, whose shared memory and CTAs
+// per SM follow k).
 extern "C" int rtt_sweep_exact_shape(int arm, int k, int* threads, int* smem,
                                      int* per_sm, int* sms, int* depth,
                                      int* group) {
-  if (kK == kWide ? k < 0 : k != kK) return -4;
+  if (kK == kWide ? k < 1 : k != kK) return -4;
 #define RTT_SHAPE(A) \
-  (*group = kGateCols<A>, shape<A, kK>(threads, smem, per_sm, sms, depth))
+  (*group = kGateCols<A>, shape_arm<A>(k, threads, smem, per_sm, sms, depth))
   switch (arm) {
     case kBlock: return RTT_SHAPE(kBlock);
     case kSubArm: return RTT_SHAPE(kSubArm);

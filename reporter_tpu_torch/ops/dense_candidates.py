@@ -23,8 +23,9 @@ smallest edge id, the offset being that edge's smallest tied projection.
   wrapper of the hand-written kernel ``kernels/sweep_exact.cu``, in one
   of its five arms (``SWEEP_ARMS``), each an instance of one ring-fed
   kernel template, at any top-K width: a register instance up to the
-  largest of ``SWEEP_KS``, the wide instance past it. All five return the
-  same candidates.
+  largest of ``SWEEP_KS``, past it a wide instance with its lists in
+  shared memory or, past the K whose lists fit there, in a global scratch
+  (``list_plan``). All five return the same candidates.
 - ``_coarse_bf16_gate`` and ``_coarse_mxu_gate`` are the plain versions of
   the two coarse arms' gate: per 32-point warp and hit 128-column slice,
   whether the exact pass runs. The card holds the kernel's decisions
@@ -83,8 +84,8 @@ SPLIT_LEN = 256.0  # long-segment pre-split span
 # SWEEP_KS (kernels/build.py): the top-K widths the CUDA sweep is built
 # for with its list in registers, each arm instantiated at each; sweep_topk
 # serves any other K up to the largest through the next built one, and
-# every K past it through the wide instance at K itself
-# (sweep_instance_k); the plain path takes any K
+# every K past it through a wide instance at K itself (sweep_instance_k,
+# list_plan); the plain path takes any K
 
 # seg_coarse: the gates' operands, one row of CO_WORDS i32 words per
 # 512-column block, rounded once on the host. For the tensor-core gate,
@@ -123,15 +124,32 @@ _CO_TF32_K = (0, 4, 1, 5, 2, 6, 3, 7)
 # is its index here.
 SWEEP_ARMS = ("block", "sub", "sub_bf16", "mxu", "mxu_bf16")
 
-# Launches of the CUDA sweep, per kernel instance (arm, K): the register
-# instances' keys are there from the start, the wide instance's (arm, K)
-# for a K past SWEEP_KS at its first launch (readers take a missing key
-# as 0). sweep_topk adds one per kernel launch, under _LAUNCH_LOCK
+# Launches of the CUDA sweep, per kernel instance (launch_key: (arm, K),
+# or for the scratch instance (arm + ":scratch", K)): the register
+# instances' keys are there from the start, a wide instance's for a K past
+# SWEEP_KS at its first launch (readers take a missing key as 0).
+# sweep_topk adds one per kernel launch, under _LAUNCH_LOCK
 # (match_many runs on several threads under the service's scheduler), and
 # nothing else does; chip_smoke.py resets and reads them around each
 # main-path run.
 SWEEP_LAUNCHES = {(arm, k): 0 for arm in SWEEP_ARMS for k in SWEEP_KS}
 _LAUNCH_LOCK = threading.Lock()
+
+# The card's shared memory as kernels/sweep_exact.cu takes it: each arm's
+# ring (Ring<ARM>) has RING_DEPTH stages of RING_STAGE_BYTES (a staged
+# block, its item word and its two mbarriers); a CTA may take at most
+# SMEM_PER_CTA, an SM holds SMEM_PER_SM of which each resident CTA takes
+# CTA_RESERVED_SMEM besides its own; one slot of the wide instance's
+# shared-memory lists adds LIST_SLOT_BYTES to a CTA (3 fields x 256
+# threads x 4 bytes). list_plan mirrors the kernel's choice from them;
+# the card tests hold build.exact_shape's bytes and depth to it.
+RING_STAGE_BYTES = {"block": 16_480, "sub": 16_480, "sub_bf16": 21_616,
+                    "mxu": 32_896, "mxu_bf16": 24_704}
+RING_DEPTH = {"block": 4, "sub": 4, "sub_bf16": 4, "mxu": 3, "mxu_bf16": 4}
+SMEM_PER_CTA = 232_448
+SMEM_PER_SM = 233_472
+CTA_RESERVED_SMEM = 1_024
+LIST_SLOT_BYTES = 3 * 4 * 256
 
 
 class CandidateSet(NamedTuple):
@@ -748,8 +766,58 @@ def sweep_instance_k(k: int) -> int:
 
 def is_wide(k: int) -> bool:
     """Whether an instance of top-K width ``k`` (sweep_instance_k's) is
-    the wide one."""
+    a wide one (the wide library's)."""
     return build.library_key(k) == WIDE
+
+
+def ring_smem(arm: str, depth: "int | None" = None) -> int:
+    """The dynamic shared memory of the arm's ring at ``depth`` stages (its
+    own RING_DEPTH by default)."""
+    if arm not in RING_DEPTH:
+        raise ValueError(f"unknown sweep arm {arm!r}; one of {SWEEP_ARMS}")
+    return RING_STAGE_BYTES[arm] * (RING_DEPTH[arm] if depth is None
+                                    else depth)
+
+
+def shared_max_k(arm: str) -> int:
+    """The largest top-K width whose wide lists fit the arm's CTA beside
+    its full ring (kernels/sweep_exact.cu, Ring<ARM>::kSharedMaxK)."""
+    return (SMEM_PER_CTA - ring_smem(arm)) // LIST_SLOT_BYTES
+
+
+def list_plan(arm: str, k: int) -> "tuple[str, int, int]":
+    """Where the instance that serves a sweep of width ``k`` in arm ``arm``
+    keeps its running lists, its CTA's dynamic shared memory (bytes) and
+    its ring's depth: ("register", the ring's, RING_DEPTH) up to the
+    largest of SWEEP_KS; past it the wide library's instances, "shared"
+    while the lists fit SMEM_PER_CTA beside the full ring (shared_max_k),
+    with the deepest ring up to RING_DEPTH at which two CTAs fit an SM
+    (else the full ring, one CTA), its bytes that ring's plus
+    LIST_SLOT_BYTES a slot; else ("scratch", the ring's, RING_DEPTH): the
+    lists in a global scratch. Chosen by (arm, k) alone, as
+    kernels/sweep_exact.cu's rtt_sweep_exact and Ring<ARM>::wide_depth
+    choose."""
+    kk = sweep_instance_k(k)
+    ring, full = ring_smem(arm), RING_DEPTH[arm]
+    if not is_wide(kk):
+        return "register", ring, full
+    if kk > shared_max_k(arm):
+        return "scratch", ring, full
+    lists = LIST_SLOT_BYTES * kk
+    depth = next((d for d in range(full, 1, -1)
+                  if 2 * (ring_smem(arm, d) + lists + CTA_RESERVED_SMEM)
+                  <= SMEM_PER_SM), full)
+    return "shared", ring_smem(arm, depth) + lists, depth
+
+
+def launch_key(arm: str, k: int) -> tuple:
+    """The key of SWEEP_LAUNCHES under which a sweep of width ``k`` in arm
+    ``arm`` counts: (arm, sweep_instance_k(k)), or for the scratch
+    instance (arm + ":scratch", k)."""
+    kk = sweep_instance_k(k)
+    if list_plan(arm, kk)[0] == "scratch":
+        return f"{arm}:scratch", kk
+    return arm, kk
 
 
 def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
@@ -767,10 +835,11 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     of the same call computes on the card. ``k``, the top-K width, runs
     the instance ``sweep_instance_k(k)``: up to the largest of SWEEP_KS
     the register instance at the next built width (k itself where it is
-    one of them), whose first k columns are returned; past it the wide
-    instance at k, with its lists in a scratch allocated here (f32 [3, k,
-    npad]). The launch is counted under (arm, that width); k < 1 raises.
-    → (edge i32, offset f32, dist f32), each [npad, k].
+    one of them), whose first k columns are returned; past it a wide
+    instance at k, with its lists in shared memory or, past the arm's
+    shared_max_k, in a scratch allocated here (f32 [3, k, npad]):
+    list_plan. The launch is counted under launch_key(arm, k); k < 1
+    raises. → (edge i32, offset f32, dist f32), each [npad, k].
 
     ``gate_log`` (zeroed i32 [nchunks, P/32, nblocks]; not for "block"),
     when given, receives each warp's slice decisions (decode_gate_log) for
@@ -820,7 +889,8 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
     rc = cull_radius(radius)
     order = torch.empty(nchunks + 1, dtype=torch.int32, device=pts.device)
     scratch = (torch.empty((3, k_run, npad), dtype=torch.float32,
-                           device=pts.device) if is_wide(k_run) else None)
+                           device=pts.device)
+               if list_plan(arm, k_run)[0] == "scratch" else None)
     # a span of a device_trace capture (a no-op outside one): names the
     # launch on the host side, whatever the profiler's kernel records hold
     with profiling.annotate("sweep_exact_kernel"):
@@ -829,8 +899,9 @@ def sweep_topk(pts: torch.Tensor, ids: torch.Tensor, nhits: torch.Tensor,
             coarse if arm not in ("block", "sub") else None,
             SWEEP_ARMS.index(arm), nchunks, nblocks, r2, rc * rc,
             float(radius), edge, off, dist, gate_log, squared, scratch)
+    key = launch_key(arm, k_run)
     with _LAUNCH_LOCK:
-        SWEEP_LAUNCHES[arm, k_run] = SWEEP_LAUNCHES.get((arm, k_run), 0) + 1
+        SWEEP_LAUNCHES[key] = SWEEP_LAUNCHES.get(key, 0) + 1
     if k_run != k:
         return (edge[:, :k].contiguous(), off[:, :k].contiguous(),
                 dist[:, :k].contiguous())

@@ -30,8 +30,10 @@ def _log(figures: dict, k: int) -> str:
     out = ["ptxas info    : 0 bytes gmem"]
     for name, f in figures.items():
         if name.startswith("sweep_exact_kernel<"):
-            arm = name.split("<")[1].split(",")[0]
-            mangled = _MANGLED.format(arm=arm, k=k)
+            # the instance's own K: the library's, or -1 (mangled "n1")
+            # for the wide library's scratch instance
+            arm, kk = name.split("<")[1].rstrip(">").split(",")
+            mangled = _MANGLED.format(arm=arm, k=kk.replace("-", "n"))
         else:
             mangled = _ORDER
         out += [
@@ -69,6 +71,9 @@ def test_the_golden_block_is_whole_and_self_consistent():
         names = set(cm.GOLDEN["ptxas"][f"k{library_tag(k)}"])
         assert {f"sweep_exact_kernel<{a},{k}>"
                 for a in range(len(SWEEP_ARMS))} <= names
+    # the wide library's scratch instances (K = -1 in their names)
+    assert {f"sweep_exact_kernel<{a},-1>" for a in range(len(SWEEP_ARMS))} \
+        <= set(cm.GOLDEN["ptxas"]["kwide"])
 
 
 def test_the_host_half_is_pinned_on_the_cpu():
@@ -88,6 +93,8 @@ def test_spill_waivers_are_dated_and_name_golden_spills():
 def test_kernel_names_parse_from_nvcc_mangling():
     assert cm.kernel_name(_MANGLED.format(arm=3, k=12)) == \
         "sweep_exact_kernel<3,12>"
+    assert cm.kernel_name(_MANGLED.format(arm=2, k="n1")) == \
+        "sweep_exact_kernel<2,-1>"
     assert cm.kernel_name(_ORDER) == "chunk_order_kernel"
 
 

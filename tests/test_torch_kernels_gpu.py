@@ -1,5 +1,5 @@
 """The CUDA sweep kernel (reporter_tpu_torch/kernels/sweep_exact.cu, its
-five arms at each top-K width of SWEEP_KS and in the wide instance past
+five arms at each top-K width of SWEEP_KS and in the wide instances past
 them) against its plain PyTorch versions, on the card, the host-to-card
 staging (device.host_to_device), and the native host half of match_many
 there.
@@ -205,65 +205,101 @@ def test_sweep_between_the_built_widths(sf, arm, k):
 
 
 WIDE_RADIUS = 150.0     # sf: most points have more than 16 edges within it
+EVICT_RADIUS = 400.0    # sf: lists of every K up to 64 fill and evict
+NEVER_FULL_RADIUS = 50.0   # sf: no point has more than 16 edges within it
 _WIDE_REF: dict = {}
+_FLEET_REF: dict = {}
+# per arm: K = 17 and 48 at 150 m; its largest shared-memory K and the next
+# (the scratch instance's first) where lists evict and where none fills
+_WIDE_CASES = [(arm, k, WIDE_RADIUS) for arm in dc.SWEEP_ARMS
+               for k in (17, 48)] + [
+    (arm, k, r) for arm in dc.SWEEP_ARMS
+    for k in (dc.shared_max_k(arm), dc.shared_max_k(arm) + 1)
+    for r in (EVICT_RADIUS, NEVER_FULL_RADIUS)]
 
 
-def _wide_ref(pts, pack, k):
-    if k not in _WIDE_REF:
-        _WIDE_REF[k] = dc._dense_plain(pts, pack, WIDE_RADIUS, k)
-    return _WIDE_REF[k]
+def _wide_ref(pts, pack, k, radius=WIDE_RADIUS):
+    if (k, radius) not in _WIDE_REF:
+        _WIDE_REF[k, radius] = dc._dense_plain(pts, pack, radius, k)
+    return _WIDE_REF[k, radius]
 
 
-@pytest.mark.parametrize("k", (17, 48))
-@pytest.mark.parametrize("arm", dc.SWEEP_ARMS)
-def test_wide_instance_equals_plain(sf, arm, k):
-    """K past SWEEP_KS runs the wide instance at K itself (its list in a
-    global scratch): bit-equal to _dense_plain at 150 m on the valid
-    points, where lists past 16 fill and evict, the launch counted under
-    (arm, K)."""
+@pytest.mark.parametrize("arm,k,radius", _WIDE_CASES)
+def test_wide_instance_equals_plain(sf, arm, k, radius):
+    """K past SWEEP_KS runs a wide instance at K itself (its lists in
+    shared memory up to the arm's shared_max_k, in a global scratch past
+    it): bit-equal to _dense_plain on the valid points, at 150 m (lists
+    past 16 fill and evict), at 400 m (every list fills and evicts) and at
+    50 m (no list fills), the launch counted under launch_key(arm, K) and
+    the launch shape's shared memory and ring depth list_plan's (two CTAs
+    an SM where list_plan leaves room for them)."""
+    from reporter_tpu_torch.kernels import build
+
     tab, pts, valid = sf
     n = len(pts)
     nchunks = -(-n // dc._P)
     fpts, fval = dc._fill_invalid(pts, valid, nchunks)
-    ids, nhits = dc._chunk_block_ids(fpts, fval, tab["seg_bbox"],
-                                     WIDE_RADIUS, nchunks)
+    ids, nhits = dc._chunk_block_ids(fpts, fval, tab["seg_bbox"], radius,
+                                     nchunks)
     before = dict(dc.SWEEP_LAUNCHES)
     got = dc.sweep_topk(fpts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
-                        tab["seg_coarse"], WIDE_RADIUS, k, arm)
+                        tab["seg_coarse"], radius, k, arm)
     torch.cuda.synchronize()
     assert {key: v - before.get(key, 0)
             for key, v in dc.SWEEP_LAUNCHES.items()
-            if v != before.get(key, 0)} == {(arm, k): 1}
-    ref = _wide_ref(pts, tab["seg_pack"], k)
-    assert int((ref[0][valid] >= 0).sum(1).max()) > dc.SWEEP_KS[-1]
+            if v != before.get(key, 0)} == {dc.launch_key(arm, k): 1}
+    sh = build.exact_shape(dc.SWEEP_ARMS.index(arm), k)
+    where, smem, depth = dc.list_plan(arm, k)
+    assert (sh["smem_bytes"], sh["depth"]) == (smem, depth)
+    assert sh["ctas_per_sm"] >= 1
+    if where == "shared" \
+            and 2 * (smem + dc.CTA_RESERVED_SMEM) <= dc.SMEM_PER_SM:
+        assert sh["ctas_per_sm"] == 2
+    ref = _wide_ref(pts, tab["seg_pack"], k, radius)
+    filled = (ref[0][valid] >= 0).sum(1)
+    if radius == NEVER_FULL_RADIUS:
+        assert int(filled.max()) <= dc.SWEEP_KS[-1]
+    elif radius == EVICT_RADIUS:
+        assert int((filled == k).sum()) > len(filled) // 2
+    else:
+        assert int(filled.max()) > dc.SWEEP_KS[-1]
     for g, r in zip(got, ref):
         assert g.shape == (nchunks * dc._P, k)
         assert torch.equal(g[:n][valid], r[valid])
 
 
-def test_wide_instance_past_the_grid(sf_tile, sf_fleet):
-    """The wide instance at K = 32 on 512 chunks, more than its persistent
-    grid (CTAs take second chunks: the list's reset at a new point), every
-    arm bit-equal to _dense_plain on every point; squared=True too."""
+@pytest.mark.parametrize("arm", dc.SWEEP_ARMS)
+def test_wide_instance_past_the_grid(sf_tile, sf_fleet, arm):
+    """The wide instances on 512 chunks, more than their persistent grid
+    (CTAs take second chunks: the list's reset at a new point), at K = 32,
+    at the arm's largest shared-memory K and at the next (the scratch
+    instance), bit-equal to _dense_plain on every point; squared=True
+    too."""
     from reporter_tpu_torch.kernels import build
 
     _, tab = sf_tile
-    pts, k = sf_fleet, 32
+    pts = sf_fleet
     nchunks = len(pts) // dc._P
     ids, nhits = dc._chunk_block_ids(
         pts, torch.ones(len(pts), dtype=torch.bool, device=pts.device),
         tab["seg_bbox"], WIDE_RADIUS, nchunks)
-    ref = dc._dense_plain(pts, tab["seg_pack"], WIDE_RADIUS, k)
-    for arm in dc.SWEEP_ARMS:
+    cap = dc.shared_max_k(arm)
+    for k in (32, cap, cap + 1):
+        if k not in _FLEET_REF:       # arms share their K: one plain each
+            _FLEET_REF[k] = dc._dense_plain(pts, tab["seg_pack"],
+                                            WIDE_RADIUS, k)
+        ref = _FLEET_REF[k]
         sh = build.exact_shape(dc.SWEEP_ARMS.index(arm), k)
         assert nchunks > sh["ctas_per_sm"] * sh["sms"]
-        got = dc.sweep_topk(pts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
-                            tab["seg_coarse"], WIDE_RADIUS, k, arm)
+        got = dc.sweep_topk(pts, ids, nhits, tab["seg_sweep"],
+                            tab["seg_sub"], tab["seg_coarse"], WIDE_RADIUS,
+                            k, arm)
         for g, r in zip(got, ref):
-            assert torch.equal(g, r), arm
-    sq = dc.sweep_topk(pts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
-                       tab["seg_coarse"], WIDE_RADIUS, k, "sub", squared=True)
-    assert torch.equal(dc.root_dist(sq[2]), ref[2])
+            assert torch.equal(g, r), (arm, k)
+        sq = dc.sweep_topk(pts, ids, nhits, tab["seg_sweep"], tab["seg_sub"],
+                           tab["seg_coarse"], WIDE_RADIUS, k, arm,
+                           squared=True)
+        assert torch.equal(dc.root_dist(sq[2]), ref[2]), (arm, k)
 
 
 def test_host_to_device_is_pinned_and_does_not_block(cuda):

@@ -58,7 +58,7 @@ def _points(ts, rng, n_fleet=4):
         np.float32)
 
 
-@pytest.mark.parametrize("k", [17, 24, 32, 48])
+@pytest.mark.parametrize("k", [17, 24, 32, 43, 48, 64])
 def test_wide_k_candidates_match_the_jax_package(sf, monkeypatch, k):
     """find_candidates_dense at K past the register widths on sf at 150 m
     (the CPU path is the plain sweep; on the card the same K runs the
@@ -83,6 +83,72 @@ def test_wide_k_candidates_match_the_jax_package(sf, monkeypatch, k):
         [x.numpy() for x in (got.edge, got.offset, got.dist)])
     print(f"K={k}: max|Δdist| {dd:.3g} m, max|Δoffset| {do:.3g} m, "
           f"{flips} cut flips, {int((filled == k).sum())} full lists")
+
+
+def test_list_plan_fits_the_card_up_to_each_arms_largest_k():
+    """The instance that serves (arm, K), its CTA's dynamic shared memory
+    and its ring's depth: the register instances up to 16 with the full
+    ring; past it the lists in shared memory, the ring plus 12 B x 256 x
+    K within the card's 232,448 B a CTA up to the arm's largest K (54 for
+    block and sub, 47 for sub_bf16, 43 for the tensor-core arms), on the
+    deepest ring at which two CTAs fit an SM, else the full ring; and from
+    the next K on the scratch instance (the full ring alone), counted
+    under its own key."""
+    want = {"block": 54, "sub": 54, "sub_bf16": 47, "mxu": 43,
+            "mxu_bf16": 43}
+    two_ctas = {"block": 26, "sub": 26, "sub_bf16": 23, "mxu": 16,
+                "mxu_bf16": 21}
+    for arm in dc.SWEEP_ARMS:
+        cap = dc.shared_max_k(arm)
+        assert cap == want[arm]
+        full, ring = dc.RING_DEPTH[arm], dc.ring_smem(arm)
+        for k in range(1, 129):
+            where, smem, depth = dc.list_plan(arm, k)
+            assert smem <= dc.SMEM_PER_CTA and 2 <= depth <= full
+            if k <= dc.SWEEP_KS[-1]:
+                assert (where, smem, depth) == ("register", ring, full)
+                assert dc.launch_key(arm, k) == (arm,
+                                                 dc.sweep_instance_k(k))
+            elif k <= cap:
+                assert where == "shared"
+                assert smem == dc.ring_smem(arm, depth) + 3072 * k
+                assert dc.launch_key(arm, k) == (arm, k)
+                # two CTAs an SM up to the arm's K, on the deepest ring
+                # that leaves room for them; one on the full ring past it
+                both = 2 * (smem + dc.CTA_RESERVED_SMEM) <= dc.SMEM_PER_SM
+                assert both == (k <= two_ctas[arm])
+                if both and depth < full:
+                    deeper = dc.ring_smem(arm, depth + 1) + 3072 * k
+                    assert 2 * (deeper + dc.CTA_RESERVED_SMEM) \
+                        > dc.SMEM_PER_SM
+                if not both:
+                    assert depth == full
+            else:
+                assert (where, smem, depth) == ("scratch", ring, full)
+                assert dc.launch_key(arm, k) == (f"{arm}:scratch", k)
+        # the next K would not fit beside the full ring
+        assert ring + 3072 * (cap + 1) > dc.SMEM_PER_CTA
+    with pytest.raises(ValueError):
+        dc.list_plan("sub", 0)
+    with pytest.raises(ValueError):
+        dc.list_plan("nope", 20)
+
+
+def test_ring_bytes_match_the_pinned_launch_shapes():
+    """RING_STAGE_BYTES and RING_DEPTH mirror the kernel's Ring<ARM>: the
+    register instances' dynamic shared memory and depth in the compile
+    manifest's golden block (pinned on the card), and the wide rows' ring
+    and lists at the manifest's pinned K."""
+    from reporter_tpu_torch.analysis import compile_manifest as cm
+
+    for arm in dc.SWEEP_ARMS:
+        for k in dc.SWEEP_KS:
+            row = cm.GOLDEN["launch"][f"{arm}@k{k}"]
+            assert (row["smem_bytes"], row["depth"]) == \
+                (dc.ring_smem(arm), dc.RING_DEPTH[arm])
+        row = cm.GOLDEN["launch"][f"{arm}@kwide"]
+        assert (row["smem_bytes"], row["depth"]) == \
+            dc.list_plan(arm, cm.WIDE_PIN_K)[1:]
 
 
 def test_wide_k_matches_the_interpret_pallas_body(monkeypatch):
