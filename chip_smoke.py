@@ -81,11 +81,15 @@ the native host half against its Python forms, in phases:
                 numpy form (bytes equal, timed); and, in 256-trace slices,
                 whether the harvest's walk overlaps the wait in .cpu();
      main:k   — at each other K of SWEEP_KS and at K = 5, 7 and 10, and
-                at MAIN_WIDE_K = 32 with a WIDE_RADIUS search radius (the
-                wide instance), a tuned matcher (calibration launches every
-                arm at the instance K' serving K) serves the 1024 traces
-                (512 chunks of the sweep), whose first 16 records equal the
-                CPU matcher's at that K;
+                with a WIDE_RADIUS search radius at MAIN_WIDE_K = 32 (the
+                wide instance, the lists in shared memory) and at
+                MAIN_SCRATCH_K = 64 (past every arm's shared_max_k: the
+                lists in the global scratch), a tuned matcher (calibration
+                launches every arm at the instance K' serving K, each
+                counted under dc.launch_key) serves the 1024 traces (512
+                chunks of the sweep), whose first 16 records equal the CPU
+                matcher's at that K; each line names its instance
+                (dc.list_plan: register, shared or scratch);
      breakdown — one slice's sweep per arm, Viterbi and pack timed alone,
                 and the device busy share of one wire entry
                 (torch.profiler);
@@ -412,9 +416,10 @@ the native host half against its Python forms, in phases:
                 the two **fields lines [mesh:dp] and [build:exact_shape]
                 included), and the run compared with itself finds no
                 regression;
- 14. summary  — the kernels JSON line (every arm at every K and its wide
+ 14. summary  — the kernels JSON line (every arm at every K, its wide
                 instance at MAIN_WIDE_K, with its ms at each K of
-                WIDE_KS; the sources,
+                WIDE_KS, and its scratch instance at MAIN_SCRATCH_K; the
+                sources,
                 the host library among them; the topology's workers'
                 launches by member; the sf:topk, sf:grid, fleet and mesh:*
                 windows in every entry's launches_by_path), the card line,
@@ -427,6 +432,7 @@ phase line its seconds since the run's start (``at_s``).
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -530,6 +536,7 @@ WIDE_KS = (20, 24, 32, 48, 64)  # [kernel:k]: the wide instances' widths
 #                               48 (the gated arms) and 64 (every arm) past
 #                               the arm's shared-memory K, in the scratch
 MAIN_WIDE_K = 32              # [main:k]: the wide instance on the main path
+MAIN_SCRATCH_K = 64           # [main:k]: the scratch instance on the main path
 ROUTER_METROS = ("sf", "nyc", "la")   # [router]: BASELINE config 4's trio
 ROUTER_CLIENTS, ROUTER_UUIDS = 64, 2  # [router]: clients (round-robin over
 #                               the metros) and uuids each, SERVE_PARTS
@@ -971,7 +978,8 @@ class Windows:
 
 
 def only(counts, inst, what):
-    """The run launched instance ``inst`` (arm, K) and no other."""
+    """The run launched instance ``inst`` (its dc.launch_key: (arm, K), or
+    (arm + ":scratch", K)) and no other."""
     if counts.get(inst, 0) < 1 \
             or any(n for i, n in counts.items() if i != inst):
         raise SystemExit(f"{what} should launch {inst} and no other "
@@ -1155,9 +1163,11 @@ def _seconds(fn):
 def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
                  cache):
     """The main path at every other K of SWEEP_KS and at each K of
-    KERNEL_BETWEEN_KS, and at MAIN_WIDE_K (the wide instance) with a
-    WIDE_RADIUS search radius: a tuned matcher (its calibration launches
-    every arm at the instance K' that serves K) serves the batch of
+    KERNEL_BETWEEN_KS, and with a WIDE_RADIUS search radius at MAIN_WIDE_K
+    (the wide instance, lists in shared memory) and MAIN_SCRATCH_K (lists
+    in the global scratch): a tuned matcher (its calibration launches
+    every arm at the instance K' that serves K, each under its
+    dc.launch_key) serves the batch of
     ``traces`` (at 1024 traces, 512 sweep chunks: more than the grid);
     its first MAIN_K_CPU_TRACES records equal the CPU matcher's. The
     tuner's cache is keyed by tile and card, not K, so each K gets a
@@ -1167,7 +1177,8 @@ def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
 
     register = sorted(set(dc.SWEEP_KS) | set(KERNEL_BETWEEN_KS))
     cases = [(k, {}) for k in register if k != 8] + [
-        (MAIN_WIDE_K, {"search_radius": WIDE_RADIUS})]
+        (k, {"search_radius": WIDE_RADIUS})
+        for k in (MAIN_WIDE_K, MAIN_SCRATCH_K)]
     for k, levers in cases:
         t_k = time.perf_counter()
         kk = dc.sweep_instance_k(k)
@@ -1178,7 +1189,8 @@ def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
         # every arm at the serving instance, nothing else (a wide
         # instance's key exists only once launched)
         if m.tuned_plan is None or {key: n for key, n in cal.items() if n} \
-                != {(a, kk): CAL_DISPATCHES + 1 for a in dc.SWEEP_ARMS}:
+                != {dc.launch_key(a, kk): CAL_DISPATCHES + 1
+                    for a in dc.SWEEP_ARMS}:
             raise SystemExit(f"K={k}: calibration launches {cal}")
         tuned = PLAN_ARMS[m.tuned_plan.label.split("@")[0]]
         batch = traces
@@ -1186,12 +1198,12 @@ def main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
         recs, served = win.run(f"sf:k{k}:tuned_batch",
                                lambda m=m, b=batch: m.match_many(b))
         ms = (time.perf_counter() - t0) * 1e3
-        only(served, (tuned, kk), f"the tuned matcher at K={k}")
+        only(served, dc.launch_key(tuned, kk), f"the tuned matcher at K={k}")
         small = batch[:MAIN_K_CPU_TRACES]
         cpu = SegmentMatcher(ts, p, device="cpu").match_many(small)
         equal = json_records(cpu) == json_records(recs[:MAIN_K_CPU_TRACES])
         phase("main:k", card, metro="sf", k=k, instance_k=kk,
-              instance="wide" if dc.is_wide(kk) else "register",
+              instance=dc.list_plan(tuned, kk)[0],
               search_radius=p.search_radius, tuned_arm=tuned,
               traces=len(batch), batch_ms=ms, records=recs.n_records,
               card_vs_cpu_records_equal=equal, traces_checked=len(small),
@@ -4713,6 +4725,9 @@ def fleet_phase(card, dc, win, cache, city_tiles):
     names = [t.name for t in tiles]
     os.environ["RTPU_AUTOTUNE_CACHE"] = os.path.join(cache, "fleet")
     fr = FleetResidency(tiles, Config(), device="cuda")
+    # free earlier phases' unreachable cycles now: a collection inside
+    # warm() would release their tensors and hide part of the rise
+    gc.collect()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     first_ms, pre = {}, {}
@@ -6043,26 +6058,29 @@ def main() -> int:
                 raise SystemExit(f"{arm} at K={k} was never launched on the "
                                  "main path")
             kernels.append(entry)
-        # the wide instance, served at MAIN_WIDE_K on the main path
-        a = wide[MAIN_WIDE_K][arm]
-        paths = {path: c.get((arm, MAIN_WIDE_K), 0)
-                 for path, c in win.by_path.items()
-                 if c.get((arm, MAIN_WIDE_K), 0)}
-        entry = {
-            "name": f"sweep_topk_{arm}_wide", "route": "cuda",
-            "source": SOURCES[0], "replaces": replaces,
-            "k": MAIN_WIDE_K, "search_radius": WIDE_RADIUS,
-            "launches": sum(paths.values()), "launches_by_path": paths,
-            "points": len(pts), "plain_points": a["plain_points"],
-            "max_abs_err": a["max_abs_err"], "ms": a["ms"],
-            "ms_back_to_back": a["ms_back_to_back"],
-            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-            "bound_by": a["bound_by"], "library_ms": None,
-            "ms_by_k": {k: wide[k][arm]["ms"] for k in WIDE_KS}}
-        if entry["launches"] < 1:
-            raise SystemExit(f"{arm}'s wide instance at K={MAIN_WIDE_K} was "
-                             "never launched on the main path")
-        kernels.append(entry)
+        # the wide instances served on the main path: the lists in shared
+        # memory at MAIN_WIDE_K, in the global scratch at MAIN_SCRATCH_K
+        for label, k in (("wide", MAIN_WIDE_K), ("scratch", MAIN_SCRATCH_K)):
+            a = wide[k][arm]
+            key = dc.launch_key(arm, k)
+            paths = {path: c.get(key, 0) for path, c in win.by_path.items()
+                     if c.get(key, 0)}
+            entry = {
+                "name": f"sweep_topk_{arm}_{label}", "route": "cuda",
+                "source": SOURCES[0], "replaces": replaces,
+                "k": k, "search_radius": WIDE_RADIUS,
+                "launches": sum(paths.values()), "launches_by_path": paths,
+                "points": len(pts), "plain_points": a["plain_points"],
+                "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+                "ms_back_to_back": a["ms_back_to_back"],
+                "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"], "library_ms": None}
+            if label == "wide":
+                entry["ms_by_k"] = {kw: wide[kw][arm]["ms"] for kw in WIDE_KS}
+            if entry["launches"] < 1:
+                raise SystemExit(f"{arm}'s {label} instance at K={k} was "
+                                 "never launched on the main path")
+            kernels.append(entry)
     print(json.dumps({"kernels": kernels, "sources": list(SOURCES),
                       "host_library": {
                           "sources": list(SOURCES[2:]), "route": "g++",

@@ -126,8 +126,8 @@ NEUTRAL_KEYS = {
     # identities, names and versions
     "metro", "arm", "k", "mode", "kind", "workers", "pipeline_depth",
     "backend", "plan", "plans", "source", "tuned_arm", "tuned_plan",
-    "tuned_instance", "instance_k", "app_plan", "golden_plan", "result",
-    "fastest_here", "fastest_back_to_back", "name", "torch", "cuda",
+    "tuned_instance", "instance", "instance_k", "app_plan", "golden_plan",
+    "result", "fastest_here", "fastest_back_to_back", "name", "torch", "cuda",
     "identity", "note", "error", "body", "answer", "trace_file",
     "unknown_metro_error", "far_known_metros", "resident_after",
     "metrics_fleet_series", "process_rows", "moved_partitions",

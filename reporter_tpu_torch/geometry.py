@@ -2,7 +2,8 @@
 
 Counterpart: reporter_tpu/geometry.py. Equirectangular with cos(lat0)
 scaling around the tile origin — invertible and adequate at metro scale —
-and the point-to-segment projection the oracle's candidate search uses.
+the point-to-segment projection the oracle's candidate search uses, a
+polyline's length and the haversine distance.
 """
 
 from __future__ import annotations
@@ -45,3 +46,23 @@ def point_segment_project(p: np.ndarray, a: np.ndarray, b: np.ndarray):
     proj = a + t[..., None] * ab
     dist = np.linalg.norm(p - proj, axis=-1)
     return dist, t, proj
+
+
+def polyline_length(pts: np.ndarray) -> float:
+    """Total length of an [n, 2] polyline, in f64."""
+    pts = np.asarray(pts, dtype=np.float64)
+    if len(pts) < 2:
+        return 0.0
+    return float(np.linalg.norm(np.diff(pts, axis=0), axis=1).sum())
+
+
+def great_circle_m(lonlat_a: np.ndarray, lonlat_b: np.ndarray) -> np.ndarray:
+    """Haversine distance in meters between [..., 2] (lon, lat) degree
+    points."""
+    a = np.deg2rad(np.asarray(lonlat_a, dtype=np.float64))
+    b = np.deg2rad(np.asarray(lonlat_b, dtype=np.float64))
+    dlat = b[..., 1] - a[..., 1]
+    dlon = b[..., 0] - a[..., 0]
+    h = (np.sin(dlat / 2) ** 2
+         + np.cos(a[..., 1]) * np.cos(b[..., 1]) * np.sin(dlon / 2) ** 2)
+    return 2 * EARTH_RADIUS_M * np.arcsin(np.sqrt(np.clip(h, 0.0, 1.0)))

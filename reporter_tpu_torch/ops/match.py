@@ -101,6 +101,26 @@ def match_traces(points, valid_pt, tables, params: MatcherParams,
                        chain_start=vit.chain_start, matched=vit.matched)
 
 
+def match_trace(points, valid_pt, tables, params: MatcherParams,
+                meta=None) -> MatchOutput:
+    """Match ONE padded trace: points f32 [T, 2], valid_pt bool [T] → a
+    MatchOutput of [T] fields, through match_traces on a batch of one.
+    The arguments keep this module's order (params before meta); the
+    JAX package's is (..., meta, params)."""
+    out = match_traces(points[None], valid_pt[None], tables, params,
+                       meta=meta)
+    return MatchOutput(*(x[0] for x in out))
+
+
+def match_batch(points, valid_pt, tables, params: MatcherParams,
+                meta=None) -> MatchOutput:
+    """Match a batch: points f32 [B, T, 2], valid_pt bool [B, T]. The
+    batch entry over match_traces (nothing is jitted here); the arguments
+    keep this module's order (params before meta), where the JAX
+    package's is (..., meta, params)."""
+    return match_traces(points, valid_pt, tables, params, meta=meta)
+
+
 def _valid(lengths, T: int):
     return (torch.arange(T, dtype=torch.int32, device=lengths.device)[None, :]
             < lengths[:, None])

@@ -1,11 +1,11 @@
 """Per-vehicle partial-trace cache.
 
 Counterpart: reporter_tpu/service/cache.py (``PartialTraceCache``: TTL,
-LRU, straddling-point retention, checkpoint ``dump`` / ``load``). Recent
-points are kept per ``uuid`` so segment traversals that span several
-``/report`` requests can still be reported as complete. It is also the
-privacy boundary: points live at most ``ttl`` seconds and only the tail
-needed to finish an in-progress segment is retained.
+LRU, straddling-point retention, checkpoint ``dump`` / ``load``,
+``drop``). Recent points are kept per ``uuid`` so segment traversals that
+span several ``/report`` requests can still be reported as complete. It
+is also the privacy boundary: points live at most ``ttl`` seconds and
+only the tail needed to finish an in-progress segment is retained.
 """
 
 from __future__ import annotations
@@ -114,6 +114,11 @@ class PartialTraceCache:
                 self._entries[u] = _Entry(points=list(rec["points"]),
                                           wall=now - age)
             self._evict_locked()
+
+    def drop(self, uuid: str) -> None:
+        """Forget ``uuid``'s pending tail (a no-op if none is cached)."""
+        with self._lock:
+            self._entries.pop(uuid, None)
 
     def _evict_locked(self) -> None:
         # retain() always move_to_end's, so the OrderedDict is ordered by

@@ -1,15 +1,17 @@
 """Time the port's wire entry and batch for several checkouts, in turns, on
 one card.
 
-    python3 scripts/wire_entry_ab.py [--reps N] [--out PATH] ROOT [ROOT ...]
+    python3 scripts/wire_entry_ab.py [--reps N] [--k K] [--radius M]
+        [--out PATH] ROOT [ROOT ...]
 
 Runs each ROOT in turn and then the ROOTs in reverse (A B B A for two),
 each in a process of its own with that checkout's root first on
 ``sys.path``, so that two versions of the port are compared within one
-call on one card. Each process builds the sweep at K = 8, compiles the sf
-tile, makes the seeded 1024-trace fleet that chip_smoke.py matches, pins a
-matcher to the ``sub`` arm (no tuning: every checkout runs the same
-instance) and times, each run alone and after warm-up runs:
+call on one card. Each process builds the sweep instance that serves
+top-K width K (8 by default), compiles the sf tile, makes the seeded
+1024-trace fleet that chip_smoke.py matches, pins a matcher to the
+``sub`` arm at that K and search radius (no tuning: every checkout runs
+the same instance) and times, each run alone and after warm-up runs:
 
 - ``wire_entry_ms``: ``submit_prepared`` of the batch's first slice
   (``plan_submit``'s; ``slice_traces`` says its size), the candidates,
@@ -36,7 +38,9 @@ import sys
 
 _RUN = r"""
 import hashlib, json, statistics, sys, time
-root, reps = sys.argv[1], int(sys.argv[2])
+root, reps, k = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+radius = ({} if sys.argv[4] == "default"
+          else {"search_radius": float(sys.argv[4])})
 sys.path.insert(0, root)
 import numpy as np
 import torch
@@ -45,18 +49,20 @@ from reporter_tpu_torch.kernels import build
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
 from reporter_tpu_torch.netgen.synthetic import generate_city
 from reporter_tpu_torch.netgen.traces import synthesize_fleet
+from reporter_tpu_torch.ops import dense_candidates as dc
 from reporter_tpu_torch.ops import match as match_ops
 from reporter_tpu_torch.ops.hmm import viterbi_decode_batched
 from reporter_tpu_torch.tiles.compiler import compile_network
 from torch.profiler import ProfilerActivity, profile
 
 assert build.__file__.startswith(root), build.__file__
-build.build(build.EXACT_SOURCE, 8)
+build.build(build.EXACT_SOURCE, build.library_key(dc.sweep_instance_k(k)))
 ts = compile_network(generate_city("sf"))
 fleet = synthesize_fleet(ts, 1024, num_points=120, seed=0)
 traces = [Trace(uuid=p.uuid, xy=p.xy.astype(np.float32), times=p.times)
           for p in fleet]
-m = SegmentMatcher(ts, MatcherParams(sweep_autotune=False))
+m = SegmentMatcher(ts, MatcherParams(sweep_autotune=False, max_candidates=k,
+                                     **radius))
 work, sliced = m.plan_submit(traces)
 ps = m.prepare_submit_slice(traces, work, *sliced[0])
 if ps.mode == 0:
@@ -108,7 +114,8 @@ with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     torch.cuda.synchronize()
 kernels = sum(e.count for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA)
-print(json.dumps({"root": root, "wire_entry_ms": wire_ms, "viterbi_ms": vit_ms,
+print(json.dumps({"root": root, "k": k, "search_radius": p.search_radius,
+                  "wire_entry_ms": wire_ms, "viterbi_ms": vit_ms,
                   "batch_ms": statistics.median(batch), "batch_runs_ms": batch,
                   "kernels": kernels, "slice_traces": len(ps.ws),
                   "mode": ps.mode,
@@ -123,14 +130,20 @@ def main() -> int:
     ap.add_argument("roots", nargs="+", help="checkouts of the repo")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed runs of the wire entry and the Viterbi")
+    ap.add_argument("--k", type=int, default=8,
+                    help="the matcher's max_candidates (top-K width)")
+    ap.add_argument("--radius", default="default",
+                    help="the matcher's search_radius in m (default: "
+                         "MatcherParams')")
     ap.add_argument("--out", help="also write every result line here")
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots]
     results = []
     for root in roots + roots[::-1]:
         proc = subprocess.run([sys.executable, "-c", _RUN, root,
-                               str(args.reps)], cwd=root, capture_output=True,
-                              text=True, timeout=900)
+                               str(args.reps), str(args.k), args.radius],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=900)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], file=sys.stderr)
             return 1

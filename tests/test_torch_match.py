@@ -169,3 +169,65 @@ def test_pack_wire_random_roundtrip(num_edges, max_id, spec):
 def test_u32_wire_needs_its_spec():
     with pytest.raises(ValueError, match="wire_spec"):
         pm.unpack_wire(np.zeros((2, 1, 8), np.uint32))
+
+
+def _valid_of(prep):
+    _, pts, lens, _, _ = prep
+    return pts, np.arange(pts.shape[1])[None, :] < lens[:, None]
+
+
+def _assert_outputs_equal(got, ref):
+    """edge, chain_start and matched equal; offset equal at the wire's
+    OFFSET_QUANTUM (as the wire carries it: round(offset / 0.25)), and
+    the raw f32 offset within OFFSET_ATOL."""
+    g = [x.numpy() for x in got]
+    r = [np.asarray(x) for x in ref]
+    for name, a, b in zip(pm.MatchOutput._fields, g, r):
+        assert a.shape == b.shape, name
+    np.testing.assert_array_equal(g[0], r[0])
+    np.testing.assert_array_equal(g[2], r[2])
+    np.testing.assert_array_equal(g[3], r[3])
+    q = np.float32(pm.OFFSET_QUANTUM)
+    np.testing.assert_array_equal(np.round(g[1] / q), np.round(r[1] / q))
+    np.testing.assert_allclose(g[1], r[1], rtol=0, atol=OFFSET_ATOL)
+
+
+# The raw offsets differ by f32 roundings only: XLA:CPU contracts the
+# projection's multiply-adds into FMAs and the port does not (ROADMAP.md
+# queue 3). That is a few ulps (the ulp is 1.5e-5 m at 128-256 m); no
+# offset of this batch differs by more than two.
+OFFSET_ATOL = 1e-4
+
+
+def test_match_batch_matches_reference(setup):
+    """ops.match_batch (the port's batch entry, params before meta)
+    against reporter_tpu.ops.match_batch (jitted, meta before params) on
+    the same padded batch."""
+    _, jtab, ptab, prep = setup
+    pts, valid = _valid_of(prep)
+    ref = jm.match_batch(jnp.asarray(pts), jnp.asarray(valid), jtab, None,
+                         JMatcherParams(candidate_backend="dense"))
+    got = pm.match_batch(torch.from_numpy(pts), torch.from_numpy(valid),
+                         ptab, MatcherParams())
+    assert got.edge.shape == (6, 64)
+    _assert_outputs_equal(got, ref)
+    assert (got.matched.numpy()[valid]).mean() > 0.9
+
+
+@pytest.mark.parametrize("i", [0, 2])
+def test_match_trace_matches_reference(setup, i):
+    """ops.match_trace on ONE padded trace (2: the short one, a padded
+    tail) against reporter_tpu.ops.match_trace, and against row i of the
+    port's own batch (tolerance 0)."""
+    _, jtab, ptab, prep = setup
+    pts, valid = _valid_of(prep)
+    ref = jm.match_trace(jnp.asarray(pts[i]), jnp.asarray(valid[i]), jtab,
+                         None, JMatcherParams(candidate_backend="dense"))
+    got = pm.match_trace(torch.from_numpy(pts[i]), torch.from_numpy(valid[i]),
+                         ptab, MatcherParams())
+    assert got.edge.shape == (64,)
+    _assert_outputs_equal(got, ref)
+    row = pm.match_batch(torch.from_numpy(pts), torch.from_numpy(valid),
+                         ptab, MatcherParams())
+    for a, b in zip(got, row):
+        np.testing.assert_array_equal(a.numpy(), b[i].numpy())

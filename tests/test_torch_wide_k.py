@@ -184,11 +184,18 @@ def test_wide_k_matches_the_interpret_pallas_body(monkeypatch):
         [x.numpy() for x in (got.edge, got.offset, got.dist)])
 
 
-def test_match_many_at_k24_records_equal(sf):
-    """match_many at max_candidates = 24 and a 120 m search radius on a
-    few sf traces: the port's records equal the JAX matcher's
+@pytest.mark.parametrize("k,radius", [(24, 120.0), (64, WIDE_RADIUS)],
+                         ids=["k24-120m", "k64-150m"])
+def test_match_many_wide_k_records_equal(sf, k, radius):
+    """match_many on a few sf traces at max_candidates = 24 and a 120 m
+    search radius (on the card, the lists in shared memory), and at 64
+    and 150 m (past every arm's shared_max_k: on the card, the lists in
+    the global scratch): the port's records equal the JAX matcher's
     (tolerance 0)."""
-    params = dict(max_candidates=24, search_radius=120.0)
+    if k == 64:
+        assert all(dc.list_plan(arm, k)[0] == "scratch"
+                   for arm in dc.SWEEP_ARMS)
+    params = dict(max_candidates=k, search_radius=radius)
     jm = JSegmentMatcher(sf, Config(
         matcher_backend="jax",
         matcher=MatcherParams(candidate_backend="dense", **params)))
