@@ -13,7 +13,9 @@ the native host half against its Python forms, in phases:
                 wide library (the five arms at a run-time K, which serve
                 every K past 16, each with its lists in shared memory and
                 past the arm's shared_max_k in a global scratch; the six
-                nvcc started together) and
+                nvcc started together), nvcc-build kernels/viterbi.cu
+                (the batched Viterbi decode, K a run-time argument; a
+                seventh nvcc beside them) and
                 g++-build the host library
                 (native/prepare.cc, walker.cc) into reporter_tpu_torch/
                 _build/, with the build times side by side; the ptxas
@@ -90,8 +92,20 @@ the native host half against its Python forms, in phases:
                 chunks of the sweep), whose first 16 records equal the CPU
                 matcher's at that K; each line names its instance
                 (dc.list_plan: register, shared or scratch);
-     breakdown — one slice's sweep per arm, Viterbi and pack timed alone,
-                and the device busy share of one wire entry
+  kernel:viterbi — the batched Viterbi kernel (kernels/viterbi.cu) on
+                the first wire slice of the 1024 traces (first_slice: 1024
+                x 128 points) at K = 8 (50 m) and K = 16, 32 and 64 (at
+                WIDE_RADIUS): mismatches against its plain version on the
+                card per field (choice, edge, offset, chain_start,
+                matched; all must be 0), ms and ms_back_to_back, plain_ms,
+                bound_ms and bound_by (the lattice pairs this slice looks
+                up, VITERBI_OPS_PER_* operations each, against the bytes),
+                library_ms null (no PyTorch call decodes a lattice), the
+                seconds; every main-path window counts its launches per K
+                (Windows.viterbi_by_path);
+     breakdown — one slice's sweep per arm, the Viterbi kernel and its plain
+                version and the pack timed alone, and the device busy
+                share and kernel launches of one wire entry
                 (torch.profiler);
      reference — golden fixture ids on the card, through the matcher and
                 through make_app's /report, and card-vs-CPU records on a
@@ -422,7 +436,10 @@ the native host half against its Python forms, in phases:
                 sources,
                 the host library among them; the topology's workers'
                 launches by member; the sf:topk, sf:grid, fleet and mesh:*
-                windows in every entry's launches_by_path), the card line,
+                windows in every entry's launches_by_path), a
+                viterbi_decode_k<K> entry per K of [kernel:viterbi] (its
+                launches at that K in the main-path windows; none is an
+                error), the card line,
                 and the final {"ok": true, "device": {...}} line.
 
 Any failed phase raises and the script exits non-zero without the final
@@ -583,9 +600,19 @@ SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "_chip_scratch")
 SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
            "reporter_tpu_torch/kernels/topk.cuh",
+           "reporter_tpu_torch/kernels/viterbi.cu",
            "reporter_tpu_torch/native/prepare.cc",
            "reporter_tpu_torch/native/walker.cc",
            "reporter_tpu_torch/native/reach.cc")
+HOST_SOURCES = SOURCES[3:]    # the host library's (g++)
+VITERBI_SOURCE = SOURCES[2]
+VITERBI_REPLACES = ("reporter_tpu/ops/hmm.py:112 viterbi_decode_batched "
+                    "(lax.scan; not Pallas)")
+VITERBI_CASES = ((8, None), (16, WIDE_RADIUS), (32, WIDE_RADIUS),
+                 (64, WIDE_RADIUS))   # [kernel:viterbi]: (K, search radius;
+#                               None the default 50 m)
+VITERBI_OPS_PER_LOOKUP = 2    # a reach-row entry: a compare and a select
+VITERBI_OPS_PER_PAIR = 16     # a looked-up pair's route, cost and argmin step
 GATE_REL_TOL = 1e-3           # tensor-core vs plain gate: decisions may differ
 #                               only where the plain minimum is this close
 #                               (relative) to the threshold (summation order)
@@ -961,19 +988,28 @@ def gates_phase(card, dc, radius, k):
 
 class Windows:
     """Launch windows of the main path: ``run(path, fn)`` sets every
-    instance's launch count to 0 just before fn() and reads them just
-    after; the counts are kept per path."""
+    instance's launch count (the sweep's and the Viterbi's) to 0 just
+    before fn() and reads them just after; the counts are kept per path,
+    the sweep's in ``by_path`` (returned) and the Viterbi's, keyed by K,
+    in ``viterbi_by_path``."""
 
     def __init__(self, dc):
+        from reporter_tpu_torch.ops import hmm
+
         self.dc = dc
+        self.hmm = hmm
         self.by_path: dict = {}
+        self.viterbi_by_path: dict = {}
 
     def run(self, path, fn):
         for key in self.dc.SWEEP_LAUNCHES:
             self.dc.SWEEP_LAUNCHES[key] = 0
+        for key in self.hmm.VITERBI_LAUNCHES:
+            self.hmm.VITERBI_LAUNCHES[key] = 0
         out = fn()
         counts = dict(self.dc.SWEEP_LAUNCHES)
         self.by_path[path] = counts
+        self.viterbi_by_path[path] = dict(self.hmm.VITERBI_LAUNCHES)
         return out, counts
 
 
@@ -1235,7 +1271,9 @@ def first_slice(m, traces):
 
 def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
     """Where the device time of one slice goes: the sweep (pre-pass +
-    kernel) per arm, the Viterbi and the wire pack, each timed alone."""
+    kernel) per arm, the Viterbi (the kernel, and its plain version beside
+    it) and the wire pack, each timed alone."""
+    from reporter_tpu_torch.ops import hmm
     from reporter_tpu_torch.ops import match as match_ops
     from reporter_tpu_torch.ops.hmm import viterbi_decode_batched
     from torch.profiler import ProfilerActivity, profile
@@ -1256,6 +1294,8 @@ def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
     stage_ms = {
         "viterbi": cuda_ms(lambda: viterbi_decode_batched(
             cands, bpts, bval, m.tables, *vit_args), reps=5, warmup=1),
+        "viterbi_plain": cuda_ms(lambda: hmm._viterbi_plain(
+            cands, bpts, bval, m.tables, *vit_args), reps=2, warmup=1),
         "pack": cuda_ms(lambda: match_ops._pack_wire(
             out, ts.num_edges, m.wire_spec), reps=5),
         "wire_entry": cuda_ms(lambda: m.submit_prepared(ps), reps=5,
@@ -1285,6 +1325,107 @@ def breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams):
           device_kernel_launches=sum(e.count for e in kernels_run),
           top_device_ms={e.key[:60]: e.self_device_time_total / 1e3
                          for e in top[:5]})
+
+
+def viterbi_work(cands, bpts, bval, tables, interp, breakage):
+    """What one decode of these inputs must do and move: the lattice pairs
+    whose reach row is looked up (an active point with an earlier active
+    one within the breakage distance, a valid candidate with an edge at
+    both ends), its operations (each pair's M reach-row entries plus its
+    route, cost and argmin step) and its bytes (each input read once, the
+    four tables whole, the five [B, T] outputs written once)."""
+    from reporter_tpu_torch.ops import hmm
+    from reporter_tpu_torch.ops.dense_candidates import sqrt_f32
+
+    B, T, _ = cands.edge.shape
+    keep = hmm._keep_mask_batched(bpts.permute(1, 2, 0), bval.T, interp).T
+    active = keep & cands.valid.any(-1)
+    idx = torch.arange(T, device=bpts.device).expand(B, T)
+    run = torch.cummax(torch.where(active, idx, -1), dim=1).values
+    prev = torch.cat([idx[:, :1] * 0, run[:, :-1].clamp_min(0)], 1)
+    has_prev = torch.cat([active[:, :1] & False, run[:, :-1] >= 0], 1)
+    prev_pts = torch.gather(bpts, 1, prev[..., None].expand(B, T, 2))
+    gc = sqrt_f32(((bpts - prev_pts) ** 2).sum(-1))
+    n_c = (cands.valid & (cands.edge >= 0)).sum(-1)
+    n_p = torch.gather(n_c, 1, prev)
+    pairs = int(torch.where(active & has_prev & (gc <= breakage),
+                            n_p * n_c, 0).sum())
+    M = tables["reach_to"].shape[1]
+    ops = pairs * (M * VITERBI_OPS_PER_LOOKUP + VITERBI_OPS_PER_PAIR)
+    nbytes = (sum(x.numel() * x.element_size() for x in cands)
+              + bpts.numel() * 4 + bval.numel()
+              + sum(tables[k].numel() * tables[k].element_size()
+                    for k in ("edge_len", "reach_row", "reach_to",
+                              "reach_dist"))
+              + B * T * (4 + 4 + 4 + 1 + 1))
+    return pairs, ops, nbytes
+
+
+def viterbi_phase(card, m, traces):
+    """[kernel:viterbi]: the batched Viterbi kernel (kernels/viterbi.cu)
+    against its plain version on the card, on the first wire slice of the
+    1024 sf traces (first_slice), at each (K, radius) of VITERBI_CASES:
+    mismatches per field (all must be 0), the kernel's times (single,
+    back to back), the plain version's, the bound and the phase's
+    seconds. → {K: record} for the kernels line."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.ops import hmm
+    from reporter_tpu_torch.ops import match as match_ops
+
+    ps, bpts, bval = first_slice(m, traces)
+    out = {}
+    for k, radius in VITERBI_CASES:
+        t_k = time.perf_counter()
+        levers = {} if radius is None else {"search_radius": radius}
+        p = MatcherParams(sweep_autotune=False, max_candidates=k, **levers)
+        cands = match_ops.batch_candidates(bpts, bval, m.tables, p)
+        args = (cands, bpts, bval, m.tables, p.sigma_z, p.beta,
+                p.max_route_distance_factor, p.breakage_distance,
+                p.backward_slack, p.interpolation_distance)
+        got = hmm.viterbi_decode_batched(*args)
+        want = hmm._viterbi_plain(*args)
+        torch.cuda.synchronize()
+        mism = {f: int((getattr(got, f) != getattr(want, f)).sum())
+                for f in got._fields}
+        err = max(float((getattr(got, f).double()
+                         - getattr(want, f).double()).abs().max())
+                  for f in got._fields)
+        ms = cuda_ms(lambda: hmm.viterbi_decode_batched(*args), reps=20)
+        b2b = launch_ms(lambda: hmm.viterbi_decode_batched(*args))
+        plain_ms = cuda_ms(lambda: hmm._viterbi_plain(*args), reps=2,
+                           warmup=1)
+        pairs, ops, nbytes = viterbi_work(
+            cands, bpts, bval, m.tables, p.interpolation_distance,
+            p.breakage_distance)
+        by_ops = ops / H100_F32_FLOPS * 1e3
+        by_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+        rec = dict(ms=ms, ms_back_to_back=b2b, plain_ms=plain_ms,
+                   bound_ms=max(by_ops, by_bytes),
+                   bound_by="operations" if by_ops >= by_bytes else "bytes",
+                   library_ms=None, max_abs_err=err,
+                   search_radius=p.search_radius,
+                   mismatches=sum(mism.values()))
+        phase("kernel:viterbi", card, metro="sf", k=k,
+              search_radius=p.search_radius, traces=int(bpts.shape[0]),
+              points=int(bval.numel()),
+              choice_mismatches=mism["choice"],
+              edge_mismatches=mism["edge"],
+              offset_mismatches=mism["offset"],
+              chain_start_mismatches=mism["chain_start"],
+              matched_mismatches=mism["matched"], max_abs_err=err, ms=ms,
+              ms_back_to_back=b2b,
+              plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+              bound_by=rec["bound_by"], library_ms=None,
+              lattice_pairs=pairs, operations=ops, bytes=nbytes,
+              threads=hmm.viterbi_plan(*cands.edge.shape)["threads"],
+              seconds=time.perf_counter() - t_k)
+        if any(mism.values()) or err:
+            raise SystemExit(f"the Viterbi kernel differs from its plain "
+                             f"version at K={k}: {mism}")
+        if not got.matched.any():
+            raise SystemExit(f"the Viterbi kernel matched nothing at K={k}")
+        out[k] = rec
+    return out
 
 
 def organic_phase(card, dc, build, win, MatcherParams, SegmentMatcher, Trace,
@@ -2694,10 +2835,11 @@ def topo_scale_phase(card, st):
             cached = (sorted(os.listdir(cold_cache))
                       if os.path.isdir(cold_cache) else [])
             # one library of each kind, no temp file: the host library,
-            # and on the card the sweep at K = 8
-            kinds = ["librtt_native_"] + (["libsweep_exact_k8_"]
-                                          if st["device"] == "cuda" else [])
-            # (a sweep library's ptxas report sits beside it: the
+            # and on the card the sweep at K = 8 and the Viterbi
+            kinds = ["librtt_native_"] + (
+                ["libsweep_exact_k8_", "libviterbi_"]
+                if st["device"] == "cuda" else [])
+            # (a CUDA library's ptxas report sits beside it: the
             # compile manifest reads it)
             libs = [f for f in built if not f.endswith(".ptxas.txt")]
             checks["one_build_per_library"] = sorted(
@@ -5856,7 +5998,7 @@ def main() -> int:
     # a library already built from the same sources (by an earlier run in
     # this checkout) is loaded, not rebuilt, and shows no build time
     phase("build", card, seconds=time.perf_counter() - t0, sources=built,
-          host_library={"sources": list(SOURCES[2:]),
+          host_library={"sources": list(HOST_SOURCES),
                         "gxx_seconds": native_build.BUILD_LOG.get("seconds")})
     # the persistent grid is min(chunks, CTAs per SM x SMs); the kernel
     # phase runs 512 chunks
@@ -5922,6 +6064,7 @@ def main() -> int:
         profile_phase(card, m, traces)
         main_k_phase(card, ts, traces, dc, win, MatcherParams, SegmentMatcher,
                      cache)
+        viterbi = viterbi_phase(card, m, traces)
         breakdown_phase(card, m, ts, traces, cand_ms, MatcherParams)
 
         here = os.path.dirname(os.path.abspath(__file__))
@@ -6081,9 +6224,27 @@ def main() -> int:
                 raise SystemExit(f"{arm}'s {label} instance at K={k} was "
                                  "never launched on the main path")
             kernels.append(entry)
+    # the batched Viterbi kernel at each K of [kernel:viterbi], its
+    # launches at that K in every main-path window
+    for k, a in viterbi.items():
+        paths = {path: c[k] for path, c in win.viterbi_by_path.items()
+                 if c.get(k, 0)}
+        entry = {
+            "name": f"viterbi_decode_k{k}", "route": "cuda",
+            "source": VITERBI_SOURCE, "replaces": VITERBI_REPLACES, "k": k,
+            "search_radius": a["search_radius"],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "mismatches": a["mismatches"], "max_abs_err": a["max_abs_err"],
+            "ms": a["ms"], "ms_back_to_back": a["ms_back_to_back"],
+            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"], "library_ms": None}
+        if entry["launches"] < 1:
+            raise SystemExit(f"the Viterbi kernel at K={k} was never "
+                             "launched on the main path")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels, "sources": list(SOURCES),
                       "host_library": {
-                          "sources": list(SOURCES[2:]), "route": "g++",
+                          "sources": list(HOST_SOURCES), "route": "g++",
                           "seconds": native_build.BUILD_LOG.get("seconds")}}),
           flush=True)
     print(card, flush=True)

@@ -16,6 +16,11 @@ library, and this module pins, per instance (arm, K or ``wide``):
   (``build.ptxas_log``): each kernel's registers and static shared
   memory, and 0 spill bytes (``SPILL_WAIVERS``: the dated exceptions);
 
+and the batched Viterbi decode's library (``kernels/viterbi.cu``, K a
+run-time argument up to ``ops/hmm.VITERBI_MAX_K``): its kernel's ptxas
+figures under ``ptxas.viterbi``, 0 spill bytes unless waived (keyed by
+(kernel, "viterbi")), and its K ceiling in the host half;
+
 beside the host constants the instances depend on (the K set, the arms,
 the nvcc flags, the staged layout version and keys) and the HBM half:
 ``hbm_findings(ts)`` holds ``tiles/capacity.dense_staged_bytes`` to the
@@ -55,6 +60,9 @@ H100_HBM_BYTES = 80 * 10**9
 # the wide library's launch shape follows K (its shared-memory lists): its
 # rows are pinned at the K that chip_smoke.py's main path runs it at
 WIDE_PIN_K = 32
+# the Viterbi library's key in the ptxas section and in SPILL_WAIVERS
+VITERBI_LIBRARY = "viterbi"
+VITERBI_KERNEL = "viterbi_decode_kernel"
 # sections only a card can compute (nvcc's report, the launch shape query)
 CARD_SECTIONS = ("launch", "ptxas")
 
@@ -127,20 +135,21 @@ def ptxas_figures(log: str) -> list:
     return out
 
 
-def _ptxas_section(logs: "dict[int, str]") -> dict:
+def _ptxas_section(logs: "dict[int | str, str]") -> dict:
     """{"k<K>": {kernel: {registers, static_smem, spill_stores,
     spill_loads}}} from each library's ptxas report (keyed by K of
-    SWEEP_KS, or WIDE: "kwide")."""
+    SWEEP_KS, or WIDE: "kwide"; a library keyed by name, as "viterbi",
+    under its name)."""
     from reporter_tpu_torch.kernels.build import library_tag
 
     out = {}
-    for k, log in sorted(logs.items()):
+    for k, log in sorted(logs.items(), key=lambda kv: str(kv[0])):
         per = {}
         for fig in ptxas_figures(log):
             name = fig.pop("kernel")
             per[name] = {key: fig.get(key, 0) for key in (
                 "registers", "static_smem", "spill_stores", "spill_loads")}
-        out[f"k{library_tag(k)}"] = per
+        out[k if isinstance(k, str) else f"k{library_tag(k)}"] = per
     return out
 
 
@@ -151,6 +160,7 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
     from reporter_tpu_torch.device import resolve_device
     from reporter_tpu_torch.kernels import build
     from reporter_tpu_torch.ops.dense_candidates import SWEEP_ARMS
+    from reporter_tpu_torch.ops.hmm import VITERBI_MAX_K
     from reporter_tpu_torch.tiles import capacity, tileset
 
     out: "dict[str, Any]" = {
@@ -160,6 +170,8 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
         "instances": [f"{a}@k{build.library_tag(k)}"
                       for k in build.LIBRARIES for a in SWEEP_ARMS],
         "nvcc_flags": list(build._NVCC_FLAGS),
+        "viterbi": {"source": build.VITERBI_SOURCE.name,
+                    "max_k": VITERBI_MAX_K},
         "staged_tables": {
             "layout_version": tileset.STAGED_LAYOUT_VERSION,
             "dense_layout_keys": list(tileset._DENSE_LAYOUT_KEYS),
@@ -171,8 +183,9 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
     if resolve_device(device).type != "cuda":
         return out
     build.build_all()
-    out["ptxas"] = _ptxas_section({k: build.ptxas_log(k)
-                                   for k in build.LIBRARIES})
+    out["ptxas"] = _ptxas_section({
+        **{k: build.ptxas_log(k) for k in build.LIBRARIES},
+        VITERBI_LIBRARY: build.viterbi_ptxas_log()})
     launch = {}
     for k in build.LIBRARIES:
         for code, arm in enumerate(SWEEP_ARMS):
@@ -548,7 +561,11 @@ GOLDEN: "dict[str, Any]" = \
                      'sweep_exact_kernel<4,0>': {'registers': 72,
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
-                                                 'static_smem': 0}}},
+                                                 'static_smem': 0}},
+           'viterbi': {'viterbi_decode_kernel': {'registers': 56,
+                                                 'spill_loads': 0,
+                                                 'spill_stores': 0,
+                                                 'static_smem': 2572}}},
  'staged_tables': {'card_hbm_bytes': 80000000000,
                    'dense_layout_keys': ['seg_pack',
                                          'seg_bbox',
@@ -558,7 +575,8 @@ GOLDEN: "dict[str, Any]" = \
                                          'seg_coarse'],
                    'hbm_budget_bytes': 64424509440,
                    'layout_version': 3},
- 'sweep_ks': [4, 6, 8, 12, 16]}
+ 'sweep_ks': [4, 6, 8, 12, 16],
+ 'viterbi': {'max_k': 64, 'source': 'viterbi.cu'}}
 # --- END GOLDEN MANIFEST ---
 
 
@@ -587,8 +605,9 @@ def diff(golden: "dict | Any", computed: "dict | Any",
 def golden_findings(golden: "dict | None" = None) -> "list[str]":
     """The golden block's self-consistency: every instance has a launch
     shape, every K library and the wide one its ptxas figures with the
-    sweep kernel at each arm, and no kernel spills outside SPILL_WAIVERS
-    (keyed by K, or build.WIDE)."""
+    sweep kernel at each arm, the Viterbi library its kernel's, and no
+    kernel spills outside SPILL_WAIVERS (keyed by K, build.WIDE or
+    VITERBI_LIBRARY)."""
     from reporter_tpu_torch.kernels.build import WIDE, library_tag
 
     g = GOLDEN if golden is None else golden
@@ -612,13 +631,23 @@ def golden_findings(golden: "dict | None" = None) -> "list[str]":
                        == str(code) for name in per):
                 out.append(f"golden: K={library_tag(k)} has no "
                            f"sweep_exact_kernel of arm {code}")
-        for name, fig in per.items():
-            if (fig.get("spill_stores") or fig.get("spill_loads")) \
-                    and (name, k) not in SPILL_WAIVERS:
-                out.append(f"golden: {name} at K={library_tag(k)} spills "
-                           f"{fig['spill_stores']} / {fig['spill_loads']} "
-                           "bytes")
+        out.extend(_spill_findings(per, k, f"K={library_tag(k)}"))
+    per = g["ptxas"].get(VITERBI_LIBRARY)
+    if not per or VITERBI_KERNEL not in per:
+        out.append(f"golden: no ptxas figures for {VITERBI_KERNEL}")
+    else:
+        out.extend(_spill_findings(per, VITERBI_LIBRARY, VITERBI_LIBRARY))
     return out
+
+
+def _spill_findings(per: dict, key, where: str) -> "list[str]":
+    """A library's kernels that spill without a SPILL_WAIVERS entry
+    (keyed by (kernel, the library's key))."""
+    return [f"golden: {name} at {where} spills {fig['spill_stores']} / "
+            f"{fig['spill_loads']} bytes"
+            for name, fig in per.items()
+            if (fig.get("spill_stores") or fig.get("spill_loads"))
+            and (name, key) not in SPILL_WAIVERS]
 
 
 def check(device="cuda", computed: "dict | None" = None) -> "list[str]":

@@ -16,8 +16,11 @@ loaded with ctypes (seconds to build, no PyTorch headers). ``build_all``
 starts every library's ``nvcc`` at once. A library is named by its K (or
 ``wide``) and a hash of its source, the headers beside it and the flags,
 so an edited source rebuilds; its ``ptxas -v`` report is kept beside it
-(``ptxas_log``). A missing ``nvcc``, a failed build or a failed launch
-raises; nothing falls back to the plain version or to another K.
+(``ptxas_log``). ``viterbi.cu`` holds the batched Viterbi decode
+(``ops/hmm.py::viterbi_decode_batched`` on a card): one library, K a
+run-time argument, built beside the sweep's (``build_all`` starts its
+``nvcc`` with theirs). A missing ``nvcc``, a failed build or a failed
+launch raises; nothing falls back to the plain version or to another K.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ WIDE = 0
 _HERE = Path(__file__).resolve().parent
 _BUILD_DIR = _HERE.parent / "_build"
 EXACT_SOURCE = _HERE / "sweep_exact.cu"
+VITERBI_SOURCE = _HERE / "viterbi.cu"
 
 # exact f32 geometry: no FMA contraction, IEEE division and square root
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -79,16 +83,19 @@ def library_tag(key: int) -> str:
     return "wide" if key == WIDE else str(key)
 
 
-def build(source: Path, k: int) -> Path:
-    """Compile ``source`` at top-K width ``k`` (a K of SWEEP_KS, or WIDE)
-    into the build directory, if not already there, and return the
-    library's path. The name holds k (``wide`` for WIDE) and a hash of the
-    source, every header of its directory (``*.cuh``) and the flags."""
-    flags = (*_NVCC_FLAGS, f"-DRTT_SWEEP_K={int(k)}")
+def build(source: Path, k: "int | None") -> Path:
+    """Compile ``source`` at top-K width ``k`` (a K of SWEEP_KS, or WIDE;
+    None for a source that takes no -DRTT_SWEEP_K, as viterbi.cu) into the
+    build directory, if not already there, and return the library's path.
+    The name holds k (``wide`` for WIDE, nothing for None) and a hash of
+    the source, every header of its directory (``*.cuh``) and the flags."""
+    flags = _NVCC_FLAGS if k is None else (*_NVCC_FLAGS,
+                                           f"-DRTT_SWEEP_K={int(k)}")
     h = hashlib.sha256(" ".join(flags).encode())
     for f in [source, *sorted(source.parent.glob("*.cuh"))]:
         h.update(f.name.encode() + b"\0" + f.read_bytes())
-    name = f"lib{source.stem}_k{library_tag(k)}_{h.hexdigest()[:16]}.so"
+    tag = "" if k is None else f"_k{library_tag(k)}"
+    name = f"lib{source.stem}{tag}_{h.hexdigest()[:16]}.so"
     out = _BUILD_DIR / name
     # a library without its ptxas report (built before the report was
     # kept) is not built: the manifest reads the report of every library
@@ -102,9 +109,9 @@ def build(source: Path, k: int) -> Path:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source.name} at "
-                           f"K={library_tag(k)} (rc {proc.returncode}):\n"
-                           f"{proc.stderr}")
+        at = "" if k is None else f" at K={library_tag(k)}"
+        raise RuntimeError(f"nvcc failed on {source.name}{at} (rc "
+                           f"{proc.returncode}):\n{proc.stderr}")
     # the ptxas report beside the library, in place first: a library that
     # exists has its report (analysis/compile_manifest reads it on a warm
     # build too); both land whole (a replace), whoever builds at once
@@ -113,7 +120,8 @@ def build(source: Path, k: int) -> Path:
         f.write(proc.stderr.strip() + "\n")
     os.replace(rep, _ptxas_path(out))
     os.replace(tmp, out)
-    BUILD_LOG[f"{source.name} K={library_tag(k)}"] = {
+    key = source.name if k is None else f"{source.name} K={library_tag(k)}"
+    BUILD_LOG[key] = {
         "seconds": time.perf_counter() - t0, "ptxas": proc.stderr.strip()}
     return out
 
@@ -128,14 +136,21 @@ def ptxas_log(k: int) -> str:
     return _ptxas_path(build(EXACT_SOURCE, k)).read_text()
 
 
-LIBRARIES = (*SWEEP_KS, WIDE)   # every library build_all builds
+def viterbi_ptxas_log() -> str:
+    """The ``ptxas -v`` report of the Viterbi library (built now if it is
+    not yet)."""
+    return _ptxas_path(build(VITERBI_SOURCE, None)).read_text()
+
+
+LIBRARIES = (*SWEEP_KS, WIDE)   # the sweep's libraries build_all builds
 
 
 def build_all() -> None:
-    """Build every library now (each K of SWEEP_KS and the wide one), one
-    ``nvcc`` each, all started together."""
-    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
-        list(pool.map(lambda k: build(EXACT_SOURCE, k), LIBRARIES))
+    """Build every library now (each K of SWEEP_KS, the wide one and the
+    Viterbi's), one ``nvcc`` each, all started together."""
+    jobs = [(EXACT_SOURCE, k) for k in LIBRARIES] + [(VITERBI_SOURCE, None)]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        list(pool.map(lambda job: build(*job), jobs))
 
 
 def _lib(k: int) -> ctypes.CDLL:
@@ -225,3 +240,56 @@ def exact_shape(arm: int, k: int, device="cuda") -> dict:
     return dict(zip(("threads", "smem_bytes", "ctas_per_sm", "sms", "depth",
                      "gate_group"),
                     (v.value for v in vals)))
+
+
+_viterbi: "list[ctypes.CDLL]" = []
+
+
+def _viterbi_lib() -> ctypes.CDLL:
+    with _lock:
+        if not _viterbi:
+            lib = ctypes.CDLL(str(build(VITERBI_SOURCE, None)))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.rtt_viterbi_decode.argtypes = (
+                [p] * 10 + [i] * 6 + [f] * 5 + [i, f] + [p] * 6 + [p])
+            lib.rtt_viterbi_decode.restype = ctypes.c_int
+            _viterbi.append(lib)
+        return _viterbi[0]
+
+
+def launch_viterbi(ce, co, cd, cv, pts, vp, edge_len, reach_row, reach_to,
+                   reach_dist, threads: int, group: int, em_denom: float,
+                   beta: float, factor: float, breakage: float,
+                   slack: float, use_keep: bool, interp: float, scratch,
+                   choice, edge, offset, start, matched) -> None:
+    """One launch of viterbi.cu's decode over the batch (cands ``ce``
+    [B, T, K]) on the current stream of the tensors' device, with that
+    device current: one CTA of ``threads`` threads a trace, ``group`` a
+    column (``ops/hmm.viterbi_plan``). The float arguments are Python
+    floats, rounded once to f32 as the plain version's 0-d tensors are
+    (``em_denom`` is 2 sigma_z^2 in double, ``interp`` the interpolation
+    distance, squared here in f32). The caller checks the tensors and
+    allocates ``scratch`` (i32 [B, T, K + 1]) and the five outputs."""
+    B, T, K = (int(x) for x in ce.shape)
+    lib = _viterbi_lib()
+    with _on_device(ce.device):
+        rc = lib.rtt_viterbi_decode(
+            ce.data_ptr(), co.data_ptr(), cd.data_ptr(), cv.data_ptr(),
+            pts.data_ptr(), vp.data_ptr(), edge_len.data_ptr(),
+            reach_row.data_ptr(), reach_to.data_ptr(), reach_dist.data_ptr(),
+            B, T, K, int(reach_to.shape[1]), int(threads), int(group),
+            *(float(x) for x in (em_denom, beta, factor, breakage, slack)),
+            int(use_keep), _f32_square(float(interp)), scratch.data_ptr(),
+            choice.data_ptr(), edge.data_ptr(), offset.data_ptr(),
+            start.data_ptr(), matched.data_ptr(), _stream(ce))
+    if rc != 0:
+        raise RuntimeError(f"viterbi_decode launch failed (B={B}, T={T}, "
+                           f"K={K}): error {rc}")
+
+
+def _f32_square(x: float) -> float:
+    """f32(x) squared in f32, as the plain version's 0-d tensor ** 2."""
+    import struct
+
+    f = struct.unpack("f", struct.pack("f", x))[0]
+    return struct.unpack("f", struct.pack("f", f * f))[0]

@@ -12,9 +12,13 @@ constants):
   transition(c→c') = |route_dist(c, c') − gc_dist| / beta
 
 with transitions disallowed when no route exists within the reach tables
-or the route detour exceeds ``max_route_factor``. The JAX package's
-``lax.scan`` loops become Python loops over T of [K, K, B] tensor steps,
-kept batch-last as the reference lays them out so the two read alike.
+or the route detour exceeds ``max_route_factor``. On a card the batched
+decode is one launch of the hand-written kernel ``kernels/viterbi.cu``
+(the JAX package's four ``lax.scan`` loops in one program, bit-equal to
+the plain version); on the CPU it is the plain version,
+``_viterbi_plain``, whose ``lax.scan`` loops become Python loops over T
+of [K, K, B] tensor steps, kept batch-last as the reference lays them
+out so the two read alike. The ranked-path lattice stays plain torch.
 Divisions are by 0-d tensors: a true division, never a multiplication by
 a reciprocal. Orders are the reference's: an argmin takes the first
 minimal index, and where the JAX package sorts (``jnp.argsort``, stable)
@@ -25,11 +29,25 @@ promises no tie order.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
 
 from reporter_tpu_torch.ops.dense_candidates import BIG, CandidateSet, sqrt_f32
+
+# The widest candidate list the Viterbi kernel takes (kMaxK in
+# kernels/viterbi.cu: its per-step arrays in shared memory are this wide);
+# the wrapper refuses a wider one on a card.
+VITERBI_MAX_K = 64
+
+# Launches of the Viterbi kernel, keyed by the candidate width K (a key
+# appears at its first launch: readers take a missing key as 0).
+# viterbi_decode_batched adds one per launch, under _LAUNCH_LOCK, and
+# nothing else does; chip_smoke.py resets and reads them around each
+# main-path run, beside ops.dense_candidates.SWEEP_LAUNCHES.
+VITERBI_LAUNCHES: "dict[int, int]" = {}
+_LAUNCH_LOCK = threading.Lock()
 
 
 class ViterbiResult(NamedTuple):
@@ -73,7 +91,108 @@ def viterbi_decode_batched(cands: CandidateSet, points, valid_pt, tables,
     ``breakage_distance`` or no transition is allowed. Inactive points
     (padding, interpolated, or no candidate in radius) pass the carry
     through with identity backpointers; interpolated points then inherit
-    the last matched point's (edge, offset)."""
+    the last matched point's (edge, offset).
+
+    On a card (the candidates' device) one launch of kernels/viterbi.cu
+    (K up to VITERBI_MAX_K; a wider K, a failed build or a failed launch
+    raises); on the CPU the plain version; any other device raises."""
+    args = (cands, points, valid_pt, tables, sigma_z, beta,
+            max_route_factor, breakage_distance, backward_slack,
+            interpolation_distance)
+    dev = cands.edge.device
+    if dev.type == "cuda":
+        return _viterbi_cuda(*args)
+    if dev.type == "cpu":
+        return _viterbi_plain(*args)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def viterbi_plan(B: int, T: int, K: int) -> dict:
+    """The Viterbi kernel's launch at a batch of B traces of T points and
+    K candidates: one CTA of ``threads`` a trace (grid B), ``group``
+    threads a column of the step's [K, K] block (a power of two within a
+    warp; ``columns`` = threads / group, K rounded up to a power of two),
+    and the scratch the wrapper allocates (i32 [B, T, K + 1]: the
+    backpointers and a word per level). Raises past VITERBI_MAX_K."""
+    if not 1 <= K <= VITERBI_MAX_K:
+        raise ValueError(f"the Viterbi kernel takes 1 <= K <= "
+                         f"{VITERBI_MAX_K} candidates, got K={K}")
+    columns = 1 << (K - 1).bit_length()
+    threads = min(max(4 * columns, 32), 256)
+    scratch = (B, T, K + 1)
+    return {"grid": B, "threads": threads, "group": threads // columns,
+            "columns": columns, "scratch_shape": scratch,
+            "scratch_bytes": 4 * B * T * (K + 1)}
+
+
+def _viterbi_cuda(cands: CandidateSet, points, valid_pt, tables,
+                  sigma_z: float, beta: float, max_route_factor: float,
+                  breakage_distance: float, backward_slack: float,
+                  interpolation_distance: float) -> ViterbiResult:
+    """The batched decode as one launch of kernels/viterbi.cu on the
+    current stream of the candidates' card: checks the tensors, allocates
+    the outputs and the scratch, launches and counts the launch. Nothing
+    here waits for the card."""
+    from reporter_tpu_torch.kernels import build
+    from reporter_tpu_torch.utils import profiling
+
+    B, T, K = (int(x) for x in cands.edge.shape)
+    plan = viterbi_plan(B, T, K)
+    dev = cands.edge.device
+    ce, co, cd, cv = (x.contiguous() for x in cands)
+    pts, vp = points.contiguous(), valid_pt.contiguous()
+    tab = {k: tables[k].contiguous() for k in ("edge_len", "reach_row",
+                                               "reach_to", "reach_dist")}
+    E = tab["edge_len"].shape[0] if tab["edge_len"].dim() == 1 else -1
+    R, M = tuple(tab["reach_to"].shape) if tab["reach_to"].dim() == 2 \
+        else (-1, -1)
+    checks = [("edge", ce, torch.int32, (B, T, K)),
+              ("offset", co, torch.float32, (B, T, K)),
+              ("dist", cd, torch.float32, (B, T, K)),
+              ("valid", cv, torch.bool, (B, T, K)),
+              ("points", pts, torch.float32, (B, T, 2)),
+              ("valid_pt", vp, torch.bool, (B, T)),
+              ("edge_len", tab["edge_len"], torch.float32, (E,)),
+              ("reach_row", tab["reach_row"], torch.int32, (E,)),
+              ("reach_to", tab["reach_to"], torch.int32, (R, M)),
+              ("reach_dist", tab["reach_dist"], torch.float32, (R, M))]
+    for name, t, dtype, shape in checks:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"viterbi_decode_batched: expected {name} as "
+                             f"{dtype} {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    choice = torch.empty((B, T), dtype=torch.int32, device=dev)
+    edge = torch.empty((B, T), dtype=torch.int32, device=dev)
+    offset = torch.empty((B, T), dtype=torch.float32, device=dev)
+    start = torch.empty((B, T), dtype=torch.bool, device=dev)
+    matched = torch.empty((B, T), dtype=torch.bool, device=dev)
+    out = ViterbiResult(choice=choice, edge=edge, offset=offset,
+                        chain_start=start, matched=matched)
+    if B == 0 or T == 0:
+        return out
+    scratch = torch.empty(plan["scratch_shape"], dtype=torch.int32,
+                          device=dev)
+    # a span of a device_trace capture (a no-op outside one)
+    with profiling.annotate("viterbi_decode_kernel"):
+        build.launch_viterbi(
+            ce, co, cd, cv, pts, vp, tab["edge_len"], tab["reach_row"],
+            tab["reach_to"], tab["reach_dist"], plan["threads"],
+            plan["group"], 2.0 * sigma_z ** 2, beta, max_route_factor,
+            breakage_distance, backward_slack, interpolation_distance > 0.0,
+            interpolation_distance, scratch, choice, edge, offset, start,
+            matched)
+    with _LAUNCH_LOCK:
+        VITERBI_LAUNCHES[K] = VITERBI_LAUNCHES.get(K, 0) + 1
+    return out
+
+
+def _viterbi_plain(cands: CandidateSet, points, valid_pt, tables,
+                   sigma_z: float, beta: float, max_route_factor: float,
+                   breakage_distance: float, backward_slack: float = 10.0,
+                   interpolation_distance: float = 0.0) -> ViterbiResult:
+    """The plain version of the batched decode (the CPU's, and what the
+    kernel is held to on a card): the JAX package's scans as Python loops
+    over T."""
     B, T, K = cands.edge.shape
     dev = cands.edge.device
     c = _consts(cands.offset, beta, max_route_factor, backward_slack)

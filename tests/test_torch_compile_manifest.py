@@ -23,6 +23,8 @@ _MANGLED = ("_ZN47_GLOBAL__N__7083e19d_14_sweep_exact_cu_fd8671dd18sweep_"
             "S5_iifffS6_PfSA_S6_i")
 _ORDER = "_ZN47_GLOBAL__N__7083e19d_14_sweep_exact_cu_fd8671dd18chunk_order_" \
     "kernelEPKiiPi"
+_VITERBI = "_ZN43_GLOBAL__N__c03b14fe_10_viterbi_cu_feaf2d0321viterbi_decode_" \
+    "kernelENS_6ParamsE"
 
 
 def _log(figures: dict, k: int) -> str:
@@ -34,6 +36,8 @@ def _log(figures: dict, k: int) -> str:
             # for the wide library's scratch instance
             arm, kk = name.split("<")[1].rstrip(">").split(",")
             mangled = _MANGLED.format(arm=arm, k=kk.replace("-", "n"))
+        elif name == cm.VITERBI_KERNEL:
+            mangled = _VITERBI
         else:
             mangled = _ORDER
         out += [
@@ -55,7 +59,8 @@ def _card_manifest(golden=None):
     g = cm.GOLDEN if golden is None else golden
     man = cm.compute_manifest("cpu")
     man["ptxas"] = cm._ptxas_section(
-        {k: _log(g["ptxas"][f"k{library_tag(k)}"], k) for k in LIBRARIES})
+        {**{k: _log(g["ptxas"][f"k{library_tag(k)}"], k) for k in LIBRARIES},
+         cm.VITERBI_LIBRARY: _log(g["ptxas"][cm.VITERBI_LIBRARY], 0)})
     man["launch"] = copy.deepcopy(g["launch"])
     return man
 
@@ -90,12 +95,33 @@ def test_spill_waivers_are_dated_and_name_golden_spills():
                        for f in cm.GOLDEN["ptxas"][f"k{k}"].values())
 
 
+def test_the_viterbi_kernel_is_pinned_without_spills():
+    from reporter_tpu_torch.ops.hmm import VITERBI_MAX_K
+
+    fig = cm.GOLDEN["ptxas"][cm.VITERBI_LIBRARY][cm.VITERBI_KERNEL]
+    assert fig["registers"] > 0
+    assert not (fig["spill_stores"] or fig["spill_loads"])
+    assert cm.GOLDEN["viterbi"] == {"source": "viterbi.cu",
+                                    "max_k": VITERBI_MAX_K}
+    g = copy.deepcopy(cm.GOLDEN)
+    g["ptxas"][cm.VITERBI_LIBRARY][cm.VITERBI_KERNEL]["spill_stores"] = 8
+    assert any(cm.VITERBI_KERNEL in p and "spills" in p
+               for p in cm.golden_findings(g))
+    g["ptxas"][cm.VITERBI_LIBRARY][cm.VITERBI_KERNEL]["registers"] += 1
+    assert any(cm.VITERBI_KERNEL in d
+               for d in cm.diff(cm.GOLDEN, _card_manifest(g)))
+    del g["ptxas"][cm.VITERBI_LIBRARY]
+    assert any("no ptxas figures for viterbi" in p
+               for p in cm.golden_findings(g))
+
+
 def test_kernel_names_parse_from_nvcc_mangling():
     assert cm.kernel_name(_MANGLED.format(arm=3, k=12)) == \
         "sweep_exact_kernel<3,12>"
     assert cm.kernel_name(_MANGLED.format(arm=2, k="n1")) == \
         "sweep_exact_kernel<2,-1>"
     assert cm.kernel_name(_ORDER) == "chunk_order_kernel"
+    assert cm.kernel_name(_VITERBI) == "viterbi_decode_kernel"
 
 
 def test_a_synthetic_ptxas_report_parses_to_its_figures():

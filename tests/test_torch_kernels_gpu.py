@@ -1,8 +1,10 @@
 """The CUDA sweep kernel (reporter_tpu_torch/kernels/sweep_exact.cu, its
 five arms at each top-K width of SWEEP_KS and in the wide instances past
-them) against its plain PyTorch versions, on the card, the host-to-card
-staging (device.host_to_device), and the native host half of match_many
-there.
+them) and the batched Viterbi decode (kernels/viterbi.cu) against their
+plain PyTorch versions, on the card, the host-to-card staging
+(device.host_to_device), and the native host half of match_many there.
+The Viterbi: tolerance 0 in all five fields (the same f32 arithmetic,
+one rounding per operation, the same first-argmin ties).
 Candidates, every arm and K: tolerance 0
 (the same f32 arithmetic, one rounding per operation). The bf16 filter's
 gate decisions: tolerance 0 (every bf16 operation is correctly rounded on
@@ -903,3 +905,119 @@ def test_device_contract_under_sync_debug_on_the_card(cuda):
     assert {f.rule for f in seeded} == {"device-sync"}
     assert any("raised" in f.message for f in seeded)
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# ---------------------------------------------------------------------------
+# the batched Viterbi decode (kernels/viterbi.cu) against its plain version
+
+_VIT_FIELDS = ("choice", "edge", "offset", "chain_start", "matched")
+
+
+@pytest.fixture(scope="module")
+def vit_fleet(sf_tile, cuda):
+    """The sf fleet as a Viterbi batch: 1024 traces of 120 points, with a
+    mix of chain breaks (a 900 m jump in every 7th trace) and padding (the
+    tail of every 5th trace invalid, at its first point)."""
+    ts, _ = sf_tile
+    fleet = synthesize_fleet(ts, 1024, num_points=120, seed=6)
+    pts = np.stack([p.xy for p in fleet]).astype(np.float32)
+    valid = np.ones(pts.shape[:2], bool)
+    pts[::7, 60:] += np.float32(900.0)
+    valid[::5, 90:] = False
+    pts[::5, 90:] = pts[::5, :1]
+    return (torch.from_numpy(pts).to(cuda), torch.from_numpy(valid).to(cuda))
+
+
+_VIT_CANDS = {}
+
+
+def _vit_cands(sf_tile, vit_fleet, k):
+    """The fleet's candidates at width k: at 50 m up to K = 8, at 150 m
+    past it (where sf's lists fill to K = 64)."""
+    if k not in _VIT_CANDS:
+        _, tab = sf_tile
+        pts, valid = vit_fleet
+        b, t = valid.shape
+        c = dc.find_candidates_dense(
+            pts.reshape(-1, 2), tuple(tab[n] for n in (
+                "seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
+                "seg_coarse")), 50.0 if k <= 8 else 150.0, k,
+            valid=valid.reshape(-1))
+        _VIT_CANDS[k] = dc.CandidateSet(*(x.reshape(b, t, k) for x in c))
+    return _VIT_CANDS[k]
+
+
+def _vit_args(tab, interp, breakage=150.0):
+    from reporter_tpu_torch.config import MatcherParams
+
+    p = MatcherParams()
+    return (tab, p.sigma_z, p.beta, p.max_route_distance_factor, breakage,
+            p.backward_slack, interp)
+
+
+@pytest.mark.parametrize("t", [1, 120])
+@pytest.mark.parametrize("b", [1, 1024])
+@pytest.mark.parametrize("k", [1, 8, 16, 33, 64])
+def test_viterbi_kernel_equals_plain(sf_tile, vit_fleet, k, b, t):
+    """Every field bit-equal to the plain version on the card, interpolation
+    on and off; one launch counted under K per call."""
+    from reporter_tpu_torch.ops import hmm
+
+    _, tab = sf_tile
+    pts, valid = vit_fleet
+    cands = dc.CandidateSet(*(x[:b, :t] for x in _vit_cands(sf_tile,
+                                                            vit_fleet, k)))
+    for interp in (10.0, 0.0):
+        args = (cands, pts[:b, :t], valid[:b, :t], *_vit_args(tab, interp))
+        before = hmm.VITERBI_LAUNCHES.get(k, 0)
+        got = hmm.viterbi_decode_batched(*args)
+        assert hmm.VITERBI_LAUNCHES[k] == before + 1
+        want = hmm._viterbi_plain(*args)
+        torch.cuda.synchronize()
+        for f in _VIT_FIELDS:
+            g, w = getattr(got, f), getattr(want, f)
+            assert g.dtype == w.dtype and g.shape == w.shape, f
+            assert torch.equal(g, w), (f, int((g != w).sum()))
+    if b == 1024 and t == 120:
+        assert got.matched.any() and int(got.chain_start.sum()) > b
+
+
+def test_viterbi_kernel_refuses_a_k_past_its_ceiling(sf_tile, vit_fleet):
+    from reporter_tpu_torch.ops import hmm
+
+    _, tab = sf_tile
+    pts, valid = vit_fleet
+    k = hmm.VITERBI_MAX_K + 1
+    c = dc.CandidateSet(*(x[:2, :4, :1].expand(2, 4, k).contiguous()
+                          for x in _vit_cands(sf_tile, vit_fleet, 1)))
+    with pytest.raises(ValueError, match=f"K={k}"):
+        hmm.viterbi_decode_batched(c, pts[:2, :4], valid[:2, :4],
+                                   *_vit_args(tab, 10.0))
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_viterbi_on_each_card_with_another_card_current(sf_tile, vit_fleet,
+                                                        cuda, i):
+    """The decode on cuda:i equals the plain version there; where there is
+    more than one card, with a different card current (the launch runs
+    under the tensors' device guard)."""
+    from reporter_tpu_torch.ops import hmm
+
+    n = torch.cuda.device_count()
+    if i >= n:
+        pytest.skip(f"this host has {n} card(s)")
+    ts, _ = sf_tile
+    dev = torch.device("cuda", i)
+    tab = tables_from_numpy(ts.arrays(), dev)
+    cands = dc.CandidateSet(*(x[:64].to(dev) for x in _vit_cands(
+        sf_tile, vit_fleet, 8)))
+    pts, valid = (x[:64].to(dev) for x in vit_fleet)
+    args = (cands, pts, valid, *_vit_args(tab, 10.0))
+    with torch.cuda.device((i + 1) % n):
+        got = hmm.viterbi_decode_batched(*args)
+        assert torch.cuda.current_device() == (i + 1) % n
+    want = hmm._viterbi_plain(*args)
+    torch.cuda.synchronize(dev)
+    for f in _VIT_FIELDS:
+        assert getattr(got, f).device == dev
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -1,0 +1,212 @@
+"""The batched Viterbi decode behind the kernel of kernels/viterbi.cu: the
+plain version (what the kernel is held to on a card) against
+reporter_tpu.ops.hmm.viterbi_decode_batched at the widths
+tests/test_torch_hmm.py does not reach (K = 1, 16, 33 and 64), the
+dispatch on the candidates' device, and the kernel's launch plan.
+
+Candidate sets are made with numpy from a seed on the tiny tile: edges
+drawn from the tile's near each point, offsets within each edge's length,
+some slots invalid and some -1 (valid or not), slots repeated so the
+lattice has exact cost ties, a chain break past the breakage distance,
+padded tails and a trace with no valid point, interpolation on and off.
+Tolerance 0 on all five fields. The kernel itself runs only on a card:
+tests/test_torch_kernels_gpu.py holds it to the plain version there.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from reporter_tpu.config import CompilerParams, MatcherParams
+from reporter_tpu.netgen.synthetic import generate_city
+from reporter_tpu.netgen.traces import synthesize_fleet
+from reporter_tpu.ops.candidates import CandidateSet as JCandidateSet
+from reporter_tpu.ops.hmm import viterbi_decode_batched as j_viterbi
+from reporter_tpu.tiles.compiler import compile_network
+from _torch_support import (  # noqa: F401  (the port's gate: first)
+    _torch_gate, _torch_module_gate, few_torch_threads)
+from reporter_tpu_torch.ops import hmm
+from reporter_tpu_torch.ops.dense_candidates import BIG, CandidateSet
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
+
+_FIELDS = ("choice", "edge", "offset", "chain_start", "matched")
+_ROUTE_KEYS = ("edge_len", "reach_row", "reach_to", "reach_dist")
+B, T = 6, 40
+
+
+@pytest.fixture(scope="module")
+def tile():
+    ts = compile_network(generate_city("tiny"),
+                         CompilerParams(reach_radius=500.0,
+                                        osmlr_max_length=200.0))
+    tab = ts.device_tables("dense")
+    mid = 0.5 * (ts.node_xy[ts.edge_src] + ts.node_xy[ts.edge_dst])
+    return ts, tab, mid.astype(np.float32)
+
+
+def _case(tile, k, seed):
+    """Points [B, T, 2], valid [B, T] and candidate fields [B, T, K]: per
+    point the K edges whose midpoints lie nearest (a chain that reaches
+    across the reach rows), offsets drawn within each edge, distances
+    rounded to 0.5 m (equal emissions), then slots repeated, emptied
+    (-1), marked invalid, or -1 yet valid."""
+    ts, _, mid = tile
+    rng = np.random.default_rng(seed)
+    fleet = synthesize_fleet(ts, B, num_points=T, seed=seed)
+    pts = np.stack([p.xy for p in fleet]).astype(np.float32)
+    valid = np.ones((B, T), bool)
+    valid[1, 25:] = False                     # padding at the tail
+    pts[1, 25:] = pts[1, 0]
+    valid[4] = False                          # a trace with no valid point
+    pts[3, 20:] += np.float32(900.0)          # a jump: past the breakage
+    d2 = ((pts[:, :, None, :] - mid[None, None]) ** 2).sum(-1)
+    order = np.argsort(d2, axis=-1, kind="stable")[..., :k]
+    edge = order.astype(np.int32)
+    lens = ts.edge_len[edge].astype(np.float32)
+    offset = (rng.random(edge.shape, np.float32) * lens).astype(np.float32)
+    dist = np.round(np.sqrt(np.take_along_axis(d2, order, -1)) * 2) / 2
+    dist = dist.astype(np.float32)
+    cvalid = np.ones(edge.shape, bool)
+    if k > 1:
+        # exact ties: slot 1 repeats slot 0 on a third of the points
+        rep = rng.random((B, T)) < 0.33
+        for a in (edge, offset, dist):
+            a[..., 1] = np.where(rep, a[..., 0], a[..., 1])
+        hole = rng.random(edge.shape) < 0.15
+        hole[..., 0] = False
+        edge[hole] = -1
+        dist[hole] = np.float32(BIG)
+        cvalid[hole] = False
+        cvalid[rng.random(edge.shape) < 0.1] = False
+        # -1 yet valid: no route reaches it, its emission still counts
+        edge[(rng.random(edge.shape) < 0.03) & cvalid] = -1
+    cvalid[2, 10:14] = False                  # no candidate: inactive points
+    return pts, valid, (edge, offset, dist, cvalid)
+
+
+def _both(tile, pts, valid, cands, interp, breakage):
+    _, tab, _ = tile
+    p = MatcherParams()
+    args = (p.sigma_z, p.beta, p.max_route_distance_factor, breakage,
+            p.backward_slack, interp)
+    ref = j_viterbi(JCandidateSet(*(jnp.asarray(x) for x in cands)),
+                    jnp.asarray(pts), jnp.asarray(valid), tab, *args)
+    ttab = {k: torch.from_numpy(np.array(tab[k])) for k in _ROUTE_KEYS}
+    got = hmm.viterbi_decode_batched(
+        CandidateSet(*(torch.from_numpy(x) for x in cands)),
+        torch.from_numpy(pts), torch.from_numpy(valid), ttab, *args)
+    return ref, got
+
+
+@pytest.mark.parametrize("interp", [10.0, 0.0])
+@pytest.mark.parametrize("k", [1, 16, 33, 64])
+def test_plain_viterbi_matches_reference_at_every_width(tile, k, interp):
+    pts, valid, cands = _case(tile, k, seed=k)
+    ref, got = _both(tile, pts, valid, cands, interp, 150.0)
+    for f in _FIELDS:
+        want = np.asarray(getattr(ref, f))
+        have = getattr(got, f).numpy()
+        assert have.dtype == want.dtype, f
+        np.testing.assert_array_equal(have, want, err_msg=f)
+    m = got.matched.numpy()
+    assert m[0].any() and not m[4].any() and not m[1, 25:].any()
+    # the jump breaks trace 3's chain where it lands
+    assert got.chain_start.numpy()[3, 20]
+
+
+def test_the_case_holds_cost_ties_and_breaks(tile):
+    """The inputs do what the parity test relies on: repeated slots
+    (equal emissions and transitions), several chains per trace."""
+    pts, valid, cands = _case(tile, 16, seed=16)
+    edge, offset, dist, cvalid = cands
+    same = ((edge[..., 0] == edge[..., 1]) & (offset[..., 0] == offset[..., 1])
+            & cvalid[..., 0] & cvalid[..., 1])
+    assert same.sum() >= 20
+    _, got = _both(tile, pts, valid, cands, 0.0, 150.0)
+    assert int(got.chain_start.sum()) > B
+
+
+def test_cpu_candidates_take_the_plain_version(tile):
+    pts, valid, cands = _case(tile, 8, seed=3)
+    _, tab, _ = tile
+    ttab = {k: torch.from_numpy(np.array(tab[k])) for k in _ROUTE_KEYS}
+    c = CandidateSet(*(torch.from_numpy(x) for x in cands))
+    p = MatcherParams()
+    args = (torch.from_numpy(pts), torch.from_numpy(valid), ttab, p.sigma_z,
+            p.beta, p.max_route_distance_factor, p.breakage_distance,
+            p.backward_slack, p.interpolation_distance)
+    before = dict(hmm.VITERBI_LAUNCHES)
+    got = hmm.viterbi_decode_batched(c, *args)
+    want = hmm._viterbi_plain(c, *args)
+    assert dict(hmm.VITERBI_LAUNCHES) == before      # no kernel launched
+    for f in _FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_a_device_that_is_neither_card_nor_cpu_raises():
+    c = CandidateSet(*(torch.empty((2, 3, 4), dtype=d, device="meta")
+                       for d in (torch.int32, torch.float32, torch.float32,
+                                 torch.bool)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        hmm.viterbi_decode_batched(
+            c, torch.empty((2, 3, 2), device="meta"),
+            torch.empty((2, 3), dtype=torch.bool, device="meta"), {},
+            4.07, 3.0, 5.0, 2000.0)
+
+
+def _kernel_args(k, **over):
+    """Arguments the kernel's wrapper checks before it builds or launches
+    anything (CPU tensors stand in for the card's)."""
+    c = CandidateSet(torch.zeros((2, 3, k), dtype=torch.int32),
+                     torch.zeros((2, 3, k)), torch.zeros((2, 3, k)),
+                     torch.zeros((2, 3, k), dtype=torch.bool))
+    tab = {"edge_len": torch.ones(5),
+           "reach_row": torch.zeros(5, dtype=torch.int32),
+           "reach_to": torch.zeros((2, 128), dtype=torch.int32),
+           "reach_dist": torch.zeros((2, 128))}
+    tab.update(over)
+    return (c, torch.zeros((2, 3, 2)), torch.ones((2, 3), dtype=torch.bool),
+            tab, 4.07, 3.0, 5.0, 2000.0, 10.0, 0.0)
+
+
+def test_the_kernel_wrapper_refuses_a_k_past_its_ceiling():
+    with pytest.raises(ValueError, match="K=65"):
+        hmm._viterbi_cuda(*_kernel_args(hmm.VITERBI_MAX_K + 1))
+
+
+@pytest.mark.parametrize("member,bad", [
+    ("reach_row", torch.zeros(5, dtype=torch.int64)),
+    ("reach_to", torch.zeros((2, 128))),
+    ("edge_len", torch.ones(5, dtype=torch.float64)),
+])
+def test_the_kernel_wrapper_checks_the_tables(member, bad):
+    with pytest.raises(ValueError, match=member):
+        hmm._viterbi_cuda(*_kernel_args(8, **{member: bad}))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 48, 64])
+def test_the_launch_plan_covers_k(k):
+    plan = hmm.viterbi_plan(1024, 120, k)
+    threads, group, cols = plan["threads"], plan["group"], plan["columns"]
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    assert group in (1, 2, 4, 8, 16, 32) and threads == group * cols
+    assert cols >= k and cols < 2 * k or k == 1
+    assert plan["grid"] == 1024
+    assert plan["scratch_shape"] == (1024, 120, k + 1)
+    assert plan["scratch_bytes"] == 4 * 1024 * 120 * (k + 1)
+
+
+@pytest.mark.parametrize("k,threads,group", [(1, 32, 32), (4, 32, 8),
+                                             (8, 32, 4), (16, 64, 4),
+                                             (33, 256, 4), (64, 256, 4)])
+def test_the_launch_plan_at_the_served_widths(k, threads, group):
+    plan = hmm.viterbi_plan(1, 1, k)
+    assert (plan["threads"], plan["group"]) == (threads, group)
+
+
+@pytest.mark.parametrize("k", [0, 65, 128])
+def test_the_launch_plan_refuses_a_width_outside_the_kernel(k):
+    with pytest.raises(ValueError):
+        hmm.viterbi_plan(4, 4, k)
