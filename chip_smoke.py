@@ -99,10 +99,15 @@ the native host half against its Python forms, in phases:
                 card per field (choice, edge, offset, chain_start,
                 matched; all must be 0), ms and ms_back_to_back, plain_ms,
                 bound_ms and bound_by (the lattice pairs this slice looks
-                up, VITERBI_OPS_PER_* operations each, against the bytes),
-                library_ms null (no PyTorch call decodes a lattice), the
-                seconds; every main-path window counts its launches per K
-                (Windows.viterbi_by_path);
+                up, a binary search of ceil(log2(M + 1)) probes each at
+                VITERBI_OPS_PER_LOOKUP operations plus
+                VITERBI_OPS_PER_PAIR, against the bytes, the tables only
+                as far as the searches read them; the linear scan's count
+                and bound beside it), library_ms null (no
+                PyTorch call decodes a lattice), the launch plan (traces
+                per CTA, threads per trace, chunk, shared bytes, where the
+                levels live), the seconds; every main-path window counts
+                its launches per K (Windows.viterbi_by_path);
      breakdown — one slice's sweep per arm, the Viterbi kernel and its plain
                 version and the pack timed alone, and the device busy
                 share and kernel launches of one wire entry
@@ -611,7 +616,9 @@ VITERBI_REPLACES = ("reporter_tpu/ops/hmm.py:112 viterbi_decode_batched "
 VITERBI_CASES = ((8, None), (16, WIDE_RADIUS), (32, WIDE_RADIUS),
                  (64, WIDE_RADIUS))   # [kernel:viterbi]: (K, search radius;
 #                               None the default 50 m)
-VITERBI_OPS_PER_LOOKUP = 2    # a reach-row entry: a compare and a select
+VITERBI_OPS_PER_LOOKUP = 2    # a reach-row entry read: a compare and a
+#                               select (a probe of the binary search, or an
+#                               entry of a linear scan)
 VITERBI_OPS_PER_PAIR = 16     # a looked-up pair's route, cost and argmin step
 GATE_REL_TOL = 1e-3           # tensor-core vs plain gate: decisions may differ
 #                               only where the plain minimum is this close
@@ -1331,13 +1338,21 @@ def viterbi_work(cands, bpts, bval, tables, interp, breakage):
     """What one decode of these inputs must do and move: the lattice pairs
     whose reach row is looked up (an active point with an earlier active
     one within the breakage distance, a valid candidate with an edge at
-    both ends), its operations (each pair's M reach-row entries plus its
-    route, cost and argmin step) and its bytes (each input read once, the
-    four tables whole, the five [B, T] outputs written once)."""
+    both ends), its operations (each pair's lookup, a binary search of
+    its sorted reach row: ceil(log2(M + 1)) probes, plus its route, cost
+    and argmin step), its bytes and, beside them, the operations a linear
+    scan of the M entries a pair would count (the bound stated before the
+    rows were searched). The bytes: the candidates, points and valid
+    flags read once, the five [B, T] outputs written once, and of the
+    tables only what the searches need: reach_row and edge_len of each
+    distinct looked-up previous edge, each distinct reach_to entry that
+    the binary searches of the distinct (row, edge) lookups probe (the
+    kernel's search, replayed here), and one reach_dist entry per
+    distinct hit. → (pairs, ops, bytes, scan ops)."""
     from reporter_tpu_torch.ops import hmm
     from reporter_tpu_torch.ops.dense_candidates import sqrt_f32
 
-    B, T, _ = cands.edge.shape
+    B, T, K = cands.edge.shape
     keep = hmm._keep_mask_batched(bpts.permute(1, 2, 0), bval.T, interp).T
     active = keep & cands.valid.any(-1)
     idx = torch.arange(T, device=bpts.device).expand(B, T)
@@ -1346,19 +1361,55 @@ def viterbi_work(cands, bpts, bval, tables, interp, breakage):
     has_prev = torch.cat([active[:, :1] & False, run[:, :-1] >= 0], 1)
     prev_pts = torch.gather(bpts, 1, prev[..., None].expand(B, T, 2))
     gc = sqrt_f32(((bpts - prev_pts) ** 2).sum(-1))
-    n_c = (cands.valid & (cands.edge >= 0)).sum(-1)
-    n_p = torch.gather(n_c, 1, prev)
-    pairs = int(torch.where(active & has_prev & (gc <= breakage),
-                            n_p * n_c, 0).sum())
-    M = tables["reach_to"].shape[1]
-    ops = pairs * (M * VITERBI_OPS_PER_LOOKUP + VITERBI_OPS_PER_PAIR)
+    look = active & has_prev & (gc <= breakage)
+    ok = cands.valid & (cands.edge >= 0)
+    to, row_of = tables["reach_to"], tables["reach_row"]
+    M, E = to.shape[1], row_of.shape[0]
+    # the looked-up pairs, 64 traces at a time: distinct previous edges
+    # and distinct (row, next edge) lookups
+    pairs, firsts, lookups = 0, [], []
+    for b0 in range(0, B, 64):
+        sl = slice(b0, b0 + 64)
+        at = prev[sl, :, None].expand(-1, -1, K)
+        e1 = torch.gather(cands.edge[sl], 1, at).long()
+        ok1 = torch.gather(ok[sl], 1, at) & look[sl, :, None]
+        sel = ok1[..., :, None] & ok[sl][..., None, :]
+        pairs += int(sel.sum())
+        first = e1[..., :, None].expand(sel.shape)[sel]
+        nxt = cands.edge[sl].long()[..., None, :].expand(sel.shape)[sel]
+        firsts.append(torch.unique(first))
+        lookups.append(torch.unique(row_of[first].long() * E + nxt))
+    firsts = torch.unique(torch.cat(firsts))
+    lookups = torch.unique(torch.cat(lookups))
+    row, key = lookups // E, lookups % E
+    # the kernel's binary search: halving steps from the largest power
+    # of two <= M, -1 read past every id, each probe < M read
+    pos = torch.full_like(row, -1)
+    hit = torch.full_like(row, -1)
+    probed = []
+    step = 1 << (M.bit_length() - 1)
+    while step:
+        at = pos + step
+        inside = at < M
+        v = to[row, at.clamp(max=M - 1)].long()
+        v = torch.where(v < 0, 1 << 32, v)
+        probed.append(torch.unique((row * M + at)[inside]))
+        hit = torch.where(inside & (v == key), at, hit)
+        pos = torch.where(inside & (v < key), at, pos)
+        step >>= 1
+    n_probed = int(torch.unique(torch.cat(probed)).numel())
+    n_hits = int(torch.unique((row * M + hit)[hit >= 0]).numel())
+    probes = M.bit_length()                    # ceil(log2(M + 1))
+    ops = pairs * (probes * VITERBI_OPS_PER_LOOKUP + VITERBI_OPS_PER_PAIR)
+    scan_ops = pairs * (M * VITERBI_OPS_PER_LOOKUP + VITERBI_OPS_PER_PAIR)
     nbytes = (sum(x.numel() * x.element_size() for x in cands)
               + bpts.numel() * 4 + bval.numel()
-              + sum(tables[k].numel() * tables[k].element_size()
-                    for k in ("edge_len", "reach_row", "reach_to",
-                              "reach_dist"))
+              + firsts.numel() * (row_of.element_size()
+                                  + tables["edge_len"].element_size())
+              + n_probed * to.element_size()
+              + n_hits * tables["reach_dist"].element_size()
               + B * T * (4 + 4 + 4 + 1 + 1))
-    return pairs, ops, nbytes
+    return pairs, ops, nbytes, scan_ops
 
 
 def viterbi_phase(card, m, traces):
@@ -1394,9 +1445,10 @@ def viterbi_phase(card, m, traces):
         b2b = launch_ms(lambda: hmm.viterbi_decode_batched(*args))
         plain_ms = cuda_ms(lambda: hmm._viterbi_plain(*args), reps=2,
                            warmup=1)
-        pairs, ops, nbytes = viterbi_work(
+        pairs, ops, nbytes, scan_ops = viterbi_work(
             cands, bpts, bval, m.tables, p.interpolation_distance,
             p.breakage_distance)
+        plan = hmm.viterbi_plan(*cands.edge.shape)
         by_ops = ops / H100_F32_FLOPS * 1e3
         by_bytes = nbytes / H100_HBM_BYTES_S * 1e3
         rec = dict(ms=ms, ms_back_to_back=b2b, plain_ms=plain_ms,
@@ -1417,8 +1469,13 @@ def viterbi_phase(card, m, traces):
               plain_ms=plain_ms, bound_ms=rec["bound_ms"],
               bound_by=rec["bound_by"], library_ms=None,
               lattice_pairs=pairs, operations=ops, bytes=nbytes,
-              threads=hmm.viterbi_plan(*cands.edge.shape)["threads"],
-              seconds=time.perf_counter() - t_k)
+              linear_scan_operations=scan_ops,
+              linear_scan_bound_ms=max(scan_ops / H100_F32_FLOPS * 1e3,
+                                       by_bytes),
+              traces_per_cta=plan["traces_per_cta"],
+              threads_per_trace=plan["threads_per_trace"],
+              chunk=plan["chunk"], smem_bytes=plan["smem_bytes"],
+              levels=plan["levels"], seconds=time.perf_counter() - t_k)
         if any(mism.values()) or err:
             raise SystemExit(f"the Viterbi kernel differs from its plain "
                              f"version at K={k}: {mism}")

@@ -155,7 +155,9 @@ NEUTRAL_KEYS = {
     "ready_unix_s", "exit_unix_s",
     # kernel work descriptors (bound_ms and ms carry the claims)
     "exact_pairs", "coarse_pairs", "bytes", "coarse_rate_flops",
-    "lattice_pairs", "operations", "bound_by",
+    "lattice_pairs", "operations", "bound_by", "linear_scan_operations",
+    # the Viterbi kernel's launch plan (ops/hmm.viterbi_plan)
+    "traces_per_cta", "threads_per_trace", "chunk", "levels",
     "vote_share", "gate_share", "plain_gate_share", "mean_hit_blocks",
     "checked_chunks_taken_later", "device_busy_share", "card_busy_share",
     "busy_samples",

@@ -562,10 +562,10 @@ GOLDEN: "dict[str, Any]" = \
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
                                                  'static_smem': 0}},
-           'viterbi': {'viterbi_decode_kernel': {'registers': 56,
+           'viterbi': {'viterbi_decode_kernel': {'registers': 109,
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
-                                                 'static_smem': 2572}}},
+                                                 'static_smem': 0}}},
  'staged_tables': {'card_hbm_bytes': 80000000000,
                    'dense_layout_keys': ['seg_pack',
                                          'seg_bbox',

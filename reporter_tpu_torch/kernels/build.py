@@ -251,25 +251,30 @@ def _viterbi_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(VITERBI_SOURCE, None)))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.rtt_viterbi_decode.argtypes = (
-                [p] * 10 + [i] * 6 + [f] * 5 + [i, f] + [p] * 6 + [p])
+                [p] * 10 + [i] * 10 + [f] * 5 + [i, f] + [p] * 6 + [p])
             lib.rtt_viterbi_decode.restype = ctypes.c_int
             _viterbi.append(lib)
         return _viterbi[0]
 
 
 def launch_viterbi(ce, co, cd, cv, pts, vp, edge_len, reach_row, reach_to,
-                   reach_dist, threads: int, group: int, em_denom: float,
-                   beta: float, factor: float, breakage: float,
-                   slack: float, use_keep: bool, interp: float, scratch,
-                   choice, edge, offset, start, matched) -> None:
+                   reach_dist, plan: dict, em_denom: float, beta: float,
+                   factor: float, breakage: float, slack: float,
+                   use_keep: bool, interp: float, scratch, choice, edge,
+                   offset, start, matched) -> None:
     """One launch of viterbi.cu's decode over the batch (cands ``ce``
     [B, T, K]) on the current stream of the tensors' device, with that
-    device current: one CTA of ``threads`` threads a trace, ``group`` a
-    column (``ops/hmm.viterbi_plan``). The float arguments are Python
-    floats, rounded once to f32 as the plain version's 0-d tensors are
-    (``em_denom`` is 2 sigma_z^2 in double, ``interp`` the interpolation
-    distance, squared here in f32). The caller checks the tensors and
-    allocates ``scratch`` (i32 [B, T, K + 1]) and the five outputs."""
+    device current, as ``plan`` (``ops/hmm.viterbi_plan``) lays it out:
+    ``traces_per_cta`` traces of ``threads_per_trace`` threads a CTA, the
+    recurrence on ``recurrence_threads`` of them, chunks of ``chunk``
+    steps, the levels in shared memory or in ``scratch``, ``smem_bytes``
+    a CTA (the kernel refuses a figure that is not its layout's, and the
+    wrapper raises). The float arguments are Python floats, rounded once to
+    f32 as the plain version's 0-d tensors are (``em_denom`` is 2
+    sigma_z^2 in double, ``interp`` the interpolation distance, squared
+    here in f32). The caller checks the tensors and allocates ``scratch``
+    (u8 [plan's scratch_bytes], None where the levels stay in shared
+    memory) and the five outputs."""
     B, T, K = (int(x) for x in ce.shape)
     lib = _viterbi_lib()
     with _on_device(ce.device):
@@ -277,9 +282,12 @@ def launch_viterbi(ce, co, cd, cv, pts, vp, edge_len, reach_row, reach_to,
             ce.data_ptr(), co.data_ptr(), cd.data_ptr(), cv.data_ptr(),
             pts.data_ptr(), vp.data_ptr(), edge_len.data_ptr(),
             reach_row.data_ptr(), reach_to.data_ptr(), reach_dist.data_ptr(),
-            B, T, K, int(reach_to.shape[1]), int(threads), int(group),
+            B, T, K, int(reach_to.shape[1]), int(plan["threads_per_trace"]),
+            int(plan["traces_per_cta"]), int(plan["recurrence_threads"]),
+            int(plan["chunk"]), int(plan["levels"] == "shared"),
+            int(plan["smem_bytes"]),
             *(float(x) for x in (em_denom, beta, factor, breakage, slack)),
-            int(use_keep), _f32_square(float(interp)), scratch.data_ptr(),
+            int(use_keep), _f32_square(float(interp)), _ptr(scratch),
             choice.data_ptr(), edge.data_ptr(), offset.data_ptr(),
             start.data_ptr(), matched.data_ptr(), _stream(ce))
     if rc != 0:

@@ -12,39 +12,86 @@
 // arithmetic, one rounding per operation in its order (the intrinsics
 // below, and -fmad=false), so it is bit-equal to it in all five outputs.
 //
-// What bounds it on this card: operations, and their latency. The work of
-// a step is the [K, K] transition block, and each entry of it is a lookup
-// of the previous candidate's reach row (M entries, 128 by default) for
-// the next candidate's edge: B * T * K^2 * M compare-selects at most
-// (1.0e9 at K = 8, 6.4e10 at K = 64 on 1024 x 120 points), fewer where a
-// slot is empty. The bytes are small: the candidates and points once, the
-// reach rows from L1 / L2. The steps of a trace are sequential, so the
-// parallel work is the batch and the lookups of one step.
+// What bounds it on this card: latency, not operations or bytes. The work
+// of a step is the [K, K] transition block, each entry a lookup of the
+// previous candidate's reach row (M target edge ids, 128 by default) for
+// the next candidate's edge; the bytes are small (the candidates and
+// points once, the reach rows from L2). The steps of a trace are
+// sequential, so what can run in parallel is the batch and the lookups;
+// a trace's time is its steps' chains of dependent L2 probes and
+// barriers (scripts/viterbi_profile.py times each phase).
 //
-// The design:
+// The design rests on two facts:
 //
-// 1. One CTA per trace, never a thread per trace: at the served K = 8
-//    that would be 8 warps of a 1024-trace batch for the whole card. The
-//    CTA's threads cover the K columns of the step's block (the next
-//    point's candidates j), `group` threads a column (a power of two
-//    within a warp), each scanning every group-th entry of the reach row
-//    of each previous candidate i, so the lanes of a group read adjacent
-//    entries and the groups of a warp read the same ones (a broadcast).
-//    The group's partial minima meet by shuffles; the running first
-//    argmin over i is kept by every lane of the group alike.
-//    ops/hmm.py::viterbi_plan sets threads and group from K.
-// 2. The K x K block never exists. A step carries O(K) state in shared
-//    memory: the scores, the previous active point's (edge, offset,
-//    valid) with its edges' reach rows and lengths (looked up once, when
-//    the point becomes the previous one), and the step's candidates and
-//    emissions.
-// 3. The backpointers and a word per level (its own first argmin, and
-//    its keep, active and started bits) go to a global scratch [B, T,
-//    K + 1] the wrapper allocates; the backtrack reads them back, so T
-//    has no ceiling. The backtrack and the fill are O(T) per trace and
-//    run on one thread.
-// 4. K is a run-time argument up to kMaxK (64): the shared arrays are
-//    sized for it; the wrapper refuses a K past it.
+// - The transition block of step t depends only on the candidates of t,
+//   those of the previous active point p(t) and the distance gc(t)
+//   between the two points. p(t), active, keep and gc follow from the
+//   points, valid_pt and the candidates' validity alone, never from the
+//   scores. So the lookups of a whole chunk of steps can be in flight at
+//   once; only the K-wide min-plus step per t (score + trans, the first
+//   argmin over i, the connected / broken rules) walks the steps.
+// - Every reach row holds strictly ascending target edge ids with the -1
+//   padding at the end (tiles/reach.py, native/reach.cc; host_tables in
+//   tiles/tileset.py refuses a row that does not). Read as unsigned, -1
+//   sorts past every real id, so a lookup is a binary search of
+//   ceil(log2(M + 1)) probes (8 at M = 128), not a scan of M entries. A
+//   row holds an id at most once, so the hit's distance is the plain
+//   version's masked minimum bit for bit. The kernel does not check the
+//   order: reading the tables here would cost what the search saves.
+//
+// The kernel, per trace (a group of `tpt` threads, 64 or 128; CTAs of
+// 128 threads, so two traces share one up to K = 32, each group with its
+// own named barrier, bar.sync id, tpt), chunk by chunk of C steps
+// (ops/hmm.py::viterbi_plan owns the launch shape: tpt, the recurrence's
+// threads, C, where the levels live and the shared bytes, which the C
+// entry checks against this layout):
+//
+// 1. Staging: the chunk's candidates (edge, offset, emission, validity,
+//    each edge's reach row and length), points and valid_pt go to shared
+//    memory with coalesced loads, rows 1..C of the candidate arrays; row
+//    0 holds the carry, the candidates of the last active point before
+//    the chunk. Then each row's looked-up slots (valid, with an edge), in
+//    order and as a 64-bit mask, a row a warp by ballots.
+// 2. The control sequence: one thread walks the chunk's steps for keep
+//    (the last kept point), active, gc from the previous active point
+//    (__fsub_rn, __fmul_rn, __fadd_rn, __fsqrt_rn in the plain order),
+//    prev_any and p(t), and writes a record per step with the offset of
+//    its first looked-up pair.
+// 3. The transition blocks: only the pairs (t, i, j) that are looked up
+//    (a step that looks up: active, an active point before, gc <=
+//    breakage; both slots valid with an edge) are enumerated, in the
+//    order t, i, j (so a warp's lanes mostly search one row), and spread
+//    over the group's threads, kInterleave independent binary searches
+//    of the rows in global memory a thread at a time. Empty and invalid
+//    slots make this a fraction of the K^2 grid (on the sf fleet's first
+//    wire slice 40% at K = 8, 12% at K = 64: chip_smoke.py's
+//    lattice_pairs). The route, the detour
+//    guard and the cost follow as in the plain version; the block [C, K,
+//    K] lands in shared memory, and a pair not looked up reads as BIG
+//    through the rows' masks.
+// 4. The recurrence, per step, on the first rt threads (one warp up to
+//    K = 16, else two lanes a column): for each column j the first
+//    minimal i of score[i] + trans (G lanes a column, the pair (value,
+//    index) reduced lexicographically, which equals the plain first
+//    argmin), then connected, broken, the new scores, the backpointers
+//    and the level's own first argmin. Two barriers a step (__syncwarp
+//    for one warp).
+// 5. The levels: a backpointer byte per slot (0xff for -1) and a 16-bit
+//    word per level (own argmin + 1, keep, active, started); an inactive
+//    level writes its word alone (the backtrack reads its identity from
+//    the active bit). They stay in shared memory where the plan says
+//    they fit, else in the global scratch the wrapper allocates (u16
+//    [B, T] words, then u8 [B, T, K]), staged back into the chunk's
+//    space block by block for the backtrack.
+// 6. The backtrack: one thread, serial over T, from shared memory; its
+//    choices i8 [T] in shared memory beside shared levels, else straight
+//    into out_choice, so with global levels nothing in shared memory
+//    grows with T and any T >= 1 launches. The gather and the
+//    interpolation fill: the same thread's warp, 32 levels at a time, the
+//    last matched level by a ballot, the five [B, T] outputs written
+//    coalesced.
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -52,14 +99,82 @@
 namespace {
 
 constexpr int kMaxK = 64;
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 128;     // a CTA's threads, every group's
+constexpr int kMaxSmem = 232448;     // a CTA's shared memory on sm_90
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kInterleave = 4;       // binary searches in flight a thread
 constexpr float kBig = 1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 // the level word: the level's own first argmin + 1 in the low byte
-constexpr int kKeepBit = 1 << 8;
-constexpr int kActiveBit = 1 << 9;
-constexpr int kStartedBit = 1 << 10;
+constexpr unsigned kKeepBit = 1u << 8;
+constexpr unsigned kActiveBit = 1u << 9;
+constexpr unsigned kStartedBit = 1u << 10;
+constexpr unsigned char kNoPointer = 0xff;
+
+// a step's record from the control sequence
+constexpr int kStepActive = 1;
+constexpr int kStepKeep = 2;
+constexpr int kStepPrevAny = 4;
+constexpr int kStepLook = 8;         // active, prev_any, gc <= breakage
+
+// A trace group's shared memory, in bytes from its base, each array 16
+// aligned (ops/hmm.py::viterbi_smem_bytes makes the same sum, which the
+// launch checks). [0, stage) is the chunk, which the backtrack reuses to
+// stage global levels. With the levels global nothing grows with T: the
+// choices go straight to out_choice.
+struct Layout {
+  int trans, o, em, len, e, row, v, list, mask, stage;
+  int score, x, y, gc, prev, off, red_v, red_i, conn, misc, flags, vp, any;
+  int choice, word, bp, bytes;
+};
+
+__host__ __device__ inline int take(int& at, int n) {
+  const int o = at;
+  at += (n + 15) & ~15;
+  return o;
+}
+
+__host__ __device__ inline Layout make_layout(int K, int C, int T,
+                                              bool levels_here) {
+  Layout L{};
+  int at = 0;
+  const int rows = (C + 1) * K;
+  L.trans = take(at, 4 * C * K * K);
+  L.o = take(at, 4 * rows);
+  L.em = take(at, 4 * rows);
+  L.len = take(at, 4 * rows);
+  L.e = take(at, 4 * rows);
+  L.row = take(at, 4 * rows);
+  L.v = take(at, rows);
+  L.list = take(at, rows);
+  L.mask = take(at, 8 * (C + 1));
+  L.stage = at;
+  L.score = take(at, 4 * K);
+  L.x = take(at, 4 * C);
+  L.y = take(at, 4 * C);
+  L.gc = take(at, 4 * C);
+  L.prev = take(at, 4 * C);
+  L.off = take(at, 4 * C);
+  L.red_v = take(at, 4 * kMaxWarps);
+  L.red_i = take(at, 4 * kMaxWarps);
+  L.conn = take(at, 4 * kMaxWarps);
+  L.misc = take(at, 4 * kMaxWarps);
+  L.flags = take(at, C);
+  L.vp = take(at, C);
+  L.any = take(at, C);
+  L.choice = levels_here ? take(at, T) : -1;
+  L.word = levels_here ? take(at, 2 * T) : -1;
+  L.bp = levels_here ? take(at, T * K) : -1;
+  L.bytes = at;
+  return L;
+}
+
+// levels the backtrack stages at once from the global scratch: words
+// [lo, hi) and backpointers [lo, hi] in the chunk's space
+__host__ __device__ inline int stage_levels(const Layout& L, int K) {
+  return (L.stage - 16 - K) / (K + 2);
+}
 
 struct Params {
   const int* ce;               // i32 [B, T, K] candidate edges (-1 empty)
@@ -70,14 +185,16 @@ struct Params {
   const unsigned char* vp;     // bool [B, T]
   const float* edge_len;       // f32 [E]
   const int* reach_row;        // i32 [E]
-  const int* reach_to;         // i32 [R, M], -1 padded
+  const int* reach_to;         // i32 [R, M], ascending, -1 padded
   const float* reach_dist;     // f32 [R, M]
-  int T, K, M, group;
+  int B, T, K, M, top;         // top: the largest power of two <= M
+  int C, tpc, tpt, levels_here;
+  int rt, G;                   // the recurrence's threads, lanes a column
   float em_denom;              // f32(2 sigma_z^2), computed in double
   float beta, factor, breakage, slack;
   int use_keep;                // interpolation_distance > 0
   float d2_min;                // f32(interpolation_distance)^2
-  int* scratch;                // i32 [B, T, K + 1]
+  unsigned char* scratch;      // u16 [B, T] then u8 [B, T, K], or null
   int* out_choice;             // i32 [B, T]
   int* out_edge;               // i32 [B, T]
   float* out_offset;           // f32 [B, T]
@@ -85,249 +202,551 @@ struct Params {
   unsigned char* out_matched;  // bool [B, T]
 };
 
-__global__ void __launch_bounds__(kMaxThreads)
-viterbi_decode_kernel(const Params p) {
-  const int K = p.K, M = p.M, G = p.group;
-  const int tid = threadIdx.x;
-  const int j = tid / G;       // this thread's column: candidate j
-  const int s = tid % G;       // its slice of each reach row
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * p.T;
-
-  // the carry: the scores and the previous active point's candidates
-  __shared__ float s_score[kMaxK], s_po[kMaxK], s_plen[kMaxK];
-  __shared__ int s_pe[kMaxK], s_prow[kMaxK], s_pv[kMaxK];
-  // the step's candidates and emissions
-  __shared__ float s_o[kMaxK], s_em[kMaxK];
-  __shared__ int s_e[kMaxK], s_v[kMaxK];
-  __shared__ float s_gc;
-  __shared__ int s_flags;      // 1 active, 2 keep, 4 an active point before
-  __shared__ int s_own;        // the scores' first argmin, -1 if all BIG
-
-  for (int k = tid; k < K; k += blockDim.x) {
-    s_score[k] = kBig;
-    s_pe[k] = -1;
-    s_po[k] = 0.0f;
-    s_pv[k] = 0;
-    s_prow[k] = 0;
-    s_plen[k] = 0.0f;
+// the barrier of one trace's threads: a warp, or a named barrier of its
+// warps (id 0 is __syncthreads')
+__device__ __forceinline__ void group_sync(int id, int n) {
+  if (n == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
   }
+}
+
+__device__ __forceinline__ void keep_first_min(float& v, int& i, float ov,
+                                               int oi) {
+  if (ov < v || (ov == v && oi < i)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// four CTAs an SM: at most 128 registers a thread
+__global__ void __launch_bounds__(kMaxThreads, 4)
+viterbi_decode_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = p.K, C = p.C, T = p.T, M = p.M, tpt = p.tpt, G = p.G;
+  const int rt = p.rt;         // the recurrence's threads: the first rt
+  const int grp = threadIdx.x / tpt;
+  const int tid = threadIdx.x % tpt;
+  const int b = blockIdx.x * p.tpc + grp;
+  if (b >= p.B) return;        // a group past the batch: no barrier waits
+  const int bar = grp + 1;
+  const int lane = tid % 32, warp = tid / 32, nw = tpt / 32;
+  const int rw = rt / 32, rbar = bar + p.tpc;   // the recurrence's warps
+  const size_t row0 = static_cast<size_t>(b) * T;
+
+  const Layout L = make_layout(K, C, T, p.levels_here != 0);
+  unsigned char* base = smem + static_cast<size_t>(grp) * L.bytes;
+  float* s_trans = reinterpret_cast<float*>(base + L.trans);
+  float* c_o = reinterpret_cast<float*>(base + L.o);
+  float* c_em = reinterpret_cast<float*>(base + L.em);
+  float* c_len = reinterpret_cast<float*>(base + L.len);
+  int* c_e = reinterpret_cast<int*>(base + L.e);
+  int* c_row = reinterpret_cast<int*>(base + L.row);
+  unsigned char* c_v = base + L.v;
+  // each row's looked-up slots (valid, an edge): in order, and as a mask
+  unsigned char* c_list = base + L.list;
+  unsigned long long* c_mask =
+      reinterpret_cast<unsigned long long*>(base + L.mask);
+  float* s_score = reinterpret_cast<float*>(base + L.score);
+  float* s_x = reinterpret_cast<float*>(base + L.x);
+  float* s_y = reinterpret_cast<float*>(base + L.y);
+  float* s_gc = reinterpret_cast<float*>(base + L.gc);
+  int* s_prev = reinterpret_cast<int*>(base + L.prev);
+  int* s_off = reinterpret_cast<int*>(base + L.off);
+  float* s_red_v = reinterpret_cast<float*>(base + L.red_v);
+  int* s_red_i = reinterpret_cast<int*>(base + L.red_i);
+  int* s_conn = reinterpret_cast<int*>(base + L.conn);
+  int* s_misc = reinterpret_cast<int*>(base + L.misc);
+  unsigned char* s_flags = base + L.flags;
+  unsigned char* s_vp = base + L.vp;
+  unsigned char* s_any = base + L.any;
+  // the backtrack's choices: in shared memory beside the levels, else
+  // straight in the output, which the fill reads back
+  signed char* s_choice =
+      p.levels_here ? reinterpret_cast<signed char*>(base + L.choice)
+                    : nullptr;
+  unsigned short* lv_word;
+  unsigned char* lv_bp;
+  if (p.levels_here) {
+    lv_word = reinterpret_cast<unsigned short*>(base + L.word);
+    lv_bp = base + L.bp;
+  } else {
+    lv_word = reinterpret_cast<unsigned short*>(p.scratch) + row0;
+    lv_bp = p.scratch + static_cast<size_t>(p.B) * T * 2 + row0 * K;
+  }
+
+  // the carry row 0: no previous candidate yet
+  for (int k = tid; k < K; k += tpt) {
+    s_score[k] = kBig;
+    c_e[k] = -1;
+    c_o[k] = 0.0f;
+    c_v[k] = 0;
+    c_row[k] = 0;
+    c_len[k] = 0.0f;
+  }
+  for (int s = tid; s < C; s += tpt) s_any[s] = 0;
   // thread 0's sequential scalars: the previous active point, the last
-  // kept point, and whether there is either
+  // kept point, whether there is either, and the scores' first argmin
   float px = 0.0f, py = 0.0f, lx = 0.0f, ly = 0.0f;
   bool prev_any = false, any_kept = false;
+  int own = -1;
   if (tid == 0) {
     px = lx = p.pts[2 * row0];
     py = ly = p.pts[2 * row0 + 1];
-    s_own = -1;
   }
-  __syncthreads();
+  group_sync(bar, tpt);
 
-  for (int t = 0; t < p.T; ++t) {
-    const size_t r = row0 + t;
-    int* level = p.scratch + r * (K + 1);
-    // ---- the step's inputs: candidates, emissions, keep, gc
-    bool vj = false;
-    if (tid < K) {
-      const size_t c = r * K + tid;
-      const float d = p.cd[c];
-      vj = p.cv[c] != 0;
-      s_e[tid] = p.ce[c];
-      s_o[tid] = p.co[c];
-      s_v[tid] = vj;
-      s_em[tid] = vj ? __fdiv_rn(__fmul_rn(d, d), p.em_denom) : kBig;
+  const int KK = K * K;
+  const int j = tid / G;       // the recurrence's column
+  const int sub = tid % G;     // its slice of the previous candidates
+  for (int t0 = 0; t0 < T; t0 += C) {
+    const int n = min(C, T - t0);
+    const size_t r0 = row0 + t0;
+    // ---- 1. staging: the chunk's candidates into rows 1..n
+#pragma unroll 4
+    for (int c = tid; c < n * K; c += tpt) {
+      const size_t g = r0 * K + c;
+      const int e = __ldg(p.ce + g);
+      const bool v = __ldg(p.cv + g) != 0;
+      const float d = __ldg(p.cd + g);
+      const int at = K + c;
+      c_e[at] = e;
+      c_o[at] = __ldg(p.co + g);
+      c_v[at] = v;
+      c_em[at] = v ? __fdiv_rn(__fmul_rn(d, d), p.em_denom) : kBig;
+      c_row[at] = e >= 0 ? __ldg(p.reach_row + e) : 0;
+      c_len[at] = e >= 0 ? __ldg(p.edge_len + e) : 0.0f;
+      if (v) s_any[c / K] = 1;
     }
-    const int any_valid = __syncthreads_or(vj);
+    for (int s = tid; s < n; s += tpt) {
+      s_x[s] = __ldg(p.pts + 2 * (r0 + s));
+      s_y[s] = __ldg(p.pts + 2 * (r0 + s) + 1);
+      s_vp[s] = __ldg(p.vp + r0 + s);
+    }
+    group_sync(bar, tpt);
+    // the rows' looked-up slots (row 0 the carry), a row a warp at once
+    for (int r = warp; r <= n; r += nw) {
+      unsigned long long mask = 0ull;
+      int count = 0;
+      for (int k0 = 0; k0 < K; k0 += 32) {
+        const int k = k0 + lane;
+        const bool ok = k < K && c_v[r * K + k] && c_e[r * K + k] >= 0;
+        const unsigned m = __ballot_sync(kFull, ok);
+        if (ok) {
+          c_list[r * K + count + __popc(m & ((1u << lane) - 1u))] =
+              static_cast<unsigned char>(k);
+        }
+        count += __popc(m);
+        mask |= static_cast<unsigned long long>(m) << k0;
+      }
+      if (lane == 0) c_mask[r] = mask;
+    }
+    group_sync(bar, tpt);
+
+    // ---- 2. the control sequence (thread 0)
     if (tid == 0) {
-      const float x = p.pts[2 * r], y = p.pts[2 * r + 1];
-      const bool v = p.vp[r] != 0;
-      bool keep = v;
-      if (p.use_keep) {
-        const float dx = __fsub_rn(x, lx), dy = __fsub_rn(y, ly);
-        const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        keep = v && (!any_kept || d2 >= p.d2_min);
-        if (keep) {
-          lx = x;
-          ly = y;
+      int last = -1;           // the last active step of the chunk so far
+      int pairs = 0;           // the looked-up pairs of the steps before
+      for (int s = 0; s < n; ++s) {
+        const float x = s_x[s], y = s_y[s];
+        const bool v = s_vp[s] != 0;
+        bool keep = v;
+        if (p.use_keep) {
+          const float dx = __fsub_rn(x, lx), dy = __fsub_rn(y, ly);
+          const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+          keep = v && (!any_kept || d2 >= p.d2_min);
+          if (keep) {
+            lx = x;
+            ly = y;
+          }
+          any_kept = any_kept || keep;
         }
-        any_kept = any_kept || keep;
+        const bool act = keep && s_any[s];
+        s_any[s] = 0;
+        const float gx = __fsub_rn(x, px), gy = __fsub_rn(y, py);
+        const float gc =
+            __fsqrt_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)));
+        const bool look = act && prev_any && gc <= p.breakage;
+        s_gc[s] = gc;
+        s_prev[s] = last + 1;  // the row of the previous active point
+        s_off[s] = pairs;
+        if (look) {
+          pairs += __popcll(c_mask[last + 1]) * __popcll(c_mask[s + 1]);
+        }
+        s_flags[s] = (act ? kStepActive : 0) | (keep ? kStepKeep : 0) |
+                     (prev_any ? kStepPrevAny : 0) | (look ? kStepLook : 0);
+        if (act) {
+          px = x;
+          py = y;
+          prev_any = true;
+          last = s;
+        }
       }
-      const bool act = keep && any_valid;
-      const float gx = __fsub_rn(x, px), gy = __fsub_rn(y, py);
-      s_gc = __fsqrt_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)));
-      s_flags = (act ? 1 : 0) | (keep ? 2 : 0) | (prev_any ? 4 : 0);
-      if (act) {
-        px = x;
-        py = y;
-        prev_any = true;
-      }
+      s_misc[0] = last;
+      s_misc[1] = pairs;
     }
-    __syncthreads();
-    const int flags = s_flags;
-    if (flags & 1) {
-      // ---- the [K, K] block by columns: best over i of score + trans
-      const float gc = s_gc;
-      const bool col = j < K && s_v[j] && s_e[j] >= 0 && gc <= p.breakage;
-      const int e2 = col ? s_e[j] : 0;
-      const float o2 = col ? s_o[j] : 0.0f;
-      // the detour guard's limit: a multiply, then an add
-      const float limit = __fadd_rn(__fmul_rn(p.factor, gc), 10.0f);
-      float best = CUDART_INF_F;
-      int arg = 0;
-      for (int i = 0; i < K; ++i) {
-        const int e1 = s_pe[i];
-        const bool ok = col && s_pv[i] && e1 >= 0;
-        float gap = kBig;
-        if (ok) {
-          const size_t base = static_cast<size_t>(s_prow[i]) * M;
-          const int* to = p.reach_to + base;
-          const float* dist = p.reach_dist + base;
-          for (int m = s; m < M; m += G) {
-            if (__ldg(to + m) == e2) gap = fminf(gap, __ldg(dist + m));
+    group_sync(bar, tpt);
+
+    // ---- 3. the chunk's transition blocks: the looked-up pairs (a
+    // valid slot with an edge at both ends, a step that looks up) in the
+    // order step, previous slot, next slot, kInterleave searches a thread
+    // at once; consecutive threads mostly search one row. A pair not
+    // looked up is BIG, which the recurrence reads from the rows' masks.
+    const int npairs = s_misc[1];
+    for (int f0 = tid; f0 < npairs; f0 += kInterleave * tpt) {
+      const int* to[kInterleave];
+      unsigned key[kInterleave];
+      int pos[kInterleave], hit[kInterleave], at[kInterleave];
+      int pi[kInterleave], cj[kInterleave];
+      bool ok[kInterleave];
+#pragma unroll
+      for (int u = 0; u < kInterleave; ++u) {
+        const int f = f0 + u * tpt;
+        ok[u] = f < npairs;
+        to[u] = p.reach_to;
+        key[u] = 0u;
+        pos[u] = -1;
+        hit[u] = -1;
+        at[u] = pi[u] = cj[u] = 0;
+        if (ok[u]) {
+          // the step: the last whose first pair is at or before f
+          int lo = 0, hi = n - 1;
+          while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (s_off[mid] <= f) {
+              lo = mid;
+            } else {
+              hi = mid - 1;
+            }
+          }
+          const int loc = f - s_off[lo];
+          const int nc = __popcll(c_mask[lo + 1]);
+          const int ii = loc / nc, jj = loc - ii * nc;
+          const int i = c_list[s_prev[lo] * K + ii];
+          const int jn = c_list[(lo + 1) * K + jj];
+          pi[u] = s_prev[lo] * K + i;
+          cj[u] = (lo + 1) * K + jn;
+          at[u] = lo * KK + i * K + jn;
+          to[u] = p.reach_to + static_cast<size_t>(c_row[pi[u]]) * M;
+          key[u] = static_cast<unsigned>(c_e[cj[u]]);
+        }
+      }
+      // the largest index whose entry is below the key, by halving
+      // steps; -1 read unsigned sorts past every id. The lower bound,
+      // where the key sits if present, is always probed when it is < M.
+      for (int step = p.top; step > 0; step >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kInterleave; ++u) {
+          const int idx = pos[u] + step;
+          if (ok[u] && idx < M) {
+            const unsigned v = static_cast<unsigned>(__ldg(to[u] + idx));
+            if (v < key[u]) {
+              pos[u] = idx;
+            } else if (v == key[u]) {
+              hit[u] = idx;
+            }
           }
         }
-        for (int off = G >> 1; off > 0; off >>= 1) {
-          gap = fminf(gap, __shfl_xor_sync(kFull, gap, off));
-        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInterleave; ++u) {
+        if (!ok[u]) continue;
+        const float gap =
+            hit[u] >= 0
+                ? fminf(kBig, __ldg(p.reach_dist +
+                                    static_cast<size_t>(c_row[pi[u]]) * M +
+                                    hit[u]))
+                : kBig;
+        const float gc = s_gc[at[u] / KK];
+        const float po1 = c_o[pi[u]], o2 = c_o[cj[u]];
+        // the detour guard's limit: a multiply, then an add
+        const float limit = __fadd_rn(__fmul_rn(p.factor, gc), 10.0f);
+        const float cross =
+            __fadd_rn(__fadd_rn(__fsub_rn(c_len[pi[u]], po1), gap), o2);
+        const bool same =
+            c_e[pi[u]] == c_e[cj[u]] && o2 >= __fsub_rn(po1, p.slack);
+        const float direct = fmaxf(__fsub_rn(o2, po1), 0.0f);
+        const float route = same ? fminf(direct, cross) : cross;
         float trans = kBig;
-        if (ok) {
-          const float po1 = s_po[i];
-          const float cross =
-              __fadd_rn(__fadd_rn(__fsub_rn(s_plen[i], po1), gap), o2);
-          const bool same = e1 == e2 && o2 >= __fsub_rn(po1, p.slack);
-          const float direct = fmaxf(__fsub_rn(o2, po1), 0.0f);
-          const float route = same ? fminf(direct, cross) : cross;
-          if (route < kBig && route <= limit) {
-            trans = __fdiv_rn(fabsf(__fsub_rn(route, gc)), p.beta);
-          }
+        if (route < kBig && route <= limit) {
+          trans = __fdiv_rn(fabsf(__fsub_rn(route, gc)), p.beta);
         }
-        const float via = __fadd_rn(s_score[i], trans);
-        if (via < best) {        // the first minimal i
-          best = via;
-          arg = i;
-        }
+        s_trans[at[u]] = trans;
       }
-      // ---- the step's scores and backpointers
-      const bool connected = best < kBig;
-      const int any_connected = __syncthreads_or(j < K && s == 0 && connected);
-      const bool broken = !any_connected || !(flags & 4);
-      if (j < K && s == 0) {
-        const float em = s_em[j];
-        s_score[j] = broken ? em : (connected ? __fadd_rn(best, em) : kBig);
-        level[j] = (broken || !connected) ? -1 : arg;
-        const int e = s_e[j];
-        s_pe[j] = e;
-        s_po[j] = s_o[j];
-        s_pv[j] = s_v[j];
-        s_prow[j] = e >= 0 ? __ldg(p.reach_row + e) : 0;
-        s_plen[j] = e >= 0 ? __ldg(p.edge_len + e) : 0.0f;
-      }
-      __syncthreads();
-      // ---- the level's own first argmin over the new scores (warp 0)
-      if (tid < 32) {
-        float v = CUDART_INF_F;
-        int idx = K;
-        for (int k = tid; k < K; k += 32) {
-          const float sc = s_score[k];
-          if (sc < v) {
-            v = sc;
-            idx = k;
-          }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ov = __shfl_xor_sync(kFull, v, off);
-          const int oi = __shfl_xor_sync(kFull, idx, off);
-          if (ov < v || (ov == v && oi < idx)) {
-            v = ov;
-            idx = oi;
-          }
-        }
-        if (tid == 0) {
-          s_own = v < kBig ? idx : -1;
-          level[K] = (s_own + 1) | kActiveBit | (flags & 2 ? kKeepBit : 0) |
-                     (broken ? kStartedBit : 0);
-        }
-      }
-    } else {
-      // an inactive point passes the carry through: identity backpointers
-      if (tid < K) level[tid] = tid;
-      if (tid == 0) level[K] = (s_own + 1) | (flags & 2 ? kKeepBit : 0);
     }
-    __syncthreads();
+    group_sync(bar, tpt);
+
+    // ---- 4. the recurrence, step by step, on the first rt threads (one
+    // warp up to K = 16); the others go on to the carry
+    for (int s = 0; s < n && tid < rt; ++s) {
+      const int t = t0 + s;
+      const int fl = s_flags[s];
+      if (!(fl & kStepActive)) {
+        // an inactive point passes the carry through: identity
+        // backpointers, read from the word's active bit
+        if (tid == 0) {
+          lv_word[t] = static_cast<unsigned short>(
+              (own + 1) | (fl & kStepKeep ? kKeepBit : 0u));
+        }
+        continue;
+      }
+      // the previous slots looked up with this column's slot (none
+      // where the step does not look up or the slot is not looked up)
+      const unsigned long long seen =
+          (fl & kStepLook) && j < K && ((c_mask[s + 1] >> j) & 1ull)
+              ? c_mask[s_prev[s]]
+              : 0ull;
+      const float* tr = s_trans + s * KK;
+      float best = CUDART_INF_F;
+      int arg = K;
+      if (j < K) {
+        for (int i = sub; i < K; i += G) {
+          const float via = __fadd_rn(
+              s_score[i], ((seen >> i) & 1ull) ? tr[i * K + j] : kBig);
+          if (via < best) {    // the first minimal i of this slice
+            best = via;
+            arg = i;
+          }
+        }
+      }
+      for (int off = G >> 1; off > 0; off >>= 1) {
+        keep_first_min(best, arg, __shfl_xor_sync(kFull, best, off),
+                       __shfl_xor_sync(kFull, arg, off));
+      }
+      const bool connected = j < K && best < kBig;
+      bool any_connected = __any_sync(kFull, connected);
+      if (rw > 1) {
+        if (lane == 0) s_conn[warp] = any_connected;
+        group_sync(rbar, rt);
+        any_connected = false;
+        for (int w = 0; w < rw; ++w) any_connected |= s_conn[w] != 0;
+      } else {
+        __syncwarp();
+      }
+      const bool broken = !any_connected || !(fl & kStepPrevAny);
+      float sc = CUDART_INF_F;
+      int si = K;
+      if (j < K) {
+        const float em = c_em[(s + 1) * K + j];
+        sc = broken ? em : (connected ? __fadd_rn(best, em) : kBig);
+        si = j;
+        if (sub == 0) {
+          s_score[j] = sc;
+          lv_bp[static_cast<size_t>(t) * K + j] =
+              (broken || !connected) ? kNoPointer
+                                     : static_cast<unsigned char>(arg);
+        }
+      }
+      // the level's own first argmin over the new scores: across the
+      // warp's columns, then across warps
+      for (int off = 16; off >= G; off >>= 1) {
+        keep_first_min(sc, si, __shfl_xor_sync(kFull, sc, off),
+                       __shfl_xor_sync(kFull, si, off));
+      }
+      if (rw > 1 && lane == 0) {
+        s_red_v[warp] = sc;
+        s_red_i[warp] = si;
+      }
+      group_sync(rbar, rt);
+      if (tid == 0) {
+        for (int w = 1; w < rw; ++w) keep_first_min(sc, si, s_red_v[w],
+                                                   s_red_i[w]);
+        own = sc < kBig ? si : -1;
+        lv_word[t] = static_cast<unsigned short>(
+            (own + 1) | kActiveBit | (fl & kStepKeep ? kKeepBit : 0u) |
+            (broken ? kStartedBit : 0u));
+      }
+    }
+
+    // ---- the last active point's candidates become the carry row
+    const int last = s_misc[0];
+    if (last >= 0) {
+      for (int k = tid; k < K; k += tpt) {
+        const int a = (last + 1) * K + k;
+        c_e[k] = c_e[a];
+        c_o[k] = c_o[a];
+        c_v[k] = c_v[a];
+        c_row[k] = c_row[a];
+        c_len[k] = c_len[a];
+      }
+    }
+    group_sync(bar, tpt);
   }
 
-  if (tid != 0) return;
-  // ---- the backtrack: the slot chosen one level above, through identity
-  // backpointers at inactive levels; a level is a chain terminal where the
-  // level above started a chain (or there is none above)
+  // ---- 5. the backtrack: the slot chosen one level above, through the
+  // identity of inactive levels; a level is a chain terminal where the
+  // level above started a chain (or there is none above). Levels in the
+  // global scratch are staged back into the chunk's space, block by block
+  // from the end.
+  const int span = p.levels_here ? T : stage_levels(L, K);
+  unsigned short* st_word = reinterpret_cast<unsigned short*>(base);
+  unsigned char* st_bp = base + ((2 * span + 15) & ~15);
   int nxt = -1;
-  bool nxt_started = true;
-  for (int t = p.T - 1; t >= 0; --t) {
-    const size_t r = row0 + t;
-    const int w = p.scratch[r * (K + 1) + K];
-    const int own = (w & 0xff) - 1;
-    int prop = -1;
-    if (nxt >= 0 && t + 1 < p.T) prop = p.scratch[(r + 1) * (K + 1) + nxt];
-    const int choice = (nxt_started || nxt < 0) ? own : prop;
-    p.out_choice[r] = (w & kActiveBit) ? choice : -1;
-    nxt = choice;
-    nxt_started = (w & kStartedBit) != 0;
+  bool nxt_started = true, nxt_active = false;
+  for (int hi = T; hi > 0; hi -= span) {
+    const int lo = max(0, hi - span);
+    const unsigned short* w_at = lv_word + lo;
+    const unsigned char* bp_at = lv_bp + static_cast<size_t>(lo) * K;
+    if (!p.levels_here) {
+      const int nb = (min(hi + 1, T) - lo) * K;
+      for (int x = tid; x < hi - lo; x += tpt) st_word[x] = lv_word[lo + x];
+      for (int x = tid; x < nb; x += tpt) st_bp[x] = bp_at[x];
+      group_sync(bar, tpt);
+      w_at = st_word;
+      bp_at = st_bp;
+    }
+    if (tid == 0) {
+      for (int t = hi - 1; t >= lo; --t) {
+        const unsigned w = w_at[t - lo];
+        const int own_t = static_cast<int>(w & 0xffu) - 1;
+        int prop = -1;
+        if (nxt >= 0 && t + 1 < T) {
+          if (nxt_active) {
+            const unsigned char bp = bp_at[(t + 1 - lo) * K + nxt];
+            prop = bp == kNoPointer ? -1 : bp;
+          } else {
+            prop = nxt;
+          }
+        }
+        const int choice = (nxt_started || nxt < 0) ? own_t : prop;
+        const int c = (w & kActiveBit) ? choice : -1;
+        if (p.levels_here) {
+          s_choice[t] = static_cast<signed char>(c);
+        } else {
+          p.out_choice[row0 + t] = c;
+        }
+        nxt = choice;
+        nxt_started = (w & kStartedBit) != 0;
+        nxt_active = (w & kActiveBit) != 0;
+      }
+    }
+    group_sync(bar, tpt);
   }
-  // ---- the chosen candidates, then the interpolation fill: a valid point
-  // that did not vote takes the last matched point's (edge, offset)
+
+  // ---- 6. the chosen candidates, then the interpolation fill: a valid
+  // point that did not vote takes the last matched point's (edge, offset)
+  if (warp != 0) return;
   int pe = -1;
   float po = 0.0f;
   bool pok = false;
-  for (int t = 0; t < p.T; ++t) {
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int t = t0 + lane;
+    const bool in = t < T;
     const size_t r = row0 + t;
-    const int w = p.scratch[r * (K + 1) + K];
-    const int c = p.out_choice[r];
+    int c = -1;
+    unsigned w = 0;
+    bool v = false;
+    if (in) {
+      c = p.levels_here ? s_choice[t] : p.out_choice[r];
+      w = lv_word[t];
+      v = __ldg(p.vp + r) != 0;
+    }
     const bool m = c >= 0;
     int e = -1;
     float o = 0.0f;
     if (m) {
-      e = p.ce[r * K + c];
+      e = __ldg(p.ce + r * K + c);
       // the plain version's masked sum over K: adding +0 as it does
-      o = __fadd_rn(p.co[r * K + c], 0.0f);
+      o = __fadd_rn(__ldg(p.co + r * K + c), 0.0f);
     }
-    const bool use = p.vp[r] && !(w & kKeepBit) && pok && !m;
-    p.out_edge[r] = use ? pe : e;
-    p.out_offset[r] = use ? po : o;
-    p.out_matched[r] = m || use;
-    p.out_start[r] = (w & kStartedBit) != 0;
-    if (m) {
-      pe = e;
-      po = o;
+    const unsigned mm = __ballot_sync(kFull, m);
+    const unsigned before = mm & ((1u << lane) - 1u);
+    const int src = before ? 31 - __clz(before) : 0;
+    const int be = __shfl_sync(kFull, e, src);
+    const float bo = __shfl_sync(kFull, o, src);
+    const bool use = v && !(w & kKeepBit) && (before || pok) && !m;
+    if (in) {
+      p.out_choice[r] = c;
+      p.out_edge[r] = use ? (before ? be : pe) : e;
+      p.out_offset[r] = use ? (before ? bo : po) : o;
+      p.out_matched[r] = m || use;
+      p.out_start[r] = (w & kStartedBit) != 0;
     }
-    pok = pok || m;
+    if (mm) {
+      const int l = 31 - __clz(mm);
+      pe = __shfl_sync(kFull, e, l);
+      po = __shfl_sync(kFull, o, l);
+      pok = true;
+    }
   }
+}
+
+// the plan's checks: → the layout, or bytes -1 for a plan the kernel
+// does not take (its shared bytes not this layout's, among others)
+Layout checked_layout(int T, int K, int M, int tpt, int tpc, int rt,
+                      int columns, int chunk, int levels_here,
+                      int smem_bytes) {
+  Layout bad{};
+  bad.bytes = -1;
+  if (T < 1 || K < 1 || K > kMaxK || M < 1 || chunk < 1) return bad;
+  if (tpt < 32 || tpt % 32 != 0 || tpc < 1 || tpt * tpc > kMaxThreads) {
+    return bad;
+  }
+  // whole warps of G lanes a column, every column covered, G <= 32
+  if (rt < 32 || rt % 32 != 0 || rt > tpt || rt % columns != 0 ||
+      rt / columns > 32) {
+    return bad;
+  }
+  const Layout L = make_layout(K, chunk, T, levels_here != 0);
+  if (static_cast<long long>(L.bytes) * tpc != smem_bytes ||
+      smem_bytes > kMaxSmem) {
+    return bad;
+  }
+  if (!levels_here && stage_levels(L, K) < 1) return bad;
+  return L;
 }
 
 }  // namespace
 
-// One launch of the decode over B traces on `stream`, one CTA of
-// `threads` threads a trace, `group` threads a column (a power of two
-// that divides 32; threads / group columns, at least K). Returns
-// cudaGetLastError() after the launch, or -1 for an argument the kernel
-// does not take (K past kMaxK, a plan that does not cover K).
+// One launch of the decode over B traces on `stream`, as
+// ops/hmm.py::viterbi_plan lays it out: `traces` traces a CTA, `threads`
+// threads a trace, the recurrence on the first `rt` of them (G = rt /
+// columns lanes a column, columns = K rounded up to a power of two),
+// chunks of `chunk` steps, the levels in shared memory (levels_here) or
+// in `scratch` (u8, B * T * (K + 2) bytes), `smem_bytes` of dynamic
+// shared memory a CTA. Returns cudaGetLastError() after the launch, or -1
+// for a plan the kernel does not take.
 extern "C" int rtt_viterbi_decode(
     const int* ce, const float* co, const float* cd, const unsigned char* cv,
     const float* pts, const unsigned char* vp, const float* edge_len,
     const int* reach_row, const int* reach_to, const float* reach_dist,
-    int B, int T, int K, int M, int threads, int group, float em_denom,
-    float beta, float factor, float breakage, float slack, int use_keep,
-    float d2_min, int* scratch, int* out_choice, int* out_edge,
+    int B, int T, int K, int M, int threads, int traces, int rt, int chunk,
+    int levels_here, int smem_bytes, float em_denom, float beta,
+    float factor, float breakage, float slack, int use_keep, float d2_min,
+    unsigned char* scratch, int* out_choice, int* out_edge,
     float* out_offset, unsigned char* out_start, unsigned char* out_matched,
     void* stream) {
-  if (B < 1 || T < 1 || K < 1 || K > kMaxK || M < 1) return -1;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) return -1;
-  if (group < 1 || group > 32 || (group & (group - 1)) != 0) return -1;
-  if (threads / group < K) return -1;
-  Params p{ce,       co,        cd,         cv,        pts,        vp,
-           edge_len, reach_row, reach_to,   reach_dist, T,         K,
-           M,        group,     em_denom,   beta,      factor,     breakage,
-           slack,    use_keep,  d2_min,     scratch,   out_choice, out_edge,
-           out_offset, out_start, out_matched};
-  viterbi_decode_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p);
+  if (B < 1 || K < 1 || K > kMaxK) return -1;
+  int columns = 1;
+  while (columns < K) columns *= 2;
+  const Layout L = checked_layout(T, K, M, threads, traces, rt, columns,
+                                  chunk, levels_here, smem_bytes);
+  if (L.bytes < 0 || (!levels_here && scratch == nullptr)) return -1;
+  // more than 48 KB of dynamic shared memory needs the attribute, set
+  // once per device
+  static std::atomic<unsigned long long> attribute_set{0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
+  const unsigned long long bit = 1ull << dev;
+  if (!(attribute_set.load() & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        viterbi_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attribute_set.fetch_or(bit);
+  }
+  int top = 1;
+  while (top <= M / 2) top *= 2;
+  Params p{ce,        co,        cd,       cv,          pts,
+           vp,        edge_len,  reach_row, reach_to,   reach_dist,
+           B,         T,         K,        M,           top,
+           chunk,     traces,    threads,  levels_here,
+           rt,        rt / columns, em_denom, beta,    factor,      breakage,
+           slack,     use_keep,  d2_min,   scratch,     out_choice,
+           out_edge,  out_offset, out_start, out_matched};
+  const int grid = (B + traces - 1) / traces;
+  viterbi_decode_kernel<<<grid, threads * traces, smem_bytes,
+                          static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

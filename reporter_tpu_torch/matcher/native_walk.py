@@ -17,6 +17,7 @@ import numpy as np
 
 from reporter_tpu_torch.matcher.segments import SegmentRecord
 from reporter_tpu_torch.native import build as native_build
+from reporter_tpu_torch.tiles.reach import check_rows_ascending
 from reporter_tpu_torch.tiles.tileset import TileSet
 
 
@@ -75,18 +76,6 @@ def materialize_records(cols: RecordColumns, lo: int = 0,
         for r in range(hi - lo)]
 
 
-def _check_rows_ascending(reach_to: np.ndarray) -> None:
-    """The walker binary-searches each reach row by target edge id: real
-    ids must ascend strictly, with the -1 padding only at the end."""
-    key = np.where(reach_to < 0, np.iinfo(np.int64).max,
-                   reach_to.astype(np.int64))
-    d = np.diff(key, axis=1)
-    real = reach_to[:, 1:] >= 0
-    if (d < 0).any() or (real & (d == 0)).any():
-        raise ValueError("reach_to rows must ascend by target edge id with "
-                         "the -1 padding at the end")
-
-
 class NativeWalker:
     """The tile's walk arrays, C-contiguous, and the library handle."""
 
@@ -103,7 +92,7 @@ class NativeWalker:
         self._reach_to = np.ascontiguousarray(ts.reach_to, np.int32)
         self._reach_dist = np.ascontiguousarray(ts.reach_dist, np.float32)
         self._reach_next = np.ascontiguousarray(ts.reach_next, np.int32)
-        _check_rows_ascending(self._reach_to)
+        check_rows_ascending(self._reach_to)
         self._m = int(ts.reach_to.shape[1])
         self._threads = min(32, os.cpu_count() or 1)
 

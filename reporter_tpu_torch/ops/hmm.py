@@ -40,6 +40,12 @@ from reporter_tpu_torch.ops.dense_candidates import BIG, CandidateSet, sqrt_f32
 # kernels/viterbi.cu: its per-step arrays in shared memory are this wide);
 # the wrapper refuses a wider one on a card.
 VITERBI_MAX_K = 64
+# A CTA's shared memory on the card (sm_90: 227 KB), and the part the
+# plan lets a CTA take with its levels there: a quarter, so four CTAs an
+# SM; past it the levels go to the global scratch.
+VITERBI_SMEM_MAX = 232448
+VITERBI_SMEM_BUDGET = VITERBI_SMEM_MAX // 4
+_VITERBI_WARPS = 4            # kMaxWarps: the reductions' words a trace
 
 # Launches of the Viterbi kernel, keyed by the candidate width K (a key
 # appears at its first launch: readers take a missing key as 0).
@@ -107,22 +113,59 @@ def viterbi_decode_batched(cands: CandidateSet, points, valid_pt, tables,
     raise ValueError(f"unsupported device {dev}")
 
 
+def viterbi_smem_bytes(T: int, K: int, chunk: int, levels_here: bool) -> int:
+    """Shared memory of one trace of the Viterbi kernel (``Layout`` in
+    kernels/viterbi.cu, each array rounded up to 16 bytes): the chunk's
+    transition blocks f32 [C, K, K] and candidate rows [(C + 1), K] (five
+    4-byte fields, a flag and the looked-up slots' list; row 0 the carry)
+    with a u64 mask a row, the scores, the step records, the
+    reductions' words and, where ``levels_here``, the backtrack's choices
+    i8 [T] and the levels (u16 words [T], u8 backpointers [T, K]); with
+    the levels global nothing here grows with T. The launch checks this
+    figure against the kernel's own layout."""
+    def a16(n):
+        return -(-n // 16) * 16
+
+    rows = (chunk + 1) * K
+    n = (a16(4 * chunk * K * K) + 5 * a16(4 * rows) + 2 * a16(rows)
+         + a16(8 * (chunk + 1)) + a16(4 * K) + 5 * a16(4 * chunk)
+         + 4 * a16(4 * _VITERBI_WARPS) + 3 * a16(chunk))
+    if levels_here:
+        n += a16(T) + a16(2 * T) + a16(T * K)
+    return n
+
+
 def viterbi_plan(B: int, T: int, K: int) -> dict:
     """The Viterbi kernel's launch at a batch of B traces of T points and
-    K candidates: one CTA of ``threads`` a trace (grid B), ``group``
-    threads a column of the step's [K, K] block (a power of two within a
-    warp; ``columns`` = threads / group, K rounded up to a power of two),
-    and the scratch the wrapper allocates (i32 [B, T, K + 1]: the
-    backpointers and a word per level). Raises past VITERBI_MAX_K."""
+    K candidates, every field of which the launch passes to the kernel. A
+    trace is a group of ``threads_per_trace`` threads (64, 128 past K =
+    32), which all look up; the recurrence runs on the first
+    ``recurrence_threads`` of them (one warp up to K = 16, else two lanes
+    a column of the step's [K, K] block); ``traces_per_cta`` groups make
+    a CTA of 128 threads, as many CTAs as cover B. A chunk of ``chunk``
+    steps has its transition blocks looked up at once (at most about
+    2048 pairs, of which the valid ones are searched). The levels
+    (backpointers and a word a level) stay in shared memory (``levels``
+    "shared") where the CTA then fits VITERBI_SMEM_BUDGET, else in a
+    global scratch (``levels`` "global", ``scratch_bytes`` = B * T * (K +
+    2) the wrapper allocates; 0 in shared memory), where the CTA's shared
+    memory no longer grows with T. ``smem_bytes``: the CTA's dynamic
+    shared memory. Raises past VITERBI_MAX_K."""
     if not 1 <= K <= VITERBI_MAX_K:
         raise ValueError(f"the Viterbi kernel takes 1 <= K <= "
                          f"{VITERBI_MAX_K} candidates, got K={K}")
     columns = 1 << (K - 1).bit_length()
-    threads = min(max(4 * columns, 32), 256)
-    scratch = (B, T, K + 1)
-    return {"grid": B, "threads": threads, "group": threads // columns,
-            "columns": columns, "scratch_shape": scratch,
-            "scratch_bytes": 4 * B * T * (K + 1)}
+    tpt = min(max(2 * columns, 64), 128)
+    tpc = 128 // tpt
+    chunk = max(1, min(32, 2048 // (K * K), T))
+    here = tpc * viterbi_smem_bytes(T, K, chunk, True) \
+        <= VITERBI_SMEM_BUDGET
+    return {"traces_per_cta": tpc, "threads_per_trace": tpt,
+            "recurrence_threads": min(tpt, max(32, 2 * columns)),
+            "chunk": chunk,
+            "smem_bytes": tpc * viterbi_smem_bytes(T, K, chunk, here),
+            "levels": "shared" if here else "global",
+            "scratch_bytes": 0 if here else B * T * (K + 2)}
 
 
 def _viterbi_cuda(cands: CandidateSet, points, valid_pt, tables,
@@ -131,8 +174,14 @@ def _viterbi_cuda(cands: CandidateSet, points, valid_pt, tables,
                   interpolation_distance: float) -> ViterbiResult:
     """The batched decode as one launch of kernels/viterbi.cu on the
     current stream of the candidates' card: checks the tensors, allocates
-    the outputs and the scratch, launches and counts the launch. Nothing
-    here waits for the card."""
+    the outputs and, where the plan keeps the levels in global memory,
+    the scratch, launches and counts the launch. Nothing here waits for
+    the card.
+
+    The kernel binary-searches each reach row: it takes the row order
+    that ``tiles.tileset.host_tables`` holds every staged dict to (real
+    target ids strictly ascending, the -1 padding at the end). It is not
+    checked here, where reading the tables would wait for the card."""
     from reporter_tpu_torch.kernels import build
     from reporter_tpu_torch.utils import profiling
 
@@ -170,15 +219,15 @@ def _viterbi_cuda(cands: CandidateSet, points, valid_pt, tables,
                         chain_start=start, matched=matched)
     if B == 0 or T == 0:
         return out
-    scratch = torch.empty(plan["scratch_shape"], dtype=torch.int32,
-                          device=dev)
+    scratch = None if not plan["scratch_bytes"] else torch.empty(
+        plan["scratch_bytes"], dtype=torch.uint8, device=dev)
     # a span of a device_trace capture (a no-op outside one)
     with profiling.annotate("viterbi_decode_kernel"):
         build.launch_viterbi(
             ce, co, cd, cv, pts, vp, tab["edge_len"], tab["reach_row"],
-            tab["reach_to"], tab["reach_dist"], plan["threads"],
-            plan["group"], 2.0 * sigma_z ** 2, beta, max_route_factor,
-            breakage_distance, backward_slack, interpolation_distance > 0.0,
+            tab["reach_to"], tab["reach_dist"], plan,
+            2.0 * sigma_z ** 2, beta, max_route_factor, breakage_distance,
+            backward_slack, interpolation_distance > 0.0,
             interpolation_distance, scratch, choice, edge, offset, start,
             matched)
     with _LAUNCH_LOCK:

@@ -53,6 +53,7 @@ from reporter_tpu_torch.ops.match import MatchOutput
 from reporter_tpu_torch.parallel.dp import as_tensor, gather
 from reporter_tpu_torch.parallel.dp_e2e import _row_blocks
 from reporter_tpu_torch.parallel.mesh import Mesh
+from reporter_tpu_torch.tiles.reach import check_rows_ascending
 from reporter_tpu_torch.tiles.tileset import place_tables
 
 # the six segment tables each shard stages, in find_candidates_dense's order
@@ -130,6 +131,7 @@ def shard_tables(mesh: Mesh, ts, axis: str = "tile") -> ShardedTables:
         for dev in dict.fromkeys(row):
             segments[i, dev] = place_tables(host[i], dev)
     arrays = ts.arrays()
+    check_rows_ascending(arrays["reach_to"])
     route_host = {"edge_len": arrays["edge_len"],
                   "reach_row": arrays["edge_reach_row"],
                   "reach_to": arrays["reach_to"],

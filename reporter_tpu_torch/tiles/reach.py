@@ -24,6 +24,21 @@ import heapq
 import numpy as np
 
 
+def check_rows_ascending(reach_to: np.ndarray) -> None:
+    """The row order the readers of reach rows rely on: the C walker
+    (native/walker.cc) and the Viterbi kernel (kernels/viterbi.cu)
+    binary-search each row by target edge id, so real ids must ascend
+    strictly, with the -1 padding only at the end. Raises ValueError on a
+    row that does not."""
+    key = np.where(reach_to < 0, np.iinfo(np.int64).max,
+                   reach_to.astype(np.int64))
+    d = np.diff(key, axis=1)
+    real = reach_to[:, 1:] >= 0
+    if (d < 0).any() or (real & (d == 0)).any():
+        raise ValueError("reach_to rows must ascend by target edge id with "
+                         "the -1 padding at the end")
+
+
 def node_dijkstra(
     u: int,
     node_out: np.ndarray,

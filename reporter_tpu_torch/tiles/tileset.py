@@ -312,12 +312,16 @@ def host_tables(arrays: "dict[str, np.ndarray]",
     reach rows are staged as they are. The per-edge and reach members
     and the four shared pack members equal the JAX package's byte for
     byte; ``edge_osmlr``, which the JAX layout stages, is read on the
-    host here and is not staged."""
+    host here and is not staged. A ``reach_to`` row whose real target ids
+    do not ascend strictly, with the -1 padding at the end, raises
+    ValueError: the Viterbi kernel binary-searches the staged rows."""
     from reporter_tpu_torch.ops.dense_candidates import build_seg_pack
+    from reporter_tpu_torch.tiles.reach import check_rows_ascending
 
     if candidate_backend not in ("auto", "dense", "grid"):
         raise ValueError(f"unknown candidate_backend {candidate_backend!r}; "
                          "use 'auto', 'dense' or 'grid'")
+    check_rows_ascending(arrays["reach_to"])
     host = {
         "staged_layout": np.int32(STAGED_LAYOUT_VERSION),
         "edge_len": arrays["edge_len"],

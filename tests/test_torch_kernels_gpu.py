@@ -955,20 +955,13 @@ def _vit_args(tab, interp, breakage=150.0):
             p.backward_slack, interp)
 
 
-@pytest.mark.parametrize("t", [1, 120])
-@pytest.mark.parametrize("b", [1, 1024])
-@pytest.mark.parametrize("k", [1, 8, 16, 33, 64])
-def test_viterbi_kernel_equals_plain(sf_tile, vit_fleet, k, b, t):
-    """Every field bit-equal to the plain version on the card, interpolation
-    on and off; one launch counted under K per call."""
+def _vit_equal(cands, pts, valid, tab, k):
+    """The kernel against the plain version on the card, interpolation on
+    and off: every field bit-equal, one launch counted under K a call."""
     from reporter_tpu_torch.ops import hmm
 
-    _, tab = sf_tile
-    pts, valid = vit_fleet
-    cands = dc.CandidateSet(*(x[:b, :t] for x in _vit_cands(sf_tile,
-                                                            vit_fleet, k)))
     for interp in (10.0, 0.0):
-        args = (cands, pts[:b, :t], valid[:b, :t], *_vit_args(tab, interp))
+        args = (cands, pts, valid, *_vit_args(tab, interp))
         before = hmm.VITERBI_LAUNCHES.get(k, 0)
         got = hmm.viterbi_decode_batched(*args)
         assert hmm.VITERBI_LAUNCHES[k] == before + 1
@@ -978,8 +971,217 @@ def test_viterbi_kernel_equals_plain(sf_tile, vit_fleet, k, b, t):
             g, w = getattr(got, f), getattr(want, f)
             assert g.dtype == w.dtype and g.shape == w.shape, f
             assert torch.equal(g, w), (f, int((g != w).sum()))
+    return got
+
+
+@pytest.mark.parametrize("t", [1, 120])
+@pytest.mark.parametrize("b", [1, 3, 1024])
+@pytest.mark.parametrize("k", [1, 8, 16, 33, 64])
+def test_viterbi_kernel_equals_plain(sf_tile, vit_fleet, k, b, t):
+    """Every field bit-equal to the plain version on the card (B = 3: a
+    CTA of two traces only partly filled up to K = 32)."""
+    _, tab = sf_tile
+    pts, valid = vit_fleet
+    cands = dc.CandidateSet(*(x[:b, :t] for x in _vit_cands(sf_tile,
+                                                            vit_fleet, k)))
+    got = _vit_equal(cands, pts[:b, :t], valid[:b, :t], tab, k)
     if b == 1024 and t == 120:
         assert got.matched.any() and int(got.chain_start.sum()) > b
+
+
+_VIT_LONG = {}
+
+
+@pytest.mark.parametrize("b", [1, 3, 1024])
+@pytest.mark.parametrize("k", [8, 32, 64])
+def test_viterbi_kernel_equals_plain_on_1024_points(sf_tile, vit_fleet, k,
+                                                    b):
+    """T = 1024, where the plan keeps the levels in the global scratch at
+    K = 32 and 64 (staged back block by block for the backtrack) and in
+    shared memory at K = 8: each row nine fleet traces end to end (a
+    jump, so a chain break, every 120 points), cut to 1024 points."""
+    from reporter_tpu_torch.ops import hmm
+
+    ts, tab = sf_tile
+    assert hmm.viterbi_plan(b, 1024, k)["levels"] \
+        == ("shared" if k == 8 else "global")
+    if k not in _VIT_LONG:
+        pts, valid = vit_fleet
+        n = pts.shape[0]
+        idx = (torch.arange(n)[:, None] + torch.arange(9)[None, :]) % n
+        lp = pts[idx.to(pts.device)].reshape(n, -1, 2)[:, :1024]
+        lv = valid[idx.to(valid.device)].reshape(n, -1)[:, :1024]
+        lp, lv = lp.contiguous(), lv.contiguous()
+        c = dc.find_candidates_dense(
+            lp.reshape(-1, 2), tuple(tab[m] for m in (
+                "seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
+                "seg_coarse")), 50.0 if k <= 8 else 150.0, k,
+            valid=lv.reshape(-1))
+        _VIT_LONG[k] = (dc.CandidateSet(*(x.reshape(n, 1024, k) for x in c)),
+                        lp, lv)
+    cands, lp, lv = _VIT_LONG[k]
+    cands = dc.CandidateSet(*(x[:b] for x in cands))
+    got = _vit_equal(cands, lp[:b], lv[:b], tab, k)
+    assert got.matched.any() and int(got.chain_start.sum()) > b
+
+
+def _numpy_case(ts, mid, k, seed, b=6, t=40):
+    """tests/test_torch_viterbi_kernel.py's _case, made with the port's
+    generate_city / synthesize_fleet and numpy: the K nearest edges by
+    midpoint, offsets within each edge, distances rounded to 0.5 m (equal
+    emissions), slot 1 repeating slot 0 on a third of the points (exact
+    cost ties), holes (-1, invalid), invalid slots, -1 yet valid slots, a
+    padded tail, a trace with no valid point, a 900 m jump (a chain break)
+    and points without a candidate."""
+    rng = np.random.default_rng(seed)
+    fleet = synthesize_fleet(ts, b, num_points=t, seed=seed)
+    pts = np.stack([p.xy for p in fleet]).astype(np.float32)
+    valid = np.ones((b, t), bool)
+    valid[1, 25:] = False
+    pts[1, 25:] = pts[1, 0]
+    valid[4] = False
+    pts[3, 20:] += np.float32(900.0)
+    d2 = ((pts[:, :, None, :] - mid[None, None]) ** 2).sum(-1)
+    order = np.argsort(d2, axis=-1, kind="stable")[..., :k]
+    edge = order.astype(np.int32)
+    lens = ts.edge_len[edge].astype(np.float32)
+    offset = (rng.random(edge.shape, np.float32) * lens).astype(np.float32)
+    dist = np.round(np.sqrt(np.take_along_axis(d2, order, -1)) * 2) / 2
+    dist = dist.astype(np.float32)
+    cvalid = np.ones(edge.shape, bool)
+    if k > 1:
+        rep = rng.random((b, t)) < 0.33
+        for a in (edge, offset, dist):
+            a[..., 1] = np.where(rep, a[..., 0], a[..., 1])
+        hole = rng.random(edge.shape) < 0.15
+        hole[..., 0] = False
+        edge[hole] = -1
+        dist[hole] = np.float32(dc.BIG)
+        cvalid[hole] = False
+        cvalid[rng.random(edge.shape) < 0.1] = False
+        edge[(rng.random(edge.shape) < 0.03) & cvalid] = -1
+    cvalid[2, 10:14] = False
+    return pts, valid, (edge, offset, dist, cvalid)
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 33, 64])
+def test_viterbi_kernel_equals_plain_on_the_numpy_case(cuda, k):
+    """The CPU tests' lattice (ties, holes, -1 yet valid, breaks, padding)
+    on the tiny tile, the kernel against the plain version on the card."""
+    from reporter_tpu_torch.config import CompilerParams
+
+    ts = compile_network(generate_city("tiny"),
+                         CompilerParams(reach_radius=500.0,
+                                        osmlr_max_length=200.0))
+    tab = tables_from_numpy(ts.arrays(), cuda)
+    mid = (0.5 * (ts.node_xy[ts.edge_src] + ts.node_xy[ts.edge_dst])
+           ).astype(np.float32)
+    pts, valid, cands = _numpy_case(ts, mid, k, seed=k)
+    c = dc.CandidateSet(*(torch.from_numpy(x).to(cuda) for x in cands))
+    got = _vit_equal(c, torch.from_numpy(pts).to(cuda),
+                     torch.from_numpy(valid).to(cuda), tab, k)
+    m = got.matched.cpu().numpy()
+    assert m[0].any() and not m[4].any() and not m[1, 25:].any()
+    assert got.chain_start.cpu().numpy()[3, 20]
+
+
+@pytest.mark.parametrize("k", [8, 64])
+def test_viterbi_kernel_takes_any_length(sf_tile, vit_fleet, k):
+    """T past the card's shared memory (T bytes a trace would not fit a
+    CTA): the levels and the choices global, so the kernel launches at
+    any T. Each row is one fleet trace that ends over twice the breakage
+    distance from where it starts, repeated end to end: every repeat
+    starts a chain, so the decode is the plain version's of the trace,
+    repeated (that premise checked first on four repeats)."""
+    from reporter_tpu_torch.ops import hmm
+
+    _, tab = sf_tile
+    pts, valid = vit_fleet
+    cands = _vit_cands(sf_tile, vit_fleet, k)
+    breakage = _vit_args(tab, 0.0)[4]
+    span = (pts[:, -1] - pts[:, 0]).norm(dim=-1)
+    rows = torch.nonzero(valid.all(1) & (span > 2 * breakage))[:3, 0]
+    assert len(rows) == 3
+    n = pts.shape[1]
+    t = -(-hmm.VITERBI_SMEM_MAX // n) * n       # repeats of the trace
+    plan = hmm.viterbi_plan(3, t, k)
+    assert plan["levels"] == "global"
+    assert plan["traces_per_cta"] * t > hmm.VITERBI_SMEM_MAX
+
+    def repeat(r):
+        c = dc.CandidateSet(*(x[rows].repeat(1, r, 1).contiguous()
+                              for x in cands))
+        return (c, pts[rows].repeat(1, r, 1).contiguous(),
+                valid[rows].repeat(1, r).contiguous())
+
+    for interp in (10.0, 0.0):
+        one = hmm._viterbi_plain(*repeat(1), *_vit_args(tab, interp))
+        four = hmm._viterbi_plain(*repeat(4), *_vit_args(tab, interp))
+        got = hmm.viterbi_decode_batched(*repeat(t // n),
+                                         *_vit_args(tab, interp))
+        torch.cuda.synchronize()
+        for f in _VIT_FIELDS:
+            w = getattr(one, f)
+            assert torch.equal(getattr(four, f), w.repeat(1, 4)), f
+            g = getattr(got, f)
+            assert g.shape == (3, t)
+            assert torch.equal(g, w.repeat(1, t // n)), \
+                (f, int((g != w.repeat(1, t // n)).sum()))
+        assert got.matched.any()
+
+
+def _layout_args(cuda, t, k):
+    """Zero-filled inputs at [1, t, k] and a one-row reach table on the
+    card: enough for the kernel's plan checks and a launch."""
+    z = dict(device=cuda)
+    ce = torch.full((1, t, k), -1, dtype=torch.int32, **z)
+    co, cd = torch.zeros((1, t, k), **z), torch.zeros((1, t, k), **z)
+    cv = torch.zeros((1, t, k), dtype=torch.bool, **z)
+    pts = torch.zeros((1, t, 2), **z)
+    vp = torch.ones((1, t), dtype=torch.bool, **z)
+    tab = (torch.ones(1, **z), torch.zeros(1, dtype=torch.int32, **z),
+           torch.full((1, 128), -1, dtype=torch.int32, **z),
+           torch.zeros((1, 128), **z))
+    outs = [torch.empty((1, t), dtype=d, **z) for d in (
+        torch.int32, torch.int32, torch.float32, torch.bool, torch.bool)]
+    return (ce, co, cd, cv, pts, vp, *tab), outs
+
+
+@pytest.mark.parametrize("t", [1, 16, 120, 128, 1024])
+def test_viterbi_plan_smem_equals_the_kernels_layout(cuda, t):
+    """hmm.viterbi_plan's shared bytes are the kernel's own layout at
+    every K, in both places of the levels: the launch takes the plan's
+    figure and refuses it 16 bytes off (the C entry checks the figure
+    against its layout); a layout past the card's 227 KB is refused."""
+    from reporter_tpu_torch.kernels import build
+    from reporter_tpu_torch.ops import hmm
+
+    for k in range(1, hmm.VITERBI_MAX_K + 1):
+        ins, outs = _layout_args(cuda, t, k)
+        plan = hmm.viterbi_plan(1, t, k)
+        for levels in ("shared", "global"):
+            here = levels == "shared"
+            pl = {**plan, "levels": levels,
+                  "smem_bytes": plan["traces_per_cta"]
+                  * hmm.viterbi_smem_bytes(t, k, plan["chunk"], here)}
+            scratch = None if here else torch.empty(
+                t * (k + 2), dtype=torch.uint8, device=cuda)
+
+            def launch(nbytes):
+                build.launch_viterbi(
+                    *ins, {**pl, "smem_bytes": nbytes}, 2.0 * 4.07 ** 2,
+                    3.0, 5.0, 2000.0, 10.0, True, 10.0, scratch, *outs)
+
+            if pl["smem_bytes"] <= hmm.VITERBI_SMEM_MAX:
+                launch(pl["smem_bytes"])
+            else:
+                with pytest.raises(RuntimeError, match="error -1"):
+                    launch(pl["smem_bytes"])
+            for off in (-16, 16):
+                with pytest.raises(RuntimeError, match="error -1"):
+                    launch(pl["smem_bytes"] + off)
+        torch.cuda.synchronize()
+        assert not outs[4].any(), (k, t)      # nothing to match
 
 
 def test_viterbi_kernel_refuses_a_k_past_its_ceiling(sf_tile, vit_fleet):

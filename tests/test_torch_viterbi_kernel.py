@@ -2,7 +2,9 @@
 plain version (what the kernel is held to on a card) against
 reporter_tpu.ops.hmm.viterbi_decode_batched at the widths
 tests/test_torch_hmm.py does not reach (K = 1, 16, 33 and 64), the
-dispatch on the candidates' device, and the kernel's launch plan.
+dispatch on the candidates' device, and the kernel's launch plan (its
+fields at every K, its shared memory at every point bucket, where the
+levels live, and the CTAs that cover a batch).
 
 Candidate sets are made with numpy from a seed on the tiny tile: edges
 drawn from the tile's near each point, offsets within each edge's length,
@@ -26,6 +28,7 @@ from reporter_tpu.ops.hmm import viterbi_decode_batched as j_viterbi
 from reporter_tpu.tiles.compiler import compile_network
 from _torch_support import (  # noqa: F401  (the port's gate: first)
     _torch_gate, _torch_module_gate, few_torch_threads)
+from reporter_tpu_torch.matcher.api import _BUCKETS
 from reporter_tpu_torch.ops import hmm
 from reporter_tpu_torch.ops.dense_candidates import BIG, CandidateSet
 
@@ -189,21 +192,93 @@ def test_the_kernel_wrapper_checks_the_tables(member, bad):
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 48, 64])
 def test_the_launch_plan_covers_k(k):
     plan = hmm.viterbi_plan(1024, 120, k)
-    threads, group, cols = plan["threads"], plan["group"], plan["columns"]
-    assert threads % 32 == 0 and 32 <= threads <= 256
-    assert group in (1, 2, 4, 8, 16, 32) and threads == group * cols
-    assert cols >= k and cols < 2 * k or k == 1
-    assert plan["grid"] == 1024
-    assert plan["scratch_shape"] == (1024, 120, k + 1)
-    assert plan["scratch_bytes"] == 4 * 1024 * 120 * (k + 1)
+    assert set(plan) == {"traces_per_cta", "threads_per_trace",
+                         "recurrence_threads", "chunk", "smem_bytes",
+                         "levels", "scratch_bytes"}
+    tpt, tpc = plan["threads_per_trace"], plan["traces_per_cta"]
+    rt = plan["recurrence_threads"]
+    cols = 1 << (k - 1).bit_length()     # the kernel's columns
+    assert tpt % 32 == 0 and 64 <= tpt <= 128 and tpc * tpt == 128
+    # the recurrence: one warp up to K = 16, else two lanes a column, as
+    # the kernel takes it (whole warps, G = rt / columns lanes a column)
+    assert rt % 32 == 0 and 32 <= rt <= tpt and rt % cols == 0
+    group = rt // cols
+    assert group in (2, 4, 8, 16, 32) and (rt == 32 or group == 2)
+    # a chunk's lookups: at most about 2048 pairs, at least one step
+    assert 1 <= plan["chunk"] <= 32
+    assert plan["chunk"] * k * k <= 2048 or plan["chunk"] == 1
+    assert plan["levels"] == "shared" and plan["scratch_bytes"] == 0
+    assert plan["smem_bytes"] == tpc * hmm.viterbi_smem_bytes(
+        120, k, plan["chunk"], True)
 
 
-@pytest.mark.parametrize("k,threads,group", [(1, 32, 32), (4, 32, 8),
-                                             (8, 32, 4), (16, 64, 4),
-                                             (33, 256, 4), (64, 256, 4)])
-def test_the_launch_plan_at_the_served_widths(k, threads, group):
-    plan = hmm.viterbi_plan(1, 1, k)
-    assert (plan["threads"], plan["group"]) == (threads, group)
+@pytest.mark.parametrize("k,tpt,rt,tpc,chunk", [
+    (1, 64, 32, 2, 32), (4, 64, 32, 2, 32), (8, 64, 32, 2, 32),
+    (16, 64, 32, 2, 8), (33, 128, 128, 1, 1), (64, 128, 128, 1, 1)])
+def test_the_launch_plan_at_the_served_widths(k, tpt, rt, tpc, chunk):
+    plan = hmm.viterbi_plan(1, 128, k)
+    assert (plan["threads_per_trace"], plan["recurrence_threads"],
+            plan["traces_per_cta"], plan["chunk"]) == (tpt, rt, tpc, chunk)
+
+
+@pytest.mark.parametrize("t", _BUCKETS)
+def test_the_launch_plan_fits_shared_memory_at_every_bucket(t):
+    """At every K the kernel takes and every point bucket: the CTA's
+    shared memory within the card's 227 KB and the plan's budget; the
+    levels in the global scratch exactly where, beside the chunk, they
+    would take the CTA past the budget."""
+    for k in range(1, hmm.VITERBI_MAX_K + 1):
+        plan = hmm.viterbi_plan(1024, t, k)
+        tpc, chunk = plan["traces_per_cta"], plan["chunk"]
+        assert plan["smem_bytes"] <= hmm.VITERBI_SMEM_BUDGET \
+            <= hmm.VITERBI_SMEM_MAX == 232448, (k, t)
+        with_levels = tpc * hmm.viterbi_smem_bytes(t, k, chunk, True)
+        here = with_levels <= hmm.VITERBI_SMEM_BUDGET
+        assert plan["levels"] == ("shared" if here else "global"), (k, t)
+        if here:
+            assert plan["smem_bytes"] == with_levels
+            assert plan["scratch_bytes"] == 0
+        else:
+            assert plan["smem_bytes"] == tpc * hmm.viterbi_smem_bytes(
+                t, k, chunk, False) < with_levels
+            assert plan["scratch_bytes"] == 1024 * t * (k + 2)
+    # the card tests take both paths: T = 1024 at K = 32 and 64 goes
+    # global (K = 8 stays in shared memory), the served T = 128 stays in
+    # shared memory
+    if t == 1024:
+        assert [hmm.viterbi_plan(3, t, k)["levels"] for k in (8, 32, 64)] \
+            == ["shared", "global", "global"]
+    if t == 128:
+        assert {hmm.viterbi_plan(3, t, k)["levels"] for k in (1, 8, 64)} \
+            == {"shared"}
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 127, 1023, 1024, 1025])
+def test_the_launch_plan_covers_any_batch(b):
+    """The batch moves nothing but the scratch: the kernel's grid is as
+    many CTAs of traces_per_cta traces as cover B, the last one partly
+    filled where B is not a multiple."""
+    for k in (1, 4, 8, 9, 16, 17, 32, 33, 64):
+        for t in (128, 1024):
+            plan, one = hmm.viterbi_plan(b, t, k), hmm.viterbi_plan(1, t, k)
+            assert {**plan, "scratch_bytes": 0} \
+                == {**one, "scratch_bytes": 0}, (k, b, t)
+            assert plan["scratch_bytes"] == b * one["scratch_bytes"]
+            assert plan["traces_per_cta"] in (1, 2), (k, b)
+
+
+@pytest.mark.parametrize("t", [100_000, 120_000, 250_000, 1_000_000])
+def test_the_launch_plan_takes_any_length(t):
+    """Past some 10,000 points the levels are global at every K, and
+    then the CTA's shared memory does not grow with T (the backtrack's
+    choices go to the output, not to shared memory): the same bytes as
+    at T = 20,000, within the card's 227 KB, at any T."""
+    for k in range(1, hmm.VITERBI_MAX_K + 1):
+        plan, ref = hmm.viterbi_plan(3, t, k), hmm.viterbi_plan(3, 20_000, k)
+        assert plan["levels"] == ref["levels"] == "global", (k, t)
+        assert plan["smem_bytes"] == ref["smem_bytes"] \
+            <= hmm.VITERBI_SMEM_BUDGET, (k, t)
+        assert plan["scratch_bytes"] == 3 * t * (k + 2)
 
 
 @pytest.mark.parametrize("k", [0, 65, 128])
