@@ -606,11 +606,39 @@ SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
            "reporter_tpu_torch/kernels/topk.cuh",
            "reporter_tpu_torch/kernels/viterbi.cu",
+           "reporter_tpu_torch/kernels/lattice.cu",
+           "reporter_tpu_torch/kernels/grid.cu",
            "reporter_tpu_torch/native/prepare.cc",
            "reporter_tpu_torch/native/walker.cc",
            "reporter_tpu_torch/native/reach.cc")
-HOST_SOURCES = SOURCES[3:]    # the host library's (g++)
+HOST_SOURCES = SOURCES[5:]    # the host library's (g++)
 VITERBI_SOURCE = SOURCES[2]
+LATTICE_SOURCE = SOURCES[3]
+GRID_SOURCE = SOURCES[4]
+# the ranked-path lattice's kernels: launch key → (kernel line name, the
+# JAX scan it replaces)
+LATTICE_KERNELS = {
+    "keep": ("lattice_keep_mask",
+             "reporter_tpu/ops/hmm.py:268 interpolation_keep_mask "
+             "(lax.scan; not Pallas)"),
+    "forward": ("lattice_forward",
+                "reporter_tpu/ops/hmm.py:290 _forward_lattice and :519 the "
+                "list step of viterbi_kbest_paths (lax.scan; not Pallas)"),
+    "backtrack": ("lattice_backtrack",
+                  "reporter_tpu/ops/hmm.py:454 and :566 back_one, vmapped "
+                  "(lax.scan; not Pallas)"),
+}
+GRID_REPLACES = ("reporter_tpu/ops/candidates.py:117 _topk_distinct_edges "
+                 "in find_candidates :139 (lax.scan, vmapped; not Pallas)")
+LATTICE_CASES = ((8, None, (1, 8)), (64, WIDE_RADIUS, (1, 64)))
+#                               [kernel:lattice]: (K, radius, the R run);
+#                               T = 128 and 1024 at K = 8, 1024 at K = 64
+GRID_CASES = ((8, None), (64, WIDE_RADIUS))   # [kernel:grid]: (K, radius)
+LATTICE_OPS_PER_KEEP = 6      # a point of the keep mask: 2 sub, 2 mul, add,
+#                               compare
+GRID_OPS_PER_SLOT = 24        # a slot's distance, projection and radius test
+GRID_OPS_PER_ROUND_SLOT = 3   # a selection round's compare, pack and mask
+#                               per slot
 VITERBI_REPLACES = ("reporter_tpu/ops/hmm.py:112 viterbi_decode_batched "
                     "(lax.scan; not Pallas)")
 VITERBI_CASES = ((8, None), (16, WIDE_RADIUS), (32, WIDE_RADIUS),
@@ -995,28 +1023,35 @@ def gates_phase(card, dc, radius, k):
 
 class Windows:
     """Launch windows of the main path: ``run(path, fn)`` sets every
-    instance's launch count (the sweep's and the Viterbi's) to 0 just
-    before fn() and reads them just after; the counts are kept per path,
-    the sweep's in ``by_path`` (returned) and the Viterbi's, keyed by K,
-    in ``viterbi_by_path``."""
+    instance's launch count (the sweep's, the Viterbi's, the lattice's
+    and the grid's) to 0 just before fn() and reads them just after; the
+    counts are kept per path, the sweep's in ``by_path`` (returned), the
+    Viterbi's, keyed by K, in ``viterbi_by_path``, the lattice's, keyed
+    by kernel, in ``lattice_by_path`` and the grid's, keyed by K, in
+    ``grid_by_path``."""
 
     def __init__(self, dc):
-        from reporter_tpu_torch.ops import hmm
+        from reporter_tpu_torch.ops import candidates, hmm
 
         self.dc = dc
         self.hmm = hmm
+        self.cand = candidates
         self.by_path: dict = {}
         self.viterbi_by_path: dict = {}
+        self.lattice_by_path: dict = {}
+        self.grid_by_path: dict = {}
 
     def run(self, path, fn):
-        for key in self.dc.SWEEP_LAUNCHES:
-            self.dc.SWEEP_LAUNCHES[key] = 0
-        for key in self.hmm.VITERBI_LAUNCHES:
-            self.hmm.VITERBI_LAUNCHES[key] = 0
+        for counts in (self.dc.SWEEP_LAUNCHES, self.hmm.VITERBI_LAUNCHES,
+                       self.hmm.LATTICE_LAUNCHES, self.cand.GRID_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
         out = fn()
         counts = dict(self.dc.SWEEP_LAUNCHES)
         self.by_path[path] = counts
         self.viterbi_by_path[path] = dict(self.hmm.VITERBI_LAUNCHES)
+        self.lattice_by_path[path] = dict(self.hmm.LATTICE_LAUNCHES)
+        self.grid_by_path[path] = dict(self.cand.GRID_LAUNCHES)
         return out, counts
 
 
@@ -4539,6 +4574,317 @@ def grid_native_phase(card, ts, metro):
                          "differ")
 
 
+def launch_calls(fn):
+    """fn() under the profiler after a synchronize: → (its result, the
+    work the host put on the card in it: the runtime's kernel launches
+    and its copies and fills (LaunchKernel, Memcpy and Memset records),
+    the kernel launches alone). PyTorch runs one copy as a memcpy or as
+    a copy kernel by the tensors' layout, so the sum is what does not
+    depend on a length; the host records are whole even in a later
+    profiler session of the process, which may lose its window's first
+    device records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    kernels = sum(e.count for e in ka if "LaunchKernel" in e.key)
+    copies = sum(e.count for e in ka if e.key.startswith("cudaMem")
+                 and ("cpy" in e.key or "set" in e.key))
+    return out, kernels + copies, kernels
+
+
+def _mismatches(got, want) -> dict:
+    return {f: int((g != w).sum()) for f, g, w in zip(
+        getattr(want, "_fields", range(len(want))), got, want)}
+
+
+def _bound(ops: float, nbytes: float) -> "tuple[float, str]":
+    by_ops = ops / H100_F32_FLOPS * 1e3
+    by_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
+def _topk_trace(m, xy, bucket):
+    """One trace as match_topk stages it on the card: → (points f32 [T,
+    2], valid [T], its candidates [T, K])."""
+    from reporter_tpu_torch.ops import match as match_ops
+
+    pts = np.zeros((1, bucket, 2), np.float32)
+    pts[0, :len(xy)] = xy
+    valid = np.zeros((1, bucket), bool)
+    valid[0, :len(xy)] = True
+    pj, vj = torch.from_numpy(pts).cuda(), torch.from_numpy(valid).cuda()
+    c = match_ops.batch_candidates(pj, vj, m.tables, m.params, m.ts.meta)
+    return pj[0], vj[0], match_ops.CandidateSet(*(x[0] for x in c))
+
+
+def lattice_kernel_phase(card, ts, m, traces):
+    """[kernel:lattice]: the ranked-path lattice's three kernels
+    (kernels/lattice.cu) against their plain versions on the card, on the
+    inputs match_topk gives them: the first fleet trace (T = 128) and the
+    [topk] long trace (T = 1024) at K = 8 (the tuned matcher, 50 m), the
+    long trace at K = 64 (150 m), each at the R of LATTICE_CASES (1: the
+    terminal form, K: the exact one): mismatches per field (all must be
+    0), the launches of one call of each wrapper (each must be 1), ms
+    single and back to back, the plain version's ms, the bound, the
+    forward plan, the lattice inputs' peak bytes (``_lattice_prep``'s
+    [T, K, K, M] temporaries) and the phase's seconds. → {kernel: the K =
+    8, T = 1024 record at the largest R, with the K = 64 one under
+    "k64"} for the kernels line."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+    from reporter_tpu_torch.netgen.traces import synthesize_probe
+    from reporter_tpu_torch.ops import hmm
+
+    t_all = time.perf_counter()
+    long_xy = synthesize_probe(ts, seed=7, num_points=TOPK_LONG_POINTS).xy
+    out = {}
+    for k, radius, rs in LATTICE_CASES:
+        mk = m if radius is None else SegmentMatcher(
+            ts, MatcherParams(sweep_autotune=False, max_candidates=k,
+                              search_radius=radius))
+        p = mk.params
+        sets = [("t1024", long_xy, 1024)]
+        if radius is None:
+            sets.insert(0, ("t128", traces[0].xy, BUCKET))
+        for name, xy, bucket in sets:
+            t_k = time.perf_counter()
+            pts, valid, tc = _topk_trace(mk, xy, bucket)
+            interp = p.interpolation_distance
+            keep_before = hmm.LATTICE_LAUNCHES.get("keep", 0)
+            keep = hmm.interpolation_keep_mask(pts, valid, interp)
+            keep_calls = hmm.LATTICE_LAUNCHES.get("keep", 0) - keep_before
+            keep_plain = hmm._keep_mask_batched(pts[:, :, None],
+                                                valid[:, None], interp)[:, 0]
+            torch.cuda.synchronize()
+            keep_mis = int((keep != keep_plain).sum())
+            T = int(pts.shape[0])
+            keep_ms = cuda_ms(lambda: hmm.interpolation_keep_mask(
+                pts, valid, interp), reps=20)
+            keep_b2b = launch_ms(lambda: hmm.interpolation_keep_mask(
+                pts, valid, interp))
+            keep_plain_ms = cuda_ms(lambda: hmm._keep_mask_batched(
+                pts[:, :, None], valid[:, None], interp), reps=2, warmup=1)
+            keep_bound = _bound(T * LATTICE_OPS_PER_KEEP, T * (8 + 1 + 1))
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            em, act, pany, trans = hmm._lattice_prep(
+                tc, pts, keep_plain, mk.tables, p.sigma_z, p.beta,
+                p.max_route_distance_factor, p.breakage_distance,
+                p.backward_slack)
+            torch.cuda.synchronize()
+            prep_peak = torch.cuda.max_memory_allocated() - base
+            n_act = int(act.sum())
+            for R in rs:
+                args = (em, act, pany, trans, R)
+                before = dict(hmm.LATTICE_LAUNCHES)
+                got = hmm._forward_list_cuda(*args)
+                want = hmm._forward_list_plain(*args)
+                torch.cuda.synchronize()
+                fwd_mis = dict(zip(("scores", "backptrs", "started", "own"),
+                                   (int((g != w).sum())
+                                    for g, w in zip(got, want))))
+                fwd_err = float((got[0].double() - want[0].double()).abs()
+                                .max())
+                S = k * R
+                seed = torch.sort(want[0][-1], stable=True).indices[
+                    :k if R == 1 else R].to(torch.int32)
+                bt_args = (want[1], want[2], act, want[3], seed)
+                bt = hmm._backtrack_cuda(*bt_args)
+                calls = {key: hmm.LATTICE_LAUNCHES.get(key, 0)
+                         - before.get(key, 0)
+                         for key in ("forward", "backtrack")}
+                calls["keep"] = keep_calls
+                bt_plain = hmm._backtrack_plain(*bt_args)
+                torch.cuda.synchronize()
+                bt_mis = int((bt != bt_plain).sum())
+                P = int(seed.shape[0])
+                fwd_ms = cuda_ms(lambda: hmm._forward_list_cuda(*args),
+                                 reps=20)
+                fwd_b2b = launch_ms(lambda: hmm._forward_list_cuda(*args))
+                fwd_plain_ms = cuda_ms(lambda: hmm._forward_list_plain(
+                    *args), reps=2, warmup=1)
+                bt_ms = cuda_ms(lambda: hmm._backtrack_cuda(*bt_args),
+                                reps=20)
+                bt_b2b = launch_ms(lambda: hmm._backtrack_cuda(*bt_args))
+                bt_plain_ms = cuda_ms(lambda: hmm._backtrack_plain(
+                    *bt_args), reps=2, warmup=1)
+                # the forward's work: per active step a column's K heads,
+                # R picks over K heads and R advances, then the K * R
+                # writes; bytes: the inputs once, the four outputs once
+                fwd_bound = _bound(
+                    n_act * k * (k + R * k + 2 * R),
+                    T * k * 4 + 2 * T + T * k * k * 4 + T * S * 8 + T * 5)
+                # the backtrack's: a step a path and level; bytes: its
+                # output, the level flags and own states, and the distinct
+                # backpointer entries the paths read
+                reads = bt_plain[:, 1:].long()
+                lv = torch.arange(1, T, device=reads.device).expand_as(reads)
+                n_reads = int(torch.unique(
+                    (lv * S + reads)[reads >= 0]).numel())
+                bt_bound = _bound(P * T * 4, P * T * 4 + T * 6 + n_reads * 4)
+                plan = hmm.lattice_plan(T, k, R)
+                rec = {
+                    "keep": {"mismatches": keep_mis, "max_abs_err": 0.0,
+                             "ms": keep_ms, "ms_back_to_back": keep_b2b,
+                             "plain_ms": keep_plain_ms,
+                             "bound_ms": keep_bound[0],
+                             "bound_by": keep_bound[1]},
+                    "forward": {"mismatches": sum(fwd_mis.values()),
+                                "max_abs_err": fwd_err, "ms": fwd_ms,
+                                "ms_back_to_back": fwd_b2b,
+                                "plain_ms": fwd_plain_ms,
+                                "bound_ms": fwd_bound[0],
+                                "bound_by": fwd_bound[1]},
+                    "backtrack": {"mismatches": bt_mis, "max_abs_err": 0.0,
+                                  "ms": bt_ms, "ms_back_to_back": bt_b2b,
+                                  "plain_ms": bt_plain_ms,
+                                  "bound_ms": bt_bound[0],
+                                  "bound_by": bt_bound[1]}}
+                phase("kernel:lattice", card, metro="sf", k=k, r=R,
+                      search_radius=p.search_radius, kind=name, steps=T,
+                      active_steps=n_act,
+                      chain_starts=int(want[2].sum()), paths=P,
+                      forward_mismatches=fwd_mis,
+                      keep_mismatches=keep_mis,
+                      backtrack_mismatches=bt_mis,
+                      threads=plan["threads"], smem_bytes=plan["smem_bytes"],
+                      prep_peak_bytes=prep_peak, call_launches=calls, **rec,
+                      seconds=time.perf_counter() - t_k)
+                if any(n != 1 for n in calls.values()):
+                    raise SystemExit(f"[kernel:lattice] one call of each "
+                                     f"wrapper launched {calls}")
+                if keep_mis or any(fwd_mis.values()) or bt_mis or fwd_err:
+                    raise SystemExit(
+                        f"[kernel:lattice] a lattice kernel differs from its "
+                        f"plain version at K={k}, R={R}, T={T}: keep "
+                        f"{keep_mis}, forward {fwd_mis}, backtrack {bt_mis}")
+                if not bool(want[2].any()) or not bool((bt >= 0).any()):
+                    raise SystemExit(f"[kernel:lattice] the lattice at "
+                                     f"K={k}, R={R}, T={T} chose nothing")
+                if name == "t1024":
+                    if k == 8:
+                        out = {key: dict(v, k=k, r=R, T=T)
+                               for key, v in rec.items()}
+                    else:
+                        for key, v in rec.items():
+                            out[key][f"k{k}"] = dict(v, r=R, T=T)
+    phase("kernel:lattice:all", card, seconds=time.perf_counter() - t_all)
+    return out
+
+
+def _grid_work(cands, pts, pack, gm, k):
+    """What one grid batch must do and move: each point's C slots
+    measured and tested, and per point the selection rounds its list
+    takes (its picks, and the round that ends it below K), each over the
+    C slots; the bytes: the points, the distinct cell rows the points
+    read, the four outputs. → (operations, bytes)."""
+    C = pack.shape[1] // 8
+    N = pts.shape[0]
+    rounds = torch.clamp_max(cands.valid.reshape(N, k).sum(1) + 1, k)
+    cell_f = torch.full((), gm.cell_size, dtype=torch.float32,
+                        device=pts.device)
+
+    def axis(v, o, n):
+        q = torch.floor((v - torch.full((), o, dtype=torch.float32,
+                                        device=pts.device)) / cell_f)
+        return torch.clamp(q, -1.0, float(n)).to(torch.int64).clamp(0, n - 1)
+
+    cells = axis(pts[:, 0], gm.ox, gm.gw) * gm.gh + axis(pts[:, 1], gm.oy,
+                                                          gm.gh)
+    n_cells = int(torch.unique(cells).numel())
+    ops = N * C * GRID_OPS_PER_SLOT \
+        + int(rounds.sum()) * C * GRID_OPS_PER_ROUND_SLOT
+    nbytes = N * 8 + n_cells * 8 * C * 4 + N * k * (4 + 4 + 4 + 1)
+    return ops, nbytes, n_cells
+
+
+def grid_kernel_phase(card, ts, pts):
+    """[kernel:grid]: the grid backend's kernel (kernels/grid.cu) against
+    its plain version on the card, on the 131,072 points of [kernel] at
+    each (K, radius) of GRID_CASES (150 m on a tile compiled with that
+    index radius): mismatches per field (all must be 0), ms single and
+    back to back, the plain version's ms, the bound, the row width C,
+    and the kernel launches of one candidate stage (``batch_candidates``,
+    the profiler's count), equal at every K. → the K = 8 record, the K =
+    64 one under "k64", for the kernels line."""
+    from reporter_tpu_torch.config import CompilerParams, Config, MatcherParams
+    from reporter_tpu_torch.matcher.api import SegmentMatcher
+    from reporter_tpu_torch.netgen.synthetic import generate_city
+    from reporter_tpu_torch.ops import candidates as cand
+    from reporter_tpu_torch.ops import match as match_ops
+    from reporter_tpu_torch.tiles.compiler import compile_network
+
+    t_all = time.perf_counter()
+    out, stage_launches = {}, {}
+    for k, radius in GRID_CASES:
+        t_k = time.perf_counter()
+        compiler = CompilerParams() if radius is None else CompilerParams(
+            index_radius=radius)
+        tsg = ts if radius is None else compile_network(generate_city("sf"),
+                                                        compiler)
+        levers = {} if radius is None else {"search_radius": radius}
+        gmm = SegmentMatcher(tsg, Config(compiler=compiler, matcher=(
+            MatcherParams(candidate_backend="grid", max_candidates=k,
+                          **levers))))
+        p, gm = gmm.params, cand.as_grid_meta(tsg.meta)
+        pack = gmm.tables["cell_pack"]
+        args = (pts, gmm.tables, tsg.meta, p.search_radius, k)
+        before = cand.GRID_LAUNCHES.get(k, 0)
+        got = cand.find_candidates(*args)
+        want = cand._find_candidates_plain(*args)
+        torch.cuda.synchronize()
+        launched = cand.GRID_LAUNCHES.get(k, 0) - before
+        mis = _mismatches(got, want)
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        ms = cuda_ms(lambda: cand.find_candidates(*args), reps=20)
+        b2b = launch_ms(lambda: cand.find_candidates(*args))
+        plain_ms = cuda_ms(lambda: cand._find_candidates_plain(*args),
+                           reps=2, warmup=1)
+        ops, nbytes, n_cells = _grid_work(want, pts, pack, gm, k)
+        bound_ms, bound_by = _bound(ops, nbytes)
+        bpts = pts.reshape(N_TRACES, BUCKET, 2)
+        bval = torch.ones(bpts.shape[:2], dtype=torch.bool, device="cuda")
+        _, stage_launches[k], _ = launch_calls(
+            lambda: match_ops.batch_candidates(bpts, bval, gmm.tables, p,
+                                               tsg.meta))
+        rec = dict(mismatches=sum(mis.values()), max_abs_err=err, ms=ms,
+                   ms_back_to_back=b2b, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        phase("kernel:grid", card, metro="sf", k=k,
+              search_radius=p.search_radius, points=int(pts.shape[0]),
+              capacity=int(pack.shape[1]) // 8, cells_read=n_cells,
+              candidates=int(want.valid.sum()),
+              edge_mismatches=mis["edge"], offset_mismatches=mis["offset"],
+              dist_mismatches=mis["dist"], valid_mismatches=mis["valid"],
+              operations=ops, bytes=nbytes, library_ms=None,
+              call_launches=launched,
+              stage_kernel_launches=stage_launches[k], **rec,
+              seconds=time.perf_counter() - t_k)
+        if any(mis.values()) or err or launched != 1:
+            raise SystemExit(f"[kernel:grid] the grid kernel differs from "
+                             f"its plain version at K={k}: {mis}, or "
+                             f"launched {launched} times in one call")
+        if not bool(want.valid.any()):
+            raise SystemExit(f"[kernel:grid] no candidate at K={k}")
+        if radius is None:
+            out = dict(rec, k=k)
+        else:
+            out[f"k{k}"] = dict(rec, search_radius=radius)
+    phase("kernel:grid:stage", card, stage_kernel_launches=stage_launches,
+          seconds=time.perf_counter() - t_all)
+    if len(set(stage_launches.values())) != 1:
+        raise SystemExit(f"[kernel:grid] the candidate stage's launches "
+                         f"differ across K: {stage_launches}")
+    return out
+
+
 def _sorted_sets(cands):
     """Per point, the candidate edges and their distances sorted (empty
     slots last): comparable across backends whatever the slot order."""
@@ -4558,8 +4904,10 @@ def grid_phase(card, ts, pts, m, traces, recs, dc, win):
     sweep's on every point of ``pts`` (distance multisets within rtol
     1e-5, atol 1e-3), the first REFERENCE_TRACES traces' records equal
     the CPU port's grid matcher's, the traces whose records differ from
-    the tuned dense matcher's counted (a reported figure), and no sweep
-    instance launched in the grid matcher's window."""
+    the tuned dense matcher's counted (a reported figure), no sweep
+    instance launched in the grid matcher's window and the grid kernel
+    did (its launches by K); the kernel launches of one candidate stage
+    (the profiler's count)."""
     from reporter_tpu_torch.config import MatcherParams
     from reporter_tpu_torch.matcher.api import SegmentMatcher
     from reporter_tpu_torch.ops import match as match_ops
@@ -4575,7 +4923,10 @@ def grid_phase(card, ts, pts, m, traces, recs, dc, win):
     gm.match_many(traces[:64])                    # warm the allocator
     (grecs, fields), served = win.run(
         "sf:grid", lambda: timed_batches(gm, traces, GRID_BATCH_RUNS))
+    grid_launches = win.grid_by_path["sf:grid"]
     _, bpts, bval = first_slice(m, traces)
+    _, stage_launches, _ = launch_calls(lambda: match_ops.batch_candidates(
+        bpts, bval, gm.tables, gm.params, ts.meta))
     stage_ms = {
         "grid": cuda_ms(lambda: match_ops.batch_candidates(
             bpts, bval, gm.tables, gm.params, ts.meta), reps=10),
@@ -4627,11 +4978,14 @@ def grid_phase(card, ts, pts, m, traces, recs, dc, win):
           traces_differing_from_dense=sum(a != b
                                           for a, b in zip(got, want)),
           launches={f"{a}@k{kk}": n for (a, kk), n in served.items() if n},
-          **fields)
-    if set_bad or dist_bad or not cpu_ok or any(served.values()):
+          grid_launches=grid_launches,
+          stage_kernel_launches=stage_launches, **fields)
+    if set_bad or dist_bad or not cpu_ok or any(served.values()) \
+            or not grid_launches.get(gm.params.max_candidates):
         raise SystemExit("[grid] edge sets or distances differ from the "
-                         "sweep's, the card's records from the CPU's, or a "
-                         "sweep instance launched")
+                         "sweep's, the card's records from the CPU's, a "
+                         "sweep instance launched or the grid kernel did "
+                         "not")
 
 
 def topk_phase(card, ts, m, traces, dc, win):
@@ -4641,7 +4995,13 @@ def topk_phase(card, ts, m, traces, dc, win):
     equal the CPU port's (edges and offsets; scores within
     TOPK_SCORE_RTOL), scores ascend, rank 0 is one path in both forms,
     the exact scores dominate the terminal ones, a longer trace raises,
-    and the window launched only the tuned instance. ms per call."""
+    and the window launched only the tuned instance and each lattice
+    kernel once a call. ms per call; the work one call puts on the card
+    (kernel launches and copies, the profiler's count; ``launch_calls``),
+    equal at T = 120 and 1024, the kernel launches alone beside it. Then
+    K = 64 at 150 m on the long trace (the widest list): card = CPU, ms,
+    the call's peak bytes, its launches."""
+    from reporter_tpu_torch.config import MatcherParams
     from reporter_tpu_torch.matcher.api import _BUCKETS, SegmentMatcher, Trace
     from reporter_tpu_torch.netgen.traces import synthesize_probe
 
@@ -4663,6 +5023,37 @@ def topk_phase(card, ts, m, traces, dc, win):
 
     card_out, counts = win.run("sf:topk", run)
     only(counts, _tuned(m, dc), "[topk]")
+    # every call ran the three lattice kernels once (no Python loop over
+    # T: the plain versions count nothing), and no grid launch
+    calls = sum(len(trs) for trs in sets.values()) * 2
+    lattice = win.lattice_by_path["sf:topk"]
+    if any(lattice.get(key, 0) != calls for key in LATTICE_KERNELS) \
+            or any(win.grid_by_path["sf:topk"].values()):
+        raise SystemExit(f"[topk] {calls} calls launched the lattice "
+                         f"kernels {lattice} times")
+    # the work one call puts on the card (the profiler's count), at each T
+    per_call, per_call_kernels = {}, {}
+    for name, trs in sets.items():
+        for exact in (False, True):
+            key = f"{name}_{'exact' if exact else 'terminal'}"
+            _, per_call[key], per_call_kernels[key] = launch_calls(
+                lambda tr=trs[0], e=exact: m.match_topk(tr, exact=e))
+    # the widest list: K = 64 at 150 m on the long trace, both forms
+    wide = SegmentMatcher(ts, MatcherParams(
+        sweep_autotune=False, max_candidates=64, search_radius=WIDE_RADIUS))
+    wide_out = {}
+    for exact in (False, True):
+        wide.match_topk(long, exact=exact)          # the build, the warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = wide.match_topk(long, exact=exact)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        _, launches, _ = launch_calls(lambda e=exact: wide.match_topk(
+            long, exact=e))
+        wide_out[exact] = (got, ms, peak, launches)
     cpu = SegmentMatcher(ts, device="cpu")
     bad = []
 
@@ -4683,6 +5074,14 @@ def topk_phase(card, ts, m, traces, dc, win):
             if (paths(ex)[:1] != paths(tc)[:1]
                     or any(a > b + 1e-3 for (a, _), (b, _) in zip(ex, tc))):
                 bad.append(f"{name}/forms/{i}")
+    cpu_wide = SegmentMatcher(ts, wide.params, device="cpu")
+    for exact, (got, _, _, _) in wide_out.items():
+        want = cpu_wide.match_topk(long, exact=exact)
+        s = [x for x, _ in got]
+        if (paths(got) != paths(want) or not s or s != sorted(s)
+                or not np.allclose(s, [x for x, _ in want],
+                                   rtol=TOPK_SCORE_RTOL, atol=0)):
+            bad.append(f"k64/{'exact' if exact else 'terminal'}")
     too_long = _BUCKETS[-1] + 1
     try:
         m.match_topk(Trace(uuid="x", xy=np.zeros((too_long, 2), np.float32),
@@ -4690,6 +5089,9 @@ def topk_phase(card, ts, m, traces, dc, win):
         refused = False
     except ValueError:
         refused = True
+    same_launches = all(
+        per_call[f"t120_{form}"] == per_call[f"t{TOPK_LONG_POINTS}_{form}"]
+        for form in ("terminal", "exact"))
     phase("topk", card, metro="sf", traces=TOPK_TRACES,
           long_points=TOPK_LONG_POINTS,
           ms_per_call={f"{name}_{'exact' if exact else 'terminal'}": ms
@@ -4698,11 +5100,22 @@ def topk_phase(card, ts, m, traces, dc, win):
                  sum(len(r) for r in res)
                  for (name, exact), (res, _) in card_out.items()},
           launches={f"{a}@k{kk}": n for (a, kk), n in counts.items() if n},
+          lattice_launches=lattice, per_call_launches=per_call,
+          per_call_kernel_launches=per_call_kernels,
+          launches_equal_across_t=same_launches,
           card_vs_cpu_equal=not bad, mismatches=bad[:8],
           refused_points=too_long, refused=refused)
-    if bad or not refused:
+    forms = {("exact" if exact else "terminal"): v
+             for exact, v in wide_out.items()}
+    phase("topk:k64", card, metro="sf", k=64, search_radius=WIDE_RADIUS,
+          long_points=TOPK_LONG_POINTS,
+          ms_per_call={f: v[1] for f, v in forms.items()},
+          paths={f: len(v[0]) for f, v in forms.items()},
+          peak_bytes={f: v[2] for f, v in forms.items()},
+          per_call_launches={f: v[3] for f, v in forms.items()})
+    if bad or not refused or not same_launches:
         raise SystemExit(f"[topk] checks failed: {bad[:8]}, refused "
-                         f"{refused}")
+                         f"{refused}, launches per call {per_call}")
 
 
 def capacity_phase(card, tiles):
@@ -6153,6 +6566,8 @@ def main() -> int:
         oracle_phase(card, ts, traces, recs, cpu_recs, "sf")
 
         # ---- the grid candidate backend and ranked paths (sf) -----------
+        lattice = lattice_kernel_phase(card, ts, m, traces)
+        grid_k = grid_kernel_phase(card, ts, pts)
         grid_phase(card, ts, pts, m, traces, recs, dc, win)
         topk_phase(card, ts, m, traces, dc, win)
 
@@ -6298,6 +6713,30 @@ def main() -> int:
         if entry["launches"] < 1:
             raise SystemExit(f"the Viterbi kernel at K={k} was never "
                              "launched on the main path")
+        kernels.append(entry)
+    # the ranked-path lattice's three kernels and the grid kernel, their
+    # launches in every main-path window
+    singles = [(LATTICE_KERNELS[key][0], LATTICE_SOURCE,
+                LATTICE_KERNELS[key][1], lattice[key],
+                {path: c.get(key, 0)
+                 for path, c in win.lattice_by_path.items()})
+               for key in LATTICE_KERNELS]
+    singles.append(("grid_candidates", GRID_SOURCE, GRID_REPLACES, grid_k,
+                    {path: sum(c.values())
+                     for path, c in win.grid_by_path.items()}))
+    for name, source, replaces, a, by_path in singles:
+        paths = {path: n for path, n in by_path.items() if n}
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            **{key: a[key] for key in (
+                "mismatches", "max_abs_err", "ms", "ms_back_to_back",
+                "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            **{key: v for key, v in a.items() if key.startswith("k6")}}
+        if entry["launches"] < 1:
+            raise SystemExit(f"{name} was never launched on the main path")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "sources": list(SOURCES),
                       "host_library": {

@@ -82,7 +82,7 @@ _LOWER_SUFFIXES = (
     "dispatch_timeout", "dispatch_fallback", "banned_turns",
     "traces_differing_from_dense", "over_dense", "over_sweep",
     "mib_max", "x_single_in_turns", "slice_1024_x", "ms_per_call",
-    "launches_per_batch", "mismatches_off_threshold",
+    "launches_per_batch", "mismatches_off_threshold", "peak_bytes",
     # quality and loss counters (the JAX module's, and the audit's and
     # the reach audit's): worse when up, 0 the healthy baseline
     "_miss_rate", "_missed", "disagreement_rate", "breakage_rate",
@@ -156,6 +156,8 @@ NEUTRAL_KEYS = {
     # kernel work descriptors (bound_ms and ms carry the claims)
     "exact_pairs", "coarse_pairs", "bytes", "coarse_rate_flops",
     "lattice_pairs", "operations", "bound_by", "linear_scan_operations",
+    # the ranked-path lattice's and the grid kernel's work descriptors
+    "r", "active_steps", "chain_starts", "cells_read",
     # the Viterbi kernel's launch plan (ops/hmm.viterbi_plan)
     "traces_per_cta", "threads_per_trace", "chunk", "levels",
     "vote_share", "gate_share", "plain_gate_share", "mean_hit_blocks",

@@ -16,10 +16,14 @@ library, and this module pins, per instance (arm, K or ``wide``):
   (``build.ptxas_log``): each kernel's registers and static shared
   memory, and 0 spill bytes (``SPILL_WAIVERS``: the dated exceptions);
 
-and the batched Viterbi decode's library (``kernels/viterbi.cu``, K a
-run-time argument up to ``ops/hmm.VITERBI_MAX_K``): its kernel's ptxas
-figures under ``ptxas.viterbi``, 0 spill bytes unless waived (keyed by
-(kernel, "viterbi")), and its K ceiling in the host half;
+and the libraries of one source each (``SINGLE_LIBRARIES``): the batched
+Viterbi decode's (``kernels/viterbi.cu``, K a run-time argument up to
+``ops/hmm.VITERBI_MAX_K``), the ranked-path lattice's
+(``kernels/lattice.cu``: its keep-mask, forward and backtrack kernels, K
+up to ``ops/hmm.LATTICE_MAX_K``) and the grid candidates'
+(``kernels/grid.cu``): each kernel's ptxas figures under ``ptxas.<the
+library>``, 0 spill bytes unless waived (keyed by (kernel, the
+library)), and the source and K ceiling in the host half;
 
 beside the host constants the instances depend on (the K set, the arms,
 the nvcc flags, the staged layout version and keys) and the HBM half:
@@ -46,7 +50,7 @@ from typing import Any
 
 __all__ = ["compute_manifest", "GOLDEN", "check", "diff", "hbm_findings",
            "update_golden", "ptxas_figures", "kernel_name", "CARD_SECTIONS",
-           "H100_HBM_BYTES"]
+           "H100_HBM_BYTES", "SINGLE_LIBRARIES"]
 
 # the size envelope the HBM bound holds: the JAX package's (generous
 # multiples of the largest benched metro)
@@ -63,6 +67,15 @@ WIDE_PIN_K = 32
 # the Viterbi library's key in the ptxas section and in SPILL_WAIVERS
 VITERBI_LIBRARY = "viterbi"
 VITERBI_KERNEL = "viterbi_decode_kernel"
+LATTICE_LIBRARY = "lattice"
+GRID_LIBRARY = "grid"
+# the libraries of one source each: key → the kernels each must hold
+SINGLE_LIBRARIES = {
+    VITERBI_LIBRARY: (VITERBI_KERNEL,),
+    LATTICE_LIBRARY: ("lattice_keep_kernel", "lattice_forward_kernel",
+                      "lattice_backtrack_kernel"),
+    GRID_LIBRARY: ("grid_candidates_kernel",),
+}
 # sections only a card can compute (nvcc's report, the launch shape query)
 CARD_SECTIONS = ("launch", "ptxas")
 
@@ -160,7 +173,7 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
     from reporter_tpu_torch.device import resolve_device
     from reporter_tpu_torch.kernels import build
     from reporter_tpu_torch.ops.dense_candidates import SWEEP_ARMS
-    from reporter_tpu_torch.ops.hmm import VITERBI_MAX_K
+    from reporter_tpu_torch.ops.hmm import LATTICE_MAX_K, VITERBI_MAX_K
     from reporter_tpu_torch.tiles import capacity, tileset
 
     out: "dict[str, Any]" = {
@@ -172,6 +185,9 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
         "nvcc_flags": list(build._NVCC_FLAGS),
         "viterbi": {"source": build.VITERBI_SOURCE.name,
                     "max_k": VITERBI_MAX_K},
+        "lattice": {"source": build.LATTICE_SOURCE.name,
+                    "max_k": LATTICE_MAX_K},
+        "grid": {"source": build.GRID_SOURCE.name},
         "staged_tables": {
             "layout_version": tileset.STAGED_LAYOUT_VERSION,
             "dense_layout_keys": list(tileset._DENSE_LAYOUT_KEYS),
@@ -185,7 +201,10 @@ def compute_manifest(device="cuda") -> "dict[str, Any]":
     build.build_all()
     out["ptxas"] = _ptxas_section({
         **{k: build.ptxas_log(k) for k in build.LIBRARIES},
-        VITERBI_LIBRARY: build.viterbi_ptxas_log()})
+        **{lib: build.single_ptxas_log(src) for lib, src in (
+            (VITERBI_LIBRARY, build.VITERBI_SOURCE),
+            (LATTICE_LIBRARY, build.LATTICE_SOURCE),
+            (GRID_LIBRARY, build.GRID_SOURCE))}})
     launch = {}
     for k in build.LIBRARIES:
         for code, arm in enumerate(SWEEP_ARMS):
@@ -205,6 +224,7 @@ GOLDEN: "dict[str, Any]" = \
               'line_segments': 2000000,
               'nodes': 500000,
               'reach_max': 128},
+ 'grid': {'source': 'grid.cu'},
  'instances': ['block@k4',
                'sub@k4',
                'sub_bf16@k4',
@@ -235,6 +255,7 @@ GOLDEN: "dict[str, Any]" = \
                'sub_bf16@kwide',
                'mxu@kwide',
                'mxu_bf16@kwide'],
+ 'lattice': {'max_k': 64, 'source': 'lattice.cu'},
  'launch': {'block@k12': {'ctas_per_sm': 2,
                           'depth': 4,
                           'gate_group': 0,
@@ -398,7 +419,11 @@ GOLDEN: "dict[str, Any]" = \
                 '-prec-sqrt=true',
                 '-Xptxas',
                 '-v'],
- 'ptxas': {'k12': {'chunk_order_kernel': {'registers': 16,
+ 'ptxas': {'grid': {'grid_candidates_kernel': {'registers': 36,
+                                               'spill_loads': 0,
+                                               'spill_stores': 0,
+                                               'static_smem': 0}},
+           'k12': {'chunk_order_kernel': {'registers': 16,
                                           'spill_loads': 0,
                                           'spill_stores': 0,
                                           'static_smem': 1024},
@@ -562,6 +587,18 @@ GOLDEN: "dict[str, Any]" = \
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
                                                  'static_smem': 0}},
+           'lattice': {'lattice_backtrack_kernel': {'registers': 36,
+                                                    'spill_loads': 0,
+                                                    'spill_stores': 0,
+                                                    'static_smem': 0},
+                       'lattice_forward_kernel': {'registers': 40,
+                                                  'spill_loads': 0,
+                                                  'spill_stores': 0,
+                                                  'static_smem': 0},
+                       'lattice_keep_kernel': {'registers': 32,
+                                               'spill_loads': 0,
+                                               'spill_stores': 0,
+                                               'static_smem': 0}},
            'viterbi': {'viterbi_decode_kernel': {'registers': 109,
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
@@ -605,9 +642,9 @@ def diff(golden: "dict | Any", computed: "dict | Any",
 def golden_findings(golden: "dict | None" = None) -> "list[str]":
     """The golden block's self-consistency: every instance has a launch
     shape, every K library and the wide one its ptxas figures with the
-    sweep kernel at each arm, the Viterbi library its kernel's, and no
-    kernel spills outside SPILL_WAIVERS (keyed by K, build.WIDE or
-    VITERBI_LIBRARY)."""
+    sweep kernel at each arm, each of SINGLE_LIBRARIES its kernels', and
+    no kernel spills outside SPILL_WAIVERS (keyed by K, build.WIDE or the
+    library's key)."""
     from reporter_tpu_torch.kernels.build import WIDE, library_tag
 
     g = GOLDEN if golden is None else golden
@@ -632,11 +669,12 @@ def golden_findings(golden: "dict | None" = None) -> "list[str]":
                 out.append(f"golden: K={library_tag(k)} has no "
                            f"sweep_exact_kernel of arm {code}")
         out.extend(_spill_findings(per, k, f"K={library_tag(k)}"))
-    per = g["ptxas"].get(VITERBI_LIBRARY)
-    if not per or VITERBI_KERNEL not in per:
-        out.append(f"golden: no ptxas figures for {VITERBI_KERNEL}")
-    else:
-        out.extend(_spill_findings(per, VITERBI_LIBRARY, VITERBI_LIBRARY))
+    for lib, kernels in SINGLE_LIBRARIES.items():
+        per = g["ptxas"].get(lib) or {}
+        for kernel in kernels:
+            if kernel not in per:
+                out.append(f"golden: no ptxas figures for {kernel}")
+        out.extend(_spill_findings(per, lib, lib))
     return out
 
 

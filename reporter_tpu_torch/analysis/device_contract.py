@@ -13,7 +13,12 @@ aten op, and on a card also under ``torch.cuda.set_sync_debug_mode(
 edge count is past ``_COMPACT_WIRE_EDGES``) x path (one device; the
 mesh's ``DpWireMatcher.run`` over two shards), plus the streaming
 histogram's and backfill's scatters (``streaming/histogram._accumulate``,
-``ops/aggregate._scatter_add``, single and per mesh partial). Inputs are
+``ops/aggregate._scatter_add``, single and per mesh partial), the
+ranked-path lattice behind ``match_topk`` (``ops/hmm.viterbi_topk_paths``
+and ``viterbi_kbest_paths`` on staged candidates: on a card the
+kernels of ``kernels/lattice.cu``) and a grid matcher's batch (the f32
+wire entry with ``candidate_backend="grid"``: on a card
+``kernels/grid.cu``). Inputs are
 staged on the device before each case's window: the window holds the
 device program, as the JAX audit traces the jitted body and not its
 ``device_put``. The staging cases then hold the host-to-card copies
@@ -463,6 +468,46 @@ def _staging_cases(device, ts, host) -> "list[tuple[str, object, tuple]]":
     ]
 
 
+def _ranked_grid_cases(device, ts, host) -> "list[tuple[str, object, tuple]]":
+    """(label, program, anchor) of the ranked-path lattice behind
+    ``match_topk`` (its device half on staged candidates: the terminal
+    completions and the exact list Viterbi, each the keep mask, the
+    forward pass and the backtrack) and of a grid matcher's batch (the
+    f32 wire entry with ``candidate_backend="grid"`` on staged points)."""
+    import dataclasses
+
+    import torch
+
+    from reporter_tpu_torch.ops import hmm, match
+    from reporter_tpu_torch.tiles.tileset import tables_from_numpy
+
+    pts, lens = host["f32"]
+    dense = tables_from_numpy(ts.arrays(), device)
+    p = _arm_params("sub")
+    pj = torch.from_numpy(pts[:1]).to(device)
+    vj = torch.ones(pj.shape[:2], dtype=torch.bool, device=device)
+    c = match.batch_candidates(pj, vj, dense, p, ts.meta)
+    cands = match.CandidateSet(*(x[0] for x in c))
+    args = (cands, pj[0], vj[0], dense, p.sigma_z, p.beta,
+            p.max_route_distance_factor, p.breakage_distance,
+            p.backward_slack, p.interpolation_distance)
+
+    def lattice():
+        return (hmm.viterbi_topk_paths(*args),
+                hmm.viterbi_kbest_paths(*args, num_paths=p.max_candidates))
+
+    grid = tables_from_numpy(ts.arrays(), device, candidate_backend="grid")
+    gp = dataclasses.replace(p, candidate_backend="grid")
+    gpts = torch.from_numpy(pts).to(device)
+    glens = torch.from_numpy(lens).to(device)
+    return [
+        ("topk/lattice", lattice, ("reporter_tpu_torch/ops/hmm.py", 1)),
+        ("grid/wire", lambda: match.wire_from_f32(
+            gpts, glens, grid, gp, None, None, ts.meta),
+         _entry_site("f32")),
+    ]
+
+
 def _merge_across_cases(findings: "list[Finding]") -> "list[Finding]":
     """One finding per (rule, path, line): shared code is hit by most
     cells; the first case's message survives with a count of the rest."""
@@ -539,7 +584,8 @@ def run_device_contract(device="cuda", cases=None,
         if out is not None:
             findings.extend(check_wire(out, case.layout, case.label, site))
     staging = _staging_cases(device, ts, host)
-    for label, fn, anchor in (*_scatter_cases(device), *staging):
+    for label, fn, anchor in (*_scatter_cases(device), *staging,
+                              *_ranked_grid_cases(device, ts, host)):
         _, found, ops = audit(fn, label, device, anchor)
         n_cases += 1
         n_ops += ops

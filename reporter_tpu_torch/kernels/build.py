@@ -19,8 +19,14 @@ so an edited source rebuilds; its ``ptxas -v`` report is kept beside it
 (``ptxas_log``). ``viterbi.cu`` holds the batched Viterbi decode
 (``ops/hmm.py::viterbi_decode_batched`` on a card): one library, K a
 run-time argument, built beside the sweep's (``build_all`` starts its
-``nvcc`` with theirs). A missing ``nvcc``, a failed build or a failed
-launch raises; nothing falls back to the plain version or to another K.
+``nvcc`` with theirs). ``lattice.cu`` holds the ranked-path lattice's
+three kernels (``ops/hmm.py``'s keep mask, list-Viterbi forward pass and
+R-path backtrack on a card) and ``grid.cu`` the grid candidate backend's
+kernel (``ops/candidates.py::find_candidates`` on a card): one library
+each, built beside the others. Each ``launch_*`` checks its tensors'
+dtypes, shapes and device before it builds or launches. A missing
+``nvcc``, a failed build or a failed launch raises; nothing falls back to
+the plain version or to another K.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ _HERE = Path(__file__).resolve().parent
 _BUILD_DIR = _HERE.parent / "_build"
 EXACT_SOURCE = _HERE / "sweep_exact.cu"
 VITERBI_SOURCE = _HERE / "viterbi.cu"
+LATTICE_SOURCE = _HERE / "lattice.cu"
+GRID_SOURCE = _HERE / "grid.cu"
 
 # exact f32 geometry: no FMA contraction, IEEE division and square root
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -136,19 +144,23 @@ def ptxas_log(k: int) -> str:
     return _ptxas_path(build(EXACT_SOURCE, k)).read_text()
 
 
-def viterbi_ptxas_log() -> str:
-    """The ``ptxas -v`` report of the Viterbi library (built now if it is
-    not yet)."""
-    return _ptxas_path(build(VITERBI_SOURCE, None)).read_text()
+def single_ptxas_log(source: Path) -> str:
+    """The ``ptxas -v`` report of the library of ``source``, one of
+    SINGLE_SOURCES (built now if it is not yet)."""
+    return _ptxas_path(build(source, None)).read_text()
 
 
 LIBRARIES = (*SWEEP_KS, WIDE)   # the sweep's libraries build_all builds
+# the libraries of one source each (no -DRTT_SWEEP_K), beside the sweep's
+SINGLE_SOURCES = (VITERBI_SOURCE, LATTICE_SOURCE, GRID_SOURCE)
 
 
 def build_all() -> None:
-    """Build every library now (each K of SWEEP_KS, the wide one and the
-    Viterbi's), one ``nvcc`` each, all started together."""
-    jobs = [(EXACT_SOURCE, k) for k in LIBRARIES] + [(VITERBI_SOURCE, None)]
+    """Build every library now (each K of SWEEP_KS, the wide one, the
+    Viterbi's, the lattice's and the grid's), one ``nvcc`` each, all
+    started together."""
+    jobs = [(EXACT_SOURCE, k) for k in LIBRARIES] + \
+        [(src, None) for src in SINGLE_SOURCES]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         list(pool.map(lambda job: build(*job), jobs))
 
@@ -242,19 +254,44 @@ def exact_shape(arm: int, k: int, device="cuda") -> dict:
                     (v.value for v in vals)))
 
 
-_viterbi: "list[ctypes.CDLL]" = []
+_single: "dict[str, ctypes.CDLL]" = {}
+
+
+def _single_lib(source: Path, signatures: dict) -> ctypes.CDLL:
+    """The library of ``source`` (built at first use), its functions'
+    ctypes signatures set from ``signatures`` (name → argtypes; each
+    returns an int)."""
+    with _lock:
+        if source.name not in _single:
+            lib = ctypes.CDLL(str(build(source, None)))
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _single[source.name] = lib
+        return _single[source.name]
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VITERBI_SIGNATURES = {
+    "rtt_viterbi_decode": [_P] * 10 + [_I] * 10 + [_F] * 5 + [_I, _F]
+                          + [_P] * 6 + [_P],
+}
+_LATTICE_SIGNATURES = {
+    "rtt_lattice_keep": [_P, _P, _I, _I, _F, _P, _P],
+    "rtt_lattice_forward_smem": [_I, _I],
+    "rtt_lattice_forward": [_P] * 4 + [_I] * 5 + [_P] * 4 + [_P],
+    "rtt_lattice_backtrack": [_P] * 5 + [_I] * 4 + [_P, _P],
+}
+_GRID_SIGNATURES = {
+    "rtt_grid_candidates": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P] * 4 + [_P],
+}
 
 
 def _viterbi_lib() -> ctypes.CDLL:
-    with _lock:
-        if not _viterbi:
-            lib = ctypes.CDLL(str(build(VITERBI_SOURCE, None)))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.rtt_viterbi_decode.argtypes = (
-                [p] * 10 + [i] * 10 + [f] * 5 + [i, f] + [p] * 6 + [p])
-            lib.rtt_viterbi_decode.restype = ctypes.c_int
-            _viterbi.append(lib)
-        return _viterbi[0]
+    # VITERBI_SOURCE read at the call: scripts/viterbi_profile.py points it
+    # at an instrumented copy
+    return _single_lib(VITERBI_SOURCE, _VITERBI_SIGNATURES)
 
 
 def launch_viterbi(ce, co, cd, cv, pts, vp, edge_len, reach_row, reach_to,
@@ -301,3 +338,160 @@ def _f32_square(x: float) -> float:
 
     f = struct.unpack("f", struct.pack("f", x))[0]
     return struct.unpack("f", struct.pack("f", f * f))[0]
+
+
+def _expect(what: str, checks) -> None:
+    """Raise ValueError unless each (name, tensor, dtype, shape) has that
+    dtype and shape and is contiguous, then unless all lie on one card."""
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: expected {name} as a contiguous "
+                             f"{dtype} {tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    dev = checks[0][1].device
+    for name, t, _, _ in checks:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: expected {name} on the card of "
+                             f"{checks[0][0]} ({dev}), got {t.device}")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: error {rc}")
+
+
+def launch_lattice_keep(pts, vp, interp: float, keep) -> None:
+    """One launch of lattice.cu's keep-mask kernel (a thread a trace) on
+    the current stream of the tensors' card: pts f32 [B, T, 2], vp bool
+    [B, T] → keep bool [B, T]; ``interp`` the interpolation distance,
+    squared here in f32."""
+    import torch
+
+    if pts.dim() != 3:
+        raise ValueError(f"the keep-mask kernel: expected pts [B, T, 2], "
+                         f"got {tuple(pts.shape)}")
+    B, T = int(pts.shape[0]), int(pts.shape[1])
+    _expect("the keep-mask kernel",
+            [("pts", pts, torch.float32, (B, T, 2)),
+             ("valid_pt", vp, torch.bool, (B, T)),
+             ("keep", keep, torch.bool, (B, T))])
+    if B == 0 or T == 0:
+        return
+    lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
+    with _on_device(pts.device):
+        rc = lib.rtt_lattice_keep(pts.data_ptr(), vp.data_ptr(), B, T,
+                                  _f32_square(float(interp)),
+                                  keep.data_ptr(), _stream(pts))
+    _raise_on(rc, f"lattice keep mask (B={B}, T={T})")
+
+
+def lattice_forward_smem(K: int, R: int, device="cuda") -> int:
+    """The forward kernel's own shared bytes at (K, R) (-1 for a shape it
+    does not take): what ``ops/hmm.lattice_smem_bytes`` is held to."""
+    lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
+    with _on_device(device):
+        return int(lib.rtt_lattice_forward_smem(int(K), int(R)))
+
+
+def launch_lattice_forward(em, active, prev_any, trans, R: int, plan: dict,
+                           scores, backptrs, started, own) -> None:
+    """One launch of lattice.cu's forward kernel (one CTA of the plan's
+    ``threads`` with its ``smem_bytes``; ``ops/hmm.lattice_plan``) on the
+    current stream of the tensors' card: em f32 [T, K], active and
+    prev_any bool [T], trans f32 [T, K, K] → scores f32 [T, K * R],
+    backptrs i32 [T, K * R], started bool [T], own i32 [T]. The kernel
+    refuses shared bytes that are not its layout's (the wrapper raises)."""
+    import torch
+
+    if em.dim() != 2:
+        raise ValueError(f"the lattice forward kernel: expected em [T, K], "
+                         f"got {tuple(em.shape)}")
+    T, K = (int(x) for x in em.shape)
+    R = int(R)
+    _expect("the lattice forward kernel",
+            [("em", em, torch.float32, (T, K)),
+             ("active", active, torch.bool, (T,)),
+             ("prev_any", prev_any, torch.bool, (T,)),
+             ("trans", trans, torch.float32, (T, K, K)),
+             ("scores", scores, torch.float32, (T, K * R)),
+             ("backptrs", backptrs, torch.int32, (T, K * R)),
+             ("started", started, torch.bool, (T,)),
+             ("own", own, torch.int32, (T,))])
+    lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
+    with _on_device(em.device):
+        rc = lib.rtt_lattice_forward(
+            em.data_ptr(), active.data_ptr(), prev_any.data_ptr(),
+            trans.data_ptr(), T, K, R, int(plan["threads"]),
+            int(plan["smem_bytes"]), scores.data_ptr(), backptrs.data_ptr(),
+            started.data_ptr(), own.data_ptr(), _stream(em))
+    _raise_on(rc, f"lattice forward (T={T}, K={K}, R={R})")
+
+
+def launch_lattice_backtrack(backptrs, started, active, own, seed, threads,
+                             out) -> None:
+    """One launch of lattice.cu's backtrack kernel (a path a thread, CTAs
+    of ``threads``) on the current stream of the tensors' card: backptrs
+    i32 [T, S], started and active bool [T], own i32 [T], seed i32 [P]
+    (each path's state at the last level, in [-1, S)) → out i32 [P, T]."""
+    import torch
+
+    if backptrs.dim() != 2 or seed.dim() != 1:
+        raise ValueError(f"the lattice backtrack kernel: expected backptrs "
+                         f"[T, S] and seed [P], got {tuple(backptrs.shape)} "
+                         f"and {tuple(seed.shape)}")
+    T, S = (int(x) for x in backptrs.shape)
+    P = int(seed.shape[0])
+    _expect("the lattice backtrack kernel",
+            [("backptrs", backptrs, torch.int32, (T, S)),
+             ("started", started, torch.bool, (T,)),
+             ("active", active, torch.bool, (T,)),
+             ("own", own, torch.int32, (T,)),
+             ("seed", seed, torch.int32, (P,)),
+             ("out", out, torch.int32, (P, T))])
+    if P == 0 or T == 0:
+        return
+    lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
+    with _on_device(backptrs.device):
+        rc = lib.rtt_lattice_backtrack(
+            backptrs.data_ptr(), started.data_ptr(), active.data_ptr(),
+            own.data_ptr(), seed.data_ptr(), T, S, P, int(threads),
+            out.data_ptr(), _stream(backptrs))
+    _raise_on(rc, f"lattice backtrack (T={T}, S={S}, P={P})")
+
+
+def launch_grid(pts, pack, ox: float, oy: float, cell: float, gw: int,
+                gh: int, radius: float, edge, offset, dist, valid) -> None:
+    """One launch of grid.cu's kernel (a warp a point) on the current
+    stream of the tensors' card: pts f32 [N, 2] and the grid's cell_pack
+    f32 [gw * gh, 8 * C] → edge i32, offset f32, dist f32, valid bool,
+    each [N, K]. The float arguments are Python floats, rounded once to
+    f32 as the plain version's 0-d tensors are."""
+    import torch
+
+    if pack.dim() != 2 or pack.shape[1] % 8 or edge.dim() != 2:
+        raise ValueError(f"the grid kernel: expected cell_pack [cells, 8 * "
+                         f"C] and edge [N, K], got {tuple(pack.shape)} and "
+                         f"{tuple(edge.shape)}")
+    N, K = (int(x) for x in edge.shape)
+    C = int(pack.shape[1]) // 8
+    if K < 1 or C < 1:
+        raise ValueError(f"the grid kernel takes K >= 1 and C >= 1, got "
+                         f"K={K}, C={C}")
+    _expect("the grid kernel",
+            [("pts", pts, torch.float32, (N, 2)),
+             ("cell_pack", pack, torch.float32, (int(gw) * int(gh), 8 * C)),
+             ("edge", edge, torch.int32, (N, K)),
+             ("offset", offset, torch.float32, (N, K)),
+             ("dist", dist, torch.float32, (N, K)),
+             ("valid", valid, torch.bool, (N, K))])
+    if N == 0:
+        return
+    lib = _single_lib(GRID_SOURCE, _GRID_SIGNATURES)
+    with _on_device(pts.device):
+        rc = lib.rtt_grid_candidates(
+            pts.data_ptr(), pack.data_ptr(), N, C, K, int(gw), int(gh),
+            float(ox), float(oy), float(cell), float(radius),
+            edge.data_ptr(), offset.data_ptr(), dist.data_ptr(),
+            valid.data_ptr(), _stream(pts))
+    _raise_on(rc, f"grid candidates (N={N}, C={C}, K={K})")

@@ -10,9 +10,12 @@ segments at once and keeps the K nearest distinct edges by K argmin
 steps, masking every segment of a picked edge after each.
 
 The JAX package vmaps one point's function over points and traces; here
-every function takes a leading batch of points ([..., 2] → [..., K]) in
-plain PyTorch, on either device. The JAX grid path is jnp, not Pallas:
-it is no TPU kernel, so it has no hand kernel here either.
+every function takes a leading batch of points ([..., 2] → [..., K]).
+The JAX grid path is jnp, not Pallas, but its K selection steps are a
+lax.scan: on a card ``find_candidates`` is one launch of the
+hand-written kernel ``kernels/grid.cu`` (bit-equal to the plain
+version), on the CPU the plain version, ``_find_candidates_plain``,
+whose scan is a Python loop of K steps.
 
 Order: the steps rank slots by the squared distance, as the dense sweep
 does, and a cell row lists its segments in segment order, which is edge
@@ -31,6 +34,7 @@ by a reciprocal), and the square root is correctly rounded
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -39,6 +43,13 @@ from reporter_tpu_torch.ops.dense_candidates import BIG, CandidateSet, sqrt_f32
 from reporter_tpu_torch.tiles.tileset import (PACK_AX, PACK_AY, PACK_BX,
                                               PACK_BY, PACK_EDGE, PACK_LEN,
                                               PACK_NCOMP, PACK_OFF, TileMeta)
+
+# Launches of the grid kernel, keyed by the top-K width K (a key appears
+# at its first launch: readers take a missing key as 0). find_candidates
+# adds one per launch on a card, under _LAUNCH_LOCK, and nothing else
+# does; chip_smoke.py resets and reads them around each main-path run.
+GRID_LAUNCHES: "dict[int, int]" = {}
+_LAUNCH_LOCK = threading.Lock()
 
 
 class GridMeta(NamedTuple):
@@ -134,7 +145,25 @@ def find_candidates(pts: torch.Tensor, tables, meta: "TileMeta | GridMeta",
                     ) -> CandidateSet:
     """Candidates of a batch of points: pts f32 [..., 2] → CandidateSet
     with [..., K] fields. ``tables`` holds ``cell_pack``
-    (tables_from_numpy(..., candidate_backend="grid"))."""
+    (tables_from_numpy(..., candidate_backend="grid")). On a card one
+    launch of kernels/grid.cu (a failed build or launch raises); on the
+    CPU the plain version; any other device raises."""
+    dev = pts.device
+    if dev.type == "cuda":
+        return _find_candidates_cuda(pts, tables, meta, search_radius,
+                                     max_candidates)
+    if dev.type == "cpu":
+        return _find_candidates_plain(pts, tables, meta, search_radius,
+                                      max_candidates)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _find_candidates_plain(pts: torch.Tensor, tables,
+                           meta: "TileMeta | GridMeta", search_radius: float,
+                           max_candidates: int) -> CandidateSet:
+    """The plain version (the CPU's, and what the kernel is held to on a
+    card): the cell row's gather, the distances to all C slots at once,
+    then ``_topk_distinct_edges``' K steps."""
     ax, ay, bx, by, off0, slen, seg_edge = gather_cell_pack(
         pts, tables["cell_pack"], meta)                        # [..., C]
     d2, t = _point_segment_dist(pts[..., 0:1], pts[..., 1:2],
@@ -150,6 +179,35 @@ def find_candidates(pts: torch.Tensor, tables, meta: "TileMeta | GridMeta",
         offset=torch.where(ok, off, _f32(0.0, off)),
         dist=torch.where(ok, torch.gather(d, -1, idx), big),
         valid=ok)
+
+
+def _find_candidates_cuda(pts: torch.Tensor, tables,
+                          meta: "TileMeta | GridMeta", search_radius: float,
+                          max_candidates: int) -> CandidateSet:
+    """The grid candidates as one launch of kernels/grid.cu on the current
+    stream of the points' card (a warp a point): allocates the four
+    outputs, launches (``build.launch_grid`` checks the tensors) and
+    counts the launch. Nothing here waits for the card."""
+    from reporter_tpu_torch.kernels import build
+
+    gm = as_grid_meta(meta)
+    k = int(max_candidates)
+    lead = tuple(pts.shape[:-1])
+    flat = pts.reshape(-1, pts.shape[-1])
+    n = int(flat.shape[0])
+    dev = pts.device
+    edge = torch.empty((n, k), dtype=torch.int32, device=dev)
+    offset = torch.empty((n, k), dtype=torch.float32, device=dev)
+    dist = torch.empty((n, k), dtype=torch.float32, device=dev)
+    valid = torch.empty((n, k), dtype=torch.bool, device=dev)
+    build.launch_grid(flat, tables["cell_pack"], gm.ox, gm.oy, gm.cell_size,
+                      gm.gw, gm.gh, float(search_radius), edge, offset,
+                      dist, valid)
+    if n:
+        with _LAUNCH_LOCK:
+            GRID_LAUNCHES[k] = GRID_LAUNCHES.get(k, 0) + 1
+    return CandidateSet(*(x.reshape(*lead, k)
+                          for x in (edge, offset, dist, valid)))
 
 
 def find_candidates_trace(points: torch.Tensor, tables,

@@ -535,11 +535,16 @@ def root_dist(d2: torch.Tensor) -> torch.Tensor:
 def _fill_invalid(points: torch.Tensor, valid: torch.Tensor, nchunks: int):
     """Pad to whole 256-point chunks and replace every invalid point with
     its chunk's masked mean, so padding culls like its chunk (a zero would
-    drag the chunk's bbox to the origin). → (pts [npad,2], valid [npad])."""
+    drag the chunk's bbox to the origin). → (pts [npad,2], valid [npad]).
+    The padded copies are zeros filled, then the input copied in, whether
+    or not any padding is needed, so the card runs the same kernels at
+    every point count (torch's pad clones when it adds nothing)."""
     n = points.shape[0]
     npad = nchunks * _P
-    pts = torch.nn.functional.pad(points, (0, 0, 0, npad - n))
-    val = torch.nn.functional.pad(valid, (0, npad - n))
+    pts = points.new_zeros((npad, 2))
+    pts[:n] = points
+    val = valid.new_zeros((npad,))
+    val[:n] = valid
     chunks = pts.reshape(nchunks, _P, 2)
     vc = val.reshape(nchunks, _P, 1)
     cnt = torch.clamp_min(vc.sum(dim=1, dtype=torch.int32), 1)

@@ -18,7 +18,14 @@ decode is one launch of the hand-written kernel ``kernels/viterbi.cu``
 the plain version); on the CPU it is the plain version,
 ``_viterbi_plain``, whose ``lax.scan`` loops become Python loops over T
 of [K, K, B] tensor steps, kept batch-last as the reference lays them
-out so the two read alike. The ranked-path lattice stays plain torch.
+out so the two read alike. The single-trace ranked-path lattice
+(``viterbi_topk_paths``, ``viterbi_kbest_paths``) runs its three scans
+as the kernels of ``kernels/lattice.cu`` on a card (the keep mask, the
+list-Viterbi forward pass and the R-path backtrack, one launch each,
+bit-equal to their plain versions ``_keep_mask_batched``,
+``_forward_list_plain`` and ``_backtrack_plain``, which the CPU runs);
+what feeds them (the emissions, the transition blocks of every step at
+once) is a fixed number of tensor operations on either device.
 Divisions are by 0-d tensors: a true division, never a multiplication by
 a reciprocal. Orders are the reference's: an argmin takes the first
 minimal index, and where the JAX package sorts (``jnp.argsort``, stable)
@@ -54,6 +61,17 @@ _VITERBI_WARPS = 4            # kMaxWarps: the reductions' words a trace
 # main-path run, beside ops.dense_candidates.SWEEP_LAUNCHES.
 VITERBI_LAUNCHES: "dict[int, int]" = {}
 _LAUNCH_LOCK = threading.Lock()
+
+# The widest candidate list the ranked-path lattice's forward kernel takes
+# (kMaxK in kernels/lattice.cu); its path count R runs from 1 to K (the
+# exact form runs R = max_candidates = K).
+LATTICE_MAX_K = 64
+LATTICE_BACKTRACK_THREADS = 128   # the backtrack's CTA: a path a thread
+# Launches of the ranked-path lattice's kernels, keyed by kernel ("keep",
+# "forward", "backtrack"; a key appears at its first launch). Each wrapper
+# adds one per launch, under _LAUNCH_LOCK, and nothing else does;
+# chip_smoke.py resets and reads them around each main-path run.
+LATTICE_LAUNCHES: "dict[str, int]" = {}
 
 
 class ViterbiResult(NamedTuple):
@@ -426,9 +444,42 @@ def emission_costs(cands: CandidateSet, sigma_z: float):
 def interpolation_keep_mask(points, valid_pt, interp_distance: float):
     """bool [T]: False for points within ``interp_distance`` of the last
     kept point (they ride the matched path instead of voting): the
-    batched mask of one trace."""
-    return _keep_mask_batched(points[:, :, None], valid_pt[:, None],
-                              interp_distance)[:, 0]
+    batched mask of one trace. On a card one launch of the keep-mask
+    kernel (kernels/lattice.cu); on the CPU the plain version; any other
+    device raises. ``interp_distance <= 0`` keeps every valid point
+    (``valid_pt`` itself, no launch)."""
+    dev = points.device
+    if dev.type == "cuda":
+        return _keep_mask_cuda(points[None], valid_pt[None],
+                               interp_distance)[0]
+    if dev.type == "cpu":
+        return _keep_mask_batched(points[:, :, None], valid_pt[:, None],
+                                  interp_distance)[:, 0]
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _count(key: str) -> None:
+    with _LAUNCH_LOCK:
+        LATTICE_LAUNCHES[key] = LATTICE_LAUNCHES.get(key, 0) + 1
+
+
+def _keep_mask_cuda(points, valid_pt, interp_distance: float):
+    """The keep mask of B traces (points f32 [B, T, 2], valid_pt bool
+    [B, T]) as one launch of kernels/lattice.cu's keep-mask kernel on the
+    card (``build.launch_lattice_keep`` checks the tensors): a thread a
+    trace walks its T points in the plain version's operation order. →
+    bool [B, T]."""
+    from reporter_tpu_torch.kernels import build
+
+    if interp_distance <= 0.0:
+        return valid_pt
+    keep = torch.empty(tuple(valid_pt.shape), dtype=torch.bool,
+                       device=points.device)
+    build.launch_lattice_keep(points.contiguous(), valid_pt.contiguous(),
+                              float(interp_distance), keep)
+    if keep.numel():
+        _count("keep")
+    return keep
 
 
 def _lattice_inputs(cands: CandidateSet, points, keep, tables, c: _Consts):
@@ -437,7 +488,9 @@ def _lattice_inputs(cands: CandidateSet, points, keep, tables, c: _Consts):
     point before t [T], the transition blocks [T, K, K] from the last
     active point before t, BIG past the breakage distance). Step t's
     block is the reference scan's, op for op: its previous point is the
-    last active one (point 0 before any)."""
+    last active one (point 0 before any). A fixed number of tensor
+    operations on either device; ``_route`` holds [T, K, K, M]
+    temporaries (M the reach row's width)."""
     T = cands.edge.shape[0]
     active = keep & cands.valid.any(dim=1)
     idx = torch.arange(T, device=points.device)
@@ -454,24 +507,88 @@ def _lattice_inputs(cands: CandidateSet, points, keep, tables, c: _Consts):
     return active, prev_any, trans
 
 
-def _forward_list(cands: CandidateSet, points, keep, tables,
+def _lattice_prep(cands: CandidateSet, points, keep, tables,
                   sigma_z: float, beta: float, max_route_factor: float,
-                  breakage_distance: float, backward_slack: float,
-                  num_paths: int):
-    """Forward list-Viterbi pass of ONE trace: the carry keeps the R =
-    ``num_paths`` best path costs per candidate ([K, R], state s = c * R +
-    r), and each step keeps, per candidate, the R smallest of (previous
-    state) + transition, ties by ascending state (lax.top_k's order; at
-    R = 1 the first argmin, the plain Viterbi). Inactive points pass the
-    score through with identity backpointers. → (scores [T, K * R],
-    backptrs [T, K * R], started [T], active [T])."""
-    T, K = cands.edge.shape
-    R = int(num_paths)
-    dev = cands.edge.device
+                  breakage_distance: float, backward_slack: float):
+    """The forward pass's inputs of ONE trace: → (emissions em [T, K],
+    active [T], prev_any [T], transition blocks trans [T, K, K])."""
     c = _consts(points, beta, max_route_factor, backward_slack,
                 breakage_distance)
-    em = emission_costs(cands, sigma_z)                     # [T, K]
-    active, prev_any, trans = _lattice_inputs(cands, points, keep, tables, c)
+    return (emission_costs(cands, sigma_z),
+            *_lattice_inputs(cands, points, keep, tables, c))
+
+
+def lattice_smem_bytes(K: int, R: int) -> int:
+    """Shared memory of the forward kernel (``Layout`` in
+    kernels/lattice.cu, each array rounded up to 16 bytes): the carried
+    scores [K, R] and the staged step (transition block [K, K], emissions
+    [K]) twice over, the merge's heads (values f32 and ranks u8 [K, K]),
+    its picks (values f32 and states i32 [R, K | 1]) and the two flag
+    words. Nothing grows with T. The launch checks this figure against
+    the kernel's own layout."""
+    def a16(n):
+        return -(-n // 16) * 16
+
+    pitch = K | 1
+    return (2 * a16(4 * K * R) + 2 * a16(4 * K * K) + 2 * a16(4 * K)
+            + a16(4 * K * K) + a16(K * K) + 2 * a16(4 * R * pitch) + a16(8))
+
+
+def lattice_plan(T: int, K: int, R: int) -> dict:
+    """The ranked-path lattice's forward launch at T steps, K candidates
+    and R paths a state: one CTA of ``threads`` (64 to 256, with the
+    carried state K * R: a column's merge a thread, the step's writes
+    spread over all) and its dynamic shared memory ``smem_bytes``.
+    Raises for K outside 1..LATTICE_MAX_K, R outside 1..K, or T < 1."""
+    if not 1 <= K <= LATTICE_MAX_K:
+        raise ValueError(f"the lattice kernels take 1 <= K <= "
+                         f"{LATTICE_MAX_K} candidates, got K={K}")
+    if not 1 <= R <= K:
+        raise ValueError(f"the lattice kernels take 1 <= R <= K paths, got "
+                         f"R={R} at K={K}")
+    if T < 1:
+        raise ValueError(f"the lattice kernels take T >= 1 steps, got T={T}")
+    return {"threads": min(256, max(64, 32 * -(-(K * R) // 256))),
+            "smem_bytes": lattice_smem_bytes(K, R)}
+
+
+def _forward_list(em, active, prev_any, trans, num_paths: int):
+    """The list-Viterbi forward pass of ONE trace: on a card one launch
+    of the forward kernel (kernels/lattice.cu), on the CPU the plain
+    version; any other device raises. See ``_forward_list_plain``."""
+    dev = em.device
+    if dev.type == "cuda":
+        return _forward_list_cuda(em, active, prev_any, trans, num_paths)
+    if dev.type == "cpu":
+        return _forward_list_plain(em, active, prev_any, trans, num_paths)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _level_own(scores):
+    """Each level's own first argmin over its states (scores [T, S]),
+    -1 where its minimum is not below BIG: where a backtrack re-seeds at
+    a chain terminal. → i32 [T]."""
+    iota = torch.arange(scores.shape[1], device=scores.device)
+    own = _first_argmin(scores, iota)
+    return torch.where(scores.amin(dim=1) < BIG, own, -1).to(torch.int32)
+
+
+def _forward_list_plain(em, active, prev_any, trans, num_paths: int):
+    """The plain forward list-Viterbi pass of ONE trace (the CPU's, and
+    what the kernel is held to on a card): em [T, K], active [T],
+    prev_any [T] and the transition blocks [T, K, K] of
+    ``_lattice_prep``. The carry keeps the R = ``num_paths`` best path
+    costs per candidate ([K, R], state s = c * R + r), and each step
+    keeps, per candidate, the R smallest of (previous state) +
+    transition, ties by ascending state (lax.top_k's order; at R = 1 the
+    first argmin, the plain Viterbi). Inactive points pass the score
+    through with identity backpointers. → (scores f32 [T, K * R],
+    backptrs i32 [T, K * R], started bool [T], own i32 [T]: each
+    level's first argmin state, ``_level_own``)."""
+    T, K = em.shape
+    R = int(num_paths)
+    dev = em.device
+    big = torch.full((), BIG, dtype=torch.float32, device=dev)
     identity_bp = torch.arange(K * R, dtype=torch.int32,
                                device=dev).reshape(K, R)
     restart_tail = torch.full((K, R - 1), BIG, dtype=torch.float32,
@@ -486,48 +603,111 @@ def _forward_list(cands: CandidateSet, points, keep, tables,
         srt = torch.sort(via.T, dim=-1, stable=True)
         best_cost = srt.values[:, :R]
         idxs = srt.indices[:, :R].to(torch.int32)
-        connected = best_cost < c.big
+        connected = best_cost < big
         broken = ~connected.any() | ~prev_any[t]
         restart = torch.cat([em_t[:, None], restart_tail], dim=1)
         new_score = torch.where(broken, restart, torch.where(
-            connected, best_cost + em_t[:, None], c.big))
+            connected, best_cost + em_t[:, None], big))
         backptr = torch.where(broken | ~connected, -1, idxs)
         score = torch.where(act_t, new_score, score)
         scores.append(score.reshape(K * R))
         backptrs.append(torch.where(act_t, backptr,
                                     identity_bp).reshape(K * R))
         started.append(act_t & broken)
-    return (torch.stack(scores), torch.stack(backptrs), torch.stack(started),
-            active)
+    scores = torch.stack(scores)
+    return scores, torch.stack(backptrs), torch.stack(started), \
+        _level_own(scores)
 
 
-def _backtrack(scores, backptrs, started, active, top, init, init_started):
-    """Reverse pass of R paths at once through a lattice of S states per
-    level (scores, backptrs [T, S]): ``top`` [R, S] stands for the
-    backpointer row above the last level, ``init`` [R] for the choice
-    there and ``init_started`` [R] for its chain flag. A level is a chain
+def _forward_list_cuda(em, active, prev_any, trans, num_paths: int):
+    """The forward pass as one launch of kernels/lattice.cu's forward
+    kernel on the current stream of em's card (one CTA, the plan's
+    threads and shared memory): allocates the four outputs, launches
+    (``build.launch_lattice_forward`` checks the tensors) and counts the
+    launch. Nothing here waits for the card. The kernel's K-way merge reads each carried row as ascending,
+    which every row the pass writes is (a best-first list plus one
+    emission, a restart [em, BIG, ...] or the BIG start); it is not
+    checked here."""
+    from reporter_tpu_torch.kernels import build
+    from reporter_tpu_torch.utils import profiling
+
+    if em.dim() != 2:
+        raise ValueError(f"the lattice forward kernel: expected em [T, K], "
+                         f"got {tuple(em.shape)}")
+    T, K = (int(x) for x in em.shape)
+    R = int(num_paths)
+    plan = lattice_plan(T, K, R)
+    dev = em.device
+    em, active, prev_any, trans = (x.contiguous() for x in
+                                   (em, active, prev_any, trans))
+    scores = torch.empty((T, K * R), dtype=torch.float32, device=dev)
+    backptrs = torch.empty((T, K * R), dtype=torch.int32, device=dev)
+    started = torch.empty((T,), dtype=torch.bool, device=dev)
+    own = torch.empty((T,), dtype=torch.int32, device=dev)
+    # a span of a device_trace capture (a no-op outside one)
+    with profiling.annotate("lattice_forward_kernel"):
+        build.launch_lattice_forward(em, active, prev_any, trans, R, plan,
+                                     scores, backptrs, started, own)
+    _count("forward")
+    return scores, backptrs, started, own
+
+
+def _backtrack(backptrs, started, active, own, seed):
+    """The reverse pass of P paths at once: on a card one launch of the
+    backtrack kernel (kernels/lattice.cu), on the CPU the plain version;
+    any other device raises. See ``_backtrack_plain``."""
+    dev = backptrs.device
+    if dev.type == "cuda":
+        return _backtrack_cuda(backptrs, started, active, own, seed)
+    if dev.type == "cpu":
+        return _backtrack_plain(backptrs, started, active, own, seed)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _backtrack_plain(backptrs, started, active, own, seed):
+    """The plain reverse pass of P paths at once through a lattice of S
+    states per level (backptrs [T, S], the level flags started and active
+    [T], each level's own first argmin state [T]); ``seed`` [P] holds the
+    state each path takes at the last level (the row above it points
+    every state there), entered as no chain terminal. A level is a chain
     terminal where the level above started a new chain (or has no
-    choice): it re-seeds from its own score's first argmin; otherwise it
-    follows the backpointer of the choice above, through identity rows at
-    inactive levels. → states [R, T], -1 at inactive levels."""
-    T, S = scores.shape
-    R = top.shape[0]
-    iota = torch.arange(S, device=scores.device)
-    nxt = init.long()
-    nxt_started = init_started
+    choice): it re-seeds from its own argmin; otherwise it follows the
+    backpointer of the choice above, through identity rows at inactive
+    levels. → states i32 [P, T], -1 at inactive levels."""
+    T, S = backptrs.shape
+    P = seed.shape[0]
+    nxt = seed.long()
+    nxt_started = torch.zeros(P, dtype=torch.bool, device=seed.device)
     out = [None] * T
     for t in range(T - 1, -1, -1):
-        bp_next = top if t == T - 1 else backptrs[t + 1].expand(R, -1)
-        prop = torch.where(nxt >= 0, bp_next.gather(
-            1, torch.clamp_min(nxt, 0)[:, None])[:, 0].long(), -1)
-        score_t = scores[t]
-        own = _first_argmin(score_t, iota)
-        own = torch.where(score_t[own] < BIG, own, -1)
+        if t == T - 1:
+            prop = nxt
+        else:
+            prop = backptrs[t + 1][torch.clamp_min(nxt, 0)].long()
+        prop = torch.where(nxt >= 0, prop, -1)
         terminal = nxt_started | (nxt < 0)
-        choice = torch.where(terminal, own, prop)
+        choice = torch.where(terminal, own[t].long(), prop)
         out[t] = torch.where(active[t], choice, -1)
-        nxt, nxt_started = choice, started[t].expand(R)
-    return torch.stack(out, dim=1)
+        nxt, nxt_started = choice, started[t].expand(P)
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
+def _backtrack_cuda(backptrs, started, active, own, seed):
+    """The reverse pass as one launch of kernels/lattice.cu's backtrack
+    kernel (a path a thread, T levels down, CTAs of
+    LATTICE_BACKTRACK_THREADS) on the current stream of the tensors'
+    card: allocates the states, launches (``build.launch_lattice_
+    backtrack`` checks the tensors) and counts the launch."""
+    from reporter_tpu_torch.kernels import build
+
+    states = torch.empty((seed.shape[0], backptrs.shape[0]),
+                         dtype=torch.int32, device=backptrs.device)
+    build.launch_lattice_backtrack(
+        *(x.contiguous() for x in (backptrs, started, active, own, seed)),
+        LATTICE_BACKTRACK_THREADS, states)
+    if states.numel():
+        _count("backtrack")
+    return states
 
 
 def _interp_fill(edge, offset, matched, interp):
@@ -575,23 +755,25 @@ def viterbi_topk_paths(cands: CandidateSet, points, valid_pt, tables,
     each backtracked (earlier chains keep their best path). Rank 0 is the
     global optimum; each alternate is the optimal path ending at its
     terminal. → (choice [K, T] i32 candidate slots (-1 unmatched), score
-    [K] f32, valid [K] bool), best first; tied scores keep slot order."""
-    K = cands.edge.shape[1]
+    [K] f32, valid [K] bool), best first; tied scores keep slot order.
+    On a card the keep mask, the forward pass (R = 1) and the backtrack
+    are one launch each of kernels/lattice.cu; on the CPU their plain
+    versions; any other device raises."""
     keep = interpolation_keep_mask(points, valid_pt, interpolation_distance)
-    scores, backptrs, started, active = _forward_list(
+    em, active, prev_any, trans = _lattice_prep(
         cands, points, keep, tables, sigma_z, beta, max_route_factor,
-        breakage_distance, backward_slack, 1)
+        breakage_distance, backward_slack)
+    scores, backptrs, started, own = _forward_list(em, active, prev_any,
+                                                   trans, 1)
     final = scores[-1]
     order = torch.sort(final, stable=True).indices
     rank_score = final[order]
     rank_valid = rank_score < BIG
     # the row above the last level points every state at the ranked slot
-    top = order[:, None].to(torch.int32).expand(K, K)
-    choices = _backtrack(scores, backptrs, started, active, top, order,
-                         torch.zeros(K, dtype=torch.bool,
-                                     device=final.device))
-    choices = torch.where(rank_valid[:, None], choices, -1)
-    return choices.to(torch.int32), rank_score, rank_valid
+    choices = _backtrack(backptrs, started, active, own,
+                         order.to(torch.int32))
+    return torch.where(rank_valid[:, None], choices, -1), rank_score, \
+        rank_valid
 
 
 def viterbi_kbest_paths(cands: CandidateSet, points, valid_pt, tables,
@@ -601,23 +783,25 @@ def viterbi_kbest_paths(cands: CandidateSet, points, valid_pt, tables,
                         interpolation_distance: float = 0.0,
                         num_paths: int = 4):
     """The EXACT ``num_paths`` best paths of ONE trace's final chain (the
-    list Viterbi of ``_forward_list``). Earlier chains keep their single
-    best path. → (choice [R, T]
-    i32 candidate slots (-1 unmatched), score [R] f32, valid [R] bool),
-    best first."""
+    list Viterbi of ``_forward_list_plain``). Earlier chains keep their
+    single best path. → (choice [R, T] i32 candidate slots (-1
+    unmatched), score [R] f32, valid [R] bool), best first. On a card the
+    keep mask, the forward pass and the backtrack are one launch each of
+    kernels/lattice.cu (R up to K there); on the CPU their plain
+    versions; any other device raises."""
     R = int(num_paths)
-    dev = cands.edge.device
     keep = interpolation_keep_mask(points, valid_pt, interpolation_distance)
-    scores_t, backptrs_t, started, active = _forward_list(
+    em, active, prev_any, trans = _lattice_prep(
         cands, points, keep, tables, sigma_z, beta, max_route_factor,
-        breakage_distance, backward_slack, R)
-    final = scores_t[-1]
+        breakage_distance, backward_slack)
+    scores, backptrs, started, own = _forward_list(em, active, prev_any,
+                                                   trans, R)
+    final = scores[-1]
     order = torch.sort(final, stable=True).indices[:R]      # best R states
     rank_score = final[order]
     rank_valid = rank_score < BIG
-    top = order[:, None].to(torch.int32).expand(R, final.shape[0])
-    states = _backtrack(scores_t, backptrs_t, started, active, top, order,
-                        torch.zeros(R, dtype=torch.bool, device=dev))
+    states = _backtrack(backptrs, started, active, own,
+                        order.to(torch.int32))
     choices = torch.where(states >= 0, states // R, -1)
-    choices = torch.where(rank_valid[:, None], choices, -1)
-    return choices.to(torch.int32), rank_score, rank_valid
+    return torch.where(rank_valid[:, None], choices, -1).to(torch.int32), \
+        rank_score, rank_valid

@@ -25,6 +25,7 @@ _ORDER = "_ZN47_GLOBAL__N__7083e19d_14_sweep_exact_cu_fd8671dd18chunk_order_" \
     "kernelEPKiiPi"
 _VITERBI = "_ZN43_GLOBAL__N__c03b14fe_10_viterbi_cu_feaf2d0321viterbi_decode_" \
     "kernelENS_6ParamsE"
+_NAMED = "_ZN43_GLOBAL__N__946154ed_10_lattice_cu_76bfdfbc{n}{name}EPKiPKhS3_"
 
 
 def _log(figures: dict, k: int) -> str:
@@ -38,8 +39,10 @@ def _log(figures: dict, k: int) -> str:
             mangled = _MANGLED.format(arm=arm, k=kk.replace("-", "n"))
         elif name == cm.VITERBI_KERNEL:
             mangled = _VITERBI
-        else:
+        elif name == "chunk_order_kernel":
             mangled = _ORDER
+        else:                      # a kernel of lattice.cu or grid.cu
+            mangled = _NAMED.format(n=len(name), name=name)
         out += [
             f"ptxas info    : Compiling entry function '{mangled}' for "
             "'sm_90a'",
@@ -60,7 +63,7 @@ def _card_manifest(golden=None):
     man = cm.compute_manifest("cpu")
     man["ptxas"] = cm._ptxas_section(
         {**{k: _log(g["ptxas"][f"k{library_tag(k)}"], k) for k in LIBRARIES},
-         cm.VITERBI_LIBRARY: _log(g["ptxas"][cm.VITERBI_LIBRARY], 0)})
+         **{lib: _log(g["ptxas"][lib], 0) for lib in cm.SINGLE_LIBRARIES}})
     man["launch"] = copy.deepcopy(g["launch"])
     return man
 
@@ -113,6 +116,34 @@ def test_the_viterbi_kernel_is_pinned_without_spills():
     del g["ptxas"][cm.VITERBI_LIBRARY]
     assert any("no ptxas figures for viterbi" in p
                for p in cm.golden_findings(g))
+
+
+@pytest.mark.parametrize("lib", [cm.LATTICE_LIBRARY, cm.GRID_LIBRARY])
+def test_the_lattice_and_grid_kernels_are_pinned_without_spills(lib):
+    """Each kernel of lattice.cu and grid.cu has its figures and no spill;
+    a spill, an extra register and a missing library are caught."""
+    from reporter_tpu_torch.ops.hmm import LATTICE_MAX_K
+
+    assert cm.GOLDEN["lattice"] == {"source": "lattice.cu",
+                                    "max_k": LATTICE_MAX_K}
+    assert cm.GOLDEN["grid"] == {"source": "grid.cu"}
+    kernels = cm.SINGLE_LIBRARIES[lib]
+    for kernel in kernels:
+        fig = cm.GOLDEN["ptxas"][lib][kernel]
+        assert fig["registers"] > 0
+        assert not (fig["spill_stores"] or fig["spill_loads"])
+        assert cm.kernel_name(_NAMED.format(n=len(kernel), name=kernel)) \
+            == kernel
+    g = copy.deepcopy(cm.GOLDEN)
+    g["ptxas"][lib][kernels[0]]["spill_loads"] = 4
+    assert any(kernels[0] in p and "spills" in p
+               for p in cm.golden_findings(g))
+    g["ptxas"][lib][kernels[-1]]["registers"] += 1
+    assert any(kernels[-1] in d
+               for d in cm.diff(cm.GOLDEN, _card_manifest(g)))
+    del g["ptxas"][lib]
+    assert {f"golden: no ptxas figures for {k}" for k in kernels} \
+        <= set(cm.golden_findings(g))
 
 
 def test_kernel_names_parse_from_nvcc_mangling():

@@ -49,8 +49,9 @@ def test_the_matrix_is_whole():
     assert {"f32/block/compact/single", "q8/mxu_bf16/packed/mesh",
             "q16/sub_bf16/full/mesh"} <= labels
     _matrix()
-    # and the three scatters, and the five staging cases
-    assert _STATS["cases"] == len(cases) + 3 + 5
+    # and the three scatters, the five staging cases, the ranked-path
+    # lattice and a grid batch
+    assert _STATS["cases"] == len(cases) + 3 + 5 + 2
     assert _STATS["aten_ops"] > 0
 
 

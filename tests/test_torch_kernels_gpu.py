@@ -1,10 +1,12 @@
 """The CUDA sweep kernel (reporter_tpu_torch/kernels/sweep_exact.cu, its
 five arms at each top-K width of SWEEP_KS and in the wide instances past
-them) and the batched Viterbi decode (kernels/viterbi.cu) against their
-plain PyTorch versions, on the card, the host-to-card staging
-(device.host_to_device), and the native host half of match_many there.
-The Viterbi: tolerance 0 in all five fields (the same f32 arithmetic,
-one rounding per operation, the same first-argmin ties).
+them), the batched Viterbi decode (kernels/viterbi.cu), the ranked-path
+lattice's three kernels (kernels/lattice.cu) and the grid candidates
+(kernels/grid.cu) against their plain PyTorch versions, on the card, the
+host-to-card staging (device.host_to_device), and the native host half
+of match_many there. The Viterbi: tolerance 0 in all five fields (the
+same f32 arithmetic, one rounding per operation, the same first-argmin
+ties); the lattice and the grid: tolerance 0 in every output.
 Candidates, every arm and K: tolerance 0
 (the same f32 arithmetic, one rounding per operation). The bf16 filter's
 gate decisions: tolerance 0 (every bf16 operation is correctly rounded on
@@ -694,10 +696,30 @@ def tiny_pair(cuda):
     return ts, out
 
 
-def test_grid_gather_on_the_card_equals_cpu(tiny_pair, cuda):
-    """The grid candidate backend's gather (plain torch, no kernel) on
-    the card against the CPU port: tolerance 0, and no sweep launch."""
-    from reporter_tpu_torch.ops.candidates import find_candidates
+def _no_plain_loops(monkeypatch):
+    """Make the plain (Python-loop) versions of the lattice and grid
+    kernels raise if called: a card path that ran one fails."""
+    from reporter_tpu_torch.ops import candidates as cand
+    from reporter_tpu_torch.ops import hmm
+
+    def refuse(name):
+        def fn(*a, **kw):
+            raise AssertionError(f"the plain {name} ran on the card path")
+        return fn
+
+    for mod, name in ((hmm, "_keep_mask_batched"),
+                      (hmm, "_forward_list_plain"),
+                      (hmm, "_backtrack_plain"),
+                      (cand, "_find_candidates_plain"),
+                      (cand, "_topk_distinct_edges")):
+        monkeypatch.setattr(mod, name, refuse(name))
+
+
+def test_grid_gather_on_the_card_equals_cpu(tiny_pair, cuda, monkeypatch):
+    """The grid candidate backend on the card (one launch of
+    kernels/grid.cu, no Python loop) against the CPU port: tolerance 0,
+    and no sweep launch."""
+    from reporter_tpu_torch.ops import candidates as cand
 
     ts, pair = tiny_pair
     card, cpu = pair["grid"]
@@ -707,21 +729,29 @@ def test_grid_gather_on_the_card_equals_cpu(tiny_pair, cuda):
         ts.node_xy, rng.uniform(ts.node_xy.min(0) - 80,
                                 ts.node_xy.max(0) + 80, (2000, 2))])
     pts = torch.from_numpy(pts.astype(np.float32))
+    want = cand.find_candidates(pts, cpu.tables, ts.meta, 50.0, 8)
     before = dict(dc.SWEEP_LAUNCHES)
-    got = find_candidates(pts.to(cuda), card.tables, ts.meta, 50.0, 8)
-    want = find_candidates(pts, cpu.tables, ts.meta, 50.0, 8)
-    for g, w in zip(got, want):
-        assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+    grid_before = cand.GRID_LAUNCHES.get(8, 0)
+    with monkeypatch.context() as mp:
+        _no_plain_loops(mp)
+        got = cand.find_candidates(pts.to(cuda), card.tables, ts.meta, 50.0,
+                                   8)
+        for g, w in zip(got, want):
+            assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
     assert dict(dc.SWEEP_LAUNCHES) == before
+    assert cand.GRID_LAUNCHES[8] == grid_before + 1
 
 
 @pytest.mark.parametrize("backend", ["dense", "grid"])
-def test_match_topk_on_the_card_equals_cpu(tiny_pair, backend):
-    """match_topk on the card (the sweep instance or the grid gather, then
-    the lattice in plain torch) against the CPU port, both forms: the
-    same ranked paths and scores (tolerance 0)."""
+def test_match_topk_on_the_card_equals_cpu(tiny_pair, backend, monkeypatch):
+    """match_topk on the card (the sweep instance or the grid kernel, then
+    the lattice's three kernels, one launch each a call, no Python loop)
+    against the CPU port, both forms: the same ranked paths and scores
+    (tolerance 0)."""
     from reporter_tpu_torch.matcher.api import Trace
     from reporter_tpu_torch.netgen.traces import synthesize_probe
+    from reporter_tpu_torch.ops import candidates as cand
+    from reporter_tpu_torch.ops import hmm
 
     ts, pair = tiny_pair
     card, cpu = pair[backend]
@@ -730,8 +760,16 @@ def test_match_topk_on_the_card_equals_cpu(tiny_pair, backend):
                               gps_sigma=3.0)
         tr = Trace(uuid="u", xy=pr.xy.astype(np.float32), times=pr.times)
         for exact in (False, True):
-            got = card.match_topk(tr, exact=exact)
             want = cpu.match_topk(tr, exact=exact)
+            before = dict(hmm.LATTICE_LAUNCHES)
+            grid_before = sum(cand.GRID_LAUNCHES.values())
+            with monkeypatch.context() as mp:
+                _no_plain_loops(mp)
+                got = card.match_topk(tr, exact=exact)
+            for key in ("keep", "forward", "backtrack"):
+                assert hmm.LATTICE_LAUNCHES[key] == before.get(key, 0) + 1
+            assert sum(cand.GRID_LAUNCHES.values()) == grid_before + (
+                backend == "grid")
             assert len(got) == len(want) >= 2
             for (gs, gp), (ws, wp) in zip(got, want):
                 assert gs == ws
@@ -895,7 +933,7 @@ def test_device_contract_under_sync_debug_on_the_card(cuda):
 
     stats = {}
     found = dcon.run_device_contract(cuda, stats=stats)
-    assert stats["cases"] == len(dcon.audit_cases()) + 3 + 5
+    assert stats["cases"] == len(dcon.audit_cases()) + 3 + 5 + 2
     assert stats["staging_cases"] == 5
     assert not [f for f in found if not f.waived], \
         "\n".join(str(f) for f in found if not f.waived)
@@ -1223,3 +1261,168 @@ def test_viterbi_on_each_card_with_another_card_current(sf_tile, vit_fleet,
     for f in _VIT_FIELDS:
         assert getattr(got, f).device == dev
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the ranked-path lattice (kernels/lattice.cu) and the grid candidates
+# (kernels/grid.cu) against their plain versions
+
+_LAT_INPUTS = {}
+
+
+def _lattice_inputs(sf_tile, k, t):
+    """The lattice of one sf trace as match_topk builds it on the card, at
+    width k (50 m up to K = 8, 150 m past it): a one-point trace (T = 1),
+    a fleet trace (T = 120) or a 1024-point probe (T = 1024). → (points,
+    valid, the plain keep mask, em, active, prev_any, trans)."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.netgen.traces import synthesize_probe
+    from reporter_tpu_torch.ops import hmm
+
+    if (k, t) not in _LAT_INPUTS:
+        ts, tab = sf_tile
+        xy = synthesize_probe(ts, seed=7, num_points=max(t, 2)).xy[:t]
+        pts = torch.from_numpy(xy.astype(np.float32)).cuda()
+        valid = torch.ones(t, dtype=torch.bool, device="cuda")
+        if t >= 120:
+            valid[t // 3:t // 3 + 5] = False          # padding inside
+        c = dc.find_candidates_dense(
+            pts, tuple(tab[n] for n in (
+                "seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
+                "seg_coarse")), 50.0 if k <= 8 else 150.0, k, valid=valid)
+        p = MatcherParams()
+        keep = hmm._keep_mask_batched(pts[:, :, None], valid[:, None],
+                                      p.interpolation_distance)[:, 0]
+        _LAT_INPUTS[k, t] = (pts, valid, keep, *hmm._lattice_prep(
+            c, pts, keep, tab, p.sigma_z, p.beta, p.max_route_distance_factor,
+            300.0, p.backward_slack))
+    return _LAT_INPUTS[k, t]
+
+
+@pytest.mark.parametrize("t", [1, 120, 1024])
+@pytest.mark.parametrize("k,r", [(1, 1), (8, 1), (8, 2), (8, 8), (16, 1),
+                                 (16, 2), (16, 16), (64, 1), (64, 2),
+                                 (64, 64)])
+def test_lattice_kernels_equal_plain(sf_tile, k, r, t):
+    """The forward kernel (scores, backpointers, started, own) and the
+    backtrack kernel (every path's states) bit-equal to their plain
+    versions on the card, one launch each counted."""
+    from reporter_tpu_torch.ops import hmm
+
+    _, _, _, em, act, pany, trans = _lattice_inputs(sf_tile, k, t)
+    before = dict(hmm.LATTICE_LAUNCHES)
+    got = hmm._forward_list(em, act, pany, trans, r)
+    want = hmm._forward_list_plain(em, act, pany, trans, r)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("scores", "backptrs", "started", "own"), got,
+                          want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+    seed = torch.sort(want[0][-1], stable=True).indices[:max(k, r)]
+    seed = torch.cat([seed, seed.new_full((1,), -1)]).to(torch.int32)
+    states = hmm._backtrack(want[1], want[2], act, want[3], seed)
+    plain = hmm._backtrack_plain(want[1], want[2], act, want[3], seed)
+    torch.cuda.synchronize()
+    assert torch.equal(states, plain), int((states != plain).sum())
+    after = hmm.LATTICE_LAUNCHES
+    assert after["forward"] == before.get("forward", 0) + 1
+    assert after["backtrack"] == before.get("backtrack", 0) + 1
+    if t > 1:
+        assert bool(want[2].any()) and bool((states >= 0).any())
+
+
+@pytest.mark.parametrize("interp", [10.0, 0.0])
+@pytest.mark.parametrize("t", [1, 120, 1024])
+def test_keep_mask_kernel_equals_plain(sf_tile, t, interp):
+    from reporter_tpu_torch.ops import hmm
+
+    pts, valid, _, _, _, _, _ = _lattice_inputs(sf_tile, 8, t)
+    before = hmm.LATTICE_LAUNCHES.get("keep", 0)
+    got = hmm.interpolation_keep_mask(pts, valid, interp)
+    want = hmm._keep_mask_batched(pts[:, :, None], valid[:, None],
+                                  interp)[:, 0]
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert hmm.LATTICE_LAUNCHES.get("keep", 0) == before + (interp > 0)
+    # a batch of three traces through the batched entry
+    pts3 = torch.stack([pts, pts.flip(0), pts + 7.0])
+    val3 = torch.stack([valid, valid.flip(0), valid])
+    got3 = hmm._keep_mask_cuda(pts3, val3, interp)
+    want3 = hmm._keep_mask_batched(pts3.permute(1, 2, 0), val3.T, interp).T
+    torch.cuda.synchronize()
+    assert torch.equal(got3, want3)
+
+
+def test_lattice_plan_smem_equals_the_kernels_layout(cuda):
+    from reporter_tpu_torch.kernels import build
+    from reporter_tpu_torch.ops import hmm
+
+    for k in range(1, hmm.LATTICE_MAX_K + 1):
+        for r in sorted({1, 2, k} & set(range(1, k + 1))):
+            assert build.lattice_forward_smem(k, r) == \
+                hmm.lattice_smem_bytes(k, r), (k, r)
+    assert build.lattice_forward_smem(65, 1) == -1
+    assert build.lattice_forward_smem(8, 9) == -1
+
+
+def test_lattice_kernels_refuse_on_the_card(sf_tile):
+    """K past 64 and R past K are refused before a launch; a wrong dtype
+    on the card raises too."""
+    from reporter_tpu_torch.ops import hmm
+
+    _, _, _, em, act, pany, trans = _lattice_inputs(sf_tile, 8, 120)
+    with pytest.raises(ValueError, match="1 <= R <= K"):
+        hmm._forward_list(em, act, pany, trans, 9)
+    with pytest.raises(ValueError, match="1 <= K <= 64"):
+        hmm._forward_list(em.repeat(1, 9)[:, :65], act, pany,
+                          trans.repeat(1, 9, 9)[:, :65, :65], 1)
+    with pytest.raises(ValueError, match="expected em as"):
+        hmm._forward_list(em.double(), act, pany, trans, 1)
+
+
+_GRID_TILES = {}
+
+
+def _grid_tile(metro, radius):
+    from reporter_tpu_torch.config import CompilerParams
+
+    if (metro, radius) not in _GRID_TILES:
+        ts = compile_network(generate_city(metro),
+                             CompilerParams(index_radius=radius))
+        _GRID_TILES[metro, radius] = (ts, tables_from_numpy(
+            ts.arrays(), "cuda", candidate_backend="grid"))
+    return _GRID_TILES[metro, radius]
+
+
+@pytest.mark.parametrize("metro", ["sf", "organic"])
+@pytest.mark.parametrize("k,radius", [(8, 50.0), (64, 150.0)])
+def test_grid_kernel_equals_plain(cuda, metro, k, radius):
+    """The grid kernel's four fields byte-equal to the plain version's on
+    the card: fleet points, every node (d = 0 ties) and points past the
+    grid's edge; one launch counted under K."""
+    from reporter_tpu_torch.ops import candidates as cand
+
+    ts, tab = _grid_tile(metro, radius)
+    rng = np.random.default_rng(4)
+    pts = np.concatenate([
+        np.concatenate([p.xy for p in synthesize_fleet(ts, 64, seed=3)]),
+        ts.node_xy, rng.uniform(ts.node_xy.min(0) - 300,
+                                ts.node_xy.max(0) + 300, (4000, 2))])
+    pts = torch.from_numpy(pts.astype(np.float32)).to(cuda)
+    before = cand.GRID_LAUNCHES.get(k, 0)
+    got = cand.find_candidates(pts, tab, ts.meta, radius, k)
+    want = cand._find_candidates_plain(pts, tab, ts.meta, radius, k)
+    torch.cuda.synchronize()
+    assert cand.GRID_LAUNCHES[k] == before + 1
+    for name, g, w in zip(want._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes(), name
+    assert bool(want.valid.any())
+    if k == 64:
+        assert bool((want.valid.sum(1) > 16).any())
+    # a leading batch shape and an empty batch
+    got2 = cand.find_candidates(pts[:120].reshape(4, 30, 2), tab, ts.meta,
+                                radius, k)
+    assert torch.equal(got2.edge.reshape(120, k), got.edge[:120])
+    empty = cand.find_candidates(pts[:0], tab, ts.meta, radius, k)
+    assert empty.edge.shape == (0, k)
