@@ -585,6 +585,9 @@ GRID_BATCH_RUNS = 3           # [grid]: timed batches of the grid matcher
 TOPK_TRACES = 16              # [topk]: fleet traces ranked at T = 120
 TOPK_LONG_POINTS = 1024       # [topk]: the one long trace (the largest bucket)
 TOPK_SCORE_RTOL = 2e-6        # [topk]: card vs CPU scores (tests/test_torch_topk.py)
+TOPK_K64_PEAK = 100_000_000   # [topk:k64]: a call's peak bytes at K = 64, T =
+#                               1024 stay under this (the outputs, about 34
+#                               MB at R = 64; no [T, K, K, M] temporaries)
 CAPACITY_SLACK = 2 * 1024**2  # [capacity]: memory_allocated over the formula
 FLEET_GEN = 8                 # [fleet]: the JAX bench's generated metros
 FLEET_GEN_TRACES, FLEET_GEN_POINTS = 24, 60   # each one's traffic
@@ -608,10 +611,11 @@ SOURCES = ("reporter_tpu_torch/kernels/sweep_exact.cu",
            "reporter_tpu_torch/kernels/viterbi.cu",
            "reporter_tpu_torch/kernels/lattice.cu",
            "reporter_tpu_torch/kernels/grid.cu",
+           "reporter_tpu_torch/kernels/route.cuh",
            "reporter_tpu_torch/native/prepare.cc",
            "reporter_tpu_torch/native/walker.cc",
            "reporter_tpu_torch/native/reach.cc")
-HOST_SOURCES = SOURCES[5:]    # the host library's (g++)
+HOST_SOURCES = SOURCES[6:]    # the host library's (g++)
 VITERBI_SOURCE = SOURCES[2]
 LATTICE_SOURCE = SOURCES[3]
 GRID_SOURCE = SOURCES[4]
@@ -4632,14 +4636,21 @@ def lattice_kernel_phase(card, ts, m, traces):
     terminal form, K: the exact one): mismatches per field (all must be
     0), the launches of one call of each wrapper (each must be 1), ms
     single and back to back, the plain version's ms, the bound, the
-    forward plan, the lattice inputs' peak bytes (``_lattice_prep``'s
-    [T, K, K, M] temporaries) and the phase's seconds. → {kernel: the K =
-    8, T = 1024 record at the largest R, with the K = 64 one under
+    forward and backtrack plans, the forward kernel's peak bytes beside
+    the plain inputs' (``_lattice_prep``'s [T, K, K, M] temporaries),
+    the steps that look up and their pairs, the forward's bound beside
+    that of a forward reading transition blocks, the backtrack's beside
+    the bytes it streams, and the phase's seconds. The forward kernel reads the
+    candidates and looks its blocks up itself: it is held to
+    ``_lattice_prep`` + ``_forward_list_plain`` (and ``active``). → {kernel:
+    the K = 8, T = 1024 record at the largest R, with the K = 64 one under
     "k64"} for the kernels line."""
     from reporter_tpu_torch.config import MatcherParams
     from reporter_tpu_torch.matcher.api import SegmentMatcher
     from reporter_tpu_torch.netgen.traces import synthesize_probe
     from reporter_tpu_torch.ops import hmm
+    from reporter_tpu_torch.ops import match as match_ops
+    from reporter_tpu_torch.ops.dense_candidates import sqrt_f32
 
     t_all = time.perf_counter()
     long_xy = synthesize_probe(ts, seed=7, num_points=TOPK_LONG_POINTS).xy
@@ -4671,22 +4682,42 @@ def lattice_kernel_phase(card, ts, m, traces):
             keep_plain_ms = cuda_ms(lambda: hmm._keep_mask_batched(
                 pts[:, :, None], valid[:, None], interp), reps=2, warmup=1)
             keep_bound = _bound(T * LATTICE_OPS_PER_KEEP, T * (8 + 1 + 1))
+            consts = (p.sigma_z, p.beta, p.max_route_distance_factor,
+                      p.breakage_distance, p.backward_slack)
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             em, act, pany, trans = hmm._lattice_prep(
-                tc, pts, keep_plain, mk.tables, p.sigma_z, p.beta,
-                p.max_route_distance_factor, p.breakage_distance,
-                p.backward_slack)
+                tc, pts, keep_plain, mk.tables, *consts)
             torch.cuda.synchronize()
             prep_peak = torch.cuda.max_memory_allocated() - base
             n_act = int(act.sum())
+            # the steps that look up (active, an active point before, gc
+            # within the breakage distance), and the lookups' work and
+            # bytes: viterbi_work on a batch of one, less its outputs
+            idx = torch.arange(T, device=pts.device)
+            run = torch.cummax(torch.where(act, idx, -1), dim=0).values
+            prev = torch.cat([idx[:1] * 0, run[:-1].clamp_min(0)])
+            gc = sqrt_f32(((pts - pts[prev]) ** 2).sum(-1))
+            n_look = int((act & pany & (gc <= p.breakage_distance)).sum())
+            pairs, lookup_ops, lookup_bytes, _ = viterbi_work(
+                match_ops.CandidateSet(*(x[None] for x in tc)), pts[None],
+                valid[None], mk.tables, interp, p.breakage_distance)
+            lookup_bytes -= T * (4 + 4 + 4 + 1 + 1)
+            lg = (k - 1).bit_length()
             for R in rs:
-                args = (em, act, pany, trans, R)
+                fwd_args = (tc, pts, keep, mk.tables, *consts, R)
                 before = dict(hmm.LATTICE_LAUNCHES)
-                got = hmm._forward_list_cuda(*args)
-                want = hmm._forward_list_plain(*args)
                 torch.cuda.synchronize()
-                fwd_mis = dict(zip(("scores", "backptrs", "started", "own"),
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                got = hmm._forward_list_cuda(*fwd_args)
+                torch.cuda.synchronize()
+                kernel_peak = torch.cuda.max_memory_allocated() - base
+                want = (*hmm._forward_list_plain(em, act, pany, trans, R),
+                        act)
+                torch.cuda.synchronize()
+                fwd_mis = dict(zip(("scores", "backptrs", "started", "own",
+                                    "active"),
                                    (int((g != w).sum())
                                     for g, w in zip(got, want))))
                 fwd_err = float((got[0].double() - want[0].double()).abs()
@@ -4704,31 +4735,48 @@ def lattice_kernel_phase(card, ts, m, traces):
                 torch.cuda.synchronize()
                 bt_mis = int((bt != bt_plain).sum())
                 P = int(seed.shape[0])
-                fwd_ms = cuda_ms(lambda: hmm._forward_list_cuda(*args),
+                fwd_ms = cuda_ms(lambda: hmm._forward_list_cuda(*fwd_args),
                                  reps=20)
-                fwd_b2b = launch_ms(lambda: hmm._forward_list_cuda(*args))
+                fwd_b2b = launch_ms(lambda: hmm._forward_list_cuda(
+                    *fwd_args))
                 fwd_plain_ms = cuda_ms(lambda: hmm._forward_list_plain(
-                    *args), reps=2, warmup=1)
+                    *hmm._lattice_prep(tc, pts, keep_plain, mk.tables,
+                                       *consts), R), reps=2, warmup=1)
                 bt_ms = cuda_ms(lambda: hmm._backtrack_cuda(*bt_args),
                                 reps=20)
                 bt_b2b = launch_ms(lambda: hmm._backtrack_cuda(*bt_args))
                 bt_plain_ms = cuda_ms(lambda: hmm._backtrack_plain(
                     *bt_args), reps=2, warmup=1)
-                # the forward's work: per active step a column's K heads,
-                # R picks over K heads and R advances, then the K * R
-                # writes; bytes: the inputs once, the four outputs once
-                fwd_bound = _bound(
+                # the forward's work: the lookups (each looked-up pair's
+                # binary search, route and cost) and, per step that looks
+                # up, each column's merge (R = 1: K adds and compares; R >
+                # 1: K heads, a tree's K - 1 matches, and per pick an add,
+                # ceil(log2 K) matches and the row's next head); bytes:
+                # the candidates, points, keep mask and the table entries
+                # the searches read, once, and the five outputs
+                merge_ops = n_look * k * (2 * k if R == 1
+                                          else 2 * k + R * (lg + 2))
+                fwd_bound = _bound(lookup_ops + merge_ops,
+                                   lookup_bytes + T * S * 8 + T * 6)
+                # a forward that reads transition blocks [T, K, K]: the
+                # heads, R picks over K heads and R advances a column, then
+                # the K * R writes
+                fwd_bound_blocks = _bound(
                     n_act * k * (k + R * k + 2 * R),
                     T * k * 4 + 2 * T + T * k * k * 4 + T * S * 8 + T * 5)
                 # the backtrack's: a step a path and level; bytes: its
                 # output, the level flags and own states, and the distinct
-                # backpointer entries the paths read
+                # backpointer entries the paths read; beside it what the
+                # kernel streams, every level's whole backpointer row
                 reads = bt_plain[:, 1:].long()
                 lv = torch.arange(1, T, device=reads.device).expand_as(reads)
                 n_reads = int(torch.unique(
                     (lv * S + reads)[reads >= 0]).numel())
                 bt_bound = _bound(P * T * 4, P * T * 4 + T * 6 + n_reads * 4)
+                bt_streamed = _bound(P * T * 4,
+                                     P * T * 4 + T * 6 + T * S * 4)
                 plan = hmm.lattice_plan(T, k, R)
+                bt_plan = hmm.backtrack_plan(T, S, P)
                 rec = {
                     "keep": {"mismatches": keep_mis, "max_abs_err": 0.0,
                              "ms": keep_ms, "ms_back_to_back": keep_b2b,
@@ -4740,20 +4788,24 @@ def lattice_kernel_phase(card, ts, m, traces):
                                 "ms_back_to_back": fwd_b2b,
                                 "plain_ms": fwd_plain_ms,
                                 "bound_ms": fwd_bound[0],
-                                "bound_by": fwd_bound[1]},
+                                "bound_by": fwd_bound[1],
+                                "block_read_bound_ms": fwd_bound_blocks[0]},
                     "backtrack": {"mismatches": bt_mis, "max_abs_err": 0.0,
                                   "ms": bt_ms, "ms_back_to_back": bt_b2b,
                                   "plain_ms": bt_plain_ms,
                                   "bound_ms": bt_bound[0],
-                                  "bound_by": bt_bound[1]}}
+                                  "bound_by": bt_bound[1],
+                                  "streamed_bound_ms": bt_streamed[0]}}
                 phase("kernel:lattice", card, metro="sf", k=k, r=R,
                       search_radius=p.search_radius, kind=name, steps=T,
-                      active_steps=n_act,
+                      active_steps=n_act, lookup_steps=n_look,
+                      lattice_pairs=pairs,
                       chain_starts=int(want[2].sum()), paths=P,
                       forward_mismatches=fwd_mis,
                       keep_mismatches=keep_mis,
                       backtrack_mismatches=bt_mis,
-                      threads=plan["threads"], smem_bytes=plan["smem_bytes"],
+                      forward_plan=plan, backtrack_plan=bt_plan,
+                      kernel_peak_bytes=kernel_peak,
                       prep_peak_bytes=prep_peak, call_launches=calls, **rec,
                       seconds=time.perf_counter() - t_k)
                 if any(n != 1 for n in calls.values()):
@@ -5000,7 +5052,7 @@ def topk_phase(card, ts, m, traces, dc, win):
     (kernel launches and copies, the profiler's count; ``launch_calls``),
     equal at T = 120 and 1024, the kernel launches alone beside it. Then
     K = 64 at 150 m on the long trace (the widest list): card = CPU, ms,
-    the call's peak bytes, its launches."""
+    the call's peak bytes (under TOPK_K64_PEAK), its launches."""
     from reporter_tpu_torch.config import MatcherParams
     from reporter_tpu_torch.matcher.api import _BUCKETS, SegmentMatcher, Trace
     from reporter_tpu_torch.netgen.traces import synthesize_probe
@@ -5113,9 +5165,11 @@ def topk_phase(card, ts, m, traces, dc, win):
           paths={f: len(v[0]) for f, v in forms.items()},
           peak_bytes={f: v[2] for f, v in forms.items()},
           per_call_launches={f: v[3] for f, v in forms.items()})
-    if bad or not refused or not same_launches:
+    peak = max(v[2] for v in forms.values())
+    if bad or not refused or not same_launches or peak >= TOPK_K64_PEAK:
         raise SystemExit(f"[topk] checks failed: {bad[:8]}, refused "
-                         f"{refused}, launches per call {per_call}")
+                         f"{refused}, launches per call {per_call}, K = 64 "
+                         f"peak bytes {peak}")
 
 
 def capacity_phase(card, tiles):

@@ -156,8 +156,10 @@ NEUTRAL_KEYS = {
     # kernel work descriptors (bound_ms and ms carry the claims)
     "exact_pairs", "coarse_pairs", "bytes", "coarse_rate_flops",
     "lattice_pairs", "operations", "bound_by", "linear_scan_operations",
-    # the ranked-path lattice's and the grid kernel's work descriptors
-    "r", "active_steps", "chain_starts", "cells_read",
+    # the ranked-path lattice's and the grid kernel's work descriptors and
+    # launch plans (ops/hmm.lattice_plan, backtrack_plan)
+    "r", "active_steps", "chain_starts", "cells_read", "lookup_steps",
+    "forward_plan", "backtrack_plan",
     # the Viterbi kernel's launch plan (ops/hmm.viterbi_plan)
     "traces_per_cta", "threads_per_trace", "chunk", "levels",
     "vote_share", "gate_share", "plain_gate_share", "mean_hit_blocks",

@@ -19,8 +19,9 @@ library, and this module pins, per instance (arm, K or ``wide``):
 and the libraries of one source each (``SINGLE_LIBRARIES``): the batched
 Viterbi decode's (``kernels/viterbi.cu``, K a run-time argument up to
 ``ops/hmm.VITERBI_MAX_K``), the ranked-path lattice's
-(``kernels/lattice.cu``: its keep-mask, forward and backtrack kernels, K
-up to ``ops/hmm.LATTICE_MAX_K``) and the grid candidates'
+(``kernels/lattice.cu``: its keep-mask kernel, the forward kernel's
+seven instances by tree depth and the backtrack kernel, K up to
+``ops/hmm.LATTICE_MAX_K``) and the grid candidates'
 (``kernels/grid.cu``): each kernel's ptxas figures under ``ptxas.<the
 library>``, 0 spill bytes unless waived (keyed by (kernel, the
 library)), and the source and K ceiling in the host half;
@@ -72,7 +73,10 @@ GRID_LIBRARY = "grid"
 # the libraries of one source each: key → the kernels each must hold
 SINGLE_LIBRARIES = {
     VITERBI_LIBRARY: (VITERBI_KERNEL,),
-    LATTICE_LIBRARY: ("lattice_keep_kernel", "lattice_forward_kernel",
+    LATTICE_LIBRARY: ("lattice_keep_kernel",
+                      # the forward's instances: <0> at R = 1, <L> the
+                      # loser tree of 2^L leaves at R > 1
+                      *(f"lattice_forward_kernel<{lg}>" for lg in range(7)),
                       "lattice_backtrack_kernel"),
     GRID_LIBRARY: ("grid_candidates_kernel",),
 }
@@ -587,14 +591,38 @@ GOLDEN: "dict[str, Any]" = \
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
                                                  'static_smem': 0}},
-           'lattice': {'lattice_backtrack_kernel': {'registers': 36,
+           'lattice': {'lattice_backtrack_kernel': {'registers': 80,
                                                     'spill_loads': 0,
                                                     'spill_stores': 0,
                                                     'static_smem': 0},
-                       'lattice_forward_kernel': {'registers': 40,
-                                                  'spill_loads': 0,
-                                                  'spill_stores': 0,
-                                                  'static_smem': 0},
+                       'lattice_forward_kernel<0>': {'registers': 108,
+                                                     'spill_loads': 0,
+                                                     'spill_stores': 0,
+                                                     'static_smem': 0},
+                       'lattice_forward_kernel<1>': {'registers': 109,
+                                                     'spill_loads': 0,
+                                                     'spill_stores': 0,
+                                                     'static_smem': 0},
+                       'lattice_forward_kernel<2>': {'registers': 109,
+                                                     'spill_loads': 0,
+                                                     'spill_stores': 0,
+                                                     'static_smem': 0},
+                       'lattice_forward_kernel<3>': {'registers': 109,
+                                                     'spill_loads': 0,
+                                                     'spill_stores': 0,
+                                                     'static_smem': 0},
+                       'lattice_forward_kernel<4>': {'registers': 109,
+                                                     'spill_loads': 0,
+                                                     'spill_stores': 0,
+                                                     'static_smem': 0},
+                       'lattice_forward_kernel<5>': {'registers': 150,
+                                                     'spill_loads': 0,
+                                                     'spill_stores': 0,
+                                                     'static_smem': 0},
+                       'lattice_forward_kernel<6>': {'registers': 126,
+                                                     'spill_loads': 0,
+                                                     'spill_stores': 0,
+                                                     'static_smem': 0},
                        'lattice_keep_kernel': {'registers': 32,
                                                'spill_loads': 0,
                                                'spill_stores': 0,

@@ -279,9 +279,11 @@ _VITERBI_SIGNATURES = {
 }
 _LATTICE_SIGNATURES = {
     "rtt_lattice_keep": [_P, _P, _I, _I, _F, _P, _P],
-    "rtt_lattice_forward_smem": [_I, _I],
-    "rtt_lattice_forward": [_P] * 4 + [_I] * 5 + [_P] * 4 + [_P],
-    "rtt_lattice_backtrack": [_P] * 5 + [_I] * 4 + [_P, _P],
+    "rtt_lattice_forward_smem": [_I, _I, _I],
+    "rtt_lattice_forward": [_P] * 10 + [_I] * 8 + [_F] * 5 + [_P] * 5
+                           + [_P],
+    "rtt_lattice_backtrack_smem": [_I] * 4,
+    "rtt_lattice_backtrack": [_P] * 5 + [_I] * 6 + [_P, _P],
 }
 _GRID_SIGNATURES = {
     "rtt_grid_candidates": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P] * 4 + [_P],
@@ -386,53 +388,89 @@ def launch_lattice_keep(pts, vp, interp: float, keep) -> None:
     _raise_on(rc, f"lattice keep mask (B={B}, T={T})")
 
 
-def lattice_forward_smem(K: int, R: int, device="cuda") -> int:
-    """The forward kernel's own shared bytes at (K, R) (-1 for a shape it
-    does not take): what ``ops/hmm.lattice_smem_bytes`` is held to."""
+def lattice_forward_smem(K: int, R: int, chunk: int,
+                         device="cuda") -> int:
+    """The forward kernel's own shared bytes at (K, R) and chunk C (-1 for
+    a shape it does not take): what ``ops/hmm.lattice_smem_bytes`` is held
+    to."""
     lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
     with _on_device(device):
-        return int(lib.rtt_lattice_forward_smem(int(K), int(R)))
+        return int(lib.rtt_lattice_forward_smem(int(K), int(R), int(chunk)))
 
 
-def launch_lattice_forward(em, active, prev_any, trans, R: int, plan: dict,
-                           scores, backptrs, started, own) -> None:
-    """One launch of lattice.cu's forward kernel (one CTA of the plan's
-    ``threads`` with its ``smem_bytes``; ``ops/hmm.lattice_plan``) on the
-    current stream of the tensors' card: em f32 [T, K], active and
-    prev_any bool [T], trans f32 [T, K, K] → scores f32 [T, K * R],
-    backptrs i32 [T, K * R], started bool [T], own i32 [T]. The kernel
-    refuses shared bytes that are not its layout's (the wrapper raises)."""
+def lattice_backtrack_smem(S: int, P: int, levels: int, stages: int,
+                           device="cuda") -> int:
+    """The backtrack kernel's own shared bytes (-1 for a shape it does not
+    take): what ``ops/hmm.backtrack_smem_bytes`` is held to."""
+    lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
+    with _on_device(device):
+        return int(lib.rtt_lattice_backtrack_smem(int(S), int(P),
+                                                  int(levels), int(stages)))
+
+
+def launch_lattice_forward(ce, co, cd, cv, pts, keep, edge_len, reach_row,
+                           reach_to, reach_dist, R: int, plan: dict,
+                           em_denom: float, beta: float, factor: float,
+                           breakage: float, slack: float, scores, backptrs,
+                           started, own, active) -> None:
+    """One launch of lattice.cu's forward kernel (one CTA as the plan lays
+    it out: ``ops/hmm.lattice_plan``'s warps, chunk and ``smem_bytes``) on
+    the current stream of the tensors' card: the candidates (edge i32,
+    offset f32, dist f32, valid bool [T, K]), points f32 [T, 2], the keep
+    mask bool [T] and the reach tables (edge_len f32 [E], reach_row i32
+    [E], reach_to i32 and reach_dist f32 [rows, M]) → scores f32 [T, K *
+    R], backptrs i32 [T, K * R], started bool [T], own i32 [T], active
+    bool [T]. The float arguments are Python floats, rounded once to f32
+    as the plain version's 0-d tensors are (``em_denom`` is 2 sigma_z^2
+    in double). The kernel refuses shared bytes that are not its layout's
+    (the wrapper raises)."""
     import torch
 
-    if em.dim() != 2:
-        raise ValueError(f"the lattice forward kernel: expected em [T, K], "
-                         f"got {tuple(em.shape)}")
-    T, K = (int(x) for x in em.shape)
+    if ce.dim() != 2:
+        raise ValueError(f"the lattice forward kernel: expected edge [T, K], "
+                         f"got {tuple(ce.shape)}")
+    T, K = (int(x) for x in ce.shape)
     R = int(R)
+    E = int(edge_len.shape[0]) if edge_len.dim() == 1 else -1
+    rows, M = tuple(int(x) for x in reach_to.shape) \
+        if reach_to.dim() == 2 else (-1, -1)
     _expect("the lattice forward kernel",
-            [("em", em, torch.float32, (T, K)),
-             ("active", active, torch.bool, (T,)),
-             ("prev_any", prev_any, torch.bool, (T,)),
-             ("trans", trans, torch.float32, (T, K, K)),
+            [("edge", ce, torch.int32, (T, K)),
+             ("offset", co, torch.float32, (T, K)),
+             ("dist", cd, torch.float32, (T, K)),
+             ("valid", cv, torch.bool, (T, K)),
+             ("points", pts, torch.float32, (T, 2)),
+             ("keep", keep, torch.bool, (T,)),
+             ("edge_len", edge_len, torch.float32, (E,)),
+             ("reach_row", reach_row, torch.int32, (E,)),
+             ("reach_to", reach_to, torch.int32, (rows, M)),
+             ("reach_dist", reach_dist, torch.float32, (rows, M)),
              ("scores", scores, torch.float32, (T, K * R)),
              ("backptrs", backptrs, torch.int32, (T, K * R)),
              ("started", started, torch.bool, (T,)),
-             ("own", own, torch.int32, (T,))])
+             ("own", own, torch.int32, (T,)),
+             ("active", active, torch.bool, (T,))])
     lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
-    with _on_device(em.device):
+    with _on_device(ce.device):
         rc = lib.rtt_lattice_forward(
-            em.data_ptr(), active.data_ptr(), prev_any.data_ptr(),
-            trans.data_ptr(), T, K, R, int(plan["threads"]),
-            int(plan["smem_bytes"]), scores.data_ptr(), backptrs.data_ptr(),
-            started.data_ptr(), own.data_ptr(), _stream(em))
+            ce.data_ptr(), co.data_ptr(), cd.data_ptr(), cv.data_ptr(),
+            pts.data_ptr(), keep.data_ptr(), edge_len.data_ptr(),
+            reach_row.data_ptr(), reach_to.data_ptr(), reach_dist.data_ptr(),
+            T, K, R, M, int(plan["chunk"]), 32 * int(plan["producer_warps"]),
+            32 * int(plan["merge_warps"]), int(plan["smem_bytes"]),
+            *(float(x) for x in (em_denom, beta, factor, breakage, slack)),
+            scores.data_ptr(), backptrs.data_ptr(), started.data_ptr(),
+            own.data_ptr(), active.data_ptr(), _stream(ce))
     _raise_on(rc, f"lattice forward (T={T}, K={K}, R={R})")
 
 
-def launch_lattice_backtrack(backptrs, started, active, own, seed, threads,
-                             out) -> None:
-    """One launch of lattice.cu's backtrack kernel (a path a thread, CTAs
-    of ``threads``) on the current stream of the tensors' card: backptrs
-    i32 [T, S], started and active bool [T], own i32 [T], seed i32 [P]
+def launch_lattice_backtrack(backptrs, started, active, own, seed,
+                             plan: dict, out) -> None:
+    """One launch of lattice.cu's backtrack kernel (one CTA as
+    ``ops/hmm.backtrack_plan`` lays it out: a thread a path, a ring of
+    ``stages`` slots of ``levels`` levels in its ``smem_bytes``) on the
+    current stream of the tensors' card: backptrs i32 [T, S], started
+    and active bool [T], own i32 [T] (all four 16-aligned), seed i32 [P]
     (each path's state at the last level, in [-1, S)) → out i32 [P, T]."""
     import torch
 
@@ -455,8 +493,9 @@ def launch_lattice_backtrack(backptrs, started, active, own, seed, threads,
     with _on_device(backptrs.device):
         rc = lib.rtt_lattice_backtrack(
             backptrs.data_ptr(), started.data_ptr(), active.data_ptr(),
-            own.data_ptr(), seed.data_ptr(), T, S, P, int(threads),
-            out.data_ptr(), _stream(backptrs))
+            own.data_ptr(), seed.data_ptr(), T, S, P, int(plan["levels"]),
+            int(plan["stages"]), int(plan["smem_bytes"]), out.data_ptr(),
+            _stream(backptrs))
     _raise_on(rc, f"lattice backtrack (T={T}, S={S}, P={P})")
 
 

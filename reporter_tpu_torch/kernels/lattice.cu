@@ -5,59 +5,115 @@
 // Replaces three lax.scan programs of reporter_tpu/ops/hmm.py, not Pallas
 // kernels: interpolation_keep_mask (:268-287), the forward scans
 // _forward_lattice (:290-339, one path a state) and the list step of
-// viterbi_kbest_paths (:519-558, R paths a state), and the vmapped
-// back_one reverse scans (:454-476, :566-590). XLA compiles each scan
-// into an on-device loop; the port's plain versions (ops/hmm.py
-// _keep_mask_batched, _forward_list_plain, _backtrack_plain) step them
-// from the host, some 15 small launches a step of the forward pass alone.
-// Each kernel is its plain version's arithmetic, one rounding per
-// operation in its order (the intrinsics below, and -fmad=false), with
-// the plain version's tie orders, so all three are bit-equal to it.
+// viterbi_kbest_paths (:519-558, R paths a state), with the transition
+// blocks they read, and the vmapped back_one reverse scans (:454-476,
+// :566-590). XLA compiles each scan into an on-device loop; the port's
+// plain versions (ops/hmm.py _keep_mask_batched, _lattice_prep followed by
+// _forward_list_plain, _backtrack_plain) step them from the host. Each
+// kernel is its plain version's arithmetic, one rounding per operation in
+// its order (the intrinsics below, route.cuh, and -fmad=false), with the
+// plain version's tie orders, so all three are bit-equal to it.
 //
 // What bounds them on this card: latency, not bytes or operations. The
 // steps of a trace are sequential and one trace is one call, so one CTA
 // walks T steps; a step's work (at most K columns of an R-deep merge) is
-// small. The bytes (the transition blocks [T, K, K] in, the levels [T,
-// K * R] out) are megabytes at most.
+// small. The bytes (the candidates and reach rows in, the levels [T, K *
+// R] out) are megabytes at most.
 //
 // keep mask: a thread a trace, T points in order (the last kept point,
 //   d2 = dx*dx + dy*dy against f32(interp)^2).
-// forward: one CTA of `threads` (ops/hmm.py::lattice_plan, 64-256), the
-//   carried scores [K, R] double-buffered in shared memory. The next
-//   step's transition block [K, K] and emissions [K] are copied in with
-//   cp.async while this step computes. Per active step, thread c < K
-//   selects column c's R smallest of score[cp, r] + trans[cp, c], ties by
-//   the flat state cp * R + r (torch.sort(stable=True), lax.top_k). Each
-//   carried row score[cp, :] ascends: it is best-first sums plus one
-//   emission, a restart [em, BIG, ...] or the BIG start, and adding a
-//   constant in f32 keeps the order. So the selection is a K-way merge of
-//   K sorted rows, no sort: R picks, each the first minimal row head (the
-//   smaller cp at equal values, and within a row the smaller r comes
-//   first), the winner's row then advancing. At R = 1 that is the first
-//   argmin, the plain Viterbi. Then a barrier's OR gives `broken`, and all
-//   threads write the new carry, the level's scores and backpointers
-//   (identity at an inactive step) and started; warp 0 writes each level's
-//   own first-argmin state (the first minimal row head: rows ascend),
-//   which the backtrack re-seeds from. Two barriers a step.
-// backtrack: a thread a path walks t = T-1 ... 0 from its seed state (the
-//   ranked state of the last level), following the level above's
-//   backpointer, re-seeding from the level's own argmin at a chain
-//   terminal; -1 at inactive levels.
+//
+// forward: one CTA (ops/hmm.py::lattice_plan owns its shape: the chunk C,
+//   the producer and merge warps, the shared bytes, which the C entry
+//   checks against this layout; nothing in it grows with T). It reads the
+//   trace's candidates, points, keep mask and the reach tables, not
+//   transition blocks:
+//   - The producer warps fill a chunk of C steps into one of two shared
+//     buffers while the merge warps walk the other's steps (named
+//     barriers: a buffer full, a buffer free). A chunk is viterbi.cu's
+//     stages 1-3: the candidates (edge, offset, emission, validity, each
+//     edge's reach row and length) and points staged, each row's
+//     looked-up slots as a list and a 64-bit mask; one warp's control
+//     sequence, a lane a step (C <= 32: active = keep and a valid
+//     candidate, the last active step before by a ballot, gc from that
+//     point, whether one came before, the step's first looked-up pair by
+//     a prefix sum);
+//     then the transition block of every step that looks up (active, an
+//     active point before, gc <= breakage), only its looked-up pairs (both
+//     slots valid with an edge) in the order t, i, j, kInterleave binary
+//     searches of the sorted reach rows in flight a thread. A pair not
+//     looked up is BIG, read through the rows' masks: what
+//     _lattice_prep's block holds there.
+//   - The merge warps: a thread a column c. Per active step, column c's R
+//     smallest of score[cp, r] + trans[cp, c], ties by the flat state cp *
+//     R + r (torch.sort(stable=True), lax.top_k). Each carried row
+//     score[cp, :] ascends (best-first sums plus one emission, a restart
+//     [em, BIG, ...] or the BIG start; adding a constant in f32 keeps the
+//     order), so the selection is a K-way merge of K sorted rows: R picks,
+//     each the first minimal row head. At R = 1 that is one first-argmin
+//     pass (the plain Viterbi). At R > 1 a loser tree over the K row heads
+//     (K padded to a power of two with leaves that lose every tie): a head
+//     is the 64-bit key (f32 bits << 32 | cp << 6 | r), which orders as
+//     (value, cp) since the costs are >= +0 and finite or BIG, and one row
+//     has one head at a time; a pick replays the winner's leaf-to-root
+//     path: its ceil(log2 K) nodes loaded at once, then the comparisons.
+//     The loops carry no branch around their shared loads (indices
+//     clamped, values selected), and the forward is one kernel a tree
+//     depth (0 for R = 1), each a contiguous path of code. Picks
+//     stop at the first value >= BIG (the rest write BIG, -1). The columns'
+//     first picks OR-ed at a barrier give `broken`; each thread writes its
+//     column's carry row and, at R > 1, its backpointers into shared rows
+//     of odd pitch (at R = 1 straight out, the columns side by side); after
+//     the step's barrier the level is copied out coalesced, and its own
+//     first-argmin state (the first minimal row head) comes from two warp
+//     reductions. An inactive step writes the carry and identity
+//     backpointers out; no barrier.
+//
+// backtrack: one CTA, a thread a path (P <= kMaxPaths) in walker warps and
+//   one producer warp, which streams the levels (backpointer rows and the
+//   own, started and active flags) tail-first into a ring of NS slots of G
+//   levels in shared memory (ops/hmm.py::backtrack_plan), with
+//   cp.async.bulk copies that complete on an mbarrier (a block near the
+//   end of the trace whose bytes do not align: ordinary loads). Each
+//   walker follows the level above's backpointer, re-seeding from the
+//   level's own argmin at a chain terminal (-1 at inactive levels), a
+//   shared-memory read a level; its choices are staged in shared memory
+//   and written out 32 levels at a time, coalesced.
 
 #include <atomic>
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "route.cuh"
+
+// scripts/lattice_profile.py redefines these three to count the forward's
+// phases in cycles; here they are nothing
+#define RTT_PROFILE_START
+#define RTT_MARK(k)
+#define RTT_PROFILE_END
 
 namespace {
 
 constexpr int kMaxK = 64;
-constexpr int kMaxThreads = 256;     // the forward CTA's threads
+constexpr int kMaxThreads = 384;     // the forward CTA: producers + merge
 constexpr int kMaxSmem = 232448;     // a CTA's shared memory on sm_90
 constexpr int kKeepThreads = 128;
+constexpr int kInterleave = 8;       // binary searches in flight a thread
+constexpr int kMaxPaths = kMaxK;      // the backtrack's walkers: P <= K
 constexpr float kBig = 1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kSpent = ~0ull;  // a spent row's head, a pad
+
+// a step's flags from the control sequence
+constexpr int kStepActive = 1;
+constexpr int kStepLook = 2;         // active, prev_any, gc <= breakage
+
+// named barriers (0 is __syncthreads')
+constexpr int kBarProducers = 1;
+constexpr int kBarMerge = 2;
+constexpr int kBarFull = 3;          // + the buffer: its chunk is ready
+constexpr int kBarFree = 5;          // + the buffer: its chunk is consumed
 
 // ---- the keep mask -------------------------------------------------------
 
@@ -86,14 +142,7 @@ __global__ void lattice_keep_kernel(const float* __restrict__ pts,
   }
 }
 
-// ---- the forward pass ----------------------------------------------------
-
-// The forward CTA's shared memory, in bytes from its base, each array 16
-// aligned (ops/hmm.py::lattice_smem_bytes makes the same sum, which the
-// launch checks). Nothing grows with T.
-struct Layout {
-  int score0, score1, trans0, trans1, em0, em1, hv, hr, bv, bi, flags, bytes;
-};
+// ---- shared helpers --------------------------------------------------------
 
 __host__ __device__ inline int take(int& at, int n) {
   const int o = at;
@@ -101,232 +150,919 @@ __host__ __device__ inline int take(int& at, int n) {
   return o;
 }
 
-__host__ __device__ inline Layout make_layout(int K, int R) {
-  Layout L{};
+__host__ __device__ inline int pow2_at_least(int k) {
+  int n = 1;
+  while (n < k) n *= 2;
+  return n;
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// a barrier of n threads that ORs their predicates
+__device__ __forceinline__ bool bar_or(int id, int n, bool v) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.s32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, %2, %3, p;\n\t"
+      "selp.s32 %0, 1, 0, q;\n\t}"
+      : "=r"(r)
+      : "r"(v ? 1 : 0), "r"(id), "r"(n)
+      : "memory");
+  return r != 0;
+}
+
+// ---- the forward pass ----------------------------------------------------
+
+// One chunk buffer's arrays, in bytes from its base, each 16 aligned: the
+// chunk's transition blocks [C, K, K], its candidate rows [(C + 1), K]
+// (row 0 the carry: the last active point before the chunk), each row's
+// looked-up mask, the steps' points, gc, previous row, first pair, flags,
+// keep and any-valid bytes, and two words (the chunk's last active step,
+// its pairs).
+struct Buf {
+  int trans, e, o, em, len, row, v, list, mask;
+  int x, y, gc, prev, off, flags, keep, any, misc, bytes;
+};
+
+__host__ __device__ inline Buf make_buf(int K, int C) {
+  Buf B{};
   int at = 0;
-  const int pitch = K | 1;           // odd: [r][c] and [c][r] walks miss
-  L.score0 = take(at, 4 * K * R);    // the carried scores [K, R], twice
-  L.score1 = take(at, 4 * K * R);
-  L.trans0 = take(at, 4 * K * K);    // the staged transition block, twice
-  L.trans1 = take(at, 4 * K * K);
-  L.em0 = take(at, 4 * K);           // the staged emissions, twice
-  L.em1 = take(at, 4 * K);
-  L.hv = take(at, 4 * K * K);        // the merge's row heads [cp][c]
-  L.hr = take(at, K * K);            // and their ranks r (u8)
-  L.bv = take(at, 4 * R * pitch);    // the picks [r][c]: values
-  L.bi = take(at, 4 * R * pitch);    // and states cp * R + r
-  L.flags = take(at, 8);             // each buffer's step flags
+  const int rows = (C + 1) * K;
+  B.trans = take(at, 4 * C * K * K);
+  B.e = take(at, 4 * rows);
+  B.o = take(at, 4 * rows);
+  B.em = take(at, 4 * rows);
+  B.len = take(at, 4 * rows);
+  B.row = take(at, 4 * rows);
+  B.v = take(at, rows);
+  B.list = take(at, rows);
+  B.mask = take(at, 8 * (C + 1));
+  B.x = take(at, 4 * C);
+  B.y = take(at, 4 * C);
+  B.gc = take(at, 4 * C);
+  B.prev = take(at, 4 * C);
+  B.off = take(at, 4 * C);
+  B.flags = take(at, C);
+  B.keep = take(at, C);
+  B.any = take(at, C);
+  B.misc = take(at, 16);
+  B.bytes = at;
+  return B;
+}
+
+// The forward CTA's shared memory (ops/hmm.py::lattice_smem_bytes makes
+// the same sum, which the launch checks): the two chunk buffers, the
+// carried scores [K, RP] twice (row c at c * RP, RP = R | 1: odd, so a
+// warp's columns at one rank hit distinct banks), at R > 1 the level's
+// backpointers [K, RP] and the loser trees (u64 [N][W]: node n of column c
+// at n * W + c, N = K up to a power of two, W = K up to a multiple of 16,
+// so a warp's lanes hit distinct banks whatever nodes they read), and the
+// own reduction's words (two steps' worth).
+struct Layout {
+  Buf buf;
+  int buf0, buf1, score0, score1, bp, tree, red, bytes;
+};
+
+__host__ __device__ inline int tree_pitch(int K) { return (K + 15) & ~15; }
+
+__host__ __device__ inline Layout make_layout(int K, int R, int C) {
+  Layout L{};
+  L.buf = make_buf(K, C);
+  int at = 0;
+  const int RP = R | 1;
+  L.buf0 = take(at, L.buf.bytes);
+  L.buf1 = take(at, L.buf.bytes);
+  L.score0 = take(at, 4 * K * RP);
+  L.score1 = take(at, 4 * K * RP);
+  L.bp = R > 1 ? take(at, 4 * K * RP) : at;
+  L.tree = R > 1 ? take(at, 8 * pow2_at_least(K) * tree_pitch(K)) : at;
+  L.red = take(at, 32);
   L.bytes = at;
   return L;
 }
 
-struct FwdParams {
-  const float* em;
-  const unsigned char* active;
-  const unsigned char* prev_any;
-  const float* trans;
-  int T, K, R;
-  float* scores;
-  int* backptrs;
-  unsigned char* started;
-  int* own;
+struct Chunk {
+  float* trans;
+  int* e;
+  float* o;
+  float* em;
+  float* len;
+  int* row;
+  unsigned char* v;
+  unsigned char* list;
+  unsigned long long* mask;
+  float* x;
+  float* y;
+  float* gc;
+  int* prev;
+  int* off;
+  unsigned char* flags;
+  unsigned char* keep;
+  unsigned char* any;
+  int* misc;
 };
 
-// step t's transition block and emissions into shared memory, in flight
-// (the caller waits on the pipeline before the barrier that reads them)
-__device__ inline void stage_step(const FwdParams& p, int t, float* s_trans,
-                                  float* s_em, int tid, int nt) {
-  const int KK = p.K * p.K;
-  const float* src = p.trans + static_cast<size_t>(t) * KK;
-  for (int i = tid; i < KK; i += nt) {
-    __pipeline_memcpy_async(s_trans + i, src + i, sizeof(float));
-  }
-  const float* e = p.em + static_cast<size_t>(t) * p.K;
-  for (int i = tid; i < p.K; i += nt) {
-    __pipeline_memcpy_async(s_em + i, e + i, sizeof(float));
-  }
-  __pipeline_commit();
+__device__ __forceinline__ Chunk chunk_at(unsigned char* base, const Buf& B) {
+  Chunk c;
+  c.trans = reinterpret_cast<float*>(base + B.trans);
+  c.e = reinterpret_cast<int*>(base + B.e);
+  c.o = reinterpret_cast<float*>(base + B.o);
+  c.em = reinterpret_cast<float*>(base + B.em);
+  c.len = reinterpret_cast<float*>(base + B.len);
+  c.row = reinterpret_cast<int*>(base + B.row);
+  c.v = base + B.v;
+  c.list = base + B.list;
+  c.mask = reinterpret_cast<unsigned long long*>(base + B.mask);
+  c.x = reinterpret_cast<float*>(base + B.x);
+  c.y = reinterpret_cast<float*>(base + B.y);
+  c.gc = reinterpret_cast<float*>(base + B.gc);
+  c.prev = reinterpret_cast<int*>(base + B.prev);
+  c.off = reinterpret_cast<int*>(base + B.off);
+  c.flags = base + B.flags;
+  c.keep = base + B.keep;
+  c.any = base + B.any;
+  c.misc = reinterpret_cast<int*>(base + B.misc);
+  return c;
 }
 
-__device__ inline int step_flags(const FwdParams& p, int t) {
-  return (p.active[t] ? 1 : 0) | (p.prev_any[t] ? 2 : 0);
+struct FwdParams {
+  const int* ce;               // i32 [T, K] candidate edges (-1 empty)
+  const float* co;             // f32 [T, K] offsets along them
+  const float* cd;             // f32 [T, K] distances to the point
+  const unsigned char* cv;     // bool [T, K]
+  const float* pts;            // f32 [T, 2]
+  const unsigned char* keep;   // bool [T], the keep mask
+  const float* edge_len;       // f32 [E]
+  const int* reach_row;        // i32 [E]
+  const int* reach_to;         // i32 [rows, M], ascending, -1 padded
+  const float* reach_dist;     // f32 [rows, M]
+  int T, K, R, M, top;         // top: the largest power of two <= M
+  int C, P, MW;                // chunk, producer and merge threads
+  float em_denom;              // f32(2 sigma_z^2), computed in double
+  float beta, factor, breakage, slack;
+  float* scores;               // f32 [T, K * R]
+  int* backptrs;               // i32 [T, K * R]
+  unsigned char* started;      // bool [T]
+  int* own;                    // i32 [T]
+  unsigned char* active;       // bool [T]
+};
+
+// a row head's key: the value's bits (costs are >= +0, so they order as
+// unsigned), then the row cp and its rank r
+__device__ __forceinline__ unsigned long long head_key(float v, int cp,
+                                                       int r) {
+  return (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
+         static_cast<unsigned>((cp << 6) | r);
 }
 
-// warp 0: level t's own first-argmin state, from its carried scores: the
-// first minimal row head (each row ascends, so a row's first minimum is
-// its head), -1 where that minimum is not below BIG
-__device__ inline void write_own(const FwdParams& p, const float* cur, int t,
-                                 int lane) {
-  float best = CUDART_INF_F;
-  int arg = p.K;
-  for (int cp = lane; cp < p.K; cp += 32) {
-    const float v = cur[cp * p.R];
-    if (v < best) {
-      best = v;
-      arg = cp;
+// The merge's loops are written without branches around their shared
+// loads: a load is made whatever the row (its index clamped to the
+// column's rows), then selected, so the loads of several rows, or of a
+// path's nodes, go out at once rather than a latency each.
+
+// the transition into this thread's column from row cp < 64: the chunk's
+// block where the pair was looked up, else BIG (row min(cp, K - 1) read)
+__device__ __forceinline__ float trans_of(const float* tr, int K,
+                                          unsigned long long seen, int cp) {
+  const float v = tr[min(cp, K - 1) * K];
+  return ((seen >> cp) & 1ull) ? v : kBig;
+}
+
+// the loser tree of the leaves [lo, lo + N) under heap node `node`: the
+// losers stored, the winner returned. Leaves at or past K lose every tie.
+template <int N>
+__device__ __forceinline__ unsigned long long tree_build(
+    const float* cur, const float* tr, unsigned long long seen, int K,
+    int RP, int lo, int node, unsigned long long* tree, int W) {
+  if constexpr (N <= 8) {
+    unsigned long long k[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int cp = lo + u;
+      const unsigned long long h = head_key(
+          __fadd_rn(cur[min(cp, K - 1) * RP], trans_of(tr, K, seen, cp)), cp,
+          0);
+      k[u] = cp < K ? h : kSpent;
+    }
+#pragma unroll
+    for (int w = 1; w < N; w *= 2) {
+#pragma unroll
+      for (int u = 0; u < N; u += 2 * w) {
+        // the match of k[u] and k[u + w] at heap node (node * N + u) / 2w
+        const int at = (node * N + u) / (2 * w);
+        const unsigned long long a = k[u], b = k[u + w];
+        tree[at * W] = a < b ? b : a;
+        k[u] = a < b ? a : b;
+      }
+    }
+    return k[0];
+  } else {
+    const unsigned long long a =
+        tree_build<N / 2>(cur, tr, seen, K, RP, lo, 2 * node, tree, W);
+    const unsigned long long b = tree_build<N / 2>(cur, tr, seen, K, RP,
+                                                   lo + N / 2, 2 * node + 1,
+                                                   tree, W);
+    tree[node * W] = a < b ? b : a;
+    return a < b ? a : b;
+  }
+}
+
+// one pick of the column's merge: the winner x's value and state, then
+// its row advanced and its leaf-to-root path replayed (every node of the
+// path loaded first, then the comparisons; the stores predicated). → the
+// pick's (value + em, state), or (BIG, -1) once the winner is >= BIG
+// (`done`: the tree is left as it is).
+template <int LOG>
+__device__ __forceinline__ void tree_pick(unsigned long long& x, bool& done,
+                                          int r, const float* cur,
+                                          const float* tr,
+                                          unsigned long long seen, int K,
+                                          int R, float em,
+                                          unsigned long long* tree, int W,
+                                          float& val, int& bp) {
+  const float v = __uint_as_float(static_cast<unsigned>(x >> 32));
+  const bool live = !done && v < kBig;
+  done = !live;
+  const unsigned low = static_cast<unsigned>(x);
+  const int cp = min(static_cast<int>(low >> 6), K - 1);
+  const int rr = static_cast<int>(low & 63);
+  val = live ? __fadd_rn(v, em) : kBig;
+  bp = live ? cp * R + rr : -1;
+  if (r + 1 >= R) return;      // the same r in every lane
+  const int leaf = (1 << LOG) + cp;
+  unsigned long long y[LOG];
+#pragma unroll
+  for (int l = 0; l < LOG; ++l) y[l] = tree[(leaf >> (l + 1)) * W];
+  const float nv = cur[cp * (R | 1) + min(rr + 1, R - 1)];
+  const unsigned long long next =
+      head_key(__fadd_rn(nv, trans_of(tr, K, seen, cp)), cp, rr + 1);
+  unsigned long long key = rr + 1 < R ? next : kSpent;
+#pragma unroll
+  for (int l = 0; l < LOG; ++l) {
+    const bool swap = y[l] < key;
+    if (live && swap) tree[(leaf >> (l + 1)) * W] = key;
+    key = swap ? y[l] : key;
+  }
+  x = live ? key : x;
+}
+
+// the column's R picks into its carry row and level backpointers (shared,
+// rows of pitch R | 1). → the pick r = 0's value.
+template <int LOG>
+__device__ __forceinline__ float column_picks(
+    unsigned long long x, const float* cur, const float* tr,
+    unsigned long long seen, int K, int R, float em,
+    unsigned long long* tree, int W, float* nxt, int* bp) {
+  bool done = false;
+  float first = kBig;
+  for (int r = 0; r < R; ++r) {
+    float v;
+    int b;
+    tree_pick<LOG>(x, done, r, cur, tr, seen, K, R, em, tree, W, v, b);
+    if (r == 0) first = v;
+    nxt[r] = v;
+    bp[r] = b;
+  }
+  return first;
+}
+
+// a level [K, R] out of shared rows of pitch RP (R | 1) into out_s and
+// out_b, coalesced: thread i takes elements 4i, 4i + 1, ... in steps of
+// 4n (vectors of four where R is a multiple of 4: then one row holds all
+// four); backpointers from b_rows, or the identity where it is null
+__device__ __forceinline__ void copy_level(const float* rows,
+                                           const int* b_rows, int K, int R,
+                                           int RP, float* out_s, int* out_b,
+                                           int i, int n) {
+  const int KR = K * R;
+  if ((R & 3) == 0) {
+    int x = 4 * i, c = x / R, r = x - c * R;
+    const int step = 4 * n, dc = step / R, dr = step - dc * R;
+    for (; x < KR; x += step) {
+      const int at = c * RP + r;
+      const float4 v =
+          make_float4(rows[at], rows[at + 1], rows[at + 2], rows[at + 3]);
+      const int4 b = b_rows ? make_int4(b_rows[at], b_rows[at + 1],
+                                        b_rows[at + 2], b_rows[at + 3])
+                            : make_int4(x, x + 1, x + 2, x + 3);
+      *reinterpret_cast<float4*>(out_s + x) = v;
+      *reinterpret_cast<int4*>(out_b + x) = b;
+      c += dc;
+      r += dr;
+      if (r >= R) {
+        r -= R;
+        ++c;
+      }
+    }
+  } else {
+    int x = i, c = x / R, r = x - c * R;
+    const int dc = n / R, dr = n - dc * R;
+    for (; x < KR; x += n) {
+      const int at = c * RP + r;
+      out_s[x] = rows[at];
+      out_b[x] = b_rows ? b_rows[at] : x;
+      c += dc;
+      r += dr;
+      if (r >= R) {
+        r -= R;
+        ++c;
+      }
     }
   }
-  for (int off = 16; off; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, best, off);
-    const int oa = __shfl_xor_sync(kFull, arg, off);
-    if (ov < best || (ov == best && oa < arg)) {
-      best = ov;
-      arg = oa;
-    }
-  }
-  if (lane == 0) p.own[t] = best < kBig ? arg * p.R : -1;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-    lattice_forward_kernel(FwdParams p) {
+// LOG: 0 for R = 1 (the first-argmin pass), else ceil(log2 K) for R > 1
+// (the loser tree of 2^LOG leaves): one kernel each, so a step's code is
+// the one path's, contiguous
+template <int LOG>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    lattice_forward_kernel(const FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int K = p.K, R = p.R, KR = K * R, pitch = K | 1;
-  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
-  const Layout L = make_layout(K, R);
-  // buffer b of the double-buffered arrays (selected, not indexed: no
-  // local-memory pointer arrays)
-  auto scores_of = [&](int b) {
-    return reinterpret_cast<float*>(smem + (b ? L.score1 : L.score0));
+  const int K = p.K, R = p.R, C = p.C, T = p.T, M = p.M, MW = p.MW;
+  const int P = p.P;
+  const int KR = K * R, KK = K * K;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool is_producer = tid >= MW;
+  const int ptid = tid - MW;   // a producer's index
+  const int mtid = tid;        // a merge thread's: its column
+  const int nchunks = (T + C - 1) / C;
+  const Layout L = make_layout(K, R, C);
+  auto chunk_of = [&](int b) {
+    return chunk_at(smem + (b ? L.buf1 : L.buf0), L.buf);
   };
-  auto trans_of = [&](int b) {
-    return reinterpret_cast<float*>(smem + (b ? L.trans1 : L.trans0));
-  };
-  auto em_of = [&](int b) {
-    return reinterpret_cast<float*>(smem + (b ? L.em1 : L.em0));
-  };
-  float* hv = reinterpret_cast<float*>(smem + L.hv);
-  unsigned char* hr = smem + L.hr;
-  float* bv = reinterpret_cast<float*>(smem + L.bv);
-  int* bi = reinterpret_cast<int*>(smem + L.bi);
-  int* flags = reinterpret_cast<int*>(smem + L.flags);
+  RTT_PROFILE_START
 
-  for (int s = tid; s < KR; s += nt) scores_of(0)[s] = kBig;
-  stage_step(p, 0, trans_of(0), em_of(0), tid, nt);
-  if (tid == 0) flags[0] = step_flags(p, 0);
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
-  for (int t = 0; t < p.T; ++t) {
-    const int b = t & 1;
-    const float* cur = scores_of(b);
-    float* nxt = scores_of(b ^ 1);
-    const float* tr = trans_of(b);
-    const float* em = em_of(b);
-    int next_flags = 0;
-    if (t + 1 < p.T) {
-      stage_step(p, t + 1, trans_of(b ^ 1), em_of(b ^ 1), tid, nt);
-      if (tid == 0) next_flags = step_flags(p, t + 1);
+  if (is_producer) {
+    // ---- the producer warps: chunk n's rows, control sequence and
+    // transition blocks into buffer n & 1, a chunk ahead of the merge
+    const int pwarp = ptid >> 5, npw = P >> 5;
+    // the first producer warp's carried scalars: the previous active
+    // point and whether there is one (the same in every lane)
+    float px = 0.0f, py = 0.0f;
+    bool prev_any = false;
+    if (pwarp == 0) {
+      px = p.pts[0];
+      py = p.pts[1];
     }
-    if (t > 0 && tid < 32) write_own(p, cur, t - 1, lane);
-    const int fl = flags[b];
-    const bool act = (fl & 1) != 0;
-
-    // column c's R smallest of cur[cp, r] + tr[cp, c]: a K-way merge
-    bool conn = false;
-    if (act && tid < K) {
-      const int c = tid;
-      if (R == 1) {
-        float best = CUDART_INF_F;
-        int arg = 0;
-        for (int cp = 0; cp < K; ++cp) {
-          const float v = __fadd_rn(cur[cp], tr[cp * K + c]);
-          if (v < best) {
-            best = v;
-            arg = cp;
+    for (int b = 0; b < 2; ++b) {
+      unsigned char* any = chunk_of(b).any;
+      for (int s = ptid; s < C; s += P) any[s] = 0;
+    }
+    bar_sync(kBarProducers, P);
+    for (int n = 0; n < nchunks; ++n) {
+      const int b = n & 1, t0 = n * C, cn = min(C, T - t0);
+      const Chunk B = chunk_of(b);
+      if (n >= 2) bar_sync(kBarFree + b, P + MW);
+      RTT_MARK(0)
+      // row 0: the carry, the last active point's candidates before the
+      // chunk (the previous chunk's last active row, else its own row 0)
+      if (n == 0) {
+        for (int k = ptid; k < K; k += P) {
+          B.e[k] = -1;
+          B.o[k] = 0.0f;
+          B.v[k] = 0;
+          B.row[k] = 0;
+          B.len[k] = 0.0f;
+        }
+      } else {
+        const Chunk O = chunk_of(b ^ 1);
+        const int src = (O.misc[0] + 1) * K;
+        for (int k = ptid; k < K; k += P) {
+          B.e[k] = O.e[src + k];
+          B.o[k] = O.o[src + k];
+          B.v[k] = O.v[src + k];
+          B.row[k] = O.row[src + k];
+          B.len[k] = O.len[src + k];
+        }
+      }
+      // rows 1..cn: the chunk's candidates
+      for (int c = ptid; c < cn * K; c += P) {
+        const size_t g = static_cast<size_t>(t0) * K + c;
+        const int e = __ldg(p.ce + g);
+        const bool v = __ldg(p.cv + g) != 0;
+        const float d = __ldg(p.cd + g);
+        const int at = K + c;
+        B.e[at] = e;
+        B.o[at] = __ldg(p.co + g);
+        B.v[at] = v;
+        B.em[at] = v ? __fdiv_rn(__fmul_rn(d, d), p.em_denom) : kBig;
+        B.row[at] = e >= 0 ? __ldg(p.reach_row + e) : 0;
+        B.len[at] = e >= 0 ? __ldg(p.edge_len + e) : 0.0f;
+        if (v) B.any[c / K] = 1;
+      }
+      for (int s = ptid; s < cn; s += P) {
+        B.x[s] = __ldg(p.pts + 2 * (t0 + s));
+        B.y[s] = __ldg(p.pts + 2 * (t0 + s) + 1);
+        B.keep[s] = __ldg(p.keep + t0 + s);
+      }
+      bar_sync(kBarProducers, P);
+      RTT_MARK(1)
+      // the rows' looked-up slots (valid, an edge), a row a warp
+      for (int r = pwarp; r <= cn; r += npw) {
+        unsigned long long mask = 0ull;
+        int count = 0;
+        for (int k0 = 0; k0 < K; k0 += 32) {
+          const int k = k0 + lane;
+          const bool ok = k < K && B.v[r * K + k] && B.e[r * K + k] >= 0;
+          const unsigned m = __ballot_sync(kFull, ok);
+          if (ok) {
+            B.list[r * K + count + __popc(m & ((1u << lane) - 1u))] =
+                static_cast<unsigned char>(k);
+          }
+          count += __popc(m);
+          mask |= static_cast<unsigned long long>(m) << k0;
+        }
+        if (lane == 0) B.mask[r] = mask;
+      }
+      bar_sync(kBarProducers, P);
+      RTT_MARK(2)
+      // the control sequence (the first producer warp, a lane a step):
+      // active, the last active step before (a ballot), gc from that
+      // point in the plain operation order, prev_any, the previous row and
+      // each step's first looked-up pair (a warp prefix sum)
+      if (pwarp == 0) {
+        const int s = lane;
+        const bool in = s < cn;
+        const bool act = in && B.keep[s] && B.any[s];
+        if (in) B.any[s] = 0;
+        const unsigned am = __ballot_sync(kFull, act);
+        const unsigned before = am & ((1u << s) - 1u);
+        const int prev_s = before ? 31 - __clz(before) : -1;
+        const float x = in ? B.x[s] : 0.0f, y = in ? B.y[s] : 0.0f;
+        const float qx = __shfl_sync(kFull, x, prev_s < 0 ? 0 : prev_s);
+        const float qy = __shfl_sync(kFull, y, prev_s < 0 ? 0 : prev_s);
+        const float fx = prev_s < 0 ? px : qx, fy = prev_s < 0 ? py : qy;
+        const float gx = __fsub_rn(x, fx), gy = __fsub_rn(y, fy);
+        const float gc =
+            __fsqrt_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)));
+        const bool look = act && (prev_s >= 0 || prev_any) &&
+                          gc <= p.breakage;
+        const int prow = prev_s + 1;
+        const int mine =
+            look ? __popcll(B.mask[prow]) * __popcll(B.mask[s + 1]) : 0;
+        int incl = mine;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += v;
+        }
+        if (in) {
+          B.gc[s] = gc;
+          B.prev[s] = prow;
+          B.off[s] = incl - mine;
+          B.flags[s] = (act ? kStepActive : 0) | (look ? kStepLook : 0);
+          p.active[t0 + s] = act ? 1 : 0;
+        }
+        const int last = am ? 31 - __clz(am) : -1;
+        if (last >= 0) {
+          px = __shfl_sync(kFull, x, last);
+          py = __shfl_sync(kFull, y, last);
+          prev_any = true;
+        }
+        if (lane == 31) {
+          B.misc[0] = last;
+          B.misc[1] = incl;
+        }
+      }
+      bar_sync(kBarProducers, P);
+      RTT_MARK(3)
+      // the chunk's transition blocks: the looked-up pairs in the order
+      // step, previous slot, next slot, kInterleave searches a thread
+      const int npairs = B.misc[1];
+      for (int f0 = ptid; f0 < npairs; f0 += kInterleave * P) {
+        const int* to[kInterleave];
+        unsigned key[kInterleave];
+        int hit[kInterleave], at[kInterleave];
+        int pi[kInterleave], cj[kInterleave];
+        bool ok[kInterleave];
+#pragma unroll
+        for (int u = 0; u < kInterleave; ++u) {
+          const int f = f0 + u * P;
+          ok[u] = f < npairs;
+          to[u] = p.reach_to;
+          key[u] = 0u;
+          at[u] = pi[u] = cj[u] = 0;
+          if (ok[u]) {
+            // the step: the last whose first pair is at or before f, by
+            // halving steps over the chunk's C <= 32 steps
+            int lo = 0;
+#pragma unroll
+            for (int step = 16; step > 0; step >>= 1) {
+              const int at = lo + step;
+              const int o = B.off[min(at, cn - 1)];
+              lo = at < cn && o <= f ? at : lo;
+            }
+            const int loc = f - B.off[lo];
+            const int nc = __popcll(B.mask[lo + 1]);
+            const int ii = loc / nc, jj = loc - ii * nc;
+            const int i = B.list[B.prev[lo] * K + ii];
+            const int jn = B.list[(lo + 1) * K + jj];
+            pi[u] = B.prev[lo] * K + i;
+            cj[u] = (lo + 1) * K + jn;
+            at[u] = lo * KK + i * K + jn;
+            to[u] = p.reach_to + static_cast<size_t>(B.row[pi[u]]) * M;
+            key[u] = static_cast<unsigned>(B.e[cj[u]]);
           }
         }
-        bv[c] = best;
-        bi[c] = arg;
-        conn = best < kBig;
-      } else {
-        for (int cp = 0; cp < K; ++cp) {
-          hv[cp * K + c] = __fadd_rn(cur[cp * R], tr[cp * K + c]);
-          hr[cp * K + c] = 0;
+        rtt_route::search_rows<kInterleave, true>(to, key, ok, M, p.top,
+                                                  hit);
+#pragma unroll
+        for (int u = 0; u < kInterleave; ++u) {
+          if (!ok[u]) continue;
+          const float gap =
+              hit[u] >= 0
+                  ? fminf(kBig,
+                          __ldg(p.reach_dist +
+                                static_cast<size_t>(B.row[pi[u]]) * M +
+                                hit[u]))
+                  : kBig;
+          B.trans[at[u]] = rtt_route::transition_cost(
+              B.e[pi[u]], B.len[pi[u]], B.o[pi[u]], B.e[cj[u]], B.o[cj[u]],
+              gap, B.gc[at[u] / KK], p.beta, p.factor, p.slack);
         }
-        for (int r = 0; r < R; ++r) {
-          float best = CUDART_INF_F;
-          int arg = 0;
-          for (int cp = 0; cp < K; ++cp) {
-            const float v = hv[cp * K + c];
-            if (v < best) {
-              best = v;
-              arg = cp;
+      }
+      RTT_MARK(4)
+      bar_arrive(kBarFull + b, P + MW);
+    }
+    RTT_PROFILE_END
+    return;
+  }
+
+  // ---- the merge warps: the steps in order, a thread a column
+  const int c = mtid, warp = mtid >> 5, nmw = MW >> 5;
+  const bool col = c < K;
+  const int RP = R | 1;
+  float* score0 = reinterpret_cast<float*>(smem + L.score0);
+  float* score1 = reinterpret_cast<float*>(smem + L.score1);
+  int* bpbuf = reinterpret_cast<int*>(smem + L.bp);
+  unsigned long long* tree =
+      reinterpret_cast<unsigned long long*>(smem + L.tree) + c;
+  unsigned* red = reinterpret_cast<unsigned*>(smem + L.red);
+  const int W = tree_pitch(K);
+  for (int s = mtid; s < K * RP; s += MW) score0[s] = kBig;
+  auto merge_sync = [&]() {
+    if (MW == 32) {
+      __syncwarp();
+    } else {
+      bar_sync(kBarMerge, MW);
+    }
+  };
+  merge_sync();
+  int cur_b = 0;
+  int own_cur = -1;            // the carry's own state (the first thread's)
+  for (int n = 0; n < nchunks; ++n) {
+    const int b = n & 1, t0 = n * C, cn = min(C, T - t0);
+    const Chunk B = chunk_of(b);
+    bar_sync(kBarFull + b, P + MW);
+    RTT_MARK(5)
+    for (int s = 0; s < cn; ++s) {
+      const int t = t0 + s;
+      const int fl = B.flags[s];
+      const float* cur = cur_b ? score1 : score0;
+      float* nxt = cur_b ? score0 : score1;
+      float* out_s = p.scores + static_cast<size_t>(t) * KR;
+      int* out_b = p.backptrs + static_cast<size_t>(t) * KR;
+      if (!(fl & kStepActive)) {
+        // an inactive point passes the carry through: the level is the
+        // carry with identity backpointers, written coalesced
+        copy_level(cur, nullptr, K, R, RP, out_s, out_b, mtid, MW);
+        if (mtid == 0) {
+          p.started[t] = 0;
+          p.own[t] = own_cur;
+        }
+        continue;
+      }
+      const bool look = (fl & kStepLook) != 0;
+      const float em = col ? B.em[(s + 1) * K + c] : 0.0f;
+      // the previous slots looked up with this column's slot
+      const unsigned long long seen =
+          look && col && ((B.mask[s + 1] >> c) & 1ull) ? B.mask[B.prev[s]]
+                                                        : 0ull;
+      const float* tr = B.trans + s * KK + c;
+      float best = CUDART_INF_F;
+      int arg = 0;
+      unsigned long long win = kSpent;
+      if constexpr (LOG == 0) {
+        if (look && col) {
+          // the first minimal row, eight rows' loads at once
+          for (int cp0 = 0; cp0 < K; cp0 += 8) {
+            float hv[8], tv[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              hv[u] = cur[min(cp0 + u, K - 1)];
+              tv[u] = trans_of(tr, K, seen, cp0 + u);
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              const int cp = cp0 + u;
+              const float v = __fadd_rn(hv[u], tv[u]);
+              const bool better = cp < K && v < best;
+              best = better ? v : best;
+              arg = better ? cp : arg;
             }
           }
-          const int rr = hr[arg * K + c];
-          bv[r * pitch + c] = best;
-          bi[r * pitch + c] = arg * R + rr;
-          if (rr + 1 < R) {
-            hv[arg * K + c] = __fadd_rn(cur[arg * R + rr + 1], tr[arg * K + c]);
-            hr[arg * K + c] = static_cast<unsigned char>(rr + 1);
+        }
+      }
+      if constexpr (LOG > 0) {
+        if (look && col) {
+          win = tree_build<(1 << LOG)>(cur, tr, seen, K, RP, 0, 1, tree, W);
+          best = __uint_as_float(static_cast<unsigned>(win >> 32));
+        }
+      }
+      const bool conn = best < kBig;
+      RTT_MARK(6)
+      // broken: no column connected, or the step does not look up (no
+      // active point before, or past the breakage distance). Either way a
+      // barrier here: the last level's copy out is done before this one
+      // is written.
+      bool any = false;
+      if (look) {
+        any = MW == 32 ? __any_sync(kFull, conn) : bar_or(kBarMerge, MW, conn);
+      } else {
+        merge_sync();
+      }
+      const bool broken = !any;
+      RTT_MARK(7)
+      // the new carry and the level: restart [em, BIG, ...], or the picks
+      // plus the emission where connected
+      float head = CUDART_INF_F;
+      if (col) {
+        float* crow = nxt + c * RP;
+        if constexpr (LOG == 0) {
+          int bp;
+          if (broken) {
+            head = em;
+            bp = -1;
           } else {
-            hv[arg * K + c] = CUDART_INF_F;   // the row is spent
+            head = conn ? __fadd_rn(best, em) : kBig;
+            bp = conn ? arg : -1;
+          }
+          crow[0] = head;
+          out_s[c] = head;
+          out_b[c] = bp;
+        } else {
+          int* brow = bpbuf + c * RP;
+          if (broken) {
+            for (int r = 0; r < R; ++r) {
+              crow[r] = r == 0 ? em : kBig;
+              brow[r] = -1;
+            }
+            head = em;
+          } else {
+            head = column_picks<LOG>(win, cur, tr, seen, K, R, em, tree, W,
+                                     crow, brow);
           }
         }
-        conn = bv[c] < kBig;
       }
-    }
-    // broken: no column connected, or no active point before this one
-    const bool any = __syncthreads_or(conn ? 1 : 0) != 0;
-    const bool broken = !any || (fl & 2) == 0;
-
-    // the new carry and the level: restart [em, BIG, ...], or the picks
-    // plus the emission where connected; identity at an inactive step
-    float* out_s = p.scores + static_cast<size_t>(t) * KR;
-    int* out_b = p.backptrs + static_cast<size_t>(t) * KR;
-    for (int s = tid; s < KR; s += nt) {
-      float v;
-      int bp;
-      if (act) {
-        const int c = s / R, r = s - c * R;
-        const float cost = bv[r * pitch + c];
-        const bool cn = cost < kBig;
-        if (broken) {
-          v = r == 0 ? em[c] : kBig;
-          bp = -1;
-        } else {
-          v = cn ? __fadd_rn(cost, em[c]) : kBig;
-          bp = cn ? bi[r * pitch + c] : -1;
+      // the level's own state: the first minimal row head (rows ascend),
+      // by the warp's minimum of the heads' bits, then of the columns that
+      // hold it; warps combined through shared words of this step's parity
+      const unsigned hb = col ? __float_as_uint(head) : 0xffffffffu;
+      const unsigned wm = __reduce_min_sync(kFull, hb);
+      const unsigned wi = __reduce_min_sync(kFull, hb == wm ? c : 0xffffffffu);
+      if (nmw > 1 && lane == 0) {
+        red[cur_b * 4 + warp * 2] = wm;
+        red[cur_b * 4 + warp * 2 + 1] = wi;
+      }
+      RTT_MARK(8)
+      merge_sync();
+      RTT_MARK(9)
+      if constexpr (LOG > 0) {
+        // the level, coalesced: the carry's rows and the backpointers
+        copy_level(nxt, bpbuf, K, R, RP, out_s, out_b, mtid, MW);
+      }
+      if (mtid == 0) {
+        unsigned bm = wm, bi = wi;
+        for (int w = 1; w < nmw; ++w) {
+          const unsigned om = red[cur_b * 4 + w * 2];
+          if (om < bm) {
+            bm = om;
+            bi = red[cur_b * 4 + w * 2 + 1];
+          }
         }
-      } else {
-        v = cur[s];
-        bp = s;
+        own_cur = __uint_as_float(bm) < kBig ? static_cast<int>(bi) * R : -1;
+        p.own[t] = own_cur;
+        p.started[t] = broken ? 1 : 0;
       }
-      nxt[s] = v;
-      out_s[s] = v;
-      out_b[s] = bp;
+      cur_b ^= 1;
+      RTT_MARK(10)
     }
-    if (tid == 0) p.started[t] = (act && broken) ? 1 : 0;
-    __pipeline_wait_prior(0);
-    if (tid == 0) flags[b ^ 1] = next_flags;
-    __syncthreads();
+    if (n + 2 < nchunks) bar_arrive(kBarFree + b, P + MW);
   }
-  if (tid < 32) write_own(p, scores_of(p.T & 1), p.T - 1, lane);
+  RTT_PROFILE_END
 }
 
 // ---- the backtrack -------------------------------------------------------
 
-__global__ void lattice_backtrack_kernel(const int* __restrict__ backptrs,
-                                         const unsigned char* __restrict__ started,
-                                         const unsigned char* __restrict__ active,
-                                         const int* __restrict__ own,
-                                         const int* __restrict__ seed, int T,
-                                         int S, int P, int* __restrict__ out) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= P) return;
-  int nxt = seed[q];                 // the state the row above points at
-  bool nxt_started = false;
-  int* o = out + static_cast<size_t>(q) * T;
-  for (int t = T - 1; t >= 0; --t) {
-    int prop = -1;
-    if (nxt >= 0 && nxt < S) {
-      prop = t == T - 1 ? nxt : backptrs[static_cast<size_t>(t + 1) * S + nxt];
+// The backtrack CTA's shared memory (ops/hmm.py::backtrack_smem_bytes makes
+// the same sum): NS slots of G levels (backpointer rows [G, S], own [G],
+// and the started and active bytes of the 16-aligned span around the G
+// levels), a full and a free mbarrier a slot, and the walkers' staged
+// choices [walkers][33] (32 levels, padded).
+struct BtLayout {
+  int bp, own, st, ac, slot, full, free, out, bytes;
+};
+
+__host__ __device__ inline BtLayout make_bt_layout(int S, int P, int G,
+                                                   int NS) {
+  BtLayout L{};
+  int at = 0;
+  L.bp = take(at, 4 * G * S);
+  L.own = take(at, 4 * G);
+  L.st = take(at, G + 32);
+  L.ac = take(at, G + 32);
+  L.slot = at;
+  at = NS * L.slot;
+  L.full = take(at, 8 * NS);
+  L.free = take(at, 8 * NS);
+  L.out = take(at, 4 * 33 * 32 * ((P + 31) / 32));
+  L.bytes = at;
+  return L;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (16-aligned, a multiple of 16) from global src to shared dst,
+// completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+struct BtParams {
+  const int* backptrs;         // i32 [T, S]
+  const unsigned char* started;
+  const unsigned char* active;
+  const int* own;              // i32 [T]
+  const int* seed;             // i32 [P]
+  int T, S, P, G, NS;
+  int* out;                    // i32 [P, T]
+};
+
+__global__ void __launch_bounds__(kMaxPaths + 32, 1)
+    lattice_backtrack_kernel(const BtParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = p.T, S = p.S, G = p.G, NS = p.NS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int walkers = (blockDim.x >> 5) - 1;     // walker warps
+  const BtLayout L = make_bt_layout(S, p.P, G, NS);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(smem + L.full);
+  unsigned long long* free_ =
+      reinterpret_cast<unsigned long long*>(smem + L.free);
+  const int J = (T + G - 1) / G;                  // blocks, streamed J-1..0
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full + i, 32);
+      mbar_init(free_ + i, walkers);
     }
-    // a chain terminal re-seeds from the level's own argmin
-    const int choice = (nxt_started || nxt < 0) ? own[t] : prop;
-    o[t] = active[t] ? choice : -1;
-    nxt = choice;
-    nxt_started = started[t] != 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // ---- the producer warp: block j (levels [jG, jG + G)) into slot
+    // (J - 1 - j) % NS once the walkers have freed it
+    for (int seq = 0; seq < J; ++seq) {
+      const int j = J - 1 - seq, slot = seq % NS;
+      if (seq >= NS) mbar_wait(free_ + slot, ((seq / NS) - 1) & 1);
+      unsigned char* base = smem + static_cast<size_t>(slot) * L.slot;
+      const int lo = j * G, hi = min(T, lo + G), n = hi - lo;
+      const int lo8 = lo & ~15, hi8 = (hi + 15) & ~15;
+      if (hi8 <= T && ((n * S) & 3) == 0 && (n & 3) == 0) {
+        const unsigned bp_bytes = 4u * n * S, own_bytes = 4u * n;
+        const unsigned fl_bytes = hi8 - lo8;
+        if (lane == 0) {
+          mbar_arrive_tx(full + slot, bp_bytes + own_bytes + 2 * fl_bytes);
+          bulk_copy(base + L.bp, p.backptrs + static_cast<size_t>(lo) * S,
+                    bp_bytes, full + slot);
+          bulk_copy(base + L.own, p.own + lo, own_bytes, full + slot);
+          bulk_copy(base + L.st, p.started + lo8, fl_bytes, full + slot);
+          bulk_copy(base + L.ac, p.active + lo8, fl_bytes, full + slot);
+        } else {
+          mbar_arrive(full + slot);
+        }
+      } else {
+        // a block whose bytes do not align (near the end): loads
+        int* bp = reinterpret_cast<int*>(base + L.bp);
+        const int* src = p.backptrs + static_cast<size_t>(lo) * S;
+        for (int x = lane; x < n * S; x += 32) bp[x] = src[x];
+        for (int x = lane; x < n; x += 32) {
+          reinterpret_cast<int*>(base + L.own)[x] = p.own[lo + x];
+          base[L.st + lo - lo8 + x] = p.started[lo + x];
+          base[L.ac + lo - lo8 + x] = p.active[lo + x];
+        }
+        // ordered before later bulk copies into the slot
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(full + slot);
+      }
+    }
+    return;
+  }
+
+  // ---- the walkers: a thread a path, T levels down, block by block.
+  // Per level one dependent shared read (the row above at the path's
+  // state); the level's own state and flags are read apart from it.
+  const int q = tid - 32;
+  const bool walks = q < p.P;
+  int* stage = reinterpret_cast<int*>(smem + L.out) + (warp - 1) * 32 * 33;
+  int nxt = walks ? p.seed[q] : -1;  // the state the row above points at
+  bool nxt_started = false;
+  const int* above = nullptr;        // the row above (none at T - 1)
+  for (int seq = 0; seq < J; ++seq) {
+    const int slot = seq % NS, lo = (J - 1 - seq) * G;
+    const int hi = min(T, lo + G), lo8 = lo & ~15;
+    mbar_wait(full + slot, (seq / NS) & 1);
+    const unsigned char* blk = smem + static_cast<size_t>(slot) * L.slot;
+    const int* bp = reinterpret_cast<const int*>(blk + L.bp);
+    const int* own = reinterpret_cast<const int*>(blk + L.own) - lo;
+    const unsigned char* st = blk + L.st - lo8;
+    const unsigned char* ac = blk + L.ac - lo8;
+    for (int t = hi - 1; t >= lo; --t) {
+      int own_t;
+      asm volatile("ld.shared.s32 %0, [%1];"
+                   : "=r"(own_t)
+                   : "r"(smem_u32(own + t)));
+      const bool st_t = st[t] != 0, ac_t = ac[t] != 0;
+      int prop = nxt;
+      if (above) {
+        const int v = above[max(nxt, 0)];
+        prop = nxt >= 0 ? v : -1;
+      }
+      // a chain terminal re-seeds from the level's own argmin
+      const int choice = (nxt_started || nxt < 0) ? own_t : prop;
+      stage[(q & 31) * 33 + (t & 31)] = ac_t ? choice : -1;
+      nxt = choice;
+      nxt_started = st_t;
+      above = bp + (t - lo) * S;
+      if (t == hi - 1 && seq > 0) {
+        // the block above (its row hi just read) is done: free its slot
+        __syncwarp();
+        if (lane == 0) mbar_arrive(free_ + (seq - 1) % NS);
+      }
+      if ((t & 31) == 0) {
+        // levels [t, t + 32) of the warp's paths, a path a row, coalesced
+        __syncwarp();
+        const int base_q = (warp - 1) * 32;
+        for (int r = 0; r < 32; ++r) {
+          const int qq = base_q + r;
+          if (qq < p.P && t + lane < T) {
+            p.out[static_cast<size_t>(qq) * T + t + lane] =
+                stage[r * 33 + lane];
+          }
+        }
+        __syncwarp();
+      }
+    }
   }
 }
 
@@ -346,6 +1082,22 @@ int allow_smem(F* kernel, std::atomic<unsigned long long>& set) {
   return 0;
 }
 
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<unsigned long long>(ptr) & 15ull) == 0;
+}
+
+// one forward launch of the LOG instance (its shared-memory attribute set
+// once per device)
+template <int LOG>
+int launch_forward(const FwdParams& p, int smem_bytes, void* stream) {
+  static std::atomic<unsigned long long> attribute_set{0};
+  const int rc = allow_smem(lattice_forward_kernel<LOG>, attribute_set);
+  if (rc != 0) return rc;
+  lattice_forward_kernel<LOG><<<1, p.P + p.MW, smem_bytes,
+                                static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The keep mask of B traces (pts f32 [B, T, 2], vp u8 [B, T]) into keep u8
@@ -361,57 +1113,100 @@ extern "C" int rtt_lattice_keep(const float* pts, const unsigned char* vp,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward kernel's shared bytes at (K, R), -1 for a shape it does not
-// take (ops/hmm.py::lattice_smem_bytes is held to it on the card).
-extern "C" int rtt_lattice_forward_smem(int K, int R) {
-  if (K < 1 || K > kMaxK || R < 1 || R > K) return -1;
-  return make_layout(K, R).bytes;
+// The forward kernel's shared bytes at (K, R) and chunk C (at most 32: a
+// lane a step of the control sequence), -1 for a shape it does not take
+// (ops/hmm.py::lattice_smem_bytes is held to it on the card).
+extern "C" int rtt_lattice_forward_smem(int K, int R, int C) {
+  if (K < 1 || K > kMaxK || R < 1 || R > K || C < 1 || C > 32) return -1;
+  return make_layout(K, R, C).bytes;
 }
 
-// The forward pass of one trace: em f32 [T, K], active and prev_any u8
-// [T], trans f32 [T, K, K] → scores f32 [T, K * R], backptrs i32 [T, K *
-// R], started u8 [T], own i32 [T], one CTA of `threads` with `smem_bytes`
-// of shared memory (the layout's, or -1). Returns cudaGetLastError() after
-// the launch, or -1 for a shape or plan it does not take.
-extern "C" int rtt_lattice_forward(const float* em, const unsigned char* active,
-                                   const unsigned char* prev_any,
-                                   const float* trans, int T, int K, int R,
-                                   int threads, int smem_bytes, float* scores,
-                                   int* backptrs, unsigned char* started,
-                                   int* own, void* stream) {
-  if (T < 1 || K < 1 || K > kMaxK || R < 1 || R > K) return -1;
-  if (threads < K || threads < 32 || threads % 32 || threads > kMaxThreads) {
+// The forward pass of one trace from its candidates (ce i32, co f32, cd
+// f32, cv u8 [T, K]), points f32 [T, 2], keep mask u8 [T] and reach tables
+// (edge_len f32 [E], reach_row i32 [E], reach_to i32 and reach_dist f32
+// [rows, M]) → scores f32 [T, K * R], backptrs i32 [T, K * R], started u8
+// [T], own i32 [T], active u8 [T]: one CTA of `producers` + `merge`
+// threads with `smem_bytes` of shared memory (the layout's at chunk C, or
+// -1). The floats are f32(2 sigma_z^2) and the matcher's constants.
+// Returns cudaGetLastError() after the launch, or -1 for a shape or plan
+// it does not take.
+extern "C" int rtt_lattice_forward(
+    const int* ce, const float* co, const float* cd, const unsigned char* cv,
+    const float* pts, const unsigned char* keep, const float* edge_len,
+    const int* reach_row, const int* reach_to, const float* reach_dist,
+    int T, int K, int R, int M, int chunk, int producers, int merge,
+    int smem_bytes, float em_denom, float beta, float factor, float breakage,
+    float slack, float* scores, int* backptrs, unsigned char* started,
+    int* own, unsigned char* active, void* stream) {
+  if (T < 1 || K < 1 || K > kMaxK || R < 1 || R > K || M < 1 || chunk < 1 ||
+      chunk > 32) {
     return -1;
   }
-  if (smem_bytes != make_layout(K, R).bytes || smem_bytes > kMaxSmem) {
+  if (merge != 32 * ((K + 31) / 32) || producers < 32 || producers % 32 ||
+      producers + merge > kMaxThreads) {
     return -1;
   }
-  static std::atomic<unsigned long long> attribute_set{0};
-  const int rc = allow_smem(lattice_forward_kernel, attribute_set);
-  if (rc != 0) return rc;
-  FwdParams p{em, active, prev_any, trans, T, K, R,
-              scores, backptrs, started, own};
-  lattice_forward_kernel<<<1, threads, smem_bytes,
-                           static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (smem_bytes != make_layout(K, R, chunk).bytes || smem_bytes > kMaxSmem) {
+    return -1;
+  }
+  // the level's vector writes: 16-aligned outputs
+  if (!aligned16(scores) || !aligned16(backptrs)) return -1;
+  int top = 1;
+  while (top <= M / 2) top *= 2;
+  FwdParams p{ce,      co,       cd,       cv,        pts,      keep,
+              edge_len, reach_row, reach_to, reach_dist, T,       K,
+              R,       M,        top,      chunk,     producers, merge,
+              em_denom, beta,    factor,   breakage,  slack,    scores,
+              backptrs, started, own,      active};
+  int lg = 0;
+  while (R > 1 && (1 << lg) < K) ++lg;
+  switch (lg) {
+    case 0: return launch_forward<0>(p, smem_bytes, stream);
+    case 1: return launch_forward<1>(p, smem_bytes, stream);
+    case 2: return launch_forward<2>(p, smem_bytes, stream);
+    case 3: return launch_forward<3>(p, smem_bytes, stream);
+    case 4: return launch_forward<4>(p, smem_bytes, stream);
+    case 5: return launch_forward<5>(p, smem_bytes, stream);
+    default: return launch_forward<6>(p, smem_bytes, stream);
+  }
+}
+
+// The backtrack's shared bytes for S states a level, P paths, slots of G
+// levels and NS slots, -1 for a shape it does not take
+// (ops/hmm.py::backtrack_smem_bytes is held to it on the card).
+extern "C" int rtt_lattice_backtrack_smem(int S, int P, int G, int NS) {
+  if (S < 1 || P < 1 || P > kMaxPaths || G < 4 || G % 4 || NS < 2) return -1;
+  return make_bt_layout(S, P, G, NS).bytes;
 }
 
 // The backtrack of P paths through T levels of S states: backptrs i32 [T,
-// S], started, active u8 [T], own i32 [T], seed i32 [P] → out i32 [P, T],
-// a thread a path in CTAs of `threads`. Returns cudaGetLastError() after
-// the launch, or -1 for a shape it does not take.
+// S], started, active u8 [T], own i32 [T], seed i32 [P] (each in [-1, S))
+// → out i32 [P, T]: one CTA of a producer warp and ceil(P / 32) walker
+// warps, a ring of NS slots of G levels in `smem_bytes` (the layout's, or
+// -1); the four level arrays 16-aligned. Returns cudaGetLastError() after
+// the launch, or -1 for a shape or plan it does not take.
 extern "C" int rtt_lattice_backtrack(const int* backptrs,
                                      const unsigned char* started,
                                      const unsigned char* active,
                                      const int* own, const int* seed, int T,
-                                     int S, int P, int threads, int* out,
-                                     void* stream) {
-  if (T < 1 || S < 1 || P < 1 || threads < 32 || threads % 32 ||
-      threads > 1024) {
+                                     int S, int P, int G, int NS,
+                                     int smem_bytes, int* out, void* stream) {
+  if (T < 1 || S < 1 || P < 1 || P > kMaxPaths || G < 4 || G % 4 || NS < 2) {
     return -1;
   }
-  lattice_backtrack_kernel<<<(P + threads - 1) / threads, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      backptrs, started, active, own, seed, T, S, P, out);
+  if (smem_bytes != make_bt_layout(S, P, G, NS).bytes ||
+      smem_bytes > kMaxSmem) {
+    return -1;
+  }
+  if (!aligned16(backptrs) || !aligned16(started) || !aligned16(active) ||
+      !aligned16(own)) {
+    return -1;
+  }
+  static std::atomic<unsigned long long> attribute_set{0};
+  const int rc = allow_smem(lattice_backtrack_kernel, attribute_set);
+  if (rc != 0) return rc;
+  BtParams p{backptrs, started, active, own, seed, T, S, P, G, NS, out};
+  lattice_backtrack_kernel<<<1, 32 + 32 * ((P + 31) / 32), smem_bytes,
+                             static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -65,8 +65,9 @@
 //    of the rows in global memory a thread at a time. Empty and invalid
 //    slots make this a fraction of the K^2 grid (on the sf fleet's first
 //    wire slice 40% at K = 8, 12% at K = 64: chip_smoke.py's
-//    lattice_pairs). The route, the detour
-//    guard and the cost follow as in the plain version; the block [C, K,
+//    lattice_pairs). The route, the detour guard and the cost follow as
+//    in the plain version (route.cuh's search_rows and transition_cost,
+//    shared with lattice.cu); the block [C, K,
 //    K] lands in shared memory, and a pair not looked up reads as BIG
 //    through the rows' masks.
 // 4. The recurrence, per step, on the first rt threads (one warp up to
@@ -95,6 +96,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "route.cuh"
 
 namespace {
 
@@ -397,7 +400,7 @@ viterbi_decode_kernel(const Params p) {
     for (int f0 = tid; f0 < npairs; f0 += kInterleave * tpt) {
       const int* to[kInterleave];
       unsigned key[kInterleave];
-      int pos[kInterleave], hit[kInterleave], at[kInterleave];
+      int hit[kInterleave], at[kInterleave];
       int pi[kInterleave], cj[kInterleave];
       bool ok[kInterleave];
 #pragma unroll
@@ -406,8 +409,6 @@ viterbi_decode_kernel(const Params p) {
         ok[u] = f < npairs;
         to[u] = p.reach_to;
         key[u] = 0u;
-        pos[u] = -1;
-        hit[u] = -1;
         at[u] = pi[u] = cj[u] = 0;
         if (ok[u]) {
           // the step: the last whose first pair is at or before f
@@ -432,23 +433,7 @@ viterbi_decode_kernel(const Params p) {
           key[u] = static_cast<unsigned>(c_e[cj[u]]);
         }
       }
-      // the largest index whose entry is below the key, by halving
-      // steps; -1 read unsigned sorts past every id. The lower bound,
-      // where the key sits if present, is always probed when it is < M.
-      for (int step = p.top; step > 0; step >>= 1) {
-#pragma unroll
-        for (int u = 0; u < kInterleave; ++u) {
-          const int idx = pos[u] + step;
-          if (ok[u] && idx < M) {
-            const unsigned v = static_cast<unsigned>(__ldg(to[u] + idx));
-            if (v < key[u]) {
-              pos[u] = idx;
-            } else if (v == key[u]) {
-              hit[u] = idx;
-            }
-          }
-        }
-      }
+      rtt_route::search_rows<kInterleave>(to, key, ok, M, p.top, hit);
 #pragma unroll
       for (int u = 0; u < kInterleave; ++u) {
         if (!ok[u]) continue;
@@ -458,20 +443,9 @@ viterbi_decode_kernel(const Params p) {
                                     static_cast<size_t>(c_row[pi[u]]) * M +
                                     hit[u]))
                 : kBig;
-        const float gc = s_gc[at[u] / KK];
-        const float po1 = c_o[pi[u]], o2 = c_o[cj[u]];
-        // the detour guard's limit: a multiply, then an add
-        const float limit = __fadd_rn(__fmul_rn(p.factor, gc), 10.0f);
-        const float cross =
-            __fadd_rn(__fadd_rn(__fsub_rn(c_len[pi[u]], po1), gap), o2);
-        const bool same =
-            c_e[pi[u]] == c_e[cj[u]] && o2 >= __fsub_rn(po1, p.slack);
-        const float direct = fmaxf(__fsub_rn(o2, po1), 0.0f);
-        const float route = same ? fminf(direct, cross) : cross;
-        float trans = kBig;
-        if (route < kBig && route <= limit) {
-          trans = __fdiv_rn(fabsf(__fsub_rn(route, gc)), p.beta);
-        }
+        const float trans = rtt_route::transition_cost(
+            c_e[pi[u]], c_len[pi[u]], c_o[pi[u]], c_e[cj[u]], c_o[cj[u]],
+            gap, s_gc[at[u] / KK], p.beta, p.factor, p.slack);
         s_trans[at[u]] = trans;
       }
     }

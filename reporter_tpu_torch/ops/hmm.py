@@ -23,9 +23,12 @@ out so the two read alike. The single-trace ranked-path lattice
 as the kernels of ``kernels/lattice.cu`` on a card (the keep mask, the
 list-Viterbi forward pass and the R-path backtrack, one launch each,
 bit-equal to their plain versions ``_keep_mask_batched``,
-``_forward_list_plain`` and ``_backtrack_plain``, which the CPU runs);
-what feeds them (the emissions, the transition blocks of every step at
-once) is a fixed number of tensor operations on either device.
+``_lattice_prep`` followed by ``_forward_list_plain``, and
+``_backtrack_plain``, which the CPU runs): the forward kernel reads the
+candidates and the reach tables and looks up each step's transition
+block itself, as the batched decode's kernel does; on the CPU
+``_lattice_prep`` builds every step's block at once (a fixed number of
+tensor operations).
 Divisions are by 0-d tensors: a true division, never a multiplication by
 a reciprocal. Orders are the reference's: an argmin takes the first
 minimal index, and where the JAX package sorts (``jnp.argsort``, stable)
@@ -66,7 +69,10 @@ _LAUNCH_LOCK = threading.Lock()
 # (kMaxK in kernels/lattice.cu); its path count R runs from 1 to K (the
 # exact form runs R = max_candidates = K).
 LATTICE_MAX_K = 64
-LATTICE_BACKTRACK_THREADS = 128   # the backtrack's CTA: a path a thread
+# The most paths the backtrack kernel walks at once (kMaxPaths in
+# kernels/lattice.cu: a thread a path in one CTA): the terminal form asks
+# for K, the exact one for R <= K, so at most LATTICE_MAX_K.
+LATTICE_MAX_PATHS = LATTICE_MAX_K
 # Launches of the ranked-path lattice's kernels, keyed by kernel ("keep",
 # "forward", "backtrack"; a key appears at its first launch). Each wrapper
 # adds one per launch, under _LAUNCH_LOCK, and nothing else does;
@@ -489,8 +495,9 @@ def _lattice_inputs(cands: CandidateSet, points, keep, tables, c: _Consts):
     active point before t, BIG past the breakage distance). Step t's
     block is the reference scan's, op for op: its previous point is the
     last active one (point 0 before any). A fixed number of tensor
-    operations on either device; ``_route`` holds [T, K, K, M]
-    temporaries (M the reach row's width)."""
+    operations; ``_route`` holds [T, K, K, M] temporaries (M the reach
+    row's width). The CPU's path, and what the forward kernel, which
+    looks the blocks up itself, is held to on a card."""
     T = cands.edge.shape[0]
     active = keep & cands.valid.any(dim=1)
     idx = torch.arange(T, device=points.device)
@@ -518,27 +525,44 @@ def _lattice_prep(cands: CandidateSet, points, keep, tables,
             *_lattice_inputs(cands, points, keep, tables, c))
 
 
-def lattice_smem_bytes(K: int, R: int) -> int:
+def lattice_smem_bytes(K: int, R: int, chunk: int) -> int:
     """Shared memory of the forward kernel (``Layout`` in
-    kernels/lattice.cu, each array rounded up to 16 bytes): the carried
-    scores [K, R] and the staged step (transition block [K, K], emissions
-    [K]) twice over, the merge's heads (values f32 and ranks u8 [K, K]),
-    its picks (values f32 and states i32 [R, K | 1]) and the two flag
-    words. Nothing grows with T. The launch checks this figure against
-    the kernel's own layout."""
+    kernels/lattice.cu, each array rounded up to 16 bytes): two chunk
+    buffers, each the chunk's transition blocks f32 [C, K, K], its
+    candidate rows [(C + 1), K] (five 4-byte fields, a flag and the
+    looked-up slots' list; row 0 the carry) with a u64 mask a row, five
+    4-byte and three 1-byte fields a step and four words; the carried
+    scores [K, R | 1] twice (rows of odd pitch); at R > 1 the level's
+    backpointers i32 [K, R | 1] and the merge's loser trees (u64 [N, W]:
+    N = K up to a power of two, W = K up to a multiple of 16); the own
+    reduction's eight words. Nothing grows with T. The launch checks this
+    figure against the kernel's own layout."""
     def a16(n):
         return -(-n // 16) * 16
 
-    pitch = K | 1
-    return (2 * a16(4 * K * R) + 2 * a16(4 * K * K) + 2 * a16(4 * K)
-            + a16(4 * K * K) + a16(K * K) + 2 * a16(4 * R * pitch) + a16(8))
+    rows = (chunk + 1) * K
+    buf = (a16(4 * chunk * K * K) + 5 * a16(4 * rows) + 2 * a16(rows)
+           + a16(8 * (chunk + 1)) + 5 * a16(4 * chunk) + 3 * a16(chunk)
+           + 16)
+    rows_r = a16(4 * K * (R | 1))
+    if R == 1:
+        return 2 * buf + 2 * rows_r + 32
+    tree = 8 * (1 << (K - 1).bit_length()) * (-(-K // 16) * 16)
+    return 2 * buf + 3 * rows_r + a16(tree) + 32
 
 
 def lattice_plan(T: int, K: int, R: int) -> dict:
     """The ranked-path lattice's forward launch at T steps, K candidates
-    and R paths a state: one CTA of ``threads`` (64 to 256, with the
-    carried state K * R: a column's merge a thread, the step's writes
-    spread over all) and its dynamic shared memory ``smem_bytes``.
+    and R paths a state, every field of which the launch passes to the
+    kernel: one CTA of ``merge_warps`` (a thread a column, K up to whole
+    warps) and ``producer_warps`` (4, 8 past K = 16: the chunks' staging,
+    control sequence and lookups, a chunk ahead), ``threads`` in all;
+    ``chunk`` steps a chunk (up to 32, and about 32,768 looked-up pairs'
+    room in the blocks [C, K, K]), the most whose two buffers fit the
+    card's shared memory with the rest of the layout (6 at K = 64 and R =
+    1, 4 at R = 64); ``smem_bytes`` the CTA's dynamic shared memory, the
+    same at every T. The kernel's instance follows R and K (the loser
+    tree's depth at R > 1).
     Raises for K outside 1..LATTICE_MAX_K, R outside 1..K, or T < 1."""
     if not 1 <= K <= LATTICE_MAX_K:
         raise ValueError(f"the lattice kernels take 1 <= K <= "
@@ -548,19 +572,74 @@ def lattice_plan(T: int, K: int, R: int) -> dict:
                          f"R={R} at K={K}")
     if T < 1:
         raise ValueError(f"the lattice kernels take T >= 1 steps, got T={T}")
-    return {"threads": min(256, max(64, 32 * -(-(K * R) // 256))),
-            "smem_bytes": lattice_smem_bytes(K, R)}
+    merge, producers = -(-K // 32), (4 if K <= 16 else 8)
+    chunk = max(1, min(32, 32768 // (K * K)))
+    while chunk > 1 and lattice_smem_bytes(K, R, chunk) > VITERBI_SMEM_MAX:
+        chunk -= 1
+    return {"chunk": chunk, "producer_warps": producers,
+            "merge_warps": merge, "threads": 32 * (producers + merge),
+            "smem_bytes": lattice_smem_bytes(K, R, chunk)}
 
 
-def _forward_list(em, active, prev_any, trans, num_paths: int):
-    """The list-Viterbi forward pass of ONE trace: on a card one launch
-    of the forward kernel (kernels/lattice.cu), on the CPU the plain
-    version; any other device raises. See ``_forward_list_plain``."""
-    dev = em.device
+def backtrack_smem_bytes(S: int, P: int, levels: int, stages: int) -> int:
+    """Shared memory of the backtrack kernel (``BtLayout`` in
+    kernels/lattice.cu, each array rounded up to 16 bytes): ``stages``
+    slots of ``levels`` levels (backpointer rows i32 [G, S], own i32 [G],
+    the started and active bytes of the 16-aligned span round them), a
+    full and a free mbarrier a slot, the walkers' staged choices i32
+    [32 a warp, 33]. The launch checks this figure against the kernel's
+    own layout."""
+    def a16(n):
+        return -(-n // 16) * 16
+
+    slot = (a16(4 * levels * S) + a16(4 * levels) + 2 * a16(levels + 32))
+    return (stages * slot + 2 * a16(8 * stages)
+            + a16(4 * 33 * 32 * -(-P // 32)))
+
+
+def backtrack_plan(T: int, S: int, P: int) -> dict:
+    """The backtrack's launch at T levels of S states and P paths: one
+    CTA of a producer warp and ceil(P / 32) walker warps (``threads``);
+    a ring of ``stages`` slots (4, else 3, else 2) of ``levels`` levels
+    (a multiple of 4, at most 64: the most that fit), the levels streamed
+    tail-first into it; ``smem_bytes`` its dynamic shared memory, the same
+    at every T. Raises for P outside 1..LATTICE_MAX_PATHS or a level too
+    wide for two slots of four levels."""
+    if not 1 <= P <= LATTICE_MAX_PATHS:
+        raise ValueError(f"the backtrack kernel takes 1 <= P <= "
+                         f"{LATTICE_MAX_PATHS} paths, got P={P}")
+    if T < 1:
+        raise ValueError(f"the lattice kernels take T >= 1 steps, got T={T}")
+    for stages in (4, 3, 2):
+        for levels in range(64, 0, -4):
+            n = backtrack_smem_bytes(S, P, levels, stages)
+            if n <= VITERBI_SMEM_MAX:
+                return {"levels": levels, "stages": stages,
+                        "threads": 32 + 32 * -(-P // 32), "smem_bytes": n}
+    raise ValueError(f"the backtrack kernel takes levels of at most about "
+                     f"25,000 states, got S={S}")
+
+
+def _forward_list(cands: CandidateSet, points, keep, tables,
+                  sigma_z: float, beta: float, max_route_factor: float,
+                  breakage_distance: float, backward_slack: float,
+                  num_paths: int):
+    """The list-Viterbi forward pass of ONE trace from its candidates
+    [T, K], points [T, 2], keep mask [T] and the reach tables: on a card
+    one launch of the forward kernel (kernels/lattice.cu), which looks up
+    the transition blocks itself; on the CPU ``_lattice_prep`` then
+    ``_forward_list_plain``; any other device raises. → (scores,
+    backptrs, started, own) as ``_forward_list_plain``, then active
+    bool [T]."""
+    args = (cands, points, keep, tables, sigma_z, beta, max_route_factor,
+            breakage_distance, backward_slack)
+    dev = cands.edge.device
     if dev.type == "cuda":
-        return _forward_list_cuda(em, active, prev_any, trans, num_paths)
+        return _forward_list_cuda(*args, num_paths)
     if dev.type == "cpu":
-        return _forward_list_plain(em, active, prev_any, trans, num_paths)
+        em, active, prev_any, trans = _lattice_prep(*args)
+        return (*_forward_list_plain(em, active, prev_any, trans,
+                                     num_paths), active)
     raise ValueError(f"unsupported device {dev}")
 
 
@@ -619,37 +698,47 @@ def _forward_list_plain(em, active, prev_any, trans, num_paths: int):
         _level_own(scores)
 
 
-def _forward_list_cuda(em, active, prev_any, trans, num_paths: int):
+def _forward_list_cuda(cands: CandidateSet, points, keep, tables,
+                       sigma_z: float, beta: float, max_route_factor: float,
+                       breakage_distance: float, backward_slack: float,
+                       num_paths: int):
     """The forward pass as one launch of kernels/lattice.cu's forward
-    kernel on the current stream of em's card (one CTA, the plan's
-    threads and shared memory): allocates the four outputs, launches
-    (``build.launch_lattice_forward`` checks the tensors) and counts the
-    launch. Nothing here waits for the card. The kernel's K-way merge reads each carried row as ascending,
-    which every row the pass writes is (a best-first list plus one
-    emission, a restart [em, BIG, ...] or the BIG start); it is not
-    checked here."""
+    kernel on the current stream of the candidates' card (one CTA, the
+    plan's warps, chunk and shared memory): allocates the five outputs,
+    launches (``build.launch_lattice_forward`` checks the tensors) and
+    counts the launch. Nothing here waits for the card; no [T, K, K]
+    block is made. The kernel binary-searches each reach row in the order
+    ``tiles.tileset.host_tables`` holds every staged dict to, and its
+    K-way merge reads each carried row as ascending, which every row the
+    pass writes is (a best-first list plus one emission, a restart [em,
+    BIG, ...] or the BIG start); neither is checked here."""
     from reporter_tpu_torch.kernels import build
     from reporter_tpu_torch.utils import profiling
 
-    if em.dim() != 2:
-        raise ValueError(f"the lattice forward kernel: expected em [T, K], "
-                         f"got {tuple(em.shape)}")
-    T, K = (int(x) for x in em.shape)
+    if cands.edge.dim() != 2:
+        raise ValueError(f"the lattice forward kernel: expected candidates "
+                         f"[T, K], got {tuple(cands.edge.shape)}")
+    T, K = (int(x) for x in cands.edge.shape)
     R = int(num_paths)
     plan = lattice_plan(T, K, R)
-    dev = em.device
-    em, active, prev_any, trans = (x.contiguous() for x in
-                                   (em, active, prev_any, trans))
+    dev = cands.edge.device
+    ce, co, cd, cv = (x.contiguous() for x in cands)
+    tab = [tables[k].contiguous() for k in ("edge_len", "reach_row",
+                                            "reach_to", "reach_dist")]
     scores = torch.empty((T, K * R), dtype=torch.float32, device=dev)
     backptrs = torch.empty((T, K * R), dtype=torch.int32, device=dev)
     started = torch.empty((T,), dtype=torch.bool, device=dev)
     own = torch.empty((T,), dtype=torch.int32, device=dev)
+    active = torch.empty((T,), dtype=torch.bool, device=dev)
     # a span of a device_trace capture (a no-op outside one)
     with profiling.annotate("lattice_forward_kernel"):
-        build.launch_lattice_forward(em, active, prev_any, trans, R, plan,
-                                     scores, backptrs, started, own)
+        build.launch_lattice_forward(
+            ce, co, cd, cv, points.contiguous(), keep.contiguous(), *tab, R,
+            plan, 2.0 * sigma_z ** 2, beta, max_route_factor,
+            breakage_distance, backward_slack, scores, backptrs, started,
+            own, active)
     _count("forward")
-    return scores, backptrs, started, own
+    return scores, backptrs, started, own, active
 
 
 def _backtrack(backptrs, started, active, own, seed):
@@ -694,19 +783,26 @@ def _backtrack_plain(backptrs, started, active, own, seed):
 
 def _backtrack_cuda(backptrs, started, active, own, seed):
     """The reverse pass as one launch of kernels/lattice.cu's backtrack
-    kernel (a path a thread, T levels down, CTAs of
-    LATTICE_BACKTRACK_THREADS) on the current stream of the tensors'
-    card: allocates the states, launches (``build.launch_lattice_
-    backtrack`` checks the tensors) and counts the launch."""
+    kernel (a path a thread in one CTA, the levels streamed through
+    shared memory: ``backtrack_plan``) on the current stream of the
+    tensors' card: allocates the states, launches
+    (``build.launch_lattice_backtrack`` checks the tensors) and counts
+    the launch. The kernel's bulk copies read the four level arrays from
+    16-aligned addresses: one that is not (a view) is cloned first."""
     from reporter_tpu_torch.kernels import build
 
-    states = torch.empty((seed.shape[0], backptrs.shape[0]),
-                         dtype=torch.int32, device=backptrs.device)
-    build.launch_lattice_backtrack(
-        *(x.contiguous() for x in (backptrs, started, active, own, seed)),
-        LATTICE_BACKTRACK_THREADS, states)
-    if states.numel():
-        _count("backtrack")
+    T, S = (int(x) for x in backptrs.shape)
+    P = int(seed.shape[0])
+    states = torch.empty((P, T), dtype=torch.int32, device=backptrs.device)
+    if P == 0 or T == 0:
+        return states
+    plan = backtrack_plan(T, S, P)
+    levels = []
+    for x in (backptrs, started, active, own):
+        x = x.contiguous()
+        levels.append(x.clone() if x.data_ptr() % 16 else x)
+    build.launch_lattice_backtrack(*levels, seed.contiguous(), plan, states)
+    _count("backtrack")
     return states
 
 
@@ -760,11 +856,9 @@ def viterbi_topk_paths(cands: CandidateSet, points, valid_pt, tables,
     are one launch each of kernels/lattice.cu; on the CPU their plain
     versions; any other device raises."""
     keep = interpolation_keep_mask(points, valid_pt, interpolation_distance)
-    em, active, prev_any, trans = _lattice_prep(
+    scores, backptrs, started, own, active = _forward_list(
         cands, points, keep, tables, sigma_z, beta, max_route_factor,
-        breakage_distance, backward_slack)
-    scores, backptrs, started, own = _forward_list(em, active, prev_any,
-                                                   trans, 1)
+        breakage_distance, backward_slack, 1)
     final = scores[-1]
     order = torch.sort(final, stable=True).indices
     rank_score = final[order]
@@ -791,11 +885,9 @@ def viterbi_kbest_paths(cands: CandidateSet, points, valid_pt, tables,
     versions; any other device raises."""
     R = int(num_paths)
     keep = interpolation_keep_mask(points, valid_pt, interpolation_distance)
-    em, active, prev_any, trans = _lattice_prep(
+    scores, backptrs, started, own, active = _forward_list(
         cands, points, keep, tables, sigma_z, beta, max_route_factor,
-        breakage_distance, backward_slack)
-    scores, backptrs, started, own = _forward_list(em, active, prev_any,
-                                                   trans, R)
+        breakage_distance, backward_slack, R)
     final = scores[-1]
     order = torch.sort(final, stable=True).indices[:R]      # best R states
     rank_score = final[order]

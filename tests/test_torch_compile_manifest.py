@@ -26,6 +26,18 @@ _ORDER = "_ZN47_GLOBAL__N__7083e19d_14_sweep_exact_cu_fd8671dd18chunk_order_" \
 _VITERBI = "_ZN43_GLOBAL__N__c03b14fe_10_viterbi_cu_feaf2d0321viterbi_decode_" \
     "kernelENS_6ParamsE"
 _NAMED = "_ZN43_GLOBAL__N__946154ed_10_lattice_cu_76bfdfbc{n}{name}EPKiPKhS3_"
+_NAMED_T = ("_ZN43_GLOBAL__N__946154ed_10_lattice_cu_76bfdfbc{n}{name}I{args}E"
+            "EvNS_9FwdParamsE")
+
+
+def _named(kernel: str) -> str:
+    """A lattice.cu or grid.cu kernel's mangled name as nvcc writes it: a
+    template instance (``name<0>``) with its int arguments."""
+    if "<" not in kernel:
+        return _NAMED.format(n=len(kernel), name=kernel)
+    name, args = kernel.rstrip(">").split("<")
+    return _NAMED_T.format(n=len(name), name=name, args="".join(
+        f"Li{a.replace('-', 'n')}E" for a in args.split(",")))
 
 
 def _log(figures: dict, k: int) -> str:
@@ -42,7 +54,7 @@ def _log(figures: dict, k: int) -> str:
         elif name == "chunk_order_kernel":
             mangled = _ORDER
         else:                      # a kernel of lattice.cu or grid.cu
-            mangled = _NAMED.format(n=len(name), name=name)
+            mangled = _named(name)
         out += [
             f"ptxas info    : Compiling entry function '{mangled}' for "
             "'sm_90a'",
@@ -132,8 +144,7 @@ def test_the_lattice_and_grid_kernels_are_pinned_without_spills(lib):
         fig = cm.GOLDEN["ptxas"][lib][kernel]
         assert fig["registers"] > 0
         assert not (fig["spill_stores"] or fig["spill_loads"])
-        assert cm.kernel_name(_NAMED.format(n=len(kernel), name=kernel)) \
-            == kernel
+        assert cm.kernel_name(_named(kernel)) == kernel
     g = copy.deepcopy(cm.GOLDEN)
     g["ptxas"][lib][kernels[0]]["spill_loads"] = 4
     assert any(kernels[0] in p and "spills" in p

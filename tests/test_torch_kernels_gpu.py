@@ -698,7 +698,8 @@ def tiny_pair(cuda):
 
 def _no_plain_loops(monkeypatch):
     """Make the plain (Python-loop) versions of the lattice and grid
-    kernels raise if called: a card path that ran one fails."""
+    kernels, and the transition blocks the lattice's plain forward reads,
+    raise if called: a card path that ran one fails."""
     from reporter_tpu_torch.ops import candidates as cand
     from reporter_tpu_torch.ops import hmm
 
@@ -708,6 +709,7 @@ def _no_plain_loops(monkeypatch):
         return fn
 
     for mod, name in ((hmm, "_keep_mask_batched"),
+                      (hmm, "_lattice_prep"),
                       (hmm, "_forward_list_plain"),
                       (hmm, "_backtrack_plain"),
                       (cand, "_find_candidates_plain"),
@@ -1274,7 +1276,8 @@ def _lattice_inputs(sf_tile, k, t):
     """The lattice of one sf trace as match_topk builds it on the card, at
     width k (50 m up to K = 8, 150 m past it): a one-point trace (T = 1),
     a fleet trace (T = 120) or a 1024-point probe (T = 1024). → (points,
-    valid, the plain keep mask, em, active, prev_any, trans)."""
+    valid, the plain keep mask, the candidates, the tables, the matcher's
+    constants, then _lattice_prep's em, active, prev_any, trans)."""
     from reporter_tpu_torch.config import MatcherParams
     from reporter_tpu_torch.netgen.traces import synthesize_probe
     from reporter_tpu_torch.ops import hmm
@@ -1293,9 +1296,10 @@ def _lattice_inputs(sf_tile, k, t):
         p = MatcherParams()
         keep = hmm._keep_mask_batched(pts[:, :, None], valid[:, None],
                                       p.interpolation_distance)[:, 0]
-        _LAT_INPUTS[k, t] = (pts, valid, keep, *hmm._lattice_prep(
-            c, pts, keep, tab, p.sigma_z, p.beta, p.max_route_distance_factor,
-            300.0, p.backward_slack))
+        consts = (p.sigma_z, p.beta, p.max_route_distance_factor, 300.0,
+                  p.backward_slack)
+        _LAT_INPUTS[k, t] = (pts, valid, keep, c, tab, consts,
+                             *hmm._lattice_prep(c, pts, keep, tab, *consts))
     return _LAT_INPUTS[k, t]
 
 
@@ -1304,22 +1308,26 @@ def _lattice_inputs(sf_tile, k, t):
                                  (16, 2), (16, 16), (64, 1), (64, 2),
                                  (64, 64)])
 def test_lattice_kernels_equal_plain(sf_tile, k, r, t):
-    """The forward kernel (scores, backpointers, started, own) and the
-    backtrack kernel (every path's states) bit-equal to their plain
-    versions on the card, one launch each counted."""
+    """The forward kernel from the candidates (scores, backpointers,
+    started, own, and active) bit-equal to _lattice_prep +
+    _forward_list_plain on the card, and the backtrack kernel (every
+    path's states) to _backtrack_plain, one launch each counted."""
     from reporter_tpu_torch.ops import hmm
 
-    _, _, _, em, act, pany, trans = _lattice_inputs(sf_tile, k, t)
+    pts, _, keep, c, tab, consts, em, act, pany, trans = _lattice_inputs(
+        sf_tile, k, t)
     before = dict(hmm.LATTICE_LAUNCHES)
-    got = hmm._forward_list(em, act, pany, trans, r)
-    want = hmm._forward_list_plain(em, act, pany, trans, r)
+    got = hmm._forward_list(c, pts, keep, tab, *consts, r)
+    want = (*hmm._forward_list_plain(em, act, pany, trans, r), act)
     torch.cuda.synchronize()
-    for name, g, w in zip(("scores", "backptrs", "started", "own"), got,
-                          want):
+    for name, g, w in zip(("scores", "backptrs", "started", "own",
+                           "active"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, w), (name, int((g != w).sum()))
+    # the ranked terminal states and a -1 seed, within the kernel's paths
     seed = torch.sort(want[0][-1], stable=True).indices[:max(k, r)]
-    seed = torch.cat([seed, seed.new_full((1,), -1)]).to(torch.int32)
+    seed = torch.cat([seed[:hmm.LATTICE_MAX_PATHS - 1],
+                      seed.new_full((1,), -1)]).to(torch.int32)
     states = hmm._backtrack(want[1], want[2], act, want[3], seed)
     plain = hmm._backtrack_plain(want[1], want[2], act, want[3], seed)
     torch.cuda.synchronize()
@@ -1336,7 +1344,7 @@ def test_lattice_kernels_equal_plain(sf_tile, k, r, t):
 def test_keep_mask_kernel_equals_plain(sf_tile, t, interp):
     from reporter_tpu_torch.ops import hmm
 
-    pts, valid, _, _, _, _, _ = _lattice_inputs(sf_tile, 8, t)
+    pts, valid = _lattice_inputs(sf_tile, 8, t)[:2]
     before = hmm.LATTICE_LAUNCHES.get("keep", 0)
     got = hmm.interpolation_keep_mask(pts, valid, interp)
     want = hmm._keep_mask_batched(pts[:, :, None], valid[:, None],
@@ -1359,25 +1367,45 @@ def test_lattice_plan_smem_equals_the_kernels_layout(cuda):
 
     for k in range(1, hmm.LATTICE_MAX_K + 1):
         for r in sorted({1, 2, k} & set(range(1, k + 1))):
-            assert build.lattice_forward_smem(k, r) == \
-                hmm.lattice_smem_bytes(k, r), (k, r)
-    assert build.lattice_forward_smem(65, 1) == -1
-    assert build.lattice_forward_smem(8, 9) == -1
+            chunk = hmm.lattice_plan(1024, k, r)["chunk"]
+            assert build.lattice_forward_smem(k, r, chunk) == \
+                hmm.lattice_smem_bytes(k, r, chunk), (k, r)
+            paths = k if r == 1 else r
+            bt = hmm.backtrack_plan(1024, k * r, paths)
+            assert build.lattice_backtrack_smem(
+                k * r, paths, bt["levels"], bt["stages"]) == \
+                bt["smem_bytes"], (k, r)
+    assert build.lattice_forward_smem(65, 1, 1) == -1
+    assert build.lattice_forward_smem(8, 9, 1) == -1
+    assert build.lattice_backtrack_smem(8, 65, 4, 2) == -1
+    assert build.lattice_backtrack_smem(8, 257, 4, 2) == -1
+    assert build.lattice_backtrack_smem(8, 8, 6, 2) == -1
 
 
 def test_lattice_kernels_refuse_on_the_card(sf_tile):
     """K past 64 and R past K are refused before a launch; a wrong dtype
-    on the card raises too."""
+    on the card raises too; a backtrack's level arrays that are views off
+    the 16-byte grain are copied, not refused."""
     from reporter_tpu_torch.ops import hmm
 
-    _, _, _, em, act, pany, trans = _lattice_inputs(sf_tile, 8, 120)
+    pts, _, keep, c, tab, consts, em, act, pany, trans = _lattice_inputs(
+        sf_tile, 8, 120)
     with pytest.raises(ValueError, match="1 <= R <= K"):
-        hmm._forward_list(em, act, pany, trans, 9)
+        hmm._forward_list(c, pts, keep, tab, *consts, 9)
+    wide = c._make(x.repeat(1, 9)[:, :65] for x in c)
     with pytest.raises(ValueError, match="1 <= K <= 64"):
-        hmm._forward_list(em.repeat(1, 9)[:, :65], act, pany,
-                          trans.repeat(1, 9, 9)[:, :65, :65], 1)
-    with pytest.raises(ValueError, match="expected em as"):
-        hmm._forward_list(em.double(), act, pany, trans, 1)
+        hmm._forward_list(wide, pts, keep, tab, *consts, 1)
+    with pytest.raises(ValueError, match="expected dist as"):
+        hmm._forward_list(c._replace(dist=c.dist.double()), pts, keep, tab,
+                          *consts, 1)
+    want = hmm._forward_list_plain(em, act, pany, trans, 1)
+    seed = torch.arange(8, dtype=torch.int32, device=pts.device)
+    big = torch.cat([want[1].new_zeros(1), want[1].reshape(-1)])[1:].view(
+        want[1].shape)
+    assert big.data_ptr() % 16
+    states = hmm._backtrack(big, want[2], act, want[3], seed)
+    assert torch.equal(states, hmm._backtrack_plain(want[1], want[2], act,
+                                                    want[3], seed))
 
 
 _GRID_TILES = {}

@@ -10,12 +10,16 @@ kernels/lattice.cu) on the CPU.
   tests/test_torch_topk.py's SCORE_RTOL (XLA:CPU may fuse the
   multiply-adds the port rounds one by one).
 - numpy models of the kernels' algorithms held to the plain versions at
-  tolerance 0: the forward kernel's K-way merge against a stable sort on
-  tie-heavy rows, the whole forward kernel (merge, broken rule, each
-  level's own argmin from the row heads) against ``_forward_list_plain``
-  and the backtrack kernel against ``_backtrack_plain`` on real lattices.
-- ``lattice_plan`` at every bucket length and K up to 64; the wrappers'
-  refusals (K, R, dtype, shape, device), none of which needs nvcc.
+  tolerance 0: the K-way merge as a linear scan and as the forward
+  kernel's loser tree against a stable sort on tie-heavy rows; the whole
+  forward kernel (chunks of steps, the control sequence, each looked-up
+  pair's transition by binary search of its reach row, the merge, the
+  broken rule, each level's own argmin from the row heads) against
+  ``_lattice_prep`` + ``_forward_list_plain``, and the ring-fed backtrack
+  kernel against ``_backtrack_plain``, on real lattices.
+- ``lattice_plan`` and ``backtrack_plan`` at every bucket length and K up
+  to 64; the wrappers' refusals (K, R, P, dtype, shape, device), none of
+  which needs nvcc.
 
 The kernels themselves run on the card: tests/test_torch_kernels_gpu.py.
 """
@@ -73,7 +77,8 @@ def j_compile_network_tiny():
 def _trace(jts, kind: str):
     """(xy [n, 2] f32, valid [n]) of one case: a 40-point drive, two
     drives farther apart than BREAKAGE, a drive with every point invalid,
-    or one point."""
+    one point, or a drive whose points 5, 10, ..., 35 and 32 are invalid
+    (the first rows of chunks of 5 and 32 steps)."""
     if kind == "break":
         a = synthesize_probe(jts, seed=8, num_points=20, gps_sigma=2.0).xy
         b = synthesize_probe(jts, seed=31, num_points=20, gps_sigma=2.0).xy
@@ -84,6 +89,9 @@ def _trace(jts, kind: str):
         xy = synthesize_probe(jts, seed=13, num_points=max(n, 2),
                               speed_mps=12.0, gps_sigma=3.0).xy[:n]
     valid = np.full(len(xy), kind != "inactive")
+    if kind == "gaps":
+        valid[5::5] = False
+        valid[32] = False
     return xy.astype(F32), valid
 
 
@@ -247,90 +255,329 @@ def test_merge_equals_the_stable_sort(k, kind):
             np.testing.assert_array_equal(got[1], t.indices[:r].numpy())
 
 
-def forward_model(em, active, prev_any, trans, R):
-    """The forward kernel step by step in numpy: the merge per column,
-    the broken rule from the columns' first picks, the carry and level
-    writes, each level's own state from the first minimal row head.
-    → (scores, backptrs, started, own), as _forward_list_plain."""
-    T, K = em.shape
+@pytest.mark.parametrize("kind", ["ties", "equal", "big", "restart",
+                                  "spent"])
+@pytest.mark.parametrize("k", [1, 5, 7, 12, 64])
+def test_tree_merge_equals_the_stable_sort(k, kind):
+    """The loser tree's picks are the stable sort's (torch.sort(stable=
+    True), lax.top_k): the same values and flat states wherever the value
+    is below BIG, (BIG, -1) past it, at R = 1, 2 and K, on rows of equal
+    heads, tie-heavy rows, BIG rows, restarts and rows that run out."""
+    rng = np.random.default_rng(k * 11 + len(kind))
+    for trial in range(6 if k == 64 else 20):
+        for r in sorted({1, 2, k} & set(range(1, k + 1))):
+            if kind == "spent":
+                score = np.full((k, r), BIG, F32)
+                score[:2] = np.sort(rng.integers(0, 3, (min(k, 2), r)),
+                                    axis=1)
+            else:
+                score = _rows(rng, k, r, kind)
+            col = rng.integers(0, 3, k).astype(F32)
+            col[rng.random(k) < 0.2] = F32(BIG)
+            vals, idx = tree_merge(score, col, r)
+            want_v, want_i = _stable(score, col, r)
+            low = want_v < BIG
+            np.testing.assert_array_equal(vals[low], want_v[low])
+            np.testing.assert_array_equal(idx[low], want_i[low])
+            assert (vals[~low] == F32(BIG)).all() and (idx[~low] == -1).all()
+
+
+def tree_merge(score: np.ndarray, col: np.ndarray, r: int):
+    """The forward kernel's selection for one column at R > 1 (and any
+    K): a loser tree over the K row heads, each head the key (f32 bits <<
+    32 | cp << 6 | rank), K padded to a power of two with keys that lose
+    every tie, built bottom-up (losers in the heap nodes, the winner
+    returned); a pick takes the winner, advances its row (a spent row's
+    key loses every tie) and replays its leaf-to-root path. Picks stop at
+    the first value >= BIG: the rest are (BIG, -1). → (values [r], flat
+    states cp * R + rank [r])."""
+    K, R = score.shape
+    N = 1 << max(K - 1, 0).bit_length() if K > 1 else 1
+    spent = (1 << 64) - 1
+
+    def key(v, cp, rank):
+        bits = int(np.array(v, F32).view(np.uint32))
+        return (bits << 32) | (cp << 6) | rank
+
+    def head(cp, rank):
+        return key(F32(score[cp, rank] + col[cp]), cp, rank)
+
+    tree = [spent] * max(N, 1)
+
+    def build(lo, n, node):
+        if n == 1:
+            return head(lo, 0) if lo < K else spent
+        a = build(lo, n // 2, 2 * node)
+        b = build(lo + n // 2, n // 2, 2 * node + 1)
+        tree[node] = max(a, b)
+        return min(a, b)
+
+    x = build(0, N, 1)
+    vals, idx = [], []
+    done = False
+    for q in range(r):
+        v = np.array(x >> 32, np.uint32).view(F32)[()] if x != spent \
+            else F32(np.inf)
+        if done or not v < BIG:
+            done = True
+            vals.append(F32(BIG))
+            idx.append(-1)
+            continue
+        cp, rank = (x & 0xffffffff) >> 6, x & 63
+        vals.append(F32(v))
+        idx.append(cp * R + rank)
+        k = head(cp, rank + 1) if rank + 1 < R else spent
+        node = (N + cp) >> 1
+        while node >= 1:
+            if tree[node] < k:
+                tree[node], k = k, tree[node]
+            node >>= 1
+        x = k
+    return np.array(vals, F32), np.array(idx)
+
+
+def _search(row: np.ndarray, key: int) -> int:
+    """The kernels' binary search of an ascending reach row (-1 padding
+    read as unsigned past every id): halving steps from the largest power
+    of two <= M; the index of key, or -1."""
+    M = len(row)
+    top = 1 << (M.bit_length() - 1)
+    pos, hit, step = -1, -1, top
+    u = row.astype(np.int64) & 0xffffffff
+    while step:
+        at = pos + step
+        if at < M:
+            if u[at] < key:
+                pos = at
+            elif u[at] == key:
+                hit = at
+        step >>= 1
+    return hit
+
+
+def _transition(e1, len1, o1, e2, o2, gap, gc, beta, factor, slack):
+    """route.cuh's transition_cost in f32, an operation at a time."""
+    limit = F32(F32(factor * gc) + F32(10.0))
+    cross = F32(F32(F32(len1 - o1) + gap) + o2)
+    same = e1 == e2 and o2 >= F32(o1 - slack)
+    direct = max(F32(o2 - o1), F32(0.0))
+    route = min(direct, cross) if same else cross
+    if route < BIG and route <= limit:
+        return F32(abs(F32(route - gc)) / beta)
+    return F32(BIG)
+
+
+def forward_model(cands, pts, keep, tables, consts, R, chunk):
+    """The forward kernel in numpy, chunk by chunk of ``chunk`` steps as
+    its producer warps fill them: row 0 the carry (the last active
+    point's candidates before the chunk), the control sequence (active,
+    gc from the previous active point, prev_any, the step's looked-up
+    pairs), each looked-up pair's transition by binary search of its
+    reach row (the rest BIG); then the merge warps' steps: a column's
+    first argmin at R = 1, its loser tree at R > 1, the broken rule from
+    the columns' first picks, the carry and the level, each level's own
+    state from the first minimal row head. → (scores, backptrs, started,
+    own, active), as _forward_list_plain and _lattice_prep's active."""
+    sigma_z, beta, factor, breakage, slack = consts
+    beta, factor, breakage, slack = (F32(x) for x in (beta, factor,
+                                                      breakage, slack))
+    denom = F32(2.0 * sigma_z ** 2)
+    ce, co, cd, cv = (np.asarray(x) for x in cands)
+    T, K = ce.shape
+    to, dist = np.asarray(tables["reach_to"]), np.asarray(tables["reach_dist"])
+    row_of = np.asarray(tables["reach_row"])
+    elen = np.asarray(tables["edge_len"])
+    dv = np.where(cv, cd, F32(0.0)).astype(F32)
+    em = np.where(cv, (dv * dv).astype(F32) / denom, F32(BIG)).astype(F32)
     cur = np.full((K, R), BIG, F32)
     scores = np.zeros((T, K * R), F32)
     backptrs = np.zeros((T, K * R), np.int32)
     started = np.zeros(T, bool)
     own = np.zeros(T, np.int32)
-    for t in range(T):
-        nxt = cur.copy()
-        bp = np.arange(K * R, dtype=np.int32).reshape(K, R)
-        if active[t]:
-            picks = [merge_select(cur, trans[t, :, c], R) for c in range(K)]
-            broken = not any(v[0] < BIG for v, _ in picks) or not prev_any[t]
+    active = np.zeros(T, bool)
+    carry = -1                    # the last active step (its candidates)
+    px, py = F32(pts[0, 0]), F32(pts[0, 1])
+    prev_any = False
+    own_cur = -1
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+        # the control sequence, then the chunk's looked-up pairs' blocks
+        trans = np.full((n, K, K), BIG, F32)
+        flags = []
+        for s in range(n):
+            t = t0 + s
+            act = bool(keep[t]) and bool(cv[t].any())
+            gx, gy = F32(F32(pts[t, 0]) - px), F32(F32(pts[t, 1]) - py)
+            gc = np.sqrt(F32(F32(gx * gx) + F32(gy * gy)))
+            look = act and prev_any and gc <= breakage
+            if look:
+                for i in range(K):
+                    if not (cv[carry, i] and ce[carry, i] >= 0):
+                        continue
+                    e1 = int(ce[carry, i])
+                    r1 = int(row_of[e1])
+                    for j in range(K):
+                        if not (cv[t, j] and ce[t, j] >= 0):
+                            continue
+                        hit = _search(to[r1], int(ce[t, j]))
+                        gap = min(F32(BIG), F32(dist[r1, hit])) \
+                            if hit >= 0 else F32(BIG)
+                        trans[s, i, j] = _transition(
+                            e1, F32(elen[e1]), F32(co[carry, i]),
+                            int(ce[t, j]), F32(co[t, j]), gap, gc, beta,
+                            factor, slack)
+            flags.append((act, look))
+            active[t] = act
+            if act:
+                px, py = F32(pts[t, 0]), F32(pts[t, 1])
+                prev_any, carry = True, t
+        for s in range(n):
+            t = t0 + s
+            act, look = flags[s]
+            if not act:
+                scores[t] = cur.reshape(-1)
+                backptrs[t] = np.arange(K * R)
+                started[t], own[t] = False, own_cur
+                continue
+            nxt = np.full((K, R), BIG, F32)
+            bp = np.full((K, R), -1, np.int32)
+            picks = []
+            for c in range(K):
+                col = trans[s, :, c]
+                if R == 1:
+                    via = (cur[:, 0] + col).astype(F32)
+                    arg = int(np.argmin(via))
+                    picks.append((np.array([via[arg]], F32),
+                                  np.array([arg])))
+                else:
+                    picks.append(tree_merge(cur, col, R))
+            broken = not look or not any(v[0] < BIG for v, _ in picks)
             for c, (v, i) in enumerate(picks):
+                if broken:
+                    nxt[c, 0] = em[t, c]
+                    continue
                 for r in range(R):
-                    if broken:
-                        nxt[c, r] = em[t, c] if r == 0 else BIG
-                        bp[c, r] = -1
-                    elif v[r] < BIG:
+                    if v[r] < BIG:
                         nxt[c, r] = F32(v[r] + em[t, c])
                         bp[c, r] = i[r]
-                    else:
-                        nxt[c, r] = BIG
-                        bp[c, r] = -1
-            started[t] = broken
-        cur = nxt
-        scores[t], backptrs[t] = cur.reshape(-1), bp.reshape(-1)
-        heads = cur[:, 0]
-        arg = int(np.argmin(heads))
-        own[t] = arg * R if heads[arg] < BIG else -1
-    return scores, backptrs, started, own
+            cur = nxt
+            scores[t], backptrs[t] = cur.reshape(-1), bp.reshape(-1)
+            heads = cur[:, 0]
+            arg = int(np.argmin(heads))
+            own_cur = arg * R if heads[arg] < BIG else -1
+            started[t], own[t] = broken, own_cur
+    return scores, backptrs, started, own, active
 
 
-def backtrack_model(backptrs, started, active, own, seed):
-    """The backtrack kernel: a path at a time, T levels down."""
+def backtrack_model(backptrs, started, active, own, seed, levels=64,
+                    stages=4):
+    """The backtrack kernel: a producer fills blocks of ``levels`` levels
+    (tail first) into a ring of ``stages`` slots, a slot only once the
+    walkers have freed it; the walkers read each level's flags and the
+    row above from the slots (a block's started / active bytes copied from
+    its 16-aligned span, as the bulk copies do), re-seed at a chain
+    terminal, and free a block once the level below it is done. A slot
+    overwritten while still in use is an error. → states [P, T]."""
     T, S = backptrs.shape
+    G, NS = levels, stages
+    J = -(-T // G)
+    slots = [None] * NS            # (block, bp rows, own, started, active)
+    free = [True] * NS
+    issued = 0
+
+    def fill(upto):
+        nonlocal issued
+        while issued < min(upto, J):
+            slot = issued % NS
+            if not free[slot]:
+                return
+            j = J - 1 - issued
+            lo, hi = j * G, min(T, j * G + G)
+            lo8, hi8 = lo & ~15, -(-hi // 16) * 16
+            span = np.zeros(G + 32, bool), np.zeros(G + 32, bool)
+            if hi8 <= T:                  # the bulk copy's aligned span
+                span[0][:hi8 - lo8] = started[lo8:hi8]
+                span[1][:hi8 - lo8] = active[lo8:hi8]
+            else:                         # the loads of the block alone
+                span[0][lo - lo8:hi - lo8] = started[lo:hi]
+                span[1][lo - lo8:hi - lo8] = active[lo:hi]
+            slots[slot] = (j, backptrs[lo:hi].copy(), own[lo:hi].copy(),
+                           *span)
+            free[slot] = False
+            issued += 1
+
     out = np.zeros((len(seed), T), np.int32)
-    for q, s in enumerate(seed):
-        nxt, nst = int(s), False
-        for t in range(T - 1, -1, -1):
+    nxt = np.array(seed, np.int64)
+    nst = np.zeros(len(seed), bool)
+    seq = 0
+    fill(NS)
+    for t in range(T - 1, -1, -1):
+        if t < (J - 1 - seq) * G:
+            seq += 1
+            fill(seq + NS)
+        j, bp, ow, st, ac = slots[seq % NS]
+        assert j == t // G, "a slot was overwritten while in use"
+        lo, lo8 = j * G, (j * G) & ~15
+        if t + 1 < T:
+            up = seq if (t + 1) // G == j else seq - 1
+            uj, ubp = slots[up % NS][:2]
+            assert uj == (t + 1) // G, "a slot was overwritten while in use"
+            row = ubp[t + 1 - uj * G]
+        for q in range(len(seed)):
             prop = -1
-            if 0 <= nxt < S:
-                prop = nxt if t == T - 1 else int(backptrs[t + 1, nxt])
-            choice = int(own[t]) if (nst or nxt < 0) else prop
-            out[q, t] = choice if active[t] else -1
-            nxt, nst = choice, bool(started[t])
+            if 0 <= nxt[q] < S:
+                prop = nxt[q] if t == T - 1 else int(row[nxt[q]])
+            choice = int(ow[t - lo]) if (nst[q] or nxt[q] < 0) else prop
+            out[q, t] = choice if ac[t - lo8] else -1
+            nxt[q], nst[q] = choice, bool(st[t - lo8])
+        if t == lo + G - 1 and t + 1 < T:
+            free[(seq - 1) % NS] = True  # the block above is done
+            fill(seq + NS)
     return out
 
 
-@pytest.mark.parametrize("kind", ["drive", "break", "one"])
+@pytest.mark.parametrize("kind", ["drive", "break", "one", "gaps"])
 @pytest.mark.parametrize("k,r", [(1, 1), (2, 2), (8, 1), (8, 2), (8, 8),
                                  (16, 1), (16, 16)])
 def test_kernel_models_equal_the_plain_versions(tile, k, r, kind):
-    """The forward and backtrack kernels' numpy models against the plain
-    versions on the port's own lattice inputs: every output equal
-    (tolerance 0), the rows of every level ascending (the merge's
-    precondition)."""
+    """The forward kernel's numpy model (chunks of the plan's C and of 5
+    steps: T not a multiple of 5, a chain break at 20, inactive points on
+    chunks' first rows) against _lattice_prep + _forward_list_plain, and
+    the ring-fed backtrack's model against _backtrack_plain (the plan's
+    ring and one of two slots of four levels), on the port's own lattice
+    inputs: every output equal (tolerance 0), the rows of every level
+    ascending (the merge's precondition)."""
+    from reporter_tpu_torch.tiles.reach import check_rows_ascending
+
     jts, jm, tab = tile
     xy, valid = _trace(jts, kind)
     _, (pc, pp, pv, ptab) = _lattice(jm, tab, xy, valid, k)
+    check_rows_ascending(ptab["reach_to"].numpy())
     p = jm.params
+    consts = (p.sigma_z, p.beta, p.max_route_distance_factor, BREAKAGE,
+              p.backward_slack)
     keep = hmm.interpolation_keep_mask(pp, pv, 10.0)
-    em, active, prev_any, trans = hmm._lattice_prep(
-        pc, pp, keep, ptab, p.sigma_z, p.beta, p.max_route_distance_factor,
-        BREAKAGE, p.backward_slack)
+    em, active, prev_any, trans = hmm._lattice_prep(pc, pp, keep, ptab,
+                                                    *consts)
     want = hmm._forward_list_plain(em, active, prev_any, trans, r)
-    got = forward_model(em.numpy(), active.numpy(), prev_any.numpy(),
-                        trans.numpy(), r)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w.numpy())
-    rows = want[0].numpy().reshape(len(em), k, r)
+    T = len(em)
+    for chunk in sorted({hmm.lattice_plan(T, k, r)["chunk"], 5}):
+        got = forward_model(pc, pp.numpy(), keep.numpy(), ptab, consts, r,
+                            chunk)
+        for g, w in zip(got, (*want, active)):
+            np.testing.assert_array_equal(g, w.numpy())
+    rows = want[0].numpy().reshape(T, k, r)
     assert (np.diff(rows, axis=2) >= 0).all()
     seed = torch.sort(want[0][-1], stable=True).indices[:max(r, k)]
     seed = torch.cat([seed, torch.tensor([-1])]).to(torch.int32)
     states = hmm._backtrack_plain(want[1], want[2], active, want[3], seed)
-    np.testing.assert_array_equal(
-        backtrack_model(want[1].numpy(), want[2].numpy(), active.numpy(),
-                        want[3].numpy(), seed.numpy()), states.numpy())
-    assert states.dtype == torch.int32 and states.shape == (len(seed),
-                                                            len(em))
+    plan = hmm.backtrack_plan(T, k * r, len(seed))
+    for levels, stages in ((plan["levels"], plan["stages"]), (4, 2)):
+        np.testing.assert_array_equal(
+            backtrack_model(want[1].numpy(), want[2].numpy(),
+                            active.numpy(), want[3].numpy(), seed.numpy(),
+                            levels, stages), states.numpy())
+    assert states.dtype == torch.int32 and states.shape == (len(seed), T)
 
 
 # ---- the plan and the wrappers' refusals ----------------------------------
@@ -338,19 +585,33 @@ def test_kernel_models_equal_the_plain_versions(tile, k, r, kind):
 
 @pytest.mark.parametrize("t", _BUCKETS)
 def test_lattice_plan_fits_shared_memory(t):
-    """Every bucket length, K up to 64, R in {1, 2, K}: one CTA of a
-    whole number of warps (at least K threads, at most 256) whose shared
-    memory fits the card's 227 KB and does not grow with T."""
+    """Every bucket length, K up to 64, R in {1, 2, K}: the forward's CTA
+    of whole warps (a merge thread a column, 4 or 8 producer warps, at
+    most 384 threads) whose shared memory fits the card's 227 KB, is the
+    layout's at its chunk and does not grow with T; the backtrack's ring
+    for the K * R states and the paths match_topk asks (K at R = 1, R
+    else) fits too."""
     for k in range(1, hmm.LATTICE_MAX_K + 1):
         for r in sorted({1, 2, k} & set(range(1, k + 1))):
             plan = hmm.lattice_plan(t, k, r)
-            assert plan["threads"] % 32 == 0
-            assert k <= plan["threads"] <= 256
+            assert plan["threads"] == 32 * (plan["merge_warps"]
+                                            + plan["producer_warps"])
+            assert k <= 32 * plan["merge_warps"] < k + 32
+            assert plan["threads"] <= 384 and plan["chunk"] >= 1
             assert plan["smem_bytes"] <= hmm.VITERBI_SMEM_MAX
-            assert plan["smem_bytes"] == hmm.lattice_plan(1, k, r)[
-                "smem_bytes"] == hmm.lattice_smem_bytes(k, r)
-    assert hmm.lattice_plan(t, 64, 64) == {"threads": 256,
-                                           "smem_bytes": 119824}
+            assert plan == hmm.lattice_plan(1, k, r)
+            assert plan["smem_bytes"] == hmm.lattice_smem_bytes(
+                k, r, plan["chunk"])
+            paths = k if r == 1 else r
+            bt = hmm.backtrack_plan(t, k * r, paths)
+            assert bt["smem_bytes"] <= hmm.VITERBI_SMEM_MAX
+            assert bt["levels"] % 4 == 0 and bt["stages"] >= 2
+            assert bt == hmm.backtrack_plan(1, k * r, paths)
+            assert bt["smem_bytes"] == hmm.backtrack_smem_bytes(
+                k * r, paths, bt["levels"], bt["stages"])
+    assert hmm.lattice_plan(t, 64, 64) == {
+        "chunk": 4, "producer_warps": 8, "merge_warps": 2, "threads": 320,
+        "smem_bytes": 228256}
 
 
 @pytest.mark.parametrize("t,k,r", [(120, 0, 1), (120, 65, 1), (120, 8, 0),
@@ -360,11 +621,32 @@ def test_lattice_plan_refuses(t, k, r):
         hmm.lattice_plan(t, k, r)
 
 
+@pytest.mark.parametrize("t,s,p", [(120, 8, 0), (120, 8, 65), (120, 8, 257),
+                                   (0, 8, 8), (120, 60000, 8)])
+def test_backtrack_plan_refuses(t, s, p):
+    """No paths or more than LATTICE_MAX_PATHS, no levels, or levels too
+    wide for two slots of four."""
+    with pytest.raises(ValueError, match="kernel"):
+        hmm.backtrack_plan(t, s, p)
+
+
 def _fwd_inputs(T=6, K=4, device="cpu"):
-    return (torch.zeros((T, K), dtype=torch.float32, device=device),
-            torch.ones(T, dtype=torch.bool, device=device),
-            torch.ones(T, dtype=torch.bool, device=device),
-            torch.zeros((T, K, K), dtype=torch.float32, device=device))
+    """A lattice's inputs as the forward wrapper takes them: candidates
+    [T, K], points [T, 2], the keep mask [T], reach tables and the
+    matcher's constants."""
+    cands = CandidateSet(
+        torch.zeros((T, K), dtype=torch.int32, device=device),
+        torch.zeros((T, K), dtype=torch.float32, device=device),
+        torch.zeros((T, K), dtype=torch.float32, device=device),
+        torch.ones((T, K), dtype=torch.bool, device=device))
+    tables = {"edge_len": torch.ones(3, device=device),
+              "reach_row": torch.zeros(3, dtype=torch.int32, device=device),
+              "reach_to": torch.full((1, 4), -1, dtype=torch.int32,
+                                     device=device),
+              "reach_dist": torch.zeros((1, 4), device=device)}
+    return (cands, torch.zeros((T, 2), device=device),
+            torch.ones(T, dtype=torch.bool, device=device), tables,
+            4.07, 3.0, 5.0, 300.0, 10.0)
 
 
 def test_the_forward_wrapper_refuses_bad_k_and_r():
@@ -379,50 +661,61 @@ def _outputs(T, K, R):
     return (torch.empty((T, K * R)), torch.empty((T, K * R),
                                                  dtype=torch.int32),
             torch.empty(T, dtype=torch.bool),
-            torch.empty(T, dtype=torch.int32))
+            torch.empty(T, dtype=torch.int32),
+            torch.empty(T, dtype=torch.bool))
 
 
 def test_the_lattice_launchers_refuse_dtype_shape_and_device():
     """Each launcher checks its tensors before it builds: a wrong dtype,
     a wrong shape, then (all else right) tensors off the card."""
-    em, act, pany, trans = _fwd_inputs()
+    cands, pts, keep, tab, *consts = _fwd_inputs()
     plan = hmm.lattice_plan(6, 4, 2)
     out = _outputs(6, 4, 2)
-    with pytest.raises(ValueError, match="expected em as"):
-        build.launch_lattice_forward(em.double(), act, pany, trans, 2, plan,
-                                     *out)
-    with pytest.raises(ValueError, match="expected trans as"):
-        build.launch_lattice_forward(em, act, pany, trans[:, :3], 2, plan,
-                                     *out)
+    tabs = [tab[k] for k in ("edge_len", "reach_row", "reach_to",
+                             "reach_dist")]
+
+    def fwd(c, k=keep, R=2, o=out):
+        build.launch_lattice_forward(*c, pts, k, *tabs, R, plan, *consts,
+                                     *o)
+
+    with pytest.raises(ValueError, match="expected dist as"):
+        fwd(cands._replace(dist=cands.dist.double()))
+    with pytest.raises(ValueError, match="expected offset as"):
+        fwd(cands._replace(offset=cands.offset[:, :3]))
+    with pytest.raises(ValueError, match="expected keep as"):
+        fwd(cands, k=keep[:5])
     with pytest.raises(ValueError, match="expected scores as"):
-        build.launch_lattice_forward(em, act, pany, trans, 3, plan, *out)
+        fwd(cands, R=3)
     with pytest.raises(ValueError, match="on the card"):
-        build.launch_lattice_forward(em, act, pany, trans, 2, plan, *out)
-    _, bp, st, own = out
+        fwd(cands)
+    _, bp, st, own, act = out
     seed = torch.zeros(3, dtype=torch.int32)
     states = torch.empty((3, 6), dtype=torch.int32)
+    bt_plan = hmm.backtrack_plan(6, 8, 3)
     with pytest.raises(ValueError, match="expected seed as"):
-        build.launch_lattice_backtrack(bp, st, act, own, seed.long(), 128,
-                                       states)
+        build.launch_lattice_backtrack(bp, st, act, own, seed.long(),
+                                       bt_plan, states)
     with pytest.raises(ValueError, match="expected out as"):
-        build.launch_lattice_backtrack(bp, st, act, own, seed, 128,
+        build.launch_lattice_backtrack(bp, st, act, own, seed, bt_plan,
                                        states[:, :5])
     with pytest.raises(ValueError, match="on the card"):
-        build.launch_lattice_backtrack(bp, st, act, own, seed, 128, states)
-    pts = torch.zeros((1, 6, 2))
-    keep = torch.empty((1, 6), dtype=torch.bool)
+        build.launch_lattice_backtrack(bp, st, act, own, seed, bt_plan,
+                                       states)
+    pts3 = torch.zeros((1, 6, 2))
+    keep3 = torch.empty((1, 6), dtype=torch.bool)
     with pytest.raises(ValueError, match="expected valid_pt as"):
-        build.launch_lattice_keep(pts, act[None].int(), 10.0, keep)
+        build.launch_lattice_keep(pts3, act[None].int(), 10.0, keep3)
     with pytest.raises(ValueError, match="on the card"):
-        build.launch_lattice_keep(pts, act[None], 10.0, keep)
+        build.launch_lattice_keep(pts3, act[None], 10.0, keep3)
 
 
 def test_the_dispatch_refuses_other_devices():
     """A tensor that lies neither on a card nor on the CPU raises, as the
     batched decode's dispatch does."""
-    em, act, pany, trans = _fwd_inputs(device="meta")
+    args = _fwd_inputs(device="meta")
+    act = args[2]
     with pytest.raises(ValueError, match="unsupported device"):
-        hmm._forward_list(em, act, pany, trans, 1)
+        hmm._forward_list(*args, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         hmm._backtrack(torch.empty((6, 4), dtype=torch.int32, device="meta"),
                        act, act, act.int(), act[:2].int())
