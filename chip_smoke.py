@@ -136,6 +136,21 @@ the native host half against its Python forms, in phases:
                 paths equal the CPU port's, scores ascending, rank 0 one
                 path in both forms, exact dominating terminal, a longer
                 trace refused, only the tuned instance launched;
+     wide     — past K = 64, which the JAX package serves: [wide:decode]
+                matchers at K = 96 and 128 (the Viterbi's wide instance
+                1) and 256 (instance 2) at WIDE_RADIUS, and at K = 96 at
+                LONG_LIST_RADIUS (lists past 64 edges), serve the 1024
+                traces (main-path windows sf:k<K>, sf:k96@250m), their
+                first WIDE_CPU_TRACES records equal the CPU's, the kernel
+                bit-equal to its plain version on the whole first wire
+                slice, with ms, back to back, plain ms and bound;
+                [wide:topk] match_topk at K = 96 on the
+                TOPK_LONG_POINTS-point probe, both forms equal to the
+                CPU's, launching the keep mask, the forward's wide
+                instance and the backtrack's ring and in-place instances
+                (window sf:topk96); the lattice's wide kernels against
+                their plain versions are [kernel:lattice]'s K = 96 lines
+                (at WIDE_RADIUS and LONG_LIST_RADIUS);
      restrict — sf with add_random_restrictions at its defaults (122
                 restrictions, 329 banned pairs): [restrict:tiles] the
                 compile (C++ node rows, the ban-affected node rows and one
@@ -442,9 +457,13 @@ the native host half against its Python forms, in phases:
                 the host library among them; the topology's workers'
                 launches by member; the sf:topk, sf:grid, fleet and mesh:*
                 windows in every entry's launches_by_path), a
-                viterbi_decode_k<K> entry per K of [kernel:viterbi] (its
-                launches at that K in the main-path windows; none is an
-                error), the card line,
+                viterbi_decode_k<K> entry per K of [kernel:viterbi] and
+                [wide:decode] (its launches at that K in the main-path
+                windows; none is an error), the lattice's keep, forward
+                and backtrack entries and their wide instances'
+                (lattice_forward_wide, lattice_backtrack_global:
+                [kernel:lattice] at K = 96,
+                launched in sf:topk96), grid_candidates, the card line,
                 and the final {"ok": true, "device": {...}} line.
 
 Any failed phase raises and the script exits non-zero without the final
@@ -634,9 +653,19 @@ LATTICE_KERNELS = {
 }
 GRID_REPLACES = ("reporter_tpu/ops/candidates.py:117 _topk_distinct_edges "
                  "in find_candidates :139 (lax.scan, vmapped; not Pallas)")
-LATTICE_CASES = ((8, None, (1, 8)), (64, WIDE_RADIUS, (1, 64)))
+LONG_LIST_RADIUS = 250.0      # [wide:decode], [kernel:lattice]: sf's
+#                               lists run past 64 edges here (up to some
+#                               90), so a wide instance's second mask word,
+#                               its list entries past 63 and a merge of
+#                               more than 64 live heads carry candidates;
+#                               the phases fail unless a list is over 64
+LATTICE_CASES = ((8, None, (1, 8)), (64, WIDE_RADIUS, (1, 64)),
+                 (96, WIDE_RADIUS, (1, 96)), (96, LONG_LIST_RADIUS, (1, 96)))
 #                               [kernel:lattice]: (K, radius, the R run);
 #                               T = 128 and 1024 at K = 8, 1024 at K = 64
+#                               and 96 (the wide forward, the backtrack's
+#                               ring of three walker warps at R = 1 and its
+#                               levels read in place at R = 96)
 GRID_CASES = ((8, None), (64, WIDE_RADIUS))   # [kernel:grid]: (K, radius)
 LATTICE_OPS_PER_KEEP = 6      # a point of the keep mask: 2 sub, 2 mul, add,
 #                               compare
@@ -648,6 +677,13 @@ VITERBI_REPLACES = ("reporter_tpu/ops/hmm.py:112 viterbi_decode_batched "
 VITERBI_CASES = ((8, None), (16, WIDE_RADIUS), (32, WIDE_RADIUS),
                  (64, WIDE_RADIUS))   # [kernel:viterbi]: (K, search radius;
 #                               None the default 50 m)
+WIDE_DECODE_CASES = ((96, WIDE_RADIUS), (128, WIDE_RADIUS),
+                     (256, WIDE_RADIUS), (96, LONG_LIST_RADIUS))
+#                               [wide:decode]: (K, search radius) past K =
+#                               64 (Viterbi instances 1, 1, 2, 1)
+WIDE_PLAIN_SLICE = 128        # the plain version's traces at once
+WIDE_CPU_TRACES = 4           # [wide:decode]: records held to the CPU's
+WIDE_TOPK_K = 96              # [wide:topk]: match_topk's K
 VITERBI_OPS_PER_LOOKUP = 2    # a reach-row entry read: a compare and a
 #                               select (a probe of the binary search, or an
 #                               entry of a linear scan)
@@ -1521,6 +1557,174 @@ def viterbi_phase(card, m, traces):
         if not got.matched.any():
             raise SystemExit(f"the Viterbi kernel matched nothing at K={k}")
         out[k] = rec
+    return out
+
+
+def _plain_sliced(args, n):
+    """hmm._viterbi_plain over the batch of ``args`` in slices of n traces
+    (each trace decodes alone, so the slices' fields joined are the whole
+    batch's): the plain version's [K, K, B, M] steps within the card's
+    memory at wide K."""
+    from reporter_tpu_torch.ops import hmm
+    from reporter_tpu_torch.ops import match as match_ops
+
+    cands, bpts, bval, *rest = args
+    parts = [hmm._viterbi_plain(
+        match_ops.CandidateSet(*(x[i:i + n] for x in cands)), bpts[i:i + n],
+        bval[i:i + n], *rest) for i in range(0, bpts.shape[0], n)]
+    return hmm.ViterbiResult(*(torch.cat(f) for f in zip(*parts)))
+
+
+def wide_decode_phase(card, ts, traces, win):
+    """[wide:decode]: the card past K = 64, where the JAX package serves
+    any K. For each (K, radius) of WIDE_DECODE_CASES (the Viterbi's wide
+    instance 1 at K = 96 and 128, instance 2 at 256; at LONG_LIST_RADIUS
+    the longest list must be over 64): a matcher at that K and radius
+    serves the 1024 traces through match_many in a main-path window
+    (``sf:k<K>``, ``sf:k<K>@250m``: the Viterbi launched at K), its first
+    WIDE_CPU_TRACES records equal a CPU matcher's; the kernel against
+    its plain version (in slices of WIDE_PLAIN_SLICE traces, one run,
+    timed) on the whole first wire slice: mismatches per field (all must
+    be 0), ms, back to back, the plain version's ms, the bound
+    (viterbi_work), the plan, the longest list, the seconds. Then
+    match_topk at WIDE_TOPK_K on the TOPK_LONG_POINTS-point probe,
+    terminal (R = 1) and exact (R = K), in a main-path window
+    (``sf:topk96``: the keep mask, the forward's wide instance and the
+    backtrack's ring and levels read in place), each equal to a CPU
+    matcher's (paths and offsets exact, scores within TOPK_SCORE_RTOL, as
+    [topk] holds them), with its ms. → {K: the WIDE_RADIUS record, that
+    at LONG_LIST_RADIUS under "long_lists"} for the kernels line's
+    Viterbi entries."""
+    from reporter_tpu_torch.config import MatcherParams
+    from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
+    from reporter_tpu_torch.netgen.traces import synthesize_probe
+    from reporter_tpu_torch.ops import hmm
+    from reporter_tpu_torch.ops import match as match_ops
+
+    t_all = time.perf_counter()
+    out = {}
+    for k, radius in WIDE_DECODE_CASES:
+        t_k = time.perf_counter()
+        path = f"sf:k{k}" if radius == WIDE_RADIUS \
+            else f"sf:k{k}@{radius:g}m"
+        p = MatcherParams(sweep_autotune=False, max_candidates=k,
+                          search_radius=radius)
+        mk = SegmentMatcher(ts, p)
+        mk.match_many(traces[:WIDE_CPU_TRACES])      # the build, a warm-up
+        t0 = time.perf_counter()
+        recs, _ = win.run(path, lambda: mk.match_many(traces))
+        batch_s = time.perf_counter() - t0
+        launched = win.viterbi_by_path[path].get(k, 0)
+        cpu = SegmentMatcher(ts, p, device="cpu").match_many(
+            traces[:WIDE_CPU_TRACES])
+        cpu_equal = json_records(cpu) == json_records(
+            recs[:WIDE_CPU_TRACES])
+        _, bpts, bval = first_slice(mk, traces)
+        cands = match_ops.batch_candidates(bpts, bval, mk.tables, p)
+        longest = int(cands.valid.sum(-1).max())
+        args = (cands, bpts, bval, mk.tables, p.sigma_z, p.beta,
+                p.max_route_distance_factor, p.breakage_distance,
+                p.backward_slack, p.interpolation_distance)
+        got = hmm.viterbi_decode_batched(*args)
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(
+            _plain_sliced(args, WIDE_PLAIN_SLICE)), reps=1, warmup=0)
+        want = plain[0]
+        torch.cuda.synchronize()
+        mism = {f: int((getattr(got, f) != getattr(want, f)).sum())
+                for f in got._fields}
+        err = max(float((getattr(got, f).double()
+                         - getattr(want, f).double()).abs().max())
+                  for f in got._fields)
+        ms = cuda_ms(lambda: hmm.viterbi_decode_batched(*args), reps=10)
+        b2b = launch_ms(lambda: hmm.viterbi_decode_batched(*args))
+        pairs, ops, nbytes, _ = viterbi_work(
+            cands, bpts, bval, mk.tables, p.interpolation_distance,
+            p.breakage_distance)
+        bound_ms, bound_by = _bound(ops, nbytes)
+        plan = hmm.viterbi_plan(*cands.edge.shape)
+        rec = dict(ms=ms, ms_back_to_back=b2b, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                   max_abs_err=err, search_radius=radius,
+                   mismatches=sum(mism.values()),
+                   instance=plan["instance"],
+                   traces=int(bpts.shape[0]), longest_list=longest)
+        phase("wide:decode", card, metro="sf", k=k,
+              search_radius=radius, traces=int(bpts.shape[0]),
+              points=int(bval.numel()),
+              choice_mismatches=mism["choice"],
+              edge_mismatches=mism["edge"],
+              offset_mismatches=mism["offset"],
+              chain_start_mismatches=mism["chain_start"],
+              matched_mismatches=mism["matched"], max_abs_err=err, ms=ms,
+              ms_back_to_back=b2b, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=None, lattice_pairs=pairs,
+              operations=ops, bytes=nbytes, plan=plan,
+              longest_list=longest, batch_traces=len(traces),
+              batch_seconds=batch_s, viterbi_launches=launched,
+              cpu_records_equal=cpu_equal, cpu_traces=WIDE_CPU_TRACES,
+              seconds=time.perf_counter() - t_k)
+        if any(mism.values()) or err:
+            raise SystemExit(f"[wide:decode] the Viterbi's wide instance "
+                             f"differs from its plain version at K={k}: "
+                             f"{mism}")
+        if launched < 1 or not cpu_equal:
+            raise SystemExit(f"[wide:decode] K={k}: the Viterbi launched "
+                             f"{launched} times in match_many, records "
+                             f"equal to the CPU's: {cpu_equal}")
+        if not got.matched.any():
+            raise SystemExit(f"[wide:decode] nothing matched at K={k}")
+        if radius == LONG_LIST_RADIUS and longest <= 64:
+            raise SystemExit(f"[wide:decode] K={k} at {radius:g} m: the "
+                             f"longest list is {longest}, not past 64")
+        if radius == WIDE_RADIUS:
+            out[k] = rec
+        else:
+            out[k]["long_lists"] = rec
+    # ranked paths at WIDE_TOPK_K on the 1024-point probe
+    t_k = time.perf_counter()
+    p = MatcherParams(sweep_autotune=False, max_candidates=WIDE_TOPK_K,
+                      search_radius=WIDE_RADIUS)
+    mk = SegmentMatcher(ts, p)
+    pr = synthesize_probe(ts, seed=7, num_points=TOPK_LONG_POINTS)
+    long = Trace(uuid="probe", xy=pr.xy.astype(np.float32), times=pr.times)
+    mk.match_topk(long)                              # the build, a warm-up
+    walls = {}
+
+    def both():
+        res = {}
+        for form, exact in (("terminal", False), ("exact", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[form] = mk.match_topk(long, exact=exact)
+            walls[form] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    card_out, _ = win.run(f"sf:topk{WIDE_TOPK_K}", both)
+    lattice = win.lattice_by_path[f"sf:topk{WIDE_TOPK_K}"]
+    cpu_m = SegmentMatcher(ts, p, device="cpu")
+    equal = {}
+    for form, exact in (("terminal", False), ("exact", True)):
+        cpu = cpu_m.match_topk(long, exact=exact)
+        got = card_out[form]
+        equal[form] = bool(
+            [[(q.edge, q.offset) for q in pts] for _, pts in cpu]
+            == [[(q.edge, q.offset) for q in pts] for _, pts in got]
+            and np.allclose([x for x, _ in got], [x for x, _ in cpu],
+                            rtol=TOPK_SCORE_RTOL, atol=0))
+    want = {"keep": 2, "forward:wide": 2, "backtrack": 1,
+            "backtrack:global": 1}
+    phase("wide:topk", card, metro="sf", k=WIDE_TOPK_K,
+          search_radius=WIDE_RADIUS, points=TOPK_LONG_POINTS,
+          paths={form: len(v) for form, v in card_out.items()},
+          ms={form: walls[form] for form in walls},
+          lattice_launches=lattice, cpu_equal=equal,
+          seconds=time.perf_counter() - t_k)
+    if {key: lattice.get(key, 0) for key in want} != want \
+            or not all(equal.values()):
+        raise SystemExit(f"[wide:topk] K={WIDE_TOPK_K}: launches {lattice} "
+                         f"(want {want}), equal to the CPU's: {equal}")
+    phase("wide", card, seconds=time.perf_counter() - t_all)
     return out
 
 
@@ -4632,9 +4836,10 @@ def lattice_kernel_phase(card, ts, m, traces):
     (kernels/lattice.cu) against their plain versions on the card, on the
     inputs match_topk gives them: the first fleet trace (T = 128) and the
     [topk] long trace (T = 1024) at K = 8 (the tuned matcher, 50 m), the
-    long trace at K = 64 (150 m), each at the R of LATTICE_CASES (1: the
-    terminal form, K: the exact one): mismatches per field (all must be
-    0), the launches of one call of each wrapper (each must be 1), ms
+    long trace at K = 64 and 96 (150 m; 96 the forward's wide instance,
+    also at LONG_LIST_RADIUS, where its longest list must be over 64),
+    each at the R of LATTICE_CASES (1: the terminal form, K: the exact
+    one): the longest list, mismatches per field (all must be 0), the launches of one call of each wrapper (each must be 1), ms
     single and back to back, the plain version's ms, the bound, the
     forward and backtrack plans, the forward kernel's peak bytes beside
     the plain inputs' (``_lattice_prep``'s [T, K, K, M] temporaries),
@@ -4644,7 +4849,9 @@ def lattice_kernel_phase(card, ts, m, traces):
     candidates and looks its blocks up itself: it is held to
     ``_lattice_prep`` + ``_forward_list_plain`` (and ``active``). → {kernel:
     the K = 8, T = 1024 record at the largest R, with the K = 64 one under
-    "k64"} for the kernels line."""
+    "k64" and the K = 96 ones under "k96_r1" and "k96_r96" (at 250 m
+    "k96_r1_250m", "k96_r96_250m"), each with its instance's launch key}
+    for the kernels line."""
     from reporter_tpu_torch.config import MatcherParams
     from reporter_tpu_torch.matcher.api import SegmentMatcher
     from reporter_tpu_torch.netgen.traces import synthesize_probe
@@ -4666,6 +4873,11 @@ def lattice_kernel_phase(card, ts, m, traces):
         for name, xy, bucket in sets:
             t_k = time.perf_counter()
             pts, valid, tc = _topk_trace(mk, xy, bucket)
+            longest = int(tc.valid.sum(-1).max())
+            if radius == LONG_LIST_RADIUS and longest <= 64:
+                raise SystemExit(f"[kernel:lattice] K={k} at {radius:g} "
+                                 f"m: the longest list is {longest}, not "
+                                 f"past 64")
             interp = p.interpolation_distance
             keep_before = hmm.LATTICE_LAUNCHES.get("keep", 0)
             keep = hmm.interpolation_keep_mask(pts, valid, interp)
@@ -4727,9 +4939,13 @@ def lattice_kernel_phase(card, ts, m, traces):
                     :k if R == 1 else R].to(torch.int32)
                 bt_args = (want[1], want[2], act, want[3], seed)
                 bt = hmm._backtrack_cuda(*bt_args)
-                calls = {key: hmm.LATTICE_LAUNCHES.get(key, 0)
-                         - before.get(key, 0)
-                         for key in ("forward", "backtrack")}
+                # each kernel's launches over its instances' keys
+                # ("forward:wide", "backtrack:global", ...)
+                calls = {kern: sum(
+                    n - before.get(key, 0)
+                    for key, n in hmm.LATTICE_LAUNCHES.items()
+                    if key.split(":")[0] == kern)
+                    for kern in ("forward", "backtrack")}
                 calls["keep"] = keep_calls
                 bt_plain = hmm._backtrack_plain(*bt_args)
                 torch.cuda.synchronize()
@@ -4777,6 +4993,7 @@ def lattice_kernel_phase(card, ts, m, traces):
                                      P * T * 4 + T * 6 + T * S * 4)
                 plan = hmm.lattice_plan(T, k, R)
                 bt_plan = hmm.backtrack_plan(T, S, P)
+                bt_key = hmm.backtrack_key(bt_plan)
                 rec = {
                     "keep": {"mismatches": keep_mis, "max_abs_err": 0.0,
                              "ms": keep_ms, "ms_back_to_back": keep_b2b,
@@ -4798,7 +5015,7 @@ def lattice_kernel_phase(card, ts, m, traces):
                                   "streamed_bound_ms": bt_streamed[0]}}
                 phase("kernel:lattice", card, metro="sf", k=k, r=R,
                       search_radius=p.search_radius, kind=name, steps=T,
-                      active_steps=n_act, lookup_steps=n_look,
+                      longest_list=longest, active_steps=n_act, lookup_steps=n_look,
                       lattice_pairs=pairs,
                       chain_starts=int(want[2].sum()), paths=P,
                       forward_mismatches=fwd_mis,
@@ -4823,9 +5040,20 @@ def lattice_kernel_phase(card, ts, m, traces):
                     if k == 8:
                         out = {key: dict(v, k=k, r=R, T=T)
                                for key, v in rec.items()}
-                    else:
+                    elif k <= hmm.LATTICE_MAX_K:
                         for key, v in rec.items():
                             out[key][f"k{k}"] = dict(v, r=R, T=T)
+                    else:
+                        # the wide instances, each R's apart: the forward's
+                        # wide one, the backtrack's of this plan
+                        at = "" if radius == WIDE_RADIUS \
+                            else f"_{radius:g}m"
+                        for key, v in rec.items():
+                            out[key][f"k{k}_r{R}{at}"] = dict(
+                                v, r=R, T=T, instance=(
+                                    bt_key if key == "backtrack" else
+                                    "forward:wide" if key == "forward"
+                                    else "keep"))
     phase("kernel:lattice:all", card, seconds=time.perf_counter() - t_all)
     return out
 
@@ -6622,6 +6850,9 @@ def main() -> int:
         # ---- the grid candidate backend and ranked paths (sf) -----------
         lattice = lattice_kernel_phase(card, ts, m, traces)
         grid_k = grid_kernel_phase(card, ts, pts)
+        # past K = 64: the Viterbi's and the lattice's wide instances on
+        # the main path, held to their plain versions and the CPU
+        viterbi.update(wide_decode_phase(card, ts, traces, win))
         grid_phase(card, ts, pts, m, traces, recs, dc, win)
         topk_phase(card, ts, m, traces, dc, win)
 
@@ -6750,35 +6981,52 @@ def main() -> int:
                 raise SystemExit(f"{arm}'s {label} instance at K={k} was "
                                  "never launched on the main path")
             kernels.append(entry)
-    # the batched Viterbi kernel at each K of [kernel:viterbi], its
-    # launches at that K in every main-path window
+    # the batched Viterbi kernel at each K of [kernel:viterbi] and
+    # [wide:decode] (its wide instances), its launches at that K in every
+    # main-path window
     for k, a in viterbi.items():
         paths = {path: c[k] for path, c in win.viterbi_by_path.items()
                  if c.get(k, 0)}
         entry = {
             "name": f"viterbi_decode_k{k}", "route": "cuda",
             "source": VITERBI_SOURCE, "replaces": VITERBI_REPLACES, "k": k,
+            "instance": a.get("instance", 0),
             "search_radius": a["search_radius"],
             "launches": sum(paths.values()), "launches_by_path": paths,
             "mismatches": a["mismatches"], "max_abs_err": a["max_abs_err"],
             "ms": a["ms"], "ms_back_to_back": a["ms_back_to_back"],
             "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": None}
+        if "long_lists" in a:
+            entry["long_lists"] = a["long_lists"]
         if entry["launches"] < 1:
             raise SystemExit(f"the Viterbi kernel at K={k} was never "
                              "launched on the main path")
         kernels.append(entry)
     # the ranked-path lattice's three kernels and the grid kernel, their
-    # launches in every main-path window
+    # launches in every main-path window; each with the cases its
+    # instance ran (K = 64; K = 96 at 150 and 250 m)
     singles = [(LATTICE_KERNELS[key][0], LATTICE_SOURCE,
                 LATTICE_KERNELS[key][1], lattice[key],
                 {path: c.get(key, 0)
-                 for path, c in win.lattice_by_path.items()})
+                 for path, c in win.lattice_by_path.items()},
+                key, lattice[key])
                for key in LATTICE_KERNELS]
+    # the lattice's wide instances at K = 96 (the forward's, the
+    # backtrack's levels read in place at R = 96), each counted under its
+    # own key
+    for kernel in ("forward", "backtrack"):
+        a = lattice[kernel]["k96_r96"]
+        key = a["instance"]
+        singles.append((
+            f"lattice_{key.replace(':', '_')}", LATTICE_SOURCE,
+            LATTICE_KERNELS[kernel][1], a,
+            {path: c.get(key, 0) for path, c in win.lattice_by_path.items()},
+            key, lattice[kernel]))
     singles.append(("grid_candidates", GRID_SOURCE, GRID_REPLACES, grid_k,
                     {path: sum(c.values())
-                     for path, c in win.grid_by_path.items()}))
-    for name, source, replaces, a, by_path in singles:
+                     for path, c in win.grid_by_path.items()}, None, grid_k))
+    for name, source, replaces, a, by_path, inst, cases in singles:
         paths = {path: n for path, n in by_path.items() if n}
         entry = {
             "name": name, "route": "cuda", "source": source,
@@ -6788,7 +7036,8 @@ def main() -> int:
                 "mismatches", "max_abs_err", "ms", "ms_back_to_back",
                 "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
-            **{key: v for key, v in a.items() if key.startswith("k6")}}
+            **{key: v for key, v in cases.items()
+               if isinstance(v, dict) and v.get("instance", inst) == inst}}
         if entry["launches"] < 1:
             raise SystemExit(f"{name} was never launched on the main path")
         kernels.append(entry)

@@ -162,6 +162,9 @@ NEUTRAL_KEYS = {
     "forward_plan", "backtrack_plan",
     # the Viterbi kernel's launch plan (ops/hmm.viterbi_plan)
     "traces_per_cta", "threads_per_trace", "chunk", "levels",
+    # [wide:decode]'s workload: the longest candidate list of the
+    # compared traces, the traces held to the CPU
+    "longest_list", "cpu_traces",
     "vote_share", "gate_share", "plain_gate_share", "mean_hit_blocks",
     "checked_chunks_taken_later", "device_busy_share", "card_busy_share",
     "busy_samples",

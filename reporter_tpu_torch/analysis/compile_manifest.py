@@ -17,14 +17,16 @@ library, and this module pins, per instance (arm, K or ``wide``):
   memory, and 0 spill bytes (``SPILL_WAIVERS``: the dated exceptions);
 
 and the libraries of one source each (``SINGLE_LIBRARIES``): the batched
-Viterbi decode's (``kernels/viterbi.cu``, K a run-time argument up to
-``ops/hmm.VITERBI_MAX_K``), the ranked-path lattice's
-(``kernels/lattice.cu``: its keep-mask kernel, the forward kernel's
-seven instances by tree depth and the backtrack kernel, K up to
-``ops/hmm.LATTICE_MAX_K``) and the grid candidates'
-(``kernels/grid.cu``): each kernel's ptxas figures under ``ptxas.<the
-library>``, 0 spill bytes unless waived (keyed by (kernel, the
-library)), and the source and K ceiling in the host half;
+Viterbi decode's (``kernels/viterbi.cu``, K a run-time argument: its
+instance 0 up to ``ops/hmm.VITERBI_MAX_K``, the wide instances 1 and 2
+past it), the ranked-path lattice's (``kernels/lattice.cu``: its
+keep-mask kernel, the forward kernel's seven shared instances by tree
+depth up to ``ops/hmm.LATTICE_MAX_K`` and its wide instance past it, the
+backtrack's ring kernel and its in-place one) and the grid
+candidates' (``kernels/grid.cu``): each kernel's ptxas figures under
+``ptxas.<the library>``, 0 spill bytes unless waived (keyed by (kernel,
+the library)), and the source and the shared instances' K ceiling in the
+host half;
 
 beside the host constants the instances depend on (the K set, the arms,
 the nvcc flags, the staged layout version and keys) and the HBM half:
@@ -67,17 +69,23 @@ H100_HBM_BYTES = 80 * 10**9
 WIDE_PIN_K = 32
 # the Viterbi library's key in the ptxas section and in SPILL_WAIVERS
 VITERBI_LIBRARY = "viterbi"
-VITERBI_KERNEL = "viterbi_decode_kernel"
+# the Viterbi's instance 0 (K up to 64); <1> and <2> the wide ones
+VITERBI_KERNEL = "viterbi_decode_kernel<0>"
 LATTICE_LIBRARY = "lattice"
 GRID_LIBRARY = "grid"
 # the libraries of one source each: key → the kernels each must hold
 SINGLE_LIBRARIES = {
-    VITERBI_LIBRARY: (VITERBI_KERNEL,),
+    VITERBI_LIBRARY: tuple(f"viterbi_decode_kernel<{i}>" for i in range(3)),
     LATTICE_LIBRARY: ("lattice_keep_kernel",
                       # the forward's instances: <0> at R = 1, <L> the
-                      # loser tree of 2^L leaves at R > 1
-                      *(f"lattice_forward_kernel<{lg}>" for lg in range(7)),
-                      "lattice_backtrack_kernel"),
+                      # loser tree of 2^L leaves at R > 1, <-1> the wide
+                      # one past K = 64
+                      *(f"lattice_forward_kernel<{lg}>"
+                        for lg in range(-1, 7)),
+                      # the backtrack's ring and its levels read in
+                      # place
+                      "lattice_backtrack_kernel",
+                      "lattice_backtrack_global_kernel"),
     GRID_LIBRARY: ("grid_candidates_kernel",),
 }
 # sections only a card can compute (nvcc's report, the launch shape query)
@@ -92,6 +100,11 @@ _SPILL_WHY = ("2026-10-17 ptxas caps this instance at 72 or 96 registers "
               "Open in ROADMAP queue 3 (sweep spills at K = 4, 6, 12); its "
               "cost is not measured")
 SPILL_WAIVERS = {
+    ("lattice_forward_kernel<-1>", LATTICE_LIBRARY): (
+        "2026-10-18 the wide forward (K > 64), 512 threads a CTA, so at "
+        "most 128 registers: ptxas spills 16 / 40 bytes (the first card "
+        "build's report); a first design for rare lists, its cost not "
+        "measured apart"),
     ("sweep_exact_kernel<2,4>", 4): _SPILL_WHY,
     ("sweep_exact_kernel<3,4>", 4): _SPILL_WHY,
     ("sweep_exact_kernel<1,6>", 6): _SPILL_WHY,
@@ -423,7 +436,7 @@ GOLDEN: "dict[str, Any]" = \
                 '-prec-sqrt=true',
                 '-Xptxas',
                 '-v'],
- 'ptxas': {'grid': {'grid_candidates_kernel': {'registers': 36,
+ 'ptxas': {'grid': {'grid_candidates_kernel': {'registers': 40,
                                                'spill_loads': 0,
                                                'spill_stores': 0,
                                                'static_smem': 0}},
@@ -591,46 +604,62 @@ GOLDEN: "dict[str, Any]" = \
                                                  'spill_loads': 0,
                                                  'spill_stores': 0,
                                                  'static_smem': 0}},
-           'lattice': {'lattice_backtrack_kernel': {'registers': 80,
+           'lattice': {'lattice_backtrack_global_kernel': {'registers': 32,
+                                                           'spill_loads': 0,
+                                                           'spill_stores': 0,
+                                                           'static_smem': 0},
+                       'lattice_backtrack_kernel': {'registers': 64,
                                                     'spill_loads': 0,
                                                     'spill_stores': 0,
                                                     'static_smem': 0},
-                       'lattice_forward_kernel<0>': {'registers': 108,
+                       'lattice_forward_kernel<-1>': {'registers': 128,
+                                                      'spill_loads': 40,
+                                                      'spill_stores': 16,
+                                                      'static_smem': 0},
+                       'lattice_forward_kernel<0>': {'registers': 107,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<1>': {'registers': 109,
+                       'lattice_forward_kernel<1>': {'registers': 104,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<2>': {'registers': 109,
+                       'lattice_forward_kernel<2>': {'registers': 104,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<3>': {'registers': 109,
+                       'lattice_forward_kernel<3>': {'registers': 107,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<4>': {'registers': 109,
+                       'lattice_forward_kernel<4>': {'registers': 107,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<5>': {'registers': 150,
+                       'lattice_forward_kernel<5>': {'registers': 142,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<6>': {'registers': 126,
+                       'lattice_forward_kernel<6>': {'registers': 128,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_keep_kernel': {'registers': 32,
+                       'lattice_keep_kernel': {'registers': 28,
                                                'spill_loads': 0,
                                                'spill_stores': 0,
-                                               'static_smem': 0}},
-           'viterbi': {'viterbi_decode_kernel': {'registers': 109,
-                                                 'spill_loads': 0,
-                                                 'spill_stores': 0,
-                                                 'static_smem': 0}}},
+                                               'static_smem': 36880}},
+           'viterbi': {'viterbi_decode_kernel<0>': {'registers': 122,
+                                                    'spill_loads': 0,
+                                                    'spill_stores': 0,
+                                                    'static_smem': 0},
+                       'viterbi_decode_kernel<1>': {'registers': 128,
+                                                    'spill_loads': 0,
+                                                    'spill_stores': 0,
+                                                    'static_smem': 0},
+                       'viterbi_decode_kernel<2>': {'registers': 128,
+                                                    'spill_loads': 0,
+                                                    'spill_stores': 0,
+                                                    'static_smem': 0}}},
  'staged_tables': {'card_hbm_bytes': 80000000000,
                    'dense_layout_keys': ['seg_pack',
                                          'seg_bbox',

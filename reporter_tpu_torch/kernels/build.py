@@ -274,16 +274,17 @@ def _single_lib(source: Path, signatures: dict) -> ctypes.CDLL:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _VITERBI_SIGNATURES = {
-    "rtt_viterbi_decode": [_P] * 10 + [_I] * 10 + [_F] * 5 + [_I, _F]
+    "rtt_viterbi_decode": [_P] * 10 + [_I] * 12 + [_F] * 5 + [_I, _F]
                           + [_P] * 6 + [_P],
 }
 _LATTICE_SIGNATURES = {
     "rtt_lattice_keep": [_P, _P, _I, _I, _F, _P, _P],
-    "rtt_lattice_forward_smem": [_I, _I, _I],
-    "rtt_lattice_forward": [_P] * 10 + [_I] * 8 + [_F] * 5 + [_P] * 5
+    "rtt_lattice_forward_smem": [_I] * 4,
+    "rtt_lattice_forward_scratch": [_I] * 4,
+    "rtt_lattice_forward": [_P] * 10 + [_I] * 9 + [_F] * 5 + [_P] * 6
                            + [_P],
     "rtt_lattice_backtrack_smem": [_I] * 4,
-    "rtt_lattice_backtrack": [_P] * 5 + [_I] * 6 + [_P, _P],
+    "rtt_lattice_backtrack": [_P] * 5 + [_I] * 7 + [_P, _P],
 }
 _GRID_SIGNATURES = {
     "rtt_grid_candidates": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P] * 4 + [_P],
@@ -304,16 +305,16 @@ def launch_viterbi(ce, co, cd, cv, pts, vp, edge_len, reach_row, reach_to,
     """One launch of viterbi.cu's decode over the batch (cands ``ce``
     [B, T, K]) on the current stream of the tensors' device, with that
     device current, as ``plan`` (``ops/hmm.viterbi_plan``) lays it out:
-    ``traces_per_cta`` traces of ``threads_per_trace`` threads a CTA, the
-    recurrence on ``recurrence_threads`` of them, chunks of ``chunk``
-    steps, the levels in shared memory or in ``scratch``, ``smem_bytes``
-    a CTA (the kernel refuses a figure that is not its layout's, and the
-    wrapper raises). The float arguments are Python floats, rounded once to
+    its ``instance``, ``traces_per_cta`` traces of ``threads_per_trace``
+    threads a CTA, the recurrence on ``recurrence_threads`` of them,
+    chunks of ``chunk`` steps, the levels and the blocks each in shared
+    memory or in ``scratch``, ``smem_bytes`` a CTA (the kernel refuses a
+    figure that is not its layout's, and the wrapper raises). The float arguments are Python floats, rounded once to
     f32 as the plain version's 0-d tensors are (``em_denom`` is 2
     sigma_z^2 in double, ``interp`` the interpolation distance, squared
     here in f32). The caller checks the tensors and allocates ``scratch``
-    (u8 [plan's scratch_bytes], None where the levels stay in shared
-    memory) and the five outputs."""
+    (u8 [plan's scratch_bytes], None where the levels and the blocks stay
+    in shared memory) and the five outputs."""
     B, T, K = (int(x) for x in ce.shape)
     lib = _viterbi_lib()
     with _on_device(ce.device):
@@ -321,9 +322,10 @@ def launch_viterbi(ce, co, cd, cv, pts, vp, edge_len, reach_row, reach_to,
             ce.data_ptr(), co.data_ptr(), cd.data_ptr(), cv.data_ptr(),
             pts.data_ptr(), vp.data_ptr(), edge_len.data_ptr(),
             reach_row.data_ptr(), reach_to.data_ptr(), reach_dist.data_ptr(),
-            B, T, K, int(reach_to.shape[1]), int(plan["threads_per_trace"]),
-            int(plan["traces_per_cta"]), int(plan["recurrence_threads"]),
-            int(plan["chunk"]), int(plan["levels"] == "shared"),
+            B, T, K, int(reach_to.shape[1]), int(plan["instance"]),
+            int(plan["threads_per_trace"]), int(plan["traces_per_cta"]),
+            int(plan["recurrence_threads"]), int(plan["chunk"]),
+            int(plan["levels"] == "shared"), int(plan["blocks"] == "shared"),
             int(plan["smem_bytes"]),
             *(float(x) for x in (em_denom, beta, factor, breakage, slack)),
             int(use_keep), _f32_square(float(interp)), _ptr(scratch),
@@ -364,7 +366,7 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def launch_lattice_keep(pts, vp, interp: float, keep) -> None:
-    """One launch of lattice.cu's keep-mask kernel (a thread a trace) on
+    """One launch of lattice.cu's keep-mask kernel (a CTA a trace) on
     the current stream of the tensors' card: pts f32 [B, T, 2], vp bool
     [B, T] → keep bool [B, T]; ``interp`` the interpolation distance,
     squared here in f32."""
@@ -389,13 +391,24 @@ def launch_lattice_keep(pts, vp, interp: float, keep) -> None:
 
 
 def lattice_forward_smem(K: int, R: int, chunk: int,
-                         device="cuda") -> int:
-    """The forward kernel's own shared bytes at (K, R) and chunk C (-1 for
-    a shape it does not take): what ``ops/hmm.lattice_smem_bytes`` is held
-    to."""
+                         tree_here: bool = False, device="cuda") -> int:
+    """The forward kernel's own shared bytes at (K, R) and chunk C, the
+    wide instance's trees there where ``tree_here`` (-1 for a shape it
+    does not take): what ``ops/hmm.lattice_smem_bytes`` is held to."""
     lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
     with _on_device(device):
-        return int(lib.rtt_lattice_forward_smem(int(K), int(R), int(chunk)))
+        return int(lib.rtt_lattice_forward_smem(int(K), int(R), int(chunk),
+                                                int(tree_here)))
+
+
+def lattice_forward_scratch(K: int, R: int, chunk: int, tree_here: bool,
+                            device="cuda") -> int:
+    """The wide forward's own global scratch bytes (-1 for a shape it does
+    not take): what ``ops/hmm.lattice_scratch_bytes`` is held to."""
+    lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
+    with _on_device(device):
+        return int(lib.rtt_lattice_forward_scratch(
+            int(K), int(R), int(chunk), int(tree_here)))
 
 
 def lattice_backtrack_smem(S: int, P: int, levels: int, stages: int,
@@ -411,10 +424,12 @@ def lattice_backtrack_smem(S: int, P: int, levels: int, stages: int,
 def launch_lattice_forward(ce, co, cd, cv, pts, keep, edge_len, reach_row,
                            reach_to, reach_dist, R: int, plan: dict,
                            em_denom: float, beta: float, factor: float,
-                           breakage: float, slack: float, scores, backptrs,
-                           started, own, active) -> None:
+                           breakage: float, slack: float, scratch, scores,
+                           backptrs, started, own, active) -> None:
     """One launch of lattice.cu's forward kernel (one CTA as the plan lays
-    it out: ``ops/hmm.lattice_plan``'s warps, chunk and ``smem_bytes``) on
+    it out: ``ops/hmm.lattice_plan``'s warps, chunk, ``tree_here`` and
+    ``smem_bytes``; ``scratch`` u8 [its scratch_bytes] for the wide
+    instance, else None) on
     the current stream of the tensors' card: the candidates (edge i32,
     offset f32, dist f32, valid bool [T, K]), points f32 [T, 2], the keep
     mask bool [T] and the reach tables (edge_len f32 [E], reach_row i32
@@ -449,7 +464,10 @@ def launch_lattice_forward(ce, co, cd, cv, pts, keep, edge_len, reach_row,
              ("backptrs", backptrs, torch.int32, (T, K * R)),
              ("started", started, torch.bool, (T,)),
              ("own", own, torch.int32, (T,)),
-             ("active", active, torch.bool, (T,))])
+             ("active", active, torch.bool, (T,)),
+             *([] if scratch is None else [
+                 ("scratch", scratch, torch.uint8,
+                  (int(plan["scratch_bytes"]),))])])
     lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
     with _on_device(ce.device):
         rc = lib.rtt_lattice_forward(
@@ -457,18 +475,21 @@ def launch_lattice_forward(ce, co, cd, cv, pts, keep, edge_len, reach_row,
             pts.data_ptr(), keep.data_ptr(), edge_len.data_ptr(),
             reach_row.data_ptr(), reach_to.data_ptr(), reach_dist.data_ptr(),
             T, K, R, M, int(plan["chunk"]), 32 * int(plan["producer_warps"]),
-            32 * int(plan["merge_warps"]), int(plan["smem_bytes"]),
+            32 * int(plan["merge_warps"]), int(plan["tree_here"]),
+            int(plan["smem_bytes"]),
             *(float(x) for x in (em_denom, beta, factor, breakage, slack)),
-            scores.data_ptr(), backptrs.data_ptr(), started.data_ptr(),
-            own.data_ptr(), active.data_ptr(), _stream(ce))
+            _ptr(scratch), scores.data_ptr(), backptrs.data_ptr(),
+            started.data_ptr(), own.data_ptr(), active.data_ptr(),
+            _stream(ce))
     _raise_on(rc, f"lattice forward (T={T}, K={K}, R={R})")
 
 
 def launch_lattice_backtrack(backptrs, started, active, own, seed,
                              plan: dict, out) -> None:
-    """One launch of lattice.cu's backtrack kernel (one CTA as
-    ``ops/hmm.backtrack_plan`` lays it out: a thread a path, a ring of
-    ``stages`` slots of ``levels`` levels in its ``smem_bytes``) on the
+    """One launch of lattice.cu's backtrack kernel (as
+    ``ops/hmm.backtrack_plan`` lays it out: a thread a path in CTAs of
+    its ``threads``, a ring of ``stages`` slots of ``levels`` levels in
+    its ``smem_bytes``, or the levels read in place) on the
     current stream of the tensors' card: backptrs i32 [T, S], started
     and active bool [T], own i32 [T] (all four 16-aligned), seed i32 [P]
     (each path's state at the last level, in [-1, S)) → out i32 [P, T]."""
@@ -494,8 +515,8 @@ def launch_lattice_backtrack(backptrs, started, active, own, seed,
         rc = lib.rtt_lattice_backtrack(
             backptrs.data_ptr(), started.data_ptr(), active.data_ptr(),
             own.data_ptr(), seed.data_ptr(), T, S, P, int(plan["levels"]),
-            int(plan["stages"]), int(plan["smem_bytes"]), out.data_ptr(),
-            _stream(backptrs))
+            int(plan["stages"]), int(plan["threads"]),
+            int(plan["smem_bytes"]), out.data_ptr(), _stream(backptrs))
     _raise_on(rc, f"lattice backtrack (T={T}, S={S}, P={P})")
 
 

@@ -20,8 +20,11 @@
 // small. The bytes (the candidates and reach rows in, the levels [T, K *
 // R] out) are megabytes at most.
 //
-// keep mask: a thread a trace, T points in order (the last kept point,
-//   d2 = dx*dx + dy*dy against f32(interp)^2).
+// keep mask: a CTA a trace: each valid point's next kept point if it is
+//   kept (the first later valid point far enough from it), a warp's
+//   ballot a window, then the chain from the first kept point marked by
+//   pointer doubling, in tiles of 2048 points in shared memory (the proof
+//   that this is the plain scan's set is at the kernel).
 //
 // forward: one CTA (ops/hmm.py::lattice_plan owns its shape: the chunk C,
 //   the producer and merge warps, the shared bytes, which the C entry
@@ -68,9 +71,20 @@
 //     first-argmin state (the first minimal row head) comes from two warp
 //     reductions. An inactive step writes the carry and identity
 //     backpointers out; no barrier.
+//   - Past K = 64 the wide instance (LOG = kWide) runs the same steps with
+//     a run-time tree depth, 16-bit rows in the head key, ceil(K / 64)
+//     mask words and u16 lists: its blocks, carried rows and backpointers,
+//     and its trees where they do not fit a CTA, in a global scratch; up
+//     to 256 merge threads, each taking columns c, c + 256, ... (a
+//     column's first pass kept in the scratch over the step's OR barrier).
+//     The merge's state grows as K * R and the trees as K^2 (2N nodes a
+//     column): at K = R = 128 that is over the card's shared memory, so the
+//     scratch holds it all rather than one instance a fit; a list past 64
+//     candidates is a rare request, and this instance is right first
+//     (PERF.md has its times).
 //
-// backtrack: one CTA, a thread a path (P <= kMaxPaths) in walker warps and
-//   one producer warp, which streams the levels (backpointer rows and the
+// backtrack: CTAs of a thread a path (up to 31 walker warps a CTA) in
+//   walker warps and one producer warp, which streams the levels (backpointer rows and the
 //   own, started and active flags) tail-first into a ring of NS slots of G
 //   levels in shared memory (ops/hmm.py::backtrack_plan), with
 //   cp.async.bulk copies that complete on an mbarrier (a block near the
@@ -78,7 +92,9 @@
 //   walker follows the level above's backpointer, re-seeding from the
 //   level's own argmin at a chain terminal (-1 at inactive levels), a
 //   shared-memory read a level; its choices are staged in shared memory
-//   and written out 32 levels at a time, coalesced.
+//   and written out 32 levels at a time, coalesced. Where two slots of four
+//   levels do not fit a CTA (some 7,000 states a level), each path reads
+//   its levels in place instead (lattice_backtrack_global_kernel).
 
 #include <atomic>
 
@@ -95,12 +111,14 @@
 
 namespace {
 
-constexpr int kMaxK = 64;
+constexpr int kMaxK = 64;            // the forward's shared instances
 constexpr int kMaxThreads = 384;     // the forward CTA: producers + merge
+constexpr int kWideMerge = 256;      // the wide forward's merge threads
+constexpr int kWideThreads = 256 + kWideMerge;
+constexpr int kWide = -1;            // the wide forward's LOG
 constexpr int kMaxSmem = 232448;     // a CTA's shared memory on sm_90
-constexpr int kKeepThreads = 128;
 constexpr int kInterleave = 8;       // binary searches in flight a thread
-constexpr int kMaxPaths = kMaxK;      // the backtrack's walkers: P <= K
+constexpr int kMaxWalkers = 31;      // a backtrack CTA's walker warps
 constexpr float kBig = 1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kSpent = ~0ull;  // a spent row's head, a pad
@@ -117,28 +135,133 @@ constexpr int kBarFree = 5;          // + the buffer: its chunk is consumed
 
 // ---- the keep mask -------------------------------------------------------
 
-__global__ void lattice_keep_kernel(const float* __restrict__ pts,
-                                    const unsigned char* __restrict__ vp,
-                                    int B, int T, float d2_min,
-                                    unsigned char* __restrict__ keep) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* p = pts + static_cast<size_t>(b) * T * 2;
-  const unsigned char* v = vp + static_cast<size_t>(b) * T;
-  unsigned char* out = keep + static_cast<size_t>(b) * T;
-  float lx = p[0], ly = p[1];
+// The plain version keeps point t where it is valid and, once a point has
+// been kept, lies at least interp from the last kept point (its d2 =
+// dx*dx + dy*dy, dx = x_t - x_last, against f32(interp)^2, one rounding
+// an operation); last_pt starts at p[0] and any_kept at false.
+//
+// The same set, computed in parallel. Let next[t] be the first j > t with
+// vp[j] and d2(p_j, p_t) >= d2_min (d2 in that order), or none.
+// - While any_kept is false, keep_t = vp[t] (the initial last_pt = p[0]
+//   is never compared: any_kept guards it). So the first kept point is
+//   the first valid one, f.
+// - Once t is kept, last_pt = p_t until the next keep. A later u keeps
+//   iff vp[u] and d2(p_u, p_t) >= d2_min, so the next kept point is the
+//   first such u: next[t].
+// By induction the kept points are f, next[f], next[next[f]], ...: the
+// chain from f along next, and nothing else.
+//
+// The kernel takes a trace a CTA, in tiles of kKeepTile points staged in
+// shared memory with coalesced loads. In a tile, next is sought within
+// the tile (none past it); the tile's first kept point is the first valid
+// point at d2 >= d2_min from the carried last kept point (any valid point
+// before any was kept); the chain from it is marked by pointer doubling
+// (each round a marked u marks jump[u], then jump = jump o jump: after
+// round r every chain point within 2^(r+1) steps is marked, so
+// ceil(log2 n) rounds mark it all; marks only follow the chain, so the
+// rounds' races only mark chain points sooner). The tile's last kept
+// point carries into the next tile, where the chain goes on exactly as
+// the plain scan would, since a kept point's successor is the first point
+// far enough from it, wherever it lies.
+//
+// next[t] is a warp's search: its lanes test 32 points at once and a
+// ballot takes the first, window after window. A moving trace finds it
+// in the first window; a vehicle standing still (every point within
+// interp) searches to the tile's end, which bounds the worst case at
+// kKeepTile^2 / 32 tests a tile, spread over the CTA's warps.
+
+constexpr int kKeepTile = 2048;      // points a tile in shared memory
+constexpr int kKeepMaxThreads = 1024;
+
+__global__ void __launch_bounds__(kKeepMaxThreads)
+    lattice_keep_kernel(const float* __restrict__ pts,
+                        const unsigned char* __restrict__ vp, int T,
+                        float d2_min, unsigned char* __restrict__ keep) {
+  __shared__ float s_x[kKeepTile], s_y[kKeepTile];
+  __shared__ int s_jump[2][kKeepTile];
+  __shared__ unsigned char s_v[kKeepTile], s_mark[kKeepTile];
+  __shared__ int s_first, s_last;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const size_t b = blockIdx.x;
+  const float* p = pts + b * T * 2;
+  const unsigned char* v = vp + b * T;
+  unsigned char* out = keep + b * T;
+  // the carried last kept point (every thread's copy) and whether any
+  float lx = 0.0f, ly = 0.0f;
   bool any_kept = false;
-  for (int t = 0; t < T; ++t) {
-    const float x = p[2 * t], y = p[2 * t + 1];
-    const float dx = __fsub_rn(x, lx), dy = __fsub_rn(y, ly);
-    const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-    const bool k = v[t] != 0 && (!any_kept || d2 >= d2_min);
-    if (k) {
-      lx = x;
-      ly = y;
+  for (int t0 = 0; t0 < T; t0 += kKeepTile) {
+    const int n = min(kKeepTile, T - t0);
+    for (int i = tid; i < n; i += nt) {
+      s_x[i] = p[2 * (t0 + i)];
+      s_y[i] = p[2 * (t0 + i) + 1];
+      s_v[i] = v[t0 + i];
+      s_mark[i] = 0;
     }
-    any_kept = any_kept || k;
-    out[t] = k ? 1 : 0;
+    if (tid == 0) {
+      s_first = n;
+      s_last = -1;
+    }
+    __syncthreads();
+    // the tile's first kept point
+    for (int i = tid; i < n; i += nt) {
+      bool k = s_v[i] != 0;
+      if (k && any_kept) {
+        const float dx = __fsub_rn(s_x[i], lx), dy = __fsub_rn(s_y[i], ly);
+        k = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) >= d2_min;
+      }
+      if (k) atomicMin(&s_first, i);
+    }
+    // next[i] within the tile (n: none), a warp a point
+    for (int i = warp; i < n; i += nwarps) {
+      int found = n;
+      if (s_v[i]) {
+        const float xi = s_x[i], yi = s_y[i];
+        for (int j0 = i + 1; j0 < n; j0 += 32) {
+          const int j = j0 + lane;
+          bool ok = false;
+          if (j < n && s_v[j]) {
+            const float dx = __fsub_rn(s_x[j], xi);
+            const float dy = __fsub_rn(s_y[j], yi);
+            ok = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) >= d2_min;
+          }
+          const unsigned m = __ballot_sync(kFull, ok);
+          if (m) {
+            found = j0 + __ffs(m) - 1;
+            break;
+          }
+        }
+      }
+      if (lane == 0) s_jump[0][i] = found;
+    }
+    __syncthreads();
+    const int first = s_first;
+    if (tid == 0 && first < n) s_mark[first] = 1;
+    __syncthreads();
+    // the chain from `first`, by pointer doubling
+    int cur = 0;
+    for (int span = 1; span < n; span *= 2) {
+      const int* jmp = s_jump[cur];
+      int* nxt = s_jump[cur ^ 1];
+      for (int i = tid; i < n; i += nt) {
+        const int j = jmp[i];
+        if (s_mark[i] && j < n) s_mark[j] = 1;
+        nxt[i] = j < n ? jmp[j] : n;
+      }
+      cur ^= 1;
+      __syncthreads();
+    }
+    for (int i = tid; i < n; i += nt) {
+      out[t0 + i] = s_mark[i];
+      if (s_mark[i]) atomicMax(&s_last, i);
+    }
+    __syncthreads();
+    if (s_last >= 0) {
+      lx = s_x[s_last];
+      ly = s_y[s_last];
+      any_kept = true;
+    }
+    __syncthreads();           // the tile's arrays read: the next may stage
   }
 }
 
@@ -195,15 +318,16 @@ __host__ __device__ inline Buf make_buf(int K, int C) {
   Buf B{};
   int at = 0;
   const int rows = (C + 1) * K;
-  B.trans = take(at, 4 * C * K * K);
+  const bool wide = K > kMaxK;   // blocks global, a u16 list, mask words
+  B.trans = wide ? -1 : take(at, 4 * C * K * K);
   B.e = take(at, 4 * rows);
   B.o = take(at, 4 * rows);
   B.em = take(at, 4 * rows);
   B.len = take(at, 4 * rows);
   B.row = take(at, 4 * rows);
   B.v = take(at, rows);
-  B.list = take(at, rows);
-  B.mask = take(at, 8 * (C + 1));
+  B.list = take(at, (wide ? 2 : 1) * rows);
+  B.mask = take(at, 8 * ((K + 63) / 64) * (C + 1));
   B.x = take(at, 4 * C);
   B.y = take(at, 4 * C);
   B.gc = take(at, 4 * C);
@@ -224,7 +348,11 @@ __host__ __device__ inline Buf make_buf(int K, int C) {
 // backpointers [K, RP] and the loser trees (u64 [N][W]: node n of column c
 // at n * W + c, N = K up to a power of two, W = K up to a multiple of 16,
 // so a warp's lanes hit distinct banks whatever nodes they read), and the
-// own reduction's words (two steps' worth).
+// own reduction's words (two steps' worth). The wide instance (K > kMaxK)
+// keeps here only the buffers without their blocks, the trees where
+// `tree_here` (2N nodes a column: it builds them in place, leaves last)
+// and the reduction's words for its eight merge warps; the rest is in its
+// global scratch (WideScratch).
 struct Layout {
   Buf buf;
   int buf0, buf1, score0, score1, bp, tree, red, bytes;
@@ -232,13 +360,23 @@ struct Layout {
 
 __host__ __device__ inline int tree_pitch(int K) { return (K + 15) & ~15; }
 
-__host__ __device__ inline Layout make_layout(int K, int R, int C) {
+__host__ __device__ inline Layout make_layout(int K, int R, int C,
+                                              bool tree_here) {
   Layout L{};
   L.buf = make_buf(K, C);
   int at = 0;
   const int RP = R | 1;
   L.buf0 = take(at, L.buf.bytes);
   L.buf1 = take(at, L.buf.bytes);
+  if (K > kMaxK) {
+    L.score0 = L.score1 = L.bp = -1;
+    L.tree = R > 1 && tree_here
+                 ? take(at, 16 * pow2_at_least(K) * tree_pitch(K))
+                 : -1;
+    L.red = take(at, 4 * 2 * 2 * (kWideMerge / 32));
+    L.bytes = at;
+    return L;
+  }
   L.score0 = take(at, 4 * K * RP);
   L.score1 = take(at, 4 * K * RP);
   L.bp = R > 1 ? take(at, 4 * K * RP) : at;
@@ -246,6 +384,39 @@ __host__ __device__ inline Layout make_layout(int K, int R, int C) {
   L.red = take(at, 32);
   L.bytes = at;
   return L;
+}
+
+// The wide forward's global scratch, in bytes from its base, each array
+// 16 aligned (ops/hmm.py::lattice_scratch_bytes makes the same sum): the
+// two buffers' blocks f32 [2][C, K, K], the carried scores [K, RP] twice,
+// at R > 1 the level's backpointers [K, RP] and, unless in shared memory,
+// the trees (u64 [2N][W]), and each column's first-pass result (u64 [K]:
+// its root winner, or at R = 1 its best value's bits and argmin).
+struct WideScratch {
+  size_t trans, score0, score1, bp, tree, stash, bytes;
+};
+
+__host__ __device__ inline size_t take_at(size_t& at, size_t n) {
+  const size_t o = at;
+  at += (n + 15) & ~static_cast<size_t>(15);
+  return o;
+}
+
+__host__ __device__ inline WideScratch make_wide_scratch(int K, int R, int C,
+                                                         bool tree_here) {
+  WideScratch S{};
+  size_t at = 0;
+  const size_t rows = static_cast<size_t>(K) * (R | 1) * 4;
+  S.trans = take_at(at, 2ull * C * K * K * 4);
+  S.score0 = take_at(at, rows);
+  S.score1 = take_at(at, rows);
+  S.bp = take_at(at, R > 1 ? rows : 0);
+  S.tree = take_at(at, R > 1 && !tree_here
+                           ? 16ull * pow2_at_least(K) * tree_pitch(K)
+                           : 0);
+  S.stash = take_at(at, 8ull * K);
+  S.bytes = at;
+  return S;
 }
 
 struct Chunk {
@@ -256,8 +427,8 @@ struct Chunk {
   float* len;
   int* row;
   unsigned char* v;
-  unsigned char* list;
-  unsigned long long* mask;
+  unsigned char* list;        // u8 slots, u16 in the wide instance
+  unsigned long long* mask;   // ceil(K / 64) words a row
   float* x;
   float* y;
   float* gc;
@@ -269,9 +440,10 @@ struct Chunk {
   int* misc;
 };
 
-__device__ __forceinline__ Chunk chunk_at(unsigned char* base, const Buf& B) {
+__device__ __forceinline__ Chunk chunk_at(unsigned char* base, const Buf& B,
+                                          float* trans) {
   Chunk c;
-  c.trans = reinterpret_cast<float*>(base + B.trans);
+  c.trans = trans ? trans : reinterpret_cast<float*>(base + B.trans);
   c.e = reinterpret_cast<int*>(base + B.e);
   c.o = reinterpret_cast<float*>(base + B.o);
   c.em = reinterpret_cast<float*>(base + B.em);
@@ -312,6 +484,8 @@ struct FwdParams {
   unsigned char* started;      // bool [T]
   int* own;                    // i32 [T]
   unsigned char* active;       // bool [T]
+  unsigned char* scratch;      // the wide instance's (WideScratch)
+  int tree_here;               // the wide instance's trees in shared memory
 };
 
 // a row head's key: the value's bits (costs are >= +0, so they order as
@@ -433,6 +607,100 @@ __device__ __forceinline__ float column_picks(
   return first;
 }
 
+// ---- the wide instance's merge (K > kMaxK): the same picks as the
+// shared instances', written for any K. A row head's key holds the row in
+// the low word's upper 16 bits and its rank in the lower 16 (R <= K, and
+// the shared memory keeps K under 2,509); a column's looked-up previous
+// slots are ceil(K / 64) mask words (null: none); the loser tree's depth
+// is a run-time LOG, its 2N nodes a column built in place (the leaves at
+// [N, 2N), then each node's winner bottom-up, then each node's loser
+// top-down, children first read as winners), a pick's path replayed node
+// by node.
+
+__device__ __forceinline__ unsigned long long wide_key(float v, int cp,
+                                                       int r) {
+  return (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
+         (static_cast<unsigned>(cp) << 16) | static_cast<unsigned>(r);
+}
+
+__device__ __forceinline__ float wide_trans(const float* tr, int K,
+                                            const unsigned long long* seen,
+                                            int cp) {
+  const int c = min(cp, K - 1);
+  return seen && ((seen[c >> 6] >> (c & 63)) & 1ull)
+             ? tr[static_cast<size_t>(c) * K]
+             : kBig;
+}
+
+// the column's tree over its K row heads (2^LOG leaves): → the winner
+__device__ unsigned long long wide_tree_build(
+    const float* cur, const float* tr, const unsigned long long* seen,
+    int K, int RP, int LOG, unsigned long long* tree, int W) {
+  const int N = 1 << LOG;
+  for (int u = 0; u < N; ++u) {
+    tree[static_cast<size_t>(N + u) * W] =
+        u < K ? wide_key(__fadd_rn(cur[static_cast<size_t>(u) * RP],
+                                   wide_trans(tr, K, seen, u)),
+                         u, 0)
+              : kSpent;
+  }
+  for (int n = N - 1; n >= 1; --n) {
+    const unsigned long long a = tree[static_cast<size_t>(2 * n) * W];
+    const unsigned long long b = tree[static_cast<size_t>(2 * n + 1) * W];
+    tree[static_cast<size_t>(n) * W] = a < b ? a : b;
+  }
+  const unsigned long long win = tree[W];    // node 1 (the leaf at N = 1)
+  for (int n = 1; n < N; ++n) {
+    const unsigned long long a = tree[static_cast<size_t>(2 * n) * W];
+    const unsigned long long b = tree[static_cast<size_t>(2 * n + 1) * W];
+    tree[static_cast<size_t>(n) * W] = a < b ? b : a;
+  }
+  return win;
+}
+
+// the column's R picks (tree_pick's, node by node) into its carry row
+// and level backpointers. → the pick r = 0's value.
+__device__ float wide_column_picks(unsigned long long x, const float* cur,
+                                   const float* tr,
+                                   const unsigned long long* seen, int K,
+                                   int R, int LOG, float em,
+                                   unsigned long long* tree, int W,
+                                   float* nxt, int* bpr) {
+  const int RP = R | 1;
+  bool done = false;
+  float first = kBig;
+  for (int r = 0; r < R; ++r) {
+    const float v = __uint_as_float(static_cast<unsigned>(x >> 32));
+    const bool live = !done && v < kBig;
+    done = !live;
+    const unsigned low = static_cast<unsigned>(x);
+    const int cp = min(static_cast<int>(low >> 16), K - 1);
+    const int rr = static_cast<int>(low & 0xffffu);
+    const float val = live ? __fadd_rn(v, em) : kBig;
+    if (r == 0) first = val;
+    nxt[r] = val;
+    bpr[r] = live ? cp * R + rr : -1;
+    if (r + 1 >= R || !live) continue;
+    const float nv = cur[static_cast<size_t>(cp) * RP + min(rr + 1, R - 1)];
+    unsigned long long key =
+        rr + 1 < R
+            ? wide_key(__fadd_rn(nv, wide_trans(tr, K, seen, cp)), cp, rr + 1)
+            : kSpent;
+    const int leaf = (1 << LOG) + cp;
+    for (int l = 0; l < LOG; ++l) {
+      unsigned long long* node =
+          tree + static_cast<size_t>(leaf >> (l + 1)) * W;
+      const unsigned long long y = *node;
+      if (y < key) {
+        *node = key;
+        key = y;
+      }
+    }
+    x = key;
+  }
+  return first;
+}
+
 // a level [K, R] out of shared rows of pitch RP (R | 1) into out_s and
 // out_b, coalesced: thread i takes elements 4i, 4i + 1, ... in steps of
 // 4n (vectors of four where R is a multiple of 4: then one row holds all
@@ -480,22 +748,43 @@ __device__ __forceinline__ void copy_level(const float* rows,
 
 // LOG: 0 for R = 1 (the first-argmin pass), else ceil(log2 K) for R > 1
 // (the loser tree of 2^LOG leaves): one kernel each, so a step's code is
-// the one path's, contiguous
+// the one path's, contiguous. kWide (-1): the wide instance, any K past
+// kMaxK and any R (its merge threads take columns c, c + 256, ...).
 template <int LOG>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(LOG == kWide ? kWideThreads : kMaxThreads,
+                                  1)
     lattice_forward_kernel(const FwdParams p) {
+  constexpr bool kIsWide = LOG == kWide;
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = p.K, R = p.R, C = p.C, T = p.T, M = p.M, MW = p.MW;
   const int P = p.P;
   const int KR = K * R, KK = K * K;
+  const int Wm = kIsWide ? (K + 63) >> 6 : 1;   // mask words a row
   const int tid = threadIdx.x, lane = tid & 31;
   const bool is_producer = tid >= MW;
   const int ptid = tid - MW;   // a producer's index
   const int mtid = tid;        // a merge thread's: its column
   const int nchunks = (T + C - 1) / C;
-  const Layout L = make_layout(K, R, C);
+  const Layout L = make_layout(K, R, C, p.tree_here != 0);
+  const WideScratch WS = make_wide_scratch(K, R, C, p.tree_here != 0);
   auto chunk_of = [&](int b) {
-    return chunk_at(smem + (b ? L.buf1 : L.buf0), L.buf);
+    float* trans = kIsWide ? reinterpret_cast<float*>(p.scratch + WS.trans) +
+                                 static_cast<size_t>(b) * C * KK
+                           : nullptr;
+    return chunk_at(smem + (b ? L.buf1 : L.buf0), L.buf, trans);
+  };
+  // a row's slot i of its list, and its looked-up count
+  auto list_at = [&](const Chunk& B, int i) -> int {
+    if constexpr (kIsWide) {
+      return reinterpret_cast<const unsigned short*>(B.list)[i];
+    } else {
+      return B.list[i];
+    }
+  };
+  auto row_count = [&](const Chunk& B, int r) {
+    int c = 0;
+    for (int w = 0; w < Wm; ++w) c += __popcll(B.mask[r * Wm + w]);
+    return c;
   };
   RTT_PROFILE_START
 
@@ -573,13 +862,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
           const bool ok = k < K && B.v[r * K + k] && B.e[r * K + k] >= 0;
           const unsigned m = __ballot_sync(kFull, ok);
           if (ok) {
-            B.list[r * K + count + __popc(m & ((1u << lane) - 1u))] =
-                static_cast<unsigned char>(k);
+            const int at = r * K + count + __popc(m & ((1u << lane) - 1u));
+            if constexpr (kIsWide) {
+              reinterpret_cast<unsigned short*>(B.list)[at] =
+                  static_cast<unsigned short>(k);
+            } else {
+              B.list[at] = static_cast<unsigned char>(k);
+            }
           }
           count += __popc(m);
-          mask |= static_cast<unsigned long long>(m) << k0;
+          mask |= static_cast<unsigned long long>(m) << (k0 & 63);
+          // a word whole at its upper half, or at the row's end
+          if ((k0 & 63) == 32 || k0 + 32 >= K) {
+            if (lane == 0) B.mask[r * Wm + (k0 >> 6)] = mask;
+            mask = 0ull;
+          }
         }
-        if (lane == 0) B.mask[r] = mask;
       }
       bar_sync(kBarProducers, P);
       RTT_MARK(2)
@@ -606,7 +904,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                           gc <= p.breakage;
         const int prow = prev_s + 1;
         const int mine =
-            look ? __popcll(B.mask[prow]) * __popcll(B.mask[s + 1]) : 0;
+            look ? row_count(B, prow) * row_count(B, s + 1) : 0;
         int incl = mine;
         for (int o = 1; o < 32; o <<= 1) {
           const int v = __shfl_up_sync(kFull, incl, o);
@@ -659,10 +957,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
               lo = at < cn && o <= f ? at : lo;
             }
             const int loc = f - B.off[lo];
-            const int nc = __popcll(B.mask[lo + 1]);
+            const int nc = row_count(B, lo + 1);
             const int ii = loc / nc, jj = loc - ii * nc;
-            const int i = B.list[B.prev[lo] * K + ii];
-            const int jn = B.list[(lo + 1) * K + jj];
+            const int i = list_at(B, B.prev[lo] * K + ii);
+            const int jn = list_at(B, (lo + 1) * K + jj);
             pi[u] = B.prev[lo] * K + i;
             cj[u] = (lo + 1) * K + jn;
             at[u] = lo * KK + i * K + jn;
@@ -694,168 +992,322 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     return;
   }
 
-  // ---- the merge warps: the steps in order, a thread a column
-  const int c = mtid, warp = mtid >> 5, nmw = MW >> 5;
-  const bool col = c < K;
-  const int RP = R | 1;
-  float* score0 = reinterpret_cast<float*>(smem + L.score0);
-  float* score1 = reinterpret_cast<float*>(smem + L.score1);
-  int* bpbuf = reinterpret_cast<int*>(smem + L.bp);
-  unsigned long long* tree =
-      reinterpret_cast<unsigned long long*>(smem + L.tree) + c;
-  unsigned* red = reinterpret_cast<unsigned*>(smem + L.red);
-  const int W = tree_pitch(K);
-  for (int s = mtid; s < K * RP; s += MW) score0[s] = kBig;
-  auto merge_sync = [&]() {
-    if (MW == 32) {
-      __syncwarp();
-    } else {
-      bar_sync(kBarMerge, MW);
-    }
-  };
-  merge_sync();
-  int cur_b = 0;
-  int own_cur = -1;            // the carry's own state (the first thread's)
-  for (int n = 0; n < nchunks; ++n) {
-    const int b = n & 1, t0 = n * C, cn = min(C, T - t0);
-    const Chunk B = chunk_of(b);
-    bar_sync(kBarFull + b, P + MW);
-    RTT_MARK(5)
-    for (int s = 0; s < cn; ++s) {
-      const int t = t0 + s;
-      const int fl = B.flags[s];
-      const float* cur = cur_b ? score1 : score0;
-      float* nxt = cur_b ? score0 : score1;
-      float* out_s = p.scores + static_cast<size_t>(t) * KR;
-      int* out_b = p.backptrs + static_cast<size_t>(t) * KR;
-      if (!(fl & kStepActive)) {
-        // an inactive point passes the carry through: the level is the
-        // carry with identity backpointers, written coalesced
-        copy_level(cur, nullptr, K, R, RP, out_s, out_b, mtid, MW);
-        if (mtid == 0) {
-          p.started[t] = 0;
-          p.own[t] = own_cur;
-        }
-        continue;
-      }
-      const bool look = (fl & kStepLook) != 0;
-      const float em = col ? B.em[(s + 1) * K + c] : 0.0f;
-      // the previous slots looked up with this column's slot
-      const unsigned long long seen =
-          look && col && ((B.mask[s + 1] >> c) & 1ull) ? B.mask[B.prev[s]]
-                                                        : 0ull;
-      const float* tr = B.trans + s * KK + c;
-      float best = CUDART_INF_F;
-      int arg = 0;
-      unsigned long long win = kSpent;
-      if constexpr (LOG == 0) {
-        if (look && col) {
-          // the first minimal row, eight rows' loads at once
-          for (int cp0 = 0; cp0 < K; cp0 += 8) {
-            float hv[8], tv[8];
-#pragma unroll
-            for (int u = 0; u < 8; ++u) {
-              hv[u] = cur[min(cp0 + u, K - 1)];
-              tv[u] = trans_of(tr, K, seen, cp0 + u);
-            }
-#pragma unroll
-            for (int u = 0; u < 8; ++u) {
-              const int cp = cp0 + u;
-              const float v = __fadd_rn(hv[u], tv[u]);
-              const bool better = cp < K && v < best;
-              best = better ? v : best;
-              arg = better ? cp : arg;
-            }
+  if constexpr (kIsWide) {
+    // ---- the wide instance's merge warps: the steps in order, columns
+    // c = mtid, mtid + MW, ...; per step a first pass a column (its best
+    // and argmin at R = 1, its tree's winner at R > 1) kept in the
+    // scratch over the OR barrier, then its picks; the carried rows, the
+    // level's backpointers and the trees (unless in shared memory) in the
+    // scratch, the level copied out coalesced as the shared instances do
+    const int warp = mtid >> 5, nmw = MW >> 5;
+    const int RP = R | 1;
+    constexpr int kRed = 2 * (kWideMerge / 32);   // a parity's words
+    float* score0 = reinterpret_cast<float*>(p.scratch + WS.score0);
+    float* score1 = reinterpret_cast<float*>(p.scratch + WS.score1);
+    int* bpbuf = reinterpret_cast<int*>(p.scratch + WS.bp);
+    unsigned long long* trees = reinterpret_cast<unsigned long long*>(
+        p.tree_here ? smem + L.tree : p.scratch + WS.tree);
+    unsigned long long* stash =
+        reinterpret_cast<unsigned long long*>(p.scratch + WS.stash);
+    unsigned* red = reinterpret_cast<unsigned*>(smem + L.red);
+    const int TW = tree_pitch(K);
+    int LG = 0;
+    while ((1 << LG) < K) ++LG;
+    for (int s = mtid; s < K * RP; s += MW) score0[s] = kBig;
+    bar_sync(kBarMerge, MW);
+    int cur_b = 0;
+    int own_cur = -1;
+    for (int n = 0; n < nchunks; ++n) {
+      const int b = n & 1, t0 = n * C, cn = min(C, T - t0);
+      const Chunk B = chunk_of(b);
+      bar_sync(kBarFull + b, P + MW);
+      for (int s = 0; s < cn; ++s) {
+        const int t = t0 + s;
+        const int fl = B.flags[s];
+        const float* cur = cur_b ? score1 : score0;
+        float* nxt = cur_b ? score0 : score1;
+        float* out_s = p.scores + static_cast<size_t>(t) * KR;
+        int* out_b = p.backptrs + static_cast<size_t>(t) * KR;
+        if (!(fl & kStepActive)) {
+          copy_level(cur, nullptr, K, R, RP, out_s, out_b, mtid, MW);
+          if (mtid == 0) {
+            p.started[t] = 0;
+            p.own[t] = own_cur;
           }
+          continue;
         }
-      }
-      if constexpr (LOG > 0) {
-        if (look && col) {
-          win = tree_build<(1 << LOG)>(cur, tr, seen, K, RP, 0, 1, tree, W);
-          best = __uint_as_float(static_cast<unsigned>(win >> 32));
-        }
-      }
-      const bool conn = best < kBig;
-      RTT_MARK(6)
-      // broken: no column connected, or the step does not look up (no
-      // active point before, or past the breakage distance). Either way a
-      // barrier here: the last level's copy out is done before this one
-      // is written.
-      bool any = false;
-      if (look) {
-        any = MW == 32 ? __any_sync(kFull, conn) : bar_or(kBarMerge, MW, conn);
-      } else {
-        merge_sync();
-      }
-      const bool broken = !any;
-      RTT_MARK(7)
-      // the new carry and the level: restart [em, BIG, ...], or the picks
-      // plus the emission where connected
-      float head = CUDART_INF_F;
-      if (col) {
-        float* crow = nxt + c * RP;
-        if constexpr (LOG == 0) {
-          int bp;
-          if (broken) {
-            head = em;
-            bp = -1;
+        const bool look = (fl & kStepLook) != 0;
+        const unsigned long long* pm = B.mask + B.prev[s] * Wm;
+        const unsigned long long* jm = B.mask + (s + 1) * Wm;
+        const float* trs = B.trans + static_cast<size_t>(s) * KK;
+        bool conn = false;
+        for (int c = mtid; c < K && look; c += MW) {
+          const unsigned long long* seen =
+              ((jm[c >> 6] >> (c & 63)) & 1ull) ? pm : nullptr;
+          unsigned long long x;
+          float best;
+          if (R == 1) {
+            best = CUDART_INF_F;
+            int arg = 0;
+            for (int cp = 0; cp < K; ++cp) {
+              const float v =
+                  __fadd_rn(cur[cp], wide_trans(trs + c, K, seen, cp));
+              if (v < best) {
+                best = v;
+                arg = cp;
+              }
+            }
+            x = (static_cast<unsigned long long>(__float_as_uint(best))
+                 << 32) |
+                static_cast<unsigned>(arg);
           } else {
-            head = conn ? __fadd_rn(best, em) : kBig;
-            bp = conn ? arg : -1;
+            x = wide_tree_build(cur, trs + c, seen, K, RP, LG, trees + c, TW);
+            best = __uint_as_float(static_cast<unsigned>(x >> 32));
           }
-          crow[0] = head;
-          out_s[c] = head;
-          out_b[c] = bp;
+          stash[c] = x;
+          conn = conn || best < kBig;
+        }
+        // the barrier: the last level's copy out is done before this one
+        // is written
+        bool any = false;
+        if (look) {
+          any = bar_or(kBarMerge, MW, conn);
         } else {
-          int* brow = bpbuf + c * RP;
-          if (broken) {
-            for (int r = 0; r < R; ++r) {
-              crow[r] = r == 0 ? em : kBig;
-              brow[r] = -1;
-            }
+          bar_sync(kBarMerge, MW);
+        }
+        const bool broken = !any;
+        unsigned hb = 0xffffffffu, hc = 0xffffffffu;
+        for (int c = mtid; c < K; c += MW) {
+          const float em = B.em[(s + 1) * K + c];
+          float* crow = nxt + static_cast<size_t>(c) * RP;
+          float head;
+          if (R == 1) {
+            int bp = -1;
             head = em;
+            if (!broken) {
+              const unsigned long long x = stash[c];
+              const float best =
+                  __uint_as_float(static_cast<unsigned>(x >> 32));
+              head = best < kBig ? __fadd_rn(best, em) : kBig;
+              bp = best < kBig ? static_cast<int>(static_cast<unsigned>(x))
+                               : -1;
+            }
+            crow[0] = head;
+            out_s[c] = head;
+            out_b[c] = bp;
           } else {
-            head = column_picks<LOG>(win, cur, tr, seen, K, R, em, tree, W,
-                                     crow, brow);
+            int* brow = bpbuf + static_cast<size_t>(c) * RP;
+            if (broken) {
+              for (int r = 0; r < R; ++r) {
+                crow[r] = r == 0 ? em : kBig;
+                brow[r] = -1;
+              }
+              head = em;
+            } else {
+              const unsigned long long* seen =
+                  ((jm[c >> 6] >> (c & 63)) & 1ull) ? pm : nullptr;
+              head = wide_column_picks(stash[c], cur, trs + c, seen, K, R,
+                                       LG, em, trees + c, TW, crow, brow);
+            }
+          }
+          // the first minimal head of this thread's columns (ascending)
+          if (__float_as_uint(head) < hb) {
+            hb = __float_as_uint(head);
+            hc = c;
           }
         }
-      }
-      // the level's own state: the first minimal row head (rows ascend),
-      // by the warp's minimum of the heads' bits, then of the columns that
-      // hold it; warps combined through shared words of this step's parity
-      const unsigned hb = col ? __float_as_uint(head) : 0xffffffffu;
-      const unsigned wm = __reduce_min_sync(kFull, hb);
-      const unsigned wi = __reduce_min_sync(kFull, hb == wm ? c : 0xffffffffu);
-      if (nmw > 1 && lane == 0) {
-        red[cur_b * 4 + warp * 2] = wm;
-        red[cur_b * 4 + warp * 2 + 1] = wi;
-      }
-      RTT_MARK(8)
-      merge_sync();
-      RTT_MARK(9)
-      if constexpr (LOG > 0) {
-        // the level, coalesced: the carry's rows and the backpointers
-        copy_level(nxt, bpbuf, K, R, RP, out_s, out_b, mtid, MW);
-      }
-      if (mtid == 0) {
-        unsigned bm = wm, bi = wi;
-        for (int w = 1; w < nmw; ++w) {
-          const unsigned om = red[cur_b * 4 + w * 2];
-          if (om < bm) {
-            bm = om;
-            bi = red[cur_b * 4 + w * 2 + 1];
-          }
+        const unsigned wm = __reduce_min_sync(kFull, hb);
+        const unsigned wi = __reduce_min_sync(kFull, hb == wm ? hc : kFull);
+        if (lane == 0) {
+          red[cur_b * kRed + warp * 2] = wm;
+          red[cur_b * kRed + warp * 2 + 1] = wi;
         }
-        own_cur = __uint_as_float(bm) < kBig ? static_cast<int>(bi) * R : -1;
-        p.own[t] = own_cur;
-        p.started[t] = broken ? 1 : 0;
+        bar_sync(kBarMerge, MW);
+        if (R > 1) copy_level(nxt, bpbuf, K, R, RP, out_s, out_b, mtid, MW);
+        if (mtid == 0) {
+          unsigned bm = kFull, bi = kFull;
+          for (int w = 0; w < nmw; ++w) {
+            const unsigned om = red[cur_b * kRed + w * 2];
+            const unsigned oi = red[cur_b * kRed + w * 2 + 1];
+            if (om < bm || (om == bm && oi < bi)) {
+              bm = om;
+              bi = oi;
+            }
+          }
+          own_cur = __uint_as_float(bm) < kBig ? static_cast<int>(bi) * R : -1;
+          p.own[t] = own_cur;
+          p.started[t] = broken ? 1 : 0;
+        }
+        cur_b ^= 1;
       }
-      cur_b ^= 1;
-      RTT_MARK(10)
+      if (n + 2 < nchunks) bar_arrive(kBarFree + b, P + MW);
     }
-    if (n + 2 < nchunks) bar_arrive(kBarFree + b, P + MW);
+  } else {
+    // ---- the merge warps: the steps in order, a thread a column
+    const int c = mtid, warp = mtid >> 5, nmw = MW >> 5;
+    const bool col = c < K;
+    const int RP = R | 1;
+    float* score0 = reinterpret_cast<float*>(smem + L.score0);
+    float* score1 = reinterpret_cast<float*>(smem + L.score1);
+    int* bpbuf = reinterpret_cast<int*>(smem + L.bp);
+    unsigned long long* tree =
+        reinterpret_cast<unsigned long long*>(smem + L.tree) + c;
+    unsigned* red = reinterpret_cast<unsigned*>(smem + L.red);
+    const int W = tree_pitch(K);
+    for (int s = mtid; s < K * RP; s += MW) score0[s] = kBig;
+    auto merge_sync = [&]() {
+      if (MW == 32) {
+        __syncwarp();
+      } else {
+        bar_sync(kBarMerge, MW);
+      }
+    };
+    merge_sync();
+    int cur_b = 0;
+    int own_cur = -1;            // the carry's own state (the first thread's)
+    for (int n = 0; n < nchunks; ++n) {
+      const int b = n & 1, t0 = n * C, cn = min(C, T - t0);
+      const Chunk B = chunk_of(b);
+      bar_sync(kBarFull + b, P + MW);
+      RTT_MARK(5)
+      for (int s = 0; s < cn; ++s) {
+        const int t = t0 + s;
+        const int fl = B.flags[s];
+        const float* cur = cur_b ? score1 : score0;
+        float* nxt = cur_b ? score0 : score1;
+        float* out_s = p.scores + static_cast<size_t>(t) * KR;
+        int* out_b = p.backptrs + static_cast<size_t>(t) * KR;
+        if (!(fl & kStepActive)) {
+          // an inactive point passes the carry through: the level is the
+          // carry with identity backpointers, written coalesced
+          copy_level(cur, nullptr, K, R, RP, out_s, out_b, mtid, MW);
+          if (mtid == 0) {
+            p.started[t] = 0;
+            p.own[t] = own_cur;
+          }
+          continue;
+        }
+        const bool look = (fl & kStepLook) != 0;
+        const float em = col ? B.em[(s + 1) * K + c] : 0.0f;
+        // the previous slots looked up with this column's slot
+        const unsigned long long seen =
+            look && col && ((B.mask[s + 1] >> c) & 1ull) ? B.mask[B.prev[s]]
+                                                          : 0ull;
+        const float* tr = B.trans + s * KK + c;
+        float best = CUDART_INF_F;
+        int arg = 0;
+        unsigned long long win = kSpent;
+        if constexpr (LOG == 0) {
+          if (look && col) {
+            // the first minimal row, eight rows' loads at once
+            for (int cp0 = 0; cp0 < K; cp0 += 8) {
+              float hv[8], tv[8];
+  #pragma unroll
+              for (int u = 0; u < 8; ++u) {
+                hv[u] = cur[min(cp0 + u, K - 1)];
+                tv[u] = trans_of(tr, K, seen, cp0 + u);
+              }
+  #pragma unroll
+              for (int u = 0; u < 8; ++u) {
+                const int cp = cp0 + u;
+                const float v = __fadd_rn(hv[u], tv[u]);
+                const bool better = cp < K && v < best;
+                best = better ? v : best;
+                arg = better ? cp : arg;
+              }
+            }
+          }
+        }
+        if constexpr (LOG > 0) {
+          if (look && col) {
+            win = tree_build<(1 << LOG)>(cur, tr, seen, K, RP, 0, 1, tree, W);
+            best = __uint_as_float(static_cast<unsigned>(win >> 32));
+          }
+        }
+        const bool conn = best < kBig;
+        RTT_MARK(6)
+        // broken: no column connected, or the step does not look up (no
+        // active point before, or past the breakage distance). Either way a
+        // barrier here: the last level's copy out is done before this one
+        // is written.
+        bool any = false;
+        if (look) {
+          any = MW == 32 ? __any_sync(kFull, conn)
+                         : bar_or(kBarMerge, MW, conn);
+        } else {
+          merge_sync();
+        }
+        const bool broken = !any;
+        RTT_MARK(7)
+        // the new carry and the level: restart [em, BIG, ...], or the picks
+        // plus the emission where connected
+        float head = CUDART_INF_F;
+        if (col) {
+          float* crow = nxt + c * RP;
+          if constexpr (LOG == 0) {
+            int bp;
+            if (broken) {
+              head = em;
+              bp = -1;
+            } else {
+              head = conn ? __fadd_rn(best, em) : kBig;
+              bp = conn ? arg : -1;
+            }
+            crow[0] = head;
+            out_s[c] = head;
+            out_b[c] = bp;
+          } else {
+            int* brow = bpbuf + c * RP;
+            if (broken) {
+              for (int r = 0; r < R; ++r) {
+                crow[r] = r == 0 ? em : kBig;
+                brow[r] = -1;
+              }
+              head = em;
+            } else {
+              head = column_picks<LOG>(win, cur, tr, seen, K, R, em, tree, W,
+                                       crow, brow);
+            }
+          }
+        }
+        // the level's own state: the first minimal row head (rows ascend),
+        // by the warp's minimum of the heads' bits, then of the columns that
+        // hold it; warps combined through shared words of this step's parity
+        const unsigned hb = col ? __float_as_uint(head) : 0xffffffffu;
+        const unsigned wm = __reduce_min_sync(kFull, hb);
+        const unsigned wi =
+            __reduce_min_sync(kFull, hb == wm ? c : 0xffffffffu);
+        if (nmw > 1 && lane == 0) {
+          red[cur_b * 4 + warp * 2] = wm;
+          red[cur_b * 4 + warp * 2 + 1] = wi;
+        }
+        RTT_MARK(8)
+        merge_sync();
+        RTT_MARK(9)
+        if constexpr (LOG > 0) {
+          // the level, coalesced: the carry's rows and the backpointers
+          copy_level(nxt, bpbuf, K, R, RP, out_s, out_b, mtid, MW);
+        }
+        if (mtid == 0) {
+          unsigned bm = wm, bi = wi;
+          for (int w = 1; w < nmw; ++w) {
+            const unsigned om = red[cur_b * 4 + w * 2];
+            if (om < bm) {
+              bm = om;
+              bi = red[cur_b * 4 + w * 2 + 1];
+            }
+          }
+          own_cur = __uint_as_float(bm) < kBig ? static_cast<int>(bi) * R : -1;
+          p.own[t] = own_cur;
+          p.started[t] = broken ? 1 : 0;
+        }
+        cur_b ^= 1;
+        RTT_MARK(10)
+      }
+      if (n + 2 < nchunks) bar_arrive(kBarFree + b, P + MW);
+    }
+    RTT_PROFILE_END
   }
-  RTT_PROFILE_END
 }
 
 // ---- the backtrack -------------------------------------------------------
@@ -948,13 +1400,16 @@ struct BtParams {
   int* out;                    // i32 [P, T]
 };
 
-__global__ void __launch_bounds__(kMaxPaths + 32, 1)
+// a CTA of at most 1,024 threads: the producer warp and kMaxWalkers
+// walker warps (the plan launches as many walkers as cover P, up to that)
+__global__ void __launch_bounds__(32 * (kMaxWalkers + 1), 1)
     lattice_backtrack_kernel(const BtParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = p.T, S = p.S, G = p.G, NS = p.NS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int walkers = (blockDim.x >> 5) - 1;     // walker warps
-  const BtLayout L = make_bt_layout(S, p.P, G, NS);
+  const int q0 = blockIdx.x * walkers * 32;      // the CTA's first path
+  const BtLayout L = make_bt_layout(S, 32 * walkers, G, NS);
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(smem + L.full);
   unsigned long long* free_ =
@@ -1012,7 +1467,7 @@ __global__ void __launch_bounds__(kMaxPaths + 32, 1)
   // ---- the walkers: a thread a path, T levels down, block by block.
   // Per level one dependent shared read (the row above at the path's
   // state); the level's own state and flags are read apart from it.
-  const int q = tid - 32;
+  const int q = q0 + tid - 32;
   const bool walks = q < p.P;
   int* stage = reinterpret_cast<int*>(smem + L.out) + (warp - 1) * 32 * 33;
   int nxt = walks ? p.seed[q] : -1;  // the state the row above points at
@@ -1052,7 +1507,7 @@ __global__ void __launch_bounds__(kMaxPaths + 32, 1)
       if ((t & 31) == 0) {
         // levels [t, t + 32) of the warp's paths, a path a row, coalesced
         __syncwarp();
-        const int base_q = (warp - 1) * 32;
+        const int base_q = q0 + (warp - 1) * 32;
         for (int r = 0; r < 32; ++r) {
           const int qq = base_q + r;
           if (qq < p.P && t + lane < T) {
@@ -1063,6 +1518,32 @@ __global__ void __launch_bounds__(kMaxPaths + 32, 1)
         __syncwarp();
       }
     }
+  }
+}
+
+// The backtrack where a level is too wide for the ring's slots (two of
+// four levels past the CTA's shared memory): a thread a path, each level's
+// flags, own state and the one backpointer its path follows read in place
+// from global memory (a dependent L2 read a level), the choices written
+// straight out. The same steps as the ring's walkers, in the same order.
+__global__ void __launch_bounds__(1024)
+    lattice_backtrack_global_kernel(const BtParams p) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= p.P) return;
+  const int T = p.T, S = p.S;
+  int nxt = p.seed[q];
+  bool nxt_started = false;
+  for (int t = T - 1; t >= 0; --t) {
+    int prop = nxt;
+    if (t + 1 < T) {
+      const int v =
+          p.backptrs[static_cast<size_t>(t + 1) * S + max(nxt, 0)];
+      prop = nxt >= 0 ? v : -1;
+    }
+    const int choice = (nxt_started || nxt < 0) ? p.own[t] : prop;
+    p.out[static_cast<size_t>(q) * T + t] = p.active[t] ? choice : -1;
+    nxt = choice;
+    nxt_started = p.started[t] != 0;
   }
 }
 
@@ -1098,6 +1579,16 @@ int launch_forward(const FwdParams& p, int smem_bytes, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the forward's one ceiling on K is the shared memory: false where an
+// array alone outgrows it (a buffer's candidate rows' flags, a wide
+// instance's trees in shared memory), checked in 64 bits before
+// make_layout's 32-bit offsets could wrap
+bool forward_fits(int K, int R, int C, bool tree_here) {
+  if ((C + 1ll) * K > kMaxSmem) return false;
+  return !(K > kMaxK && R > 1 && tree_here &&
+           16ll * pow2_at_least(K) * tree_pitch(K) > kMaxSmem);
+}
+
 }  // namespace
 
 // The keep mask of B traces (pts f32 [B, T, 2], vp u8 [B, T]) into keep u8
@@ -1107,18 +1598,36 @@ extern "C" int rtt_lattice_keep(const float* pts, const unsigned char* vp,
                                 int B, int T, float d2_min,
                                 unsigned char* keep, void* stream) {
   if (B < 1 || T < 1) return -1;
-  lattice_keep_kernel<<<(B + kKeepThreads - 1) / kKeepThreads, kKeepThreads,
-                        0, static_cast<cudaStream_t>(stream)>>>(
-      pts, vp, B, T, d2_min, keep);
+  // a thread a point of the first tile, whole warps
+  const int threads = min(kKeepMaxThreads, (min(T, kKeepTile) + 31) / 32 * 32);
+  lattice_keep_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pts, vp, T, d2_min, keep);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The forward kernel's shared bytes at (K, R) and chunk C (at most 32: a
-// lane a step of the control sequence), -1 for a shape it does not take
-// (ops/hmm.py::lattice_smem_bytes is held to it on the card).
-extern "C" int rtt_lattice_forward_smem(int K, int R, int C) {
-  if (K < 1 || K > kMaxK || R < 1 || R > K || C < 1 || C > 32) return -1;
-  return make_layout(K, R, C).bytes;
+// lane a step of the control sequence), the wide instance's trees there
+// where `tree_here` (ignored at K <= kMaxK), -1 for a shape it does not
+// take (ops/hmm.py::lattice_smem_bytes is held to it on the card).
+extern "C" int rtt_lattice_forward_smem(int K, int R, int C, int tree_here) {
+  if (K < 1 || R < 1 || R > K || C < 1 || C > 32 ||
+      !forward_fits(K, R, C, tree_here != 0)) {
+    return -1;
+  }
+  return make_layout(K, R, C, tree_here != 0).bytes;
+}
+
+// The wide forward's global scratch bytes (K > kMaxK; -1 for another
+// shape, or past 2^31 - 1 bytes): what ops/hmm.py::lattice_scratch_bytes is
+// held to on the card.
+extern "C" int rtt_lattice_forward_scratch(int K, int R, int C,
+                                           int tree_here) {
+  if (K <= kMaxK || R < 1 || R > K || C < 1 || C > 32 ||
+      !forward_fits(K, R, C, false)) {
+    return -1;
+  }
+  const size_t n = make_wide_scratch(K, R, C, tree_here != 0).bytes;
+  return n > 0x7fffffffu ? -1 : static_cast<int>(n);
 }
 
 // The forward pass of one trace from its candidates (ce i32, co f32, cd
@@ -1127,7 +1636,10 @@ extern "C" int rtt_lattice_forward_smem(int K, int R, int C) {
 // [rows, M]) → scores f32 [T, K * R], backptrs i32 [T, K * R], started u8
 // [T], own i32 [T], active u8 [T]: one CTA of `producers` + `merge`
 // threads with `smem_bytes` of shared memory (the layout's at chunk C, or
-// -1). The floats are f32(2 sigma_z^2) and the matcher's constants.
+// -1); past kMaxK the wide instance, 256 producers, min(K up to whole
+// warps, kWideMerge) merge threads, its trees in shared memory where
+// `tree_here`, and `scratch` (make_wide_scratch's bytes; null at K <=
+// kMaxK). The floats are f32(2 sigma_z^2) and the matcher's constants.
 // Returns cudaGetLastError() after the launch, or -1 for a shape or plan
 // it does not take.
 extern "C" int rtt_lattice_forward(
@@ -1135,29 +1647,39 @@ extern "C" int rtt_lattice_forward(
     const float* pts, const unsigned char* keep, const float* edge_len,
     const int* reach_row, const int* reach_to, const float* reach_dist,
     int T, int K, int R, int M, int chunk, int producers, int merge,
-    int smem_bytes, float em_denom, float beta, float factor, float breakage,
-    float slack, float* scores, int* backptrs, unsigned char* started,
-    int* own, unsigned char* active, void* stream) {
-  if (T < 1 || K < 1 || K > kMaxK || R < 1 || R > K || M < 1 || chunk < 1 ||
-      chunk > 32) {
+    int tree_here, int smem_bytes, float em_denom, float beta, float factor,
+    float breakage, float slack, unsigned char* scratch, float* scores,
+    int* backptrs, unsigned char* started, int* own, unsigned char* active,
+    void* stream) {
+  if (T < 1 || K < 1 || R < 1 || R > K || M < 1 || chunk < 1 ||
+      chunk > 32 || !forward_fits(K, R, chunk, tree_here != 0)) {
     return -1;
   }
-  if (merge != 32 * ((K + 31) / 32) || producers < 32 || producers % 32 ||
-      producers + merge > kMaxThreads) {
+  const bool wide = K > kMaxK;
+  const int columns = 32 * ((K + 31) / 32);
+  if (wide ? merge != min(columns, kWideMerge) || producers != 256 ||
+                 scratch == nullptr || (tree_here && R == 1)
+           : merge != columns || producers < 32 || producers % 32 ||
+                 producers + merge > kMaxThreads || tree_here) {
     return -1;
   }
-  if (smem_bytes != make_layout(K, R, chunk).bytes || smem_bytes > kMaxSmem) {
+  if (smem_bytes != make_layout(K, R, chunk, tree_here != 0).bytes ||
+      smem_bytes > kMaxSmem) {
     return -1;
   }
   // the level's vector writes: 16-aligned outputs
-  if (!aligned16(scores) || !aligned16(backptrs)) return -1;
+  if (!aligned16(scores) || !aligned16(backptrs) || !aligned16(scratch)) {
+    return -1;
+  }
   int top = 1;
   while (top <= M / 2) top *= 2;
-  FwdParams p{ce,      co,       cd,       cv,        pts,      keep,
-              edge_len, reach_row, reach_to, reach_dist, T,       K,
-              R,       M,        top,      chunk,     producers, merge,
-              em_denom, beta,    factor,   breakage,  slack,    scores,
-              backptrs, started, own,      active};
+  FwdParams p{ce,       co,        cd,       cv,         pts,
+              keep,     edge_len,  reach_row, reach_to,  reach_dist,
+              T,        K,         R,        M,          top,
+              chunk,    producers, merge,    em_denom,   beta,
+              factor,   breakage,  slack,    scores,     backptrs,
+              started,  own,       active,   scratch,    tree_here};
+  if (wide) return launch_forward<kWide>(p, smem_bytes, stream);
   int lg = 0;
   while (R > 1 && (1 << lg) < K) ++lg;
   switch (lg) {
@@ -1171,30 +1693,50 @@ extern "C" int rtt_lattice_forward(
   }
 }
 
-// The backtrack's shared bytes for S states a level, P paths, slots of G
-// levels and NS slots, -1 for a shape it does not take
-// (ops/hmm.py::backtrack_smem_bytes is held to it on the card).
+// The backtrack's shared bytes for S states a level, P paths a CTA (at
+// most kMaxWalkers warps), slots of G levels and NS slots, -1 for a shape
+// it does not take (ops/hmm.py::backtrack_smem_bytes is held to it on the
+// card).
 extern "C" int rtt_lattice_backtrack_smem(int S, int P, int G, int NS) {
-  if (S < 1 || P < 1 || P > kMaxPaths || G < 4 || G % 4 || NS < 2) return -1;
+  if (S < 1 || P < 1 || P > 32 * kMaxWalkers || G < 4 || G % 4 || NS < 2) {
+    return -1;
+  }
   return make_bt_layout(S, P, G, NS).bytes;
 }
 
 // The backtrack of P paths through T levels of S states: backptrs i32 [T,
 // S], started, active u8 [T], own i32 [T], seed i32 [P] (each in [-1, S))
-// → out i32 [P, T]: one CTA of a producer warp and ceil(P / 32) walker
-// warps, a ring of NS slots of G levels in `smem_bytes` (the layout's, or
-// -1); the four level arrays 16-aligned. Returns cudaGetLastError() after
-// the launch, or -1 for a shape or plan it does not take.
+// → out i32 [P, T]. The ring (G >= 4, NS >= 2): CTAs of a producer warp
+// and threads / 32 - 1 walker warps (at most kMaxWalkers), as many as
+// cover P, a ring of NS
+// slots of G levels in `smem_bytes` (the layout's, or -1); the four level
+// arrays 16-aligned. The levels read in place (G = NS = 0, smem_bytes 0):
+// CTAs of `threads` threads, a path each. Returns cudaGetLastError()
+// after the launch, or -1 for a shape or plan it does not take.
 extern "C" int rtt_lattice_backtrack(const int* backptrs,
                                      const unsigned char* started,
                                      const unsigned char* active,
                                      const int* own, const int* seed, int T,
                                      int S, int P, int G, int NS,
-                                     int smem_bytes, int* out, void* stream) {
-  if (T < 1 || S < 1 || P < 1 || P > kMaxPaths || G < 4 || G % 4 || NS < 2) {
+                                     int threads, int smem_bytes, int* out,
+                                     void* stream) {
+  if (T < 1 || S < 1 || P < 1 || threads < 32 || threads % 32 ||
+      threads > 1024) {
     return -1;
   }
-  if (smem_bytes != make_bt_layout(S, P, G, NS).bytes ||
+  BtParams p{backptrs, started, active, own, seed, T, S, P, G, NS, out};
+  if (G == 0 && NS == 0) {
+    if (smem_bytes != 0) return -1;
+    lattice_backtrack_global_kernel<<<(P + threads - 1) / threads, threads,
+                                      0, static_cast<cudaStream_t>(stream)>>>(
+        p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int walkers = threads / 32 - 1;
+  if (walkers < 1 || walkers > kMaxWalkers || G < 4 || G % 4 || NS < 2) {
+    return -1;
+  }
+  if (smem_bytes != make_bt_layout(S, 32 * walkers, G, NS).bytes ||
       smem_bytes > kMaxSmem) {
     return -1;
   }
@@ -1202,11 +1744,11 @@ extern "C" int rtt_lattice_backtrack(const int* backptrs,
       !aligned16(own)) {
     return -1;
   }
+  const int grid = (P + 32 * walkers - 1) / (32 * walkers);
   static std::atomic<unsigned long long> attribute_set{0};
   const int rc = allow_smem(lattice_backtrack_kernel, attribute_set);
   if (rc != 0) return rc;
-  BtParams p{backptrs, started, active, own, seed, T, S, P, G, NS, out};
-  lattice_backtrack_kernel<<<1, 32 + 32 * ((P + 31) / 32), smem_bytes,
+  lattice_backtrack_kernel<<<grid, threads, smem_bytes,
                              static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -91,8 +91,24 @@
 //    interpolation fill: the same thread's warp, 32 levels at a time, the
 //    last matched level by a ballot, the five [B, T] outputs written
 //    coalesced.
+//
+// Those are instance 0, K <= 64 (kMaxK). Past it the wide instances (1:
+// K <= 254, backpointers u8; 2: past it, backpointers u16) run the same
+// stages with these widths changed, each a simple form that is right
+// first (a K > 64 list is a rare request; PERF.md has its times):
+// - a row's looked-up slots are ceil(K / 64) mask words and a u16 list;
+// - a level word is u32 (own + 1 in the low 16 bits), a choice i32;
+// - one trace is a CTA of kWideThreads threads, all of which look up, and
+//   the recurrence gives each thread whole columns j = tid, tid + 256, ...
+//   (the first minimal i by one thread, the column's best and argmin kept
+//   in shared memory over the step's OR barrier);
+// - the chunk's blocks f32 [C, K, K] stay in shared memory where the CTA
+//   fits the card (to K = 233 at C = 1), else they go to the global scratch
+//   after the levels (f32 [B, C, K, K], 16 aligned), read back coalesced
+//   (a thread a column).
 
 #include <atomic>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -101,19 +117,51 @@
 
 namespace {
 
-constexpr int kMaxK = 64;
+constexpr int kMaxK = 64;            // instance 0's widest list
 constexpr int kMaxThreads = 128;     // a CTA's threads, every group's
+constexpr int kWideThreads = 256;    // a wide instance's CTA: one trace
 constexpr int kMaxSmem = 232448;     // a CTA's shared memory on sm_90
 constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kInterleave = 4;       // binary searches in flight a thread
 constexpr float kBig = 1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-// the level word: the level's own first argmin + 1 in the low byte
-constexpr unsigned kKeepBit = 1u << 8;
-constexpr unsigned kActiveBit = 1u << 9;
-constexpr unsigned kStartedBit = 1u << 10;
-constexpr unsigned char kNoPointer = 0xff;
+// the instance of a K: 0 to kMaxK, 1 while a slot fits a u8 beside its
+// 0xff "none", else 2
+__host__ __device__ inline int instance_of(int K) {
+  return K <= kMaxK ? 0 : (K < 255 ? 1 : 2);
+}
+
+// an instance's widths. The level word: the level's own first argmin + 1
+// in the low byte (16 bits in a wide instance), then keep, active and
+// started.
+template <int kInst>
+struct Inst {
+  static constexpr bool kWide = kInst != 0;
+  using List = std::conditional_t<kWide, unsigned short, unsigned char>;
+  using Bp = std::conditional_t<kInst == 2, unsigned short, unsigned char>;
+  using Word = std::conditional_t<kWide, unsigned, unsigned short>;
+  using Choice = std::conditional_t<kWide, int, signed char>;
+  static constexpr int kOwnBits = kWide ? 16 : 8;
+  static constexpr unsigned kOwnMask = (1u << kOwnBits) - 1u;
+  static constexpr unsigned kKeepBit = 1u << kOwnBits;
+  static constexpr unsigned kActiveBit = kKeepBit << 1;
+  static constexpr unsigned kStartedBit = kKeepBit << 2;
+  static constexpr Bp kNoPointer = static_cast<Bp>(~0u);
+};
+
+// an instance's element bytes, on the host too: list, backpointer, word,
+// choice
+struct Widths {
+  int list, bp, word, choice, words;   // words: mask words a row
+};
+
+__host__ __device__ inline Widths widths_of(int K) {
+  const int inst = instance_of(K);
+  return Widths{inst ? 2 : 1, inst == 2 ? 2 : 1, inst ? 4 : 2, inst ? 4 : 1,
+                (K + 63) / 64};
+}
 
 // a step's record from the control sequence
 constexpr int kStepActive = 1;
@@ -125,33 +173,39 @@ constexpr int kStepLook = 8;         // active, prev_any, gc <= breakage
 // aligned (ops/hmm.py::viterbi_smem_bytes makes the same sum, which the
 // launch checks). [0, stage) is the chunk, which the backtrack reuses to
 // stage global levels. With the levels global nothing grows with T: the
-// choices go straight to out_choice.
+// choices go straight to out_choice. Global blocks (a wide instance's
+// choice) take no room here; the columns' best and argmin are a wide
+// instance's alone.
 struct Layout {
   int trans, o, em, len, e, row, v, list, mask, stage;
   int score, x, y, gc, prev, off, red_v, red_i, conn, misc, flags, vp, any;
-  int choice, word, bp, bytes;
+  int best, arg, choice, word, bp, bytes;
 };
 
-__host__ __device__ inline int take(int& at, int n) {
+__host__ __device__ inline int take(int& at, long long n) {
   const int o = at;
-  at += (n + 15) & ~15;
+  at += static_cast<int>((n + 15) & ~15ll);
   return o;
 }
 
 __host__ __device__ inline Layout make_layout(int K, int C, int T,
-                                              bool levels_here) {
+                                              bool levels_here,
+                                              bool blocks_here) {
   Layout L{};
   int at = 0;
+  const Widths w = widths_of(K);
+  const bool wide = instance_of(K) != 0;
+  const int warps = wide ? kWideWarps : kMaxWarps;
   const int rows = (C + 1) * K;
-  L.trans = take(at, 4 * C * K * K);
+  L.trans = blocks_here ? take(at, 4ll * C * K * K) : -1;
   L.o = take(at, 4 * rows);
   L.em = take(at, 4 * rows);
   L.len = take(at, 4 * rows);
   L.e = take(at, 4 * rows);
   L.row = take(at, 4 * rows);
   L.v = take(at, rows);
-  L.list = take(at, rows);
-  L.mask = take(at, 8 * (C + 1));
+  L.list = take(at, w.list * rows);
+  L.mask = take(at, 8 * w.words * (C + 1));
   L.stage = at;
   L.score = take(at, 4 * K);
   L.x = take(at, 4 * C);
@@ -159,16 +213,19 @@ __host__ __device__ inline Layout make_layout(int K, int C, int T,
   L.gc = take(at, 4 * C);
   L.prev = take(at, 4 * C);
   L.off = take(at, 4 * C);
-  L.red_v = take(at, 4 * kMaxWarps);
-  L.red_i = take(at, 4 * kMaxWarps);
-  L.conn = take(at, 4 * kMaxWarps);
-  L.misc = take(at, 4 * kMaxWarps);
+  L.red_v = take(at, 4 * warps);
+  L.red_i = take(at, 4 * warps);
+  L.conn = take(at, 4 * warps);
+  L.misc = take(at, 4 * warps);
   L.flags = take(at, C);
   L.vp = take(at, C);
   L.any = take(at, C);
-  L.choice = levels_here ? take(at, T) : -1;
-  L.word = levels_here ? take(at, 2 * T) : -1;
-  L.bp = levels_here ? take(at, T * K) : -1;
+  L.best = wide ? take(at, 4 * K) : -1;
+  L.arg = wide ? take(at, 4 * K) : -1;
+  L.choice = levels_here ? take(at, static_cast<long long>(w.choice) * T)
+                         : -1;
+  L.word = levels_here ? take(at, static_cast<long long>(w.word) * T) : -1;
+  L.bp = levels_here ? take(at, static_cast<long long>(w.bp) * T * K) : -1;
   L.bytes = at;
   return L;
 }
@@ -176,7 +233,23 @@ __host__ __device__ inline Layout make_layout(int K, int C, int T,
 // levels the backtrack stages at once from the global scratch: words
 // [lo, hi) and backpointers [lo, hi] in the chunk's space
 __host__ __device__ inline int stage_levels(const Layout& L, int K) {
-  return (L.stage - 16 - K) / (K + 2);
+  const Widths w = widths_of(K);
+  return (L.stage - 16 - w.bp * K) / (w.bp * K + w.word);
+}
+
+// where the global blocks start in the scratch: after the levels (none
+// where the levels stay in shared memory), 16 aligned
+__host__ __device__ inline size_t blocks_offset(int B, int T, int K,
+                                                bool levels_here) {
+  if (levels_here) return 0;
+  const Widths w = widths_of(K);
+  const size_t n = static_cast<size_t>(B) * T * (w.word + w.bp * K);
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+__device__ __forceinline__ bool mask_bit(const unsigned long long* m,
+                                         int i) {
+  return (m[i >> 6] >> (i & 63)) & 1ull;
 }
 
 struct Params {
@@ -191,13 +264,16 @@ struct Params {
   const int* reach_to;         // i32 [R, M], ascending, -1 padded
   const float* reach_dist;     // f32 [R, M]
   int B, T, K, M, top;         // top: the largest power of two <= M
-  int C, tpc, tpt, levels_here;
+  int C, tpc, tpt, levels_here, blocks_here;
   int rt, G;                   // the recurrence's threads, lanes a column
   float em_denom;              // f32(2 sigma_z^2), computed in double
   float beta, factor, breakage, slack;
   int use_keep;                // interpolation_distance > 0
   float d2_min;                // f32(interpolation_distance)^2
-  unsigned char* scratch;      // u16 [B, T] then u8 [B, T, K], or null
+  unsigned char* scratch;      // the levels' words [B, T] then their
+                               // backpointers [B, T, K], and after them
+                               // the global blocks f32 [B, C, K, K]; or
+                               // null where neither is global
   int* out_choice;             // i32 [B, T]
   int* out_edge;               // i32 [B, T]
   float* out_offset;           // f32 [B, T]
@@ -223,11 +299,20 @@ __device__ __forceinline__ void keep_first_min(float& v, int& i, float ov,
   }
 }
 
-// four CTAs an SM: at most 128 registers a thread
-__global__ void __launch_bounds__(kMaxThreads, 4)
+// instance 0: four CTAs an SM, at most 128 registers a thread; a wide
+// instance: two CTAs of kWideThreads, the same registers
+template <int kInst>
+__global__ void __launch_bounds__(kInst ? kWideThreads : kMaxThreads,
+                                  kInst ? 2 : 4)
 viterbi_decode_kernel(const Params p) {
+  using I = Inst<kInst>;
+  using List = typename I::List;
+  using Bp = typename I::Bp;
+  using Word = typename I::Word;
+  using Choice = typename I::Choice;
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = p.K, C = p.C, T = p.T, M = p.M, tpt = p.tpt, G = p.G;
+  const int W = I::kWide ? (K + 63) >> 6 : 1;   // mask words a row
   const int rt = p.rt;         // the recurrence's threads: the first rt
   const int grp = threadIdx.x / tpt;
   const int tid = threadIdx.x % tpt;
@@ -238,9 +323,17 @@ viterbi_decode_kernel(const Params p) {
   const int rw = rt / 32, rbar = bar + p.tpc;   // the recurrence's warps
   const size_t row0 = static_cast<size_t>(b) * T;
 
-  const Layout L = make_layout(K, C, T, p.levels_here != 0);
+  // instance 0's blocks are always in shared memory: known here, so its
+  // block reads and writes stay shared-memory instructions, not generic
+  const bool blocks_here = !I::kWide || p.blocks_here != 0;
+  const Layout L = make_layout(K, C, T, p.levels_here != 0, blocks_here);
   unsigned char* base = smem + static_cast<size_t>(grp) * L.bytes;
-  float* s_trans = reinterpret_cast<float*>(base + L.trans);
+  float* s_trans =
+      blocks_here
+          ? reinterpret_cast<float*>(base + L.trans)
+          : reinterpret_cast<float*>(
+                p.scratch + blocks_offset(p.B, T, K, p.levels_here != 0)) +
+                static_cast<size_t>(b) * C * K * K;
   float* c_o = reinterpret_cast<float*>(base + L.o);
   float* c_em = reinterpret_cast<float*>(base + L.em);
   float* c_len = reinterpret_cast<float*>(base + L.len);
@@ -248,7 +341,7 @@ viterbi_decode_kernel(const Params p) {
   int* c_row = reinterpret_cast<int*>(base + L.row);
   unsigned char* c_v = base + L.v;
   // each row's looked-up slots (valid, an edge): in order, and as a mask
-  unsigned char* c_list = base + L.list;
+  List* c_list = reinterpret_cast<List*>(base + L.list);
   unsigned long long* c_mask =
       reinterpret_cast<unsigned long long*>(base + L.mask);
   float* s_score = reinterpret_cast<float*>(base + L.score);
@@ -266,18 +359,25 @@ viterbi_decode_kernel(const Params p) {
   unsigned char* s_any = base + L.any;
   // the backtrack's choices: in shared memory beside the levels, else
   // straight in the output, which the fill reads back
-  signed char* s_choice =
-      p.levels_here ? reinterpret_cast<signed char*>(base + L.choice)
-                    : nullptr;
-  unsigned short* lv_word;
-  unsigned char* lv_bp;
+  Choice* s_choice =
+      p.levels_here ? reinterpret_cast<Choice*>(base + L.choice) : nullptr;
+  Word* lv_word;
+  Bp* lv_bp;
   if (p.levels_here) {
-    lv_word = reinterpret_cast<unsigned short*>(base + L.word);
-    lv_bp = base + L.bp;
+    lv_word = reinterpret_cast<Word*>(base + L.word);
+    lv_bp = reinterpret_cast<Bp*>(base + L.bp);
   } else {
-    lv_word = reinterpret_cast<unsigned short*>(p.scratch) + row0;
-    lv_bp = p.scratch + static_cast<size_t>(p.B) * T * 2 + row0 * K;
+    lv_word = reinterpret_cast<Word*>(p.scratch) + row0;
+    lv_bp = reinterpret_cast<Bp*>(p.scratch +
+                                  static_cast<size_t>(p.B) * T * sizeof(Word)) +
+            row0 * K;
   }
+  // a row's looked-up slots: the popcount of its mask words
+  auto row_count = [&](int r) {
+    int c = 0;
+    for (int w = 0; w < W; ++w) c += __popcll(c_mask[r * W + w]);
+    return c;
+  };
 
   // the carry row 0: no previous candidate yet
   for (int k = tid; k < K; k += tpt) {
@@ -338,12 +438,21 @@ viterbi_decode_kernel(const Params p) {
         const unsigned m = __ballot_sync(kFull, ok);
         if (ok) {
           c_list[r * K + count + __popc(m & ((1u << lane) - 1u))] =
-              static_cast<unsigned char>(k);
+              static_cast<List>(k);
         }
         count += __popc(m);
-        mask |= static_cast<unsigned long long>(m) << k0;
+        mask |= static_cast<unsigned long long>(m) << (k0 & 63);
+        if constexpr (I::kWide) {
+          // a word whole at its upper half, or at the row's end
+          if ((k0 & 63) == 32 || k0 + 32 >= K) {
+            if (lane == 0) c_mask[r * W + (k0 >> 6)] = mask;
+            mask = 0ull;
+          }
+        }
       }
-      if (lane == 0) c_mask[r] = mask;
+      if constexpr (!I::kWide) {
+        if (lane == 0) c_mask[r] = mask;    // the row's one word
+      }
     }
     group_sync(bar, tpt);
 
@@ -375,7 +484,7 @@ viterbi_decode_kernel(const Params p) {
         s_prev[s] = last + 1;  // the row of the previous active point
         s_off[s] = pairs;
         if (look) {
-          pairs += __popcll(c_mask[last + 1]) * __popcll(c_mask[s + 1]);
+          pairs += row_count(last + 1) * row_count(s + 1);
         }
         s_flags[s] = (act ? kStepActive : 0) | (keep ? kStepKeep : 0) |
                      (prev_any ? kStepPrevAny : 0) | (look ? kStepLook : 0);
@@ -422,7 +531,7 @@ viterbi_decode_kernel(const Params p) {
             }
           }
           const int loc = f - s_off[lo];
-          const int nc = __popcll(c_mask[lo + 1]);
+          const int nc = row_count(lo + 1);
           const int ii = loc / nc, jj = loc - ii * nc;
           const int i = c_list[s_prev[lo] * K + ii];
           const int jn = c_list[(lo + 1) * K + jj];
@@ -452,84 +561,161 @@ viterbi_decode_kernel(const Params p) {
     group_sync(bar, tpt);
 
     // ---- 4. the recurrence, step by step, on the first rt threads (one
-    // warp up to K = 16); the others go on to the carry
-    for (int s = 0; s < n && tid < rt; ++s) {
-      const int t = t0 + s;
-      const int fl = s_flags[s];
-      if (!(fl & kStepActive)) {
-        // an inactive point passes the carry through: identity
-        // backpointers, read from the word's active bit
-        if (tid == 0) {
-          lv_word[t] = static_cast<unsigned short>(
-              (own + 1) | (fl & kStepKeep ? kKeepBit : 0u));
+    // warp up to K = 16); the others go on to the carry. A wide instance:
+    // every thread, whole columns each.
+    if constexpr (I::kWide) {
+      float* s_best = reinterpret_cast<float*>(base + L.best);
+      int* s_arg = reinterpret_cast<int*>(base + L.arg);
+      for (int s = 0; s < n; ++s) {
+        const int t = t0 + s;
+        const int fl = s_flags[s];
+        if (!(fl & kStepActive)) {
+          if (tid == 0) {
+            lv_word[t] = static_cast<Word>(
+                (own + 1) | (fl & kStepKeep ? I::kKeepBit : 0u));
+          }
+          continue;            // the same flags in every thread
         }
-        continue;
+        const bool look = (fl & kStepLook) != 0;
+        const unsigned long long* pm = c_mask + s_prev[s] * W;
+        const unsigned long long* jm = c_mask + (s + 1) * W;
+        const float* tr = s_trans + static_cast<size_t>(s) * KK;
+        bool conn = false;
+        for (int jj = tid; jj < K; jj += tpt) {
+          // the first minimal i, as instance 0's G lanes reduce it
+          const bool lj = look && mask_bit(jm, jj);
+          float best = CUDART_INF_F;
+          int arg = K;
+          for (int i = 0; i < K; ++i) {
+            const float via = __fadd_rn(
+                s_score[i],
+                lj && mask_bit(pm, i) ? tr[static_cast<size_t>(i) * K + jj]
+                                      : kBig);
+            if (via < best) {
+              best = via;
+              arg = i;
+            }
+          }
+          s_best[jj] = best;
+          s_arg[jj] = arg;
+          conn = conn || best < kBig;
+        }
+        // every column's scores read: the new ones may be written
+        const bool broken = !__syncthreads_or(conn) || !(fl & kStepPrevAny);
+        float sc = CUDART_INF_F;
+        int si = K;
+        for (int jj = tid; jj < K; jj += tpt) {
+          const float best = s_best[jj];
+          const bool connected = best < kBig;
+          const float em = c_em[(s + 1) * K + jj];
+          const float v =
+              broken ? em : (connected ? __fadd_rn(best, em) : kBig);
+          s_score[jj] = v;
+          lv_bp[static_cast<size_t>(t) * K + jj] =
+              (broken || !connected) ? I::kNoPointer
+                                     : static_cast<Bp>(s_arg[jj]);
+          keep_first_min(sc, si, v, jj);
+        }
+        // the level's own first argmin: the warp's, then the CTA's
+        for (int off = 16; off > 0; off >>= 1) {
+          keep_first_min(sc, si, __shfl_xor_sync(kFull, sc, off),
+                         __shfl_xor_sync(kFull, si, off));
+        }
+        if (lane == 0) {
+          s_red_v[warp] = sc;
+          s_red_i[warp] = si;
+        }
+        group_sync(bar, tpt);
+        if (tid == 0) {
+          for (int w = 1; w < nw; ++w) {
+            keep_first_min(sc, si, s_red_v[w], s_red_i[w]);
+          }
+          own = sc < kBig ? si : -1;
+          lv_word[t] = static_cast<Word>(
+              (own + 1) | I::kActiveBit |
+              (fl & kStepKeep ? I::kKeepBit : 0u) |
+              (broken ? I::kStartedBit : 0u));
+        }
       }
-      // the previous slots looked up with this column's slot (none
-      // where the step does not look up or the slot is not looked up)
-      const unsigned long long seen =
-          (fl & kStepLook) && j < K && ((c_mask[s + 1] >> j) & 1ull)
-              ? c_mask[s_prev[s]]
-              : 0ull;
-      const float* tr = s_trans + s * KK;
-      float best = CUDART_INF_F;
-      int arg = K;
-      if (j < K) {
-        for (int i = sub; i < K; i += G) {
-          const float via = __fadd_rn(
-              s_score[i], ((seen >> i) & 1ull) ? tr[i * K + j] : kBig);
-          if (via < best) {    // the first minimal i of this slice
-            best = via;
-            arg = i;
+    } else {
+      for (int s = 0; s < n && tid < rt; ++s) {
+        const int t = t0 + s;
+        const int fl = s_flags[s];
+        if (!(fl & kStepActive)) {
+          // an inactive point passes the carry through: identity
+          // backpointers, read from the word's active bit
+          if (tid == 0) {
+            lv_word[t] = static_cast<Word>(
+                (own + 1) | (fl & kStepKeep ? I::kKeepBit : 0u));
+          }
+          continue;
+        }
+        // the previous slots looked up with this column's slot (none
+        // where the step does not look up or the slot is not looked up)
+        const unsigned long long seen =
+            (fl & kStepLook) && j < K && ((c_mask[s + 1] >> j) & 1ull)
+                ? c_mask[s_prev[s]]
+                : 0ull;
+        const float* tr = s_trans + s * KK;
+        float best = CUDART_INF_F;
+        int arg = K;
+        if (j < K) {
+          for (int i = sub; i < K; i += G) {
+            const float via = __fadd_rn(
+                s_score[i], ((seen >> i) & 1ull) ? tr[i * K + j] : kBig);
+            if (via < best) {    // the first minimal i of this slice
+              best = via;
+              arg = i;
+            }
           }
         }
-      }
-      for (int off = G >> 1; off > 0; off >>= 1) {
-        keep_first_min(best, arg, __shfl_xor_sync(kFull, best, off),
-                       __shfl_xor_sync(kFull, arg, off));
-      }
-      const bool connected = j < K && best < kBig;
-      bool any_connected = __any_sync(kFull, connected);
-      if (rw > 1) {
-        if (lane == 0) s_conn[warp] = any_connected;
-        group_sync(rbar, rt);
-        any_connected = false;
-        for (int w = 0; w < rw; ++w) any_connected |= s_conn[w] != 0;
-      } else {
-        __syncwarp();
-      }
-      const bool broken = !any_connected || !(fl & kStepPrevAny);
-      float sc = CUDART_INF_F;
-      int si = K;
-      if (j < K) {
-        const float em = c_em[(s + 1) * K + j];
-        sc = broken ? em : (connected ? __fadd_rn(best, em) : kBig);
-        si = j;
-        if (sub == 0) {
-          s_score[j] = sc;
-          lv_bp[static_cast<size_t>(t) * K + j] =
-              (broken || !connected) ? kNoPointer
-                                     : static_cast<unsigned char>(arg);
+        for (int off = G >> 1; off > 0; off >>= 1) {
+          keep_first_min(best, arg, __shfl_xor_sync(kFull, best, off),
+                         __shfl_xor_sync(kFull, arg, off));
         }
-      }
-      // the level's own first argmin over the new scores: across the
-      // warp's columns, then across warps
-      for (int off = 16; off >= G; off >>= 1) {
-        keep_first_min(sc, si, __shfl_xor_sync(kFull, sc, off),
-                       __shfl_xor_sync(kFull, si, off));
-      }
-      if (rw > 1 && lane == 0) {
-        s_red_v[warp] = sc;
-        s_red_i[warp] = si;
-      }
-      group_sync(rbar, rt);
-      if (tid == 0) {
-        for (int w = 1; w < rw; ++w) keep_first_min(sc, si, s_red_v[w],
-                                                   s_red_i[w]);
-        own = sc < kBig ? si : -1;
-        lv_word[t] = static_cast<unsigned short>(
-            (own + 1) | kActiveBit | (fl & kStepKeep ? kKeepBit : 0u) |
-            (broken ? kStartedBit : 0u));
+        const bool connected = j < K && best < kBig;
+        bool any_connected = __any_sync(kFull, connected);
+        if (rw > 1) {
+          if (lane == 0) s_conn[warp] = any_connected;
+          group_sync(rbar, rt);
+          any_connected = false;
+          for (int w = 0; w < rw; ++w) any_connected |= s_conn[w] != 0;
+        } else {
+          __syncwarp();
+        }
+        const bool broken = !any_connected || !(fl & kStepPrevAny);
+        float sc = CUDART_INF_F;
+        int si = K;
+        if (j < K) {
+          const float em = c_em[(s + 1) * K + j];
+          sc = broken ? em : (connected ? __fadd_rn(best, em) : kBig);
+          si = j;
+          if (sub == 0) {
+            s_score[j] = sc;
+            lv_bp[static_cast<size_t>(t) * K + j] =
+                (broken || !connected) ? I::kNoPointer
+                                       : static_cast<Bp>(arg);
+          }
+        }
+        // the level's own first argmin over the new scores: across the
+        // warp's columns, then across warps
+        for (int off = 16; off >= G; off >>= 1) {
+          keep_first_min(sc, si, __shfl_xor_sync(kFull, sc, off),
+                         __shfl_xor_sync(kFull, si, off));
+        }
+        if (rw > 1 && lane == 0) {
+          s_red_v[warp] = sc;
+          s_red_i[warp] = si;
+        }
+        group_sync(rbar, rt);
+        if (tid == 0) {
+          for (int w = 1; w < rw; ++w) keep_first_min(sc, si, s_red_v[w],
+                                                     s_red_i[w]);
+          own = sc < kBig ? si : -1;
+          lv_word[t] = static_cast<Word>(
+              (own + 1) | I::kActiveBit | (fl & kStepKeep ? I::kKeepBit : 0u) |
+              (broken ? I::kStartedBit : 0u));
+        }
       }
     }
 
@@ -554,14 +740,15 @@ viterbi_decode_kernel(const Params p) {
   // global scratch are staged back into the chunk's space, block by block
   // from the end.
   const int span = p.levels_here ? T : stage_levels(L, K);
-  unsigned short* st_word = reinterpret_cast<unsigned short*>(base);
-  unsigned char* st_bp = base + ((2 * span + 15) & ~15);
+  Word* st_word = reinterpret_cast<Word*>(base);
+  Bp* st_bp = reinterpret_cast<Bp*>(
+      base + ((static_cast<int>(sizeof(Word)) * span + 15) & ~15));
   int nxt = -1;
   bool nxt_started = true, nxt_active = false;
   for (int hi = T; hi > 0; hi -= span) {
     const int lo = max(0, hi - span);
-    const unsigned short* w_at = lv_word + lo;
-    const unsigned char* bp_at = lv_bp + static_cast<size_t>(lo) * K;
+    const Word* w_at = lv_word + lo;
+    const Bp* bp_at = lv_bp + static_cast<size_t>(lo) * K;
     if (!p.levels_here) {
       const int nb = (min(hi + 1, T) - lo) * K;
       for (int x = tid; x < hi - lo; x += tpt) st_word[x] = lv_word[lo + x];
@@ -573,26 +760,26 @@ viterbi_decode_kernel(const Params p) {
     if (tid == 0) {
       for (int t = hi - 1; t >= lo; --t) {
         const unsigned w = w_at[t - lo];
-        const int own_t = static_cast<int>(w & 0xffu) - 1;
+        const int own_t = static_cast<int>(w & I::kOwnMask) - 1;
         int prop = -1;
         if (nxt >= 0 && t + 1 < T) {
           if (nxt_active) {
-            const unsigned char bp = bp_at[(t + 1 - lo) * K + nxt];
-            prop = bp == kNoPointer ? -1 : bp;
+            const Bp bp = bp_at[static_cast<size_t>(t + 1 - lo) * K + nxt];
+            prop = bp == I::kNoPointer ? -1 : bp;
           } else {
             prop = nxt;
           }
         }
         const int choice = (nxt_started || nxt < 0) ? own_t : prop;
-        const int c = (w & kActiveBit) ? choice : -1;
+        const int c = (w & I::kActiveBit) ? choice : -1;
         if (p.levels_here) {
-          s_choice[t] = static_cast<signed char>(c);
+          s_choice[t] = static_cast<Choice>(c);
         } else {
           p.out_choice[row0 + t] = c;
         }
         nxt = choice;
-        nxt_started = (w & kStartedBit) != 0;
-        nxt_active = (w & kActiveBit) != 0;
+        nxt_started = (w & I::kStartedBit) != 0;
+        nxt_active = (w & I::kActiveBit) != 0;
       }
     }
     group_sync(bar, tpt);
@@ -629,13 +816,13 @@ viterbi_decode_kernel(const Params p) {
     const int src = before ? 31 - __clz(before) : 0;
     const int be = __shfl_sync(kFull, e, src);
     const float bo = __shfl_sync(kFull, o, src);
-    const bool use = v && !(w & kKeepBit) && (before || pok) && !m;
+    const bool use = v && !(w & I::kKeepBit) && (before || pok) && !m;
     if (in) {
       p.out_choice[r] = c;
       p.out_edge[r] = use ? (before ? be : pe) : e;
       p.out_offset[r] = use ? (before ? bo : po) : o;
       p.out_matched[r] = m || use;
-      p.out_start[r] = (w & kStartedBit) != 0;
+      p.out_start[r] = (w & I::kStartedBit) != 0;
     }
     if (mm) {
       const int l = 31 - __clz(mm);
@@ -650,19 +837,35 @@ viterbi_decode_kernel(const Params p) {
 // does not take (its shared bytes not this layout's, among others)
 Layout checked_layout(int T, int K, int M, int tpt, int tpc, int rt,
                       int columns, int chunk, int levels_here,
-                      int smem_bytes) {
+                      int blocks_here, int smem_bytes) {
   Layout bad{};
   bad.bytes = -1;
-  if (T < 1 || K < 1 || K > kMaxK || M < 1 || chunk < 1) return bad;
-  if (tpt < 32 || tpt % 32 != 0 || tpc < 1 || tpt * tpc > kMaxThreads) {
+  if (T < 1 || K < 1 || M < 1 || chunk < 1) return bad;
+  // the one ceiling on K is the shared memory: an array that alone
+  // outgrows it (the candidate rows' flags, the blocks, the levels'
+  // backpointers) is refused here, in 64 bits, before make_layout's 32-bit
+  // offsets could wrap
+  if ((chunk + 1ll) * K > kMaxSmem ||
+      (blocks_here && 4ll * chunk * K * K > kMaxSmem) ||
+      (levels_here && 1ll * T * K > kMaxSmem)) {
     return bad;
   }
-  // whole warps of G lanes a column, every column covered, G <= 32
-  if (rt < 32 || rt % 32 != 0 || rt > tpt || rt % columns != 0 ||
-      rt / columns > 32) {
+  if (instance_of(K) == 0) {
+    if (tpt < 32 || tpt % 32 != 0 || tpc < 1 || tpt * tpc > kMaxThreads ||
+        !blocks_here) {
+      return bad;
+    }
+    // whole warps of G lanes a column, every column covered, G <= 32
+    if (rt < 32 || rt % 32 != 0 || rt > tpt || rt % columns != 0 ||
+        rt / columns > 32) {
+      return bad;
+    }
+  } else if (tpt != kWideThreads || tpc != 1 || rt != tpt) {
+    // a wide instance: one trace a CTA, every thread in the recurrence
     return bad;
   }
-  const Layout L = make_layout(K, chunk, T, levels_here != 0);
+  const Layout L = make_layout(K, chunk, T, levels_here != 0,
+                               blocks_here != 0);
   if (static_cast<long long>(L.bytes) * tpc != smem_bytes ||
       smem_bytes > kMaxSmem) {
     return bad;
@@ -671,56 +874,76 @@ Layout checked_layout(int T, int K, int M, int tpt, int tpc, int rt,
   return L;
 }
 
-}  // namespace
-
-// One launch of the decode over B traces on `stream`, as
-// ops/hmm.py::viterbi_plan lays it out: `traces` traces a CTA, `threads`
-// threads a trace, the recurrence on the first `rt` of them (G = rt /
-// columns lanes a column, columns = K rounded up to a power of two),
-// chunks of `chunk` steps, the levels in shared memory (levels_here) or
-// in `scratch` (u8, B * T * (K + 2) bytes), `smem_bytes` of dynamic
-// shared memory a CTA. Returns cudaGetLastError() after the launch, or -1
-// for a plan the kernel does not take.
-extern "C" int rtt_viterbi_decode(
-    const int* ce, const float* co, const float* cd, const unsigned char* cv,
-    const float* pts, const unsigned char* vp, const float* edge_len,
-    const int* reach_row, const int* reach_to, const float* reach_dist,
-    int B, int T, int K, int M, int threads, int traces, int rt, int chunk,
-    int levels_here, int smem_bytes, float em_denom, float beta,
-    float factor, float breakage, float slack, int use_keep, float d2_min,
-    unsigned char* scratch, int* out_choice, int* out_edge,
-    float* out_offset, unsigned char* out_start, unsigned char* out_matched,
-    void* stream) {
-  if (B < 1 || K < 1 || K > kMaxK) return -1;
-  int columns = 1;
-  while (columns < K) columns *= 2;
-  const Layout L = checked_layout(T, K, M, threads, traces, rt, columns,
-                                  chunk, levels_here, smem_bytes);
-  if (L.bytes < 0 || (!levels_here && scratch == nullptr)) return -1;
-  // more than 48 KB of dynamic shared memory needs the attribute, set
-  // once per device
+// one launch of instance kInst (its shared-memory attribute set once per
+// device: more than 48 KB of dynamic shared memory needs it)
+template <int kInst>
+int launch(const Params& p, int grid, int threads, int smem_bytes,
+           void* stream) {
   static std::atomic<unsigned long long> attribute_set{0};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
   const unsigned long long bit = 1ull << dev;
   if (!(attribute_set.load() & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        viterbi_decode_kernel<kInst>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attribute_set.fetch_or(bit);
   }
+  viterbi_decode_kernel<kInst><<<grid, threads, smem_bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One launch of the decode over B traces on `stream`, as
+// ops/hmm.py::viterbi_plan lays it out: `instance` (instance_of(K): the
+// launch refuses another), `traces` traces a CTA, `threads` threads a
+// trace, the recurrence on the first `rt` of them (instance 0: G = rt /
+// columns lanes a column, columns = K rounded up to a power of two),
+// chunks of `chunk` steps, the levels in shared memory (levels_here) or in
+// `scratch` (words then backpointers, B * T * (word + K * backpointer)
+// bytes), the blocks in shared memory (blocks_here) or in `scratch` after
+// the levels (blocks_offset), `smem_bytes` of dynamic shared memory a CTA.
+// Returns cudaGetLastError() after the launch, or -1 for a plan the
+// kernel does not take.
+extern "C" int rtt_viterbi_decode(
+    const int* ce, const float* co, const float* cd, const unsigned char* cv,
+    const float* pts, const unsigned char* vp, const float* edge_len,
+    const int* reach_row, const int* reach_to, const float* reach_dist,
+    int B, int T, int K, int M, int instance, int threads, int traces,
+    int rt, int chunk, int levels_here, int blocks_here, int smem_bytes,
+    float em_denom, float beta, float factor, float breakage, float slack,
+    int use_keep, float d2_min, unsigned char* scratch, int* out_choice,
+    int* out_edge, float* out_offset, unsigned char* out_start,
+    unsigned char* out_matched, void* stream) {
+  if (B < 1 || K < 1 || instance != instance_of(K)) {
+    return -1;
+  }
+  int columns = 1;
+  while (columns < K) columns *= 2;
+  const Layout L =
+      checked_layout(T, K, M, threads, traces, rt, columns, chunk,
+                     levels_here, blocks_here, smem_bytes);
+  if (L.bytes < 0 ||
+      ((!levels_here || !blocks_here) && scratch == nullptr)) {
+    return -1;
+  }
   int top = 1;
   while (top <= M / 2) top *= 2;
-  Params p{ce,        co,        cd,       cv,          pts,
-           vp,        edge_len,  reach_row, reach_to,   reach_dist,
-           B,         T,         K,        M,           top,
-           chunk,     traces,    threads,  levels_here,
-           rt,        rt / columns, em_denom, beta,    factor,      breakage,
-           slack,     use_keep,  d2_min,   scratch,     out_choice,
-           out_edge,  out_offset, out_start, out_matched};
+  Params p{ce,        co,        cd,        cv,          pts,
+           vp,        edge_len,  reach_row, reach_to,    reach_dist,
+           B,         T,         K,         M,           top,
+           chunk,     traces,    threads,   levels_here, blocks_here,
+           rt,        instance ? 1 : rt / columns,       em_denom,
+           beta,      factor,    breakage,  slack,       use_keep,
+           d2_min,    scratch,   out_choice, out_edge,   out_offset,
+           out_start, out_matched};
   const int grid = (B + traces - 1) / traces;
-  viterbi_decode_kernel<<<grid, threads * traces, smem_bytes,
-                          static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  switch (instance) {
+    case 0: return launch<0>(p, grid, threads * traces, smem_bytes, stream);
+    case 1: return launch<1>(p, grid, threads, smem_bytes, stream);
+    default: return launch<2>(p, grid, threads, smem_bytes, stream);
+  }
 }

@@ -46,10 +46,14 @@ import torch
 
 from reporter_tpu_torch.ops.dense_candidates import BIG, CandidateSet, sqrt_f32
 
-# The widest candidate list the Viterbi kernel takes (kMaxK in
-# kernels/viterbi.cu: its per-step arrays in shared memory are this wide);
-# the wrapper refuses a wider one on a card.
+# The widest candidate list of the Viterbi kernel's instance 0 (kMaxK in
+# kernels/viterbi.cu: a row's looked-up slots one 64-bit mask, u8 slots and
+# backpointers); past it the wide instances 1 (K <= 254) and 2 serve every
+# K whose candidate rows fit a CTA's shared memory (to K = 3,984; the
+# plan raises past it), one trace a CTA of VITERBI_WIDE_THREADS
+# (kWideThreads).
 VITERBI_MAX_K = 64
+VITERBI_WIDE_THREADS = 256
 # A CTA's shared memory on the card (sm_90: 227 KB), and the part the
 # plan lets a CTA take with its levels there: a quarter, so four CTAs an
 # SM; past it the levels go to the global scratch.
@@ -65,18 +69,22 @@ _VITERBI_WARPS = 4            # kMaxWarps: the reductions' words a trace
 VITERBI_LAUNCHES: "dict[int, int]" = {}
 _LAUNCH_LOCK = threading.Lock()
 
-# The widest candidate list the ranked-path lattice's forward kernel takes
-# (kMaxK in kernels/lattice.cu); its path count R runs from 1 to K (the
-# exact form runs R = max_candidates = K).
+# The widest candidate list of the ranked-path lattice's forward kernel's
+# shared-memory instances (kMaxK in kernels/lattice.cu); past it the wide
+# instance serves every K whose candidate rows fit a CTA's shared memory
+# (to K = 2,508; the plan raises past it); its path count R runs from 1
+# to K (the exact form runs R = max_candidates = K).
 LATTICE_MAX_K = 64
-# The most paths the backtrack kernel walks at once (kMaxPaths in
-# kernels/lattice.cu: a thread a path in one CTA): the terminal form asks
-# for K, the exact one for R <= K, so at most LATTICE_MAX_K.
-LATTICE_MAX_PATHS = LATTICE_MAX_K
-# Launches of the ranked-path lattice's kernels, keyed by kernel ("keep",
-# "forward", "backtrack"; a key appears at its first launch). Each wrapper
-# adds one per launch, under _LAUNCH_LOCK, and nothing else does;
-# chip_smoke.py resets and reads them around each main-path run.
+# The backtrack's CTAs: a producer warp and up to LATTICE_MAX_WALKERS
+# walker warps (kMaxWalkers in kernels/lattice.cu), as many CTAs as cover
+# the paths.
+LATTICE_MAX_WALKERS = 31
+# Launches of the ranked-path lattice's kernels, keyed by kernel instance
+# ("keep"; "forward", past LATTICE_MAX_K "forward:wide"; "backtrack" or
+# "backtrack:global" by ``backtrack_key``; a key appears at its first
+# launch). Each wrapper adds one per launch, under
+# _LAUNCH_LOCK, and nothing else does; chip_smoke.py resets and reads
+# them around each main-path run.
 LATTICE_LAUNCHES: "dict[str, int]" = {}
 
 
@@ -124,8 +132,9 @@ def viterbi_decode_batched(cands: CandidateSet, points, valid_pt, tables,
     the last matched point's (edge, offset).
 
     On a card (the candidates' device) one launch of kernels/viterbi.cu
-    (K up to VITERBI_MAX_K; a wider K, a failed build or a failed launch
-    raises); on the CPU the plain version; any other device raises."""
+    (its instance by K: ``viterbi_plan``; a failed build or a failed
+    launch raises); on the CPU the plain version; any other device
+    raises."""
     args = (cands, points, valid_pt, tables, sigma_z, beta,
             max_route_factor, breakage_distance, backward_slack,
             interpolation_distance)
@@ -137,59 +146,110 @@ def viterbi_decode_batched(cands: CandidateSet, points, valid_pt, tables,
     raise ValueError(f"unsupported device {dev}")
 
 
-def viterbi_smem_bytes(T: int, K: int, chunk: int, levels_here: bool) -> int:
-    """Shared memory of one trace of the Viterbi kernel (``Layout`` in
-    kernels/viterbi.cu, each array rounded up to 16 bytes): the chunk's
-    transition blocks f32 [C, K, K] and candidate rows [(C + 1), K] (five
-    4-byte fields, a flag and the looked-up slots' list; row 0 the carry)
-    with a u64 mask a row, the scores, the step records, the
-    reductions' words and, where ``levels_here``, the backtrack's choices
-    i8 [T] and the levels (u16 words [T], u8 backpointers [T, K]); with
-    the levels global nothing here grows with T. The launch checks this
-    figure against the kernel's own layout."""
-    def a16(n):
-        return -(-n // 16) * 16
+def _a16(n: int) -> int:
+    """n bytes rounded up to 16, as the kernels' layouts take them."""
+    return -(-n // 16) * 16
 
+
+def viterbi_instance(K: int) -> int:
+    """The Viterbi kernel's instance at K (``instance_of`` in
+    kernels/viterbi.cu): 0 up to VITERBI_MAX_K, 1 while a slot fits a u8
+    beside its 0xff "none" (K <= 254), else 2 (u16 backpointers)."""
+    return 0 if K <= VITERBI_MAX_K else (1 if K < 255 else 2)
+
+
+def _viterbi_widths(K: int):
+    """(list, backpointer, word, choice) bytes and mask words a row of
+    the instance at K (``widths_of`` in kernels/viterbi.cu)."""
+    wide = viterbi_instance(K) != 0
+    return ((2 if wide else 1), (2 if viterbi_instance(K) == 2 else 1),
+            (4 if wide else 2), (4 if wide else 1), -(-K // 64))
+
+
+def viterbi_smem_bytes(T: int, K: int, chunk: int, levels_here: bool,
+                       blocks_here: bool = True) -> int:
+    """Shared memory of one trace of the Viterbi kernel (``Layout`` in
+    kernels/viterbi.cu, each array rounded up to 16 bytes): where
+    ``blocks_here`` the chunk's transition blocks f32 [C, K, K], the
+    candidate rows [(C + 1), K] (five 4-byte fields, a flag and the
+    looked-up slots' list) with ceil(K / 64) mask words a row, the scores,
+    the step records, the reductions' words, a wide instance's columns'
+    best and argmin and, where ``levels_here``, the backtrack's choices
+    [T] and the levels (words [T], backpointers [T, K]); with the levels
+    global nothing here grows with T. The launch checks this figure
+    against the kernel's own layout."""
+    a16 = _a16
+    lb, bpb, wb, cb, words = _viterbi_widths(K)
+    wide = viterbi_instance(K) != 0
+    warps = VITERBI_WIDE_THREADS // 32 if wide else _VITERBI_WARPS
     rows = (chunk + 1) * K
-    n = (a16(4 * chunk * K * K) + 5 * a16(4 * rows) + 2 * a16(rows)
-         + a16(8 * (chunk + 1)) + a16(4 * K) + 5 * a16(4 * chunk)
-         + 4 * a16(4 * _VITERBI_WARPS) + 3 * a16(chunk))
+    n = (5 * a16(4 * rows) + a16(rows) + a16(lb * rows)
+         + a16(8 * words * (chunk + 1)) + a16(4 * K) + 5 * a16(4 * chunk)
+         + 4 * a16(4 * warps) + 3 * a16(chunk))
+    if blocks_here:
+        n += a16(4 * chunk * K * K)
+    if wide:
+        n += 2 * a16(4 * K)
     if levels_here:
-        n += a16(T) + a16(2 * T) + a16(T * K)
+        n += a16(cb * T) + a16(wb * T) + a16(bpb * T * K)
     return n
 
 
 def viterbi_plan(B: int, T: int, K: int) -> dict:
     """The Viterbi kernel's launch at a batch of B traces of T points and
-    K candidates, every field of which the launch passes to the kernel. A
+    K candidates, every field of which the launch passes to the kernel.
+    ``instance``: ``viterbi_instance(K)``. Instance 0 (K up to 64): a
     trace is a group of ``threads_per_trace`` threads (64, 128 past K =
     32), which all look up; the recurrence runs on the first
     ``recurrence_threads`` of them (one warp up to K = 16, else two lanes
     a column of the step's [K, K] block); ``traces_per_cta`` groups make
-    a CTA of 128 threads, as many CTAs as cover B. A chunk of ``chunk``
-    steps has its transition blocks looked up at once (at most about
-    2048 pairs, of which the valid ones are searched). The levels
-    (backpointers and a word a level) stay in shared memory (``levels``
-    "shared") where the CTA then fits VITERBI_SMEM_BUDGET, else in a
-    global scratch (``levels`` "global", ``scratch_bytes`` = B * T * (K +
-    2) the wrapper allocates; 0 in shared memory), where the CTA's shared
-    memory no longer grows with T. ``smem_bytes``: the CTA's dynamic
-    shared memory. Raises past VITERBI_MAX_K."""
-    if not 1 <= K <= VITERBI_MAX_K:
-        raise ValueError(f"the Viterbi kernel takes 1 <= K <= "
-                         f"{VITERBI_MAX_K} candidates, got K={K}")
-    columns = 1 << (K - 1).bit_length()
-    tpt = min(max(2 * columns, 64), 128)
-    tpc = 128 // tpt
+    a CTA of 128 threads, as many CTAs as cover B. A wide instance: one
+    trace a CTA of VITERBI_WIDE_THREADS, every thread in the recurrence.
+    A chunk of ``chunk`` steps has its transition blocks looked up at
+    once (at most about 2048 pairs, of which the valid ones are
+    searched). The blocks stay in shared memory (``blocks`` "shared";
+    instance 0 always) where the CTA then fits the card, else they go to
+    the global scratch. The levels (backpointers and a word a level) stay
+    in shared memory (``levels`` "shared") where the CTA then fits
+    VITERBI_SMEM_BUDGET, else in the global scratch (``levels``
+    "global"), where the CTA's shared memory no longer grows with T.
+    ``scratch_bytes``: the global levels, B * T * (word + K *
+    backpointer) bytes, then, 16 aligned, the global blocks, B * chunk *
+    K * K * 4 bytes; 0 where both stay in shared memory (the wrapper
+    allocates it). ``smem_bytes``: the CTA's dynamic shared memory.
+    Raises for K < 1, or where a wide K's candidate rows do not fit a
+    CTA's shared memory (past K = 3,984): the one ceiling."""
+    if K < 1:
+        raise ValueError(f"the Viterbi kernel takes K >= 1 candidates, got "
+                         f"K={K}")
+    inst = viterbi_instance(K)
     chunk = max(1, min(32, 2048 // (K * K), T))
-    here = tpc * viterbi_smem_bytes(T, K, chunk, True) \
+    if inst == 0:
+        columns = 1 << (K - 1).bit_length()
+        tpt = min(max(2 * columns, 64), 128)
+        tpc, rt = 128 // tpt, min(tpt, max(32, 2 * columns))
+        blocks = True
+    else:
+        tpt = rt = VITERBI_WIDE_THREADS
+        tpc = 1
+        blocks = viterbi_smem_bytes(T, K, chunk, False, True) \
+            <= VITERBI_SMEM_MAX
+    here = tpc * viterbi_smem_bytes(T, K, chunk, True, blocks) \
         <= VITERBI_SMEM_BUDGET
-    return {"traces_per_cta": tpc, "threads_per_trace": tpt,
-            "recurrence_threads": min(tpt, max(32, 2 * columns)),
-            "chunk": chunk,
-            "smem_bytes": tpc * viterbi_smem_bytes(T, K, chunk, here),
+    _, bpb, wb, _, _ = _viterbi_widths(K)
+    levels = 0 if here else B * T * (wb + bpb * K)
+    smem = tpc * viterbi_smem_bytes(T, K, chunk, here, blocks)
+    if smem > VITERBI_SMEM_MAX:
+        raise ValueError(f"the Viterbi kernel's candidate rows at K={K} "
+                         f"take {smem} bytes, over a CTA's "
+                         f"{VITERBI_SMEM_MAX} of shared memory")
+    return {"instance": inst, "traces_per_cta": tpc,
+            "threads_per_trace": tpt, "recurrence_threads": rt,
+            "chunk": chunk, "smem_bytes": smem,
             "levels": "shared" if here else "global",
-            "scratch_bytes": 0 if here else B * T * (K + 2)}
+            "blocks": "shared" if blocks else "global",
+            "scratch_bytes": levels if blocks else
+            -(-levels // 16) * 16 + B * chunk * K * K * 4}
 
 
 def _viterbi_cuda(cands: CandidateSet, points, valid_pt, tables,
@@ -198,8 +258,8 @@ def _viterbi_cuda(cands: CandidateSet, points, valid_pt, tables,
                   interpolation_distance: float) -> ViterbiResult:
     """The batched decode as one launch of kernels/viterbi.cu on the
     current stream of the candidates' card: checks the tensors, allocates
-    the outputs and, where the plan keeps the levels in global memory,
-    the scratch, launches and counts the launch. Nothing here waits for
+    the outputs and, where the plan keeps the levels or the blocks in
+    global memory, the scratch, launches and counts the launch. Nothing here waits for
     the card.
 
     The kernel binary-searches each reach row: it takes the row order
@@ -472,9 +532,10 @@ def _count(key: str) -> None:
 def _keep_mask_cuda(points, valid_pt, interp_distance: float):
     """The keep mask of B traces (points f32 [B, T, 2], valid_pt bool
     [B, T]) as one launch of kernels/lattice.cu's keep-mask kernel on the
-    card (``build.launch_lattice_keep`` checks the tensors): a thread a
-    trace walks its T points in the plain version's operation order. →
-    bool [B, T]."""
+    card (``build.launch_lattice_keep`` checks the tensors): a CTA a
+    trace marks the chain of kept points (each kept point's successor, the
+    first later valid point far enough from it, by the plain version's
+    operations; kernels/lattice.cu holds the proof). → bool [B, T]."""
     from reporter_tpu_torch.kernels import build
 
     if interp_distance <= 0.0:
@@ -525,25 +586,38 @@ def _lattice_prep(cands: CandidateSet, points, keep, tables,
             *_lattice_inputs(cands, points, keep, tables, c))
 
 
-def lattice_smem_bytes(K: int, R: int, chunk: int) -> int:
+def _tree_bytes(K: int) -> int:
+    """A wide forward's trees: 2N u64 nodes a column, N = K up to a power
+    of two, W = K up to a multiple of 16 columns."""
+    return 16 * (1 << (K - 1).bit_length()) * _a16(K)
+
+
+def lattice_smem_bytes(K: int, R: int, chunk: int,
+                       tree_here: bool = False) -> int:
     """Shared memory of the forward kernel (``Layout`` in
     kernels/lattice.cu, each array rounded up to 16 bytes): two chunk
-    buffers, each the chunk's transition blocks f32 [C, K, K], its
-    candidate rows [(C + 1), K] (five 4-byte fields, a flag and the
-    looked-up slots' list; row 0 the carry) with a u64 mask a row, five
-    4-byte and three 1-byte fields a step and four words; the carried
-    scores [K, R | 1] twice (rows of odd pitch); at R > 1 the level's
-    backpointers i32 [K, R | 1] and the merge's loser trees (u64 [N, W]:
-    N = K up to a power of two, W = K up to a multiple of 16); the own
-    reduction's eight words. Nothing grows with T. The launch checks this
-    figure against the kernel's own layout."""
-    def a16(n):
-        return -(-n // 16) * 16
-
+    buffers, each the chunk's transition blocks f32 [C, K, K] (not in a
+    wide instance, K > LATTICE_MAX_K), its candidate rows [(C + 1), K]
+    (five 4-byte fields, a flag and the looked-up slots' list, u16 when
+    wide) with ceil(K / 64) mask words a row, five 4-byte and three 1-byte
+    fields a step and four words; then, in a shared instance, the carried
+    scores [K, R | 1] twice (rows of odd pitch), at R > 1 the level's
+    backpointers i32 [K, R | 1] and the merge's loser trees (u64 [N, W]: N
+    = K up to a power of two, W = K up to a multiple of 16), and the own
+    reduction's eight words; in the wide instance only its trees where
+    ``tree_here`` (2N nodes a column) and the reduction's 32 words.
+    Nothing grows with T. The launch checks this figure against the
+    kernel's own layout."""
+    a16 = _a16
+    wide = K > LATTICE_MAX_K
     rows = (chunk + 1) * K
-    buf = (a16(4 * chunk * K * K) + 5 * a16(4 * rows) + 2 * a16(rows)
-           + a16(8 * (chunk + 1)) + 5 * a16(4 * chunk) + 3 * a16(chunk)
-           + 16)
+    buf = ((0 if wide else a16(4 * chunk * K * K)) + 5 * a16(4 * rows)
+           + a16(rows) + a16((2 if wide else 1) * rows)
+           + a16(8 * -(-K // 64) * (chunk + 1)) + 5 * a16(4 * chunk)
+           + 3 * a16(chunk) + 16)
+    if wide:
+        tree = _tree_bytes(K) if R > 1 and tree_here else 0
+        return 2 * buf + a16(tree) + 4 * 2 * 2 * 8
     rows_r = a16(4 * K * (R | 1))
     if R == 1:
         return 2 * buf + 2 * rows_r + 32
@@ -551,73 +625,130 @@ def lattice_smem_bytes(K: int, R: int, chunk: int) -> int:
     return 2 * buf + 3 * rows_r + a16(tree) + 32
 
 
+def lattice_scratch_bytes(K: int, R: int, chunk: int,
+                          tree_here: bool) -> int:
+    """The wide forward's global scratch (``WideScratch`` in
+    kernels/lattice.cu, each array rounded up to 16 bytes): the two
+    buffers' blocks f32 [2, C, K, K], the carried scores [K, R | 1]
+    twice, at R > 1 the level's backpointers [K, R | 1] and, unless in
+    shared memory, the trees, and each column's first-pass word u64
+    [K]."""
+    rows = _a16(4 * K * (R | 1))
+    return (_a16(2 * chunk * K * K * 4) + 2 * rows
+            + (rows if R > 1 else 0)
+            + (_a16(_tree_bytes(K)) if R > 1 and not tree_here else 0)
+            + _a16(8 * K))
+
+
 def lattice_plan(T: int, K: int, R: int) -> dict:
     """The ranked-path lattice's forward launch at T steps, K candidates
     and R paths a state, every field of which the launch passes to the
     kernel: one CTA of ``merge_warps`` (a thread a column, K up to whole
-    warps) and ``producer_warps`` (4, 8 past K = 16: the chunks' staging,
-    control sequence and lookups, a chunk ahead), ``threads`` in all;
-    ``chunk`` steps a chunk (up to 32, and about 32,768 looked-up pairs'
-    room in the blocks [C, K, K]), the most whose two buffers fit the
-    card's shared memory with the rest of the layout (6 at K = 64 and R =
-    1, 4 at R = 64); ``smem_bytes`` the CTA's dynamic shared memory, the
-    same at every T. The kernel's instance follows R and K (the loser
-    tree's depth at R > 1).
-    Raises for K outside 1..LATTICE_MAX_K, R outside 1..K, or T < 1."""
-    if not 1 <= K <= LATTICE_MAX_K:
-        raise ValueError(f"the lattice kernels take 1 <= K <= "
-                         f"{LATTICE_MAX_K} candidates, got K={K}")
+    warps; at most 8 in the wide instance, whose threads take columns c,
+    c + 256, ...) and ``producer_warps`` (4, 8 past K = 16: the chunks'
+    staging, control sequence and lookups, a chunk ahead), ``threads`` in
+    all; ``chunk`` steps a chunk (up to 32, and about 32,768 looked-up
+    pairs' room in the blocks [C, K, K]), the most whose two buffers fit
+    the card's shared memory with the rest of the layout (6 at K = 64 and
+    R = 1, 4 at R = 64); ``smem_bytes`` the CTA's dynamic shared memory,
+    the same at every T. The kernel's instance follows R and K (the loser
+    tree's depth at R > 1; past LATTICE_MAX_K the wide one, which keeps
+    its trees in shared memory where they fit there, ``tree_here``, and
+    the rest of its state in a global scratch of ``scratch_bytes``, 0 for
+    a shared instance).
+    Raises for K < 1, R outside 1..K, T < 1, or a wide K whose candidate
+    rows do not fit a CTA's shared memory (past K = 2,508): the one
+    ceiling."""
+    if K < 1:
+        raise ValueError(f"the lattice kernels take K >= 1 candidates, got "
+                         f"K={K}")
     if not 1 <= R <= K:
         raise ValueError(f"the lattice kernels take 1 <= R <= K paths, got "
                          f"R={R} at K={K}")
     if T < 1:
         raise ValueError(f"the lattice kernels take T >= 1 steps, got T={T}")
-    merge, producers = -(-K // 32), (4 if K <= 16 else 8)
     chunk = max(1, min(32, 32768 // (K * K)))
-    while chunk > 1 and lattice_smem_bytes(K, R, chunk) > VITERBI_SMEM_MAX:
+    if K <= LATTICE_MAX_K:
+        merge, producers = -(-K // 32), (4 if K <= 16 else 8)
+        while chunk > 1 and lattice_smem_bytes(K, R, chunk) \
+                > VITERBI_SMEM_MAX:
+            chunk -= 1
+        return {"chunk": chunk, "producer_warps": producers,
+                "merge_warps": merge, "threads": 32 * (producers + merge),
+                "smem_bytes": lattice_smem_bytes(K, R, chunk),
+                "tree_here": False, "scratch_bytes": 0}
+    merge, producers = min(-(-K // 32), 8), 8
+    tree_here = R > 1 and lattice_smem_bytes(K, R, 1, True) \
+        <= VITERBI_SMEM_MAX
+    while chunk > 1 and lattice_smem_bytes(K, R, chunk, tree_here) \
+            > VITERBI_SMEM_MAX:
         chunk -= 1
+    smem = lattice_smem_bytes(K, R, chunk, tree_here)
+    if smem > VITERBI_SMEM_MAX:
+        raise ValueError(f"the lattice forward kernel's candidate rows at "
+                         f"K={K} take {smem} bytes, over a CTA's "
+                         f"{VITERBI_SMEM_MAX} of shared memory")
     return {"chunk": chunk, "producer_warps": producers,
             "merge_warps": merge, "threads": 32 * (producers + merge),
-            "smem_bytes": lattice_smem_bytes(K, R, chunk)}
+            "smem_bytes": smem, "tree_here": tree_here,
+            "scratch_bytes": lattice_scratch_bytes(K, R, chunk, tree_here)}
 
 
 def backtrack_smem_bytes(S: int, P: int, levels: int, stages: int) -> int:
-    """Shared memory of the backtrack kernel (``BtLayout`` in
-    kernels/lattice.cu, each array rounded up to 16 bytes): ``stages``
-    slots of ``levels`` levels (backpointer rows i32 [G, S], own i32 [G],
-    the started and active bytes of the 16-aligned span round them), a
-    full and a free mbarrier a slot, the walkers' staged choices i32
-    [32 a warp, 33]. The launch checks this figure against the kernel's
-    own layout."""
-    def a16(n):
-        return -(-n // 16) * 16
-
+    """Shared memory of the backtrack kernel's ring (``BtLayout`` in
+    kernels/lattice.cu, each array rounded up to 16 bytes) for P paths a
+    CTA: ``stages`` slots of ``levels`` levels (backpointer rows i32 [G,
+    S], own i32 [G], the started and active bytes of the 16-aligned span
+    round them), a full and a free mbarrier a slot, the walkers' staged
+    choices i32 [32 a warp, 33]. The launch checks this figure against
+    the kernel's own layout."""
+    a16 = _a16
     slot = (a16(4 * levels * S) + a16(4 * levels) + 2 * a16(levels + 32))
     return (stages * slot + 2 * a16(8 * stages)
             + a16(4 * 33 * 32 * -(-P // 32)))
 
 
+def backtrack_key(plan: dict) -> str:
+    """The launch key of a backtrack plan's instance in LATTICE_LAUNCHES:
+    "backtrack" for the ring, "backtrack:global" for the levels read in
+    place."""
+    return "backtrack:global" if plan["instance"] == "global" \
+        else "backtrack"
+
+
 def backtrack_plan(T: int, S: int, P: int) -> dict:
-    """The backtrack's launch at T levels of S states and P paths: one
-    CTA of a producer warp and ceil(P / 32) walker warps (``threads``);
-    a ring of ``stages`` slots (4, else 3, else 2) of ``levels`` levels
-    (a multiple of 4, at most 64: the most that fit), the levels streamed
-    tail-first into it; ``smem_bytes`` its dynamic shared memory, the same
-    at every T. Raises for P outside 1..LATTICE_MAX_PATHS or a level too
-    wide for two slots of four levels."""
-    if not 1 <= P <= LATTICE_MAX_PATHS:
-        raise ValueError(f"the backtrack kernel takes 1 <= P <= "
-                         f"{LATTICE_MAX_PATHS} paths, got P={P}")
+    """The backtrack's launch at T levels of S states and P paths.
+    ``instance`` "ring": ``ctas`` CTAs of a producer warp and up to
+    LATTICE_MAX_WALKERS walker warps (``threads``: ceil(P / 32) walkers,
+    halved until the ring fits beside their staging), a ring of ``stages`` slots (4, else 3,
+    else 2) of ``levels`` levels (a multiple of 4, at most 64: the most
+    that fit), the levels streamed tail-first into it;
+    ``smem_bytes`` its dynamic shared memory, the same at every T. Where
+    a level is too wide for two slots of four levels, ``instance``
+    "global": ``ctas`` CTAs of ``threads`` threads, a path each, reading
+    the levels in place (no ring: levels, stages and smem_bytes 0).
+    Raises for P < 1 or T < 1."""
+    if P < 1:
+        raise ValueError(f"the backtrack kernel takes P >= 1 paths, got "
+                         f"P={P}")
     if T < 1:
         raise ValueError(f"the lattice kernels take T >= 1 steps, got T={T}")
-    for stages in (4, 3, 2):
-        for levels in range(64, 0, -4):
-            n = backtrack_smem_bytes(S, P, levels, stages)
-            if n <= VITERBI_SMEM_MAX:
-                return {"levels": levels, "stages": stages,
-                        "threads": 32 + 32 * -(-P // 32), "smem_bytes": n}
-    raise ValueError(f"the backtrack kernel takes levels of at most about "
-                     f"25,000 states, got S={S}")
+    walkers = min(-(-P // 32), LATTICE_MAX_WALKERS)
+    while True:
+        for stages in (4, 3, 2):
+            for levels in range(64, 0, -4):
+                n = backtrack_smem_bytes(S, 32 * walkers, levels, stages)
+                if n <= VITERBI_SMEM_MAX:
+                    return {"instance": "ring", "levels": levels,
+                            "stages": stages, "threads": 32 + 32 * walkers,
+                            "ctas": -(-P // (32 * walkers)),
+                            "smem_bytes": n}
+        if walkers == 1:
+            break
+        walkers = -(-walkers // 2)     # fewer walkers' staging, more CTAs
+    threads = min(1024, 32 * -(-P // 32))
+    return {"instance": "global", "levels": 0, "stages": 0,
+            "threads": threads, "ctas": -(-P // threads), "smem_bytes": 0}
 
 
 def _forward_list(cands: CandidateSet, points, keep, tables,
@@ -704,8 +835,8 @@ def _forward_list_cuda(cands: CandidateSet, points, keep, tables,
                        num_paths: int):
     """The forward pass as one launch of kernels/lattice.cu's forward
     kernel on the current stream of the candidates' card (one CTA, the
-    plan's warps, chunk and shared memory): allocates the five outputs,
-    launches (``build.launch_lattice_forward`` checks the tensors) and
+    plan's warps, chunk and shared memory): allocates the five outputs
+    and, for the wide instance, its scratch, launches (``build.launch_lattice_forward`` checks the tensors) and
     counts the launch. Nothing here waits for the card; no [T, K, K]
     block is made. The kernel binary-searches each reach row in the order
     ``tiles.tileset.host_tables`` holds every staged dict to, and its
@@ -730,14 +861,16 @@ def _forward_list_cuda(cands: CandidateSet, points, keep, tables,
     started = torch.empty((T,), dtype=torch.bool, device=dev)
     own = torch.empty((T,), dtype=torch.int32, device=dev)
     active = torch.empty((T,), dtype=torch.bool, device=dev)
+    scratch = None if not plan["scratch_bytes"] else torch.empty(
+        plan["scratch_bytes"], dtype=torch.uint8, device=dev)
     # a span of a device_trace capture (a no-op outside one)
     with profiling.annotate("lattice_forward_kernel"):
         build.launch_lattice_forward(
             ce, co, cd, cv, points.contiguous(), keep.contiguous(), *tab, R,
             plan, 2.0 * sigma_z ** 2, beta, max_route_factor,
-            breakage_distance, backward_slack, scores, backptrs, started,
-            own, active)
-    _count("forward")
+            breakage_distance, backward_slack, scratch, scores, backptrs,
+            started, own, active)
+    _count("forward" if K <= LATTICE_MAX_K else "forward:wide")
     return scores, backptrs, started, own, active
 
 
@@ -783,8 +916,8 @@ def _backtrack_plain(backptrs, started, active, own, seed):
 
 def _backtrack_cuda(backptrs, started, active, own, seed):
     """The reverse pass as one launch of kernels/lattice.cu's backtrack
-    kernel (a path a thread in one CTA, the levels streamed through
-    shared memory: ``backtrack_plan``) on the current stream of the
+    kernel (a path a thread, the levels streamed through shared memory or
+    read in place: ``backtrack_plan``) on the current stream of the
     tensors' card: allocates the states, launches
     (``build.launch_lattice_backtrack`` checks the tensors) and counts
     the launch. The kernel's bulk copies read the four level arrays from
@@ -802,7 +935,7 @@ def _backtrack_cuda(backptrs, started, active, own, seed):
         x = x.contiguous()
         levels.append(x.clone() if x.data_ptr() % 16 else x)
     build.launch_lattice_backtrack(*levels, seed.contiguous(), plan, states)
-    _count("backtrack")
+    _count(backtrack_key(plan))
     return states
 
 

@@ -23,6 +23,16 @@ backtrack), so that checkouts whose wrappers differ compare alike:
 - ``sha256``: the call's paths, scores and flags, so the versions'
   results can be held equal.
 
+Then the keep mask of 64 traces at once (``keep_b64``: the probe and 63
+shifted copies of it, one launch of ``hmm._keep_mask_cuda``), and the
+grid backend's candidates (``candidates.find_candidates``, one launch of
+the grid kernel) of the 131,072 points chip_smoke.py's [kernel:grid] runs
+(``synthesize_fleet`` seed 0: 1024 traces of 120 points, each padded to
+128 with its first point) at K = 8 (50 m) and K = 64 (150 m, on a tile
+compiled with that index radius): the cases ``grid_k8`` and
+``grid_k64``, each with the same fields (``keep_device_ms`` and
+``grid_device_ms`` the kernels').
+
 Then ``terminal_ms`` / ``exact_ms`` (and every run, ``*_runs_ms``) and
 their ``*_peak_bytes``: a ``match_topk`` of each form at K = 64 (150 m)
 on the probe, the host's clock, median of N.
@@ -48,17 +58,21 @@ sys.path.insert(0, root)
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
-from reporter_tpu_torch.config import MatcherParams
+from reporter_tpu_torch.config import CompilerParams, Config, MatcherParams
 from reporter_tpu_torch.kernels import build
 from reporter_tpu_torch.matcher.api import SegmentMatcher, Trace
 from reporter_tpu_torch.netgen.synthetic import generate_city
-from reporter_tpu_torch.netgen.traces import synthesize_probe
+from reporter_tpu_torch.netgen.traces import synthesize_fleet, synthesize_probe
+from reporter_tpu_torch.ops import candidates as cand
 from reporter_tpu_torch.ops import hmm
 from reporter_tpu_torch.ops import match as match_ops
 from reporter_tpu_torch.tiles.compiler import compile_network
 
 assert build.__file__.startswith(root), build.__file__
-KERNELS = ("keep", "forward", "backtrack")
+# a kernel's key → the prefix of its device records' names (every
+# instance of it)
+KERNELS = {"keep": "lattice_keep_kernel", "forward": "lattice_forward_kernel",
+           "backtrack": "lattice_backtrack", "grid": "grid_candidates_kernel"}
 
 
 def cuda_ms(fn, warmup=2):
@@ -91,8 +105,8 @@ def device_ms(fn):
     run = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     out = {}
-    for name in KERNELS:
-        hits = [e for e in run if f"lattice_{name}_kernel" in e.key]
+    for name, prefix in KERNELS.items():
+        hits = [e for e in run if prefix in e.key]
         n = sum(e.count for e in hits)
         out[f"{name}_device_ms"] = (
             sum(e.self_device_time_total for e in hits) / 1e3 / n
@@ -140,6 +154,40 @@ for k, radius, rs in ((8, None, (1, 8)), (64, 150.0, (1, 64))):
         out["cases"][f"k{k}_r{R}"] = {
             "call_ms": cuda_ms(call), **device_ms(call),
             "peak_bytes": peak(call), "sha256": h.hexdigest()}
+p = MatcherParams()
+kp = torch.from_numpy(xy).cuda()
+kp = torch.stack([kp + 7.0 * i for i in range(64)])
+kv = torch.ones(kp.shape[:2], dtype=torch.bool, device="cuda")
+call = lambda: hmm._keep_mask_cuda(kp, kv, p.interpolation_distance)
+res = call()
+torch.cuda.synchronize()
+out["cases"]["keep_b64"] = {
+    "call_ms": cuda_ms(call), **device_ms(call), "peak_bytes": peak(call),
+    "sha256": hashlib.sha256(res.cpu().numpy().tobytes()).hexdigest()}
+fleet = synthesize_fleet(ts, 1024, num_points=120, seed=0)
+gpts = np.zeros((len(fleet), 128, 2), np.float32)
+for i, f in enumerate(fleet):
+    gpts[i, :len(f.xy)] = f.xy
+    gpts[i, len(f.xy):] = f.xy[0]
+gpts = torch.from_numpy(gpts.reshape(-1, 2)).cuda()
+for k, radius in ((8, None), (64, 150.0)):
+    compiler = CompilerParams() if radius is None else CompilerParams(
+        index_radius=radius)
+    tsg = ts if radius is None else compile_network(generate_city("sf"),
+                                                    compiler)
+    levers = {} if radius is None else {"search_radius": radius}
+    gm = SegmentMatcher(tsg, Config(compiler=compiler, matcher=MatcherParams(
+        candidate_backend="grid", max_candidates=k, **levers)))
+    call = (lambda gm=gm, tsg=tsg, k=k: cand.find_candidates(
+        gpts, gm.tables, tsg.meta, gm.params.search_radius, k))
+    res = call()
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in res:
+        h.update(x.cpu().numpy().tobytes())
+    out["cases"][f"grid_k{k}"] = {
+        "call_ms": cuda_ms(call), **device_ms(call),
+        "peak_bytes": peak(call), "sha256": h.hexdigest()}
 wide = SegmentMatcher(ts, MatcherParams(sweep_autotune=False,
                                         max_candidates=64,
                                         search_radius=150.0))
@@ -160,8 +208,9 @@ print(json.dumps(out))
 """
 
 _KEYS = ("call_ms", "keep_device_ms", "forward_device_ms",
-         "backtrack_device_ms", "kernels", "peak_bytes")
-_RATIO_KEYS = ("call_ms", "forward_device_ms", "backtrack_device_ms")
+         "backtrack_device_ms", "grid_device_ms", "kernels", "peak_bytes")
+_RATIO_KEYS = ("call_ms", "keep_device_ms", "forward_device_ms",
+               "backtrack_device_ms", "grid_device_ms")
 _CALL_KEYS = ("terminal_ms", "terminal_peak_bytes", "exact_ms",
               "exact_peak_bytes")
 

@@ -41,7 +41,7 @@ _MARK = "if (tid == 0) {{ const unsigned long long _n = clock64(); " \
 _PROFILE_MARKS = [
     ("    }\n    group_sync(bar, tpt);\n"
      "    // the rows' looked-up slots", 0),
-    ("      if (lane == 0) c_mask[r] = mask;\n    }\n"
+    ("          mask = 0ull;\n        }\n      }\n    }\n"
      "    group_sync(bar, tpt);\n", 1),
     ("      s_misc[1] = pairs;\n    }\n    group_sync(bar, tpt);\n", 2),
     ("        s_trans[at[u]] = trans;\n      }\n    }\n"

@@ -2,12 +2,14 @@
 models of its algorithm held to the port's plain version at tolerance 0,
 and the wrapper's refusals.
 
-- The distinct-edge list: each round the first minimal (key, slot) of
-  the row by a warp reduction over (key bits << 32 | slot), every slot of
-  the picked edge then set to BIG, the list ending at the first round
-  whose minimum is BIG; held to ``_topk_distinct_edges`` (edges, slots,
-  picked) on rows with one edge at equal d² in two slots, fewer distinct
-  edges than K, all-BIG rows and tie-heavy random rows.
+- The distinct-edge list as the kernel ranks it, with no loop over K: the
+  valid slots (key < BIG) compacted in slot order, each an edge's
+  representative where no other compacted slot of its edge has a smaller
+  (key bits << 32 | slot), each representative placed by the count of
+  representatives before it, the places below K written and the rest
+  empty; held to ``_topk_distinct_edges`` (edges, slots, picked) on rows
+  with one edge at equal d² in two slots, equal d² across two edges,
+  fewer distinct edges than K, all-BIG rows and tie-heavy random rows.
 - The whole kernel in numpy f32 (the cell index, _point_segment_dist's
   operation order, the radius test, the list, the four outputs) against
   ``_find_candidates_plain`` on the tiny and organic tiles' fleets and
@@ -48,21 +50,27 @@ def distinct_list(edges: np.ndarray, keys: np.ndarray, k: int):
     d² or BIG): → (edge [K], slot [K], picked [K]) as
     _topk_distinct_edges gives them (an unpicked place: edge -1, slot
     0)."""
-    keys = keys.astype(F32).copy()
+    keys = keys.astype(F32)
     C = len(keys)
+    packed = (keys.view(np.uint32).astype(np.uint64) << np.uint64(32)) \
+        | np.arange(C, dtype=np.uint64)
+    # 1. the valid slots, compacted in slot order
+    at = np.flatnonzero(keys < F32(BIG))
+    ck, ce = packed[at], edges[at]
+    # 2. a representative: no compacted slot of its edge with a smaller key
+    rep = np.array([not ((ce == ce[a]) & (ck < ck[a])).any()
+                    for a in range(len(at))], bool)
     out_e = np.full(k, -1, np.int64)
     out_i = np.zeros(k, np.int64)
     ok = np.zeros(k, bool)
-    for r in range(k):
-        packed = (keys.view(np.uint32).astype(np.uint64) << np.uint64(32)) \
-            | np.arange(C, dtype=np.uint64)
-        best = packed.min()            # the warp's reduction
-        d2 = np.uint32(best >> np.uint64(32)).view(F32)
-        if not d2 < BIG:
-            break
-        j = int(best & np.uint64(0xffffffff))
-        out_e[r], out_i[r], ok[r] = edges[j], j, True
-        keys[edges == edges[j]] = BIG
+    # 3. a representative's place: the representatives before it
+    for a in np.flatnonzero(rep):
+        place = int((rep & (ck < ck[a])).sum())
+        if place < k:
+            j = int(ck[a] & np.uint64(0xffffffff))
+            out_e[place], out_i[place], ok[place] = edges[j], j, True
+    # 4. the places past the list stay empty
+    assert ok.sum() == min(int(rep.sum()), k) and ok[:int(ok.sum())].all()
     return out_e, out_i, ok
 
 
@@ -76,11 +84,14 @@ def _plain_list(edges, keys, k):
 
 def _rows():
     """(edges, keys) rows: one edge at equal d² in two slots (the first
-    slot wins), fewer distinct edges than K, all BIG, an empty slot
-    (edge -1) at BIG, and tie-heavy random rows."""
+    slot wins), equal d² across two edges (the smaller slot first), fewer
+    distinct edges than K, all BIG, an empty slot (edge -1) at BIG, and
+    tie-heavy random rows."""
     big = F32(BIG)
     yield (np.array([3, 3, 5, 7, 7, 2]),
            np.array([4.0, 4.0, 4.0, 1.0, 1.0, 9.0], F32))
+    yield (np.array([8, 6, 6, 8, 4]),
+           np.array([2.0, 2.0, 2.0, 0.5, 2.0], F32))
     yield (np.array([1, 1, 1, 9, -1, -1]),
            np.array([2.0, 1.0, 1.0, 5.0, big, big], F32))
     yield np.array([4, 5, -1, 6]), np.full(4, big, F32)

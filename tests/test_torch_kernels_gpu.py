@@ -971,20 +971,26 @@ def vit_fleet(sf_tile, cuda):
 _VIT_CANDS = {}
 
 
-def _vit_cands(sf_tile, vit_fleet, k):
+# a search radius at which sf's lists run past 64 edges (up to some 90;
+# at 150 m up to some 48)
+LONG_LIST_RADIUS = 250.0
+
+
+def _vit_cands(sf_tile, vit_fleet, k, radius=None):
     """The fleet's candidates at width k: at 50 m up to K = 8, at 150 m
-    past it (where sf's lists fill to K = 64)."""
-    if k not in _VIT_CANDS:
+    past it (where sf's lists fill past K = 16), or at ``radius``."""
+    radius = radius or (50.0 if k <= 8 else 150.0)
+    if (k, radius) not in _VIT_CANDS:
         _, tab = sf_tile
         pts, valid = vit_fleet
         b, t = valid.shape
         c = dc.find_candidates_dense(
             pts.reshape(-1, 2), tuple(tab[n] for n in (
                 "seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
-                "seg_coarse")), 50.0 if k <= 8 else 150.0, k,
-            valid=valid.reshape(-1))
-        _VIT_CANDS[k] = dc.CandidateSet(*(x.reshape(b, t, k) for x in c))
-    return _VIT_CANDS[k]
+                "seg_coarse")), radius, k, valid=valid.reshape(-1))
+        _VIT_CANDS[k, radius] = dc.CandidateSet(*(x.reshape(b, t, k)
+                                                  for x in c))
+    return _VIT_CANDS[k, radius]
 
 
 def _vit_args(tab, interp, breakage=150.0):
@@ -1229,12 +1235,121 @@ def test_viterbi_kernel_refuses_a_k_past_its_ceiling(sf_tile, vit_fleet):
 
     _, tab = sf_tile
     pts, valid = vit_fleet
-    k = hmm.VITERBI_MAX_K + 1
+    k = 3985       # the first K whose candidate rows outgrow a CTA
     c = dc.CandidateSet(*(x[:2, :4, :1].expand(2, 4, k).contiguous()
                           for x in _vit_cands(sf_tile, vit_fleet, 1)))
-    with pytest.raises(ValueError, match=f"K={k}"):
+    with pytest.raises(ValueError, match=f"K={k} .*shared memory"):
         hmm.viterbi_decode_batched(c, pts[:2, :4], valid[:2, :4],
                                    *_vit_args(tab, 10.0))
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("k", [65, 96, 128])
+def test_viterbi_wide_instances_equal_plain(sf_tile, vit_fleet, k, b):
+    """Past K = 64 the wide instance (one trace a CTA, ceil(K / 64) mask
+    words, u32 level words; the blocks in shared memory at these K):
+    every field bit-equal to the plain version on the card at T = 120,
+    where sf's lists at LONG_LIST_RADIUS run past 64 edges."""
+    from reporter_tpu_torch.ops import hmm
+
+    _, tab = sf_tile
+    pts, valid = vit_fleet
+    plan = hmm.viterbi_plan(b, 120, k)
+    assert plan["instance"] == 1 and plan["blocks"] == "shared"
+    cands = dc.CandidateSet(*(x[:b] for x in _vit_cands(
+        sf_tile, vit_fleet, k, LONG_LIST_RADIUS)))
+    if b == 64:
+        assert bool((cands.valid.sum(-1) > 64).any())
+    got = _vit_equal(cands, pts[:b], valid[:b], tab, k)
+    assert got.matched.any()
+
+
+def test_viterbi_wide_instance_on_1024_points(sf_tile, vit_fleet):
+    """K = 96 at T = 1024 (the levels in the global scratch, staged back
+    for the backtrack), three traces end to end."""
+    from reporter_tpu_torch.ops import hmm
+
+    _, tab = sf_tile
+    pts, valid = vit_fleet
+    k, b = 96, 3
+    assert hmm.viterbi_plan(b, 1024, k)["levels"] == "global"
+    idx = (torch.arange(b)[:, None] + torch.arange(9)[None, :]) \
+        % pts.shape[0]
+    lp = pts[idx.to(pts.device)].reshape(b, -1, 2)[:, :1024].contiguous()
+    lv = valid[idx.to(valid.device)].reshape(b, -1)[:, :1024].contiguous()
+    c = dc.find_candidates_dense(
+        lp.reshape(-1, 2), tuple(tab[m] for m in (
+            "seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
+            "seg_coarse")), LONG_LIST_RADIUS, k, valid=lv.reshape(-1))
+    cands = dc.CandidateSet(*(x.reshape(b, 1024, k) for x in c))
+    got = _vit_equal(cands, lp, lv, tab, k)
+    assert got.matched.any()
+
+
+@pytest.mark.parametrize("k", [65, 96, 128, 254, 255, 300])
+def test_viterbi_wide_instances_on_the_numpy_case(sf_tile, k):
+    """The numpy lattice (ties, holes, -1 yet valid, breaks, padding) on
+    sf's K nearest edges by midpoint, past K = 64: instance 1 (u8
+    backpointers) to K = 254, instance 2 (u16) from 255, the blocks in
+    the global scratch from K = 234; the kernel against the plain version
+    on the card."""
+    from reporter_tpu_torch.ops import hmm
+
+    ts, tab = sf_tile
+    mid = (0.5 * (ts.node_xy[ts.edge_src] + ts.node_xy[ts.edge_dst])
+           ).astype(np.float32)
+    pts, valid, cands = _numpy_case(ts, mid, k, seed=k, t=24)
+    plan = hmm.viterbi_plan(6, 24, k)
+    assert plan["instance"] == (1 if k < 255 else 2)
+    assert plan["blocks"] == ("global" if k >= 234 else "shared")
+    dev = tab["edge_len"].device
+    c = dc.CandidateSet(*(torch.from_numpy(x).to(dev) for x in cands))
+    got = _vit_equal(c, torch.from_numpy(pts).to(dev),
+                     torch.from_numpy(valid).to(dev), tab, k)
+    assert got.matched.cpu().numpy()[0].any()
+
+
+def test_viterbi_wide_plan_smem_equals_the_kernels_layout(cuda):
+    """Past K = 64 the plan's shared bytes are the kernel's layout in
+    every place of the levels and the blocks (a launch of zero-filled
+    inputs takes them and refuses them 16 bytes off); a plan of the
+    wrong instance is refused."""
+    from reporter_tpu_torch.kernels import build
+    from reporter_tpu_torch.ops import hmm
+
+    t = 16
+    for k in (65, 96, 128, 234, 255, 300):
+        ins, outs = _layout_args(cuda, t, k)
+        plan = hmm.viterbi_plan(1, t, k)
+        for levels in ("shared", "global"):
+            for blocks in ("shared", "global"):
+                here, bl = levels == "shared", blocks == "shared"
+                nbytes = hmm.viterbi_smem_bytes(t, k, plan["chunk"], here,
+                                                bl)
+                if nbytes > hmm.VITERBI_SMEM_MAX:
+                    continue
+                _, bpb, wb, _, _ = hmm._viterbi_widths(k)
+                lv = 0 if here else t * (wb + bpb * k)
+                size = lv if bl else \
+                    -(-lv // 16) * 16 + plan["chunk"] * k * k * 4
+                scratch = None if not size else torch.empty(
+                    size, dtype=torch.uint8, device=cuda)
+                pl = {**plan, "levels": levels, "blocks": blocks}
+
+                def launch(nb, **over):
+                    build.launch_viterbi(
+                        *ins, {**pl, "smem_bytes": nb, **over},
+                        2.0 * 4.07 ** 2, 3.0, 5.0, 2000.0, 10.0, True, 10.0,
+                        scratch, *outs)
+
+                launch(nbytes)
+                for off in (-16, 16):
+                    with pytest.raises(RuntimeError, match="error -1"):
+                        launch(nbytes + off)
+                with pytest.raises(RuntimeError, match="error -1"):
+                    launch(nbytes, instance=0)
+        torch.cuda.synchronize()
+        assert not outs[4].any(), k
 
 
 @pytest.mark.parametrize("i", range(8))
@@ -1272,17 +1387,19 @@ def test_viterbi_on_each_card_with_another_card_current(sf_tile, vit_fleet,
 _LAT_INPUTS = {}
 
 
-def _lattice_inputs(sf_tile, k, t):
+def _lattice_inputs(sf_tile, k, t, radius=None):
     """The lattice of one sf trace as match_topk builds it on the card, at
-    width k (50 m up to K = 8, 150 m past it): a one-point trace (T = 1),
-    a fleet trace (T = 120) or a 1024-point probe (T = 1024). → (points,
-    valid, the plain keep mask, the candidates, the tables, the matcher's
-    constants, then _lattice_prep's em, active, prev_any, trans)."""
+    width k (50 m up to K = 8, 150 m past it, or ``radius``): a one-point
+    trace (T = 1), a fleet trace (T = 120) or a 1024-point probe (T =
+    1024). → (points, valid, the plain keep mask, the candidates, the
+    tables, the matcher's constants, then _lattice_prep's em, active,
+    prev_any, trans)."""
     from reporter_tpu_torch.config import MatcherParams
     from reporter_tpu_torch.netgen.traces import synthesize_probe
     from reporter_tpu_torch.ops import hmm
 
-    if (k, t) not in _LAT_INPUTS:
+    radius = radius or (50.0 if k <= 8 else 150.0)
+    if (k, t, radius) not in _LAT_INPUTS:
         ts, tab = sf_tile
         xy = synthesize_probe(ts, seed=7, num_points=max(t, 2)).xy[:t]
         pts = torch.from_numpy(xy.astype(np.float32)).cuda()
@@ -1292,15 +1409,16 @@ def _lattice_inputs(sf_tile, k, t):
         c = dc.find_candidates_dense(
             pts, tuple(tab[n] for n in (
                 "seg_pack", "seg_bbox", "seg_sub", "seg_feat", "seg_sweep",
-                "seg_coarse")), 50.0 if k <= 8 else 150.0, k, valid=valid)
+                "seg_coarse")), radius, k, valid=valid)
         p = MatcherParams()
         keep = hmm._keep_mask_batched(pts[:, :, None], valid[:, None],
                                       p.interpolation_distance)[:, 0]
         consts = (p.sigma_z, p.beta, p.max_route_distance_factor, 300.0,
                   p.backward_slack)
-        _LAT_INPUTS[k, t] = (pts, valid, keep, c, tab, consts,
-                             *hmm._lattice_prep(c, pts, keep, tab, *consts))
-    return _LAT_INPUTS[k, t]
+        _LAT_INPUTS[k, t, radius] = (
+            pts, valid, keep, c, tab, consts,
+            *hmm._lattice_prep(c, pts, keep, tab, *consts))
+    return _LAT_INPUTS[k, t, radius]
 
 
 @pytest.mark.parametrize("t", [1, 120, 1024])
@@ -1326,7 +1444,7 @@ def test_lattice_kernels_equal_plain(sf_tile, k, r, t):
         assert torch.equal(g, w), (name, int((g != w).sum()))
     # the ranked terminal states and a -1 seed, within the kernel's paths
     seed = torch.sort(want[0][-1], stable=True).indices[:max(k, r)]
-    seed = torch.cat([seed[:hmm.LATTICE_MAX_PATHS - 1],
+    seed = torch.cat([seed[:hmm.LATTICE_MAX_K - 1],
                       seed.new_full((1,), -1)]).to(torch.int32)
     states = hmm._backtrack(want[1], want[2], act, want[3], seed)
     plain = hmm._backtrack_plain(want[1], want[2], act, want[3], seed)
@@ -1365,36 +1483,55 @@ def test_lattice_plan_smem_equals_the_kernels_layout(cuda):
     from reporter_tpu_torch.kernels import build
     from reporter_tpu_torch.ops import hmm
 
-    for k in range(1, hmm.LATTICE_MAX_K + 1):
+    for k in [*range(1, hmm.LATTICE_MAX_K + 1), 65, 96, 128, 256, 300]:
         for r in sorted({1, 2, k} & set(range(1, k + 1))):
-            chunk = hmm.lattice_plan(1024, k, r)["chunk"]
-            assert build.lattice_forward_smem(k, r, chunk) == \
-                hmm.lattice_smem_bytes(k, r, chunk), (k, r)
+            plan = hmm.lattice_plan(1024, k, r)
+            chunk, here = plan["chunk"], plan["tree_here"]
+            assert build.lattice_forward_smem(k, r, chunk, here) == \
+                hmm.lattice_smem_bytes(k, r, chunk, here), (k, r)
+            if k > hmm.LATTICE_MAX_K:
+                for tree in (False, True):
+                    assert build.lattice_forward_scratch(k, r, chunk,
+                                                         tree) == \
+                        hmm.lattice_scratch_bytes(k, r, chunk, tree), (k, r)
             paths = k if r == 1 else r
             bt = hmm.backtrack_plan(1024, k * r, paths)
-            assert build.lattice_backtrack_smem(
-                k * r, paths, bt["levels"], bt["stages"]) == \
-                bt["smem_bytes"], (k, r)
-    assert build.lattice_forward_smem(65, 1, 1) == -1
+            if bt["instance"] == "ring":
+                walkers = bt["threads"] // 32 - 1
+                assert build.lattice_backtrack_smem(
+                    k * r, 32 * walkers, bt["levels"], bt["stages"]) == \
+                    bt["smem_bytes"], (k, r)
+    # past the walkers a CTA holds, and levels off the grain of four
     assert build.lattice_forward_smem(8, 9, 1) == -1
-    assert build.lattice_backtrack_smem(8, 65, 4, 2) == -1
-    assert build.lattice_backtrack_smem(8, 257, 4, 2) == -1
+    # the first K whose candidate rows outgrow a CTA: its layout is over
+    # the card's shared memory, and so is every wider one's
+    assert build.lattice_forward_smem(2509, 1, 1) == \
+        hmm.lattice_smem_bytes(2509, 1, 1) > hmm.VITERBI_SMEM_MAX
+    assert build.lattice_forward_smem(46341, 1, 1) > hmm.VITERBI_SMEM_MAX
+    assert build.lattice_forward_smem(200_000, 1, 1) == -1
+    assert build.lattice_forward_scratch(64, 1, 1, False) == -1
+    assert build.lattice_backtrack_smem(8, 65, 4, 2) > 0
+    assert build.lattice_backtrack_smem(8, 257, 4, 2) > 0
+    assert build.lattice_backtrack_smem(8, 32 * 31 + 1, 4, 2) == -1
     assert build.lattice_backtrack_smem(8, 8, 6, 2) == -1
 
 
 def test_lattice_kernels_refuse_on_the_card(sf_tile):
-    """K past 64 and R past K are refused before a launch; a wrong dtype
-    on the card raises too; a backtrack's level arrays that are views off
-    the 16-byte grain are copied, not refused."""
+    """K past the shared memory's ceiling and R past K are refused before
+    a launch; a wrong dtype on the card raises too; a backtrack's level
+    arrays that are views off the 16-byte grain are copied, not
+    refused."""
     from reporter_tpu_torch.ops import hmm
 
     pts, _, keep, c, tab, consts, em, act, pany, trans = _lattice_inputs(
         sf_tile, 8, 120)
     with pytest.raises(ValueError, match="1 <= R <= K"):
         hmm._forward_list(c, pts, keep, tab, *consts, 9)
-    wide = c._make(x.repeat(1, 9)[:, :65] for x in c)
-    with pytest.raises(ValueError, match="1 <= K <= 64"):
-        hmm._forward_list(wide, pts, keep, tab, *consts, 1)
+    k = 2509       # the first K whose candidate rows outgrow a CTA
+    wide = c._make(x[:4].repeat(1, -(-k // 8))[:, :k].contiguous()
+                   for x in c)
+    with pytest.raises(ValueError, match=f"K={k} .*shared memory"):
+        hmm._forward_list(wide, pts[:4], keep[:4], tab, *consts, 1)
     with pytest.raises(ValueError, match="expected dist as"):
         hmm._forward_list(c._replace(dist=c.dist.double()), pts, keep, tab,
                           *consts, 1)
@@ -1406,6 +1543,120 @@ def test_lattice_kernels_refuse_on_the_card(sf_tile):
     states = hmm._backtrack(big, want[2], act, want[3], seed)
     assert torch.equal(states, hmm._backtrack_plain(want[1], want[2], act,
                                                     want[3], seed))
+
+
+@pytest.mark.parametrize("k,r,t", [(65, 1, 120), (65, 65, 120),
+                                   (96, 1, 1024), (96, 96, 120),
+                                   (96, 96, 1024), (128, 1, 120),
+                                   (128, 128, 120), (300, 1, 40),
+                                   (300, 300, 40)])
+def test_lattice_wide_instance_equals_plain(sf_tile, k, r, t):
+    """Past K = 64 the forward's wide instance (its state in the global
+    scratch, the trees in shared memory where they fit; past K = 256 its
+    256 merge threads take two columns each) bit-equal to
+    _lattice_prep + _forward_list_plain, and the backtrack (more walker
+    warps at P > 64, the levels read in place where a level of K * R
+    states is too wide for the ring) to _backtrack_plain, with every
+    path of the form match_topk asks and a -1 seed."""
+    from reporter_tpu_torch.ops import hmm
+
+    pts, _, keep, c, tab, consts, em, act, pany, trans = _lattice_inputs(
+        sf_tile, k, t, LONG_LIST_RADIUS)
+    plan = hmm.lattice_plan(t, k, r)
+    assert plan["scratch_bytes"] > 0
+    got = hmm._forward_list(c, pts, keep, tab, *consts, r)
+    want = (*hmm._forward_list_plain(em, act, pany, trans, r), act)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("scores", "backptrs", "started", "own",
+                           "active"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+    seed = torch.sort(want[0][-1], stable=True).indices[:k if r == 1 else r]
+    seed = torch.cat([seed, seed.new_full((1,), -1)]).to(torch.int32)
+    bt = hmm.backtrack_plan(t, k * r, int(seed.shape[0]))
+    assert bt["instance"] == "ring" or r > 1
+    states = hmm._backtrack(want[1], want[2], act, want[3], seed)
+    plain = hmm._backtrack_plain(want[1], want[2], act, want[3], seed)
+    torch.cuda.synchronize()
+    assert torch.equal(states, plain), int((states != plain).sum())
+    assert bool((states >= 0).any())
+
+
+@pytest.mark.parametrize("p", [1, 65, 100, 1000, 2000])
+@pytest.mark.parametrize("s", [8, 4096, 20000])
+def test_backtrack_takes_any_paths_and_width(cuda, s, p):
+    """The backtrack at P paths over CTAs of up to 31 walker warps, and at
+    levels of S states past the ring (read in place), against the plain
+    version on random levels (chains started at random, inactive levels,
+    -1 backpointers and own states)."""
+    from reporter_tpu_torch.ops import hmm
+
+    g = torch.Generator().manual_seed(s + p)
+    T = 300
+    bp = torch.randint(-1, s, (T, s), generator=g, dtype=torch.int32)
+    started = torch.rand(T, generator=g) < 0.05
+    active = torch.rand(T, generator=g) < 0.9
+    own = torch.randint(-1, s, (T,), generator=g, dtype=torch.int32)
+    seed = torch.randint(-1, s, (p,), generator=g, dtype=torch.int32)
+    args = [x.to(cuda) for x in (bp, started, active, own, seed)]
+    plan = hmm.backtrack_plan(T, s, p)
+    assert plan["instance"] == ("global" if s == 20000 else "ring")
+    got = hmm._backtrack(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), hmm._backtrack_plain(bp, started, active,
+                                                       own, seed))
+
+
+def _still_and_moving(t, rng):
+    """A trace that stands still (every point within 10 m of the first,
+    jittered by under 5 m) for its first half and then drives off 6 to
+    14 m a point, with a few invalid points."""
+    still = rng.uniform(-2.5, 2.5, (max(t // 2, 1), 2))
+    drive = np.cumsum(rng.uniform(6.0, 14.0, (t - t // 2, 2))
+                      * rng.choice([-1.0, 1.0], (1, 2)), axis=0)
+    xy = np.concatenate([still[:t // 2], still[-1] + drive]) + 1000.0
+    valid = rng.random(t) > 0.05
+    return xy.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("t", [1, 120, 1024, 5000])
+def test_keep_mask_kernel_equals_plain_in_any_shape(sf_tile, t, b):
+    """The keep kernel (a CTA a trace, the chain of next kept points) at
+    B = 1 and 64, T = 1, 120, 1024 and 5000 (three tiles of 2048 points):
+    sf fleet traces, a trace standing still and then driving, one
+    standing still throughout (every next-point search runs to its tile's
+    end) and one with no valid point; bit-equal to the plain version and
+    one launch a call."""
+    from reporter_tpu_torch.ops import hmm
+
+    ts, _ = sf_tile
+    rng = np.random.default_rng(t + b)
+    fleet = synthesize_fleet(ts, b, num_points=max(t, 2), seed=t)
+    pts = np.zeros((b, t, 2), np.float32)
+    valid = rng.random((b, t)) > 0.1
+    for i, f in enumerate(fleet):
+        n = min(len(f.xy), t)
+        pts[i, :n] = f.xy[:n]
+        valid[i, n:] = False
+    pts[0], valid[0] = _still_and_moving(t, rng)
+    if b > 1:
+        pts[1] = pts[1, :1] + rng.uniform(-2.0, 2.0, (t, 2))
+        valid[1] = True
+        valid[2] = False
+    p = torch.from_numpy(pts).to("cuda")
+    v = torch.from_numpy(valid).to("cuda")
+    for interp in (10.0, 0.5):
+        before = hmm.LATTICE_LAUNCHES.get("keep", 0)
+        got = hmm._keep_mask_cuda(p, v, interp)
+        want = hmm._keep_mask_batched(p.permute(1, 2, 0), v.T, interp).T
+        torch.cuda.synchronize()
+        assert hmm.LATTICE_LAUNCHES["keep"] == before + 1
+        assert got.dtype == torch.bool and torch.equal(got, want), \
+            int((got != want).sum())
+        if t > 1 and interp == 10.0:
+            # standing still: one kept point in the first half
+            assert int(want[0, :t // 2].sum()) == 1
 
 
 _GRID_TILES = {}
@@ -1423,11 +1674,13 @@ def _grid_tile(metro, radius):
 
 
 @pytest.mark.parametrize("metro", ["sf", "organic"])
-@pytest.mark.parametrize("k,radius", [(8, 50.0), (64, 150.0)])
+@pytest.mark.parametrize("k,radius", [(1, 50.0), (8, 50.0), (64, 150.0),
+                                      (96, 150.0), (8, 300.0)])
 def test_grid_kernel_equals_plain(cuda, metro, k, radius):
     """The grid kernel's four fields byte-equal to the plain version's on
     the card: fleet points, every node (d = 0 ties) and points past the
-    grid's edge; one launch counted under K."""
+    grid's edge; one launch counted under K. The row holds 64 slots at 50
+    m and more at 150 and 300 m (128 and 256 on sf)."""
     from reporter_tpu_torch.ops import candidates as cand
 
     ts, tab = _grid_tile(metro, radius)
@@ -1448,6 +1701,8 @@ def test_grid_kernel_equals_plain(cuda, metro, k, radius):
     assert bool(want.valid.any())
     if k == 64:
         assert bool((want.valid.sum(1) > 16).any())
+    if radius > 50.0:
+        assert int(tab["cell_pack"].shape[1]) // 8 > 64
     # a leading batch shape and an empty batch
     got2 = cand.find_candidates(pts[:120].reshape(4, 30, 2), tab, ts.meta,
                                 radius, k)

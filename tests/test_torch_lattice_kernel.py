@@ -17,8 +17,15 @@ kernels/lattice.cu) on the CPU.
   broken rule, each level's own argmin from the row heads) against
   ``_lattice_prep`` + ``_forward_list_plain``, and the ring-fed backtrack
   kernel against ``_backtrack_plain``, on real lattices.
+- The keep-mask kernel's algorithm in numpy f32 (tiles, the tile's first
+  kept point from the carried one, each valid point's next kept point by
+  windows of 32, the chain marked by pointer doubling) against
+  ``_keep_mask_batched`` on seeded traces: moving, standing still,
+  standing then driving, sparse validity, points exactly at the
+  interpolation distance, tiles of 16 and 2048 points.
 - ``lattice_plan`` and ``backtrack_plan`` at every bucket length and K up
-  to 64; the wrappers' refusals (K, R, P, dtype, shape, device), none of
+  to 64, and the wide instances' plans past it (K = 65, 96, 128, 256,
+  300); the wrappers' refusals (K, R, dtype, shape, device), none of
   which needs nvcc.
 
 The kernels themselves run on the card: tests/test_torch_kernels_gpu.py.
@@ -51,6 +58,9 @@ pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 SCORE_RTOL = 2e-6      # tests/test_torch_topk.py's
 BREAKAGE = 300.0
+# the first K whose wide candidate rows outgrow a CTA's shared memory: the
+# forward kernel's one ceiling (``lattice_plan``)
+PAST_SMEM_K = 2509
 _TABLES = ("edge_len", "reach_row", "reach_to", "reach_dist")
 F32 = np.float32
 
@@ -580,6 +590,95 @@ def test_kernel_models_equal_the_plain_versions(tile, k, r, kind):
     assert states.dtype == torch.int32 and states.shape == (len(seed), T)
 
 
+# ---- the keep mask's chain -------------------------------------------------
+
+
+def keep_model(pts: np.ndarray, vp: np.ndarray, interp: float,
+               tile: int = 2048) -> np.ndarray:
+    """lattice.cu's keep-mask kernel for one trace in numpy f32 (pts [T,
+    2], vp [T]): tiles of ``tile`` points; the tile's first kept point,
+    the first valid one at d² >= f32(interp)² from the carried last kept
+    point (any valid one before a point was kept); next[i], the first
+    valid j > i in the tile at d² >= d2_min from i, searched in windows
+    of 32 as a warp's ballot takes it; the chain from the first kept
+    point marked by pointer doubling (a marked u marks jump[u], then jump
+    = jump o jump), every round on the round's start. → bool [T]."""
+    d2_min = F32(F32(interp) * F32(interp))
+    T = len(pts)
+    out = np.zeros(T, bool)
+    any_kept, last = False, None
+    for t0 in range(0, T, tile):
+        x, y = pts[t0:t0 + tile, 0], pts[t0:t0 + tile, 1]
+        v = vp[t0:t0 + tile]
+        n = len(x)
+
+        if any_kept:
+            dx, dy = (x - last[0]).astype(F32), (y - last[1]).astype(F32)
+            far = (dx * dx + dy * dy).astype(F32) >= d2_min
+            cand = v & far
+        else:
+            cand = v.copy()
+        first = int(np.flatnonzero(cand)[0]) if cand.any() else n
+        nxt = np.full(n, n, np.int64)
+        for i in np.flatnonzero(v):
+            for j0 in range(i + 1, n, 32):
+                j = np.arange(j0, min(j0 + 32, n))
+                dx, dy = (x[j] - x[i]).astype(F32), (y[j] - y[i]).astype(F32)
+                ok = v[j] & ((dx * dx + dy * dy).astype(F32) >= d2_min)
+                if ok.any():
+                    nxt[i] = int(j[np.argmax(ok)])
+                    break
+        mark = np.zeros(n, bool)
+        if first < n:
+            mark[first] = True
+        jump, span = nxt.copy(), 1
+        while span < n:
+            step = mark.copy()
+            src = np.flatnonzero(mark & (jump < n))
+            step[jump[src]] = True
+            jump = np.where(jump < n, jump[np.minimum(jump, n - 1)], n)
+            mark, span = step, span * 2
+        out[t0:t0 + n] = mark
+        if mark.any():
+            i = int(np.flatnonzero(mark)[-1])
+            last, any_kept = (x[i], y[i]), True
+    return out
+
+
+def _keep_traces(seed: int, t: int):
+    """Seeded traces: a moving one (some steps under the distance), one
+    standing still (jitter under half the distance), one standing then
+    driving, sparse validity, and points on a 10 m grid (d² exactly at
+    f32(10)² between neighbours)."""
+    rng = np.random.default_rng(seed)
+    moving = np.cumsum(rng.uniform(-9.0, 9.0, (t, 2)), axis=0)
+    still = rng.uniform(-2.4, 2.4, (t, 2))
+    both = np.concatenate([still[:t // 2],
+                           still[t // 2 - 1] + np.cumsum(
+                               rng.uniform(4.0, 12.0, (t - t // 2, 2)), 0)])
+    grid = np.stack([10.0 * rng.integers(0, 4, t),
+                     10.0 * rng.integers(0, 4, t)], 1)
+    for xy in (moving, still, both, grid):
+        yield (xy + 5000.0).astype(F32), rng.random(t) > 0.1
+    yield (moving + 5000.0).astype(F32), rng.random(t) > 0.8
+
+
+@pytest.mark.parametrize("tile", [16, 2048])
+@pytest.mark.parametrize("t", [1, 7, 40, 333])
+def test_keep_chain_model_equals_the_plain_mask(t, tile):
+    """The keep kernel's chain of next kept points (the proof is in
+    kernels/lattice.cu) equals the plain scan, across tiles (16 points)
+    and within one (2048), interpolation at 10 m and 0.5 m."""
+    for seed in range(3):
+        for xy, vp in _keep_traces(seed + 10 * t, t):
+            for interp in (10.0, 0.5):
+                want = hmm._keep_mask_batched(
+                    torch.from_numpy(xy)[:, :, None],
+                    torch.from_numpy(vp)[:, None], interp)[:, 0].numpy()
+                got = keep_model(xy, vp, interp, tile)
+                np.testing.assert_array_equal(got, want)
+
+
 # ---- the plan and the wrappers' refusals ----------------------------------
 
 
@@ -611,23 +710,107 @@ def test_lattice_plan_fits_shared_memory(t):
                 k * r, paths, bt["levels"], bt["stages"])
     assert hmm.lattice_plan(t, 64, 64) == {
         "chunk": 4, "producer_warps": 8, "merge_warps": 2, "threads": 320,
-        "smem_bytes": 228256}
+        "smem_bytes": 228256, "tree_here": False, "scratch_bytes": 0}
+
+
+def _wide_plan_holds(t, k, r):
+    """The wide forward's plan at (T, K, R): 8 producer warps and up to 8
+    merge warps (columns c, c + 256, ...), shared bytes within the card's
+    227 KB and the layout's at its chunk, the same at every T, the trees
+    in shared memory exactly where they fit at chunk 1, the rest in a
+    scratch of lattice_scratch_bytes."""
+    plan = hmm.lattice_plan(t, k, r)
+    assert plan == hmm.lattice_plan(1, k, r)
+    assert (plan["producer_warps"], plan["merge_warps"]) == \
+        (8, min(-(-k // 32), 8))
+    assert plan["threads"] == 32 * (8 + plan["merge_warps"]) <= 512
+    assert 1 <= plan["chunk"] <= max(1, 32768 // (k * k))
+    assert plan["smem_bytes"] == hmm.lattice_smem_bytes(
+        k, r, plan["chunk"], plan["tree_here"]) <= hmm.VITERBI_SMEM_MAX
+    assert plan["tree_here"] == (r > 1 and hmm.lattice_smem_bytes(
+        k, r, 1, True) <= hmm.VITERBI_SMEM_MAX)
+    assert plan["scratch_bytes"] == hmm.lattice_scratch_bytes(
+        k, r, plan["chunk"], plan["tree_here"]) > 0
+    return plan
 
 
 @pytest.mark.parametrize("t,k,r", [(120, 0, 1), (120, 65, 1), (120, 8, 0),
-                                   (120, 8, 9), (0, 8, 1)])
+                                   (120, 8, 9), (0, 8, 1),
+                                   (120, PAST_SMEM_K, 1),
+                                   (1, PAST_SMEM_K - 1, PAST_SMEM_K - 1),
+                                   (1024, 96, 96),
+                                   (1024, 128, 128), (120, 256, 1),
+                                   (120, 300, 300)])
 def test_lattice_plan_refuses(t, k, r):
-    with pytest.raises(ValueError, match="lattice kernels take"):
+    """The plan refuses K < 1, R outside 1..K, T < 1 and a K whose
+    candidate rows outgrow a CTA's shared memory (from PAST_SMEM_K); a K
+    past 64 below it (65, 96, 128, 256, 300 and the last that fits, each
+    at R = 1 or R = K) is the wide instance's plan
+    (``_wide_plan_holds``)."""
+    if 1 <= k < PAST_SMEM_K and 1 <= r <= k and t >= 1:
+        assert k > hmm.LATTICE_MAX_K
+        _wide_plan_holds(t, k, r)
+        return
+    with pytest.raises(ValueError, match="lattice kernels take"
+                       if k < PAST_SMEM_K else f"K={k} .*shared memory"):
         hmm.lattice_plan(t, k, r)
 
 
+@pytest.mark.parametrize("k", [65, 96, 128, 256, 300])
+def test_lattice_plan_takes_the_wide_widths(k):
+    """Past K = 64, at R = 1, 2 and K and every bucket length: the wide
+    instance's plan, and the backtrack's for the paths match_topk asks
+    (a ring for the K-state levels of R = 1; levels of K * K states read
+    in place past some 7,000 states)."""
+    for t in _BUCKETS:
+        for r in (1, 2, k):
+            _wide_plan_holds(t, k, r)
+            paths = k if r == 1 else r
+            bt = hmm.backtrack_plan(t, k * r, paths)
+            assert bt == hmm.backtrack_plan(1, k * r, paths)
+            walkers = bt["threads"] // 32 - 1
+            if r == 1:
+                assert bt["instance"] == "ring"
+            if bt["instance"] == "ring":
+                assert 1 <= walkers <= hmm.LATTICE_MAX_WALKERS
+                assert bt["ctas"] * 32 * walkers >= paths
+                assert bt["smem_bytes"] == hmm.backtrack_smem_bytes(
+                    k * r, 32 * walkers, bt["levels"], bt["stages"]) \
+                    <= hmm.VITERBI_SMEM_MAX
+            else:
+                assert k * r > 7000 and bt["smem_bytes"] == 0
+                assert bt["ctas"] * bt["threads"] >= paths
+    # the trees in shared memory up to K = 96, in the scratch past it
+    assert hmm.lattice_plan(1024, 96, 96)["tree_here"]
+    assert not hmm.lattice_plan(1024, 128, 128)["tree_here"]
+
+
 @pytest.mark.parametrize("t,s,p", [(120, 8, 0), (120, 8, 65), (120, 8, 257),
-                                   (0, 8, 8), (120, 60000, 8)])
+                                   (0, 8, 8), (120, 60000, 8),
+                                   (120, 96, 96), (120, 128, 128),
+                                   (120, 8, 2000), (120, 9216, 96),
+                                   (120, 16384, 300)])
 def test_backtrack_plan_refuses(t, s, p):
-    """No paths or more than LATTICE_MAX_PATHS, no levels, or levels too
-    wide for two slots of four."""
-    with pytest.raises(ValueError, match="kernel"):
-        hmm.backtrack_plan(t, s, p)
+    """No paths or no levels are refused; P = 65, 96, 128, 257, 300 or
+    2000 paths are the ring over CTAs of up to 31 walker warps (fewer
+    where the ring would not fit beside their staging); levels too wide
+    for two slots of four levels (60,000, 9,216 or 16,384 states) are
+    read in place."""
+    if p < 1 or t < 1:
+        with pytest.raises(ValueError, match="kernel"):
+            hmm.backtrack_plan(t, s, p)
+        return
+    bt = hmm.backtrack_plan(t, s, p)
+    ring = hmm.backtrack_smem_bytes(s, 32, 4, 2) <= hmm.VITERBI_SMEM_MAX
+    assert bt["instance"] == ("ring" if ring else "global")
+    if ring:
+        walkers = bt["threads"] // 32 - 1
+        assert bt["ctas"] == -(-p // (32 * walkers))
+        assert bt["threads"] == 32 + 32 * min(-(-p // 32), 31) or \
+            bt["smem_bytes"] > 0
+    else:
+        assert bt["threads"] == min(1024, 32 * -(-p // 32))
+        assert bt["ctas"] == -(-p // bt["threads"])
 
 
 def _fwd_inputs(T=6, K=4, device="cpu"):
@@ -650,9 +833,11 @@ def _fwd_inputs(T=6, K=4, device="cpu"):
 
 
 def test_the_forward_wrapper_refuses_bad_k_and_r():
-    """K past 64 or R past K is refused before anything is built."""
-    with pytest.raises(ValueError, match="1 <= K <= 64"):
-        hmm._forward_list_cuda(*_fwd_inputs(K=65), 1)
+    """K past the shared memory's ceiling or R past K is refused before
+    anything is built."""
+    k = PAST_SMEM_K
+    with pytest.raises(ValueError, match=f"K={k} .*shared memory"):
+        hmm._forward_list_cuda(*_fwd_inputs(T=2, K=k), 1)
     with pytest.raises(ValueError, match="1 <= R <= K"):
         hmm._forward_list_cuda(*_fwd_inputs(K=4), 5)
 
@@ -676,7 +861,7 @@ def test_the_lattice_launchers_refuse_dtype_shape_and_device():
 
     def fwd(c, k=keep, R=2, o=out):
         build.launch_lattice_forward(*c, pts, k, *tabs, R, plan, *consts,
-                                     *o)
+                                     None, *o)
 
     with pytest.raises(ValueError, match="expected dist as"):
         fwd(cands._replace(dist=cands.dist.double()))

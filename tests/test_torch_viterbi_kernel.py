@@ -37,6 +37,9 @@ pytestmark = pytest.mark.usefixtures("few_torch_threads")
 _FIELDS = ("choice", "edge", "offset", "chain_start", "matched")
 _ROUTE_KEYS = ("edge_len", "reach_row", "reach_to", "reach_dist")
 B, T = 6, 40
+# the first K whose wide candidate rows outgrow a CTA's shared memory: the
+# Viterbi kernel's one ceiling (``viterbi_plan``)
+PAST_SMEM_K = 3985
 
 
 @pytest.fixture(scope="module")
@@ -175,8 +178,12 @@ def _kernel_args(k, **over):
 
 
 def test_the_kernel_wrapper_refuses_a_k_past_its_ceiling():
-    with pytest.raises(ValueError, match="K=65"):
-        hmm._viterbi_cuda(*_kernel_args(hmm.VITERBI_MAX_K + 1))
+    """Past the shared memory's ceiling, before anything is built (K = 65
+    and beyond 64 are the wide instances' now: test_the_launch_plan_
+    refuses_a_width_outside_the_kernel)."""
+    k = PAST_SMEM_K
+    with pytest.raises(ValueError, match=f"K={k} .*shared memory"):
+        hmm._viterbi_cuda(*_kernel_args(k))
 
 
 @pytest.mark.parametrize("member,bad", [
@@ -192,9 +199,10 @@ def test_the_kernel_wrapper_checks_the_tables(member, bad):
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 48, 64])
 def test_the_launch_plan_covers_k(k):
     plan = hmm.viterbi_plan(1024, 120, k)
-    assert set(plan) == {"traces_per_cta", "threads_per_trace",
+    assert set(plan) == {"instance", "traces_per_cta", "threads_per_trace",
                          "recurrence_threads", "chunk", "smem_bytes",
-                         "levels", "scratch_bytes"}
+                         "levels", "blocks", "scratch_bytes"}
+    assert plan["instance"] == 0 and plan["blocks"] == "shared"
     tpt, tpc = plan["threads_per_trace"], plan["traces_per_cta"]
     rt = plan["recurrence_threads"]
     cols = 1 << (k - 1).bit_length()     # the kernel's columns
@@ -281,7 +289,61 @@ def test_the_launch_plan_takes_any_length(t):
         assert plan["scratch_bytes"] == 3 * t * (k + 2)
 
 
-@pytest.mark.parametrize("k", [0, 65, 128])
+def _wide_plan_holds(b, t, k):
+    """The wide instances' plan at (B, T, K): instance 1 to K = 254, 2
+    from 255; one trace a CTA of VITERBI_WIDE_THREADS, all in the
+    recurrence; the blocks in shared memory exactly where the CTA then
+    fits the card, the levels where it fits the budget; the scratch the
+    global levels' B * T * (word + K * backpointer) bytes, then, 16
+    aligned, the global blocks' B * chunk * K * K * 4."""
+    plan = hmm.viterbi_plan(b, t, k)
+    assert plan["instance"] == (1 if k <= 254 else 2)
+    assert (plan["traces_per_cta"], plan["threads_per_trace"],
+            plan["recurrence_threads"]) == (1, hmm.VITERBI_WIDE_THREADS,
+                                            hmm.VITERBI_WIDE_THREADS)
+    chunk = plan["chunk"]
+    assert chunk == 1
+    blocks = hmm.viterbi_smem_bytes(t, k, chunk, False, True) \
+        <= hmm.VITERBI_SMEM_MAX
+    assert plan["blocks"] == ("shared" if blocks else "global")
+    here = hmm.viterbi_smem_bytes(t, k, chunk, True, blocks) \
+        <= hmm.VITERBI_SMEM_BUDGET
+    assert plan["levels"] == ("shared" if here else "global")
+    assert plan["smem_bytes"] == hmm.viterbi_smem_bytes(
+        t, k, chunk, here, blocks) <= hmm.VITERBI_SMEM_MAX
+    word, bp = 4, (1 if k <= 254 else 2)
+    levels = 0 if here else b * t * (word + bp * k)
+    assert plan["scratch_bytes"] == (
+        levels if blocks else -(-levels // 16) * 16 + b * chunk * k * k * 4)
+    return plan
+
+
+@pytest.mark.parametrize("k", [0, 65, 128, 96, 256, 300, PAST_SMEM_K - 1,
+                               PAST_SMEM_K])
 def test_the_launch_plan_refuses_a_width_outside_the_kernel(k):
-    with pytest.raises(ValueError):
+    """K = 0 and K whose candidate rows outgrow a CTA's shared memory
+    (from PAST_SMEM_K) are refused; K = 65, 96, 128, 256, 300 and the
+    last that fits, past instance 0's 64, are the wide instances'
+    plans."""
+    if 1 <= k < PAST_SMEM_K:
+        assert k > hmm.VITERBI_MAX_K
+        _wide_plan_holds(4, 4, k)
+        return
+    with pytest.raises(ValueError, match=f"K={k}"):
         hmm.viterbi_plan(4, 4, k)
+
+
+@pytest.mark.parametrize("k", [65, 96, 128, 233, 234, 254, 255, 256, 300,
+                               1000])
+def test_the_wide_launch_plan_at_every_bucket(k):
+    """Past K = 64 at every point bucket and B = 1, 3, 1024: the wide
+    plan (``_wide_plan_holds``); the blocks in shared memory up to K =
+    233, global from 234 at every T; the batch moves nothing but the
+    scratch."""
+    for t in _BUCKETS:
+        one = _wide_plan_holds(1, t, k)
+        for b in (3, 1024):
+            plan = _wide_plan_holds(b, t, k)
+            assert {**plan, "scratch_bytes": 0} == \
+                {**one, "scratch_bytes": 0}
+        assert plan["blocks"] == ("shared" if k <= 233 else "global")
