@@ -137,20 +137,23 @@ the native host half against its Python forms, in phases:
                 path in both forms, exact dominating terminal, a longer
                 trace refused, only the tuned instance launched;
      wide     — past K = 64, which the JAX package serves: [wide:decode]
-                matchers at K = 96 and 128 (the Viterbi's wide instance
-                1) and 256 (instance 2) at WIDE_RADIUS, and at K = 96 at
-                LONG_LIST_RADIUS (lists past 64 edges), serve the 1024
-                traces (main-path windows sf:k<K>, sf:k96@250m), their
-                first WIDE_CPU_TRACES records equal the CPU's, the kernel
-                bit-equal to its plain version on the whole first wire
-                slice, with ms, back to back, plain ms and bound;
+                matchers at K = 96 and 128 (viterbi_decode_wide_kernel's
+                instance 1) and 256 (instance 2) at WIDE_RADIUS, and at K
+                = 96 at LONG_LIST_RADIUS (lists past 64 edges), serve the
+                1024 traces (main-path windows sf:k<K>, sf:k96@250m),
+                their first WIDE_CPU_TRACES records equal the CPU's, the
+                kernel bit-equal to its plain version on the whole first
+                wire slice, with ms, back to back, plain ms, bound and
+                the plan (kernel, chunk, pass budget, levels);
                 [wide:topk] match_topk at K = 96 on the
                 TOPK_LONG_POINTS-point probe, both forms equal to the
                 CPU's, launching the keep mask, the forward's wide
-                instance and the backtrack's ring and in-place instances
-                (window sf:topk96); the lattice's wide kernels against
-                their plain versions are [kernel:lattice]'s K = 96 lines
-                (at WIDE_RADIUS and LONG_LIST_RADIUS);
+                instance (lattice_forward_kernel<-1>, both plans printed)
+                and the backtrack's ring and in-place instances (window
+                sf:topk96); the lattice's wide kernels against their plain
+                versions, with ms, back to back and bound, are
+                [kernel:lattice]'s K = 96 lines (at WIDE_RADIUS and
+                LONG_LIST_RADIUS);
      restrict — sf with add_random_restrictions at its defaults (122
                 restrictions, 329 banned pairs): [restrict:tiles] the
                 compile (C++ node rows, the ban-affected node rows and one
@@ -459,7 +462,8 @@ the native host half against its Python forms, in phases:
                 windows in every entry's launches_by_path), a
                 viterbi_decode_k<K> entry per K of [kernel:viterbi] and
                 [wide:decode] (its launches at that K in the main-path
-                windows; none is an error), the lattice's keep, forward
+                windows; none is an error; each names its kernel
+                function), the lattice's keep, forward
                 and backtrack entries and their wide instances'
                 (lattice_forward_wide, lattice_backtrack_global:
                 [kernel:lattice] at K = 96,
@@ -651,6 +655,13 @@ LATTICE_KERNELS = {
                   "reporter_tpu/ops/hmm.py:454 and :566 back_one, vmapped "
                   "(lax.scan; not Pallas)"),
 }
+# the kernel function behind each lattice launch key (the forward's
+# shared instances by tree depth, LOG = 0 at R = 1)
+LATTICE_FUNCTIONS = {
+    "keep": "lattice_keep_kernel", "forward": "lattice_forward_kernel<LOG>",
+    "forward:wide": "lattice_forward_kernel<-1>",
+    "backtrack": "lattice_backtrack_kernel",
+    "backtrack:global": "lattice_backtrack_global_kernel"}
 GRID_REPLACES = ("reporter_tpu/ops/candidates.py:117 _topk_distinct_edges "
                  "in find_candidates :139 (lax.scan, vmapped; not Pallas)")
 LONG_LIST_RADIUS = 250.0      # [wide:decode], [kernel:lattice]: sf's
@@ -1531,7 +1542,8 @@ def viterbi_phase(card, m, traces):
                    bound_by="operations" if by_ops >= by_bytes else "bytes",
                    library_ms=None, max_abs_err=err,
                    search_radius=p.search_radius,
-                   mismatches=sum(mism.values()))
+                   mismatches=sum(mism.values()), kernel=plan["kernel"],
+                   instance=plan["instance"])
         phase("kernel:viterbi", card, metro="sf", k=k,
               search_radius=p.search_radius, traces=int(bpts.shape[0]),
               points=int(bval.numel()),
@@ -1647,7 +1659,8 @@ def wide_decode_phase(card, ts, traces, win):
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                    max_abs_err=err, search_radius=radius,
                    mismatches=sum(mism.values()),
-                   instance=plan["instance"],
+                   instance=plan["instance"], kernel=plan["kernel"],
+                   chunk=plan["chunk"], pairs=plan["pairs"],
                    traces=int(bpts.shape[0]), longest_list=longest)
         phase("wide:decode", card, metro="sf", k=k,
               search_radius=radius, traces=int(bpts.shape[0]),
@@ -1716,6 +1729,8 @@ def wide_decode_phase(card, ts, traces, win):
             "backtrack:global": 1}
     phase("wide:topk", card, metro="sf", k=WIDE_TOPK_K,
           search_radius=WIDE_RADIUS, points=TOPK_LONG_POINTS,
+          plans={form: hmm.lattice_plan(TOPK_LONG_POINTS, WIDE_TOPK_K, r)
+                 for form, r in (("terminal", 1), ("exact", WIDE_TOPK_K))},
           paths={form: len(v) for form, v in card_out.items()},
           ms={form: walls[form] for form in walls},
           lattice_launches=lattice, cpu_equal=equal,
@@ -6990,7 +7005,7 @@ def main() -> int:
         entry = {
             "name": f"viterbi_decode_k{k}", "route": "cuda",
             "source": VITERBI_SOURCE, "replaces": VITERBI_REPLACES, "k": k,
-            "instance": a.get("instance", 0),
+            "kernel": a["kernel"], "instance": a["instance"],
             "search_radius": a["search_radius"],
             "launches": sum(paths.values()), "launches_by_path": paths,
             "mismatches": a["mismatches"], "max_abs_err": a["max_abs_err"],
@@ -7030,6 +7045,7 @@ def main() -> int:
         paths = {path: n for path, n in by_path.items() if n}
         entry = {
             "name": name, "route": "cuda", "source": source,
+            "kernel": LATTICE_FUNCTIONS.get(inst, "grid_candidates_kernel"),
             "replaces": replaces, "launches": sum(paths.values()),
             "launches_by_path": paths,
             **{key: a[key] for key in (

@@ -17,9 +17,9 @@ library, and this module pins, per instance (arm, K or ``wide``):
   memory, and 0 spill bytes (``SPILL_WAIVERS``: the dated exceptions);
 
 and the libraries of one source each (``SINGLE_LIBRARIES``): the batched
-Viterbi decode's (``kernels/viterbi.cu``, K a run-time argument: its
-instance 0 up to ``ops/hmm.VITERBI_MAX_K``, the wide instances 1 and 2
-past it), the ranked-path lattice's (``kernels/lattice.cu``: its
+Viterbi decode's (``kernels/viterbi.cu``, K a run-time argument:
+``viterbi_decode_kernel`` up to ``ops/hmm.VITERBI_MAX_K``, past it the
+wide kernel's instances 1 and 2), the ranked-path lattice's (``kernels/lattice.cu``: its
 keep-mask kernel, the forward kernel's seven shared instances by tree
 depth up to ``ops/hmm.LATTICE_MAX_K`` and its wide instance past it, the
 backtrack's ring kernel and its in-place one) and the grid
@@ -69,13 +69,15 @@ H100_HBM_BYTES = 80 * 10**9
 WIDE_PIN_K = 32
 # the Viterbi library's key in the ptxas section and in SPILL_WAIVERS
 VITERBI_LIBRARY = "viterbi"
-# the Viterbi's instance 0 (K up to 64); <1> and <2> the wide ones
-VITERBI_KERNEL = "viterbi_decode_kernel<0>"
+# the Viterbi's instance 0 (K up to 64); the wide kernel's <1> and <2>
+# past it
+VITERBI_KERNEL = "viterbi_decode_kernel"
 LATTICE_LIBRARY = "lattice"
 GRID_LIBRARY = "grid"
 # the libraries of one source each: key → the kernels each must hold
 SINGLE_LIBRARIES = {
-    VITERBI_LIBRARY: tuple(f"viterbi_decode_kernel<{i}>" for i in range(3)),
+    VITERBI_LIBRARY: (VITERBI_KERNEL, "viterbi_decode_wide_kernel<1>",
+                      "viterbi_decode_wide_kernel<2>"),
     LATTICE_LIBRARY: ("lattice_keep_kernel",
                       # the forward's instances: <0> at R = 1, <L> the
                       # loser tree of 2^L leaves at R > 1, <-1> the wide
@@ -101,10 +103,12 @@ _SPILL_WHY = ("2026-10-17 ptxas caps this instance at 72 or 96 registers "
               "cost is not measured")
 SPILL_WAIVERS = {
     ("lattice_forward_kernel<-1>", LATTICE_LIBRARY): (
-        "2026-10-18 the wide forward (K > 64), 512 threads a CTA, so at "
-        "most 128 registers: ptxas spills 16 / 40 bytes (the first card "
-        "build's report); a first design for rare lists, its cost not "
-        "measured apart"),
+        "2026-10-19 the wide forward (K > 64), 512 threads a CTA, so at "
+        "most 128 registers: with its merge a code path a tree depth "
+        "(wide_column<LOG>, reached through one call) ptxas spills 640 / "
+        "1,492 bytes, and its R = 1 path ran slower than before that "
+        "change (PERF.md); a kernel a path (R = 1 apart from the "
+        "trees) is ROADMAP queue 2's item 15"),
     ("sweep_exact_kernel<2,4>", 4): _SPILL_WHY,
     ("sweep_exact_kernel<3,4>", 4): _SPILL_WHY,
     ("sweep_exact_kernel<1,6>", 6): _SPILL_WHY,
@@ -613,18 +617,18 @@ GOLDEN: "dict[str, Any]" = \
                                                     'spill_stores': 0,
                                                     'static_smem': 0},
                        'lattice_forward_kernel<-1>': {'registers': 128,
-                                                      'spill_loads': 40,
-                                                      'spill_stores': 16,
+                                                      'spill_loads': 1492,
+                                                      'spill_stores': 640,
                                                       'static_smem': 0},
                        'lattice_forward_kernel<0>': {'registers': 107,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<1>': {'registers': 104,
+                       'lattice_forward_kernel<1>': {'registers': 107,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<2>': {'registers': 104,
+                       'lattice_forward_kernel<2>': {'registers': 107,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
@@ -636,11 +640,11 @@ GOLDEN: "dict[str, Any]" = \
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<5>': {'registers': 142,
+                       'lattice_forward_kernel<5>': {'registers': 150,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
-                       'lattice_forward_kernel<6>': {'registers': 128,
+                       'lattice_forward_kernel<6>': {'registers': 126,
                                                      'spill_loads': 0,
                                                      'spill_stores': 0,
                                                      'static_smem': 0},
@@ -648,18 +652,18 @@ GOLDEN: "dict[str, Any]" = \
                                                'spill_loads': 0,
                                                'spill_stores': 0,
                                                'static_smem': 36880}},
-           'viterbi': {'viterbi_decode_kernel<0>': {'registers': 122,
-                                                    'spill_loads': 0,
-                                                    'spill_stores': 0,
-                                                    'static_smem': 0},
-                       'viterbi_decode_kernel<1>': {'registers': 128,
-                                                    'spill_loads': 0,
-                                                    'spill_stores': 0,
-                                                    'static_smem': 0},
-                       'viterbi_decode_kernel<2>': {'registers': 128,
-                                                    'spill_loads': 0,
-                                                    'spill_stores': 0,
-                                                    'static_smem': 0}}},
+           'viterbi': {'viterbi_decode_kernel': {'registers': 109,
+                                                 'spill_loads': 0,
+                                                 'spill_stores': 0,
+                                                 'static_smem': 0},
+                       'viterbi_decode_wide_kernel<1>': {'registers': 128,
+                                                         'spill_loads': 0,
+                                                         'spill_stores': 0,
+                                                         'static_smem': 0},
+                       'viterbi_decode_wide_kernel<2>': {'registers': 128,
+                                                         'spill_loads': 0,
+                                                         'spill_stores': 0,
+                                                         'static_smem': 0}}},
  'staged_tables': {'card_hbm_bytes': 80000000000,
                    'dense_layout_keys': ['seg_pack',
                                          'seg_bbox',

@@ -279,9 +279,9 @@ _VITERBI_SIGNATURES = {
 }
 _LATTICE_SIGNATURES = {
     "rtt_lattice_keep": [_P, _P, _I, _I, _F, _P, _P],
-    "rtt_lattice_forward_smem": [_I] * 4,
-    "rtt_lattice_forward_scratch": [_I] * 4,
-    "rtt_lattice_forward": [_P] * 10 + [_I] * 9 + [_F] * 5 + [_P] * 6
+    "rtt_lattice_forward_smem": [_I] * 5,
+    "rtt_lattice_forward_scratch": [_I] * 5,
+    "rtt_lattice_forward": [_P] * 10 + [_I] * 10 + [_F] * 5 + [_P] * 6
                            + [_P],
     "rtt_lattice_backtrack_smem": [_I] * 4,
     "rtt_lattice_backtrack": [_P] * 5 + [_I] * 7 + [_P, _P],
@@ -305,16 +305,19 @@ def launch_viterbi(ce, co, cd, cv, pts, vp, edge_len, reach_row, reach_to,
     """One launch of viterbi.cu's decode over the batch (cands ``ce``
     [B, T, K]) on the current stream of the tensors' device, with that
     device current, as ``plan`` (``ops/hmm.viterbi_plan``) lays it out:
-    its ``instance``, ``traces_per_cta`` traces of ``threads_per_trace``
-    threads a CTA, the recurrence on ``recurrence_threads`` of them,
-    chunks of ``chunk`` steps, the levels and the blocks each in shared
+    its ``instance`` (0 ``viterbi_decode_kernel``, 1 and 2
+    ``viterbi_decode_wide_kernel``), ``traces_per_cta`` traces of
+    ``threads_per_trace`` threads a CTA, the recurrence on
+    ``recurrence_threads`` of them, chunks of ``chunk`` steps (the wide
+    kernel's looked up in passes of ``pairs`` pairs), the levels in shared
     memory or in ``scratch``, ``smem_bytes`` a CTA (the kernel refuses a
-    figure that is not its layout's, and the wrapper raises). The float arguments are Python floats, rounded once to
-    f32 as the plain version's 0-d tensors are (``em_denom`` is 2
-    sigma_z^2 in double, ``interp`` the interpolation distance, squared
-    here in f32). The caller checks the tensors and allocates ``scratch``
-    (u8 [plan's scratch_bytes], None where the levels and the blocks stay
-    in shared memory) and the five outputs."""
+    figure that is not its layout's, and the wrapper raises). The float
+    arguments are Python floats, rounded once to f32 as the plain
+    version's 0-d tensors are (``em_denom`` is 2 sigma_z^2 in double,
+    ``interp`` the interpolation distance, squared here in f32). The
+    caller checks the tensors and allocates ``scratch`` (u8 [plan's
+    scratch_bytes], None where the levels stay in shared memory) and the
+    five outputs."""
     B, T, K = (int(x) for x in ce.shape)
     lib = _viterbi_lib()
     with _on_device(ce.device):
@@ -325,7 +328,7 @@ def launch_viterbi(ce, co, cd, cv, pts, vp, edge_len, reach_row, reach_to,
             B, T, K, int(reach_to.shape[1]), int(plan["instance"]),
             int(plan["threads_per_trace"]), int(plan["traces_per_cta"]),
             int(plan["recurrence_threads"]), int(plan["chunk"]),
-            int(plan["levels"] == "shared"), int(plan["blocks"] == "shared"),
+            int(plan["levels"] == "shared"), int(plan["pairs"]),
             int(plan["smem_bytes"]),
             *(float(x) for x in (em_denom, beta, factor, breakage, slack)),
             int(use_keep), _f32_square(float(interp)), _ptr(scratch),
@@ -390,25 +393,26 @@ def launch_lattice_keep(pts, vp, interp: float, keep) -> None:
     _raise_on(rc, f"lattice keep mask (B={B}, T={T})")
 
 
-def lattice_forward_smem(K: int, R: int, chunk: int,
-                         tree_here: bool = False, device="cuda") -> int:
+def lattice_forward_smem(K: int, R: int, chunk: int, place: int = 0,
+                         tree_bytes: int = 0, device="cuda") -> int:
     """The forward kernel's own shared bytes at (K, R) and chunk C, the
-    wide instance's trees there where ``tree_here`` (-1 for a shape it
-    does not take): what ``ops/hmm.lattice_smem_bytes`` is held to."""
+    wide instance's placement ``place`` and trees' region ``tree_bytes``
+    (-1 for a shape it does not take): what ``ops/hmm.lattice_smem_bytes``
+    is held to."""
     lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
     with _on_device(device):
         return int(lib.rtt_lattice_forward_smem(int(K), int(R), int(chunk),
-                                                int(tree_here)))
+                                                int(place), int(tree_bytes)))
 
 
-def lattice_forward_scratch(K: int, R: int, chunk: int, tree_here: bool,
-                            device="cuda") -> int:
+def lattice_forward_scratch(K: int, R: int, chunk: int, place: int,
+                            tree_bytes: int, device="cuda") -> int:
     """The wide forward's own global scratch bytes (-1 for a shape it does
     not take): what ``ops/hmm.lattice_scratch_bytes`` is held to."""
     lib = _single_lib(LATTICE_SOURCE, _LATTICE_SIGNATURES)
     with _on_device(device):
         return int(lib.rtt_lattice_forward_scratch(
-            int(K), int(R), int(chunk), int(tree_here)))
+            int(K), int(R), int(chunk), int(place), int(tree_bytes)))
 
 
 def lattice_backtrack_smem(S: int, P: int, levels: int, stages: int,
@@ -427,9 +431,9 @@ def launch_lattice_forward(ce, co, cd, cv, pts, keep, edge_len, reach_row,
                            breakage: float, slack: float, scratch, scores,
                            backptrs, started, own, active) -> None:
     """One launch of lattice.cu's forward kernel (one CTA as the plan lays
-    it out: ``ops/hmm.lattice_plan``'s warps, chunk, ``tree_here`` and
-    ``smem_bytes``; ``scratch`` u8 [its scratch_bytes] for the wide
-    instance, else None) on
+    it out: ``ops/hmm.lattice_plan``'s warps, chunk, ``place``,
+    ``tree_bytes`` and ``smem_bytes``; ``scratch`` u8 [its scratch_bytes]
+    where the wide instance has one, else None) on
     the current stream of the tensors' card: the candidates (edge i32,
     offset f32, dist f32, valid bool [T, K]), points f32 [T, 2], the keep
     mask bool [T] and the reach tables (edge_len f32 [E], reach_row i32
@@ -475,8 +479,8 @@ def launch_lattice_forward(ce, co, cd, cv, pts, keep, edge_len, reach_row,
             pts.data_ptr(), keep.data_ptr(), edge_len.data_ptr(),
             reach_row.data_ptr(), reach_to.data_ptr(), reach_dist.data_ptr(),
             T, K, R, M, int(plan["chunk"]), 32 * int(plan["producer_warps"]),
-            32 * int(plan["merge_warps"]), int(plan["tree_here"]),
-            int(plan["smem_bytes"]),
+            32 * int(plan["merge_warps"]), int(plan["place"]),
+            int(plan["tree_bytes"]), int(plan["smem_bytes"]),
             *(float(x) for x in (em_denom, beta, factor, breakage, slack)),
             _ptr(scratch), scores.data_ptr(), backptrs.data_ptr(),
             started.data_ptr(), own.data_ptr(), active.data_ptr(),

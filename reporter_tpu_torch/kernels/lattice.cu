@@ -71,17 +71,30 @@
 //     first-argmin state (the first minimal row head) comes from two warp
 //     reductions. An inactive step writes the carry and identity
 //     backpointers out; no barrier.
-//   - Past K = 64 the wide instance (LOG = kWide) runs the same steps with
-//     a run-time tree depth, 16-bit rows in the head key, ceil(K / 64)
-//     mask words and u16 lists: its blocks, carried rows and backpointers,
-//     and its trees where they do not fit a CTA, in a global scratch; up
-//     to 256 merge threads, each taking columns c, c + 256, ... (a
-//     column's first pass kept in the scratch over the step's OR barrier).
-//     The merge's state grows as K * R and the trees as K^2 (2N nodes a
-//     column): at K = R = 128 that is over the card's shared memory, so the
-//     scratch holds it all rather than one instance a fit; a list past 64
-//     candidates is a rare request, and this instance is right first
-//     (PERF.md has its times).
+//   - Past K = 64 the wide instance (LOG = kWide) runs the same producer
+//     steps (ceil(K / 64) mask words, u16 lists) and its own merge: 256
+//     merge threads; a column merges only its looked-up previous rows (a
+//     row not looked up adds BIG to every value, and picks >= BIG write
+//     BIG and -1 whatever their row), so a tree has np leaves up to a
+//     power of two, not K; each looked-up column's first pass (its
+//     smallest head; at R = 1 its pick) on G lanes, the looked-up columns'
+//     trees built g at a time in a region of shared memory (as many as it
+//     holds at this step's leaves), each pick's path loaded at once. What
+//     each pick reads stays in shared memory where it fits
+//     (ops/hmm.py::lattice_plan's placement, in this order): the blocks
+//     at R > 1 (a pick reads its row's entry in a dependent chain; at R =
+//     1 each entry is read once, in independent loads, so the blocks stay
+//     in the global scratch at the chunk that keeps the most lookups in
+//     flight), the carried rows, the trees; what does not fit (the blocks
+//     and rows at K = R = 128 and past) goes to the global scratch.
+//     Beside the carried rows the level's backpointers too (kPlaceLevel,
+//     R > 1): the picks fill both, and after the step's closing barrier
+//     the level is copied out coalesced, as in the shared instances; a
+//     pick stored straight to its column's row of the level is a store
+//     that scatters over a warp's 32 rows, and those stores held up every
+//     memory access of the CTA (PERF.md). Elsewhere (R = 1, whose level
+//     row is one value a column, or rows in the scratch) the level is
+//     written as it is picked.
 //
 // backtrack: CTAs of a thread a path (up to 31 walker warps a CTA) in
 //   walker warps and one producer warp, which streams the levels (backpointer rows and the
@@ -314,12 +327,20 @@ struct Buf {
   int x, y, gc, prev, off, flags, keep, any, misc, bytes;
 };
 
-__host__ __device__ inline Buf make_buf(int K, int C) {
+// the wide forward's placement bits (the plan's): what stays in shared
+// memory, the rest in the global scratch
+constexpr int kPlaceBlocks = 1;      // the chunks' transition blocks
+constexpr int kPlaceRows = 2;        // the carried rows
+constexpr int kPlaceTrees = 4;       // the merge's loser trees
+constexpr int kPlaceBest = 8;        // each column's first-pass result
+constexpr int kPlaceLevel = 16;      // the level's backpointers (R > 1)
+
+__host__ __device__ inline Buf make_buf(int K, int C, bool blocks_here) {
   Buf B{};
   int at = 0;
   const int rows = (C + 1) * K;
-  const bool wide = K > kMaxK;   // blocks global, a u16 list, mask words
-  B.trans = wide ? -1 : take(at, 4 * C * K * K);
+  const bool wide = K > kMaxK;   // a u16 list, mask words
+  B.trans = blocks_here ? take(at, 4 * C * K * K) : -1;
   B.e = take(at, 4 * rows);
   B.o = take(at, 4 * rows);
   B.em = take(at, 4 * rows);
@@ -349,31 +370,40 @@ __host__ __device__ inline Buf make_buf(int K, int C) {
 // at n * W + c, N = K up to a power of two, W = K up to a multiple of 16,
 // so a warp's lanes hit distinct banks whatever nodes they read), and the
 // own reduction's words (two steps' worth). The wide instance (K > kMaxK)
-// keeps here only the buffers without their blocks, the trees where
-// `tree_here` (2N nodes a column: it builds them in place, leaves last)
-// and the reduction's words for its eight merge warps; the rest is in its
-// global scratch (WideScratch).
+// keeps here the buffers (their blocks where `place` has kPlaceBlocks),
+// the carried rows [K, RP] twice where it has kPlaceRows, the level's
+// backpointers [K, RP] where it has kPlaceLevel (with the rows: the level
+// is then copied out coalesced from them), each column's
+// first-pass best and argmin [K] where it has kPlaceBest, the reduction's
+// words for its eight merge warps, and last, where it has kPlaceTrees,
+// the trees' region of
+// `tree_bytes` (N - 1 loser nodes a column, N the looked-up previous rows
+// up to a power of two); the rest is in its global scratch (WideScratch).
 struct Layout {
   Buf buf;
-  int buf0, buf1, score0, score1, bp, tree, red, bytes;
+  int buf0, buf1, score0, score1, bp, tree, red, best, arg, bytes;
 };
 
 __host__ __device__ inline int tree_pitch(int K) { return (K + 15) & ~15; }
 
 __host__ __device__ inline Layout make_layout(int K, int R, int C,
-                                              bool tree_here) {
+                                              int place, int tree_bytes) {
   Layout L{};
-  L.buf = make_buf(K, C);
+  const bool wide = K > kMaxK;
+  L.buf = make_buf(K, C, !wide || (place & kPlaceBlocks));
   int at = 0;
   const int RP = R | 1;
   L.buf0 = take(at, L.buf.bytes);
   L.buf1 = take(at, L.buf.bytes);
-  if (K > kMaxK) {
-    L.score0 = L.score1 = L.bp = -1;
-    L.tree = R > 1 && tree_here
-                 ? take(at, 16 * pow2_at_least(K) * tree_pitch(K))
-                 : -1;
+  if (wide) {
+    const bool rows = place & kPlaceRows;
+    L.score0 = rows ? take(at, 4 * K * RP) : -1;
+    L.score1 = rows ? take(at, 4 * K * RP) : -1;
+    L.bp = place & kPlaceLevel ? take(at, 4 * K * RP) : -1;
+    L.best = place & kPlaceBest ? take(at, 4 * K) : -1;
+    L.arg = place & kPlaceBest ? take(at, 4 * K) : -1;
     L.red = take(at, 4 * 2 * 2 * (kWideMerge / 32));
+    L.tree = place & kPlaceTrees ? take(at, tree_bytes) : -1;
     L.bytes = at;
     return L;
   }
@@ -387,13 +417,13 @@ __host__ __device__ inline Layout make_layout(int K, int R, int C,
 }
 
 // The wide forward's global scratch, in bytes from its base, each array
-// 16 aligned (ops/hmm.py::lattice_scratch_bytes makes the same sum): the
-// two buffers' blocks f32 [2][C, K, K], the carried scores [K, RP] twice,
-// at R > 1 the level's backpointers [K, RP] and, unless in shared memory,
-// the trees (u64 [2N][W]), and each column's first-pass result (u64 [K]:
-// its root winner, or at R = 1 its best value's bits and argmin).
+// 16 aligned (ops/hmm.py::lattice_scratch_bytes makes the same sum): what
+// the placement leaves out of shared memory, of the two buffers' blocks
+// f32 [2][C, K, K], the carried scores [K, RP] twice, each column's
+// first-pass best and argmin [K] and, at R > 1, the trees' region
+// (`tree_bytes`).
 struct WideScratch {
-  size_t trans, score0, score1, bp, tree, stash, bytes;
+  size_t trans, score0, score1, best, arg, tree, bytes;
 };
 
 __host__ __device__ inline size_t take_at(size_t& at, size_t n) {
@@ -403,18 +433,18 @@ __host__ __device__ inline size_t take_at(size_t& at, size_t n) {
 }
 
 __host__ __device__ inline WideScratch make_wide_scratch(int K, int R, int C,
-                                                         bool tree_here) {
+                                                         int place,
+                                                         int tree_bytes) {
   WideScratch S{};
   size_t at = 0;
   const size_t rows = static_cast<size_t>(K) * (R | 1) * 4;
-  S.trans = take_at(at, 2ull * C * K * K * 4);
-  S.score0 = take_at(at, rows);
-  S.score1 = take_at(at, rows);
-  S.bp = take_at(at, R > 1 ? rows : 0);
-  S.tree = take_at(at, R > 1 && !tree_here
-                           ? 16ull * pow2_at_least(K) * tree_pitch(K)
-                           : 0);
-  S.stash = take_at(at, 8ull * K);
+  const bool blocks = place & kPlaceBlocks, here = place & kPlaceRows;
+  S.trans = take_at(at, blocks ? 0 : 2ull * C * K * K * 4);
+  S.score0 = take_at(at, here ? 0 : rows);
+  S.score1 = take_at(at, here ? 0 : rows);
+  S.best = take_at(at, place & kPlaceBest ? 0 : 4ull * K);
+  S.arg = take_at(at, place & kPlaceBest ? 0 : 4ull * K);
+  S.tree = take_at(at, R > 1 && !(place & kPlaceTrees) ? tree_bytes : 0);
   S.bytes = at;
   return S;
 }
@@ -485,7 +515,7 @@ struct FwdParams {
   int* own;                    // i32 [T]
   unsigned char* active;       // bool [T]
   unsigned char* scratch;      // the wide instance's (WideScratch)
-  int tree_here;               // the wide instance's trees in shared memory
+  int place, tree_bytes;       // the wide instance's placement, its trees'
 };
 
 // a row head's key: the value's bits (costs are >= +0, so they order as
@@ -608,65 +638,122 @@ __device__ __forceinline__ float column_picks(
 }
 
 // ---- the wide instance's merge (K > kMaxK): the same picks as the
-// shared instances', written for any K. A row head's key holds the row in
-// the low word's upper 16 bits and its rank in the lower 16 (R <= K, and
-// the shared memory keeps K under 2,509); a column's looked-up previous
-// slots are ceil(K / 64) mask words (null: none); the loser tree's depth
-// is a run-time LOG, its 2N nodes a column built in place (the leaves at
-// [N, 2N), then each node's winner bottom-up, then each node's loser
-// top-down, children first read as winners), a pick's path replayed node
-// by node.
+// shared instances', written for any K, over a column's looked-up previous
+// rows alone (np of them). A row not looked up with the column adds BIG to
+// every value of its row, and a pick >= BIG writes BIG and -1 whichever
+// row it came from, so leaving those rows out changes no pick below BIG
+// and no tie between them. A row head's key holds, in the low word, the
+// row's leaf ii (its place among the looked-up rows, which ascend, so ii
+// orders as the row cp = plist[ii] does) in the upper 16 bits and its rank
+// in the lower 16 (R <= K, and the shared memory keeps K under 2,509); a
+// column's loser tree has N = np up to a power of two leaves, its N - 1
+// loser nodes kept (node n of the thread's tree at n * W), its leaves
+// recomputed from the row heads. Each tree depth LOG has its own code
+// (wide_column<LOG>), one contiguous path: the build, to LOG =
+// kWideUnroll, a recursion whose leaves' loads all go out at once (the
+// shared instances' tree_build), past it a loop; a pick's LOG path nodes
+// loaded at once, then compared, as in tree_pick.
 
-__device__ __forceinline__ unsigned long long wide_key(float v, int cp,
+constexpr int kWideLog = 12;         // a tree's depth: 2^12 >= 2,508 rows
+constexpr int kWideUnroll = 7;       // the builds unrolled: to 128 leaves
+constexpr int kFirst = 4;            // a first-pass lane's loads at once
+
+// (v, i) becomes (ov, oi) where that pair is lexicographically smaller
+__device__ __forceinline__ void keep_min(float& v, int& i, float ov, int oi) {
+  if (ov < v || (ov == v && oi < i)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+__device__ __forceinline__ unsigned long long wide_key(float v, int ii,
                                                        int r) {
   return (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
-         (static_cast<unsigned>(cp) << 16) | static_cast<unsigned>(r);
+         (static_cast<unsigned>(ii) << 16) | static_cast<unsigned>(r);
 }
 
-__device__ __forceinline__ float wide_trans(const float* tr, int K,
-                                            const unsigned long long* seen,
-                                            int cp) {
-  const int c = min(cp, K - 1);
-  return seen && ((seen[c >> 6] >> (c & 63)) & 1ull)
-             ? tr[static_cast<size_t>(c) * K]
-             : kBig;
+// the column's leaf ii: its row's head (rank 0), or a spent pad past np
+__device__ __forceinline__ unsigned long long wide_leaf(
+    const float* cur, const float* tc, const unsigned short* plist, int np,
+    int K, int RP, int ii) {
+  const int cp = plist[min(ii, np - 1)];
+  const unsigned long long h =
+      wide_key(__fadd_rn(cur[cp * RP], tc[cp * K]), ii, 0);
+  return ii < np ? h : kSpent;
 }
 
-// the column's tree over its K row heads (2^LOG leaves): → the winner
-__device__ unsigned long long wide_tree_build(
-    const float* cur, const float* tr, const unsigned long long* seen,
-    int K, int RP, int LOG, unsigned long long* tree, int W) {
-  const int N = 1 << LOG;
-  for (int u = 0; u < N; ++u) {
-    tree[static_cast<size_t>(N + u) * W] =
-        u < K ? wide_key(__fadd_rn(cur[static_cast<size_t>(u) * RP],
-                                   wide_trans(tr, K, seen, u)),
-                         u, 0)
-              : kSpent;
+// the loser tree of the leaves [lo, lo + N) under heap node `node`, the
+// leaves' keys in registers: the losers stored, the winner returned
+template <int N>
+__device__ __forceinline__ unsigned long long wide_tree_build(
+    const float* cur, const float* tc, const unsigned short* plist, int np,
+    int K, int RP, int lo, int node, unsigned long long* tree, int W) {
+  if constexpr (N <= 8) {
+    unsigned long long k[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      k[u] = wide_leaf(cur, tc, plist, np, K, RP, lo + u);
+    }
+#pragma unroll
+    for (int w = 1; w < N; w *= 2) {
+#pragma unroll
+      for (int u = 0; u < N; u += 2 * w) {
+        const int at = (node * N + u) / (2 * w);
+        const unsigned long long a = k[u], b = k[u + w];
+        tree[at * W] = a < b ? b : a;
+        k[u] = a < b ? a : b;
+      }
+    }
+    return k[0];
+  } else {
+    const unsigned long long a = wide_tree_build<N / 2>(
+        cur, tc, plist, np, K, RP, lo, 2 * node, tree, W);
+    const unsigned long long b = wide_tree_build<N / 2>(
+        cur, tc, plist, np, K, RP, lo + N / 2, 2 * node + 1, tree, W);
+    tree[node * W] = a < b ? b : a;
+    return a < b ? a : b;
   }
+}
+
+// the same past kWideUnroll: each node's winner bottom-up, then its loser
+// top-down (children still hold winners)
+__device__ unsigned long long wide_tree_loop(
+    const float* cur, const float* tc, const unsigned short* plist, int np,
+    int K, int RP, int N, unsigned long long* tree, int W) {
+  auto at = [&](int n) -> unsigned long long {
+    return n >= N ? wide_leaf(cur, tc, plist, np, K, RP, n - N)
+                  : tree[n * W];
+  };
   for (int n = N - 1; n >= 1; --n) {
-    const unsigned long long a = tree[static_cast<size_t>(2 * n) * W];
-    const unsigned long long b = tree[static_cast<size_t>(2 * n + 1) * W];
-    tree[static_cast<size_t>(n) * W] = a < b ? a : b;
+    const unsigned long long a = at(2 * n), b = at(2 * n + 1);
+    tree[n * W] = a < b ? a : b;
   }
-  const unsigned long long win = tree[W];    // node 1 (the leaf at N = 1)
+  const unsigned long long win = tree[W];
   for (int n = 1; n < N; ++n) {
-    const unsigned long long a = tree[static_cast<size_t>(2 * n) * W];
-    const unsigned long long b = tree[static_cast<size_t>(2 * n + 1) * W];
-    tree[static_cast<size_t>(n) * W] = a < b ? b : a;
+    const unsigned long long a = at(2 * n), b = at(2 * n + 1);
+    tree[n * W] = a < b ? b : a;
   }
   return win;
 }
 
-// the column's R picks (tree_pick's, node by node) into its carry row
-// and level backpointers. → the pick r = 0's value.
-__device__ float wide_column_picks(unsigned long long x, const float* cur,
-                                   const float* tr,
-                                   const unsigned long long* seen, int K,
-                                   int R, int LOG, float em,
-                                   unsigned long long* tree, int W,
-                                   float* nxt, int* bpr) {
+// one looked-up column at tree depth LOG: its tree built, then its R
+// picks into its carry row and the level's row (values plus em into `os`
+// unless it is null, where the carry row is the level's; states into
+// `ob`), each pick's leaf-to-root path loaded at once, then compared, the
+// stores predicated. → the pick r = 0's value.
+template <int LOG>
+__device__ __forceinline__ float wide_column(
+    const float* cur, const float* tc, const unsigned short* plist, int np,
+    int K, int R, float em, unsigned long long* tree, int W, float* crow,
+    float* os, int* ob) {
+  constexpr int N = 1 << LOG;
   const int RP = R | 1;
+  unsigned long long x;
+  if constexpr (LOG <= kWideUnroll) {
+    x = wide_tree_build<N>(cur, tc, plist, np, K, RP, 0, 1, tree, W);
+  } else {
+    x = wide_tree_loop(cur, tc, plist, np, K, RP, N, tree, W);
+  }
   bool done = false;
   float first = kBig;
   for (int r = 0; r < R; ++r) {
@@ -674,31 +761,52 @@ __device__ float wide_column_picks(unsigned long long x, const float* cur,
     const bool live = !done && v < kBig;
     done = !live;
     const unsigned low = static_cast<unsigned>(x);
-    const int cp = min(static_cast<int>(low >> 16), K - 1);
+    const int ii = min(static_cast<int>(low >> 16), np - 1);
     const int rr = static_cast<int>(low & 0xffffu);
+    const int cp = plist[ii];
     const float val = live ? __fadd_rn(v, em) : kBig;
     if (r == 0) first = val;
-    nxt[r] = val;
-    bpr[r] = live ? cp * R + rr : -1;
+    crow[r] = val;
+    if (os) os[r] = val;
+    ob[r] = live ? cp * R + rr : -1;
     if (r + 1 >= R || !live) continue;
-    const float nv = cur[static_cast<size_t>(cp) * RP + min(rr + 1, R - 1)];
+    const int leaf = N + ii;
+    unsigned long long y[LOG > 0 ? LOG : 1];
+#pragma unroll
+    for (int l = 0; l < LOG; ++l) y[l] = tree[(leaf >> (l + 1)) * W];
+    const float nv = cur[cp * RP + min(rr + 1, R - 1)];
+    const float tv = tc[cp * K];
     unsigned long long key =
-        rr + 1 < R
-            ? wide_key(__fadd_rn(nv, wide_trans(tr, K, seen, cp)), cp, rr + 1)
-            : kSpent;
-    const int leaf = (1 << LOG) + cp;
+        rr + 1 < R ? wide_key(__fadd_rn(nv, tv), ii, rr + 1) : kSpent;
+#pragma unroll
     for (int l = 0; l < LOG; ++l) {
-      unsigned long long* node =
-          tree + static_cast<size_t>(leaf >> (l + 1)) * W;
-      const unsigned long long y = *node;
-      if (y < key) {
-        *node = key;
-        key = y;
-      }
+      const bool swap = y[l] < key;
+      if (swap) tree[(leaf >> (l + 1)) * W] = key;
+      key = swap ? y[l] : key;
     }
     x = key;
   }
   return first;
+}
+
+// wide_column at the depth of N = np up to a power of two
+__device__ float wide_column_at(int depth, const float* cur, const float* tc,
+                                const unsigned short* plist, int np, int K,
+                                int R, float em, unsigned long long* tree,
+                                int W, float* crow, float* os, int* ob) {
+#define RTT_WIDE_AT(d)                                                   \
+  case d:                                                                \
+    return wide_column<d>(cur, tc, plist, np, K, R, em, tree, W, crow, os, \
+                          ob);
+  switch (depth) {
+    RTT_WIDE_AT(0) RTT_WIDE_AT(1) RTT_WIDE_AT(2) RTT_WIDE_AT(3)
+    RTT_WIDE_AT(4) RTT_WIDE_AT(5) RTT_WIDE_AT(6) RTT_WIDE_AT(7)
+    RTT_WIDE_AT(8) RTT_WIDE_AT(9) RTT_WIDE_AT(10) RTT_WIDE_AT(11)
+    default:
+      return wide_column<kWideLog>(cur, tc, plist, np, K, R, em, tree, W,
+                                   crow, os, ob);
+  }
+#undef RTT_WIDE_AT
 }
 
 // a level [K, R] out of shared rows of pitch RP (R | 1) into out_s and
@@ -749,7 +857,7 @@ __device__ __forceinline__ void copy_level(const float* rows,
 // LOG: 0 for R = 1 (the first-argmin pass), else ceil(log2 K) for R > 1
 // (the loser tree of 2^LOG leaves): one kernel each, so a step's code is
 // the one path's, contiguous. kWide (-1): the wide instance, any K past
-// kMaxK and any R (its merge threads take columns c, c + 256, ...).
+// kMaxK and any R.
 template <int LOG>
 __global__ void __launch_bounds__(LOG == kWide ? kWideThreads : kMaxThreads,
                                   1)
@@ -765,12 +873,13 @@ __global__ void __launch_bounds__(LOG == kWide ? kWideThreads : kMaxThreads,
   const int ptid = tid - MW;   // a producer's index
   const int mtid = tid;        // a merge thread's: its column
   const int nchunks = (T + C - 1) / C;
-  const Layout L = make_layout(K, R, C, p.tree_here != 0);
-  const WideScratch WS = make_wide_scratch(K, R, C, p.tree_here != 0);
+  const Layout L = make_layout(K, R, C, p.place, p.tree_bytes);
+  const WideScratch WS = make_wide_scratch(K, R, C, p.place, p.tree_bytes);
   auto chunk_of = [&](int b) {
-    float* trans = kIsWide ? reinterpret_cast<float*>(p.scratch + WS.trans) +
-                                 static_cast<size_t>(b) * C * KK
-                           : nullptr;
+    float* trans = kIsWide && !(p.place & kPlaceBlocks)
+                       ? reinterpret_cast<float*>(p.scratch + WS.trans) +
+                             static_cast<size_t>(b) * C * KK
+                       : nullptr;
     return chunk_at(smem + (b ? L.buf1 : L.buf0), L.buf, trans);
   };
   // a row's slot i of its list, and its looked-up count
@@ -993,26 +1102,40 @@ __global__ void __launch_bounds__(LOG == kWide ? kWideThreads : kMaxThreads,
   }
 
   if constexpr (kIsWide) {
-    // ---- the wide instance's merge warps: the steps in order, columns
-    // c = mtid, mtid + MW, ...; per step a first pass a column (its best
-    // and argmin at R = 1, its tree's winner at R > 1) kept in the
-    // scratch over the OR barrier, then its picks; the carried rows, the
-    // level's backpointers and the trees (unless in shared memory) in the
-    // scratch, the level copied out coalesced as the shared instances do
+    // ---- the wide instance's merge warps: the steps in order. Per active
+    // step, first each looked-up column's smallest head (at R = 1 its
+    // first argmin, the pick itself), G lanes a column over the looked-up
+    // previous rows, the pair (value, row) reduced lexicographically; the
+    // OR of their connections at a barrier gives `broken`. Then every
+    // column not served by a tree (a restart, a column not looked up, R =
+    // 1's pick) is written by the threads in turn, and at R > 1 each
+    // looked-up column's R picks by its thread's loser tree, g columns at
+    // once (as many trees of this step's N leaves as the region holds),
+    // each thread's tree slot reused for its next column. A column's
+    // carry row and the level's row are written as they are picked; the
+    // level's own state from the heads, reduced at the step's barrier.
     const int warp = mtid >> 5, nmw = MW >> 5;
     const int RP = R | 1;
     constexpr int kRed = 2 * (kWideMerge / 32);   // a parity's words
-    float* score0 = reinterpret_cast<float*>(p.scratch + WS.score0);
-    float* score1 = reinterpret_cast<float*>(p.scratch + WS.score1);
-    int* bpbuf = reinterpret_cast<int*>(p.scratch + WS.bp);
+    const bool rows_here = p.place & kPlaceRows;
+    float* score0 = reinterpret_cast<float*>(
+        rows_here ? smem + L.score0 : p.scratch + WS.score0);
+    float* score1 = reinterpret_cast<float*>(
+        rows_here ? smem + L.score1 : p.scratch + WS.score1);
     unsigned long long* trees = reinterpret_cast<unsigned long long*>(
-        p.tree_here ? smem + L.tree : p.scratch + WS.tree);
-    unsigned long long* stash =
-        reinterpret_cast<unsigned long long*>(p.scratch + WS.stash);
+        p.place & kPlaceTrees ? smem + L.tree : p.scratch + WS.tree);
+    const int tree_nodes = p.tree_bytes / 8;
+    const bool best_here = p.place & kPlaceBest;
+    // the level's backpointers in shared rows (then copied out coalesced
+    // with the carry rows), else each pick written straight out
+    const bool level_here = p.place & kPlaceLevel;
+    int* bpbuf =
+        level_here ? reinterpret_cast<int*>(smem + L.bp) : nullptr;
+    float* s_best = reinterpret_cast<float*>(
+        best_here ? smem + L.best : p.scratch + WS.best);
+    int* s_arg = reinterpret_cast<int*>(best_here ? smem + L.arg
+                                                  : p.scratch + WS.arg);
     unsigned* red = reinterpret_cast<unsigned*>(smem + L.red);
-    const int TW = tree_pitch(K);
-    int LG = 0;
-    while ((1 << LG) < K) ++LG;
     for (int s = mtid; s < K * RP; s += MW) score0[s] = kBig;
     bar_sync(kBarMerge, MW);
     int cur_b = 0;
@@ -1020,7 +1143,10 @@ __global__ void __launch_bounds__(LOG == kWide ? kWideThreads : kMaxThreads,
     for (int n = 0; n < nchunks; ++n) {
       const int b = n & 1, t0 = n * C, cn = min(C, T - t0);
       const Chunk B = chunk_of(b);
+      const unsigned short* list =
+          reinterpret_cast<const unsigned short*>(B.list);
       bar_sync(kBarFull + b, P + MW);
+      RTT_MARK(5)
       for (int s = 0; s < cn; ++s) {
         const int t = t0 + s;
         const int fl = B.flags[s];
@@ -1034,88 +1160,126 @@ __global__ void __launch_bounds__(LOG == kWide ? kWideThreads : kMaxThreads,
             p.started[t] = 0;
             p.own[t] = own_cur;
           }
+          RTT_MARK(10)
           continue;
         }
         const bool look = (fl & kStepLook) != 0;
-        const unsigned long long* pm = B.mask + B.prev[s] * Wm;
+        const int prow = B.prev[s];
+        const unsigned short* plist = list + prow * K;
+        const unsigned short* clist = list + (s + 1) * K;
         const unsigned long long* jm = B.mask + (s + 1) * Wm;
+        const int np = look ? row_count(B, prow) : 0;
+        const int nc = np > 0 ? row_count(B, s + 1) : 0;
         const float* trs = B.trans + static_cast<size_t>(s) * KK;
         bool conn = false;
-        for (int c = mtid; c < K && look; c += MW) {
-          const unsigned long long* seen =
-              ((jm[c >> 6] >> (c & 63)) & 1ull) ? pm : nullptr;
-          unsigned long long x;
-          float best;
-          if (R == 1) {
-            best = CUDART_INF_F;
-            int arg = 0;
-            for (int cp = 0; cp < K; ++cp) {
-              const float v =
-                  __fadd_rn(cur[cp], wide_trans(trs + c, K, seen, cp));
-              if (v < best) {
-                best = v;
-                arg = cp;
+        {
+          int G = 1;
+          while (G < 32 && nc * G * 2 <= MW) G *= 2;
+          const int sub = mtid % G;
+          for (int jj0 = 0; jj0 < nc; jj0 += MW / G) {
+            const int jj = jj0 + mtid / G;
+            float best = CUDART_INF_F;
+            int arg = K;
+            const int c = jj < nc ? clist[jj] : 0;
+            if (jj < nc) {
+              // kFirst rows' loads at once (rows clamped, values selected)
+              for (int i0 = sub; i0 < np; i0 += kFirst * G) {
+                int cps[kFirst];
+                float hv[kFirst], tv[kFirst];
+#pragma unroll
+                for (int u = 0; u < kFirst; ++u) {
+                  cps[u] = plist[min(i0 + u * G, np - 1)];
+                }
+#pragma unroll
+                for (int u = 0; u < kFirst; ++u) {
+                  hv[u] = cur[static_cast<size_t>(cps[u]) * RP];
+                  tv[u] = trs[static_cast<size_t>(cps[u]) * K + c];
+                }
+#pragma unroll
+                for (int u = 0; u < kFirst; ++u) {
+                  const float v = __fadd_rn(hv[u], tv[u]);
+                  const bool better = i0 + u * G < np && v < best;
+                  best = better ? v : best;
+                  arg = better ? cps[u] : arg;
+                }
               }
             }
-            x = (static_cast<unsigned long long>(__float_as_uint(best))
-                 << 32) |
-                static_cast<unsigned>(arg);
-          } else {
-            x = wide_tree_build(cur, trs + c, seen, K, RP, LG, trees + c, TW);
-            best = __uint_as_float(static_cast<unsigned>(x >> 32));
+            for (int o = G >> 1; o > 0; o >>= 1) {
+              keep_min(best, arg, __shfl_xor_sync(kFull, best, o),
+                       __shfl_xor_sync(kFull, arg, o));
+            }
+            if (jj < nc && sub == 0) {
+              s_best[c] = best;
+              s_arg[c] = arg;
+              conn = conn || best < kBig;
+            }
           }
-          stash[c] = x;
-          conn = conn || best < kBig;
         }
-        // the barrier: the last level's copy out is done before this one
-        // is written
-        bool any = false;
-        if (look) {
-          any = bar_or(kBarMerge, MW, conn);
-        } else {
-          bar_sync(kBarMerge, MW);
-        }
-        const bool broken = !any;
+        RTT_MARK(6)
+        // broken: no column connected, or the step does not look up (no
+        // active point before, or past the breakage distance). The
+        // barrier also holds the last level's copy out before this one.
+        const bool broken = !bar_or(kBarMerge, MW, conn);
+        RTT_MARK(7)
         unsigned hb = 0xffffffffu, hc = 0xffffffffu;
         for (int c = mtid; c < K; c += MW) {
+          const bool lk = np > 0 && ((jm[c >> 6] >> (c & 63)) & 1ull);
+          if (R > 1 && lk && !broken) continue;       // a tree's column
           const float em = B.em[(s + 1) * K + c];
           float* crow = nxt + static_cast<size_t>(c) * RP;
-          float head;
-          if (R == 1) {
-            int bp = -1;
+          float* os = level_here ? crow : out_s + c * R;
+          int* ob = level_here ? bpbuf + c * RP : out_b + c * R;
+          float head = kBig;
+          int bp = -1;
+          if (broken) {
             head = em;
-            if (!broken) {
-              const unsigned long long x = stash[c];
-              const float best =
-                  __uint_as_float(static_cast<unsigned>(x >> 32));
-              head = best < kBig ? __fadd_rn(best, em) : kBig;
-              bp = best < kBig ? static_cast<int>(static_cast<unsigned>(x))
-                               : -1;
-            }
-            crow[0] = head;
-            out_s[c] = head;
-            out_b[c] = bp;
-          } else {
-            int* brow = bpbuf + static_cast<size_t>(c) * RP;
-            if (broken) {
-              for (int r = 0; r < R; ++r) {
-                crow[r] = r == 0 ? em : kBig;
-                brow[r] = -1;
-              }
-              head = em;
-            } else {
-              const unsigned long long* seen =
-                  ((jm[c >> 6] >> (c & 63)) & 1ull) ? pm : nullptr;
-              head = wide_column_picks(stash[c], cur, trs + c, seen, K, R,
-                                       LG, em, trees + c, TW, crow, brow);
-            }
+          } else if (lk) {     // R = 1: the first pass's pick
+            const float best = s_best[c];
+            head = best < kBig ? __fadd_rn(best, em) : kBig;
+            bp = best < kBig ? s_arg[c] : -1;
           }
-          // the first minimal head of this thread's columns (ascending)
+          crow[0] = head;
+          os[0] = head;
+          ob[0] = bp;
+          for (int r = 1; r < R; ++r) {
+            crow[r] = kBig;
+            os[r] = kBig;
+            ob[r] = -1;
+          }
           if (__float_as_uint(head) < hb) {
             hb = __float_as_uint(head);
             hc = c;
           }
         }
+        if (R > 1 && !broken && nc > 0) {
+          const int N = pow2_at_least(np);
+          int depth = 0;
+          while ((1 << depth) < N) ++depth;
+          // g trees at a time, node n of thread i's at n * W + i (W a
+          // multiple of 16 where the region holds it: a warp's lanes then
+          // read distinct banks whatever nodes they read)
+          const int g = min(min(nc, MW), tree_nodes / N);
+          const int W = ((g + 15) & ~15) * N <= tree_nodes ? (g + 15) & ~15
+                                                           : g;
+          unsigned long long* tree = trees + mtid;
+          for (int jj = mtid; jj < nc && mtid < g; jj += g) {
+            const int c = clist[jj];
+            const float em = B.em[(s + 1) * K + c];
+            const float head = wide_column_at(
+                depth, cur, trs + c, plist, np, K, R, em, tree, W,
+                nxt + static_cast<size_t>(c) * RP,
+                level_here ? nullptr : out_s + c * R,
+                level_here ? bpbuf + c * RP : out_b + c * R);
+            if (__float_as_uint(head) < hb ||
+                (__float_as_uint(head) == hb &&
+                 static_cast<unsigned>(c) < hc)) {
+              hb = __float_as_uint(head);
+              hc = c;
+            }
+          }
+        }
+        RTT_MARK(8)
+        // the level's own state: the first minimal head over the columns
         const unsigned wm = __reduce_min_sync(kFull, hb);
         const unsigned wi = __reduce_min_sync(kFull, hb == wm ? hc : kFull);
         if (lane == 0) {
@@ -1123,7 +1287,11 @@ __global__ void __launch_bounds__(LOG == kWide ? kWideThreads : kMaxThreads,
           red[cur_b * kRed + warp * 2 + 1] = wi;
         }
         bar_sync(kBarMerge, MW);
-        if (R > 1) copy_level(nxt, bpbuf, K, R, RP, out_s, out_b, mtid, MW);
+        RTT_MARK(9)
+        if (level_here) {
+          // the level, coalesced: the carry's rows and the backpointers
+          copy_level(nxt, bpbuf, K, R, RP, out_s, out_b, mtid, MW);
+        }
         if (mtid == 0) {
           unsigned bm = kFull, bi = kFull;
           for (int w = 0; w < nmw; ++w) {
@@ -1139,9 +1307,11 @@ __global__ void __launch_bounds__(LOG == kWide ? kWideThreads : kMaxThreads,
           p.started[t] = broken ? 1 : 0;
         }
         cur_b ^= 1;
+        RTT_MARK(10)
       }
       if (n + 2 < nchunks) bar_arrive(kBarFree + b, P + MW);
     }
+    RTT_PROFILE_END
   } else {
     // ---- the merge warps: the steps in order, a thread a column
     const int c = mtid, warp = mtid >> 5, nmw = MW >> 5;
@@ -1580,13 +1750,31 @@ int launch_forward(const FwdParams& p, int smem_bytes, void* stream) {
 }
 
 // the forward's one ceiling on K is the shared memory: false where an
-// array alone outgrows it (a buffer's candidate rows' flags, a wide
-// instance's trees in shared memory), checked in 64 bits before
-// make_layout's 32-bit offsets could wrap
-bool forward_fits(int K, int R, int C, bool tree_here) {
+// array alone outgrows it (a buffer's candidate rows' flags; the wide
+// instance's blocks, carried rows or trees where `place` keeps them
+// there), checked in 64 bits before make_layout's 32-bit offsets could
+// wrap. The wide instance's trees (R > 1) take a region of `tree_bytes`,
+// a multiple of 16 that holds at least one column's tree at K leaves
+// (N - 1 < pow2(K) nodes); R = 1 and the shared instances take none. Its
+// level's backpointers stay in shared memory only at R > 1 beside the
+// carried rows.
+bool forward_fits(int K, int R, int C, int place, int tree_bytes) {
   if ((C + 1ll) * K > kMaxSmem) return false;
-  return !(K > kMaxK && R > 1 && tree_here &&
-           16ll * pow2_at_least(K) * tree_pitch(K) > kMaxSmem);
+  if (K <= kMaxK) return place == 0 && tree_bytes == 0;
+  if (place < 0 || place > 31 || tree_bytes < 0 || tree_bytes % 16) {
+    return false;
+  }
+  if (((place & kPlaceBlocks) && 8ll * C * K * K > kMaxSmem) ||
+      ((place & kPlaceRows) && 8ll * K * (R | 1) > kMaxSmem) ||
+      ((place & kPlaceLevel) && 4ll * K * (R | 1) > kMaxSmem) ||
+      ((place & kPlaceTrees) && tree_bytes > kMaxSmem)) {
+    return false;
+  }
+  if ((place & kPlaceLevel) && (R == 1 || !(place & kPlaceRows))) {
+    return false;
+  }
+  return R > 1 ? tree_bytes >= 8ll * pow2_at_least(K)
+               : tree_bytes == 0 && !(place & kPlaceTrees);
 }
 
 }  // namespace
@@ -1606,27 +1794,29 @@ extern "C" int rtt_lattice_keep(const float* pts, const unsigned char* vp,
 }
 
 // The forward kernel's shared bytes at (K, R) and chunk C (at most 32: a
-// lane a step of the control sequence), the wide instance's trees there
-// where `tree_here` (ignored at K <= kMaxK), -1 for a shape it does not
-// take (ops/hmm.py::lattice_smem_bytes is held to it on the card).
-extern "C" int rtt_lattice_forward_smem(int K, int R, int C, int tree_here) {
+// lane a step of the control sequence), the wide instance's placement
+// `place` and trees' region `tree_bytes` (0 and 0 at K <= kMaxK), -1 for a
+// shape it does not take (ops/hmm.py::lattice_smem_bytes is held to it on
+// the card).
+extern "C" int rtt_lattice_forward_smem(int K, int R, int C, int place,
+                                        int tree_bytes) {
   if (K < 1 || R < 1 || R > K || C < 1 || C > 32 ||
-      !forward_fits(K, R, C, tree_here != 0)) {
+      !forward_fits(K, R, C, place, tree_bytes)) {
     return -1;
   }
-  return make_layout(K, R, C, tree_here != 0).bytes;
+  return make_layout(K, R, C, place, tree_bytes).bytes;
 }
 
 // The wide forward's global scratch bytes (K > kMaxK; -1 for another
 // shape, or past 2^31 - 1 bytes): what ops/hmm.py::lattice_scratch_bytes is
 // held to on the card.
-extern "C" int rtt_lattice_forward_scratch(int K, int R, int C,
-                                           int tree_here) {
+extern "C" int rtt_lattice_forward_scratch(int K, int R, int C, int place,
+                                           int tree_bytes) {
   if (K <= kMaxK || R < 1 || R > K || C < 1 || C > 32 ||
-      !forward_fits(K, R, C, false)) {
+      !forward_fits(K, R, C, place, tree_bytes)) {
     return -1;
   }
-  const size_t n = make_wide_scratch(K, R, C, tree_here != 0).bytes;
+  const size_t n = make_wide_scratch(K, R, C, place, tree_bytes).bytes;
   return n > 0x7fffffffu ? -1 : static_cast<int>(n);
 }
 
@@ -1636,10 +1826,12 @@ extern "C" int rtt_lattice_forward_scratch(int K, int R, int C,
 // [rows, M]) → scores f32 [T, K * R], backptrs i32 [T, K * R], started u8
 // [T], own i32 [T], active u8 [T]: one CTA of `producers` + `merge`
 // threads with `smem_bytes` of shared memory (the layout's at chunk C, or
-// -1); past kMaxK the wide instance, 256 producers, min(K up to whole
-// warps, kWideMerge) merge threads, its trees in shared memory where
-// `tree_here`, and `scratch` (make_wide_scratch's bytes; null at K <=
-// kMaxK). The floats are f32(2 sigma_z^2) and the matcher's constants.
+// -1); past kMaxK the wide instance, 256 producers and kWideMerge merge
+// threads, what `place` keeps in shared memory and its trees' region of
+// `tree_bytes` (R > 1), the rest in `scratch` (make_wide_scratch's bytes,
+// null where there are none; null at K <= kMaxK, where `place` and
+// `tree_bytes` are 0). The floats are f32(2 sigma_z^2) and the matcher's
+// constants.
 // Returns cudaGetLastError() after the launch, or -1 for a shape or plan
 // it does not take.
 extern "C" int rtt_lattice_forward(
@@ -1647,23 +1839,25 @@ extern "C" int rtt_lattice_forward(
     const float* pts, const unsigned char* keep, const float* edge_len,
     const int* reach_row, const int* reach_to, const float* reach_dist,
     int T, int K, int R, int M, int chunk, int producers, int merge,
-    int tree_here, int smem_bytes, float em_denom, float beta, float factor,
+    int place, int tree_bytes, int smem_bytes, float em_denom, float beta,
+    float factor,
     float breakage, float slack, unsigned char* scratch, float* scores,
     int* backptrs, unsigned char* started, int* own, unsigned char* active,
     void* stream) {
   if (T < 1 || K < 1 || R < 1 || R > K || M < 1 || chunk < 1 ||
-      chunk > 32 || !forward_fits(K, R, chunk, tree_here != 0)) {
+      chunk > 32 || !forward_fits(K, R, chunk, place, tree_bytes)) {
     return -1;
   }
   const bool wide = K > kMaxK;
   const int columns = 32 * ((K + 31) / 32);
-  if (wide ? merge != min(columns, kWideMerge) || producers != 256 ||
-                 scratch == nullptr || (tree_here && R == 1)
+  if (wide ? merge != kWideMerge || producers != 256 ||
+                 (make_wide_scratch(K, R, chunk, place, tree_bytes).bytes >
+                  0) != (scratch != nullptr)
            : merge != columns || producers < 32 || producers % 32 ||
-                 producers + merge > kMaxThreads || tree_here) {
+                 producers + merge > kMaxThreads) {
     return -1;
   }
-  if (smem_bytes != make_layout(K, R, chunk, tree_here != 0).bytes ||
+  if (smem_bytes != make_layout(K, R, chunk, place, tree_bytes).bytes ||
       smem_bytes > kMaxSmem) {
     return -1;
   }
@@ -1678,7 +1872,8 @@ extern "C" int rtt_lattice_forward(
               T,        K,         R,        M,          top,
               chunk,    producers, merge,    em_denom,   beta,
               factor,   breakage,  slack,    scores,     backptrs,
-              started,  own,       active,   scratch,    tree_here};
+              started,  own,       active,   scratch,    place,
+              tree_bytes};
   if (wide) return launch_forward<kWide>(p, smem_bytes, stream);
   int lg = 0;
   while (R > 1 && (1 << lg) < K) ++lg;

@@ -25,8 +25,9 @@ constexpr float kRouteBig = 1e30f;   // ops/dense_candidates.BIG
 // bound, where the key sits if present, is always probed when it is < M.
 // kLoadsFirst: each step's N probes are loaded before any is compared,
 // unconditionally (an index past the row reads its last entry, and is
-// then ignored), so no branch stands between the loads (lattice.cu);
-// else each probe is loaded under its test (viterbi.cu).
+// then ignored), so no branch stands between the loads (lattice.cu,
+// viterbi.cu's wide kernel); else each probe is loaded under its test
+// (viterbi.cu's instance 0).
 template <int N, bool kLoadsFirst = false>
 __device__ __forceinline__ void search_rows(const int* const (&to)[N],
                                             const unsigned (&key)[N],

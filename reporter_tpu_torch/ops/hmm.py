@@ -48,12 +48,19 @@ from reporter_tpu_torch.ops.dense_candidates import BIG, CandidateSet, sqrt_f32
 
 # The widest candidate list of the Viterbi kernel's instance 0 (kMaxK in
 # kernels/viterbi.cu: a row's looked-up slots one 64-bit mask, u8 slots and
-# backpointers); past it the wide instances 1 (K <= 254) and 2 serve every
-# K whose candidate rows fit a CTA's shared memory (to K = 3,984; the
-# plan raises past it), one trace a CTA of VITERBI_WIDE_THREADS
-# (kWideThreads).
+# backpointers); past it the wide kernel, instances 1 (K <= 254, u8
+# backpointers) and 2 (u16), serves every K whose candidate rows fit a
+# CTA's shared memory (to K = 3,984; the plan raises past it), one trace a
+# CTA of VITERBI_WIDE_THREADS (kWideThreads).
 VITERBI_MAX_K = 64
-VITERBI_WIDE_THREADS = 256
+VITERBI_WIDE_THREADS = 128
+# The wide kernel's chunk: as many steps as keep its candidate rows near
+# VITERBI_WIDE_ROWS bytes (23 a slot); its pass: up to VITERBI_WIDE_PAIRS
+# looked-up pairs' costs in shared memory, at least VITERBI_WIDE_MIN_PAIRS
+# (a warp's worth).
+VITERBI_WIDE_ROWS = 24576
+VITERBI_WIDE_PAIRS = 4096
+VITERBI_WIDE_MIN_PAIRS = 32
 # A CTA's shared memory on the card (sm_90: 227 KB), and the part the
 # plan lets a CTA take with its levels there: a quarter, so four CTAs an
 # SM; past it the levels go to the global scratch.
@@ -75,6 +82,14 @@ _LAUNCH_LOCK = threading.Lock()
 # (to K = 2,508; the plan raises past it); its path count R runs from 1
 # to K (the exact form runs R = max_candidates = K).
 LATTICE_MAX_K = 64
+# The wide forward's placement (``place`` in its plan, kPlace* in
+# kernels/lattice.cu): what stays in the CTA's shared memory, the rest in
+# its global scratch.
+LATTICE_PLACE_BLOCKS = 1      # the chunks' transition blocks
+LATTICE_PLACE_ROWS = 2        # the carried rows
+LATTICE_PLACE_TREES = 4       # the merge's loser trees
+LATTICE_PLACE_BEST = 8        # each column's first-pass best and argmin
+LATTICE_PLACE_LEVEL = 16      # the level's backpointers (R > 1, with rows)
 # The backtrack's CTAs: a producer warp and up to LATTICE_MAX_WALKERS
 # walker warps (kMaxWalkers in kernels/lattice.cu), as many CTAs as cover
 # the paths.
@@ -152,104 +167,125 @@ def _a16(n: int) -> int:
 
 
 def viterbi_instance(K: int) -> int:
-    """The Viterbi kernel's instance at K (``instance_of`` in
-    kernels/viterbi.cu): 0 up to VITERBI_MAX_K, 1 while a slot fits a u8
-    beside its 0xff "none" (K <= 254), else 2 (u16 backpointers)."""
+    """The Viterbi kernel's instance at K (``rtt_viterbi_decode`` in
+    kernels/viterbi.cu): 0, ``viterbi_decode_kernel``, up to
+    VITERBI_MAX_K; past it ``viterbi_decode_wide_kernel``, 1 while a slot
+    fits a u8 beside its 0xff "none" (K <= 254), else 2 (u16
+    backpointers)."""
     return 0 if K <= VITERBI_MAX_K else (1 if K < 255 else 2)
 
 
-def _viterbi_widths(K: int):
-    """(list, backpointer, word, choice) bytes and mask words a row of
-    the instance at K (``widths_of`` in kernels/viterbi.cu)."""
-    wide = viterbi_instance(K) != 0
-    return ((2 if wide else 1), (2 if viterbi_instance(K) == 2 else 1),
-            (4 if wide else 2), (4 if wide else 1), -(-K // 64))
-
-
-def viterbi_smem_bytes(T: int, K: int, chunk: int, levels_here: bool,
-                       blocks_here: bool = True) -> int:
-    """Shared memory of one trace of the Viterbi kernel (``Layout`` in
-    kernels/viterbi.cu, each array rounded up to 16 bytes): where
-    ``blocks_here`` the chunk's transition blocks f32 [C, K, K], the
-    candidate rows [(C + 1), K] (five 4-byte fields, a flag and the
-    looked-up slots' list) with ceil(K / 64) mask words a row, the scores,
-    the step records, the reductions' words, a wide instance's columns'
-    best and argmin and, where ``levels_here``, the backtrack's choices
-    [T] and the levels (words [T], backpointers [T, K]); with the levels
-    global nothing here grows with T. The launch checks this figure
-    against the kernel's own layout."""
+def viterbi_smem_bytes(T: int, K: int, chunk: int, levels_here: bool) -> int:
+    """Shared memory of one trace group of instance 0 (``Layout`` in
+    kernels/viterbi.cu, each array rounded up to 16 bytes): the chunk's
+    transition blocks f32 [C, K, K], the candidate rows [(C + 1), K] (five
+    4-byte fields, a flag and the looked-up slots' list) and one mask word
+    a row, the scores, the step records, the reductions' words and, where
+    ``levels_here``, the backtrack's choices [T] and the levels (u16 words
+    [T], u8 backpointers [T, K]); with the levels global nothing here grows
+    with T. The launch checks this figure against the kernel's own
+    layout."""
     a16 = _a16
-    lb, bpb, wb, cb, words = _viterbi_widths(K)
-    wide = viterbi_instance(K) != 0
-    warps = VITERBI_WIDE_THREADS // 32 if wide else _VITERBI_WARPS
     rows = (chunk + 1) * K
-    n = (5 * a16(4 * rows) + a16(rows) + a16(lb * rows)
-         + a16(8 * words * (chunk + 1)) + a16(4 * K) + 5 * a16(4 * chunk)
-         + 4 * a16(4 * warps) + 3 * a16(chunk))
-    if blocks_here:
-        n += a16(4 * chunk * K * K)
-    if wide:
-        n += 2 * a16(4 * K)
+    n = (a16(4 * chunk * K * K) + 5 * a16(4 * rows) + 2 * a16(rows)
+         + a16(8 * (chunk + 1)) + a16(4 * K) + 5 * a16(4 * chunk)
+         + 4 * a16(4 * _VITERBI_WARPS) + 3 * a16(chunk))
     if levels_here:
-        n += a16(cb * T) + a16(wb * T) + a16(bpb * T * K)
+        n += a16(T) + a16(2 * T) + a16(T * K)
+    return n
+
+
+def viterbi_wide_smem_bytes(T: int, K: int, chunk: int, pairs: int,
+                            levels_here: bool) -> int:
+    """Shared memory of one trace of the wide kernel (``WideLayout`` in
+    kernels/viterbi.cu, each array rounded up to 16 bytes): the pass's
+    looked-up pairs' costs f32 [pairs], the candidate rows [(C + 1), K]
+    (five 4-byte fields, a flag and the u16 list of looked-up slots) with
+    ceil(K / 64) mask words a row, the scores and each column's best and
+    argmin [K], each row's looked-up count, the step records, the
+    reductions' words and, where ``levels_here``, the choices i32 [T], the
+    words u32 [T] and the backpointers [T, K] (u8 to K = 254, else u16).
+    The launch checks this figure against the kernel's own layout."""
+    a16 = _a16
+    rows = (chunk + 1) * K
+    warps = VITERBI_WIDE_THREADS // 32
+    n = (a16(4 * pairs) + 5 * a16(4 * rows) + a16(rows) + a16(2 * rows)
+         + a16(8 * -(-K // 64) * (chunk + 1)) + 3 * a16(4 * K)
+         + a16(4 * (chunk + 1)) + 5 * a16(4 * chunk) + 3 * a16(4 * warps)
+         + 3 * a16(chunk))
+    if levels_here:
+        n += 2 * a16(4 * T) + a16((1 if K < 255 else 2) * T * K)
     return n
 
 
 def viterbi_plan(B: int, T: int, K: int) -> dict:
     """The Viterbi kernel's launch at a batch of B traces of T points and
     K candidates, every field of which the launch passes to the kernel.
-    ``instance``: ``viterbi_instance(K)``. Instance 0 (K up to 64): a
-    trace is a group of ``threads_per_trace`` threads (64, 128 past K =
-    32), which all look up; the recurrence runs on the first
-    ``recurrence_threads`` of them (one warp up to K = 16, else two lanes
-    a column of the step's [K, K] block); ``traces_per_cta`` groups make
-    a CTA of 128 threads, as many CTAs as cover B. A wide instance: one
-    trace a CTA of VITERBI_WIDE_THREADS, every thread in the recurrence.
-    A chunk of ``chunk`` steps has its transition blocks looked up at
-    once (at most about 2048 pairs, of which the valid ones are
-    searched). The blocks stay in shared memory (``blocks`` "shared";
-    instance 0 always) where the CTA then fits the card, else they go to
-    the global scratch. The levels (backpointers and a word a level) stay
-    in shared memory (``levels`` "shared") where the CTA then fits
+    ``kernel`` and ``instance``: ``viterbi_instance(K)``'s.
+
+    Instance 0, ``viterbi_decode_kernel`` (K up to 64): a trace is a group
+    of ``threads_per_trace`` threads (64, 128 past K = 32), which all look
+    up; the recurrence runs on the first ``recurrence_threads`` of them
+    (one warp up to K = 16, else two lanes a column of the step's [K, K]
+    block); ``traces_per_cta`` groups make a CTA of 128 threads, as many
+    CTAs as cover B. A chunk of ``chunk`` steps has its transition blocks
+    looked up at once (at most about 2048 pairs of [K, K] blocks, of which
+    the valid ones are searched); ``pairs`` 0.
+
+    Instances 1 and 2, ``viterbi_decode_wide_kernel``: one trace a CTA of
+    VITERBI_WIDE_THREADS, all of which look up and run the recurrence; a
+    chunk of ``chunk`` steps (its candidate rows about VITERBI_WIDE_ROWS
+    bytes, at most 32 steps) looked up in passes of ``pairs`` looked-up
+    pairs (VITERBI_WIDE_PAIRS, fewer only where the CTA would not fit the
+    card; at least VITERBI_WIDE_MIN_PAIRS), their costs kept compact in
+    shared memory.
+
+    Both: the levels (backpointers and a word a level) stay in shared
+    memory (``levels`` "shared") where the CTA then fits
     VITERBI_SMEM_BUDGET, else in the global scratch (``levels``
     "global"), where the CTA's shared memory no longer grows with T.
-    ``scratch_bytes``: the global levels, B * T * (word + K *
-    backpointer) bytes, then, 16 aligned, the global blocks, B * chunk *
-    K * K * 4 bytes; 0 where both stay in shared memory (the wrapper
-    allocates it). ``smem_bytes``: the CTA's dynamic shared memory.
-    Raises for K < 1, or where a wide K's candidate rows do not fit a
-    CTA's shared memory (past K = 3,984): the one ceiling."""
+    ``scratch_bytes``: the global levels, B * T * (word + K * backpointer)
+    bytes (2 + K at instance 0, 4 + K or 4 + 2K wide), 0 where they stay
+    in shared memory (the wrapper allocates it). ``smem_bytes``: the CTA's
+    dynamic shared memory. Raises for K < 1, or where a wide K's candidate
+    rows leave no room for a pass (past K = 3,984): the one ceiling."""
     if K < 1:
         raise ValueError(f"the Viterbi kernel takes K >= 1 candidates, got "
                          f"K={K}")
     inst = viterbi_instance(K)
-    chunk = max(1, min(32, 2048 // (K * K), T))
     if inst == 0:
+        chunk = max(1, min(32, 2048 // (K * K), T))
         columns = 1 << (K - 1).bit_length()
         tpt = min(max(2 * columns, 64), 128)
         tpc, rt = 128 // tpt, min(tpt, max(32, 2 * columns))
-        blocks = True
-    else:
-        tpt = rt = VITERBI_WIDE_THREADS
-        tpc = 1
-        blocks = viterbi_smem_bytes(T, K, chunk, False, True) \
-            <= VITERBI_SMEM_MAX
-    here = tpc * viterbi_smem_bytes(T, K, chunk, True, blocks) \
+        here = tpc * viterbi_smem_bytes(T, K, chunk, True) \
+            <= VITERBI_SMEM_BUDGET
+        return {"kernel": "viterbi_decode_kernel", "instance": 0,
+                "traces_per_cta": tpc, "threads_per_trace": tpt,
+                "recurrence_threads": rt, "chunk": chunk, "pairs": 0,
+                "smem_bytes": tpc * viterbi_smem_bytes(T, K, chunk, here),
+                "levels": "shared" if here else "global",
+                "scratch_bytes": 0 if here else B * T * (2 + K)}
+    chunk = max(1, min(32, T, VITERBI_WIDE_ROWS // (23 * K) - 1))
+    pairs = VITERBI_WIDE_PAIRS
+    here = viterbi_wide_smem_bytes(T, K, chunk, pairs, True) \
         <= VITERBI_SMEM_BUDGET
-    _, bpb, wb, _, _ = _viterbi_widths(K)
-    levels = 0 if here else B * T * (wb + bpb * K)
-    smem = tpc * viterbi_smem_bytes(T, K, chunk, here, blocks)
-    if smem > VITERBI_SMEM_MAX:
+    room = VITERBI_SMEM_MAX - viterbi_wide_smem_bytes(T, K, chunk, 0, here)
+    pairs = min(pairs, room // 4)
+    if pairs < VITERBI_WIDE_MIN_PAIRS:
+        smem = viterbi_wide_smem_bytes(T, K, chunk, VITERBI_WIDE_MIN_PAIRS,
+                                       here)
         raise ValueError(f"the Viterbi kernel's candidate rows at K={K} "
                          f"take {smem} bytes, over a CTA's "
                          f"{VITERBI_SMEM_MAX} of shared memory")
-    return {"instance": inst, "traces_per_cta": tpc,
-            "threads_per_trace": tpt, "recurrence_threads": rt,
-            "chunk": chunk, "smem_bytes": smem,
+    bp = 1 if inst == 1 else 2
+    return {"kernel": "viterbi_decode_wide_kernel", "instance": inst,
+            "traces_per_cta": 1, "threads_per_trace": VITERBI_WIDE_THREADS,
+            "recurrence_threads": VITERBI_WIDE_THREADS, "chunk": chunk,
+            "pairs": pairs,
+            "smem_bytes": viterbi_wide_smem_bytes(T, K, chunk, pairs, here),
             "levels": "shared" if here else "global",
-            "blocks": "shared" if blocks else "global",
-            "scratch_bytes": levels if blocks else
-            -(-levels // 16) * 16 + B * chunk * K * K * 4}
+            "scratch_bytes": 0 if here else B * T * (4 + bp * K)}
 
 
 def _viterbi_cuda(cands: CandidateSet, points, valid_pt, tables,
@@ -258,9 +294,9 @@ def _viterbi_cuda(cands: CandidateSet, points, valid_pt, tables,
                   interpolation_distance: float) -> ViterbiResult:
     """The batched decode as one launch of kernels/viterbi.cu on the
     current stream of the candidates' card: checks the tensors, allocates
-    the outputs and, where the plan keeps the levels or the blocks in
-    global memory, the scratch, launches and counts the launch. Nothing here waits for
-    the card.
+    the outputs and, where the plan keeps the levels in
+    global memory, the scratch, launches and counts the launch. Nothing
+    here waits for the card.
 
     The kernel binary-searches each reach row: it takes the row order
     that ``tiles.tileset.host_tables`` holds every staged dict to (real
@@ -586,76 +622,109 @@ def _lattice_prep(cands: CandidateSet, points, keep, tables,
             *_lattice_inputs(cands, points, keep, tables, c))
 
 
-def _tree_bytes(K: int) -> int:
-    """A wide forward's trees: 2N u64 nodes a column, N = K up to a power
-    of two, W = K up to a multiple of 16 columns."""
-    return 16 * (1 << (K - 1).bit_length()) * _a16(K)
+def _tree_min(K: int) -> int:
+    """One column's loser tree in the wide forward at the most leaves it
+    can have (K looked-up rows up to a power of two N: N - 1 u64 nodes,
+    counted as N)."""
+    return 8 * (1 << (K - 1).bit_length())
 
 
-def lattice_smem_bytes(K: int, R: int, chunk: int,
-                       tree_here: bool = False) -> int:
+def lattice_smem_bytes(K: int, R: int, chunk: int, place: int = 0,
+                       tree_bytes: int = 0) -> int:
     """Shared memory of the forward kernel (``Layout`` in
     kernels/lattice.cu, each array rounded up to 16 bytes): two chunk
-    buffers, each the chunk's transition blocks f32 [C, K, K] (not in a
-    wide instance, K > LATTICE_MAX_K), its candidate rows [(C + 1), K]
-    (five 4-byte fields, a flag and the looked-up slots' list, u16 when
-    wide) with ceil(K / 64) mask words a row, five 4-byte and three 1-byte
-    fields a step and four words; then, in a shared instance, the carried
-    scores [K, R | 1] twice (rows of odd pitch), at R > 1 the level's
+    buffers, each the chunk's transition blocks f32 [C, K, K] (in a wide
+    instance, K > LATTICE_MAX_K, only where ``place`` has
+    LATTICE_PLACE_BLOCKS), its candidate rows [(C + 1), K] (five 4-byte
+    fields, a flag and the looked-up slots' list, u16 when wide) with
+    ceil(K / 64) mask words a row, five 4-byte and three 1-byte fields a
+    step and four words; then, in a shared instance, the carried scores
+    [K, R | 1] twice (rows of odd pitch), at R > 1 the level's
     backpointers i32 [K, R | 1] and the merge's loser trees (u64 [N, W]: N
     = K up to a power of two, W = K up to a multiple of 16), and the own
-    reduction's eight words; in the wide instance only its trees where
-    ``tree_here`` (2N nodes a column) and the reduction's 32 words.
-    Nothing grows with T. The launch checks this figure against the
-    kernel's own layout."""
+    reduction's eight words; in the wide instance the carried scores where
+    ``place`` has LATTICE_PLACE_ROWS, the level's backpointers i32 [K, R |
+    1] where it has LATTICE_PLACE_LEVEL, each column's first-pass best and
+    argmin [K] where it has LATTICE_PLACE_BEST, the reduction's 32 words,
+    and the trees' region of ``tree_bytes`` where it has
+    LATTICE_PLACE_TREES. Nothing grows with T. The launch checks this
+    figure against the kernel's own layout."""
     a16 = _a16
     wide = K > LATTICE_MAX_K
     rows = (chunk + 1) * K
-    buf = ((0 if wide else a16(4 * chunk * K * K)) + 5 * a16(4 * rows)
+    blocks = not wide or place & LATTICE_PLACE_BLOCKS
+    buf = ((a16(4 * chunk * K * K) if blocks else 0) + 5 * a16(4 * rows)
            + a16(rows) + a16((2 if wide else 1) * rows)
            + a16(8 * -(-K // 64) * (chunk + 1)) + 5 * a16(4 * chunk)
            + 3 * a16(chunk) + 16)
-    if wide:
-        tree = _tree_bytes(K) if R > 1 and tree_here else 0
-        return 2 * buf + a16(tree) + 4 * 2 * 2 * 8
     rows_r = a16(4 * K * (R | 1))
+    if wide:
+        return (2 * buf
+                + (2 * rows_r if place & LATTICE_PLACE_ROWS else 0)
+                + (rows_r if place & LATTICE_PLACE_LEVEL else 0)
+                + (2 * a16(4 * K) if place & LATTICE_PLACE_BEST else 0)
+                + 4 * 2 * 2 * 8
+                + (a16(tree_bytes) if place & LATTICE_PLACE_TREES else 0))
     if R == 1:
         return 2 * buf + 2 * rows_r + 32
     tree = 8 * (1 << (K - 1).bit_length()) * (-(-K // 16) * 16)
     return 2 * buf + 3 * rows_r + a16(tree) + 32
 
 
-def lattice_scratch_bytes(K: int, R: int, chunk: int,
-                          tree_here: bool) -> int:
+def lattice_scratch_bytes(K: int, R: int, chunk: int, place: int,
+                          tree_bytes: int) -> int:
     """The wide forward's global scratch (``WideScratch`` in
-    kernels/lattice.cu, each array rounded up to 16 bytes): the two
-    buffers' blocks f32 [2, C, K, K], the carried scores [K, R | 1]
-    twice, at R > 1 the level's backpointers [K, R | 1] and, unless in
-    shared memory, the trees, and each column's first-pass word u64
-    [K]."""
+    kernels/lattice.cu, each array rounded up to 16 bytes): what
+    ``place`` leaves out of shared memory, of the two buffers' blocks f32
+    [2, C, K, K], the carried scores [K, R | 1] twice, each column's
+    first-pass best and argmin [K] and, at R > 1, the trees' region of
+    ``tree_bytes``."""
     rows = _a16(4 * K * (R | 1))
-    return (_a16(2 * chunk * K * K * 4) + 2 * rows
-            + (rows if R > 1 else 0)
-            + (_a16(_tree_bytes(K)) if R > 1 and not tree_here else 0)
-            + _a16(8 * K))
+    return ((0 if place & LATTICE_PLACE_BLOCKS
+             else _a16(2 * chunk * K * K * 4))
+            + (0 if place & LATTICE_PLACE_ROWS else 2 * rows)
+            + (0 if place & LATTICE_PLACE_BEST else 2 * _a16(4 * K))
+            + (_a16(tree_bytes) if R > 1
+               and not place & LATTICE_PLACE_TREES else 0))
 
 
 def lattice_plan(T: int, K: int, R: int) -> dict:
     """The ranked-path lattice's forward launch at T steps, K candidates
     and R paths a state, every field of which the launch passes to the
-    kernel: one CTA of ``merge_warps`` (a thread a column, K up to whole
-    warps; at most 8 in the wide instance, whose threads take columns c,
-    c + 256, ...) and ``producer_warps`` (4, 8 past K = 16: the chunks'
+    kernel: one CTA of ``merge_warps`` and ``producer_warps`` (the chunks'
     staging, control sequence and lookups, a chunk ahead), ``threads`` in
-    all; ``chunk`` steps a chunk (up to 32, and about 32,768 looked-up
-    pairs' room in the blocks [C, K, K]), the most whose two buffers fit
-    the card's shared memory with the rest of the layout (6 at K = 64 and
-    R = 1, 4 at R = 64); ``smem_bytes`` the CTA's dynamic shared memory,
-    the same at every T. The kernel's instance follows R and K (the loser
-    tree's depth at R > 1; past LATTICE_MAX_K the wide one, which keeps
-    its trees in shared memory where they fit there, ``tree_here``, and
-    the rest of its state in a global scratch of ``scratch_bytes``, 0 for
-    a shared instance).
+    all; ``chunk`` steps a chunk; ``smem_bytes`` the CTA's dynamic shared
+    memory, the same at every T.
+
+    The shared instances (K up to LATTICE_MAX_K): a thread a column (K up
+    to whole warps), 4 producer warps (8 past K = 16), a chunk of up to 32
+    steps and about 32,768 looked-up pairs' room in the blocks [C, K, K],
+    the most whose two buffers fit the card's shared memory with the rest
+    of the layout (6 at K = 64 and R = 1, 4 at R = 64); the instance by R
+    and K (the loser tree's depth at R > 1); ``place`` 0, ``tree_bytes``
+    0, ``scratch_bytes`` 0.
+
+    The wide instance (K > LATTICE_MAX_K): 8 merge and 8 producer warps;
+    ``place`` the LATTICE_PLACE_* bits of what stays in shared memory. At
+    R > 1 a pick reads its row's block entry, carry and tree nodes in a
+    dependent chain, and each thread's picks fill its column's row of the
+    level: the blocks, the carried rows, the columns' first pass, the
+    level's backpointers (beside the rows only: the level is copied out
+    of both, coalesced, once the step's picks are done, not written a
+    pick at a time to scattered rows) and the trees in shared memory, at
+    the largest chunk (up to the
+    shared instances' formula) that leaves room for every column's tree
+    at K leaves (else one step a chunk); the trees' region then takes the
+    rest of the card's shared memory (``tree_bytes``, up to every
+    column's tree at K leaves, at least one's); where that does not fit, each
+    of them in that order where it fits beside the chunk's rows, the rest
+    in the global scratch (the trees' region then holds every column's
+    tree at K leaves). At R = 1 each block entry is read once, in
+    independent loads: the blocks stay in the global scratch at the
+    formula's chunk (the most lookups in flight), the rows and the first
+    pass in shared memory where they fit. ``scratch_bytes``: what is left
+    out (``lattice_scratch_bytes``).
+
     Raises for K < 1, R outside 1..K, T < 1, or a wide K whose candidate
     rows do not fit a CTA's shared memory (past K = 2,508): the one
     ceiling."""
@@ -675,23 +744,56 @@ def lattice_plan(T: int, K: int, R: int) -> dict:
             chunk -= 1
         return {"chunk": chunk, "producer_warps": producers,
                 "merge_warps": merge, "threads": 32 * (producers + merge),
-                "smem_bytes": lattice_smem_bytes(K, R, chunk),
-                "tree_here": False, "scratch_bytes": 0}
-    merge, producers = min(-(-K // 32), 8), 8
-    tree_here = R > 1 and lattice_smem_bytes(K, R, 1, True) \
-        <= VITERBI_SMEM_MAX
-    while chunk > 1 and lattice_smem_bytes(K, R, chunk, tree_here) \
-            > VITERBI_SMEM_MAX:
-        chunk -= 1
-    smem = lattice_smem_bytes(K, R, chunk, tree_here)
+                "smem_bytes": lattice_smem_bytes(K, R, chunk), "place": 0,
+                "tree_bytes": 0, "scratch_bytes": 0}
+
+    def fits(c, place, tree_bytes=0):
+        return lattice_smem_bytes(K, R, c, place, tree_bytes) \
+            <= VITERBI_SMEM_MAX
+
+    trees, tree_min = LATTICE_PLACE_TREES, _tree_min(K)
+    tree_all = tree_min * min(K, 32 * 8)
+    every = (LATTICE_PLACE_BLOCKS | LATTICE_PLACE_ROWS | LATTICE_PLACE_BEST
+             | LATTICE_PLACE_LEVEL)
+    place, tree_bytes = 0, 0
+    if R > 1:
+        # the largest chunk beside every column's tree at K leaves, else
+        # one step a chunk
+        while chunk > 1 and not fits(chunk, every | trees, tree_all):
+            chunk -= 1
+        if fits(chunk, every | trees, tree_min):
+            place = every | trees
+        else:
+            for bit in (LATTICE_PLACE_BLOCKS, LATTICE_PLACE_ROWS,
+                        LATTICE_PLACE_BEST, LATTICE_PLACE_LEVEL, trees):
+                if bit == LATTICE_PLACE_LEVEL and \
+                        not place & LATTICE_PLACE_ROWS:
+                    continue       # the level is copied out of the rows
+                if fits(chunk, place | bit, tree_min if bit == trees
+                        else 0):
+                    place |= bit
+        if place & trees:
+            room = VITERBI_SMEM_MAX - lattice_smem_bytes(K, R, chunk,
+                                                         place & ~trees)
+            tree_bytes = min(tree_all, room) // 16 * 16
+        else:
+            tree_bytes = -(-tree_all // 16) * 16
+    else:
+        while chunk > 1 and not fits(chunk, 0):
+            chunk -= 1
+        for bit in (LATTICE_PLACE_ROWS, LATTICE_PLACE_BEST):
+            if fits(chunk, place | bit):
+                place |= bit
+    smem = lattice_smem_bytes(K, R, chunk, place, tree_bytes)
     if smem > VITERBI_SMEM_MAX:
         raise ValueError(f"the lattice forward kernel's candidate rows at "
                          f"K={K} take {smem} bytes, over a CTA's "
                          f"{VITERBI_SMEM_MAX} of shared memory")
-    return {"chunk": chunk, "producer_warps": producers,
-            "merge_warps": merge, "threads": 32 * (producers + merge),
-            "smem_bytes": smem, "tree_here": tree_here,
-            "scratch_bytes": lattice_scratch_bytes(K, R, chunk, tree_here)}
+    return {"chunk": chunk, "producer_warps": 8, "merge_warps": 8,
+            "threads": 512, "smem_bytes": smem, "place": place,
+            "tree_bytes": tree_bytes,
+            "scratch_bytes": lattice_scratch_bytes(K, R, chunk, place,
+                                                   tree_bytes)}
 
 
 def backtrack_smem_bytes(S: int, P: int, levels: int, stages: int) -> int:

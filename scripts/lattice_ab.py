@@ -1,15 +1,18 @@
 """Time the ranked-path lattice for several checkouts, in turns, on one
 card.
 
-    python3 scripts/lattice_ab.py [--reps N] [--out PATH] ROOT [ROOT ...]
+    python3 scripts/lattice_ab.py [--reps N] [--out PATH]
+        [--cases K[@RADIUS] ...] [--lattice-only] ROOT [ROOT ...]
 
 Runs each ROOT in turn and then the ROOTs in reverse (A B B A for two),
 each in a process of its own with that checkout's root first on
 ``sys.path``, so that two versions of the lattice are compared within
 one call on one card. Each process compiles the sf tile, makes the seeded
 1024-point probe that chip_smoke.py's [kernel:lattice] runs, and for
-each case (K = 8 at 50 m with R = 1 and 8; K = 64 at 150 m with R = 1
-and 64) makes its candidates as ``match_topk`` does (a matcher at that
+each case (``--cases``: K at the matcher's default radius, or K@RADIUS
+in m, each with R = 1 and R = K; by default 8 and 64@150, so K = 8 at 50
+m and K = 64 at 150 m) makes its candidates as ``match_topk`` does (a
+matcher at that
 K, no tuning) and times the public entry that case takes
 (``hmm.viterbi_topk_paths`` at R = 1, ``hmm.viterbi_kbest_paths`` with
 ``num_paths=R`` else: the keep mask, the forward, the ranking and the
@@ -37,6 +40,9 @@ Then ``terminal_ms`` / ``exact_ms`` (and every run, ``*_runs_ms``) and
 their ``*_peak_bytes``: a ``match_topk`` of each form at K = 64 (150 m)
 on the probe, the host's clock, median of N.
 
+``--lattice-only`` leaves out the keep mask of 64 traces, the grid
+cases and the ``match_topk`` calls.
+
 Each process prints one JSON line; the script prints them, the card's
 ``nvidia-smi`` name and power limit, and last one JSON line with the
 medians per root, the spread of the ``match_topk`` runs and, for two
@@ -54,6 +60,10 @@ import sys
 _RUN = r"""
 import hashlib, json, statistics, sys, time
 root, reps = sys.argv[1], int(sys.argv[2])
+cases = [(int(c.partition("@")[0]),
+          float(c.partition("@")[2]) if c.partition("@")[2] else None)
+         for c in sys.argv[3].split(",")]
+lattice_only = sys.argv[4] == "1"
 sys.path.insert(0, root)
 import numpy as np
 import torch
@@ -128,7 +138,8 @@ ts = compile_network(generate_city("sf"))
 pr = synthesize_probe(ts, seed=7, num_points=1024)
 xy = pr.xy.astype(np.float32)
 out = {"root": root, "cases": {}}
-for k, radius, rs in ((8, None, (1, 8)), (64, 150.0, (1, 64))):
+for k, radius in cases:
+    rs = (1, k)
     levers = {} if radius is None else {"search_radius": radius}
     m = SegmentMatcher(ts, MatcherParams(sweep_autotune=False,
                                          max_candidates=k, **levers))
@@ -151,9 +162,13 @@ for k, radius, rs in ((8, None, (1, 8)), (64, 150.0, (1, 64))):
         h = hashlib.sha256()
         for x in res:
             h.update(x.cpu().numpy().tobytes())
-        out["cases"][f"k{k}_r{R}"] = {
+        at = "" if radius in (None, 150.0) else f"_{radius:g}m"
+        out["cases"][f"k{k}_r{R}{at}"] = {
             "call_ms": cuda_ms(call), **device_ms(call),
             "peak_bytes": peak(call), "sha256": h.hexdigest()}
+if lattice_only:
+    print(json.dumps(out))
+    sys.exit(0)
 p = MatcherParams()
 kp = torch.from_numpy(xy).cuda()
 kp = torch.stack([kp + 7.0 * i for i in range(64)])
@@ -225,12 +240,17 @@ def main() -> int:
     ap.add_argument("roots", nargs="+", help="checkouts of the repo")
     ap.add_argument("--reps", type=int, default=20, help="timed runs")
     ap.add_argument("--out", help="also write every result line here")
+    ap.add_argument("--cases", nargs="*", default=["8", "64@150"],
+                    help="K or K@RADIUS (m) per case, each at R = 1 and K")
+    ap.add_argument("--lattice-only", action="store_true",
+                    help="only the cases: no keep_b64, grid or match_topk")
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots]
     results = []
     for root in roots + roots[::-1]:
         proc = subprocess.run([sys.executable, "-c", _RUN, root,
-                               str(args.reps)], cwd=root,
+                               str(args.reps), ",".join(args.cases),
+                               "1" if args.lattice_only else "0"], cwd=root,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], file=sys.stderr)
@@ -251,6 +271,8 @@ def main() -> int:
         mine = [r for r in results if r["root"] == root]
         medians[root] = {c: {key: _median(r["cases"][c][key] for r in mine)
                              for key in _KEYS} for c in cases}
+        if args.lattice_only:
+            continue
         for key in _CALL_KEYS:
             medians[root][key] = statistics.median(r[key] for r in mine)
         spread[root] = {form: [min(min(r[f"{form}_runs_ms"]) for r in mine),

@@ -2,7 +2,7 @@
 kernels/lattice.cu with clock64() marks, on the 1024-point probe that
 chip_smoke.py's [kernel:lattice] runs.
 
-    python3 scripts/lattice_profile.py [--out PATH]
+    python3 scripts/lattice_profile.py [--out PATH] [--cases K[@RADIUS] ...]
 
 The source marks its own phases (``RTT_PROFILE_START``, ``RTT_MARK(k)``
 after each phase, ``RTT_PROFILE_END`` where a counting thread leaves the
@@ -12,11 +12,15 @@ its phases (the wait for a free buffer, the staging, the rows' masks,
 the control sequence, the lookups) and the first merge thread its own
 (the wait for a full buffer, a step's first pick, the barrier that ORs
 the columns, the other picks and the level, the closing barrier, the
-level's copy out and own argmin).
+level's copy out and own argmin; in the wide instance, past K = 64: the
+looked-up columns' first pass, the OR barrier, the other columns and the
+trees' picks, the closing barrier, the own state and an inactive step's
+copy out).
 
 The copy is built by kernels/build.py with its flags and loaded in place
-of the checkout's library. For each case of (K = 8 at 50 m, R = 1 and 8;
-K = 64 at 150 m, R = 1 and 64) it makes the probe's candidates as match_topk
+of the checkout's library. For each case (``--cases``: K at the
+matcher's default radius, or K@RADIUS in m; by default 8 and 64@150),
+at R = 1 and R = K, it makes the probe's candidates as match_topk
 does (a matcher at that K, no tuning), checks the instrumented forward's
 five outputs bit-equal to the plain version's (``_lattice_prep`` +
 ``_forward_list_plain``, and ``active``) on the card, then prints one JSON
@@ -106,7 +110,13 @@ def _time(fn, reps):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result line here")
+    ap.add_argument("--cases", nargs="*", default=["8", "64@150"],
+                    help="K or K@RADIUS (m) per case, each at R = 1 and K")
     args = ap.parse_args()
+    cases = []
+    for case in args.cases:
+        k, _, radius = case.partition("@")
+        cases.append((int(k), float(radius) if radius else None))
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import numpy as np
@@ -131,7 +141,8 @@ def main() -> int:
     ts = compile_network(generate_city("sf"))
     xy = synthesize_probe(ts, seed=7, num_points=1024).xy
     lines = []
-    for k, radius, rs in ((8, None, (1, 8)), (64, 150.0, (1, 64))):
+    for k, radius in cases:
+        rs = (1, k)
         levers = {} if radius is None else {"search_radius": radius}
         m = SegmentMatcher(ts, MatcherParams(sweep_autotune=False,
                                              max_candidates=k, **levers))
@@ -170,7 +181,8 @@ def main() -> int:
                        range(_PRODUCER_PHASES, len(_PHASES))):
                 tot = sum(counts[q] for q in qs) or 1
                 share.update({_PHASES[q]: counts[q] / tot for q in qs})
-            rec = {"k": k, "r": R, "steps": T, "active_steps": n_act,
+            rec = {"k": k, "r": R, "search_radius": p.search_radius,
+                   "steps": T, "active_steps": n_act,
                    "card": card, "ms_instrumented": ms, "calls": calls,
                    "cycles_per_step": {ph: counts[q] / (calls * T)
                                        for q, ph in enumerate(_PHASES)},

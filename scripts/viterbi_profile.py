@@ -2,17 +2,21 @@
 kernels/viterbi.cu with clock64() marks, on the first wire slice of the
 sf fleet.
 
-    python3 scripts/viterbi_profile.py [--out PATH]
+    python3 scripts/viterbi_profile.py [--out PATH] [--cases K[@RADIUS] ...]
 
 The source is copied with eight phase counters added (text anchors at
-the group barriers that end each phase; an anchor missing from the
-source stops the script): thread 0 of each trace adds the cycles between
-the barriers to eight counters (staging, the rows' masks, the control
-sequence, the lookups, the recurrence, the carry, the backtrack, the
-fill), summed over the batch at the end. The copy is built by
-kernels/build.py with its flags and loaded in place of the committed
-library. For each K of (8 at 50 m, 64 at 150 m), as
-``scripts/wire_entry_ab.py`` makes the inputs (the seeded 1024-trace sf
+the barriers that end each phase, in viterbi_decode_kernel and, where
+the source has it, viterbi_decode_wide_kernel; an anchor missing from
+the source stops the script): thread 0 of each trace adds the cycles
+between the barriers to eight counters (staging, the rows' masks, the
+control sequence, the lookups, the recurrence, the carry, the
+backtrack, the fill; in the wide kernel the lookups and the recurrence
+of each pass of a chunk, so the two interleave), summed over the batch
+at the end. The copy is built by kernels/build.py with its flags and
+loaded in place of the committed library. For each case (``--cases``:
+K at the matcher's default radius, or K@RADIUS in m; by default 8 and
+64@150), as ``scripts/wire_entry_ab.py`` makes the inputs (the seeded
+1024-trace sf
 fleet, a matcher at that K, the first slice of ``plan_submit``: 1024
 traces x 128 points), it checks the instrumented decode bit-equal to
 ``hmm._viterbi_plain`` on the card, then prints one JSON line: each
@@ -38,16 +42,30 @@ _MARK = "if (tid == 0) {{ const unsigned long long _n = clock64(); " \
     "_acc[{k}] += _n - _pt; _pt = _n; }}\n"
 # the mark of phase k goes right after its anchor (the group's barrier
 # that ends the phase)
+_SYNC = "    group_sync(bar, tpt);\n"
 _PROFILE_MARKS = [
-    ("    }\n    group_sync(bar, tpt);\n"
-     "    // the rows' looked-up slots", 0),
-    ("          mask = 0ull;\n        }\n      }\n    }\n"
-     "    group_sync(bar, tpt);\n", 1),
-    ("      s_misc[1] = pairs;\n    }\n    group_sync(bar, tpt);\n", 2),
-    ("        s_trans[at[u]] = trans;\n      }\n    }\n"
-     "    group_sync(bar, tpt);\n", 3),
-    ("        c_len[k] = c_len[a];\n      }\n    }\n"
-     "    group_sync(bar, tpt);\n", 5),
+    (_SYNC + "    // the rows' looked-up slots", 0, 0),
+    (_SYNC + "\n    // ---- 2. the control sequence (thread 0)\n", 1,
+     len(_SYNC)),
+    ("      s_misc[1] = pairs;\n    }\n" + _SYNC, 2, None),
+    ("        s_trans[at[u]] = trans;\n      }\n    }\n" + _SYNC, 3, None),
+    ("        c_len[k] = c_len[a];\n      }\n    }\n" + _SYNC, 5, None),
+]
+# the wide kernel's marks, where the source has it: (anchor, phase, the
+# mark before the anchor rather than after)
+_WIDE_MARKS = [
+    ("    __syncthreads();\n    // the rows' looked-up slots (row 0 the "
+     "carry), a row a warp at once:\n", 0, False),
+    ("      if (lane == 0) s_cnt[r] = count;\n    }\n    __syncthreads();\n",
+     1, False),
+    ("      s_misc[1] = pairs;\n    }\n    __syncthreads();\n", 2, False),
+    ("      __syncthreads();\n\n      // the steps, in order, while their "
+     "pairs are in this pass\n", 3, False),
+    ("      if (f_hi >= npairs && !more) break;\n", 4, True),
+    ("        c_len[k] = c_len[a];\n      }\n    }\n    __syncthreads();\n",
+     5, False),
+    ("  // ---- 6. the chosen candidates, then the interpolation fill, as\n",
+     6, True),
 ]
 PROFILE_PHASES = ("staging", "masks", "control", "lookups", "recurrence",
                   "carry", "backtrack", "fill")
@@ -61,27 +79,38 @@ def _profile_source(src):
             "  unsigned long long z[8] = {0};\n"
             "  return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n}\n")
     src = src.replace("namespace {\n", head + "namespace {\n", 1)
+    decl = ("  unsigned long long _acc[8] = {0};\n"
+            "  unsigned long long _pt = clock64();\n")
     start = ("  const int sub = tid % G;     // its slice of the previous "
              "candidates\n")
     assert src.count(start) == 1
-    src = src.replace(start, start + "  unsigned long long _acc[8] = {0};\n"
-                      "  unsigned long long _pt = clock64();\n")
-    for anchor, k in _PROFILE_MARKS:
+    src = src.replace(start, start + decl)
+    wide = "viterbi_decode_wide_kernel" in src
+    if wide:
+        wstart = ("  const WideLayout L = make_wide_layout(K, C, T, P, "
+                  "p.levels_here != 0);\n")
+        assert src.count(wstart) == 1
+        src = src.replace(wstart, wstart + decl)
+        for anchor, k, before in _WIDE_MARKS:
+            assert src.count(anchor) == 1, anchor
+            mark = _MARK.format(k=k)
+            src = src.replace(anchor, mark + anchor if before
+                              else anchor + mark)
+    for anchor, k, at in _PROFILE_MARKS:
         assert src.count(anchor) == 1, anchor
-        if k == 0:                  # before the comment that follows
-            cut = anchor.index("    // ")
-            src = src.replace(anchor, anchor[:cut] + _MARK.format(k=0)
-                              + anchor[cut:])
-        else:
-            src = src.replace(anchor, anchor + _MARK.format(k=k))
+        at = len(anchor) if at is None else at
+        src = src.replace(anchor, anchor[:at] + _MARK.format(k=k)
+                          + anchor[at:])
     for anchor, k in (
             ("    // ---- the last active point's candidates become the carry "
              "row\n", 4),
-            ("  // ---- 6. the chosen candidates", 6)):
+            ("  // ---- 6. the chosen candidates, then the interpolation fill: "
+             "a valid\n", 6)):
         assert src.count(anchor) == 1, anchor
         src = src.replace(anchor, _MARK.format(k=k) + anchor)
+    # the fill's end: each kernel's last lines
     end = "      pok = true;\n    }\n  }\n}\n"
-    assert src.count(end) == 1
+    assert src.count(end) == (2 if wide else 1)
     return src.replace(end, "      pok = true;\n    }\n  }\n"
                        + _MARK.format(k=7)
                        + "  if (tid == 0) for (int q = 0; q < 8; ++q) "
@@ -99,6 +128,8 @@ def _load_profiled():
     out_dir.mkdir(parents=True, exist_ok=True)
     cu = out_dir / "viterbi_profile.cu"
     cu.write_text(src)
+    for h in build.VITERBI_SOURCE.parent.glob("*.cuh"):
+        (out_dir / h.name).write_text(h.read_text())
     build.VITERBI_SOURCE = cu
     prof = build._viterbi_lib().rtt_prof
     prof.argtypes = [ctypes.c_void_p]
@@ -162,7 +193,13 @@ def _time(fn, reps):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result line here")
+    ap.add_argument("--cases", nargs="*", default=["8", "64@150"],
+                    help="K or K@RADIUS (m) per case")
     args = ap.parse_args()
+    cases = []
+    for case in args.cases:
+        k, _, radius = case.partition("@")
+        cases.append((int(k), float(radius) if radius else None))
     import torch
     from reporter_tpu_torch.ops import hmm
 
@@ -175,7 +212,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     lines = []
-    for k, radius in ((8, None), (64, 150.0)):
+    for k, radius in cases:
         args_k = _inputs(k, radius)
         want = hmm._viterbi_plain(*args_k)
         got = hmm.viterbi_decode_batched(*args_k)
@@ -191,7 +228,10 @@ def main() -> int:
         prof(counts)
         B, T, _ = (int(x) for x in args_k[0].edge.shape)
         total = sum(counts)
-        rec = {"k": k, "card": card, "ms_instrumented": ms, "calls": 4,
+        plan = hmm.viterbi_plan(B, T, k)
+        rec = {"k": k, "search_radius": radius or "default", "card": card,
+               "kernel": plan.get("kernel", "viterbi_decode_kernel<I>"),
+               "plan": plan, "ms_instrumented": ms, "calls": 4,
                "cycles_per_trace": {ph: counts[q] / (4 * B)
                                     for q, ph in enumerate(PROFILE_PHASES)},
                "cycles_per_step": {ph: counts[q] / (4 * B * T)

@@ -1243,36 +1243,74 @@ def test_viterbi_kernel_refuses_a_k_past_its_ceiling(sf_tile, vit_fleet):
                                    *_vit_args(tab, 10.0))
 
 
-@pytest.mark.parametrize("b", [1, 3, 64])
-@pytest.mark.parametrize("k", [65, 96, 128])
-def test_viterbi_wide_instances_equal_plain(sf_tile, vit_fleet, k, b):
-    """Past K = 64 the wide instance (one trace a CTA, ceil(K / 64) mask
-    words, u32 level words; the blocks in shared memory at these K):
-    every field bit-equal to the plain version on the card at T = 120,
-    where sf's lists at LONG_LIST_RADIUS run past 64 edges."""
+def _wide_plan_ran(b, t, k):
+    """The wide kernel's plan at (B, T, K), asserted: instance 1 to K =
+    254, 2 from 255; its chunk and pass budget."""
     from reporter_tpu_torch.ops import hmm
 
+    plan = hmm.viterbi_plan(b, t, k)
+    assert plan["kernel"] == "viterbi_decode_wide_kernel"
+    assert plan["instance"] == (1 if k <= 254 else 2)
+    assert 1 <= plan["chunk"] <= min(32, t)
+    assert plan["pairs"] == hmm.VITERBI_WIDE_PAIRS
+    return plan
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("k", [65, 96, 128, 254, 255, 256])
+def test_viterbi_wide_instances_equal_plain(sf_tile, vit_fleet, k, b):
+    """Past K = 64 the wide kernel (one trace a CTA, chunks sized by their
+    rows, the looked-up pairs in passes): every field bit-equal to the
+    plain version on the card at T = 120, where sf's lists at
+    LONG_LIST_RADIUS run past 64 edges (a chunk's pairs past one pass)."""
     _, tab = sf_tile
     pts, valid = vit_fleet
-    plan = hmm.viterbi_plan(b, 120, k)
-    assert plan["instance"] == 1 and plan["blocks"] == "shared"
+    plan = _wide_plan_ran(b, 120, k)
     cands = dc.CandidateSet(*(x[:b] for x in _vit_cands(
         sf_tile, vit_fleet, k, LONG_LIST_RADIUS)))
     if b == 64:
         assert bool((cands.valid.sum(-1) > 64).any())
     got = _vit_equal(cands, pts[:b], valid[:b], tab, k)
     assert got.matched.any()
+    assert plan["levels"] == ("shared" if k <= 96 else "global")
 
 
-def test_viterbi_wide_instance_on_1024_points(sf_tile, vit_fleet):
-    """K = 96 at T = 1024 (the levels in the global scratch, staged back
-    for the backtrack), three traces end to end."""
+@pytest.mark.parametrize("pairs", [32, 37, 500])
+@pytest.mark.parametrize("k", [96, 255])
+def test_viterbi_wide_passes_split_steps(sf_tile, vit_fleet, monkeypatch,
+                                         k, pairs):
+    """A small pass budget (a step's pairs straddle passes, each column's
+    first minimum carried over): still bit-equal to the plain version."""
     from reporter_tpu_torch.ops import hmm
 
     _, tab = sf_tile
     pts, valid = vit_fleet
-    k, b = 96, 3
-    assert hmm.viterbi_plan(b, 1024, k)["levels"] == "global"
+    b = 16
+    plan_of = hmm.viterbi_plan
+
+    def small(B, T, K):
+        plan = plan_of(B, T, K)
+        here = plan["levels"] == "shared"
+        return {**plan, "pairs": pairs, "smem_bytes":
+                hmm.viterbi_wide_smem_bytes(T, K, plan["chunk"], pairs,
+                                            here)}
+
+    monkeypatch.setattr(hmm, "viterbi_plan", small)
+    cands = dc.CandidateSet(*(x[:b] for x in _vit_cands(
+        sf_tile, vit_fleet, k, LONG_LIST_RADIUS)))
+    got = _vit_equal(cands, pts[:b], valid[:b], tab, k)
+    assert got.matched.any()
+
+
+@pytest.mark.parametrize("k", [96, 128, 256])
+def test_viterbi_wide_instance_on_1024_points(sf_tile, vit_fleet, k):
+    """K = 96, 128 and 256 at T = 1024 (the levels in the global scratch,
+    staged back for the backtrack), three traces end to end."""
+    _, tab = sf_tile
+    pts, valid = vit_fleet
+    b = 3
+    plan = _wide_plan_ran(b, 1024, k)
+    assert plan["levels"] == "global"
     idx = (torch.arange(b)[:, None] + torch.arange(9)[None, :]) \
         % pts.shape[0]
     lp = pts[idx.to(pts.device)].reshape(b, -1, 2)[:, :1024].contiguous()
@@ -1290,18 +1328,13 @@ def test_viterbi_wide_instance_on_1024_points(sf_tile, vit_fleet):
 def test_viterbi_wide_instances_on_the_numpy_case(sf_tile, k):
     """The numpy lattice (ties, holes, -1 yet valid, breaks, padding) on
     sf's K nearest edges by midpoint, past K = 64: instance 1 (u8
-    backpointers) to K = 254, instance 2 (u16) from 255, the blocks in
-    the global scratch from K = 234; the kernel against the plain version
-    on the card."""
-    from reporter_tpu_torch.ops import hmm
-
+    backpointers) to K = 254, instance 2 (u16) from 255; the kernel
+    against the plain version on the card."""
     ts, tab = sf_tile
     mid = (0.5 * (ts.node_xy[ts.edge_src] + ts.node_xy[ts.edge_dst])
            ).astype(np.float32)
     pts, valid, cands = _numpy_case(ts, mid, k, seed=k, t=24)
-    plan = hmm.viterbi_plan(6, 24, k)
-    assert plan["instance"] == (1 if k < 255 else 2)
-    assert plan["blocks"] == ("global" if k >= 234 else "shared")
+    _wide_plan_ran(6, 24, k)
     dev = tab["edge_len"].device
     c = dc.CandidateSet(*(torch.from_numpy(x).to(dev) for x in cands))
     got = _vit_equal(c, torch.from_numpy(pts).to(dev),
@@ -1310,10 +1343,10 @@ def test_viterbi_wide_instances_on_the_numpy_case(sf_tile, k):
 
 
 def test_viterbi_wide_plan_smem_equals_the_kernels_layout(cuda):
-    """Past K = 64 the plan's shared bytes are the kernel's layout in
-    every place of the levels and the blocks (a launch of zero-filled
-    inputs takes them and refuses them 16 bytes off); a plan of the
-    wrong instance is refused."""
+    """Past K = 64 the plan's shared bytes are the wide kernel's layout in
+    both places of the levels and at several pass budgets (a launch of
+    zero-filled inputs takes them and refuses them 16 bytes off); a plan
+    of the wrong instance, or with no pass budget, is refused."""
     from reporter_tpu_torch.kernels import build
     from reporter_tpu_torch.ops import hmm
 
@@ -1322,19 +1355,17 @@ def test_viterbi_wide_plan_smem_equals_the_kernels_layout(cuda):
         ins, outs = _layout_args(cuda, t, k)
         plan = hmm.viterbi_plan(1, t, k)
         for levels in ("shared", "global"):
-            for blocks in ("shared", "global"):
-                here, bl = levels == "shared", blocks == "shared"
-                nbytes = hmm.viterbi_smem_bytes(t, k, plan["chunk"], here,
-                                                bl)
+            for pairs in (1, 33, plan["pairs"]):
+                here = levels == "shared"
+                nbytes = hmm.viterbi_wide_smem_bytes(t, k, plan["chunk"],
+                                                     pairs, here)
                 if nbytes > hmm.VITERBI_SMEM_MAX:
                     continue
-                _, bpb, wb, _, _ = hmm._viterbi_widths(k)
-                lv = 0 if here else t * (wb + bpb * k)
-                size = lv if bl else \
-                    -(-lv // 16) * 16 + plan["chunk"] * k * k * 4
+                bpb = 1 if k < 255 else 2
+                size = 0 if here else t * (4 + bpb * k)
                 scratch = None if not size else torch.empty(
                     size, dtype=torch.uint8, device=cuda)
-                pl = {**plan, "levels": levels, "blocks": blocks}
+                pl = {**plan, "levels": levels, "pairs": pairs}
 
                 def launch(nb, **over):
                     build.launch_viterbi(
@@ -1348,6 +1379,8 @@ def test_viterbi_wide_plan_smem_equals_the_kernels_layout(cuda):
                         launch(nbytes + off)
                 with pytest.raises(RuntimeError, match="error -1"):
                     launch(nbytes, instance=0)
+                with pytest.raises(RuntimeError, match="error -1"):
+                    launch(nbytes, pairs=0)
         torch.cuda.synchronize()
         assert not outs[4].any(), k
 
@@ -1486,14 +1519,38 @@ def test_lattice_plan_smem_equals_the_kernels_layout(cuda):
     for k in [*range(1, hmm.LATTICE_MAX_K + 1), 65, 96, 128, 256, 300]:
         for r in sorted({1, 2, k} & set(range(1, k + 1))):
             plan = hmm.lattice_plan(1024, k, r)
-            chunk, here = plan["chunk"], plan["tree_here"]
-            assert build.lattice_forward_smem(k, r, chunk, here) == \
-                hmm.lattice_smem_bytes(k, r, chunk, here), (k, r)
+            chunk, place = plan["chunk"], plan["place"]
+            tree = plan["tree_bytes"]
+            assert build.lattice_forward_smem(k, r, chunk, place, tree) == \
+                hmm.lattice_smem_bytes(k, r, chunk, place, tree), (k, r)
             if k > hmm.LATTICE_MAX_K:
-                for tree in (False, True):
-                    assert build.lattice_forward_scratch(k, r, chunk,
-                                                         tree) == \
-                        hmm.lattice_scratch_bytes(k, r, chunk, tree), (k, r)
+                # every placement (the trees and the level only at R > 1,
+                # the level only beside the rows): an array that alone
+                # outgrows the card's shared memory is refused, and its
+                # scratch with it
+                for pl in range(32):
+                    if r == 1 and pl & (hmm.LATTICE_PLACE_TREES
+                                        | hmm.LATTICE_PLACE_LEVEL):
+                        continue
+                    if pl & hmm.LATTICE_PLACE_LEVEL and \
+                            not pl & hmm.LATTICE_PLACE_ROWS:
+                        assert build.lattice_forward_smem(
+                            k, r, chunk, pl, tree) == -1
+                        continue
+                    nbytes = hmm.lattice_smem_bytes(k, r, chunk, pl, tree)
+                    got = build.lattice_forward_smem(k, r, chunk, pl, tree)
+                    assert got == nbytes or (got == -1 and nbytes
+                                             > hmm.VITERBI_SMEM_MAX), \
+                        (k, r, pl)
+                    assert build.lattice_forward_scratch(
+                        k, r, chunk, pl, tree) == (
+                        -1 if got == -1 else
+                        hmm.lattice_scratch_bytes(k, r, chunk, pl, tree)), \
+                        (k, r, pl)
+                if r > 1:      # a trees' region short of one tree
+                    assert build.lattice_forward_smem(
+                        k, r, chunk, place, 8 * (1 << (k - 1).bit_length())
+                        - 16) == -1
             paths = k if r == 1 else r
             bt = hmm.backtrack_plan(1024, k * r, paths)
             if bt["instance"] == "ring":
@@ -1509,7 +1566,7 @@ def test_lattice_plan_smem_equals_the_kernels_layout(cuda):
         hmm.lattice_smem_bytes(2509, 1, 1) > hmm.VITERBI_SMEM_MAX
     assert build.lattice_forward_smem(46341, 1, 1) > hmm.VITERBI_SMEM_MAX
     assert build.lattice_forward_smem(200_000, 1, 1) == -1
-    assert build.lattice_forward_scratch(64, 1, 1, False) == -1
+    assert build.lattice_forward_scratch(64, 1, 1, 0, 0) == -1
     assert build.lattice_backtrack_smem(8, 65, 4, 2) > 0
     assert build.lattice_backtrack_smem(8, 257, 4, 2) > 0
     assert build.lattice_backtrack_smem(8, 32 * 31 + 1, 4, 2) == -1
@@ -1545,25 +1602,30 @@ def test_lattice_kernels_refuse_on_the_card(sf_tile):
                                                     want[3], seed))
 
 
-@pytest.mark.parametrize("k,r,t", [(65, 1, 120), (65, 65, 120),
-                                   (96, 1, 1024), (96, 96, 120),
-                                   (96, 96, 1024), (128, 1, 120),
-                                   (128, 128, 120), (300, 1, 40),
-                                   (300, 300, 40)])
-def test_lattice_wide_instance_equals_plain(sf_tile, k, r, t):
-    """Past K = 64 the forward's wide instance (its state in the global
-    scratch, the trees in shared memory where they fit; past K = 256 its
-    256 merge threads take two columns each) bit-equal to
-    _lattice_prep + _forward_list_plain, and the backtrack (more walker
-    warps at P > 64, the levels read in place where a level of K * R
-    states is too wide for the ring) to _backtrack_plain, with every
-    path of the form match_topk asks and a -1 seed."""
+@pytest.mark.parametrize("k,r,t,place", [
+    (65, 1, 120, 10), (65, 65, 120, 31), (96, 1, 1024, 10),
+    (96, 2, 120, 31), (96, 96, 120, 31), (96, 96, 1024, 31),
+    (128, 1, 120, 10), (128, 128, 120, 13), (254, 1, 40, 10),
+    (255, 2, 40, 30), (256, 256, 40, 12), (300, 1, 40, 10),
+    (300, 300, 40, 12)])
+def test_lattice_wide_instance_equals_plain(sf_tile, k, r, t, place):
+    """Past K = 64 the forward's wide instance (each looked-up column's
+    merge over its looked-up rows, in shared memory what the plan places
+    there: at K = R = 96 everything, at R = 1 all but the blocks, at K = R
+    = 128 all but the carried rows, past 200 the first pass and the trees
+    alone; the level's backpointers beside the rows, copied out after the
+    step; past K = 256 its 256 merge threads take two columns each)
+    bit-equal to _lattice_prep + _forward_list_plain, and the backtrack
+    (more walker warps at P > 64, the levels read in place where a level
+    of K * R states is too wide for the ring) to _backtrack_plain, with
+    every path of the form match_topk asks and a -1 seed."""
     from reporter_tpu_torch.ops import hmm
 
     pts, _, keep, c, tab, consts, em, act, pany, trans = _lattice_inputs(
         sf_tile, k, t, LONG_LIST_RADIUS)
     plan = hmm.lattice_plan(t, k, r)
-    assert plan["scratch_bytes"] > 0
+    assert plan["place"] == place
+    assert (plan["scratch_bytes"] > 0) == (place != 31)
     got = hmm._forward_list(c, pts, keep, tab, *consts, r)
     want = (*hmm._forward_list_plain(em, act, pany, trans, r), act)
     torch.cuda.synchronize()

@@ -346,6 +346,121 @@ def tree_merge(score: np.ndarray, col: np.ndarray, r: int):
     return np.array(vals, F32), np.array(idx)
 
 
+def wide_tree_merge(score: np.ndarray, col: np.ndarray, looked: np.ndarray,
+                    r: int):
+    """The wide forward's selection for one looked-up column at R > 1: a
+    loser tree over the looked-up previous rows alone (np leaves in row
+    order, padded to a power of two N with keys that lose every tie),
+    each head the key (f32 bits << 32 | ii << 16 | rank), ii the row's
+    leaf (its place among the looked-up rows, which ascend, so ii orders
+    as the row does), the winners built bottom-up, then each node's loser
+    top-down; a pick takes the winner, advances its row and replays its
+    leaf's path. Picks stop at the first value >= BIG: the rest are (BIG,
+    -1). → (values [r], flat states [r])."""
+    K, R = score.shape
+    rows = np.flatnonzero(looked)
+    npr = len(rows)
+    N = 1 << max(npr - 1, 0).bit_length()
+    spent = (1 << 64) - 1
+
+    def key(v, ii, rank):
+        bits = int(np.array(v, F32).view(np.uint32))
+        return (bits << 32) | (int(ii) << 16) | rank
+
+    def leaf(ii):
+        return key(F32(score[rows[ii], 0] + col[rows[ii]]), ii, 0) \
+            if ii < npr else spent
+
+    tree = [spent] * (N + 1)
+
+    def at(n):
+        return leaf(n - N) if n >= N else tree[n]
+
+    for n in range(N - 1, 0, -1):
+        tree[n] = min(at(2 * n), at(2 * n + 1))
+    x = tree[1] if N > 1 else leaf(0)
+    for n in range(1, N):
+        tree[n] = max(at(2 * n), at(2 * n + 1))
+    vals, idx = [], []
+    done = False
+    for _ in range(r):
+        v = np.array(x >> 32, np.uint32).view(F32)[()] if x != spent \
+            else F32(np.inf)
+        if done or not v < BIG:
+            done = True
+            vals.append(F32(BIG))
+            idx.append(-1)
+            continue
+        ii, rank = (x >> 16) & 0xffff, x & 0xffff
+        cp = rows[ii]
+        vals.append(F32(v))
+        idx.append(cp * R + rank)
+        k = key(F32(score[cp, rank + 1] + col[cp]), ii, rank + 1) \
+            if rank + 1 < R else spent
+        node = (N + ii) >> 1
+        while node >= 1:
+            if tree[node] < k:
+                tree[node], k = k, tree[node]
+            node >>= 1
+        x = k
+    return np.array(vals, F32), np.array(idx)
+
+
+def wide_first_pass(score: np.ndarray, col: np.ndarray,
+                    looked: np.ndarray, lanes: int):
+    """The wide forward's first pass for one looked-up column: `lanes`
+    lanes, lane l over the looked-up rows ii = l, l + lanes, ... (the
+    first minimal head of its rows), then the (value, row) pairs reduced
+    lexicographically. → (best head, its row)."""
+    rows = np.flatnonzero(looked)
+    pairs = []
+    for lane in range(lanes):
+        best, arg = F32(np.inf), score.shape[0]
+        for cp in rows[lane::lanes]:
+            v = F32(score[cp, 0] + col[cp])
+            if v < best:
+                best, arg = v, cp
+        pairs.append((best, arg))
+    return min(pairs)
+
+
+@pytest.mark.parametrize("kind", ["ties", "equal", "big", "restart",
+                                  "spent"])
+@pytest.mark.parametrize("k", [65, 96, 130])
+def test_wide_merge_over_looked_up_rows_equals_the_stable_sort(k, kind):
+    """The wide forward merges a column over its looked-up rows alone: a
+    row not looked up adds BIG to every value of its row (its block entry
+    is BIG), so its values sort after every value below BIG. The picks
+    below BIG, their states and ties, and the first pass's best head and
+    row (on 1, 2, 8 and 32 lanes), equal the stable sort over all K rows
+    with BIG for the rows left out; past them (BIG, -1)."""
+    rng = np.random.default_rng(k * 13 + len(kind))
+    for trial in range(4):
+        looked = rng.random(k) < (0.5 if trial % 2 else 0.15)
+        looked[rng.integers(0, k)] = True
+        for r in (1, 2, k):
+            if kind == "spent":
+                score = np.full((k, r), BIG, F32)
+                score[:3] = np.sort(rng.integers(0, 3, (3, r)), axis=1)
+            else:
+                score = _rows(rng, k, r, kind)
+            col = rng.integers(0, 3, k).astype(F32)
+            col[rng.random(k) < 0.2] = F32(BIG)
+            full = np.where(looked, col, F32(BIG)).astype(F32)
+            want_v, want_i = _stable(score, full, r)
+            low = want_v < BIG
+            vals, idx = wide_tree_merge(score, col, looked, r)
+            np.testing.assert_array_equal(vals[low], want_v[low])
+            np.testing.assert_array_equal(idx[low], want_i[low])
+            assert (vals[~low] == F32(BIG)).all() and (idx[~low] == -1).all()
+            for lanes in (1, 2, 8, 32):
+                best, arg = wide_first_pass(score, col, looked, lanes)
+                if want_v[0] < BIG:
+                    assert (best, arg * r) == (want_v[0], want_i[0])
+                else:
+                    assert not best < BIG
+
+
 def _search(row: np.ndarray, key: int) -> int:
     """The kernels' binary search of an ascending reach row (-1 padding
     read as unsigned past every id): halving steps from the largest power
@@ -710,27 +825,47 @@ def test_lattice_plan_fits_shared_memory(t):
                 k * r, paths, bt["levels"], bt["stages"])
     assert hmm.lattice_plan(t, 64, 64) == {
         "chunk": 4, "producer_warps": 8, "merge_warps": 2, "threads": 320,
-        "smem_bytes": 228256, "tree_here": False, "scratch_bytes": 0}
+        "smem_bytes": 228256, "place": 0, "tree_bytes": 0,
+        "scratch_bytes": 0}
 
 
 def _wide_plan_holds(t, k, r):
-    """The wide forward's plan at (T, K, R): 8 producer warps and up to 8
-    merge warps (columns c, c + 256, ...), shared bytes within the card's
-    227 KB and the layout's at its chunk, the same at every T, the trees
-    in shared memory exactly where they fit at chunk 1, the rest in a
-    scratch of lattice_scratch_bytes."""
+    """The wide forward's plan at (T, K, R): 8 producer and 8 merge warps,
+    shared bytes within the card's 227 KB and the layout's at its chunk
+    and placement, the same at every T; at R = 1 the blocks in the global
+    scratch at the shared instances' chunk formula; at R > 1 a trees'
+    region of at least one column's tree at K leaves (in shared memory or
+    the scratch), at most every column's, and the level's backpointers in
+    shared memory only beside the carried rows; the rest in a scratch of
+    lattice_scratch_bytes."""
     plan = hmm.lattice_plan(t, k, r)
     assert plan == hmm.lattice_plan(1, k, r)
-    assert (plan["producer_warps"], plan["merge_warps"]) == \
-        (8, min(-(-k // 32), 8))
-    assert plan["threads"] == 32 * (8 + plan["merge_warps"]) <= 512
-    assert 1 <= plan["chunk"] <= max(1, 32768 // (k * k))
+    assert (plan["producer_warps"], plan["merge_warps"], plan["threads"]) \
+        == (8, 8, 512)
+    formula = max(1, 32768 // (k * k))
+    assert 1 <= plan["chunk"] <= formula
+    place, tree = plan["place"], plan["tree_bytes"]
     assert plan["smem_bytes"] == hmm.lattice_smem_bytes(
-        k, r, plan["chunk"], plan["tree_here"]) <= hmm.VITERBI_SMEM_MAX
-    assert plan["tree_here"] == (r > 1 and hmm.lattice_smem_bytes(
-        k, r, 1, True) <= hmm.VITERBI_SMEM_MAX)
+        k, r, plan["chunk"], place, tree) <= hmm.VITERBI_SMEM_MAX
     assert plan["scratch_bytes"] == hmm.lattice_scratch_bytes(
-        k, r, plan["chunk"], plan["tree_here"]) > 0
+        k, r, plan["chunk"], place, tree)
+    tree_min = 8 * (1 << (k - 1).bit_length())
+    if place & hmm.LATTICE_PLACE_LEVEL:
+        assert r > 1 and place & hmm.LATTICE_PLACE_ROWS
+    if r == 1:
+        assert not place & (hmm.LATTICE_PLACE_BLOCKS | hmm.LATTICE_PLACE_TREES
+                            | hmm.LATTICE_PLACE_LEVEL) and tree == 0
+        assert plan["chunk"] == formula or not hmm.lattice_smem_bytes(
+            k, r, plan["chunk"] + 1) <= hmm.VITERBI_SMEM_MAX
+    else:
+        assert tree_min <= tree <= tree_min * min(k, 256) + 15
+        assert tree % 16 == 0
+    if place == (hmm.LATTICE_PLACE_BLOCKS | hmm.LATTICE_PLACE_ROWS
+                 | hmm.LATTICE_PLACE_BEST | hmm.LATTICE_PLACE_TREES
+                 | hmm.LATTICE_PLACE_LEVEL):
+        assert plan["scratch_bytes"] == 0
+    else:
+        assert plan["scratch_bytes"] > 0
     return plan
 
 
@@ -780,9 +915,40 @@ def test_lattice_plan_takes_the_wide_widths(k):
             else:
                 assert k * r > 7000 and bt["smem_bytes"] == 0
                 assert bt["ctas"] * bt["threads"] >= paths
-    # the trees in shared memory up to K = 96, in the scratch past it
-    assert hmm.lattice_plan(1024, 96, 96)["tree_here"]
-    assert not hmm.lattice_plan(1024, 128, 128)["tree_here"]
+    # at K = R = 96 every array in shared memory (blocks, rows, first
+    # pass, level, trees); at K = R = 128 the rows in the scratch, so the
+    # level is written straight out; past 200 the blocks too
+    every = (hmm.LATTICE_PLACE_BLOCKS | hmm.LATTICE_PLACE_ROWS
+             | hmm.LATTICE_PLACE_BEST | hmm.LATTICE_PLACE_TREES
+             | hmm.LATTICE_PLACE_LEVEL)
+    assert hmm.lattice_plan(1024, 96, 96)["place"] == every
+    assert hmm.lattice_plan(1024, 128, 128)["place"] == \
+        every & ~hmm.LATTICE_PLACE_ROWS & ~hmm.LATTICE_PLACE_LEVEL
+    assert hmm.lattice_plan(1024, 256, 256)["place"] == \
+        hmm.LATTICE_PLACE_BEST | hmm.LATTICE_PLACE_TREES
+
+
+@pytest.mark.parametrize("k,r,chunk,place,tree", [
+    (65, 1, 7, 10, 0), (65, 65, 3, 31, 66560), (96, 1, 3, 10, 0),
+    (96, 2, 1, 31, 98304), (96, 96, 1, 31, 36896), (128, 1, 2, 10, 0),
+    (128, 128, 1, 13, 88096), (255, 2, 1, 30, 197088),
+    (256, 256, 1, 12, 206304), (PAST_SMEM_K - 1, 1, 1, 0, 0)])
+def test_lattice_wide_layout_at_each_width(k, r, chunk, place, tree):
+    """The wide forward's chunk, placement and trees' region where the
+    served and boundary widths land: at K = R = 96 every array in shared
+    memory, the level's backpointers too, the trees' region of 36,896
+    bytes (every column's tree at up to 64 leaves, 36 at 128); at K = 255,
+    R = 2 the blocks in the scratch, the rows and the level in shared
+    memory; at R = 1 the blocks in the scratch; at the last K that fits,
+    nothing but the chunk's rows in shared memory."""
+    plan = hmm.lattice_plan(1024, k, r)
+    assert (plan["chunk"], plan["place"], plan["tree_bytes"]) == \
+        (chunk, place, tree)
+    assert (plan["scratch_bytes"] > 0) == (place != 31)
+    if k == PAST_SMEM_K - 1:
+        assert plan["smem_bytes"] == hmm.VITERBI_SMEM_MAX
+        with pytest.raises(ValueError, match=f"K={k + 1} .*shared memory"):
+            hmm.lattice_plan(1024, k + 1, r)
 
 
 @pytest.mark.parametrize("t,s,p", [(120, 8, 0), (120, 8, 65), (120, 8, 257),

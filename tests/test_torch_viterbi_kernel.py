@@ -199,10 +199,11 @@ def test_the_kernel_wrapper_checks_the_tables(member, bad):
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 48, 64])
 def test_the_launch_plan_covers_k(k):
     plan = hmm.viterbi_plan(1024, 120, k)
-    assert set(plan) == {"instance", "traces_per_cta", "threads_per_trace",
-                         "recurrence_threads", "chunk", "smem_bytes",
-                         "levels", "blocks", "scratch_bytes"}
-    assert plan["instance"] == 0 and plan["blocks"] == "shared"
+    assert set(plan) == {"kernel", "instance", "traces_per_cta",
+                         "threads_per_trace", "recurrence_threads", "chunk",
+                         "pairs", "smem_bytes", "levels", "scratch_bytes"}
+    assert plan["instance"] == 0 and plan["pairs"] == 0
+    assert plan["kernel"] == "viterbi_decode_kernel"
     tpt, tpc = plan["threads_per_trace"], plan["traces_per_cta"]
     rt = plan["recurrence_threads"]
     cols = 1 << (k - 1).bit_length()     # the kernel's columns
@@ -290,31 +291,37 @@ def test_the_launch_plan_takes_any_length(t):
 
 
 def _wide_plan_holds(b, t, k):
-    """The wide instances' plan at (B, T, K): instance 1 to K = 254, 2
-    from 255; one trace a CTA of VITERBI_WIDE_THREADS, all in the
-    recurrence; the blocks in shared memory exactly where the CTA then
-    fits the card, the levels where it fits the budget; the scratch the
-    global levels' B * T * (word + K * backpointer) bytes, then, 16
-    aligned, the global blocks' B * chunk * K * K * 4."""
+    """The wide kernel's plan at (B, T, K): instance 1 to K = 254, 2 from
+    255; one trace a CTA of VITERBI_WIDE_THREADS, all in the recurrence;
+    a chunk of as many steps as keep its candidate rows near
+    VITERBI_WIDE_ROWS bytes (at least one, at most 32 and T); a pass of
+    VITERBI_WIDE_PAIRS pairs, fewer only where the CTA would pass the
+    card's shared memory; the levels in shared memory exactly where the
+    CTA then fits the budget; the scratch the global levels' B * T *
+    (word + K * backpointer) bytes."""
     plan = hmm.viterbi_plan(b, t, k)
     assert plan["instance"] == (1 if k <= 254 else 2)
+    assert plan["kernel"] == "viterbi_decode_wide_kernel"
     assert (plan["traces_per_cta"], plan["threads_per_trace"],
             plan["recurrence_threads"]) == (1, hmm.VITERBI_WIDE_THREADS,
                                             hmm.VITERBI_WIDE_THREADS)
-    chunk = plan["chunk"]
-    assert chunk == 1
-    blocks = hmm.viterbi_smem_bytes(t, k, chunk, False, True) \
-        <= hmm.VITERBI_SMEM_MAX
-    assert plan["blocks"] == ("shared" if blocks else "global")
-    here = hmm.viterbi_smem_bytes(t, k, chunk, True, blocks) \
-        <= hmm.VITERBI_SMEM_BUDGET
+    chunk, pairs = plan["chunk"], plan["pairs"]
+    assert chunk == max(1, min(32, t, hmm.VITERBI_WIDE_ROWS // (23 * k) - 1))
+    here = hmm.viterbi_wide_smem_bytes(t, k, chunk, hmm.VITERBI_WIDE_PAIRS,
+                                       True) <= hmm.VITERBI_SMEM_BUDGET
     assert plan["levels"] == ("shared" if here else "global")
-    assert plan["smem_bytes"] == hmm.viterbi_smem_bytes(
-        t, k, chunk, here, blocks) <= hmm.VITERBI_SMEM_MAX
+    full = hmm.viterbi_wide_smem_bytes(t, k, chunk, hmm.VITERBI_WIDE_PAIRS,
+                                       here)
+    assert hmm.VITERBI_WIDE_MIN_PAIRS <= pairs <= hmm.VITERBI_WIDE_PAIRS
+    assert (pairs == hmm.VITERBI_WIDE_PAIRS) == (
+        full <= hmm.VITERBI_SMEM_MAX)
+    assert plan["smem_bytes"] == hmm.viterbi_wide_smem_bytes(
+        t, k, chunk, pairs, here) <= hmm.VITERBI_SMEM_MAX
+    if pairs < hmm.VITERBI_WIDE_PAIRS:     # the most that fit
+        assert hmm.viterbi_wide_smem_bytes(
+            t, k, chunk, pairs + 4, here) > hmm.VITERBI_SMEM_MAX
     word, bp = 4, (1 if k <= 254 else 2)
-    levels = 0 if here else b * t * (word + bp * k)
-    assert plan["scratch_bytes"] == (
-        levels if blocks else -(-levels // 16) * 16 + b * chunk * k * k * 4)
+    assert plan["scratch_bytes"] == (0 if here else b * t * (word + bp * k))
     return plan
 
 
@@ -337,13 +344,127 @@ def test_the_launch_plan_refuses_a_width_outside_the_kernel(k):
                                1000])
 def test_the_wide_launch_plan_at_every_bucket(k):
     """Past K = 64 at every point bucket and B = 1, 3, 1024: the wide
-    plan (``_wide_plan_holds``); the blocks in shared memory up to K =
-    233, global from 234 at every T; the batch moves nothing but the
-    scratch."""
+    plan (``_wide_plan_holds``); a whole pass budget to K = 1000; the
+    batch moves nothing but the scratch."""
     for t in _BUCKETS:
         one = _wide_plan_holds(1, t, k)
         for b in (3, 1024):
             plan = _wide_plan_holds(b, t, k)
             assert {**plan, "scratch_bytes": 0} == \
                 {**one, "scratch_bytes": 0}
-        assert plan["blocks"] == ("shared" if k <= 233 else "global")
+        assert plan["pairs"] == hmm.VITERBI_WIDE_PAIRS
+
+
+@pytest.mark.parametrize("k,kernel,instance", [
+    (64, "viterbi_decode_kernel", 0),
+    (65, "viterbi_decode_wide_kernel", 1),
+    (254, "viterbi_decode_wide_kernel", 1),
+    (255, "viterbi_decode_wide_kernel", 2),
+    (PAST_SMEM_K - 1, "viterbi_decode_wide_kernel", 2),
+    (PAST_SMEM_K, None, None)])
+def test_the_kernel_and_instance_at_each_boundary(k, kernel, instance):
+    """Instance 0's kernel to K = 64; the wide kernel's u8 instance from
+    65 to 254, its u16 one from 255 to the last K whose candidate rows
+    leave a pass of VITERBI_WIDE_MIN_PAIRS beside them (3,984, where the
+    pass is cut to what fits); past it the plan refuses, as before."""
+    for t in (1, 128, 1024):
+        if kernel is None:
+            with pytest.raises(ValueError, match=f"K={k} .*shared memory"):
+                hmm.viterbi_plan(3, t, k)
+            continue
+        plan = hmm.viterbi_plan(3, t, k)
+        assert (plan["kernel"], plan["instance"]) == (kernel, instance)
+        assert hmm.viterbi_instance(k) == instance
+        if k == PAST_SMEM_K - 1:
+            assert plan["chunk"] == 1 and plan["levels"] == "global"
+            assert hmm.VITERBI_WIDE_MIN_PAIRS <= plan["pairs"] \
+                < hmm.VITERBI_WIDE_PAIRS
+            assert plan["smem_bytes"] <= hmm.VITERBI_SMEM_MAX
+
+
+@pytest.mark.parametrize("k,chunk", [(65, 15), (96, 10), (128, 7),
+                                     (254, 3), (255, 3), (512, 1),
+                                     (1000, 1)])
+def test_the_wide_chunk_and_pass_budget(k, chunk):
+    """The wide chunk by its rows' bytes (23 a slot, about
+    VITERBI_WIDE_ROWS a chunk), never past T; a pass of 4,096 pairs;
+    shared levels at the served T = 128 to K = 96, global past it (the
+    CTA then stays in about a quarter of an SM's shared memory)."""
+    plan = hmm.viterbi_plan(1024, 128, k)
+    assert (plan["chunk"], plan["pairs"]) == (chunk, 4096)
+    assert hmm.viterbi_plan(1, 3, k)["chunk"] == min(chunk, 3)
+    assert plan["levels"] == ("shared" if k <= 96 else "global")
+    if k <= 128:
+        assert plan["smem_bytes"] <= hmm.VITERBI_SMEM_BUDGET
+
+
+def wide_recurrence(score, trans, prev_looked, next_looked, budget, off=0,
+                    threads=128):
+    """The wide kernel's recurrence for one step, as it walks its passes:
+    the step's looked-up pairs (ii, jj) in that order from pair `off` of
+    the chunk, looked up `budget` at a time; each pass gives every
+    looked-up column jj its pairs there, G lanes a column (as many as
+    `threads` cover, up to 32) each over ii = sub, sub + G, ... ascending,
+    the (value, slot) pairs reduced lexicographically and kept over the
+    passes. → {column slot j: (best, first argmin slot)}."""
+    plist = np.flatnonzero(prev_looked)
+    clist = np.flatnonzero(next_looked)
+    npr, nc = len(plist), len(clist)
+    pend = off + npr * nc
+    G = 1
+    while G < 32 and nc * G * 2 <= threads:
+        G *= 2
+    out = {}
+    f_lo = (off // budget) * budget
+    while f_lo < pend:
+        f_hi = f_lo + budget
+        lo_f, hi_f = max(off, f_lo) - off, min(pend, f_hi) - off
+        first = off >= f_lo
+        for jj in range(nc):
+            ii_lo = -(-(lo_f - jj) // nc) if lo_f > jj else 0
+            ii_hi = -(-(hi_f - jj) // nc) if hi_f > jj else 0
+            lanes = []
+            for sub in range(G):
+                best, arg = np.float32(np.inf), len(score)
+                for ii in range(ii_lo + sub, ii_hi, G):
+                    i = plist[ii]
+                    via = np.float32(score[i] + trans[i, clist[jj]])
+                    if via < best:
+                        best, arg = via, i
+                lanes.append((best, arg))
+            got = min(lanes)
+            j = clist[jj]
+            out[j] = got if first else min(got, out[j])
+        f_lo = f_hi
+    return out
+
+
+@pytest.mark.parametrize("budget", [1, 5, 37, 4096])
+@pytest.mark.parametrize("seed", range(4))
+def test_the_wide_recurrence_equals_the_full_argmin(seed, budget):
+    """The wide kernel's recurrence over looked-up pairs alone, in passes
+    of `budget` pairs (a step straddling passes from any offset in the
+    chunk), equals the plain version's step over all K: where the column
+    connects (its best below BIG), the same best and first argmin; else
+    not connected either way (a slot not looked up adds BIG to a score >=
+    0). Scores and costs drawn from a few values, so ties abound."""
+    rng = np.random.default_rng(seed)
+    k = 65 + 8 * seed
+    for trial in range(3):
+        prev_looked = rng.random(k) < (0.1, 0.4, 0.7)[trial]
+        next_looked = rng.random(k) < (0.4, 0.1, 0.7)[trial]
+        score = rng.choice(np.float32([0.0, 0.5, 1.0, 2.5, BIG]), k)
+        trans = rng.choice(np.float32([0.25, 0.5, 1.0, BIG]), (k, k))
+        trans[~(prev_looked[:, None] & next_looked[None, :])] = BIG
+        via = torch.from_numpy(score)[:, None] + torch.from_numpy(trans)
+        best, arg = via.min(dim=0)
+        got = wide_recurrence(score, trans, prev_looked, next_looked,
+                              budget, off=int(rng.integers(0, 50)))
+        for j in range(k):
+            connected = bool(best[j] < BIG)
+            if j in got:
+                assert (got[j][0] < BIG) == connected, j
+                if connected:
+                    assert got[j] == (best[j].item(), int(arg[j])), j
+            else:
+                assert not connected, j
